@@ -1,0 +1,92 @@
+"""Predict CLI: the JAX package's ``cli/predict.py`` on the port.
+
+Scores the test split with the BatchNorm-folded tower and tolerant item
+lookup through the overlapped pipeline and writes the Kaggle submission
+pair (prediction_fibinet.csv + submission_fibinet.zip). Weights come from
+``--weights``, an .npz made from a JAX export with tools/jax_bridge.py
+(reading the orbax export itself needs JAX).
+
+    python -m ctr_recommendation_tpu_torch.cli.predict --data-root DIR \\
+        --checkpoint-dir CKPT --weights weights.npz [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="Batch scoring + submission (PyTorch port)")
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--model", default="mm_fibinet")
+    p.add_argument("--checkpoint-dir", default="checkpoints",
+                   help="read for experiment.json, when present")
+    p.add_argument("--out-dir", default="output")
+    p.add_argument("--batch-size", type=int, default=8192)
+    p.add_argument("--embedding-dim", type=int, default=None)
+    p.add_argument("--stream", action="store_true",
+                   help="row-group streaming (not ported yet)")
+    p.add_argument("--weights", default=None,
+                   help=".npz of params/model_state written by tools/jax_bridge.save")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    if args.stream:
+        p.error("--stream is not ported yet; the default pipeline path is")
+    if args.weights is None:
+        p.error("--weights is required: the port cannot read an orbax export "
+                "(convert it with tools/jax_bridge.save)")
+
+    import dataclasses
+    import os
+
+    from ctr_recommendation_tpu_torch.config import microlens_experiment, serialize
+    from ctr_recommendation_tpu_torch.config.schema import MeshConfig
+    from ctr_recommendation_tpu_torch.data import ItemStore
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.inference import Predictor, run_submission_pipeline
+    from ctr_recommendation_tpu_torch.tools import jax_bridge
+
+    exp_json = os.path.join(args.checkpoint_dir, "experiment.json")
+    if os.path.exists(exp_json):
+        # checkpoint is self-describing: rebuild the exact trained model
+        exp = serialize.load(exp_json)
+        root = args.data_root
+        exp = exp.replace(
+            dataset=dataclasses.replace(
+                exp.dataset,
+                data_root=root,
+                test_data=os.path.join(root, "test.parquet"),
+                item_info=os.path.join(root, "item_info.parquet"),
+            ),
+            mesh=MeshConfig(),
+        )
+    else:
+        overrides = {}
+        if args.embedding_dim:
+            overrides["embedding_dim"] = args.embedding_dim
+        exp = microlens_experiment(data_root=args.data_root, model=args.model, **overrides)
+    fm = build_feature_map(exp.dataset)
+
+    store = ItemStore.from_parquet(
+        exp.dataset.item_info,
+        id_col=exp.dataset.item_info_key,
+        emb_col=exp.dataset.item_info_emb_col,
+    )
+    import pyarrow.parquet as pq
+
+    n_rows = pq.ParquetFile(exp.dataset.test_data).metadata.num_rows
+    print(f"[data] test {n_rows} rows")
+
+    params, state = jax_bridge.params_from_jax(*jax_bridge.load(args.weights), fm, exp.model)
+    pred = Predictor(exp, params, state, item_store=store, device=args.device)
+    written, csv_path, zip_path = run_submission_pipeline(
+        exp.dataset.test_data, pred, args.out_dir, batch_size=args.batch_size
+    )
+    if written != n_rows:
+        raise RuntimeError(f"wrote {written} rows, the test split has {n_rows}")
+    print(f"[out] {csv_path}\n[out] {zip_path}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

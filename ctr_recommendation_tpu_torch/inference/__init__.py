@@ -1,0 +1,4 @@
+from ctr_recommendation_tpu_torch.inference.pipeline import run_submission_pipeline
+from ctr_recommendation_tpu_torch.inference.predictor import Predictor
+
+__all__ = ["Predictor", "run_submission_pipeline"]

@@ -1,0 +1,58 @@
+"""MM-FiBiNET: SENet excitation + bilinear field-pair interaction + DNN tower,
+eval-mode forward (the reference's model_fibinet.py:91-199). Logits out; the
+sigmoid lives at the predict boundary.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ctr_recommendation_tpu_torch.config.schema import ModelConfig
+from ctr_recommendation_tpu_torch.features.feature_map import FeatureMap
+from ctr_recommendation_tpu_torch.models import trunk
+from ctr_recommendation_tpu_torch.ops import bilinear as bilinear_ops
+from ctr_recommendation_tpu_torch.ops import mlp as mlp_ops
+from ctr_recommendation_tpu_torch.ops import senet as senet_ops
+from ctr_recommendation_tpu_torch.ops.interaction import senet_bilinear_concat
+
+SEQ_POOLING = "mean"
+
+
+def init(gen: torch.Generator, fm: FeatureMap, cfg: ModelConfig) -> tuple[dict, dict]:
+    """(params, state) on the CPU, drawn from ``gen`` in a fixed order."""
+    f, e = fm.num_fields, cfg.embedding_dim
+    params = {
+        "trunk": trunk.init(gen, fm, cfg, seq_pooling=SEQ_POOLING),
+        "senet": senet_ops.init(gen, f, cfg.senet_reduction, cfg.senet_bias),
+        "bilinear": bilinear_ops.init(gen, e, f, cfg.bilinear_type),
+    }
+    in_dim = (f + fm.num_pairs) * e
+    params["mlp"], mlp_state = mlp_ops.init(
+        gen, in_dim, cfg.hidden_units, out_dim=1, batch_norm=cfg.batch_norm
+    )
+    return params, {"mlp": mlp_state}
+
+
+def apply(
+    params: dict,
+    state: dict,
+    fm: FeatureMap,
+    cfg: ModelConfig,
+    batch: dict[str, torch.Tensor],
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Eval forward: batch -> logits (B,) fp32. The interaction runs on the
+    fused kernel when ``cfg.use_pallas`` is set (the kernel's plain version
+    on CPU tensors); the tower runs in ``tower_dtype``."""
+    x = trunk.apply(
+        params["trunk"], fm, cfg, batch,
+        seq_pooling=SEQ_POOLING, compute_dtype=compute_dtype,
+    )
+    h = senet_bilinear_concat(
+        params["senet"], params["bilinear"], x,
+        bilinear_type=cfg.bilinear_type, use_kernel=cfg.use_pallas,
+    )
+    td = torch.float32 if cfg.tower_dtype == "float32" else compute_dtype
+    logits = mlp_ops.apply(params["mlp"], state["mlp"], h.to(td))
+    return logits[..., 0].float()

@@ -1,0 +1,118 @@
+"""Shared embedding trunk: FeatureMap -> (B, F, E) field stack.
+
+Embedding tables built from the feature map (shared tables, zeroed pad rows,
+rows padded to a multiple of 128 as in the JAX package), dense multimodal
+vectors projected through Linear -> LayerNorm -> ReLU (the reference's
+model_fibinet.py:105-109), placeholder fields as zeros (:152) and sequence
+fields pooled by masked mean (:165-174). Only the mean-pooling branch is
+ported; the attention and DIN branches raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ctr_recommendation_tpu_torch.config.schema import FeatureType, ModelConfig
+from ctr_recommendation_tpu_torch.features.feature_map import FeatureMap
+from ctr_recommendation_tpu_torch.ops import pooling
+from ctr_recommendation_tpu_torch.ops.initializers import (
+    embedding_init,
+    linear_apply,
+    linear_init,
+)
+
+LN_EPS = 1e-5  # torch nn.LayerNorm default
+VOCAB_ROUND = 128
+
+
+def round_up_vocab(vocab_size: int, multiple: int = VOCAB_ROUND) -> int:
+    return ((vocab_size + multiple - 1) // multiple) * multiple
+
+
+def _check_pooling(seq_pooling: str) -> None:
+    if seq_pooling != "mean":
+        raise NotImplementedError(
+            f"seq_pooling={seq_pooling!r} is not ported yet; only 'mean' is"
+        )
+
+
+def init(
+    gen: torch.Generator, fm: FeatureMap, cfg: ModelConfig, *, seq_pooling: str = "mean"
+) -> dict:
+    _check_pooling(seq_pooling)
+    e = cfg.embedding_dim
+    params: dict = {"tables": {}, "dense": {}}
+    for t in fm.tables:
+        # rows padded to a multiple of 128 so the shapes match the JAX
+        # tables (padded rows are never addressed)
+        params["tables"][t.name] = embedding_init(
+            gen, round_up_vocab(t.vocab_size), e, pad_id=t.pad_id,
+            std=cfg.resolved_init_std(),
+        )
+    for f in fm.features_of_type(FeatureType.DENSE_EMBEDDING):
+        params["dense"][f.name] = {
+            "proj": linear_init(gen, f.dense_dim, e),
+            "ln_scale": torch.ones(e),
+            "ln_bias": torch.zeros(e),
+        }
+    return params
+
+
+def _layer_norm(x, scale, bias):
+    mean = x.mean(-1, keepdim=True)
+    var = x.var(-1, unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + LN_EPS) * scale + bias
+
+
+def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` with the JAX package's index semantics: negative ids
+    count from the end, then out-of-range ids are clamped (never a device
+    fault)."""
+    n = table.shape[0]
+    ids = ids.to(torch.int64)
+    ids = torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+    return table[ids]
+
+
+def apply(
+    params: dict,
+    fm: FeatureMap,
+    cfg: ModelConfig,
+    batch: dict[str, torch.Tensor],
+    *,
+    seq_pooling: str = "mean",
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """batch dict -> field stack (B, F, E) in compute_dtype, fields in
+    feature-map order. Mean-pooled sequences are gathered transposed,
+    (S, B, E), and reduced over the leading axis by ``masked_mean_t``."""
+    _check_pooling(seq_pooling)
+    e = cfg.embedding_dim
+    batch_size = next(
+        (batch[f.name].shape[0] for f in fm.features if f.name in batch), None
+    )
+    if batch_size is None:
+        raise ValueError("batch contains none of the feature-map features")
+    device = next(iter(params["tables"].values())).device
+
+    fields = []
+    for f in fm.features:
+        if f.type == FeatureType.PLACEHOLDER:
+            fields.append(torch.zeros(batch_size, e, dtype=compute_dtype, device=device))
+        elif f.type == FeatureType.CATEGORICAL:
+            emb = _gather(params["tables"][fm.table_of[f.name]], batch[f.name])
+            fields.append(emb.to(compute_dtype))
+        elif f.type == FeatureType.DENSE_EMBEDDING:
+            p = params["dense"][f.name]
+            h = linear_apply(p["proj"], batch[f.name].float())
+            h = _layer_norm(h, p["ln_scale"], p["ln_bias"])
+            fields.append(torch.relu(h).to(compute_dtype))
+        elif f.type == FeatureType.SEQUENCE:
+            seq_ids_t = batch[f.name].t()
+            seq_emb = _gather(params["tables"][fm.table_of[f.name]], seq_ids_t)
+            fields.append(
+                pooling.masked_mean_t(seq_emb.to(compute_dtype), seq_ids_t, f.pad_id)
+            )
+        else:
+            raise ValueError(f"unsupported feature type {f.type}")
+    return torch.stack(fields, dim=1)

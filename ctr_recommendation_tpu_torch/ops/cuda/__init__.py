@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels for Hopper (sources in ../../csrc/), one module
+per TPU kernel of the JAX package's ops/pallas/, each with its plain PyTorch
+version and a launch counter."""

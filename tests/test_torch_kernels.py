@@ -1,0 +1,171 @@
+"""The port's two kernel modules against the JAX package's Pallas kernels.
+
+The CUDA kernels themselves cannot run on a machine without a card; their
+plain PyTorch versions carry the same arithmetic and rounding points, and
+chip_smoke.py holds each kernel against its plain version on the card. Here
+each plain version (reached through the wrapper, as a CPU tensor takes it)
+is held against the JAX kernel, which runs in Pallas interpret mode on the
+CPU as tests/test_scoring_kernel.py runs it.
+
+Tolerances: fp32 rtol 1e-4 / atol 1e-5 (summation order only). bf16
+atol 5e-2 on interaction outputs and 2e-2 on probabilities: XLA and PyTorch
+round bf16 products and sums at different places.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ctr_recommendation_tpu.ops import bilinear as jax_bilinear
+from ctr_recommendation_tpu.ops import mlp as jax_mlp
+from ctr_recommendation_tpu.ops import senet as jax_senet
+from ctr_recommendation_tpu.ops.pallas.interaction import fused_senet_bilinear_concat as jax_fused
+from ctr_recommendation_tpu.ops.pallas.scoring import fused_score as jax_fused_score
+from ctr_recommendation_tpu_torch.ops import interaction as pt_interaction
+from ctr_recommendation_tpu_torch.ops import mlp as pt_mlp
+from ctr_recommendation_tpu_torch.ops.cuda import interaction as k_inter
+from ctr_recommendation_tpu_torch.ops.cuda import scoring as k_score
+from ctr_recommendation_tpu_torch.utils.tree import tree_map
+
+torch.set_num_threads(2)
+
+F, E, B = 6, 32, 40
+TOL = {
+    ("interaction", "float32"): dict(rtol=1e-4, atol=1e-5),
+    ("interaction", "bfloat16"): dict(rtol=0, atol=5e-2),
+    ("score", "float32"): dict(rtol=1e-4, atol=1e-5),
+    ("score", "bfloat16"): dict(rtol=0, atol=2e-2),
+}
+
+
+def to_np(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def to_pt(tree):
+    return tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)), tree)
+
+
+def _weights(btype, seed=0):
+    sp = to_np(jax_senet.init(jax.random.key(seed + 1), F, 2))
+    bp = to_np(jax_bilinear.init(jax.random.key(seed + 2), E, F, btype))
+    x = np.random.default_rng(seed).standard_normal((B, F, E)).astype(np.float32)
+    return sp, bp, x
+
+
+def _folded_tower(sp, bp, x, btype):
+    """A (32, 16) tower with BatchNorm stats moved off init, then folded."""
+    cdim = (F + F * (F - 1) // 2) * E
+    params, state = jax_mlp.init(jax.random.key(3), cdim, [32, 16], batch_norm=True)
+    h = pt_interaction.senet_bilinear_concat_reference(
+        to_pt(sp), to_pt(bp), torch.from_numpy(x), bilinear_type=btype).numpy()
+    _, state = jax_mlp.apply(params, state, jnp.asarray(h), train=True)
+    return to_np(jax_mlp.fold_batch_norm(params, state))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("btype", ["all", "each"])
+def test_interaction_plain_matches_pallas(btype, dtype):
+    sp, bp, x = _weights(btype)
+    want = np.asarray(jax_fused(sp, bp, jnp.asarray(x, dtype), bilinear_type=btype))
+    before = k_inter.interaction_fwd.launches
+    got = k_inter.fused_senet_bilinear_concat(
+        to_pt(sp), to_pt(bp), torch.from_numpy(x).to(getattr(torch, dtype)),
+        bilinear_type=btype)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert k_inter.interaction_fwd.launches == before  # CPU tensors: no launch
+    np.testing.assert_allclose(got.numpy(), want, **TOL[("interaction", dtype)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("btype", ["all", "each"])
+def test_score_plain_matches_pallas(btype, dtype):
+    sp, bp, x = _weights(btype, seed=4)
+    folded = _folded_tower(sp, bp, x, btype)
+    want = np.asarray(jax_fused_score(
+        sp, bp, folded, jnp.asarray(x), bilinear_type=btype, block_b=16,
+        compute_dtype=jnp.dtype(dtype)))
+    before = k_score.score_fwd.launches
+    got = k_score.fused_score(
+        to_pt(sp), to_pt(bp), to_pt(folded), torch.from_numpy(x),
+        bilinear_type=btype, compute_dtype=getattr(torch, dtype))
+    assert got.dtype == torch.float32 and got.shape == (B,)
+    assert k_score.score_fwd.launches == before
+    np.testing.assert_allclose(got.numpy(), want, **TOL[("score", dtype)])
+
+
+@pytest.mark.parametrize("btype", ["all", "each"])
+def test_score_plain_is_the_folded_eval_forward(btype):
+    """fp32: interaction reference -> eval BatchNorm tower -> sigmoid."""
+    sp, bp, x = _weights(btype, seed=5)
+    cdim = (F + F * (F - 1) // 2) * E
+    params, state = jax_mlp.init(jax.random.key(6), cdim, [32, 16], batch_norm=True)
+    params, state = to_pt(to_np(params)), to_pt(to_np(state))
+    for st in state["layers"]:
+        st["bn_mean"] += 0.1
+        st["bn_var"] *= 1.5
+    h = pt_interaction.senet_bilinear_concat_reference(
+        to_pt(sp), to_pt(bp), torch.from_numpy(x), bilinear_type=btype)
+    want = torch.sigmoid(pt_mlp.apply(params, state, h)[:, 0])
+    got = k_score.fused_score(
+        to_pt(sp), to_pt(bp), pt_mlp.fold_batch_norm(params, state), torch.from_numpy(x),
+        bilinear_type=btype)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_ragged_batch_rows_are_independent():
+    """A batch that is no multiple of any tile scores each row as alone."""
+    sp, bp, x = _weights("all", seed=7)
+    folded = to_pt(_folded_tower(sp, bp, x, "all"))
+    full = k_score.fused_score(to_pt(sp), to_pt(bp), folded, torch.from_numpy(x))
+    part = k_score.fused_score(to_pt(sp), to_pt(bp), folded, torch.from_numpy(x[:13]))
+    np.testing.assert_allclose(part.numpy(), full[:13].numpy(), rtol=1e-6, atol=1e-7)
+
+
+def test_score_rejects_towers_that_are_not_two_layers():
+    sp, bp, x = _weights("all")
+    cdim = (F + F * (F - 1) // 2) * E
+    params, state = pt_mlp.init(torch.Generator().manual_seed(0), cdim, [32, 16, 8])
+    with pytest.raises(ValueError, match="2-hidden-layer"):
+        k_score.fused_score(
+            to_pt(sp), to_pt(bp), pt_mlp.fold_batch_norm(params, state), torch.from_numpy(x))
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros(2, F, E, device="meta")
+    w = torch.zeros(1, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        k_inter.interaction_fwd(x, w, w, w, w, w)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        k_score.score_fwd(x, *([w] * 11))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("btype", ["all", "each"])
+def test_kernels_match_plain_on_the_card(btype):
+    """On a card: both kernels against their plain versions (bf16, the
+    serving dtype), at E=128 and the (512, 256) tower the kernel is built
+    for. chip_smoke.py runs the same check at full batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ctr_recommendation_tpu_torch.ops import bilinear, senet
+
+    gen = torch.Generator().manual_seed(0)
+    e, b, cd = 128, 70, torch.bfloat16
+    sw = [t.cuda() for t in k_inter.senet_weights(senet.init(gen, F, 2), F)]
+    bp = bilinear.init(gen, e, F, btype)
+    w_bi = (bp["w"] if btype == "all" else bp["w_each"]).to("cuda", cd)
+    x = torch.randn(b, F, e, generator=gen).to("cuda", cd)
+    got = k_inter.interaction_fwd(x, *sw, w_bi, bilinear_type=btype)
+    want = k_inter.interaction_fwd_plain(x, *sw, w_bi, bilinear_type=btype)
+    torch.testing.assert_close(got, want, rtol=2.0**-6, atol=1e-3)
+    cdim = (F + F * (F - 1) // 2) * e
+    params, _ = pt_mlp.init(gen, cdim, [512, 256], batch_norm=False)
+    tower = []
+    for lin in (params["layers"][0]["linear"], params["layers"][1]["linear"], params["out"]):
+        tower += [lin["w"].to("cuda", cd), lin["b"].cuda()]
+    got = k_score.score_fwd(x, *sw, w_bi, *tower, bilinear_type=btype)
+    want = k_score.score_fwd_plain(x, *sw, w_bi, *tower, bilinear_type=btype)
+    torch.testing.assert_close(got, want, rtol=0, atol=5e-3)
