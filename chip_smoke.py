@@ -5,11 +5,15 @@
 
 Phases, in order; any failure exits non-zero and prints no result line.
 
-1. Print the card's name and power limit (nvidia-smi), build both kernels
-   from csrc/ with nvcc for sm_90a, one nvcc per source in parallel.
+1. Print the card's name and power limit (nvidia-smi), build the three
+   kernels from csrc/ with nvcc for sm_90a, one nvcc per source in parallel.
 2. With TF32 off, hold each kernel against its plain PyTorch version at full
-   width (B=8192 and a ragged 8192+37, F=6, E=128, tower 2688->512->256->1,
-   "all" and "each", bf16 and fp32).
+   width: the interaction forward and the fused scoring kernel at the
+   training batch 4096, the serving batch 8192 and each plus a ragged 37
+   (F=6, E=128, tower 2688->512->256->1); the interaction backward at
+   B=4096 and 4096+37, with SENet biases on and off, its repeat launch
+   bit-identical, and in bf16 the same bar rejecting a control taken at the
+   forward's rounding points. "all" and "each", bf16 and fp32.
 3. Time each kernel and its plain version with CUDA events (median of 30
    after warm-up) beside the bound the card sets for the same work.
 4. The serving main path at the full microlens_experiment() defaults
@@ -21,7 +25,19 @@ Phases, in order; any failure exits non-zero and prints no result line.
    Predictor on the CPU, and the scoring kernel's launch count on each path.
 5. The unfused branch (fold_bn=False) for a few batches: the interaction
    kernel runs and agrees with the fused branch.
-6. One JSON line describing both kernels, then the result line.
+6. The training main path at the same full defaults (batch 4096, Adam + L2,
+   OneCycle, clip 10, dropout 0.2, bf16 with fp32 master weights) on the
+   port's high-signal synthetic data (91,717 items; 262,144 train and
+   32,768 valid rows): one step's gradients through the kernels against the
+   plain path in fp32, then Trainer.fit_on_device for 2 epochs (128 steps):
+   loss finite and falling, best valid AUC > 0.6, exact launch counts of
+   both interaction kernels, a resume point and the best export written;
+   examples/s per epoch and one step split into forward+loss, backward and
+   optimizer with CUDA events, then torch.profiler over three more steps
+   (device-busy share, kernels a step, the largest device items).
+7. Serve the trained export: Predictor (fused scoring kernel) scores the
+   valid split; its AUC equals the trainer's best within 2e-3.
+8. One JSON line describing the three kernels, then the result line.
 """
 
 from __future__ import annotations
@@ -37,6 +53,9 @@ import numpy as np
 
 B_FULL = 8192
 B_RAGGED = 8192 + 37
+B_TRAIN = 4096
+N_TRAIN, N_VALID = 64 * B_TRAIN, 32_768
+TRAIN_EPOCHS = 2
 F, E = 6, 128
 HIDDEN = (512, 256)
 N_ROWS = 47 * 8192  # the reference test split's size
@@ -53,22 +72,46 @@ TOL = {
     ("fused_score", "float32"): (2e-5, 0.0),
     ("fused_score", "bfloat16"): (5e-3, 0.0),
 }
+# interaction backward vs its plain version: (atol as a share of the
+# output's largest magnitude, rtol), per output (dx and each weight
+# gradient). fp32 differs by summation order (the weight gradients are sums
+# over 4096 rows); in bf16, dv and dx are rounded after fp32 sums taken in
+# another order, so a rounding can land one bf16 ulp (2^-8 relative) apart,
+# and dW_bi sums 4096 products of such roundings.
+BWD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0**-7, 2.0**-7)}
+# bf16 also: |kernel - plain| / |plain| (norms) per output. Another
+# summation order moves only the few roundings that land one ulp apart
+# (under 3.1e-5 on an H100); s or v rounded where the forward rounds them
+# moves every element, by 4e-3 to 9e-3 of the norm on the same card, yet
+# stays inside the elementwise bar above. The forward-rounding control must
+# fail this bar in every bf16 case.
+BWD_NORM_TOL = 2.0**-12
 CPU_TOL = 2e-2  # card vs CPU run of the same bf16 Predictor (probabilities)
+# one train step's gradients, kernel path vs plain path, fp32 with TF32 off:
+# |d| <= GRAD_TOL * the leaf's largest magnitude + GRAD_FLOOR * the largest
+# magnitude of any gradient. Sums run in another order through a 4096-row
+# BatchNorm and two dense layers; a missing term or a wrong rounding point
+# moves a gradient by far more. The floor covers the Linear biases that feed
+# a BatchNorm: their true gradient is 0 (the batch mean cancels them), so
+# both paths report rounding noise there.
+GRAD_TOL, GRAD_FLOOR = 1e-3, 1e-6
+AUC_SERVE_TOL = 2e-3  # served export vs the trainer's eval, same rows
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def kernel_inputs(torch, btype: str, dtype, b: int, seed: int):
-    """Full-width operands for both kernels, drawn with the port's own
-    initializers from a seeded generator; x from numpy."""
+def kernel_inputs(torch, btype: str, dtype, b: int, seed: int, use_bias: bool = True):
+    """Full-width operands for the kernels, drawn with the port's own
+    initializers from a seeded generator (SENet with or without biases);
+    x from numpy."""
     from ctr_recommendation_tpu_torch.ops import bilinear, mlp, senet
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import senet_weights
 
     gen = torch.Generator().manual_seed(seed)
     x = np.random.default_rng(seed).standard_normal((b, F, E)).astype(np.float32)
-    sp = senet.init(gen, F, 2)
+    sp = senet.init(gen, F, 2, use_bias=use_bias)
     bp = bilinear.init(gen, E, F, btype)
     cdim = (F + F * (F - 1) // 2) * E
     mp, _ = mlp.init(gen, cdim, HIDDEN, batch_norm=False)
@@ -160,6 +203,128 @@ def where_the_time_goes(torch, pred, rows, bulk, card) -> None:
         f"CSV format {t_fmt:.4f}")
 
 
+BWD_OUTPUTS = ("dx", "dW1", "db1", "dW2", "db2", "dW_bi")
+
+
+def backward_inputs(torch, btype: str, dtype, b: int, seed: int, use_bias: bool):
+    """The interaction backward's operands: a seeded numpy cotangent g and
+    the forward's (x, SENet weights, bilinear weight)."""
+    x, sw, w_bi, _ = kernel_inputs(torch, btype, dtype, b, seed, use_bias)
+    g = np.random.default_rng(seed + 1).standard_normal((b, (F + F * (F - 1) // 2) * E))
+    return torch.from_numpy(g.astype(np.float32)).cuda(), x, sw, w_bi
+
+
+def check_backward(torch, got, want, dtype_name):
+    """(max abs err, largest |d|/|want| in norm, names of the outputs out of
+    BWD_TOL, or in bf16 out of BWD_NORM_TOL) over dx and the five weight
+    gradients."""
+    share, rtol = BWD_TOL[dtype_name]
+    worst, worst_norm, bad = 0.0, 0.0, []
+    for name, a, w in zip(BWD_OUTPUTS, got, want):
+        a, w = a.double(), w.double()
+        err = (a - w).abs()
+        limit = share * w.abs().max().item() + rtol * w.abs()
+        rel_norm = (err.norm() / w.norm()).item()
+        if (not bool(torch.isfinite(a).all()) or bool((err > limit).any())
+                or (dtype_name == "bfloat16" and rel_norm > BWD_NORM_TOL)):
+            bad.append(name)
+        worst = max(worst, err.max().item())
+        worst_norm = max(worst_norm, rel_norm)
+    return worst, worst_norm, bad
+
+
+def gradient_check(torch, exp, train, store, root) -> None:
+    """One step's gradients (fp32, TF32 off) through the kernels against the
+    plain path: same seeded weights, batch and dropout seed."""
+    import dataclasses
+
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    batch = {k: torch.as_tensor(v[:B_TRAIN]).cuda() for k, v in train.columns.items()}
+    out = {}
+    for use_kernel in (True, False):
+        e = exp.replace(
+            model=dataclasses.replace(exp.model, use_pallas=use_kernel),
+            train=dataclasses.replace(exp.train, compute_dtype="float32",
+                                      checkpoint_dir=os.path.join(root, f"grad{int(use_kernel)}")),
+        )
+        tr = Trainer(e, steps_per_epoch=N_TRAIN // B_TRAIN, item_store=store,
+                     log_fn=lambda s: None)
+        interaction_fwd.launches = interaction_bwd.launches = 0
+        with torch.enable_grad():
+            loss, _ = tr.forward_loss(batch)
+            out[use_kernel] = (loss.item(), tr.gradients(loss), list(flatten(tr.state.params)))
+        torch.cuda.synchronize()
+        launched = (interaction_fwd.launches, interaction_bwd.launches)
+        if launched != ((1, 2) if use_kernel else (0, 0)):
+            raise SystemExit(f"gradient check, use_pallas={use_kernel}: launches {launched}")
+    (l_k, g_k, names), (l_p, g_p, _) = out[True], out[False]
+    largest = max(b.abs().max().item() for b in g_p)
+    floor = GRAD_FLOOR * largest
+    worst_rel, vanishing, no_floor, bad = 0.0, [], [], []
+    for name, a, b in zip(names, g_k, g_p):
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        if scale > 1e-3 * largest:
+            worst_rel = max(worst_rel, err / scale)
+        else:
+            vanishing.append(f"{name}: max|d| {err:.3e}, max|g| {scale:.3e}")
+        if err > GRAD_TOL * scale:
+            no_floor.append(name)
+        if not bool(torch.isfinite(a).all()) or err > GRAD_TOL * scale + floor:
+            bad.append(f"{name}: max|d| {err:.2e}, max|g| {scale:.2e}")
+    log(f"[train] gradient check, fp32: loss kernel {l_k:.7f} vs plain {l_p:.7f}; "
+        f"{len(names)} gradients through 1 interaction_fwd + 2 interaction_bwd launches; "
+        f"worst |d|/max|g| {worst_rel:.3e} over the gradients above 1e-3 of the largest "
+        f"({largest:.3e}); tolerance {GRAD_TOL:g} of the leaf + {GRAD_FLOOR:g} of the "
+        f"largest ({floor:.3e}); below 1e-3 of the largest: {vanishing}; out of "
+        f"{GRAD_TOL:g} of the leaf without the floor: {no_floor}")
+    if bad or abs(l_k - l_p) > 1e-5:
+        raise SystemExit(f"kernel and plain gradients disagree: {bad}")
+
+
+def step_split(torch, trainer, train, card, reps: int = 10, profiled: int = 3) -> None:
+    """Median ms of one train step's forward+loss, backward and optimizer
+    (CUDA events), after three warm-up steps; then ``torch.profiler`` over
+    ``profiled`` more steps: device-busy ms and kernels a step, the busy
+    share of the timed step, and the largest device items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {k: torch.as_tensor(v[:B_TRAIN]).cuda() for k, v in train.columns.items()}
+    parts = {"forward+loss": [], "backward": [], "optimizer": []}
+    for i in range(3 + reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        with torch.enable_grad():
+            loss, new_state = trainer.forward_loss(batch)
+            ev[1].record()
+            grads = trainer.gradients(loss)
+        ev[2].record()
+        trainer.apply_gradients(grads, new_state)
+        ev[3].record()
+        ev[3].synchronize()
+        if i >= 3:
+            for k, (a, z) in zip(parts, zip(ev[:-1], ev[1:])):
+                parts[k].append(a.elapsed_time(z))
+    split = {k: float(np.median(v)) for k, v in parts.items()}
+    step_ms = sum(split.values())
+    log(f"[train] one step at B={B_TRAIN}, ms (median of {reps}): {split}, "
+        f"sum {step_ms:.4f} on {card}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / profiled / 1e3
+    launched = sum(e.count for e in on_card) / profiled
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"[train] torch.profiler over {profiled} steps: device busy {busy:.4f} ms a step "
+        f"({busy / step_ms:.3f} of the {step_ms:.4f} ms timed step), {launched:.0f} kernels "
+        f"a step on {card}; largest, ms a step: "
+        + str([(e.key[:70], round(e.self_device_time_total / profiled / 1e3, 4)) for e in top]))
+
+
 def main() -> int:
     import torch
 
@@ -168,6 +333,8 @@ def main() -> int:
         return 1
     from ctr_recommendation_tpu_torch.ops.cuda import build
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        interaction_bwd,
+        interaction_bwd_plain,
         interaction_fwd,
         interaction_fwd_plain,
     )
@@ -196,7 +363,7 @@ def main() -> int:
     for btype in ("all", "each"):
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
-            for b in (B_FULL, B_RAGGED):
+            for b in (B_TRAIN, B_TRAIN + 37, B_FULL, B_RAGGED):
                 x, sw, w_bi, tower = kernel_inputs(torch, btype, dtype, b, seed=b)
                 cases = {
                     "interaction_fwd": (
@@ -217,6 +384,38 @@ def main() -> int:
                         f"({tol}) {'ok' if ok else f'FAIL ({bad} elements)'}")
                     if not ok:
                         failures.append((name, btype, dn, b))
+    # the backward at the training batch, SENet biases on and off
+    worst["interaction_bwd"] = 0.0
+    for btype in ("all", "each"):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            for b in (B_TRAIN, B_TRAIN + 37):
+                for use_bias in (True, False):
+                    g, x, sw, w_bi = backward_inputs(torch, btype, dtype, b, b + use_bias, use_bias)
+                    got = interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)
+                    again = interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)
+                    want = interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, c) for a, c in zip(got, again))
+                    err, rel_norm, bad = check_backward(torch, got, want, dn)
+                    worst["interaction_bwd"] = max(worst["interaction_bwd"], err)
+                    ok = same and not bad
+                    control = ""
+                    if dtype == torch.bfloat16:
+                        # the same bar must reject the forward's rounding points
+                        wrong = interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype,
+                                                      forward_rounding=True)
+                        _, c_norm, c_bad = check_backward(torch, got, wrong, dn)
+                        ok = ok and bool(c_bad)
+                        control = (f"; forward-rounding control |d|/|want| {c_norm:.3e}, "
+                                   f"{'rejected' if c_bad else 'NOT REJECTED'} on {c_bad}")
+                    log(f"[compare] interaction_bwd {btype} {dn} B={b} bias={use_bias}: "
+                        f"max_abs_err={err:.3e} (|d| <= {BWD_TOL[dn][0]:g}*max|want| + "
+                        f"{BWD_TOL[dn][1]:g}*|want|), |d|/|want| {rel_norm:.3e} (bf16 bar "
+                        f"{BWD_NORM_TOL:.3e}), repeat bit-identical {same}{control} "
+                        f"{'ok' if ok else f'FAIL {bad}'}")
+                    if not ok:
+                        failures.append(("interaction_bwd", btype, dn, b, use_bias))
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
 
@@ -254,6 +453,26 @@ def main() -> int:
             }
             log(f"[time] {name} bf16 {btype} B={B_FULL}: {t} "
                 f"(bytes {nbytes}, ops {ops}) on {card}")
+    for btype in ("all", "each"):  # the backward at the training batch
+        g, x, sw, w_bi = backward_inputs(torch, btype, torch.bfloat16, B_TRAIN, 2, True)
+        nq = 1 if btype == "all" else F - 1
+        # g read, x read, dx written, weights read and their gradients written
+        bwd_bytes = (4 * g.numel() + 2 * 2 * x.numel()
+                     + 4 * sum(t.numel() for t in sw) + 2 * w_bi.numel()
+                     + 4 * (nq * E * E + sum(t.numel() for t in sw)))
+        bwd_ops = 6 * B_TRAIN * (F - 1) * E * E  # v, dv W^T and s^T dv for F-1 fields
+        t_bytes = bwd_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = bwd_ops / PEAK_FLOPS["bfloat16"] * 1e3
+        timing[("interaction_bwd", btype)] = t = {
+            "ms": time_ms(torch, lambda: interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)),
+            "plain_ms": time_ms(
+                torch, lambda: interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        log(f"[time] interaction_bwd bf16 {btype} B={B_TRAIN}: {t} "
+            f"(bytes {bwd_bytes}, ops {bwd_ops}) on {card}")
+    del g
     c = torch.randn(B_FULL, cdim, device="cuda", dtype=torch.bfloat16)
     mm_ms = time_ms(torch, lambda: torch.matmul(c, tower[0]))
     log(f"[time] yardstick, not the same function: one bf16 torch.matmul "
@@ -369,13 +588,82 @@ def main() -> int:
     if unfused_err > CPU_TOL:
         raise SystemExit("unfused and fused branches disagree")
 
-    # ---- phase 6: result ----
+    # ---- phase 6: the training main path ----
+    from ctr_recommendation_tpu_torch.data import synthetic_splits
+    from ctr_recommendation_tpu_torch.tools import jax_bridge
+    from ctr_recommendation_tpu_torch.training import Trainer
+    from ctr_recommendation_tpu_torch.training.metrics import auc
+
+    t0 = time.perf_counter()
+    train, valid, train_store = synthetic_splits(N_TRAIN, N_VALID, seed=0)
+    log(f"[train] synthetic data: {N_TRAIN} train + {N_VALID} valid rows, 91,717 items, "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as root:
+        train_exp = microlens_experiment(
+            data_root="", epochs=TRAIN_EPOCHS, checkpoint_dir=os.path.join(root, "ckpt"))
+        gradient_check(torch, train_exp, train, train_store, root)
+        steps = TRAIN_EPOCHS * (N_TRAIN // B_TRAIN)
+        eval_batches = TRAIN_EPOCHS * -(-N_VALID // train_exp.train.eval_batch_size)
+        trainer = Trainer(train_exp, steps_per_epoch=N_TRAIN // B_TRAIN, item_store=train_store,
+                          log_fn=log)
+        torch.cuda.synchronize()
+        interaction_fwd.launches = interaction_bwd.launches = score_fwd.launches = 0
+        t0 = time.perf_counter()
+        hist = trainer.fit_on_device(train, valid)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        train_fwd, train_bwd = interaction_fwd.launches, interaction_bwd.launches
+        for h in hist:
+            log(f"[train] epoch {int(h['epoch'])}: loss {h['train_loss']:.5f}, valid auc "
+                f"{h['auc']:.5f}, {h['examples_per_sec']:.0f} examples/s "
+                f"({h['seconds']:.3f} s train, {h['eval_seconds']:.3f} s eval) on {card}")
+        best_auc = max(h["auc"] for h in hist)
+        log(f"[train] fit_on_device: {steps} steps + {eval_batches} eval batches in "
+            f"{t_fit:.3f} s; best valid auc {best_auc:.5f}; interaction_fwd launches "
+            f"{train_fwd}, interaction_bwd launches {train_bwd}, fused_score launches "
+            f"{score_fwd.launches}")
+        losses = [h["train_loss"] for h in hist]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise SystemExit(f"training loss not finite and falling: {losses}")
+        if not best_auc > 0.6:
+            raise SystemExit(f"best valid AUC {best_auc} is not above 0.6")
+        if train_fwd != steps + eval_batches or train_bwd != 2 * steps or score_fwd.launches:
+            raise SystemExit(
+                f"launches: interaction_fwd {train_fwd} (expected {steps + eval_batches}), "
+                f"interaction_bwd {train_bwd} (expected {2 * steps}: kernel + reduction a step)")
+        export = trainer.ckpt.best_export_path
+        if trainer.ckpt.latest_step() != TRAIN_EPOCHS or not os.path.exists(export):
+            raise SystemExit("fit_on_device wrote no resume point or no best export")
+        step_split(torch, trainer, train, card)
+
+        # ---- phase 7: serve the trained export ----
+        served_params, served_state = jax_bridge.params_from_jax(
+            *jax_bridge.load(export), trainer.fm, train_exp.model)
+        server = Predictor(train_exp, served_params, served_state, item_store=train_store)
+        score_fwd.launches = 0
+        probs = server.score_table(valid)
+        serve_launches = score_fwd.launches
+        served_auc = auc(torch.from_numpy(valid.columns["label"]), torch.from_numpy(probs)).item()
+        log(f"[serve] best export through Predictor: valid auc {served_auc:.5f} vs the "
+            f"trainer's {best_auc:.5f} (tolerance {AUC_SERVE_TOL}); fused_score launches "
+            f"{serve_launches}")
+        if not server.use_fused or serve_launches != -(-N_VALID // B_FULL):
+            raise SystemExit("serving the export did not run the scoring kernel once a batch")
+        if abs(served_auc - best_auc) > AUC_SERVE_TOL:
+            raise SystemExit("the served export disagrees with the trainer's eval")
+
+    # ---- phase 8: result ----
     kernels = [
         {"name": "interaction_fwd", "route": "cuda",
          "source": "ctr_recommendation_tpu_torch/csrc/interaction.cu",
          "replaces": "ctr_recommendation_tpu/ops/pallas/interaction.py:56",
-         "launches": inter_launches, "max_abs_err": worst["interaction_fwd"],
+         "launches": train_fwd, "max_abs_err": worst["interaction_fwd"],
          **timing[("interaction_fwd", "all")], "library_ms": None},
+        {"name": "interaction_bwd", "route": "cuda",
+         "source": "ctr_recommendation_tpu_torch/csrc/interaction_bwd.cu",
+         "replaces": "ctr_recommendation_tpu/ops/pallas/interaction.py:250",
+         "launches": train_bwd, "max_abs_err": worst["interaction_bwd"],
+         **timing[("interaction_bwd", "all")], "library_ms": None},
         {"name": "fused_score", "route": "cuda",
          "source": "ctr_recommendation_tpu_torch/csrc/scoring.cu",
          "replaces": "ctr_recommendation_tpu/ops/pallas/scoring.py:36",

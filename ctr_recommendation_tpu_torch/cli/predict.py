@@ -3,16 +3,19 @@
 Scores the test split with the BatchNorm-folded tower and tolerant item
 lookup through the overlapped pipeline and writes the Kaggle submission
 pair (prediction_fibinet.csv + submission_fibinet.zip). Weights come from
-``--weights``, an .npz made from a JAX export with tools/jax_bridge.py
-(reading the orbax export itself needs JAX).
+the port's own best export, ``<checkpoint-dir>/best/export.npz`` (written by
+the train CLI), or from ``--weights``, an .npz in the same layout made from
+a JAX export with tools/jax_bridge.py (reading the orbax export itself needs
+JAX).
 
     python -m ctr_recommendation_tpu_torch.cli.predict --data-root DIR \\
-        --checkpoint-dir CKPT --weights weights.npz [--device cuda]
+        --checkpoint-dir CKPT [--weights weights.npz] [--device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None) -> int:
@@ -20,24 +23,25 @@ def main(argv=None) -> int:
     p.add_argument("--data-root", required=True)
     p.add_argument("--model", default="mm_fibinet")
     p.add_argument("--checkpoint-dir", default="checkpoints",
-                   help="read for experiment.json, when present")
+                   help="read for experiment.json and best/export.npz, when present")
     p.add_argument("--out-dir", default="output")
     p.add_argument("--batch-size", type=int, default=8192)
     p.add_argument("--embedding-dim", type=int, default=None)
     p.add_argument("--stream", action="store_true",
                    help="row-group streaming (not ported yet)")
     p.add_argument("--weights", default=None,
-                   help=".npz of params/model_state written by tools/jax_bridge.save")
+                   help=".npz of params/model_state written by tools/jax_bridge.save "
+                        "(default: <checkpoint-dir>/best/export.npz)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if args.stream:
         p.error("--stream is not ported yet; the default pipeline path is")
-    if args.weights is None:
-        p.error("--weights is required: the port cannot read an orbax export "
-                "(convert it with tools/jax_bridge.save)")
+    weights = args.weights or os.path.join(args.checkpoint_dir, "best", "export.npz")
+    if not os.path.exists(weights):
+        p.error(f"no weights at {weights}: train with the port's train CLI, or convert a "
+                "JAX export with tools/jax_bridge.save and pass --weights")
 
     import dataclasses
-    import os
 
     from ctr_recommendation_tpu_torch.config import microlens_experiment, serialize
     from ctr_recommendation_tpu_torch.config.schema import MeshConfig
@@ -77,7 +81,7 @@ def main(argv=None) -> int:
     n_rows = pq.ParquetFile(exp.dataset.test_data).metadata.num_rows
     print(f"[data] test {n_rows} rows")
 
-    params, state = jax_bridge.params_from_jax(*jax_bridge.load(args.weights), fm, exp.model)
+    params, state = jax_bridge.params_from_jax(*jax_bridge.load(weights), fm, exp.model)
     pred = Predictor(exp, params, state, item_store=store, device=args.device)
     written, csv_path, zip_path = run_submission_pipeline(
         exp.dataset.test_data, pred, args.out_dir, batch_size=args.batch_size

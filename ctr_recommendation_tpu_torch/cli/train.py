@@ -1,0 +1,153 @@
+"""Train CLI: the JAX package's ``cli/train.py`` on the port, one device.
+
+    python -m ctr_recommendation_tpu_torch.cli.train --data-root DIR [--device cuda]
+    python -m ctr_recommendation_tpu_torch.cli.train --synthetic /tmp/synth --device cpu
+
+Loads the train and valid splits, keeps them resident on the device and runs
+``Trainer.fit_on_device`` (per-epoch AUC, best export to
+``<checkpoint-dir>/best/export.npz``, resume points). The flags of the JAX
+CLI whose paths are not ported yet exit 2 naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train a CTR model (PyTorch port)")
+    p.add_argument("--config", help="reference-compatible YAML config")
+    p.add_argument("--logged-run-parity", action="store_true",
+                   help="apply the reference CODE's hardcoded values over dead YAML keys")
+    p.add_argument("--expid", help="experiment id in the YAML")
+    p.add_argument("--data-root", help="directory with train/valid/test/item_info parquet")
+    p.add_argument("--synthetic", metavar="DIR",
+                   help="generate a synthetic MicroLens-shaped dataset in DIR and train on it")
+    p.add_argument("--synthetic-rows", type=int, default=200_000)
+    p.add_argument("--synthetic-items", type=int, default=4096,
+                   help="item vocab for --synthetic (91717 for full MicroLens scale)")
+    p.add_argument("--synthetic-signal", choices=("planted", "high"), default="planted")
+    p.add_argument("--model", default=None, help="model name (mm_fibinet | fibinet)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--embedding-dim", type=int, default=None)
+    p.add_argument("--embedding-init-std", type=float, default=None)
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--optimizer", default=None, help="adam | adamw | adagrad")
+    p.add_argument("--table-optimizer", default=None, help="dense (the only ported kind)")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="full-state resume-point cadence in epochs")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--no-pallas", action="store_true",
+                   help="run the interaction block on plain PyTorch ops, not the kernels")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # accepted so that they fail with a message, not an argparse error
+    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--strict-items", action="store_true")
+    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--stream", action="store_true")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    # flags whose code paths wait for a later slice, with their ROADMAP.md item
+    refused = [msg for on, msg in (
+        (args.stream, "--stream (streaming/chunked fit, queue 1 item 9)"),
+        (args.model_parallel > 1, "--model-parallel > 1 (parallel, queue 1 item 12)"),
+        (args.profile_dir, "--profile-dir (profiling, queue 1 item 13)"),
+        (args.strict_items, "--strict-items (the host-join train path, queue 1 item 9)"),
+        (args.table_optimizer not in (None, "dense"),
+         "a non-dense --table-optimizer (sparse table optimizers, queue 1 item 8)"),
+    ) if on]
+    if refused:
+        print("not ported yet (ROADMAP.md): " + "; ".join(refused), file=sys.stderr)
+        return 2
+
+    from ctr_recommendation_tpu_torch.config import load_experiment, microlens_experiment
+    from ctr_recommendation_tpu_torch.config.loader import microlens_features
+
+    overrides = {}
+    for k in ("epochs", "batch_size", "embedding_dim", "embedding_init_std",
+              "learning_rate", "optimizer", "checkpoint_dir", "checkpoint_every"):
+        v = getattr(args, k)
+        if v is not None:
+            overrides[k] = v
+    if args.no_pallas:
+        overrides["use_pallas"] = False
+
+    if args.synthetic:
+        from ctr_recommendation_tpu_torch.data import write_synthetic_dataset
+
+        os.makedirs(args.synthetic, exist_ok=True)
+        if not os.path.exists(os.path.join(args.synthetic, "train.parquet")):
+            print(f"[synthetic] generating {args.synthetic_rows} rows in {args.synthetic}")
+            write_synthetic_dataset(
+                args.synthetic, num_rows=args.synthetic_rows,
+                num_items=args.synthetic_items, signal=args.synthetic_signal,
+            )
+        exp = microlens_experiment(
+            data_root=args.synthetic, model=args.model or "mm_fibinet", **overrides
+        )
+        exp = exp.replace(dataset=dataclasses.replace(
+            exp.dataset,
+            features=microlens_features(
+                item_vocab=args.synthetic_items + 1, cate_vocab=11, max_len=20, mm_dim=128
+            ),
+        ))
+    elif args.config:
+        exp = load_experiment(
+            args.config, expid=args.expid, data_root=args.data_root,
+            logged_run_parity=args.logged_run_parity,
+        )
+        if args.model:
+            exp = exp.replace(model=dataclasses.replace(exp.model, model=args.model))
+        for k, v in overrides.items():
+            target = (
+                "model" if k in ("embedding_dim", "embedding_init_std", "use_pallas") else "train"
+            )
+            exp = exp.replace(**{target: dataclasses.replace(getattr(exp, target), **{k: v})})
+    else:
+        if not args.data_root:
+            print("need --data-root, --config, or --synthetic", file=sys.stderr)
+            return 2
+        exp = microlens_experiment(
+            data_root=args.data_root, model=args.model or "mm_fibinet", **overrides
+        )
+    return run_training(exp, resume=args.resume, device=args.device)
+
+
+def run_training(exp, *, resume: bool = False, device: str = "cuda") -> int:
+    """Load the splits and the item store, then ``fit_on_device``."""
+    from ctr_recommendation_tpu_torch.data import ItemStore, load_split
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.models.registry import get_model
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    get_model(exp.model.model)  # fail fast on an unknown model, before data load
+    fm = build_feature_map(exp.dataset)
+    print(f"[data] loading {exp.dataset.train_data}")
+    train = load_split(exp.dataset.train_data, fm)
+    valid = load_split(exp.dataset.valid_data, fm)
+    store = ItemStore.from_parquet(
+        exp.dataset.item_info,
+        id_col=exp.dataset.item_info_key,
+        emb_col=exp.dataset.item_info_emb_col,
+    )
+    print(f"[data] train {train.num_rows} rows, valid {valid.num_rows} rows")
+    steps = train.num_rows // exp.train.batch_size
+    if steps < 1:
+        print(f"batch size {exp.train.batch_size} exceeds the train split "
+              f"({train.num_rows} rows); lower --batch-size", file=sys.stderr)
+        return 2
+    trainer = Trainer(exp, steps_per_epoch=steps, item_store=store, device=device)
+    trainer.fit_on_device(train, valid, resume=resume)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -112,7 +112,7 @@ class Predictor:
                 x.to(self.tower_dtype).contiguous(), *self._score_weights,
                 bilinear_type=cfg.bilinear_type,
             )
-        logits = self.module.apply(
+        logits, _ = self.module.apply(
             self.params, self.model_state, self.fm, cfg, feats,
             compute_dtype=self.compute_dtype,
         )

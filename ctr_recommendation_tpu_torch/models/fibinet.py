@@ -1,6 +1,6 @@
-"""MM-FiBiNET: SENet excitation + bilinear field-pair interaction + DNN tower,
-eval-mode forward (the reference's model_fibinet.py:91-199). Logits out; the
-sigmoid lives at the predict boundary.
+"""MM-FiBiNET: SENet excitation + bilinear field-pair interaction + DNN tower
+(the reference's model_fibinet.py:91-199), train and eval. Logits out; the
+sigmoid lives at the loss and predict boundaries.
 """
 
 from __future__ import annotations
@@ -40,11 +40,16 @@ def apply(
     cfg: ModelConfig,
     batch: dict[str, torch.Tensor],
     *,
+    train: bool = False,
+    generator: torch.Generator | None = None,
     compute_dtype: torch.dtype = torch.float32,
-) -> torch.Tensor:
-    """Eval forward: batch -> logits (B,) fp32. The interaction runs on the
-    fused kernel when ``cfg.use_pallas`` is set (the kernel's plain version
-    on CPU tensors); the tower runs in ``tower_dtype``."""
+    weight: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """batch -> (logits (B,) fp32, new_state). The interaction runs on the
+    fused kernels (forward and backward) when ``cfg.use_pallas`` is set (their
+    plain versions on CPU tensors); the tower runs in ``tower_dtype``. In
+    train mode BatchNorm uses batch statistics (zero-``weight`` rows left
+    out) and dropout draws from ``generator``."""
     x = trunk.apply(
         params["trunk"], fm, cfg, batch,
         seq_pooling=SEQ_POOLING, compute_dtype=compute_dtype,
@@ -54,5 +59,8 @@ def apply(
         bilinear_type=cfg.bilinear_type, use_kernel=cfg.use_pallas,
     )
     td = torch.float32 if cfg.tower_dtype == "float32" else compute_dtype
-    logits = mlp_ops.apply(params["mlp"], state["mlp"], h.to(td))
-    return logits[..., 0].float()
+    logits, mlp_state = mlp_ops.apply(
+        params["mlp"], state["mlp"], h.to(td),
+        train=train, dropout_rate=cfg.net_dropout, generator=generator, weight=weight,
+    )
+    return logits[..., 0].float(), {"mlp": mlp_state}

@@ -2,8 +2,8 @@
 
 Every registered model implements
     init(gen, feature_map, model_cfg) -> (params, state)
-    apply(params, state, feature_map, model_cfg, batch, *, compute_dtype)
-        -> logits (B,)
+    apply(params, state, feature_map, model_cfg, batch, *, train, generator,
+          compute_dtype, weight) -> (logits (B,), new_state)
 Only the FiBiNET family is ported so far.
 """
 

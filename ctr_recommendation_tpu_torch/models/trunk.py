@@ -67,11 +67,14 @@ def _layer_norm(x, scale, bias):
 def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` with the JAX package's index semantics: negative ids
     count from the end, then out-of-range ids are clamped (never a device
-    fault)."""
+    fault). ``F.embedding`` rather than indexing: its backward sums the rows
+    of repeated ids by sorting them, where the indexing backward on CUDA
+    walks each id's repeats serially, and the pad id repeats tens of
+    thousands of times in a batch of histories."""
     n = table.shape[0]
     ids = ids.to(torch.int64)
     ids = torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
-    return table[ids]
+    return torch.nn.functional.embedding(ids, table)
 
 
 def apply(

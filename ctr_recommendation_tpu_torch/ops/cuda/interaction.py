@@ -1,20 +1,24 @@
-"""Kernel 1: fused SENet + bilinear + concat forward (csrc/interaction.cu).
+"""The fused SENet + bilinear + concat block on hand-written kernels.
 
-Replaces ctr_recommendation_tpu/ops/pallas/interaction.py::_kernel_all (:56)
-and ::_kernel_each (:94), reached through ``fused_senet_bilinear_concat``
-(:566). Forward only; the hand-written backward (:250) belongs to the
-training slice.
+Forward (csrc/interaction.cu) replaces ctr_recommendation_tpu/ops/pallas/
+interaction.py::_kernel_all (:56) and ::_kernel_each (:94); backward
+(csrc/interaction_bwd.cu) replaces ::_bwd_kernel (:250). Both are reached
+through ``fused_senet_bilinear_concat`` (:566), whose ``jax.custom_vjp``
+becomes the ``FusedInteraction`` autograd Function here.
 
-Bound on an H100: bytes. At B=8192, F=6, E=128 with bf16 input the kernel
-must read 12.6 MB and write 88 MB of fp32 output; the ~1.3 GFLOP of
-projection is far below the card's compute line. The kernel keeps x, S and
-the projection weight in shared memory, holds each V tile in registers and
-writes every output element once with coalesced 16-byte stores.
+Bound on an H100: bytes, both ways. At B=8192, F=6, E=128 with bf16 input
+the forward must read 12.6 MB and write 88 MB of fp32 output; at B=4096 the
+backward must read g (44 MB fp32) and x and write dx (56.6 MB in all). The
+forward keeps x, S and the projection weight in shared memory, holds each V
+tile in registers and writes every output element once with coalesced
+16-byte stores; the backward streams g once and reduces the weight
+gradients through per-block partials (no atomics: bit-identical repeats).
 
-``interaction_fwd`` is the wrapper: on a CUDA tensor it launches the kernel
-(or raises), on a CPU tensor it runs ``interaction_fwd_plain``, the same
-function in plain PyTorch with the same rounding points. Its ``launches``
-attribute counts kernel launches.
+``interaction_fwd`` and ``interaction_bwd`` are the wrappers: on a CUDA
+tensor each launches its kernel (or raises), on a CPU tensor it runs its
+plain PyTorch version (``interaction_fwd_plain``, ``interaction_bwd_plain``)
+with the same rounding points. Their ``launches`` attributes count kernel
+launches (the backward counts two a call: the kernel and its reduction).
 """
 
 from __future__ import annotations
@@ -130,6 +134,161 @@ def interaction_fwd(x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
 interaction_fwd.launches = 0
 
 
+def interaction_bwd_plain(g, x, w1, b1, w2, b2, w_bi, *, bilinear_type="all",
+                          forward_rounding=False):
+    """Plain PyTorch version of the backward, at the TPU backward kernel's
+    rounding points (not autograd of ``interaction_fwd_plain``): s and v stay
+    fp32, and only the operands of the E x E products (s, dv, W) take x's
+    dtype cd. Returns (dx in cd, dW1, db1, dW2, db2, dW_bi), all weight
+    gradients fp32 and summed over the batch.
+
+    ``forward_rounding=True`` recomputes s and v at the forward's rounding
+    points instead (s = cd(x * cd(gate)), v = cd(s W)): a wrong backward that
+    the bf16 tolerances of the checks must reject. In fp32 the two agree."""
+    cd = x.dtype
+    b, f, e = x.shape
+    xs = x.float()
+    g = g.float()
+    z = xs.mean(-1)
+    h1 = z @ w1.float() + b1.float()
+    a = torch.relu(h1)
+    w = torch.sigmoid(a @ w2.float() + b2.float())
+    s = (x * w.to(cd)[..., None]).float() if forward_rounding else xs * w[..., None]
+    s_cd = s.to(cd).float()
+    wf = w_bi.to(cd).float()
+    i_idx, j_idx = (torch.as_tensor(t, device=x.device) for t in pair_indices(f))
+    ds = g[:, : f * e].reshape(b, f, e).clone()
+    gp = g[:, f * e :].reshape(b, -1, e)
+    dv = torch.zeros_like(s)
+
+    def project(v):
+        return v.to(cd).float() if forward_rounding else v
+
+    if bilinear_type == "all":
+        v = project(s_cd @ wf)
+        ds.index_add_(1, i_idx, gp * v[:, j_idx])
+        dv.index_add_(1, j_idx, gp * s[:, i_idx])
+        dv_cd = dv.to(cd).float()
+        dw_bi = torch.einsum("bfe,bfd->ed", s_cd, dv_cd)
+        ds = ds + dv_cd @ wf.T
+    elif bilinear_type == "each":
+        v = project(torch.einsum("bfe,fed->bfd", s_cd[:, :-1], wf))
+        dv[:, :-1].index_add_(1, i_idx, gp * s[:, j_idx])
+        ds.index_add_(1, j_idx, gp * v[:, i_idx])
+        dv_cd = dv[:, :-1].to(cd).float()
+        dw_bi = torch.einsum("bfe,bfd->fed", s_cd[:, :-1], dv_cd)
+        ds[:, :-1] += torch.einsum("bfd,fed->bfe", dv_cd, wf)
+    else:
+        raise ValueError(f"bilinear_type must be 'all' or 'each', got {bilinear_type!r}")
+    dh2 = (ds * xs).sum(-1) * w * (1.0 - w)
+    dh1 = (dh2 @ w2.float().T) * (h1 > 0)
+    dz = dh1 @ w1.float().T
+    dx = ds * w[..., None] + dz[..., None] * (1.0 / e)
+    return dx.to(cd), z.T @ dh1, dh1.sum(0), a.T @ dh2, dh2.sum(0), dw_bi
+
+
+_BWD = None
+
+
+def _bwd_fns():
+    global _BWD
+    if _BWD is None:
+        lib = build.load("interaction_bwd")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.interaction_bwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
+        lib.interaction_bwd.restype = i
+        lib.interaction_bwd_tile_rows.argtypes = [i] * 4
+        lib.interaction_bwd_tile_rows.restype = i
+        _BWD = lib
+    return _BWD
+
+
+def interaction_bwd(g, x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
+    """g (B, (F + F(F-1)/2) * E) fp32 and the forward's operands (x and w_bi
+    in the compute dtype, SENet weights fp32) -> (dx, dW1, db1, dW2, db2,
+    dW_bi): dx in x's dtype, the weight gradients fp32."""
+    if x.device.type == "cpu":
+        return interaction_bwd_plain(g, x, w1, b1, w2, b2, w_bi, bilinear_type=bilinear_type)
+    if x.device.type != "cuda":
+        raise ValueError(f"interaction_bwd runs on CUDA or CPU tensors, got {x.device}")
+    if bilinear_type not in ("all", "each"):
+        raise ValueError(f"bilinear_type must be 'all' or 'each', got {bilinear_type!r}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
+    b, f, e = x.shape
+    r = w1.shape[1]
+    p = f * (f - 1) // 2
+    each = bilinear_type == "each"
+    wbi_shape = (f - 1, e, e) if each else (e, e)
+    if f < 2 or e % 8 or e > 128:
+        raise ValueError(f"need F >= 2, E % 8 == 0 and E <= 128, got F={f}, E={e}")
+    if (
+        tuple(g.shape) != (b, (f + p) * e)
+        or tuple(w1.shape) != (f, r) or tuple(b1.shape) != (r,)
+        or tuple(w2.shape) != (r, f) or tuple(b2.shape) != (f,)
+        or tuple(w_bi.shape) != wbi_shape
+    ):
+        raise ValueError("cotangent / SENet / bilinear weight shapes do not match x")
+    f32 = torch.float32
+    check_kernel_args(
+        {"g": (g, f32), "x": (x, None), "w1": (w1, f32), "b1": (b1, f32),
+         "w2": (w2, f32), "b2": (b2, f32), "w_bi": (w_bi, None)},
+        x.dtype, x.device,
+    )
+    nq = f - 1 if each else 1
+    sizes = [nq * e * e, f * r, r, r * f, f]
+    n = sum(sizes)
+    out = torch.empty(n, dtype=f32, device=x.device)
+    dx = torch.empty_like(x)
+    if b > 0:
+        lib = _bwd_fns()
+        is_bf16 = int(x.dtype == torch.bfloat16)
+        tb = lib.interaction_bwd_tile_rows(f, e, r, is_bf16)
+        if tb < 4:
+            raise ValueError(f"interaction_bwd: a row tile does not fit a block at F={f}, E={e}")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        grid = min(-(-b // tb), sms)
+        stride = -(-n // 4) * 4
+        part = torch.empty(grid * stride, dtype=f32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.interaction_bwd(
+            g.data_ptr(), x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), w_bi.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
+            b, f, e, r, is_bf16, int(each), grid, stride, stream,
+        )
+        build.check(rc, "interaction_bwd")
+        interaction_bwd.launches += 2  # the kernel and the partials' reduction
+    else:
+        out.zero_()
+    dw_bi, dw1, db1, dw2, db2 = torch.split(out, sizes)
+    return dx, dw1.view(f, r), db1, dw2.view(r, f), db2, dw_bi.view(wbi_shape)
+
+
+interaction_bwd.launches = 0
+
+
+class FusedInteraction(torch.autograd.Function):
+    """The block with the kernels both ways, as ``jax.custom_vjp`` wraps the
+    TPU kernels: it takes the fp32 master weights and returns fp32 weight
+    gradients; the cast of W to the compute dtype happens inside, and x (not
+    the output) is kept for the backward, which recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w_bi, bilinear_type):
+        w_cd = w_bi.to(x.dtype).contiguous()
+        ctx.save_for_backward(x, w1, b1, w2, b2, w_cd)
+        ctx.bilinear_type = bilinear_type
+        return interaction_fwd(x, w1, b1, w2, b2, w_cd, bilinear_type=bilinear_type)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, w_cd = ctx.saved_tensors
+        grads = interaction_bwd(
+            g.float().contiguous(), x, w1, b1, w2, b2, w_cd, bilinear_type=ctx.bilinear_type
+        )
+        return (*grads, None)
+
+
 def senet_weights(senet_params: dict, num_fields: int):
     """(w1, b1, w2, b2) in fp32, zeros for absent biases."""
     fc1, fc2 = senet_params["fc1"], senet_params["fc2"]
@@ -143,13 +302,11 @@ def senet_weights(senet_params: dict, num_fields: int):
 def fused_senet_bilinear_concat(
     senet_params: dict, bilinear_params: dict, x: torch.Tensor, *, bilinear_type: str = "all"
 ) -> torch.Tensor:
-    """The JAX package's entry point of the same name, on the kernel: the
-    compute dtype is x's (bf16 or fp32, else fp32)."""
+    """The JAX package's entry point of the same name, on the kernels through
+    ``FusedInteraction`` (train and eval alike): the compute dtype is x's
+    (bf16 or fp32, else fp32); gradients reach the fp32 parameters."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         x = x.float()
     w_bi = bilinear_params["w"] if bilinear_type == "all" else bilinear_params["w_each"]
     w1, b1, w2, b2 = senet_weights(senet_params, x.shape[1])
-    return interaction_fwd(
-        x.contiguous(), w1, b1, w2, b2, w_bi.to(x.dtype).contiguous(),
-        bilinear_type=bilinear_type,
-    )
+    return FusedInteraction.apply(x.contiguous(), w1, b1, w2, b2, w_bi, bilinear_type)

@@ -2,9 +2,10 @@
 
 ``senet_bilinear_concat`` produces the DNN-tower input
 ``[SENet(X).flat | Bilinear(SENet(X)).flat]`` of width (F + F(F-1)/2) * E.
-The reference path runs the ops one by one in x's dtype; the kernel path
-(ops/cuda/interaction.py) computes the block in one pass with an fp32
-output. Forward only: the kernel's backward belongs to the training slice.
+The reference path runs the ops one by one in x's dtype and differentiates
+by plain autograd; the kernel path (ops/cuda/interaction.py) computes the
+block in one pass with an fp32 output and differentiates through the
+hand-written backward kernel (``FusedInteraction``), in train and eval.
 """
 
 from __future__ import annotations

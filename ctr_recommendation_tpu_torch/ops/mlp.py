@@ -1,9 +1,11 @@
-"""DNN tower: Linear -> BatchNorm -> ReLU stacks + final logit, eval mode.
+"""DNN tower: Linear -> BatchNorm -> ReLU -> Dropout stacks + final logit.
 
-BatchNorm follows torch semantics (eps 1e-5) with frozen running stats; the
-train-mode masked BatchNorm belongs to the training slice. ``fold_batch_norm``
-turns the eval tower into plain affine layers, which the fused scoring
-kernel consumes.
+BatchNorm follows torch semantics (momentum 0.1, eps 1e-5, biased variance
+for normalization, unbiased for the running stat). In train mode its
+statistics are fp32 even in a bf16 tower and leave out zero-weight rows
+(``nn.BatchNorm1d`` cannot mask); dropout draws from an explicit generator.
+``fold_batch_norm`` turns the eval tower into plain affine layers, which the
+fused scoring kernel consumes.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from ctr_recommendation_tpu_torch.ops.initializers import linear_apply, linear_init
 
+BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
@@ -42,21 +45,65 @@ def init(
     return params, state
 
 
-def _batch_norm_eval(layer, st, h):
-    inv = torch.rsqrt(st["bn_var"].to(h.dtype) + BN_EPS)
-    h = (h - st["bn_mean"].to(h.dtype)) * inv
-    return h * layer["bn_scale"].to(h.dtype) + layer["bn_bias"].to(h.dtype)
+def _batch_norm(layer, st, h, train: bool, weight=None):
+    if train:
+        # statistics always in fp32 (stable even when the tower runs bf16)
+        h32 = h.float()
+        if weight is not None:
+            # zero-weight (padded) rows are left out of the batch statistics
+            w = weight.float()[:, None]
+            n_eff = torch.clamp(w.sum(), min=1.0)
+            mean = (h32 * w).sum(0) / n_eff
+            var = (w * (h32 - mean) ** 2).sum(0) / n_eff
+            unbiased = var * (n_eff / torch.clamp(n_eff - 1.0, min=1.0))
+        else:
+            mean = h32.mean(0)
+            var = h32.var(0, unbiased=False)  # biased, used for normalization
+            n = h.shape[0]
+            unbiased = var * (n / max(n - 1, 1))
+        new_st = {
+            "bn_mean": (1 - BN_MOMENTUM) * st["bn_mean"] + BN_MOMENTUM * mean.detach(),
+            "bn_var": (1 - BN_MOMENTUM) * st["bn_var"] + BN_MOMENTUM * unbiased.detach(),
+        }
+    else:
+        mean, var = st["bn_mean"], st["bn_var"]
+        new_st = st
+    inv = torch.rsqrt(var.to(h.dtype) + BN_EPS)
+    h = (h - mean.to(h.dtype)) * inv
+    return h * layer["bn_scale"].to(h.dtype) + layer["bn_bias"].to(h.dtype), new_st
 
 
-def apply(params: dict, state: dict, x: torch.Tensor) -> torch.Tensor:
-    """Eval forward: x (B, in_dim) -> logits (B, out_dim), in x's dtype."""
+def apply(
+    params: dict,
+    state: dict,
+    x: torch.Tensor,
+    *,
+    train: bool = False,
+    dropout_rate: float = 0.0,
+    generator: torch.Generator | None = None,
+    weight: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """x (B, in_dim) -> (logits (B, out_dim) in x's dtype, new_state).
+
+    ``weight``: optional (B,) 0/1 row mask; zero-weight rows are left out of
+    the train-mode BatchNorm statistics. Dropout (train mode) draws its masks
+    from ``generator``, which must live on x's device."""
     h = x
+    new_layers = []
     for layer, st in zip(params["layers"], state["layers"]):
         h = linear_apply(layer["linear"], h)
         if "bn_scale" in layer:
-            h = _batch_norm_eval(layer, st, h)
+            h, st = _batch_norm(layer, st, h, train, weight)
         h = torch.relu(h)
-    return linear_apply(params["out"], h) if "out" in params else h
+        if train and dropout_rate > 0.0:
+            if generator is None:
+                raise ValueError("dropout needs a generator in train mode")
+            keep = 1.0 - dropout_rate
+            mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+            h = torch.where(mask, h / keep, 0.0)
+        new_layers.append(st)
+    out = linear_apply(params["out"], h) if "out" in params else h
+    return out, {"layers": new_layers}
 
 
 def fold_batch_norm(params: dict, state: dict) -> dict:

@@ -1,0 +1,361 @@
+"""Training driver on one device: the JAX package's ``Trainer.fit_on_device``.
+
+Same semantics as the JAX package's training/loop.py:35-40, 325-369 and
+989-1156: weighted BCE on logits, the dense optimizer chain (Adam + L2,
+OneCycle stepped per batch, global-norm clip) over every parameter including
+the embedding tables, per-epoch exact AUC + logloss with a best-metric
+export, full-state resume points, ``metrics.csv`` and ``experiment.json``.
+
+The split stays resident on the device; each epoch is a seeded permutation
+(or ``arange`` without shuffling) cut into ``batch_size`` batches, and each
+batch runs the device join, hashing, ``apply(train=True)``, BCE, backward
+and the optimizer, eagerly. Losses accumulate on the device: the host reads
+one value per epoch. Dropout draws from a generator reseeded from
+``(seed + 1, step)`` at every step, as the JAX package folds the step into
+its rng, so a resumed run draws the same masks.
+
+Not ported yet: ``fit`` (streaming/chunked), the sparse table optimizers,
+multi-device meshes, profiling and TensorBoard mirroring (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ctr_recommendation_tpu_torch.config import serialize
+from ctr_recommendation_tpu_torch.config.schema import ExperimentConfig
+from ctr_recommendation_tpu_torch.data.device_store import (
+    DeviceItemStore,
+    dense_join_plan,
+    device_join,
+)
+from ctr_recommendation_tpu_torch.features.feature_map import build_feature_map
+from ctr_recommendation_tpu_torch.features.hashing import apply_hashing, hash_plan
+from ctr_recommendation_tpu_torch.models.registry import get_model
+from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
+from ctr_recommendation_tpu_torch.training import metrics as metrics_lib
+from ctr_recommendation_tpu_torch.training.checkpoint import CheckpointManager
+from ctr_recommendation_tpu_torch.training.optim import make_optimizer
+from ctr_recommendation_tpu_torch.training.train_state import TrainState
+from ctr_recommendation_tpu_torch.utils.device import resolve_device
+from ctr_recommendation_tpu_torch.utils.tree import tree_map
+
+
+def bce_with_logits(logits, labels, weight=None):
+    """optax.sigmoid_binary_cross_entropy: the mean, or the weighted mean
+    over max(sum(weight), 1)."""
+    labels = labels.float()
+    losses = -(labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits))
+    if weight is None:
+        return losses.mean()
+    w = weight.float()
+    return (losses * w).sum() / w.sum().clamp(min=1.0)
+
+
+def _seed(base: int, index: int) -> int:
+    """One 63-bit generator seed per (base, index) pair."""
+    return ((base % (1 << 31)) << 31 | (index % (1 << 31))) % (1 << 63)
+
+
+class Trainer:
+    def __init__(
+        self,
+        experiment: ExperimentConfig,
+        *,
+        total_steps: int | None = None,
+        steps_per_epoch: int | None = None,
+        checkpoint_dir: str | None = None,
+        item_store=None,
+        params: dict | None = None,
+        model_state: dict | None = None,
+        device: str | torch.device = "cuda",
+        log_fn=print,
+    ):
+        """``params``/``model_state`` (tensors or numpy arrays in the JAX
+        layout) replace the seeded init, e.g. to start from bridged JAX
+        weights; they are copied, never aliased."""
+        self.device = resolve_device(device)
+        self.exp = experiment
+        self.fm = build_feature_map(experiment.dataset)
+        self.module = get_model(experiment.model.model)
+        self.log = log_fn
+        tc = experiment.train
+        self.compute_dtype = getattr(torch, tc.compute_dtype)
+        if total_steps is None:
+            total_steps = (steps_per_epoch or 1000) * tc.epochs
+        self.total_steps = total_steps
+        self.tx, self.schedule = make_optimizer(tc, total_steps)
+
+        self.checkpoint_dir = checkpoint_dir or tc.checkpoint_dir
+        self.ckpt = CheckpointManager(self.checkpoint_dir, max_to_keep=tc.keep_checkpoints)
+        # the checkpoint describes itself: predict rebuilds the model from
+        # experiment.json. Written here only if absent; fit refreshes it.
+        self._experiment_json = os.path.join(self.checkpoint_dir, "experiment.json")
+        if not os.path.exists(self._experiment_json):
+            self._save_experiment()
+
+        # device-resident item join: the item matrix is uploaded once
+        self._join_plan = dense_join_plan(self.fm)
+        self._hash_plan = hash_plan(self.fm)
+        self._mm_tables: dict[str, torch.Tensor] = {}
+        if item_store is not None and self._join_plan:
+            emb = DeviceItemStore.from_host(item_store, self.device).emb
+            for dense_name, _ in self._join_plan:
+                self._mm_tables[dense_name] = emb
+
+        if params is None:
+            params, model_state = self.module.init(
+                torch.Generator().manual_seed(tc.seed), self.fm, experiment.model
+            )
+        params = tree_map(lambda t: self._to_device(t).requires_grad_(), params)
+        model_state = tree_map(self._to_device, model_state)
+        self.param_leaves = list(flatten(params).values())
+        self.state = TrainState(0, params, model_state, self.tx.init(self.param_leaves))
+        self._dropout_gen = torch.Generator(device=self.device)
+        self.history: list[dict[str, float]] = []
+
+    def _to_device(self, t) -> torch.Tensor:
+        return torch.as_tensor(t).detach().to(self.device, torch.float32, copy=True)
+
+    # ------------------------------------------------------------------ steps
+    def _device_join(self, feats: dict) -> dict:
+        # join by RAW ids first, then hash for the embedding lookup
+        return apply_hashing(device_join(feats, self._mm_tables, self._join_plan), self._hash_plan)
+
+    def forward_loss(self, batch: dict[str, torch.Tensor]):
+        """(loss, new model state) of one train-mode forward on a batch of
+        device columns, with the dropout masks of the current step."""
+        fm = self.fm
+        weight = batch.get("__weight__")
+        feats = {k: v for k, v in batch.items() if k not in (fm.label, "__weight__")}
+        self._dropout_gen.manual_seed(_seed(self.exp.train.seed + 1, self.state.step))
+        logits, new_mstate = self.module.apply(
+            self.state.params, self.state.model_state, fm, self.exp.model,
+            self._device_join(feats), train=True, generator=self._dropout_gen,
+            compute_dtype=self.compute_dtype, weight=weight,
+        )
+        return bce_with_logits(logits, batch[fm.label], weight), new_mstate
+
+    def gradients(self, loss: torch.Tensor) -> list[torch.Tensor]:
+        """d loss / d every parameter, in ``param_leaves`` order."""
+        return list(torch.autograd.grad(
+            loss, self.param_leaves, allow_unused=True, materialize_grads=True
+        ))
+
+    def apply_gradients(self, grads: list[torch.Tensor], new_model_state: dict) -> None:
+        """The optimizer update (params change in place) and the step."""
+        self.tx.update(grads, self.state.opt_state, self.param_leaves)
+        self.state.model_state = new_model_state
+        self.state.step += 1
+
+    def train_step(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """One optimizer step; returns the batch loss as a device scalar."""
+        with torch.enable_grad():
+            loss, new_mstate = self.forward_loss(batch)
+            grads = self.gradients(loss)
+        self.apply_gradients(grads, new_mstate)
+        return loss.detach()
+
+    # ------------------------------------------------------------------ state
+    def _restore(self, payload: dict) -> None:
+        with torch.no_grad():
+            for dst, src in zip(self.param_leaves, flatten(payload["params"]).values()):
+                dst.copy_(src)
+        self.state.model_state = tree_map(self._to_device, payload["model_state"])
+        self.state.opt_state = {
+            k: tree_map(self._to_device, v) if isinstance(v, list) else v
+            for k, v in payload["opt_state"].items()
+        }
+        self.state.step = int(payload["step"])
+
+    def load_best(self) -> None:
+        """Swap in the best export's params and model state."""
+        params_np, mstate_np = self.ckpt.restore_best()
+        flat = flatten(params_np)
+        with torch.no_grad():
+            for path, t in flatten(self.state.params).items():
+                t.copy_(torch.from_numpy(np.asarray(flat[path])))
+        self.state.model_state = tree_map(self._to_device, mstate_np)
+
+    def _save_experiment(self) -> None:
+        try:
+            serialize.save(self.exp, self._experiment_json)
+        except OSError:
+            pass
+
+    def _seed_history(self, start_epoch: int) -> None:
+        """On resume, reload the persisted rows of epochs <= start_epoch so
+        the rewritten metrics.csv keeps them."""
+        if self.history:
+            return
+        try:
+            with open(os.path.join(self.checkpoint_dir, "metrics.csv"), newline="") as f:
+                rows = list(csv.DictReader(f))
+        except OSError:
+            return
+        for r in rows:
+            parsed = {k: float(v) for k, v in r.items() if v not in (None, "")}
+            if parsed.get("epoch", 0) <= start_epoch:
+                self.history.append(parsed)
+
+    def _seed_best(self, best: float) -> float:
+        """On resume, continue the best-tracker from the persisted export's
+        metric so a worse epoch cannot overwrite the best export."""
+        persisted = self.ckpt.best_metric()
+        if persisted is None:
+            return best
+        tc = self.exp.train
+        self.log(f"[resume] best {tc.monitor} so far: {persisted:.4f}")
+        return max(best, persisted) if tc.monitor_mode == "max" else min(best, persisted)
+
+    def _write_history_csv(self) -> None:
+        keys: list[str] = []
+        for h in self.history:
+            keys += [k for k in h if k not in keys]
+        with open(os.path.join(self.checkpoint_dir, "metrics.csv"), "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=keys)
+            w.writeheader()
+            w.writerows(self.history)
+
+    # ------------------------------------------------------------------ train
+    def _upload(self, table) -> dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in table.columns.items()}
+
+    def _permutation(self, epoch: int, n: int) -> torch.Tensor:
+        if not self.exp.train.shuffle:
+            return torch.arange(n, device=self.device)
+        gen = torch.Generator().manual_seed(_seed(self.exp.train.seed + 2, epoch))
+        return torch.randperm(n, generator=gen).to(self.device)
+
+    def fit_on_device(self, train, valid=None, *, resume: bool = False) -> list[dict[str, float]]:
+        """Train with the whole split resident on the device: each epoch is
+        one shuffled pass of ``train.num_rows // batch_size`` full batches
+        (drop_last), then an eval of ``valid``. ``train``/``valid`` are
+        TableData; dense item features come from the device-side join."""
+        tc = self.exp.train
+        self._save_experiment()  # training owns the checkpoint's provenance
+        bs, n = tc.batch_size, train.num_rows
+        steps = n // bs
+        if steps == 0:
+            raise ValueError(f"batch_size {bs} > split rows {n}")
+        data = self._upload(train)
+        valid_data = None if valid is None else self._prepare_eval_split(valid, tc.eval_batch_size)
+
+        best = -np.inf if tc.monitor_mode == "max" else np.inf
+        start_epoch = 0
+        if resume:
+            latest = self.ckpt.latest_step()
+            if latest is not None:
+                self._restore(self.ckpt.restore(latest))
+                start_epoch = latest
+                self.log(f"[resume] epoch {start_epoch} step {self.state.step}")
+            best = self._seed_best(best)
+            self._seed_history(start_epoch)
+
+        run_start = len(self.history)
+        for epoch in range(start_epoch, tc.epochs):
+            t0 = time.perf_counter()
+            perm = self._permutation(epoch, n)
+            losses = torch.empty(steps, device=self.device)
+            for i in range(steps):
+                idx = perm[i * bs : (i + 1) * bs]
+                losses[i] = self.train_step({k: v[idx] for k, v in data.items()})
+            train_loss = float(losses.mean())  # the epoch's one host read
+            if not np.isfinite(train_loss):
+                raise FloatingPointError(
+                    f"non-finite train loss at epoch {epoch + 1}: {train_loss} "
+                    "(torch.autograd.set_detect_anomaly localizes it)"
+                )
+            dt = time.perf_counter() - t0
+            rows = steps * bs
+            entry: dict[str, float] = {
+                "epoch": epoch + 1,
+                "train_loss": train_loss,
+                "examples_per_sec": rows / dt if dt > 0 else 0.0,
+                "seconds": dt,
+            }
+            if valid_data is not None:
+                t_eval = time.perf_counter()
+                entry.update(self._evaluate_prepared(valid_data))
+                entry["eval_seconds"] = time.perf_counter() - t_eval
+                metric = entry[tc.monitor]
+                if metric > best if tc.monitor_mode == "max" else metric < best:
+                    best = metric
+                    self.ckpt.save_best(
+                        self.state.params, self.state.model_state, metric, self.state.step
+                    )
+                    self.log(f"[epoch {epoch + 1}] new best {tc.monitor}={metric:.4f} — exported")
+            t_save = time.perf_counter()
+            if (epoch + 1) % tc.checkpoint_every == 0 or epoch + 1 == tc.epochs:
+                self.ckpt.save(epoch + 1, self.state)
+                entry["checkpoint_seconds"] = time.perf_counter() - t_save
+            else:
+                entry["checkpoint_seconds"] = 0.0  # every row keeps one schema
+            self.log(
+                f"[epoch {epoch + 1}] loss {train_loss:.4f} "
+                + " ".join(f"{k} {v:.4f}" for k, v in entry.items() if k in ("auc", "logloss"))
+                + f" ({rows}/{dt:.2f}s = {entry['examples_per_sec']:.0f} ex/s)"
+            )
+            self.history.append(entry)
+            self._write_history_csv()
+        self.log(f"Done. Best {tc.monitor}: {best:.4f}")
+        return self.history[run_start:]
+
+    # ------------------------------------------------------------------ eval
+    def _prepare_eval_split(self, table, batch_size: int) -> dict:
+        """Pad to a whole number of batches (pad rows weigh 0), upload once."""
+        n = table.num_rows
+        num_batches = max(1, -(-n // batch_size))
+        pad = num_batches * batch_size - n
+        cols = {}
+        for k, v in table.columns.items():
+            if pad:
+                v = np.concatenate([v, np.zeros((pad, *v.shape[1:]), v.dtype)])
+            cols[k] = torch.as_tensor(v).to(self.device)
+        weight = torch.cat([torch.ones(n), torch.zeros(pad)]).to(self.device)
+        labels = cols.pop(self.fm.label)
+        return {"data": cols, "labels": labels, "weight": weight,
+                "batch_size": batch_size, "num_batches": num_batches}
+
+    @torch.inference_mode()
+    def _predict_prepared(self, prepared: dict) -> torch.Tensor:
+        """Eval-mode probabilities of every (padded) row of a prepared split."""
+        bs = prepared["batch_size"]
+        probs = torch.empty(prepared["num_batches"] * bs, device=self.device)
+        for i in range(prepared["num_batches"]):
+            batch = {k: v[i * bs : (i + 1) * bs] for k, v in prepared["data"].items()}
+            logits, _ = self.module.apply(
+                self.state.params, self.state.model_state, self.fm, self.exp.model,
+                self._device_join(batch), train=False, compute_dtype=self.compute_dtype,
+            )
+            probs[i * bs : (i + 1) * bs] = torch.sigmoid(logits)
+        return probs
+
+    def _metrics_from(self, labels, probs, weight) -> dict[str, float]:
+        """Exact AUC (or histogram AUC with ``num_eval_threshold_bins``) and
+        logloss, on the device."""
+        nbins = self.exp.train.num_eval_threshold_bins
+        if nbins:
+            zeros = torch.zeros(nbins, device=probs.device)
+            hp, hn = metrics_lib.binned_auc_update(zeros, zeros, labels, probs, weight,
+                                                   num_bins=nbins)
+            auc_v = metrics_lib.binned_auc_finalize(hp, hn)
+        else:
+            auc_v = metrics_lib.auc(labels, probs, weight)
+        ll = metrics_lib.logloss(labels, probs, weight)
+        return {"auc": float(auc_v), "logloss": float(ll)}
+
+    def _evaluate_prepared(self, prepared: dict) -> dict[str, float]:
+        probs = self._predict_prepared(prepared)
+        return self._metrics_from(prepared["labels"], probs, prepared["weight"])
+
+    def evaluate_table(self, table, batch_size: int | None = None) -> dict[str, float]:
+        """AUC/logloss over a TableData split, on the device."""
+        prepared = self._prepare_eval_split(table, batch_size or self.exp.train.eval_batch_size)
+        return self._evaluate_prepared(prepared)

@@ -131,7 +131,8 @@ def _mlp_with_stats():
 def test_mlp_eval_apply_matches_jax(dtype):
     params, state, x = _mlp_with_stats()
     want, _ = jax_mlp.apply(params, state, jnp.asarray(x, dtype), train=False)
-    got = pt_mlp.apply(to_pt(params), to_pt(state), torch.from_numpy(x).to(getattr(torch, dtype)))
+    got, _ = pt_mlp.apply(
+        to_pt(params), to_pt(state), torch.from_numpy(x).to(getattr(torch, dtype)))
     # bf16: matmuls, BatchNorm and ReLU all in bf16 in both frameworks
     tol = FP32 if dtype == "float32" else dict(atol=5e-2, rtol=2e-2)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
@@ -149,7 +150,7 @@ def test_fold_batch_norm_matches_jax():
     # the folded tower is the eval tower
     folded_state = {"layers": [{}, {}]}
     np.testing.assert_allclose(
-        pt_mlp.apply(got, folded_state, torch.from_numpy(x)).numpy(),
+        pt_mlp.apply(got, folded_state, torch.from_numpy(x))[0].numpy(),
         np.asarray(jax_mlp.apply(params, state, jnp.asarray(x), train=False)[0]),
         **FP32,
     )

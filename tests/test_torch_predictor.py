@@ -290,6 +290,8 @@ def test_importing_the_port_loads_no_jax():
         "import ctr_recommendation_tpu_torch.inference.predictor\n"
         "import ctr_recommendation_tpu_torch.cli.predict\n"
         "import ctr_recommendation_tpu_torch.tools.jax_bridge\n"
+        "import ctr_recommendation_tpu_torch.training.loop\n"
+        "import ctr_recommendation_tpu_torch.cli.train\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ctr_recommendation_tpu')]\n"
         "assert not bad, bad\n"
