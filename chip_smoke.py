@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero and prints no result line.
 
-1. Print the card's name and power limit (nvidia-smi), build the three
+1. Print the card's name and power limit (nvidia-smi), build the four
    kernels from csrc/ with nvcc for sm_90a, one nvcc per source in parallel.
 2. With TF32 off, hold each kernel against its plain PyTorch version at full
    width: the interaction forward and the fused scoring kernel at the
@@ -13,9 +13,16 @@ Phases, in order; any failure exits non-zero and prints no result line.
    (F=6, E=128, tower 2688->512->256->1); the interaction backward at
    B=4096 and 4096+37, with SENet biases on and off, its repeat launch
    bit-identical, and in bf16 the same bar rejecting a control taken at the
-   forward's rounding points. "all" and "each", bf16 and fp32.
+   forward's rounding points. "all" and "each", bf16 and fp32. The SASRec
+   encoder forward at full width (E=128, H=2, S=20, L=1; B=4096, 8192,
+   8192+37) and at E=64, H=4, L=2, B=4133, bf16 and fp32, histories of
+   random pad lengths: within ENC_TOL (and ENC_NORM_TOL in bf16), the pad
+   rows of fused_encode exactly 0, and in bf16 the jnp rounding points
+   (attention.encode) rejected by the same norm bar.
 3. Time each kernel and its plain version with CUDA events (median of 30
-   after warm-up) beside the bound the card sets for the same work.
+   after warm-up) beside the bound the card sets for the same work; for the
+   encoder also nn.TransformerEncoderLayer (the library yardstick, checked
+   against the plain version in fp32 first).
 4. The serving main path at the full microlens_experiment() defaults
    (mm_fibinet, E=128, item vocab 91718, max_len 20, hidden (512, 256),
    bf16): seeded weights with perturbed BatchNorm stats, a seeded item
@@ -24,7 +31,13 @@ Phases, in order; any failure exits non-zero and prints no result line.
    agreement of the two paths, the first 8192 rows against the same
    Predictor on the CPU, and the scoring kernel's launch count on each path.
 5. The unfused branch (fold_bn=False) for a few batches: the interaction
-   kernel runs and agrees with the fused branch.
+   kernel runs and agrees with the fused branch. Then the sasrec_fibinet
+   serving path at its full defaults (E=128, S=20, 2 heads, 1 layer, hidden
+   (512, 256), bf16) on the same item store and rows: score_table and the
+   pipeline with exactly one encoder and one scoring launch a batch, the CSV
+   identical to score_table, the encoder's share of one batch, the CPU
+   Predictor on the first 8192 rows, and 4 unfused batches (encoder +
+   interaction kernel) against the fused branch.
 6. The training main path at the same full defaults (batch 4096, Adam + L2,
    OneCycle, clip 10, dropout 0.2, bf16 with fp32 master weights) on the
    port's high-signal synthetic data (91,717 items; 262,144 train and
@@ -37,7 +50,7 @@ Phases, in order; any failure exits non-zero and prints no result line.
    (device-busy share, kernels a step, the largest device items).
 7. Serve the trained export: Predictor (fused scoring kernel) scores the
    valid split; its AUC equals the trainer's best within 2e-3.
-8. One JSON line describing the three kernels, then the result line.
+8. One JSON line describing the four kernels, then the result line.
 """
 
 from __future__ import annotations
@@ -86,6 +99,17 @@ BWD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0**-7, 2.0**-7)}
 # stays inside the elementwise bar above. The forward-rounding control must
 # fail this bar in every bf16 case.
 BWD_NORM_TOL = 2.0**-12
+# encoder kernel vs its plain version: |d| <= share * max|want| + rtol * |want|
+# elementwise, and in bf16 also |d|/|want| <= ENC_NORM_TOL in norm. fp32
+# differs by summation order only. In bf16 a rounding point (LN output, ao,
+# f1, the output) can land one ulp apart after fp32 sums taken in another
+# order, and such a flip in layer 1 moves what layer 2 computes from it; on
+# the CPU an fp64-accumulated run of the plain version reads 8.9e-5 (E=128,
+# L=1) and 2.5e-4 (E=64, L=2) in norm. The jnp rounding points (bf16 stream,
+# LayerNorm and softmax: attention.encode) read 3.2e-3 and 4.2e-3 there, and
+# must fail the norm bar in every bf16 case.
+ENC_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0**-7, 2.0**-7)}
+ENC_NORM_TOL = 2.0**-10
 CPU_TOL = 2e-2  # card vs CPU run of the same bf16 Predictor (probabilities)
 # one train step's gradients, kernel path vs plain path, fp32 with TF32 off:
 # |d| <= GRAD_TOL * the leaf's largest magnitude + GRAD_FLOOR * the largest
@@ -164,6 +188,31 @@ def make_rows(n: int, seed: int) -> dict[str, np.ndarray]:
     }
 
 
+def check_submission(written, csv_path, zip_path, bulk, tag: str) -> None:
+    """The pipeline's CSV + zip: N_ROWS rows, IDs in order, probabilities
+    finite in (0, 1) and identical to ``bulk`` (score_table's)."""
+    import zipfile
+
+    with open(csv_path) as f:
+        lines = f.read().splitlines()
+    if lines[0] != "ID,Task2" or len(lines) != N_ROWS + 1 or written != N_ROWS:
+        raise SystemExit(f"{tag}: CSV has {len(lines) - 1} rows, header {lines[0]!r}")
+    ids, probs = zip(*(ln.split(",") for ln in lines[1:]))
+    if not np.array_equal(np.asarray(ids, np.int64), np.arange(N_ROWS)):
+        raise SystemExit(f"{tag}: CSV IDs are not 0..N-1 in order")
+    csv_probs = np.asarray(probs, np.float64).astype(np.float32)
+    if not np.isfinite(csv_probs).all() or not ((csv_probs > 0) & (csv_probs < 1)).all():
+        raise SystemExit(f"{tag}: CSV probabilities not finite in (0, 1)")
+    if not np.array_equal(csv_probs, bulk):
+        n_diff = int((csv_probs != bulk).sum())
+        raise SystemExit(f"{tag}: pipeline and score_table disagree on {n_diff} rows")
+    with zipfile.ZipFile(zip_path) as z:
+        if z.namelist() != [os.path.basename(csv_path)]:
+            raise SystemExit(f"{tag}: zip holds {z.namelist()}")
+    log(f"[{tag}] CSV {N_ROWS} rows, IDs in order, probabilities in (0, 1), "
+        f"identical to score_table; zip ok")
+
+
 def where_the_time_goes(torch, pred, rows, bulk, card) -> None:
     """Per-batch device split of the fused scoring step (CUDA events) and
     the pipeline's host stages over the whole split (host clock)."""
@@ -201,6 +250,67 @@ def where_the_time_goes(torch, pred, rows, bulk, card) -> None:
     t_fmt = time.perf_counter() - t0
     log(f"[breakdown] host s for {N_ROWS} rows: wire pack {t_pack:.4f}, "
         f"CSV format {t_fmt:.4f}")
+
+
+def encoder_case(torch, dtype, b: int, e: int, heads: int, layers: int, seed: int, s: int = 20):
+    """The encoder's operands on the card: seeded params (the port's init),
+    a numpy history of random pad lengths (row 0 all pad, row 1 none), and
+    what fused_encode feeds the kernel. Returns (x, amask, pad, weights,
+    params, seq_emb, ids)."""
+    from ctr_recommendation_tpu_torch.ops import attention
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encoder_inputs, stack_weights
+    from ctr_recommendation_tpu_torch.utils.tree import tree_map
+
+    params = attention.init(torch.Generator().manual_seed(seed), e, s, num_heads=heads,
+                            num_layers=layers)
+    params = tree_map(lambda t: t.cuda(), params)
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, s + 1, b)
+    lens[0], lens[1] = 0, s
+    ids = rng.integers(1, 91718, (b, s))
+    ids[np.arange(s)[None, :] < (s - lens)[:, None]] = 0
+    ids = torch.from_numpy(ids).cuda()
+    seq_emb = torch.from_numpy(rng.standard_normal((b, s, e)).astype(np.float32)).to("cuda", dtype)
+    x, amask, pad = encoder_inputs(params, seq_emb, ids)
+    return x, amask, pad, stack_weights(params, dtype), params, seq_emb, ids
+
+
+def check_encoder(torch, got, want, dtype_name):
+    """(max abs err, |d|/|want| in norm, within the bars) of the encoder
+    kernel against a reference output."""
+    atol_share, rtol = ENC_TOL[dtype_name]
+    a, w = got.double(), want.double()
+    err = (a - w).abs()
+    rel_norm = (err.norm() / w.norm()).item()
+    ok = (bool(torch.isfinite(a).all())
+          and not bool((err > atol_share * w.abs().max() + rtol * w.abs()).any())
+          and (dtype_name != "bfloat16" or rel_norm <= ENC_NORM_TOL))
+    return err.max().item(), rel_norm, ok
+
+
+def library_layer(torch, weights, num_heads: int, device="cuda"):
+    """torch.nn.TransformerEncoderLayer computing one encoder layer of the
+    stacked ``weights`` (L=1): the timing yardstick, never on the main path.
+    Pre-LN (norm_first), ReLU FFN of 4E, eps 1e-6, no dropout, eval mode."""
+    qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b = (
+        t[0].float() for t in weights)
+    e = qkv_w.shape[0]
+    layer = torch.nn.TransformerEncoderLayer(
+        d_model=e, nhead=num_heads, dim_feedforward=4 * e, dropout=0.0, activation="relu",
+        layer_norm_eps=1e-6, batch_first=True, norm_first=True, device=device,
+        dtype=weights[0].dtype,
+    ).eval()
+    with torch.no_grad():
+        for param, value in (
+            (layer.self_attn.in_proj_weight, qkv_w.T), (layer.self_attn.in_proj_bias, qkv_b),
+            (layer.self_attn.out_proj.weight, proj_w.T), (layer.self_attn.out_proj.bias, proj_b),
+            (layer.linear1.weight, w1.T), (layer.linear1.bias, b1),
+            (layer.linear2.weight, w2.T), (layer.linear2.bias, b2),
+            (layer.norm1.weight, ln1_s), (layer.norm1.bias, ln1_b),
+            (layer.norm2.weight, ln2_s), (layer.norm2.bias, ln2_b),
+        ):
+            param.copy_(value)
+    return layer
 
 
 BWD_OUTPUTS = ("dx", "dW1", "db1", "dW2", "db2", "dW_bi")
@@ -325,6 +435,205 @@ def step_split(torch, trainer, train, card, reps: int = 10, profiled: int = 3) -
         + str([(e.key[:70], round(e.self_device_time_total / profiled / 1e3, 4)) for e in top]))
 
 
+ENC_CASES = [(128, 2, 1, b) for b in (B_TRAIN, B_FULL, B_RAGGED)] + [(64, 4, 2, B_TRAIN + 37)]
+ENC_E, ENC_H, ENC_S = 128, 2, 20  # sasrec_fibinet's defaults: E, heads, max_len
+LIB_TOL = 1e-4  # nn.TransformerEncoderLayer vs the plain version, fp32, TF32 off
+
+
+def encoder_against_plain(torch) -> tuple[float, list]:
+    """Phase 2 for the encoder: the kernel against its plain version at full
+    width (E=128, H=2, L=1; B=4096, 8192, 8192+37) and a second shape (E=64,
+    H=4, L=2, B=4133), bf16 and fp32; pad rows of fused_encode exactly 0; in
+    bf16 the jnp rounding points (attention.encode) must fail the norm bar.
+    Returns (worst max_abs_err, failures)."""
+    from ctr_recommendation_tpu_torch.ops import attention
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        encode_fwd,
+        encode_fwd_plain,
+        fused_encode,
+    )
+
+    worst, failures = 0.0, []
+    for e, heads, layers, b in ENC_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            x, amask, pad, ws, params, seq_emb, ids = encoder_case(
+                torch, dtype, b, e, heads, layers, seed=b + e)
+            got = encode_fwd(x, amask, *ws, num_heads=heads)
+            want = encode_fwd_plain(x, amask, *ws, num_heads=heads)
+            fused = fused_encode(params, seq_emb, ids, num_heads=heads)
+            torch.cuda.synchronize()
+            err, rel_norm, ok = check_encoder(torch, got, want, dn)
+            zeroed = torch.where(pad[..., None], torch.zeros((), dtype=dtype, device="cuda"), got)
+            pads_zero = bool((fused[pad] == 0).all()) and bool((fused[0] == 0).all())
+            ok = ok and pads_zero and torch.equal(fused, zeroed)
+            worst = max(worst, err)
+            control = ""
+            if dtype == torch.bfloat16:
+                ctl = attention.encode(params, seq_emb, ids, num_heads=heads)
+                _, c_norm, _ = check_encoder(torch, zeroed, ctl, dn)
+                ok = ok and c_norm > ENC_NORM_TOL
+                control = (f"; jnp-rounding control |d|/|want| {c_norm:.3e} "
+                           f"{'rejected' if c_norm > ENC_NORM_TOL else 'NOT REJECTED'}")
+            atol_share, rtol = ENC_TOL[dn]
+            log(f"[compare] sasrec_encoder_fwd E={e} H={heads} L={layers} {dn} B={b}: "
+                f"max_abs_err={err:.3e} (|d| <= {atol_share:g}*max|want| + {rtol:g}*|want|), "
+                f"|d|/|want| {rel_norm:.3e} (bf16 bar {ENC_NORM_TOL:.3e}), pad rows of "
+                f"fused_encode exactly 0: {pads_zero}{control} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("sasrec_encoder_fwd", e, heads, layers, dn, b))
+    return worst, failures
+
+
+def encoder_timing(torch, card) -> dict:
+    """Phase 3 for the encoder at B=8192, bf16, L=1: kernel, plain version and
+    nn.TransformerEncoderLayer (checked first against the plain version in
+    fp32 on every history with a real step), CUDA events, beside the bound."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_fwd, encode_fwd_plain
+
+    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.float32, B_FULL, ENC_E, ENC_H, 1, 3)
+    real = ~pad.all(-1)
+    with torch.inference_mode():
+        lib = library_layer(torch, ws, ENC_H)(x, src_key_padding_mask=pad)
+    want = encode_fwd_plain(x, amask, *ws, num_heads=ENC_H)
+    lib_err = (lib[real] - want[real]).abs().max().item()
+    log(f"[compare] nn.TransformerEncoderLayer fp32 vs encode_fwd_plain on the "
+        f"{int(real.sum())} histories with a real step: max_abs_err={lib_err:.3e} "
+        f"(tolerance {LIB_TOL:g})")
+    if not lib_err <= LIB_TOL:
+        raise SystemExit("the library yardstick does not compute the encoder's function")
+
+    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.bfloat16, B_FULL, ENC_E, ENC_H, 1, 4)
+    layer = library_layer(torch, ws, ENC_H)
+    tokens = B_FULL * ENC_S
+    ops = 2 * tokens * (12 * ENC_E * ENC_E + 2 * ENC_S * ENC_E)
+    nbytes = 2 * 2 * x.numel() + 4 * amask.numel() + sum(t.numel() * t.element_size() for t in ws)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+    with torch.inference_mode():
+        t = {
+            "ms": time_ms(torch, lambda: encode_fwd(x, amask, *ws, num_heads=ENC_H)),
+            "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, num_heads=ENC_H)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(torch, lambda: layer(x, src_key_padding_mask=pad)),
+        }
+    log(f"[time] sasrec_encoder_fwd bf16 B={B_FULL} S={ENC_S} E={ENC_E} H={ENC_H} L=1: {t} "
+        f"(bytes {nbytes}, ops {ops}; library: nn.TransformerEncoderLayer, bf16) on {card}")
+    return t
+
+
+def serve_sasrec(torch, store, rows, card) -> int:
+    """The sasrec_fibinet serving path at the full microlens_experiment()
+    defaults: score_table, the pipeline, the CPU Predictor and the unfused
+    branch, with exact launch counts. Returns the pipeline's encoder launches."""
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.data import TableData
+    from ctr_recommendation_tpu_torch.data.device_store import device_join
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.inference import Predictor, run_submission_pipeline
+    from ctr_recommendation_tpu_torch.models import build_model, trunk
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        encode_fwd,
+        encoder_inputs,
+        stack_weights,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd
+
+    exp = microlens_experiment(data_root="", model="sasrec_fibinet")
+    fm = build_feature_map(exp.dataset)
+    _, params, state = build_model(fm, exp.model, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(8)
+    for st in state["mlp"]["layers"]:  # BatchNorm stats off init: the fold is real
+        d = st["bn_mean"].shape[0]
+        st["bn_mean"] = torch.from_numpy(rng.normal(0, 0.1, d).astype(np.float32))
+        st["bn_var"] = torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32))
+    pred = Predictor(exp, params, state, item_store=store)
+    if not pred.use_fused:
+        raise SystemExit("sasrec_fibinet at its defaults must take the fused branch")
+    n_batches = N_ROWS // B_FULL
+    head = {k: v[:B_FULL] for k, v in rows.items()}
+
+    def counts():
+        return encode_fwd.launches, score_fwd.launches, interaction_fwd.launches
+
+    pred.score_table(TableData(head, B_FULL), B_FULL)  # warm-up
+    torch.cuda.synchronize()
+    encode_fwd.launches = score_fwd.launches = interaction_fwd.launches = 0
+    t0 = time.perf_counter()
+    bulk = pred.score_table(TableData(rows, N_ROWS), B_FULL)
+    t_bulk = time.perf_counter() - t0
+    log(f"[sasrec] score_table: {N_ROWS} rows in {t_bulk:.4f} s = {N_ROWS / t_bulk:.0f} rows/s "
+        f"on {card}; launches (encode_fwd, fused_score, interaction_fwd) {counts()}")
+    if counts() != (n_batches, n_batches, 0):
+        raise SystemExit(f"sasrec score_table launches {counts()}, expected "
+                         f"({n_batches}, {n_batches}, 0)")
+    if bulk.shape != (N_ROWS,) or not ((bulk > 0) & (bulk < 1)).all():
+        raise SystemExit("sasrec score_table probabilities not in (0, 1) of shape (N,)")
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        chunks = ({k: v[s : s + CHUNK_ROWS] for k, v in rows.items()}
+                  for s in range(0, N_ROWS, CHUNK_ROWS))
+        encode_fwd.launches = score_fwd.launches = interaction_fwd.launches = 0
+        t0 = time.perf_counter()
+        written, csv_path, zip_path = run_submission_pipeline(
+            chunks, pred, out_dir, batch_size=B_FULL, chunk_rows=CHUNK_ROWS)
+        t_pipe = time.perf_counter() - t0
+        pipe_launches = counts()
+        log(f"[sasrec] pipeline: {written} rows in {t_pipe:.4f} s = {written / t_pipe:.0f} "
+            f"rows/s to CSV+zip on {card}; launches {pipe_launches}")
+        if pipe_launches != (n_batches, n_batches, 0):
+            raise SystemExit(f"sasrec pipeline launches {pipe_launches}")
+        check_submission(written, csv_path, zip_path, bulk, "sasrec")
+
+    # the encoder's share of one batch (CUDA events)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in head.items()}
+    feats = device_join(dict(batch), pred._mm_tables, pred._join_plan)
+    tables = pred.params["trunk"]["tables"]
+    seq_emb = trunk._gather(tables[fm.table_of["item_seq"]], feats["item_seq"]).to(
+        pred.compute_dtype)
+    attn_params = pred.params["trunk"]["attn"]["item_seq"]
+    x, amask, _ = encoder_inputs(attn_params, seq_emb, feats["item_seq"])
+    ws = stack_weights(attn_params, x.dtype)
+    with torch.inference_mode():
+        split = {
+            "whole step": time_ms(torch, lambda: pred._score(batch)),
+            "join + trunk (encoder included)": time_ms(torch, lambda: trunk.apply(
+                pred.params["trunk"], fm, exp.model, device_join(dict(batch), pred._mm_tables,
+                                                                 pred._join_plan),
+                seq_pooling="attention", compute_dtype=pred.compute_dtype)),
+            "encoder kernel": time_ms(torch, lambda: encode_fwd(x, amask, *ws,
+                                                                num_heads=ENC_H)),
+        }
+    log(f"[breakdown] sasrec_fibinet device ms per {B_FULL}-row batch: {split} on {card}")
+
+    cpu_pred = Predictor(exp, params, state, item_store=store, device="cpu")
+    cpu_probs = cpu_pred.score_table(TableData(head, B_FULL), B_FULL)
+    cpu_err = float(np.abs(cpu_probs - bulk[:B_FULL]).max())
+    log(f"[sasrec] first {B_FULL} rows vs the CPU Predictor: max_abs_err={cpu_err:.3e} "
+        f"(tolerance {CPU_TOL})")
+    if cpu_err > CPU_TOL:
+        raise SystemExit("sasrec: card and CPU Predictor disagree")
+
+    unfused = Predictor(exp, params, state, item_store=store, fold_bn=False)
+    n_unfused = 4
+    encode_fwd.launches = score_fwd.launches = interaction_fwd.launches = 0
+    got = np.concatenate([
+        unfused({k: v[i * B_FULL : (i + 1) * B_FULL] for k, v in rows.items()}).cpu().numpy()
+        for i in range(n_unfused)
+    ])
+    unfused_err = float(np.abs(got - bulk[: n_unfused * B_FULL]).max())
+    log(f"[sasrec unfused] {n_unfused} batches: launches (encode_fwd, fused_score, "
+        f"interaction_fwd) {counts()}, max_abs_err vs fused {unfused_err:.3e} "
+        f"(tolerance {CPU_TOL})")
+    if counts() != (n_unfused, 0, n_unfused):
+        raise SystemExit("the sasrec unfused branch did not run encoder + interaction once a batch")
+    if unfused_err > CPU_TOL:
+        raise SystemExit("sasrec unfused and fused branches disagree")
+    return pipe_launches[0]
+
+
 def main() -> int:
     import torch
 
@@ -416,6 +725,8 @@ def main() -> int:
                         f"{'ok' if ok else f'FAIL {bad}'}")
                     if not ok:
                         failures.append(("interaction_bwd", btype, dn, b, use_bias))
+    worst["sasrec_encoder_fwd"], enc_failures = encoder_against_plain(torch)
+    failures += enc_failures
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
 
@@ -478,6 +789,7 @@ def main() -> int:
     log(f"[time] yardstick, not the same function: one bf16 torch.matmul "
         f"({B_FULL}x{cdim})x({cdim}x{h1}) {mm_ms:.4f} ms on {card}")
     del c, x, sw, w_bi, tower
+    timing[("sasrec_encoder_fwd", "all")] = encoder_timing(torch, card)
 
     # ---- phase 4: the serving main path ----
     from ctr_recommendation_tpu_torch.config import microlens_experiment
@@ -539,26 +851,7 @@ def main() -> int:
         if pipe_launches != n_batches:
             raise SystemExit(f"pipeline launched {pipe_launches} scoring kernels, "
                              f"expected {n_batches}")
-        with open(csv_path) as f:
-            lines = f.read().splitlines()
-        if lines[0] != "ID,Task2" or len(lines) != N_ROWS + 1 or written != N_ROWS:
-            raise SystemExit(f"CSV has {len(lines) - 1} rows, header {lines[0]!r}")
-        ids, probs = zip(*(ln.split(",") for ln in lines[1:]))
-        if not np.array_equal(np.asarray(ids, np.int64), np.arange(N_ROWS)):
-            raise SystemExit("CSV IDs are not 0..N-1 in order")
-        csv_probs = np.asarray(probs, np.float64).astype(np.float32)
-        if not np.isfinite(csv_probs).all() or not ((csv_probs > 0) & (csv_probs < 1)).all():
-            raise SystemExit("CSV probabilities not finite in (0, 1)")
-        if not np.array_equal(csv_probs, bulk):
-            n_diff = int((csv_probs != bulk).sum())
-            raise SystemExit(f"pipeline and score_table disagree on {n_diff} rows")
-        import zipfile
-
-        with zipfile.ZipFile(zip_path) as z:
-            if z.namelist() != [os.path.basename(csv_path)]:
-                raise SystemExit(f"zip holds {z.namelist()}")
-        log(f"[main] CSV {N_ROWS} rows, IDs in order, probabilities in (0, 1), "
-            f"identical to score_table; zip ok")
+        check_submission(written, csv_path, zip_path, bulk, "main")
 
     where_the_time_goes(torch, pred, rows, bulk, card)
 
@@ -587,6 +880,9 @@ def main() -> int:
         raise SystemExit("the unfused branch did not run the interaction kernel once a batch")
     if unfused_err > CPU_TOL:
         raise SystemExit("unfused and fused branches disagree")
+
+    # ---- phase 5b: the sasrec_fibinet serving path (encoder kernel) ----
+    enc_launches = serve_sasrec(torch, store, rows, card)
 
     # ---- phase 6: the training main path ----
     from ctr_recommendation_tpu_torch.data import synthetic_splits
@@ -669,6 +965,11 @@ def main() -> int:
          "replaces": "ctr_recommendation_tpu/ops/pallas/scoring.py:36",
          "launches": pipe_launches, "max_abs_err": worst["fused_score"],
          **timing[("fused_score", "all")], "library_ms": None},
+        {"name": "sasrec_encoder_fwd", "route": "cuda",
+         "source": "ctr_recommendation_tpu_torch/csrc/sasrec_encoder.cu",
+         "replaces": "ctr_recommendation_tpu/ops/pallas/sasrec_encoder.py:220",
+         "launches": enc_launches, "max_abs_err": worst["sasrec_encoder_fwd"],
+         **timing[("sasrec_encoder_fwd", "all")]},
     ]
     print(json.dumps({"kernels": kernels}))
     name = torch.cuda.get_device_name(0)

@@ -9,7 +9,11 @@ a JAX export with tools/jax_bridge.py (reading the orbax export itself needs
 JAX).
 
     python -m ctr_recommendation_tpu_torch.cli.predict --data-root DIR \\
-        --checkpoint-dir CKPT [--weights weights.npz] [--device cuda]
+        --checkpoint-dir CKPT [--model sasrec_fibinet] [--weights weights.npz] \\
+        [--device cuda]
+
+``sasrec_fibinet`` serves with ``--weights`` made from a JAX export (the
+port does not train it yet); its history runs through the encoder kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import os
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Batch scoring + submission (PyTorch port)")
     p.add_argument("--data-root", required=True)
-    p.add_argument("--model", default="mm_fibinet")
+    p.add_argument("--model", default=None,
+                   help="mm_fibinet (default) | fibinet | sasrec_fibinet; with an "
+                        "experiment.json in --checkpoint-dir it must name the model there")
     p.add_argument("--checkpoint-dir", default="checkpoints",
                    help="read for experiment.json and best/export.npz, when present")
     p.add_argument("--out-dir", default="output")
@@ -54,6 +60,8 @@ def main(argv=None) -> int:
     if os.path.exists(exp_json):
         # checkpoint is self-describing: rebuild the exact trained model
         exp = serialize.load(exp_json)
+        if args.model and args.model.lower() != exp.model.model.lower():
+            p.error(f"--model {args.model}, but {exp_json} describes {exp.model.model}")
         root = args.data_root
         exp = exp.replace(
             dataset=dataclasses.replace(
@@ -68,7 +76,9 @@ def main(argv=None) -> int:
         overrides = {}
         if args.embedding_dim:
             overrides["embedding_dim"] = args.embedding_dim
-        exp = microlens_experiment(data_root=args.data_root, model=args.model, **overrides)
+        exp = microlens_experiment(
+            data_root=args.data_root, model=args.model or "mm_fibinet", **overrides
+        )
     fm = build_feature_map(exp.dataset)
 
     store = ItemStore.from_parquet(

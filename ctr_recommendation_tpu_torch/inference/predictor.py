@@ -7,7 +7,10 @@
 * with ``use_pallas`` and a 2-layer tower, the whole interaction + tower runs
   as the fused scoring kernel (ops/cuda/scoring.py); otherwise the model's
   eval forward runs, with the interaction kernel (ops/cuda/interaction.py)
-  when ``use_pallas`` is set.
+  when ``use_pallas`` is set;
+* for ``sasrec_fibinet`` the trunk runs the history through the encoder
+  kernel (ops/cuda/sasrec_encoder.py) when ``use_pallas`` is set, on both
+  branches.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ class Predictor:
         self.use_fused = (
             cfg.use_pallas
             and self._fold_bn
-            and cfg.model in ("fibinet", "mm_fibinet")
+            and cfg.model in ("fibinet", "mm_fibinet", "sasrec_fibinet")
             and len(cfg.hidden_units) == 2
             and "mlp" in self.params
         )

@@ -18,11 +18,13 @@ from ctr_recommendation_tpu_torch.ops.interaction import senet_bilinear_concat
 SEQ_POOLING = "mean"
 
 
-def init(gen: torch.Generator, fm: FeatureMap, cfg: ModelConfig) -> tuple[dict, dict]:
+def init(
+    gen: torch.Generator, fm: FeatureMap, cfg: ModelConfig, *, seq_pooling: str = SEQ_POOLING
+) -> tuple[dict, dict]:
     """(params, state) on the CPU, drawn from ``gen`` in a fixed order."""
     f, e = fm.num_fields, cfg.embedding_dim
     params = {
-        "trunk": trunk.init(gen, fm, cfg, seq_pooling=SEQ_POOLING),
+        "trunk": trunk.init(gen, fm, cfg, seq_pooling=seq_pooling),
         "senet": senet_ops.init(gen, f, cfg.senet_reduction, cfg.senet_bias),
         "bilinear": bilinear_ops.init(gen, e, f, cfg.bilinear_type),
     }
@@ -44,6 +46,7 @@ def apply(
     generator: torch.Generator | None = None,
     compute_dtype: torch.dtype = torch.float32,
     weight: torch.Tensor | None = None,
+    seq_pooling: str = SEQ_POOLING,
 ) -> tuple[torch.Tensor, dict]:
     """batch -> (logits (B,) fp32, new_state). The interaction runs on the
     fused kernels (forward and backward) when ``cfg.use_pallas`` is set (their
@@ -52,7 +55,7 @@ def apply(
     out) and dropout draws from ``generator``."""
     x = trunk.apply(
         params["trunk"], fm, cfg, batch,
-        seq_pooling=SEQ_POOLING, compute_dtype=compute_dtype,
+        seq_pooling=seq_pooling, compute_dtype=compute_dtype,
     )
     h = senet_bilinear_concat(
         params["senet"], params["bilinear"], x,

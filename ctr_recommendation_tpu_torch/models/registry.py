@@ -4,7 +4,7 @@ Every registered model implements
     init(gen, feature_map, model_cfg) -> (params, state)
     apply(params, state, feature_map, model_cfg, batch, *, train, generator,
           compute_dtype, weight) -> (logits (B,), new_state)
-Only the FiBiNET family is ported so far.
+Ported so far: the FiBiNET family and sasrec_fibinet (eval only).
 """
 
 from __future__ import annotations
@@ -15,9 +15,11 @@ import torch
 
 from ctr_recommendation_tpu_torch.config.schema import ModelConfig
 from ctr_recommendation_tpu_torch.features.feature_map import FeatureMap
-from ctr_recommendation_tpu_torch.models import fibinet
+from ctr_recommendation_tpu_torch.models import fibinet, sasrec_fibinet
 
-_REGISTRY: dict[str, types.ModuleType] = {"fibinet": fibinet, "mm_fibinet": fibinet}
+_REGISTRY: dict[str, types.ModuleType] = {
+    "fibinet": fibinet, "mm_fibinet": fibinet, "sasrec_fibinet": sasrec_fibinet,
+}
 
 
 def get_model(name: str) -> types.ModuleType:

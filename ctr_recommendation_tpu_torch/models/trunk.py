@@ -4,8 +4,11 @@ Embedding tables built from the feature map (shared tables, zeroed pad rows,
 rows padded to a multiple of 128 as in the JAX package), dense multimodal
 vectors projected through Linear -> LayerNorm -> ReLU (the reference's
 model_fibinet.py:105-109), placeholder fields as zeros (:152) and sequence
-fields pooled by masked mean (:165-174). Only the mean-pooling branch is
-ported; the attention and DIN branches raise NotImplementedError.
+fields pooled by masked mean (:165-174) or by SASRec-style target-aware
+attention (``sasrec_fibinet``): the history runs through the transformer
+encoder (the encoder kernel when ``use_pallas``, else ``attention.encode``)
+and the candidate item queries it. The DIN branch raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import torch
 
 from ctr_recommendation_tpu_torch.config.schema import FeatureType, ModelConfig
 from ctr_recommendation_tpu_torch.features.feature_map import FeatureMap
-from ctr_recommendation_tpu_torch.ops import pooling
+from ctr_recommendation_tpu_torch.ops import attention, pooling
+from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import fused_encode
 from ctr_recommendation_tpu_torch.ops.initializers import (
     embedding_init,
     linear_apply,
@@ -30,9 +34,9 @@ def round_up_vocab(vocab_size: int, multiple: int = VOCAB_ROUND) -> int:
 
 
 def _check_pooling(seq_pooling: str) -> None:
-    if seq_pooling != "mean":
+    if seq_pooling not in ("mean", "attention"):
         raise NotImplementedError(
-            f"seq_pooling={seq_pooling!r} is not ported yet; only 'mean' is"
+            f"seq_pooling={seq_pooling!r} is not ported yet; 'mean' and 'attention' are"
         )
 
 
@@ -54,6 +58,13 @@ def init(
             "proj": linear_init(gen, f.dense_dim, e),
             "ln_scale": torch.ones(e),
             "ln_bias": torch.zeros(e),
+        }
+    if seq_pooling == "attention":
+        params["attn"] = {
+            f.name: attention.init(
+                gen, e, f.max_len, num_heads=cfg.attn_num_heads, num_layers=cfg.attn_num_layers
+            )
+            for f in fm.features_of_type(FeatureType.SEQUENCE)
         }
     return params
 
@@ -88,7 +99,9 @@ def apply(
 ) -> torch.Tensor:
     """batch dict -> field stack (B, F, E) in compute_dtype, fields in
     feature-map order. Mean-pooled sequences are gathered transposed,
-    (S, B, E), and reduced over the leading axis by ``masked_mean_t``."""
+    (S, B, E), and reduced over the leading axis by ``masked_mean_t``;
+    attention-pooled ones in (B, S) order, encoded, then pooled by
+    ``attention.target_pool`` with the candidate item as the query."""
     _check_pooling(seq_pooling)
     e = cfg.embedding_dim
     batch_size = next(
@@ -98,24 +111,51 @@ def apply(
         raise ValueError("batch contains none of the feature-map features")
     device = next(iter(params["tables"].values())).device
 
-    fields = []
+    field_of: dict[str, torch.Tensor] = {}  # feature name -> its field
     for f in fm.features:
         if f.type == FeatureType.PLACEHOLDER:
-            fields.append(torch.zeros(batch_size, e, dtype=compute_dtype, device=device))
+            field = torch.zeros(batch_size, e, dtype=compute_dtype, device=device)
         elif f.type == FeatureType.CATEGORICAL:
             emb = _gather(params["tables"][fm.table_of[f.name]], batch[f.name])
-            fields.append(emb.to(compute_dtype))
+            field = emb.to(compute_dtype)
         elif f.type == FeatureType.DENSE_EMBEDDING:
             p = params["dense"][f.name]
             h = linear_apply(p["proj"], batch[f.name].float())
             h = _layer_norm(h, p["ln_scale"], p["ln_bias"])
-            fields.append(torch.relu(h).to(compute_dtype))
-        elif f.type == FeatureType.SEQUENCE:
+            field = torch.relu(h).to(compute_dtype)
+        elif f.type == FeatureType.SEQUENCE and seq_pooling == "mean":
             seq_ids_t = batch[f.name].t()
             seq_emb = _gather(params["tables"][fm.table_of[f.name]], seq_ids_t)
-            fields.append(
-                pooling.masked_mean_t(seq_emb.to(compute_dtype), seq_ids_t, f.pad_id)
-            )
+            field = pooling.masked_mean_t(seq_emb.to(compute_dtype), seq_ids_t, f.pad_id)
+        elif f.type == FeatureType.SEQUENCE:
+            field = _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype)
         else:
             raise ValueError(f"unsupported feature type {f.type}")
-    return torch.stack(fields, dim=1)
+        field_of[f.name] = field
+    return torch.stack(list(field_of.values()), dim=1)
+
+
+def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype):
+    """The attention-pooled field of sequence feature ``f``. The query is the
+    field of the CATEGORICAL feature that shares the sequence's table
+    (item_id for item_seq), already gathered when it comes first; else a
+    fresh lookup of that feature; else the masked mean of the history."""
+    table = fm.table_of[f.name]
+    seq_ids = batch[f.name]
+    seq_emb = _gather(params["tables"][table], seq_ids).to(compute_dtype)
+    target_feat = next(
+        (g.name for g in fm.features
+         if g.type == FeatureType.CATEGORICAL and fm.table_of.get(g.name) == table
+         and g.name in batch),
+        None,
+    )
+    if target_feat in field_of:
+        target = field_of[target_feat]
+    elif target_feat is not None:
+        target = _gather(params["tables"][table], batch[target_feat]).to(compute_dtype)
+    else:
+        target = pooling.masked_mean(seq_emb, seq_ids, f.pad_id)
+    p = params["attn"][f.name]
+    encode = fused_encode if cfg.use_pallas else attention.encode
+    encoded = encode(p, seq_emb, seq_ids, num_heads=cfg.attn_num_heads, pad_id=f.pad_id)
+    return attention.target_pool(p, encoded, seq_ids, target, pad_id=f.pad_id)

@@ -1,0 +1,123 @@
+"""SASRec-style self-attention pooling over the click history.
+
+The JAX package's ``ops/attention.py`` on the port: learned positional
+embeddings + N pre-LayerNorm transformer blocks (MHSA + pointwise FFN) over
+the history, then target-aware pooling, where the candidate item queries
+the encoded history. ``encode`` computes in the activation dtype, LayerNorm
+and softmax included, exactly as the JAX ``encode`` does; it is the oracle
+for ``use_pallas=False``. The kernel path (``ops/cuda/sasrec_encoder.py``)
+keeps the stream, LayerNorm and attention in fp32 instead.
+
+Pad steps are masked with -1e9 before the softmax (never -inf, so a history
+that is all pad stays finite); ``target_pool`` gives zeros for such a row.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ctr_recommendation_tpu_torch.ops.initializers import linear_apply, linear_init
+
+NEG_INF = -1e9
+LN_EPS = 1e-6
+
+
+def init(
+    gen: torch.Generator,
+    emb_dim: int,
+    max_len: int,
+    num_heads: int = 2,
+    num_layers: int = 1,
+) -> dict:
+    """pos_emb 0.02 N(0, 1) (max_len, E); per block qkv (E, 3E) laid out
+    [q | k | v], proj (E, E), ffn1 (E, 4E), ffn2 (4E, E), two LayerNorms;
+    then pool_q (E, E). ``blocks`` is a list, as in JAX."""
+    if emb_dim % num_heads:
+        raise ValueError(f"emb_dim {emb_dim} not divisible by num_heads {num_heads}")
+    params: dict = {
+        "pos_emb": 0.02 * torch.randn(max_len, emb_dim, generator=gen),
+        "blocks": [],
+    }
+    for _ in range(num_layers):
+        params["blocks"].append({
+            "qkv": linear_init(gen, emb_dim, 3 * emb_dim),
+            "proj": linear_init(gen, emb_dim, emb_dim),
+            "ln1_scale": torch.ones(emb_dim),
+            "ln1_bias": torch.zeros(emb_dim),
+            "ffn1": linear_init(gen, emb_dim, 4 * emb_dim),
+            "ffn2": linear_init(gen, 4 * emb_dim, emb_dim),
+            "ln2_scale": torch.ones(emb_dim),
+            "ln2_bias": torch.zeros(emb_dim),
+        })
+    params["pool_q"] = linear_init(gen, emb_dim, emb_dim)
+    return params
+
+
+def layer_norm(x, scale, bias, eps=LN_EPS):
+    """Biased variance; computed in x's dtype (the parameters promote the
+    affine part to fp32, as in JAX)."""
+    mean = x.mean(-1, keepdim=True)
+    var = x.var(-1, unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def _sqrt(n: int, dtype: torch.dtype) -> torch.Tensor:
+    """sqrt(n) taken in fp32 and cast to ``dtype``, as ``jnp.sqrt(n).astype``."""
+    return torch.sqrt(torch.tensor(float(n))).to(dtype)
+
+
+def _mhsa(block, h, pad_mask, num_heads):
+    b, s, e = h.shape
+    d = e // num_heads
+    qkv = linear_apply(block["qkv"], h).reshape(b, s, 3, num_heads, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, S, H, D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / _sqrt(d, h.dtype)
+    logits = logits.masked_fill(pad_mask[:, None, None, :], NEG_INF)
+    attn = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, s, e)
+    return linear_apply(block["proj"], out)
+
+
+def encode(
+    params: dict,
+    seq_emb: torch.Tensor,
+    seq_ids: torch.Tensor,
+    *,
+    num_heads: int,
+    pad_id: int = 0,
+) -> torch.Tensor:
+    """seq_emb (B, S, E), seq_ids (B, S) -> encoded history (B, S, E), eval
+    (no dropout). Pad rows are zeroed before the first layer and after each."""
+    s = seq_emb.shape[-2]
+    pad_mask = seq_ids == pad_id
+    zero = torch.zeros((), dtype=seq_emb.dtype, device=seq_emb.device)
+    h = seq_emb + params["pos_emb"][:s].to(seq_emb.dtype)
+    h = torch.where(pad_mask[..., None], zero, h)
+    for block in params["blocks"]:
+        hn = layer_norm(h, block["ln1_scale"], block["ln1_bias"]).to(h.dtype)
+        h = h + _mhsa(block, hn, pad_mask, num_heads)
+        hn = layer_norm(h, block["ln2_scale"], block["ln2_bias"]).to(h.dtype)
+        h = h + linear_apply(block["ffn2"], torch.relu(linear_apply(block["ffn1"], hn)))
+        h = torch.where(pad_mask[..., None], zero, h)
+    return h
+
+
+def target_pool(
+    params: dict,
+    encoded: torch.Tensor,
+    seq_ids: torch.Tensor,
+    target_emb: torch.Tensor,
+    *,
+    pad_id: int = 0,
+) -> torch.Tensor:
+    """The candidate item queries the encoded history: encoded (B, S, E),
+    target_emb (B, E) -> (B, E) in encoded's dtype. All-pad rows -> zeros."""
+    e = encoded.shape[-1]
+    q = linear_apply(params["pool_q"], target_emb)  # (B, E)
+    logits = torch.einsum("be,bse->bs", q, encoded) / _sqrt(e, encoded.dtype)
+    pad_mask = seq_ids == pad_id
+    logits = logits.masked_fill(pad_mask, NEG_INF)
+    attn = torch.softmax(logits, dim=-1)
+    pooled = torch.einsum("bs,bse->be", attn, encoded)
+    any_real = (~pad_mask).any(-1, keepdim=True)
+    return torch.where(any_real, pooled, torch.zeros((), dtype=pooled.dtype, device=pooled.device))

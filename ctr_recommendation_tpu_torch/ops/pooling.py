@@ -9,6 +9,16 @@ from __future__ import annotations
 import torch
 
 
+def masked_mean(
+    seq_emb: torch.Tensor, seq_ids: torch.Tensor, pad_id: int = 0
+) -> torch.Tensor:
+    """seq_emb (B, S, E), seq_ids (B, S) -> (B, E), in seq_emb's dtype."""
+    mask = (seq_ids != pad_id).to(seq_emb.dtype)  # (B, S)
+    total = (seq_emb * mask[..., None]).sum(-2)
+    count = mask.sum(-1, keepdim=True).clamp(min=1.0)
+    return total / count
+
+
 def masked_mean_t(
     seq_emb: torch.Tensor, seq_ids: torch.Tensor, pad_id: int = 0
 ) -> torch.Tensor:

@@ -275,6 +275,10 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    for module in ("ops/attention.py", "ops/cuda/sasrec_encoder.py", "models/sasrec_fibinet.py",
+                   "ops/cuda/build.py", "ops/cuda/scoring.py", "ops/cuda/interaction.py"):
+        assert PORT / module in files, module
+    assert (PORT / "csrc" / "sasrec_encoder.cu").exists()
     bad = [
         (str(f.relative_to(REPO)), m)
         for f in files
@@ -292,6 +296,9 @@ def test_importing_the_port_loads_no_jax():
         "import ctr_recommendation_tpu_torch.tools.jax_bridge\n"
         "import ctr_recommendation_tpu_torch.training.loop\n"
         "import ctr_recommendation_tpu_torch.cli.train\n"
+        "import ctr_recommendation_tpu_torch.ops.attention\n"
+        "import ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder\n"
+        "import ctr_recommendation_tpu_torch.models.sasrec_fibinet\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ctr_recommendation_tpu')]\n"
         "assert not bad, bad\n"
@@ -305,9 +312,18 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch, tiny_experiment, ti
     from ctr_recommendation_tpu_torch.utils.device import resolve_device
 
     _, _, _, pexp, pparams, pstate = _setup(tiny_experiment, tiny_feature_map, "all", "bfloat16")
+    from ctr_recommendation_tpu_torch.models import build_model
+
+    sexp = pexp.replace(model=dataclasses.replace(pexp.model, model="sasrec_fibinet"))
+    _, sparams, sstate = build_model(
+        pt_build_fm(sexp.dataset), sexp.model, torch.Generator().manual_seed(0)
+    )
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Predictor(pexp, pparams, pstate)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(sexp, sparams, sstate)
+    assert Predictor(sexp, sparams, sstate, device="cpu").use_fused
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
