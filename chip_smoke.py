@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero and prints no result line.
 
-1. Print the card's name and power limit (nvidia-smi), build the four
+1. Print the card's name and power limit (nvidia-smi), build the five
    kernels from csrc/ with nvcc for sm_90a, one nvcc per source in parallel.
 2. With TF32 off, hold each kernel against its plain PyTorch version at full
    width: the interaction forward and the fused scoring kernel at the
@@ -18,11 +18,19 @@ Phases, in order; any failure exits non-zero and prints no result line.
    8192+37) and at E=64, H=4, L=2, B=4133, bf16 and fp32, histories of
    random pad lengths: within ENC_TOL (and ENC_NORM_TOL in bf16), the pad
    rows of fused_encode exactly 0, and in bf16 the jnp rounding points
-   (attention.encode) rejected by the same norm bar.
+   (attention.encode) rejected by the same norm bar. The same cases with
+   dropout 0.1 under two seeds against encode_fwd_plain with the same
+   seeds, rate 0 bit-identical to the eval launch, and the kernel's own
+   mask read back equal to dropout_mask with its kept share within 6 sigma.
+   The encoder backward at E=128, H=2, L=1 (B=4096, 4133) and E=64, H=4,
+   L=2 (B=4133), rate 0 and 0.1, bf16 and fp32: within ENC_BWD_TOL and the
+   norm bars, its repeat bit-identical, and in bf16 the fp32-operand
+   control rejected.
 3. Time each kernel and its plain version with CUDA events (median of 30
    after warm-up) beside the bound the card sets for the same work; for the
    encoder also nn.TransformerEncoderLayer (the library yardstick, checked
-   against the plain version in fp32 first).
+   against the plain version in fp32 first): its forward, and for the
+   backward its forward + backward minus its forward.
 4. The serving main path at the full microlens_experiment() defaults
    (mm_fibinet, E=128, item vocab 91718, max_len 20, hidden (512, 256),
    bf16): seeded weights with perturbed BatchNorm stats, a seeded item
@@ -50,7 +58,11 @@ Phases, in order; any failure exits non-zero and prints no result line.
    (device-busy share, kernels a step, the largest device items).
 7. Serve the trained export: Predictor (fused scoring kernel) scores the
    valid split; its AUC equals the trainer's best within 2e-3.
-8. One JSON line describing the four kernels, then the result line.
+6b. Phases 6-7 for sasrec_fibinet (attn_dropout 0.1 as well): both
+   encoder kernels in the gradient check (dropout on: the kernels and the
+   plain path draw the same masks) and in the exact launch counts, its
+   export served through the encoder and scoring kernels.
+8. One JSON line describing the five kernels, then the result line.
 """
 
 from __future__ import annotations
@@ -110,6 +122,27 @@ BWD_NORM_TOL = 2.0**-12
 # must fail the norm bar in every bf16 case.
 ENC_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0**-7, 2.0**-7)}
 ENC_NORM_TOL = 2.0**-10
+# encoder backward vs its plain version, per output (dx and each of the 12
+# weight gradients): |d| <= share * max|want| + rtol * |want| elementwise and
+# |d|/|want| <= ENC_BWD_NORM_TOL in norm; the outputs that no ReLU gate
+# separates from g (the last layer's ffn2_w and ffn2_b) also within
+# ENC_BWD_GATE_FREE_TOL in norm. The backward is discontinuous at the FFN's
+# ReLU: where z1 lies within rounding of 0, the kernel's recomputed z1 and the
+# plain version's can fall on two sides, and that gate flip moves one dz1
+# element by |df1| and a column of dW1 by |hn2| |df1|, upstream of which every
+# output moves too (on an H100: one flip in an fp32 case at B=4096, 2e-3 of
+# the largest dW1 element and 1.7e-4 in norm; in bf16, where the operands'
+# one-ulp rounding flips move z1 by far more, up to 1.1e-2 of the largest
+# and 1.4e-3 in norm). Without a flip fp32 differs by summation order only
+# (6e-7 in norm). The gate-free outputs see no flip: there the kernel reads
+# 4.8e-5 to 9.4e-5 in bf16, and the control that leaves every backward
+# operand in fp32 (encode_bwd_plain(..., fp32_operands=True)) 1.6e-3 to
+# 2.4e-3 on ffn2_w: it must be rejected in every bf16 case.
+ENC_BWD_TOL = {"float32": (2.0**-7, 1e-4), "bfloat16": (2.0**-5, 2.0**-7)}
+ENC_BWD_NORM_TOL = {"float32": 2.0**-10, "bfloat16": 2.0**-8}
+ENC_BWD_GATE_FREE_TOL = {"float32": 1e-5, "bfloat16": 2.0**-12}
+ENC_BWD_OUTPUTS = ("dx", "qkv_w", "qkv_b", "proj_w", "proj_b", "ln1_s", "ln1_b",
+                   "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b", "ln2_s", "ln2_b")
 CPU_TOL = 2e-2  # card vs CPU run of the same bf16 Predictor (probabilities)
 # one train step's gradients, kernel path vs plain path, fp32 with TF32 off:
 # |d| <= GRAD_TOL * the leaf's largest magnitude + GRAD_FLOOR * the largest
@@ -288,6 +321,32 @@ def check_encoder(torch, got, want, dtype_name):
     return err.max().item(), rel_norm, ok
 
 
+def check_encoder_bwd(torch, got, want, dtype_name):
+    """(max abs err, largest |d|/|want| in norm, the same over the gate-free
+    outputs, names of the outputs out of their bars) over dx and the 12
+    weight gradients."""
+    share, rtol = ENC_BWD_TOL[dtype_name]
+    worst, worst_norm, gate_free, bad = 0.0, 0.0, 0.0, []
+
+    def rel(a, w):
+        return ((a - w).norm() / w.norm().clamp(min=1e-30)).item()
+
+    for name, a, w in zip(ENC_BWD_OUTPUTS, got, want):
+        a, w = a.double(), w.double()
+        err = (a - w).abs()
+        rel_norm = rel(a, w)
+        free = rel(a[-1], w[-1]) if name in ("ffn2_w", "ffn2_b") else 0.0
+        if (not bool(torch.isfinite(a).all())
+                or bool((err > share * w.abs().max() + rtol * w.abs()).any())
+                or rel_norm > ENC_BWD_NORM_TOL[dtype_name]
+                or free > ENC_BWD_GATE_FREE_TOL[dtype_name]):
+            bad.append(name)
+        worst = max(worst, err.max().item())
+        worst_norm = max(worst_norm, rel_norm)
+        gate_free = max(gate_free, free)
+    return worst, worst_norm, gate_free, bad
+
+
 def library_layer(torch, weights, num_heads: int, device="cuda"):
     """torch.nn.TransformerEncoderLayer computing one encoder layer of the
     stacked ``weights`` (L=1): the timing yardstick, never on the main path.
@@ -343,33 +402,37 @@ def check_backward(torch, got, want, dtype_name):
     return worst, worst_norm, bad
 
 
-def gradient_check(torch, exp, train, store, root) -> None:
+def gradient_check(torch, exp, train, store, root, kernels: dict) -> None:
     """One step's gradients (fp32, TF32 off) through the kernels against the
-    plain path: same seeded weights, batch and dropout seed."""
+    plain path: same seeded weights, batch and dropout seed (the encoder's
+    masks too: the kernels and the plain path draw them alike). ``kernels``
+    maps each wrapper the step must launch to its launches a step."""
     import dataclasses
 
-    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
     from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
     from ctr_recommendation_tpu_torch.training import Trainer
 
+    model = exp.model.model
     batch = {k: torch.as_tensor(v[:B_TRAIN]).cuda() for k, v in train.columns.items()}
     out = {}
     for use_kernel in (True, False):
         e = exp.replace(
             model=dataclasses.replace(exp.model, use_pallas=use_kernel),
-            train=dataclasses.replace(exp.train, compute_dtype="float32",
-                                      checkpoint_dir=os.path.join(root, f"grad{int(use_kernel)}")),
+            train=dataclasses.replace(exp.train, compute_dtype="float32", checkpoint_dir=os.path.join(
+                root, f"grad_{model}_{int(use_kernel)}")),
         )
         tr = Trainer(e, steps_per_epoch=N_TRAIN // B_TRAIN, item_store=store,
                      log_fn=lambda s: None)
-        interaction_fwd.launches = interaction_bwd.launches = 0
+        for fn in kernels:
+            fn.launches = 0
         with torch.enable_grad():
             loss, _ = tr.forward_loss(batch)
             out[use_kernel] = (loss.item(), tr.gradients(loss), list(flatten(tr.state.params)))
         torch.cuda.synchronize()
-        launched = (interaction_fwd.launches, interaction_bwd.launches)
-        if launched != ((1, 2) if use_kernel else (0, 0)):
-            raise SystemExit(f"gradient check, use_pallas={use_kernel}: launches {launched}")
+        launched = tuple(fn.launches for fn in kernels)
+        if launched != (tuple(kernels.values()) if use_kernel else (0,) * len(kernels)):
+            raise SystemExit(f"{model} gradient check, use_pallas={use_kernel}: launches "
+                             f"{launched}")
     (l_k, g_k, names), (l_p, g_p, _) = out[True], out[False]
     largest = max(b.abs().max().item() for b in g_p)
     floor = GRAD_FLOOR * largest
@@ -384,14 +447,15 @@ def gradient_check(torch, exp, train, store, root) -> None:
             no_floor.append(name)
         if not bool(torch.isfinite(a).all()) or err > GRAD_TOL * scale + floor:
             bad.append(f"{name}: max|d| {err:.2e}, max|g| {scale:.2e}")
-    log(f"[train] gradient check, fp32: loss kernel {l_k:.7f} vs plain {l_p:.7f}; "
-        f"{len(names)} gradients through 1 interaction_fwd + 2 interaction_bwd launches; "
-        f"worst |d|/max|g| {worst_rel:.3e} over the gradients above 1e-3 of the largest "
-        f"({largest:.3e}); tolerance {GRAD_TOL:g} of the leaf + {GRAD_FLOOR:g} of the "
-        f"largest ({floor:.3e}); below 1e-3 of the largest: {vanishing}; out of "
-        f"{GRAD_TOL:g} of the leaf without the floor: {no_floor}")
+    launched = ", ".join(f"{n} {fn.__name__}" for fn, n in kernels.items())
+    log(f"[train {model}] gradient check, fp32, dropout on: loss kernel {l_k:.7f} vs plain "
+        f"{l_p:.7f}; {len(names)} gradients through {launched} launches; worst |d|/max|g| "
+        f"{worst_rel:.3e} over the gradients above 1e-3 of the largest ({largest:.3e}); "
+        f"tolerance {GRAD_TOL:g} of the leaf + {GRAD_FLOOR:g} of the largest ({floor:.3e}); "
+        f"below 1e-3 of the largest: {vanishing}; out of {GRAD_TOL:g} of the leaf without the "
+        f"floor: {no_floor}")
     if bad or abs(l_k - l_p) > 1e-5:
-        raise SystemExit(f"kernel and plain gradients disagree: {bad}")
+        raise SystemExit(f"{model}: kernel and plain gradients disagree: {bad}")
 
 
 def step_split(torch, trainer, train, card, reps: int = 10, profiled: int = 3) -> None:
@@ -419,7 +483,8 @@ def step_split(torch, trainer, train, card, reps: int = 10, profiled: int = 3) -
                 parts[k].append(a.elapsed_time(z))
     split = {k: float(np.median(v)) for k, v in parts.items()}
     step_ms = sum(split.values())
-    log(f"[train] one step at B={B_TRAIN}, ms (median of {reps}): {split}, "
+    tag = trainer.exp.model.model
+    log(f"[train {tag}] one step at B={B_TRAIN}, ms (median of {reps}): {split}, "
         f"sum {step_ms:.4f} on {card}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(profiled):
@@ -429,7 +494,7 @@ def step_split(torch, trainer, train, card, reps: int = 10, profiled: int = 3) -
     busy = sum(e.self_device_time_total for e in on_card) / profiled / 1e3
     launched = sum(e.count for e in on_card) / profiled
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"[train] torch.profiler over {profiled} steps: device busy {busy:.4f} ms a step "
+    log(f"[train {tag}] torch.profiler over {profiled} steps: device busy {busy:.4f} ms a step "
         f"({busy / step_ms:.3f} of the {step_ms:.4f} ms timed step), {launched:.0f} kernels "
         f"a step on {card}; largest, ms a step: "
         + str([(e.key[:70], round(e.self_device_time_total / profiled / 1e3, 4)) for e in top]))
@@ -520,7 +585,263 @@ def encoder_timing(torch, card) -> dict:
         }
     log(f"[time] sasrec_encoder_fwd bf16 B={B_FULL} S={ENC_S} E={ENC_E} H={ENC_H} L=1: {t} "
         f"(bytes {nbytes}, ops {ops}; library: nn.TransformerEncoderLayer, bf16) on {card}")
+    seed = torch.tensor([3], dtype=torch.int64, device="cuda")
+    kw = dict(num_heads=ENC_H, seed=seed, rate=DROP_RATE)
+    with torch.inference_mode():
+        drop = {"ms": time_ms(torch, lambda: encode_fwd(x, amask, *ws, **kw)),
+                "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, **kw))}
+    log(f"[time] sasrec_encoder_fwd with dropout {DROP_RATE} (train mode), same inputs: {drop} "
+        f"on {card}")
     return t
+
+
+DROP_RATE = 0.1  # sasrec_fibinet's attn_dropout default
+ENC_BWD_CASES = [(128, 2, 1, B_TRAIN), (128, 2, 1, B_TRAIN + 37), (64, 4, 2, B_TRAIN + 37)]
+
+
+def encoder_cotangent(torch, pad, e: int, seed: int, dtype):
+    """A seeded numpy cotangent of the encoder's output (B, S, e) on the
+    card, zero at pad rows (fused_encode's re-zeroing gives that)."""
+    b, s = pad.shape
+    g = np.random.default_rng(seed).standard_normal((b, s, e)).astype(np.float32)
+    g = torch.from_numpy(g).cuda() * ~pad[..., None]
+    return g.to(dtype).contiguous()
+
+
+def dropout_forward_against_plain(torch) -> tuple[float, list]:
+    """Phase 2, the forward kernel with dropout: against encode_fwd_plain
+    under the same seed (rate 0.1, two seeds, the encoder cases, bf16 and
+    fp32); rate 0 bit-identical to the eval launch; and the kernel's own
+    mask read back through weights that make each residual branch a
+    constant 1 (f2 = ffn2_b = 1, the attention branch 0): it must equal
+    dropout_mask, and its kept share lie within 6 sigma of 1 - rate."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        dropout_mask,
+        encode_fwd,
+        encode_fwd_plain,
+    )
+
+    worst, failures = 0.0, []
+    for e, heads, layers, b in ENC_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            x, amask, _, ws, _, _, _ = encoder_case(torch, dtype, b, e, heads, layers,
+                                                    seed=b + e + 1)
+            evaluated = encode_fwd(x, amask, *ws, num_heads=heads)
+            zero_rate = encode_fwd(x, amask, *ws, num_heads=heads,
+                                   seed=torch.tensor([5], dtype=torch.int64, device="cuda"),
+                                   rate=0.0)
+            same = torch.equal(evaluated, zero_rate)
+            for s in (b, 2**40 + b):
+                seed = torch.tensor([s], dtype=torch.int64, device="cuda")
+                got = encode_fwd(x, amask, *ws, num_heads=heads, seed=seed, rate=DROP_RATE)
+                want = encode_fwd_plain(x, amask, *ws, num_heads=heads, seed=seed,
+                                        rate=DROP_RATE)
+                torch.cuda.synchronize()
+                err, rel_norm, ok = check_encoder(torch, got, want, dn)
+                moved = (got.float() - evaluated.float()).abs().max().item()
+                ok = ok and same and moved > 1e-2
+                worst = max(worst, err)
+                log(f"[compare] sasrec_encoder_fwd dropout {DROP_RATE} seed {s} E={e} H={heads} "
+                    f"L={layers} {dn} B={b}: max_abs_err={err:.3e}, |d|/|want| {rel_norm:.3e}; "
+                    f"rate 0 == eval launch: {same}; moved from eval by {moved:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(("sasrec_encoder_fwd dropout", e, heads, layers, dn, b, s))
+    # the kernel's mask, read back: h_out = x + drop1(1) with a zero attention branch
+    x, amask, _, ws, _, _, _ = encoder_case(torch, torch.float32, B_TRAIN, ENC_E, ENC_H, 1, 9)
+    ws = [torch.zeros_like(t) if i in (0, 1, 2, 3, 6, 7, 8) else t for i, t in enumerate(ws)]
+    ws[9] = torch.ones_like(ws[9])
+    seed = torch.tensor([77], dtype=torch.int64, device="cuda")
+    out = encode_fwd(x, amask, *ws, num_heads=ENC_H, seed=seed, rate=DROP_RATE)
+    kept = ((out - x) > 0.5).reshape(-1, ENC_E)
+    mask = dropout_mask(seed, kept.shape[0], ENC_E, 0, 1, DROP_RATE)
+    n = kept.numel()
+    share = kept.float().mean().item()
+    sigma = (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5
+    ok = torch.equal(kept, mask) and abs(share - (1 - DROP_RATE)) < 6 * sigma
+    log(f"[compare] sasrec_encoder_fwd in-kernel mask over {n} elements: equals dropout_mask "
+        f"{torch.equal(kept, mask)}, kept share {share:.6f} (1 - rate {1 - DROP_RATE:g}, 6 sigma "
+        f"{6 * sigma:.2e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(("sasrec_encoder_fwd mask",))
+    return worst, failures
+
+
+def encoder_bwd_against_plain(torch) -> tuple[float, list]:
+    """Phase 2, the backward kernel against encode_bwd_plain at E=128, H=2,
+    L=1 (B=4096, 4133) and E=64, H=4, L=2 (B=4133), rate 0 and 0.1, bf16 and
+    fp32: ENC_BWD_TOL per output, the repeat launch bit-identical, and in
+    bf16 the fp32-operand control rejected by the same bars."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_bwd_plain
+
+    worst, failures = 0.0, []
+    for e, heads, layers, b in ENC_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            x, amask, pad, ws, _, _, _ = encoder_case(torch, dtype, b, e, heads, layers,
+                                                      seed=b + e + 2)
+            g = encoder_cotangent(torch, pad, e, b + 3, dtype)
+            for rate in (0.0, DROP_RATE):
+                seed = torch.tensor([b * 7 + e], dtype=torch.int64, device="cuda")
+                kw = dict(num_heads=heads, seed=seed, rate=rate)
+                got = encode_bwd(g, x, amask, *ws, **kw)
+                again = encode_bwd(g, x, amask, *ws, **kw)
+                want = encode_bwd_plain(g, x, amask, *ws, **kw)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                err, rel_norm, free, bad = check_encoder_bwd(torch, got, want, dn)
+                worst = max(worst, err)
+                ok = same and not bad
+                control = ""
+                if dtype == torch.bfloat16:
+                    wrong = encode_bwd_plain(g, x, amask, *ws, **kw, fp32_operands=True)
+                    _, c_norm, c_free, c_bad = check_encoder_bwd(torch, got, wrong, dn)
+                    ok = ok and bool(c_bad)
+                    control = (f"; fp32-operand control |d|/|want| up to {c_norm:.3e}, gate-free "
+                               f"{c_free:.3e}, {'rejected' if c_bad else 'NOT REJECTED'} on "
+                               f"{c_bad}")
+                share, rtol = ENC_BWD_TOL[dn]
+                log(f"[compare] sasrec_encoder_bwd E={e} H={heads} L={layers} {dn} B={b} "
+                    f"rate={rate}: max_abs_err={err:.3e} (|d| <= {share:g}*max|want| + "
+                    f"{rtol:g}*|want|), |d|/|want| up to {rel_norm:.3e} (bar "
+                    f"{ENC_BWD_NORM_TOL[dn]:.3e}), gate-free {free:.3e} (bar "
+                    f"{ENC_BWD_GATE_FREE_TOL[dn]:.3e}), repeat bit-identical {same}{control} "
+                    f"{'ok' if ok else f'FAIL {bad}'}")
+                if not ok:
+                    failures.append(("sasrec_encoder_bwd", e, heads, layers, dn, b, rate))
+    return worst, failures
+
+
+def library_grads(torch, layer, x, pad, g):
+    """(dx, the 12 weight gradients in the stacked layout) of one
+    nn.TransformerEncoderLayer forward + backward."""
+    x = x.detach().requires_grad_()
+    sa = layer.self_attn
+    params = [sa.in_proj_weight, sa.in_proj_bias, sa.out_proj.weight, sa.out_proj.bias,
+              layer.norm1.weight, layer.norm1.bias, layer.linear1.weight, layer.linear1.bias,
+              layer.linear2.weight, layer.linear2.bias, layer.norm2.weight, layer.norm2.bias]
+    grads = torch.autograd.grad(layer(x, src_key_padding_mask=pad), [x, *params], g)
+    return [grads[0]] + [t.T if t.dim() == 2 else t for t in grads[1:]]
+
+
+def encoder_bwd_timing(torch, card) -> dict:
+    """Phase 3 for the backward at B=4096, bf16, L=1, rate 0.1: kernel, plain
+    version and nn.TransformerEncoderLayer forward + backward minus its
+    forward (checked first against the plain version in fp32, every history
+    with a real step), CUDA events, beside the bound."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_bwd_plain
+
+    def case(dtype, seed):
+        x, amask, pad, ws, _, _, _ = encoder_case(torch, dtype, B_TRAIN, ENC_E, ENC_H, 1, seed)
+        pad, amask = pad.clone(), amask.clone()
+        pad[0], amask[0] = False, 0.0  # no all-pad history: the library's -inf gives NaN there
+        return x, amask, pad, ws, encoder_cotangent(torch, pad, ENC_E, seed + 1, dtype)
+
+    x, amask, pad, ws, g = case(torch.float32, 5)
+    want = encode_bwd_plain(g, x, amask, *ws, num_heads=ENC_H)
+    layer = library_layer(torch, ws, ENC_H).train()
+    lib = library_grads(torch, layer, x, pad, g)
+    lib_err = max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(lib, want))
+    log(f"[compare] nn.TransformerEncoderLayer fp32 forward + backward vs encode_bwd_plain: "
+        f"largest |d|/max|want| over dx and the 12 gradients {lib_err:.3e} (tolerance "
+        f"{LIB_TOL:g})")
+    if not lib_err <= LIB_TOL:
+        raise SystemExit("the library yardstick does not compute the encoder backward's function")
+
+    x, amask, pad, ws, g = case(torch.bfloat16, 6)
+    seed = torch.tensor([11], dtype=torch.int64, device="cuda")
+    layer = library_layer(torch, ws, ENC_H).train()
+    tokens = B_TRAIN * ENC_S
+    ops = 3 * 2 * tokens * (12 * ENC_E * ENC_E + 2 * ENC_S * ENC_E)
+    nbytes = (3 * 2 * x.numel() + 4 * amask.numel()
+              + sum(t.numel() * t.element_size() for t in ws) + 4 * sum(t.numel() for t in ws))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+    lib_fwd = time_ms(torch, lambda: layer(x, src_key_padding_mask=pad))
+    lib_both = time_ms(torch, lambda: library_grads(torch, layer, x, pad, g))
+    kw = dict(num_heads=ENC_H, seed=seed, rate=DROP_RATE)
+    t = {
+        "ms": time_ms(torch, lambda: encode_bwd(g, x, amask, *ws, **kw)),
+        "plain_ms": time_ms(torch, lambda: encode_bwd_plain(g, x, amask, *ws, **kw)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_both - lib_fwd,
+    }
+    log(f"[time] sasrec_encoder_bwd bf16 B={B_TRAIN} S={ENC_S} E={ENC_E} H={ENC_H} L=1 "
+        f"rate={DROP_RATE}: {t} (bytes {nbytes}, ops {ops}; library: nn.TransformerEncoderLayer "
+        f"bf16 forward + backward {lib_both:.4f} ms minus its forward {lib_fwd:.4f} ms) on {card}")
+    return t
+
+
+def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_step: dict,
+                    per_eval: dict, per_serve: dict) -> dict:
+    """Phases 6-7 (and 6b) for one model at the full microlens_experiment()
+    defaults on phase 6's splits: one step's fp32 gradients kernel vs plain
+    with dropout on, fit_on_device for 2 epochs (loss finite and falling,
+    best valid AUC > 0.6, a resume point and the best export written), the
+    step split and profile, then the best export served through Predictor
+    at the trainer's AUC. ``counted`` are the wrappers whose launches are
+    checked exactly; ``per_step``, ``per_eval`` and ``per_serve`` give each
+    one's launches a train step, an eval batch and a serving batch (absent:
+    0). Returns the launches of each counted wrapper in the fit."""
+    from ctr_recommendation_tpu_torch.inference import Predictor
+    from ctr_recommendation_tpu_torch.tools import jax_bridge
+    from ctr_recommendation_tpu_torch.training import Trainer
+    from ctr_recommendation_tpu_torch.training.metrics import auc
+
+    tag = exp.model.model
+    gradient_check(torch, exp, train, store, root, per_step)
+    steps = TRAIN_EPOCHS * (N_TRAIN // B_TRAIN)
+    eval_batches = TRAIN_EPOCHS * -(-N_VALID // exp.train.eval_batch_size)
+    trainer = Trainer(exp, steps_per_epoch=N_TRAIN // B_TRAIN, item_store=store, log_fn=log)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    hist = trainer.fit_on_device(train, valid)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    launched = {fn: fn.launches for fn in counted}
+    expect = {fn: per_step.get(fn, 0) * steps + per_eval.get(fn, 0) * eval_batches
+              for fn in counted}
+    for h in hist:
+        log(f"[train {tag}] epoch {int(h['epoch'])}: loss {h['train_loss']:.5f}, valid auc "
+            f"{h['auc']:.5f}, {h['examples_per_sec']:.0f} examples/s ({h['seconds']:.3f} s "
+            f"train, {h['eval_seconds']:.3f} s eval) on {card}")
+    best_auc = max(h["auc"] for h in hist)
+    names = lambda d: {fn.__name__: n for fn, n in d.items()}  # noqa: E731
+    log(f"[train {tag}] fit_on_device: {steps} steps + {eval_batches} eval batches in "
+        f"{t_fit:.3f} s; best valid auc {best_auc:.5f}; launches {names(launched)}, expected "
+        f"{names(expect)} (each backward: kernel + reduction a step)")
+    losses = [h["train_loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"{tag}: training loss not finite and falling: {losses}")
+    if not best_auc > 0.6:
+        raise SystemExit(f"{tag}: best valid AUC {best_auc} is not above 0.6")
+    if launched != expect:
+        raise SystemExit(f"{tag}: fit launches {names(launched)}, expected {names(expect)}")
+    export = trainer.ckpt.best_export_path
+    if trainer.ckpt.latest_step() != TRAIN_EPOCHS or not os.path.exists(export):
+        raise SystemExit(f"{tag}: fit_on_device wrote no resume point or no best export")
+    step_split(torch, trainer, train, card)
+
+    served_params, served_state = jax_bridge.params_from_jax(
+        *jax_bridge.load(export), trainer.fm, exp.model)
+    server = Predictor(exp, served_params, served_state, item_store=store)
+    for fn in counted:
+        fn.launches = 0
+    probs = server.score_table(valid)
+    served = {fn: fn.launches for fn in counted}
+    n_batches = -(-N_VALID // B_FULL)
+    served_auc = auc(torch.from_numpy(valid.columns["label"]), torch.from_numpy(probs)).item()
+    log(f"[serve {tag}] best export through Predictor: valid auc {served_auc:.5f} vs the "
+        f"trainer's {best_auc:.5f} (tolerance {AUC_SERVE_TOL}); launches {names(served)}")
+    if not server.use_fused or served != {fn: per_serve.get(fn, 0) * n_batches for fn in counted}:
+        raise SystemExit(f"{tag}: serving the export did not run its kernels once a batch")
+    if abs(served_auc - best_auc) > AUC_SERVE_TOL:
+        raise SystemExit(f"{tag}: the served export disagrees with the trainer's eval")
+    return launched
 
 
 def serve_sasrec(torch, store, rows, card) -> int:
@@ -727,6 +1048,11 @@ def main() -> int:
                         failures.append(("interaction_bwd", btype, dn, b, use_bias))
     worst["sasrec_encoder_fwd"], enc_failures = encoder_against_plain(torch)
     failures += enc_failures
+    drop_worst, drop_failures = dropout_forward_against_plain(torch)
+    worst["sasrec_encoder_fwd"] = max(worst["sasrec_encoder_fwd"], drop_worst)
+    failures += drop_failures
+    worst["sasrec_encoder_bwd"], bwd_failures = encoder_bwd_against_plain(torch)
+    failures += bwd_failures
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
 
@@ -790,6 +1116,7 @@ def main() -> int:
         f"({B_FULL}x{cdim})x({cdim}x{h1}) {mm_ms:.4f} ms on {card}")
     del c, x, sw, w_bi, tower
     timing[("sasrec_encoder_fwd", "all")] = encoder_timing(torch, card)
+    timing[("sasrec_encoder_bwd", "all")] = encoder_bwd_timing(torch, card)
 
     # ---- phase 4: the serving main path ----
     from ctr_recommendation_tpu_torch.config import microlens_experiment
@@ -884,69 +1211,36 @@ def main() -> int:
     # ---- phase 5b: the sasrec_fibinet serving path (encoder kernel) ----
     enc_launches = serve_sasrec(torch, store, rows, card)
 
-    # ---- phase 6: the training main path ----
+    # ---- phases 6-7: the training main path, then its export; 6b: sasrec ----
     from ctr_recommendation_tpu_torch.data import synthetic_splits
-    from ctr_recommendation_tpu_torch.tools import jax_bridge
-    from ctr_recommendation_tpu_torch.training import Trainer
-    from ctr_recommendation_tpu_torch.training.metrics import auc
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_fwd
 
     t0 = time.perf_counter()
     train, valid, train_store = synthetic_splits(N_TRAIN, N_VALID, seed=0)
     log(f"[train] synthetic data: {N_TRAIN} train + {N_VALID} valid rows, 91,717 items, "
         f"made in {time.perf_counter() - t0:.1f} s")
+    counted = (interaction_fwd, interaction_bwd, score_fwd, encode_fwd, encode_bwd)
     with tempfile.TemporaryDirectory() as root:
-        train_exp = microlens_experiment(
-            data_root="", epochs=TRAIN_EPOCHS, checkpoint_dir=os.path.join(root, "ckpt"))
-        gradient_check(torch, train_exp, train, train_store, root)
-        steps = TRAIN_EPOCHS * (N_TRAIN // B_TRAIN)
-        eval_batches = TRAIN_EPOCHS * -(-N_VALID // train_exp.train.eval_batch_size)
-        trainer = Trainer(train_exp, steps_per_epoch=N_TRAIN // B_TRAIN, item_store=train_store,
-                          log_fn=log)
-        torch.cuda.synchronize()
-        interaction_fwd.launches = interaction_bwd.launches = score_fwd.launches = 0
-        t0 = time.perf_counter()
-        hist = trainer.fit_on_device(train, valid)
-        torch.cuda.synchronize()
-        t_fit = time.perf_counter() - t0
-        train_fwd, train_bwd = interaction_fwd.launches, interaction_bwd.launches
-        for h in hist:
-            log(f"[train] epoch {int(h['epoch'])}: loss {h['train_loss']:.5f}, valid auc "
-                f"{h['auc']:.5f}, {h['examples_per_sec']:.0f} examples/s "
-                f"({h['seconds']:.3f} s train, {h['eval_seconds']:.3f} s eval) on {card}")
-        best_auc = max(h["auc"] for h in hist)
-        log(f"[train] fit_on_device: {steps} steps + {eval_batches} eval batches in "
-            f"{t_fit:.3f} s; best valid auc {best_auc:.5f}; interaction_fwd launches "
-            f"{train_fwd}, interaction_bwd launches {train_bwd}, fused_score launches "
-            f"{score_fwd.launches}")
-        losses = [h["train_loss"] for h in hist]
-        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            raise SystemExit(f"training loss not finite and falling: {losses}")
-        if not best_auc > 0.6:
-            raise SystemExit(f"best valid AUC {best_auc} is not above 0.6")
-        if train_fwd != steps + eval_batches or train_bwd != 2 * steps or score_fwd.launches:
-            raise SystemExit(
-                f"launches: interaction_fwd {train_fwd} (expected {steps + eval_batches}), "
-                f"interaction_bwd {train_bwd} (expected {2 * steps}: kernel + reduction a step)")
-        export = trainer.ckpt.best_export_path
-        if trainer.ckpt.latest_step() != TRAIN_EPOCHS or not os.path.exists(export):
-            raise SystemExit("fit_on_device wrote no resume point or no best export")
-        step_split(torch, trainer, train, card)
-
-        # ---- phase 7: serve the trained export ----
-        served_params, served_state = jax_bridge.params_from_jax(
-            *jax_bridge.load(export), trainer.fm, train_exp.model)
-        server = Predictor(train_exp, served_params, served_state, item_store=train_store)
-        score_fwd.launches = 0
-        probs = server.score_table(valid)
-        serve_launches = score_fwd.launches
-        served_auc = auc(torch.from_numpy(valid.columns["label"]), torch.from_numpy(probs)).item()
-        log(f"[serve] best export through Predictor: valid auc {served_auc:.5f} vs the "
-            f"trainer's {best_auc:.5f} (tolerance {AUC_SERVE_TOL}); fused_score launches "
-            f"{serve_launches}")
-        if not server.use_fused or serve_launches != -(-N_VALID // B_FULL):
-            raise SystemExit("serving the export did not run the scoring kernel once a batch")
-        if abs(served_auc - best_auc) > AUC_SERVE_TOL:
-            raise SystemExit("the served export disagrees with the trainer's eval")
+        mm = train_and_serve(
+            torch, microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
+                                        checkpoint_dir=os.path.join(root, "ckpt")),
+            train, valid, train_store, root, card, counted,
+            per_step={interaction_fwd: 1, interaction_bwd: 2}, per_eval={interaction_fwd: 1},
+            per_serve={score_fwd: 1})
+        sasrec_exp = microlens_experiment(data_root="", model="sasrec_fibinet",
+                                          epochs=TRAIN_EPOCHS,
+                                          checkpoint_dir=os.path.join(root, "ckpt_sasrec"))
+        m = sasrec_exp.model
+        if (m.embedding_dim, m.attn_num_heads, m.attn_num_layers, m.attn_dropout,
+                sasrec_exp.train.batch_size) != (ENC_E, ENC_H, 1, DROP_RATE, B_TRAIN):
+            raise SystemExit(f"sasrec_fibinet defaults moved: {m}")
+        sasrec = train_and_serve(
+            torch, sasrec_exp, train, valid, train_store, root, card, counted,
+            per_step={interaction_fwd: 1, interaction_bwd: 2, encode_fwd: 1, encode_bwd: 2},
+            per_eval={interaction_fwd: 1, encode_fwd: 1},
+            per_serve={score_fwd: 1, encode_fwd: 1})
+    train_fwd, train_bwd = mm[interaction_fwd], mm[interaction_bwd]
+    enc_bwd_launches = sasrec[encode_bwd]
 
     # ---- phase 8: result ----
     kernels = [
@@ -970,6 +1264,11 @@ def main() -> int:
          "replaces": "ctr_recommendation_tpu/ops/pallas/sasrec_encoder.py:220",
          "launches": enc_launches, "max_abs_err": worst["sasrec_encoder_fwd"],
          **timing[("sasrec_encoder_fwd", "all")]},
+        {"name": "sasrec_encoder_bwd", "route": "cuda",
+         "source": "ctr_recommendation_tpu_torch/csrc/sasrec_encoder_bwd.cu",
+         "replaces": "ctr_recommendation_tpu/ops/pallas/sasrec_encoder.py:238",
+         "launches": enc_bwd_launches, "max_abs_err": worst["sasrec_encoder_bwd"],
+         **timing[("sasrec_encoder_bwd", "all")]},
     ]
     print(json.dumps({"kernels": kernels}))
     name = torch.cuda.get_device_name(0)

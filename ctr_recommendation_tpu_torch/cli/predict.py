@@ -12,8 +12,9 @@ JAX).
         --checkpoint-dir CKPT [--model sasrec_fibinet] [--weights weights.npz] \\
         [--device cuda]
 
-``sasrec_fibinet`` serves with ``--weights`` made from a JAX export (the
-port does not train it yet); its history runs through the encoder kernel.
+``sasrec_fibinet`` serves from the port's own export (trained with
+``cli/train.py --model sasrec_fibinet``) or from ``--weights``; its history
+runs through the encoder kernel.
 """
 
 from __future__ import annotations

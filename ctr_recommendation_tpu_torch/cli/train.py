@@ -17,11 +17,6 @@ import os
 import sys
 
 
-# models the port serves but cannot train yet, with the ROADMAP.md item
-EVAL_ONLY_MODELS = ("sasrec_fibinet",)
-_EVAL_ONLY_MSG = ("training sasrec_fibinet (the encoder's backward kernel and dropout, "
-                  "queue 2 item 5)")
-
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train a CTR model (PyTorch port)")
@@ -37,8 +32,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="item vocab for --synthetic (91717 for full MicroLens scale)")
     p.add_argument("--synthetic-signal", choices=("planted", "high"), default="planted")
     p.add_argument("--model", default=None,
-                   help="model name (mm_fibinet | fibinet; sasrec_fibinet serves but does not "
-                        "train yet)")
+                   help="model name: mm_fibinet (default) | fibinet | sasrec_fibinet")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--embedding-dim", type=int, default=None)
@@ -51,7 +45,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="full-state resume-point cadence in epochs")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--no-pallas", action="store_true",
-                   help="run the interaction block on plain PyTorch ops, not the kernels")
+                   help="run the interaction block and the SASRec encoder on plain PyTorch "
+                        "ops, not the kernels")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     # accepted so that they fail with a message, not an argparse error
     p.add_argument("--model-parallel", type=int, default=1)
@@ -71,7 +66,6 @@ def main(argv=None) -> int:
         (args.strict_items, "--strict-items (the host-join train path, queue 1 item 9)"),
         (args.table_optimizer not in (None, "dense"),
          "a non-dense --table-optimizer (sparse table optimizers, queue 1 item 8)"),
-        ((args.model or "").lower() in EVAL_ONLY_MODELS, _EVAL_ONLY_MSG),
     ) if on]
     if refused:
         print("not ported yet (ROADMAP.md): " + "; ".join(refused), file=sys.stderr)
@@ -138,9 +132,6 @@ def run_training(exp, *, resume: bool = False, device: str = "cuda") -> int:
     from ctr_recommendation_tpu_torch.training import Trainer
 
     get_model(exp.model.model)  # fail fast on an unknown model, before data load
-    if exp.model.model.lower() in EVAL_ONLY_MODELS:
-        print(f"not ported yet (ROADMAP.md): {_EVAL_ONLY_MSG}", file=sys.stderr)
-        return 2
     fm = build_feature_map(exp.dataset)
     print(f"[data] loading {exp.dataset.train_data}")
     train = load_split(exp.dataset.train_data, fm)

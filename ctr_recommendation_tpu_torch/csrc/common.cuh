@@ -33,6 +33,38 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+// 3"): the counter c under the key k, ten rounds, the key bumped between them.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// Whether dropout keeps element (token, col) of site (layer, branch): word
+// col % 4 of Philox4x32-10 at counter (token, col / 4, 2 layer + branch, 0)
+// under key (seed's low, high 32 bits); u = (word >> 8) 2^-24 (the top 24
+// bits) and the element is kept iff u >= rate. The mask depends on nothing
+// else, so any tiling of the batch draws it alike.
+__device__ __forceinline__ bool dropout_keep(uint64_t seed, uint32_t token, int col, int layer,
+                                             int branch, float rate) {
+  const uint4 w = philox4x32_10(
+      make_uint4(token, static_cast<uint32_t>(col) >> 2, static_cast<uint32_t>(2 * layer + branch),
+                 0u),
+      make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32)));
+  const int j = col & 3;
+  const uint32_t word = j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
+  return static_cast<float>(word >> 8) * 0x1p-24f >= rate;
+}
+
 __host__ __device__ __forceinline__ size_t align16(size_t n) {
   return (n + 15) & ~static_cast<size_t>(15);
 }

@@ -52,10 +52,11 @@ def apply(
     fused kernels (forward and backward) when ``cfg.use_pallas`` is set (their
     plain versions on CPU tensors); the tower runs in ``tower_dtype``. In
     train mode BatchNorm uses batch statistics (zero-``weight`` rows left
-    out) and dropout draws from ``generator``."""
+    out) and dropout (the tower's, and the attention encoder's under
+    ``seq_pooling="attention"``) draws from ``generator``."""
     x = trunk.apply(
         params["trunk"], fm, cfg, batch,
-        seq_pooling=seq_pooling, compute_dtype=compute_dtype,
+        seq_pooling=seq_pooling, compute_dtype=compute_dtype, train=train, generator=generator,
     )
     h = senet_bilinear_concat(
         params["senet"], params["bilinear"], x,

@@ -3,8 +3,7 @@
 The JAX package's ``models/sasrec_fibinet.py`` on the port: MM-FiBiNET
 (``models/fibinet.py``) with the Hist field made by the SASRec encoder over
 ``item_seq`` and target-aware pooling (``ops/attention.py``) instead of the
-masked mean. Eval only so far: training waits for the encoder's backward
-kernel and its in-kernel dropout (ROADMAP.md queue 2 item 5).
+masked mean. Trains and serves.
 """
 
 from __future__ import annotations
@@ -35,14 +34,13 @@ def apply(
     compute_dtype: torch.dtype = torch.float32,
     weight: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
-    """batch -> (logits (B,) fp32, state), eval mode. The encoder runs on its
-    kernel and the interaction on its kernel when ``cfg.use_pallas`` is set
-    (their plain versions on CPU tensors)."""
-    if train:
-        raise NotImplementedError(
-            "sasrec_fibinet training is not ported yet: it needs the encoder's backward "
-            "kernel and in-kernel dropout (ROADMAP.md queue 2 item 5)"
-        )
+    """batch -> (logits (B,) fp32, new state), train or eval: the JAX
+    package's ``sasrec_fibinet.apply`` (:39-67). The encoder runs on its
+    kernels (forward and backward) and the interaction on its kernels when
+    ``cfg.use_pallas`` is set (their plain versions on CPU tensors); in train
+    mode the encoder's dropout seed and the tower's masks come from
+    ``generator``."""
     return fibinet.apply(
-        params, state, fm, cfg, batch, compute_dtype=compute_dtype, seq_pooling=SEQ_POOLING,
+        params, state, fm, cfg, batch, train=train, generator=generator,
+        compute_dtype=compute_dtype, weight=weight, seq_pooling=SEQ_POOLING,
     )

@@ -96,12 +96,16 @@ def apply(
     *,
     seq_pooling: str = "mean",
     compute_dtype: torch.dtype = torch.float32,
+    train: bool = False,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """batch dict -> field stack (B, F, E) in compute_dtype, fields in
     feature-map order. Mean-pooled sequences are gathered transposed,
     (S, B, E), and reduced over the leading axis by ``masked_mean_t``;
     attention-pooled ones in (B, S) order, encoded, then pooled by
-    ``attention.target_pool`` with the candidate item as the query."""
+    ``attention.target_pool`` with the candidate item as the query. In
+    train mode with a ``generator`` the encoder's dropout draws its seed
+    from it (``_attention_field``)."""
     _check_pooling(seq_pooling)
     e = cfg.embedding_dim
     batch_size = next(
@@ -128,18 +132,25 @@ def apply(
             seq_emb = _gather(params["tables"][fm.table_of[f.name]], seq_ids_t)
             field = pooling.masked_mean_t(seq_emb.to(compute_dtype), seq_ids_t, f.pad_id)
         elif f.type == FeatureType.SEQUENCE:
-            field = _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype)
+            field = _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype,
+                                     train, generator)
         else:
             raise ValueError(f"unsupported feature type {f.type}")
         field_of[f.name] = field
     return torch.stack(list(field_of.values()), dim=1)
 
 
-def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype):
+def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype, train=False,
+                     generator=None):
     """The attention-pooled field of sequence feature ``f``. The query is the
     field of the CATEGORICAL feature that shares the sequence's table
     (item_id for item_seq), already gathered when it comes first; else a
-    fresh lookup of that feature; else the masked mean of the history."""
+    fresh lookup of that feature; else the masked mean of the history.
+
+    In train mode with a generator, one int64 dropout seed is drawn for this
+    feature as a device tensor (the kernels read it through a pointer: no
+    host sync), before the tower's dropout draws: the part of JAX's
+    ``fold_in(rng, crc32(name))``."""
     table = fm.table_of[f.name]
     seq_ids = batch[f.name]
     seq_emb = _gather(params["tables"][table], seq_ids).to(compute_dtype)
@@ -156,6 +167,11 @@ def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype):
     else:
         target = pooling.masked_mean(seq_emb, seq_ids, f.pad_id)
     p = params["attn"][f.name]
+    seed = None
+    if train and generator is not None:
+        seed = torch.randint(0, 2**63 - 1, (1,), generator=generator, dtype=torch.int64,
+                             device=generator.device)
     encode = fused_encode if cfg.use_pallas else attention.encode
-    encoded = encode(p, seq_emb, seq_ids, num_heads=cfg.attn_num_heads, pad_id=f.pad_id)
+    encoded = encode(p, seq_emb, seq_ids, num_heads=cfg.attn_num_heads, pad_id=f.pad_id,
+                     train=train, dropout_rate=cfg.attn_dropout, seed=seed)
     return attention.target_pool(p, encoded, seq_ids, target, pad_id=f.pad_id)

@@ -85,19 +85,38 @@ def encode(
     *,
     num_heads: int,
     pad_id: int = 0,
+    train: bool = False,
+    dropout_rate: float = 0.0,
+    seed: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """seq_emb (B, S, E), seq_ids (B, S) -> encoded history (B, S, E), eval
-    (no dropout). Pad rows are zeroed before the first layer and after each."""
-    s = seq_emb.shape[-2]
+    """seq_emb (B, S, E), seq_ids (B, S) -> encoded history (B, S, E). Pad
+    rows are zeroed before the first layer and after each. With ``train``,
+    ``dropout_rate`` > 0 and a ``seed`` (int64 tensor (1,)), each block's
+    attention and FFN outputs are dropped where the JAX ``encode`` drops
+    them, with the masks of the kernel path (``sasrec_encoder.dropout_mask``,
+    sites (layer, 0) and (layer, 1)), kept values divided by 1 - rate."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import dropout_mask
+
+    b, s, e = seq_emb.shape
     pad_mask = seq_ids == pad_id
     zero = torch.zeros((), dtype=seq_emb.dtype, device=seq_emb.device)
+    drop_on = train and dropout_rate > 0.0 and seed is not None
+
+    def dropout(a, li, branch):
+        if not drop_on:
+            return a
+        keep = dropout_mask(seed, b * s, e, li, branch, dropout_rate).reshape(b, s, e)
+        return torch.where(keep, a / (1.0 - dropout_rate), torch.zeros((), dtype=a.dtype,
+                                                                       device=a.device))
+
     h = seq_emb + params["pos_emb"][:s].to(seq_emb.dtype)
     h = torch.where(pad_mask[..., None], zero, h)
-    for block in params["blocks"]:
+    for li, block in enumerate(params["blocks"]):
         hn = layer_norm(h, block["ln1_scale"], block["ln1_bias"]).to(h.dtype)
-        h = h + _mhsa(block, hn, pad_mask, num_heads)
+        h = h + dropout(_mhsa(block, hn, pad_mask, num_heads), li, 0)
         hn = layer_norm(h, block["ln2_scale"], block["ln2_bias"]).to(h.dtype)
-        h = h + linear_apply(block["ffn2"], torch.relu(linear_apply(block["ffn1"], hn)))
+        f = linear_apply(block["ffn2"], torch.relu(linear_apply(block["ffn1"], hn)))
+        h = h + dropout(f, li, 1)
         h = torch.where(pad_mask[..., None], zero, h)
     return h
 

@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("interaction", "interaction_bwd", "scoring", "sasrec_encoder")
+KERNELS = ("interaction", "interaction_bwd", "scoring", "sasrec_encoder", "sasrec_encoder_bwd")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -189,14 +189,28 @@ def test_stack_weights_order_and_dtypes():
 
 
 def test_encode_fwd_refuses_outside_the_envelope_and_training():
+    """encode_fwd and encode_bwd run on CUDA (the kernels) or CPU (their
+    plain versions) tensors, nothing else, and refuse dropout arguments
+    they cannot honour (a rate outside [0, 1), a rate without a seed) on
+    any device. Training itself is no longer refused: fused_encode with
+    dropout runs (tests/test_torch_sasrec_training.py)."""
     params, x, ids = _encoder_case(1, 4)
     pp = to_pt(params)
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        enc.fused_encode(pp, torch.from_numpy(x), torch.from_numpy(ids), num_heads=H,
-                         train=True, dropout_rate=0.1)
     xm, am, _ = enc.encoder_inputs(pp, torch.from_numpy(x), torch.from_numpy(ids))
+    ws = enc.stack_weights(pp, torch.float32)
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        enc.encode_fwd(xm.to("meta"), am, *enc.stack_weights(pp, torch.float32), num_heads=H)
+        enc.encode_fwd(xm.to("meta"), am, *ws, num_heads=H)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        enc.encode_bwd(xm.to("meta"), xm.to("meta"), am, *ws, num_heads=H)
+    seed = torch.tensor([3], dtype=torch.int64)
+    for kw, msg in ((dict(seed=seed, rate=1.0), r"\[0, 1\)"), (dict(rate=0.1), "needs a seed")):
+        with pytest.raises(ValueError, match=msg):
+            enc.encode_fwd(xm, am, *ws, num_heads=H, **kw)
+        with pytest.raises(ValueError, match=msg):
+            enc.encode_bwd(xm, xm, am, *ws, num_heads=H, **kw)
+    out = enc.fused_encode(pp, torch.from_numpy(x), torch.from_numpy(ids), num_heads=H,
+                           train=True, dropout_rate=0.1, seed=seed)
+    assert out.shape == (4, S, E) and torch.isfinite(out).all()
 
 
 def test_library_layer_equals_the_plain_version():
@@ -389,23 +403,6 @@ def test_predict_cli_serves_sasrec(tmp_path, tiny_experiment, tiny_feature_map):
               "--weights", weights, "--device", "cpu"])
 
 
-def test_training_is_refused_with_its_roadmap_item(tmp_path, tiny_experiment, tiny_feature_map,
-                                                   capsys):
-    from ctr_recommendation_tpu_torch.cli.train import main
-
-    _, _, _, _, pexp, pparams, pstate = _setup(tiny_experiment, tiny_feature_map)
-    batch = {k: torch.from_numpy(v) for k, v in make_batch(np.random.default_rng(0), 8).items()}
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        get_model("sasrec_fibinet").apply(
-            pparams, pstate, pt_build_fm(pexp.dataset), pexp.model, batch, train=True
-        )
-    data = tmp_path / "synth"
-    rc = main(["--synthetic", str(data), "--model", "sasrec_fibinet", "--device", "cpu"])
-    assert rc == 2
-    assert "queue 2 item 5" in capsys.readouterr().err
-    assert not data.exists()  # refused before any data is made or read
-
-
 # ------------------------------------------------------- on the card only
 
 
@@ -426,3 +423,52 @@ def test_encoder_kernel_matches_plain_on_the_card(e, heads, layers, b, dtype):
     torch.cuda.synchronize()
     err, rel_norm, ok = chip_smoke.check_encoder(torch, got, want, dtype)
     assert ok, (err, rel_norm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,heads,layers,b", [(128, 2, 1, 4096 + 37), (64, 4, 2, 4096 + 37)])
+def test_dropout_forward_matches_plain_on_the_card(e, heads, layers, b, dtype):
+    """The forward kernel with dropout (rate 0.1) against its plain version
+    under the same seed, at chip_smoke.py's bars; rate 0 equals the eval
+    launch bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the encoder kernel has no CPU mode")
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    td = DTYPES[dtype][1]
+    x, amask, _, ws, _, _, _ = chip_smoke.encoder_case(torch, td, b, e, heads, layers, seed=b)
+    seed = torch.tensor([b], dtype=torch.int64, device="cuda")
+    got = enc.encode_fwd(x, amask, *ws, num_heads=heads, seed=seed, rate=0.1)
+    want = enc.encode_fwd_plain(x, amask, *ws, num_heads=heads, seed=seed, rate=0.1)
+    torch.cuda.synchronize()
+    err, rel_norm, ok = chip_smoke.check_encoder(torch, got, want, dtype)
+    assert ok, (err, rel_norm)
+    assert torch.equal(enc.encode_fwd(x, amask, *ws, num_heads=heads, seed=seed, rate=0.0),
+                       enc.encode_fwd(x, amask, *ws, num_heads=heads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,heads,layers,b", [(128, 2, 1, 4096 + 37), (64, 4, 2, 4133)])
+def test_encoder_backward_kernel_matches_plain_on_the_card(e, heads, layers, b, dtype, rate):
+    """The backward kernel against its plain version at chip_smoke.py's
+    bars, its repeat bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the encoder kernel has no CPU mode")
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    td = DTYPES[dtype][1]
+    x, amask, pad, ws, _, _, _ = chip_smoke.encoder_case(torch, td, b, e, heads, layers, seed=b)
+    g = chip_smoke.encoder_cotangent(torch, pad, e, b, td)
+    seed = torch.tensor([b + 1], dtype=torch.int64, device="cuda")
+    got = enc.encode_bwd(g, x, amask, *ws, num_heads=heads, seed=seed, rate=rate)
+    again = enc.encode_bwd(g, x, amask, *ws, num_heads=heads, seed=seed, rate=rate)
+    want = enc.encode_bwd_plain(g, x, amask, *ws, num_heads=heads, seed=seed, rate=rate)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    err, rel_norm, gate_free, bad = chip_smoke.check_encoder_bwd(torch, got, want, dtype)
+    assert not bad, (err, rel_norm, gate_free, bad)
