@@ -25,12 +25,19 @@ Phases, in order; any failure exits non-zero and prints no result line.
    The encoder backward at E=128, H=2, L=1 (B=4096, 4133) and E=64, H=4,
    L=2 (B=4133), rate 0 and 0.1, bf16 and fp32: within ENC_BWD_TOL and the
    norm bars, its repeat bit-identical, and in bf16 the fp32-operand
-   control rejected.
+   control rejected. At the JAX recipe sweep's wider widths, with the same
+   bars: the interaction forward and the scoring kernel at E=256 (B=4096,
+   4133, 8192, 8229), the scoring kernel at the towers (1024, 512) and
+   (768, 384) at E=128 and 256 (B=4133, 8192), the interaction backward at
+   E=256 (B=4096, 4133, biases on and off, repeat bit-identical, the
+   forward-rounding control rejected); "all" and "each", bf16 and fp32.
 3. Time each kernel and its plain version with CUDA events (median of 30
    after warm-up) beside the bound the card sets for the same work; for the
    encoder also nn.TransformerEncoderLayer (the library yardstick, checked
    against the plain version in fp32 first): its forward, and for the
-   backward its forward + backward minus its forward.
+   backward its forward + backward minus its forward. Also, in bf16, the
+   interaction kernels at E=256 and the scoring kernel at E=256 with
+   (512, 256) and (1024, 512) and at E=128 with (1024, 512).
 4. The serving main path at the full microlens_experiment() defaults
    (mm_fibinet, E=128, item vocab 91718, max_len 20, hidden (512, 256),
    bf16): seeded weights with perturbed BatchNorm stats, a seeded item
@@ -62,6 +69,10 @@ Phases, in order; any failure exits non-zero and prints no result line.
    encoder kernels in the gradient check (dropout on: the kernels and the
    plain path draw the same masks) and in the exact launch counts, its
    export served through the encoder and scoring kernels.
+6c. Phases 6-7 for emb_256_tower1024, the recipe sweep's widest mm_fibinet
+   (E=256, tower (1024, 512)): the interaction kernels at E=256 in the
+   gradient check and the exact launch counts, the export served through
+   the scoring kernel at that tower.
 8. One JSON line describing the five kernels, then the result line.
 """
 
@@ -159,19 +170,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def kernel_inputs(torch, btype: str, dtype, b: int, seed: int, use_bias: bool = True):
+def kernel_inputs(torch, btype: str, dtype, b: int, seed: int, use_bias: bool = True,
+                  e: int = E, hidden=HIDDEN):
     """Full-width operands for the kernels, drawn with the port's own
     initializers from a seeded generator (SENet with or without biases);
-    x from numpy."""
+    x from numpy. E and the tower default to the model's (128, (512, 256))."""
     from ctr_recommendation_tpu_torch.ops import bilinear, mlp, senet
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import senet_weights
 
     gen = torch.Generator().manual_seed(seed)
-    x = np.random.default_rng(seed).standard_normal((b, F, E)).astype(np.float32)
+    x = np.random.default_rng(seed).standard_normal((b, F, e)).astype(np.float32)
     sp = senet.init(gen, F, 2, use_bias=use_bias)
-    bp = bilinear.init(gen, E, F, btype)
-    cdim = (F + F * (F - 1) // 2) * E
-    mp, _ = mlp.init(gen, cdim, HIDDEN, batch_norm=False)
+    bp = bilinear.init(gen, e, F, btype)
+    cdim = (F + F * (F - 1) // 2) * e
+    mp, _ = mlp.init(gen, cdim, hidden, batch_norm=False)
     dev = "cuda"
     sw = [t.to(dev) for t in senet_weights(sp, F)]
     w_bi = (bp["w"] if btype == "all" else bp["w_each"]).to(dev, dtype).contiguous()
@@ -204,6 +216,15 @@ def time_ms(torch, fn, reps: int = 30) -> float:
         z.synchronize()
         times.append(a.elapsed_time(z))
     return float(np.median(times))
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes at the HBM rate, operations
+    at the bf16 tensor rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def make_rows(n: int, seed: int) -> dict[str, np.ndarray]:
@@ -375,11 +396,11 @@ def library_layer(torch, weights, num_heads: int, device="cuda"):
 BWD_OUTPUTS = ("dx", "dW1", "db1", "dW2", "db2", "dW_bi")
 
 
-def backward_inputs(torch, btype: str, dtype, b: int, seed: int, use_bias: bool):
+def backward_inputs(torch, btype: str, dtype, b: int, seed: int, use_bias: bool, e: int = E):
     """The interaction backward's operands: a seeded numpy cotangent g and
     the forward's (x, SENet weights, bilinear weight)."""
-    x, sw, w_bi, _ = kernel_inputs(torch, btype, dtype, b, seed, use_bias)
-    g = np.random.default_rng(seed + 1).standard_normal((b, (F + F * (F - 1) // 2) * E))
+    x, sw, w_bi, _ = kernel_inputs(torch, btype, dtype, b, seed, use_bias, e=e, hidden=(8, 8))
+    g = np.random.default_rng(seed + 1).standard_normal((b, (F + F * (F - 1) // 2) * e))
     return torch.from_numpy(g.astype(np.float32)).cuda(), x, sw, w_bi
 
 
@@ -402,7 +423,7 @@ def check_backward(torch, got, want, dtype_name):
     return worst, worst_norm, bad
 
 
-def gradient_check(torch, exp, train, store, root, kernels: dict) -> None:
+def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str) -> None:
     """One step's gradients (fp32, TF32 off) through the kernels against the
     plain path: same seeded weights, batch and dropout seed (the encoder's
     masks too: the kernels and the plain path draw them alike). ``kernels``
@@ -412,14 +433,13 @@ def gradient_check(torch, exp, train, store, root, kernels: dict) -> None:
     from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
     from ctr_recommendation_tpu_torch.training import Trainer
 
-    model = exp.model.model
     batch = {k: torch.as_tensor(v[:B_TRAIN]).cuda() for k, v in train.columns.items()}
     out = {}
     for use_kernel in (True, False):
         e = exp.replace(
             model=dataclasses.replace(exp.model, use_pallas=use_kernel),
             train=dataclasses.replace(exp.train, compute_dtype="float32", checkpoint_dir=os.path.join(
-                root, f"grad_{model}_{int(use_kernel)}")),
+                root, f"grad_{tag}_{int(use_kernel)}")),
         )
         tr = Trainer(e, steps_per_epoch=N_TRAIN // B_TRAIN, item_store=store,
                      log_fn=lambda s: None)
@@ -431,7 +451,7 @@ def gradient_check(torch, exp, train, store, root, kernels: dict) -> None:
         torch.cuda.synchronize()
         launched = tuple(fn.launches for fn in kernels)
         if launched != (tuple(kernels.values()) if use_kernel else (0,) * len(kernels)):
-            raise SystemExit(f"{model} gradient check, use_pallas={use_kernel}: launches "
+            raise SystemExit(f"{tag} gradient check, use_pallas={use_kernel}: launches "
                              f"{launched}")
     (l_k, g_k, names), (l_p, g_p, _) = out[True], out[False]
     largest = max(b.abs().max().item() for b in g_p)
@@ -448,17 +468,17 @@ def gradient_check(torch, exp, train, store, root, kernels: dict) -> None:
         if not bool(torch.isfinite(a).all()) or err > GRAD_TOL * scale + floor:
             bad.append(f"{name}: max|d| {err:.2e}, max|g| {scale:.2e}")
     launched = ", ".join(f"{n} {fn.__name__}" for fn, n in kernels.items())
-    log(f"[train {model}] gradient check, fp32, dropout on: loss kernel {l_k:.7f} vs plain "
+    log(f"[train {tag}] gradient check, fp32, dropout on: loss kernel {l_k:.7f} vs plain "
         f"{l_p:.7f}; {len(names)} gradients through {launched} launches; worst |d|/max|g| "
         f"{worst_rel:.3e} over the gradients above 1e-3 of the largest ({largest:.3e}); "
         f"tolerance {GRAD_TOL:g} of the leaf + {GRAD_FLOOR:g} of the largest ({floor:.3e}); "
         f"below 1e-3 of the largest: {vanishing}; out of {GRAD_TOL:g} of the leaf without the "
         f"floor: {no_floor}")
     if bad or abs(l_k - l_p) > 1e-5:
-        raise SystemExit(f"{model}: kernel and plain gradients disagree: {bad}")
+        raise SystemExit(f"{tag}: kernel and plain gradients disagree: {bad}")
 
 
-def step_split(torch, trainer, train, card, reps: int = 10, profiled: int = 3) -> None:
+def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: int = 3) -> None:
     """Median ms of one train step's forward+loss, backward and optimizer
     (CUDA events), after three warm-up steps; then ``torch.profiler`` over
     ``profiled`` more steps: device-busy ms and kernels a step, the busy
@@ -483,7 +503,6 @@ def step_split(torch, trainer, train, card, reps: int = 10, profiled: int = 3) -
                 parts[k].append(a.elapsed_time(z))
     split = {k: float(np.median(v)) for k, v in parts.items()}
     step_ms = sum(split.values())
-    tag = trainer.exp.model.model
     log(f"[train {tag}] one step at B={B_TRAIN}, ms (median of {reps}): {split}, "
         f"sum {step_ms:.4f} on {card}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -573,14 +592,11 @@ def encoder_timing(torch, card) -> dict:
     tokens = B_FULL * ENC_S
     ops = 2 * tokens * (12 * ENC_E * ENC_E + 2 * ENC_S * ENC_E)
     nbytes = 2 * 2 * x.numel() + 4 * amask.numel() + sum(t.numel() * t.element_size() for t in ws)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
     with torch.inference_mode():
         t = {
             "ms": time_ms(torch, lambda: encode_fwd(x, amask, *ws, num_heads=ENC_H)),
             "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, num_heads=ENC_H)),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **bound(nbytes, ops),
             "library_ms": time_ms(torch, lambda: layer(x, src_key_padding_mask=pad)),
         }
     log(f"[time] sasrec_encoder_fwd bf16 B={B_FULL} S={ENC_S} E={ENC_E} H={ENC_H} L=1: {t} "
@@ -756,16 +772,13 @@ def encoder_bwd_timing(torch, card) -> dict:
     ops = 3 * 2 * tokens * (12 * ENC_E * ENC_E + 2 * ENC_S * ENC_E)
     nbytes = (3 * 2 * x.numel() + 4 * amask.numel()
               + sum(t.numel() * t.element_size() for t in ws) + 4 * sum(t.numel() for t in ws))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
     lib_fwd = time_ms(torch, lambda: layer(x, src_key_padding_mask=pad))
     lib_both = time_ms(torch, lambda: library_grads(torch, layer, x, pad, g))
     kw = dict(num_heads=ENC_H, seed=seed, rate=DROP_RATE)
     t = {
         "ms": time_ms(torch, lambda: encode_bwd(g, x, amask, *ws, **kw)),
         "plain_ms": time_ms(torch, lambda: encode_bwd_plain(g, x, amask, *ws, **kw)),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **bound(nbytes, ops),
         "library_ms": lib_both - lib_fwd,
     }
     log(f"[time] sasrec_encoder_bwd bf16 B={B_TRAIN} S={ENC_S} E={ENC_E} H={ENC_H} L=1 "
@@ -774,8 +787,164 @@ def encoder_bwd_timing(torch, card) -> dict:
     return t
 
 
+WIDE_E = 256  # the recipe sweep's emb_256 and emb_256_tower1024
+WIDE_TOWERS = ((1024, 512), (768, 384))  # its tower_1024 and tower_768_384
+WIDE_HIDDEN = (1024, 512)  # emb_256_tower1024's tower
+
+
+def width_tag(name: str, e: int, hidden) -> str:
+    """' E=.. tower (..)' in a log line, empty at the model's own widths."""
+    if (e, hidden) == (E, HIDDEN):
+        return ""
+    return f" E={e}" + (f" tower {hidden}" if name == "fused_score" else "")
+
+
+def forward_against_plain(torch, worst: dict, e: int, hidden, batches, seed_offset: int = 0,
+                          with_fwd: bool = True) -> list:
+    """Phase 2 for the forwards at (e, hidden): fused_score and (with_fwd)
+    interaction_fwd against their plain versions at each batch, "all" and
+    "each", bf16 and fp32, within TOL. Updates ``worst``; returns the
+    failures."""
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        interaction_fwd,
+        interaction_fwd_plain,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_fwd_plain
+
+    failures = []
+    for btype in ("all", "each"):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            for b in batches:
+                x, sw, w_bi, tower = kernel_inputs(torch, btype, dtype, b, seed=b + seed_offset,
+                                                   e=e, hidden=hidden)
+                cases = {}
+                if with_fwd:
+                    cases["interaction_fwd"] = (
+                        interaction_fwd(x, *sw, w_bi, bilinear_type=btype),
+                        interaction_fwd_plain(x, *sw, w_bi, bilinear_type=btype))
+                cases["fused_score"] = (
+                    score_fwd(x, *sw, w_bi, *tower, bilinear_type=btype),
+                    score_fwd_plain(x, *sw, w_bi, *tower, bilinear_type=btype))
+                torch.cuda.synchronize()
+                for name, (got, want) in cases.items():
+                    err, bad, tol = check_close(name, got, want, dn)
+                    worst[name] = max(worst[name], err)
+                    ok = bad == 0 and bool(torch.isfinite(got).all())
+                    log(f"[compare] {name}{width_tag(name, e, hidden)} {btype} {dn} B={b}: "
+                        f"max_abs_err={err:.3e} ({tol}) {'ok' if ok else f'FAIL ({bad} elements)'}")
+                    if not ok:
+                        failures.append((name, e, hidden, btype, dn, b))
+    return failures
+
+
+def backward_against_plain(torch, worst: dict, e: int, seed_offset: int = 0) -> list:
+    """Phase 2 for interaction_bwd at width e, B=4096 and 4133, SENet biases
+    on and off, "all" and "each", bf16 and fp32: within BWD_TOL (and the
+    bf16 norm bar), the repeat launch bit-identical, and in bf16 the same
+    bars rejecting a control taken at the forward's rounding points."""
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        interaction_bwd,
+        interaction_bwd_plain,
+    )
+
+    failures = []
+    for btype in ("all", "each"):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            for b in (B_TRAIN, B_TRAIN + 37):
+                for use_bias in (True, False):
+                    g, x, sw, w_bi = backward_inputs(torch, btype, dtype, b,
+                                                     b + use_bias + seed_offset, use_bias, e=e)
+                    got = interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)
+                    again = interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)
+                    want = interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, c) for a, c in zip(got, again))
+                    err, rel_norm, bad = check_backward(torch, got, want, dn)
+                    worst["interaction_bwd"] = max(worst["interaction_bwd"], err)
+                    ok = same and not bad
+                    control = ""
+                    if dtype == torch.bfloat16:
+                        # the same bar must reject the forward's rounding points
+                        wrong = interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype,
+                                                      forward_rounding=True)
+                        _, c_norm, c_bad = check_backward(torch, got, wrong, dn)
+                        ok = ok and bool(c_bad)
+                        control = (f"; forward-rounding control |d|/|want| {c_norm:.3e}, "
+                                   f"{'rejected' if c_bad else 'NOT REJECTED'} on {c_bad}")
+                    log(f"[compare] interaction_bwd{width_tag('interaction_bwd', e, HIDDEN)} "
+                        f"{btype} {dn} B={b} bias={use_bias}: "
+                        f"max_abs_err={err:.3e} (|d| <= {BWD_TOL[dn][0]:g}*max|want| + "
+                        f"{BWD_TOL[dn][1]:g}*|want|), |d|/|want| {rel_norm:.3e} (bf16 bar "
+                        f"{BWD_NORM_TOL:.3e}), repeat bit-identical {same}{control} "
+                        f"{'ok' if ok else f'FAIL {bad}'}")
+                    if not ok:
+                        failures.append(("interaction_bwd", e, btype, dn, b, use_bias))
+    return failures
+
+
+def mm_timing(torch, card, e: int, hidden, with_interaction: bool = True) -> dict:
+    """Phase 3 for the MM-FiBiNET kernels at (e, hidden), bf16: fused_score
+    and (with_interaction) interaction_fwd at B=8192 and interaction_bwd at
+    B=4096, kernel and plain version with CUDA events beside the bound from
+    the run's shapes (each input read once, each output written once).
+    Returns {(name, btype): times}."""
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        interaction_bwd,
+        interaction_bwd_plain,
+        interaction_fwd,
+        interaction_fwd_plain,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_fwd_plain
+
+    cdim = (F + F * (F - 1) // 2) * e
+    h1, h2 = hidden
+    timing = {}
+    for btype in ("all", "each"):
+        x, sw, w_bi, tower = kernel_inputs(torch, btype, torch.bfloat16, B_FULL, seed=1,
+                                           e=e, hidden=hidden)
+        w_bytes = 4 * sum(t.numel() for t in sw) + 2 * w_bi.numel()
+        inter_ops = 2 * B_FULL * (F - 1) * e * e  # the F-1 projections the pairs use
+        runs = [("fused_score",
+                 lambda: score_fwd(x, *sw, w_bi, *tower, bilinear_type=btype),
+                 lambda: score_fwd_plain(x, *sw, w_bi, *tower, bilinear_type=btype),
+                 2 * x.numel() + w_bytes + sum(t.numel() * t.element_size() for t in tower)
+                 + 4 * B_FULL,
+                 inter_ops + 2 * B_FULL * (cdim * h1 + h1 * h2 + h2))]
+        if with_interaction:
+            runs.insert(0, ("interaction_fwd",
+                            lambda: interaction_fwd(x, *sw, w_bi, bilinear_type=btype),
+                            lambda: interaction_fwd_plain(x, *sw, w_bi, bilinear_type=btype),
+                            2 * x.numel() + w_bytes + 4 * B_FULL * cdim, inter_ops))
+        for name, kern, plain, nbytes, ops in runs:
+            timing[(name, btype)] = t = {"ms": time_ms(torch, kern),
+                                         "plain_ms": time_ms(torch, plain), **bound(nbytes, ops)}
+            log(f"[time] {name} bf16 {btype}{width_tag(name, e, hidden)} B={B_FULL}: {t} "
+                f"(bytes {nbytes}, ops {ops}) on {card}")
+        del x, sw, w_bi, tower
+    if not with_interaction:
+        return timing
+    for btype in ("all", "each"):  # the backward at the training batch
+        g, x, sw, w_bi = backward_inputs(torch, btype, torch.bfloat16, B_TRAIN, 2, True, e=e)
+        nq = 1 if btype == "all" else F - 1
+        # g read, x read, dx written, weights read and their gradients written
+        nbytes = (4 * g.numel() + 2 * 2 * x.numel() + 4 * sum(t.numel() for t in sw)
+                  + 2 * w_bi.numel() + 4 * (nq * e * e + sum(t.numel() for t in sw)))
+        ops = 6 * B_TRAIN * (F - 1) * e * e  # v, dv W^T and s^T dv for F-1 fields
+        timing[("interaction_bwd", btype)] = t = {
+            "ms": time_ms(torch, lambda: interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)),
+            "plain_ms": time_ms(
+                torch, lambda: interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype)),
+            **bound(nbytes, ops),
+        }
+        log(f"[time] interaction_bwd bf16 {btype}{width_tag('interaction_bwd', e, HIDDEN)} "
+            f"B={B_TRAIN}: {t} (bytes {nbytes}, ops {ops}) on {card}")
+    return timing
+
+
 def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_step: dict,
-                    per_eval: dict, per_serve: dict) -> dict:
+                    per_eval: dict, per_serve: dict, tag: str = "") -> dict:
     """Phases 6-7 (and 6b) for one model at the full microlens_experiment()
     defaults on phase 6's splits: one step's fp32 gradients kernel vs plain
     with dropout on, fit_on_device for 2 epochs (loss finite and falling,
@@ -784,14 +953,15 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     at the trainer's AUC. ``counted`` are the wrappers whose launches are
     checked exactly; ``per_step``, ``per_eval`` and ``per_serve`` give each
     one's launches a train step, an eval batch and a serving batch (absent:
-    0). Returns the launches of each counted wrapper in the fit."""
+    0). ``tag`` names the run in the log (default: the model's name).
+    Returns the launches of each counted wrapper in the fit."""
     from ctr_recommendation_tpu_torch.inference import Predictor
     from ctr_recommendation_tpu_torch.tools import jax_bridge
     from ctr_recommendation_tpu_torch.training import Trainer
     from ctr_recommendation_tpu_torch.training.metrics import auc
 
-    tag = exp.model.model
-    gradient_check(torch, exp, train, store, root, per_step)
+    tag = tag or exp.model.model
+    gradient_check(torch, exp, train, store, root, per_step, tag)
     steps = TRAIN_EPOCHS * (N_TRAIN // B_TRAIN)
     eval_batches = TRAIN_EPOCHS * -(-N_VALID // exp.train.eval_batch_size)
     trainer = Trainer(exp, steps_per_epoch=N_TRAIN // B_TRAIN, item_store=store, log_fn=log)
@@ -824,7 +994,7 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     export = trainer.ckpt.best_export_path
     if trainer.ckpt.latest_step() != TRAIN_EPOCHS or not os.path.exists(export):
         raise SystemExit(f"{tag}: fit_on_device wrote no resume point or no best export")
-    step_split(torch, trainer, train, card)
+    step_split(torch, trainer, train, card, tag)
 
     served_params, served_state = jax_bridge.params_from_jax(
         *jax_bridge.load(export), trainer.fm, exp.model)
@@ -962,13 +1132,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from ctr_recommendation_tpu_torch.ops.cuda import build
-    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
-        interaction_bwd,
-        interaction_bwd_plain,
-        interaction_fwd,
-        interaction_fwd_plain,
-    )
-    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_fwd_plain
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd
 
     # ---- phase 1: card, build ----
     smi = subprocess.run(
@@ -988,64 +1153,17 @@ def main() -> int:
     # ---- phase 2: each kernel against its plain version ----
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    worst = {"interaction_fwd": 0.0, "fused_score": 0.0}
-    failures = []
-    for btype in ("all", "each"):
-        for dtype in (torch.bfloat16, torch.float32):
-            dn = str(dtype).split(".")[1]
-            for b in (B_TRAIN, B_TRAIN + 37, B_FULL, B_RAGGED):
-                x, sw, w_bi, tower = kernel_inputs(torch, btype, dtype, b, seed=b)
-                cases = {
-                    "interaction_fwd": (
-                        interaction_fwd(x, *sw, w_bi, bilinear_type=btype),
-                        interaction_fwd_plain(x, *sw, w_bi, bilinear_type=btype),
-                    ),
-                    "fused_score": (
-                        score_fwd(x, *sw, w_bi, *tower, bilinear_type=btype),
-                        score_fwd_plain(x, *sw, w_bi, *tower, bilinear_type=btype),
-                    ),
-                }
-                torch.cuda.synchronize()
-                for name, (got, want) in cases.items():
-                    err, bad, tol = check_close(name, got, want, dn)
-                    worst[name] = max(worst[name], err)
-                    ok = bad == 0 and bool(torch.isfinite(got).all())
-                    log(f"[compare] {name} {btype} {dn} B={b}: max_abs_err={err:.3e} "
-                        f"({tol}) {'ok' if ok else f'FAIL ({bad} elements)'}")
-                    if not ok:
-                        failures.append((name, btype, dn, b))
-    # the backward at the training batch, SENet biases on and off
-    worst["interaction_bwd"] = 0.0
-    for btype in ("all", "each"):
-        for dtype in (torch.bfloat16, torch.float32):
-            dn = str(dtype).split(".")[1]
-            for b in (B_TRAIN, B_TRAIN + 37):
-                for use_bias in (True, False):
-                    g, x, sw, w_bi = backward_inputs(torch, btype, dtype, b, b + use_bias, use_bias)
-                    got = interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)
-                    again = interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)
-                    want = interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype)
-                    torch.cuda.synchronize()
-                    same = all(torch.equal(a, c) for a, c in zip(got, again))
-                    err, rel_norm, bad = check_backward(torch, got, want, dn)
-                    worst["interaction_bwd"] = max(worst["interaction_bwd"], err)
-                    ok = same and not bad
-                    control = ""
-                    if dtype == torch.bfloat16:
-                        # the same bar must reject the forward's rounding points
-                        wrong = interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype,
-                                                      forward_rounding=True)
-                        _, c_norm, c_bad = check_backward(torch, got, wrong, dn)
-                        ok = ok and bool(c_bad)
-                        control = (f"; forward-rounding control |d|/|want| {c_norm:.3e}, "
-                                   f"{'rejected' if c_bad else 'NOT REJECTED'} on {c_bad}")
-                    log(f"[compare] interaction_bwd {btype} {dn} B={b} bias={use_bias}: "
-                        f"max_abs_err={err:.3e} (|d| <= {BWD_TOL[dn][0]:g}*max|want| + "
-                        f"{BWD_TOL[dn][1]:g}*|want|), |d|/|want| {rel_norm:.3e} (bf16 bar "
-                        f"{BWD_NORM_TOL:.3e}), repeat bit-identical {same}{control} "
-                        f"{'ok' if ok else f'FAIL {bad}'}")
-                    if not ok:
-                        failures.append(("interaction_bwd", btype, dn, b, use_bias))
+    worst = {"interaction_fwd": 0.0, "fused_score": 0.0, "interaction_bwd": 0.0}
+    batches = (B_TRAIN, B_TRAIN + 37, B_FULL, B_RAGGED)
+    failures = forward_against_plain(torch, worst, E, HIDDEN, batches)
+    failures += backward_against_plain(torch, worst, E)
+    # the recipe sweep's wider widths, with the same bars
+    failures += forward_against_plain(torch, worst, WIDE_E, HIDDEN, batches, seed_offset=WIDE_E)
+    for e in (E, WIDE_E):
+        for hidden in WIDE_TOWERS:
+            failures += forward_against_plain(torch, worst, e, hidden, (B_TRAIN + 37, B_FULL),
+                                              seed_offset=e, with_fwd=False)
+    failures += backward_against_plain(torch, worst, WIDE_E, seed_offset=7)
     worst["sasrec_encoder_fwd"], enc_failures = encoder_against_plain(torch)
     failures += enc_failures
     drop_worst, drop_failures = dropout_forward_against_plain(torch)
@@ -1057,64 +1175,17 @@ def main() -> int:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
 
     # ---- phase 3: timing at the main path's shapes (bf16, B=8192) ----
-    P = F * (F - 1) // 2
-    cdim = (F + P) * E
-    h1, h2 = HIDDEN
-    timing = {}
-    for btype in ("all", "each"):
-        x, sw, w_bi, tower = kernel_inputs(torch, btype, torch.bfloat16, B_FULL, seed=1)
-        # bytes: each input read once, each output written once
-        w_bytes = 4 * sum(t.numel() for t in sw) + 2 * w_bi.numel()
-        inter_bytes = 2 * x.numel() + w_bytes + 4 * B_FULL * cdim
-        inter_ops = 2 * B_FULL * (F - 1) * E * E  # the F-1 projections the pairs use
-        tower_w_bytes = sum(t.numel() * t.element_size() for t in tower)
-        score_bytes = 2 * x.numel() + w_bytes + tower_w_bytes + 4 * B_FULL
-        score_ops = inter_ops + 2 * B_FULL * (cdim * h1 + h1 * h2 + h2)
-        for name, kern, plain, nbytes, ops in (
-            ("interaction_fwd",
-             lambda: interaction_fwd(x, *sw, w_bi, bilinear_type=btype),
-             lambda: interaction_fwd_plain(x, *sw, w_bi, bilinear_type=btype),
-             inter_bytes, inter_ops),
-            ("fused_score",
-             lambda: score_fwd(x, *sw, w_bi, *tower, bilinear_type=btype),
-             lambda: score_fwd_plain(x, *sw, w_bi, *tower, bilinear_type=btype),
-             score_bytes, score_ops),
-        ):
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
-            timing[(name, btype)] = t = {
-                "ms": time_ms(torch, kern),
-                "plain_ms": time_ms(torch, plain),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            }
-            log(f"[time] {name} bf16 {btype} B={B_FULL}: {t} "
-                f"(bytes {nbytes}, ops {ops}) on {card}")
-    for btype in ("all", "each"):  # the backward at the training batch
-        g, x, sw, w_bi = backward_inputs(torch, btype, torch.bfloat16, B_TRAIN, 2, True)
-        nq = 1 if btype == "all" else F - 1
-        # g read, x read, dx written, weights read and their gradients written
-        bwd_bytes = (4 * g.numel() + 2 * 2 * x.numel()
-                     + 4 * sum(t.numel() for t in sw) + 2 * w_bi.numel()
-                     + 4 * (nq * E * E + sum(t.numel() for t in sw)))
-        bwd_ops = 6 * B_TRAIN * (F - 1) * E * E  # v, dv W^T and s^T dv for F-1 fields
-        t_bytes = bwd_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = bwd_ops / PEAK_FLOPS["bfloat16"] * 1e3
-        timing[("interaction_bwd", btype)] = t = {
-            "ms": time_ms(torch, lambda: interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)),
-            "plain_ms": time_ms(
-                torch, lambda: interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype)),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        log(f"[time] interaction_bwd bf16 {btype} B={B_TRAIN}: {t} "
-            f"(bytes {bwd_bytes}, ops {bwd_ops}) on {card}")
-    del g
+    timing = mm_timing(torch, card, E, HIDDEN)
+    cdim = (F + F * (F - 1) // 2) * E
     c = torch.randn(B_FULL, cdim, device="cuda", dtype=torch.bfloat16)
-    mm_ms = time_ms(torch, lambda: torch.matmul(c, tower[0]))
+    w1 = torch.randn(cdim, HIDDEN[0], device="cuda", dtype=torch.bfloat16)
+    mm_ms = time_ms(torch, lambda: torch.matmul(c, w1))
     log(f"[time] yardstick, not the same function: one bf16 torch.matmul "
-        f"({B_FULL}x{cdim})x({cdim}x{h1}) {mm_ms:.4f} ms on {card}")
-    del c, x, sw, w_bi, tower
+        f"({B_FULL}x{cdim})x({cdim}x{HIDDEN[0]}) {mm_ms:.4f} ms on {card}")
+    del c, w1
+    mm_timing(torch, card, WIDE_E, HIDDEN)
+    mm_timing(torch, card, WIDE_E, WIDE_HIDDEN, with_interaction=False)
+    mm_timing(torch, card, E, WIDE_HIDDEN, with_interaction=False)
     timing[("sasrec_encoder_fwd", "all")] = encoder_timing(torch, card)
     timing[("sasrec_encoder_bwd", "all")] = encoder_bwd_timing(torch, card)
 
@@ -1239,6 +1310,14 @@ def main() -> int:
             per_step={interaction_fwd: 1, interaction_bwd: 2, encode_fwd: 1, encode_bwd: 2},
             per_eval={interaction_fwd: 1, encode_fwd: 1},
             per_serve={score_fwd: 1, encode_fwd: 1})
+        # ---- phase 6c: emb_256_tower1024 (E=256, tower (1024, 512)) ----
+        wide_exp = microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
+                                        embedding_dim=WIDE_E, hidden_units=WIDE_HIDDEN,
+                                        checkpoint_dir=os.path.join(root, "ckpt_wide"))
+        train_and_serve(
+            torch, wide_exp, train, valid, train_store, root, card, counted,
+            per_step={interaction_fwd: 1, interaction_bwd: 2}, per_eval={interaction_fwd: 1},
+            per_serve={score_fwd: 1}, tag="emb_256_tower1024")
     train_fwd, train_bwd = mm[interaction_fwd], mm[interaction_bwd]
     enc_bwd_launches = sasrec[encode_bwd]
 

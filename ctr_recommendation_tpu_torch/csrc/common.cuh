@@ -148,11 +148,52 @@ __device__ void senet_gate(T* S_s, float* z_s, float* a_s, float* w_s,
   __syncthreads();
 }
 
-// One 4x4 tile of the bilinear projection V_p = S_p W for field p: rows
-// r0..r0+3 of the tile, columns c0..c0+3; fp32 accumulation, then rounded to T.
+// Columns [c0, c0 + ncols) of the rows x ld_src matrix src (global, T) into
+// shared memory as fp32 rows of stride ld_dst; ncols, c0, ld_src and ld_dst
+// % 8 == 0.
+// A thread walks its pieces (row r, 8-column group g) by adding blockDim.x
+// to r * ncols / 8 + g without dividing again: this load runs once per
+// staged block, inside the kernels' inner loops.
 template <typename T>
-__device__ __forceinline__ void proj_tile(const T* S_s, const float* W_s, int F, int E,
-                                          int p, int r0, int c0, float v[4][4]) {
+__device__ __forceinline__ void load_cols_f32(float* dst, int ld_dst, const T* src, int rows,
+                                              int ld_src, int c0, int ncols) {
+  if (ncols == ld_src && ncols == ld_dst) {  // whole rows: one contiguous piece
+    load_block_f32(dst, src + c0, rows * ncols);
+    return;
+  }
+  const int v8 = ncols / 8;
+  const int dr = blockDim.x / v8, dg = blockDim.x % v8;
+  int r = threadIdx.x / v8, g = threadIdx.x % v8;
+  while (r < rows) {
+    load8(dst + static_cast<size_t>(r) * ld_dst + g * 8,
+          src + static_cast<size_t>(r) * ld_src + c0 + g * 8);
+    r += dr;
+    g += dg;
+    if (g >= v8) {
+      g -= v8;
+      ++r;
+    }
+  }
+}
+
+// Width of the column blocks in which an (E, E) weight is staged: the
+// largest divisor of E that is a multiple of 8 and keeps an (E, nc) block
+// within max_elems elements (8 always divides E here).
+inline int weight_block_cols(int E, size_t max_elems) {
+  for (int nc = E; nc >= 8; nc -= 8) {
+    if (E % nc == 0 && static_cast<size_t>(E) * nc <= max_elems) return nc;
+  }
+  return 0;
+}
+
+// One 4x4 tile of the bilinear projection V_p = S_p W for field p: rows
+// r0..r0+3 of the tile, four columns; W_c points at the tile's first column
+// inside a staged (E, ldw) fp32 column block of W. fp32 accumulation over
+// k = 0..E-1 in order (so a column's sum is the same for any block width),
+// then rounded to T.
+template <typename T>
+__device__ __forceinline__ void proj_tile(const T* S_s, const float* W_c, int ldw, int F, int E,
+                                          int p, int r0, float v[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -160,7 +201,7 @@ __device__ __forceinline__ void proj_tile(const T* S_s, const float* W_s, int F,
   const size_t rs = static_cast<size_t>(F) * E;
   const T* s0 = S_s + (static_cast<size_t>(r0) * F + p) * E;
   for (int k = 0; k < E; ++k) {
-    const float4 w = *reinterpret_cast<const float4*>(W_s + static_cast<size_t>(k) * E + c0);
+    const float4 w = *reinterpret_cast<const float4*>(W_c + static_cast<size_t>(k) * ldw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float s = to_f(s0[i * rs + k]);

@@ -19,42 +19,87 @@
 // forward's (there the gate is rounded before x * w and V after the dot).
 //
 // Bound on an H100: bytes. At B=4096, F=6, E=128 with bf16 x it must read
-// g (44.0 MB fp32) and x (6.3 MB) and write dx (6.3 MB); the 2.4 GFLOP of
-// projections are far below the card's compute line.
+// g (44.0 MB fp32) and x (6.3 MB) and write dx (6.3 MB); the 2.0 GFLOP of
+// projections are far below the card's compute line (E=256: 113 MB against
+// 8.1 GFLOP, still bytes).
 //
-// Design. A block of 256 threads owns TB rows at a time (TB = 32 in bf16, 12
-// in fp32: what 227 KB of shared memory holds) and keeps x, the fp32 ds
-// accumulator, W and W^T (both in T) and the small gate vectors there. g is
-// streamed from device memory once, one E-wide chunk per field or pair, as
-// 16-byte loads. For each projected field p, a thread computes a 4x4 tile of
-// v_p in registers, walks every pair that uses v_p, adds into ds in shared
-// memory and accumulates the matching 4x4 tile of dv_p in registers; dv_p is
-// complete at that point (each pair's dv goes to exactly one projected
-// field), so it is rounded into a (TB, E) buffer and its two products run
-// at once. The weight gradients are summed over the batch without atomics:
-// the grid is persistent (at most one block per SM, each looping over row
-// tiles in a fixed order) and each block adds into its own fp32 partial in
-// device memory; a second launch reduces the partials in block order. Two
-// launches on the same inputs are therefore bit-identical. Rows past B are
+// Design. A block of 256 threads owns TB rows at a time and keeps x, the
+// fp32 ds accumulator, a (TB, E) buffer for dv, the projection weight (in T)
+// and the small gate vectors in shared memory. g is streamed from device
+// memory once, one E-wide chunk per field or pair, as 16-byte loads. For
+// each projected field p, a thread computes a 4x4 tile of v_p in registers,
+// walks every pair that uses v_p, adds into ds in shared memory and
+// accumulates the matching 4x4 tile of dv_p in registers; dv_p is complete
+// at that point (each pair's dv goes to exactly one projected field), so it
+// is rounded into the dv buffer and its two products run at once. The
+// weight gradients are summed over the batch without atomics: the grid is
+// persistent (at most one block per SM, each looping over row tiles in a
+// fixed order) and each block adds into its own fp32 partial in device
+// memory; a second launch reduces the partials in block order. Two launches
+// on the same inputs are therefore bit-identical. Rows past B are
 // zero-filled in shared memory, read no g and write no dx, so they add
 // exactly zero. The products run as fp32 FMA on the CUDA cores: simple first.
+//
+// Any E % 8 == 0 that leaves a row tile of 4 in shared memory (E=256 in both
+// dtypes). Two plans:
+//   blocked: W and W^T (128 KB each in bf16 at E=256) do not both fit beside
+//     x and ds, so one (E, nc + 4) buffer holds a column block of W while v_p
+//     is formed (the v tiles walk the blocks) and then a column block of W^T
+//     (a row block of W, transposed on the way in; the 4-element pad spreads
+//     its banks) while ds_p += cd(dv_p) W^T is. Both are restaged from L2
+//     for every field of every tile. (TB, nc) maximises the 4x4 tiles of a
+//     block: at E=128 TB=32, nc=128 in bf16 (24, 128 in fp32); at E=256
+//     TB=16, nc=128 in bf16 and TB=12, nc=64 in fp32.
+//   resident, "all" only: W and W^T whole in T, loaded once a call, when a
+//     tile of 8 rows or more fits beside them (E=128: TB=32 in bf16, 12 in
+//     fp32). On an H100 (bf16, B=4096, E=128; chip_smoke.py's timing of the
+//     earlier kernel, which staged W whole for both types, and of the blocked
+//     plan in turns on one card) "all" took 0.34-0.37 ms with W whole and
+//     0.38-0.44 ms blocked; "each", which needs a new W every field anyway,
+//     0.45-0.46 ms with whole-W loads and 0.37-0.39 ms blocked.
+// dW_bi accumulates in registers, 16 float4 a thread: a whole 128 x 128
+// matrix, which for "all" is held across the fields of a tile and flushed
+// into the partial once. A wider E takes the same accumulator in passes over
+// the matrix's elements (E^2/4/256 float4 a thread, 64 at E=256, is more than
+// a thread's 255 registers), each pass flushed into the partial as soon as it
+// has summed the tile's rows for one field. The flush order is fixed, so
+// repeats stay bit-identical. The flushes are what the passes cost: at E=256
+// each tile reads and rewrites its block's 256 KB partial of a matrix once a
+// field, 5 x 2 x 256 KB a tile, ~650 MB a call over B=4096's 256 tiles. For
+// "all" that is one 256 KB partial a block, which L2 holds; for "each" five,
+// 1.3 MB a block, which it does not. A second kernel forming dW_bi from a
+// scratch of cd(s_p) and cd(dv_p) would move 2(F-1)E values a row each way
+// instead, 21 MB at B=4096 in bf16. Passes were taken to keep one launch
+// pair and the partials' reduction as they were; which design is faster was
+// not measured.
 
 #include "common.cuh"
 
 namespace ctr {
 
-constexpr int kMaxE = 128;  // dW accumulators: E*E/4/kThreads float4 per thread
-constexpr int kMaxVec = kMaxE * kMaxE / 4 / kThreads;
+constexpr int kMaxVec = 16;  // dW_bi accumulator: float4 a thread (a 128 x 128 matrix)
+constexpr int kVecPass = kMaxVec * kThreads;
+
+struct BwdPlan {
+  int tb, nc, resident;
+};
 
 struct BwdLayout {
   size_t x, ds, dvc, w, wt, small, total;
 };
 
+// Leading dimension of the staged weight: E when resident, nc + 4 blocked.
+__host__ __device__ inline int weight_ld(const BwdPlan& P, int E) {
+  return P.resident ? E : P.nc + 4;
+}
+
 // Shared memory of one block: x (TB,F,E) in T, ds (TB,F,E) fp32, dvc (TB,E)
-// in T, W and W^T (E,E) in T, then z, w, dh2, dz (TB,F) and h1, dh1 (TB,R).
+// in T, then W and W^T (E,E) in T (resident) or one (E, nc + 4) block of W
+// or W^T in T (blocked), then z, w, dh2, dz (TB,F) and h1, dh1 (TB,R).
 template <typename T>
-__host__ __device__ inline BwdLayout bwd_layout(int TB, int F, int E, int R) {
+__host__ __device__ inline BwdLayout bwd_layout(const BwdPlan& P, int F, int E, int R) {
   BwdLayout L;
+  const int TB = P.tb;
   size_t o = 0;
   L.x = o;
   o += align16(static_cast<size_t>(TB) * F * E * sizeof(T));
@@ -63,21 +108,34 @@ __host__ __device__ inline BwdLayout bwd_layout(int TB, int F, int E, int R) {
   L.dvc = o;
   o += align16(static_cast<size_t>(TB) * E * sizeof(T));
   L.w = o;
-  o += align16(static_cast<size_t>(E) * E * sizeof(T));
-  L.wt = o;
-  o += align16(static_cast<size_t>(E) * E * sizeof(T));
+  o += align16(static_cast<size_t>(E) * weight_ld(P, E) * sizeof(T));
+  L.wt = P.resident ? o : L.w;
+  if (P.resident) o += align16(static_cast<size_t>(E) * E * sizeof(T));
   L.small = o;
   o += static_cast<size_t>(TB) * (4 * F + 2 * R) * sizeof(float);
   L.total = o;
   return L;
 }
 
+// For "all", the resident plan with the most rows, if one of 8 or more
+// fits; else the blocked plan with the most 4x4 tiles a block (TB * nc),
+// larger TB first.
 template <typename T>
-static int tile_rows(int F, int E, int R) {
-  for (int tb = 32; tb >= 4; tb -= 4) {
-    if (bwd_layout<T>(tb, F, E, R).total <= kMaxSmem) return tb;
+static BwdPlan bwd_plan(int F, int E, int R, bool each) {
+  for (int tb = 32; tb >= 8 && !each; tb -= 4) {
+    const BwdPlan P{tb, E, 1};
+    if (bwd_layout<T>(P, F, E, R).total <= kMaxSmem) return P;
   }
-  return 0;
+  BwdPlan best{0, 0, 0};
+  for (int tb = 32; tb >= 4; tb -= 4) {
+    for (int nc = E; nc >= 8; nc -= 8) {
+      const BwdPlan P{tb, nc, 0};
+      if (E % nc || bwd_layout<T>(P, F, E, R).total > kMaxSmem) continue;
+      if (tb * nc > best.tb * best.nc) best = P;
+      break;
+    }
+  }
+  return best;
 }
 
 __device__ __forceinline__ void load4(float* dst, const float* src) {
@@ -120,6 +178,53 @@ __device__ __forceinline__ void load_weight(T* W_s, T* WT_s, const T* __restrict
   }
 }
 
+// Columns [cb, cb + nc) of W (E,E) into W_s (E, ld), ld = nc + 4: 16-byte
+// loads along W's rows (each thread a different piece), 8-byte stores.
+template <typename T>
+__device__ __forceinline__ void load_weight_cols(T* W_s, const T* __restrict__ w, int E, int cb,
+                                                 int nc, int ld) {
+  constexpr int V = 16 / sizeof(T);  // elements a 16-byte load
+  const int nv = nc / V;
+  const int dk = blockDim.x / nv, dg = blockDim.x % nv;
+  int k = threadIdx.x / nv, g = threadIdx.x % nv;  // as load_cols_f32 walks
+  while (k < E) {
+    const uint4 u = *reinterpret_cast<const uint4*>(w + static_cast<size_t>(k) * E + cb + g * V);
+    uint2* d = reinterpret_cast<uint2*>(W_s + static_cast<size_t>(k) * ld + g * V);
+    d[0] = make_uint2(u.x, u.y);
+    d[1] = make_uint2(u.z, u.w);
+    k += dk;
+    g += dg;
+    if (g >= nv) {
+      g -= nv;
+      ++k;
+    }
+  }
+}
+
+// Columns [cb, cb + nc) of W^T, i.e. rows cb.. of W, into WT_s (E, ld):
+// WT_s[d][j] = W[cb + j][d]. Neighbouring threads take neighbouring rows j
+// (16 bytes of each), so their shared-memory stores land side by side.
+template <typename T>
+__device__ __forceinline__ void load_weight_t_cols(T* WT_s, const T* __restrict__ w, int E,
+                                                   int cb, int nc, int ld) {
+  constexpr int V = 16 / sizeof(T);
+  const int dd = blockDim.x / nc, dj = blockDim.x % nc;
+  int d = threadIdx.x / nc, j = threadIdx.x % nc;  // d counts V-element pieces
+  while (d < E / V) {
+    const uint4 u =
+        *reinterpret_cast<const uint4*>(w + static_cast<size_t>(cb + j) * E + d * V);
+    const T* h = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int v = 0; v < V; ++v) WT_s[static_cast<size_t>(d * V + v) * ld + j] = h[v];
+    d += dd;
+    j += dj;
+    if (j >= nc) {
+      j -= nc;
+      ++d;
+    }
+  }
+}
+
 // Add v into *dst, or store it on the block's first tile.
 __device__ __forceinline__ void accumulate(float* dst, float v, bool first) {
   *dst = first ? v : *dst + v;
@@ -131,15 +236,16 @@ interaction_bwd_kernel(const float* __restrict__ g, const T* __restrict__ x,
                        const float* __restrict__ w1, const float* __restrict__ b1,
                        const float* __restrict__ w2, const float* __restrict__ b2,
                        const T* __restrict__ wbi, T* __restrict__ dx,
-                       float* __restrict__ part, int B, int F, int E, int R, int TB,
+                       float* __restrict__ part, int B, int F, int E, int R, BwdPlan plan,
                        int part_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const BwdLayout L = bwd_layout<T>(TB, F, E, R);
+  const BwdLayout L = bwd_layout<T>(plan, F, E, R);
+  const int TB = plan.tb;
   T* x_s = reinterpret_cast<T*>(smem + L.x);
   float* ds_s = reinterpret_cast<float*>(smem + L.ds);
   T* dvc_s = reinterpret_cast<T*>(smem + L.dvc);
-  T* W_s = reinterpret_cast<T*>(smem + L.w);
-  T* WT_s = reinterpret_cast<T*>(smem + L.wt);
+  T* W_s = reinterpret_cast<T*>(smem + L.w);    // W, or a column block of it
+  T* WT_s = reinterpret_cast<T*>(smem + L.wt);  // W^T, or a column block of it (blocked: = W_s)
   float* z_s = reinterpret_cast<float*>(smem + L.small);  // (TB, F)
   float* w_s = z_s + TB * F;                               // (TB, F)
   float* dh2_s = w_s + TB * F;                             // (TB, F)
@@ -153,9 +259,12 @@ interaction_bwd_kernel(const float* __restrict__ g, const T* __restrict__ x,
   const size_t ee = static_cast<size_t>(E) * E;
   const int nq = EACH ? F - 1 : 1;
   const int n_tiles = (B + TB - 1) / TB;
-  const int e4n = E / 4;
-  const int vtiles = (TB / 4) * e4n;
+  const bool resident = plan.resident != 0;  // "all" only
+  const int nc = plan.nc, ldw = weight_ld(plan, E);
+  const int n4 = nc / 4;
+  const int vtiles = (TB / 4) * n4;  // 4x4 tiles of one column block
   const int nvec4 = E * E / 4;
+  const int npass = (nvec4 + kVecPass - 1) / kVecPass;  // dW_bi accumulator passes
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -164,7 +273,7 @@ interaction_bwd_kernel(const float* __restrict__ g, const T* __restrict__ x,
   float* gate_part = my_part + nq * ee;
   const int n_gate = 2 * F * R + R + F;
 
-  if (!EACH) {
+  if (resident) {
     load_weight(W_s, WT_s, wbi, E);
     __syncthreads();
   }
@@ -217,117 +326,137 @@ interaction_bwd_kernel(const float* __restrict__ g, const T* __restrict__ x,
     for (int n = 0; n < kMaxVec; ++n) dw[n] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int q = 0; q < F - 1; ++q) {
       const int p = EACH ? q : q + 1;  // "all" never needs v_0 (dv_0 = 0)
-      if (EACH) {
-        load_weight(W_s, WT_s, wbi + static_cast<size_t>(q) * ee, E);
-        __syncthreads();
-      }
-      // (a) v_p tile in registers; every pair that uses it
-      for (int t = threadIdx.x; t < vtiles; t += blockDim.x) {
-        const int r0 = (t / e4n) * 4, c0 = (t % e4n) * 4;
-        float v[4][4], dv[4][4], sp[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          sp[i] = w_s[(r0 + i) * F + p];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[i][j] = dv[i][j] = 0.f;
+      const T* wq = wbi + (EACH ? static_cast<size_t>(q) * ee : 0);
+      // (a) v_p tile in registers; every pair that uses it; W a column block at a time
+      for (int cb = 0; cb < E; cb += nc) {
+        if (!resident) {
+          __syncthreads();  // every reader of the previous block is done
+          load_weight_cols(W_s, wq, E, cb, nc, ldw);
+          __syncthreads();
         }
-        for (int k = 0; k < E; ++k) {
-          float wk[4];
-          load4(wk, W_s + static_cast<size_t>(k) * E + c0);
+        for (int t = threadIdx.x; t < vtiles; t += blockDim.x) {
+          const int r0 = (t / n4) * 4, cl = (t % n4) * 4, c0 = cb + cl;
+          float v[4][4], dv[4][4], sp[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const float s = rnd<T>(to_f(x_s[(static_cast<size_t>(r0 + i) * F + p) * E + k]) * sp[i]);
+            sp[i] = w_s[(r0 + i) * F + p];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) v[i][j] += s * wk[j];
+            for (int j = 0; j < 4; ++j) v[i][j] = dv[i][j] = 0.f;
           }
-        }
-        const int lo = EACH ? p + 1 : 0;
-        const int hi = EACH ? F : p;
-        for (int o = lo; o < hi; ++o) {
-          const int pi = EACH ? p : o;
-          const int pj = EACH ? o : p;
-          const int k = pi * (2 * F - pi - 1) / 2 + (pj - pi - 1);
+          for (int k = 0; k < E; ++k) {
+            float wk[4];
+            load4(wk, W_s + static_cast<size_t>(k) * ldw + cl);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = r0 + i;
-            if (row0 + r >= B) continue;
-            float gk[4], xo[4];
-            load4(gk, g + static_cast<size_t>(row0 + r) * g_stride +
-                          static_cast<size_t>(F + k) * E + c0);
-            const size_t off = (static_cast<size_t>(r) * F + o) * E + c0;
-            load4(xo, x_s + off);
-            const float wo = w_s[r * F + o];
+            for (int i = 0; i < 4; ++i) {
+              const float s =
+                  rnd<T>(to_f(x_s[(static_cast<size_t>(r0 + i) * F + p) * E + k]) * sp[i]);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              dv[i][j] += gk[j] * (xo[j] * wo);
-              ds_s[off + j] += gk[j] * v[i][j];
+              for (int j = 0; j < 4; ++j) v[i][j] += s * wk[j];
             }
           }
-        }
+          const int lo = EACH ? p + 1 : 0;
+          const int hi = EACH ? F : p;
+          for (int o = lo; o < hi; ++o) {
+            const int pi = EACH ? p : o;
+            const int pj = EACH ? o : p;
+            const int k = pi * (2 * F - pi - 1) / 2 + (pj - pi - 1);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) store4(dvc_s + static_cast<size_t>(r0 + i) * E + c0, dv[i]);
+            for (int i = 0; i < 4; ++i) {
+              const int r = r0 + i;
+              if (row0 + r >= B) continue;
+              float gk[4], xo[4];
+              load4(gk, g + static_cast<size_t>(row0 + r) * g_stride +
+                            static_cast<size_t>(F + k) * E + c0);
+              const size_t off = (static_cast<size_t>(r) * F + o) * E + c0;
+              load4(xo, x_s + off);
+              const float wo = w_s[r * F + o];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                dv[i][j] += gk[j] * (xo[j] * wo);
+                ds_s[off + j] += gk[j] * v[i][j];
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            store4(dvc_s + static_cast<size_t>(r0 + i) * E + c0, dv[i]);
+        }
       }
       __syncthreads();
-      // (b) ds_p += cd(dv_p) cd(W)^T, same tile ownership as (a)
-      for (int t = threadIdx.x; t < vtiles; t += blockDim.x) {
-        const int r0 = (t / e4n) * 4, c0 = (t % e4n) * 4;
-        float acc[4][4];
+      // (b) ds_p += cd(dv_p) cd(W)^T, a column block of W^T at a time
+      for (int cb = 0; cb < E; cb += nc) {
+        if (!resident) {
+          __syncthreads();
+          load_weight_t_cols(WT_s, wq, E, cb, nc, ldw);
+          __syncthreads();
+        }
+        for (int t = threadIdx.x; t < vtiles; t += blockDim.x) {
+          const int r0 = (t / n4) * 4, cl = (t % n4) * 4, c0 = cb + cl;
+          float acc[4][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-        for (int d = 0; d < E; ++d) {
-          float wt[4];
-          load4(wt, WT_s + static_cast<size_t>(d) * E + c0);
+            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+          for (int d = 0; d < E; ++d) {
+            float wt[4];
+            load4(wt, WT_s + static_cast<size_t>(d) * ldw + cl);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float dvv = to_f(dvc_s[static_cast<size_t>(r0 + i) * E + d]);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[i][j] += dvv * wt[j];
+            }
+          }
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const float dvv = to_f(dvc_s[static_cast<size_t>(r0 + i) * E + d]);
+            float* dsp = ds_s + (static_cast<size_t>(r0 + i) * F + p) * E + c0;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] += dvv * wt[j];
+            for (int j = 0; j < 4; ++j) dsp[j] += acc[i][j];
           }
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* dsp = ds_s + (static_cast<size_t>(r0 + i) * F + p) * E + c0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dsp[j] += acc[i][j];
-        }
       }
-      // (b') dW_p += cd(s_p)^T cd(dv_p), summed over the tile's rows
-#pragma unroll
-      for (int n = 0; n < kMaxVec; ++n) {
-        const int i4 = threadIdx.x + n * blockDim.x;
-        if (i4 < nvec4) {
-          const int k = (i4 * 4) / E, c = (i4 * 4) % E;
-          float a4[4] = {dw[n].x, dw[n].y, dw[n].z, dw[n].w};
-          for (int r = 0; r < TB; ++r) {
-            const float sc = rnd<T>(to_f(x_s[(static_cast<size_t>(r) * F + p) * E + k]) *
-                                    w_s[r * F + p]);
-            float d4[4];
-            load4(d4, dvc_s + static_cast<size_t>(r) * E + c);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) a4[j] += sc * d4[j];
-          }
-          dw[n] = make_float4(a4[0], a4[1], a4[2], a4[3]);
-        }
-      }
-      if (EACH || q == F - 2) {  // flush this matrix's tile sum into the partial
-        float4* dst = reinterpret_cast<float4*>(my_part + (EACH ? q : 0) * ee);
+      // (b') dW_p += cd(s_p)^T cd(dv_p), summed over the tile's rows, in
+      // passes of kVecPass float4 (one pass up to E=128)
+      for (int ps = 0; ps < npass; ++ps) {
+        const int base = ps * kVecPass;
 #pragma unroll
         for (int n = 0; n < kMaxVec; ++n) {
-          const int i4 = threadIdx.x + n * blockDim.x;
+          const int i4 = base + threadIdx.x + n * blockDim.x;
           if (i4 < nvec4) {
-            float4 o = first ? make_float4(0.f, 0.f, 0.f, 0.f) : dst[i4];
-            o.x += dw[n].x;
-            o.y += dw[n].y;
-            o.z += dw[n].z;
-            o.w += dw[n].w;
-            dst[i4] = o;
+            const int k = (i4 * 4) / E, c = (i4 * 4) % E;
+            float a4[4] = {dw[n].x, dw[n].y, dw[n].z, dw[n].w};
+            for (int r = 0; r < TB; ++r) {
+              const float sc = rnd<T>(to_f(x_s[(static_cast<size_t>(r) * F + p) * E + k]) *
+                                      w_s[r * F + p]);
+              float d4[4];
+              load4(d4, dvc_s + static_cast<size_t>(r) * E + c);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) a4[j] += sc * d4[j];
+            }
+            dw[n] = make_float4(a4[0], a4[1], a4[2], a4[3]);
           }
-          dw[n] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        // flush into the partial: a whole matrix's tile sum at its last field
+        // (one pass), or this pass's share at every field (several passes)
+        if (EACH || npass > 1 || q == F - 2) {
+          const bool fresh = first && (EACH || npass == 1 || q == 0);
+          float4* dst = reinterpret_cast<float4*>(my_part + (EACH ? q : 0) * ee);
+#pragma unroll
+          for (int n = 0; n < kMaxVec; ++n) {
+            const int i4 = base + threadIdx.x + n * blockDim.x;
+            if (i4 < nvec4) {
+              float4 o = fresh ? make_float4(0.f, 0.f, 0.f, 0.f) : dst[i4];
+              o.x += dw[n].x;
+              o.y += dw[n].y;
+              o.z += dw[n].z;
+              o.w += dw[n].w;
+              dst[i4] = o;
+            }
+            dw[n] = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
         }
       }
-      __syncthreads();  // dvc_s (and, for "each", W) are rewritten next
+      __syncthreads();  // dvc_s (and, blocked, W_s) are rewritten next
     }
 
     // ---- gate backward, fp32 ----
@@ -410,21 +539,22 @@ static int launch(const float* g, const void* x, const float* w1, const float* b
                   const float* w2, const float* b2, const void* wbi, void* dx, float* part,
                   float* out, int B, int F, int E, int R, int grid, int part_stride,
                   cudaStream_t stream) {
-  const int tb = tile_rows<T>(F, E, R);
+  const BwdPlan plan = bwd_plan<T>(F, E, R, EACH);
+  const int tb = plan.tb;
   const int nq = EACH ? F - 1 : 1;
   const int n = nq * E * E + 2 * F * R + R + F;
-  if (tb < 4 || E > kMaxE || E % 8 || F < 2 || B < 1 || grid < 1 ||
-      grid > (B + tb - 1) / tb || part_stride < n || part_stride % 4) {
+  if (tb < 4 || E % 8 || F < 2 || B < 1 || grid < 1 || grid > (B + tb - 1) / tb ||
+      part_stride < n || part_stride % 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = bwd_layout<T>(tb, F, E, R).total;
+  const size_t smem = bwd_layout<T>(plan, F, E, R).total;
   auto kern = interaction_bwd_kernel<T, EACH>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<grid, kThreads, smem, stream>>>(
       g, static_cast<const T*>(x), w1, b1, w2, b2, static_cast<const T*>(wbi),
-      static_cast<T*>(dx), part, B, F, E, R, tb, part_stride);
+      static_cast<T*>(dx), part, B, F, E, R, plan, part_stride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_partials<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(part, out, grid,
@@ -434,17 +564,19 @@ static int launch(const float* g, const void* x, const float* w1, const float* b
 
 }  // namespace ctr
 
-// Rows per block tile for these sizes (0: the tile does not fit a block).
-extern "C" int interaction_bwd_tile_rows(int F, int E, int R, int is_bf16) {
-  return is_bf16 ? ctr::tile_rows<__nv_bfloat16>(F, E, R) : ctr::tile_rows<float>(F, E, R);
+// Rows per block tile for these sizes (0: no tile of 4 rows fits a block).
+extern "C" int interaction_bwd_tile_rows(int F, int E, int R, int is_bf16, int each) {
+  return is_bf16 ? ctr::bwd_plan<__nv_bfloat16>(F, E, R, each).tb
+                 : ctr::bwd_plan<float>(F, E, R, each).tb;
 }
 
 // g (B, (F + F(F-1)/2) * E) fp32; x (B, F*E) and wbi ((E, E) or (F-1, E, E))
 // in the compute dtype (bf16 when is_bf16, else fp32); SENet weights fp32.
 // Writes dx (B, F*E) in the compute dtype and, through `grid` per-block
 // partials of part_stride floats each, out = [dW_bi | dW1 | db1 | dW2 | db2]
-// fp32. Two launches (the kernel, then the reduction). Requires E % 8 == 0,
-// E <= 128 and 16-byte aligned pointers. Returns a cudaError_t.
+// fp32. Two launches (the kernel, then the reduction). Requires F >= 2,
+// E % 8 == 0, a row tile that fits a block (interaction_bwd_tile_rows) and
+// 16-byte aligned pointers. Returns a cudaError_t.
 extern "C" int interaction_bwd(const float* g, const void* x, const float* w1,
                                const float* b1, const float* w2, const float* b2,
                                const void* wbi, void* dx, float* part, float* out, int B,

@@ -9,10 +9,16 @@ becomes the ``FusedInteraction`` autograd Function here.
 Bound on an H100: bytes, both ways. At B=8192, F=6, E=128 with bf16 input
 the forward must read 12.6 MB and write 88 MB of fp32 output; at B=4096 the
 backward must read g (44 MB fp32) and x and write dx (56.6 MB in all). The
-forward keeps x, S and the projection weight in shared memory, holds each V
-tile in registers and writes every output element once with coalesced
-16-byte stores; the backward streams g once and reduces the weight
-gradients through per-block partials (no atomics: bit-identical repeats).
+forward keeps x and S in shared memory with the projection weight staged in
+column blocks, holds each V tile in registers and writes every output
+element once with coalesced 16-byte stores; the backward streams g once and
+reduces the weight gradients through per-block partials (no atomics:
+bit-identical repeats).
+
+Envelope of both kernels: F >= 2, E % 8 == 0, and a row tile of 4 that fits
+a block's shared memory; that covers E=256 (every configuration of the JAX
+package's recipe sweep) in bf16 and fp32. Outside it the wrappers raise
+``ValueError`` naming the envelope.
 
 ``interaction_fwd`` and ``interaction_bwd`` are the wrappers: on a CUDA
 tensor each launches its kernel (or raises), on a CPU tensor it runs its
@@ -59,18 +65,23 @@ def interaction_fwd_plain(x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     return torch.cat([s.reshape(b, -1), p.reshape(b, -1)], dim=-1).float()
 
 
-_FN = None
+_LIB = None
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = build.load("interaction").interaction_fwd
+def _kernel_lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("interaction")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 7 + [i] * 6 + [vp]
-        fn.restype = i
-        _FN = fn
-    return _FN
+        lib.interaction_fwd.argtypes = [vp] * 7 + [i] * 6 + [vp]
+        lib.interaction_fwd.restype = i
+        lib.interaction_fwd_tile_rows.argtypes = [i] * 4
+        lib.interaction_fwd_tile_rows.restype = i
+        _LIB = lib
+    return _LIB
+
+
+ENVELOPE = "F >= 2, E % 8 == 0 and a row tile of 4 within a block's 227 KB of shared memory"
 
 
 def check_kernel_args(tensors: dict, dtype: torch.dtype, device) -> None:
@@ -104,13 +115,17 @@ def interaction_fwd(x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     r = w1.shape[1]
     wbi_shape = (e, e) if bilinear_type == "all" else (f - 1, e, e)
     if f < 2 or e % 8:
-        raise ValueError(f"need F >= 2 and E % 8 == 0, got F={f}, E={e}")
+        raise ValueError(f"interaction_fwd needs {ENVELOPE}; got F={f}, E={e}")
     if (
         tuple(w1.shape) != (f, r) or tuple(b1.shape) != (r,)
         or tuple(w2.shape) != (r, f) or tuple(b2.shape) != (f,)
         or tuple(w_bi.shape) != wbi_shape
     ):
         raise ValueError("SENet / bilinear weight shapes do not match x")
+    lib = _kernel_lib()
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    if lib.interaction_fwd_tile_rows(f, e, r, is_bf16) == 0:
+        raise ValueError(f"interaction_fwd needs {ENVELOPE}; got F={f}, E={e}, {x.dtype}")
     f32 = torch.float32
     check_kernel_args(
         {"x": (x, None), "w1": (w1, f32), "b1": (b1, f32), "w2": (w2, f32),
@@ -121,10 +136,10 @@ def interaction_fwd(x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     if b == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _kernel_fn()(
+    rc = lib.interaction_fwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w_bi.data_ptr(), out.data_ptr(), b, f, e, r,
-        int(x.dtype == torch.bfloat16), int(bilinear_type == "each"), stream,
+        w_bi.data_ptr(), out.data_ptr(), b, f, e, r, is_bf16, int(bilinear_type == "each"),
+        stream,
     )
     build.check(rc, "interaction_fwd")
     interaction_fwd.launches += 1
@@ -197,7 +212,7 @@ def _bwd_fns():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.interaction_bwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
         lib.interaction_bwd.restype = i
-        lib.interaction_bwd_tile_rows.argtypes = [i] * 4
+        lib.interaction_bwd_tile_rows.argtypes = [i] * 5
         lib.interaction_bwd_tile_rows.restype = i
         _BWD = lib
     return _BWD
@@ -220,8 +235,8 @@ def interaction_bwd(g, x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     p = f * (f - 1) // 2
     each = bilinear_type == "each"
     wbi_shape = (f - 1, e, e) if each else (e, e)
-    if f < 2 or e % 8 or e > 128:
-        raise ValueError(f"need F >= 2, E % 8 == 0 and E <= 128, got F={f}, E={e}")
+    if f < 2 or e % 8:
+        raise ValueError(f"interaction_bwd needs {ENVELOPE}; got F={f}, E={e}")
     if (
         tuple(g.shape) != (b, (f + p) * e)
         or tuple(w1.shape) != (f, r) or tuple(b1.shape) != (r,)
@@ -243,9 +258,9 @@ def interaction_bwd(g, x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     if b > 0:
         lib = _bwd_fns()
         is_bf16 = int(x.dtype == torch.bfloat16)
-        tb = lib.interaction_bwd_tile_rows(f, e, r, is_bf16)
+        tb = lib.interaction_bwd_tile_rows(f, e, r, is_bf16, int(each))
         if tb < 4:
-            raise ValueError(f"interaction_bwd: a row tile does not fit a block at F={f}, E={e}")
+            raise ValueError(f"interaction_bwd needs {ENVELOPE}; got F={f}, E={e}, {x.dtype}")
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         grid = min(-(-b // tb), sms)
         stride = -(-n // 4) * 4

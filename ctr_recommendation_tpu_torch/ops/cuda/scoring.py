@@ -5,18 +5,21 @@ reached through ``fused_score`` (:196), with its "all" and "each" bodies.
 
 Bound on an H100: operations. At B=8192 the BatchNorm-folded tower
 2688 -> 512 -> 256 -> 1 is 26 GFLOP against ~15 MB of input, output and
-weights. The TPU kernel holds the (TB, 2688) concat and all of W1 in VMEM;
+weights. The TPU kernel holds the (TB, 21E) concat and all of W1 in VMEM;
 an H100 block has 227 KB of shared memory, so the kernel streams the concat
 in E-wide chunks, each built in shared memory and multiplied at once into an
-h1 accumulator held in registers, with W1 staged from L2. The three tower
-products are fp32 FMA in the kernel; moving them to the tensor cores is
-later work.
+h1 accumulator held in registers, with W1 staged from L2, in column passes
+of 512 h1 columns. The three tower products are fp32 FMA in the kernel;
+moving them to the tensor cores is later work.
 
 ``score_fwd`` is the wrapper: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs ``score_fwd_plain``, the same function in
 plain PyTorch with the same rounding points. Its ``launches`` attribute
-counts kernel launches. The kernel is compiled for hidden widths
-(512, 256); the plain version takes any 2-layer tower.
+counts kernel launches. Like the TPU kernel, it reads the tower's widths
+from the weights and takes any two-layer tower; its envelope (``ENVELOPE``)
+adds H1 % 32 == 0, H2 % 8 == 0, E % 32 == 0 and a row tile of 8 that fits
+shared memory, which holds the recorded towers (512, 256), (1024, 512) and
+(768, 384) at E=128 and 256 in bf16 and fp32.
 """
 
 from __future__ import annotations
@@ -32,7 +35,10 @@ from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
     senet_weights,
 )
 
-KERNEL_HIDDEN = (512, 256)
+ENVELOPE = (
+    "F >= 2, E % 32 == 0, a 2-layer tower with H1 % 32 == 0 and H2 % 8 == 0, and a row "
+    "tile of 8 within a block's 227 KB of shared memory"
+)
 
 
 def score_fwd_plain(
@@ -51,18 +57,20 @@ def score_fwd_plain(
     return torch.sigmoid(logit)[:, 0]
 
 
-_FN = None
+_LIB = None
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = build.load("scoring").fused_score
+def _kernel_lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("scoring")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 13 + [i] * 8 + [vp]
-        fn.restype = i
-        _FN = fn
-    return _FN
+        lib.fused_score.argtypes = [vp] * 13 + [i] * 8 + [vp]
+        lib.fused_score.restype = i
+        lib.fused_score_tile_rows.argtypes = [i] * 6
+        lib.fused_score_tile_rows.restype = i
+        _LIB = lib
+    return _LIB
 
 
 def score_fwd(
@@ -83,12 +91,8 @@ def score_fwd(
     b, f, e = x.shape
     r = sw1.shape[1]
     h1, h2 = w1.shape[1], w2.shape[1]
-    if (h1, h2) != KERNEL_HIDDEN:
-        raise ValueError(
-            f"the scoring kernel is compiled for hidden {KERNEL_HIDDEN}, got {(h1, h2)}"
-        )
-    if f < 2 or e % 32:
-        raise ValueError(f"need F >= 2 and E % 32 == 0, got F={f}, E={e}")
+    if f < 2 or e % 32 or h1 % 32 or h2 % 8:
+        raise ValueError(f"fused_score needs {ENVELOPE}; got F={f}, E={e}, tower {(h1, h2)}")
     cdim = (f + f * (f - 1) // 2) * e
     wbi_shape = (e, e) if bilinear_type == "all" else (f - 1, e, e)
     shapes = {
@@ -106,14 +110,18 @@ def score_fwd(
          "w2": (w2, None), "b2": (b2, f32), "w3": (w3, None), "b3": (b3, f32)},
         x.dtype, x.device,
     )
+    lib = _kernel_lib()
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    if lib.fused_score_tile_rows(f, e, r, h1, h2, is_bf16) == 0:
+        raise ValueError(
+            f"fused_score needs {ENVELOPE}; got F={f}, E={e}, tower {(h1, h2)}, {x.dtype}")
     out = torch.empty(b, dtype=f32, device=x.device)
     if b == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _kernel_fn()(
+    rc = lib.fused_score(
         *(t.data_ptr() for t in args), out.data_ptr(),
-        b, f, e, r, h1, h2, int(x.dtype == torch.bfloat16), int(bilinear_type == "each"),
-        stream,
+        b, f, e, r, h1, h2, is_bf16, int(bilinear_type == "each"), stream,
     )
     build.check(rc, "fused_score")
     score_fwd.launches += 1

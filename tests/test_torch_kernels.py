@@ -19,7 +19,9 @@ difference's norm within 2^-12 of the gradient's (BWD_NORM_TOL). That one
 catches a wrong rounding point: s or v rounded to bf16 where the forward
 rounds them moves every gradient by 1e-3 to 6e-3 of its norm (inside the
 elementwise bar), while the other summation order moves only the few
-roundings that land one ulp apart (under 2e-5 of the norm here).
+roundings that land one ulp apart (under 2e-5 of the norm here). The same
+bars hold at E=256 and at the towers (1024, 512) and (768, 384), the wider
+configurations of the JAX package's recipe sweep.
 """
 
 import jax
@@ -59,27 +61,41 @@ def to_pt(tree):
     return tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)), tree)
 
 
-def _weights(btype, seed=0):
+def _weights(btype, seed=0, e=E):
     sp = to_np(jax_senet.init(jax.random.key(seed + 1), F, 2))
-    bp = to_np(jax_bilinear.init(jax.random.key(seed + 2), E, F, btype))
-    x = np.random.default_rng(seed).standard_normal((B, F, E)).astype(np.float32)
+    bp = to_np(jax_bilinear.init(jax.random.key(seed + 2), e, F, btype))
+    x = np.random.default_rng(seed).standard_normal((B, F, e)).astype(np.float32)
     return sp, bp, x
 
 
-def _folded_tower(sp, bp, x, btype):
-    """A (32, 16) tower with BatchNorm stats moved off init, then folded."""
-    cdim = (F + F * (F - 1) // 2) * E
-    params, state = jax_mlp.init(jax.random.key(3), cdim, [32, 16], batch_norm=True)
+def _folded_tower(sp, bp, x, btype, hidden=(32, 16)):
+    """A 2-layer tower (default (32, 16)) with BatchNorm stats moved off
+    init, then folded."""
+    cdim = (F + F * (F - 1) // 2) * x.shape[2]
+    params, state = jax_mlp.init(jax.random.key(3), cdim, list(hidden), batch_norm=True)
     h = pt_interaction.senet_bilinear_concat_reference(
         to_pt(sp), to_pt(bp), torch.from_numpy(x), bilinear_type=btype).numpy()
     _, state = jax_mlp.apply(params, state, jnp.asarray(h), train=True)
     return to_np(jax_mlp.fold_batch_norm(params, state))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("btype", ["all", "each"])
-def test_interaction_plain_matches_pallas(btype, dtype):
-    sp, bp, x = _weights(btype)
+def _cases(widths):
+    """(btype, dtype, *values) for each (values, tag) of ``widths``: the
+    empty tag keeps the plain "btype-dtype" id; the wide configurations of
+    the JAX package's recipe sweep (E=256, towers (1024, 512) and
+    (768, 384)) add theirs."""
+    return [pytest.param(btype, dtype, *values, id=f"{btype}-{dtype}{tag}")
+            for values, tag in widths for dtype in ("float32", "bfloat16")
+            for btype in ("all", "each")]
+
+
+WIDE_E = 256
+WIDE_TOWERS = ((1024, 512), (768, 384))
+
+
+@pytest.mark.parametrize("btype, dtype, e", _cases([((E,), ""), ((WIDE_E,), f"-E{WIDE_E}")]))
+def test_interaction_plain_matches_pallas(btype, dtype, e):
+    sp, bp, x = _weights(btype, e=e)
     want = np.asarray(jax_fused(sp, bp, jnp.asarray(x, dtype), bilinear_type=btype))
     before = k_inter.interaction_fwd.launches
     got = k_inter.fused_senet_bilinear_concat(
@@ -90,11 +106,11 @@ def test_interaction_plain_matches_pallas(btype, dtype):
     np.testing.assert_allclose(got.numpy(), want, **TOL[("interaction", dtype)])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("btype", ["all", "each"])
-def test_score_plain_matches_pallas(btype, dtype):
-    sp, bp, x = _weights(btype, seed=4)
-    folded = _folded_tower(sp, bp, x, btype)
+@pytest.mark.parametrize("btype, dtype, e, hidden", _cases(
+    [((E, (32, 16)), "")] + [((WIDE_E, h), f"-E{WIDE_E}-{h[0]}x{h[1]}") for h in WIDE_TOWERS]))
+def test_score_plain_matches_pallas(btype, dtype, e, hidden):
+    sp, bp, x = _weights(btype, seed=4, e=e)
+    folded = _folded_tower(sp, bp, x, btype, hidden)
     want = np.asarray(jax_fused_score(
         sp, bp, folded, jnp.asarray(x), bilinear_type=btype, block_b=16,
         compute_dtype=jnp.dtype(dtype)))
@@ -144,15 +160,15 @@ def test_score_rejects_towers_that_are_not_two_layers():
             to_pt(sp), to_pt(bp), pt_mlp.fold_batch_norm(params, state), torch.from_numpy(x))
 
 
-def _pallas_vjp(btype, dtype, use_bias, b=37):
-    """Seeded SENet/bilinear weights, x (b, F, E) and a cotangent g, and
+def _pallas_vjp(btype, dtype, use_bias, b=37, e=E):
+    """Seeded SENet/bilinear weights, x (b, F, e) and a cotangent g, and
     jax.vjp of the Pallas kernel (whose backward is _bwd_kernel) at g, as
     numpy arrays: (sp, bp, x, g, d senet params, d bilinear params, dx)."""
     sp = to_np(jax_senet.init(jax.random.key(1), F, 2, use_bias=use_bias))
-    bp = to_np(jax_bilinear.init(jax.random.key(2), E, F, btype))
+    bp = to_np(jax_bilinear.init(jax.random.key(2), e, F, btype))
     rng = np.random.default_rng(3)
-    x = rng.standard_normal((b, F, E)).astype(np.float32)
-    g = rng.standard_normal((b, (F + F * (F - 1) // 2) * E)).astype(np.float32)
+    x = rng.standard_normal((b, F, e)).astype(np.float32)
+    g = rng.standard_normal((b, (F + F * (F - 1) // 2) * e)).astype(np.float32)
     _, vjp = jax.vjp(
         lambda s_, b_, x_: jax_fused(s_, b_, x_, bilinear_type=btype, block_b=16),
         sp, bp, jnp.asarray(x, dtype))
@@ -164,14 +180,23 @@ def _rel_norm(got, want):
     return float(np.linalg.norm(np.asarray(got, np.float64) - want) / np.linalg.norm(want))
 
 
-@pytest.mark.parametrize("use_bias", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("btype", ["all", "each"])
-def test_interaction_backward_matches_pallas_vjp(btype, dtype, use_bias):
+def _bias_cases(btypes, dtypes):
+    """(btype, dtype, use_bias, e) cases: E=32 keeps the plain
+    "btype-dtype-use_bias" id, E=256 adds "-E256"."""
+    return [
+        pytest.param(btype, dtype, use_bias, e, id=f"{btype}-{dtype}-{use_bias}{tag}")
+        for e, tag in ((E, ""), (WIDE_E, f"-E{WIDE_E}"))
+        for use_bias in (True, False) for dtype in dtypes for btype in btypes
+    ]
+
+
+@pytest.mark.parametrize(
+    "btype, dtype, use_bias, e", _bias_cases(("all", "each"), ("float32", "bfloat16")))
+def test_interaction_backward_matches_pallas_vjp(btype, dtype, use_bias, e):
     """An arbitrary cotangent through FusedInteraction (the CPU tensors take
     interaction_bwd_plain) against jax.vjp of the Pallas kernel, whose
     backward is _bwd_kernel; B=37 is ragged for its 16-row tiles."""
-    sp, bp, x, g, want_sp, want_bp, want_dx = _pallas_vjp(btype, dtype, use_bias)
+    sp, bp, x, g, want_sp, want_bp, want_dx = _pallas_vjp(btype, dtype, use_bias, e=e)
     tsp = tree_map(lambda t: t.requires_grad_(), to_pt(sp))
     tbp = tree_map(lambda t: t.requires_grad_(), to_pt(bp))
     tx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
@@ -194,13 +219,14 @@ def test_interaction_backward_matches_pallas_vjp(btype, dtype, use_bias):
             assert _rel_norm(gt.float().numpy(), wt) <= BWD_NORM_TOL
 
 
-@pytest.mark.parametrize("use_bias", [True, False])
-@pytest.mark.parametrize("btype", ["all", "each"])
-def test_bf16_backward_bar_rejects_the_forwards_rounding_points(btype, use_bias):
+@pytest.mark.parametrize("btype, dtype, use_bias, e", [
+    pytest.param(*c.values, id=c.id.replace("-bfloat16", ""))
+    for c in _bias_cases(("all", "each"), ("bfloat16",))])
+def test_bf16_backward_bar_rejects_the_forwards_rounding_points(btype, dtype, use_bias, e):
     """The control, interaction_bwd_plain with s and v rounded where the
     forward rounds them, passes the elementwise bf16 bar against the Pallas
     vjp but fails the norm bar: the bar tells the rounding points apart."""
-    sp, bp, x, g, want_sp, want_bp, want_dx = _pallas_vjp(btype, "bfloat16", use_bias)
+    sp, bp, x, g, want_sp, want_bp, want_dx = _pallas_vjp(btype, dtype, use_bias, e=e)
     wkey = "w" if btype == "all" else "w_each"
     dx, dw1, _, dw2, _, dw_bi = k_inter.interaction_bwd_plain(
         torch.from_numpy(g), torch.from_numpy(x).to(torch.bfloat16),
@@ -247,17 +273,23 @@ def test_wrappers_refuse_other_devices():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("btype", ["all", "each"])
-def test_kernels_match_plain_on_the_card(btype):
+@pytest.mark.parametrize("btype, e, hidden", [
+    pytest.param(btype, e, hidden, id=btype + ("" if (e, hidden) == (128, (512, 256)) else
+                                               f"-E{e}-{hidden[0]}x{hidden[1]}"))
+    for e, hidden in ((128, (512, 256)), (256, (512, 256)), (128, (1024, 512)),
+                      (256, (1024, 512)), (256, (768, 384)))
+    for btype in ("all", "each")])
+def test_kernels_match_plain_on_the_card(btype, e, hidden):
     """On a card: both kernels against their plain versions (bf16, the
-    serving dtype), at E=128 and the (512, 256) tower the kernel is built
-    for. chip_smoke.py runs the same check at full batch."""
+    serving dtype), at the model's E=128 and (512, 256) tower, at E=256 and
+    at the recipe sweep's wider towers. chip_smoke.py runs the same check at
+    full batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from ctr_recommendation_tpu_torch.ops import bilinear, senet
 
     gen = torch.Generator().manual_seed(0)
-    e, b, cd = 128, 70, torch.bfloat16
+    b, cd = 70, torch.bfloat16
     sw = [t.cuda() for t in k_inter.senet_weights(senet.init(gen, F, 2), F)]
     bp = bilinear.init(gen, e, F, btype)
     w_bi = (bp["w"] if btype == "all" else bp["w_each"]).to("cuda", cd)
@@ -266,7 +298,7 @@ def test_kernels_match_plain_on_the_card(btype):
     want = k_inter.interaction_fwd_plain(x, *sw, w_bi, bilinear_type=btype)
     torch.testing.assert_close(got, want, rtol=2.0**-6, atol=1e-3)
     cdim = (F + F * (F - 1) // 2) * e
-    params, _ = pt_mlp.init(gen, cdim, [512, 256], batch_norm=False)
+    params, _ = pt_mlp.init(gen, cdim, list(hidden), batch_norm=False)
     tower = []
     for lin in (params["layers"][0]["linear"], params["layers"][1]["linear"], params["out"]):
         tower += [lin["w"].to("cuda", cd), lin["b"].cuda()]
@@ -276,18 +308,21 @@ def test_kernels_match_plain_on_the_card(btype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("btype", ["all", "each"])
-def test_interaction_bwd_matches_plain_on_the_card(btype, dtype):
-    """On a card: the backward kernel against its plain version at E=128 on
-    a ragged batch, bit-identical on a repeat launch. chip_smoke.py runs the
-    same check at the training batch."""
+@pytest.mark.parametrize("btype, dtype, e", [
+    pytest.param(btype, dtype, e, id=f"{btype}-dtype{k}" + ("" if e == 128 else f"-E{e}"))
+    for e in (128, 256) for k, dtype in enumerate((torch.bfloat16, torch.float32))
+    for btype in ("all", "each")])
+def test_interaction_bwd_matches_plain_on_the_card(btype, dtype, e):
+    """On a card: the backward kernel against its plain version at E=128 and
+    E=256 (weights staged in column blocks) on a ragged batch, bit-identical
+    on a repeat launch. chip_smoke.py runs the same check at the training
+    batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from ctr_recommendation_tpu_torch.ops import bilinear, senet
 
     gen = torch.Generator().manual_seed(0)
-    e, b = 128, 333
+    b = 333
     sw = [t.cuda() for t in k_inter.senet_weights(senet.init(gen, F, 2), F)]
     bp = bilinear.init(gen, e, F, btype)
     w_bi = (bp["w"] if btype == "all" else bp["w_each"]).to("cuda", dtype)

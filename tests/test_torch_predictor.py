@@ -47,11 +47,12 @@ def rank_corr(a, b):
     return np.corrcoef(ra, rb)[0, 1]
 
 
-def _setup(tiny_experiment, tiny_feature_map, btype, precision):
+def _setup(tiny_experiment, tiny_feature_map, btype, precision, hidden=None):
     """JAX experiment + weights, and the same in the port's form."""
     cfg = dataclasses.replace(
         tiny_experiment.model, use_pallas=True, bilinear_type=btype,
         tower_dtype="float32" if precision == "float32" else "compute",
+        hidden_units=hidden or tiny_experiment.model.hidden_units,
     )
     train = dataclasses.replace(tiny_experiment.train, compute_dtype=precision)
     exp = tiny_experiment.replace(model=cfg, train=train)
@@ -77,11 +78,15 @@ def _item_store(batch):
     return ItemStore.from_arrays(np.arange(200), mm)
 
 
-@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
-@pytest.mark.parametrize("btype", ["all", "each"])
-def test_predictor_matches_jax(tiny_experiment, tiny_feature_map, btype, precision):
+@pytest.mark.parametrize("btype, precision, hidden", [
+    pytest.param(btype, precision, hidden,
+                 id=f"{btype}-{precision}" + ("-" + "x".join(map(str, hidden)) if hidden else ""))
+    # the tiny experiment's tower, then the recipe sweep's tower_768_384
+    for hidden in (None, (768, 384))
+    for precision in ("float32", "bfloat16") for btype in ("all", "each")])
+def test_predictor_matches_jax(tiny_experiment, tiny_feature_map, btype, precision, hidden):
     exp, params, state, pexp, pparams, pstate = _setup(
-        tiny_experiment, tiny_feature_map, btype, precision
+        tiny_experiment, tiny_feature_map, btype, precision, hidden
     )
     from ctr_recommendation_tpu.data import ItemStore as JaxItemStore
     from ctr_recommendation_tpu.data import TableData as JaxTableData

@@ -9,9 +9,10 @@ counterpart in the port:
   (atol 5e-2, rtol 2e-2: matmuls, normalization and ReLU all round in bf16,
   at points that differ between XLA and PyTorch), bf16 running stats to
   2e-2 (fp32 statistics of bf16-rounded activations);
-* one MM-FiBiNET train step (loss and every parameter gradient, dropout 0,
-  fp32, with and without the fused interaction): rtol 1e-4 / atol 1e-5 of
-  each leaf's largest gradient (summation order only);
+* one MM-FiBiNET train step (logits, loss and every parameter gradient,
+  dropout 0, fp32, with and without the fused interaction, and at E=256
+  with a (1024, 512) tower): rtol 1e-4 / atol 1e-5 of each leaf's largest
+  gradient (summation order only);
 * schedules (rtol 1e-5 and atol 1e-6 x lr: optax computes in fp32, the
   port in float64, and cos(pi pct) + 1 cancels near the end of a phase),
   five optimizer updates on the same gradients (1e-5), BCE, AUC and logloss;
@@ -127,9 +128,10 @@ def test_dropout_is_seeded_scaled_and_train_only():
 
 
 # ---------------------------------------------------------------- one step
-def _bridged(tiny_experiment, tiny_feature_map, use_pallas):
+def _bridged(tiny_experiment, tiny_feature_map, use_pallas, **model_kw):
     cfg = dataclasses.replace(
-        tiny_experiment.model, use_pallas=use_pallas, net_dropout=0.0, tower_dtype="float32"
+        tiny_experiment.model, use_pallas=use_pallas, net_dropout=0.0, tower_dtype="float32",
+        **model_kw,
     )
     train = dataclasses.replace(tiny_experiment.train, compute_dtype="float32")
     exp = tiny_experiment.replace(model=cfg, train=train)
@@ -141,10 +143,18 @@ def _bridged(tiny_experiment, tiny_feature_map, use_pallas):
     return exp, module, params, state, pexp, pparams, pstate
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_train_step_loss_and_gradients_match_jax(tiny_experiment, tiny_feature_map, use_pallas):
+@pytest.mark.parametrize("use_pallas, model_kw", [
+    pytest.param(True, {}, id="True"),
+    pytest.param(False, {}, id="False"),
+    # the recipe sweep's emb_256_tower1024: E=256 through the interaction
+    # kernels' wide path and a (1024, 512) tower
+    pytest.param(True, {"embedding_dim": 256, "hidden_units": (1024, 512)},
+                 id="True-E256-1024x512"),
+])
+def test_train_step_loss_and_gradients_match_jax(
+        tiny_experiment, tiny_feature_map, use_pallas, model_kw):
     exp, module, params, state, pexp, pparams, pstate = _bridged(
-        tiny_experiment, tiny_feature_map, use_pallas)
+        tiny_experiment, tiny_feature_map, use_pallas, **model_kw)
     rng = np.random.default_rng(2)
     batch = make_batch(rng, 48)
     labels = (rng.random(48) < 0.4).astype(np.float32)
@@ -156,9 +166,10 @@ def test_train_step_loss_and_gradients_match_jax(tiny_experiment, tiny_feature_m
             p, state, tiny_feature_map, exp.model, batch, train=True,
             rng=jax.random.key(9), compute_dtype=jnp.float32, weight=jnp.asarray(weight),
         )
-        return jax_bce(logits, jnp.asarray(labels), jnp.asarray(weight)), new_state
+        return jax_bce(logits, jnp.asarray(labels), jnp.asarray(weight)), (new_state, logits)
 
-    (want_loss, want_state), want_grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    (want_loss, (want_state, want_logits)), want_grads = jax.value_and_grad(
+        loss_fn, has_aux=True)(params)
 
     leaves = list(jax_bridge.flatten(tree_map(lambda t: t.requires_grad_(), pparams)).values())
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -170,6 +181,8 @@ def test_train_step_loss_and_gradients_match_jax(tiny_experiment, tiny_feature_m
     grads = torch.autograd.grad(loss, leaves)
 
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want_logits), rtol=1e-4,
+                               atol=1e-5 * max(1.0, np.abs(want_logits).max()))
     flat_want = jax_bridge.flatten(np_tree(want_grads))
     flat_got = jax_bridge.flatten(pparams)  # the order of ``leaves``
     assert len(grads) == len(flat_want) == len(flat_got)
