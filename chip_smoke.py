@@ -31,13 +31,21 @@ Phases, in order; any failure exits non-zero and prints no result line.
    (768, 384) at E=128 and 256 (B=4133, 8192), the interaction backward at
    E=256 (B=4096, 4133, biases on and off, repeat bit-identical, the
    forward-rounding control rejected); "all" and "each", bf16 and fp32.
+   The encoder at E=256 with the same bars and controls: the forward at
+   H=2, L=1 (B=8192, 8229) and H=4, L=2 (B=4133), with and without
+   dropout; the backward at H=2, L=1 (B=4096, 4133), rate 0 and 0.1. Then
+   each building block of the encoder kernels (encoder_blocks: the tile
+   product in its six uses, LayerNorm and its backward, attention and its
+   backward, the column sums, the partial reduction) against its plain
+   version at full width, E=128 and 256, bf16 and fp32.
 3. Time each kernel and its plain version with CUDA events (median of 30
    after warm-up) beside the bound the card sets for the same work; for the
    encoder also nn.TransformerEncoderLayer (the library yardstick, checked
    against the plain version in fp32 first): its forward, and for the
-   backward its forward + backward minus its forward. Also, in bf16, the
-   interaction kernels at E=256 and the scoring kernel at E=256 with
-   (512, 256) and (1024, 512) and at E=128 with (1024, 512).
+   backward its forward + backward minus its forward, at E=128 and E=256,
+   and torch.profiler's split of one encoder call into its kernels. Also,
+   in bf16, the interaction kernels at E=256 and the scoring kernel at
+   E=256 with (512, 256) and (1024, 512) and at E=128 with (1024, 512).
 4. The serving main path at the full microlens_experiment() defaults
    (mm_fibinet, E=128, item vocab 91718, max_len 20, hidden (512, 256),
    bf16): seeded weights with perturbed BatchNorm stats, a seeded item
@@ -49,7 +57,8 @@ Phases, in order; any failure exits non-zero and prints no result line.
    kernel runs and agrees with the fused branch. Then the sasrec_fibinet
    serving path at its full defaults (E=128, S=20, 2 heads, 1 layer, hidden
    (512, 256), bf16) on the same item store and rows: score_table and the
-   pipeline with exactly one encoder and one scoring launch a batch, the CSV
+   pipeline with exactly fwd_launches(1) encoder and one scoring launch a
+   batch, the CSV
    identical to score_table, the encoder's share of one batch, the CPU
    Predictor on the first 8192 rows, and 4 unfused batches (encoder +
    interaction kernel) against the fused branch.
@@ -69,6 +78,9 @@ Phases, in order; any failure exits non-zero and prints no result line.
    encoder kernels in the gradient check (dropout on: the kernels and the
    plain path draw the same masks) and in the exact launch counts, its
    export served through the encoder and scoring kernels.
+6d. Phases 6-7 for sasrec_emb_256 (sasrec_fibinet with embedding_dim=256,
+   its other defaults): both encoder kernels at E=256 in the gradient
+   check and the exact launch counts, the export served through them.
 6c. Phases 6-7 for emb_256_tower1024, the recipe sweep's widest mm_fibinet
    (E=256, tower (1024, 512)): the interaction kernels at E=256 in the
    gradient check and the exact launch counts, the export served through
@@ -145,10 +157,15 @@ ENC_NORM_TOL = 2.0**-10
 # the largest dW1 element and 1.7e-4 in norm; in bf16, where the operands'
 # one-ulp rounding flips move z1 by far more, up to 1.1e-2 of the largest
 # and 1.4e-3 in norm). Without a flip fp32 differs by summation order only
-# (6e-7 in norm). The gate-free outputs see no flip: there the kernel reads
-# 4.8e-5 to 9.4e-5 in bf16, and the control that leaves every backward
-# operand in fp32 (encode_bwd_plain(..., fp32_operands=True)) 1.6e-3 to
-# 2.4e-3 on ffn2_w: it must be rejected in every bf16 case.
+# (6e-7 in norm). The fp32 kernels and the plain version both accumulate
+# their products in fp64 and round once: with fp32 sums on both sides a gate
+# flipped in 4 of the 10 fp32 cases on an H100, 2 of them beyond this bar;
+# with fp64 sums z1 still moves where an upstream fp32 value (a LayerNorm
+# output) lies an ulp apart, and 2 of the 10 cases flip, within the bar. The
+# gate-free outputs see no flip: there the kernel reads 4.8e-5 to 9.4e-5 in
+# bf16, and the control that leaves every backward operand in fp32
+# (encode_bwd_plain(..., fp32_operands=True)) 1.6e-3 to 2.4e-3 on ffn2_w:
+# it must be rejected in every bf16 case.
 ENC_BWD_TOL = {"float32": (2.0**-7, 1e-4), "bfloat16": (2.0**-5, 2.0**-7)}
 ENC_BWD_NORM_TOL = {"float32": 2.0**-10, "bfloat16": 2.0**-8}
 ENC_BWD_GATE_FREE_TOL = {"float32": 1e-5, "bfloat16": 2.0**-12}
@@ -216,6 +233,25 @@ def time_ms(torch, fn, reps: int = 30) -> float:
         z.synchronize()
         times.append(a.elapsed_time(z))
     return float(np.median(times))
+
+
+def kernel_split(torch, fn, label: str, card, reps: int = 5) -> None:
+    """torch.profiler over ``reps`` calls of ``fn``: device ms a call of each
+    kernel it launches, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / reps / 1e3
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:12]
+    log(f"[split] {label}: device busy {busy:.4f} ms a call on {card}; ms a call, launches: "
+        + str([(e.key[:60], round(e.self_device_time_total / reps / 1e3, 4), e.count // reps)
+               for e in top]))
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -519,7 +555,8 @@ def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: 
         + str([(e.key[:70], round(e.self_device_time_total / profiled / 1e3, 4)) for e in top]))
 
 
-ENC_CASES = [(128, 2, 1, b) for b in (B_TRAIN, B_FULL, B_RAGGED)] + [(64, 4, 2, B_TRAIN + 37)]
+ENC_CASES = ([(128, 2, 1, b) for b in (B_TRAIN, B_FULL, B_RAGGED)] + [(64, 4, 2, B_TRAIN + 37)]
+             + [(256, 2, 1, b) for b in (B_FULL, B_RAGGED)] + [(256, 4, 2, B_TRAIN + 37)])
 ENC_E, ENC_H, ENC_S = 128, 2, 20  # sasrec_fibinet's defaults: E, heads, max_len
 LIB_TOL = 1e-4  # nn.TransformerEncoderLayer vs the plain version, fp32, TF32 off
 
@@ -569,13 +606,13 @@ def encoder_against_plain(torch) -> tuple[float, list]:
     return worst, failures
 
 
-def encoder_timing(torch, card) -> dict:
+def encoder_timing(torch, card, e: int = ENC_E) -> dict:
     """Phase 3 for the encoder at B=8192, bf16, L=1: kernel, plain version and
     nn.TransformerEncoderLayer (checked first against the plain version in
     fp32 on every history with a real step), CUDA events, beside the bound."""
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_fwd, encode_fwd_plain
 
-    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.float32, B_FULL, ENC_E, ENC_H, 1, 3)
+    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.float32, B_FULL, e, ENC_H, 1, 3)
     real = ~pad.all(-1)
     with torch.inference_mode():
         lib = library_layer(torch, ws, ENC_H)(x, src_key_padding_mask=pad)
@@ -587,10 +624,10 @@ def encoder_timing(torch, card) -> dict:
     if not lib_err <= LIB_TOL:
         raise SystemExit("the library yardstick does not compute the encoder's function")
 
-    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.bfloat16, B_FULL, ENC_E, ENC_H, 1, 4)
+    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.bfloat16, B_FULL, e, ENC_H, 1, 4)
     layer = library_layer(torch, ws, ENC_H)
     tokens = B_FULL * ENC_S
-    ops = 2 * tokens * (12 * ENC_E * ENC_E + 2 * ENC_S * ENC_E)
+    ops = 2 * tokens * (12 * e * e + 2 * ENC_S * e)
     nbytes = 2 * 2 * x.numel() + 4 * amask.numel() + sum(t.numel() * t.element_size() for t in ws)
     with torch.inference_mode():
         t = {
@@ -599,7 +636,7 @@ def encoder_timing(torch, card) -> dict:
             **bound(nbytes, ops),
             "library_ms": time_ms(torch, lambda: layer(x, src_key_padding_mask=pad)),
         }
-    log(f"[time] sasrec_encoder_fwd bf16 B={B_FULL} S={ENC_S} E={ENC_E} H={ENC_H} L=1: {t} "
+    log(f"[time] sasrec_encoder_fwd bf16 B={B_FULL} S={ENC_S} E={e} H={ENC_H} L=1: {t} "
         f"(bytes {nbytes}, ops {ops}; library: nn.TransformerEncoderLayer, bf16) on {card}")
     seed = torch.tensor([3], dtype=torch.int64, device="cuda")
     kw = dict(num_heads=ENC_H, seed=seed, rate=DROP_RATE)
@@ -608,11 +645,15 @@ def encoder_timing(torch, card) -> dict:
                 "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, **kw))}
     log(f"[time] sasrec_encoder_fwd with dropout {DROP_RATE} (train mode), same inputs: {drop} "
         f"on {card}")
+    with torch.inference_mode():
+        kernel_split(torch, lambda: encode_fwd(x, amask, *ws, **kw),
+                     f"sasrec_encoder_fwd bf16 B={B_FULL} E={e} dropout {DROP_RATE}", card)
     return t
 
 
 DROP_RATE = 0.1  # sasrec_fibinet's attn_dropout default
-ENC_BWD_CASES = [(128, 2, 1, B_TRAIN), (128, 2, 1, B_TRAIN + 37), (64, 4, 2, B_TRAIN + 37)]
+ENC_BWD_CASES = [(128, 2, 1, B_TRAIN), (128, 2, 1, B_TRAIN + 37), (64, 4, 2, B_TRAIN + 37),
+                 (256, 2, 1, B_TRAIN), (256, 2, 1, B_TRAIN + 37)]
 
 
 def encoder_cotangent(torch, pad, e: int, seed: int, dtype):
@@ -729,6 +770,88 @@ def encoder_bwd_against_plain(torch) -> tuple[float, list]:
     return worst, failures
 
 
+BLOCK_CASES = [(128, 2), (256, 2)]  # (E, H) of the building-block checks
+BLOCK_CHUNK = 2048  # tokens a weight-gradient split sums (a multiple of 32)
+
+
+def encoder_blocks_against_plain(torch, e: int, heads: int, dtype, seed: int = 0):
+    """Phase 2: each building block of the encoder kernels (encoder_blocks)
+    against its plain version on the same inputs, at full width: the
+    forward's blocks over the serving batch 8192+37 (164,740 tokens), the
+    backward's over 4133 histories, with dropout 0.1 where a block applies
+    it; every output within ENC_TOL (and ENC_NORM_TOL in bf16). Each block
+    takes the plain version's outputs of the block before it. Returns
+    (worst max_abs_err, failures)."""
+    from ctr_recommendation_tpu_torch.ops.cuda import encoder_blocks as eb
+
+    dn = str(dtype).split(".")[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    drop = dict(seed=torch.tensor([seed + 1], dtype=torch.int64, device="cuda"), rate=DROP_RATE)
+    worst, failures = 0.0, []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def held(name, n, got, want):
+        nonlocal worst
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        for i, (a, w) in enumerate(pairs):
+            err, rel_norm, ok = check_encoder(torch, a, w, dn)
+            worst = max(worst, err)
+            tag = name if len(pairs) == 1 else f"{name}[{i}]"
+            log(f"[compare] encoder block {tag} E={e} H={heads} {dn} N={n}: max_abs_err={err:.3e}, "
+                f"|d|/|want| {rel_norm:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("encoder block", tag, e, heads, dn))
+        return want
+
+    def block(name, n, fn, *args, **kw):
+        """fn on CUDA tensors launches the kernel; fn's plain version (the
+        same name with _plain) runs the same arguments."""
+        plain = getattr(eb, fn.__name__ + "_plain")
+        return held(name, n, fn(*args, **kw), plain(*args, **kw))
+
+    # the forward's blocks
+    x, amask, _, ws, _, _, _ = encoder_case(torch, dtype, B_RAGGED, e, heads, 1, seed=seed + e)
+    (qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
+     ffn1_w, ffn1_b, ffn2_w, ffn2_b, _, _) = (t[0] for t in ws)
+    n = x.shape[0] * x.shape[1]
+    h = x.float().reshape(n, e) + randn(n, e)
+    hn = block("layer_norm", n, eb.layer_norm, h, ln1_s, ln1_b, dtype, True)[0]
+    qkv = block("product nn bias", n, eb.product, hn, qkv_w, "nn", "bias", bias=qkv_b)
+    ao, _ = block("attention_fwd", n, eb.attention_fwd, qkv, amask, heads, dtype)
+    h1 = block("product nn residual", n, eb.product, ao, proj_w, "nn", "residual", bias=proj_b,
+               aux=h, layer=0, branch=0, **drop)
+    f1 = block("product nn relu", n, eb.product, hn, ffn1_w, "nn", "relu", bias=ffn1_b,
+               out_dtype=dtype)
+    block("product nn residual to cd", n, eb.product, f1, ffn2_w, "nn", "residual", bias=ffn2_b,
+          aux=h1, layer=0, branch=1, out_dtype=dtype, **drop)
+    del x, h, hn, qkv, ao, h1, f1
+
+    # the backward's blocks
+    x, amask, _, ws, _, _, _ = encoder_case(torch, dtype, B_TRAIN + 37, e, heads, 1,
+                                            seed=seed + e + 1)
+    (_, _, proj_w, _, _, _, ffn1_w, _, ffn2_w, _, ln2_s, ln2_b) = (t[0] for t in ws)
+    n = x.shape[0] * x.shape[1]
+    dh = randn(n, e)
+    f1 = torch.relu(randn(n, 4 * e)).to(dtype)
+    ch = dict(chunk=BLOCK_CHUNK)
+    db2, df2 = block("column_sums gate", n, eb.column_sums, dh, "gate", layer=0, branch=1,
+                     cd=dtype, **ch, **drop)
+    part = block("product tn partial", n, eb.product, f1, df2, "tn", "partial", **ch)
+    block("reduce_partials", n, eb.reduce_partials, part.reshape(part.shape[0], -1))
+    dz1, dz1_c = block("product nt gate", n, eb.product, df2, ffn2_w, "nt", "gate", aux=f1)
+    block("column_sums sum", n, eb.column_sums, dz1, "sum", **ch)
+    dn2 = block("product nt store", n, eb.product, dz1_c, ffn1_w, "nt")
+    _, xhat, rstd = eb.layer_norm_plain(x.float().reshape(n, e), ln2_s, ln2_b, dtype, True)
+    block("column_sums ln", n, eb.column_sums, dn2, "ln", x=xhat, **ch)
+    block("layer_norm_bwd", n, eb.layer_norm_bwd, dn2, xhat, rstd, ln2_s, dh)
+    qkv = randn(n, 3 * e)
+    _, p = eb.attention_fwd_plain(qkv, amask, heads, dtype)
+    block("attention_bwd", n, eb.attention_bwd, qkv, p, randn(n, e), dtype)
+    return worst, failures
+
+
 def library_grads(torch, layer, x, pad, g):
     """(dx, the 12 weight gradients in the stacked layout) of one
     nn.TransformerEncoderLayer forward + backward."""
@@ -741,7 +864,7 @@ def library_grads(torch, layer, x, pad, g):
     return [grads[0]] + [t.T if t.dim() == 2 else t for t in grads[1:]]
 
 
-def encoder_bwd_timing(torch, card) -> dict:
+def encoder_bwd_timing(torch, card, e: int = ENC_E) -> dict:
     """Phase 3 for the backward at B=4096, bf16, L=1, rate 0.1: kernel, plain
     version and nn.TransformerEncoderLayer forward + backward minus its
     forward (checked first against the plain version in fp32, every history
@@ -749,13 +872,15 @@ def encoder_bwd_timing(torch, card) -> dict:
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_bwd_plain
 
     def case(dtype, seed):
-        x, amask, pad, ws, _, _, _ = encoder_case(torch, dtype, B_TRAIN, ENC_E, ENC_H, 1, seed)
+        x, amask, pad, ws, _, _, _ = encoder_case(torch, dtype, B_TRAIN, e, ENC_H, 1, seed)
         pad, amask = pad.clone(), amask.clone()
         pad[0], amask[0] = False, 0.0  # no all-pad history: the library's -inf gives NaN there
-        return x, amask, pad, ws, encoder_cotangent(torch, pad, ENC_E, seed + 1, dtype)
+        return x, amask, pad, ws, encoder_cotangent(torch, pad, e, seed + 1, dtype)
 
     x, amask, pad, ws, g = case(torch.float32, 5)
-    want = encode_bwd_plain(g, x, amask, *ws, num_heads=ENC_H)
+    # fp32 accumulation, as cuBLAS sums for the library: a ReLU gate read
+    # from a product then falls on the library's side
+    want = encode_bwd_plain(g, x, amask, *ws, num_heads=ENC_H, acc=torch.float32)
     layer = library_layer(torch, ws, ENC_H).train()
     lib = library_grads(torch, layer, x, pad, g)
     lib_err = max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(lib, want))
@@ -769,7 +894,7 @@ def encoder_bwd_timing(torch, card) -> dict:
     seed = torch.tensor([11], dtype=torch.int64, device="cuda")
     layer = library_layer(torch, ws, ENC_H).train()
     tokens = B_TRAIN * ENC_S
-    ops = 3 * 2 * tokens * (12 * ENC_E * ENC_E + 2 * ENC_S * ENC_E)
+    ops = 3 * 2 * tokens * (12 * e * e + 2 * ENC_S * e)
     nbytes = (3 * 2 * x.numel() + 4 * amask.numel()
               + sum(t.numel() * t.element_size() for t in ws) + 4 * sum(t.numel() for t in ws))
     lib_fwd = time_ms(torch, lambda: layer(x, src_key_padding_mask=pad))
@@ -781,9 +906,11 @@ def encoder_bwd_timing(torch, card) -> dict:
         **bound(nbytes, ops),
         "library_ms": lib_both - lib_fwd,
     }
-    log(f"[time] sasrec_encoder_bwd bf16 B={B_TRAIN} S={ENC_S} E={ENC_E} H={ENC_H} L=1 "
+    log(f"[time] sasrec_encoder_bwd bf16 B={B_TRAIN} S={ENC_S} E={e} H={ENC_H} L=1 "
         f"rate={DROP_RATE}: {t} (bytes {nbytes}, ops {ops}; library: nn.TransformerEncoderLayer "
         f"bf16 forward + backward {lib_both:.4f} ms minus its forward {lib_fwd:.4f} ms) on {card}")
+    kernel_split(torch, lambda: encode_bwd(g, x, amask, *ws, **kw),
+                 f"sasrec_encoder_bwd bf16 B={B_TRAIN} E={e} dropout {DROP_RATE}", card)
     return t
 
 
@@ -983,7 +1110,8 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     names = lambda d: {fn.__name__: n for fn, n in d.items()}  # noqa: E731
     log(f"[train {tag}] fit_on_device: {steps} steps + {eval_batches} eval batches in "
         f"{t_fit:.3f} s; best valid auc {best_auc:.5f}; launches {names(launched)}, expected "
-        f"{names(expect)} (each backward: kernel + reduction a step)")
+        f"{names(expect)} (launches a call: interaction_bwd 2, encode_fwd 1 + 7 L, encode_bwd "
+        f"25 L + 1)")
     losses = [h["train_loss"] for h in hist]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"{tag}: training loss not finite and falling: {losses}")
@@ -1028,11 +1156,13 @@ def serve_sasrec(torch, store, rows, card) -> int:
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
         encode_fwd,
         encoder_inputs,
+        fwd_launches,
         stack_weights,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd
 
     exp = microlens_experiment(data_root="", model="sasrec_fibinet")
+    per = fwd_launches(exp.model.attn_num_layers)  # the encoder's launches a batch
     fm = build_feature_map(exp.dataset)
     _, params, state = build_model(fm, exp.model, torch.Generator().manual_seed(1))
     rng = np.random.default_rng(8)
@@ -1057,9 +1187,9 @@ def serve_sasrec(torch, store, rows, card) -> int:
     t_bulk = time.perf_counter() - t0
     log(f"[sasrec] score_table: {N_ROWS} rows in {t_bulk:.4f} s = {N_ROWS / t_bulk:.0f} rows/s "
         f"on {card}; launches (encode_fwd, fused_score, interaction_fwd) {counts()}")
-    if counts() != (n_batches, n_batches, 0):
+    if counts() != (n_batches * per, n_batches, 0):
         raise SystemExit(f"sasrec score_table launches {counts()}, expected "
-                         f"({n_batches}, {n_batches}, 0)")
+                         f"({n_batches * per}, {n_batches}, 0)")
     if bulk.shape != (N_ROWS,) or not ((bulk > 0) & (bulk < 1)).all():
         raise SystemExit("sasrec score_table probabilities not in (0, 1) of shape (N,)")
 
@@ -1074,7 +1204,7 @@ def serve_sasrec(torch, store, rows, card) -> int:
         pipe_launches = counts()
         log(f"[sasrec] pipeline: {written} rows in {t_pipe:.4f} s = {written / t_pipe:.0f} "
             f"rows/s to CSV+zip on {card}; launches {pipe_launches}")
-        if pipe_launches != (n_batches, n_batches, 0):
+        if pipe_launches != (n_batches * per, n_batches, 0):
             raise SystemExit(f"sasrec pipeline launches {pipe_launches}")
         check_submission(written, csv_path, zip_path, bulk, "sasrec")
 
@@ -1118,7 +1248,7 @@ def serve_sasrec(torch, store, rows, card) -> int:
     log(f"[sasrec unfused] {n_unfused} batches: launches (encode_fwd, fused_score, "
         f"interaction_fwd) {counts()}, max_abs_err vs fused {unfused_err:.3e} "
         f"(tolerance {CPU_TOL})")
-    if counts() != (n_unfused, 0, n_unfused):
+    if counts() != (n_unfused * per, 0, n_unfused):
         raise SystemExit("the sasrec unfused branch did not run encoder + interaction once a batch")
     if unfused_err > CPU_TOL:
         raise SystemExit("sasrec unfused and fused branches disagree")
@@ -1171,6 +1301,9 @@ def main() -> int:
     failures += drop_failures
     worst["sasrec_encoder_bwd"], bwd_failures = encoder_bwd_against_plain(torch)
     failures += bwd_failures
+    for e, heads in BLOCK_CASES:  # the encoder kernels' building blocks, one by one
+        for dtype in (torch.bfloat16, torch.float32):
+            failures += encoder_blocks_against_plain(torch, e, heads, dtype, seed=e)[1]
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
 
@@ -1188,6 +1321,8 @@ def main() -> int:
     mm_timing(torch, card, E, WIDE_HIDDEN, with_interaction=False)
     timing[("sasrec_encoder_fwd", "all")] = encoder_timing(torch, card)
     timing[("sasrec_encoder_bwd", "all")] = encoder_bwd_timing(torch, card)
+    encoder_timing(torch, card, WIDE_E)
+    encoder_bwd_timing(torch, card, WIDE_E)
 
     # ---- phase 4: the serving main path ----
     from ctr_recommendation_tpu_torch.config import microlens_experiment
@@ -1284,13 +1419,19 @@ def main() -> int:
 
     # ---- phases 6-7: the training main path, then its export; 6b: sasrec ----
     from ctr_recommendation_tpu_torch.data import synthetic_splits
-    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        bwd_launches,
+        encode_bwd,
+        encode_fwd,
+        fwd_launches,
+    )
 
     t0 = time.perf_counter()
     train, valid, train_store = synthetic_splits(N_TRAIN, N_VALID, seed=0)
     log(f"[train] synthetic data: {N_TRAIN} train + {N_VALID} valid rows, 91,717 items, "
         f"made in {time.perf_counter() - t0:.1f} s")
     counted = (interaction_fwd, interaction_bwd, score_fwd, encode_fwd, encode_bwd)
+    enc_fwd, enc_bwd = fwd_launches(1), bwd_launches(1)  # one layer's kernel launches a call
     with tempfile.TemporaryDirectory() as root:
         mm = train_and_serve(
             torch, microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
@@ -1307,9 +1448,20 @@ def main() -> int:
             raise SystemExit(f"sasrec_fibinet defaults moved: {m}")
         sasrec = train_and_serve(
             torch, sasrec_exp, train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: 1, interaction_bwd: 2, encode_fwd: 1, encode_bwd: 2},
-            per_eval={interaction_fwd: 1, encode_fwd: 1},
-            per_serve={score_fwd: 1, encode_fwd: 1})
+            per_step={interaction_fwd: 1, interaction_bwd: 2, encode_fwd: enc_fwd,
+                      encode_bwd: enc_bwd},
+            per_eval={interaction_fwd: 1, encode_fwd: enc_fwd},
+            per_serve={score_fwd: 1, encode_fwd: enc_fwd})
+        # ---- phase 6d: sasrec_emb_256 (sasrec_fibinet at E=256) ----
+        wide_sasrec = microlens_experiment(data_root="", model="sasrec_fibinet",
+                                           epochs=TRAIN_EPOCHS, embedding_dim=WIDE_E,
+                                           checkpoint_dir=os.path.join(root, "ckpt_sasrec_256"))
+        train_and_serve(
+            torch, wide_sasrec, train, valid, train_store, root, card, counted,
+            per_step={interaction_fwd: 1, interaction_bwd: 2, encode_fwd: enc_fwd,
+                      encode_bwd: enc_bwd},
+            per_eval={interaction_fwd: 1, encode_fwd: enc_fwd},
+            per_serve={score_fwd: 1, encode_fwd: enc_fwd}, tag="sasrec_emb_256")
         # ---- phase 6c: emb_256_tower1024 (E=256, tower (1024, 512)) ----
         wide_exp = microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
                                         embedding_dim=WIDE_E, hidden_units=WIDE_HIDDEN,

@@ -54,15 +54,25 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 // under key (seed's low, high 32 bits); u = (word >> 8) 2^-24 (the top 24
 // bits) and the element is kept iff u >= rate. The mask depends on nothing
 // else, so any tiling of the batch draws it alike.
-__device__ __forceinline__ bool dropout_keep(uint64_t seed, uint32_t token, int col, int layer,
-                                             int branch, float rate) {
-  const uint4 w = philox4x32_10(
+// The four words of column group col / 4 (dropout_keep's counter), and
+// whether a word keeps its element.
+__device__ __forceinline__ uint4 dropout_words(uint64_t seed, uint32_t token, int col, int layer,
+                                               int branch) {
+  return philox4x32_10(
       make_uint4(token, static_cast<uint32_t>(col) >> 2, static_cast<uint32_t>(2 * layer + branch),
                  0u),
       make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32)));
-  const int j = col & 3;
-  const uint32_t word = j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
+}
+__device__ __forceinline__ uint32_t word_of(uint4 w, int j) {
+  return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
+}
+__device__ __forceinline__ bool word_keeps(uint32_t word, float rate) {
   return static_cast<float>(word >> 8) * 0x1p-24f >= rate;
+}
+
+__device__ __forceinline__ bool dropout_keep(uint64_t seed, uint32_t token, int col, int layer,
+                                             int branch, float rate) {
+  return word_keeps(word_of(dropout_words(seed, token, col, layer, branch), col & 3), rate);
 }
 
 __host__ __device__ __forceinline__ size_t align16(size_t n) {

@@ -1,11 +1,11 @@
-// SASRec transformer-encoder forward for Hopper (sm_90a).
+// SASRec transformer-encoder forward for Hopper (sm_90a), token-major.
 //
 // Replaces the TPU kernel ctr_recommendation_tpu/ops/pallas/sasrec_encoder.py
-// ::_fwd_kernel (:220). For each history of S steps (pos-embedded, pad rows
-// zeroed by the wrapper) it runs L pre-LayerNorm blocks:
+// ::_fwd_kernel (:220). Over all N = B*S tokens of the pos-embedded
+// histories (pad rows zeroed by the wrapper) it runs L pre-LayerNorm blocks:
 //
 //   hn1 = cd(LN1(h));  qkv = hn1 Wqkv + bqkv                 (fp32, not rounded)
-//   per head: p = softmax(q k^T / sqrt(D) + mask);  ao = cd(p v)
+//   per history and head: p = softmax(q k^T / sqrt(D) + mask);  ao = cd(p v)
 //   h  += drop0(ao Wproj + bproj)
 //   hn2 = cd(LN2(h));  f1 = cd(relu(hn2 W1 + b1));  h += drop1(f1 W2 + b2)
 //
@@ -13,143 +13,120 @@
 // once to x's dtype); LayerNorm (biased variance, eps 1e-6), the attention
 // products and the softmax are fp32; the four weight products take operands
 // rounded to the compute dtype cd and accumulate in fp32; biases are fp32.
-// The mask is additive (-1e9 at pad keys, never -inf), so a history that is
-// all pad gives a uniform softmax. Pad rows are not re-zeroed between layers:
-// masked keys keep them out of every real row, and the wrapper zeroes them
-// on output. In training, drop0/drop1 are the residual dropout of the TPU
+// The mask is additive (-1e9 at pad keys), so an all-pad history gives a
+// uniform softmax; pad rows are not re-zeroed between layers (the wrapper
+// zeroes them on output). drop0/drop1 are the residual dropout of the TPU
 // kernel (:190-204), drawn from the counter-based Philox mask of common.cuh
 // keyed by (seed, global token, column, layer, branch); at rate 0 they are
 // the identity and the seed is never read.
 //
 // Bound on an H100: operations. At B=8192, S=20, E=128, one layer, the
-// forward is 66.1 GFLOP (201,728 MACs a token) against ~85 MB moved. The TPU
-// kernel keeps a tile's activations and all of a layer's weights (384 KB in
-// bf16) in 16 MB of VMEM; a Hopper block has 227 KB of shared memory. So a
-// block owns TB whole histories (attention needs every step of one), keeps
-// their fp32 stream, the current matmul operand and the fp32 qkv in shared
-// memory for all L layers, and stages the weights from L2 one column block
-// (K x 128) at a time; the FFN hidden (rows x 4E) never lives whole: it is
-// made E columns at a time and consumed at once into an fp32 f2 buffer. The
-// products are fp32 FMA on the CUDA cores, each thread owning a 4 x 8 output
-// tile; tensor cores (mma.sync / wgmma) are later work.
-//
-// TB is the largest count of histories whose buffers fit (3 at S=20,
-// E=128); the buffers' row strides are odd so that the column reads of the
-// products and of attention hit distinct banks. Histories past B are zero
-// rows with a -1e9 mask and are never stored.
+// forward is 66.1 GFLOP against ~85 MB of x, the output and the weights.
+// Design: one launch per building block over all tokens, in place of a
+// block that owned whole histories. The four products are the tile product
+// of tile_mma.cuh (bf16: mma.sync on the tensor cores) with the bias, ReLU,
+// dropout and residual fused into their epilogues; LayerNorm is a warp a
+// row; attention a block per (history, head). Between launches the
+// token-major intermediates (fp32 h and qkv, cd hn, ao and f1: 0.59 GB at
+// B=8192, E=128, bf16) live in a workspace the wrapper allocates. Each is
+// written once and read once or twice: 1.68 GB of traffic a layer at that
+// shape, 0.50 ms at 3.35 TB/s, the floor this design sets (a fused kernel
+// would keep them on chip). Launches: 1 + 7 L (the upcast of x, then LN1,
+// qkv, attention, proj, LN2, ffn1, ffn2 per layer; the last ffn2 writes
+// the output in cd).
 
 #include "sasrec_encoder.cuh"
 
 namespace ctr {
 namespace enc {
 
-// Shared memory of a block of tb histories, in floats: the weight stage,
-// then h, the product operand and qkv (which the FFN reuses), then the mask.
-__host__ __device__ inline size_t smem_floats(int tb, int S, int E) {
-  const size_t np = pad_rows(tb * S);
-  return static_cast<size_t>(E) * CB + np * (2 * (E + 1) + 3 * E + 1) + pad_rows(tb * S);
-}
+template <typename T>
+struct FwdWork {
+  float* h;
+  T* hn;
+  float* qkv;
+  T* ao;
+  T* f1;
+
+  FwdWork(Carve& cv, size_t N, int E) {
+    h = cv.take<float>(N * E);
+    hn = cv.take<T>(N * E);
+    qkv = cv.take<float>(N * 3 * E);
+    ao = cv.take<T>(N * E);
+    f1 = cv.take<T>(N * 4 * E);
+  }
+};
+
+#define TRY(call)                         \
+  do {                                    \
+    const int rc_ = (call);               \
+    if (rc_ != 0) return rc_;             \
+  } while (0)
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-encode_fwd_kernel(const T* __restrict__ x, const float* __restrict__ amask, Weights w,
-                  Dropout drop, T* __restrict__ out, int B, int S, int E, int H, int L, int tb,
-                  float scale) {
-  extern __shared__ __align__(16) float smem_f[];
-  const int n = tb * S, np = pad_rows(n);
-  const int ldh = E + 1, ldq = 3 * E + 1, ldf = E + 1;
-  float* ws = smem_f;                                  // weight stage (K x CB)
-  float* hs = ws + static_cast<size_t>(E) * CB;        // fp32 stream (np x ldh)
-  float* as = hs + static_cast<size_t>(np) * ldh;      // product operand: hn1, ao, hn2
-  float* qs = as + static_cast<size_t>(np) * ldh;      // qkv (np x ldq)
-  float* f1 = qs;                                      // FFN: hidden chunk (np x ldf)
-  float* f2 = qs + static_cast<size_t>(np) * ldf;      //      f1 W2 partial sums
-  float* mask_s = qs + static_cast<size_t>(np) * ldq;  // (tb, S) additive key mask
-
-  const size_t g0 = static_cast<size_t>(blockIdx.x) * n;  // first global row (token)
-  const size_t rows = static_cast<size_t>(B) * S;
-  const uint64_t seed = drop.read_seed();
-  for (int i = threadIdx.x; i < np * E; i += blockDim.x) {
-    const int r = i / E, c = i % E;
-    const size_t g = g0 + r;
-    hs[r * ldh + c] = (r < n && g < rows) ? to_f(x[g * E + c]) : 0.f;
-  }
-  for (int r = threadIdx.x; r < n; r += blockDim.x)
-    mask_s[r] = g0 + r < rows ? amask[g0 + r] : kNegInf;
-
-  const int E4 = 4 * E;
+int encode_fwd(const T* x, const float* amask, const Weights& w, const Dropout& drop, T* out,
+               int B, int S, int E, int H, int L, float scale, char* workspace,
+               cudaStream_t s) {
+  const int N = B * S;
+  Carve cv{workspace};
+  const FwdWork<T> wk(cv, N, E);
+  TRY(launch_convert(x, wk.h, static_cast<size_t>(N) * E, s));
   for (int li = 0; li < L; ++li) {
     const Layer<T> lw(w, li, E);
-
-    // ---- attention branch ----
-    __syncthreads();  // h complete
-    layer_norm<T>(hs, as, np, E, ldh, lw.ln1_s, lw.ln1_b);
-    gemm<T>(as, ldh, np, E, lw.qkv_w, 3 * E, 3 * E, ws,
-            [&](int r, int c, float acc) { qs[r * ldq + c] = acc + lw.qkv_b[c]; });
-    __syncthreads();  // qkv complete; hn1 dead
-    attention<T>(qs, ldq, as, ldh, mask_s, tb, S, E, H, scale);
-    gemm<T>(as, ldh, np, E, lw.proj_w, E, E, ws, [&](int r, int c, float acc) {
-      hs[r * ldh + c] = hs[r * ldh + c] + dropped(acc + lw.proj_b[c], drop.rate, drop.inv_keep,
-                                                  seed, g0 + r, c, li, 0);
-    });
-    __syncthreads();  // h1 complete; ao dead
-
-    // ---- FFN branch: the hidden layer E columns at a time ----
-    layer_norm<T>(hs, as, np, E, ldh, lw.ln2_s, lw.ln2_b);
-    for (int ch = 0; ch < 4; ++ch) {
-      gemm<T>(as, ldh, np, E, lw.ffn1_w + ch * E, E4, E, ws, [&](int r, int c, float acc) {
-        f1[r * ldf + c] = rnd<T>(fmaxf(acc + lw.ffn1_b[ch * E + c], 0.f));
-      });
-      gemm<T>(f1, ldf, np, E, lw.ffn2_w + static_cast<size_t>(ch) * E * E, E, E, ws,
-              [&](int r, int c, float acc) {
-                f2[r * ldf + c] = ch == 0 ? acc : f2[r * ldf + c] + acc;
-              });
-    }
-    __syncthreads();  // f2 complete
-    for (int i = threadIdx.x; i < np * E; i += blockDim.x) {
-      const int r = i / E, c = i % E;
-      hs[r * ldh + c] = hs[r * ldh + c] + dropped(f2[r * ldf + c] + lw.ffn2_b[c], drop.rate,
-                                                  drop.inv_keep, seed, g0 + r, c, li, 1);
-    }
+    TRY(launch_ln_fwd<T>(wk.h, N, E, lw.ln1_s, lw.ln1_b, wk.hn, nullptr, nullptr, s));
+    TRY((mma::launch_product<T, false, true>(wk.hn, lw.qkv_w, N, 3 * E, E, 1, E,
+                                             EpiBias{wk.qkv, 3 * E, lw.qkv_b}, s)));
+    TRY(launch_attn_fwd<T>(wk.qkv, amask, wk.ao, nullptr, B, S, E, H, scale, s));
+    TRY((mma::launch_product<T, false, true>(
+        wk.ao, lw.proj_w, N, E, E, 1, E,
+        EpiResidual<T>{wk.h, nullptr, E, lw.proj_b, drop, li, 0}, s)));
+    TRY(launch_ln_fwd<T>(wk.h, N, E, lw.ln2_s, lw.ln2_b, wk.hn, nullptr, nullptr, s));
+    TRY((mma::launch_product<T, false, true>(wk.hn, lw.ffn1_w, N, 4 * E, E, 1, E,
+                                             EpiRelu<T>{wk.f1, 4 * E, lw.ffn1_b}, s)));
+    TRY((mma::launch_product<T, false, true>(
+        wk.f1, lw.ffn2_w, N, E, 4 * E, 1, 4 * E,
+        EpiResidual<T>{wk.h, li == L - 1 ? out : nullptr, E, lw.ffn2_b, drop, li, 1}, s)));
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n * E; i += blockDim.x) {
-    const int r = i / E, c = i % E;
-    if (g0 + r < rows) out[(g0 + r) * E + c] = from_f<T>(hs[r * ldh + c]);
-  }
-}
-
-// The largest count of histories a block can hold, at most kMaxTB; 0 if
-// not even one fits.
-inline int tile_histories(int S, int E) {
-  for (int tb = kMaxTB; tb >= 1; --tb)
-    if (smem_floats(tb, S, E) * sizeof(float) <= kMaxSmem) return tb;
   return 0;
 }
 
+// One product hn W of the forward with epilogue `epi` (1 bias, 2 relu,
+// 3 residual in place into out_f, 4 residual out_f + ... rounded into out_c).
 template <typename T>
-static int launch(const void* x, const float* amask, const Weights& w, const Dropout& drop,
-                  void* out, int B, int S, int E, int H, int L, float scale,
-                  cudaStream_t stream) {
-  const int tb = tile_histories(S, E);
-  if (tb == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_floats(tb, S, E) * sizeof(float);
-  auto kern = encode_fwd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<(B + tb - 1) / tb, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), amask, w, drop, static_cast<T*>(out), B, S, E, H, L, tb, scale);
-  return static_cast<int>(cudaGetLastError());
+int product_nn(int epi, const T* A, const T* B, int M, int N, int K, const float* bias,
+               float* out_f, void* out_c, const Dropout& drop, int layer, int branch,
+               cudaStream_t s) {
+  T* oc = static_cast<T*>(out_c);
+  switch (epi) {
+    case 1:
+      return mma::launch_product<T, false, true>(A, B, M, N, K, 1, K, EpiBias{out_f, N, bias}, s);
+    case 2:
+      return mma::launch_product<T, false, true>(A, B, M, N, K, 1, K, EpiRelu<T>{oc, N, bias},
+                                                 s);
+    case 3:
+    case 4:
+      return mma::launch_product<T, false, true>(
+          A, B, M, N, K, 1, K,
+          EpiResidual<T>{out_f, epi == 4 ? oc : nullptr, N, bias, drop, layer, branch}, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace enc
 }  // namespace ctr
 
-// Histories a block holds at (S, E); 0 outside the kernel's envelope.
-extern "C" int sasrec_encode_tile(int S, int E) {
-  if (S < 1 || S > ctr::enc::kMaxS || E % 32 != 0 || E < 32 || E > 128) return 0;
-  return ctr::enc::tile_histories(S, E);
+using ctr::enc::Dropout;
+
+// Bytes of workspace sasrec_encode_fwd needs at (B, S, E).
+extern "C" size_t sasrec_encode_fwd_workspace(int B, int S, int E, int is_bf16) {
+  ctr::enc::Carve cv{nullptr};
+  const size_t N = static_cast<size_t>(B) * S;
+  if (is_bf16)
+    (void)ctr::enc::FwdWork<__nv_bfloat16>(cv, N, E);
+  else
+    (void)ctr::enc::FwdWork<float>(cv, N, E);
+  return cv.used;
 }
 
 // x (B*S, E) and out (B*S, E) in the compute dtype (bf16 when is_bf16, else
@@ -158,25 +135,78 @@ extern "C" int sasrec_encode_tile(int S, int E) {
 // ln1_b (L,E), ffn1_w (L,E,4E), ffn1_b (L,4E), ffn2_w (L,4E,E), ffn2_b, ln2_s,
 // ln2_b (L,E): the four matrices in the compute dtype, the rest fp32. scale
 // is 1/sqrt(E/H). Dropout on the two residual branches when rate > 0: seed
-// is then a device pointer to one int64 and inv_keep fp32(1 / (1 - rate));
-// at rate 0 seed is not read and the results are those of an eval launch.
-// Requires 1 <= S <= 32, E % 32 == 0, 32 <= E <= 128, E % H == 0, L >= 1,
-// 0 <= rate < 1 and 16-byte aligned pointers. Returns a cudaError_t.
+// is then a device pointer to one int64 and inv_keep fp32(1 / (1 - rate)).
+// workspace holds sasrec_encode_fwd_workspace bytes. Requires 1 <= S <= 32,
+// E % 32 == 0, E >= 32, E % H == 0, E / H <= 256, L >= 1, 0 <= rate < 1 and
+// 16-byte aligned pointers. Enqueues 1 + 7 L launches on `stream`; returns
+// the first cudaError_t that is not 0.
 extern "C" int sasrec_encode_fwd(const void* x, const float* amask, const void* qkv_w,
                                  const float* qkv_b, const void* proj_w, const float* proj_b,
                                  const float* ln1_s, const float* ln1_b, const void* ffn1_w,
                                  const float* ffn1_b, const void* ffn2_w, const float* ffn2_b,
                                  const float* ln2_s, const float* ln2_b, const int64_t* seed,
-                                 void* out, int B, int S, int E, int H, int L, float scale,
-                                 float rate, float inv_keep, int is_bf16, void* stream) {
-  if (sasrec_encode_tile(S, E) == 0 || H < 1 || E % H != 0 || L < 1 || B < 1 ||
-      !(rate >= 0.f && rate < 1.f) || (rate > 0.f && seed == nullptr))
+                                 void* out, void* workspace, int B, int S, int E, int H, int L,
+                                 float scale, float rate, float inv_keep, int is_bf16,
+                                 void* stream) {
+  if (!ctr::enc::in_envelope(B, S, E, H, L) || !ctr::enc::dropout_ok(seed, rate))
     return static_cast<int>(cudaErrorInvalidValue);
   const ctr::enc::Weights w{qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
                             ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b};
-  const ctr::enc::Dropout drop{seed, rate, inv_keep};
+  const Dropout drop{seed, rate, inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  char* ws = static_cast<char*>(workspace);
+  if (is_bf16)
+    return ctr::enc::encode_fwd<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(x), amask, w, drop, static_cast<__nv_bfloat16*>(out),
+        B, S, E, H, L, scale, ws, s);
+  return ctr::enc::encode_fwd<float>(static_cast<const float*>(x), amask, w, drop,
+                                     static_cast<float*>(out), B, S, E, H, L, scale, ws, s);
+}
+
+// ---- the forward's blocks one by one, for the checks on the card ----
+
+// C = A B, A (M, K) and B (K, N) in the compute dtype, with epilogue epi:
+// 1 out_f = C + bias; 2 out_c = cd(relu(C + bias)); 3 out_f += drop(C +
+// bias) in place; 4 out_c = cd(out_f + drop(C + bias)). M any, N and K % 32
+// == 0. One launch.
+extern "C" int sasrec_product_fwd(int epi, const void* A, const void* B, int M, int N, int K,
+                                  const float* bias, float* out_f, void* out_c,
+                                  const int64_t* seed, float rate, float inv_keep, int layer,
+                                  int branch, int is_bf16, void* stream) {
+  if (M < 1 || N % 32 || K % 32 || N < 32 || K < 32 || !ctr::enc::dropout_ok(seed, rate))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{seed, rate, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return ctr::enc::launch<__nv_bfloat16>(x, amask, w, drop, out, B, S, E, H, L, scale, s);
-  return ctr::enc::launch<float>(x, amask, w, drop, out, B, S, E, H, L, scale, s);
+    return ctr::enc::product_nn<__nv_bfloat16>(
+        epi, static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B), M, N, K,
+        bias, out_f, out_c, drop, layer, branch, s);
+  return ctr::enc::product_nn<float>(epi, static_cast<const float*>(A),
+                                     static_cast<const float*>(B), M, N, K, bias, out_f, out_c,
+                                     drop, layer, branch, s);
+}
+
+// out = cd(LN(h)) over (N, E) fp32 h, and xhat, rstd when not null. One launch.
+extern "C" int sasrec_layer_norm(const float* h, int N, int E, const float* scale,
+                                 const float* bias, void* out, float* xhat, float* rstd,
+                                 int is_bf16, void* stream) {
+  if (N < 1 || E < 32 || E % 32) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return ctr::enc::launch_ln_fwd(h, N, E, scale, bias, static_cast<__nv_bfloat16*>(out), xhat,
+                                   rstd, s);
+  return ctr::enc::launch_ln_fwd(h, N, E, scale, bias, static_cast<float*>(out), xhat, rstd, s);
+}
+
+// ao (B*S, E) in cd and, when P is not null, the softmax (B, H, S, S) fp32,
+// from qkv (B*S, 3E) fp32 and amask (B, S). One launch.
+extern "C" int sasrec_attention_fwd(const float* qkv, const float* amask, void* ao, float* P,
+                                    int B, int S, int E, int H, float scale, int is_bf16,
+                                    void* stream) {
+  if (!ctr::enc::in_envelope(B, S, E, H, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return ctr::enc::launch_attn_fwd(qkv, amask, static_cast<__nv_bfloat16*>(ao), P, B, S, E, H,
+                                     scale, s);
+  return ctr::enc::launch_attn_fwd(qkv, amask, static_cast<float*>(ao), P, B, S, E, H, scale, s);
 }

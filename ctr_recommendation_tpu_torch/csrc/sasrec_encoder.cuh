@@ -1,22 +1,30 @@
-// Device pieces shared by the SASRec encoder's forward (sasrec_encoder.cu)
-// and backward (sasrec_encoder_bwd.cu) kernels: the weights of one layer,
-// the products with a weight staged from L2, LayerNorm, attention and the
-// residual dropout. Both kernels keep the TPU kernel's rounding points (see
-// sasrec_encoder.cu); every value here is fp32 unless rnd<T>() rounds it to
-// the compute dtype T.
+// The SASRec encoder's building blocks, token-major, for Hopper (sm_90a):
+// the tile product of tile_mma.cuh with the encoder's epilogues, LayerNorm
+// forward and backward, attention forward and backward, column sums over
+// token chunks and their fixed-order reduction. sasrec_encoder.cu enqueues
+// the forward from them and sasrec_encoder_bwd.cu the backward; each also
+// binds its blocks one by one for the checks on the card.
+//
+// Every tensor is token-major, (N, width) row-major with N = B*S tokens.
+// The stream h, qkv, attention, softmax and LayerNorm are fp32; the four
+// products take operands in the compute dtype T (bf16 or fp32) with fp32
+// accumulation; rnd points are explicit from_f<T>() stores.
 #pragma once
 
-#include "common.cuh"
+#include <algorithm>
+#include <type_traits>
+#include <vector>
+
+#include "tile_mma.cuh"
 
 namespace ctr {
 namespace enc {
 
-constexpr int CB = 128;          // weight columns staged per step
-constexpr int RT = 4, CT = 8;    // a thread's output tile in the products
-constexpr int kMaxS = 32;        // attention keeps one key per lane
-constexpr int kMaxTB = 16;
-constexpr float kNegInf = -1e9f;
+constexpr int kMaxS = 32;   // attention keeps one key per lane
+constexpr int kMaxD = 256;  // head width the attention kernels stage
 constexpr float kEps = 1e-6f;
+constexpr int kRowsPerBlock = 8;  // LayerNorm: one warp a row
+constexpr int kSplitBlocks = 264;  // blocks a split sum aims at: two a streaming multiprocessor
 
 struct Weights {  // the 12 stacked (L, ...) operands
   const void* qkv_w;
@@ -48,7 +56,7 @@ struct Layer {  // layer li's slice of the stacked operands
   const float* ln2_s;
   const float* ln2_b;
 
-  __device__ Layer(const Weights& w, int li, int E) {
+  Layer(const Weights& w, int li, int E) {
     const size_t ee = static_cast<size_t>(E) * E;
     qkv_w = static_cast<const T*>(w.qkv_w) + li * 3 * ee;
     qkv_b = w.qkv_b + li * 3 * E;
@@ -65,121 +73,296 @@ struct Layer {  // layer li's slice of the stacked operands
   }
 };
 
-__host__ __device__ inline int pad_rows(int n) { return (n + RT - 1) / RT * RT; }
+// Dropout's parameters as a kernel receives them: the seed is read from the
+// device (never from the host), and only when dropout is on.
+struct Dropout {
+  const int64_t* seed;
+  float rate;
+  float inv_keep;  // fp32(1 / (1 - rate))
 
-// C (np x ncols) = A (np x K, shared, row stride lda) times a weight in T,
-// one staged column block (K x CB floats in ws) at a time; epi(r, c, acc)
-// receives each fp32 sum. W (K x ncols, row stride ldw) when !TRANS; when
-// TRANS the product is A W^T with W (ncols x K, row stride ldw), staged by
-// rows (K % 8 == 0). ROUND_A rounds A's elements to T as they are read (an
-// fp32 buffer that is a product's cd operand). Starts with a barrier (A
-// complete, the stage free); the caller puts one after it before reading
-// what epi wrote.
-template <typename T, bool TRANS = false, bool ROUND_A = false, typename Epi>
-__device__ __forceinline__ void gemm(const float* A, int lda, int np, int K, const T* W,
-                                     int ldw, int ncols, float* ws, Epi epi) {
-  for (int c0 = 0; c0 < ncols; c0 += CB) {
-    const int cb = min(CB, ncols - c0);
-    __syncthreads();
-    if (TRANS) {
-      for (int i = threadIdx.x; i < (K / 8) * cb; i += blockDim.x) {
-        const int c = i % cb, k = (i / cb) * 8;
-        alignas(16) float v[8];
-        load8(v, W + static_cast<size_t>(c0 + c) * ldw + k);
+  // v[0..n) at columns col..col+n-1 of one group of 4 (col % 4 + n <= 4),
+  // dropped in place: one Philox draw for the group. __fmul_rn: the product
+  // is rounded before the residual add, never fused into it, as the plain
+  // version computes it.
+  template <int n>
+  __device__ __forceinline__ void apply(float* v, size_t token, int col, int layer,
+                                        int branch) const {
+    if (rate <= 0.f) return;
+    const uint4 w = dropout_words(static_cast<uint64_t>(*seed), static_cast<uint32_t>(token), col,
+                                  layer, branch);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) ws[(k + j) * cb + c] = v[j];
-      }
-    } else {
-      const int per_row = cb / 8;
-      for (int i = threadIdx.x; i < K * per_row; i += blockDim.x) {
-        const int k = i / per_row, j = (i % per_row) * 8;
-        load8(ws + k * cb + j, W + static_cast<size_t>(k) * ldw + c0 + j);
-      }
-    }
-    __syncthreads();
-    const int ncg = cb / CT;
-    const int ntiles = (np / RT) * ncg;
-    for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
-      // columns 4g..4g+3 and cb/2+4g..cb/2+4g+3: a warp's float4 reads of
-      // a stage row are contiguous
-      const int r0 = (t / ncg) * RT, cl = (t % ncg) * 4, half = cb / 2;
-      float acc[RT][CT];
+    for (int j = 0; j < n; ++j)
+      v[j] = word_keeps(word_of(w, (col & 3) + j), rate) ? __fmul_rn(v[j], inv_keep) : 0.f;
+  }
+};
+
+// Two neighbouring elements (p 8-byte aligned for fp32, 4 for bf16).
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// ---- epilogues of the tile product: (row, col, split, fp32 sum) ----
+// Each has a single-element form and a pair form for columns c, c + 1 (c
+// even, N even), which the bf16 tile product's fragment layout hands over.
+
+struct EpiStore {  // out = acc
+  float* out;
+  int ld;
+  __device__ void operator()(int r, int c, int, float v) const {
+    out[static_cast<size_t>(r) * ld + c] = v;
+  }
+  __device__ void pair(int r, int c, int, float v0, float v1) const {
+    store2(out + static_cast<size_t>(r) * ld + c, v0, v1);
+  }
+};
+
+struct EpiBias {  // out = acc + bias (qkv: fp32, not rounded)
+  float* out;
+  int ld;
+  const float* bias;
+  __device__ void operator()(int r, int c, int, float v) const {
+    out[static_cast<size_t>(r) * ld + c] = v + bias[c];
+  }
+  __device__ void pair(int r, int c, int, float v0, float v1) const {
+    store2(out + static_cast<size_t>(r) * ld + c, v0 + bias[c], v1 + bias[c + 1]);
+  }
+};
+
+template <typename T>
+struct EpiRelu {  // out = cd(relu(acc + bias)): f1, the FFN's hidden
+  T* out;
+  int ld;
+  const float* bias;
+  __device__ void operator()(int r, int c, int, float v) const {
+    out[static_cast<size_t>(r) * ld + c] = from_f<T>(fmaxf(v + bias[c], 0.f));
+  }
+  __device__ void pair(int r, int c, int, float v0, float v1) const {
+    store2(out + static_cast<size_t>(r) * ld + c, fmaxf(v0 + bias[c], 0.f),
+           fmaxf(v1 + bias[c + 1], 0.f));
+  }
+};
+
+// The residual add into the fp32 stream: h + drop(acc + bias), dropout site
+// (layer, branch) keyed by the global token r; written back into h, or
+// rounded once to T into out (the encoder's last product).
+template <typename T>
+struct EpiResidual {
+  float* h;
+  T* out;
+  int ld;
+  const float* bias;
+  Dropout drop;
+  int layer, branch;
+  __device__ void operator()(int r, int c, int, float v) const {
+    const size_t i = static_cast<size_t>(r) * ld + c;
+    float a = v + bias[c];
+    drop.apply<1>(&a, r, c, layer, branch);
+    const float y = h[i] + a;
+    if (out)
+      out[i] = from_f<T>(y);
+    else
+      h[i] = y;
+  }
+  __device__ void pair(int r, int c, int, float v0, float v1) const {
+    const size_t i = static_cast<size_t>(r) * ld + c;
+    float a[2] = {v0 + bias[c], v1 + bias[c + 1]};
+    drop.apply<2>(a, r, c, layer, branch);
+    const float2 hv = load2(h + i);
+    if (out)
+      store2(out + i, hv.x + a[0], hv.y + a[1]);
+    else
+      store2(h + i, hv.x + a[0], hv.y + a[1]);
+  }
+};
+
+// The ReLU gate of the FFN backward: dz1 = acc where f1 > 0 (f1 =
+// cd(relu(z1)) is positive exactly where z1 is, but for z1 below bf16's
+// least denormal), written fp32 (its bias gradient) and in cd (the operand
+// of the two products that take it).
+template <typename T>
+struct EpiGate {
+  const T* f1;
+  float* out;
+  T* out_c;
+  int ld;
+  __device__ void operator()(int r, int c, int, float v) const {
+    const size_t i = static_cast<size_t>(r) * ld + c;
+    const float y = to_f(f1[i]) > 0.f ? v : 0.f;
+    out[i] = y;
+    out_c[i] = from_f<T>(y);
+  }
+  __device__ void pair(int r, int c, int, float v0, float v1) const {
+    const size_t i = static_cast<size_t>(r) * ld + c;
+    const float2 f = load2(f1 + i);
+    const float y0 = f.x > 0.f ? v0 : 0.f, y1 = f.y > 0.f ? v1 : 0.f;
+    store2(out + i, y0, y1);
+    store2(out_c + i, y0, y1);
+  }
+};
+
+struct EpiPartial {  // split z's partial of a weight gradient
+  float* part;
+  int ld;
+  size_t zstride;
+  __device__ void operator()(int r, int c, int z, float v) const {
+    part[z * zstride + static_cast<size_t>(r) * ld + c] = v;
+  }
+  __device__ void pair(int r, int c, int z, float v0, float v1) const {
+    store2(part + z * zstride + static_cast<size_t>(r) * ld + c, v0, v1);
+  }
+};
+
+// ---- elementwise and per-row blocks ----
+
+template <typename Tin, typename Tout>
+__global__ void convert(const Tin* __restrict__ x, Tout* __restrict__ y, size_t n) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x)
+    y[i] = from_f<Tout>(to_f(x[i]));
+}
+
+// hn = cd(xhat * scale + bias), xhat = (h - mean) * rsqrt(var + eps), fp32
+// with the biased variance; one warp a row, any E. Also xhat and the rstd
+// when given (the backward's residues).
+template <typename T>
+__global__ void layer_norm_fwd(const float* __restrict__ h, int N, int E,
+                               const float* __restrict__ scale, const float* __restrict__ bias,
+                               T* __restrict__ out, float* __restrict__ xhat,
+                               float* __restrict__ rstd) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (r >= N) return;
+  const float* hr = h + static_cast<size_t>(r) * E;
+  float s = 0.f;
+  for (int c = lane; c < E; c += 32) s += hr[c];
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float mean = s / static_cast<float>(E);
+  float v = 0.f;
+  for (int c = lane; c < E; c += 32) {
+    const float d = hr[c] - mean;
+    v += d * d;
+  }
 #pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
-      const float* a0 = A + r0 * lda;
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        float a[RT];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const float rs = rsqrtf(v / static_cast<float>(E) + kEps);
+  for (int c = lane; c < E; c += 32) {
+    const size_t i = static_cast<size_t>(r) * E + c;
+    const float x = (hr[c] - mean) * rs;
+    if (xhat) xhat[i] = x;
+    out[i] = from_f<T>(__fadd_rn(__fmul_rn(x, scale[c]), bias[c]));
+  }
+  if (rstd && lane == 0) rstd[r] = rs;
+}
+
+// out = dh + rstd (d - mean(d) - xhat mean(d xhat)), d = dn * scale: the
+// LayerNorm backward added to the gradient stream; one warp a row. out may
+// be dh (in place, fp32) or the encoder's dx (T).
+template <typename Tout>
+__global__ void layer_norm_bwd(const float* __restrict__ dn, const float* __restrict__ xhat,
+                               const float* __restrict__ rstd, const float* __restrict__ scale,
+                               const float* dh, Tout* out, int N, int E) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (r >= N) return;
+  const size_t base = static_cast<size_t>(r) * E;
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < E; c += 32) {
+    const float d = dn[base + c] * scale[c];
+    s1 += d;
+    s2 += d * xhat[base + c];
+  }
 #pragma unroll
-        for (int i = 0; i < RT; ++i) a[i] = ROUND_A ? rnd<T>(a0[i * lda + k]) : a0[i * lda + k];
-        const float4 w0 = *reinterpret_cast<const float4*>(ws + k * cb + cl);
-        const float4 w1 = *reinterpret_cast<const float4*>(ws + k * cb + half + cl);
-        const float w[CT] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  const float m1 = s1 / static_cast<float>(E), m2 = s2 / static_cast<float>(E);
+  const float rs = rstd[r];
+  for (int c = lane; c < E; c += 32) {
+    const float d = dn[base + c] * scale[c];
+    out[base + c] = from_f<Tout>(dh[base + c] + rs * (d - m1 - xhat[base + c] * m2));
+  }
+}
+
+// ---- attention: one block per (history, head), S <= 32, D % 4 == 0, D <= kMaxD ----
+// A warp takes kQB queries (the forward, pass 1 of the backward) or kQB keys
+// (pass 2) at once, so that each row it reads from shared memory serves kQB
+// sums; rows are read 16 bytes a lane (lanes over keys) or 8 (lanes over a
+// head's columns). Every sum runs over its index in order. The block has a
+// warp for each kQB queries: 160 threads at S=20.
+
+constexpr int kQB = 4;
+
+// Row stride of a staged (S, D) head: 16-byte rows with ld/4 odd, so the
+// 16-byte reads of 8 lanes on 8 rows hit distinct banks.
+__host__ __device__ inline int attn_ld(int D) { return ((D / 4) | 1) * 4; }
+inline int attn_threads(int S) { return 32 * ((S + kQB - 1) / kQB); }
+
+// Rows t0..t0+S-1, columns c0..c0+D-1 of the row-major (N, ldg) fp32 src
+// into dst (S, ld), 16 bytes a copy.
+__device__ __forceinline__ void stage_heads(const float* __restrict__ src, int ldg, size_t t0,
+                                            int c0, int S, int D, int ld, float* dst) {
+  const int D4 = D / 4;
+  for (int i = threadIdx.x; i < S * D4; i += blockDim.x) {
+    const int s = i / D4, d = (i % D4) * 4;
+    *reinterpret_cast<float4*>(dst + s * ld + d) =
+        *reinterpret_cast<const float4*>(src + (t0 + s) * ldg + c0 + d);
+  }
+}
+
+// acc[qi] += rows[i0 + qi] . row, over d in order (rows past S repeat the
+// last one: computed, never stored).
+__device__ __forceinline__ void dots(float acc[kQB], const float* rows, int i0, int S,
+                                     const float* row, int D, int ld) {
+  for (int d = 0; d < D; d += 4) {
+    const float4 b = *reinterpret_cast<const float4*>(row + d);
 #pragma unroll
-        for (int i = 0; i < RT; ++i)
-#pragma unroll
-          for (int j = 0; j < CT; ++j) acc[i][j] += a[i] * w[j];
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) epi(r0 + i, c0 + cl + (j < 4 ? j : half + j - 4), acc[i][j]);
+    for (int qi = 0; qi < kQB; ++qi) {
+      const float4 a = *reinterpret_cast<const float4*>(rows + min(i0 + qi, S - 1) * ld + d);
+      acc[qi] = fmaf(a.x, b.x, acc[qi]);
+      acc[qi] = fmaf(a.y, b.y, acc[qi]);
+      acc[qi] = fmaf(a.z, b.z, acc[qi]);
+      acc[qi] = fmaf(a.w, b.w, acc[qi]);
     }
   }
 }
 
-// out = cd(xhat * scale + bias), xhat = (h - mean) * rsqrt(var + eps), fp32,
-// one warp a row; also xhat and rsqrt(var + eps) when xh / rstd are given.
+// ao = cd(softmax(q k^T * scale + mask) v), fp32, from qkv (N, 3E); lanes
+// over keys for the logits, over column pairs for the output. P (B, H, S,
+// S) keeps the softmax when given.
 template <typename T>
-__device__ void layer_norm(const float* hs, float* out, int np, int E, int ld,
-                           const float* __restrict__ scale, const float* __restrict__ bias,
-                           float* xh = nullptr, float* rstd = nullptr) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int r = warp; r < np; r += nwarps) {
-    const float* h = hs + r * ld;
-    float s = 0.f;
-    for (int c = lane; c < E; c += 32) s += h[c];
+__global__ void __launch_bounds__(256)
+attention_fwd(const float* __restrict__ qkv, const float* __restrict__ amask, T* __restrict__ ao,
+              float* __restrict__ P, int S, int E, int H, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int b = blockIdx.x / H, hh = blockIdx.x % H, D = E / H, ld = attn_ld(D);
+  float* q = sm;
+  float* k = q + S * ld;
+  float* v = k + S * ld;
+  float* mask = v + S * ld;
+  const size_t t0 = static_cast<size_t>(b) * S;
+  stage_heads(qkv, 3 * E, t0, hh * D, S, D, ld, q);
+  stage_heads(qkv, 3 * E, t0, E + hh * D, S, D, ld, k);
+  stage_heads(qkv, 3 * E, t0, 2 * E + hh * D, S, D, ld, v);
+  for (int s = threadIdx.x; s < S; s += blockDim.x) mask[s] = amask[t0 + s];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, i0 = (threadIdx.x >> 5) * kQB;
+  float p[kQB] = {};
+  if (lane < S) dots(p, q, i0, S, k + lane * ld, D, ld);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mean = s / static_cast<float>(E);
-    float v = 0.f;
-    for (int c = lane; c < E; c += 32) {
-      const float d = h[c] - mean;
-      v += d * d;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    const float rs = rsqrtf(v / static_cast<float>(E) + kEps);
-    for (int c = lane; c < E; c += 32) {
-      const float x = (h[c] - mean) * rs;
-      if (xh) xh[r * ld + c] = x;
-      out[r * ld + c] = rnd<T>(x * scale[c] + bias[c]);
-    }
-    if (rstd && lane == 0) rstd[r] = rs;
-  }
-}
-
-// ao = cd(softmax(q k^T * scale + mask) v) per history and head, fp32; one
-// warp per (history, head, query), one key per lane. When P is given, the
-// softmax row is kept there, (tb, H, S, S).
-template <typename T>
-__device__ void attention(const float* qs, int ldq, float* ao, int lda, const float* mask_s,
-                          int tb, int S, int E, int H, float scale, float* P = nullptr) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int D = E / H;
-  for (int task = warp; task < tb * H * S; task += nwarps) {
-    const int i = task % S, hh = (task / S) % H, b = task / (S * H);
-    const float* base = qs + static_cast<size_t>(b) * S * ldq + hh * D;
-    const float* q = base + i * ldq;
-    float logit = -3.0e38f;  // lanes past S: below any real logit
-    if (lane < S) {
-      const float* k = base + lane * ldq + E;
-      float acc = 0.f;
-      for (int d = 0; d < D; ++d) acc += q[d] * k[d];
-      logit = acc * scale + mask_s[b * S + lane];
-    }
+  for (int qi = 0; qi < kQB; ++qi) {
+    // lanes past S: below any real logit
+    const float logit = lane < S ? p[qi] * scale + mask[lane] : -3.0e38f;
     float m = logit;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
@@ -187,43 +370,350 @@ __device__ void attention(const float* qs, int ldq, float* ao, int lda, const fl
     float sum = e;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float p = e / sum;
-    if (P && lane < S) P[static_cast<size_t>(task) * S + lane] = p;
-    const float* v = base + 2 * E;
-    for (int d0 = 0; d0 < D; d0 += 32) {
-      const int d = d0 + lane;
-      float o = 0.f;
-      for (int j = 0; j < S; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-        if (d < D) o += pj * v[j * ldq + d];
+    p[qi] = e / sum;
+    if (P && lane < S && i0 + qi < S)
+      P[((static_cast<size_t>(b) * H + hh) * S + i0 + qi) * S + lane] = p[qi];
+  }
+  for (int d0 = 0; d0 < D; d0 += 64) {
+    const int d = d0 + 2 * lane;
+    float o[kQB][2] = {};
+    for (int j = 0; j < S; ++j) {
+      const float2 vv = d < D ? *reinterpret_cast<const float2*>(v + j * ld + d) : float2{};
+#pragma unroll
+      for (int qi = 0; qi < kQB; ++qi) {
+        const float pj = __shfl_sync(0xffffffffu, p[qi], j);
+        o[qi][0] = fmaf(pj, vv.x, o[qi][0]);
+        o[qi][1] = fmaf(pj, vv.y, o[qi][1]);
       }
-      if (d < D) ao[(b * S + i) * lda + hh * D + d] = rnd<T>(o);
+    }
+#pragma unroll
+    for (int qi = 0; qi < kQB; ++qi)
+      if (d < D && i0 + qi < S)
+        store2(ao + (t0 + i0 + qi) * E + hh * D + d, o[qi][0], o[qi][1]);
+  }
+}
+
+// The attention backward, fp32: dp = dao v^T, dlog = p (dp - sum(dp p)) scale,
+// dq = dlog k, dk = dlog^T q, dv = p^T dao, into dqkv (N, 3E) fp32 and
+// rounded to T (dqkv_c). Pass 1: a warp's queries, lanes over keys, then
+// over column pairs; pass 2: a warp's keys, lanes over column pairs.
+template <typename T>
+__global__ void __launch_bounds__(256)
+attention_bwd(const float* __restrict__ qkv, const float* __restrict__ P,
+              const float* __restrict__ dao, float* __restrict__ dqkv, T* __restrict__ dqkv_c,
+              int S, int E, int H, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int b = blockIdx.x / H, hh = blockIdx.x % H, D = E / H, ld = attn_ld(D);
+  const int ls = S + 1;  // row stride of p and dlog
+  float* q = sm;
+  float* k = q + S * ld;
+  float* v = k + S * ld;
+  float* g = v + S * ld;
+  float* ps = g + S * ld;
+  float* dl = ps + S * ls;
+  const size_t t0 = static_cast<size_t>(b) * S;
+  const float* pb = P + (static_cast<size_t>(b) * H + hh) * S * S;
+  stage_heads(qkv, 3 * E, t0, hh * D, S, D, ld, q);
+  stage_heads(qkv, 3 * E, t0, E + hh * D, S, D, ld, k);
+  stage_heads(qkv, 3 * E, t0, 2 * E + hh * D, S, D, ld, v);
+  stage_heads(dao, E, t0, hh * D, S, D, ld, g);
+  for (int i = threadIdx.x; i < S * S; i += blockDim.x) ps[(i / S) * ls + i % S] = pb[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, i0 = (threadIdx.x >> 5) * kQB;
+  auto put = [&](size_t i, float a, float c) {
+    store2(dqkv + i, a, c);
+    store2(dqkv_c + i, a, c);
+  };
+  float dlog[kQB] = {};
+  if (lane < S) dots(dlog, g, i0, S, v + lane * ld, D, ld);  // dp
+#pragma unroll
+  for (int qi = 0; qi < kQB; ++qi) {
+    const int i = min(i0 + qi, S - 1);
+    const float p = lane < S ? ps[i * ls + lane] : 0.f;
+    float s = dlog[qi] * p;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    dlog[qi] = lane < S ? p * (dlog[qi] - s) * scale : 0.f;
+    if (lane < S && i0 + qi < S) dl[i * ls + lane] = dlog[qi];
+  }
+  for (int d0 = 0; d0 < D; d0 += 64) {  // dq_i = sum_j dlog_ij k_j
+    const int d = d0 + 2 * lane;
+    float o[kQB][2] = {};
+    for (int j = 0; j < S; ++j) {
+      const float2 kk = d < D ? *reinterpret_cast<const float2*>(k + j * ld + d) : float2{};
+#pragma unroll
+      for (int qi = 0; qi < kQB; ++qi) {
+        const float dj = __shfl_sync(0xffffffffu, dlog[qi], j);
+        o[qi][0] = fmaf(dj, kk.x, o[qi][0]);
+        o[qi][1] = fmaf(dj, kk.y, o[qi][1]);
+      }
+    }
+#pragma unroll
+    for (int qi = 0; qi < kQB; ++qi)
+      if (d < D && i0 + qi < S) put((t0 + i0 + qi) * 3 * E + hh * D + d, o[qi][0], o[qi][1]);
+  }
+  __syncthreads();
+  const int j0 = i0;  // pass 2: this warp's keys
+  for (int d0 = 0; d0 < D; d0 += 64) {  // dk_j = sum_i dlog_ij q_i, dv_j = sum_i p_ij g_i
+    const int d = d0 + 2 * lane;
+    float dk[kQB][2] = {}, dv[kQB][2] = {};
+    for (int i = 0; i < S; ++i) {
+      const float2 qq = d < D ? *reinterpret_cast<const float2*>(q + i * ld + d) : float2{};
+      const float2 gg = d < D ? *reinterpret_cast<const float2*>(g + i * ld + d) : float2{};
+#pragma unroll
+      for (int kj = 0; kj < kQB; ++kj) {
+        const int j = min(j0 + kj, S - 1);
+        const float a = dl[i * ls + j], pij = ps[i * ls + j];
+        dk[kj][0] = fmaf(a, qq.x, dk[kj][0]);
+        dk[kj][1] = fmaf(a, qq.y, dk[kj][1]);
+        dv[kj][0] = fmaf(pij, gg.x, dv[kj][0]);
+        dv[kj][1] = fmaf(pij, gg.y, dv[kj][1]);
+      }
+    }
+#pragma unroll
+    for (int kj = 0; kj < kQB; ++kj)
+      if (d < D && j0 + kj < S) {
+        const size_t o = (t0 + j0 + kj) * 3 * E + hh * D + d;
+        put(o + E, dk[kj][0], dk[kj][1]);
+        put(o + 2 * E, dv[kj][0], dv[kj][1]);
+      }
+  }
+}
+
+inline size_t attn_fwd_smem(int S, int D) { return (3 * S * attn_ld(D) + S) * sizeof(float); }
+inline size_t attn_bwd_smem(int S, int D) {
+  return (4 * S * attn_ld(D) + 2 * S * (S + 1)) * sizeof(float);
+}
+
+// ---- column sums over token chunks, and their reduction ----
+
+enum SumMode { kSum = 0, kLnSums = 1, kGate = 2 };
+
+// Split z's sums over the rows of its chunk [z chunk, min(N, (z + 1) chunk))
+// of the (N, ncols) fp32 G (ncols % 4 == 0), four columns a lane (16-byte
+// loads), 8 warps over interleaved rows combined in warp order (fixed: a
+// repeat is bit-identical):
+//   kSum:    part[z zs + c] = sum G
+//   kLnSums: part = sum G X, part2 = sum G        (LayerNorm's dscale, dbias)
+//   kGate:   v = drop(G) at site (layer, branch); gated = cd(v); part = sum v
+//            (the dropout gate on dh, fused into the first read of dh; one
+//            Philox draw for a lane's four columns)
+template <typename T, int MODE>
+__global__ void __launch_bounds__(256)
+column_sums(const float* __restrict__ G, const float* __restrict__ X, T* __restrict__ gated,
+            Dropout drop, int layer, int branch, int N, int ncols, int chunk,
+            float* __restrict__ part, float* __restrict__ part2, size_t zstride) {
+  __shared__ float red[2][8][128];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = (blockIdx.x * 32 + lane) * 4, z = blockIdx.y;
+  const int r_end = min(N, (z + 1) * chunk);
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+  if (c < ncols) {
+    for (int r = z * chunk + warp; r < r_end; r += 8) {
+      const size_t i = static_cast<size_t>(r) * ncols + c;
+      const float4 g4 = *reinterpret_cast<const float4*>(G + i);
+      float v[4] = {g4.x, g4.y, g4.z, g4.w};
+      if (MODE == kLnSums) {
+        const float4 x4 = *reinterpret_cast<const float4*>(X + i);
+        const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s1[k] += v[k] * x[k];
+          s2[k] += v[k];
+        }
+        continue;
+      }
+      if (MODE == kGate) {
+        drop.apply<4>(v, r, c, layer, branch);
+        store2(gated + i, v[0], v[1]);
+        store2(gated + i + 2, v[2], v[3]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s1[k] += v[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    red[0][warp][lane * 4 + k] = s1[k];
+    red[1][warp][lane * 4 + k] = s2[k];
+  }
+  __syncthreads();
+  if (warp == 0 && c < ncols) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        a += red[0][w][lane * 4 + k];
+        b += red[1][w][lane * 4 + k];
+      }
+      part[z * zstride + c + k] = a;
+      if (MODE == kLnSums) part2[z * zstride + c + k] = b;
     }
   }
 }
 
-// v with the residual dropout of site (layer, branch) at (token, col): kept
-// values times inv_keep = fp32(1 / (1 - rate)), dropped ones 0; v itself at
-// rate 0.
-__device__ __forceinline__ float dropped(float v, float rate, float inv_keep, uint64_t seed,
-                                         size_t token, int col, int layer, int branch) {
-  if (rate <= 0.f) return v;
-  // __fmul_rn: the product is rounded before the residual add, never fused
-  // into it, as the plain version computes it
-  return dropout_keep(seed, static_cast<uint32_t>(token), col, layer, branch, rate)
-             ? __fmul_rn(v, inv_keep)
-             : 0.f;
+// A sum over N tokens split into `count` chunks of `chunk` tokens (a
+// multiple of 64, the tile product's deepest slice), each writing its own
+// partial.
+struct Split {
+  int count, chunk;
+};
+
+// The split that gives a launch of `blocks` blocks a chunk about
+// kSplitBlocks blocks in all, at most one chunk per 64 tokens.
+inline Split split_for(int N, int blocks) {
+  int want = (kSplitBlocks + blocks - 1) / blocks;
+  want = std::max(1, std::min(want, (N + 63) / 64));
+  const int chunk = ((N + want - 1) / want + 63) / 64 * 64;
+  return Split{(N + chunk - 1) / chunk, chunk};
 }
 
-// Dropout's parameters as a kernel receives them: the seed is read from the
-// device (never from the host), and only when dropout is on.
-struct Dropout {
-  const int64_t* seed;
-  float rate;
-  float inv_keep;
+__host__ __device__ inline size_t grad_size(int k, int E) {
+  const size_t ee = static_cast<size_t>(E) * E;
+  switch (k) {
+    case 0: return 3 * ee;                      // qkv_w
+    case 1: return 3 * static_cast<size_t>(E);  // qkv_b
+    case 2: return ee;                          // proj_w
+    case 6: case 8: return 4 * ee;              // ffn1_w, ffn2_w
+    case 7: return 4 * static_cast<size_t>(E);  // ffn1_b
+    default: return E;                          // proj_b, ln1_s/b, ffn2_b, ln2_s/b
+  }
+}
 
-  __device__ uint64_t read_seed() const {
-    return rate > 0.f ? static_cast<uint64_t>(*seed) : 0ull;
+// One layer's 12 weight gradients, in the stacked order: gradient k's
+// partials (split[k].count of them, size[k] floats each, one after
+// another) start at base[k] of the partial buffer, and its sum lands at
+// dst[k] of the output. The four matrices split the token sum so that
+// their products launch about kSplitBlocks blocks; the eight vectors
+// (column sums, 128 columns a block) share one split.
+struct GradLayout {
+  size_t size[12], base[12], dst[12];
+  Split split[12];
+  size_t out_total, part_total;
+};
+
+inline GradLayout grad_layout(int N, int E, int L, int li) {
+  auto tiles = [](int n) { return (n + mma::BM - 1) / mma::BM; };
+  const int rows[12] = {E, 0, E, 0, 0, 0, E, 0, 4 * E, 0, 0, 0};  // the matrices' (M, N)
+  const int cols[12] = {3 * E, 0, E, 0, 0, 0, 4 * E, 0, E, 0, 0, 0};
+  const Split vec = split_for(N, (E + 127) / 128);
+  GradLayout g;
+  size_t o = 0, d = 0, n = 0;
+  for (int k = 0; k < 12; ++k) {
+    g.size[k] = grad_size(k, E);
+    g.split[k] = rows[k] ? split_for(N, tiles(rows[k]) * tiles(cols[k])) : vec;
+    g.base[k] = o;
+    g.dst[k] = d + li * g.size[k];
+    o += g.split[k].count * g.size[k];
+    d += L * g.size[k];
+    n += g.size[k];
+  }
+  g.out_total = n;
+  g.part_total = o;
+  return g;
+}
+
+// out[dst[k] + u] = sum over z = 0..count-1, in that order, of gradient
+// k's partial z at u: one thread an output element of the layer.
+__global__ void __launch_bounds__(256)
+reduce_partials(const float* __restrict__ part, GradLayout lay, float* __restrict__ out) {
+  size_t j = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  if (j >= lay.out_total) return;
+  int k = 0;
+  while (j >= lay.size[k]) j -= lay.size[k++];
+  const float* p = part + lay.base[k] + j;
+  float acc = 0.f;
+  for (int z = 0; z < lay.split[k].count; ++z) acc += p[z * lay.size[k]];
+  out[lay.dst[k] + j] = acc;
+}
+
+// ---- host-side launches of the blocks ----
+
+inline int check_launch() { return static_cast<int>(cudaGetLastError()); }
+
+template <typename Tin, typename Tout>
+int launch_convert(const Tin* x, Tout* y, size_t n, cudaStream_t s) {
+  const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
+  convert<Tin, Tout><<<blocks, 256, 0, s>>>(x, y, n);
+  return check_launch();
+}
+
+template <typename T>
+int launch_ln_fwd(const float* h, int N, int E, const float* scale, const float* bias, T* out,
+                  float* xhat, float* rstd, cudaStream_t s) {
+  layer_norm_fwd<T><<<(N + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, s>>>(
+      h, N, E, scale, bias, out, xhat, rstd);
+  return check_launch();
+}
+
+template <typename Tout>
+int launch_ln_bwd(const float* dn, const float* xhat, const float* rstd, const float* scale,
+                  const float* dh, Tout* out, int N, int E, cudaStream_t s) {
+  layer_norm_bwd<Tout><<<(N + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, s>>>(
+      dn, xhat, rstd, scale, dh, out, N, E);
+  return check_launch();
+}
+
+template <typename T>
+int launch_attn_fwd(const float* qkv, const float* amask, T* ao, float* P, int B, int S, int E,
+                    int H, float scale, cudaStream_t s) {
+  const size_t smem = attn_fwd_smem(S, E / H);
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_fwd<T><<<B * H, attn_threads(S), smem, s>>>(qkv, amask, ao, P, S, E, H, scale);
+  return check_launch();
+}
+
+template <typename T>
+int launch_attn_bwd(const float* qkv, const float* P, const float* dao, float* dqkv, T* dqkv_c,
+                    int B, int S, int E, int H, float scale, cudaStream_t s) {
+  const size_t smem = attn_bwd_smem(S, E / H);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd<T><<<B * H, attn_threads(S), smem, s>>>(qkv, P, dao, dqkv, dqkv_c, S, E, H,
+                                                        scale);
+  return check_launch();
+}
+
+template <typename T, int MODE>
+int launch_column_sums(const float* G, const float* X, T* gated, const Dropout& drop, int layer,
+                       int branch, int N, int ncols, Split sp, float* part, float* part2,
+                       size_t zstride, cudaStream_t s) {
+  column_sums<T, MODE><<<dim3((ncols + 127) / 128, sp.count), 256, 0, s>>>(
+      G, X, gated, drop, layer, branch, N, ncols, sp.chunk, part, part2, zstride);
+  return check_launch();
+}
+
+inline int launch_reduce(const float* part, const GradLayout& lay, float* out, cudaStream_t s) {
+  reduce_partials<<<static_cast<int>((lay.out_total + 255) / 256), 256, 0, s>>>(part, lay, out);
+  return check_launch();
+}
+
+// The envelope both entry points hold (see ops/cuda/sasrec_encoder.py).
+inline bool in_envelope(int B, int S, int E, int H, int L) {
+  return B >= 1 && S >= 1 && S <= kMaxS && E >= 32 && E % 32 == 0 && H >= 1 && E % H == 0 &&
+         (E / H) % 4 == 0 && E / H <= kMaxD && L >= 1;
+}
+
+inline bool dropout_ok(const int64_t* seed, float rate) {
+  return rate >= 0.f && rate < 1.f && (rate == 0.f || seed != nullptr);
+}
+
+// A bump allocator over one workspace: each piece 256-byte aligned. With
+// base == nullptr it only counts, for the workspace's size.
+struct Carve {
+  char* base;
+  size_t used = 0;
+  template <typename U>
+  U* take(size_t n) {
+    const size_t at = used;
+    used = (used + n * sizeof(U) + 255) / 256 * 256;
+    return base ? reinterpret_cast<U*>(base + at) : nullptr;
   }
 };
 

@@ -1,463 +1,345 @@
-// SASRec transformer-encoder backward for Hopper (sm_90a).
+// SASRec transformer-encoder backward for Hopper (sm_90a), token-major.
 //
 // Replaces the TPU kernel ctr_recommendation_tpu/ops/pallas/sasrec_encoder.py
 // ::_bwd_kernel (:238), driven there by _pallas_encode_bwd (:416). Given the
 // cotangent g of the encoded history and the forward's input x, it
-// recomputes the forward from the x tile (the residual dropout masks redrawn
-// from the same counter-based Philox keys: seed, global token, column,
-// layer, branch) and walks the layers in reverse, as the TPU kernel does:
+// recomputes the forward from x through the forward's blocks (the residual
+// dropout masks redrawn from the same counter-based Philox keys: seed,
+// global token, column, layer, branch), keeping each layer's residues, and
+// walks the layers in reverse, as the TPU kernel does:
 //
-//   FFN:  df2 = drop1(dh);  dW2 += cd(f1)^T cd(df2);  db2 += sum df2
-//         dz1 = (cd(df2) cd(W2)^T) * [z1 > 0];  dW1 += cd(hn2)^T cd(dz1);  db1 += sum dz1
+//   FFN:  df2 = drop1(dh);  dW2 = cd(f1)^T cd(df2);  db2 = sum df2
+//         dz1 = (cd(df2) cd(W2)^T) * [z1 > 0];  dW1 = cd(hn2)^T cd(dz1);  db1 = sum dz1
 //         dh += LN2^T(cd(dz1) cd(W1)^T)                   (dln2 scale, bias summed)
-//   attn: da1 = drop0(dh);  dWp += cd(ao)^T cd(da1);  dbp += sum da1
+//   attn: da1 = drop0(dh);  dWp = cd(ao)^T cd(da1);  dbp = sum da1
 //         dao = cd(da1) cd(Wp)^T;  per head (fp32): dp = dao v^T,
 //         dlog = p (dp - sum(dp p)) / sqrt(D);  dq = dlog k;  dk = dlog^T q;  dv = p^T dao
-//         dWqkv += cd(hn1)^T cd(dqkv);  dbqkv += sum dqkv
+//         dWqkv = cd(hn1)^T cd(dqkv);  dbqkv = sum dqkv
 //         dh += LN1^T(cd(dqkv) cd(Wqkv)^T)                (dln1 scale, bias summed)
 //
 // cd() is a cast to the compute dtype T; everything else is fp32, and dx is
-// rounded once, to T. The 12 weight gradients are fp32.
+// rounded once, to T. The 12 weight gradients are fp32; the bias gradients
+// are sums of the fp32 values, not of their cd copies.
 //
 // Bound on an H100: operations. At B=4096, S=20, E=128, one layer, the
-// recomputed forward and the two products per weight are 99.2 GFLOP
-// against ~64 MB of g, x, dx and gradients.
+// recomputed forward and the two products per weight are 99.2 GFLOP against
+// ~64 MB of g, x, dx and the weights and their gradients.
 //
-// Design. A block owns TB whole histories (1 at S=20, E=128; 2 at E=64,
-// H=4): the backward needs, besides the forward's fp32 stream, the gradient
-// stream dh, qkv and dqkv, the saved softmax p and dlog, the LayerNorm
-// residues and the FFN's chunk buffers, 206 KB of shared memory at TB=1.
-// The forward may hold 3 histories a block and the backward 1 only because
-// the dropout mask is keyed by the global token, not by a tile. Each layer's
-// input stream is kept in a per-block global scratch (L2-resident) so that
-// the reverse walk can reload it; the FFN hidden (rows x 4E) is made E
-// columns at a time, as in the forward. Transposed products (dY W^T) stage
-// W by rows; A^T G sums over the tile's rows straight into the block's fp32
-// partial of the weight gradients in device memory. The grid is persistent
-// (at most one block per SM, each walking its tiles in a fixed order) and a
-// second launch sums the partials in block order, so two launches on the
-// same inputs are bit-identical and no atomics are used. At 132 blocks the
-// partials are 104 MB a layer at E=128 (about 31 us of HBM each way at 3.35
-// TB/s). Histories past B are zero rows with a -1e9 mask and a zero g: they
-// add exactly zero. fp32 FMA on the CUDA cores: simple first.
+// Design: one launch per building block over all N = B*S tokens. The
+// transposed products dY W^T read W as stored (ldmatrix without .trans),
+// the weight gradients A^T G read both operands token-major (ldmatrix
+// .trans) and split the token sum into Z chunks, each writing an fp32
+// partial; the column sums (bias gradients, LayerNorm's dscale and dbias)
+// write partials over the same chunks, and one reduction a layer sums them
+// in chunk order: no atomics, so a repeat launch is bit-identical. Each
+// weight gradient takes its own number of chunks, so that its product
+// launches about 264 blocks (two an SM) whatever its size: ~17 MB of
+// partials a matrix at E=128 and at E=256. The dropout
+// gate on dh is fused into the column sum that first reads it, which also
+// writes the gated cd operand. The residues of every layer (hn1, xhat1,
+// rstd1, qkv, p, ao, xhat2, rstd2, hn2, f1) live in a workspace the wrapper
+// allocates: ~370 MB a layer at B=4096, E=128, bf16. The recompute skips
+// the last layer's ffn2 product, which no gradient reads.
+// Launches: 25 L + 1 (the upcast of x, 7 L - 1 recomputing, the upcast of
+// g, 18 a layer in reverse including the reduction).
 
 #include "sasrec_encoder.cuh"
 
 namespace ctr {
 namespace enc {
 
-// Elements of one layer's slice of weight gradient k (the order of the 12
-// stacked operands).
-__host__ __device__ inline size_t grad_size(int k, int E) {
-  const size_t ee = static_cast<size_t>(E) * E;
-  switch (k) {
-    case 0: return 3 * ee;                  // qkv_w
-    case 1: return 3 * static_cast<size_t>(E);  // qkv_b
-    case 2: return ee;                      // proj_w
-    case 6: case 8: return 4 * ee;          // ffn1_w, ffn2_w
-    case 7: return 4 * static_cast<size_t>(E);  // ffn1_b
-    default: return E;                      // proj_b, ln1_s/b, ffn2_b, ln2_s/b
-  }
-}
-
-__host__ __device__ inline size_t grad_total(int E, int L) {
-  size_t n = 0;
-  for (int k = 0; k < 12; ++k) n += L * grad_size(k, E);
-  return n;
-}
-
-// Layer li's slice of gradient k in a buffer laid out as the 12 stacked
-// (L, ...) gradients one after another.
-__device__ inline float* grad_ptr(float* base, int k, int li, int E, int L) {
-  size_t o = 0;
-  for (int j = 0; j < k; ++j) o += L * grad_size(j, E);
-  return base + o + li * grad_size(k, E);
-}
-
-// Shared memory of a block of tb histories, in floats: the weight stage;
-// dh, h, the product operand, ao, xhat (later dao), df and dn (np x (E+1)
-// each); qkv and dqkv (np x (3E+1)); p and dlog (tb x H x S x S); the mask
-// and rstd.
-__host__ __device__ inline size_t bwd_smem_floats(int tb, int S, int E, int H) {
-  const size_t np = pad_rows(tb * S);
-  return static_cast<size_t>(E) * CB + np * (7 * (E + 1) + 2 * (3 * E + 1) + 2) +
-         2 * static_cast<size_t>(tb) * H * S * S;
-}
-
-// dst[k * ldd + c] (+)= sum over rows r < n of cd(A[r, k]) cd(G[r, c]), for
-// k < K and c < N (N % 4 == 0); stores on the block's first tile.
 template <typename T>
-__device__ void wgrad(const float* A, int lda, const float* G, int ldg, int n, int K, int N,
-                      float* __restrict__ dst, int ldd, bool first) {
-  const int n4 = N / 4;
-  for (int t = threadIdx.x; t < K * n4; t += blockDim.x) {
-    const int k = t / n4, c = (t % n4) * 4;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < n; ++r) {
-      const float a = rnd<T>(A[r * lda + k]);
-      const float* gr = G + r * ldg + c;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] += a * rnd<T>(gr[j]);
-    }
-    float* d = dst + static_cast<size_t>(k) * ldd + c;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) d[j] = first ? acc[j] : d[j] + acc[j];
-  }
-}
-
-// dst[c] (+)= sum over rows r < n of G[r, c] (times X[r, c] when X is given).
-__device__ void colsum(const float* G, int ldg, const float* X, int n, int N,
-                       float* __restrict__ dst, bool first) {
-  for (int c = threadIdx.x; c < N; c += blockDim.x) {
-    float acc = 0.f;
-    for (int r = 0; r < n; ++r) acc += X ? G[r * ldg + c] * X[r * ldg + c] : G[r * ldg + c];
-    dst[c] = first ? acc : dst[c] + acc;
-  }
-}
-
-// dh += rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)), dxhat = dn * scale:
-// the LayerNorm backward, one warp a row.
-__device__ void ln_bwd(const float* dn, const float* xh, const float* rstd, int np, int E, int ld,
-                       const float* __restrict__ scale, float* dh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int r = warp; r < np; r += nwarps) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < E; c += 32) {
-      const float d = dn[r * ld + c] * scale[c];
-      s1 += d;
-      s2 += d * xh[r * ld + c];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    const float m1 = s1 / static_cast<float>(E), m2 = s2 / static_cast<float>(E);
-    for (int c = lane; c < E; c += 32) {
-      const float d = dn[r * ld + c] * scale[c];
-      dh[r * ld + c] = dh[r * ld + c] + rstd[r] * (d - m1 - xh[r * ld + c] * m2);
-    }
-  }
-}
-
-// Attention backward, pass 1: one warp per (history, head, query i), one key
-// per lane: dp = dao_i . v_j, dlog = p (dp - sum_j dp p) scale (kept in DL),
-// dq_i = sum_j dlog_j k_j into dqkv's q columns.
-__device__ void attn_bwd_q(const float* qs, int ldq, const float* dao, int lda, const float* P,
-                           float* DL, float* dqkv, int tb, int S, int E, int H, float scale) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int D = E / H;
-  for (int task = warp; task < tb * H * S; task += nwarps) {
-    const int i = task % S, hh = (task / S) % H, b = task / (S * H);
-    const float* base = qs + static_cast<size_t>(b) * S * ldq + hh * D;
-    const float* g = dao + (b * S + i) * lda + hh * D;
-    const float p = lane < S ? P[static_cast<size_t>(task) * S + lane] : 0.f;
-    float dp = 0.f;
-    if (lane < S) {
-      const float* v = base + lane * ldq + 2 * E;
-      for (int d = 0; d < D; ++d) dp += g[d] * v[d];
-    }
-    float s = dp * p;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float dl = lane < S ? p * (dp - s) * scale : 0.f;
-    if (lane < S) DL[static_cast<size_t>(task) * S + lane] = dl;
-    for (int d0 = 0; d0 < D; d0 += 32) {
-      const int d = d0 + lane;
-      float acc = 0.f;
-      for (int j = 0; j < S; ++j) {
-        const float dj = __shfl_sync(0xffffffffu, dl, j);
-        if (d < D) acc += dj * base[j * ldq + E + d];
-      }
-      if (d < D) dqkv[(b * S + i) * ldq + hh * D + d] = acc;
-    }
-  }
-}
-
-// Attention backward, pass 2: one warp per (history, head, key j), one
-// column per lane: dk_j = sum_i dlog_ij q_i and dv_j = sum_i p_ij dao_i into
-// dqkv's k and v columns.
-__device__ void attn_bwd_kv(const float* qs, int ldq, const float* dao, int lda, const float* P,
-                            const float* DL, float* dqkv, int tb, int S, int E, int H) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int D = E / H;
-  for (int task = warp; task < tb * H * S; task += nwarps) {
-    const int j = task % S, hh = (task / S) % H, b = task / (S * H);
-    const size_t pbase = static_cast<size_t>(b * H + hh) * S * S;  // (b, hh, 0, 0)
-    const float* q = qs + static_cast<size_t>(b) * S * ldq + hh * D;
-    const float* g = dao + b * S * lda + hh * D;
-    for (int d0 = 0; d0 < D; d0 += 32) {
-      const int d = d0 + lane;
-      if (d >= D) continue;
-      float dk = 0.f, dv = 0.f;
-      for (int i = 0; i < S; ++i) {
-        dk += DL[pbase + i * S + j] * q[i * ldq + d];
-        dv += P[pbase + i * S + j] * g[i * lda + d];
-      }
-      float* out = dqkv + (b * S + j) * ldq + hh * D + d;
-      out[E] = dk;
-      out[2 * E] = dv;
-    }
-  }
-}
+struct Residues {  // one layer's, kept by the recompute
+  T* hn1;
+  float* xhat1;
+  float* rstd1;
+  float* qkv;
+  float* p;
+  T* ao;
+  float* xhat2;
+  float* rstd2;
+  T* hn2;
+  T* f1;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-encode_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                  const float* __restrict__ amask, Weights w, Dropout drop, T* __restrict__ dx,
-                  float* __restrict__ part, float* __restrict__ scratch, int B, int S, int E,
-                  int H, int L, int tb, float scale, int part_stride) {
-  extern __shared__ __align__(16) float smem_f[];
-  const int n = tb * S, np = pad_rows(n);
-  const int ld1 = E + 1, ld3 = 3 * E + 1;
-  const size_t b1 = static_cast<size_t>(np) * ld1, b3 = static_cast<size_t>(np) * ld3;
-  float* ws = smem_f;                                  // weight stage (K x CB)
-  float* DH = ws + static_cast<size_t>(E) * CB;        // gradient stream dh
-  float* Hs = DH + b1;                                 // stream h; FFN: f1, then dz1
-  float* As = Hs + b1;                                 // product operand: hn1, hn2
-  float* AO = As + b1;                                 // cd(ao)
-  float* XH = AO + b1;                                 // xhat2, dao, xhat1
-  float* DF = XH + b1;                                 // df2, da1; forward: f1 chunk
-  float* DN = DF + b1;                                 // dhn2, dhn1; forward: f2 sums
-  float* Q = DN + b1;                                  // qkv
-  float* DQ = Q + b3;                                  // dqkv
-  float* P = DQ + b3;                                  // softmax (tb, H, S, S)
-  float* DL = P + static_cast<size_t>(tb) * H * S * S; // dlog (tb, H, S, S)
-  float* mask_s = DL + static_cast<size_t>(tb) * H * S * S;
-  float* rstd = mask_s + np;
+struct BwdWork {
+  std::vector<Residues<T>> res;
+  float* h;      // the stream, then (reverse walk) unused
+  float* dh;     // the gradient stream
+  T* gated;      // df2 or da1 in cd
+  float* dz;     // dz1 fp32 (N, 4E); dqkv fp32 (N, 3E)
+  T* dz_c;       // their cd copies
+  float* dn;     // dn2, dao, dn1 (N, E)
+  float* part;   // one layer's weight-gradient partials (GradLayout)
 
-  // every buffer starts at 0: rows past n are never written and stay finite
-  const size_t total = bwd_smem_floats(tb, S, E, H);
-  for (size_t i = threadIdx.x; i < total; i += blockDim.x) smem_f[i] = 0.f;
-
-  const size_t rows = static_cast<size_t>(B) * S;
-  const int n_tiles = (B + tb - 1) / tb;
-  const uint64_t seed = drop.read_seed();
-  float* my_part = part + static_cast<size_t>(blockIdx.x) * part_stride;
-  float* my_h = scratch + static_cast<size_t>(blockIdx.x) * L * np * E;
-  const int E4 = 4 * E;
-
-  // LN1, qkv, attention (p kept), h += drop0(ao Wproj + b), then LN2 into
-  // As (hn2), XH (xhat2) and rstd.
-  auto attention_half = [&](const Layer<T>& lw, int li, size_t g0) {
-    __syncthreads();
-    layer_norm<T>(Hs, As, np, E, ld1, lw.ln1_s, lw.ln1_b);
-    gemm<T>(As, ld1, np, E, lw.qkv_w, 3 * E, 3 * E, ws,
-            [&](int r, int c, float acc) { Q[r * ld3 + c] = acc + lw.qkv_b[c]; });
-    __syncthreads();
-    attention<T>(Q, ld3, AO, ld1, mask_s, tb, S, E, H, scale, P);
-    gemm<T>(AO, ld1, np, E, lw.proj_w, E, E, ws, [&](int r, int c, float acc) {
-      Hs[r * ld1 + c] = Hs[r * ld1 + c] + dropped(acc + lw.proj_b[c], drop.rate, drop.inv_keep,
-                                                  seed, g0 + r, c, li, 0);
-    });
-    __syncthreads();
-    layer_norm<T>(Hs, As, np, E, ld1, lw.ln2_s, lw.ln2_b, XH, rstd);
-  };
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const bool first = tile == static_cast<int>(blockIdx.x);
-    const size_t g0 = static_cast<size_t>(tile) * n;  // first global row (token)
-    __syncthreads();  // the previous tile is done with shared memory
-    for (int i = threadIdx.x; i < n * E; i += blockDim.x) {
-      const int r = i / E, c = i % E;
-      const bool real = g0 + r < rows;
-      Hs[r * ld1 + c] = real ? to_f(x[(g0 + r) * E + c]) : 0.f;
-      DH[r * ld1 + c] = real ? to_f(g[(g0 + r) * E + c]) : 0.f;
-    }
-    for (int r = threadIdx.x; r < n; r += blockDim.x)
-      mask_s[r] = g0 + r < rows ? amask[g0 + r] : kNegInf;
-
-    // ---- forward walk: keep each layer's input stream ----
+  BwdWork(Carve& cv, int B, int S, int E, int H, int L) {
+    const size_t N = static_cast<size_t>(B) * S, NE = N * E;
+    res.resize(L);
     for (int li = 0; li < L; ++li) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < np * E; i += blockDim.x)
-        my_h[static_cast<size_t>(li) * np * E + i] = Hs[(i / E) * ld1 + i % E];
-      if (li == L - 1) break;
-      const Layer<T> lw(w, li, E);
-      attention_half(lw, li, g0);
-      for (int ch = 0; ch < 4; ++ch) {
-        gemm<T>(As, ld1, np, E, lw.ffn1_w + ch * E, E4, E, ws, [&](int r, int c, float acc) {
-          DF[r * ld1 + c] = rnd<T>(fmaxf(acc + lw.ffn1_b[ch * E + c], 0.f));
-        });
-        gemm<T>(DF, ld1, np, E, lw.ffn2_w + static_cast<size_t>(ch) * E * E, E, E, ws,
-                [&](int r, int c, float acc) {
-                  DN[r * ld1 + c] = ch == 0 ? acc : DN[r * ld1 + c] + acc;
-                });
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < np * E; i += blockDim.x) {
-        const int r = i / E, c = i % E;
-        Hs[r * ld1 + c] = Hs[r * ld1 + c] + dropped(DN[r * ld1 + c] + lw.ffn2_b[c], drop.rate,
-                                                    drop.inv_keep, seed, g0 + r, c, li, 1);
-      }
+      Residues<T>& r = res[li];
+      r.hn1 = cv.take<T>(NE);
+      r.xhat1 = cv.take<float>(NE);
+      r.rstd1 = cv.take<float>(N);
+      r.qkv = cv.take<float>(3 * NE);
+      r.p = cv.take<float>(static_cast<size_t>(B) * H * S * S);
+      r.ao = cv.take<T>(NE);
+      r.xhat2 = cv.take<float>(NE);
+      r.rstd2 = cv.take<float>(N);
+      r.hn2 = cv.take<T>(NE);
+      r.f1 = cv.take<T>(4 * NE);
     }
-
-    // ---- reverse walk ----
-    for (int li = L - 1; li >= 0; --li) {
-      const Layer<T> lw(w, li, E);
-      auto reload = [&]() {
-        __syncthreads();
-        for (int i = threadIdx.x; i < np * E; i += blockDim.x)
-          Hs[(i / E) * ld1 + i % E] = my_h[static_cast<size_t>(li) * np * E + i];
-      };
-      if (li != L - 1) reload();
-      attention_half(lw, li, g0);
-
-      // FFN branch: f1 recomputed E columns at a time
-      __syncthreads();
-      for (int i = threadIdx.x; i < np * E; i += blockDim.x) {
-        const int r = i / E, c = i % E;
-        DF[r * ld1 + c] = dropped(DH[r * ld1 + c], drop.rate, drop.inv_keep, seed, g0 + r, c,
-                                  li, 1);
-      }
-      for (int ch = 0; ch < 4; ++ch) {
-        gemm<T>(As, ld1, np, E, lw.ffn1_w + ch * E, E4, E, ws, [&](int r, int c, float acc) {
-          Hs[r * ld1 + c] = fmaxf(acc + lw.ffn1_b[ch * E + c], 0.f);
-        });
-        __syncthreads();
-        wgrad<T>(Hs, ld1, DF, ld1, n, E, E,
-                 grad_ptr(my_part, 8, li, E, L) + static_cast<size_t>(ch) * E * E, E, first);
-        gemm<T, true, true>(DF, ld1, np, E, lw.ffn2_w + static_cast<size_t>(ch) * E * E, E, E,
-                            ws, [&](int r, int c, float acc) {
-                              Hs[r * ld1 + c] = Hs[r * ld1 + c] > 0.f ? acc : 0.f;
-                            });
-        __syncthreads();
-        wgrad<T>(As, ld1, Hs, ld1, n, E, E, grad_ptr(my_part, 6, li, E, L) + ch * E, E4, first);
-        colsum(Hs, ld1, nullptr, n, E, grad_ptr(my_part, 7, li, E, L) + ch * E, first);
-        gemm<T, true, true>(Hs, ld1, np, E, lw.ffn1_w + ch * E, E4, E, ws,
-                            [&](int r, int c, float acc) {
-                              DN[r * ld1 + c] = ch == 0 ? acc : DN[r * ld1 + c] + acc;
-                            });
-      }
-      __syncthreads();
-      colsum(DF, ld1, nullptr, n, E, grad_ptr(my_part, 9, li, E, L), first);
-      colsum(DN, ld1, XH, n, E, grad_ptr(my_part, 10, li, E, L), first);
-      colsum(DN, ld1, nullptr, n, E, grad_ptr(my_part, 11, li, E, L), first);
-      ln_bwd(DN, XH, rstd, np, E, ld1, lw.ln2_s, DH);
-
-      // attention branch
-      __syncthreads();
-      for (int i = threadIdx.x; i < np * E; i += blockDim.x) {
-        const int r = i / E, c = i % E;
-        DF[r * ld1 + c] = dropped(DH[r * ld1 + c], drop.rate, drop.inv_keep, seed, g0 + r, c,
-                                  li, 0);
-      }
-      __syncthreads();
-      wgrad<T>(AO, ld1, DF, ld1, n, E, E, grad_ptr(my_part, 2, li, E, L), E, first);
-      colsum(DF, ld1, nullptr, n, E, grad_ptr(my_part, 3, li, E, L), first);
-      gemm<T, true, true>(DF, ld1, np, E, lw.proj_w, E, E, ws,
-                          [&](int r, int c, float acc) { XH[r * ld1 + c] = acc; });
-      __syncthreads();
-      attn_bwd_q(Q, ld3, XH, ld1, P, DL, DQ, tb, S, E, H, scale);
-      __syncthreads();
-      attn_bwd_kv(Q, ld3, XH, ld1, P, DL, DQ, tb, S, E, H);
-      reload();
-      __syncthreads();
-      layer_norm<T>(Hs, As, np, E, ld1, lw.ln1_s, lw.ln1_b, XH, rstd);
-      __syncthreads();
-      wgrad<T>(As, ld1, DQ, ld3, n, E, 3 * E, grad_ptr(my_part, 0, li, E, L), 3 * E, first);
-      colsum(DQ, ld3, nullptr, n, 3 * E, grad_ptr(my_part, 1, li, E, L), first);
-      for (int kc = 0; kc < 3; ++kc) {
-        gemm<T, true, true>(DQ + kc * E, ld3, np, E, lw.qkv_w + kc * E, 3 * E, E, ws,
-                            [&](int r, int c, float acc) {
-                              DN[r * ld1 + c] = kc == 0 ? acc : DN[r * ld1 + c] + acc;
-                            });
-      }
-      __syncthreads();
-      colsum(DN, ld1, XH, n, E, grad_ptr(my_part, 4, li, E, L), first);
-      colsum(DN, ld1, nullptr, n, E, grad_ptr(my_part, 5, li, E, L), first);
-      ln_bwd(DN, XH, rstd, np, E, ld1, lw.ln1_s, DH);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * E; i += blockDim.x) {
-      const int r = i / E, c = i % E;
-      if (g0 + r < rows) dx[(g0 + r) * E + c] = from_f<T>(DH[r * ld1 + c]);
-    }
+    h = cv.take<float>(NE);
+    dh = cv.take<float>(NE);
+    gated = cv.take<T>(NE);
+    dz = cv.take<float>(4 * NE);
+    dz_c = cv.take<T>(4 * NE);
+    dn = cv.take<float>(NE);
+    part = cv.take<float>(grad_layout(static_cast<int>(N), E, L, 0).part_total);
   }
-}
+};
 
-// out[j] = sum over blocks c = 0..G-1, in that order, of part[c][j]
-__global__ void __launch_bounds__(kThreads)
-reduce_partials(const float* __restrict__ part, float* __restrict__ out, int G, int stride,
-                int n) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  float acc = 0.f;
-  for (int c = 0; c < G; ++c) acc += part[static_cast<size_t>(c) * stride + j];
-  out[j] = acc;
-}
-
-// The largest count of histories a block can hold, at most kMaxTB; 0 if
-// not even one fits.
-inline int bwd_tile_histories(int S, int E, int H) {
-  for (int tb = kMaxTB; tb >= 1; --tb)
-    if (bwd_smem_floats(tb, S, E, H) * sizeof(float) <= kMaxSmem) return tb;
-  return 0;
-}
+#define TRY(call)             \
+  do {                        \
+    const int rc_ = (call);   \
+    if (rc_ != 0) return rc_; \
+  } while (0)
 
 template <typename T>
-static int launch(const void* g, const void* x, const float* amask, const Weights& w,
-                  const Dropout& drop, void* dx, float* part, float* out, float* scratch, int B,
-                  int S, int E, int H, int L, float scale, int grid, int part_stride,
-                  cudaStream_t stream) {
-  const int tb = bwd_tile_histories(S, E, H);
-  const size_t n = grad_total(E, L);
-  if (tb == 0 || grid < 1 || grid > (B + tb - 1) / tb || part_stride < static_cast<long>(n) ||
-      part_stride % 4)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = bwd_smem_floats(tb, S, E, H) * sizeof(float);
-  auto kern = encode_bwd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), amask, w, drop, static_cast<T*>(dx),
-      part, scratch, B, S, E, H, L, tb, scale, part_stride);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_partials<<<static_cast<int>((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      part, out, grid, part_stride, static_cast<int>(n));
-  return static_cast<int>(cudaGetLastError());
+int encode_bwd(const T* g, const T* x, const float* amask, const Weights& w, const Dropout& drop,
+               T* dx, float* out, int B, int S, int E, int H, int L, float scale, char* workspace,
+               cudaStream_t s) {
+  const int N = B * S;
+  const size_t NE = static_cast<size_t>(N) * E;
+  Carve cv{workspace};
+  const BwdWork<T> wk(cv, B, S, E, H, L);
+
+  // ---- the forward, recomputed, keeping each layer's residues ----
+  TRY(launch_convert(x, wk.h, NE, s));
+  for (int li = 0; li < L; ++li) {
+    const Layer<T> lw(w, li, E);
+    const Residues<T>& r = wk.res[li];
+    TRY(launch_ln_fwd<T>(wk.h, N, E, lw.ln1_s, lw.ln1_b, r.hn1, r.xhat1, r.rstd1, s));
+    TRY((mma::launch_product<T, false, true>(r.hn1, lw.qkv_w, N, 3 * E, E, 1, E,
+                                             EpiBias{r.qkv, 3 * E, lw.qkv_b}, s)));
+    TRY(launch_attn_fwd<T>(r.qkv, amask, r.ao, r.p, B, S, E, H, scale, s));
+    TRY((mma::launch_product<T, false, true>(
+        r.ao, lw.proj_w, N, E, E, 1, E,
+        EpiResidual<T>{wk.h, nullptr, E, lw.proj_b, drop, li, 0}, s)));
+    TRY(launch_ln_fwd<T>(wk.h, N, E, lw.ln2_s, lw.ln2_b, r.hn2, r.xhat2, r.rstd2, s));
+    TRY((mma::launch_product<T, false, true>(r.hn2, lw.ffn1_w, N, 4 * E, E, 1, E,
+                                             EpiRelu<T>{r.f1, 4 * E, lw.ffn1_b}, s)));
+    if (li < L - 1)
+      TRY((mma::launch_product<T, false, true>(
+          r.f1, lw.ffn2_w, N, E, 4 * E, 1, 4 * E,
+          EpiResidual<T>{wk.h, nullptr, E, lw.ffn2_b, drop, li, 1}, s)));
+  }
+
+  // ---- the reverse walk ----
+  TRY(launch_convert(g, wk.dh, NE, s));
+  for (int li = L - 1; li >= 0; --li) {
+    const Layer<T> lw(w, li, E);
+    const Residues<T>& r = wk.res[li];
+    const GradLayout lay = grad_layout(N, E, L, li);
+    float* part = wk.part;
+    auto pk = [&](int k) { return part + lay.base[k]; };  // gradient k's partials
+    auto mat = [&](int k, int ld) { return EpiPartial{pk(k), ld, lay.size[k]}; };
+    const Split vec = lay.split[1];  // the column sums' split
+    const size_t vs = E;             // and their stride, for the E-wide ones
+    // FFN branch
+    TRY((launch_column_sums<T, kGate>(wk.dh, nullptr, wk.gated, drop, li, 1, N, E, vec, pk(9),
+                                      nullptr, vs, s)));
+    TRY((mma::launch_product<T, true, true>(r.f1, wk.gated, 4 * E, E, N, lay.split[8].count,
+                                            lay.split[8].chunk, mat(8, E), s)));
+    TRY((mma::launch_product<T, false, false>(wk.gated, lw.ffn2_w, N, 4 * E, E, 1, E,
+                                              EpiGate<T>{r.f1, wk.dz, wk.dz_c, 4 * E}, s)));
+    TRY((launch_column_sums<T, kSum>(wk.dz, nullptr, nullptr, drop, li, 1, N, 4 * E, vec, pk(7),
+                                     nullptr, 4 * vs, s)));
+    TRY((mma::launch_product<T, true, true>(r.hn2, wk.dz_c, E, 4 * E, N, lay.split[6].count,
+                                            lay.split[6].chunk, mat(6, 4 * E), s)));
+    TRY((mma::launch_product<T, false, false>(wk.dz_c, lw.ffn1_w, N, E, 4 * E, 1, 4 * E,
+                                              EpiStore{wk.dn, E}, s)));
+    TRY((launch_column_sums<T, kLnSums>(wk.dn, r.xhat2, nullptr, drop, li, 1, N, E, vec, pk(10),
+                                        pk(11), vs, s)));
+    TRY(launch_ln_bwd<float>(wk.dn, r.xhat2, r.rstd2, lw.ln2_s, wk.dh, wk.dh, N, E, s));
+    // attention branch
+    TRY((launch_column_sums<T, kGate>(wk.dh, nullptr, wk.gated, drop, li, 0, N, E, vec, pk(3),
+                                      nullptr, vs, s)));
+    TRY((mma::launch_product<T, true, true>(r.ao, wk.gated, E, E, N, lay.split[2].count,
+                                            lay.split[2].chunk, mat(2, E), s)));
+    TRY((mma::launch_product<T, false, false>(wk.gated, lw.proj_w, N, E, E, 1, E,
+                                              EpiStore{wk.dn, E}, s)));
+    TRY(launch_attn_bwd<T>(r.qkv, r.p, wk.dn, wk.dz, wk.dz_c, B, S, E, H, scale, s));
+    TRY((launch_column_sums<T, kSum>(wk.dz, nullptr, nullptr, drop, li, 0, N, 3 * E, vec, pk(1),
+                                     nullptr, 3 * vs, s)));
+    TRY((mma::launch_product<T, true, true>(r.hn1, wk.dz_c, E, 3 * E, N, lay.split[0].count,
+                                            lay.split[0].chunk, mat(0, 3 * E), s)));
+    TRY((mma::launch_product<T, false, false>(wk.dz_c, lw.qkv_w, N, E, 3 * E, 1, 3 * E,
+                                              EpiStore{wk.dn, E}, s)));
+    TRY((launch_column_sums<T, kLnSums>(wk.dn, r.xhat1, nullptr, drop, li, 0, N, E, vec, pk(4),
+                                        pk(5), vs, s)));
+    if (li > 0)
+      TRY(launch_ln_bwd<float>(wk.dn, r.xhat1, r.rstd1, lw.ln1_s, wk.dh, wk.dh, N, E, s));
+    else
+      TRY(launch_ln_bwd<T>(wk.dn, r.xhat1, r.rstd1, lw.ln1_s, wk.dh, dx, N, E, s));
+    TRY(launch_reduce(part, lay, out, s));
+  }
+  return 0;
 }
 
 }  // namespace enc
 }  // namespace ctr
 
-// Histories a block of the backward holds at (S, E, H); 0 outside the
-// kernel's envelope.
-extern "C" int sasrec_encode_bwd_tile(int S, int E, int H) {
-  if (S < 1 || S > ctr::enc::kMaxS || E % 32 != 0 || E < 32 || E > 128 || H < 1 || E % H != 0)
-    return 0;
-  return ctr::enc::bwd_tile_histories(S, E, H);
+using ctr::enc::Dropout;
+
+// Bytes of workspace sasrec_encode_bwd needs at (B, S, E, H, L); 0 outside
+// the envelope.
+extern "C" size_t sasrec_encode_bwd_workspace(int B, int S, int E, int H, int L, int is_bf16) {
+  if (!ctr::enc::in_envelope(B, S, E, H, L)) return 0;
+  ctr::enc::Carve cv{nullptr};
+  if (is_bf16)
+    (void)ctr::enc::BwdWork<__nv_bfloat16>(cv, B, S, E, H, L);
+  else
+    (void)ctr::enc::BwdWork<float>(cv, B, S, E, H, L);
+  return cv.used;
 }
 
 // g, x and dx (B*S, E) in the compute dtype (bf16 when is_bf16, else fp32);
 // amask (B, S) fp32; the 12 stacked weights as for sasrec_encode_fwd; seed,
-// rate and inv_keep the forward's. Writes dx and, through `grid` per-block
-// partials of part_stride floats each, out = the 12 fp32 weight gradients
-// (L, ...) one after another in the weights' order. scratch holds grid * L *
-// pad_rows(tb * S) * E floats (tb = sasrec_encode_bwd_tile). Two launches
-// (the kernel, then the reduction). Requires the forward's envelope and
-// 16-byte aligned pointers. Returns a cudaError_t.
+// rate and inv_keep the forward's. Writes dx and out, the 12 fp32 weight
+// gradients (L, ...) one after another in the weights' order. workspace
+// holds sasrec_encode_bwd_workspace bytes. Requires the forward's envelope
+// and 16-byte aligned pointers. Enqueues 25 L + 1 launches on
+// `stream`; returns the first cudaError_t that is not 0.
 extern "C" int sasrec_encode_bwd(const void* g, const void* x, const float* amask,
                                  const void* qkv_w, const float* qkv_b, const void* proj_w,
                                  const float* proj_b, const float* ln1_s, const float* ln1_b,
                                  const void* ffn1_w, const float* ffn1_b, const void* ffn2_w,
                                  const float* ffn2_b, const float* ln2_s, const float* ln2_b,
-                                 const int64_t* seed, void* dx, float* part, float* out,
-                                 float* scratch, int B, int S, int E, int H, int L, float scale,
-                                 float rate, float inv_keep, int is_bf16, int grid,
-                                 int part_stride, void* stream) {
-  if (sasrec_encode_bwd_tile(S, E, H) == 0 || L < 1 || B < 1 || !(rate >= 0.f && rate < 1.f) ||
-      (rate > 0.f && seed == nullptr))
+                                 const int64_t* seed, void* dx, float* out, void* workspace,
+                                 int B, int S, int E, int H, int L, float scale, float rate,
+                                 float inv_keep, int is_bf16, void* stream) {
+  if (!ctr::enc::in_envelope(B, S, E, H, L) ||
+      !ctr::enc::dropout_ok(seed, rate))
     return static_cast<int>(cudaErrorInvalidValue);
   const ctr::enc::Weights w{qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
                             ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b};
-  const ctr::enc::Dropout drop{seed, rate, inv_keep};
+  const Dropout drop{seed, rate, inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  char* ws = static_cast<char*>(workspace);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return ctr::enc::encode_bwd<T>(static_cast<const T*>(g), static_cast<const T*>(x), amask, w,
+                                   drop, static_cast<T*>(dx), out, B, S, E, H, L, scale, ws, s);
+  }
+  return ctr::enc::encode_bwd<float>(static_cast<const float*>(g), static_cast<const float*>(x),
+                                     amask, w, drop, static_cast<float*>(dx), out, B, S, E, H, L,
+                                     scale, ws, s);
+}
+
+// ---- the backward's blocks one by one, for the checks on the card ----
+
+// Products of the backward, operands in the compute dtype. layout 1: C = A
+// B^T, A (M, K), B (N, K), epilogue 0 out_f = C or 5 the ReLU gate (out_f =
+// C where aux > 0, else 0; out_c its cd copy; aux (M, N) in cd); layout 2:
+// C = A^T B over token chunks, A (K, M), B (K, N), epilogue 6: out_f (splits,
+// M, N) the partial of each chunk of `chunk` tokens. One launch.
+extern "C" int sasrec_product_bwd(int layout, int epi, const void* A, const void* B, int M,
+                                  int N, int K, int splits, int chunk, const void* aux,
+                                  float* out_f, void* out_c, int is_bf16, void* stream) {
+  if (M < 1 || N < 32 || N % 32 || K < 1 || splits < 1 || chunk % 64 ||
+      static_cast<long>(splits) * chunk < K || (layout == 1 && K % 32) ||
+      (layout == 2 && M % 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto* a, auto* b, auto* ax, auto* oc) -> int {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(a)>>;
+    using namespace ctr;
+    if (layout == 1 && epi == 0)
+      return mma::launch_product<T, false, false>(a, b, M, N, K, 1, K, enc::EpiStore{out_f, N},
+                                                  s);
+    if (layout == 1 && epi == 5)
+      return mma::launch_product<T, false, false>(a, b, M, N, K, 1, K,
+                                                  enc::EpiGate<T>{ax, out_f, oc, N}, s);
+    if (layout == 2 && epi == 6)
+      return mma::launch_product<T, true, true>(
+          a, b, M, N, K, splits, chunk,
+          enc::EpiPartial{out_f, N, static_cast<size_t>(M) * N}, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return run(static_cast<const T*>(A), static_cast<const T*>(B), static_cast<const T*>(aux),
+               static_cast<T*>(out_c));
+  }
+  return run(static_cast<const float*>(A), static_cast<const float*>(B),
+             static_cast<const float*>(aux), static_cast<float*>(out_c));
+}
+
+// out = dh + the LayerNorm backward of dn (N, E) fp32; out in cd when
+// out_cd, else fp32 (may be dh). One launch.
+extern "C" int sasrec_layer_norm_bwd(const float* dn, const float* xhat, const float* rstd,
+                                     const float* scale, const float* dh, void* out, int N, int E,
+                                     int out_cd, int is_bf16, void* stream) {
+  if (N < 1 || E < 32 || E % 32) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_cd && is_bf16)
+    return ctr::enc::launch_ln_bwd(dn, xhat, rstd, scale, dh, static_cast<__nv_bfloat16*>(out),
+                                   N, E, s);
+  return ctr::enc::launch_ln_bwd(dn, xhat, rstd, scale, dh, static_cast<float*>(out), N, E, s);
+}
+
+// dqkv (B*S, 3E) fp32 and its cd copy from qkv (B*S, 3E) fp32, the softmax P
+// (B, H, S, S) and dao (B*S, E) fp32. One launch.
+extern "C" int sasrec_attention_bwd(const float* qkv, const float* P, const float* dao,
+                                    float* dqkv, void* dqkv_c, int B, int S, int E, int H,
+                                    float scale, int is_bf16, void* stream) {
+  if (!ctr::enc::in_envelope(B, S, E, H, 1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return ctr::enc::launch<__nv_bfloat16>(g, x, amask, w, drop, dx, part, out, scratch, B, S, E,
-                                           H, L, scale, grid, part_stride, s);
-  return ctr::enc::launch<float>(g, x, amask, w, drop, dx, part, out, scratch, B, S, E, H, L,
-                                 scale, grid, part_stride, s);
+    return ctr::enc::launch_attn_bwd(qkv, P, dao, dqkv, static_cast<__nv_bfloat16*>(dqkv_c), B,
+                                     S, E, H, scale, s);
+  return ctr::enc::launch_attn_bwd(qkv, P, dao, dqkv, static_cast<float*>(dqkv_c), B, S, E, H,
+                                   scale, s);
+}
+
+// Column sums of G (N, ncols) fp32 over Z chunks of `chunk` rows into part
+// (Z, ncols): mode 0 sum G; 1 sum G X into part and sum G into part2; 2 the
+// dropout gate of site (layer, branch): v = drop(G), gated = cd(v), sum v.
+// One launch.
+extern "C" int sasrec_column_sums(int mode, const float* G, const float* X, void* gated,
+                                  const int64_t* seed, float rate, float inv_keep, int layer,
+                                  int branch, int N, int ncols, int Z, int chunk, float* part,
+                                  float* part2, int is_bf16, void* stream) {
+  if (N < 1 || ncols < 32 || ncols % 32 || Z < 1 || chunk < 1 ||
+      static_cast<long>(Z) * chunk < N || !ctr::enc::dropout_ok(seed, rate))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{seed, rate, inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace ctr::enc;
+  auto run = [&](auto* gt) -> int {
+    using T = std::remove_pointer_t<decltype(gt)>;
+    const Split sp{Z, chunk};
+    if (mode == kSum)
+      return launch_column_sums<T, kSum>(G, X, gt, drop, layer, branch, N, ncols, sp, part, part2,
+                                         ncols, s);
+    if (mode == kLnSums)
+      return launch_column_sums<T, kLnSums>(G, X, gt, drop, layer, branch, N, ncols, sp, part,
+                                            part2, ncols, s);
+    if (mode == kGate)
+      return launch_column_sums<T, kGate>(G, X, gt, drop, layer, branch, N, ncols, sp, part,
+                                          part2, ncols, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  if (is_bf16) return run(static_cast<__nv_bfloat16*>(gated));
+  return run(static_cast<float*>(gated));
+}
+
+// out[j] = sum over z = 0..Z-1, in that order, of part[z n + j]. One launch.
+extern "C" int sasrec_reduce_partials(const float* part, int Z, int n, float* out, void* stream) {
+  if (Z < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  ctr::enc::GradLayout lay{};  // one gradient of n floats in Z partials
+  lay.size[0] = lay.out_total = static_cast<size_t>(n);
+  lay.split[0] = ctr::enc::Split{Z, 0};
+  return ctr::enc::launch_reduce(part, lay, out, static_cast<cudaStream_t>(stream));
 }

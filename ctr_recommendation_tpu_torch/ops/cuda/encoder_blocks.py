@@ -1,0 +1,450 @@
+"""The SASRec encoder's building blocks (csrc/sasrec_encoder.cuh), each a
+hand-written kernel with its plain PyTorch version, token-major: every
+tensor is (N, width) row-major over the N = B*S tokens of a batch.
+
+- ``product``: the tile product (csrc/tile_mma.cuh; bf16 operands on the
+  tensor cores through ``mma.sync``, fp32 on the CUDA cores, never TF32)
+  with the encoder's epilogues, in three layouts: "nn" A W (the forward's
+  four products), "nt" A W^T (the backward's transposed products, W read as
+  stored), "tn" A^T G over chunks of tokens (a weight gradient's partials);
+- ``layer_norm`` and ``layer_norm_bwd``: fp32, eps 1e-6, a warp a row;
+- ``attention_fwd`` and ``attention_bwd``: fp32, a block per (history,
+  head), S <= 32, D <= 256;
+- ``column_sums``: bias gradients, LayerNorm's dscale and dbias and the
+  dropout gate on dh, over the same token chunks; ``reduce_partials``: the
+  fixed-order sum of a chunked partial.
+
+``sasrec_encoder.encode_fwd`` / ``encode_bwd`` enqueue these kernels in one
+C call each; the wrappers here launch one block at a time, for the checks
+on the card. On a CPU tensor each wrapper runs its plain version; on a CUDA
+tensor it launches its kernel or raises. The plain versions are what
+``encode_fwd_plain`` and ``encode_bwd_plain`` are composed of.
+
+Dropout (``dropout_mask``) comes from a counter-based generator,
+Philox4x32-10, keyed by (seed, global token b*S + s, column, layer,
+branch); ``dropout_keep`` in csrc/common.cuh draws the same bits, so kernels
+and plain versions apply the same masks however they tile the tokens.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ctr_recommendation_tpu_torch.ops.cuda import build
+from ctr_recommendation_tpu_torch.ops.cuda.interaction import check_kernel_args
+
+LN_EPS = 1e-6
+MAX_S = 32
+MAX_D = 256
+
+# Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3")
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) words of the 64-bit product of the constant a and b (both
+    below 2^32), in int64: b is split into 16-bit halves so that no partial
+    product reaches 2^63."""
+    p_lo = a * (b & 0xFFFF)
+    p_hi = a * (b >> 16)
+    mid = p_hi + (p_lo >> 16)
+    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
+
+
+def philox4x32(ctr, key):
+    """Philox4x32-10 on uint32 words held in int64: ctr a sequence of four
+    tensors (or ints), key of two; returns the four output words."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _U32, (k1 + _W1) & _U32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_mask(seed, n_tokens: int, e: int, layer: int, branch: int, rate: float):
+    """Keep mask (n_tokens, e) bool of dropout site (layer, branch): element
+    (t, c) is Philox4x32-10 word c % 4 of counter (t, c // 4, 2 layer +
+    branch, 0) under key (seed's low, high 32 bits); u = (word >> 8) 2^-24,
+    the TPU kernel's top-24-bit rule, and the element is kept iff u >= rate
+    (compared in fp32). ``seed`` is an int64 tensor (1,) on the device of
+    the result, or an int; nothing is read back to the host."""
+    seed = torch.as_tensor(seed, dtype=torch.int64).reshape(-1)[:1]
+    dev = seed.device
+    t = torch.arange(n_tokens, dtype=torch.int64, device=dev)[:, None]
+    q = torch.arange(e // 4, dtype=torch.int64, device=dev)[None, :]
+    words = philox4x32(
+        (t, q, torch.full((), 2 * layer + branch, dtype=torch.int64, device=dev),
+         torch.zeros((), dtype=torch.int64, device=dev)),
+        (seed & _U32, (seed >> 32) & _U32),
+    )
+    w = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(n_tokens, e)
+    u = (w >> 8).to(torch.float32) * 2.0**-24
+    return u >= torch.tensor(rate, dtype=torch.float32, device=dev)
+
+
+def dropout(a, seed, layer, branch, rate):
+    """a (N, E) fp32 with the kernels' dropout applied: kept elements scaled
+    by fp32(1 / (1 - rate)), the rest 0; a unchanged at rate 0."""
+    if rate <= 0.0:
+        return a
+    keep = dropout_mask(seed, a.shape[0], a.shape[1], layer, branch, rate)
+    return torch.where(keep, a * (1.0 / (1.0 - rate)), torch.zeros((), device=a.device))
+
+
+def heads(t, b, s, h):
+    """(B*S, H*D) -> (B, H, S, D)."""
+    return t.reshape(b, s, h, -1).transpose(1, 2)
+
+
+def merge(t):
+    """(B, H, S, D) -> (B*S, H*D)."""
+    b, h, s, d = t.shape
+    return t.transpose(1, 2).reshape(b * s, h * d)
+
+
+# ---------------------------------------------------------------- plain versions
+
+_LAYOUTS = ("nn", "nt", "tn")
+_EPILOGUES = ("store", "bias", "relu", "residual", "gate", "partial")
+
+
+def product_plain(a, b, layout="nn", epilogue="store", *, bias=None, aux=None, seed=None,
+                  rate=0.0, layer=0, branch=0, out_dtype=None, chunk=None, acc=torch.float64):
+    """C = A B ("nn": a (M, K), b (K, N)), A B^T ("nt": b (N, K)) or A^T B
+    ("tn": a (K, M), b (K, N)) of the operands as given, accumulated in
+    ``acc`` and rounded to fp32: fp64 by default, as the kernels' fp32 path
+    does, so that a ReLU gate z1 > 0 read from the same operands falls on
+    the same side in both; fp32 to sum as cuBLAS does. Then the epilogue:
+
+    - "store": C; "bias": C + bias (fp32);
+    - "relu": relu(C + bias) in ``out_dtype`` (the FFN's hidden f1);
+    - "residual": aux + dropout(C + bias) at site (layer, branch), aux the
+      fp32 stream; fp32, or rounded to ``out_dtype`` when given;
+    - "gate": C where aux > 0, else 0 (the ReLU gate, aux = f1): (fp32, its
+      copy in a's dtype);
+    - "partial" ("tn"): (Z, M, N), the product over each chunk of ``chunk``
+      rows of a and b."""
+    if layout not in _LAYOUTS or epilogue not in _EPILOGUES:
+        raise ValueError(f"no product {layout!r} with epilogue {epilogue!r}")
+    cd = a.dtype
+    a, b = a.to(acc), b.to(acc)
+    if epilogue == "partial":
+        return torch.stack([a[i:i + chunk].T @ b[i:i + chunk]
+                            for i in range(0, a.shape[0], chunk)]).float()
+    c = (a @ b if layout == "nn" else a @ b.T if layout == "nt" else a.T @ b).float()
+    if epilogue == "store":
+        return c
+    if epilogue == "bias":
+        return c + bias
+    if epilogue == "relu":
+        return torch.relu(c + bias).to(out_dtype)
+    if epilogue == "residual":
+        y = aux + dropout(c + bias, seed, layer, branch, rate)
+        return y if out_dtype is None else y.to(out_dtype)
+    y = c * (aux.float() > 0.0)
+    return y, y.to(cd)
+
+
+def layer_norm_plain(h, scale, bias, cd, residues=False):
+    """fp32 LayerNorm of h (N, E), the TPU kernel's ``_ln_fwd`` -> hn =
+    (xhat * scale + bias) rounded to cd; with ``residues`` (hn, xhat,
+    rstd (N,))."""
+    m = h.mean(-1, keepdim=True)
+    r = torch.rsqrt((h - m).square().mean(-1, keepdim=True) + LN_EPS)
+    xhat = (h - m) * r
+    hn = (xhat * scale + bias).to(cd)
+    return (hn, xhat, r[:, 0]) if residues else hn
+
+
+def layer_norm_bwd_plain(dn, xhat, rstd, scale, dh):
+    """dh + the backward of y = xhat * scale + bias at cotangent dn (the TPU
+    kernel's ``_ln_bwd``), fp32."""
+    d = dn * scale
+    dx = rstd[:, None] * (d - d.mean(-1, keepdim=True)
+                          - xhat * (d * xhat).mean(-1, keepdim=True))
+    return dh + dx
+
+
+def attention_fwd_plain(qkv, amask, num_heads, cd):
+    """qkv (B*S, 3E) fp32, amask (B, S) additive fp32 -> (ao (B*S, E) in cd,
+    p (B, H, S, S) fp32): per head softmax(q k^T / sqrt(D) + mask) v, fp32,
+    the TPU kernel's ``_attn_fwd``."""
+    b, s = amask.shape
+    e = qkv.shape[1] // 3
+    d = e // num_heads
+    q, k, v = (heads(t, b, s, num_heads) for t in qkv.split(e, -1))
+    p = torch.softmax(q @ k.transpose(-1, -2) * (1.0 / d**0.5) + amask.float()[:, None, None, :],
+                      dim=-1)
+    return merge(p @ v).to(cd), p
+
+
+def attention_bwd_plain(qkv, p, dao, cd):
+    """The TPU kernel's ``_attn_bwd``, fp32: qkv (B*S, 3E), the softmax p
+    (B, H, S, S), dao (B*S, E) -> (dqkv (B*S, 3E), dqkv rounded to cd)."""
+    b, h, s, _ = p.shape
+    e = dao.shape[1]
+    inv = 1.0 / (e // h) ** 0.5
+    g = heads(dao, b, s, h)
+    q, k, v = (heads(t, b, s, h) for t in qkv.split(e, -1))
+    dp = g @ v.transpose(-1, -2)
+    dlog = p * (dp - (dp * p).sum(-1, keepdim=True)) * inv
+    dqkv = torch.cat([merge(dlog @ k), merge(dlog.transpose(-1, -2) @ q),
+                      merge(p.transpose(-1, -2) @ g)], dim=-1)
+    return dqkv, dqkv.to(cd)
+
+
+def column_sums_plain(g, mode="sum", *, x=None, seed=None, rate=0.0, layer=0, branch=0,
+                      cd=None, chunk=None):
+    """Column sums of g (N, C) fp32 over chunks of ``chunk`` rows (one chunk
+    when None) -> (Z, C) partials: "sum" of g; "ln" (sum g x, sum g); "gate"
+    v = dropout(g) at site (layer, branch): (sum v, v in cd)."""
+    chunk = chunk or g.shape[0]
+
+    def sums(t):
+        return torch.stack([t[i:i + chunk].sum(0) for i in range(0, t.shape[0], chunk)])
+
+    if mode == "sum":
+        return sums(g)
+    if mode == "ln":
+        return sums(g * x), sums(g)
+    if mode == "gate":
+        v = dropout(g, seed, layer, branch, rate)
+        return sums(v), v.to(cd)
+    raise ValueError(f"no column sums {mode!r}")
+
+
+def reduce_partials_plain(part):
+    """(Z, n) -> (n,), the sum over z."""
+    return part.sum(0)
+
+
+# ---------------------------------------------------------------- the kernels
+
+_FWD = None
+_BWD = None
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def fwd_lib():
+    """csrc/sasrec_encoder.cu, built and bound at first use."""
+    global _FWD
+    if _FWD is None:
+        lib = build.load("sasrec_encoder")
+        lib.sasrec_encode_fwd_workspace.argtypes = [_I] * 4
+        lib.sasrec_encode_fwd_workspace.restype = ctypes.c_size_t
+        lib.sasrec_encode_fwd.argtypes = [_VP] * 17 + [_I] * 5 + [_F] * 3 + [_I, _VP]
+        lib.sasrec_product_fwd.argtypes = (
+            [_I] + [_VP] * 2 + [_I] * 3 + [_VP] * 4 + [_F] * 2 + [_I] * 3 + [_VP])
+        lib.sasrec_layer_norm.argtypes = [_VP, _I, _I] + [_VP] * 5 + [_I, _VP]
+        lib.sasrec_attention_fwd.argtypes = [_VP] * 4 + [_I] * 4 + [_F, _I, _VP]
+        _FWD = lib
+    return _FWD
+
+
+def bwd_lib():
+    """csrc/sasrec_encoder_bwd.cu, built and bound at first use."""
+    global _BWD
+    if _BWD is None:
+        lib = build.load("sasrec_encoder_bwd")
+        lib.sasrec_encode_bwd_workspace.argtypes = [_I] * 6
+        lib.sasrec_encode_bwd_workspace.restype = ctypes.c_size_t
+        lib.sasrec_encode_bwd.argtypes = [_VP] * 19 + [_I] * 5 + [_F] * 3 + [_I, _VP]
+        lib.sasrec_product_bwd.argtypes = [_I, _I, _VP, _VP] + [_I] * 5 + [_VP] * 3 + [_I, _VP]
+        lib.sasrec_layer_norm_bwd.argtypes = [_VP] * 6 + [_I] * 4 + [_VP]
+        lib.sasrec_attention_bwd.argtypes = [_VP] * 5 + [_I] * 4 + [_F, _I, _VP]
+        lib.sasrec_column_sums.argtypes = (
+            [_I] + [_VP] * 4 + [_F] * 2 + [_I] * 6 + [_VP] * 2 + [_I, _VP])
+        lib.sasrec_reduce_partials.argtypes = [_VP, _I, _I, _VP, _VP]
+        _BWD = lib
+    return _BWD
+
+
+def stream_of(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def is_bf16(t) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def _cuda_only(what, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {t.device}")
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: operands must be bfloat16 or float32, got {t.dtype}")
+
+
+def check_dropout(seed, rate) -> None:
+    """The dropout arguments, on any device: 0 <= rate < 1, and a seed when
+    rate > 0."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if rate > 0.0 and seed is None:
+        raise ValueError("dropout (rate > 0) needs a seed: an int64 tensor of shape (1,)")
+
+
+def dropout_args(seed, rate):
+    """(seed pointer or None, rate, 1 / (1 - rate)) for a C entry point."""
+    check_dropout(seed, rate)
+    return (seed.data_ptr() if rate > 0.0 else None), rate, 1.0 / (1.0 - rate)
+
+
+_FWD_EPI = {"bias": 1, "relu": 2, "residual": 3}
+_BWD_EPI = {("nt", "store"): 0, ("nt", "gate"): 5, ("tn", "partial"): 6}
+
+
+def product(a, b, layout="nn", epilogue="store", *, bias=None, aux=None, seed=None, rate=0.0,
+            layer=0, branch=0, out_dtype=None, chunk=None):
+    """``product_plain`` on CPU tensors; on CUDA tensors the tile product
+    kernel, one launch, in the combinations the encoder runs: "nn" with
+    "bias", "relu" or "residual"; "nt" with "store" or "gate"; "tn" with
+    "partial" (chunk % 64 == 0). a and b in one compute dtype (bf16 or
+    fp32), contiguous; N and K multiples of 32."""
+    kw = dict(bias=bias, aux=aux, seed=seed, rate=rate, layer=layer, branch=branch,
+              out_dtype=out_dtype, chunk=chunk)
+    if a.device.type == "cpu":
+        return product_plain(a, b, layout, epilogue, **kw)
+    _cuda_only("product", a)
+    check_kernel_args({"a": (a, None), "b": (b, None)}, a.dtype, a.device)
+    m, k = a.shape if layout != "tn" else a.shape[::-1]
+    n = b.shape[0] if layout == "nt" else b.shape[1]
+    f32 = torch.float32
+    dev = a.device
+    seed_ptr, rate, inv_keep = dropout_args(seed, rate)
+    if layout == "nn" and epilogue in _FWD_EPI:
+        out_f, out_c = None, None
+        if epilogue == "bias":
+            out_f = torch.empty(m, n, dtype=f32, device=dev)
+        elif epilogue == "relu":
+            out_c = torch.empty(m, n, dtype=out_dtype, device=dev)
+        else:
+            out_f = aux.clone()
+            if out_dtype is not None:
+                out_c = torch.empty(m, n, dtype=out_dtype, device=dev)
+        epi = _FWD_EPI[epilogue] + (1 if epilogue == "residual" and out_c is not None else 0)
+        rc = fwd_lib().sasrec_product_fwd(
+            epi, a.data_ptr(), b.data_ptr(), m, n, k, ptr(bias), ptr(out_f), ptr(out_c),
+            seed_ptr, rate, inv_keep, layer, branch, is_bf16(a), stream_of(a))
+        build.check(rc, f"product {layout} {epilogue}")
+        return out_c if out_c is not None else out_f
+    code = _BWD_EPI.get((layout, epilogue))
+    if code is None:
+        raise ValueError(f"no product kernel {layout!r} with epilogue {epilogue!r}")
+    splits = -(-k // chunk) if epilogue == "partial" else 1
+    out_f = torch.empty((splits, m, n) if epilogue == "partial" else (m, n), dtype=f32, device=dev)
+    out_c = torch.empty(m, n, dtype=a.dtype, device=dev) if epilogue == "gate" else None
+    rc = bwd_lib().sasrec_product_bwd(
+        1 if layout == "nt" else 2, code, a.data_ptr(), b.data_ptr(), m, n, k, splits,
+        chunk if epilogue == "partial" else k, ptr(aux), out_f.data_ptr(), ptr(out_c),
+        is_bf16(a), stream_of(a))
+    build.check(rc, f"product {layout} {epilogue}")
+    return (out_f, out_c) if epilogue == "gate" else out_f
+
+
+def layer_norm(h, scale, bias, cd, residues=False):
+    """``layer_norm_plain`` on CPU tensors, the LayerNorm kernel on CUDA."""
+    if h.device.type == "cpu":
+        return layer_norm_plain(h, scale, bias, cd, residues)
+    _cuda_only("layer_norm", h)
+    n, e = h.shape
+    out = torch.empty(n, e, dtype=cd, device=h.device)
+    xhat = torch.empty(n, e, device=h.device) if residues else None
+    rstd = torch.empty(n, device=h.device) if residues else None
+    rc = fwd_lib().sasrec_layer_norm(h.data_ptr(), n, e, scale.data_ptr(), bias.data_ptr(),
+                                     out.data_ptr(), ptr(xhat), ptr(rstd),
+                                     int(cd == torch.bfloat16), stream_of(h))
+    build.check(rc, "layer_norm")
+    return (out, xhat, rstd) if residues else out
+
+
+def layer_norm_bwd(dn, xhat, rstd, scale, dh):
+    """``layer_norm_bwd_plain`` on CPU tensors, the kernel on CUDA (fp32 out)."""
+    if dn.device.type == "cpu":
+        return layer_norm_bwd_plain(dn, xhat, rstd, scale, dh)
+    _cuda_only("layer_norm_bwd", dn)
+    out = torch.empty_like(dh)
+    rc = bwd_lib().sasrec_layer_norm_bwd(
+        dn.data_ptr(), xhat.data_ptr(), rstd.data_ptr(), scale.data_ptr(), dh.data_ptr(),
+        out.data_ptr(), dn.shape[0], dn.shape[1], 0, 0, stream_of(dn))
+    build.check(rc, "layer_norm_bwd")
+    return out
+
+
+def attention_fwd(qkv, amask, num_heads, cd):
+    """``attention_fwd_plain`` on CPU tensors, the kernel on CUDA."""
+    if qkv.device.type == "cpu":
+        return attention_fwd_plain(qkv, amask, num_heads, cd)
+    _cuda_only("attention_fwd", qkv)
+    b, s = amask.shape
+    e = qkv.shape[1] // 3
+    ao = torch.empty(b * s, e, dtype=cd, device=qkv.device)
+    p = torch.empty(b, num_heads, s, s, device=qkv.device)
+    rc = fwd_lib().sasrec_attention_fwd(
+        qkv.data_ptr(), amask.data_ptr(), ao.data_ptr(), p.data_ptr(), b, s, e, num_heads,
+        1.0 / (e // num_heads) ** 0.5, int(cd == torch.bfloat16), stream_of(qkv))
+    build.check(rc, "attention_fwd")
+    return ao, p
+
+
+def attention_bwd(qkv, p, dao, cd):
+    """``attention_bwd_plain`` on CPU tensors, the kernel on CUDA."""
+    if qkv.device.type == "cpu":
+        return attention_bwd_plain(qkv, p, dao, cd)
+    _cuda_only("attention_bwd", qkv)
+    b, h, s, _ = p.shape
+    e = dao.shape[1]
+    dqkv = torch.empty_like(qkv)
+    dqkv_c = torch.empty(qkv.shape, dtype=cd, device=qkv.device)
+    rc = bwd_lib().sasrec_attention_bwd(
+        qkv.data_ptr(), p.data_ptr(), dao.data_ptr(), dqkv.data_ptr(), dqkv_c.data_ptr(), b, s, e,
+        h, 1.0 / (e // h) ** 0.5, int(cd == torch.bfloat16), stream_of(qkv))
+    build.check(rc, "attention_bwd")
+    return dqkv, dqkv_c
+
+
+_SUM_MODES = {"sum": 0, "ln": 1, "gate": 2}
+
+
+def column_sums(g, mode="sum", *, x=None, seed=None, rate=0.0, layer=0, branch=0, cd=None,
+                chunk=None):
+    """``column_sums_plain`` on CPU tensors, the kernel on CUDA."""
+    kw = dict(x=x, seed=seed, rate=rate, layer=layer, branch=branch, cd=cd, chunk=chunk)
+    if g.device.type == "cpu":
+        return column_sums_plain(g, mode, **kw)
+    _cuda_only("column_sums", g)
+    n, c = g.shape
+    chunk = chunk or n
+    z = -(-n // chunk)
+    part = torch.empty(z, c, device=g.device)
+    part2 = torch.empty(z, c, device=g.device) if mode == "ln" else None
+    gated = torch.empty(n, c, dtype=cd, device=g.device) if mode == "gate" else None
+    seed_ptr, rate, inv_keep = dropout_args(seed, rate)
+    rc = bwd_lib().sasrec_column_sums(
+        _SUM_MODES[mode], g.data_ptr(), ptr(x), ptr(gated), seed_ptr, rate, inv_keep, layer,
+        branch, n, c, z, chunk, part.data_ptr(), ptr(part2), int(cd == torch.bfloat16),
+        stream_of(g))
+    build.check(rc, f"column_sums {mode}")
+    return (part, part2) if mode == "ln" else (part, gated) if mode == "gate" else part
+
+
+def reduce_partials(part):
+    """``reduce_partials_plain`` on CPU tensors, the kernel on CUDA."""
+    if part.device.type == "cpu":
+        return reduce_partials_plain(part)
+    z, n = part.shape
+    out = torch.empty(n, device=part.device)
+    rc = bwd_lib().sasrec_reduce_partials(part.data_ptr(), z, n, out.data_ptr(), stream_of(part))
+    build.check(rc, "reduce_partials")
+    return out

@@ -1,5 +1,5 @@
 """Kernels 5 and 6: the SASRec encoder forward (csrc/sasrec_encoder.cu) and
-backward (csrc/sasrec_encoder_bwd.cu).
+backward (csrc/sasrec_encoder_bwd.cu), token-major on the tensor cores.
 
 Replace ctr_recommendation_tpu/ops/pallas/sasrec_encoder.py::_fwd_kernel
 (:220) and ::_bwd_kernel (:238), reached through ``fused_encode`` (:621),
@@ -8,10 +8,11 @@ whose ``jax.custom_vjp`` becomes the ``FusedEncoder`` autograd Function here.
 Bound on an H100: operations, both ways. At B=8192, S=20, E=128, one layer,
 the forward is 66.1 GFLOP against ~85 MB moved; at B=4096 the backward
 (which recomputes the forward and does two products per weight) is 99.2
-GFLOP against ~64 MB. A block owns whole histories (attention needs all S
-steps of one) and keeps their fp32 stream in shared memory for every layer;
-the weights (384 KB a layer in bf16, more than a block's 227 KB) are staged
-from L2 one column block at a time. fp32 FMA on the CUDA cores.
+GFLOP against ~64 MB. Each is a sequence of launches over all B*S tokens,
+built from the blocks of ``encoder_blocks`` (the tile product with fused
+epilogues on ``mma.sync``, LayerNorm, attention, column sums and their
+fixed-order reduction), enqueued by one C call: ``fwd_launches(L)`` and
+``bwd_launches(L)`` give the launches of one call.
 
 Precision contract (the TPU kernels', ``sasrec_encoder.py:61-67``,
 ``:159-351``), kept by the kernels and by ``encode_fwd_plain`` /
@@ -24,101 +25,73 @@ pad rows are not re-zeroed between layers (``fused_encode`` zeroes them on
 output). The backward rounds the operands of every weight product and of
 every transposed product to cd (hn2, f1, df2, dz1, ao, da1, dqkv, hn1 and
 the weights); attention, softmax and LayerNorm backward run in fp32; dx is
-rounded once to x's dtype; the 12 weight gradients are fp32.
+rounded once to x's dtype; the 12 weight gradients are fp32, the bias
+gradients sums of fp32 values.
 
 Dropout (``attn_dropout`` on the attention branch's output a1, branch 0, and
-the FFN's output f2, branch 1, before each residual add) comes from a
-counter-based generator, Philox4x32-10, keyed by (seed, global token
-b*S + s, column, layer, branch): ``dropout_mask`` here and
-``dropout_keep`` in csrc/common.cuh draw the same bits, so the kernels and
-the plain versions apply the same masks, and the forward and backward may
-tile the batch differently. The TPU kernel seeds its PRNG per grid step
-instead: same Bernoulli statistics, another realization (docs/PARITY.md).
+the FFN's output f2, branch 1, before each residual add) comes from the
+counter-based ``dropout_mask`` of ``encoder_blocks``, keyed by (seed, global
+token, column, layer, branch), so the kernels and the plain versions apply
+the same masks. The TPU kernel seeds its PRNG per grid step instead: same
+Bernoulli statistics, another realization (docs/PARITY.md).
 
 ``encode_fwd`` and ``encode_bwd`` are the wrappers: on a CUDA tensor each
-launches its kernel (or raises), on a CPU tensor it runs its plain version.
-Their ``launches`` attributes count kernel launches (the backward counts two
-a call: the kernel and the reduction of its per-block weight-gradient
-partials). The kernels' envelope: 1 <= S <= 32, E % 32 == 0, 32 <= E <= 128,
-E % H == 0, L >= 1, bf16 or fp32, 0 <= rate < 1.
+enqueues its kernels (or raises), on a CPU tensor it runs its plain version.
+Their ``launches`` attributes count kernel launches. The kernels' envelope:
+1 <= S <= 32, E % 32 == 0, E >= 32, E % H == 0, D = E/H a multiple of 4 up
+to 256, L >= 1, bf16 or fp32, 0 <= rate < 1. The kernels keep token-major intermediates in
+a workspace the wrapper allocates, at E=128 in bf16: the forward's 3.5 KB
+a token, the backward's 4.5 KB a token a layer plus 4.8 KB a token and
+~70 MB of weight-gradient partials; all scale with E.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ctr_recommendation_tpu_torch.ops.attention import NEG_INF
 from ctr_recommendation_tpu_torch.ops.cuda import build
+from ctr_recommendation_tpu_torch.ops.cuda.encoder_blocks import (  # noqa: F401 (re-exported)
+    MAX_D,
+    MAX_S,
+    attention_bwd_plain,
+    attention_fwd_plain,
+    bwd_lib,
+    check_dropout,
+    column_sums_plain,
+    dropout,
+    dropout_args,
+    dropout_mask,
+    fwd_lib,
+    is_bf16,
+    layer_norm_bwd_plain,
+    layer_norm_plain,
+    philox4x32,
+    product_plain,
+    stream_of,
+)
 from ctr_recommendation_tpu_torch.ops.cuda.interaction import check_kernel_args
 
-MAX_S = 32
-LN_EPS = 1e-6
 WEIGHT_NAMES = (
     "qkv_w", "qkv_b", "proj_w", "proj_b", "ln1_s", "ln1_b",
     "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b", "ln2_s", "ln2_b",
 )
 _MATRICES = ("qkv_w", "proj_w", "ffn1_w", "ffn2_w")
 
-# Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3")
-_M0, _M1 = 0xD2511F53, 0xCD9E8D57
-_W0, _W1 = 0x9E3779B9, 0xBB67AE85
-_U32 = 0xFFFFFFFF
+
+def fwd_launches(layers: int) -> int:
+    """Kernel launches of one ``encode_fwd`` call: the upcast of x, then
+    LN1, qkv, attention, proj, LN2, ffn1 and ffn2 a layer (dropout or not)."""
+    return 1 + 7 * layers
 
 
-def _mulhilo(a: int, b: torch.Tensor):
-    """(hi, lo) words of the 64-bit product of the constant a and b (both
-    below 2^32), in int64: b is split into 16-bit halves so that no partial
-    product reaches 2^63."""
-    p_lo = a * (b & 0xFFFF)
-    p_hi = a * (b >> 16)
-    mid = p_hi + (p_lo >> 16)
-    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
-
-
-def philox4x32(ctr, key):
-    """Philox4x32-10 on uint32 words held in int64: ctr a sequence of four
-    tensors (or ints), key of two; returns the four output words."""
-    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
-    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
-    for r in range(10):
-        if r:
-            k0, k1 = (k0 + _W0) & _U32, (k1 + _W1) & _U32
-        hi0, lo0 = _mulhilo(_M0, c0)
-        hi1, lo1 = _mulhilo(_M1, c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
-
-
-def dropout_mask(seed, n_tokens: int, e: int, layer: int, branch: int, rate: float):
-    """Keep mask (n_tokens, e) bool of dropout site (layer, branch): element
-    (t, c) is Philox4x32-10 word c % 4 of counter (t, c // 4, 2 layer +
-    branch, 0) under key (seed's low, high 32 bits); u = (word >> 8) 2^-24,
-    the TPU kernel's top-24-bit rule, and the element is kept iff u >= rate
-    (compared in fp32). ``seed`` is an int64 tensor (1,) on the device of
-    the result, or an int; nothing is read back to the host."""
-    seed = torch.as_tensor(seed, dtype=torch.int64).reshape(-1)[:1]
-    dev = seed.device
-    t = torch.arange(n_tokens, dtype=torch.int64, device=dev)[:, None]
-    q = torch.arange(e // 4, dtype=torch.int64, device=dev)[None, :]
-    words = philox4x32(
-        (t, q, torch.full((), 2 * layer + branch, dtype=torch.int64, device=dev),
-         torch.zeros((), dtype=torch.int64, device=dev)),
-        (seed & _U32, (seed >> 32) & _U32),
-    )
-    w = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(n_tokens, e)
-    u = (w >> 8).to(torch.float32) * 2.0**-24
-    return u >= torch.tensor(rate, dtype=torch.float32, device=dev)
-
-
-def _dropout(a, seed, layer, branch, rate):
-    """a (N, E) fp32 with the kernel's dropout applied: kept elements scaled
-    by fp32(1 / (1 - rate)), the rest 0; a unchanged at rate 0."""
-    if rate <= 0.0:
-        return a
-    keep = dropout_mask(seed, a.shape[0], a.shape[1], layer, branch, rate)
-    return torch.where(keep, a * (1.0 / (1.0 - rate)), torch.zeros((), device=a.device))
+def bwd_launches(layers: int) -> int:
+    """Kernel launches of one ``encode_bwd`` call: the forward recomputed
+    (1 + 7 L - 1: the last layer's ffn2 is not needed), the upcast of g,
+    then 18 a layer in reverse: 8 products, 6 column sums, the attention
+    backward, 2 LayerNorm backwards and the reduction of the layer's
+    weight-gradient partials."""
+    return 25 * layers + 1
 
 
 def stack_weights(params: dict, dtype: torch.dtype) -> tuple:
@@ -147,96 +120,67 @@ def cast_matrices(weights, dtype: torch.dtype) -> tuple:
     )
 
 
-def _ln_fwd(h, scale, bias):
-    """fp32 LayerNorm -> (out, xhat, rstd), as the TPU kernel's ``_ln_fwd``."""
-    m = h.mean(-1, keepdim=True)
-    r = torch.rsqrt((h - m).square().mean(-1, keepdim=True) + LN_EPS)
-    xhat = (h - m) * r
-    return xhat * scale + bias, xhat, r
-
-
-def _ln_bwd(g, xhat, r, scale):
-    """dx of y = xhat * scale + bias, with (dscale, dbias) summed over rows."""
-    dxhat = g * scale
-    dx = r * (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    return dx, (g * xhat).sum(0), g.sum(0)
-
-
-def _heads(t, b, s, h):
-    """(B*S, H*D) -> (B, H, S, D)."""
-    return t.reshape(b, s, h, -1).transpose(1, 2)
-
-
-def _merge(t):
-    """(B, H, S, D) -> (B*S, H*D)."""
-    b, h, s, d = t.shape
-    return t.transpose(1, 2).reshape(b * s, h * d)
-
-
-def _layer_fwd(h, mask, w, li, cd, num_heads, b, s, seed, rate):
-    """One pre-LN block on the fp32 stream h (B*S, E) at the kernels'
-    rounding points -> (new h, the residues the backward needs)."""
+def _layer_fwd(h, amask, w, li, cd, num_heads, seed, rate, acc=torch.float64):
+    """One pre-LN block on the fp32 stream h (B*S, E), composed of the
+    plain blocks at the kernels' rounding points (products accumulated in
+    ``acc``) -> (new h, the residues the backward needs, the products'
+    operands kept in fp32)."""
     (qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
      ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b) = (t[li] for t in w)
-    e = h.shape[1]
-    d = e // num_heads
-
-    def mm(a, wt):  # operands rounded to cd, fp32 accumulation
-        return a.to(cd).float() @ wt.to(cd).float()
-
-    hn1, xhat1, r1 = _ln_fwd(h, ln1_s, ln1_b)
-    qkv = mm(hn1, qkv_w) + qkv_b
-    q, k, v = (_heads(t, b, s, num_heads) for t in qkv.split(e, -1))
-    p = torch.softmax(q @ k.transpose(-1, -2) * (1.0 / d**0.5) + mask, dim=-1)
-    ao = _merge(p @ v)
-    h1 = h + _dropout(mm(ao, proj_w) + proj_b, seed, li, 0, rate)
-    hn2, xhat2, r2 = _ln_fwd(h1, ln2_s, ln2_b)
-    z1 = mm(hn2, ffn1_w) + ffn1_b
-    f1 = torch.relu(z1)
-    h2 = h1 + _dropout(mm(f1, ffn2_w) + ffn2_b, seed, li, 1, rate)
-    return h2, dict(xhat1=xhat1, r1=r1, qkv=qkv, p=p, ao=ao, xhat2=xhat2, r2=r2, z1=z1)
+    drop = dict(seed=seed, rate=rate, layer=li, acc=acc)
+    hn1, xhat1, r1 = layer_norm_plain(h, ln1_s, ln1_b, torch.float32, residues=True)
+    qkv = product_plain(hn1.to(cd), qkv_w.to(cd), "nn", "bias", bias=qkv_b, acc=acc)
+    ao, p = attention_fwd_plain(qkv, amask, num_heads, torch.float32)
+    h1 = product_plain(ao.to(cd), proj_w.to(cd), "nn", "residual", bias=proj_b, aux=h, branch=0,
+                       **drop)
+    hn2, xhat2, r2 = layer_norm_plain(h1, ln2_s, ln2_b, torch.float32, residues=True)
+    f1 = product_plain(hn2.to(cd), ffn1_w.to(cd), "nn", "relu", bias=ffn1_b,
+                       out_dtype=torch.float32, acc=acc)
+    h2 = product_plain(f1.to(cd), ffn2_w.to(cd), "nn", "residual", bias=ffn2_b, aux=h1, branch=1,
+                       **drop)
+    return h2, dict(hn1=hn1, xhat1=xhat1, r1=r1, qkv=qkv, p=p, ao=ao, hn2=hn2, xhat2=xhat2,
+                    r2=r2, f1=f1)
 
 
 def encode_fwd_plain(
     x, amask, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
     ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b, *, num_heads, seed=None, rate=0.0,
 ):
-    """Plain PyTorch version at the kernel's rounding points: x (B, S, E) in
-    cd, amask (B, S) fp32 additive -> (B, S, E) in cd. With ``rate`` > 0 the
-    dropout masks of ``dropout_mask`` under ``seed`` multiply a1 and f2."""
+    """Plain PyTorch version at the kernel's rounding points, composed of
+    the plain blocks: x (B, S, E) in cd, amask (B, S) fp32 additive ->
+    (B, S, E) in cd. With ``rate`` > 0 the dropout masks of ``dropout_mask``
+    under ``seed`` multiply a1 and f2."""
     w = (qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b)
     b, s, e = x.shape
-    mask = amask.float()[:, None, None, :]
     h = x.float().reshape(b * s, e)
     for li in range(qkv_w.shape[0]):
-        h, _ = _layer_fwd(h, mask, w, li, x.dtype, num_heads, b, s, seed, rate)
+        h, _ = _layer_fwd(h, amask, w, li, x.dtype, num_heads, seed, rate)
     return h.reshape(b, s, e).to(x.dtype)
 
 
 def encode_bwd_plain(g, x, amask, *weights, num_heads, seed=None, rate=0.0,
-                     fp32_operands=False):
+                     fp32_operands=False, acc=torch.float64):
     """Plain PyTorch version of the backward: the hand-derived VJP of the TPU
     kernel's ``_bwd_kernel`` (:238-351, with ``_attn_bwd`` :108-136 and
-    ``_ln_bwd`` :70-76) at its rounding points, not autograd. g and x
-    (B, S, E) in cd, amask (B, S) fp32, the 12 stacked weights -> (dx in cd,
-    the 12 weight gradients fp32, summed over the batch).
+    ``_ln_bwd`` :70-76) at its rounding points, not autograd, composed of
+    the plain blocks. g and x (B, S, E) in cd, amask (B, S) fp32, the 12
+    stacked weights -> (dx in cd, the 12 weight gradients fp32, summed over
+    the batch).
 
     ``fp32_operands=True`` leaves every operand of the backward's products in
     fp32 instead of rounding it to cd: a wrong backward that the bf16 norm bar
-    of the checks must reject. In fp32 the two agree."""
+    of the checks must reject. In fp32 the two agree. ``acc`` is the
+    products' accumulation dtype (``product_plain``)."""
     cd = x.dtype
     b, s, e = x.shape
-    d = e // num_heads
-    inv = 1.0 / d**0.5
 
     def rc(t):  # an operand of a backward product
-        return t.float() if fp32_operands else t.to(cd).float()
+        return t.float() if fp32_operands else t.to(cd)
 
-    mask = amask.float()[:, None, None, :]
     h = x.float().reshape(b * s, e)
     saved = []
     for li in range(weights[0].shape[0]):
-        h, res = _layer_fwd(h, mask, weights, li, cd, num_heads, b, s, seed, rate)
+        h, res = _layer_fwd(h, amask, weights, li, cd, num_heads, seed, rate, acc)
         saved.append(res)
 
     grads = [torch.zeros(t.shape, dtype=torch.float32, device=x.device) for t in weights]
@@ -244,78 +188,45 @@ def encode_bwd_plain(g, x, amask, *weights, num_heads, seed=None, rate=0.0,
      dffn1_w, dffn1_b, dffn2_w, dffn2_b, dln2_s, dln2_b) = grads
     dh = g.float().reshape(b * s, e)
     for li in reversed(range(weights[0].shape[0])):
-        (qkv_w, _, proj_w, _, ln1_s, ln1_b, ffn1_w, _, ffn2_w, _, ln2_s, ln2_b) = (
-            t[li] for t in weights)
+        qkv_w, _, proj_w, _, ln1_s, _, ffn1_w, _, ffn2_w, _, ln2_s, _ = (t[li] for t in weights)
         res = saved[li]
         # FFN branch
-        hn2 = res["xhat2"] * ln2_s + ln2_b
-        f1 = torch.relu(res["z1"])
-        df2 = _dropout(dh, seed, li, 1, rate)
-        dffn2_w[li] = rc(f1).T @ rc(df2)
-        dffn2_b[li] = df2.sum(0)
-        dz1 = (rc(df2) @ rc(ffn2_w).T) * (f1 > 0.0)
-        dffn1_w[li] = rc(hn2).T @ rc(dz1)
-        dffn1_b[li] = dz1.sum(0)
-        dx2, dln2_s[li], dln2_b[li] = _ln_bwd(rc(dz1) @ rc(ffn1_w).T, res["xhat2"], res["r2"],
-                                              ln2_s)
-        dh1 = dh + dx2
+        df2 = dropout(dh, seed, li, 1, rate)
+        dffn2_w[li] = product_plain(rc(res["f1"]), rc(df2), "tn", acc=acc)
+        dffn2_b[li] = column_sums_plain(df2)[0]
+        dz1, _ = product_plain(rc(df2), rc(ffn2_w), "nt", "gate", aux=res["f1"],
+                               acc=acc)
+        dffn1_w[li] = product_plain(rc(res["hn2"]), rc(dz1), "tn", acc=acc)
+        dffn1_b[li] = column_sums_plain(dz1)[0]
+        dn2 = product_plain(rc(dz1), rc(ffn1_w), "nt", acc=acc)
+        ds, db = column_sums_plain(dn2, "ln", x=res["xhat2"])
+        dln2_s[li], dln2_b[li] = ds[0], db[0]
+        dh = layer_norm_bwd_plain(dn2, res["xhat2"], res["r2"], ln2_s, dh)
         # attention branch
-        hn1 = res["xhat1"] * ln1_s + ln1_b
-        da1 = _dropout(dh1, seed, li, 0, rate)
-        dproj_w[li] = rc(res["ao"]).T @ rc(da1)
-        dproj_b[li] = da1.sum(0)
-        dao = _heads(rc(da1) @ rc(proj_w).T, b, s, num_heads)
-        q, k, v = (_heads(t, b, s, num_heads) for t in res["qkv"].split(e, -1))
-        p = res["p"]
-        dp = dao @ v.transpose(-1, -2)
-        dlog = p * (dp - (dp * p).sum(-1, keepdim=True)) * inv
-        dqkv = torch.cat([_merge(dlog @ k), _merge(dlog.transpose(-1, -2) @ q),
-                          _merge(p.transpose(-1, -2) @ dao)], dim=-1)
-        dqkv_w[li] = rc(hn1).T @ rc(dqkv)
-        dqkv_b[li] = dqkv.sum(0)
-        dx1, dln1_s[li], dln1_b[li] = _ln_bwd(rc(dqkv) @ rc(qkv_w).T, res["xhat1"], res["r1"],
-                                              ln1_s)
-        dh = dh1 + dx1
+        da1 = dropout(dh, seed, li, 0, rate)
+        dproj_w[li] = product_plain(rc(res["ao"]), rc(da1), "tn", acc=acc)
+        dproj_b[li] = column_sums_plain(da1)[0]
+        dao = product_plain(rc(da1), rc(proj_w), "nt", acc=acc)
+        dqkv, _ = attention_bwd_plain(res["qkv"], res["p"], dao, cd)
+        dqkv_w[li] = product_plain(rc(res["hn1"]), rc(dqkv), "tn", acc=acc)
+        dqkv_b[li] = column_sums_plain(dqkv)[0]
+        dn1 = product_plain(rc(dqkv), rc(qkv_w), "nt", acc=acc)
+        ds, db = column_sums_plain(dn1, "ln", x=res["xhat1"])
+        dln1_s[li], dln1_b[li] = ds[0], db[0]
+        dh = layer_norm_bwd_plain(dn1, res["xhat1"], res["r1"], ln1_s, dh)
     return (dh.reshape(b, s, e).to(cd), *grads)
 
 
-_LIB = None
-_BWD = None
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = build.load("sasrec_encoder")
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sasrec_encode_fwd.argtypes = [vp] * 16 + [i] * 5 + [f] * 3 + [i, vp]
-        lib.sasrec_encode_fwd.restype = i
-        lib.sasrec_encode_tile.argtypes = [i, i]
-        lib.sasrec_encode_tile.restype = i
-        _LIB = lib
-    return _LIB
-
-
-def _bwd_lib():
-    global _BWD
-    if _BWD is None:
-        lib = build.load("sasrec_encoder_bwd")
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sasrec_encode_bwd.argtypes = [vp] * 20 + [i] * 5 + [f] * 3 + [i] * 3 + [vp]
-        lib.sasrec_encode_bwd.restype = i
-        lib.sasrec_encode_bwd_tile.argtypes = [i, i, i]
-        lib.sasrec_encode_bwd_tile.restype = i
-        _BWD = lib
-    return _BWD
-
-
-def _check_dropout(seed, rate) -> None:
-    """The dropout arguments, on any device: 0 <= rate < 1, and a seed when
-    rate > 0."""
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
-    if rate > 0.0 and seed is None:
-        raise ValueError("dropout (rate > 0) needs a seed: an int64 tensor of shape (1,)")
+def check_envelope(s: int, e: int, num_heads: int, layers: int) -> None:
+    """Raise unless the kernels take (S, E, H, L)."""
+    if not (1 <= s <= MAX_S and e % 32 == 0 and e >= 32 and num_heads >= 1
+            and e % num_heads == 0 and (e // num_heads) % 4 == 0 and e // num_heads <= MAX_D
+            and layers >= 1):
+        raise ValueError(
+            f"outside the kernels' envelope (1 <= S <= {MAX_S}, E % 32 == 0, E >= 32, "
+            f"E % H == 0, E/H % 4 == 0, E/H <= {MAX_D}, L >= 1): S={s}, E={e}, H={num_heads}, "
+            f"L={layers}"
+        )
 
 
 def _check_envelope(what, x, amask, weights, num_heads, seed, rate):
@@ -328,12 +239,7 @@ def _check_envelope(what, x, amask, weights, num_heads, seed, rate):
         raise ValueError(f"expected {len(WEIGHT_NAMES)} stacked weights, got {len(weights)}")
     b, s, e = x.shape
     layers = weights[0].shape[0]
-    if not (1 <= s <= MAX_S and e % 32 == 0 and 32 <= e <= 128 and num_heads >= 1
-            and e % num_heads == 0 and layers >= 1):
-        raise ValueError(
-            f"outside the kernel's envelope (1 <= S <= {MAX_S}, E % 32 == 0, 32 <= E <= 128, "
-            f"E % H == 0, L >= 1): S={s}, E={e}, H={num_heads}, L={layers}"
-        )
+    check_envelope(s, e, num_heads, layers)
     want = {
         "qkv_w": (layers, e, 3 * e), "qkv_b": (layers, 3 * e), "proj_w": (layers, e, e),
         "proj_b": (layers, e), "ln1_s": (layers, e), "ln1_b": (layers, e),
@@ -356,8 +262,10 @@ def _check_envelope(what, x, amask, weights, num_heads, seed, rate):
     return b, s, e, layers
 
 
-def _seed_ptr(seed, rate) -> int | None:
-    return seed.data_ptr() if rate > 0.0 else None
+def _workspace(nbytes: int, device):
+    if nbytes == 0:
+        raise ValueError("outside the kernels' envelope")
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 def encode_fwd(x, amask, *weights, num_heads, seed=None, rate=0.0):
@@ -366,24 +274,23 @@ def encode_fwd(x, amask, *weights, num_heads, seed=None, rate=0.0):
     ``stack_weights``; with ``rate`` > 0 the dropout seed, an int64 tensor
     (1,) on x's device -> the encoded history (B, S, E) in x's dtype (pad
     rows hold what the layers left there)."""
-    _check_dropout(seed, rate)
+    check_dropout(seed, rate)
     if x.device.type == "cpu":
         return encode_fwd_plain(x, amask, *weights, num_heads=num_heads, seed=seed, rate=rate)
     b, s, e, layers = _check_envelope("encode_fwd", x, amask, weights, num_heads, seed, rate)
     out = torch.empty_like(x)
     if b == 0:
         return out
-    lib = _lib()
-    if lib.sasrec_encode_tile(s, e) < 1:
-        raise ValueError(f"encode_fwd: one history does not fit a block at S={s}, E={e}")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = fwd_lib()
+    ws = _workspace(lib.sasrec_encode_fwd_workspace(b, s, e, is_bf16(x)), x.device)
+    seed_ptr, rate, inv_keep = dropout_args(seed, rate)
     rc = lib.sasrec_encode_fwd(
-        x.data_ptr(), amask.data_ptr(), *(t.data_ptr() for t in weights), _seed_ptr(seed, rate),
-        out.data_ptr(), b, s, e, num_heads, layers, 1.0 / (e // num_heads) ** 0.5,
-        rate, 1.0 / (1.0 - rate), int(x.dtype == torch.bfloat16), stream,
+        x.data_ptr(), amask.data_ptr(), *(t.data_ptr() for t in weights), seed_ptr,
+        out.data_ptr(), ws.data_ptr(), b, s, e, num_heads, layers, 1.0 / (e // num_heads) ** 0.5,
+        rate, inv_keep, is_bf16(x), stream_of(x),
     )
     build.check(rc, "encode_fwd")
-    encode_fwd.launches += 1
+    encode_fwd.launches += fwd_launches(layers)
     return out
 
 
@@ -395,7 +302,7 @@ def encode_bwd(g, x, amask, *weights, num_heads, seed=None, rate=0.0):
     ``encode_fwd``'s output, x its input), amask (B, S), the 12 operands of
     ``stack_weights`` and the forward's seed and rate -> (dx in x's dtype,
     the 12 weight gradients fp32 in the shapes of the weights)."""
-    _check_dropout(seed, rate)
+    check_dropout(seed, rate)
     if x.device.type == "cpu":
         return encode_bwd_plain(g, x, amask, *weights, num_heads=num_heads, seed=seed,
                                 rate=rate)
@@ -407,25 +314,17 @@ def encode_bwd(g, x, amask, *weights, num_heads, seed=None, rate=0.0):
     out = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     if b > 0:
-        lib = _bwd_lib()
-        tb = lib.sasrec_encode_bwd_tile(s, e, num_heads)
-        if tb < 1:
-            raise ValueError(f"encode_bwd: one history does not fit a block at S={s}, E={e}")
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        grid = min(-(-b // tb), sms)
-        stride = -(-sum(sizes) // 4) * 4
-        rows = -(-tb * s // 4) * 4
-        part = torch.empty(grid * stride, dtype=torch.float32, device=x.device)
-        scratch = torch.empty(grid * layers * rows * e, dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        lib = bwd_lib()
+        ws = _workspace(lib.sasrec_encode_bwd_workspace(b, s, e, num_heads, layers, is_bf16(x)),
+                        x.device)
+        seed_ptr, rate, inv_keep = dropout_args(seed, rate)
         rc = lib.sasrec_encode_bwd(
             g.data_ptr(), x.data_ptr(), amask.data_ptr(), *(t.data_ptr() for t in weights),
-            _seed_ptr(seed, rate), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), b, s, e, num_heads, layers, 1.0 / (e // num_heads) ** 0.5,
-            rate, 1.0 / (1.0 - rate), int(x.dtype == torch.bfloat16), grid, stride, stream,
+            seed_ptr, dx.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s, e, num_heads, layers,
+            1.0 / (e // num_heads) ** 0.5, rate, inv_keep, is_bf16(x), stream_of(x),
         )
         build.check(rc, "encode_bwd")
-        encode_bwd.launches += 2  # the kernel and the partials' reduction
+        encode_bwd.launches += bwd_launches(layers)
     else:
         out.zero_()
     return (dx, *(t.view(w.shape) for t, w in zip(torch.split(out, sizes), weights)))
