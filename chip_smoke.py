@@ -31,6 +31,12 @@ Phases, in order; any failure exits non-zero and prints no result line.
    (768, 384) at E=128 and 256 (B=4133, 8192), the interaction backward at
    E=256 (B=4096, 4133, biases on and off, repeat bit-identical, the
    forward-rounding control rejected); "all" and "each", bf16 and fp32.
+   Beside every scoring case, each block of the scoring call
+   (ops/cuda/scoring.py) against its plain version on the plain version's
+   inputs: the front's concat in cd (within TOL["interaction_fwd"] and bit
+   for bit the interaction kernel's output in cd), both tower layers (the
+   tile product with its ReLU epilogue, within ENC_TOL and the bf16 norm
+   bar) and the head (within TOL["fused_score"]).
    The encoder at E=256 with the same bars and controls: the forward at
    H=2, L=1 (B=8192, 8229) and H=4, L=2 (B=4133), with and without
    dropout; the backward at H=2, L=1 (B=4096, 4133), rate 0 and 0.1. Then
@@ -46,19 +52,23 @@ Phases, in order; any failure exits non-zero and prints no result line.
    and torch.profiler's split of one encoder call into its kernels. Also,
    in bf16, the interaction kernels at E=256 and the scoring kernel at
    E=256 with (512, 256) and (1024, 512) and at E=128 with (1024, 512).
+   At each of those four widths one scoring call is split into its four
+   blocks (CUDA events a block, torch.profiler over the call), with cuBLAS
+   on layer 1's product alone (c @ W1, bf16) beside it as a yardstick.
 4. The serving main path at the full microlens_experiment() defaults
    (mm_fibinet, E=128, item vocab 91718, max_len 20, hidden (512, 256),
    bf16): seeded weights with perturbed BatchNorm stats, a seeded item
    store, 385,024 rows (47 x 8192) made with numpy; Predictor.score_table,
    then run_submission_pipeline from numpy chunks. Checks the CSV, the exact
    agreement of the two paths, the first 8192 rows against the same
-   Predictor on the CPU, and the scoring kernel's launch count on each path.
+   Predictor on the CPU, and the scoring call's launches on each path
+   (score_launches() a batch).
 5. The unfused branch (fold_bn=False) for a few batches: the interaction
    kernel runs and agrees with the fused branch. Then the sasrec_fibinet
    serving path at its full defaults (E=128, S=20, 2 heads, 1 layer, hidden
    (512, 256), bf16) on the same item store and rows: score_table and the
-   pipeline with exactly fwd_launches(1) encoder and one scoring launch a
-   batch, the CSV
+   pipeline with exactly fwd_launches(1) encoder and score_launches()
+   scoring launches a batch, the CSV
    identical to score_table, the encoder's share of one batch, the CPU
    Predictor on the first 8192 rows, and 4 unfused batches (encoder +
    interaction kernel) against the fused branch.
@@ -962,7 +972,50 @@ def forward_against_plain(torch, worst: dict, e: int, hidden, batches, seed_offs
                         f"max_abs_err={err:.3e} ({tol}) {'ok' if ok else f'FAIL ({bad} elements)'}")
                     if not ok:
                         failures.append((name, e, hidden, btype, dn, b))
+                failures += score_blocks_against_plain(torch, x, sw, w_bi, tower, btype,
+                                                       f"E={e} tower {hidden} {btype} {dn} B={b}")
     return failures
+
+
+def score_blocks_against_plain(torch, x, sw, w_bi, tower, btype: str, tag: str) -> list:
+    """Phase 2: each building block of the scoring call (ops/cuda/scoring.py)
+    against its plain version on the plain version's inputs: the front's
+    concat in cd within TOL["interaction_fwd"] and bit for bit the
+    interaction kernel's fp32 output rounded to cd (the same kernel body,
+    the values already in cd); each tower layer within ENC_TOL (and
+    ENC_NORM_TOL in bf16), the bars of the same tile product and epilogue in
+    the encoder; the head's probabilities within TOL["fused_score"].
+    Returns the failures."""
+    from ctr_recommendation_tpu_torch.ops.cuda import scoring as ks
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_fwd
+
+    dn = str(x.dtype).split(".")[1]
+    c_plain = ks.score_front_plain(x, *sw, w_bi, bilinear_type=btype)
+    h1_plain = ks.tower_layer_plain(c_plain, *tower[0:2])
+    h2_plain = ks.tower_layer_plain(h1_plain, *tower[2:4])
+    c = ks.score_front(x, *sw, w_bi, bilinear_type=btype)
+    same = torch.equal(c, interaction_fwd(x, *sw, w_bi, bilinear_type=btype).to(x.dtype))
+    got = {"layer 1": (ks.tower_layer(c_plain, *tower[0:2]), h1_plain),
+           "layer 2": (ks.tower_layer(h1_plain, *tower[2:4]), h2_plain)}
+    head = ks.score_head(h2_plain, *tower[4:6]), ks.score_head_plain(h2_plain, *tower[4:6])
+    torch.cuda.synchronize()
+    failures = []
+    err, bad, tol = check_close("interaction_fwd", c.float(), c_plain.float(), dn)
+    ok = bad == 0 and same
+    log(f"[compare] fused_score block front {tag}: max_abs_err={err:.3e} ({tol}), "
+        f"bit-identical to interaction_fwd in cd {same} {'ok' if ok else f'FAIL ({bad})'}")
+    failures += [] if ok else [("score front", tag)]
+    for name, (a, w) in got.items():
+        err, rel_norm, ok = check_encoder(torch, a, w, dn)
+        log(f"[compare] fused_score block {name} {tag}: max_abs_err={err:.3e}, |d|/|want| "
+            f"{rel_norm:.3e} (|d| <= {ENC_TOL[dn][0]:g}*max|want| + {ENC_TOL[dn][1]:g}*|want|"
+            f"{f', norm {ENC_NORM_TOL:g}' if dn == 'bfloat16' else ''}) {'ok' if ok else 'FAIL'}")
+        failures += [] if ok else [(f"score {name}", tag)]
+    err, bad, tol = check_close("fused_score", *head, dn)
+    ok = bad == 0 and bool(torch.isfinite(head[0]).all())
+    log(f"[compare] fused_score block head {tag}: max_abs_err={err:.3e} ({tol}) "
+        f"{'ok' if ok else f'FAIL ({bad})'}")
+    return failures + ([] if ok else [("score head", tag)])
 
 
 def backward_against_plain(torch, worst: dict, e: int, seed_offset: int = 0) -> list:
@@ -1049,6 +1102,8 @@ def mm_timing(torch, card, e: int, hidden, with_interaction: bool = True) -> dic
                                          "plain_ms": time_ms(torch, plain), **bound(nbytes, ops)}
             log(f"[time] {name} bf16 {btype}{width_tag(name, e, hidden)} B={B_FULL}: {t} "
                 f"(bytes {nbytes}, ops {ops}) on {card}")
+        if btype == "all":
+            score_split(torch, card, x, sw, w_bi, tower, width_tag("fused_score", e, hidden))
         del x, sw, w_bi, tower
     if not with_interaction:
         return timing
@@ -1068,6 +1123,27 @@ def mm_timing(torch, card, e: int, hidden, with_interaction: bool = True) -> dic
         log(f"[time] interaction_bwd bf16 {btype}{width_tag('interaction_bwd', e, HIDDEN)} "
             f"B={B_TRAIN}: {t} (bytes {nbytes}, ops {ops}) on {card}")
     return timing
+
+
+def score_split(torch, card, x, sw, w_bi, tower, tag: str) -> None:
+    """Phase 3: one bf16 scoring call at B=8192 split into its blocks, each
+    timed alone with CUDA events (wrapper included), and torch.profiler's
+    split of the whole call (both layers are one kernel there); beside layer
+    1, cuBLAS on the same product, c @ W1 in bf16 without bias or ReLU: a
+    yardstick of the product stage that the port never calls."""
+    from ctr_recommendation_tpu_torch.ops.cuda import scoring as ks
+
+    c = ks.score_front(x, *sw, w_bi)
+    h1 = ks.tower_layer(c, *tower[0:2])
+    h2 = ks.tower_layer(h1, *tower[2:4])
+    t = {"front": time_ms(torch, lambda: ks.score_front(x, *sw, w_bi)),
+         "layer 1": time_ms(torch, lambda: ks.tower_layer(c, *tower[0:2])),
+         "layer 2": time_ms(torch, lambda: ks.tower_layer(h1, *tower[2:4])),
+         "head": time_ms(torch, lambda: ks.score_head(h2, *tower[4:6])),
+         "cuBLAS c @ W1": time_ms(torch, lambda: torch.matmul(c, tower[0]))}
+    log(f"[split] fused_score bf16 all{tag} B={B_FULL}: ms a block {t} on {card}")
+    kernel_split(torch, lambda: ks.score_fwd(x, *sw, w_bi, *tower),
+                 f"fused_score bf16 all{tag} B={B_FULL}", card)
 
 
 def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_step: dict,
@@ -1110,8 +1186,8 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     names = lambda d: {fn.__name__: n for fn, n in d.items()}  # noqa: E731
     log(f"[train {tag}] fit_on_device: {steps} steps + {eval_batches} eval batches in "
         f"{t_fit:.3f} s; best valid auc {best_auc:.5f}; launches {names(launched)}, expected "
-        f"{names(expect)} (launches a call: interaction_bwd 2, encode_fwd 1 + 7 L, encode_bwd "
-        f"25 L + 1)")
+        f"{names(expect)} (launches a call: interaction_bwd 2, fused_score 4, encode_fwd 1 + 7 L, "
+        f"encode_bwd 25 L + 1)")
     losses = [h["train_loss"] for h in hist]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"{tag}: training loss not finite and falling: {losses}")
@@ -1159,10 +1235,11 @@ def serve_sasrec(torch, store, rows, card) -> int:
         fwd_launches,
         stack_weights,
     )
-    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
 
     exp = microlens_experiment(data_root="", model="sasrec_fibinet")
     per = fwd_launches(exp.model.attn_num_layers)  # the encoder's launches a batch
+    per_score = score_launches()  # the scoring call's
     fm = build_feature_map(exp.dataset)
     _, params, state = build_model(fm, exp.model, torch.Generator().manual_seed(1))
     rng = np.random.default_rng(8)
@@ -1187,9 +1264,9 @@ def serve_sasrec(torch, store, rows, card) -> int:
     t_bulk = time.perf_counter() - t0
     log(f"[sasrec] score_table: {N_ROWS} rows in {t_bulk:.4f} s = {N_ROWS / t_bulk:.0f} rows/s "
         f"on {card}; launches (encode_fwd, fused_score, interaction_fwd) {counts()}")
-    if counts() != (n_batches * per, n_batches, 0):
+    if counts() != (n_batches * per, n_batches * per_score, 0):
         raise SystemExit(f"sasrec score_table launches {counts()}, expected "
-                         f"({n_batches * per}, {n_batches}, 0)")
+                         f"({n_batches * per}, {n_batches * per_score}, 0)")
     if bulk.shape != (N_ROWS,) or not ((bulk > 0) & (bulk < 1)).all():
         raise SystemExit("sasrec score_table probabilities not in (0, 1) of shape (N,)")
 
@@ -1204,7 +1281,7 @@ def serve_sasrec(torch, store, rows, card) -> int:
         pipe_launches = counts()
         log(f"[sasrec] pipeline: {written} rows in {t_pipe:.4f} s = {written / t_pipe:.0f} "
             f"rows/s to CSV+zip on {card}; launches {pipe_launches}")
-        if pipe_launches != (n_batches * per, n_batches, 0):
+        if pipe_launches != (n_batches * per, n_batches * per_score, 0):
             raise SystemExit(f"sasrec pipeline launches {pipe_launches}")
         check_submission(written, csv_path, zip_path, bulk, "sasrec")
 
@@ -1263,7 +1340,7 @@ def main() -> int:
         return 1
     from ctr_recommendation_tpu_torch.ops.cuda import build
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
-    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
 
     # ---- phase 1: card, build ----
     smi = subprocess.run(
@@ -1309,13 +1386,6 @@ def main() -> int:
 
     # ---- phase 3: timing at the main path's shapes (bf16, B=8192) ----
     timing = mm_timing(torch, card, E, HIDDEN)
-    cdim = (F + F * (F - 1) // 2) * E
-    c = torch.randn(B_FULL, cdim, device="cuda", dtype=torch.bfloat16)
-    w1 = torch.randn(cdim, HIDDEN[0], device="cuda", dtype=torch.bfloat16)
-    mm_ms = time_ms(torch, lambda: torch.matmul(c, w1))
-    log(f"[time] yardstick, not the same function: one bf16 torch.matmul "
-        f"({B_FULL}x{cdim})x({cdim}x{HIDDEN[0]}) {mm_ms:.4f} ms on {card}")
-    del c, w1
     mm_timing(torch, card, WIDE_E, HIDDEN)
     mm_timing(torch, card, WIDE_E, WIDE_HIDDEN, with_interaction=False)
     mm_timing(torch, card, E, WIDE_HIDDEN, with_interaction=False)
@@ -1359,9 +1429,9 @@ def main() -> int:
     bulk_launches = score_fwd.launches
     log(f"[main] score_table: {N_ROWS} rows in {t_bulk:.4f} s = {N_ROWS / t_bulk:.0f} rows/s "
         f"on {card}; fused_score launches {bulk_launches}")
-    if bulk_launches != n_batches or interaction_fwd.launches != 0:
+    if bulk_launches != n_batches * score_launches() or interaction_fwd.launches != 0:
         raise SystemExit(f"score_table launched {bulk_launches} scoring kernels, "
-                         f"expected {n_batches}")
+                         f"expected {n_batches} x {score_launches()}")
     if bulk.shape != (N_ROWS,) or not np.isfinite(bulk).all():
         raise SystemExit("score_table output is not finite of shape (N,)")
     if not ((bulk > 0) & (bulk < 1)).all():
@@ -1381,9 +1451,9 @@ def main() -> int:
         pipe_launches = score_fwd.launches
         log(f"[main] pipeline: {written} rows in {t_pipe:.4f} s = {written / t_pipe:.0f} rows/s "
             f"to CSV+zip on {card}; fused_score launches {pipe_launches}")
-        if pipe_launches != n_batches:
+        if pipe_launches != n_batches * score_launches():
             raise SystemExit(f"pipeline launched {pipe_launches} scoring kernels, "
-                             f"expected {n_batches}")
+                             f"expected {n_batches} x {score_launches()}")
         check_submission(written, csv_path, zip_path, bulk, "main")
 
     where_the_time_goes(torch, pred, rows, bulk, card)
@@ -1438,7 +1508,7 @@ def main() -> int:
                                         checkpoint_dir=os.path.join(root, "ckpt")),
             train, valid, train_store, root, card, counted,
             per_step={interaction_fwd: 1, interaction_bwd: 2}, per_eval={interaction_fwd: 1},
-            per_serve={score_fwd: 1})
+            per_serve={score_fwd: score_launches()})
         sasrec_exp = microlens_experiment(data_root="", model="sasrec_fibinet",
                                           epochs=TRAIN_EPOCHS,
                                           checkpoint_dir=os.path.join(root, "ckpt_sasrec"))
@@ -1451,7 +1521,7 @@ def main() -> int:
             per_step={interaction_fwd: 1, interaction_bwd: 2, encode_fwd: enc_fwd,
                       encode_bwd: enc_bwd},
             per_eval={interaction_fwd: 1, encode_fwd: enc_fwd},
-            per_serve={score_fwd: 1, encode_fwd: enc_fwd})
+            per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd})
         # ---- phase 6d: sasrec_emb_256 (sasrec_fibinet at E=256) ----
         wide_sasrec = microlens_experiment(data_root="", model="sasrec_fibinet",
                                            epochs=TRAIN_EPOCHS, embedding_dim=WIDE_E,
@@ -1461,7 +1531,7 @@ def main() -> int:
             per_step={interaction_fwd: 1, interaction_bwd: 2, encode_fwd: enc_fwd,
                       encode_bwd: enc_bwd},
             per_eval={interaction_fwd: 1, encode_fwd: enc_fwd},
-            per_serve={score_fwd: 1, encode_fwd: enc_fwd}, tag="sasrec_emb_256")
+            per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd}, tag="sasrec_emb_256")
         # ---- phase 6c: emb_256_tower1024 (E=256, tower (1024, 512)) ----
         wide_exp = microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
                                         embedding_dim=WIDE_E, hidden_units=WIDE_HIDDEN,
@@ -1469,7 +1539,7 @@ def main() -> int:
         train_and_serve(
             torch, wide_exp, train, valid, train_store, root, card, counted,
             per_step={interaction_fwd: 1, interaction_bwd: 2}, per_eval={interaction_fwd: 1},
-            per_serve={score_fwd: 1}, tag="emb_256_tower1024")
+            per_serve={score_fwd: score_launches()}, tag="emb_256_tower1024")
     train_fwd, train_bwd = mm[interaction_fwd], mm[interaction_bwd]
     enc_bwd_launches = sasrec[encode_bwd]
 

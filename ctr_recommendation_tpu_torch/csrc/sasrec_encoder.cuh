@@ -96,19 +96,8 @@ struct Dropout {
   }
 };
 
-// Two neighbouring elements (p 8-byte aligned for fp32, 4 for bf16).
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
+using mma::load2;
+using mma::store2;
 
 // ---- epilogues of the tile product: (row, col, split, fp32 sum) ----
 // Each has a single-element form and a pair form for columns c, c + 1 (c
@@ -137,19 +126,7 @@ struct EpiBias {  // out = acc + bias (qkv: fp32, not rounded)
   }
 };
 
-template <typename T>
-struct EpiRelu {  // out = cd(relu(acc + bias)): f1, the FFN's hidden
-  T* out;
-  int ld;
-  const float* bias;
-  __device__ void operator()(int r, int c, int, float v) const {
-    out[static_cast<size_t>(r) * ld + c] = from_f<T>(fmaxf(v + bias[c], 0.f));
-  }
-  __device__ void pair(int r, int c, int, float v0, float v1) const {
-    store2(out + static_cast<size_t>(r) * ld + c, fmaxf(v0 + bias[c], 0.f),
-           fmaxf(v1 + bias[c + 1], 0.f));
-  }
-};
+using mma::EpiRelu;  // f1 = cd(relu(acc + bias)), the FFN's hidden
 
 // The residual add into the fp32 stream: h + drop(acc + bias), dropout site
 // (layer, branch) keyed by the global token r; written back into h, or

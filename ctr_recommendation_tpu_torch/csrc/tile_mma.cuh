@@ -1,5 +1,6 @@
 // One hand-written tile product for Hopper (sm_90a), shared by the SASRec
-// encoder's forward and backward (sasrec_encoder.cuh):
+// encoder's forward and backward (sasrec_encoder.cuh) and the scoring
+// tower's two hidden layers (scoring.cu):
 //
 //   C[m, n] = sum over k in a split of A(m, k) B(k, n),  then epi(m, n, z, C)
 //
@@ -225,6 +226,38 @@ struct Core<float, A_KM, B_KM> {
         const int r = m0 + tm + 16 * i, c = n0 + tn + 16 * j;
         if (r < M && c < N) epi(r, c, z, static_cast<float>(acc[i][j]));
       }
+  }
+};
+
+// Two neighbouring elements (p 8-byte aligned for fp32, 4 for bf16).
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The epilogue of a dense layer, out = cd(relu(acc + bias)) with fp32 bias,
+// (row, col, split, fp32 sum), and its pair form for columns c, c + 1 (c
+// even): the encoder's FFN hidden f1 and both hidden layers of the scoring
+// tower.
+template <typename T>
+struct EpiRelu {
+  T* out;
+  int ld;
+  const float* bias;
+  __device__ void operator()(int r, int c, int, float v) const {
+    out[static_cast<size_t>(r) * ld + c] = from_f<T>(fmaxf(v + bias[c], 0.f));
+  }
+  __device__ void pair(int r, int c, int, float v0, float v1) const {
+    store2(out + static_cast<size_t>(r) * ld + c, fmaxf(v0 + bias[c], 0.f),
+           fmaxf(v1 + bias[c + 1], 0.f));
   }
 };
 

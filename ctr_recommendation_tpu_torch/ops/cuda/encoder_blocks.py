@@ -33,7 +33,12 @@ import ctypes
 import torch
 
 from ctr_recommendation_tpu_torch.ops.cuda import build
-from ctr_recommendation_tpu_torch.ops.cuda.interaction import check_kernel_args
+from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+    check_kernel_args,
+    cuda_only,
+    is_bf16,
+    stream_of,
+)
 
 LN_EPS = 1e-6
 MAX_S = 32
@@ -267,23 +272,8 @@ def bwd_lib():
     return _BWD
 
 
-def stream_of(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
-
-
-def is_bf16(t) -> int:
-    return int(t.dtype == torch.bfloat16)
-
-
-def _cuda_only(what, t):
-    if t.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {t.device}")
-    if t.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"{what}: operands must be bfloat16 or float32, got {t.dtype}")
 
 
 def check_dropout(seed, rate) -> None:
@@ -316,7 +306,7 @@ def product(a, b, layout="nn", epilogue="store", *, bias=None, aux=None, seed=No
               out_dtype=out_dtype, chunk=chunk)
     if a.device.type == "cpu":
         return product_plain(a, b, layout, epilogue, **kw)
-    _cuda_only("product", a)
+    cuda_only("product", a)
     check_kernel_args({"a": (a, None), "b": (b, None)}, a.dtype, a.device)
     m, k = a.shape if layout != "tn" else a.shape[::-1]
     n = b.shape[0] if layout == "nt" else b.shape[1]
@@ -357,7 +347,7 @@ def layer_norm(h, scale, bias, cd, residues=False):
     """``layer_norm_plain`` on CPU tensors, the LayerNorm kernel on CUDA."""
     if h.device.type == "cpu":
         return layer_norm_plain(h, scale, bias, cd, residues)
-    _cuda_only("layer_norm", h)
+    cuda_only("layer_norm", h)
     n, e = h.shape
     out = torch.empty(n, e, dtype=cd, device=h.device)
     xhat = torch.empty(n, e, device=h.device) if residues else None
@@ -373,7 +363,7 @@ def layer_norm_bwd(dn, xhat, rstd, scale, dh):
     """``layer_norm_bwd_plain`` on CPU tensors, the kernel on CUDA (fp32 out)."""
     if dn.device.type == "cpu":
         return layer_norm_bwd_plain(dn, xhat, rstd, scale, dh)
-    _cuda_only("layer_norm_bwd", dn)
+    cuda_only("layer_norm_bwd", dn)
     out = torch.empty_like(dh)
     rc = bwd_lib().sasrec_layer_norm_bwd(
         dn.data_ptr(), xhat.data_ptr(), rstd.data_ptr(), scale.data_ptr(), dh.data_ptr(),
@@ -386,7 +376,7 @@ def attention_fwd(qkv, amask, num_heads, cd):
     """``attention_fwd_plain`` on CPU tensors, the kernel on CUDA."""
     if qkv.device.type == "cpu":
         return attention_fwd_plain(qkv, amask, num_heads, cd)
-    _cuda_only("attention_fwd", qkv)
+    cuda_only("attention_fwd", qkv)
     b, s = amask.shape
     e = qkv.shape[1] // 3
     ao = torch.empty(b * s, e, dtype=cd, device=qkv.device)
@@ -402,7 +392,7 @@ def attention_bwd(qkv, p, dao, cd):
     """``attention_bwd_plain`` on CPU tensors, the kernel on CUDA."""
     if qkv.device.type == "cpu":
         return attention_bwd_plain(qkv, p, dao, cd)
-    _cuda_only("attention_bwd", qkv)
+    cuda_only("attention_bwd", qkv)
     b, h, s, _ = p.shape
     e = dao.shape[1]
     dqkv = torch.empty_like(qkv)
@@ -423,7 +413,7 @@ def column_sums(g, mode="sum", *, x=None, seed=None, rate=0.0, layer=0, branch=0
     kw = dict(x=x, seed=seed, rate=rate, layer=layer, branch=branch, cd=cd, chunk=chunk)
     if g.device.type == "cpu":
         return column_sums_plain(g, mode, **kw)
-    _cuda_only("column_sums", g)
+    cuda_only("column_sums", g)
     n, c = g.shape
     chunk = chunk or n
     z = -(-n // chunk)

@@ -84,6 +84,23 @@ def _kernel_lib():
 ENVELOPE = "F >= 2, E % 8 == 0 and a row tile of 4 within a block's 227 KB of shared memory"
 
 
+def stream_of(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def is_bf16(t) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def cuda_only(what, t) -> None:
+    """Raise unless t, a wrapper's operand past its CPU branch, is a bf16 or
+    fp32 CUDA tensor."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {t.device}")
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: operands must be bfloat16 or float32, got {t.dtype}")
+
+
 def check_kernel_args(tensors: dict, dtype: torch.dtype, device) -> None:
     """Device, dtype, contiguity and 16-byte alignment of kernel operands;
     ``tensors`` maps name -> (tensor, expected dtype or None for ``dtype``)."""
@@ -123,8 +140,8 @@ def interaction_fwd(x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     ):
         raise ValueError("SENet / bilinear weight shapes do not match x")
     lib = _kernel_lib()
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    if lib.interaction_fwd_tile_rows(f, e, r, is_bf16) == 0:
+    bf16 = is_bf16(x)
+    if lib.interaction_fwd_tile_rows(f, e, r, bf16) == 0:
         raise ValueError(f"interaction_fwd needs {ENVELOPE}; got F={f}, E={e}, {x.dtype}")
     f32 = torch.float32
     check_kernel_args(
@@ -135,11 +152,10 @@ def interaction_fwd(x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     out = torch.empty(b, (f + f * (f - 1) // 2) * e, dtype=f32, device=x.device)
     if b == 0:
         return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.interaction_fwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w_bi.data_ptr(), out.data_ptr(), b, f, e, r, is_bf16, int(bilinear_type == "each"),
-        stream,
+        w_bi.data_ptr(), out.data_ptr(), b, f, e, r, bf16, int(bilinear_type == "each"),
+        stream_of(x),
     )
     build.check(rc, "interaction_fwd")
     interaction_fwd.launches += 1
@@ -257,8 +273,8 @@ def interaction_bwd(g, x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     dx = torch.empty_like(x)
     if b > 0:
         lib = _bwd_fns()
-        is_bf16 = int(x.dtype == torch.bfloat16)
-        tb = lib.interaction_bwd_tile_rows(f, e, r, is_bf16, int(each))
+        bf16 = is_bf16(x)
+        tb = lib.interaction_bwd_tile_rows(f, e, r, bf16, int(each))
         if tb < 4:
             raise ValueError(f"interaction_bwd needs {ENVELOPE}; got F={f}, E={e}, {x.dtype}")
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -269,7 +285,7 @@ def interaction_bwd(g, x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
         rc = lib.interaction_bwd(
             g.data_ptr(), x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), w_bi.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
-            b, f, e, r, is_bf16, int(each), grid, stride, stream,
+            b, f, e, r, bf16, int(each), grid, stride, stream,
         )
         build.check(rc, "interaction_bwd")
         interaction_bwd.launches += 2  # the kernel and the partials' reduction

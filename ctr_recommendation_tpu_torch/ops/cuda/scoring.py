@@ -4,22 +4,35 @@ Replaces ctr_recommendation_tpu/ops/pallas/scoring.py::_kernel (:36),
 reached through ``fused_score`` (:196), with its "all" and "each" bodies.
 
 Bound on an H100: operations. At B=8192 the BatchNorm-folded tower
-2688 -> 512 -> 256 -> 1 is 26 GFLOP against ~15 MB of input, output and
-weights. The TPU kernel holds the (TB, 21E) concat and all of W1 in VMEM;
-an H100 block has 227 KB of shared memory, so the kernel streams the concat
-in E-wide chunks, each built in shared memory and multiplied at once into an
-h1 accumulator held in registers, with W1 staged from L2, in column passes
-of 512 h1 columns. The three tower products are fp32 FMA in the kernel;
-moving them to the tensor cores is later work.
+2688 -> 512 -> 256 -> 1 is 26 GFLOP (26.3 us at 989 TFLOP/s bf16) against
+~15 MB of input, output and weights. The TPU kernel holds the (TB, 21E)
+concat and all of W1 in VMEM; an H100 block has 227 KB of shared memory, so
+one call here is a sequence of four launches (``score_launches()``), each a
+building block with its own wrapper and plain version:
 
-``score_fwd`` is the wrapper: on a CUDA tensor it launches the kernel (or
-raises), on a CPU tensor it runs ``score_fwd_plain``, the same function in
-plain PyTorch with the same rounding points. Its ``launches`` attribute
-counts kernel launches. Like the TPU kernel, it reads the tower's widths
-from the weights and takes any two-layer tower; its envelope (``ENVELOPE``)
-adds H1 % 32 == 0, H2 % 8 == 0, E % 32 == 0 and a row tile of 8 that fits
-shared memory, which holds the recorded towers (512, 256), (1024, 512) and
-(768, 384) at E=128 and 256 in bf16 and fp32.
+1. ``score_front``: the interaction kernel of csrc/interaction.cuh writing
+   the concat c = [S | pairs] (B, 21E) in the tower dtype cd;
+2. ``tower_layer``: h1 = cd(relu(c W1 + b1)), the tile product of
+   csrc/tile_mma.cuh (bf16: ``ldmatrix`` / ``mma.sync`` on the tensor
+   cores, 128 x 128 tiles, fp32 accumulators; fp32: CUDA-core FMA with fp64
+   accumulators) with a fused bias + ReLU + rounding epilogue;
+3. ``tower_layer`` again: h2 = cd(relu(h1 W2 + b2));
+4. ``score_head``: sigmoid(h2 w3 + b3), one warp a row.
+
+``score_fwd`` enqueues the four in one C call and allocates c, h1 and h2
+(the kernels allocate nothing). Envelope (``ENVELOPE``, ``check_envelope``):
+F >= 2, E % 8 == 0, any two-layer tower with H1 % 8 == 0 and H2 % 8 == 0
+(read from the weights, as the TPU kernel reads them), any B, and a front
+row tile of 4 that fits shared memory; that holds the recorded towers
+(512, 256), (1024, 512) and (768, 384) at E=128 and 256 in bf16 and fp32.
+Left for later: ``wgmma`` with TMA-staged tiles, and the front fused into
+layer 1's operand staging so that c never reaches device memory.
+
+Each wrapper, on a CUDA tensor, launches its kernel (or raises); on a CPU
+tensor it runs its plain PyTorch version with the same rounding points.
+``score_fwd_plain`` is the composition of the blocks' plain versions. The
+wrappers' ``launches`` attributes count kernel launches: ``score_fwd``'s
+``score_launches()`` a call, each block's one.
 """
 
 from __future__ import annotations
@@ -30,15 +43,52 @@ import torch
 
 from ctr_recommendation_tpu_torch.ops.cuda import build
 from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
-    senet_bilinear_parts,
     check_kernel_args,
+    cuda_only,
+    is_bf16,
+    senet_bilinear_parts,
     senet_weights,
+    stream_of,
 )
 
 ENVELOPE = (
-    "F >= 2, E % 32 == 0, a 2-layer tower with H1 % 32 == 0 and H2 % 8 == 0, and a row "
-    "tile of 8 within a block's 227 KB of shared memory"
+    "F >= 2, E % 8 == 0, a 2-layer tower with H1 % 8 == 0 and H2 % 8 == 0, and a front "
+    "row tile of 4 within a block's 227 KB of shared memory"
 )
+
+
+def score_launches() -> int:
+    """Kernel launches of one ``score_fwd`` call: the front, the two tower
+    layers and the head."""
+    return 4
+
+
+def check_envelope(f: int, e: int, h1: int, h2: int) -> None:
+    """Raise unless the kernels take F fields of width E and the tower
+    (H1, H2); the front's shared-memory fit is checked at launch."""
+    if f < 2 or e < 8 or e % 8 or h1 < 8 or h1 % 8 or h2 < 8 or h2 % 8:
+        raise ValueError(f"fused_score needs {ENVELOPE}; got F={f}, E={e}, tower {(h1, h2)}")
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def score_front_plain(x, sw1, sb1, sw2, sb2, w_bi, *, bilinear_type="all"):
+    """x (B, F, E) in cd -> the concat [S | pairs] (B, (F + F(F-1)/2) E) in cd."""
+    b = x.shape[0]
+    s, p = senet_bilinear_parts(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type)
+    return torch.cat([s.reshape(b, -1), p.reshape(b, -1)], dim=-1)
+
+
+def tower_layer_plain(a, w, bias):
+    """cd(relu(a w + bias)): a (M, K), w (K, N) in cd, bias (N,) fp32; the
+    product accumulated in fp32."""
+    return torch.relu(a.float() @ w.float() + bias.float()).to(a.dtype)
+
+
+def score_head_plain(h2, w3, b3):
+    """sigmoid(h2 w3 + b3) -> (B,) fp32: h2 (B, H2), w3 (H2, 1) in cd, b3 (1,)."""
+    return torch.sigmoid(h2.float() @ w3.float() + b3.float())[:, 0]
 
 
 def score_fwd_plain(
@@ -47,15 +97,11 @@ def score_fwd_plain(
     """Plain PyTorch version: x (B, F, E) in the tower dtype cd -> (B,) fp32.
     The concat is cd; every product accumulates in fp32; h1 and h2 are cast
     to cd before the next product; biases and the sigmoid are fp32."""
-    b = x.shape[0]
-    cd = x.dtype
-    s, p = senet_bilinear_parts(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type)
-    c = torch.cat([s.reshape(b, -1), p.reshape(b, -1)], dim=-1)
-    h1 = torch.relu(c.float() @ w1.float() + b1.float()).to(cd)
-    h2 = torch.relu(h1.float() @ w2.float() + b2.float()).to(cd)
-    logit = h2.float() @ w3.float() + b3.float()
-    return torch.sigmoid(logit)[:, 0]
+    c = score_front_plain(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type=bilinear_type)
+    return score_head_plain(tower_layer_plain(tower_layer_plain(c, w1, b1), w2, b2), w3, b3)
 
+
+# ---------------------------------------------------------------- the kernels
 
 _LIB = None
 
@@ -65,12 +111,109 @@ def _kernel_lib():
     if _LIB is None:
         lib = build.load("scoring")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_score.argtypes = [vp] * 13 + [i] * 8 + [vp]
-        lib.fused_score.restype = i
-        lib.fused_score_tile_rows.argtypes = [i] * 6
-        lib.fused_score_tile_rows.restype = i
+        lib.score_front_tile_rows.argtypes = [i] * 4
+        lib.score_front_tile_rows.restype = i
+        lib.score_front.argtypes = [vp] * 7 + [i] * 6 + [vp]
+        lib.score_layer.argtypes = [vp] * 4 + [i] * 4 + [vp]
+        lib.score_head.argtypes = [vp] * 4 + [i] * 3 + [vp]
+        lib.fused_score.argtypes = [vp] * 16 + [i] * 8 + [vp]
+        for fn in (lib.score_front, lib.score_layer, lib.score_head, lib.fused_score):
+            fn.restype = i
         _LIB = lib
     return _LIB
+
+
+def _front_args(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type):
+    """Shapes, dtypes and the front's row tile of the front's operands
+    (CUDA); returns (B, F, E, R)."""
+    if bilinear_type not in ("all", "each"):
+        raise ValueError(f"bilinear_type must be 'all' or 'each', got {bilinear_type!r}")
+    b, f, e = x.shape
+    if f < 2 or e % 8:
+        raise ValueError(f"fused_score needs {ENVELOPE}; got F={f}, E={e}")
+    r = sw1.shape[1]
+    wbi_shape = (e, e) if bilinear_type == "all" else (f - 1, e, e)
+    shapes = {"sw1": (sw1, (f, r)), "sb1": (sb1, (r,)), "sw2": (sw2, (r, f)),
+              "sb2": (sb2, (f,)), "w_bi": (w_bi, wbi_shape)}
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
+    f32 = torch.float32
+    check_kernel_args(
+        {"x": (x, None), "sw1": (sw1, f32), "sb1": (sb1, f32), "sw2": (sw2, f32),
+         "sb2": (sb2, f32), "w_bi": (w_bi, None)},
+        x.dtype, x.device,
+    )
+    if _kernel_lib().score_front_tile_rows(f, e, r, is_bf16(x)) == 0:
+        raise ValueError(
+            f"fused_score needs {ENVELOPE}; got F={f}, E={e}, {x.dtype}: no front row tile fits")
+    return b, f, e, r
+
+
+def score_front(x, sw1, sb1, sw2, sb2, w_bi, *, bilinear_type="all"):
+    """Block 1: x (B, F, E) in cd (bf16/fp32), SENet weights fp32, w_bi in
+    cd -> the concat c (B, (F + F(F-1)/2) E) in cd."""
+    if x.device.type == "cpu":
+        return score_front_plain(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type=bilinear_type)
+    cuda_only("score_front", x)
+    b, f, e, r = _front_args(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type)
+    c = torch.empty(b, (f + f * (f - 1) // 2) * e, dtype=x.dtype, device=x.device)
+    if b == 0:
+        return c
+    rc = _kernel_lib().score_front(
+        *(t.data_ptr() for t in (x, sw1, sb1, sw2, sb2, w_bi)), c.data_ptr(),
+        b, f, e, r, is_bf16(x), int(bilinear_type == "each"), stream_of(x))
+    build.check(rc, "score_front")
+    score_front.launches += 1
+    return c
+
+
+def tower_layer(a, w, bias):
+    """Blocks 2-3: cd(relu(a w + bias)), a (M, K) and w (K, N) in cd (bf16 /
+    fp32), bias (N,) fp32; N and K multiples of 8."""
+    if a.device.type == "cpu":
+        return tower_layer_plain(a, w, bias)
+    cuda_only("tower_layer", a)
+    m, k = a.shape
+    n = w.shape[1]
+    if tuple(w.shape) != (k, n) or tuple(bias.shape) != (n,):
+        raise ValueError(f"tower_layer: a {tuple(a.shape)}, w {tuple(w.shape)}, bias "
+                         f"{tuple(bias.shape)} do not chain")
+    if n % 8 or k % 8:
+        raise ValueError(f"tower_layer needs N % 8 == 0 and K % 8 == 0; got N={n}, K={k}")
+    check_kernel_args({"a": (a, None), "w": (w, None), "bias": (bias, torch.float32)},
+                      a.dtype, a.device)
+    out = torch.empty(m, n, dtype=a.dtype, device=a.device)
+    if m == 0:
+        return out
+    rc = _kernel_lib().score_layer(a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                   m, n, k, is_bf16(a), stream_of(a))
+    build.check(rc, "tower_layer")
+    tower_layer.launches += 1
+    return out
+
+
+def score_head(h2, w3, b3):
+    """Block 4: sigmoid(h2 w3 + b3) -> (B,) fp32; h2 (B, H2), w3 (H2, 1) in
+    cd (bf16 / fp32), b3 (1,) fp32; H2 % 8 == 0."""
+    if h2.device.type == "cpu":
+        return score_head_plain(h2, w3, b3)
+    cuda_only("score_head", h2)
+    b, h = h2.shape
+    if tuple(w3.shape) != (h, 1) or tuple(b3.shape) != (1,):
+        raise ValueError(f"score_head: w3 {tuple(w3.shape)}, b3 {tuple(b3.shape)} for H2={h}")
+    if h % 8:
+        raise ValueError(f"score_head needs H2 % 8 == 0; got H2={h}")
+    check_kernel_args({"h2": (h2, None), "w3": (w3, None), "b3": (b3, torch.float32)},
+                      h2.dtype, h2.device)
+    out = torch.empty(b, dtype=torch.float32, device=h2.device)
+    if b == 0:
+        return out
+    rc = _kernel_lib().score_head(h2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+                                  b, h, is_bf16(h2), stream_of(h2))
+    build.check(rc, "score_head")
+    score_head.launches += 1
+    return out
 
 
 def score_fwd(
@@ -78,57 +221,47 @@ def score_fwd(
 ):
     """x (B, F, E) in the tower dtype (bf16/fp32); SENet weights fp32; w_bi,
     w1 (C, H1), w2 (H1, H2), w3 (H2, 1) in x's dtype; b1, b2, b3 fp32 ->
-    click probabilities (B,) fp32."""
+    click probabilities (B,) fp32. On a card: the four blocks, enqueued by
+    one C call (``score_launches()`` launches)."""
     args = (x, sw1, sb1, sw2, sb2, w_bi, w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
         return score_fwd_plain(*args, bilinear_type=bilinear_type)
-    if x.device.type != "cuda":
-        raise ValueError(f"score_fwd runs on CUDA or CPU tensors, got {x.device}")
-    if bilinear_type not in ("all", "each"):
-        raise ValueError(f"bilinear_type must be 'all' or 'each', got {bilinear_type!r}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
-    b, f, e = x.shape
-    r = sw1.shape[1]
+    cuda_only("score_fwd", x)
     h1, h2 = w1.shape[1], w2.shape[1]
-    if f < 2 or e % 32 or h1 % 32 or h2 % 8:
-        raise ValueError(f"fused_score needs {ENVELOPE}; got F={f}, E={e}, tower {(h1, h2)}")
+    check_envelope(x.shape[1], x.shape[2], h1, h2)
+    b, f, e, r = _front_args(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type)
     cdim = (f + f * (f - 1) // 2) * e
-    wbi_shape = (e, e) if bilinear_type == "all" else (f - 1, e, e)
-    shapes = {
-        "sw1": (sw1, (f, r)), "sb1": (sb1, (r,)), "sw2": (sw2, (r, f)), "sb2": (sb2, (f,)),
-        "w_bi": (w_bi, wbi_shape), "w1": (w1, (cdim, h1)), "b1": (b1, (h1,)),
-        "w2": (w2, (h1, h2)), "b2": (b2, (h2,)), "w3": (w3, (h2, 1)), "b3": (b3, (1,)),
-    }
+    shapes = {"w1": (w1, (cdim, h1)), "b1": (b1, (h1,)), "w2": (w2, (h1, h2)),
+              "b2": (b2, (h2,)), "w3": (w3, (h2, 1)), "b3": (b3, (1,))}
     for name, (t, want) in shapes.items():
         if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
     f32 = torch.float32
     check_kernel_args(
-        {"x": (x, None), "sw1": (sw1, f32), "sb1": (sb1, f32), "sw2": (sw2, f32),
-         "sb2": (sb2, f32), "w_bi": (w_bi, None), "w1": (w1, None), "b1": (b1, f32),
-         "w2": (w2, None), "b2": (b2, f32), "w3": (w3, None), "b3": (b3, f32)},
+        {"w1": (w1, None), "b1": (b1, f32), "w2": (w2, None), "b2": (b2, f32),
+         "w3": (w3, None), "b3": (b3, f32)},
         x.dtype, x.device,
     )
-    lib = _kernel_lib()
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    if lib.fused_score_tile_rows(f, e, r, h1, h2, is_bf16) == 0:
-        raise ValueError(
-            f"fused_score needs {ENVELOPE}; got F={f}, E={e}, tower {(h1, h2)}, {x.dtype}")
     out = torch.empty(b, dtype=f32, device=x.device)
     if b == 0:
         return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.fused_score(
-        *(t.data_ptr() for t in args), out.data_ptr(),
-        b, f, e, r, h1, h2, is_bf16, int(bilinear_type == "each"), stream,
+    c = torch.empty(b, cdim, dtype=x.dtype, device=x.device)
+    s1 = torch.empty(b, h1, dtype=x.dtype, device=x.device)
+    s2 = torch.empty(b, h2, dtype=x.dtype, device=x.device)
+    rc = _kernel_lib().fused_score(
+        *(t.data_ptr() for t in (*args, c, s1, s2, out)),
+        b, f, e, r, h1, h2, is_bf16(x), int(bilinear_type == "each"),
+        stream_of(x),
     )
     build.check(rc, "fused_score")
-    score_fwd.launches += 1
+    score_fwd.launches += score_launches()
     return out
 
 
 score_fwd.launches = 0
+score_front.launches = 0
+tower_layer.launches = 0
+score_head.launches = 0
 
 
 def prepare_score_params(
