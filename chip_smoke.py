@@ -43,7 +43,12 @@ Phases, in order; any failure exits non-zero and prints no result line.
    each building block of the encoder kernels (encoder_blocks: the tile
    product in its six uses, LayerNorm and its backward, attention and its
    backward, the column sums, the partial reduction) against its plain
-   version at full width, E=128 and 256, bf16 and fp32.
+   version at full width, E=128 and 256, bf16 and fp32. Then each building
+   block of the interaction backward (the gate, V = sc W, the pairs, the
+   projection term dvc W^T, the gate backward and dx, dW_bi's split partials, the
+   reduction) against its plain version at E=128 and 256, "all" and "each",
+   bf16 and fp32, B=4133: within BWD_TOL (and BWD_NORM_TOL in bf16), each
+   block's repeat launch bit-identical.
 3. Time each kernel and its plain version with CUDA events (median of 30
    after warm-up) beside the bound the card sets for the same work; for the
    encoder also nn.TransformerEncoderLayer (the library yardstick, checked
@@ -54,7 +59,9 @@ Phases, in order; any failure exits non-zero and prints no result line.
    E=256 with (512, 256) and (1024, 512) and at E=128 with (1024, 512).
    At each of those four widths one scoring call is split into its four
    blocks (CUDA events a block, torch.profiler over the call), with cuBLAS
-   on layer 1's product alone (c @ W1, bf16) beside it as a yardstick.
+   on layer 1's product alone (c @ W1, bf16) beside it as a yardstick. One
+   interaction backward call ("all", B=4096) at E=128 and 256 split the same
+   way into its seven blocks.
 4. The serving main path at the full microlens_experiment() defaults
    (mm_fibinet, E=128, item vocab 91718, max_len 20, hidden (512, 256),
    bf16): seeded weights with perturbed BatchNorm stats, a seeded item
@@ -78,7 +85,8 @@ Phases, in order; any failure exits non-zero and prints no result line.
    32,768 valid rows): one step's gradients through the kernels against the
    plain path in fp32, then Trainer.fit_on_device for 2 epochs (128 steps):
    loss finite and falling, best valid AUC > 0.6, exact launch counts of
-   both interaction kernels, a resume point and the best export written;
+   both interaction kernels (the backward's bwd_launches() a step), a
+   resume point and the best export written;
    examples/s per epoch and one step split into forward+loss, backward and
    optimizer with CUDA events, then torch.profiler over three more steps
    (device-busy share, kernels a step, the largest device items).
@@ -198,21 +206,22 @@ def log(msg: str) -> None:
 
 
 def kernel_inputs(torch, btype: str, dtype, b: int, seed: int, use_bias: bool = True,
-                  e: int = E, hidden=HIDDEN):
+                  e: int = E, hidden=HIDDEN, f: int = F):
     """Full-width operands for the kernels, drawn with the port's own
     initializers from a seeded generator (SENet with or without biases);
-    x from numpy. E and the tower default to the model's (128, (512, 256))."""
+    x from numpy. E, the tower and F default to the model's (128, (512,
+    256), 6)."""
     from ctr_recommendation_tpu_torch.ops import bilinear, mlp, senet
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import senet_weights
 
     gen = torch.Generator().manual_seed(seed)
-    x = np.random.default_rng(seed).standard_normal((b, F, e)).astype(np.float32)
-    sp = senet.init(gen, F, 2, use_bias=use_bias)
-    bp = bilinear.init(gen, e, F, btype)
-    cdim = (F + F * (F - 1) // 2) * e
+    x = np.random.default_rng(seed).standard_normal((b, f, e)).astype(np.float32)
+    sp = senet.init(gen, f, 2, use_bias=use_bias)
+    bp = bilinear.init(gen, e, f, btype)
+    cdim = (f + f * (f - 1) // 2) * e
     mp, _ = mlp.init(gen, cdim, hidden, batch_norm=False)
     dev = "cuda"
-    sw = [t.to(dev) for t in senet_weights(sp, F)]
+    sw = [t.to(dev) for t in senet_weights(sp, f)]
     w_bi = (bp["w"] if btype == "all" else bp["w_each"]).to(dev, dtype).contiguous()
     tower = []
     for lin in (mp["layers"][0]["linear"], mp["layers"][1]["linear"], mp["out"]):
@@ -442,11 +451,13 @@ def library_layer(torch, weights, num_heads: int, device="cuda"):
 BWD_OUTPUTS = ("dx", "dW1", "db1", "dW2", "db2", "dW_bi")
 
 
-def backward_inputs(torch, btype: str, dtype, b: int, seed: int, use_bias: bool, e: int = E):
+def backward_inputs(torch, btype: str, dtype, b: int, seed: int, use_bias: bool, e: int = E,
+                    f: int = F):
     """The interaction backward's operands: a seeded numpy cotangent g and
-    the forward's (x, SENet weights, bilinear weight)."""
-    x, sw, w_bi, _ = kernel_inputs(torch, btype, dtype, b, seed, use_bias, e=e, hidden=(8, 8))
-    g = np.random.default_rng(seed + 1).standard_normal((b, (F + F * (F - 1) // 2) * e))
+    the forward's (x, SENet weights, bilinear weight), F fields of width E."""
+    x, sw, w_bi, _ = kernel_inputs(torch, btype, dtype, b, seed, use_bias, e=e, hidden=(8, 8),
+                                   f=f)
+    g = np.random.default_rng(seed + 1).standard_normal((b, (f + f * (f - 1) // 2) * e))
     return torch.from_numpy(g.astype(np.float32)).cuda(), x, sw, w_bi
 
 
@@ -927,6 +938,7 @@ def encoder_bwd_timing(torch, card, e: int = ENC_E) -> dict:
 WIDE_E = 256  # the recipe sweep's emb_256 and emb_256_tower1024
 WIDE_TOWERS = ((1024, 512), (768, 384))  # its tower_1024 and tower_768_384
 WIDE_HIDDEN = (1024, 512)  # emb_256_tower1024's tower
+MANY_FIELDS, MANY_FIELDS_E = 12, 64  # a model with more fields than the backward keeps in registers
 
 
 def width_tag(name: str, e: int, hidden) -> str:
@@ -1018,11 +1030,12 @@ def score_blocks_against_plain(torch, x, sw, w_bi, tower, btype: str, tag: str) 
     return failures + ([] if ok else [("score head", tag)])
 
 
-def backward_against_plain(torch, worst: dict, e: int, seed_offset: int = 0) -> list:
-    """Phase 2 for interaction_bwd at width e, B=4096 and 4133, SENet biases
-    on and off, "all" and "each", bf16 and fp32: within BWD_TOL (and the
-    bf16 norm bar), the repeat launch bit-identical, and in bf16 the same
-    bars rejecting a control taken at the forward's rounding points."""
+def backward_against_plain(torch, worst: dict, e: int, seed_offset: int = 0, f: int = F) -> list:
+    """Phase 2 for interaction_bwd at width e (and f fields), B=4096 and
+    4133, SENet biases on and off, "all" and "each", bf16 and fp32: within
+    BWD_TOL (and the bf16 norm bar), the repeat launch bit-identical, and in
+    bf16 the same bars rejecting a control taken at the forward's rounding
+    points."""
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
         interaction_bwd,
         interaction_bwd_plain,
@@ -1035,7 +1048,8 @@ def backward_against_plain(torch, worst: dict, e: int, seed_offset: int = 0) -> 
             for b in (B_TRAIN, B_TRAIN + 37):
                 for use_bias in (True, False):
                     g, x, sw, w_bi = backward_inputs(torch, btype, dtype, b,
-                                                     b + use_bias + seed_offset, use_bias, e=e)
+                                                     b + use_bias + seed_offset, use_bias, e=e,
+                                                     f=f)
                     got = interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)
                     again = interaction_bwd(g, x, *sw, w_bi, bilinear_type=btype)
                     want = interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype)
@@ -1053,15 +1067,99 @@ def backward_against_plain(torch, worst: dict, e: int, seed_offset: int = 0) -> 
                         ok = ok and bool(c_bad)
                         control = (f"; forward-rounding control |d|/|want| {c_norm:.3e}, "
                                    f"{'rejected' if c_bad else 'NOT REJECTED'} on {c_bad}")
-                    log(f"[compare] interaction_bwd{width_tag('interaction_bwd', e, HIDDEN)} "
-                        f"{btype} {dn} B={b} bias={use_bias}: "
+                    log(f"[compare] interaction_bwd{width_tag('interaction_bwd', e, HIDDEN)}"
+                        f"{f' F={f}' if f != F else ''} {btype} {dn} B={b} bias={use_bias}: "
                         f"max_abs_err={err:.3e} (|d| <= {BWD_TOL[dn][0]:g}*max|want| + "
                         f"{BWD_TOL[dn][1]:g}*|want|), |d|/|want| {rel_norm:.3e} (bf16 bar "
                         f"{BWD_NORM_TOL:.3e}), repeat bit-identical {same}{control} "
                         f"{'ok' if ok else f'FAIL {bad}'}")
                     if not ok:
-                        failures.append(("interaction_bwd", e, btype, dn, b, use_bias))
+                        failures.append(("interaction_bwd", e, f, btype, dn, b, use_bias))
     return failures
+
+
+def bwd_blocks_against_plain(torch, e: int, btype: str, dtype, b: int = B_TRAIN + 37,
+                             f: int = F) -> list:
+    """Phase 2: each building block of interaction_bwd (ops/cuda/interaction.py:
+    the gate, V, the pairs, the projection term dvc W^T, the gate backward
+    and dx, dW_bi's partials, the reduction) against its plain version on the plain
+    version's inputs, at width e (and f fields) on a ragged batch: every output within
+    BWD_TOL (and BWD_NORM_TOL in bf16), the block's repeat launch
+    bit-identical. Returns the failures."""
+    from ctr_recommendation_tpu_torch.ops.cuda import interaction as ki
+
+    dn = str(dtype).split(".")[1]
+    g, x, sw, w_bi = backward_inputs(torch, btype, dtype, b, b + e + 5, True, e=e, f=f)
+    w1, _, w2, _ = sw
+    kw = dict(bilinear_type=btype)
+    z, h1, w, sc = ki.bwd_gate_plain(x, *sw, **kw)
+    v = ki.bwd_project_plain(sc, w_bi, **kw)
+    ds, dvc = ki.bwd_pairs_plain(g, x, w, v, **kw)
+    p = ki.bwd_project_t_plain(dvc, w_bi, **kw)
+    dx, part_gate = ki.bwd_gate_dx_plain(ds, p, x, z, h1, w, w1, w2, **kw)
+    part_bi = ki.bwd_weight_grad_plain(sc, dvc, **kw)
+    cases = {
+        "gate": (lambda: ki.bwd_gate(x, *sw, **kw), (z, h1, w, sc)),
+        "project": (lambda: ki.bwd_project(sc, w_bi, **kw), v),
+        "pairs": (lambda: ki.bwd_pairs(g, x, w, v, **kw), (ds, dvc)),
+        "project_t": (lambda: ki.bwd_project_t(dvc, w_bi, **kw), p),
+        "gate_dx": (lambda: ki.bwd_gate_dx(ds, p, x, z, h1, w, w1, w2, **kw), (dx, part_gate)),
+        "weight_grad": (lambda: ki.bwd_weight_grad(sc, dvc, **kw), part_bi),
+        "reduce": (lambda: ki.bwd_reduce(part_bi, part_gate),
+                   ki.bwd_reduce_plain(part_bi, part_gate)),
+    }
+    share, rtol = BWD_TOL[dn]
+    failures = []
+    for name, (kernel, want) in cases.items():
+        want = want if isinstance(want, tuple) else (want,)
+        got, again = kernel(), kernel()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        worst, worst_norm, bad = 0.0, 0.0, []
+        for i, (a, wt) in enumerate(zip(got, want)):
+            a, wt = a.double(), wt.double()
+            err = (a - wt).abs()
+            rel_norm = (err.norm() / wt.norm().clamp(min=1e-30)).item()
+            if (a.shape != wt.shape or not bool(torch.isfinite(a).all())
+                    or bool((err > share * wt.abs().max() + rtol * wt.abs()).any())
+                    or (dn == "bfloat16" and rel_norm > BWD_NORM_TOL)):
+                bad.append(i)
+            worst, worst_norm = max(worst, err.max().item()), max(worst_norm, rel_norm)
+        ok = same and not bad
+        log(f"[compare] interaction_bwd block {name} E={e} F={f} {btype} {dn} B={b}: "
+            f"max_abs_err={worst:.3e} (|d| <= {share:g}*max|want| + {rtol:g}*|want|), "
+            f"|d|/|want| {worst_norm:.3e} (bf16 bar {BWD_NORM_TOL:.3e}), repeat bit-identical "
+            f"{same} {'ok' if ok else f'FAIL outputs {bad}'}")
+        if not ok:
+            failures.append(("interaction_bwd block", name, e, f, btype, dn))
+    return failures
+
+
+def bwd_split(torch, card, g, x, sw, w_bi, tag: str) -> None:
+    """Phase 3: one bf16 interaction_bwd call ("all") split into its seven
+    blocks, each timed alone with CUDA events (wrapper included), and
+    torch.profiler's split of the whole call."""
+    from ctr_recommendation_tpu_torch.ops.cuda import interaction as ki
+
+    w1, _, w2, _ = sw
+    z, h1, w, sc = ki.bwd_gate(x, *sw)
+    v = ki.bwd_project(sc, w_bi)
+    ds, dvc = ki.bwd_pairs(g, x, w, v)
+    p = ki.bwd_project_t(dvc, w_bi)
+    _, part_gate = ki.bwd_gate_dx(ds, p, x, z, h1, w, w1, w2)
+    part_bi = ki.bwd_weight_grad(sc, dvc)
+    t = {"gate": time_ms(torch, lambda: ki.bwd_gate(x, *sw)),
+         "project": time_ms(torch, lambda: ki.bwd_project(sc, w_bi)),
+         "pairs": time_ms(torch, lambda: ki.bwd_pairs(g, x, w, v)),
+         "project_t": time_ms(torch, lambda: ki.bwd_project_t(dvc, w_bi)),
+         "gate_dx": time_ms(torch, lambda: ki.bwd_gate_dx(ds, p, x, z, h1, w, w1, w2)),
+         "weight_grad": time_ms(torch, lambda: ki.bwd_weight_grad(sc, dvc)),
+         "reduce": time_ms(torch, lambda: ki.bwd_reduce(part_bi, part_gate))}
+    log(f"[split] interaction_bwd bf16 all{tag} B={B_TRAIN}: ms a block {t} on {card}")
+    kernel_split(torch, lambda: ki.interaction_bwd(g, x, *sw, w_bi),
+                 f"interaction_bwd bf16 all{tag} B={B_TRAIN}", card)
 
 
 def mm_timing(torch, card, e: int, hidden, with_interaction: bool = True) -> dict:
@@ -1122,6 +1220,8 @@ def mm_timing(torch, card, e: int, hidden, with_interaction: bool = True) -> dic
         }
         log(f"[time] interaction_bwd bf16 {btype}{width_tag('interaction_bwd', e, HIDDEN)} "
             f"B={B_TRAIN}: {t} (bytes {nbytes}, ops {ops}) on {card}")
+        if btype == "all":
+            bwd_split(torch, card, g, x, sw, w_bi, width_tag("interaction_bwd", e, HIDDEN))
     return timing
 
 
@@ -1159,6 +1259,9 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     0). ``tag`` names the run in the log (default: the model's name).
     Returns the launches of each counted wrapper in the fit."""
     from ctr_recommendation_tpu_torch.inference import Predictor
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        bwd_launches as inter_bwd_launches,
+    )
     from ctr_recommendation_tpu_torch.tools import jax_bridge
     from ctr_recommendation_tpu_torch.training import Trainer
     from ctr_recommendation_tpu_torch.training.metrics import auc
@@ -1186,7 +1289,8 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     names = lambda d: {fn.__name__: n for fn, n in d.items()}  # noqa: E731
     log(f"[train {tag}] fit_on_device: {steps} steps + {eval_batches} eval batches in "
         f"{t_fit:.3f} s; best valid auc {best_auc:.5f}; launches {names(launched)}, expected "
-        f"{names(expect)} (launches a call: interaction_bwd 2, fused_score 4, encode_fwd 1 + 7 L, "
+        f"{names(expect)} (launches a call: interaction_bwd "
+        f"{inter_bwd_launches()}, fused_score 4, encode_fwd 1 + 7 L, "
         f"encode_bwd 25 L + 1)")
     losses = [h["train_loss"] for h in hist]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1339,6 +1443,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from ctr_recommendation_tpu_torch.ops.cuda import build
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        bwd_launches as inter_bwd_launches,
+    )
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
 
@@ -1371,6 +1478,12 @@ def main() -> int:
             failures += forward_against_plain(torch, worst, e, hidden, (B_TRAIN + 37, B_FULL),
                                               seed_offset=e, with_fwd=False)
     failures += backward_against_plain(torch, worst, WIDE_E, seed_offset=7)
+    # past the 8 fields whose rows the backward holds in registers
+    failures += backward_against_plain(torch, worst, MANY_FIELDS_E, seed_offset=11, f=MANY_FIELDS)
+    for e, f in ((E, F), (WIDE_E, F), (MANY_FIELDS_E, MANY_FIELDS)):  # the backward's blocks
+        for btype in ("all", "each"):
+            for dtype in (torch.bfloat16, torch.float32):
+                failures += bwd_blocks_against_plain(torch, e, btype, dtype, f=f)
     worst["sasrec_encoder_fwd"], enc_failures = encoder_against_plain(torch)
     failures += enc_failures
     drop_worst, drop_failures = dropout_forward_against_plain(torch)
@@ -1502,12 +1615,13 @@ def main() -> int:
         f"made in {time.perf_counter() - t0:.1f} s")
     counted = (interaction_fwd, interaction_bwd, score_fwd, encode_fwd, encode_bwd)
     enc_fwd, enc_bwd = fwd_launches(1), bwd_launches(1)  # one layer's kernel launches a call
+    ibwd = inter_bwd_launches()
     with tempfile.TemporaryDirectory() as root:
         mm = train_and_serve(
             torch, microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
                                         checkpoint_dir=os.path.join(root, "ckpt")),
             train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: 1, interaction_bwd: 2}, per_eval={interaction_fwd: 1},
+            per_step={interaction_fwd: 1, interaction_bwd: ibwd}, per_eval={interaction_fwd: 1},
             per_serve={score_fwd: score_launches()})
         sasrec_exp = microlens_experiment(data_root="", model="sasrec_fibinet",
                                           epochs=TRAIN_EPOCHS,
@@ -1518,7 +1632,7 @@ def main() -> int:
             raise SystemExit(f"sasrec_fibinet defaults moved: {m}")
         sasrec = train_and_serve(
             torch, sasrec_exp, train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: 1, interaction_bwd: 2, encode_fwd: enc_fwd,
+            per_step={interaction_fwd: 1, interaction_bwd: ibwd, encode_fwd: enc_fwd,
                       encode_bwd: enc_bwd},
             per_eval={interaction_fwd: 1, encode_fwd: enc_fwd},
             per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd})
@@ -1528,7 +1642,7 @@ def main() -> int:
                                            checkpoint_dir=os.path.join(root, "ckpt_sasrec_256"))
         train_and_serve(
             torch, wide_sasrec, train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: 1, interaction_bwd: 2, encode_fwd: enc_fwd,
+            per_step={interaction_fwd: 1, interaction_bwd: ibwd, encode_fwd: enc_fwd,
                       encode_bwd: enc_bwd},
             per_eval={interaction_fwd: 1, encode_fwd: enc_fwd},
             per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd}, tag="sasrec_emb_256")
@@ -1538,7 +1652,7 @@ def main() -> int:
                                         checkpoint_dir=os.path.join(root, "ckpt_wide"))
         train_and_serve(
             torch, wide_exp, train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: 1, interaction_bwd: 2}, per_eval={interaction_fwd: 1},
+            per_step={interaction_fwd: 1, interaction_bwd: ibwd}, per_eval={interaction_fwd: 1},
             per_serve={score_fwd: score_launches()}, tag="emb_256_tower1024")
     train_fwd, train_bwd = mm[interaction_fwd], mm[interaction_bwd]
     enc_bwd_launches = sasrec[encode_bwd]

@@ -17,580 +17,694 @@
 // cd() is a cast to the compute dtype T (x's dtype); every other value is
 // fp32. These are the TPU kernel's rounding points, which differ from the
 // forward's (there the gate is rounded before x * w and V after the dot).
+// The projected fields p are 1..F-1 for "all" (v_0 is never used) and
+// 0..F-2 for "each": Q = F - 1 of them.
 //
 // Bound on an H100: bytes. At B=4096, F=6, E=128 with bf16 x it must read
-// g (44.0 MB fp32) and x (6.3 MB) and write dx (6.3 MB); the 2.0 GFLOP of
-// projections are far below the card's compute line (E=256: 113 MB against
-// 8.1 GFLOP, still bytes).
+// g (44.0 MB fp32) and x (6.3 MB) and write dx (6.3 MB), ~57 MB or 17 us at
+// 3.35 TB/s; the 2.0 GFLOP of E x E products (8.1 at E=256, against 113
+// MB) are far below the tensor cores' line.
 //
-// Design. A block of 256 threads owns TB rows at a time and keeps x, the
-// fp32 ds accumulator, a (TB, E) buffer for dv, the projection weight (in T)
-// and the small gate vectors in shared memory. g is streamed from device
-// memory once, one E-wide chunk per field or pair, as 16-byte loads. For
-// each projected field p, a thread computes a 4x4 tile of v_p in registers,
-// walks every pair that uses v_p, adds into ds in shared memory and
-// accumulates the matching 4x4 tile of dv_p in registers; dv_p is complete
-// at that point (each pair's dv goes to exactly one projected field), so it
-// is rounded into the dv buffer and its two products run at once. The
-// weight gradients are summed over the batch without atomics: the grid is
-// persistent (at most one block per SM, each looping over row tiles in a
-// fixed order) and each block adds into its own fp32 partial in device
-// memory; a second launch reduces the partials in block order. Two launches
-// on the same inputs are therefore bit-identical. Rows past B are
-// zero-filled in shared memory, read no g and write no dx, so they add
-// exactly zero. The products run as fp32 FMA on the CUDA cores: simple first.
+// Design: seven launches on one stream, each a building block with its own
+// C entry point (bound alone below for the checks on the card) and plain
+// PyTorch version (ops/cuda/interaction.py). Scratch is field-major, so the
+// Q projected fields of a batch form one contiguous (Q B, E) matrix and
+// each field one contiguous (B, E) slice:
 //
-// Any E % 8 == 0 that leaves a row tile of 4 in shared memory (E=256 in both
-// dtypes). Two plans:
-//   blocked: W and W^T (128 KB each in bf16 at E=256) do not both fit beside
-//     x and ds, so one (E, nc + 4) buffer holds a column block of W while v_p
-//     is formed (the v tiles walk the blocks) and then a column block of W^T
-//     (a row block of W, transposed on the way in; the 4-element pad spreads
-//     its banks) while ds_p += cd(dv_p) W^T is. Both are restaged from L2
-//     for every field of every tile. (TB, nc) maximises the 4x4 tiles of a
-//     block: at E=128 TB=32, nc=128 in bf16 (24, 128 in fp32); at E=256
-//     TB=16, nc=128 in bf16 and TB=12, nc=64 in fp32.
-//   resident, "all" only: W and W^T whole in T, loaded once a call, when a
-//     tile of 8 rows or more fits beside them (E=128: TB=32 in bf16, 12 in
-//     fp32). On an H100 (bf16, B=4096, E=128; chip_smoke.py's timing of the
-//     earlier kernel, which staged W whole for both types, and of the blocked
-//     plan in turns on one card) "all" took 0.34-0.37 ms with W whole and
-//     0.38-0.44 ms blocked; "each", which needs a new W every field anyway,
-//     0.45-0.46 ms with whole-W loads and 0.37-0.39 ms blocked.
-// dW_bi accumulates in registers, 16 float4 a thread: a whole 128 x 128
-// matrix, which for "all" is held across the fields of a tile and flushed
-// into the partial once. A wider E takes the same accumulator in passes over
-// the matrix's elements (E^2/4/256 float4 a thread, 64 at E=256, is more than
-// a thread's 255 registers), each pass flushed into the partial as soon as it
-// has summed the tile's rows for one field. The flush order is fixed, so
-// repeats stay bit-identical. The flushes are what the passes cost: at E=256
-// each tile reads and rewrites its block's 256 KB partial of a matrix once a
-// field, 5 x 2 x 256 KB a tile, ~650 MB a call over B=4096's 256 tiles. For
-// "all" that is one 256 KB partial a block, which L2 holds; for "each" five,
-// 1.3 MB a block, which it does not. A second kernel forming dW_bi from a
-// scratch of cd(s_p) and cd(dv_p) would move 2(F-1)E values a row each way
-// instead, 21 MB at B=4096 in bf16. Passes were taken to keep one launch
-// pair and the partials' reduction as they were; which design is faster was
-// not measured.
+//   1. gate: one warp a row; z, h1, w (fp32, (B,F), (B,R), (B,F)) and
+//      sc = cd(x_p w_p) (Q, B, E) in T;
+//   2. V = sc W: the tile product of tile_mma.cuh ("nn"; "all" one product
+//      with M = Q B, "each" Q groups of M = B, one launch), fp32 out;
+//   3. pairs: an elementwise pass, a thread four columns of a row (its ds
+//      and s in registers for F <= 8, ds summed in place beyond); streams
+//      g once as 16-byte loads and writes ds (B, F, E) fp32 (g's S columns
+//      plus each pair's term, in pair order) and dvc = cd(dv_p) (Q, B, E);
+//   4. the projection term P = dvc W^T: the tile product "nt" (W read as
+//      stored), fp32 (Q, B, E) into V's scratch, which block 3 has read;
+//   5. gate backward and dx: one warp a row over fixed row chunks, ds_p =
+//      ds_p + P_p read on the fly, dh2 (B, F) and dh1 (B, R) to scratch,
+//      dx = cd(ds w + dz / E); then one fp32 partial a block of
+//      [dW1|db1|dW2|db2], each entry its chunk's rows summed in order;
+//   6. dW_bi = sc^T dvc: the tile product "tn" with K = the rows ("all" one
+//      product over Q B rows, which sums the fields; "each" Q groups of B),
+//      K split into chunks so that ~132 blocks run, one fp32 partial each;
+//   7. one reduction of both kinds of partial, each output a fixed-order
+//      sum: two launches on the same inputs are bit-identical.
+//
+// bf16 products run on the tensor cores (ldmatrix / mma.sync, fp32
+// accumulators); fp32 ones on the CUDA cores with fp64 accumulators. The
+// sequence moves ~185 MB at B=4096, E=128 (~370 MB at E=256); the wrapper
+// allocates one workspace for the scratch and picks the split layouts
+// (chunk sizes); the kernels allocate nothing. Rows past B are never read or stored.
+//
+// Envelope: F >= 2, E % 8 == 0 (16-byte rows and staged pieces of the
+// products), any B. The pairs pass and the gate backward keep a row's
+// fields in registers for 2 <= F <= 8 (one instantiation a field count)
+// and sum in their outputs beyond.
 
-#include "common.cuh"
+#include "tile_mma.cuh"
 
 namespace ctr {
+namespace ibwd {
 
-constexpr int kMaxVec = 16;  // dW_bi accumulator: float4 a thread (a 128 x 128 matrix)
-constexpr int kVecPass = kMaxVec * kThreads;
+constexpr int kRowsPerBlock = kThreads / 32;  // gate blocks: one warp a row
 
-struct BwdPlan {
-  int tb, nc, resident;
-};
-
-struct BwdLayout {
-  size_t x, ds, dvc, w, wt, small, total;
-};
-
-// Leading dimension of the staged weight: E when resident, nc + 4 blocked.
-__host__ __device__ inline int weight_ld(const BwdPlan& P, int E) {
-  return P.resident ? E : P.nc + 4;
+// 8 fp32 values into 8 contiguous elements of T.
+__device__ __forceinline__ void store8(float* dst, const float* v) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  d[0] = make_float4(v[0], v[1], v[2], v[3]);
+  d[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(dst) = u;
 }
 
-// Shared memory of one block: x (TB,F,E) in T, ds (TB,F,E) fp32, dvc (TB,E)
-// in T, then W and W^T (E,E) in T (resident) or one (E, nc + 4) block of W
-// or W^T in T (blocked), then z, w, dh2, dz (TB,F) and h1, dh1 (TB,R).
-template <typename T>
-__host__ __device__ inline BwdLayout bwd_layout(const BwdPlan& P, int F, int E, int R) {
-  BwdLayout L;
-  const int TB = P.tb;
-  size_t o = 0;
-  L.x = o;
-  o += align16(static_cast<size_t>(TB) * F * E * sizeof(T));
-  L.ds = o;
-  o += align16(static_cast<size_t>(TB) * F * E * sizeof(float));
-  L.dvc = o;
-  o += align16(static_cast<size_t>(TB) * E * sizeof(T));
-  L.w = o;
-  o += align16(static_cast<size_t>(E) * weight_ld(P, E) * sizeof(T));
-  L.wt = P.resident ? o : L.w;
-  if (P.resident) o += align16(static_cast<size_t>(E) * E * sizeof(T));
-  L.small = o;
-  o += static_cast<size_t>(TB) * (4 * F + 2 * R) * sizeof(float);
-  L.total = o;
-  return L;
+// 4 contiguous elements of T into fp32, and back.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
-
-// For "all", the resident plan with the most rows, if one of 8 or more
-// fits; else the blocked plan with the most 4x4 tiles a block (TB * nc),
-// larger TB first.
-template <typename T>
-static BwdPlan bwd_plan(int F, int E, int R, bool each) {
-  for (int tb = 32; tb >= 8 && !each; tb -= 4) {
-    const BwdPlan P{tb, E, 1};
-    if (bwd_layout<T>(P, F, E, R).total <= kMaxSmem) return P;
-  }
-  BwdPlan best{0, 0, 0};
-  for (int tb = 32; tb >= 4; tb -= 4) {
-    for (int nc = E; nc >= 8; nc -= 8) {
-      const BwdPlan P{tb, nc, 0};
-      if (E % nc || bwd_layout<T>(P, F, E, R).total > kMaxSmem) continue;
-      if (tb * nc > best.tb * best.nc) best = P;
-      break;
-    }
-  }
-  return best;
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
-
-__device__ __forceinline__ void load4(float* dst, const float* src) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(float* dst, const __nv_bfloat16* src) {
-  const uint2 u = *reinterpret_cast<const uint2*>(src);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-  dst[0] = __bfloat162float(h[0]);
-  dst[1] = __bfloat162float(h[1]);
-  dst[2] = __bfloat162float(h[2]);
-  dst[3] = __bfloat162float(h[3]);
-}
-
-__device__ __forceinline__ void store4(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
   uint2 u;
-  u.x = *reinterpret_cast<const unsigned int*>(&lo);
-  u.y = *reinterpret_cast<const unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void fma4(float4& acc, float4 a, float4 b) {
+  acc.x += a.x * b.x;
+  acc.y += a.y * b.y;
+  acc.z += a.z * b.z;
+  acc.w += a.w * b.w;
+}
+__device__ __forceinline__ float4 scale4(float4 a, float s) {
+  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
 }
 
-// W (E,E) from device memory into W_s and its transpose into WT_s, both in T.
-template <typename T>
-__device__ __forceinline__ void load_weight(T* W_s, T* WT_s, const T* __restrict__ w, int E) {
-  for (int i = threadIdx.x; i < E * E; i += blockDim.x) {
-    const T v = w[i];
-    W_s[i] = v;
-    WT_s[(i % E) * E + i / E] = v;
-  }
-}
-
-// Columns [cb, cb + nc) of W (E,E) into W_s (E, ld), ld = nc + 4: 16-byte
-// loads along W's rows (each thread a different piece), 8-byte stores.
-template <typename T>
-__device__ __forceinline__ void load_weight_cols(T* W_s, const T* __restrict__ w, int E, int cb,
-                                                 int nc, int ld) {
-  constexpr int V = 16 / sizeof(T);  // elements a 16-byte load
-  const int nv = nc / V;
-  const int dk = blockDim.x / nv, dg = blockDim.x % nv;
-  int k = threadIdx.x / nv, g = threadIdx.x % nv;  // as load_cols_f32 walks
-  while (k < E) {
-    const uint4 u = *reinterpret_cast<const uint4*>(w + static_cast<size_t>(k) * E + cb + g * V);
-    uint2* d = reinterpret_cast<uint2*>(W_s + static_cast<size_t>(k) * ld + g * V);
-    d[0] = make_uint2(u.x, u.y);
-    d[1] = make_uint2(u.z, u.w);
-    k += dk;
-    g += dg;
-    if (g >= nv) {
-      g -= nv;
-      ++k;
-    }
-  }
-}
-
-// Columns [cb, cb + nc) of W^T, i.e. rows cb.. of W, into WT_s (E, ld):
-// WT_s[d][j] = W[cb + j][d]. Neighbouring threads take neighbouring rows j
-// (16 bytes of each), so their shared-memory stores land side by side.
-template <typename T>
-__device__ __forceinline__ void load_weight_t_cols(T* WT_s, const T* __restrict__ w, int E,
-                                                   int cb, int nc, int ld) {
-  constexpr int V = 16 / sizeof(T);
-  const int dd = blockDim.x / nc, dj = blockDim.x % nc;
-  int d = threadIdx.x / nc, j = threadIdx.x % nc;  // d counts V-element pieces
-  while (d < E / V) {
-    const uint4 u =
-        *reinterpret_cast<const uint4*>(w + static_cast<size_t>(cb + j) * E + d * V);
-    const T* h = reinterpret_cast<const T*>(&u);
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) WT_s[static_cast<size_t>(d * V + v) * ld + j] = h[v];
-    d += dd;
-    j += dj;
-    if (j >= nc) {
-      j -= nc;
-      ++d;
-    }
-  }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-// Add v into *dst, or store it on the block's first tile.
-__device__ __forceinline__ void accumulate(float* dst, float v, bool first) {
-  *dst = first ? v : *dst + v;
+// Pair k of (i, j), i < j, in triu order.
+__host__ __device__ __forceinline__ int pair_of(int i, int j, int F) {
+  return i * (2 * F - i - 1) / 2 + (j - i - 1);
 }
 
-template <typename T, bool EACH>
+// ---- block 1: the gate, and sc = cd(x_p w_p) field-major ----
+// One warp a row, any F: z, h1 and w go to their outputs (B, F), (B, R),
+// (B, F), which the warp reads back after __syncwarp (each h1 and gate
+// pre-activation summed by one lane, in index order).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-interaction_bwd_kernel(const float* __restrict__ g, const T* __restrict__ x,
-                       const float* __restrict__ w1, const float* __restrict__ b1,
-                       const float* __restrict__ w2, const float* __restrict__ b2,
-                       const T* __restrict__ wbi, T* __restrict__ dx,
-                       float* __restrict__ part, int B, int F, int E, int R, BwdPlan plan,
-                       int part_stride) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const BwdLayout L = bwd_layout<T>(plan, F, E, R);
-  const int TB = plan.tb;
-  T* x_s = reinterpret_cast<T*>(smem + L.x);
-  float* ds_s = reinterpret_cast<float*>(smem + L.ds);
-  T* dvc_s = reinterpret_cast<T*>(smem + L.dvc);
-  T* W_s = reinterpret_cast<T*>(smem + L.w);    // W, or a column block of it
-  T* WT_s = reinterpret_cast<T*>(smem + L.wt);  // W^T, or a column block of it (blocked: = W_s)
-  float* z_s = reinterpret_cast<float*>(smem + L.small);  // (TB, F)
-  float* w_s = z_s + TB * F;                               // (TB, F)
-  float* dh2_s = w_s + TB * F;                             // (TB, F)
-  float* dz_s = dh2_s + TB * F;                            // (TB, F)
-  float* h1_s = dz_s + TB * F;                             // (TB, R)
-  float* dh1_s = h1_s + TB * R;                            // (TB, R)
-
-  const int P = F * (F - 1) / 2;
-  const int FE = F * E;
-  const size_t g_stride = static_cast<size_t>(F + P) * E;
-  const size_t ee = static_cast<size_t>(E) * E;
-  const int nq = EACH ? F - 1 : 1;
-  const int n_tiles = (B + TB - 1) / TB;
-  const bool resident = plan.resident != 0;  // "all" only
-  const int nc = plan.nc, ldw = weight_ld(plan, E);
-  const int n4 = nc / 4;
-  const int vtiles = (TB / 4) * n4;  // 4x4 tiles of one column block
-  const int nvec4 = E * E / 4;
-  const int npass = (nvec4 + kVecPass - 1) / kVecPass;  // dW_bi accumulator passes
+gate_fwd(const T* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ b1,
+         const float* __restrict__ w2, const float* __restrict__ b2, float* z_out, float* h1_out,
+         float* w_out, T* __restrict__ sc, int B, int F, int E, int R, int poff) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  // this block's partial: [dW_bi (nq,E,E) | dW1 (F,R) | db1 (R) | dW2 (R,F) | db2 (F)]
-  float* my_part = part + static_cast<size_t>(blockIdx.x) * part_stride;
-  float* gate_part = my_part + nq * ee;
-  const int n_gate = 2 * F * R + R + F;
-
-  if (resident) {
-    load_weight(W_s, WT_s, wbi, E);
-    __syncthreads();
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= B) return;  // the whole warp: the row is the warp's
+  const T* xr = x + static_cast<size_t>(row) * F * E;
+  float* zr = z_out + static_cast<size_t>(row) * F;
+  float* hr = h1_out + static_cast<size_t>(row) * R;
+  float* wr = w_out + static_cast<size_t>(row) * F;
+  for (int f = 0; f < F; ++f) {
+    float z = 0.f;
+    for (int c = lane * 8; c < E; c += 256) {
+      float v[8];
+      load8(v, xr + f * E + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) z += v[i];
+    }
+    z = warp_sum(z);
+    if (lane == 0) zr[f] = z / static_cast<float>(E);
   }
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const bool first = tile == static_cast<int>(blockIdx.x);
-    const int row0 = tile * TB;
-
-    // ---- x tile, and ds initialised with g's S columns ----
-    load_rows(x_s, x, row0, TB, B, FE);
-    for (int i = threadIdx.x; i < TB * FE / 4; i += blockDim.x) {
-      const int e4 = i * 4;
-      const int r = e4 / FE, col = e4 % FE;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < B) {
-        v = *reinterpret_cast<const float4*>(g + static_cast<size_t>(row0 + r) * g_stride + col);
-      }
-      *reinterpret_cast<float4*>(ds_s + e4) = v;
+  __syncwarp();
+  for (int k = lane; k < R; k += 32) {
+    float h = 0.f;
+    for (int f = 0; f < F; ++f) h += zr[f] * w1[f * R + k];
+    hr[k] = h + b1[k];
+  }
+  __syncwarp();
+  for (int f = lane; f < F; f += 32) {
+    float a = 0.f;
+    for (int k = 0; k < R; ++k) a += fmaxf(hr[k], 0.f) * w2[k * F + f];
+    wr[f] = 1.f / (1.f + expf(-(a + b2[f])));  // the gate w
+  }
+  __syncwarp();
+  for (int q = 0; q < F - 1; ++q) {
+    const int p = q + poff;
+    const float wp = wr[p];
+    T* dst = sc + (static_cast<size_t>(q) * B + row) * E;
+    for (int c = lane * 8; c < E; c += 256) {
+      float v[8];
+      load8(v, xr + p * E + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] *= wp;
+      store8(dst + c, v);
     }
-    __syncthreads();
-
-    // ---- gate forward, fp32 ----
-    for (int rf = warp; rf < TB * F; rf += nwarps) {
-      const T* row = x_s + static_cast<size_t>(rf) * E;
-      float acc = 0.f;
-      for (int c = lane; c < E; c += 32) acc += to_f(row[c]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0) z_s[rf] = acc / static_cast<float>(E);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < TB * R; i += blockDim.x) {
-      const int r = i / R, k = i % R;
-      float acc = 0.f;
-      for (int f = 0; f < F; ++f) acc += z_s[r * F + f] * w1[f * R + k];
-      h1_s[i] = acc + b1[k];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < TB * F; i += blockDim.x) {
-      const int r = i / F, f = i % F;
-      float acc = 0.f;
-      for (int k = 0; k < R; ++k) acc += fmaxf(h1_s[r * R + k], 0.f) * w2[k * F + f];
-      w_s[i] = 1.f / (1.f + expf(-(acc + b2[f])));
-    }
-    __syncthreads();
-
-    // ---- pairs and projections, one projected field at a time ----
-    float4 dw[kMaxVec];
-#pragma unroll
-    for (int n = 0; n < kMaxVec; ++n) dw[n] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int q = 0; q < F - 1; ++q) {
-      const int p = EACH ? q : q + 1;  // "all" never needs v_0 (dv_0 = 0)
-      const T* wq = wbi + (EACH ? static_cast<size_t>(q) * ee : 0);
-      // (a) v_p tile in registers; every pair that uses it; W a column block at a time
-      for (int cb = 0; cb < E; cb += nc) {
-        if (!resident) {
-          __syncthreads();  // every reader of the previous block is done
-          load_weight_cols(W_s, wq, E, cb, nc, ldw);
-          __syncthreads();
-        }
-        for (int t = threadIdx.x; t < vtiles; t += blockDim.x) {
-          const int r0 = (t / n4) * 4, cl = (t % n4) * 4, c0 = cb + cl;
-          float v[4][4], dv[4][4], sp[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            sp[i] = w_s[(r0 + i) * F + p];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) v[i][j] = dv[i][j] = 0.f;
-          }
-          for (int k = 0; k < E; ++k) {
-            float wk[4];
-            load4(wk, W_s + static_cast<size_t>(k) * ldw + cl);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float s =
-                  rnd<T>(to_f(x_s[(static_cast<size_t>(r0 + i) * F + p) * E + k]) * sp[i]);
-#pragma unroll
-              for (int j = 0; j < 4; ++j) v[i][j] += s * wk[j];
-            }
-          }
-          const int lo = EACH ? p + 1 : 0;
-          const int hi = EACH ? F : p;
-          for (int o = lo; o < hi; ++o) {
-            const int pi = EACH ? p : o;
-            const int pj = EACH ? o : p;
-            const int k = pi * (2 * F - pi - 1) / 2 + (pj - pi - 1);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int r = r0 + i;
-              if (row0 + r >= B) continue;
-              float gk[4], xo[4];
-              load4(gk, g + static_cast<size_t>(row0 + r) * g_stride +
-                            static_cast<size_t>(F + k) * E + c0);
-              const size_t off = (static_cast<size_t>(r) * F + o) * E + c0;
-              load4(xo, x_s + off);
-              const float wo = w_s[r * F + o];
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                dv[i][j] += gk[j] * (xo[j] * wo);
-                ds_s[off + j] += gk[j] * v[i][j];
-              }
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            store4(dvc_s + static_cast<size_t>(r0 + i) * E + c0, dv[i]);
-        }
-      }
-      __syncthreads();
-      // (b) ds_p += cd(dv_p) cd(W)^T, a column block of W^T at a time
-      for (int cb = 0; cb < E; cb += nc) {
-        if (!resident) {
-          __syncthreads();
-          load_weight_t_cols(WT_s, wq, E, cb, nc, ldw);
-          __syncthreads();
-        }
-        for (int t = threadIdx.x; t < vtiles; t += blockDim.x) {
-          const int r0 = (t / n4) * 4, cl = (t % n4) * 4, c0 = cb + cl;
-          float acc[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-          for (int d = 0; d < E; ++d) {
-            float wt[4];
-            load4(wt, WT_s + static_cast<size_t>(d) * ldw + cl);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float dvv = to_f(dvc_s[static_cast<size_t>(r0 + i) * E + d]);
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][j] += dvv * wt[j];
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float* dsp = ds_s + (static_cast<size_t>(r0 + i) * F + p) * E + c0;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) dsp[j] += acc[i][j];
-          }
-        }
-      }
-      // (b') dW_p += cd(s_p)^T cd(dv_p), summed over the tile's rows, in
-      // passes of kVecPass float4 (one pass up to E=128)
-      for (int ps = 0; ps < npass; ++ps) {
-        const int base = ps * kVecPass;
-#pragma unroll
-        for (int n = 0; n < kMaxVec; ++n) {
-          const int i4 = base + threadIdx.x + n * blockDim.x;
-          if (i4 < nvec4) {
-            const int k = (i4 * 4) / E, c = (i4 * 4) % E;
-            float a4[4] = {dw[n].x, dw[n].y, dw[n].z, dw[n].w};
-            for (int r = 0; r < TB; ++r) {
-              const float sc = rnd<T>(to_f(x_s[(static_cast<size_t>(r) * F + p) * E + k]) *
-                                      w_s[r * F + p]);
-              float d4[4];
-              load4(d4, dvc_s + static_cast<size_t>(r) * E + c);
-#pragma unroll
-              for (int j = 0; j < 4; ++j) a4[j] += sc * d4[j];
-            }
-            dw[n] = make_float4(a4[0], a4[1], a4[2], a4[3]);
-          }
-        }
-        // flush into the partial: a whole matrix's tile sum at its last field
-        // (one pass), or this pass's share at every field (several passes)
-        if (EACH || npass > 1 || q == F - 2) {
-          const bool fresh = first && (EACH || npass == 1 || q == 0);
-          float4* dst = reinterpret_cast<float4*>(my_part + (EACH ? q : 0) * ee);
-#pragma unroll
-          for (int n = 0; n < kMaxVec; ++n) {
-            const int i4 = base + threadIdx.x + n * blockDim.x;
-            if (i4 < nvec4) {
-              float4 o = fresh ? make_float4(0.f, 0.f, 0.f, 0.f) : dst[i4];
-              o.x += dw[n].x;
-              o.y += dw[n].y;
-              o.z += dw[n].z;
-              o.w += dw[n].w;
-              dst[i4] = o;
-            }
-            dw[n] = make_float4(0.f, 0.f, 0.f, 0.f);
-          }
-        }
-      }
-      __syncthreads();  // dvc_s (and, blocked, W_s) are rewritten next
-    }
-
-    // ---- gate backward, fp32 ----
-    for (int rf = warp; rf < TB * F; rf += nwarps) {
-      const T* row = x_s + static_cast<size_t>(rf) * E;
-      const float* drow = ds_s + static_cast<size_t>(rf) * E;
-      float acc = 0.f;
-      for (int c = lane; c < E; c += 32) acc += drow[c] * to_f(row[c]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0) {
-        const float wv = w_s[rf];
-        dh2_s[rf] = acc * wv * (1.f - wv);
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < TB * R; i += blockDim.x) {
-      const int r = i / R, k = i % R;
-      float da = 0.f;
-      for (int f = 0; f < F; ++f) da += dh2_s[r * F + f] * w2[k * F + f];
-      dh1_s[i] = h1_s[i] > 0.f ? da : 0.f;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < TB * F; i += blockDim.x) {
-      const int r = i / F, f = i % F;
-      float acc = 0.f;
-      for (int k = 0; k < R; ++k) acc += dh1_s[r * R + k] * w1[f * R + k];
-      dz_s[i] = acc;
-    }
-    for (int j = threadIdx.x; j < n_gate; j += blockDim.x) {
-      float acc = 0.f;
-      if (j < F * R) {  // dW1[f, k] = sum_r z[r, f] dh1[r, k]
-        const int f = j / R, k = j % R;
-        for (int r = 0; r < TB; ++r) acc += z_s[r * F + f] * dh1_s[r * R + k];
-      } else if (j < F * R + R) {  // db1[k]
-        const int k = j - F * R;
-        for (int r = 0; r < TB; ++r) acc += dh1_s[r * R + k];
-      } else if (j < 2 * F * R + R) {  // dW2[k, f] = sum_r a[r, k] dh2[r, f]
-        const int kf = j - F * R - R;
-        const int k = kf / F, f = kf % F;
-        for (int r = 0; r < TB; ++r) acc += fmaxf(h1_s[r * R + k], 0.f) * dh2_s[r * F + f];
-      } else {  // db2[f]
-        const int f = j - 2 * F * R - R;
-        for (int r = 0; r < TB; ++r) acc += dh2_s[r * F + f];
-      }
-      accumulate(gate_part + j, acc, first);
-    }
-    __syncthreads();
-
-    // ---- dx = ds * w + dz / E, in T ----
-    const float inv_e = 1.f / static_cast<float>(E);
-    for (int i = threadIdx.x; i < TB * FE / 4; i += blockDim.x) {
-      const int e4 = i * 4;
-      const int r = e4 / FE, col = e4 % FE;
-      if (row0 + r >= B) continue;
-      const int rf = r * F + col / E;
-      const float wv = w_s[rf], dzv = dz_s[rf] * inv_e;
-      float o[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = ds_s[e4 + j] * wv + dzv;
-      store4(dx + static_cast<size_t>(row0 + r) * FE + col, o);
-    }
-    __syncthreads();  // x_s and ds_s are reloaded for the next tile
   }
 }
 
-// out[j] = sum over blocks c = 0..G-1, in that order, of part[c][j]
+// ---- block 3: the pairs' backward, g streamed once ----
+// Thread (row b, columns c..c+3). ds (B, F, E) fp32, dvc (Q, B, E) in T;
+// V (Q, B, E) fp32; w (B, F) fp32. For each projected field d (q
+// ascending) dv_d is summed in a register over its pairs' other fields o,
+// and each ds_o gains g_k v_d: "all" p_k = s_o v_d (o < d = q + 1), "each"
+// p_k = v_d s_o (o > d = q). So ds_o is g_o plus its pairs' terms in pair
+// order, and dv_d its terms in pair order. NF > 0: F = NF, the row's ds
+// and s in registers; NF = 0: any F, ds summed in place in its output and
+// s recomputed from x.
+template <typename T, bool EACH, int NF>
 __global__ void __launch_bounds__(kThreads)
-reduce_partials(const float* __restrict__ part, float* __restrict__ out, int G, int stride,
-                int n) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
+pairs_bwd(const float* __restrict__ g, const T* __restrict__ x, const float* __restrict__ w,
+          const float* __restrict__ V, float* __restrict__ ds, T* __restrict__ dvc, int B, int F_,
+          int E) {
+  const int F = NF > 0 ? NF : F_;
+  const int e4 = E / 4;
+  const size_t t = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  const int b = static_cast<int>(t / e4);
+  if (b >= B) return;
+  const int c = static_cast<int>(t % e4) * 4;
+  const float* gr = g + static_cast<size_t>(b) * (F + F * (F - 1) / 2) * E + c;
+  const T* xr = x + static_cast<size_t>(b) * F * E + c;
+  const float* wr = w + static_cast<size_t>(b) * F;
+  float* dsr = ds + static_cast<size_t>(b) * F * E + c;
+  float4 acc[NF > 0 ? NF : 1], s[NF > 0 ? NF : 1];
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    if constexpr (NF > 0) {
+      acc[f] = load4(gr + f * E);
+      s[f] = scale4(load4(xr + f * E), wr[f]);
+    } else {
+      store4(dsr + f * E, load4(gr + f * E));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < F - 1; ++q) {
+    const int d = EACH ? q : q + 1;
+    const float4 v = load4(V + (static_cast<size_t>(q) * B + b) * E + c);
+    float4 dv = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int o = EACH ? d + 1 : 0; o < (EACH ? F : d); ++o) {
+      const float4 gk = load4(gr + (F + (EACH ? pair_of(d, o, F) : pair_of(o, d, F))) * E);
+      if constexpr (NF > 0) {
+        fma4(dv, gk, s[o]);
+        fma4(acc[o], gk, v);
+      } else {
+        fma4(dv, gk, scale4(load4(xr + o * E), wr[o]));
+        float4 a = load4(dsr + o * E);
+        fma4(a, gk, v);
+        store4(dsr + o * E, a);
+      }
+    }
+    store4(dvc + (static_cast<size_t>(q) * B + b) * E + c, dv);
+  }
+  if constexpr (NF > 0) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) store4(dsr + f * E, acc[f]);
+  }
+}
+
+// ---- block 5: the gate's backward and dx, per-block gate partials ----
+// ds (B, F, E) from block 3 plus, at projected field p = q + poff, the
+// projection term P (Q, B, E) of block 4. Block k takes rows [k chunk,
+// min(B, (k + 1) chunk)), one warp a row: dh2 (B, F) and dh1 (B, R) go to
+// their scratch, then dx. The block then writes its partial part
+// (gridDim.x, n_gate) fp32, n_gate = 2 F R + R + F in the order [dW1 (F,R)
+// | db1 (R) | dW2 (R,F) | db2 (F)], each entry one thread summing its rows
+// in order. NF > 0: F = NF, the row's gate in registers and ds + P at its
+// first column step a field kept for dx (all of it at E <= 128); NF = 0:
+// any F, dh2 and dh1 read back from their scratch after __syncwarp and
+// ds + P read again for dx.
+template <typename T, int NF>
+__global__ void __launch_bounds__(kThreads)
+gate_bwd(const float* __restrict__ ds, const float* __restrict__ P, const T* __restrict__ x,
+         const float* __restrict__ z, const float* __restrict__ h1, const float* __restrict__ w,
+         const float* __restrict__ w1, const float* __restrict__ w2, T* __restrict__ dx,
+         float* dh2, float* dh1, float* __restrict__ part, int B, int F_, int E, int R, int chunk,
+         int poff) {
+  const int F = NF > 0 ? NF : F_;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * chunk, r_end = min(B, r0 + chunk);
+  const float inv_e = 1.f / static_cast<float>(E);
+  for (int row = r0 + warp; row < r_end; row += kRowsPerBlock) {
+    const size_t base = static_cast<size_t>(row) * F * E;
+    const float* wr = w + static_cast<size_t>(row) * F;
+    const float* hr = h1 + static_cast<size_t>(row) * R;
+    float* d2 = dh2 + static_cast<size_t>(row) * F;
+    float* d1 = dh1 + static_cast<size_t>(row) * R;
+    auto ds_at = [&](int f, int c) {  // ds + P at a projected field
+      float4 a = load4(ds + base + f * E + c);
+      const int q = f - poff;
+      if (q >= 0 && q < F - 1) {
+        const float4 t = load4(P + (static_cast<size_t>(q) * B + row) * E + c);
+        a = make_float4(a.x + t.x, a.y + t.y, a.z + t.z, a.w + t.w);
+      }
+      return a;
+    };
+    auto dot = [&](int f, int c, float4 a) {  // (ds + P) . x at a column step
+      const float4 xv = load4(x + base + f * E + c);
+      return a.x * xv.x + a.y * xv.y + a.z * xv.z + a.w * xv.w;
+    };
+    auto put_dx = [&](int f, int c, float4 a, float dzv) {
+      const float wf = wr[f];
+      store4(dx + base + f * E + c,
+             make_float4(a.x * wf + dzv, a.y * wf + dzv, a.z * wf + dzv, a.w * wf + dzv));
+    };
+    if constexpr (NF > 0) {
+      // the row in registers, every lane holding the whole gate; a column
+      // step's loads of every field in flight together, and ds + P at the
+      // first step kept for dx
+      const int c0 = lane * 4;
+      float d[NF], dz[NF];
+      float4 keep[NF];
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        d[f] = dz[f] = 0.f;
+        if (c0 < E) {
+          keep[f] = ds_at(f, c0);
+          d[f] = dot(f, c0, keep[f]);
+        }
+      }
+      for (int c = c0 + 128; c < E; c += 128) {
+#pragma unroll
+        for (int f = 0; f < NF; ++f) d[f] += dot(f, c, ds_at(f, c));
+      }
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        d[f] = warp_sum(d[f]) * wr[f] * (1.f - wr[f]);  // dh2
+        if (lane == f % 32) d2[f] = d[f];
+      }
+      for (int k = 0; k < R; ++k) {
+        float da = 0.f;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) da += d[f] * w2[k * NF + f];
+        const float dh = hr[k] > 0.f ? da : 0.f;
+        if (lane == k % 32) d1[k] = dh;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) dz[f] += dh * w1[f * R + k];
+      }
+      if (c0 < E) {
+#pragma unroll
+        for (int f = 0; f < NF; ++f) put_dx(f, c0, keep[f], dz[f] * inv_e);
+      }
+      for (int c = c0 + 128; c < E; c += 128) {
+#pragma unroll
+        for (int f = 0; f < NF; ++f) put_dx(f, c, ds_at(f, c), dz[f] * inv_e);
+      }
+    } else {
+      // any F: a field at a time, dh2 and dh1 through their scratch
+      for (int f = 0; f < F; ++f) {
+        float d = 0.f;
+        for (int c = lane * 4; c < E; c += 128) d += dot(f, c, ds_at(f, c));
+        d = warp_sum(d);
+        if (lane == 0) d2[f] = d * wr[f] * (1.f - wr[f]);
+      }
+      __syncwarp();
+      for (int k = lane; k < R; k += 32) {
+        float da = 0.f;
+        for (int f = 0; f < F; ++f) da += d2[f] * w2[k * F + f];
+        d1[k] = hr[k] > 0.f ? da : 0.f;
+      }
+      __syncwarp();
+      for (int f = 0; f < F; ++f) {
+        float dz = 0.f;
+        for (int k = 0; k < R; ++k) dz += d1[k] * w1[f * R + k];
+        for (int c = lane * 4; c < E; c += 128) put_dx(f, c, ds_at(f, c), dz * inv_e);
+      }
+    }
+  }
+  __syncthreads();  // the block's rows of dh1 and dh2 are written
+  const int n_gate = 2 * F * R + R + F;
+  for (int j = threadIdx.x; j < n_gate; j += blockDim.x) {
+    // entry j sums u[row] v[row] over the rows (u = 1 for a bias), each
+    // operand a column of a (rows, F) or (rows, R) array
+    const float *u = nullptr, *v;
+    int su = 0, sv;
+    if (j < F * R) {  // dW1[f, k] += z[f] dh1[k]
+      u = z + j / R, su = F, v = dh1 + j % R, sv = R;
+    } else if (j < F * R + R) {  // db1[k] += dh1[k]
+      v = dh1 + (j - F * R), sv = R;
+    } else if (j < 2 * F * R + R) {  // dW2[k, f] += relu(h1[k]) dh2[f]
+      const int kf = j - F * R - R;
+      u = h1 + kf / F, su = R, v = dh2 + kf % F, sv = F;
+    } else {  // db2[f] += dh2[f]
+      v = dh2 + (j - 2 * F * R - R), sv = F;
+    }
+    const bool relu = j >= F * R + R;  // u is h1: a = relu(h1)
+    float acc = 0.f;
+#pragma unroll 8
+    for (int row = r0; row < r_end; ++row) {  // independent loads, summed in row order
+      float t = v[static_cast<size_t>(row) * sv];
+      if (u) {
+        const float a = u[static_cast<size_t>(row) * su];
+        t *= relu ? fmaxf(a, 0.f) : a;
+      }
+      acc += t;
+    }
+    part[static_cast<size_t>(blockIdx.x) * n_gate + j] = acc;
+  }
+}
+
+// ---- block 7: the fixed-order reduction ----
+// out[g EE + u] = sum over s < splits of pbi[(g splits + s) EE + u] for the
+// G groups of dW_bi, then out[G EE + u] = sum over k < nblk of
+// pg[k n_gate + u]: each output one thread, its terms in index order.
+__global__ void __launch_bounds__(kThreads)
+reduce_grads(const float* __restrict__ pbi, const float* __restrict__ pg, float* __restrict__ out,
+             int G, int EE, int splits, int nblk, int n_gate) {
+  const size_t j = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  const size_t nbi = static_cast<size_t>(G) * EE;
   float acc = 0.f;
-  for (int c = 0; c < G; ++c) acc += part[static_cast<size_t>(c) * stride + j];
+  if (j < nbi) {
+    const size_t g = j / EE, u = j % EE;
+    const float* p = pbi + g * splits * EE + u;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) acc += p[static_cast<size_t>(s) * EE];
+  } else if (j < nbi + n_gate) {
+    const size_t u = j - nbi;
+#pragma unroll 8
+    for (int k = 0; k < nblk; ++k) acc += pg[static_cast<size_t>(k) * n_gate + u];
+  } else {
+    return;
+  }
   out[j] = acc;
 }
 
-template <typename T, bool EACH>
-static int launch(const float* g, const void* x, const float* w1, const float* b1,
-                  const float* w2, const float* b2, const void* wbi, void* dx, float* part,
-                  float* out, int B, int F, int E, int R, int grid, int part_stride,
-                  cudaStream_t stream) {
-  const BwdPlan plan = bwd_plan<T>(F, E, R, EACH);
-  const int tb = plan.tb;
-  const int nq = EACH ? F - 1 : 1;
-  const int n = nq * E * E + 2 * F * R + R + F;
-  if (tb < 4 || E % 8 || F < 2 || B < 1 || grid < 1 || grid > (B + tb - 1) / tb ||
-      part_stride < n || part_stride % 4) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// ---- host-side launches ----
+
+inline int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+// The statements (...) with NF the constant F for 2 <= F <= 8, else NF = 0
+// (any F): the kernels that hold a row's fields in registers have one
+// instantiation a field count up to 8.
+#define CTR_WITH_FIELDS(F, ...)                                   \
+  switch (F) {                                                    \
+    case 2: { constexpr int NF = 2; __VA_ARGS__; }                \
+    case 3: { constexpr int NF = 3; __VA_ARGS__; }                \
+    case 4: { constexpr int NF = 4; __VA_ARGS__; }                \
+    case 5: { constexpr int NF = 5; __VA_ARGS__; }                \
+    case 6: { constexpr int NF = 6; __VA_ARGS__; }                \
+    case 7: { constexpr int NF = 7; __VA_ARGS__; }                \
+    case 8: { constexpr int NF = 8; __VA_ARGS__; }                \
+    default: { constexpr int NF = 0; __VA_ARGS__; }               \
   }
-  const size_t smem = bwd_layout<T>(plan, F, E, R).total;
-  auto kern = interaction_bwd_kernel<T, EACH>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid, kThreads, smem, stream>>>(
-      g, static_cast<const T*>(x), w1, b1, w2, b2, static_cast<const T*>(wbi),
-      static_cast<T*>(dx), part, B, F, E, R, plan, part_stride);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_partials<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(part, out, grid,
-                                                                          part_stride, n);
-  return static_cast<int>(cudaGetLastError());
+
+template <typename T>
+int launch_gate(const T* x, const float* w1, const float* b1, const float* w2, const float* b2,
+                float* z, float* h1, float* w, T* sc, int B, int F, int E, int R, bool each,
+                cudaStream_t s) {
+  const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
+  gate_fwd<T><<<blocks, kThreads, 0, s>>>(x, w1, b1, w2, b2, z, h1, w, sc, B, F, E, R,
+                                          each ? 0 : 1);
+  return last_error();
 }
 
+// V = sc W ("all": one (Q B, E) x (E, E) product; "each": Q of (B, E) x W_q).
+template <typename T>
+int launch_project(const T* sc, const T* wbi, float* V, int B, int F, int E, bool each,
+                   cudaStream_t s) {
+  const int Q = F - 1;
+  const size_t be = static_cast<size_t>(B) * E, ee = static_cast<size_t>(E) * E;
+  const mma::EpiPartial epi{V, E, be};
+  if (each)
+    return mma::launch_product<T, false, true>(sc, wbi, B, E, E, 1, E, epi, s, Q, be, ee);
+  return mma::launch_product<T, false, true>(sc, wbi, Q * B, E, E, 1, E, epi, s);
+}
+
+template <typename T>
+int launch_pairs(const float* g, const T* x, const float* w, const float* V, float* ds, T* dvc,
+                 int B, int F, int E, bool each, cudaStream_t s) {
+  const size_t threads = static_cast<size_t>(B) * (E / 4);
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  if (each) {
+    CTR_WITH_FIELDS(F, pairs_bwd<T, true, NF><<<blocks, kThreads, 0, s>>>(g, x, w, V, ds, dvc, B,
+                                                                         F, E);
+                    return last_error())
+  }
+  CTR_WITH_FIELDS(F, pairs_bwd<T, false, NF><<<blocks, kThreads, 0, s>>>(g, x, w, V, ds, dvc, B,
+                                                                        F, E);
+                  return last_error())
+}
+
+// P = dvc W^T (Q, B, E) fp32: the projection term of each projected field.
+template <typename T>
+int launch_project_t(const T* dvc, const T* wbi, float* P, int B, int F, int E, bool each,
+                     cudaStream_t s) {
+  const int Q = F - 1;
+  const size_t be = static_cast<size_t>(B) * E, ee = static_cast<size_t>(E) * E;
+  const mma::EpiPartial epi{P, E, be};
+  if (each)
+    return mma::launch_product<T, false, false>(dvc, wbi, B, E, E, 1, E, epi, s, Q, be, ee);
+  return mma::launch_product<T, false, false>(dvc, wbi, Q * B, E, E, 1, E, epi, s);
+}
+
+template <typename T>
+int launch_gate_bwd(const float* ds, const float* P, const T* x, const float* z, const float* h1,
+                    const float* w, const float* w1, const float* w2, T* dx, float* dh2,
+                    float* dh1, float* part, int B, int F, int E, int R, int chunk, bool each,
+                    cudaStream_t s) {
+  const int nblk = (B + chunk - 1) / chunk;
+  CTR_WITH_FIELDS(F, gate_bwd<T, NF><<<nblk, kThreads, 0, s>>>(
+                         ds, P, x, z, h1, w, w1, w2, dx, dh2, dh1, part, B, F, E, R, chunk,
+                         each ? 0 : 1);
+                  return last_error())
+}
+
+// dW_bi partials: pbi (G splits, E, E), G = Q groups for "each" (K = B rows
+// each) or 1 for "all" (K = Q B rows).
+template <typename T>
+int launch_weight_grad(const T* sc, const T* dvc, float* pbi, int B, int F, int E, bool each,
+                       int splits, int chunk, cudaStream_t s) {
+  const int Q = F - 1;
+  const size_t be = static_cast<size_t>(B) * E, ee = static_cast<size_t>(E) * E;
+  const mma::EpiPartial epi{pbi, E, ee};
+  if (each)
+    return mma::launch_product<T, true, true>(sc, dvc, E, E, B, splits, chunk, epi, s, Q, be, be);
+  return mma::launch_product<T, true, true>(sc, dvc, E, E, Q * B, splits, chunk, epi, s);
+}
+
+inline int launch_reduce(const float* pbi, const float* pg, float* out, int G, int E, int splits,
+                         int nblk, int n_gate, cudaStream_t s) {
+  const size_t n = static_cast<size_t>(G) * E * E + n_gate;
+  reduce_grads<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      pbi, pg, out, G, E * E, splits, nblk, n_gate);
+  return last_error();
+}
+
+#undef CTR_WITH_FIELDS
+
+inline bool in_envelope(int F, int E, int R) {
+  return F >= 2 && E >= 8 && E % 8 == 0 && R >= 1;
+}
+
+// A K split over `rows` rows: chunk a multiple of 64, splits chunks cover it.
+inline bool split_ok(int rows, int splits, int chunk) {
+  return splits >= 1 && chunk >= 64 && chunk % 64 == 0 &&
+         static_cast<long>(splits) * chunk >= rows &&
+         static_cast<long>(splits - 1) * chunk < rows;
+}
+
+}  // namespace ibwd
 }  // namespace ctr
 
-// Rows per block tile for these sizes (0: no tile of 4 rows fits a block).
-extern "C" int interaction_bwd_tile_rows(int F, int E, int R, int is_bf16, int each) {
-  return is_bf16 ? ctr::bwd_plan<__nv_bfloat16>(F, E, R, each).tb
-                 : ctr::bwd_plan<float>(F, E, R, each).tb;
+namespace {
+template <typename T>
+const T* cd(const void* p) {
+  return static_cast<const T*>(p);
 }
+template <typename T>
+T* cd_mut(void* p) {
+  return static_cast<T*>(p);
+}
+bool bad_dims(int B, int F, int E, int R) { return B < 1 || !ctr::ibwd::in_envelope(F, E, R); }
+}  // namespace
 
-// g (B, (F + F(F-1)/2) * E) fp32; x (B, F*E) and wbi ((E, E) or (F-1, E, E))
-// in the compute dtype (bf16 when is_bf16, else fp32); SENet weights fp32.
-// Writes dx (B, F*E) in the compute dtype and, through `grid` per-block
-// partials of part_stride floats each, out = [dW_bi | dW1 | db1 | dW2 | db2]
-// fp32. Two launches (the kernel, then the reduction). Requires F >= 2,
-// E % 8 == 0, a row tile that fits a block (interaction_bwd_tile_rows) and
-// 16-byte aligned pointers. Returns a cudaError_t.
-extern "C" int interaction_bwd(const float* g, const void* x, const float* w1,
-                               const float* b1, const float* w2, const float* b2,
-                               const void* wbi, void* dx, float* part, float* out, int B,
-                               int F, int E, int R, int is_bf16, int each, int grid,
-                               int part_stride, void* stream) {
+// Each entry point below enqueues its launches on `stream`, requires 16-byte
+// aligned pointers and F >= 2, E % 8 == 0, B >= 1, and returns a
+// cudaError_t (cudaErrorInvalidValue outside the envelope). Tensors in the
+// compute dtype (bf16 when is_bf16, else fp32) are void*; the rest fp32.
+// Q = F - 1 projected fields; G = Q for "each", 1 for "all".
+
+// Block 1: x (B, F, E) -> z (B, F), h1 (B, R), w (B, F), sc (Q, B, E) in cd.
+extern "C" int ibwd_gate(const void* x, const float* w1, const float* b1, const float* w2,
+                         const float* b2, float* z, float* h1, float* w, void* sc, int B, int F,
+                         int E, int R, int is_bf16, int each, void* stream) {
+  if (bad_dims(B, F, E, R)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return each ? ctr::launch<__nv_bfloat16, true>(g, x, w1, b1, w2, b2, wbi, dx, part, out, B,
-                                                   F, E, R, grid, part_stride, s)
-                : ctr::launch<__nv_bfloat16, false>(g, x, w1, b1, w2, b2, wbi, dx, part, out,
-                                                    B, F, E, R, grid, part_stride, s);
+    using T = __nv_bfloat16;
+    return ctr::ibwd::launch_gate<T>(cd<T>(x), w1, b1, w2, b2, z, h1, w, cd_mut<T>(sc), B, F, E,
+                                     R, each, s);
   }
-  return each ? ctr::launch<float, true>(g, x, w1, b1, w2, b2, wbi, dx, part, out, B, F, E, R,
-                                         grid, part_stride, s)
-              : ctr::launch<float, false>(g, x, w1, b1, w2, b2, wbi, dx, part, out, B, F, E, R,
-                                          grid, part_stride, s);
+  return ctr::ibwd::launch_gate<float>(cd<float>(x), w1, b1, w2, b2, z, h1, w, cd_mut<float>(sc),
+                                       B, F, E, R, each, s);
+}
+
+// Block 2: V (Q, B, E) fp32 = sc W ("all": W (E, E); "each": W (Q, E, E)).
+extern "C" int ibwd_project(const void* sc, const void* wbi, float* V, int B, int F, int E,
+                            int is_bf16, int each, void* stream) {
+  if (bad_dims(B, F, E, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return ctr::ibwd::launch_project<T>(cd<T>(sc), cd<T>(wbi), V, B, F, E, each, s);
+  }
+  return ctr::ibwd::launch_project<float>(cd<float>(sc), cd<float>(wbi), V, B, F, E, each, s);
+}
+
+// Block 3: g (B, (F + F(F-1)/2) E), x, w (B, F), V -> ds (B, F, E) fp32 and
+// dvc (Q, B, E) in cd.
+extern "C" int ibwd_pairs(const float* g, const void* x, const float* w, const float* V,
+                          float* ds, void* dvc, int B, int F, int E, int is_bf16, int each,
+                          void* stream) {
+  if (bad_dims(B, F, E, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return ctr::ibwd::launch_pairs<T>(g, cd<T>(x), w, V, ds, cd_mut<T>(dvc), B, F, E, each, s);
+  }
+  return ctr::ibwd::launch_pairs<float>(g, cd<float>(x), w, V, ds, cd_mut<float>(dvc), B, F, E,
+                                        each, s);
+}
+
+// Block 4: P (Q, B, E) fp32 = dvc_p W_p^T, the projection term of each
+// projected field p.
+extern "C" int ibwd_project_t(const void* dvc, const void* wbi, float* P, int B, int F, int E,
+                              int is_bf16, int each, void* stream) {
+  if (bad_dims(B, F, E, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return ctr::ibwd::launch_project_t<T>(cd<T>(dvc), cd<T>(wbi), P, B, F, E, each, s);
+  }
+  return ctr::ibwd::launch_project_t<float>(cd<float>(dvc), cd<float>(wbi), P, B, F, E, each, s);
+}
+
+// Block 5: from ds (B, F, E) and P (Q, B, E), dx (B, F, E) in cd and the
+// gate partials part (ceil(B / chunk), 2 F R + R + F) fp32, one a chunk of
+// `chunk` rows; dh2 (B, F) and dh1 (B, R) fp32 are its scratch.
+extern "C" int ibwd_gate_dx(const float* ds, const float* P, const void* x, const float* z,
+                            const float* h1, const float* w, const float* w1, const float* w2,
+                            void* dx, float* dh2, float* dh1, float* part, int B, int F, int E,
+                            int R, int chunk, int is_bf16, int each, void* stream) {
+  if (bad_dims(B, F, E, R) || chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return ctr::ibwd::launch_gate_bwd<T>(ds, P, cd<T>(x), z, h1, w, w1, w2, cd_mut<T>(dx), dh2,
+                                         dh1, part, B, F, E, R, chunk, each, s);
+  }
+  return ctr::ibwd::launch_gate_bwd<float>(ds, P, cd<float>(x), z, h1, w, w1, w2,
+                                           cd_mut<float>(dx), dh2, dh1, part, B, F, E, R, chunk,
+                                           each, s);
+}
+
+// Block 6: pbi (G splits, E, E) fp32, split s of group g the sum of
+// sc^T dvc over its chunk of the group's rows (Q B for "all", B for "each").
+extern "C" int ibwd_weight_grad(const void* sc, const void* dvc, float* pbi, int B, int F, int E,
+                                int splits, int chunk, int is_bf16, int each, void* stream) {
+  if (bad_dims(B, F, E, 1) || !ctr::ibwd::split_ok(each ? B : (F - 1) * B, splits, chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return ctr::ibwd::launch_weight_grad<T>(cd<T>(sc), cd<T>(dvc), pbi, B, F, E, each, splits,
+                                            chunk, s);
+  }
+  return ctr::ibwd::launch_weight_grad<float>(cd<float>(sc), cd<float>(dvc), pbi, B, F, E, each,
+                                              splits, chunk, s);
+}
+
+// Block 7: out = [dW_bi (G, E, E) | the n_gate gate gradients], each the
+// sum of its partials in index order.
+extern "C" int ibwd_reduce(const float* pbi, const float* pg, float* out, int G, int E,
+                           int splits, int nblk, int n_gate, void* stream) {
+  if (G < 1 || E < 1 || splits < 1 || nblk < 1 || n_gate < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return ctr::ibwd::launch_reduce(pbi, pg, out, G, E, splits, nblk, n_gate,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+// The whole call's scratch, carved from one workspace (each piece 256-byte
+// aligned); with base == nullptr only its size is counted.
+struct Work {
+  float *z, *h1, *w, *V, *ds, *dh2, *dh1, *pbi, *pg;
+  void *sc, *dvc;
+  size_t bytes;
+  Work(char* base, int B, int F, int E, int R, size_t esize, int G, int wsplits, int nblk) {
+    size_t used = 0;
+    auto take = [&](size_t n) {
+      void* p = base ? base + used : nullptr;
+      used += (n + 255) / 256 * 256;
+      return p;
+    };
+    const size_t qbe = static_cast<size_t>(F - 1) * B * E;
+    z = static_cast<float*>(take(sizeof(float) * B * F));
+    h1 = static_cast<float*>(take(sizeof(float) * B * R));
+    w = static_cast<float*>(take(sizeof(float) * B * F));
+    sc = take(esize * qbe);
+    V = static_cast<float*>(take(sizeof(float) * qbe));
+    ds = static_cast<float*>(take(sizeof(float) * B * F * E));
+    dvc = take(esize * qbe);
+    dh2 = static_cast<float*>(take(sizeof(float) * B * F));
+    dh1 = static_cast<float*>(take(sizeof(float) * B * R));
+    pbi = static_cast<float*>(take(sizeof(float) * G * wsplits * E * E));
+    pg = static_cast<float*>(take(sizeof(float) * nblk * (2 * F * R + R + F)));
+    bytes = used;
+  }
+};
+}  // namespace
+
+// Bytes of workspace interaction_bwd needs at these sizes and splits.
+extern "C" size_t interaction_bwd_workspace(int B, int F, int E, int R, int is_bf16, int each,
+                                            int wsplits, int gchunk) {
+  if (bad_dims(B, F, E, R) || wsplits < 1 || gchunk < 1) return 0;
+  return Work(nullptr, B, F, E, R, is_bf16 ? 2 : 4, each ? F - 1 : 1, wsplits,
+              (B + gchunk - 1) / gchunk)
+      .bytes;
+}
+
+// The whole backward, blocks 1-7 in order on one stream (7 launches).
+// g (B, (F + F(F-1)/2) E) fp32; x (B, F, E) and wbi ((E, E) or (Q, E, E))
+// in cd; SENet weights fp32. Writes dx (B, F, E) in cd and out = [dW_bi |
+// dW1 | db1 | dW2 | db2] fp32. workspace holds interaction_bwd_workspace
+// bytes for the scratch: z, w, dh2 (B, F), h1, dh1 (B, R), V (Q, B, E; then
+// P) and ds (B, F, E) fp32; sc and dvc (Q, B, E) in cd; dW_bi's partials (G wsplits, E, E)
+// and the gate's (ceil(B / gchunk), 2 F R + R + F) fp32. wsplits and
+// wchunk split the weight gradient's rows as ibwd_weight_grad takes them.
+extern "C" int interaction_bwd(const float* g, const void* x, const float* w1, const float* b1,
+                               const float* w2, const float* b2, const void* wbi, void* dx,
+                               float* out, void* workspace, int B, int F, int E, int R,
+                               int wsplits, int wchunk, int gchunk, int is_bf16, int each,
+                               void* stream) {
+  if (bad_dims(B, F, E, R) || gchunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = each ? F - 1 : 1;
+  const int nblk = (B + gchunk - 1) / gchunk;
+  const Work k(static_cast<char*>(workspace), B, F, E, R, is_bf16 ? 2 : 4, G, wsplits, nblk);
+  int rc = ibwd_gate(x, w1, b1, w2, b2, k.z, k.h1, k.w, k.sc, B, F, E, R, is_bf16, each, stream);
+  if (rc == 0) rc = ibwd_project(k.sc, wbi, k.V, B, F, E, is_bf16, each, stream);
+  if (rc == 0) rc = ibwd_pairs(g, x, k.w, k.V, k.ds, k.dvc, B, F, E, is_bf16, each, stream);
+  // V is read only by the pairs: its scratch takes the projection term P
+  if (rc == 0) rc = ibwd_project_t(k.dvc, wbi, k.V, B, F, E, is_bf16, each, stream);
+  if (rc == 0)
+    rc = ibwd_gate_dx(k.ds, k.V, x, k.z, k.h1, k.w, w1, w2, dx, k.dh2, k.dh1, k.pg, B, F, E, R,
+                      gchunk, is_bf16, each, stream);
+  if (rc == 0)
+    rc = ibwd_weight_grad(k.sc, k.dvc, k.pbi, B, F, E, wsplits, wchunk, is_bf16, each, stream);
+  if (rc == 0) rc = ibwd_reduce(k.pbi, k.pg, out, G, E, wsplits, nblk, 2 * F * R + R + F, stream);
+  return rc;
 }

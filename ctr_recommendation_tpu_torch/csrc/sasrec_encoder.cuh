@@ -186,17 +186,7 @@ struct EpiGate {
   }
 };
 
-struct EpiPartial {  // split z's partial of a weight gradient
-  float* part;
-  int ld;
-  size_t zstride;
-  __device__ void operator()(int r, int c, int z, float v) const {
-    part[z * zstride + static_cast<size_t>(r) * ld + c] = v;
-  }
-  __device__ void pair(int r, int c, int z, float v0, float v1) const {
-    store2(part + z * zstride + static_cast<size_t>(r) * ld + c, v0, v1);
-  }
-};
+using mma::EpiPartial;  // split z's partial of a weight gradient
 
 // ---- elementwise and per-row blocks ----
 

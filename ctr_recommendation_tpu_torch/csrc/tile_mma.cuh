@@ -1,6 +1,7 @@
 // One hand-written tile product for Hopper (sm_90a), shared by the SASRec
-// encoder's forward and backward (sasrec_encoder.cuh) and the scoring
-// tower's two hidden layers (scoring.cu):
+// encoder's forward and backward (sasrec_encoder.cuh), the scoring tower's
+// two hidden layers (scoring.cu) and the interaction backward's three E x E
+// products (interaction_bwd.cu):
 //
 //   C[m, n] = sum over k in a split of A(m, k) B(k, n),  then epi(m, n, z, C)
 //
@@ -23,9 +24,12 @@
 // FMA into fp64 accumulators; never TF32, so the fp32 path keeps full fp32
 // products.
 //
-// gridDim.z splits K: block z sums k in [z chunk, min(K, (z + 1) chunk)),
-// chunk a multiple of BK, and hands z to the epilogue, which writes its own
-// partial; a fixed-order reduction elsewhere sums them (no atomics).
+// gridDim.z = groups x splits. A group g is one more product of the same
+// shape on operands a_gs and b_gs elements further on (the per-field
+// products of the interaction backward's "each"); a split s of a group
+// sums k in [s chunk, min(K, (s + 1) chunk)), chunk a multiple of BK. The
+// epilogue gets z = g splits + s and writes its own slice or partial; a
+// fixed-order reduction elsewhere sums the partials (no atomics).
 #pragma once
 
 #include "common.cuh"
@@ -261,12 +265,26 @@ struct EpiRelu {
   }
 };
 
-// C = A B over the block's (m, n) tile and split z; see the file's note.
-// lda / ldb are the row strides of A and B as stored.
+// Split z's slice of a weight gradient, or group z's slice of a grouped
+// product: part[z zstride + r ld + c] = C (fp32, not rounded).
+struct EpiPartial {
+  float* part;
+  int ld;
+  size_t zstride;
+  __device__ void operator()(int r, int c, int z, float v) const {
+    part[z * zstride + static_cast<size_t>(r) * ld + c] = v;
+  }
+  __device__ void pair(int r, int c, int z, float v0, float v1) const {
+    store2(part + z * zstride + static_cast<size_t>(r) * ld + c, v0, v1);
+  }
+};
+
+// C = A B over the block's (m, n) tile, group and split (z = g splits + s);
+// see the file's note. lda / ldb are the row strides of A and B as stored.
 template <typename T, bool A_KM, bool B_KM, typename Epi>
 __global__ void __launch_bounds__(kThreads)
 tile_product(const T* __restrict__ A, int lda, const T* __restrict__ B, int ldb, int M, int N,
-             int K, int chunk, Epi epi) {
+             int K, int chunk, int splits, size_t a_gs, size_t b_gs, Epi epi) {
   using C = Core<T, A_KM, B_KM>;
   using TA = typename C::TA;
   using TB = typename C::TB;
@@ -276,7 +294,10 @@ tile_product(const T* __restrict__ A, int lda, const T* __restrict__ B, int ldb,
   T* const sb0 = sa0 + kStages * TA::ELEMS;
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, z = blockIdx.z;
-  const int kb = z * chunk, ke = min(K, kb + chunk);
+  const int grp = z / splits;
+  A += grp * a_gs;
+  B += grp * b_gs;
+  const int kb = (z - grp * splits) * chunk, ke = min(K, kb + chunk);
   const int steps = ke > kb ? (ke - kb + BK - 1) / BK : 0;
 
   auto load = [&](int t) {  // slice t into buffer t % kStages
@@ -310,21 +331,23 @@ tile_product(const T* __restrict__ A, int lda, const T* __restrict__ B, int ldb,
 }
 
 // Launch C = A B with epilogue epi over `splits` chunks of K (chunk a
-// multiple of 64); returns a cudaError_t.
+// multiple of 64), for `groups` products whose operands lie a_gs and b_gs
+// elements apart; returns a cudaError_t.
 template <typename T, bool A_KM, bool B_KM, typename Epi>
 int launch_product(const T* A, const T* B, int M, int N, int K, int splits, int chunk, Epi epi,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int groups = 1, size_t a_gs = 0, size_t b_gs = 0) {
   using C = Core<T, A_KM, B_KM>;
   constexpr int smem = kStages * (C::TA::ELEMS + C::TB::ELEMS) * sizeof(T);
   auto kern = tile_product<T, A_KM, B_KM, Epi>;
   // above 48 KB only when asked for; asked at every launch, as a static
-  // flag here would be one symbol for both encoder libraries in a process
+  // flag here would be one symbol for every library in a process
   const cudaError_t set =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int lda = A_KM ? M : K, ldb = B_KM ? N : K;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  kern<<<grid, kThreads, smem, stream>>>(A, lda, B, ldb, M, N, K, chunk, epi);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, groups * splits);
+  kern<<<grid, kThreads, smem, stream>>>(A, lda, B, ldb, M, N, K, chunk, splits, a_gs, b_gs,
+                                         epi);
   return static_cast<int>(cudaGetLastError());
 }
 
