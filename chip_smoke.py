@@ -10,7 +10,10 @@ Phases, in order; any failure exits non-zero and prints no result line.
 2. With TF32 off, hold each kernel against its plain PyTorch version at full
    width: the interaction forward and the fused scoring kernel at the
    training batch 4096, the serving batch 8192 and each plus a ragged 37
-   (F=6, E=128, tower 2688->512->256->1); the interaction backward at
+   (F=6, E=128, tower 2688->512->256->1), the forward's repeat launch
+   bit-identical and in bf16 also within FWD_NORM_TOL in norm, which a
+   control taking V unrounded into the pair products must fail; the same
+   at F=12, E=64 (B=4133, 8229); the interaction backward at
    B=4096 and 4096+37, with SENet biases on and off, its repeat launch
    bit-identical, and in bf16 the same bar rejecting a control taken at the
    forward's rounding points. "all" and "each", bf16 and fp32. The SASRec
@@ -33,10 +36,10 @@ Phases, in order; any failure exits non-zero and prints no result line.
    forward-rounding control rejected); "all" and "each", bf16 and fp32.
    Beside every scoring case, each block of the scoring call
    (ops/cuda/scoring.py) against its plain version on the plain version's
-   inputs: the front's concat in cd (within TOL["interaction_fwd"] and bit
-   for bit the interaction kernel's output in cd), both tower layers (the
-   tile product with its ReLU epilogue, within ENC_TOL and the bf16 norm
-   bar) and the head (within TOL["fused_score"]).
+   inputs: the front's concat in cd (within TOL["interaction_fwd"], in bf16
+   FWD_NORM_TOL, and bit for bit the interaction kernel's output in cd),
+   both tower layers (the tile product with its ReLU epilogue, within
+   ENC_TOL and the bf16 norm bar) and the head (within TOL["fused_score"]).
    The encoder at E=256 with the same bars and controls: the forward at
    H=2, L=1 (B=8192, 8229) and H=4, L=2 (B=4133), with and without
    dropout; the backward at H=2, L=1 (B=4096, 4133), rate 0 and 0.1. Then
@@ -44,11 +47,15 @@ Phases, in order; any failure exits non-zero and prints no result line.
    product in its six uses, LayerNorm and its backward, attention and its
    backward, the column sums, the partial reduction) against its plain
    version at full width, E=128 and 256, bf16 and fp32. Then each building
-   block of the interaction backward (the gate, V = sc W, the pairs, the
-   projection term dvc W^T, the gate backward and dx, dW_bi's split partials, the
-   reduction) against its plain version at E=128 and 256, "all" and "each",
-   bf16 and fp32, B=4133: within BWD_TOL (and BWD_NORM_TOL in bf16), each
-   block's repeat launch bit-identical.
+   block of the interaction forward (the gate, V = cd(sc W), the pairs) at
+   E=128 and 256 (F=6) and E=64 (F=12),
+   "all" and "each", bf16 and fp32, B=8229: within TOL["interaction_fwd"]
+   (and FWD_NORM_TOL in bf16), each block's repeat launch bit-identical;
+   and each building block of the interaction backward (the gate, V = sc W,
+   the pairs, the projection term dvc W^T, the gate backward and dx, dW_bi's
+   split partials, the reduction) at the same widths, B=4133: within
+   BWD_TOL (and BWD_NORM_TOL in bf16), each block's repeat launch
+   bit-identical.
 3. Time each kernel and its plain version with CUDA events (median of 30
    after warm-up) beside the bound the card sets for the same work; for the
    encoder also nn.TransformerEncoderLayer (the library yardstick, checked
@@ -60,8 +67,10 @@ Phases, in order; any failure exits non-zero and prints no result line.
    At each of those four widths one scoring call is split into its four
    blocks (CUDA events a block, torch.profiler over the call), with cuBLAS
    on layer 1's product alone (c @ W1, bf16) beside it as a yardstick. One
-   interaction backward call ("all", B=4096) at E=128 and 256 split the same
-   way into its seven blocks.
+   interaction forward call ("all", B=8192) at E=128 and 256 split the same
+   way into its three blocks, and one backward call ("all", B=4096) into its
+   seven; the backward's plain time both as the blocks' plain versions
+   composed (plain_ms) and as the single expression interaction_bwd_expr.
 4. The serving main path at the full microlens_experiment() defaults
    (mm_fibinet, E=128, item vocab 91718, max_len 20, hidden (512, 256),
    bf16): seeded weights with perturbed BatchNorm stats, a seeded item
@@ -71,7 +80,7 @@ Phases, in order; any failure exits non-zero and prints no result line.
    Predictor on the CPU, and the scoring call's launches on each path
    (score_launches() a batch).
 5. The unfused branch (fold_bn=False) for a few batches: the interaction
-   kernel runs and agrees with the fused branch. Then the sasrec_fibinet
+   forward runs (fwd_launches() a batch) and agrees with the fused branch. Then the sasrec_fibinet
    serving path at its full defaults (E=128, S=20, 2 heads, 1 layer, hidden
    (512, 256), bf16) on the same item store and rows: score_table and the
    pipeline with exactly fwd_launches(1) encoder and score_launches()
@@ -85,7 +94,7 @@ Phases, in order; any failure exits non-zero and prints no result line.
    32,768 valid rows): one step's gradients through the kernels against the
    plain path in fp32, then Trainer.fit_on_device for 2 epochs (128 steps):
    loss finite and falling, best valid AUC > 0.6, exact launch counts of
-   both interaction kernels (the backward's bwd_launches() a step), a
+   both interaction kernels (fwd_launches() and bwd_launches() a step), a
    resume point and the best export written;
    examples/s per epoch and one step split into forward+loss, backward and
    optimizer with CUDA events, then torch.profiler over three more steps
@@ -144,6 +153,14 @@ TOL = {
 # over 4096 rows); in bf16, dv and dx are rounded after fp32 sums taken in
 # another order, so a rounding can land one bf16 ulp (2^-8 relative) apart,
 # and dW_bi sums 4096 products of such roundings.
+# interaction_fwd and the scoring front's concat in bf16, also in norm:
+# |kernel - plain| / |plain| <= FWD_NORM_TOL. V summed in fp64 (another
+# summation order) reads under 3.0e-5 on the CPU; a forward that takes V
+# unrounded into the pair products (fwd_project_plain(...,
+# forward_rounding=False)) reads 1.4e-3 to 1.8e-3 there, yet puts no element
+# outside the elementwise bar above. That control must fail this bar in
+# every bf16 case.
+FWD_NORM_TOL = 2.0**-12
 BWD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0**-7, 2.0**-7)}
 # bf16 also: |kernel - plain| / |plain| (norms) per output. Another
 # summation order moves only the few roundings that land one ulp apart
@@ -235,6 +252,11 @@ def check_close(name, got, want, dtype_name):
     err = (got.double() - want.double()).abs()
     bad = (err > atol + rtol * want.double().abs()).sum().item()
     return err.max().item(), bad, f"|d| <= {atol:g} + {rtol:g}*|want|"
+
+
+def norm_gap(got, want) -> float:
+    """|got - want| / |want| in norm, in fp64."""
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
 
 
 def time_ms(torch, fn, reps: int = 30) -> float:
@@ -949,52 +971,71 @@ def width_tag(name: str, e: int, hidden) -> str:
 
 
 def forward_against_plain(torch, worst: dict, e: int, hidden, batches, seed_offset: int = 0,
-                          with_fwd: bool = True) -> list:
-    """Phase 2 for the forwards at (e, hidden): fused_score and (with_fwd)
-    interaction_fwd against their plain versions at each batch, "all" and
-    "each", bf16 and fp32, within TOL. Updates ``worst``; returns the
+                          with_fwd: bool = True, f: int = F) -> list:
+    """Phase 2 for the forwards at (e, hidden) and f fields: fused_score and
+    (with_fwd) interaction_fwd against their plain versions at each batch,
+    "all" and "each", bf16 and fp32, within TOL; interaction_fwd's repeat
+    bit-identical and, in bf16, within FWD_NORM_TOL, where the same bar must
+    reject the V-unrounded control. Updates ``worst``; returns the
     failures."""
-    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
-        interaction_fwd,
-        interaction_fwd_plain,
-    )
+    from ctr_recommendation_tpu_torch.ops.cuda import interaction as ki
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_fwd_plain
 
     failures = []
+    fields = f" F={f}" if f != F else ""
     for btype in ("all", "each"):
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
             for b in batches:
                 x, sw, w_bi, tower = kernel_inputs(torch, btype, dtype, b, seed=b + seed_offset,
-                                                   e=e, hidden=hidden)
+                                                   e=e, hidden=hidden, f=f)
+                kw = dict(bilinear_type=btype)
                 cases = {}
                 if with_fwd:
-                    cases["interaction_fwd"] = (
-                        interaction_fwd(x, *sw, w_bi, bilinear_type=btype),
-                        interaction_fwd_plain(x, *sw, w_bi, bilinear_type=btype))
+                    got, again = (ki.interaction_fwd(x, *sw, w_bi, **kw) for _ in range(2))
+                    cases["interaction_fwd"] = (got, ki.interaction_fwd_plain(x, *sw, w_bi, **kw))
                 cases["fused_score"] = (
-                    score_fwd(x, *sw, w_bi, *tower, bilinear_type=btype),
-                    score_fwd_plain(x, *sw, w_bi, *tower, bilinear_type=btype))
+                    score_fwd(x, *sw, w_bi, *tower, **kw),
+                    score_fwd_plain(x, *sw, w_bi, *tower, **kw))
                 torch.cuda.synchronize()
                 for name, (got, want) in cases.items():
                     err, bad, tol = check_close(name, got, want, dn)
                     worst[name] = max(worst[name], err)
                     ok = bad == 0 and bool(torch.isfinite(got).all())
-                    log(f"[compare] {name}{width_tag(name, e, hidden)} {btype} {dn} B={b}: "
-                        f"max_abs_err={err:.3e} ({tol}) {'ok' if ok else f'FAIL ({bad} elements)'}")
+                    more = ""
+                    if name == "interaction_fwd":
+                        same = torch.equal(got, again)
+                        ok = ok and same
+                        more = f", repeat bit-identical {same}"
+                        if dtype == torch.bfloat16:  # the norm bar, and the control it must reject
+                            norm = norm_gap(got, want)
+                            w, sc = ki.fwd_gate_plain(x, *sw, **kw)
+                            wrong = ki.fwd_pairs_plain(x, w, ki.fwd_project_plain(
+                                sc, w_bi, **kw, forward_rounding=False), **kw)
+                            c_norm = norm_gap(got, wrong)
+                            c_bad = check_close(name, got, wrong, dn)[1]
+                            ok = ok and norm <= FWD_NORM_TOL < c_norm
+                            verdict = "rejected" if c_norm > FWD_NORM_TOL else "NOT REJECTED"
+                            more += (f", |d|/|want| {norm:.3e} (bar {FWD_NORM_TOL:.3e}); "
+                                     f"V-unrounded control |d|/|want| {c_norm:.3e}, {c_bad} "
+                                     f"elements outside TOL, {verdict}")
+                    log(f"[compare] {name}{width_tag(name, e, hidden)}{fields} {btype} {dn} "
+                        f"B={b}: max_abs_err={err:.3e} ({tol}){more} "
+                        f"{'ok' if ok else f'FAIL ({bad} elements)'}")
                     if not ok:
-                        failures.append((name, e, hidden, btype, dn, b))
-                failures += score_blocks_against_plain(torch, x, sw, w_bi, tower, btype,
-                                                       f"E={e} tower {hidden} {btype} {dn} B={b}")
+                        failures.append((name, e, f, hidden, btype, dn, b))
+                failures += score_blocks_against_plain(
+                    torch, x, sw, w_bi, tower, btype,
+                    f"E={e}{fields} tower {hidden} {btype} {dn} B={b}")
     return failures
 
 
 def score_blocks_against_plain(torch, x, sw, w_bi, tower, btype: str, tag: str) -> list:
     """Phase 2: each building block of the scoring call (ops/cuda/scoring.py)
     against its plain version on the plain version's inputs: the front's
-    concat in cd within TOL["interaction_fwd"] and bit for bit the
-    interaction kernel's fp32 output rounded to cd (the same kernel body,
-    the values already in cd); each tower layer within ENC_TOL (and
+    concat in cd within TOL["interaction_fwd"] (and FWD_NORM_TOL in bf16)
+    and bit for bit the interaction kernel's fp32 output rounded to cd (the
+    same kernel blocks, the values already in cd); each tower layer within ENC_TOL (and
     ENC_NORM_TOL in bf16), the bars of the same tile product and epilogue in
     the encoder; the head's probabilities within TOL["fused_score"].
     Returns the failures."""
@@ -1013,9 +1054,11 @@ def score_blocks_against_plain(torch, x, sw, w_bi, tower, btype: str, tag: str) 
     torch.cuda.synchronize()
     failures = []
     err, bad, tol = check_close("interaction_fwd", c.float(), c_plain.float(), dn)
-    ok = bad == 0 and same
-    log(f"[compare] fused_score block front {tag}: max_abs_err={err:.3e} ({tol}), "
-        f"bit-identical to interaction_fwd in cd {same} {'ok' if ok else f'FAIL ({bad})'}")
+    norm = norm_gap(c.float(), c_plain.float())
+    ok = bad == 0 and same and (dn != "bfloat16" or norm <= FWD_NORM_TOL)
+    log(f"[compare] fused_score block front {tag}: max_abs_err={err:.3e} ({tol}), |d|/|want| "
+        f"{norm:.3e} (bf16 bar {FWD_NORM_TOL:.3e}), bit-identical to interaction_fwd in cd "
+        f"{same} {'ok' if ok else f'FAIL ({bad})'}")
     failures += [] if ok else [("score front", tag)]
     for name, (a, w) in got.items():
         err, rel_norm, ok = check_encoder(torch, a, w, dn)
@@ -1078,6 +1121,50 @@ def backward_against_plain(torch, worst: dict, e: int, seed_offset: int = 0, f: 
     return failures
 
 
+def fwd_blocks_against_plain(torch, e: int, btype: str, dtype, b: int = B_RAGGED,
+                             f: int = F) -> list:
+    """Phase 2: each building block of interaction_fwd (ops/cuda/interaction.py:
+    the gate, V = cd(sc W), the pairs) against its plain version on the
+    plain version's inputs, at width e (and f fields) on a ragged batch: every output within
+    TOL["interaction_fwd"] (and FWD_NORM_TOL in bf16), the block's repeat
+    launch bit-identical. Returns the failures."""
+    from ctr_recommendation_tpu_torch.ops.cuda import interaction as ki
+
+    dn = str(dtype).split(".")[1]
+    x, sw, w_bi, _ = kernel_inputs(torch, btype, dtype, b, b + e + f + 9, e=e, hidden=(8, 8), f=f)
+    kw = dict(bilinear_type=btype)
+    w, sc = ki.fwd_gate_plain(x, *sw, **kw)
+    v = ki.fwd_project_plain(sc, w_bi, **kw)
+    cases = {
+        "gate": (lambda: ki.fwd_gate(x, *sw, **kw), (w, sc)),
+        "project": (lambda: ki.fwd_project(sc, w_bi, **kw), (v,)),
+        "pairs": (lambda: ki.fwd_pairs(x, w, v, **kw), (ki.fwd_pairs_plain(x, w, v, **kw),)),
+    }
+    failures = []
+    for name, (kernel, want) in cases.items():
+        got, again = kernel(), kernel()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        worst, worst_norm, bad = 0.0, 0.0, []
+        for i, (a, wt) in enumerate(zip(got, want)):
+            err, n_bad, tol = check_close("interaction_fwd", a.float(), wt.float(), dn)
+            norm = norm_gap(a, wt)
+            if (a.shape != wt.shape or a.dtype != wt.dtype or not bool(torch.isfinite(a).all())
+                    or n_bad or (dn == "bfloat16" and norm > FWD_NORM_TOL)):
+                bad.append(i)
+            worst, worst_norm = max(worst, err), max(worst_norm, norm)
+        ok = same and not bad
+        log(f"[compare] interaction_fwd block {name} E={e} F={f} {btype} {dn} B={b}: "
+            f"max_abs_err={worst:.3e} ({tol}), |d|/|want| {worst_norm:.3e} (bf16 bar "
+            f"{FWD_NORM_TOL:.3e}), repeat bit-identical {same} "
+            f"{'ok' if ok else f'FAIL outputs {bad}'}")
+        if not ok:
+            failures.append(("interaction_fwd block", name, e, f, btype, dn))
+    return failures
+
+
 def bwd_blocks_against_plain(torch, e: int, btype: str, dtype, b: int = B_TRAIN + 37,
                              f: int = F) -> list:
     """Phase 2: each building block of interaction_bwd (ops/cuda/interaction.py:
@@ -1137,6 +1224,22 @@ def bwd_blocks_against_plain(torch, e: int, btype: str, dtype, b: int = B_TRAIN 
     return failures
 
 
+def fwd_split(torch, card, x, sw, w_bi, tag: str) -> None:
+    """Phase 3: one bf16 interaction_fwd call ("all", B=8192) split into its
+    three blocks, each timed alone with CUDA events (wrapper included), and
+    torch.profiler's split of the whole call."""
+    from ctr_recommendation_tpu_torch.ops.cuda import interaction as ki
+
+    w, sc = ki.fwd_gate(x, *sw)
+    v = ki.fwd_project(sc, w_bi)
+    t = {"gate": time_ms(torch, lambda: ki.fwd_gate(x, *sw)),
+         "project": time_ms(torch, lambda: ki.fwd_project(sc, w_bi)),
+         "pairs": time_ms(torch, lambda: ki.fwd_pairs(x, w, v))}
+    log(f"[split] interaction_fwd bf16 all{tag} B={B_FULL}: ms a block {t} on {card}")
+    kernel_split(torch, lambda: ki.interaction_fwd(x, *sw, w_bi),
+                 f"interaction_fwd bf16 all{tag} B={B_FULL}", card)
+
+
 def bwd_split(torch, card, g, x, sw, w_bi, tag: str) -> None:
     """Phase 3: one bf16 interaction_bwd call ("all") split into its seven
     blocks, each timed alone with CUDA events (wrapper included), and
@@ -1170,6 +1273,7 @@ def mm_timing(torch, card, e: int, hidden, with_interaction: bool = True) -> dic
     Returns {(name, btype): times}."""
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
         interaction_bwd,
+        interaction_bwd_expr,
         interaction_bwd_plain,
         interaction_fwd,
         interaction_fwd_plain,
@@ -1202,6 +1306,8 @@ def mm_timing(torch, card, e: int, hidden, with_interaction: bool = True) -> dic
                 f"(bytes {nbytes}, ops {ops}) on {card}")
         if btype == "all":
             score_split(torch, card, x, sw, w_bi, tower, width_tag("fused_score", e, hidden))
+            if with_interaction:
+                fwd_split(torch, card, x, sw, w_bi, width_tag("interaction_fwd", e, hidden))
         del x, sw, w_bi, tower
     if not with_interaction:
         return timing
@@ -1218,8 +1324,12 @@ def mm_timing(torch, card, e: int, hidden, with_interaction: bool = True) -> dic
                 torch, lambda: interaction_bwd_plain(g, x, *sw, w_bi, bilinear_type=btype)),
             **bound(nbytes, ops),
         }
+        expr_ms = time_ms(
+            torch, lambda: interaction_bwd_expr(g, x, *sw, w_bi, bilinear_type=btype))
         log(f"[time] interaction_bwd bf16 {btype}{width_tag('interaction_bwd', e, HIDDEN)} "
-            f"B={B_TRAIN}: {t} (bytes {nbytes}, ops {ops}) on {card}")
+            f"B={B_TRAIN}: {t} (bytes {nbytes}, ops {ops}; plain_ms: the seven blocks' plain "
+            f"versions composed; the single expression interaction_bwd_expr: {expr_ms:.4f} ms) "
+            f"on {card}")
         if btype == "all":
             bwd_split(torch, card, g, x, sw, w_bi, width_tag("interaction_bwd", e, HIDDEN))
     return timing
@@ -1262,6 +1372,10 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
         bwd_launches as inter_bwd_launches,
     )
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        fwd_launches as inter_fwd_launches,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_launches
     from ctr_recommendation_tpu_torch.tools import jax_bridge
     from ctr_recommendation_tpu_torch.training import Trainer
     from ctr_recommendation_tpu_torch.training.metrics import auc
@@ -1289,9 +1403,9 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     names = lambda d: {fn.__name__: n for fn, n in d.items()}  # noqa: E731
     log(f"[train {tag}] fit_on_device: {steps} steps + {eval_batches} eval batches in "
         f"{t_fit:.3f} s; best valid auc {best_auc:.5f}; launches {names(launched)}, expected "
-        f"{names(expect)} (launches a call: interaction_bwd "
-        f"{inter_bwd_launches()}, fused_score 4, encode_fwd 1 + 7 L, "
-        f"encode_bwd 25 L + 1)")
+        f"{names(expect)} (launches a call: interaction_fwd {inter_fwd_launches()}, "
+        f"interaction_bwd {inter_bwd_launches()}, fused_score {score_launches()}, "
+        f"encode_fwd 1 + 7 L, encode_bwd 25 L + 1)")
     losses = [h["train_loss"] for h in hist]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"{tag}: training loss not finite and falling: {losses}")
@@ -1332,6 +1446,9 @@ def serve_sasrec(torch, store, rows, card) -> int:
     from ctr_recommendation_tpu_torch.features import build_feature_map
     from ctr_recommendation_tpu_torch.inference import Predictor, run_submission_pipeline
     from ctr_recommendation_tpu_torch.models import build_model, trunk
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        fwd_launches as inter_fwd_launches,
+    )
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_fwd
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
         encode_fwd,
@@ -1429,7 +1546,7 @@ def serve_sasrec(torch, store, rows, card) -> int:
     log(f"[sasrec unfused] {n_unfused} batches: launches (encode_fwd, fused_score, "
         f"interaction_fwd) {counts()}, max_abs_err vs fused {unfused_err:.3e} "
         f"(tolerance {CPU_TOL})")
-    if counts() != (n_unfused * per, 0, n_unfused):
+    if counts() != (n_unfused * per, 0, n_unfused * inter_fwd_launches()):
         raise SystemExit("the sasrec unfused branch did not run encoder + interaction once a batch")
     if unfused_err > CPU_TOL:
         raise SystemExit("sasrec unfused and fused branches disagree")
@@ -1445,6 +1562,9 @@ def main() -> int:
     from ctr_recommendation_tpu_torch.ops.cuda import build
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
         bwd_launches as inter_bwd_launches,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        fwd_launches as inter_fwd_launches,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
@@ -1473,6 +1593,9 @@ def main() -> int:
     failures += backward_against_plain(torch, worst, E)
     # the recipe sweep's wider widths, with the same bars
     failures += forward_against_plain(torch, worst, WIDE_E, HIDDEN, batches, seed_offset=WIDE_E)
+    # past the 8 fields whose rows the pairs pass holds in registers
+    failures += forward_against_plain(torch, worst, MANY_FIELDS_E, HIDDEN, (B_TRAIN + 37, B_RAGGED),
+                                      seed_offset=13, f=MANY_FIELDS)
     for e in (E, WIDE_E):
         for hidden in WIDE_TOWERS:
             failures += forward_against_plain(torch, worst, e, hidden, (B_TRAIN + 37, B_FULL),
@@ -1480,9 +1603,10 @@ def main() -> int:
     failures += backward_against_plain(torch, worst, WIDE_E, seed_offset=7)
     # past the 8 fields whose rows the backward holds in registers
     failures += backward_against_plain(torch, worst, MANY_FIELDS_E, seed_offset=11, f=MANY_FIELDS)
-    for e, f in ((E, F), (WIDE_E, F), (MANY_FIELDS_E, MANY_FIELDS)):  # the backward's blocks
+    for e, f in ((E, F), (WIDE_E, F), (MANY_FIELDS_E, MANY_FIELDS)):  # both ways' blocks
         for btype in ("all", "each"):
             for dtype in (torch.bfloat16, torch.float32):
+                failures += fwd_blocks_against_plain(torch, e, btype, dtype, f=f)
                 failures += bwd_blocks_against_plain(torch, e, btype, dtype, f=f)
     worst["sasrec_encoder_fwd"], enc_failures = encoder_against_plain(torch)
     failures += enc_failures
@@ -1592,7 +1716,7 @@ def main() -> int:
     unfused_err = float(np.abs(got - bulk[: n_unfused * B_FULL]).max())
     log(f"[unfused] {n_unfused} batches: interaction_fwd launches {inter_launches}, "
         f"max_abs_err vs fused {unfused_err:.3e} (tolerance {CPU_TOL})")
-    if inter_launches != n_unfused or score_fwd.launches != 0:
+    if inter_launches != n_unfused * inter_fwd_launches() or score_fwd.launches != 0:
         raise SystemExit("the unfused branch did not run the interaction kernel once a batch")
     if unfused_err > CPU_TOL:
         raise SystemExit("unfused and fused branches disagree")
@@ -1615,14 +1739,14 @@ def main() -> int:
         f"made in {time.perf_counter() - t0:.1f} s")
     counted = (interaction_fwd, interaction_bwd, score_fwd, encode_fwd, encode_bwd)
     enc_fwd, enc_bwd = fwd_launches(1), bwd_launches(1)  # one layer's kernel launches a call
-    ibwd = inter_bwd_launches()
+    ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
     with tempfile.TemporaryDirectory() as root:
         mm = train_and_serve(
             torch, microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
                                         checkpoint_dir=os.path.join(root, "ckpt")),
             train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: 1, interaction_bwd: ibwd}, per_eval={interaction_fwd: 1},
-            per_serve={score_fwd: score_launches()})
+            per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
+            per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()})
         sasrec_exp = microlens_experiment(data_root="", model="sasrec_fibinet",
                                           epochs=TRAIN_EPOCHS,
                                           checkpoint_dir=os.path.join(root, "ckpt_sasrec"))
@@ -1632,9 +1756,9 @@ def main() -> int:
             raise SystemExit(f"sasrec_fibinet defaults moved: {m}")
         sasrec = train_and_serve(
             torch, sasrec_exp, train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: 1, interaction_bwd: ibwd, encode_fwd: enc_fwd,
+            per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, encode_fwd: enc_fwd,
                       encode_bwd: enc_bwd},
-            per_eval={interaction_fwd: 1, encode_fwd: enc_fwd},
+            per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd},
             per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd})
         # ---- phase 6d: sasrec_emb_256 (sasrec_fibinet at E=256) ----
         wide_sasrec = microlens_experiment(data_root="", model="sasrec_fibinet",
@@ -1642,9 +1766,9 @@ def main() -> int:
                                            checkpoint_dir=os.path.join(root, "ckpt_sasrec_256"))
         train_and_serve(
             torch, wide_sasrec, train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: 1, interaction_bwd: ibwd, encode_fwd: enc_fwd,
+            per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, encode_fwd: enc_fwd,
                       encode_bwd: enc_bwd},
-            per_eval={interaction_fwd: 1, encode_fwd: enc_fwd},
+            per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd},
             per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd}, tag="sasrec_emb_256")
         # ---- phase 6c: emb_256_tower1024 (E=256, tower (1024, 512)) ----
         wide_exp = microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
@@ -1652,8 +1776,9 @@ def main() -> int:
                                         checkpoint_dir=os.path.join(root, "ckpt_wide"))
         train_and_serve(
             torch, wide_exp, train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: 1, interaction_bwd: ibwd}, per_eval={interaction_fwd: 1},
-            per_serve={score_fwd: score_launches()}, tag="emb_256_tower1024")
+            per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
+            per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()},
+            tag="emb_256_tower1024")
     train_fwd, train_bwd = mm[interaction_fwd], mm[interaction_bwd]
     enc_bwd_launches = sasrec[encode_bwd]
 

@@ -58,14 +58,15 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    # flags whose code paths wait for a later slice, with their ROADMAP.md item
+    # flags whose code paths wait for a later slice, with their ROADMAP.md item by title
     refused = [msg for on, msg in (
-        (args.stream, "--stream (streaming/chunked fit, queue 1 item 9)"),
-        (args.model_parallel > 1, "--model-parallel > 1 (parallel, queue 1 item 12)"),
-        (args.profile_dir, "--profile-dir (profiling, queue 1 item 13)"),
-        (args.strict_items, "--strict-items (the host-join train path, queue 1 item 9)"),
+        (args.stream, "--stream (queue 1: streaming and chunked training)"),
+        (args.model_parallel > 1, "--model-parallel > 1 (queue 1: parallel)"),
+        (args.profile_dir, "--profile-dir (queue 1: the rest, profiling)"),
+        (args.strict_items,
+         "--strict-items (the host-join train path; queue 1: streaming and chunked training)"),
         (args.table_optimizer not in (None, "dense"),
-         "a non-dense --table-optimizer (sparse table optimizers, queue 1 item 8)"),
+         "a non-dense --table-optimizer (queue 1: sparse table optimizers)"),
     ) if on]
     if refused:
         print("not ported yet (ROADMAP.md): " + "; ".join(refused), file=sys.stderr)

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel ctr_recommendation_tpu/ops/pallas/interaction.py
 // ::_kernel_all (:56) and ::_kernel_each (:94), one pallas_call with two
-// bodies; here one kernel templated on the bilinear type.
+// bodies; here one sequence of building blocks templated on the bilinear
+// type.
 //
 //   z = mean_E(x) (fp32); w = sigmoid(relu(z W1 + b1) W2 + b2) (fp32)
 //   S = x * cd(w) in the compute dtype cd
@@ -11,49 +12,104 @@
 //                                over the pairs i < j in triu order]
 //
 // Bound on an H100: bytes. At B=8192, F=6, E=128, bf16 in, it reads 12.6 MB
-// and writes 88 MB of fp32, against ~1.3 GFLOP of projection (E=256: 25 MB
-// and 176 MB against ~5.4 GFLOP). The design keeps x and S in shared memory
-// and writes each output element once, as a 16-byte store from a thread
-// whose neighbours write the neighbouring 16 bytes; V never leaves registers
-// (each 4x4 tile of V_p writes every pair that uses it at once).
+// and writes 88 MB of fp32 (30 us at 3.35 TB/s), against ~1.3 GFLOP of
+// projection (E=256: 25 MB and 176 MB against ~5.4 GFLOP), far below the
+// tensor cores' line. The design (interaction.cuh) is three launches on one
+// stream: the gate writes w and sc = cd(x_p cd(w_p)) field-major; V =
+// cd(sc W) runs on tile_mma.cuh's product (bf16 mma.sync, fp32 CUDA-core
+// FMA with fp64 accumulators, never TF32) and stores V in cd; the pairs
+// pass recomputes S from x and w and writes each output element once. The
+// sequence moves ~155 MB at B=8192, E=128 (x twice, sc and V in cd each
+// written and read, the output), ~46 us at 3.35 TB/s. The wrapper allocates
+// one workspace for w, sc and V; the kernels allocate nothing. Rows past B
+// are never read or stored, so any B works.
 //
-// The bilinear weight is staged in fp32 column blocks of nc columns: E x E
-// in fp32 is 256 KB at E=256, more than a block's 227 KB, so the tile loop
-// walks the column blocks (for "all" each block serves every projected
-// field before the next is staged). A block owns TB rows and 256 threads;
-// (TB, nc) is the pair that fits shared memory with the most 4x4 tiles a
-// stage, larger TB first: at E=128 W stays whole (TB=32, nc=128) in both
-// dtypes; at E=256 bf16 TB=32, nc=128; fp32 TB=16, nc=128. A column's sum
-// runs over k in the same order for any nc, so the blocking changes no
-// result. The ragged last tile is masked: rows past B are zero-filled on
-// load and never stored.
-//
-// The kernel lives in interaction.cuh, templated on its output type: this
-// file instantiates the fp32 output; scoring.cu stores the same values in
-// the compute dtype, the concat its tower's first product reads.
+// Envelope: F >= 2, E % 8 == 0 (16-byte rows and staged pieces), any B.
+// The pairs pass keeps a row's S in registers for F <= 8 and recomputes it
+// from x beyond. The scoring call (scoring.cu) runs the same blocks with the
+// concat stored in cd, the values of this output bit for bit.
 
 #include "interaction.cuh"
 
-// Rows per block for these sizes (0: no row tile fits a block).
-extern "C" int interaction_fwd_tile_rows(int F, int E, int R, int is_bf16) {
-  return is_bf16 ? ctr::fwd_plan<__nv_bfloat16>(F, E, R).tb : ctr::fwd_plan<float>(F, E, R).tb;
+namespace {
+template <typename T>
+const T* cd(const void* p) {
+  return static_cast<const T*>(p);
+}
+template <typename T>
+T* cd_mut(void* p) {
+  return static_cast<T*>(p);
+}
+bool bad_dims(int B, int F, int E) { return B < 1 || !ctr::fwd_in_envelope(F, E); }
+}  // namespace
+
+// Each entry point below enqueues its launches on `stream`, requires 16-byte
+// aligned pointers and F >= 2, E % 8 == 0, B >= 1, and returns a
+// cudaError_t (cudaErrorInvalidValue outside the envelope). Tensors in the
+// compute dtype (bf16 when is_bf16, else fp32) are void*; the rest fp32.
+// Q = F - 1 projected fields.
+
+// Block 1: x (B, F, E) -> w (B, F) fp32, sc = cd(x_p cd(w_p)) (Q, B, E) in cd.
+extern "C" int ifwd_gate(const void* x, const float* w1, const float* b1, const float* w2,
+                         const float* b2, float* w, void* sc, int B, int F, int E, int R,
+                         int is_bf16, int each, void* stream) {
+  if (bad_dims(B, F, E) || R < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return ctr::launch_gate<T, true>(cd<T>(x), w1, b1, w2, b2, nullptr, nullptr, w, cd_mut<T>(sc),
+                                     B, F, E, R, each, s);
+  }
+  return ctr::launch_gate<float, true>(cd<float>(x), w1, b1, w2, b2, nullptr, nullptr, w,
+                                       cd_mut<float>(sc), B, F, E, R, each, s);
 }
 
-// x (B, F*E) and wbi ((E, E) or (F-1, E, E)) in the compute dtype (bf16 when
-// is_bf16, else fp32); SENet weights fp32; out (B, (F + F(F-1)/2) * E) fp32.
-// Requires F >= 2, E % 8 == 0, a row tile of at least 4 that fits a block
-// (interaction_fwd_tile_rows) and 16-byte aligned pointers. Returns a cudaError_t.
+// Block 2: V (Q, B, E) = cd(sc W) in cd ("all": W (E, E); "each": W (Q, E, E)).
+extern "C" int ifwd_project(const void* sc, const void* wbi, void* V, int B, int F, int E,
+                            int is_bf16, int each, void* stream) {
+  if (bad_dims(B, F, E)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return ctr::launch_fwd_project<T>(cd<T>(sc), cd<T>(wbi), cd_mut<T>(V), B, F, E, each, s);
+  }
+  return ctr::launch_fwd_project<float>(cd<float>(sc), cd<float>(wbi), cd_mut<float>(V), B, F, E,
+                                        each, s);
+}
+
+// Block 3: x (B, F, E), w (B, F), V (Q, B, E) -> out (B, (F + F(F-1)/2) E)
+// fp32 (scoring.cu instantiates the same pass storing in cd).
+extern "C" int ifwd_pairs(const void* x, const float* w, const void* V, float* out, int B, int F,
+                          int E, int is_bf16, int each, void* stream) {
+  if (bad_dims(B, F, E)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return ctr::launch_fwd_pairs<T, float>(cd<T>(x), w, cd<T>(V), out, B, F, E, each, s);
+  }
+  return ctr::launch_fwd_pairs<float, float>(cd<float>(x), w, cd<float>(V), out, B, F, E, each, s);
+}
+
+// Bytes of workspace interaction_fwd needs at these sizes (0 outside the envelope).
+extern "C" size_t interaction_fwd_workspace(int B, int F, int E, int is_bf16) {
+  if (bad_dims(B, F, E)) return 0;
+  return ctr::FwdWork(nullptr, B, F, E, is_bf16 ? 2 : 4).bytes;
+}
+
+// The whole forward, blocks 1-3 in order on one stream (3 launches). x (B,
+// F*E) and wbi ((E, E) or (Q, E, E)) in cd; SENet weights fp32; out (B, (F +
+// F(F-1)/2) * E) fp32; workspace holds interaction_fwd_workspace bytes for w
+// (B, F) fp32 and sc, V (Q, B, E) in cd.
 extern "C" int interaction_fwd(const void* x, const float* w1, const float* b1,
                                const float* w2, const float* b2, const void* wbi, float* out,
-                               int B, int F, int E, int R, int is_bf16, int each,
+                               void* workspace, int B, int F, int E, int R, int is_bf16, int each,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CTR_FWD_ARGS x, w1, b1, w2, b2, wbi, out, B, F, E, R, s
   if (is_bf16) {
-    return each ? ctr::launch_interaction_fwd<__nv_bfloat16, true>(CTR_FWD_ARGS)
-                : ctr::launch_interaction_fwd<__nv_bfloat16, false>(CTR_FWD_ARGS);
+    using T = __nv_bfloat16;
+    return ctr::launch_interaction_fwd<T, float>(cd<T>(x), w1, b1, w2, b2, cd<T>(wbi), out,
+                                                 workspace, B, F, E, R, each, s);
   }
-  return each ? ctr::launch_interaction_fwd<float, true>(CTR_FWD_ARGS)
-              : ctr::launch_interaction_fwd<float, false>(CTR_FWD_ARGS);
-#undef CTR_FWD_ARGS
+  return ctr::launch_interaction_fwd<float, float>(cd<float>(x), w1, b1, w2, b2, cd<float>(wbi),
+                                                   out, workspace, B, F, E, R, each, s);
 }

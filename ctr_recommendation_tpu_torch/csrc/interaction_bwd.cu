@@ -32,7 +32,8 @@
 // each field one contiguous (B, E) slice:
 //
 //   1. gate: one warp a row; z, h1, w (fp32, (B,F), (B,R), (B,F)) and
-//      sc = cd(x_p w_p) (Q, B, E) in T;
+//      sc = cd(x_p w_p) (Q, B, E) in T: the forward's gate of
+//      interaction.cuh, instantiated at this kernel's rounding point;
 //   2. V = sc W: the tile product of tile_mma.cuh ("nn"; "all" one product
 //      with M = Q B, "each" Q groups of M = B, one launch), fp32 out;
 //   3. pairs: an elementwise pass, a thread four columns of a row (its ds
@@ -62,119 +63,10 @@
 // fields in registers for 2 <= F <= 8 (one instantiation a field count)
 // and sum in their outputs beyond.
 
-#include "tile_mma.cuh"
+#include "interaction.cuh"
 
 namespace ctr {
 namespace ibwd {
-
-constexpr int kRowsPerBlock = kThreads / 32;  // gate blocks: one warp a row
-
-// 8 fp32 values into 8 contiguous elements of T.
-__device__ __forceinline__ void store8(float* dst, const float* v) {
-  float4* d = reinterpret_cast<float4*>(dst);
-  d[0] = make_float4(v[0], v[1], v[2], v[3]);
-  d[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = u;
-}
-
-// 4 contiguous elements of T into fp32, and back.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned*>(&lo);
-  u.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-__device__ __forceinline__ void fma4(float4& acc, float4 a, float4 b) {
-  acc.x += a.x * b.x;
-  acc.y += a.y * b.y;
-  acc.z += a.z * b.z;
-  acc.w += a.w * b.w;
-}
-__device__ __forceinline__ float4 scale4(float4 a, float s) {
-  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Pair k of (i, j), i < j, in triu order.
-__host__ __device__ __forceinline__ int pair_of(int i, int j, int F) {
-  return i * (2 * F - i - 1) / 2 + (j - i - 1);
-}
-
-// ---- block 1: the gate, and sc = cd(x_p w_p) field-major ----
-// One warp a row, any F: z, h1 and w go to their outputs (B, F), (B, R),
-// (B, F), which the warp reads back after __syncwarp (each h1 and gate
-// pre-activation summed by one lane, in index order).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gate_fwd(const T* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ b1,
-         const float* __restrict__ w2, const float* __restrict__ b2, float* z_out, float* h1_out,
-         float* w_out, T* __restrict__ sc, int B, int F, int E, int R, int poff) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= B) return;  // the whole warp: the row is the warp's
-  const T* xr = x + static_cast<size_t>(row) * F * E;
-  float* zr = z_out + static_cast<size_t>(row) * F;
-  float* hr = h1_out + static_cast<size_t>(row) * R;
-  float* wr = w_out + static_cast<size_t>(row) * F;
-  for (int f = 0; f < F; ++f) {
-    float z = 0.f;
-    for (int c = lane * 8; c < E; c += 256) {
-      float v[8];
-      load8(v, xr + f * E + c);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) z += v[i];
-    }
-    z = warp_sum(z);
-    if (lane == 0) zr[f] = z / static_cast<float>(E);
-  }
-  __syncwarp();
-  for (int k = lane; k < R; k += 32) {
-    float h = 0.f;
-    for (int f = 0; f < F; ++f) h += zr[f] * w1[f * R + k];
-    hr[k] = h + b1[k];
-  }
-  __syncwarp();
-  for (int f = lane; f < F; f += 32) {
-    float a = 0.f;
-    for (int k = 0; k < R; ++k) a += fmaxf(hr[k], 0.f) * w2[k * F + f];
-    wr[f] = 1.f / (1.f + expf(-(a + b2[f])));  // the gate w
-  }
-  __syncwarp();
-  for (int q = 0; q < F - 1; ++q) {
-    const int p = q + poff;
-    const float wp = wr[p];
-    T* dst = sc + (static_cast<size_t>(q) * B + row) * E;
-    for (int c = lane * 8; c < E; c += 256) {
-      float v[8];
-      load8(v, xr + p * E + c);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] *= wp;
-      store8(dst + c, v);
-    }
-  }
-}
 
 // ---- block 3: the pairs' backward, g streamed once ----
 // Thread (row b, columns c..c+3). ds (B, F, E) fp32, dvc (Q, B, E) in T;
@@ -404,33 +296,6 @@ reduce_grads(const float* __restrict__ pbi, const float* __restrict__ pg, float*
 
 // ---- host-side launches ----
 
-inline int last_error() { return static_cast<int>(cudaGetLastError()); }
-
-// The statements (...) with NF the constant F for 2 <= F <= 8, else NF = 0
-// (any F): the kernels that hold a row's fields in registers have one
-// instantiation a field count up to 8.
-#define CTR_WITH_FIELDS(F, ...)                                   \
-  switch (F) {                                                    \
-    case 2: { constexpr int NF = 2; __VA_ARGS__; }                \
-    case 3: { constexpr int NF = 3; __VA_ARGS__; }                \
-    case 4: { constexpr int NF = 4; __VA_ARGS__; }                \
-    case 5: { constexpr int NF = 5; __VA_ARGS__; }                \
-    case 6: { constexpr int NF = 6; __VA_ARGS__; }                \
-    case 7: { constexpr int NF = 7; __VA_ARGS__; }                \
-    case 8: { constexpr int NF = 8; __VA_ARGS__; }                \
-    default: { constexpr int NF = 0; __VA_ARGS__; }               \
-  }
-
-template <typename T>
-int launch_gate(const T* x, const float* w1, const float* b1, const float* w2, const float* b2,
-                float* z, float* h1, float* w, T* sc, int B, int F, int E, int R, bool each,
-                cudaStream_t s) {
-  const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
-  gate_fwd<T><<<blocks, kThreads, 0, s>>>(x, w1, b1, w2, b2, z, h1, w, sc, B, F, E, R,
-                                          each ? 0 : 1);
-  return last_error();
-}
-
 // V = sc W ("all": one (Q B, E) x (E, E) product; "each": Q of (B, E) x W_q).
 template <typename T>
 int launch_project(const T* sc, const T* wbi, float* V, int B, int F, int E, bool each,
@@ -503,8 +368,6 @@ inline int launch_reduce(const float* pbi, const float* pg, float* out, int G, i
   return last_error();
 }
 
-#undef CTR_WITH_FIELDS
-
 inline bool in_envelope(int F, int E, int R) {
   return F >= 2 && E >= 8 && E % 8 == 0 && R >= 1;
 }
@@ -545,11 +408,11 @@ extern "C" int ibwd_gate(const void* x, const float* w1, const float* b1, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using T = __nv_bfloat16;
-    return ctr::ibwd::launch_gate<T>(cd<T>(x), w1, b1, w2, b2, z, h1, w, cd_mut<T>(sc), B, F, E,
-                                     R, each, s);
+    return ctr::launch_gate<T, false>(cd<T>(x), w1, b1, w2, b2, z, h1, w, cd_mut<T>(sc), B, F, E,
+                                      R, each, s);
   }
-  return ctr::ibwd::launch_gate<float>(cd<float>(x), w1, b1, w2, b2, z, h1, w, cd_mut<float>(sc),
-                                       B, F, E, R, each, s);
+  return ctr::launch_gate<float, false>(cd<float>(x), w1, b1, w2, b2, z, h1, w, cd_mut<float>(sc),
+                                        B, F, E, R, each, s);
 }
 
 // Block 2: V (Q, B, E) fp32 = sc W ("all": W (E, E); "each": W (Q, E, E)).

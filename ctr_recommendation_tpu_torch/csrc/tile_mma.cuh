@@ -1,7 +1,8 @@
 // One hand-written tile product for Hopper (sm_90a), shared by the SASRec
 // encoder's forward and backward (sasrec_encoder.cuh), the scoring tower's
-// two hidden layers (scoring.cu) and the interaction backward's three E x E
-// products (interaction_bwd.cu):
+// two hidden layers (scoring.cu), the interaction backward's three E x E
+// products (interaction_bwd.cu) and the forward's projection
+// (interaction.cuh, so also the scoring front):
 //
 //   C[m, n] = sum over k in a split of A(m, k) B(k, n),  then epi(m, n, z, C)
 //
@@ -276,6 +277,21 @@ struct EpiPartial {
   }
   __device__ void pair(int r, int c, int z, float v0, float v1) const {
     store2(part + z * zstride + static_cast<size_t>(r) * ld + c, v0, v1);
+  }
+};
+
+// Group z's slice of a grouped product rounded to T and stored in T:
+// out[z zstride + r ld + c] = cd(C), the interaction forward's V = cd(sc W).
+template <typename T>
+struct EpiStoreCd {
+  T* out;
+  int ld;
+  size_t zstride;
+  __device__ void operator()(int r, int c, int z, float v) const {
+    out[z * zstride + static_cast<size_t>(r) * ld + c] = from_f<T>(v);
+  }
+  __device__ void pair(int r, int c, int z, float v0, float v1) const {
+    store2(out + z * zstride + static_cast<size_t>(r) * ld + c, v0, v1);
   }
 };
 

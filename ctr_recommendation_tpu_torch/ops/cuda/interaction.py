@@ -12,19 +12,30 @@ the forward must read 12.6 MB and write 88 MB of fp32 output (30 us at
 dx, 56.6 MB in all (17 us; 34 us at E=256), against 2.0 GFLOP of E x E
 products (8.1 at E=256) far below the tensor cores' line.
 
-Forward: one kernel keeps x and S in shared memory with the projection
-weight staged in column blocks, holds each V tile in registers and writes
-every output element once with coalesced 16-byte stores. Envelope: F >= 2,
-E % 8 == 0, and a row tile of 4 that fits a block's shared memory (E=256,
-every configuration of the JAX package's recipe sweep, in bf16 and fp32).
+Forward: three launches (``fwd_launches()``), each a building block with
+its own wrapper and plain version here, enqueued by one C call (the
+scoring call's front, csrc/scoring.cu, runs the same three with the output
+in the compute dtype cd):
+
+1. ``fwd_gate``: w (fp32) and sc = cd(x_p cd(w_p)), one warp a row (the
+   forward's rounding points; the backward's gate is the same kernel at
+   its own);
+2. ``fwd_project``: V = cd(sc W), the tile product of csrc/tile_mma.cuh
+   (bf16 ``mma.sync`` on the tensor cores; fp32 on the CUDA cores with
+   fp64 accumulators, never TF32), stored in cd;
+3. ``fwd_pairs``: S = cd(x cd(w)) recomputed, and each output row written
+   once with 16-byte stores: the S columns, then the pairs cd(S_i V_j)
+   ("all") or cd(V_i S_j) ("each") in triu order.
+
+~155 MB of traffic a call at B=8192, E=128. ``interaction_fwd_plain`` stays
+the single expression it was; a CPU test holds the blocks' plain versions,
+composed, bit for bit equal to it.
 
 Backward: seven launches (``bwd_launches()``), each a building block with
 its own wrapper and plain version here, enqueued by one C call:
 
 1. ``bwd_gate``: z, h1, w (fp32) and sc = cd(x_p w_p), one warp a row;
-2. ``bwd_project``: V = sc W (fp32, not rounded), the tile product of
-   csrc/tile_mma.cuh (bf16 ``mma.sync`` on the tensor cores; fp32 on the
-   CUDA cores with fp64 accumulators, never TF32);
+2. ``bwd_project``: V = sc W (fp32, not rounded), the tile product;
 3. ``bwd_pairs``: the pairs' backward, streaming g once as 16-byte loads:
    ds (B, F, E) fp32 and dvc = cd(dv_p);
 4. ``bwd_project_t``: the projection term P = dvc W^T (fp32), the tile
@@ -36,21 +47,25 @@ its own wrapper and plain version here, enqueued by one C call:
 7. ``bwd_reduce``: each weight gradient the sum of its partials in a fixed
    order, so repeats are bit-identical (no atomics).
 
+``interaction_bwd_plain`` is the composition of the seven blocks' plain
+versions; ``interaction_bwd_expr`` the single expression it replaced, the
+yardstick whose time chip_smoke.py reports beside it.
+
 The projected fields p are 1..F-1 for "all" and 0..F-2 for "each"; sc, V
 (then P), dvc are field-major (F-1, B, E), so every operand of a product is
 a plain contiguous matrix and "each" runs its F-1 products as groups of one
-launch. The wrapper allocates the scratch in one workspace (~185 MB of
-traffic a call at B=4096, E=128); the kernels allocate nothing. Envelope:
-F >= 2, E % 8 == 0, any B (``BWD_ENVELOPE``, ``check_bwd_envelope``); the
-pairs pass and the gate backward hold a row's fields in registers for
-F <= 8 and sum in their outputs beyond.
+launch. Each call's wrapper allocates its scratch in one workspace (~185 MB
+of traffic a backward call at B=4096, E=128); the kernels allocate nothing.
+Envelope, both ways: F >= 2, E % 8 == 0, any B (``ENVELOPE``,
+``check_fwd_envelope``, ``check_bwd_envelope``); the pairs passes and the
+gate backward hold a row's fields in registers for F <= 8 and recompute or
+sum in their outputs beyond.
 
 Outside an envelope the wrappers raise ``ValueError`` naming it. On a CUDA
 tensor each wrapper launches its kernels (or raises), on a CPU tensor it
-runs its plain PyTorch version with the same rounding points;
-``interaction_bwd_plain`` is the composition of the blocks' plain versions.
-The wrappers' ``launches`` attributes count kernel launches (the backward's
-``bwd_launches()`` a call).
+runs its plain PyTorch version with the same rounding points. The
+wrappers' ``launches`` attributes count kernel launches (``fwd_launches()``
+and ``bwd_launches()`` a whole call, one a block).
 """
 
 from __future__ import annotations
@@ -93,23 +108,7 @@ def interaction_fwd_plain(x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     return torch.cat([s.reshape(b, -1), p.reshape(b, -1)], dim=-1).float()
 
 
-_LIB = None
-
-
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
-        lib = build.load("interaction")
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.interaction_fwd.argtypes = [vp] * 7 + [i] * 6 + [vp]
-        lib.interaction_fwd.restype = i
-        lib.interaction_fwd_tile_rows.argtypes = [i] * 4
-        lib.interaction_fwd_tile_rows.restype = i
-        _LIB = lib
-    return _LIB
-
-
-ENVELOPE = "F >= 2, E % 8 == 0 and a row tile of 4 within a block's 227 KB of shared memory"
+ENVELOPE = "F >= 2 and E % 8 == 0 (any B)"
 
 
 def stream_of(t) -> int:
@@ -146,33 +145,195 @@ def check_kernel_args(tensors: dict, dtype: torch.dtype, device) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _projected(f: int, bilinear_type: str) -> slice:
+    if bilinear_type == "all":
+        return slice(1, f)
+    if bilinear_type == "each":
+        return slice(0, f - 1)
+    raise ValueError(f"bilinear_type must be 'all' or 'each', got {bilinear_type!r}")
+
+
+def _ptrs(*ts):
+    return [t.data_ptr() for t in ts]
+
+
+# ---------------------------------------------------------------- the forward
+#
+# Three building blocks (csrc/interaction.cuh), each a kernel with its plain
+# version here; their composition is interaction_fwd_plain bit for bit.
+
+
+def fwd_launches() -> int:
+    """Kernel launches of one ``interaction_fwd`` call, either bilinear type
+    ("each" runs its per-field products as groups of one launch): the gate,
+    V = cd(sc W) and the pairs."""
+    return 3
+
+
+def check_fwd_envelope(f: int, e: int) -> None:
+    """Raise unless the forward kernels take F fields of width E."""
+    if f < 2 or e < 8 or e % 8:
+        raise ValueError(f"interaction_fwd needs {ENVELOPE}; got F={f}, E={e}")
+
+
+def fwd_gate_plain(x, w1, b1, w2, b2, *, bilinear_type="all"):
+    """Block 1: x (B, F, E) in cd -> w (B, F) fp32 and sc = x_p cd(w_p)
+    (Q, B, E) in cd, the gate fp32 and rounded to cd before the product."""
+    z = x.float().mean(-1)
+    a = torch.relu(z @ w1.float() + b1.float())
+    w = torch.sigmoid(a @ w2.float() + b2.float())
+    p = _projected(x.shape[1], bilinear_type)
+    sc = x[:, p] * w[:, p].to(x.dtype)[..., None]
+    return w, sc.transpose(0, 1).contiguous()
+
+
+def fwd_project_plain(sc, w_bi, *, bilinear_type="all", forward_rounding=True):
+    """Block 2: V = cd(sc W) (Q, B, E) in cd, accumulated in fp32.
+    ``forward_rounding=False``: V left in fp32, not rounded, a wrong forward
+    that the bf16 norm bar of the checks must reject."""
+    wf = w_bi.float()
+    if bilinear_type == "all":
+        v = sc.float() @ wf
+    else:
+        v = torch.bmm(sc.float(), wf)
+    return v.to(sc.dtype) if forward_rounding else v
+
+
+def fwd_pairs_plain(x, w, v, *, bilinear_type="all", out_dtype=torch.float32):
+    """Block 3: x (B, F, E) in cd, w (B, F) fp32, V (Q, B, E) -> [S | the
+    pairs] (B, (F + F(F-1)/2) E) in ``out_dtype`` (fp32, or cd for the
+    scoring front): S = x cd(w) in cd, pairs S_i V_j ("all") or V_i S_j
+    ("each") in triu order, each rounded to V's dtype."""
+    b, f, _ = x.shape
+    _projected(f, bilinear_type)
+    s = x * w.to(x.dtype)[..., None]
+    vb = v.transpose(0, 1)
+    i_idx, j_idx = pair_indices(f)
+    if bilinear_type == "all":  # V_j at q = j - 1
+        p = s[:, i_idx] * vb[:, j_idx - 1]
+    else:
+        p = vb[:, i_idx] * s[:, j_idx]
+    return torch.cat([s.reshape(b, -1).to(p.dtype), p.reshape(b, -1)], dim=-1).to(out_dtype)
+
+
+_FWD = None
+
+
+def _fwd_fns():
+    global _FWD
+    if _FWD is None:
+        lib = build.load("interaction")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        sig = {
+            "ifwd_gate": [vp] * 7 + [i] * 6 + [vp],
+            "ifwd_project": [vp] * 3 + [i] * 5 + [vp],
+            "ifwd_pairs": [vp] * 4 + [i] * 5 + [vp],
+            "interaction_fwd": [vp] * 8 + [i] * 6 + [vp],
+        }
+        lib.interaction_fwd_workspace.argtypes = [i] * 4
+        lib.interaction_fwd_workspace.restype = ctypes.c_size_t
+        for name, argtypes in sig.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i
+        _FWD = lib
+    return _FWD
+
+
+def _fwd_dims(t, f: int, e: int, w_bi, bilinear_type: str) -> int:
+    """Checks of a forward block's operands on the card (t a bf16/fp32 CUDA
+    operand of F fields of width E; w_bi, when given, of the type's shape);
+    returns 1 for "each", 0 for "all"."""
+    cuda_only("interaction_fwd", t)
+    _projected(f, bilinear_type)
+    check_fwd_envelope(f, e)
+    each = bilinear_type == "each"
+    if w_bi is not None and tuple(w_bi.shape) != ((f - 1, e, e) if each else (e, e)):
+        raise ValueError(f"w_bi has shape {tuple(w_bi.shape)} for F={f}, E={e}, {bilinear_type}")
+    return int(each)
+
+
+def _launch_fwd(fn, name: str, *args) -> None:
+    build.check(getattr(_fwd_fns(), name)(*args), name)
+    fn.launches += 1
+
+
+def fwd_gate(x, w1, b1, w2, b2, *, bilinear_type="all"):
+    """Block 1 (see ``fwd_gate_plain``): x (B, F, E) bf16/fp32, SENet
+    weights fp32 -> (w, sc)."""
+    if x.device.type == "cpu":
+        return fwd_gate_plain(x, w1, b1, w2, b2, bilinear_type=bilinear_type)
+    b, f, e = x.shape
+    each = _fwd_dims(x, f, e, None, bilinear_type)
+    r = w1.shape[1]
+    f32 = torch.float32
+    check_kernel_args({"x": (x, None), "w1": (w1, f32), "b1": (b1, f32), "w2": (w2, f32),
+                       "b2": (b2, f32)}, x.dtype, x.device)
+    w = torch.empty(b, f, device=x.device)
+    sc = torch.empty(f - 1, b, e, dtype=x.dtype, device=x.device)
+    _launch_fwd(fwd_gate, "ifwd_gate", *_ptrs(x, w1, b1, w2, b2, w, sc), b, f, e, r, is_bf16(x),
+                each, stream_of(x))
+    return w, sc
+
+
+def fwd_project(sc, w_bi, *, bilinear_type="all"):
+    """Block 2 (see ``fwd_project_plain``): sc (Q, B, E), w_bi in sc's dtype
+    -> V (Q, B, E) in sc's dtype."""
+    if sc.device.type == "cpu":
+        return fwd_project_plain(sc, w_bi, bilinear_type=bilinear_type)
+    q, b, e = sc.shape
+    each = _fwd_dims(sc, q + 1, e, w_bi, bilinear_type)
+    check_kernel_args({"sc": (sc, None), "w_bi": (w_bi, None)}, sc.dtype, sc.device)
+    v = torch.empty_like(sc)
+    _launch_fwd(fwd_project, "ifwd_project", *_ptrs(sc, w_bi, v), b, q + 1, e, is_bf16(sc), each,
+                stream_of(sc))
+    return v
+
+
+def fwd_pairs(x, w, v, *, bilinear_type="all"):
+    """Block 3 (see ``fwd_pairs_plain``): x (B, F, E), V (Q, B, E) in x's
+    dtype, w (B, F) fp32 -> (B, (F + F(F-1)/2) E) fp32 (the scoring front
+    stores the same values in x's dtype)."""
+    if x.device.type == "cpu":
+        return fwd_pairs_plain(x, w, v, bilinear_type=bilinear_type)
+    b, f, e = x.shape
+    each = _fwd_dims(x, f, e, None, bilinear_type)
+    check_kernel_args({"x": (x, None), "w": (w, torch.float32), "v": (v, None)},
+                      x.dtype, x.device)
+    if w.shape != (b, f) or v.shape != (f - 1, b, e):
+        raise ValueError("fwd_pairs: w or V do not match x")
+    out = torch.empty(b, (f + f * (f - 1) // 2) * e, device=x.device)
+    _launch_fwd(fwd_pairs, "ifwd_pairs", *_ptrs(x, w, v, out), b, f, e, is_bf16(x), each,
+                stream_of(x))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_workspace(b: int, f: int, e: int, bf16: int) -> int:
+    """Bytes of one forward call's workspace at these sizes."""
+    return _fwd_fns().interaction_fwd_workspace(b, f, e, bf16)
+
+
 def interaction_fwd(x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     """x (B, F, E) bf16/fp32; w1 (F, R), b1 (R,), w2 (R, F), b2 (F,) fp32;
     w_bi (E, E) ("all") or (F-1, E, E) ("each") in x's dtype ->
-    (B, (F + F(F-1)/2) * E) fp32."""
+    (B, (F + F(F-1)/2) * E) fp32. On a card: the three blocks, enqueued by
+    one C call (``fwd_launches()`` launches)."""
     if x.device.type == "cpu":
         return interaction_fwd_plain(x, w1, b1, w2, b2, w_bi, bilinear_type=bilinear_type)
-    if x.device.type != "cuda":
-        raise ValueError(f"interaction_fwd runs on CUDA or CPU tensors, got {x.device}")
+    cuda_only("interaction_fwd", x)
     if bilinear_type not in ("all", "each"):
         raise ValueError(f"bilinear_type must be 'all' or 'each', got {bilinear_type!r}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
     b, f, e = x.shape
     r = w1.shape[1]
+    check_fwd_envelope(f, e)
     wbi_shape = (e, e) if bilinear_type == "all" else (f - 1, e, e)
-    if f < 2 or e % 8:
-        raise ValueError(f"interaction_fwd needs {ENVELOPE}; got F={f}, E={e}")
     if (
         tuple(w1.shape) != (f, r) or tuple(b1.shape) != (r,)
         or tuple(w2.shape) != (r, f) or tuple(b2.shape) != (f,)
         or tuple(w_bi.shape) != wbi_shape
     ):
         raise ValueError("SENet / bilinear weight shapes do not match x")
-    lib = _kernel_lib()
-    bf16 = is_bf16(x)
-    if lib.interaction_fwd_tile_rows(f, e, r, bf16) == 0:
-        raise ValueError(f"interaction_fwd needs {ENVELOPE}; got F={f}, E={e}, {x.dtype}")
     f32 = torch.float32
     check_kernel_args(
         {"x": (x, None), "w1": (w1, f32), "b1": (b1, f32), "w2": (w2, f32),
@@ -182,17 +343,18 @@ def interaction_fwd(x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
     out = torch.empty(b, (f + f * (f - 1) // 2) * e, dtype=f32, device=x.device)
     if b == 0:
         return out
-    rc = lib.interaction_fwd(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w_bi.data_ptr(), out.data_ptr(), b, f, e, r, bf16, int(bilinear_type == "each"),
-        stream_of(x),
-    )
+    bf16 = is_bf16(x)
+    ws = torch.empty(_fwd_workspace(b, f, e, bf16), dtype=torch.uint8, device=x.device)
+    rc = _fwd_fns().interaction_fwd(
+        *_ptrs(x, w1, b1, w2, b2, w_bi, out, ws), b, f, e, r, bf16,
+        int(bilinear_type == "each"), stream_of(x))
     build.check(rc, "interaction_fwd")
-    interaction_fwd.launches += 1
+    interaction_fwd.launches += fwd_launches()
     return out
 
 
-interaction_fwd.launches = 0
+for _fn in (interaction_fwd, fwd_gate, fwd_project, fwd_pairs):
+    _fn.launches = 0
 
 
 # ---------------------------------------------------------------- the backward
@@ -202,7 +364,6 @@ interaction_fwd.launches = 0
 # field-major: the Q = F - 1 projected fields (1..F-1 for "all", 0..F-2 for
 # "each") of sc, V and dvc are (Q, B, E).
 
-BWD_ENVELOPE = "F >= 2 and E % 8 == 0 (any B)"
 SPLIT_BLOCKS = 132  # blocks the split dW_bi product aims at: one an SM of an H100
 GATE_BLOCKS = 264  # blocks the gate backward aims at: two an SM
 
@@ -218,15 +379,7 @@ def bwd_launches() -> int:
 def check_bwd_envelope(f: int, e: int) -> None:
     """Raise unless the backward kernels take F fields of width E."""
     if f < 2 or e < 8 or e % 8:
-        raise ValueError(f"interaction_bwd needs {BWD_ENVELOPE}; got F={f}, E={e}")
-
-
-def _projected(f: int, bilinear_type: str) -> slice:
-    if bilinear_type == "all":
-        return slice(1, f)
-    if bilinear_type == "each":
-        return slice(0, f - 1)
-    raise ValueError(f"bilinear_type must be 'all' or 'each', got {bilinear_type!r}")
+        raise ValueError(f"interaction_bwd needs {ENVELOPE}; got F={f}, E={e}")
 
 
 def weight_grad_split(rows: int, e: int, groups: int) -> tuple[int, int]:
@@ -387,6 +540,48 @@ def interaction_bwd_plain(g, x, w1, b1, w2, b2, w_bi, *, bilinear_type="all",
     return dx, dw1.view(f, r), db1, dw2.view(r, f), db2, dw_bi.view(wbi_shape)
 
 
+def interaction_bwd_expr(g, x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
+    """``interaction_bwd_plain`` as the single expression it was before the
+    backward was split into blocks: the same rounding points and function,
+    summed in another order. The yardstick of the backward's plain time
+    that chip_smoke.py reports beside the composition's. Returns (dx in
+    cd, dW1, db1, dW2, db2, dW_bi)."""
+    _projected(x.shape[1], bilinear_type)
+    cd = x.dtype
+    b, f, e = x.shape
+    xs, g = x.float(), g.float()
+    z = xs.mean(-1)
+    h1 = z @ w1.float() + b1.float()
+    a = torch.relu(h1)
+    w = torch.sigmoid(a @ w2.float() + b2.float())
+    s = xs * w[..., None]
+    s_cd = s.to(cd).float()
+    wf = w_bi.to(cd).float()
+    i_idx, j_idx = (torch.as_tensor(t, device=x.device) for t in pair_indices(f))
+    ds = g[:, : f * e].reshape(b, f, e).clone()
+    gp = g[:, f * e :].reshape(b, -1, e)
+    dv = torch.zeros_like(s)
+    if bilinear_type == "all":
+        v = s_cd @ wf
+        ds.index_add_(1, i_idx, gp * v[:, j_idx])
+        dv.index_add_(1, j_idx, gp * s[:, i_idx])
+        dv_cd = dv.to(cd).float()
+        dw_bi = torch.einsum("bfe,bfd->ed", s_cd, dv_cd)
+        ds = ds + dv_cd @ wf.T
+    else:
+        v = torch.einsum("bfe,fed->bfd", s_cd[:, :-1], wf)
+        dv[:, :-1].index_add_(1, i_idx, gp * s[:, j_idx])
+        ds.index_add_(1, j_idx, gp * v[:, i_idx])
+        dv_cd = dv[:, :-1].to(cd).float()
+        dw_bi = torch.einsum("bfe,bfd->fed", s_cd[:, :-1], dv_cd)
+        ds[:, :-1] += torch.einsum("bfd,fed->bfe", dv_cd, wf)
+    dh2 = (ds * xs).sum(-1) * w * (1.0 - w)
+    dh1 = (dh2 @ w2.float().T) * (h1 > 0)
+    dz = dh1 @ w1.float().T
+    dx = ds * w[..., None] + dz[..., None] * (1.0 / e)
+    return dx.to(cd), z.T @ dh1, dh1.sum(0), a.T @ dh2, dh2.sum(0), dw_bi
+
+
 _BWD = None
 
 
@@ -431,10 +626,6 @@ def _bwd_dims(t, f: int, e: int, w_bi, bilinear_type: str) -> int:
 def _launch(fn, name: str, *args) -> None:
     build.check(getattr(_bwd_fns(), name)(*args), name)
     fn.launches += 1
-
-
-def _ptrs(*ts):
-    return [t.data_ptr() for t in ts]
 
 
 def bwd_gate(x, w1, b1, w2, b2, *, bilinear_type="all"):

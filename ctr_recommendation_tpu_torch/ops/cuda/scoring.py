@@ -7,11 +7,14 @@ Bound on an H100: operations. At B=8192 the BatchNorm-folded tower
 2688 -> 512 -> 256 -> 1 is 26 GFLOP (26.3 us at 989 TFLOP/s bf16) against
 ~15 MB of input, output and weights. The TPU kernel holds the (TB, 21E)
 concat and all of W1 in VMEM; an H100 block has 227 KB of shared memory, so
-one call here is a sequence of four launches (``score_launches()``), each a
-building block with its own wrapper and plain version:
+one call here is a sequence of four building blocks, each with its own
+wrapper and plain version, in ``score_launches()`` launches:
 
-1. ``score_front``: the interaction kernel of csrc/interaction.cuh writing
-   the concat c = [S | pairs] (B, 21E) in the tower dtype cd;
+1. ``score_front``: the interaction forward's three launches of
+   csrc/interaction.cuh (``interaction.fwd_launches()``: the gate, V =
+   cd(sc W) on the tile product, the pairs) writing the concat c = [S |
+   pairs] (B, 21E) in the tower dtype cd, bit for bit the interaction
+   forward's output;
 2. ``tower_layer``: h1 = cd(relu(c W1 + b1)), the tile product of
    csrc/tile_mma.cuh (bf16: ``ldmatrix`` / ``mma.sync`` on the tensor
    cores, 128 x 128 tiles, fp32 accumulators; fp32: CUDA-core FMA with fp64
@@ -19,12 +22,12 @@ building block with its own wrapper and plain version:
 3. ``tower_layer`` again: h2 = cd(relu(h1 W2 + b2));
 4. ``score_head``: sigmoid(h2 w3 + b3), one warp a row.
 
-``score_fwd`` enqueues the four in one C call and allocates c, h1 and h2
-(the kernels allocate nothing). Envelope (``ENVELOPE``, ``check_envelope``):
-F >= 2, E % 8 == 0, any two-layer tower with H1 % 8 == 0 and H2 % 8 == 0
-(read from the weights, as the TPU kernel reads them), any B, and a front
-row tile of 4 that fits shared memory; that holds the recorded towers
-(512, 256), (1024, 512) and (768, 384) at E=128 and 256 in bf16 and fp32.
+``score_fwd`` enqueues the four in one C call and allocates c, h1, h2 and
+the front's workspace (the kernels allocate nothing). Envelope
+(``ENVELOPE``, ``check_envelope``): F >= 2, E % 8 == 0, any two-layer tower
+with H1 % 8 == 0 and H2 % 8 == 0 (read from the weights, as the TPU kernel
+reads them), any B; that holds the recorded towers (512, 256), (1024, 512)
+and (768, 384) at E=128 and 256 in bf16 and fp32.
 Left for later: ``wgmma`` with TMA-staged tiles, and the front fused into
 layer 1's operand staging so that c never reaches device memory.
 
@@ -32,12 +35,14 @@ Each wrapper, on a CUDA tensor, launches its kernel (or raises); on a CPU
 tensor it runs its plain PyTorch version with the same rounding points.
 ``score_fwd_plain`` is the composition of the blocks' plain versions. The
 wrappers' ``launches`` attributes count kernel launches: ``score_fwd``'s
-``score_launches()`` a call, each block's one.
+``score_launches()`` a call, the front's ``fwd_launches()``, each other
+block's one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,27 +50,27 @@ from ctr_recommendation_tpu_torch.ops.cuda import build
 from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
     check_kernel_args,
     cuda_only,
+    fwd_gate_plain,
+    fwd_launches,
+    fwd_pairs_plain,
+    fwd_project_plain,
     is_bf16,
-    senet_bilinear_parts,
     senet_weights,
     stream_of,
 )
 
-ENVELOPE = (
-    "F >= 2, E % 8 == 0, a 2-layer tower with H1 % 8 == 0 and H2 % 8 == 0, and a front "
-    "row tile of 4 within a block's 227 KB of shared memory"
-)
+ENVELOPE = "F >= 2, E % 8 == 0 and a 2-layer tower with H1 % 8 == 0 and H2 % 8 == 0 (any B)"
 
 
 def score_launches() -> int:
-    """Kernel launches of one ``score_fwd`` call: the front, the two tower
-    layers and the head."""
-    return 4
+    """Kernel launches of one ``score_fwd`` call: the front's
+    ``fwd_launches()``, the two tower layers and the head."""
+    return fwd_launches() + 3
 
 
 def check_envelope(f: int, e: int, h1: int, h2: int) -> None:
     """Raise unless the kernels take F fields of width E and the tower
-    (H1, H2); the front's shared-memory fit is checked at launch."""
+    (H1, H2)."""
     if f < 2 or e < 8 or e % 8 or h1 < 8 or h1 % 8 or h2 < 8 or h2 % 8:
         raise ValueError(f"fused_score needs {ENVELOPE}; got F={f}, E={e}, tower {(h1, h2)}")
 
@@ -74,10 +79,11 @@ def check_envelope(f: int, e: int, h1: int, h2: int) -> None:
 
 
 def score_front_plain(x, sw1, sb1, sw2, sb2, w_bi, *, bilinear_type="all"):
-    """x (B, F, E) in cd -> the concat [S | pairs] (B, (F + F(F-1)/2) E) in cd."""
-    b = x.shape[0]
-    s, p = senet_bilinear_parts(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type)
-    return torch.cat([s.reshape(b, -1), p.reshape(b, -1)], dim=-1)
+    """x (B, F, E) in cd -> the concat [S | pairs] (B, (F + F(F-1)/2) E) in
+    cd: the interaction forward's three plain blocks, the output in cd."""
+    kw = dict(bilinear_type=bilinear_type)
+    w, sc = fwd_gate_plain(x, sw1, sb1, sw2, sb2, **kw)
+    return fwd_pairs_plain(x, w, fwd_project_plain(sc, w_bi, **kw), **kw, out_dtype=x.dtype)
 
 
 def tower_layer_plain(a, w, bias):
@@ -111,12 +117,12 @@ def _kernel_lib():
     if _LIB is None:
         lib = build.load("scoring")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.score_front_tile_rows.argtypes = [i] * 4
-        lib.score_front_tile_rows.restype = i
-        lib.score_front.argtypes = [vp] * 7 + [i] * 6 + [vp]
+        lib.score_front_workspace.argtypes = [i] * 4
+        lib.score_front_workspace.restype = ctypes.c_size_t
+        lib.score_front.argtypes = [vp] * 8 + [i] * 6 + [vp]
         lib.score_layer.argtypes = [vp] * 4 + [i] * 4 + [vp]
         lib.score_head.argtypes = [vp] * 4 + [i] * 3 + [vp]
-        lib.fused_score.argtypes = [vp] * 16 + [i] * 8 + [vp]
+        lib.fused_score.argtypes = [vp] * 17 + [i] * 8 + [vp]
         for fn in (lib.score_front, lib.score_layer, lib.score_head, lib.fused_score):
             fn.restype = i
         _LIB = lib
@@ -124,8 +130,8 @@ def _kernel_lib():
 
 
 def _front_args(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type):
-    """Shapes, dtypes and the front's row tile of the front's operands
-    (CUDA); returns (B, F, E, R)."""
+    """Shapes and dtypes of the front's operands (CUDA); returns (B, F, E,
+    R)."""
     if bilinear_type not in ("all", "each"):
         raise ValueError(f"bilinear_type must be 'all' or 'each', got {bilinear_type!r}")
     b, f, e = x.shape
@@ -144,15 +150,19 @@ def _front_args(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type):
          "sb2": (sb2, f32), "w_bi": (w_bi, None)},
         x.dtype, x.device,
     )
-    if _kernel_lib().score_front_tile_rows(f, e, r, is_bf16(x)) == 0:
-        raise ValueError(
-            f"fused_score needs {ENVELOPE}; got F={f}, E={e}, {x.dtype}: no front row tile fits")
     return b, f, e, r
+
+
+@functools.lru_cache(maxsize=64)
+def _front_workspace(b: int, f: int, e: int, bf16: int) -> int:
+    """Bytes of the front's workspace (w, sc and V) at these sizes."""
+    return _kernel_lib().score_front_workspace(b, f, e, bf16)
 
 
 def score_front(x, sw1, sb1, sw2, sb2, w_bi, *, bilinear_type="all"):
     """Block 1: x (B, F, E) in cd (bf16/fp32), SENet weights fp32, w_bi in
-    cd -> the concat c (B, (F + F(F-1)/2) E) in cd."""
+    cd -> the concat c (B, (F + F(F-1)/2) E) in cd; ``fwd_launches()``
+    launches."""
     if x.device.type == "cpu":
         return score_front_plain(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type=bilinear_type)
     cuda_only("score_front", x)
@@ -160,11 +170,12 @@ def score_front(x, sw1, sb1, sw2, sb2, w_bi, *, bilinear_type="all"):
     c = torch.empty(b, (f + f * (f - 1) // 2) * e, dtype=x.dtype, device=x.device)
     if b == 0:
         return c
+    ws = torch.empty(_front_workspace(b, f, e, is_bf16(x)), dtype=torch.uint8, device=x.device)
     rc = _kernel_lib().score_front(
-        *(t.data_ptr() for t in (x, sw1, sb1, sw2, sb2, w_bi)), c.data_ptr(),
+        *(t.data_ptr() for t in (x, sw1, sb1, sw2, sb2, w_bi, c, ws)),
         b, f, e, r, is_bf16(x), int(bilinear_type == "each"), stream_of(x))
     build.check(rc, "score_front")
-    score_front.launches += 1
+    score_front.launches += fwd_launches()
     return c
 
 
@@ -248,8 +259,9 @@ def score_fwd(
     c = torch.empty(b, cdim, dtype=x.dtype, device=x.device)
     s1 = torch.empty(b, h1, dtype=x.dtype, device=x.device)
     s2 = torch.empty(b, h2, dtype=x.dtype, device=x.device)
+    ws = torch.empty(_front_workspace(b, f, e, is_bf16(x)), dtype=torch.uint8, device=x.device)
     rc = _kernel_lib().fused_score(
-        *(t.data_ptr() for t in (*args, c, s1, s2, out)),
+        *(t.data_ptr() for t in (*args, c, s1, s2, ws, out)),
         b, f, e, r, h1, h2, is_bf16(x), int(bilinear_type == "each"),
         stream_of(x),
     )

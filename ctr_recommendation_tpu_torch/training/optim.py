@@ -32,8 +32,8 @@ from ctr_recommendation_tpu_torch.config.schema import TrainConfig
 Schedule = Callable[[int], float]
 
 SPARSE_TABLES_TODO = (
-    "table_optimizer != 'dense' is not ported yet (the sparse table "
-    "optimizers, ROADMAP.md queue 1 item 8)"
+    "table_optimizer != 'dense' is not ported yet (ROADMAP.md queue 1: "
+    "sparse table optimizers)"
 )
 
 

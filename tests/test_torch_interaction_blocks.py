@@ -271,49 +271,11 @@ def test_reduce_plain_sums_each_kind_of_partial():
     np.testing.assert_allclose(out.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
-def _parent_bwd_plain(g, x, w1, b1, w2, b2, w_bi, bilinear_type):
-    """interaction_bwd_plain as one expression, before it was split into
-    blocks."""
-    cd = x.dtype
-    b, f, e = x.shape
-    xs, g = x.float(), g.float()
-    z = xs.mean(-1)
-    h1 = z @ w1.float() + b1.float()
-    a = torch.relu(h1)
-    w = torch.sigmoid(a @ w2.float() + b2.float())
-    s = xs * w[..., None]
-    s_cd = s.to(cd).float()
-    wf = w_bi.to(cd).float()
-    i_idx, j_idx = (torch.as_tensor(t) for t in pair_indices(f))
-    ds = g[:, : f * e].reshape(b, f, e).clone()
-    gp = g[:, f * e :].reshape(b, -1, e)
-    dv = torch.zeros_like(s)
-    if bilinear_type == "all":
-        v = s_cd @ wf
-        ds.index_add_(1, i_idx, gp * v[:, j_idx])
-        dv.index_add_(1, j_idx, gp * s[:, i_idx])
-        dv_cd = dv.to(cd).float()
-        dw_bi = torch.einsum("bfe,bfd->ed", s_cd, dv_cd)
-        ds = ds + dv_cd @ wf.T
-    else:
-        v = torch.einsum("bfe,fed->bfd", s_cd[:, :-1], wf)
-        dv[:, :-1].index_add_(1, i_idx, gp * s[:, j_idx])
-        ds.index_add_(1, j_idx, gp * v[:, i_idx])
-        dv_cd = dv[:, :-1].to(cd).float()
-        dw_bi = torch.einsum("bfe,bfd->fed", s_cd[:, :-1], dv_cd)
-        ds[:, :-1] += torch.einsum("bfd,fed->bfe", dv_cd, wf)
-    dh2 = (ds * xs).sum(-1) * w * (1.0 - w)
-    dh1 = (dh2 @ w2.float().T) * (h1 > 0)
-    dz = dh1 @ w1.float().T
-    dx = ds * w[..., None] + dz[..., None] * (1.0 / e)
-    return dx.to(cd), z.T @ dh1, dh1.sum(0), a.T @ dh2, dh2.sum(0), dw_bi
-
-
 @pytest.mark.parametrize("btype, dtype, e, f", _cases((32, 256), (F,)) + _cases((32,), (MANY,)))
 def test_interaction_bwd_plain_is_the_composition_of_the_blocks(btype, dtype, e, f):
     """interaction_bwd_plain == the seven blocks in order (dW_bi's product
     in one partial), and within the fp32 bar (bf16: the rounded dx within
-    one ulp) of the single expression it was before."""
+    one ulp) of the single expression it was before (interaction_bwd_expr)."""
     ops = _operands(btype, dtype, e, seed=9, f=f)
     cd = DTYPES[dtype][0]
     x, g, w_bi = _pt(ops["x"], cd), _pt(ops["g"]), _pt(ops["w_bi"], cd)
@@ -329,7 +291,7 @@ def test_interaction_bwd_plain_is_the_composition_of_the_blocks(btype, dtype, e,
     assert torch.equal(got[0], dx)
     flat = torch.cat([got[5].reshape(-1), *(t.reshape(-1) for t in got[1:5])])
     assert torch.equal(flat, out)
-    for a, p in zip(got, _parent_bwd_plain(g, x, *sw, w_bi, btype)):
+    for a, p in zip(got, k.interaction_bwd_expr(g, x, *sw, w_bi, bilinear_type=btype)):
         assert a.dtype == p.dtype and a.shape == p.shape
         _close(a, p.float().numpy(), a.dtype == torch.bfloat16)
 

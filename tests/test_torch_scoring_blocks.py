@@ -1,13 +1,14 @@
 """The scoring kernel's building blocks (ops/cuda/scoring.py) on the CPU.
 
-A scoring call on a card is four launches: the front (the concat
-[S | pairs] in the tower dtype), two tower layers cd(relu(a w + b)) and the
-head sigmoid(h2 w3 + b3). Here each block's plain version is held against
-the JAX package: the front against the Pallas interaction kernel in
-interpret mode, the layers and the head against the JAX scoring kernel's
-own expressions (``ops/pallas/scoring.py::_kernel``) in jnp. Their
-composition, ``score_fwd_plain``, is held bit for bit against the single
-expression it replaced, and against the Pallas scoring kernel by
+A scoring call on a card is four blocks: the front (the concat
+[S | pairs] in the tower dtype, the interaction forward's three launches),
+two tower layers cd(relu(a w + b)) and the head sigmoid(h2 w3 + b3). Here
+each block's plain version is held against the JAX package: the front
+against the Pallas interaction kernel in interpret mode, the layers and
+the head against the JAX scoring kernel's own expressions
+(``ops/pallas/scoring.py::_kernel``) in jnp. Their composition,
+``score_fwd_plain``, is held bit for bit against the single expression it
+replaced, and against the Pallas scoring kernel by
 tests/test_torch_kernels.py::test_score_plain_matches_pallas.
 
 Tolerances: fp32 rtol 1e-4 / atol 1e-5 (summation order only). bf16: the
@@ -166,7 +167,9 @@ def test_score_head_plain_matches_the_jax_kernels_head(dtype, h2):
 
 
 def test_score_launches_counts_the_four_blocks():
-    assert k_score.score_launches() == 4
+    """The front is the interaction forward's launches; the two layers and
+    the head one each."""
+    assert k_score.score_launches() == k_inter.fwd_launches() + 3 == 6
     _, _, x, sw, w_bi, tw = _operands("all", "float32", 32, (32, 16))
     before = k_score.score_fwd.launches
     k_score.score_fwd(x, *sw, w_bi, *tw)

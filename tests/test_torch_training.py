@@ -247,7 +247,7 @@ def test_optimizer_matches_optax(kind):
 
 
 def test_sparse_table_optimizers_are_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1: sparse table optimizers"):
         make_optimizer(TrainConfig(table_optimizer="rowwise_adagrad"), 10)
 
 
@@ -437,11 +437,11 @@ def test_train_then_predict_cli_on_the_ports_own_export(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--stream"], "item 9"),
-    (["--model-parallel", "2"], "item 12"),
-    (["--profile-dir", "x"], "item 13"),
-    (["--strict-items"], "item 9"),
-    (["--table-optimizer", "adagrad"], "item 8"),
+    (["--stream"], "queue 1: streaming and chunked training"),
+    (["--model-parallel", "2"], "queue 1: parallel"),
+    (["--profile-dir", "x"], "queue 1: the rest, profiling"),
+    (["--strict-items"], "queue 1: streaming and chunked training"),
+    (["--table-optimizer", "adagrad"], "queue 1: sparse table optimizers"),
 ])
 def test_train_cli_refuses_what_is_not_ported(flags, item, capsys):
     from ctr_recommendation_tpu_torch.cli.train import main as train_main
