@@ -6,7 +6,10 @@
 Phases, in order; any failure exits non-zero and prints no result line.
 
 1. Print the card's name and power limit (nvidia-smi), build the five
-   kernels from csrc/ with nvcc for sm_90a, one nvcc per source in parallel.
+   kernels from csrc/ with nvcc for sm_90a, one nvcc per source in parallel,
+   and beside them the native submission writer (data/native/submission.cc,
+   g++); fail if that writer does not build and load, so that the pipelines
+   below write their CSV and zip natively.
 2. With TF32 off, hold each kernel against its plain PyTorch version at full
    width: the interaction forward and the fused scoring kernel at the
    training batch 4096, the serving batch 8192 and each plus a ragged 37
@@ -76,16 +79,19 @@ Phases, in order; any failure exits non-zero and prints no result line.
    bf16): seeded weights with perturbed BatchNorm stats, a seeded item
    store, 385,024 rows (47 x 8192) made with numpy; Predictor.score_table,
    then run_submission_pipeline from numpy chunks. Checks the CSV, the exact
-   agreement of the two paths, the first 8192 rows against the same
-   Predictor on the CPU, and the scoring call's launches on each path
-   (score_launches() a batch).
+   agreement of the two paths, the CSV's bytes against the Python writer's
+   for score_table's probabilities (two writers, one expected byte string),
+   the zip read back, the first 8192 rows against the same Predictor on the
+   CPU, and the scoring call's launches on each path (score_launches() a
+   batch). Times the host stages: wire pack, and the native CSV writer the
+   pipeline uses with the Python writer beside it.
 5. The unfused branch (fold_bn=False) for a few batches: the interaction
    forward runs (fwd_launches() a batch) and agrees with the fused branch. Then the sasrec_fibinet
    serving path at its full defaults (E=128, S=20, 2 heads, 1 layer, hidden
    (512, 256), bf16) on the same item store and rows: score_table and the
    pipeline with exactly fwd_launches(1) encoder and score_launches()
-   scoring launches a batch, the CSV
-   identical to score_table, the encoder's share of one batch, the CPU
+   scoring launches a batch, the CSV identical to score_table and its
+   bytes the Python writer's, the encoder's share of one batch, the CPU
    Predictor on the first 8192 rows, and 4 unfused batches (encoder +
    interaction kernel) against the fused branch.
 6. The training main path at the same full defaults (batch 4096, Adam + L2,
@@ -99,8 +105,12 @@ Phases, in order; any failure exits non-zero and prints no result line.
    examples/s per epoch and one step split into forward+loss, backward and
    optimizer with CUDA events, then torch.profiler over three more steps
    (device-busy share, kernels a step, the largest device items).
-7. Serve the trained export: Predictor (fused scoring kernel) scores the
-   valid split; its AUC equals the trainer's best within 2e-3.
+7. Serve the trained export through the evaluate CLI's function
+   (cli/evaluate.py::evaluate: Predictor with the fused scoring kernel, then
+   AUC, logloss and gAUC[user_id] on the card) on the valid split: its AUC
+   equals the AUC of its probabilities on the CPU and the trainer's best
+   within 2e-3, its logloss is finite, its gAUC within GAUC_TOL of
+   group_auc on the CPU over the same probabilities; prints the [eval] line.
 6b. Phases 6-7 for sasrec_fibinet (attn_dropout 0.1 as well): both
    encoder kernels in the gradient check (dropout on: the kernels and the
    plain path draw the same masks) and in the exact launch counts, its
@@ -216,6 +226,9 @@ CPU_TOL = 2e-2  # card vs CPU run of the same bf16 Predictor (probabilities)
 # both paths report rounding noise there.
 GRAD_TOL, GRAD_FLOOR = 1e-3, 1e-6
 AUC_SERVE_TOL = 2e-3  # served export vs the trainer's eval, same rows
+# group AUC of the same probabilities on the card vs on the CPU: both rank in
+# float64, so only the order of the float64 sums differs
+GAUC_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -321,11 +334,16 @@ def make_rows(n: int, seed: int) -> dict[str, np.ndarray]:
 
 def check_submission(written, csv_path, zip_path, bulk, tag: str) -> None:
     """The pipeline's CSV + zip: N_ROWS rows, IDs in order, probabilities
-    finite in (0, 1) and identical to ``bulk`` (score_table's)."""
+    finite in (0, 1) and identical to ``bulk`` (score_table's); the CSV's
+    bytes those the Python writer writes for ``bulk`` (the native writer
+    wrote them), the zip holding those bytes."""
     import zipfile
 
-    with open(csv_path) as f:
-        lines = f.read().splitlines()
+    from ctr_recommendation_tpu_torch.inference.submission import HEADER, format_rows
+
+    with open(csv_path, "rb") as f:
+        raw = f.read()
+    lines = raw.decode().splitlines()
     if lines[0] != "ID,Task2" or len(lines) != N_ROWS + 1 or written != N_ROWS:
         raise SystemExit(f"{tag}: CSV has {len(lines) - 1} rows, header {lines[0]!r}")
     ids, probs = zip(*(ln.split(",") for ln in lines[1:]))
@@ -337,11 +355,20 @@ def check_submission(written, csv_path, zip_path, bulk, tag: str) -> None:
     if not np.array_equal(csv_probs, bulk):
         n_diff = int((csv_probs != bulk).sum())
         raise SystemExit(f"{tag}: pipeline and score_table disagree on {n_diff} rows")
+    want = (HEADER + format_rows(bulk)).encode()
+    if raw != want:
+        at = next((i for i, (a, b) in enumerate(zip(raw, want)) if a != b),
+                  min(len(raw), len(want)))
+        raise SystemExit(f"{tag}: CSV bytes differ from the Python writer's from byte {at}: "
+                         f"{raw[at - 40 : at + 40]!r} vs {want[at - 40 : at + 40]!r}")
     with zipfile.ZipFile(zip_path) as z:
         if z.namelist() != [os.path.basename(csv_path)]:
             raise SystemExit(f"{tag}: zip holds {z.namelist()}")
+        if z.read(z.namelist()[0]) != raw:
+            raise SystemExit(f"{tag}: the zip does not hold the CSV's bytes")
     log(f"[{tag}] CSV {N_ROWS} rows, IDs in order, probabilities in (0, 1), "
-        f"identical to score_table; zip ok")
+        f"identical to score_table; {len(raw)} bytes, equal to the Python writer's; "
+        f"zip ok ({os.path.getsize(zip_path)} bytes, holds the CSV's bytes)")
 
 
 def where_the_time_goes(torch, pred, rows, bulk, card) -> None:
@@ -349,7 +376,8 @@ def where_the_time_goes(torch, pred, rows, bulk, card) -> None:
     the pipeline's host stages over the whole split (host clock)."""
     from ctr_recommendation_tpu_torch.data.device_store import device_join
     from ctr_recommendation_tpu_torch.data.wire import build_wire_plan, pack_columns
-    from ctr_recommendation_tpu_torch.inference.submission import format_rows
+    from ctr_recommendation_tpu_torch.data import native
+    from ctr_recommendation_tpu_torch.inference.submission import write_csv_python
     from ctr_recommendation_tpu_torch.models import trunk
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd
 
@@ -376,11 +404,17 @@ def where_the_time_goes(torch, pred, rows, bulk, card) -> None:
         chunk = {k: v[s : s + CHUNK_ROWS] for k, v in rows.items()}
         pack_columns(chunk, plan, -(-len(chunk["item_id"]) // B_FULL) * B_FULL)
     t_pack = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    format_rows(bulk)
-    t_fmt = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if not native.write_csv(bulk, os.path.join(tmp, "native.csv")):
+            raise SystemExit("the native CSV writer failed")
+        t_fmt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_csv_python(bulk, os.path.join(tmp, "python.csv"))
+        t_py = time.perf_counter() - t0
     log(f"[breakdown] host s for {N_ROWS} rows: wire pack {t_pack:.4f}, "
-        f"CSV format {t_fmt:.4f}")
+        f"CSV format {t_fmt:.4f} (native write_csv, the pipeline's writer, into a file; "
+        f"the Python writer {t_py:.4f})")
 
 
 def encoder_case(torch, dtype, b: int, e: int, heads: int, layers: int, seed: int, s: int = 20):
@@ -1368,6 +1402,7 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     one's launches a train step, an eval batch and a serving batch (absent:
     0). ``tag`` names the run in the log (default: the model's name).
     Returns the launches of each counted wrapper in the fit."""
+    from ctr_recommendation_tpu_torch.cli.evaluate import eval_line, evaluate
     from ctr_recommendation_tpu_torch.inference import Predictor
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
         bwd_launches as inter_bwd_launches,
@@ -1378,7 +1413,7 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_launches
     from ctr_recommendation_tpu_torch.tools import jax_bridge
     from ctr_recommendation_tpu_torch.training import Trainer
-    from ctr_recommendation_tpu_torch.training.metrics import auc
+    from ctr_recommendation_tpu_torch.training.metrics import auc, group_auc
 
     tag = tag or exp.model.model
     gradient_check(torch, exp, train, store, root, per_step, tag)
@@ -1423,16 +1458,26 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     server = Predictor(exp, served_params, served_state, item_store=store)
     for fn in counted:
         fn.launches = 0
-    probs = server.score_table(valid)
+    res = evaluate(server, valid, batch_size=B_FULL, gauc_col="user_id")
     served = {fn: fn.launches for fn in counted}
     n_batches = -(-N_VALID // B_FULL)
+    probs = res["probs"]
     served_auc = auc(torch.from_numpy(valid.columns["label"]), torch.from_numpy(probs)).item()
-    log(f"[serve {tag}] best export through Predictor: valid auc {served_auc:.5f} vs the "
-        f"trainer's {best_auc:.5f} (tolerance {AUC_SERVE_TOL}); launches {names(served)}")
+    cpu_gauc = group_auc(valid.columns["label"], probs, valid.columns["user_id"], device="cpu")
+    log(f"[serve {tag}] {eval_line(res, 'user_id')} on {card}")
+    log(f"[serve {tag}] best export through evaluate (Predictor): valid auc {res['auc']:.7f}, "
+        f"over its probabilities on the CPU {served_auc:.7f}, the trainer's {best_auc:.5f} "
+        f"(tolerance {AUC_SERVE_TOL}); gAUC[user_id] {res['gauc']:.7f}, on the CPU "
+        f"{cpu_gauc:.7f}, |d| {abs(res['gauc'] - cpu_gauc):.1e} (tolerance {GAUC_TOL}); "
+        f"launches {names(served)}")
     if not server.use_fused or served != {fn: per_serve.get(fn, 0) * n_batches for fn in counted}:
         raise SystemExit(f"{tag}: serving the export did not run its kernels once a batch")
+    if res["rows"] != N_VALID or res["auc"] != served_auc:
+        raise SystemExit(f"{tag}: evaluate's AUC is not the served probabilities' AUC")
     if abs(served_auc - best_auc) > AUC_SERVE_TOL:
         raise SystemExit(f"{tag}: the served export disagrees with the trainer's eval")
+    if not np.isfinite(res["logloss"]) or abs(res["gauc"] - cpu_gauc) > GAUC_TOL:
+        raise SystemExit(f"{tag}: evaluate's logloss is not finite or its gAUC is not the CPU's")
     return launched
 
 
@@ -1576,9 +1621,25 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)
     card = smi.strip()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ctr_recommendation_tpu_torch.data import native
+
+    def build_native():
+        t = time.perf_counter()
+        return native.build(), time.perf_counter() - t
+
     t0 = time.perf_counter()
-    per = build.build()
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc builds
+        native_build = pool.submit(build_native)
+        per = build.build()
+        native_lib, native_s = native_build.result()  # raises when g++ failed
     log(f"[build] {time.perf_counter() - t0:.1f} s wall; per source {per}")
+    if not native.submission_available():
+        raise SystemExit(f"the native submission writer {native_lib} built but did not load")
+    log(f"[build] native submission writer {native_lib.name} in {native_s:.1f} s (g++): "
+        f"submission_available() {native.submission_available()}; CSV native, zip native "
+        f"(zlib), not zipfile")
     for name, text in build.ptxas_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:

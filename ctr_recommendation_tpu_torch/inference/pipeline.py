@@ -8,7 +8,8 @@
                   batches (Predictor.score_batches) -> copy the
                   probabilities into pinned host memory, then record an event
   writer thread   waits on that chunk's event (not on the whole device) ->
-                  appends CSV rows -> one zip at the end
+                  appends CSV rows (the native writer, data/native, IDs
+                  from the rows written so far) -> one zip at the end
 
 Bounded queues (depth 2) keep host memory flat whatever the split size. On
 a CPU predictor the same stages run without streams or events.

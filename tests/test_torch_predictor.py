@@ -281,7 +281,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     for module in ("ops/attention.py", "ops/cuda/sasrec_encoder.py", "models/sasrec_fibinet.py",
-                   "ops/cuda/build.py", "ops/cuda/scoring.py", "ops/cuda/interaction.py"):
+                   "ops/cuda/build.py", "ops/cuda/scoring.py", "ops/cuda/interaction.py",
+                   "cli/evaluate.py", "cli/validate_dataset.py", "data/native/__init__.py"):
         assert PORT / module in files, module
     assert (PORT / "csrc" / "sasrec_encoder.cu").exists()
     bad = [
@@ -304,6 +305,9 @@ def test_importing_the_port_loads_no_jax():
         "import ctr_recommendation_tpu_torch.ops.attention\n"
         "import ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder\n"
         "import ctr_recommendation_tpu_torch.models.sasrec_fibinet\n"
+        "import ctr_recommendation_tpu_torch.cli.evaluate\n"
+        "import ctr_recommendation_tpu_torch.cli.validate_dataset\n"
+        "import ctr_recommendation_tpu_torch.data.native\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ctr_recommendation_tpu')]\n"
         "assert not bad, bad\n"
@@ -332,3 +336,11 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch, tiny_experiment, ti
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+    from ctr_recommendation_tpu_torch.cli.evaluate import main as evaluate_main
+    from ctr_recommendation_tpu_torch.training.metrics import group_auc
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_main(["--data-root", "/nonexistent"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        group_auc([1.0, 0.0], [0.7, 0.2], [3, 3])
+    assert group_auc([1.0, 0.0], [0.7, 0.2], [3, 3], device="cpu") == 1.0
