@@ -122,6 +122,23 @@ Phases, in order; any failure exits non-zero and prints no result line.
    (E=256, tower (1024, 512)): the interaction kernels at E=256 in the
    gradient check and the exact launch counts, the export served through
    the scoring kernel at that tower.
+6e. The sparse tables (training/sparse.py) at the full defaults on phase
+   6's splits. One fp32 step (weight decay 0) for each table optimizer
+   (adagrad on the dense adagrad chain at the shared lr, rowwise_adagrad,
+   lazy adam) under each strategy, forced through
+   sparse.GATHERED_MIN_VOCAB_RATIO: the loss, dense and row gradients
+   through the kernels against the plain path; remap_batch and the update
+   under torch.cuda.set_sync_debug_mode("error"); every untouched row of
+   each table and of its state bit for bit unchanged; each table's update
+   timed beside its byte floor (the touched rows' gradient, table and
+   state rows read once, table and state rows written once, at 3.35 TB/s)
+   and, gathered, remap_batch. Then gathered vs masked-dense, and sparse
+   adagrad vs the dense adagrad chain on the tables, within SPARSE_TOL.
+   Then phases 6-7 for mm_fibinet_rowwise_adagrad (the defaults with
+   rowwise_adagrad: both tables masked-dense) and
+   mm_fibinet_lazy_adam_b1024 (adam at batch 1024: the item table
+   gathered), and each beside the dense mm_fibinet run: best valid AUC,
+   examples/s, a step's wall and device-busy ms.
 8. One JSON line describing the five kernels, then the result line.
 """
 
@@ -536,17 +553,20 @@ def check_backward(torch, got, want, dtype_name):
     return worst, worst_norm, bad
 
 
-def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str) -> None:
+def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str):
     """One step's gradients (fp32, TF32 off) through the kernels against the
     plain path: same seeded weights, batch and dropout seed (the encoder's
     masks too: the kernels and the plain path draw them alike). ``kernels``
-    maps each wrapper the step must launch to its launches a step."""
+    maps each wrapper the step must launch to its launches a step. With
+    sparse tables the gradients are the dense leaves', the masked-dense
+    tables' and the gathered tables' row buffers'. Returns the kernel path's
+    (trainer, batch, aux, gradients), its step not yet applied."""
     import dataclasses
 
-    from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
     from ctr_recommendation_tpu_torch.training import Trainer
 
-    batch = {k: torch.as_tensor(v[:B_TRAIN]).cuda() for k, v in train.columns.items()}
+    bs = exp.train.batch_size
+    batch = {k: torch.as_tensor(v[:bs]).cuda() for k, v in train.columns.items()}
     out = {}
     for use_kernel in (True, False):
         e = exp.replace(
@@ -554,13 +574,15 @@ def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str) -> N
             train=dataclasses.replace(exp.train, compute_dtype="float32", checkpoint_dir=os.path.join(
                 root, f"grad_{tag}_{int(use_kernel)}")),
         )
-        tr = Trainer(e, steps_per_epoch=N_TRAIN // B_TRAIN, item_store=store,
+        tr = Trainer(e, steps_per_epoch=N_TRAIN // bs, item_store=store,
                      log_fn=lambda s: None)
         for fn in kernels:
             fn.launches = 0
         with torch.enable_grad():
-            loss, _ = tr.forward_loss(batch)
-            out[use_kernel] = (loss.item(), tr.gradients(loss), list(flatten(tr.state.params)))
+            loss, aux = tr.forward_loss(batch)
+            out[use_kernel] = (loss.item(), tr.gradients(loss, aux), list(aux.targets))
+        if use_kernel:
+            kernel_step = (tr, batch, aux, out[True][1])
         torch.cuda.synchronize()
         launched = tuple(fn.launches for fn in kernels)
         if launched != (tuple(kernels.values()) if use_kernel else (0,) * len(kernels)):
@@ -589,26 +611,29 @@ def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str) -> N
         f"floor: {no_floor}")
     if bad or abs(l_k - l_p) > 1e-5:
         raise SystemExit(f"{tag}: kernel and plain gradients disagree: {bad}")
+    return kernel_step
 
 
-def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: int = 3) -> None:
+def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: int = 3) -> dict:
     """Median ms of one train step's forward+loss, backward and optimizer
     (CUDA events), after three warm-up steps; then ``torch.profiler`` over
     ``profiled`` more steps: device-busy ms and kernels a step, the busy
-    share of the timed step, and the largest device items."""
+    share of the timed step, and the largest device items. Returns the
+    timed step's ms and the device-busy ms a step."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = {k: torch.as_tensor(v[:B_TRAIN]).cuda() for k, v in train.columns.items()}
+    bs = trainer.exp.train.batch_size
+    batch = {k: torch.as_tensor(v[:bs]).cuda() for k, v in train.columns.items()}
     parts = {"forward+loss": [], "backward": [], "optimizer": []}
     for i in range(3 + reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         with torch.enable_grad():
-            loss, new_state = trainer.forward_loss(batch)
+            loss, aux = trainer.forward_loss(batch)
             ev[1].record()
-            grads = trainer.gradients(loss)
+            grads = trainer.gradients(loss, aux)
         ev[2].record()
-        trainer.apply_gradients(grads, new_state)
+        trainer.apply_gradients(grads, aux)
         ev[3].record()
         ev[3].synchronize()
         if i >= 3:
@@ -616,7 +641,7 @@ def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: 
                 parts[k].append(a.elapsed_time(z))
     split = {k: float(np.median(v)) for k, v in parts.items()}
     step_ms = sum(split.values())
-    log(f"[train {tag}] one step at B={B_TRAIN}, ms (median of {reps}): {split}, "
+    log(f"[train {tag}] one step at B={bs}, ms (median of {reps}): {split}, "
         f"sum {step_ms:.4f} on {card}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(profiled):
@@ -630,6 +655,7 @@ def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: 
         f"({busy / step_ms:.3f} of the {step_ms:.4f} ms timed step), {launched:.0f} kernels "
         f"a step on {card}; largest, ms a step: "
         + str([(e.key[:70], round(e.self_device_time_total / profiled / 1e3, 4)) for e in top]))
+    return {"step_ms": step_ms, "busy_ms": busy}
 
 
 ENC_CASES = ([(128, 2, 1, b) for b in (B_TRAIN, B_FULL, B_RAGGED)] + [(64, 4, 2, B_TRAIN + 37)]
@@ -1401,7 +1427,9 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     checked exactly; ``per_step``, ``per_eval`` and ``per_serve`` give each
     one's launches a train step, an eval batch and a serving batch (absent:
     0). ``tag`` names the run in the log (default: the model's name).
-    Returns the launches of each counted wrapper in the fit."""
+    Returns the launches of each counted wrapper in the fit (``launches``),
+    the fit's history (``hist``), its best valid AUC and the step split's
+    numbers (``step``)."""
     from ctr_recommendation_tpu_torch.cli.evaluate import eval_line, evaluate
     from ctr_recommendation_tpu_torch.inference import Predictor
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
@@ -1417,9 +1445,10 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
 
     tag = tag or exp.model.model
     gradient_check(torch, exp, train, store, root, per_step, tag)
-    steps = TRAIN_EPOCHS * (N_TRAIN // B_TRAIN)
+    bs = exp.train.batch_size
+    steps = TRAIN_EPOCHS * (N_TRAIN // bs)
     eval_batches = TRAIN_EPOCHS * -(-N_VALID // exp.train.eval_batch_size)
-    trainer = Trainer(exp, steps_per_epoch=N_TRAIN // B_TRAIN, item_store=store, log_fn=log)
+    trainer = Trainer(exp, steps_per_epoch=N_TRAIN // bs, item_store=store, log_fn=log)
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
@@ -1451,7 +1480,7 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     export = trainer.ckpt.best_export_path
     if trainer.ckpt.latest_step() != TRAIN_EPOCHS or not os.path.exists(export):
         raise SystemExit(f"{tag}: fit_on_device wrote no resume point or no best export")
-    step_split(torch, trainer, train, card, tag)
+    step = step_split(torch, trainer, train, card, tag)
 
     served_params, served_state = jax_bridge.params_from_jax(
         *jax_bridge.load(export), trainer.fm, exp.model)
@@ -1478,7 +1507,7 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
         raise SystemExit(f"{tag}: the served export disagrees with the trainer's eval")
     if not np.isfinite(res["logloss"]) or abs(res["gauc"] - cpu_gauc) > GAUC_TOL:
         raise SystemExit(f"{tag}: evaluate's logloss is not finite or its gAUC is not the CPU's")
-    return launched
+    return {"launches": launched, "hist": hist, "best_auc": best_auc, "step": step}
 
 
 def serve_sasrec(torch, store, rows, card) -> int:
@@ -1555,7 +1584,7 @@ def serve_sasrec(torch, store, rows, card) -> int:
     batch = {k: torch.as_tensor(v).cuda() for k, v in head.items()}
     feats = device_join(dict(batch), pred._mm_tables, pred._join_plan)
     tables = pred.params["trunk"]["tables"]
-    seq_emb = trunk._gather(tables[fm.table_of["item_seq"]], feats["item_seq"]).to(
+    seq_emb = trunk.gather(tables[fm.table_of["item_seq"]], feats["item_seq"]).to(
         pred.compute_dtype)
     attn_params = pred.params["trunk"]["attn"]["item_seq"]
     x, amask, _ = encoder_inputs(attn_params, seq_emb, feats["item_seq"])
@@ -1596,6 +1625,189 @@ def serve_sasrec(torch, store, rows, card) -> int:
     if unfused_err > CPU_TOL:
         raise SystemExit("sasrec unfused and fused branches disagree")
     return pipe_launches[0]
+
+
+SPARSE_KINDS = ("adagrad", "rowwise_adagrad", "adam")
+# the vocab / ids ratio (training/sparse.py GATHERED_MIN_VOCAB_RATIO) that
+# forces every table onto each strategy, as the JAX package's tests force it
+FORCE_STRATEGY = {"gathered": 0.0, "masked_dense": 1e12}
+# weight decay 0, fp32: gathered vs masked-dense after one step, and sparse
+# adagrad vs the dense adagrad chain on the tables (the JAX package's bar,
+# tests/test_sparse.py:390); the two differ in the order of the row sums
+SPARSE_TOL = 2e-5
+
+
+def table_floor_bytes(kind: str, rows: int, e: int) -> int:
+    """Bytes a touched-rows update must move: per touched row the gradient
+    read, each table and state row read once and written once."""
+    floats = {"adagrad": 5 * e, "rowwise_adagrad": 3 * e + 2, "adam": 7 * e}[kind]
+    return rows * floats * 4
+
+
+def id_feats(tr, batch) -> dict:
+    """The batch's features as the lookup reads them (joined, hashed)."""
+    return tr._device_join({k: v for k, v in batch.items() if k != tr.fm.label})
+
+
+def touched_rows(torch, tr, batch) -> dict:
+    """table -> bool mask of the rows the batch reads (with the pad row 0,
+    which the gathered strategy forces in)."""
+    from ctr_recommendation_tpu_torch.config.schema import FeatureType
+    from ctr_recommendation_tpu_torch.models.trunk import table_rows
+
+    feats = id_feats(tr, batch)
+    tables = tr.state.params["trunk"]["tables"]
+    out = {}
+    for f in tr.fm.features:
+        if f.name in feats and f.type in (FeatureType.CATEGORICAL, FeatureType.SEQUENCE):
+            t = tr.fm.table_of[f.name]
+            n = tables[t].shape[0]
+            m = out.setdefault(t, torch.zeros(n, dtype=torch.bool, device="cuda"))
+            m[0] = True
+            m[table_rows(feats[f.name], n).reshape(-1)] = True
+            m[feats[f.name].to(torch.int64).clamp(0, n - 1).reshape(-1)] = True
+    return out
+
+
+def sparse_steps(torch, train, store, root, card, kernels: dict) -> None:
+    """Phase 6e, one step per kind and forced strategy at the full defaults
+    (fp32, TF32 off, weight decay 0, B=4096): kernel vs plain gradients,
+    remap_batch and the update under set_sync_debug_mode("error"), untouched
+    rows of every table and its state bit for bit unchanged, the table
+    updates timed beside their byte floor; then gathered vs masked-dense, and
+    sparse adagrad vs the dense adagrad chain, within SPARSE_TOL."""
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.training import Trainer, sparse
+
+    after = {}  # (kind, strategy) -> {path: param after the step}
+    default_ratio = sparse.GATHERED_MIN_VOCAB_RATIO
+    try:
+        for kind in SPARSE_KINDS:
+            # adagrad on the dense adagrad chain at the shared lr: the dense-chain check
+            extra = {"optimizer": "adagrad", "table_lr_scale": 1.0} if kind == "adagrad" else {}
+            exp = microlens_experiment(data_root="", table_optimizer=kind, weight_decay=0.0,
+                                       checkpoint_dir=os.path.join(root, f"sparse_{kind}"),
+                                       **extra)
+            for strategy, ratio in FORCE_STRATEGY.items():
+                sparse.GATHERED_MIN_VOCAB_RATIO = ratio
+                tag = f"sparse {kind} {strategy}"
+                tr, batch, aux, grads = gradient_check(torch, exp, train, store, root, kernels,
+                                                       tag)
+                tables, tstate = tr.state.params["trunk"]["tables"], tr.state.table_opt_state
+                gathered = sorted(aux.uids)
+                if gathered != (sorted(tables) if strategy == "gathered" else []):
+                    raise SystemExit(f"{tag}: gathered tables {gathered}")
+                before = {t: (v.detach().clone(), {k: x.clone() for k, x in tstate[t].items()})
+                          for t, v in tables.items()}
+                touched = touched_rows(torch, tr, batch)
+                feats = id_feats(tr, batch)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:  # raises on any host sync
+                    sparse.remap_batch(tr.fm, feats, tables, only=gathered)
+                    tr.apply_gradients(grads, aux)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                for t, (tab0, st0) in before.items():
+                    keep = ~touched[t]
+                    pairs = [("table", tables[t].detach(), tab0)] + [
+                        (k, tstate[t][k], st0[k]) for k in st0]
+                    for name, new, old in pairs:
+                        if not torch.equal(new[keep], old[keep]):
+                            raise SystemExit(f"{tag}: untouched rows of {t}/{name} moved")
+                    moved = int((tables[t].detach() != tab0).any(-1).sum())
+                    log(f"[sparse] {tag}: table {t}: {int(touched[t].sum())} rows touched of "
+                        f"{keep.numel()}, {moved} moved, {int(keep.sum())} untouched rows of the "
+                        f"table and of {sorted(st0)} bit for bit unchanged; remap_batch and the "
+                        f"update raised no host sync")
+                after[(kind, strategy)] = {p: v.detach().clone() for p, v in tr.param_paths.items()}
+                g = dict(zip(aux.targets, grads))
+                for t in sorted(tables):
+                    if t in aux.uids:
+                        fn = lambda t=t: tr.table_opt.update(  # noqa: E731
+                            {t: tables[t]}, tstate, aux.uids, {t: g["rows/" + t]}, tr.state.step)
+                    else:
+                        fn = lambda t=t: tr.table_opt.update_dense(  # noqa: E731
+                            {t: tables[t]}, tstate, {t: g["trunk/tables/" + t]}, tr.state.step)
+                    ms = time_ms(torch, fn, reps=20)
+                    rows = int(touched[t].sum())
+                    floor = table_floor_bytes(kind, rows, E) / HBM_BYTES_PER_S * 1e3
+                    log(f"[sparse time] {kind} {strategy} table {t} ({tables[t].shape[0]} rows, "
+                        f"{rows} touched): update {ms:.4f} ms, byte floor {floor:.4f} ms "
+                        f"({table_floor_bytes(kind, rows, E)} bytes at 3.35 TB/s), "
+                        f"{ms / floor:.1f}x on {card}")
+                if gathered:
+                    ms = time_ms(torch, lambda: sparse.remap_batch(tr.fm, feats, tables,
+                                                                   only=gathered), reps=20)
+                    n_ids = sum(feats[f].numel() for f in tr.fm.table_of if f in feats)
+                    log(f"[sparse time] {kind} gathered: remap_batch (the dedup of {n_ids} ids "
+                        f"into {gathered}) {ms:.4f} ms on {card}")
+                del tr, aux, grads
+    finally:
+        sparse.GATHERED_MIN_VOCAB_RATIO = default_ratio
+
+    def worst(a, b):
+        return max((a[p] - b[p]).abs().max().item() for p in a)
+
+    for kind in SPARSE_KINDS:
+        d = worst(after[(kind, "gathered")], after[(kind, "masked_dense")])
+        log(f"[sparse] {kind}: gathered vs masked_dense after one step, every parameter: "
+            f"max|d| {d:.3e} (tolerance {SPARSE_TOL})")
+        if d > SPARSE_TOL:
+            raise SystemExit(f"sparse {kind}: the two strategies disagree")
+    # the dense adagrad chain on every table, the same step
+    exp = microlens_experiment(data_root="", optimizer="adagrad", weight_decay=0.0,
+                               compute_dtype="float32",
+                               checkpoint_dir=os.path.join(root, "sparse_dense_chain"))
+    bs = exp.train.batch_size
+    dense = Trainer(exp, steps_per_epoch=N_TRAIN // bs, item_store=store, log_fn=lambda s: None)
+    dense.train_step({k: torch.as_tensor(v[:bs]).cuda() for k, v in train.columns.items()})
+    want = {p: v.detach() for p, v in dense.param_paths.items() if p.startswith("trunk/tables/")}
+    for strategy in FORCE_STRATEGY:
+        d = worst(want, after[("adagrad", strategy)])
+        log(f"[sparse] adagrad {strategy} vs the dense adagrad chain, the tables after one step: "
+            f"max|d| {d:.3e} (tolerance {SPARSE_TOL})")
+        if d > SPARSE_TOL:
+            raise SystemExit(f"sparse adagrad {strategy} disagrees with the dense chain")
+
+
+def sparse_fits(torch, train, valid, store, root, card, counted, per_step, per_eval, per_serve,
+                dense: dict) -> None:
+    """Phase 6e, the two fits through train_and_serve, then each beside the
+    dense mm_fibinet run (``dense``) of this call."""
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.models.trunk import round_up_vocab
+    from ctr_recommendation_tpu_torch.training import sparse
+
+    runs = {"mm_fibinet": dense}
+    for tag, kw, item_strategy in (
+            ("mm_fibinet_rowwise_adagrad", {"table_optimizer": "rowwise_adagrad"}, "masked_dense"),
+            ("mm_fibinet_lazy_adam_b1024", {"table_optimizer": "adam", "batch_size": 1024},
+             "gathered")):
+        exp = microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
+                                   checkpoint_dir=os.path.join(root, f"ckpt_{tag}"), **kw)
+        fm = build_feature_map(exp.dataset)
+        bs = exp.train.batch_size
+        ids = {}  # ids a step per table, the forced pad id included
+        for f in fm.features:
+            if f.name in fm.table_of:
+                t = fm.table_of[f.name]
+                ids[t] = ids.get(t, 1) + bs * (f.max_len or 1)
+        vocab = {t.name: round_up_vocab(t.vocab_size) for t in fm.tables}
+        plan = {t: sparse.choose_strategy(vocab[t], n) for t, n in ids.items()}
+        log(f"[sparse] {tag}: batch {bs}, table rows {vocab}, ids a step {ids}: {plan}")
+        if plan["item_id"] != item_strategy:
+            raise SystemExit(f"{tag}: the item table takes {plan['item_id']}")
+        runs[tag] = train_and_serve(torch, exp, train, valid, store, root, card, counted,
+                                    per_step=per_step, per_eval=per_eval, per_serve=per_serve,
+                                    tag=tag)
+    for tag, r in runs.items():
+        eps = [round(h["examples_per_sec"]) for h in r["hist"]]
+        log(f"[sparse] {tag}: best valid auc {r['best_auc']:.5f}, examples/s per epoch {eps}, "
+            f"one step {r['step']['step_ms']:.4f} ms wall, device busy "
+            f"{r['step']['busy_ms']:.4f} ms a step, on {card}")
 
 
 def main() -> int:
@@ -1840,8 +2052,15 @@ def main() -> int:
             per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
             per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()},
             tag="emb_256_tower1024")
-    train_fwd, train_bwd = mm[interaction_fwd], mm[interaction_bwd]
-    enc_bwd_launches = sasrec[encode_bwd]
+        # ---- phase 6e: sparse tables (both strategies, every kind; two fits) ----
+        sparse_steps(torch, train, train_store, root, card,
+                     {interaction_fwd: ifwd, interaction_bwd: ibwd})
+        sparse_fits(torch, train, valid, train_store, root, card, counted,
+                    per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
+                    per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()},
+                    dense=mm)
+    train_fwd, train_bwd = mm["launches"][interaction_fwd], mm["launches"][interaction_bwd]
+    enc_bwd_launches = sasrec["launches"][encode_bwd]
 
     # ---- phase 8: result ----
     kernels = [

@@ -39,7 +39,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--embedding-init-std", type=float, default=None)
     p.add_argument("--learning-rate", type=float, default=None)
     p.add_argument("--optimizer", default=None, help="adam | adamw | adagrad")
-    p.add_argument("--table-optimizer", default=None, help="dense (the only ported kind)")
+    p.add_argument("--table-optimizer", default=None,
+                   help="embedding-table update: dense (the reference's) | adagrad | "
+                        "rowwise_adagrad | adam (touched-rows-only sparse updates)")
+    p.add_argument("--table-lr-scale", type=float, default=None,
+                   help="lr multiplier of the sparse table optimizer (default 10 for the "
+                        "adagrad family, 1 for adam)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=None,
                    help="full-state resume-point cadence in epochs")
@@ -65,8 +70,6 @@ def main(argv=None) -> int:
         (args.profile_dir, "--profile-dir (queue 1: the rest, profiling)"),
         (args.strict_items,
          "--strict-items (the host-join train path; queue 1: streaming and chunked training)"),
-        (args.table_optimizer not in (None, "dense"),
-         "a non-dense --table-optimizer (queue 1: sparse table optimizers)"),
     ) if on]
     if refused:
         print("not ported yet (ROADMAP.md): " + "; ".join(refused), file=sys.stderr)
@@ -77,7 +80,8 @@ def main(argv=None) -> int:
 
     overrides = {}
     for k in ("epochs", "batch_size", "embedding_dim", "embedding_init_std",
-              "learning_rate", "optimizer", "checkpoint_dir", "checkpoint_every"):
+              "learning_rate", "optimizer", "table_optimizer", "table_lr_scale",
+              "checkpoint_dir", "checkpoint_every"):
         v = getattr(args, k)
         if v is not None:
             overrides[k] = v

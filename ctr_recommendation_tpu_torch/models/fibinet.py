@@ -47,16 +47,19 @@ def apply(
     compute_dtype: torch.dtype = torch.float32,
     weight: torch.Tensor | None = None,
     seq_pooling: str = SEQ_POOLING,
+    lookup=None,
 ) -> tuple[torch.Tensor, dict]:
     """batch -> (logits (B,) fp32, new_state). The interaction runs on the
     fused kernels (forward and backward) when ``cfg.use_pallas`` is set (their
     plain versions on CPU tensors); the tower runs in ``tower_dtype``. In
     train mode BatchNorm uses batch statistics (zero-``weight`` rows left
     out) and dropout (the tower's, and the attention encoder's under
-    ``seq_pooling="attention"``) draws from ``generator``."""
+    ``seq_pooling="attention"``) draws from ``generator``. ``lookup``
+    replaces the trunk's embedding gather (``trunk.apply``)."""
     x = trunk.apply(
         params["trunk"], fm, cfg, batch,
         seq_pooling=seq_pooling, compute_dtype=compute_dtype, train=train, generator=generator,
+        lookup=lookup,
     )
     h = senet_bilinear_concat(
         params["senet"], params["bilinear"], x,

@@ -3,7 +3,7 @@
 Every registered model implements
     init(gen, feature_map, model_cfg) -> (params, state)
     apply(params, state, feature_map, model_cfg, batch, *, train, generator,
-          compute_dtype, weight) -> (logits (B,), new_state)
+          compute_dtype, weight, lookup) -> (logits (B,), new_state)
 Ported so far: the FiBiNET family and sasrec_fibinet, train and eval.
 """
 

@@ -33,14 +33,15 @@ def apply(
     generator: torch.Generator | None = None,
     compute_dtype: torch.dtype = torch.float32,
     weight: torch.Tensor | None = None,
+    lookup=None,
 ) -> tuple[torch.Tensor, dict]:
     """batch -> (logits (B,) fp32, new state), train or eval: the JAX
     package's ``sasrec_fibinet.apply`` (:39-67). The encoder runs on its
     kernels (forward and backward) and the interaction on its kernels when
     ``cfg.use_pallas`` is set (their plain versions on CPU tensors); in train
     mode the encoder's dropout seed and the tower's masks come from
-    ``generator``."""
+    ``generator``; ``lookup`` replaces the trunk's embedding gather."""
     return fibinet.apply(
         params, state, fm, cfg, batch, train=train, generator=generator,
-        compute_dtype=compute_dtype, weight=weight, seq_pooling=SEQ_POOLING,
+        compute_dtype=compute_dtype, weight=weight, seq_pooling=SEQ_POOLING, lookup=lookup,
     )

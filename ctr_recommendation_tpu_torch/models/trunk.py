@@ -13,6 +13,8 @@ NotImplementedError.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from ctr_recommendation_tpu_torch.config.schema import FeatureType, ModelConfig
@@ -75,17 +77,25 @@ def _layer_norm(x, scale, bias):
     return (x - mean) * torch.rsqrt(var + LN_EPS) * scale + bias
 
 
-def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` with the JAX package's index semantics: negative ids
     count from the end, then out-of-range ids are clamped (never a device
     fault). ``F.embedding`` rather than indexing: its backward sums the rows
     of repeated ids by sorting them, where the indexing backward on CUDA
     walks each id's repeats serially, and the pad id repeats tens of
     thousands of times in a batch of histories."""
-    n = table.shape[0]
+    return torch.nn.functional.embedding(table_rows(ids, table.shape[0]), table)
+
+
+def table_rows(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """The rows of an ``n``-row table that ``ids`` read: int64, negative ids
+    counted from the end, then clamped into range."""
     ids = ids.to(torch.int64)
-    ids = torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
-    return torch.nn.functional.embedding(ids, table)
+    return torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+
+
+def _default_lookup(tables, name, ids, feature=None, batch_dim=0):
+    return gather(tables[name], ids)
 
 
 def apply(
@@ -98,6 +108,7 @@ def apply(
     compute_dtype: torch.dtype = torch.float32,
     train: bool = False,
     generator: torch.Generator | None = None,
+    lookup: Callable | None = None,
 ) -> torch.Tensor:
     """batch dict -> field stack (B, F, E) in compute_dtype, fields in
     feature-map order. Mean-pooled sequences are gathered transposed,
@@ -105,8 +116,16 @@ def apply(
     attention-pooled ones in (B, S) order, encoded, then pooled by
     ``attention.target_pool`` with the candidate item as the query. In
     train mode with a ``generator`` the encoder's dropout draws its seed
-    from it (``_attention_field``)."""
+    from it (``_attention_field``).
+
+    ``lookup(tables, table_name, ids, feature=<feature name>, batch_dim=0)``
+    replaces the embedding gather (default ``gather``): the train step
+    injects its merged-backward and row-buffer lookups here. The ids a
+    feature passes are exactly ``batch[f.name]``, transposed (S, B) with
+    ``batch_dim=1`` for mean-pooled sequences, so a lookup may match
+    pre-gathered embeddings to callers by (feature, shape)."""
     _check_pooling(seq_pooling)
+    lookup = lookup or _default_lookup
     e = cfg.embedding_dim
     batch_size = next(
         (batch[f.name].shape[0] for f in fm.features if f.name in batch), None
@@ -120,7 +139,7 @@ def apply(
         if f.type == FeatureType.PLACEHOLDER:
             field = torch.zeros(batch_size, e, dtype=compute_dtype, device=device)
         elif f.type == FeatureType.CATEGORICAL:
-            emb = _gather(params["tables"][fm.table_of[f.name]], batch[f.name])
+            emb = lookup(params["tables"], fm.table_of[f.name], batch[f.name], feature=f.name)
             field = emb.to(compute_dtype)
         elif f.type == FeatureType.DENSE_EMBEDDING:
             p = params["dense"][f.name]
@@ -129,19 +148,20 @@ def apply(
             field = torch.relu(h).to(compute_dtype)
         elif f.type == FeatureType.SEQUENCE and seq_pooling == "mean":
             seq_ids_t = batch[f.name].t()
-            seq_emb = _gather(params["tables"][fm.table_of[f.name]], seq_ids_t)
+            seq_emb = lookup(params["tables"], fm.table_of[f.name], seq_ids_t, feature=f.name,
+                             batch_dim=1)
             field = pooling.masked_mean_t(seq_emb.to(compute_dtype), seq_ids_t, f.pad_id)
         elif f.type == FeatureType.SEQUENCE:
             field = _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype,
-                                     train, generator)
+                                     train, generator, lookup)
         else:
             raise ValueError(f"unsupported feature type {f.type}")
         field_of[f.name] = field
     return torch.stack(list(field_of.values()), dim=1)
 
 
-def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype, train=False,
-                     generator=None):
+def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype, train, generator,
+                     lookup):
     """The attention-pooled field of sequence feature ``f``. The query is the
     field of the CATEGORICAL feature that shares the sequence's table
     (item_id for item_seq), already gathered when it comes first; else a
@@ -153,7 +173,7 @@ def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype, train=F
     ``fold_in(rng, crc32(name))``."""
     table = fm.table_of[f.name]
     seq_ids = batch[f.name]
-    seq_emb = _gather(params["tables"][table], seq_ids).to(compute_dtype)
+    seq_emb = lookup(params["tables"], table, seq_ids, feature=f.name).to(compute_dtype)
     target_feat = next(
         (g.name for g in fm.features
          if g.type == FeatureType.CATEGORICAL and fm.table_of.get(g.name) == table
@@ -163,7 +183,8 @@ def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype, train=F
     if target_feat in field_of:
         target = field_of[target_feat]
     elif target_feat is not None:
-        target = _gather(params["tables"][table], batch[target_feat]).to(compute_dtype)
+        target = lookup(params["tables"], table, batch[target_feat],
+                        feature=target_feat).to(compute_dtype)
     else:
         target = pooling.masked_mean(seq_emb, seq_ids, f.pad_id)
     p = params["attn"][f.name]

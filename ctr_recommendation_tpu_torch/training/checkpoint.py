@@ -3,7 +3,8 @@
 The port's own format (no orbax):
 
 * resume points ``<dir>/ckpt_<epoch>.pt``, one ``torch.save`` of step,
-  params, model state and optimizer state, written to a temp file and
+  params, model state and the optimizer states (the dense chain's and, with
+  sparse tables, the table optimizer's), written to a temp file and
   renamed; the newest ``max_to_keep`` are kept;
 * the best export ``<dir>/best/export.npz`` in ``tools/jax_bridge.save``'s
   layout (params + model state, what the predict CLI and ``Predictor``
@@ -52,6 +53,7 @@ class CheckpointManager:
             "params": _detached_cpu(state.params),
             "model_state": _detached_cpu(state.model_state),
             "opt_state": _detached_cpu(state.opt_state),
+            "table_opt_state": _detached_cpu(state.table_opt_state),
         }
         path = self._path(step)
         torch.save(payload, path + ".tmp")
@@ -64,7 +66,8 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int | None = None) -> dict[str, Any]:
-        """{step, params, model_state, opt_state} on the CPU."""
+        """{step, params, model_state, opt_state, table_opt_state} on the
+        CPU."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")

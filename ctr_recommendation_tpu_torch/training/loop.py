@@ -1,10 +1,19 @@
 """Training driver on one device: the JAX package's ``Trainer.fit_on_device``.
 
-Same semantics as the JAX package's training/loop.py:35-40, 325-369 and
+Same semantics as the JAX package's training/loop.py:35-40, 231-489 and
 989-1156: weighted BCE on logits, the dense optimizer chain (Adam + L2,
 OneCycle stepped per batch, global-norm clip) over every parameter including
 the embedding tables, per-epoch exact AUC + logloss with a best-metric
 export, full-state resume points, ``metrics.csv`` and ``experiment.json``.
+With ``table_optimizer != "dense"`` the tables take the sparse step instead
+(``training/sparse.py``): per table a strategy from ``choose_strategy``; the
+gathered tables' ids remapped once and differentiated through a detached
+row buffer, the masked-dense tables through their own gradient; dense and
+row gradients clipped jointly; the dense chain on the other leaves,
+``TableOptimizer.update`` / ``update_dense`` on the tables. In both steps a
+table read by two or more features (the item table: ``item_id`` and
+``item_seq``) is looked up through ``multi_feature_lookup``, one merged
+backward for all its features.
 
 The split stays resident on the device; each epoch is a seeded permutation
 (or ``arange`` without shuffling) cut into ``batch_size`` batches, and each
@@ -14,13 +23,14 @@ one value per epoch. Dropout draws from a generator reseeded from
 ``(seed + 1, step)`` at every step, as the JAX package folds the step into
 its rng, so a resumed run draws the same masks.
 
-Not ported yet: ``fit`` (streaming/chunked), the sparse table optimizers,
-multi-device meshes, profiling and TensorBoard mirroring (ROADMAP.md).
+Not ported yet: ``fit`` (streaming/chunked), multi-device meshes,
+profiling and TensorBoard mirroring (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import csv
+import dataclasses
 import os
 import time
 
@@ -29,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ctr_recommendation_tpu_torch.config import serialize
-from ctr_recommendation_tpu_torch.config.schema import ExperimentConfig
+from ctr_recommendation_tpu_torch.config.schema import ExperimentConfig, FeatureType
 from ctr_recommendation_tpu_torch.data.device_store import (
     DeviceItemStore,
     dense_join_plan,
@@ -38,8 +48,10 @@ from ctr_recommendation_tpu_torch.data.device_store import (
 from ctr_recommendation_tpu_torch.features.feature_map import build_feature_map
 from ctr_recommendation_tpu_torch.features.hashing import apply_hashing, hash_plan
 from ctr_recommendation_tpu_torch.models.registry import get_model
+from ctr_recommendation_tpu_torch.models.trunk import gather
 from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
 from ctr_recommendation_tpu_torch.training import metrics as metrics_lib
+from ctr_recommendation_tpu_torch.training import sparse as sparse_lib
 from ctr_recommendation_tpu_torch.training.checkpoint import CheckpointManager
 from ctr_recommendation_tpu_torch.training.optim import make_optimizer
 from ctr_recommendation_tpu_torch.training.train_state import TrainState
@@ -63,7 +75,27 @@ def _seed(base: int, index: int) -> int:
     return ((base % (1 << 31)) << 31 | (index % (1 << 31))) % (1 << 63)
 
 
+_ID_TYPES = (FeatureType.CATEGORICAL, FeatureType.SEQUENCE)
+_TABLES = "trunk/tables/"  # path prefix of the embedding tables' leaves
+_ROWS = "rows/"  # name prefix of a gathered table's row buffer
+
+
+@dataclasses.dataclass
+class StepAux:
+    """What ``forward_loss`` hands ``gradients`` and ``apply_gradients``."""
+
+    model_state: dict  # the forward's new BatchNorm state
+    # the tensors the step differentiates, by name, in gradient order: the
+    # parameter leaves by path (without the gathered tables) and each
+    # gathered table's row buffer as "rows/<table>"
+    targets: dict[str, torch.Tensor]
+    uids: dict[str, torch.Tensor]  # gathered table -> its batch's unique ids
+
+
 class Trainer:
+    # route tables read by two or more features through multi_feature_lookup
+    _fuse_table_gather = True
+
     def __init__(
         self,
         experiment: ExperimentConfig,
@@ -90,7 +122,16 @@ class Trainer:
         if total_steps is None:
             total_steps = (steps_per_epoch or 1000) * tc.epochs
         self.total_steps = total_steps
-        self.tx, self.schedule = make_optimizer(tc, total_steps)
+        self.tx, self.schedule = make_optimizer(
+            tc, total_steps, sparse_tables=tc.table_optimizer != "dense")
+        self.table_opt = sparse_lib.make_table_optimizer(tc, self.schedule)
+        if self.table_opt is not None:
+            for f in self.fm.features_of_type(FeatureType.SEQUENCE):
+                if f.pad_id != 0:
+                    raise ValueError(
+                        f"sparse table_optimizer requires pad_id 0 (feature {f.name!r} has "
+                        f"pad_id {f.pad_id}): the batch id remap preserves the pad mask only "
+                        "for id 0 (training/sparse.py remap_batch)")
 
         self.checkpoint_dir = checkpoint_dir or tc.checkpoint_dir
         self.ckpt = CheckpointManager(self.checkpoint_dir, max_to_keep=tc.keep_checkpoints)
@@ -115,8 +156,18 @@ class Trainer:
             )
         params = tree_map(lambda t: self._to_device(t).requires_grad_(), params)
         model_state = tree_map(self._to_device, model_state)
-        self.param_leaves = list(flatten(params).values())
-        self.state = TrainState(0, params, model_state, self.tx.init(self.param_leaves))
+        self.param_paths = dict(flatten(params))
+        self.param_leaves = list(self.param_paths.values())
+        # the dense chain's leaves: all of them, or without the tables
+        self._chain_paths = [p for p in self.param_paths
+                             if self.table_opt is None or not p.startswith(_TABLES)]
+        table_opt_state = {}
+        if self.table_opt is not None:
+            table_opt_state = self.table_opt.init(
+                {t: v.detach() for t, v in params["trunk"]["tables"].items()})
+        self.state = TrainState(
+            0, params, model_state,
+            self.tx.init([self.param_paths[p] for p in self._chain_paths]), table_opt_state)
         self._dropout_gen = torch.Generator(device=self.device)
         self.history: list[dict[str, float]] = []
 
@@ -128,38 +179,143 @@ class Trainer:
         # join by RAW ids first, then hash for the embedding lookup
         return apply_hashing(device_join(feats, self._mm_tables, self._join_plan), self._hash_plan)
 
-    def forward_loss(self, batch: dict[str, torch.Tensor]):
-        """(loss, new model state) of one train-mode forward on a batch of
-        device columns, with the dropout masks of the current step."""
+    def _multi_feature_plan(self, feats: dict, only=None) -> dict[str, list]:
+        """Tables read by two or more features (the item table: item_id and
+        item_seq), default all of them, or those in ``only``, with each
+        feature's ids in the layout the trunk asks for: mean-pooled
+        sequences transposed (S, B), attention-pooled ones (B, S). A table
+        with a square (S == B) sequence keeps the per-feature gathers: the
+        two layouts are indistinguishable by shape."""
+        if not self._fuse_table_gather:
+            return {}
+        fm = self.fm
+        id_feats = [f for f in fm.features if f.type in _ID_TYPES and f.name in feats]
+        tables = set(only) if only is not None else {fm.table_of[f.name] for f in id_feats}
+        transposed = self.module.SEQ_POOLING == "mean"
+        multi: dict[str, list] = {}
+        for t in sorted(tables):
+            fs = [f for f in id_feats if fm.table_of[f.name] == t]
+            if len(fs) < 2 or any(f.type == FeatureType.SEQUENCE
+                                  and feats[f.name].shape[0] == feats[f.name].shape[1]
+                                  for f in fs):
+                continue
+            multi[t] = [
+                (f.name, feats[f.name].t() if f.type == FeatureType.SEQUENCE and transposed
+                 else feats[f.name])
+                for f in fs
+            ]
+        return multi
+
+    @staticmethod
+    def _merged_lookup(tables: dict, rows: dict, multi: dict):
+        """The trunk's lookup for one step: gathered tables read their row
+        buffer (``F.embedding``, so its backward is the sorted sum), planned
+        features their share of ``multi_feature_lookup``, the rest
+        ``gather``."""
+        cache: dict[str, tuple[tuple, torch.Tensor]] = {}
+        for t, segs in multi.items():
+            outs = sparse_lib.multi_feature_lookup(tables[t], *[ids for _, ids in segs])
+            for (name, ids), o in zip(segs, outs):
+                cache[name] = (tuple(ids.shape), o)
+
+        def lookup(tbls, name, ids, feature=None, batch_dim=0):
+            if name in rows:
+                return F.embedding(ids, rows[name])
+            if feature in cache:
+                canon, o = cache[feature]
+                if tuple(ids.shape) == canon:
+                    return o
+                if ids.dim() == 2 and tuple(ids.shape) == canon[::-1]:
+                    return o.transpose(0, 1)
+            return gather(tbls[name], ids)
+
+        return lookup
+
+    def _plan_step(self, feats: dict):
+        """(feats, lookup, targets, uids) of one step on joined feats."""
+        tables = self.state.params["trunk"]["tables"]
+        if self.table_opt is None:
+            multi = self._multi_feature_plan(feats)
+            lookup = self._merged_lookup(tables, {}, multi) if multi else None
+            return feats, lookup, self.param_paths, {}
+        fm = self.fm
+        counts: dict[str, int] = {}  # ids per table, the forced pad id included
+        for f in fm.features:
+            if f.type in _ID_TYPES and f.name in feats:
+                t = fm.table_of[f.name]
+                counts[t] = counts.get(t, 1) + feats[f.name].numel()
+        gathered = sorted(t for t, c in counts.items()
+                          if sparse_lib.choose_strategy(tables[t].shape[0], c) == "gathered")
+        masked = [t for t in counts if t not in gathered]
+        feats, uids = sparse_lib.remap_batch(fm, feats, tables, only=gathered)
+        rows = {t: sparse_lib.gather_rows(tables[t].detach(), u).requires_grad_()
+                for t, u in uids.items()}
+        lookup = self._merged_lookup(tables, rows, self._multi_feature_plan(feats, only=masked))
+        targets = {p: self.param_paths[p] for p in self._chain_paths}
+        targets.update({_TABLES + t: tables[t] for t in masked})
+        targets.update({_ROWS + t: r for t, r in rows.items()})
+        return feats, lookup, targets, uids
+
+    def forward_loss(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, StepAux]:
+        """(loss, StepAux) of one train-mode forward on a batch of device
+        columns, with the dropout masks of the current step."""
         fm = self.fm
         weight = batch.get("__weight__")
         feats = {k: v for k, v in batch.items() if k not in (fm.label, "__weight__")}
+        feats, lookup, targets, uids = self._plan_step(self._device_join(feats))
         self._dropout_gen.manual_seed(_seed(self.exp.train.seed + 1, self.state.step))
         logits, new_mstate = self.module.apply(
-            self.state.params, self.state.model_state, fm, self.exp.model,
-            self._device_join(feats), train=True, generator=self._dropout_gen,
-            compute_dtype=self.compute_dtype, weight=weight,
+            self.state.params, self.state.model_state, fm, self.exp.model, feats,
+            train=True, generator=self._dropout_gen, compute_dtype=self.compute_dtype,
+            weight=weight, lookup=lookup,
         )
-        return bce_with_logits(logits, batch[fm.label], weight), new_mstate
+        loss = bce_with_logits(logits, batch[fm.label], weight)
+        return loss, StepAux(new_mstate, targets, uids)
 
-    def gradients(self, loss: torch.Tensor) -> list[torch.Tensor]:
-        """d loss / d every parameter, in ``param_leaves`` order."""
+    def gradients(self, loss: torch.Tensor, aux: StepAux) -> list[torch.Tensor]:
+        """d loss / d each of ``aux.targets``, in order (with dense tables:
+        every parameter, in ``param_leaves`` order)."""
         return list(torch.autograd.grad(
-            loss, self.param_leaves, allow_unused=True, materialize_grads=True
+            loss, list(aux.targets.values()), allow_unused=True, materialize_grads=True
         ))
 
-    def apply_gradients(self, grads: list[torch.Tensor], new_model_state: dict) -> None:
+    def apply_gradients(self, grads: list[torch.Tensor], aux: StepAux) -> None:
         """The optimizer update (params change in place) and the step."""
-        self.tx.update(grads, self.state.opt_state, self.param_leaves)
-        self.state.model_state = new_model_state
+        if self.table_opt is None:
+            self.tx.update(grads, self.state.opt_state, self.param_leaves)
+        else:
+            self._apply_sparse(dict(zip(aux.targets, grads)), aux.uids)
+        self.state.model_state = aux.model_state
         self.state.step += 1
+
+    @torch.no_grad()
+    def _apply_sparse(self, grads: dict[str, torch.Tensor], uids: dict) -> None:
+        """Joint clip of dense and row gradients (the reference clips over
+        every parameter), then the dense chain on the non-table leaves and
+        the table optimizer on the tables."""
+        clip = self.exp.train.grad_clip_norm
+        if clip and clip > 0:
+            g = list(grads.values())
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            torch._foreach_mul_(g, (clip / norm.clamp(min=1e-16)).clamp(max=1.0))
+        self.tx.update([grads[p] for p in self._chain_paths], self.state.opt_state,
+                       [self.param_paths[p] for p in self._chain_paths])
+        tables, tstate = self.state.params["trunk"]["tables"], self.state.table_opt_state
+        step = self.state.step
+        masked = [p[len(_TABLES):] for p in grads if p.startswith(_TABLES)]
+        if masked:
+            self.table_opt.update_dense({t: tables[t] for t in masked}, tstate,
+                                        {t: grads[_TABLES + t] for t in masked}, step)
+        if uids:
+            self.table_opt.update({t: tables[t] for t in uids}, tstate, uids,
+                                  {t: grads[_ROWS + t] for t in uids}, step)
 
     def train_step(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step; returns the batch loss as a device scalar."""
         with torch.enable_grad():
-            loss, new_mstate = self.forward_loss(batch)
-            grads = self.gradients(loss)
-        self.apply_gradients(grads, new_mstate)
+            loss, aux = self.forward_loss(batch)
+            grads = self.gradients(loss, aux)
+        self.apply_gradients(grads, aux)
         return loss.detach()
 
     # ------------------------------------------------------------------ state
@@ -168,6 +324,8 @@ class Trainer:
             for dst, src in zip(self.param_leaves, flatten(payload["params"]).values()):
                 dst.copy_(src)
         self.state.model_state = tree_map(self._to_device, payload["model_state"])
+        self.state.table_opt_state = tree_map(self._to_device,
+                                              payload.get("table_opt_state", {}))
         self.state.opt_state = {
             k: tree_map(self._to_device, v) if isinstance(v, list) else v
             for k, v in payload["opt_state"].items()

@@ -17,7 +17,11 @@ its own code for the same arithmetic, with no optax:
   decoupled decay; then the step ``-lr(k) * u`` with k counting updates
   from 0.
 
-Only dense embedding tables are ported; the sparse table optimizers wait.
+With sparse tables (``table_optimizer != "dense"``) the embedding tables
+leave this chain for ``training/sparse.py``'s ``TableOptimizer``: the
+trainer hands the chain only the other leaves, and the chain's clip is
+omitted because the train step clips the dense and the row gradients
+jointly.
 """
 
 from __future__ import annotations
@@ -30,12 +34,6 @@ import torch
 from ctr_recommendation_tpu_torch.config.schema import TrainConfig
 
 Schedule = Callable[[int], float]
-
-SPARSE_TABLES_TODO = (
-    "table_optimizer != 'dense' is not ported yet (ROADMAP.md queue 1: "
-    "sparse table optimizers)"
-)
-
 
 def _cosine_onecycle(transition_steps, peak_value, pct_start, div_factor, final_div_factor):
     """optax.cosine_onecycle_schedule: cosine interpolation between the
@@ -157,10 +155,13 @@ class Optimizer:
         torch._foreach_add_(params, u, alpha=-lr)
 
 
-def make_optimizer(cfg: TrainConfig, total_steps: int) -> tuple[Optimizer, Schedule]:
+def make_optimizer(
+    cfg: TrainConfig, total_steps: int, *, sparse_tables: bool = False
+) -> tuple[Optimizer, Schedule]:
     """The dense chain of the JAX package's ``make_optimizer`` and its lr
-    schedule."""
-    if cfg.table_optimizer != "dense":
-        raise NotImplementedError(SPARSE_TABLES_TODO)
+    schedule. ``sparse_tables``: the chain runs without its clip (the step
+    clips dense and row gradients jointly) and is given no table leaves, so
+    it allocates no state for them."""
     schedule = make_schedule(cfg, total_steps)
-    return Optimizer(cfg.optimizer, schedule, cfg.grad_clip_norm, cfg.weight_decay), schedule
+    clip = 0.0 if sparse_tables else cfg.grad_clip_norm
+    return Optimizer(cfg.optimizer, schedule, clip, cfg.weight_decay), schedule

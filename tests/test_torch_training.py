@@ -246,11 +246,6 @@ def test_optimizer_matches_optax(kind):
     assert state["count"] == 5
 
 
-def test_sparse_table_optimizers_are_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1: sparse table optimizers"):
-        make_optimizer(TrainConfig(table_optimizer="rowwise_adagrad"), 10)
-
-
 # ----------------------------------------------------------------- metrics
 @pytest.mark.parametrize("case", ["ties", "weights", "single_class", "all_masked"])
 def test_auc_and_logloss_match_jax(case):
@@ -441,7 +436,6 @@ def test_train_then_predict_cli_on_the_ports_own_export(tmp_path):
     (["--model-parallel", "2"], "queue 1: parallel"),
     (["--profile-dir", "x"], "queue 1: the rest, profiling"),
     (["--strict-items"], "queue 1: streaming and chunked training"),
-    (["--table-optimizer", "adagrad"], "queue 1: sparse table optimizers"),
 ])
 def test_train_cli_refuses_what_is_not_ported(flags, item, capsys):
     from ctr_recommendation_tpu_torch.cli.train import main as train_main
