@@ -139,6 +139,36 @@ Phases, in order; any failure exits non-zero and prints no result line.
    mm_fibinet_lazy_adam_b1024 (adam at batch 1024: the item table
    gathered), and each beside the dense mm_fibinet run: best valid AUC,
    examples/s, a step's wall and device-busy ms.
+6f. Host-driven training (Trainer.fit) at the full defaults on phase 6's
+   splits, fed numpy batches (the card's machine has no pyarrow): first the
+   wire, each slice of the first widened chunk of 8 bit for bit put_batch
+   of its numpy batch (split24 item ids, uint8 labels and categoricals);
+   the feed at 8 giving every step of both epochs the feed at 1's batch,
+   bit for bit (check_feeds); the shared likes_level table's merged
+   embedding backward run 10 times on fixed inputs (is it reproducible?);
+   then fit over iter_batches for 2 epochs at 1 batch an upload, again at
+   1 (the repeat sets the bar: its own gap, at least FIT_METRIC_FLOOR, as
+   the card's step is not bit-reproducible), and at 8: per-epoch train
+   loss and valid AUC of 8 within that bar of 1, best valid AUC > 0.6 and
+   within FIT_AUC_TOL of phase 6's, loss falling, exact launch counts, a
+   resume point and the best export. The host item join (strict_items, no
+   item store on the trainer): the first step's loss bit for bit the
+   device join's, a fit of a few steps, an unknown item_id raising through
+   fit. sasrec_fibinet through fit for 16 steps (the encoder kernels'
+   exact launches). Labels turned soft halfway through an epoch: the run
+   completes, logs "widening", takes every step. The stream window
+   (data/streaming.window_batches) fed the train split cut into numpy row
+   groups, host 0 of 2, shuffled: one epoch of fit, its batches covering
+   the host's rows once. predict --stream's path: Predictor.predict_all
+   over the unshuffled window of phase 4's rows in batches of 8192, equal
+   to score_table's probabilities, its CSV's bytes the Python writer's,
+   score_launches() a batch. Timing: examples/s a epoch of fit at 1 and 8
+   beside fit_on_device's; the host's parts alone a batch (assembly,
+   upload); a step's wall (host clock over 24 steps) and device-busy ms
+   (torch.profiler over 24 more) fed uploads made beforehand, fed by fit's
+   prefetch threads at 1 and 8 (with the time it waits for the feed), and
+   of fit_on_device's loop; whether the side stream's host-to-device
+   copies overlap the kernels in that trace.
 8. One JSON line describing the five kernels, then the result line.
 """
 
@@ -246,6 +276,28 @@ AUC_SERVE_TOL = 2e-3  # served export vs the trainer's eval, same rows
 # group AUC of the same probabilities on the card vs on the CPU: both rank in
 # float64, so only the order of the float64 sums differs
 GAUC_TOL = 1e-6
+# phase 6f: Trainer.fit, steps_per_dispatch 8 (the JAX default,
+# config/schema.py) against 1; a fit's best valid AUC against phase 6's
+# fit_on_device run, which shuffles with torch's randperm where fit's
+# iter_batches shuffles with numpy's permutation
+FIT_K = 8
+FIT_AUC_TOL = 0.01
+# fit at FIT_K against fit at 1, per-epoch train loss and valid AUC: within
+# the larger of a repeat's gap (fit at 1 again) and FIT_METRIC_FLOOR. That
+# the two feeds give every step the same batch is checked bit for bit on
+# its own (check_feeds). The step itself is not bit-reproducible on the
+# card: the shared likes_level table's merged embedding backward sums the
+# same cotangents differently from call to call (the "[fit] one step's
+# gradients" and "embedding_dense_backward" lines), the parameters drift,
+# and now and then a drift crosses a bf16 rounding and the runs part: on an
+# H100 a fit at 8 whose every step saw fit at 1's batch bit for bit ended
+# its second epoch 1.9e-6 apart in loss and 2.4e-7 in AUC, while the
+# repeat at 1 of the same call matched bit for bit. So the repeat's gap
+# alone (0 then) cannot be the bar. The floor is 50x that parting; a step
+# lost or a batch out of order moves the loss by more than 1e-3.
+FIT_METRIC_FLOOR = 1e-4
+WINDOW_GROUPS = 13  # numpy row groups cut from the train split, uneven sizes
+FIT_STEPS_TIMED = 24  # steps timed (host clock) and then profiled, a run
 
 
 def log(msg: str) -> None:
@@ -1810,6 +1862,424 @@ def sparse_fits(torch, train, valid, store, root, card, counted, per_step, per_e
             f"{r['step']['busy_ms']:.4f} ms a step, on {card}")
 
 
+def device_intervals(prof) -> list[tuple]:
+    """(category, stream, start µs, end µs) of each kernel, memcpy and memset
+    on the card in a torch.profiler trace (its Chrome trace's events)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [(e["cat"], e.get("args", {}).get("stream"), e["ts"], e["ts"] + e["dur"])
+            for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def merged(spans) -> list[tuple]:
+    """The union of (start, end) spans, as sorted disjoint spans."""
+    out: list[list] = []
+    for a, z in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], z)
+        else:
+            out.append([a, z])
+    return [tuple(x) for x in out]
+
+
+def overlap(spans, union) -> float:
+    """Total length of ``spans`` that lies inside the disjoint ``union``."""
+    return sum(max(0.0, min(z, uz) - max(a, ua)) for a, z in spans for ua, uz in union)
+
+
+def time_steps(torch, step, card, tag: str, warm: int) -> dict:
+    """A train loop's steps: ``warm`` steps, then FIT_STEPS_TIMED on the host
+    clock (ending in a synchronize), then FIT_STEPS_TIMED under
+    torch.profiler: wall and device-busy ms a step (the union of the card's
+    intervals), kernels a step, and the host-to-device copies: their stream
+    beside the kernels', their ms a step and the share of it that overlaps a
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FIT_STEPS_TIMED):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / FIT_STEPS_TIMED * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(FIT_STEPS_TIMED):
+            step()
+        torch.cuda.synchronize()
+    ev = device_intervals(prof)
+    n = FIT_STEPS_TIMED
+    kernels = [(st, a, z) for cat, st, a, z in ev if cat == "kernel"]
+    copies = [(st, a, z) for cat, st, a, z in ev if cat == "gpu_memcpy"]
+    busy = sum(z - a for a, z in merged([(a, z) for _, _, a, z in ev])) / n / 1e3
+    kernel_streams = sorted({st for st, _, _ in kernels})
+    copy_streams = sorted({st for st, _, _ in copies})
+    copy_ms = sum(z - a for _, a, z in copies) / n / 1e3
+    inside = overlap([(a, z) for _, a, z in copies], merged([(a, z) for _, a, z in kernels]))
+    share = inside / max(sum(z - a for _, a, z in copies), 1e-9)
+    log(f"[fit {tag}] a step: {wall:.4f} ms wall (host clock, {n} steps), device busy "
+        f"{busy:.4f} ms ({busy / wall:.3f} of it; torch.profiler, {n} more steps), "
+        f"{len(kernels) / n:.0f} kernels a step on streams {kernel_streams}; copies "
+        f"{len(copies) / n:.1f} a step on streams {copy_streams}, {copy_ms:.4f} ms a step, "
+        f"{share:.3f} of it overlapping a kernel, on {card}")
+    return {"wall_ms": wall, "busy_ms": busy, "copy_streams": copy_streams,
+            "kernel_streams": kernel_streams, "copy_overlap": share}
+
+
+def check_wire(torch, tr, batches, card) -> None:
+    """Each slice of the first chunk, uploaded at its wire dtypes and widened
+    on the card, equals put_batch of its numpy batch bit for bit."""
+    buf = [b for _, b in zip(range(FIT_K), batches)]
+    up = tr._ready(tr.put_chunk(buf))
+    wide = tr._widen(up)
+    plan = {k: str(v) for k, v in tr._wire_plan.items()}
+    want_plan = {"item_id": "split24", "item_seq": "split24", "label": "uint8",
+                 "__weight__": "uint8", "likes_level": "uint8", "views_level": "uint8"}
+    if plan != want_plan:
+        raise SystemExit(f"wire plan {plan}, expected {want_plan}")
+    rows = FIT_K * len(buf[0]["label"])
+    wire = sum(t.element_size() * t.numel() for t in up.values()) / rows
+    full = sum(v.nbytes for k, v in buf[0].items() if k in wide) / len(buf[0]["label"])
+    for i, b in enumerate(buf):
+        want = tr._ready(tr.put_batch(b))
+        for k, v in wide.items():
+            if v[i].dtype != want[k].dtype or not torch.equal(v[i], want[k]):
+                raise SystemExit(f"wire: batch {i} column {k!r} widened on the card is not "
+                                 "put_batch's")
+    log(f"[wire] the first chunk's {len(buf)} batches widened on the card equal put_batch's "
+        f"bit for bit, columns {sorted(wide)}; plan {plan}: {wire:.0f} B a row on the wire, "
+        f"{full:.0f} B unnarrowed, on {card}")
+
+
+def check_feeds(torch, tr, epoch_batches) -> None:
+    """fit's feed at FIT_K batches an upload (put_chunk, widened, sliced)
+    gives every step of both epochs the device batch that its feed at 1
+    (put_batch) gives, bit for bit (the PLACEHOLDER column stays off the
+    wire)."""
+    import contextlib
+
+    n = 0
+    for epoch in range(TRAIN_EPOCHS):
+        with contextlib.closing(tr._device_batches(epoch_batches(epoch), 1)) as one, \
+                contextlib.closing(tr._device_batches(epoch_batches(epoch), FIT_K)) as eight:
+            for a, b in zip(one, eight, strict=True):
+                if any(not torch.equal(a[k], v) or a[k].dtype != v.dtype for k, v in b.items()):
+                    raise SystemExit(f"fit's feed at {FIT_K} and at 1 part at step {n}")
+                n += 1
+    log(f"[fit] the feed at {FIT_K} batches an upload gives each of {n} steps the batch of the "
+        "feed at 1, bit for bit")
+
+
+def host_driven(torch, train, valid, store, root, card, dense: dict, serve: dict,
+                counted, per_step: dict, per_eval: dict, sasrec_per_step: dict,
+                sasrec_per_eval: dict) -> None:
+    """Phase 6f (see the module docstring). ``dense`` is phase 6's mm_fibinet
+    run; ``serve`` phase 4's Predictor, rows and score_table probabilities;
+    ``counted``, ``per_step`` and ``per_eval`` as train_and_serve's, the
+    ``sasrec_`` pair those of sasrec_fibinet."""
+    import contextlib
+    import itertools
+
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.data import TableData, iter_batches
+    from ctr_recommendation_tpu_torch.data.streaming import host_row_groups, window_batches
+    from ctr_recommendation_tpu_torch.inference import write_submission
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    names = lambda d: {fn.__name__: n for fn, n in d.items()}  # noqa: E731
+
+    def experiment(tag, k, **kw):
+        return microlens_experiment(data_root="", epochs=kw.pop("epochs", TRAIN_EPOCHS),
+                                    steps_per_dispatch=k,
+                                    checkpoint_dir=os.path.join(root, f"ckpt_fit_{tag}"), **kw)
+
+    exp = experiment("wire", FIT_K)
+    bs, spe = exp.train.batch_size, N_TRAIN // exp.train.batch_size
+    eval_bs = exp.train.eval_batch_size
+    fm_trainer = Trainer(exp, steps_per_epoch=spe, item_store=store, log_fn=log)
+    fm = fm_trainer.fm
+
+    def epoch_batches(epoch, **kw):
+        return iter_batches(train, fm, bs, shuffle=True, seed=exp.train.seed, epoch=epoch,
+                            drop_last=True, **kw)
+
+    def valid_batches():
+        return iter_batches(valid, fm, eval_bs)
+
+    check_wire(torch, fm_trainer, epoch_batches(0), card)
+    # the card's step on identical inputs, twice: which gradients repeat bit for bit
+    batch = fm_trainer._ready(fm_trainer.put_batch(next(epoch_batches(0))))
+    grads = []
+    for _ in range(2):
+        with torch.enable_grad():
+            loss, aux = fm_trainer.forward_loss(batch)
+            grads.append(dict(zip(aux.targets, fm_trainer.gradients(loss, aux))))
+    moved = {p: float((g - grads[1][p]).abs().max()) for p, g in grads[0].items()
+             if not torch.equal(g, grads[1][p])}
+    log(f"[fit] one step's gradients on the same batch twice: leaves that differ, max|d|: "
+        f"{moved} on {card}")
+    # the shared likes_level table's merged backward alone, on fixed inputs
+    ids = torch.cat([batch["likes_level"], batch["views_level"]]).to(torch.int64)
+    rows = fm_trainer.state.params["trunk"]["tables"]["likes_level"].shape[0] + 1
+    cot = torch.randn(len(ids), exp.model.embedding_dim, device=ids.device,
+                      generator=torch.Generator(device=ids.device).manual_seed(0))
+    outs = [torch.ops.aten.embedding_dense_backward(cot, ids, rows, -1, False)
+            for _ in range(10)]
+    log(f"[fit] embedding_dense_backward of {len(ids)} ids into {rows} rows, the same inputs 10 "
+        f"times: {sum(not torch.equal(o, outs[0]) for o in outs)} results differ from the "
+        f"first, max|d| {max(float((o - outs[0]).abs().max()) for o in outs):.3e}")
+    check_feeds(torch, fm_trainer, epoch_batches)
+
+    def counted_fit(tr, train_batches, steps, eval_batches, tag, valid_fn=valid_batches,
+                    launches=(per_step, per_eval)):
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        hist = tr.fit(train_batches, valid_fn)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        launched = {fn: fn.launches for fn in counted}
+        expect = {fn: launches[0].get(fn, 0) * steps + launches[1].get(fn, 0) * eval_batches
+                  for fn in counted}
+        for h in hist:
+            auc = f", valid auc {h['auc']:.5f}" if "auc" in h else ""
+            log(f"[fit {tag}] epoch {int(h['epoch'])}: loss {h['train_loss']:.6f}{auc}, "
+                f"{h['examples_per_sec']:.0f} examples/s ({h['seconds']:.3f} s train) on {card}")
+        log(f"[fit {tag}] {steps} steps + {eval_batches} eval batches in {t:.3f} s; launches "
+            f"{names(launched)}, expected {names(expect)}")
+        if launched != expect or tr.state.step != steps:
+            raise SystemExit(f"fit {tag}: {tr.state.step} steps, launches {names(launched)}; "
+                             f"expected {steps} steps, {names(expect)}")
+        return hist
+
+    eval_batches = TRAIN_EPOCHS * -(-N_VALID // eval_bs)
+    runs, trainers = {}, {}
+    for tag, k in (("k1", 1), ("k1_repeat", 1), (f"k{FIT_K}", FIT_K)):
+        tr = Trainer(experiment(tag, k), steps_per_epoch=spe, item_store=store, log_fn=log)
+        runs[tag] = counted_fit(tr, epoch_batches, TRAIN_EPOCHS * spe, eval_batches, tag)
+        trainers[tag] = tr
+
+    def gap(a, b, key):
+        return max(abs(x[key] - y[key]) for x, y in zip(runs[a], runs[b]))
+
+    def param_gaps(a, b):
+        return {p: float((x - y).abs().max()) for p, x, y in zip(
+            trainers[a].param_paths, trainers[a].param_leaves, trainers[b].param_leaves)
+            if not torch.equal(x, y)}
+
+    repeat = {key: gap("k1", "k1_repeat", key) for key in ("train_loss", "auc")}
+    bar = {key: max(v, FIT_METRIC_FLOOR) for key, v in repeat.items()}
+    chunked = {key: gap("k1", f"k{FIT_K}", key) for key in ("train_loss", "auc")}
+    log(f"[fit] per-epoch |d| of the repeat at 1 batch an upload {repeat}, at {FIT_K} against "
+        f"1 {chunked} (bar {bar}); parameters that differ, max|d|: the repeat "
+        f"{param_gaps('k1', 'k1_repeat')}, at {FIT_K} {param_gaps('k1', f'k{FIT_K}')}")
+    if any(chunked[key] > bar[key] for key in bar):
+        raise SystemExit(f"fit at {FIT_K} batches an upload differs from fit at 1 by {chunked}, "
+                         f"beyond the bar {bar}")
+    for tag in runs:
+        losses = [h["train_loss"] for h in runs[tag]]
+        best = max(h["auc"] for h in runs[tag])
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise SystemExit(f"fit {tag}: training loss not finite and falling: {losses}")
+        if not best > 0.6 or abs(best - dense["best_auc"]) > FIT_AUC_TOL:
+            raise SystemExit(f"fit {tag}: best valid AUC {best}, fit_on_device's "
+                             f"{dense['best_auc']} (tolerance {FIT_AUC_TOL})")
+        ck = trainers[tag].ckpt
+        if ck.latest_step() != TRAIN_EPOCHS or not os.path.exists(ck.best_export_path):
+            raise SystemExit(f"fit {tag}: no resume point or no best export")
+    log(f"[fit] best valid auc at 1 {max(h['auc'] for h in runs['k1']):.5f}, at {FIT_K} "
+        f"{max(h['auc'] for h in runs[f'k{FIT_K}']):.5f}, fit_on_device's "
+        f"{dense['best_auc']:.5f} (tolerance {FIT_AUC_TOL})")
+
+    # the host item join: the batches carry item_emb_d128, the trainer no store
+    host_exp = experiment("host_join", FIT_K, epochs=1)
+    first = next(epoch_batches(0, item_store=store, strict_items=True))
+    losses = {}
+    for tag, st, batch in (("device join", store, {k: v for k, v in first.items()
+                                                   if k != "item_emb_d128"}),
+                           ("host join", None, first)):
+        tr = Trainer(host_exp, steps_per_epoch=spe, item_store=st, log_fn=log)
+        up = tr.put_batch(batch)
+        losses[tag] = tr.train_step(tr._ready(up))
+    log(f"[fit host join] first step's loss: device join {losses['device join'].item():.9f}, "
+        f"host join {losses['host join'].item():.9f}")
+    if not torch.equal(losses["device join"], losses["host join"]):
+        raise SystemExit("the host join's first loss is not the device join's")
+    host_steps = 2 * FIT_K
+    tr = Trainer(host_exp, steps_per_epoch=host_steps, item_store=None, log_fn=log)
+    hist = counted_fit(tr, lambda epoch: itertools.islice(
+        epoch_batches(epoch, item_store=store, strict_items=True), host_steps), host_steps,
+        -(-N_VALID // eval_bs), "host join",
+        valid_fn=lambda: iter_batches(valid, fm, eval_bs, item_store=store))
+    bad = {k: v[:bs].copy() for k, v in train.columns.items()}
+    bad["item_id"][17] = 91_718 + 5  # in the table's rows, not in item_info
+    try:
+        tr.fit(lambda epoch: iter_batches(TableData(bad, bs), fm, bs, item_store=store,
+                                          strict_items=True))
+        raise SystemExit("an unknown item_id did not raise through fit under strict_items")
+    except KeyError as e:
+        log(f"[fit host join] an unknown item_id raises through fit: KeyError {e}")
+
+    # sasrec_fibinet through fit: the encoder kernels on the host-driven path
+    tr = Trainer(experiment("sasrec", FIT_K, model="sasrec_fibinet", epochs=1),
+                 steps_per_epoch=2 * FIT_K, item_store=store, log_fn=log)
+    counted_fit(tr, lambda epoch: itertools.islice(epoch_batches(epoch), 2 * FIT_K), 2 * FIT_K,
+                -(-N_VALID // eval_bs), "sasrec_fibinet",
+                launches=(sasrec_per_step, sasrec_per_eval))
+
+    # labels turn soft halfway through an epoch: the label column widens
+    logs: list[str] = []
+    tr = Trainer(experiment("soft", FIT_K, epochs=1), steps_per_epoch=spe, item_store=store,
+                 log_fn=logs.append)
+
+    def soft(epoch):
+        rng = np.random.default_rng(5)
+        for i, b in enumerate(epoch_batches(epoch)):
+            if i >= spe // 2:
+                b["label"] = rng.uniform(0.1, 0.9, size=bs).astype(np.float32)
+            yield b
+
+    hist = counted_fit(tr, soft, spe, 0, "soft labels", valid_fn=None)
+    widening = [m for m in logs if "widening" in m]
+    log(f"[fit soft labels] {widening}; loss {hist[0]['train_loss']:.6f}")
+    if not widening or not np.isfinite(hist[0]["train_loss"]):
+        raise SystemExit("soft labels mid-stream did not widen the label column or train")
+
+    # the stream window on numpy row groups: host 0 of 2, shuffled
+    rng = np.random.default_rng(3)
+    cuts = np.sort(rng.choice(np.arange(1, N_TRAIN), WINDOW_GROUPS - 1, replace=False))
+    bounds = list(zip([0, *cuts], [*cuts, N_TRAIN]))
+    host_rows = np.concatenate([np.arange(a, z) for a, z in bounds[0::2]])
+    steps = -(-len(host_rows) // bs)
+    seen: list[np.ndarray] = []
+
+    def window(epoch):
+        groups, grng = host_row_groups(WINDOW_GROUPS, shuffle=True, seed=exp.train.seed,
+                                       epoch=epoch, host_index=0, host_count=2)
+        cols = dict(train.columns, __row__=np.arange(N_TRAIN))
+        chunks = ({k: v[s : min(s + 4 * bs, bounds[g][1])] for k, v in cols.items()}
+                  for g in groups for s in range(bounds[g][0], bounds[g][1], 4 * bs))
+        for b in window_batches(chunks, fm, bs, rng=grng, shuffle=True):
+            row = b.pop("__row__")
+            seen.append(row[b["__weight__"] > 0])
+            yield b
+
+    tr = Trainer(experiment("window", FIT_K, epochs=1), steps_per_epoch=steps,
+                 item_store=store, log_fn=log)
+    counted_fit(tr, window, steps, 0, "stream window", valid_fn=None)
+    rows_seen = np.sort(np.concatenate(seen))
+    sizes = [int(z - a) for a, z in bounds]
+    log(f"[fit stream window] {WINDOW_GROUPS} row groups of {sizes} rows; "
+        f"host 0 of 2: {len(host_rows)} rows in {steps} batches, {len(rows_seen)} rows seen")
+    if not np.array_equal(rows_seen, host_rows):
+        raise SystemExit("the stream window's batches do not cover the host's rows once")
+
+    # predict --stream's path: predict_all over the unshuffled window
+    pred, rows, bulk = serve["pred"], serve["rows"], serve["bulk"]
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+
+    chunks = ({k: v[s : s + 4 * B_FULL] for k, v in rows.items()}
+              for s in range(0, N_ROWS, 4 * B_FULL))
+    score_fwd.launches = 0
+    t0 = time.perf_counter()
+    probs = pred.predict_all(window_batches(chunks, fm, B_FULL,
+                                            rng=np.random.default_rng(0)))
+    t_pred = time.perf_counter() - t0
+    n_launched = score_fwd.launches
+    diff = (float(np.abs(probs.astype(np.float64) - bulk).max())
+            if probs.shape == bulk.shape else float("inf"))
+    log(f"[predict --stream] predict_all over the window: {len(probs)} rows in {t_pred:.4f} s "
+        f"= {len(probs) / t_pred:.0f} rows/s on {card}; max|d| vs score_table {diff:.3e}; "
+        f"fused_score launches {n_launched}")
+    if n_launched != (N_ROWS // B_FULL) * score_launches():
+        raise SystemExit(f"predict_all launched {n_launched} scoring kernels")
+    if not np.array_equal(probs, bulk):
+        raise SystemExit(f"predict --stream's probabilities are not score_table's: {diff}")
+    with tempfile.TemporaryDirectory() as out_dir:
+        csv_path, zip_path = write_submission(probs, out_dir)
+        check_submission(len(probs), csv_path, zip_path, bulk, "predict --stream")
+
+    timing = fit_timing(torch, train, card, experiment, epoch_batches, spe, store)
+    eps = {tag: [round(h["examples_per_sec"]) for h in hist]
+           for tag, hist in (("fit_on_device", dense["hist"]), ("fit k1", runs["k1"]),
+                             (f"fit k{FIT_K}", runs[f"k{FIT_K}"]))}
+    log(f"[fit] examples/s per epoch {eps}; a step, ms wall / device busy: "
+        + ", ".join(f"{t} {v['wall_ms']:.4f} / {v['busy_ms']:.4f}" for t, v in timing.items())
+        + "; copies on their own stream, overlapping kernels: "
+        + ", ".join(f"{t} {v['copy_streams']} vs {v['kernel_streams']}, "
+                    f"{v['copy_overlap']:.3f}" for t, v in timing.items() if t.startswith("k"))
+        + f" on {card}")
+
+
+def fit_timing(torch, train, card, experiment, epoch_batches, spe: int, store) -> dict:
+    """Where a step of fit spends its time: the host's parts alone, a batch
+    (iter_batches' assembly, put_batch, put_chunk of FIT_K), then a step
+    (time_steps) fed uploads made beforehand, fed by fit's prefetch threads
+    at 1 and FIT_K batches an upload (with the time the step waits for the
+    feed), and of fit_on_device's loop on the resident split."""
+    import contextlib
+    import itertools
+
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    def trainer(tag, k):
+        return Trainer(experiment(f"time_{tag}", k), steps_per_epoch=spe, item_store=store,
+                       log_fn=log)
+
+    tr = trainer("preloaded", 1)
+    t0 = time.perf_counter()
+    batches = list(epoch_batches(0))
+    t_batch = (time.perf_counter() - t0) / spe * 1e3
+    t0 = time.perf_counter()
+    uploads = [tr.put_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    t_put = (time.perf_counter() - t0) / spe * 1e3
+    t0 = time.perf_counter()
+    for i in range(0, spe, FIT_K):
+        tr.put_chunk(batches[i : i + FIT_K])
+    torch.cuda.synchronize()
+    t_chunk = (time.perf_counter() - t0) / spe * 1e3
+    log(f"[fit timing] the host alone, ms a batch: iter_batches {t_batch:.4f}, put_batch "
+        f"{t_put:.4f}, put_chunk of {FIT_K} {t_chunk:.4f} (a batch's share), on {card}")
+    timing = {}
+    it = iter(uploads)
+    timing["preloaded"] = time_steps(torch, lambda: tr.train_step(tr._ready(next(it))), card,
+                                     "preloaded uploads timing", warm=2 * FIT_K)
+    for tag, k in (("k1", 1), (f"k{FIT_K}", FIT_K)):
+        tr = trainer(tag, k)
+        # three epochs' batches: the prefetch threads stay busy through both windows
+        batches = itertools.chain.from_iterable(epoch_batches(e) for e in range(3))
+        waited = [0.0]
+        with contextlib.closing(tr._device_batches(batches, k)) as feed:
+            def step():
+                t = time.perf_counter()
+                batch = next(feed)
+                waited[0] += time.perf_counter() - t
+                tr.train_step(batch)
+
+            timing[tag] = time_steps(torch, step, card, f"{tag} timing", warm=2 * FIT_K)
+        wait = waited[0] / (2 * FIT_K + 2 * FIT_STEPS_TIMED) * 1e3
+        log(f"[fit {tag} timing] of a step, {wait:.4f} ms waiting for the feed")
+    tr = trainer("on_device", 1)
+    data, perm = tr._upload(train), tr._permutation(0, N_TRAIN)
+    at = itertools.count()
+    bs = tr.exp.train.batch_size
+
+    def resident_step():
+        i = next(at)
+        tr.train_step({k: v[perm[i * bs : (i + 1) * bs]] for k, v in data.items()})
+
+    timing["fit_on_device"] = time_steps(torch, resident_step, card, "fit_on_device timing",
+                                         warm=2 * FIT_K)
+    return timing
+
+
 def main() -> int:
     import torch
 
@@ -2059,6 +2529,14 @@ def main() -> int:
                     per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
                     per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()},
                     dense=mm)
+        # ---- phase 6f: host-driven training (Trainer.fit), predict --stream's path ----
+        host_driven(torch, train, valid, train_store, root, card, dense=mm,
+                    serve={"pred": pred, "rows": rows, "bulk": bulk}, counted=counted,
+                    per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
+                    per_eval={interaction_fwd: ifwd},
+                    sasrec_per_step={interaction_fwd: ifwd, interaction_bwd: ibwd,
+                                     encode_fwd: enc_fwd, encode_bwd: enc_bwd},
+                    sasrec_per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd})
     train_fwd, train_bwd = mm["launches"][interaction_fwd], mm["launches"][interaction_bwd]
     enc_bwd_launches = sasrec["launches"][encode_bwd]
 

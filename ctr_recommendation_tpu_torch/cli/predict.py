@@ -10,7 +10,12 @@ JAX).
 
     python -m ctr_recommendation_tpu_torch.cli.predict --data-root DIR \\
         --checkpoint-dir CKPT [--model sasrec_fibinet] [--weights weights.npz] \\
-        [--device cuda]
+        [--stream] [--device cuda]
+
+``--stream`` reads the test split row group by row group
+(``stream_batches``, unshuffled: the parquet's row order), scores it batch
+by batch through ``Predictor.predict_all`` and writes the pair with
+``write_submission``.
 
 ``sasrec_fibinet`` serves from the port's own export (trained with
 ``cli/train.py --model sasrec_fibinet``) or from ``--weights``; its history
@@ -35,14 +40,13 @@ def main(argv=None) -> int:
     p.add_argument("--batch-size", type=int, default=8192)
     p.add_argument("--embedding-dim", type=int, default=None)
     p.add_argument("--stream", action="store_true",
-                   help="row-group streaming (not ported yet)")
+                   help="stream the test split from parquet row groups instead of the "
+                        "overlapped pipeline; scores batch by batch in row order")
     p.add_argument("--weights", default=None,
                    help=".npz of params/model_state written by tools/jax_bridge.save "
                         "(default: <checkpoint-dir>/best/export.npz)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.stream:
-        p.error("--stream is not ported yet; the default pipeline path is")
     weights = args.weights or os.path.join(args.checkpoint_dir, "best", "export.npz")
     if not os.path.exists(weights):
         p.error(f"no weights at {weights}: train with the port's train CLI, or convert a "
@@ -54,7 +58,11 @@ def main(argv=None) -> int:
     from ctr_recommendation_tpu_torch.config.schema import MeshConfig
     from ctr_recommendation_tpu_torch.data import ItemStore
     from ctr_recommendation_tpu_torch.features import build_feature_map
-    from ctr_recommendation_tpu_torch.inference import Predictor, run_submission_pipeline
+    from ctr_recommendation_tpu_torch.inference import (
+        Predictor,
+        run_submission_pipeline,
+        write_submission,
+    )
     from ctr_recommendation_tpu_torch.tools import jax_bridge
 
     exp_json = os.path.join(args.checkpoint_dir, "experiment.json")
@@ -94,11 +102,21 @@ def main(argv=None) -> int:
 
     params, state = jax_bridge.params_from_jax(*jax_bridge.load(weights), fm, exp.model)
     pred = Predictor(exp, params, state, item_store=store, device=args.device)
-    written, csv_path, zip_path = run_submission_pipeline(
-        exp.dataset.test_data, pred, args.out_dir, batch_size=args.batch_size
-    )
-    if written != n_rows:
-        raise RuntimeError(f"wrote {written} rows, the test split has {n_rows}")
+    if args.stream:
+        # one "host", unshuffled: the submission's rows in the parquet's order
+        from ctr_recommendation_tpu_torch.data.streaming import stream_batches
+
+        probs = pred.predict_all(stream_batches(
+            exp.dataset.test_data, fm, args.batch_size, include_label=False))
+        if len(probs) != n_rows:
+            raise RuntimeError(f"scored {len(probs)} rows, the test split has {n_rows}")
+        csv_path, zip_path = write_submission(probs, args.out_dir)
+    else:
+        written, csv_path, zip_path = run_submission_pipeline(
+            exp.dataset.test_data, pred, args.out_dir, batch_size=args.batch_size
+        )
+        if written != n_rows:
+            raise RuntimeError(f"wrote {written} rows, the test split has {n_rows}")
     print(f"[out] {csv_path}\n[out] {zip_path}")
     return 0
 

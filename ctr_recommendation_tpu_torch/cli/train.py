@@ -3,10 +3,15 @@
     python -m ctr_recommendation_tpu_torch.cli.train --data-root DIR [--device cuda]
     python -m ctr_recommendation_tpu_torch.cli.train --synthetic /tmp/synth --device cpu
 
-Loads the train and valid splits, keeps them resident on the device and runs
-``Trainer.fit_on_device`` (per-epoch AUC, best export to
-``<checkpoint-dir>/best/export.npz``, resume points). The flags of the JAX
-CLI whose paths are not ported yet exit 2 naming their ROADMAP.md item.
+Loads the valid split and the item store, then trains with per-epoch AUC,
+the best export to ``<checkpoint-dir>/best/export.npz`` and resume points:
+by default with the train split resident on the device
+(``Trainer.fit_on_device``); with ``--stream`` (the train split read row
+group by row group, ``stream_batches``) or ``--strict-items`` (the item join
+on the host, raising on an item_id missing from item_info) host-driven
+(``Trainer.fit``, ``--steps-per-dispatch`` batches an upload). The flags of
+the JAX CLI whose paths are not ported yet exit 2 naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -53,11 +58,18 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="run the interaction block and the SASRec encoder on plain PyTorch "
                         "ops, not the kernels")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--strict-items", action="store_true",
+                   help="raise on item_ids missing from item_info (the reference's train "
+                        "semantics); the item join runs on the host")
+    p.add_argument("--stream", action="store_true",
+                   help="stream the train split from parquet row groups instead of "
+                        "loading it (for splits larger than memory)")
+    p.add_argument("--steps-per-dispatch", type=int, default=None,
+                   help="host-driven runs (--stream / --strict-items) upload this many "
+                        "batches at a time; 1 = one upload a batch")
     # accepted so that they fail with a message, not an argparse error
     p.add_argument("--model-parallel", type=int, default=1)
-    p.add_argument("--strict-items", action="store_true")
     p.add_argument("--profile-dir", default=None)
-    p.add_argument("--stream", action="store_true")
     return p
 
 
@@ -65,11 +77,8 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     # flags whose code paths wait for a later slice, with their ROADMAP.md item by title
     refused = [msg for on, msg in (
-        (args.stream, "--stream (queue 1: streaming and chunked training)"),
         (args.model_parallel > 1, "--model-parallel > 1 (queue 1: parallel)"),
         (args.profile_dir, "--profile-dir (queue 1: the rest, profiling)"),
-        (args.strict_items,
-         "--strict-items (the host-join train path; queue 1: streaming and chunked training)"),
     ) if on]
     if refused:
         print("not ported yet (ROADMAP.md): " + "; ".join(refused), file=sys.stderr)
@@ -81,7 +90,7 @@ def main(argv=None) -> int:
     overrides = {}
     for k in ("epochs", "batch_size", "embedding_dim", "embedding_init_std",
               "learning_rate", "optimizer", "table_optimizer", "table_lr_scale",
-              "checkpoint_dir", "checkpoint_every"):
+              "checkpoint_dir", "checkpoint_every", "steps_per_dispatch"):
         v = getattr(args, k)
         if v is not None:
             overrides[k] = v
@@ -126,12 +135,22 @@ def main(argv=None) -> int:
         exp = microlens_experiment(
             data_root=args.data_root, model=args.model or "mm_fibinet", **overrides
         )
-    return run_training(exp, resume=args.resume, device=args.device)
+    return run_training(exp, resume=args.resume, strict_items=args.strict_items,
+                        stream=args.stream, device=args.device)
 
 
-def run_training(exp, *, resume: bool = False, device: str = "cuda") -> int:
-    """Load the splits and the item store, then ``fit_on_device``."""
-    from ctr_recommendation_tpu_torch.data import ItemStore, load_split
+def run_training(exp, *, resume: bool = False, strict_items: bool = False,
+                 stream: bool = False, device: str = "cuda") -> int:
+    """Load the valid split and the item store, then train: ``fit_on_device``
+    unless ``stream`` or ``strict_items``, else ``fit`` over this epoch's
+    ``stream_batches`` / ``iter_batches`` (drop_last), cut to the step
+    count. Under ``strict_items`` the batches carry the dense item column
+    joined on the host (an unknown item_id raises), and the trainer holds
+    no item store."""
+    import itertools
+
+    from ctr_recommendation_tpu_torch.data import ItemStore, iter_batches, load_split
+    from ctr_recommendation_tpu_torch.data.streaming import common_step_count, stream_batches
     from ctr_recommendation_tpu_torch.features import build_feature_map
     from ctr_recommendation_tpu_torch.models.registry import get_model
     from ctr_recommendation_tpu_torch.training import Trainer
@@ -139,21 +158,52 @@ def run_training(exp, *, resume: bool = False, device: str = "cuda") -> int:
     get_model(exp.model.model)  # fail fast on an unknown model, before data load
     fm = build_feature_map(exp.dataset)
     print(f"[data] loading {exp.dataset.train_data}")
-    train = load_split(exp.dataset.train_data, fm)
     valid = load_split(exp.dataset.valid_data, fm)
     store = ItemStore.from_parquet(
         exp.dataset.item_info,
         id_col=exp.dataset.item_info_key,
         emb_col=exp.dataset.item_info_emb_col,
     )
-    print(f"[data] train {train.num_rows} rows, valid {valid.num_rows} rows")
-    steps = train.num_rows // exp.train.batch_size
+    bs = exp.train.batch_size
+    if stream:
+        import pyarrow.parquet as pq
+
+        train_rows = pq.ParquetFile(exp.dataset.train_data).metadata.num_rows
+        train = None
+        steps = common_step_count(exp.dataset.train_data, bs)
+    else:
+        train = load_split(exp.dataset.train_data, fm)
+        train_rows = train.num_rows
+        steps = train_rows // bs
+    print(f"[data] train {train_rows} rows, valid {valid.num_rows} rows")
     if steps < 1:
-        print(f"batch size {exp.train.batch_size} exceeds the train split "
-              f"({train.num_rows} rows); lower --batch-size", file=sys.stderr)
+        print(f"batch size {bs} exceeds the train split ({train_rows} rows); "
+              "lower --batch-size", file=sys.stderr)
         return 2
-    trainer = Trainer(exp, steps_per_epoch=steps, item_store=store, device=device)
-    trainer.fit_on_device(train, valid, resume=resume)
+    # the item join runs on the device unless strict mode needs the host's check
+    host_store = store if strict_items else None
+    trainer = Trainer(exp, steps_per_epoch=steps, device=device,
+                      item_store=None if strict_items else store)
+    if not (stream or strict_items):
+        trainer.fit_on_device(train, valid, resume=resume)
+        return 0
+
+    def train_batches(epoch):
+        if stream:
+            it = stream_batches(
+                exp.dataset.train_data, fm, bs, shuffle=exp.train.shuffle,
+                seed=exp.train.seed, epoch=epoch, item_store=host_store, drop_last=True,
+                strict_items=strict_items)
+        else:
+            it = iter_batches(
+                train, fm, bs, shuffle=exp.train.shuffle, seed=exp.train.seed, epoch=epoch,
+                item_store=host_store, drop_last=True, strict_items=strict_items)
+        return itertools.islice(it, steps)
+
+    def valid_batches():
+        return iter_batches(valid, fm, exp.train.eval_batch_size, item_store=host_store)
+
+    trainer.fit(train_batches, valid_batches, resume=resume)
     return 0
 
 

@@ -1,12 +1,14 @@
-"""The parts of the JAX package's data/parquet.py that the port uses: the
-columnar split container, the list-column padding of the pipeline's decode
-and ``load_split``. ``pyarrow`` is imported only by the functions that read
-arrow data.
+"""The JAX package's data/parquet.py on the port: the columnar split
+container (with per-host ``shard`` and ``take``), the list-column padding of
+the pipeline's decode, ``load_split`` and ``iter_batches``, the host-side
+batch assembly of ``Trainer.fit``. ``pyarrow`` is imported only by the
+functions that read arrow data.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
@@ -20,6 +22,17 @@ class TableData:
 
     columns: dict[str, np.ndarray]
     num_rows: int
+
+    def shard(self, index: int, count: int) -> "TableData":
+        """Every ``count``-th row from ``index``: one host's disjoint share."""
+        if count <= 1:
+            return self
+        cols = {k: v[index::count] for k, v in self.columns.items()}
+        n = len(next(iter(cols.values()))) if cols else 0
+        return TableData(cols, n)
+
+    def take(self, idx: np.ndarray) -> dict[str, np.ndarray]:
+        return {k: v[idx] for k, v in self.columns.items()}
 
 
 def pad_from_offsets(
@@ -95,3 +108,67 @@ def load_split(
             arr = arr.astype(np.int32 if np.issubdtype(arr.dtype, np.integer) else np.float32)
             cols[name] = arr
     return TableData(cols, table.num_rows)
+
+
+def batch_rows(order: np.ndarray, start: int, batch_size: int, *, drop_last: bool,
+               pad_final: bool = True) -> tuple[np.ndarray, np.ndarray] | None:
+    """(row indices, ``__weight__``) of the batch at ``start`` of ``order``;
+    a short last batch is None under ``drop_last``, else padded at weight 0
+    with the row at index 0 (``pad_final``) or left short."""
+    idx = order[start : start + batch_size]
+    if len(idx) < batch_size:
+        if drop_last:
+            return None
+        if pad_final:
+            pad = np.zeros(batch_size - len(idx), dtype=idx.dtype)
+            weight = np.concatenate(
+                [np.ones(len(idx), np.float32), np.zeros(len(pad), np.float32)])
+            return np.concatenate([idx, pad]), weight
+    return idx, np.ones(len(idx), np.float32)
+
+
+def host_join(batch: dict[str, np.ndarray], join_plan, item_store, strict: bool) -> dict:
+    """The item join on the host: each dense feature of ``join_plan``
+    looked up by its id column (``ItemStore.lookup``: zeros for unknown ids,
+    a KeyError for them under ``strict``)."""
+    for dense_name, id_key in join_plan:
+        batch[dense_name] = item_store.lookup(batch[id_key], strict=strict)
+    return batch
+
+
+def iter_batches(
+    data: TableData,
+    feature_map: FeatureMap,
+    batch_size: int,
+    *,
+    shuffle: bool = False,
+    seed: int = 0,
+    epoch: int = 0,
+    drop_last: bool = False,
+    pad_final: bool = True,
+    item_store=None,
+    strict_items: bool = False,
+) -> Iterator[dict[str, np.ndarray]]:
+    """Yield fixed-shape batch dicts (+ a ``__weight__`` validity mask).
+
+    Shuffling is a seeded full permutation per (seed, epoch). A short last
+    batch is dropped (``drop_last``), padded with weight-0 rows
+    (``pad_final``) or yielded short. With an ``item_store`` the dense item
+    features are joined on the host, each on the categorical sharing its
+    source tag (``dense_join_plan``, the device join's rule)."""
+    from ctr_recommendation_tpu_torch.data.device_store import dense_join_plan
+
+    n = data.num_rows
+    if shuffle:
+        order = np.random.default_rng(np.random.SeedSequence([seed, epoch])).permutation(n)
+    else:
+        order = np.arange(n)
+    join_plan = dense_join_plan(feature_map) if item_store is not None else []
+    for start in range(0, n, batch_size):
+        rows = batch_rows(order, start, batch_size, drop_last=drop_last, pad_final=pad_final)
+        if rows is None:
+            return
+        idx, weight = rows
+        batch = host_join(data.take(idx), join_plan, item_store, strict_items)
+        batch["__weight__"] = weight
+        yield batch

@@ -80,18 +80,58 @@ def _layer_norm(x, scale, bias):
 def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` with the JAX package's index semantics: negative ids
     count from the end, then out-of-range ids are clamped (never a device
-    fault). ``F.embedding`` rather than indexing: its backward sums the rows
-    of repeated ids by sorting them, where the indexing backward on CUDA
-    walks each id's repeats serially, and the pad id repeats tens of
+    fault) and, as the transpose of JAX's gather drops them, contribute no
+    gradient. The backward is ``F.embedding``'s, not indexing's: it sums the
+    rows of repeated ids by sorting them, where the indexing backward on
+    CUDA walks each id's repeats serially, and the pad id repeats tens of
     thousands of times in a batch of histories."""
-    return torch.nn.functional.embedding(table_rows(ids, table.shape[0]), table)
+    return TableLookup.apply(table, ids)[0]
 
 
 def table_rows(ids: torch.Tensor, n: int) -> torch.Tensor:
     """The rows of an ``n``-row table that ``ids`` read: int64, negative ids
     counted from the end, then clamped into range."""
+    return _wrap(ids, n)[1]
+
+
+def _wrap(ids: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(``ids`` as int64 with negative ids counted from the end, the rows
+    they read: those clamped into range)."""
     ids = ids.to(torch.int64)
-    return torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+    wrapped = torch.where(ids < 0, ids + n, ids)
+    return wrapped, wrapped.clamp(0, n - 1)
+
+
+class TableLookup(torch.autograd.Function):
+    """Gathers of one table by one or more id tensors; their backward is ONE
+    sorted embedding backward over the concatenated ids and cotangents,
+    into a table with one extra row that takes the out-of-range ids'
+    cotangents and is cut off."""
+
+    @staticmethod
+    def forward(ctx, table, *ids):
+        n = table.shape[0]
+        outs, grad_rows = [], []
+        for i in ids:
+            wrapped, rows = _wrap(i, n)
+            outs.append(torch.nn.functional.embedding(rows, table))
+            if ctx.needs_input_grad[0]:
+                # where the cotangents land: an id still out of range after
+                # the wrap lands in row n, past the table
+                grad_rows.append(rows.masked_fill(rows != wrapped, n))
+        ctx.save_for_backward(*grad_rows)
+        ctx.num_rows = n
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        ids = ctx.saved_tensors
+        e = cots[0].shape[-1]
+        flat_ids = torch.cat([i.reshape(-1) for i in ids])
+        flat_cot = torch.cat([c.reshape(-1, e) for c in cots])
+        dtable = torch.ops.aten.embedding_dense_backward(
+            flat_cot, flat_ids, ctx.num_rows + 1, -1, False)
+        return (dtable[: ctx.num_rows],) + (None,) * len(ids)
 
 
 def _default_lookup(tables, name, ids, feature=None, batch_dim=0):

@@ -15,24 +15,39 @@ table read by two or more features (the item table: ``item_id`` and
 ``item_seq``) is looked up through ``multi_feature_lookup``, one merged
 backward for all its features.
 
-The split stays resident on the device; each epoch is a seeded permutation
-(or ``arange`` without shuffling) cut into ``batch_size`` batches, and each
-batch runs the device join, hashing, ``apply(train=True)``, BCE, backward
-and the optimizer, eagerly. Losses accumulate on the device: the host reads
-one value per epoch. Dropout draws from a generator reseeded from
-``(seed + 1, step)`` at every step, as the JAX package folds the step into
-its rng, so a resumed run draws the same masks.
+Two training loops share the step, the eval and the epoch's end (resume, the
+best export, resume points, ``metrics.csv``):
 
-Not ported yet: ``fit`` (streaming/chunked), multi-device meshes,
-profiling and TensorBoard mirroring (ROADMAP.md).
+* ``fit_on_device``: the split stays resident on the device; each epoch is
+  a seeded permutation (or ``arange`` without shuffling) cut into
+  ``batch_size`` batches.
+* ``fit``: host-driven, over an iterator of numpy batches per epoch
+  (``iter_batches``, ``stream_batches``; with the host item join of
+  ``--strict-items`` they carry the dense item column). A prefetch thread
+  uploads them, ``steps_per_dispatch`` batches at a time: stacked, each
+  column at its narrowest safe wire dtype (``put_chunk``), staged in pinned
+  memory and copied on the trainer's side stream; the step's stream waits
+  on the copy's event, the chunk is widened on the device and its slices
+  take one step each.
+
+Each batch runs the device join, hashing, ``apply(train=True)``, BCE,
+backward and the optimizer, eagerly. Losses accumulate on the device: the
+host reads them at ``log_every`` and once per epoch. Dropout draws from a
+generator reseeded from ``(seed + 1, step)`` at every step, as the JAX
+package folds the step into its rng, so a resumed run draws the same masks.
+
+Not ported yet: multi-device meshes, profiling and TensorBoard mirroring
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import os
 import time
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -45,6 +60,7 @@ from ctr_recommendation_tpu_torch.data.device_store import (
     dense_join_plan,
     device_join,
 )
+from ctr_recommendation_tpu_torch.data.prefetch import prefetch
 from ctr_recommendation_tpu_torch.features.feature_map import build_feature_map
 from ctr_recommendation_tpu_torch.features.hashing import apply_hashing, hash_plan
 from ctr_recommendation_tpu_torch.models.registry import get_model
@@ -90,6 +106,15 @@ class StepAux:
     # gathered table's row buffer as "rows/<table>"
     targets: dict[str, torch.Tensor]
     uids: dict[str, torch.Tensor]  # gathered table -> its batch's unique ids
+
+
+@dataclasses.dataclass
+class Upload:
+    """Device tensors of a batch or a chunk whose copies may still run on
+    the trainer's side stream until ``done`` (None: already usable)."""
+
+    tensors: dict[str, torch.Tensor]
+    done: torch.cuda.Event | None = None
 
 
 class Trainer:
@@ -170,6 +195,10 @@ class Trainer:
             self.tx.init([self.param_paths[p] for p in self._chain_paths]), table_opt_state)
         self._dropout_gen = torch.Generator(device=self.device)
         self.history: list[dict[str, float]] = []
+        # fit's uploads: the wire dtypes, decided on the first chunk
+        # (put_chunk), and the side stream the copies run on
+        self._wire_plan: dict | None = None
+        self._h2d_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     def _to_device(self, t) -> torch.Tensor:
         return torch.as_tensor(t).detach().to(self.device, torch.float32, copy=True)
@@ -391,6 +420,67 @@ class Trainer:
         gen = torch.Generator().manual_seed(_seed(self.exp.train.seed + 2, epoch))
         return torch.randperm(n, generator=gen).to(self.device)
 
+    def _resume(self, resume: bool) -> tuple[float, int]:
+        """(best metric so far, first epoch to run): with ``resume``, the
+        latest resume point restored, the best-tracker and the history of
+        earlier epochs reloaded."""
+        tc = self.exp.train
+        best = -np.inf if tc.monitor_mode == "max" else np.inf
+        start_epoch = 0
+        if resume:
+            latest = self.ckpt.latest_step()
+            if latest is not None:
+                self._restore(self.ckpt.restore(latest))
+                start_epoch = latest
+                self.log(f"[resume] epoch {start_epoch} step {self.state.step}")
+            best = self._seed_best(best)
+            self._seed_history(start_epoch)
+        return best, start_epoch
+
+    def _close_epoch(self, epoch: int, train_loss: float, rows: int, dt: float,
+                     evaluate: Callable[[], dict] | None, best: float) -> float:
+        """The end of an epoch, shared by both training loops: the non-finite-loss
+        check, the eval, the best export on improvement, the resume point
+        every ``checkpoint_every`` epochs and at the last, the log line and
+        the history row (``metrics.csv``). Returns the best metric."""
+        tc = self.exp.train
+        if not np.isfinite(train_loss):
+            raise FloatingPointError(
+                f"non-finite train loss at epoch {epoch + 1}: {train_loss} "
+                "(torch.autograd.set_detect_anomaly localizes it)"
+            )
+        entry: dict[str, float] = {
+            "epoch": epoch + 1,
+            "train_loss": train_loss,
+            "examples_per_sec": rows / dt if dt > 0 else 0.0,
+            "seconds": dt,
+        }
+        if evaluate is not None:
+            t_eval = time.perf_counter()
+            entry.update(evaluate())
+            entry["eval_seconds"] = time.perf_counter() - t_eval
+            metric = entry[tc.monitor]
+            if metric > best if tc.monitor_mode == "max" else metric < best:
+                best = metric
+                self.ckpt.save_best(
+                    self.state.params, self.state.model_state, metric, self.state.step
+                )
+                self.log(f"[epoch {epoch + 1}] new best {tc.monitor}={metric:.4f} — exported")
+        t_save = time.perf_counter()
+        if (epoch + 1) % tc.checkpoint_every == 0 or epoch + 1 == tc.epochs:
+            self.ckpt.save(epoch + 1, self.state)
+            entry["checkpoint_seconds"] = time.perf_counter() - t_save
+        else:
+            entry["checkpoint_seconds"] = 0.0  # every row keeps one schema
+        self.log(
+            f"[epoch {epoch + 1}] loss {train_loss:.4f} "
+            + " ".join(f"{k} {v:.4f}" for k, v in entry.items() if k in ("auc", "logloss"))
+            + f" ({rows}/{dt:.2f}s = {entry['examples_per_sec']:.0f} ex/s)"
+        )
+        self.history.append(entry)
+        self._write_history_csv()
+        return best
+
     def fit_on_device(self, train, valid=None, *, resume: bool = False) -> list[dict[str, float]]:
         """Train with the whole split resident on the device: each epoch is
         one shuffled pass of ``train.num_rows // batch_size`` full batches
@@ -403,19 +493,11 @@ class Trainer:
         if steps == 0:
             raise ValueError(f"batch_size {bs} > split rows {n}")
         data = self._upload(train)
-        valid_data = None if valid is None else self._prepare_eval_split(valid, tc.eval_batch_size)
-
-        best = -np.inf if tc.monitor_mode == "max" else np.inf
-        start_epoch = 0
-        if resume:
-            latest = self.ckpt.latest_step()
-            if latest is not None:
-                self._restore(self.ckpt.restore(latest))
-                start_epoch = latest
-                self.log(f"[resume] epoch {start_epoch} step {self.state.step}")
-            best = self._seed_best(best)
-            self._seed_history(start_epoch)
-
+        evaluate = None
+        if valid is not None:
+            prepared = self._prepare_eval_split(valid, tc.eval_batch_size)
+            evaluate = lambda: self._evaluate_prepared(prepared)  # noqa: E731
+        best, start_epoch = self._resume(resume)
         run_start = len(self.history)
         for epoch in range(start_epoch, tc.epochs):
             t0 = time.perf_counter()
@@ -425,43 +507,200 @@ class Trainer:
                 idx = perm[i * bs : (i + 1) * bs]
                 losses[i] = self.train_step({k: v[idx] for k, v in data.items()})
             train_loss = float(losses.mean())  # the epoch's one host read
-            if not np.isfinite(train_loss):
-                raise FloatingPointError(
-                    f"non-finite train loss at epoch {epoch + 1}: {train_loss} "
-                    "(torch.autograd.set_detect_anomaly localizes it)"
-                )
-            dt = time.perf_counter() - t0
-            rows = steps * bs
-            entry: dict[str, float] = {
-                "epoch": epoch + 1,
-                "train_loss": train_loss,
-                "examples_per_sec": rows / dt if dt > 0 else 0.0,
-                "seconds": dt,
-            }
-            if valid_data is not None:
-                t_eval = time.perf_counter()
-                entry.update(self._evaluate_prepared(valid_data))
-                entry["eval_seconds"] = time.perf_counter() - t_eval
-                metric = entry[tc.monitor]
-                if metric > best if tc.monitor_mode == "max" else metric < best:
-                    best = metric
-                    self.ckpt.save_best(
-                        self.state.params, self.state.model_state, metric, self.state.step
-                    )
-                    self.log(f"[epoch {epoch + 1}] new best {tc.monitor}={metric:.4f} — exported")
-            t_save = time.perf_counter()
-            if (epoch + 1) % tc.checkpoint_every == 0 or epoch + 1 == tc.epochs:
-                self.ckpt.save(epoch + 1, self.state)
-                entry["checkpoint_seconds"] = time.perf_counter() - t_save
+            best = self._close_epoch(epoch, train_loss, steps * bs,
+                                     time.perf_counter() - t0, evaluate, best)
+        self.log(f"Done. Best {tc.monitor}: {best:.4f}")
+        return self.history[run_start:]
+
+    # ------------------------------------------------- host-driven training
+    def _wire_dtype(self, key: str, first: np.ndarray):
+        """Narrowest safe wire encoding of a streamed column, decided once
+        on the first chunk: a numpy dtype, ``"split24"`` (a uint16 low half
+        and a uint8 high byte, 3 B an element) or None (as it is). Binary
+        labels and weights ride as uint8, ids of a vocab up to 2^8 / 2^16 as
+        uint8 / uint16, up to 2^24 as split24 (item_id and item_seq at
+        MicroLens scale, vocab 91718); hashed or negative ids and soft
+        labels are never narrowed. The step widens them on the device."""
+        if key in (self.fm.label, "__weight__"):
+            # only exactly-representable {0..255} integral values
+            if first.dtype == np.float32 and np.all(first == first.astype(np.uint8)):
+                return np.dtype(np.uint8)
+            return None
+        for f in self.fm.features:
+            if f.name != key or f.type not in _ID_TYPES:
+                continue
+            t = self.fm.table(self.fm.table_of[f.name])
+            if t.hashed or first.min() < 0:
+                return None  # raw ids until the on-device hashing
+            if t.vocab_size <= 1 << 8:
+                return np.dtype(np.uint8)
+            if t.vocab_size <= 1 << 16:
+                return np.dtype(np.uint16)
+            if t.vocab_size <= 1 << 24:
+                return "split24"
+        return None
+
+    def put_batch(self, batch: dict[str, np.ndarray]) -> Upload:
+        """Numpy columns to the device, each at its own dtype. On the card:
+        staged in pinned memory and copied ``non_blocking`` on the trainer's
+        side stream, with an event that ``_ready`` makes the step's stream
+        wait on."""
+        if self._h2d_stream is None:
+            return Upload({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()})
+        with torch.cuda.stream(self._h2d_stream):
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                   .to(self.device, non_blocking=True) for k, v in batch.items()}
+            done = torch.cuda.Event()
+            done.record(self._h2d_stream)
+        return Upload(out, done)
+
+    def _ready(self, up: Upload) -> dict[str, torch.Tensor]:
+        """An upload's tensors, usable on the current stream: it waits for
+        the copies, and owns the tensors for the caching allocator (which
+        would otherwise reuse their memory once the side stream is done)."""
+        if up.done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(up.done)
+            for t in up.tensors.values():
+                t.record_stream(stream)
+        return up.tensors
+
+    def put_chunk(self, buf: list[dict[str, np.ndarray]]) -> Upload:
+        """K same-shape numpy batches stacked to (K, B, ...) and uploaded,
+        each column at its wire dtype (``_wire_dtype``): uint8 as such, a
+        uint16 column as the int16 of its bits under ``<name>__u16``, a
+        split24 column as ``<name>__lo16`` (int16 bits) and ``<name>__hi8``
+        (uint8); ``_widen`` undoes each on the device. PLACEHOLDER columns
+        (zero fields that read no column) stay off the wire. A column that
+        outgrows its plan (an id of 2^24 or more, soft labels) widens to its
+        own dtype for the rest of the stream."""
+        dead = {f.name for f in self.fm.features if f.type == FeatureType.PLACEHOLDER}
+        stacked = {k: np.stack([b[k] for b in buf]) for k in buf[0] if k not in dead}
+        if self._wire_plan is None:
+            self._wire_plan = {k: dt for k, v in stacked.items()
+                               if (dt := self._wire_dtype(k, v)) is not None}
+        for k, dt in list(self._wire_plan.items()):
+            v = stacked[k]
+            if dt == "split24":
+                if v.min() < 0 or (v >> 24).any():
+                    self._wire_plan.pop(k)
+                    self.log(f"[stream] column {k!r} no longer fits the 24-bit split wire "
+                             "encoding; widening to int32 for the remaining chunks")
+                    continue
+                del stacked[k]
+                stacked[k + "__lo16"] = (v & 0xFFFF).astype(np.uint16).view(np.int16)
+                stacked[k + "__hi8"] = (v >> 16).astype(np.uint8)
+                continue
+            w = v.astype(dt)
+            if v.dtype != dt and not np.array_equal(w, v):
+                self._wire_plan.pop(k)
+                self.log(f"[stream] column {k!r} no longer fits wire dtype {dt}; widening "
+                         f"to {v.dtype} for the remaining chunks")
+                continue
+            if dt == np.uint16:  # torch's uint16 is a limited dtype: ship its bits
+                del stacked[k]
+                stacked[k + "__u16"] = w.view(np.int16)
             else:
-                entry["checkpoint_seconds"] = 0.0  # every row keeps one schema
-            self.log(
-                f"[epoch {epoch + 1}] loss {train_loss:.4f} "
-                + " ".join(f"{k} {v:.4f}" for k, v in entry.items() if k in ("auc", "logloss"))
-                + f" ({rows}/{dt:.2f}s = {entry['examples_per_sec']:.0f} ex/s)"
-            )
-            self.history.append(entry)
-            self._write_history_csv()
+                stacked[k] = w
+        return self.put_batch(stacked)
+
+    def _widen(self, cols: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Undo ``put_chunk``'s wire narrowing on the device: uint8 labels
+        and weights to float32, uint8 ids to int32, the uint16 bits and the
+        split24 halves recombined into int32."""
+        def u16(t):
+            return t.to(torch.int32) & 0xFFFF
+
+        wide = {}
+        for k, v in cols.items():
+            if k.endswith("__hi8"):
+                continue  # taken with its __lo16 half
+            if k.endswith("__lo16"):
+                base = k[: -len("__lo16")]
+                wide[base] = u16(v) | (cols[base + "__hi8"].to(torch.int32) << 16)
+            elif k.endswith("__u16"):
+                wide[k[: -len("__u16")]] = u16(v)
+            elif v.dtype == torch.uint8:
+                wide[k] = v.to(torch.float32 if k in (self.fm.label, "__weight__")
+                               else torch.int32)
+            else:
+                wide[k] = v
+        return wide
+
+    @staticmethod
+    def _chunked(batches: Iterator[dict], k: int) -> Iterator[list[dict]]:
+        """Group consecutive same-structure batches into lists of up to k; a
+        batch whose keys, shapes or dtypes differ from the open chunk's
+        flushes it (stacking needs uniformity)."""
+        buf: list[dict] = []
+
+        def sig(b):
+            return tuple(sorted((key, v.shape, v.dtype) for key, v in b.items()))
+
+        for b in batches:
+            if buf and (len(buf) == k or sig(b) != sig(buf[0])):
+                yield buf
+                buf = []
+            buf.append(b)
+        if buf:
+            yield buf
+
+    def _device_batches(self, batches: Iterator[dict], k: int) -> Iterator[dict]:
+        """One epoch's device batches, one a step. A prefetch thread uploads
+        them (``put_batch`` at k = 1); at k > 1 a second one assembles them
+        and the first uploads each chunk of k (``put_chunk``), which is made
+        ready, widened and cut into its k batches here."""
+        if k == 1:
+            feed = prefetch(iter(batches), transform=self.put_batch)
+        else:
+            feed = prefetch(self._chunked(prefetch(iter(batches), depth=2 * k), k),
+                            transform=self.put_chunk)
+        with contextlib.closing(feed):
+            for up in feed:
+                cols = self._ready(up)
+                if k == 1:
+                    yield cols
+                    continue
+                wide = self._widen(cols)
+                for i in range(len(next(iter(wide.values())))):
+                    yield {n: v[i] for n, v in wide.items()}
+
+    def fit(
+        self,
+        train_batches: Callable[[int], Iterator[dict]],
+        valid_batches: Callable[[], Iterator[dict]] | None = None,
+        *,
+        resume: bool = False,
+    ) -> list[dict[str, float]]:
+        """Host-driven training: ``train_batches(epoch)`` yields the epoch's
+        numpy batch dicts (with ``__weight__``), uploaded
+        ``steps_per_dispatch`` at a time (``_device_batches``);
+        ``valid_batches()`` those of the eval (``evaluate``). Resume, the
+        best export, resume points and the history are ``fit_on_device``'s."""
+        tc = self.exp.train
+        self._save_experiment()  # training owns the checkpoint's provenance
+        k = max(1, tc.steps_per_dispatch)
+        evaluate = None
+        if valid_batches is not None:
+            evaluate = lambda: self.evaluate(valid_batches())  # noqa: E731
+        best, start_epoch = self._resume(resume)
+        run_start = len(self.history)
+        for epoch in range(start_epoch, tc.epochs):
+            t0 = time.perf_counter()
+            loss_sum = torch.zeros((), device=self.device)
+            n_steps = rows = 0
+            with contextlib.closing(self._device_batches(train_batches(epoch), k)) as feed:
+                for batch in feed:
+                    loss = self.train_step(batch)
+                    loss_sum += loss  # on the device: no host read a step
+                    n_steps += 1
+                    rows += len(batch[self.fm.label])
+                    if n_steps % tc.log_every == 0:
+                        self.log(f"[epoch {epoch + 1}] step {n_steps} loss {float(loss):.4f} "
+                                 f"lr {self.schedule(self.state.step - 1):.6f}")
+            train_loss = float(loss_sum) / n_steps if n_steps else 0.0
+            best = self._close_epoch(epoch, train_loss, rows, time.perf_counter() - t0,
+                                     evaluate, best)
         self.log(f"Done. Best {tc.monitor}: {best:.4f}")
         return self.history[run_start:]
 
@@ -482,17 +721,23 @@ class Trainer:
                 "batch_size": batch_size, "num_batches": num_batches}
 
     @torch.inference_mode()
+    def _eval_probs(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Eval-mode probabilities of one batch of device columns."""
+        feats = {k: v for k, v in batch.items() if k not in (self.fm.label, "__weight__")}
+        logits, _ = self.module.apply(
+            self.state.params, self.state.model_state, self.fm, self.exp.model,
+            self._device_join(feats), train=False, compute_dtype=self.compute_dtype,
+        )
+        return torch.sigmoid(logits)
+
+    @torch.inference_mode()
     def _predict_prepared(self, prepared: dict) -> torch.Tensor:
         """Eval-mode probabilities of every (padded) row of a prepared split."""
         bs = prepared["batch_size"]
         probs = torch.empty(prepared["num_batches"] * bs, device=self.device)
         for i in range(prepared["num_batches"]):
             batch = {k: v[i * bs : (i + 1) * bs] for k, v in prepared["data"].items()}
-            logits, _ = self.module.apply(
-                self.state.params, self.state.model_state, self.fm, self.exp.model,
-                self._device_join(batch), train=False, compute_dtype=self.compute_dtype,
-            )
-            probs[i * bs : (i + 1) * bs] = torch.sigmoid(logits)
+            probs[i * bs : (i + 1) * bs] = self._eval_probs(batch)
         return probs
 
     def _metrics_from(self, labels, probs, weight) -> dict[str, float]:
@@ -517,3 +762,47 @@ class Trainer:
         """AUC/logloss over a TableData split, on the device."""
         prepared = self._prepare_eval_split(table, batch_size or self.exp.train.eval_batch_size)
         return self._evaluate_prepared(prepared)
+
+    def evaluate(self, batches: Iterator[dict]) -> dict[str, float]:
+        """AUC/logloss over an iterator of numpy batches (``__weight__`` 0
+        rows left out). Exact AUC concatenates every batch's probabilities on
+        the device; with ``num_eval_threshold_bins`` the histograms and the
+        weighted logloss sums accumulate per batch instead, in constant
+        memory."""
+        label = self.fm.label
+        nbins = self.exp.train.num_eval_threshold_bins
+        if not nbins:
+            probs_l, labels_l, w_l = [], [], []
+            for batch in batches:
+                b = self._ready(self.put_batch(batch))
+                probs = self._eval_probs(b)
+                probs_l.append(probs)
+                labels_l.append(b[label])
+                w_l.append(b.get("__weight__", torch.ones_like(probs)))
+            return self._metrics_from(torch.cat(labels_l), torch.cat(probs_l), torch.cat(w_l))
+        hp = torch.zeros(nbins, device=self.device)
+        hn = torch.zeros(nbins, device=self.device)
+        ll_sum = torch.zeros((), device=self.device)
+        w_sum = torch.zeros((), device=self.device)
+        for batch in batches:
+            b = self._ready(self.put_batch(batch))
+            probs = self._eval_probs(b)
+            weight = b.get("__weight__", torch.ones_like(probs))
+            hp, hn = metrics_lib.binned_auc_update(hp, hn, b[label], probs, weight,
+                                                   num_bins=nbins)
+            bw = weight.sum()
+            # logloss divides by max(sum(w), 1): undo it with the same clamp
+            ll_sum = ll_sum + metrics_lib.logloss(b[label], probs, weight) * bw.clamp(min=1.0)
+            w_sum = w_sum + bw
+        auc_v = metrics_lib.binned_auc_finalize(hp, hn)
+        return {"auc": float(auc_v), "logloss": float(ll_sum / w_sum.clamp(min=1.0))}
+
+    def predict(self, batches: Iterator[dict]) -> np.ndarray:
+        """Probabilities of the rows of numpy batches, pad rows
+        (``__weight__`` 0) dropped."""
+        out = []
+        for batch in batches:
+            probs = self._eval_probs(self._ready(self.put_batch(batch))).cpu().numpy()
+            w = np.asarray(batch.get("__weight__", np.ones(len(probs))))
+            out.append(probs[w > 0])
+        return np.concatenate(out) if out else np.zeros((0,), np.float32)

@@ -39,10 +39,9 @@ import dataclasses
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 
 from ctr_recommendation_tpu_torch.config.schema import FeatureType, TrainConfig
-from ctr_recommendation_tpu_torch.models.trunk import table_rows
+from ctr_recommendation_tpu_torch.models.trunk import TableLookup
 
 TABLE_OPTIMIZERS = ("adagrad", "rowwise_adagrad", "adam")
 
@@ -199,36 +198,15 @@ class TableOptimizer:
             table.sub_(lr * upd)
 
 
-class _MultiFeatureLookup(torch.autograd.Function):
-    """Per-feature gathers forward; one merged embedding backward."""
-
-    @staticmethod
-    def forward(ctx, table, *ids):
-        norm = [table_rows(i, table.shape[0]) for i in ids]
-        ctx.save_for_backward(*norm)
-        ctx.num_rows = table.shape[0]
-        return tuple(F.embedding(i, table) for i in norm)
-
-    @staticmethod
-    def backward(ctx, *cots):
-        ids = ctx.saved_tensors
-        e = cots[0].shape[-1]
-        flat_ids = torch.cat([i.reshape(-1) for i in ids])
-        flat_cot = torch.cat([c.reshape(-1, e) for c in cots])
-        dtable = torch.ops.aten.embedding_dense_backward(
-            flat_cot, flat_ids, ctx.num_rows, -1, False)
-        return (dtable,) + (None,) * len(ids)
-
-
 def multi_feature_lookup(table: torch.Tensor, *ids: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """Per-feature gathers from one table (the trunk's ``gather``: negative
-    ids count from the end, then clamp; the backward sums into the rows the
-    forward read) whose backward is ONE sort-based
-    embedding backward over the concatenated ids and cotangents (the sum
-    ``F.embedding``'s backward takes, not indexing's serial one), instead of
-    one per feature. Mean-pooled sequences pass their ids transposed (S, B),
-    as the trunk asks for them."""
-    return _MultiFeatureLookup.apply(table, *ids)
+    ids count from the end, then clamp; an id out of range after that adds
+    no gradient, as in JAX's ``.at[ids].add``) whose backward is ONE
+    sort-based embedding backward over the concatenated ids and cotangents
+    (the sum ``F.embedding``'s backward takes, not indexing's serial one),
+    instead of one per feature. Mean-pooled sequences pass their ids
+    transposed (S, B), as the trunk asks for them."""
+    return TableLookup.apply(table, *ids)
 
 
 # Per-table strategy: the gathered path's dedup sort and extra scatters only

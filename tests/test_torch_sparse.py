@@ -5,8 +5,10 @@ Seeded numpy inputs go through the JAX function and the port's:
 * the id plumbing (``dedup_ids``, ``dedup_ids_inverse``, ``gather_rows``,
   ``remap_batch``), negative ids and batch * seq > vocab included: exactly
   equal;
-* ``multi_feature_lookup``: the forward exactly equal, the merged backward
-  within 1e-6 (summation order);
+* ``multi_feature_lookup`` and the trunk's ``gather``: the forward exactly
+  equal, the (merged) backward within 1e-6 (summation order); ids out of
+  range after the negative wrap read the clamped row and add no gradient,
+  as in JAX;
 * ``TableOptimizer.update`` and ``update_dense``, each kind, weight decay 0
   and 1e-5, five updates: rtol 1e-5; untouched rows and their state bit for
   bit unchanged; ``make_table_optimizer``'s family default;
@@ -14,7 +16,8 @@ Seeded numpy inputs go through the JAX function and the port's:
   from bridged weights (fp32, dropout 0), each kind under each forced
   strategy, for mm_fibinet and sasrec_fibinet: loss, every parameter and
   every table state within rtol 1e-4 / atol 1e-5 of the leaf's largest
-  magnitude (at least 1);
+  magnitude (at least 1); the same for steps with ids past the tables'
+  rows, dense and under each strategy;
 * the slice as a whole: ``fit_on_device`` with rowwise_adagrad against the
   JAX one (per-epoch loss within 1e-3, AUC within 5e-3); resume equal to an
   uninterrupted sparse run; the train CLI with a sparse table optimizer.
@@ -38,6 +41,7 @@ from ctr_recommendation_tpu_torch.config import serialize as pt_serialize
 from ctr_recommendation_tpu_torch.config.schema import TrainConfig
 from ctr_recommendation_tpu_torch.data import ItemStore, TableData, synthetic_splits
 from ctr_recommendation_tpu_torch.features import build_feature_map as pt_build_fm
+from ctr_recommendation_tpu_torch.models import trunk
 from ctr_recommendation_tpu_torch.tools import jax_bridge
 from ctr_recommendation_tpu_torch.training import Trainer
 from ctr_recommendation_tpu_torch.training import sparse
@@ -111,6 +115,10 @@ def test_multi_feature_lookup_matches_jax():
     rng = np.random.default_rng(4)
     table = rng.standard_normal((40, 8)).astype(np.float32)
     ids = [_ids(rng, (24,), 40, True), _ids(rng, (6, 24), 40, True).T.copy()]
+    # ids out of range after the negative wrap: the forward reads the clamped
+    # row, the backward drops their cotangents (JAX's .at[ids].add)
+    ids[0][[3, 7]] = [40, -50]
+    ids[1][[5, 9], 2] = [41, 1 << 20]
     cots = [rng.standard_normal((*i.shape, 8)).astype(np.float32) for i in ids]
 
     def jax_loss(t):
@@ -126,6 +134,21 @@ def test_multi_feature_lookup_matches_jax():
     (g,) = torch.autograd.grad(loss, [t])
     np.testing.assert_allclose(g.numpy(), np.asarray(want_g), rtol=0, atol=1e-6)
     assert g[-1].abs().sum() > 0  # the -1 ids wrapped to the last row, both ways
+
+
+@pytest.mark.parametrize("ids", [[1, 9, 5], [1, 9, 5, -1, -9, -6, 6]])
+def test_gather_drops_out_of_range_gradients_as_jax(ids):
+    """A (6, 2) table: an id at or past row 6 (after -6..-1 wrap) reads the
+    clamped row and adds nothing to any row's gradient."""
+    table = np.arange(12, dtype=np.float32).reshape(6, 2)
+    want_out, vjp = jax.vjp(lambda t: t[jnp.asarray(ids)], jnp.asarray(table))
+    (want_g,) = vjp(jnp.ones_like(want_out))
+    t = torch.from_numpy(table).requires_grad_()
+    out = trunk.gather(t, torch.tensor(ids, dtype=torch.int32))
+    (g,) = torch.autograd.grad(out.sum(), [t])
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(want_out))
+    np.testing.assert_array_equal(g.numpy(), np.asarray(want_g))
+    assert g[5].tolist() == ([1.0, 1.0] if ids == [1, 9, 5] else [2.0, 2.0])
 
 
 # ------------------------------------------------------- the table updates
@@ -289,6 +312,32 @@ def test_sparse_train_step_matches_jax(tiny_experiment, tmp_path, monkeypatch, k
         for k, v in st.items():
             _close(v, want_t[t][k], f"{t}/{k}")
     assert pt.state.step == int(jt.state.step) == 2
+
+
+@pytest.mark.parametrize("table_opt, strategy", [
+    ("dense", None), ("adam", "gathered"), ("adam", "masked_dense")])
+def test_train_step_with_out_of_range_ids_matches_jax(tiny_experiment, tmp_path, monkeypatch,
+                                                      table_opt, strategy):
+    """Two steps whose item_id and item_seq hold ids past the item table's
+    256 rows: they read the last row and move no row, in both packages
+    (under the sparse strategies: a sentinel slot whose update is dropped)."""
+    if strategy is not None:
+        monkeypatch.setattr(jax_sparse, "GATHERED_MIN_VOCAB_RATIO", STRATEGIES[strategy])
+        monkeypatch.setattr(sparse, "GATHERED_MIN_VOCAB_RATIO", STRATEGIES[strategy])
+    exp = _sparse_exp(tiny_experiment, table_opt, checkpoint_dir=str(tmp_path / "jax"))
+    jt = JaxTrainer(exp, mesh=single_device_mesh(), total_steps=10, log_fn=lambda s: None)
+    pt = _port_trainer(exp, jt, tmp_path / "pt", total_steps=10)
+    rng = np.random.default_rng(6)
+    for _ in range(2):
+        batch = _labeled(rng)
+        batch["item_id"][[0, 5]] = [300, 1 << 20]
+        batch["item_seq"][[2, 7], [3, 1]] = [256, 5000]
+        jt.state, m = jt._train_step(jt.state, jt.put_batch(batch), jax.random.key(0))
+        loss = pt.train_step({k: torch.from_numpy(v) for k, v in batch.items()})
+        np.testing.assert_allclose(loss.item(), float(m["loss"]), rtol=1e-5)
+    want = jax_bridge.flatten(np_tree(jt.state.params))
+    for path, got in jax_bridge.flatten(pt.state.params).items():
+        _close(got.detach(), want[path], path)
 
 
 # ------------------------------------------------------------- the trainer

@@ -432,10 +432,8 @@ def test_train_then_predict_cli_on_the_ports_own_export(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--stream"], "queue 1: streaming and chunked training"),
     (["--model-parallel", "2"], "queue 1: parallel"),
     (["--profile-dir", "x"], "queue 1: the rest, profiling"),
-    (["--strict-items"], "queue 1: streaming and chunked training"),
 ])
 def test_train_cli_refuses_what_is_not_ported(flags, item, capsys):
     from ctr_recommendation_tpu_torch.cli.train import main as train_main
