@@ -169,11 +169,32 @@ Phases, in order; any failure exits non-zero and prints no result line.
    prefetch threads at 1 and 8 (with the time it waits for the feed), and
    of fit_on_device's loop; whether the side stream's host-to-device
    copies overlap the kernels in that trace.
+6g. The model zoo (din, xdeepfm, finalmlp, dcnv2, deepfm, autoint,
+   masknet, pnn, dlrm) at the full microlens_experiment() defaults (E=128,
+   hidden (512, 256), CIN (64, 64), FinalMLP streams (512, 256) x 2 with 8
+   heads, AutoInt 2 layers x 2 heads, MaskNet 4 blocks x 64, DIN (64, 32),
+   bf16, batch 4096) on phase 6's splits, each through phases 6-7 with no
+   kernel on its path: one fp32 step's loss (within 1e-5) and gradients
+   (within GRAD_TOL / GRAD_FLOOR) on the card against the same step on the
+   CPU (same seeded weights and batch, xdeepfm's zero CIN head set to
+   seeded values, TF32 off, net_dropout 0; the CPU replays the card's
+   ReLU and PReLU decisions, each one it would have taken otherwise lying
+   within GATE_MARGIN of 0), then
+   fit_on_device for 2 epochs (loss finite and falling, best valid AUC >
+   0.6, a resume point and the best export, 0 launches of every counted
+   kernel wrapper), the step split and profile, the export served through
+   evaluate (Predictor on the model's eval forward: served AUC within
+   AUC_SERVE_TOL of the trainer's, gAUC within GAUC_TOL of the CPU's, 0
+   launches), and score_table over phase 4's 385,024 rows (rows/s,
+   probabilities in [0, 1], 0 launches). A [zoo] summary line a model
+   beside mm_fibinet's phase 6 run: examples/s, best AUC, a step's wall,
+   device-busy ms and share, kernels a step, rows/s.
 8. One JSON line describing the five kernels, then the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -605,44 +626,140 @@ def check_backward(torch, got, want, dtype_name):
     return worst, worst_norm, bad
 
 
-def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str):
+# the zoo's card-vs-CPU step (phase 6g): the CPU replays the card's decision
+# at every ReLU and PReLU gate. A pre-activation within rounding of 0 can
+# fall on the two sides of a gate in the two runs, and the backward is
+# discontinuous there: a single such gate of DIN's activation unit, whose
+# weight gradients sum 81,920 rows, moves them past GRAD_TOL (the log's
+# "without the replay" gap, which is not held). A gate may differ only
+# where its input lies within GATE_MARGIN of 0, relative to the largest
+# |input| of its tensor (~100 fp32 ulps of the tensor's scale); a wrong
+# computation moves gates by far more.
+GATE_MARGIN = 1e-5
+
+
+def gate_replay(torch, gates=None):
+    """A torch function mode that records the decision of every ReLU
+    (``torch.relu``) and every gate ``torch.where(cond, a, b)`` on floating
+    ``a`` in one forward, in call order (``gates`` None), or replays such a
+    record (``gates``) on another device: ``flips`` counts the decisions the
+    replaying forward would have taken otherwise, ``margin`` is the largest
+    |input| / max|input| of its tensor among them."""
+    from torch.overrides import TorchFunctionMode
+
+    class GateReplay(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.replay = gates is not None
+            self.gates = gates if gates is not None else []
+            self.calls = self.flips = 0
+            self.margin = 0.0
+
+        def _decide(self, own, x):
+            if not self.replay:
+                self.gates.append(own)
+                return own
+            given = self.gates[self.calls].to(own.device)
+            self.calls += 1
+            differ = given != own
+            if bool(differ.any()):
+                self.flips += int(differ.sum())
+                mag = x.detach().abs()
+                self.margin = max(self.margin, float(mag[differ].max() / mag.max()))
+            return given
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is torch.relu:
+                x = args[0]
+                return torch.where(self._decide(x > 0, x), x, 0.0)
+            if (func is torch.where and len(args) == 3 and torch.is_tensor(args[1])
+                    and args[1].is_floating_point()):
+                return func(self._decide(args[0], args[1]), *args[1:], **kwargs)
+            return func(*args, **kwargs)
+
+    return GateReplay()
+
+
+def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str,
+                   against_cpu: bool = False):
     """One step's gradients (fp32, TF32 off) through the kernels against the
     plain path: same seeded weights, batch and dropout seed (the encoder's
     masks too: the kernels and the plain path draw them alike). ``kernels``
     maps each wrapper the step must launch to its launches a step. With
     sparse tables the gradients are the dense leaves', the masked-dense
-    tables' and the gathered tables' row buffers'. Returns the kernel path's
-    (trainer, batch, aux, gradients), its step not yet applied."""
+    tables' and the gathered tables' row buffers'. With ``against_cpu`` the
+    card's step is held against the same step on the CPU instead (the zoo,
+    whose path holds no kernel), with net_dropout 0, the CPU replaying the
+    card's gate decisions (``gate_replay``, GATE_MARGIN). Returns the first
+    path's (trainer, batch, aux, gradients), its step not yet applied,
+    and the worst |d| / max|g| over the gradients above 1e-3 of the
+    largest."""
     import dataclasses
 
     from ctr_recommendation_tpu_torch.training import Trainer
 
     bs = exp.train.batch_size
-    batch = {k: torch.as_tensor(v[:bs]).cuda() for k, v in train.columns.items()}
-    out = {}
-    for use_kernel in (True, False):
+    host_batch = {k: torch.as_tensor(v[:bs]) for k, v in train.columns.items()}
+    if against_cpu:
+        exp = exp.replace(model=dataclasses.replace(exp.model, net_dropout=0.0))
+        sides = (("card", "cuda", exp.model.use_pallas), ("CPU", "cpu", exp.model.use_pallas))
+    else:
+        sides = (("kernel", "cuda", True), ("plain", "cuda", False))
+    out = []
+    for i, (side, device, use_kernel) in enumerate(sides):
         e = exp.replace(
             model=dataclasses.replace(exp.model, use_pallas=use_kernel),
-            train=dataclasses.replace(exp.train, compute_dtype="float32", checkpoint_dir=os.path.join(
-                root, f"grad_{tag}_{int(use_kernel)}")),
+            train=dataclasses.replace(exp.train, compute_dtype="float32",
+                                      checkpoint_dir=os.path.join(root, f"grad_{tag}_{side}")),
         )
-        tr = Trainer(e, steps_per_epoch=N_TRAIN // bs, item_store=store,
+        tr = Trainer(e, steps_per_epoch=N_TRAIN // bs, item_store=store, device=device,
                      log_fn=lambda s: None)
+        if against_cpu and "cin" in tr.state.params:
+            # xdeepfm's CIN head starts at 0, which makes every filter's
+            # gradient 0 on both sides: seeded values, the same on both
+            gen = torch.Generator().manual_seed(17)
+            with torch.no_grad():
+                for v in tr.state.params["cin"]["out"].values():
+                    v.copy_(1e-3 * torch.randn(v.shape, generator=gen))
+        batch = {k: v.to(device) for k, v in host_batch.items()}
         for fn in kernels:
             fn.launches = 0
+        gates = (gate_replay(torch, None if i == 0 else gates.gates) if against_cpu
+                 else contextlib.nullcontext())
         with torch.enable_grad():
-            loss, aux = tr.forward_loss(batch)
-            out[use_kernel] = (loss.item(), tr.gradients(loss, aux), list(aux.targets))
-        if use_kernel:
-            kernel_step = (tr, batch, aux, out[True][1])
+            with gates:
+                loss, aux = tr.forward_loss(batch)
+            out.append((loss.item(), tr.gradients(loss, aux), list(aux.targets)))
+        if i == 0:
+            first = (tr, batch, aux, out[0][1])
         torch.cuda.synchronize()
         launched = tuple(fn.launches for fn in kernels)
-        if launched != (tuple(kernels.values()) if use_kernel else (0,) * len(kernels)):
-            raise SystemExit(f"{tag} gradient check, use_pallas={use_kernel}: launches "
+        if launched != (tuple(kernels.values()) if i == 0 else (0,) * len(kernels)):
+            raise SystemExit(f"{tag} gradient check, {side} (use_pallas={use_kernel}): launches "
                              f"{launched}")
-    (l_k, g_k, names), (l_p, g_p, _) = out[True], out[False]
+    (l_k, g_k, names), (l_p, g_p, _) = out
+    (s_k, dev_k, _), (s_p, _, _) = sides
+    gate_note = ""
+    if against_cpu:
+        gate_note = (f"; the card's gates replayed on the CPU ({len(gates.gates)} tensors, "
+                     f"{sum(g.numel() for g in gates.gates)} decisions): {gates.flips} the CPU "
+                     f"would have taken otherwise, their inputs within {gates.margin:.2e} of 0 "
+                     f"relative to their tensor's largest |input| (GATE_MARGIN {GATE_MARGIN:g})")
+        if gates.calls != len(gates.gates) or gates.margin > GATE_MARGIN:
+            raise SystemExit(f"{tag}: the CPU's forward met {gates.calls} gates for the "
+                             f"card's {len(gates.gates)}, or a gate flipped beyond rounding "
+                             f"({gates.margin:.2e} > {GATE_MARGIN:g})")
+    g_p = [b.to(dev_k) for b in g_p]
     largest = max(b.abs().max().item() for b in g_p)
     floor = GRAD_FLOOR * largest
+    if against_cpu:  # the CPU's step on its own gates too, for the log only
+        with torch.enable_grad():
+            loss, aux = tr.forward_loss(batch)
+            free = [b.to(dev_k) for b in tr.gradients(loss, aux)]
+        free_gap = max((a - b).abs().max().item() / b.abs().max().item()
+                       for a, b in zip(g_k, free) if b.abs().max().item() > 1e-3 * largest)
+        gate_note += f"; without the replay, worst |d|/max|g| {free_gap:.3e} (not held)"
     worst_rel, vanishing, no_floor, bad = 0.0, [], [], []
     for name, a, b in zip(names, g_k, g_p):
         err, scale = (a - b).abs().max().item(), b.abs().max().item()
@@ -654,16 +771,18 @@ def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str):
             no_floor.append(name)
         if not bool(torch.isfinite(a).all()) or err > GRAD_TOL * scale + floor:
             bad.append(f"{name}: max|d| {err:.2e}, max|g| {scale:.2e}")
-    launched = ", ".join(f"{n} {fn.__name__}" for fn, n in kernels.items())
-    log(f"[train {tag}] gradient check, fp32, dropout on: loss kernel {l_k:.7f} vs plain "
-        f"{l_p:.7f}; {len(names)} gradients through {launched} launches; worst |d|/max|g| "
-        f"{worst_rel:.3e} over the gradients above 1e-3 of the largest ({largest:.3e}); "
-        f"tolerance {GRAD_TOL:g} of the leaf + {GRAD_FLOOR:g} of the largest ({floor:.3e}); "
-        f"below 1e-3 of the largest: {vanishing}; out of {GRAD_TOL:g} of the leaf without the "
-        f"floor: {no_floor}")
+    launched = ", ".join(f"{n} {fn.__name__}" for fn, n in kernels.items()) or "no kernel"
+    log(f"[train {tag}] gradient check, fp32, "
+        f"{'dropout off, card vs CPU' if against_cpu else 'dropout on'}: loss {s_k} {l_k:.7f} "
+        f"vs {s_p} {l_p:.7f}; {len(names)} gradients through {launched} launches; worst "
+        f"|d|/max|g| {worst_rel:.3e} over the gradients above 1e-3 of the largest "
+        f"({largest:.3e}); tolerance {GRAD_TOL:g} of the leaf + {GRAD_FLOOR:g} of the largest "
+        f"({floor:.3e}); below 1e-3 of the largest: {vanishing}; out of {GRAD_TOL:g} of the "
+        f"leaf without the floor: {no_floor}{gate_note}")
     if bad or abs(l_k - l_p) > 1e-5:
-        raise SystemExit(f"{tag}: kernel and plain gradients disagree: {bad}")
-    return kernel_step
+        raise SystemExit(f"{tag}: {s_k} and {s_p} gradients disagree: {bad}, losses {l_k} and "
+                         f"{l_p}")
+    return (*first, worst_rel)
 
 
 def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: int = 3) -> dict:
@@ -671,7 +790,7 @@ def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: 
     (CUDA events), after three warm-up steps; then ``torch.profiler`` over
     ``profiled`` more steps: device-busy ms and kernels a step, the busy
     share of the timed step, and the largest device items. Returns the
-    timed step's ms and the device-busy ms a step."""
+    timed step's ms, the device-busy ms and the kernels a step."""
     from torch.profiler import ProfilerActivity, profile
 
     bs = trainer.exp.train.batch_size
@@ -695,11 +814,18 @@ def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: 
     step_ms = sum(split.values())
     log(f"[train {tag}] one step at B={bs}, ms (median of {reps}): {split}, "
         f"sum {step_ms:.4f} on {card}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(profiled):
-            trainer.train_step(batch)
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(3):  # a trace now and then holds no device event: profile again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(profiled):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_card:
+            break
+        log(f"[train {tag}] torch.profiler recorded no device event (try {attempt + 1} of 3)")
+    else:
+        raise SystemExit(f"{tag}: torch.profiler recorded no device event in 3 tries")
     busy = sum(e.self_device_time_total for e in on_card) / profiled / 1e3
     launched = sum(e.count for e in on_card) / profiled
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
@@ -707,7 +833,7 @@ def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: 
         f"({busy / step_ms:.3f} of the {step_ms:.4f} ms timed step), {launched:.0f} kernels "
         f"a step on {card}; largest, ms a step: "
         + str([(e.key[:70], round(e.self_device_time_total / profiled / 1e3, 4)) for e in top]))
-    return {"step_ms": step_ms, "busy_ms": busy}
+    return {"step_ms": step_ms, "busy_ms": busy, "kernels": launched}
 
 
 ENC_CASES = ([(128, 2, 1, b) for b in (B_TRAIN, B_FULL, B_RAGGED)] + [(64, 4, 2, B_TRAIN + 37)]
@@ -1469,19 +1595,23 @@ def score_split(torch, card, x, sw, w_bi, tower, tag: str) -> None:
 
 
 def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_step: dict,
-                    per_eval: dict, per_serve: dict, tag: str = "") -> dict:
-    """Phases 6-7 (and 6b) for one model at the full microlens_experiment()
+                    per_eval: dict, per_serve: dict, tag: str = "", fused: bool = True) -> dict:
+    """Phases 6-7 (and 6b-6g) for one model at the full microlens_experiment()
     defaults on phase 6's splits: one step's fp32 gradients kernel vs plain
-    with dropout on, fit_on_device for 2 epochs (loss finite and falling,
-    best valid AUC > 0.6, a resume point and the best export written), the
-    step split and profile, then the best export served through Predictor
-    at the trainer's AUC. ``counted`` are the wrappers whose launches are
-    checked exactly; ``per_step``, ``per_eval`` and ``per_serve`` give each
-    one's launches a train step, an eval batch and a serving batch (absent:
-    0). ``tag`` names the run in the log (default: the model's name).
-    Returns the launches of each counted wrapper in the fit (``launches``),
-    the fit's history (``hist``), its best valid AUC and the step split's
-    numbers (``step``)."""
+    with dropout on (``fused`` False, the zoo, whose path holds no kernel:
+    the card's step vs the CPU's, dropout off), fit_on_device for 2 epochs
+    (loss finite and falling, best valid AUC > 0.6, a resume point and the
+    best export written), the step split and profile, then the best export
+    served through Predictor at the trainer's AUC, on the fused scoring
+    branch if ``fused``, else on the model's eval forward. ``counted`` are
+    the wrappers whose launches are checked exactly; ``per_step``,
+    ``per_eval`` and ``per_serve`` give each one's launches a train step, an
+    eval batch and a serving batch (absent: 0). ``tag`` names the run in the
+    log (default: the model's name). Returns the launches of each counted
+    wrapper in the fit (``launches``), the fit's history (``hist``), its
+    best valid AUC, the step split's numbers (``step``), the gradient
+    check's worst gap (``grad_gap``) and the serving Predictor
+    (``server``)."""
     from ctr_recommendation_tpu_torch.cli.evaluate import eval_line, evaluate
     from ctr_recommendation_tpu_torch.inference import Predictor
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
@@ -1496,7 +1626,8 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     from ctr_recommendation_tpu_torch.training.metrics import auc, group_auc
 
     tag = tag or exp.model.model
-    gradient_check(torch, exp, train, store, root, per_step, tag)
+    grad_gap = gradient_check(torch, exp, train, store, root, per_step, tag,
+                              against_cpu=not fused)[-1]
     bs = exp.train.batch_size
     steps = TRAIN_EPOCHS * (N_TRAIN // bs)
     eval_batches = TRAIN_EPOCHS * -(-N_VALID // exp.train.eval_batch_size)
@@ -1551,15 +1682,18 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
         f"(tolerance {AUC_SERVE_TOL}); gAUC[user_id] {res['gauc']:.7f}, on the CPU "
         f"{cpu_gauc:.7f}, |d| {abs(res['gauc'] - cpu_gauc):.1e} (tolerance {GAUC_TOL}); "
         f"launches {names(served)}")
-    if not server.use_fused or served != {fn: per_serve.get(fn, 0) * n_batches for fn in counted}:
-        raise SystemExit(f"{tag}: serving the export did not run its kernels once a batch")
+    if server.use_fused != fused or served != {fn: per_serve.get(fn, 0) * n_batches
+                                               for fn in counted}:
+        raise SystemExit(f"{tag}: serving the export did not take the expected branch "
+                         f"(fused {fused}) and launches")
     if res["rows"] != N_VALID or res["auc"] != served_auc:
         raise SystemExit(f"{tag}: evaluate's AUC is not the served probabilities' AUC")
     if abs(served_auc - best_auc) > AUC_SERVE_TOL:
         raise SystemExit(f"{tag}: the served export disagrees with the trainer's eval")
     if not np.isfinite(res["logloss"]) or abs(res["gauc"] - cpu_gauc) > GAUC_TOL:
         raise SystemExit(f"{tag}: evaluate's logloss is not finite or its gAUC is not the CPU's")
-    return {"launches": launched, "hist": hist, "best_auc": best_auc, "step": step}
+    return {"launches": launched, "hist": hist, "best_auc": best_auc, "step": step,
+            "grad_gap": grad_gap, "server": server}
 
 
 def serve_sasrec(torch, store, rows, card) -> int:
@@ -1743,8 +1877,8 @@ def sparse_steps(torch, train, store, root, card, kernels: dict) -> None:
             for strategy, ratio in FORCE_STRATEGY.items():
                 sparse.GATHERED_MIN_VOCAB_RATIO = ratio
                 tag = f"sparse {kind} {strategy}"
-                tr, batch, aux, grads = gradient_check(torch, exp, train, store, root, kernels,
-                                                       tag)
+                tr, batch, aux, grads, _ = gradient_check(torch, exp, train, store, root,
+                                                          kernels, tag)
                 tables, tstate = tr.state.params["trunk"]["tables"], tr.state.table_opt_state
                 gathered = sorted(aux.uids)
                 if gathered != (sorted(tables) if strategy == "gathered" else []):
@@ -2280,6 +2414,61 @@ def fit_timing(torch, train, card, experiment, epoch_batches, spe: int, store) -
     return timing
 
 
+ZOO = ("din", "xdeepfm", "finalmlp", "dcnv2", "deepfm", "autoint", "masknet", "pnn", "dlrm")
+
+
+def zoo(torch, train, valid, store, root, card, counted, rows, dense: dict) -> None:
+    """Phase 6g (see the module docstring). ``rows`` are phase 4's serving
+    rows; ``dense`` is phase 6's mm_fibinet run."""
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.data import TableData
+
+    runs = {}
+    for name in ZOO:
+        exp = microlens_experiment(data_root="", model=name, epochs=TRAIN_EPOCHS,
+                                   checkpoint_dir=os.path.join(root, f"ckpt_{name}"))
+        m = exp.model
+        if (m.embedding_dim, m.hidden_units, m.cin_layer_units, m.finalmlp_stream1_units,
+                m.finalmlp_stream2_units, m.finalmlp_num_heads, m.autoint_num_layers,
+                m.autoint_num_heads, m.masknet_blocks, m.masknet_block_dim,
+                m.din_att_hidden_units, exp.train.compute_dtype, exp.train.batch_size) != (
+                E, HIDDEN, (64, 64), (512, 256), (512, 256), 8, 2, 2, 4, 64, (64, 32),
+                "bfloat16", B_TRAIN):
+            raise SystemExit(f"the zoo's defaults moved: {exp}")
+        run = train_and_serve(torch, exp, train, valid, store, root, card, counted,
+                              per_step={}, per_eval={}, per_serve={}, fused=False)
+        server = run.pop("server")
+        server.score_table(TableData({k: v[:B_FULL] for k, v in rows.items()}, B_FULL))
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        probs = server.score_table(TableData(rows, N_ROWS))
+        t_score = time.perf_counter() - t0
+        launched = {fn.__name__: fn.launches for fn in counted}
+        log(f"[serve {name}] score_table: {N_ROWS} rows in {t_score:.4f} s = "
+            f"{N_ROWS / t_score:.0f} rows/s on {card}; launches {launched}")
+        # [0, 1]: a logit past ~17 (deepfm's raw FM term) rounds to 1 in fp32
+        if probs.shape != (N_ROWS,) or not ((probs >= 0) & (probs <= 1)).all():
+            raise SystemExit(f"{name}: score_table's probabilities are not in [0, 1], one a row")
+        if any(launched.values()):
+            raise SystemExit(f"{name}: the zoo's serving path launched a kernel: {launched}")
+        runs[name] = dict(run, rows_per_s=N_ROWS / t_score)
+    eps = lambda r: [round(h["examples_per_sec"]) for h in r["hist"]]  # noqa: E731
+    log(f"[zoo] mm_fibinet (phase 6): examples/s per epoch {eps(dense)}, best valid auc "
+        f"{dense['best_auc']:.5f}, a step {dense['step']['step_ms']:.4f} ms wall, "
+        f"{dense['step']['busy_ms']:.4f} ms device busy, {dense['step']['kernels']:.0f} "
+        f"kernels, on {card}")
+    for name, r in runs.items():
+        st = r["step"]
+        log(f"[zoo] {name}: examples/s per epoch {eps(r)}, best valid auc "
+            f"{r['best_auc']:.5f}; a step {st['step_ms']:.4f} ms wall, {st['busy_ms']:.4f} ms "
+            f"device busy ({st['busy_ms'] / st['step_ms']:.3f}), {st['kernels']:.0f} kernels; "
+            f"score_table {r['rows_per_s']:.0f} rows/s; card vs CPU gradients, worst "
+            f"|d|/max|g| {r['grad_gap']:.3e}; kernel launches in the fit "
+            f"{ {fn.__name__: n for fn, n in r['launches'].items()} } on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2537,6 +2726,8 @@ def main() -> int:
                     sasrec_per_step={interaction_fwd: ifwd, interaction_bwd: ibwd,
                                      encode_fwd: enc_fwd, encode_bwd: enc_bwd},
                     sasrec_per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd})
+        # ---- phase 6g: the model zoo, no kernel on its path ----
+        zoo(torch, train, valid, train_store, root, card, counted, rows, dense=mm)
     train_fwd, train_bwd = mm["launches"][interaction_fwd], mm["launches"][interaction_bwd]
     enc_bwd_launches = sasrec["launches"][encode_bwd]
 

@@ -11,6 +11,8 @@ from a JAX export with tools/jax_bridge.save.
         --checkpoint-dir CKPT [--split valid] [--gauc-col user_id] \\
         [--weights weights.npz] [--device cuda]
 
+``--model`` names any model of ``models.available_models()``; with an
+``experiment.json`` in the checkpoint directory the model is read from it.
 ``evaluate`` does the scoring and the metrics for a ``Predictor`` and a
 ``TableData``; ``main`` only loads and prints.
 """
@@ -58,8 +60,9 @@ def main(argv=None) -> int:
     p.add_argument("--split", default="valid",
                    help="split file stem under data-root (valid/test/train) or a parquet path")
     p.add_argument("--model", default=None,
-                   help="mm_fibinet (default) | fibinet | sasrec_fibinet; with an "
-                        "experiment.json in --checkpoint-dir it must name the model there")
+                   help="model name (default mm_fibinet), one of models.available_models(); "
+                        "with an experiment.json in --checkpoint-dir it must name the model "
+                        "there")
     p.add_argument("--checkpoint-dir", default="checkpoints",
                    help="read for experiment.json and best/export.npz, when present")
     p.add_argument("--batch-size", type=int, default=8192)
@@ -86,6 +89,7 @@ def main(argv=None) -> int:
     from ctr_recommendation_tpu_torch.data import ItemStore, load_split
     from ctr_recommendation_tpu_torch.features import build_feature_map
     from ctr_recommendation_tpu_torch.inference import Predictor
+    from ctr_recommendation_tpu_torch.models import get_model
     from ctr_recommendation_tpu_torch.tools import jax_bridge
 
     exp_json = os.path.join(args.checkpoint_dir, "experiment.json")
@@ -102,6 +106,7 @@ def main(argv=None) -> int:
         )
     else:
         exp = microlens_experiment(data_root=args.data_root, model=args.model or "mm_fibinet")
+    get_model(exp.model.model)  # fail fast on an unknown model, before data load
     fm = build_feature_map(exp.dataset)
 
     split_path = (

@@ -9,7 +9,7 @@ a JAX export with tools/jax_bridge.py (reading the orbax export itself needs
 JAX).
 
     python -m ctr_recommendation_tpu_torch.cli.predict --data-root DIR \\
-        --checkpoint-dir CKPT [--model sasrec_fibinet] [--weights weights.npz] \\
+        --checkpoint-dir CKPT [--model NAME] [--weights weights.npz] \\
         [--stream] [--device cuda]
 
 ``--stream`` reads the test split row group by row group
@@ -17,9 +17,12 @@ JAX).
 by batch through ``Predictor.predict_all`` and writes the pair with
 ``write_submission``.
 
-``sasrec_fibinet`` serves from the port's own export (trained with
-``cli/train.py --model sasrec_fibinet``) or from ``--weights``; its history
-runs through the encoder kernel.
+Every model of ``models.available_models()`` serves, from the port's own
+export (trained with ``cli/train.py --model NAME``) or from ``--weights``:
+``sasrec_fibinet``'s history runs through the encoder kernel, the FiBiNET
+family's interaction and tower through the scoring kernel, and the zoo
+(autoint, dcnv2, deepfm, din, dlrm, finalmlp, masknet, pnn, xdeepfm) runs
+its eval forward in plain PyTorch with its "mlp" tower's BatchNorm folded.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Batch scoring + submission (PyTorch port)")
     p.add_argument("--data-root", required=True)
     p.add_argument("--model", default=None,
-                   help="mm_fibinet (default) | fibinet | sasrec_fibinet; with an "
-                        "experiment.json in --checkpoint-dir it must name the model there")
+                   help="model name (default mm_fibinet), one of models.available_models(); "
+                        "with an experiment.json in --checkpoint-dir it must name the model "
+                        "there")
     p.add_argument("--checkpoint-dir", default="checkpoints",
                    help="read for experiment.json and best/export.npz, when present")
     p.add_argument("--out-dir", default="output")
@@ -63,6 +67,7 @@ def main(argv=None) -> int:
         run_submission_pipeline,
         write_submission,
     )
+    from ctr_recommendation_tpu_torch.models import get_model
     from ctr_recommendation_tpu_torch.tools import jax_bridge
 
     exp_json = os.path.join(args.checkpoint_dir, "experiment.json")
@@ -88,6 +93,7 @@ def main(argv=None) -> int:
         exp = microlens_experiment(
             data_root=args.data_root, model=args.model or "mm_fibinet", **overrides
         )
+    get_model(exp.model.model)  # fail fast on an unknown model, before data load
     fm = build_feature_map(exp.dataset)
 
     store = ItemStore.from_parquet(

@@ -2,6 +2,12 @@
 
     python -m ctr_recommendation_tpu_torch.cli.train --data-root DIR [--device cuda]
     python -m ctr_recommendation_tpu_torch.cli.train --synthetic /tmp/synth --device cpu
+    python -m ctr_recommendation_tpu_torch.cli.train --synthetic /tmp/synth --model xdeepfm
+
+``--model`` takes any name of ``models.available_models()``: the FiBiNET
+family (fibinet, mm_fibinet, sasrec_fibinet) and the zoo (autoint, dcnv2,
+deepfm, din, dlrm, finalmlp, masknet, pnn, xdeepfm); an unknown name fails
+before any data is loaded.
 
 Loads the valid split and the item store, then trains with per-epoch AUC,
 the best export to ``<checkpoint-dir>/best/export.npz`` and resume points:
@@ -37,7 +43,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="item vocab for --synthetic (91717 for full MicroLens scale)")
     p.add_argument("--synthetic-signal", choices=("planted", "high"), default="planted")
     p.add_argument("--model", default=None,
-                   help="model name: mm_fibinet (default) | fibinet | sasrec_fibinet")
+                   help="model name (default mm_fibinet); one of models.available_models(): "
+                        "autoint, dcnv2, deepfm, din, dlrm, fibinet, finalmlp, masknet, "
+                        "mm_fibinet, pnn, sasrec_fibinet, xdeepfm")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--embedding-dim", type=int, default=None)

@@ -10,7 +10,10 @@
   when ``use_pallas`` is set;
 * for ``sasrec_fibinet`` the trunk runs the history through the encoder
   kernel (ops/cuda/sasrec_encoder.py) when ``use_pallas`` is set, on both
-  branches.
+  branches;
+* the zoo models (xdeepfm, din, ...) take the model's eval forward, plain
+  PyTorch; only a tower named "mlp" is folded, as in the JAX Predictor
+  (FinalMLP's two streams keep their BatchNorm, MaskNet has none).
 """
 
 from __future__ import annotations

@@ -65,9 +65,8 @@ def apply(
         params["senet"], params["bilinear"], x,
         bilinear_type=cfg.bilinear_type, use_kernel=cfg.use_pallas,
     )
-    td = torch.float32 if cfg.tower_dtype == "float32" else compute_dtype
     logits, mlp_state = mlp_ops.apply(
-        params["mlp"], state["mlp"], h.to(td),
+        params["mlp"], state["mlp"], h.to(trunk.tower_dtype(cfg, compute_dtype)),
         train=train, dropout_rate=cfg.net_dropout, generator=generator, weight=weight,
     )
     return logits[..., 0].float(), {"mlp": mlp_state}

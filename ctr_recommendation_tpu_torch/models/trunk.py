@@ -4,11 +4,11 @@ Embedding tables built from the feature map (shared tables, zeroed pad rows,
 rows padded to a multiple of 128 as in the JAX package), dense multimodal
 vectors projected through Linear -> LayerNorm -> ReLU (the reference's
 model_fibinet.py:105-109), placeholder fields as zeros (:152) and sequence
-fields pooled by masked mean (:165-174) or by SASRec-style target-aware
-attention (``sasrec_fibinet``): the history runs through the transformer
-encoder (the encoder kernel when ``use_pallas``, else ``attention.encode``)
-and the candidate item queries it. The DIN branch raises
-NotImplementedError.
+fields pooled by masked mean (:165-174), by SASRec-style target-aware
+attention (``sasrec_fibinet``: the history runs through the transformer
+encoder, the encoder kernel when ``use_pallas``, else ``attention.encode``,
+and the candidate item queries it) or by DIN's local activation unit
+(``din``: ``attention.din_pool`` over the raw history).
 """
 
 from __future__ import annotations
@@ -36,10 +36,14 @@ def round_up_vocab(vocab_size: int, multiple: int = VOCAB_ROUND) -> int:
 
 
 def _check_pooling(seq_pooling: str) -> None:
-    if seq_pooling not in ("mean", "attention"):
-        raise NotImplementedError(
-            f"seq_pooling={seq_pooling!r} is not ported yet; 'mean' and 'attention' are"
-        )
+    if seq_pooling not in ("mean", "attention", "din"):
+        raise ValueError(f"seq_pooling must be 'mean', 'attention' or 'din', got {seq_pooling!r}")
+
+
+def tower_dtype(cfg: ModelConfig, compute_dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the layers after the trunk: fp32 when ``tower_dtype`` is
+    "float32", else the trunk's compute dtype."""
+    return torch.float32 if cfg.tower_dtype == "float32" else compute_dtype
 
 
 def init(
@@ -66,6 +70,11 @@ def init(
             f.name: attention.init(
                 gen, e, f.max_len, num_heads=cfg.attn_num_heads, num_layers=cfg.attn_num_layers
             )
+            for f in fm.features_of_type(FeatureType.SEQUENCE)
+        }
+    elif seq_pooling == "din":
+        params["attn"] = {
+            f.name: attention.din_init(gen, e, cfg.din_att_hidden_units)
             for f in fm.features_of_type(FeatureType.SEQUENCE)
         }
     return params
@@ -153,10 +162,11 @@ def apply(
     """batch dict -> field stack (B, F, E) in compute_dtype, fields in
     feature-map order. Mean-pooled sequences are gathered transposed,
     (S, B, E), and reduced over the leading axis by ``masked_mean_t``;
-    attention-pooled ones in (B, S) order, encoded, then pooled by
-    ``attention.target_pool`` with the candidate item as the query. In
-    train mode with a ``generator`` the encoder's dropout draws its seed
-    from it (``_attention_field``).
+    attention- and DIN-pooled ones in (B, S) order (``_history``), then
+    encoded and pooled by ``attention.target_pool``, or pooled by
+    ``attention.din_pool``, with the candidate item as the query. In train
+    mode with a ``generator`` the encoder's dropout draws its seed from it
+    (``_attention_field``); DIN draws nothing.
 
     ``lookup(tables, table_name, ids, feature=<feature name>, batch_dim=0)``
     replaces the embedding gather (default ``gather``): the train step
@@ -191,6 +201,11 @@ def apply(
             seq_emb = lookup(params["tables"], fm.table_of[f.name], seq_ids_t, feature=f.name,
                              batch_dim=1)
             field = pooling.masked_mean_t(seq_emb.to(compute_dtype), seq_ids_t, f.pad_id)
+        elif f.type == FeatureType.SEQUENCE and seq_pooling == "din":
+            seq_ids, seq_emb, target = _history(params, fm, batch, f, field_of, compute_dtype,
+                                                lookup)
+            field = attention.din_pool(params["attn"][f.name], seq_emb, seq_ids, target,
+                                       pad_id=f.pad_id)
         elif f.type == FeatureType.SEQUENCE:
             field = _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype,
                                      train, generator, lookup)
@@ -200,17 +215,12 @@ def apply(
     return torch.stack(list(field_of.values()), dim=1)
 
 
-def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype, train, generator,
-                     lookup):
-    """The attention-pooled field of sequence feature ``f``. The query is the
+def _history(params, fm, batch, f, field_of, compute_dtype, lookup):
+    """(ids (B, S), embeddings (B, S, E) in compute_dtype, the query (B, E))
+    of sequence feature ``f``, gathered in (B, S) order. The query is the
     field of the CATEGORICAL feature that shares the sequence's table
     (item_id for item_seq), already gathered when it comes first; else a
-    fresh lookup of that feature; else the masked mean of the history.
-
-    In train mode with a generator, one int64 dropout seed is drawn for this
-    feature as a device tensor (the kernels read it through a pointer: no
-    host sync), before the tower's dropout draws: the part of JAX's
-    ``fold_in(rng, crc32(name))``."""
+    fresh lookup of that feature; else the masked mean of the history."""
     table = fm.table_of[f.name]
     seq_ids = batch[f.name]
     seq_emb = lookup(params["tables"], table, seq_ids, feature=f.name).to(compute_dtype)
@@ -227,6 +237,19 @@ def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype, train, 
                         feature=target_feat).to(compute_dtype)
     else:
         target = pooling.masked_mean(seq_emb, seq_ids, f.pad_id)
+    return seq_ids, seq_emb, target
+
+
+def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype, train, generator,
+                     lookup):
+    """The attention-pooled field of sequence feature ``f``: the history
+    (``_history``) through the encoder, then queried by the candidate.
+
+    In train mode with a generator, one int64 dropout seed is drawn for this
+    feature as a device tensor (the kernels read it through a pointer: no
+    host sync), before the tower's dropout draws: the part of JAX's
+    ``fold_in(rng, crc32(name))``."""
+    seq_ids, seq_emb, target = _history(params, fm, batch, f, field_of, compute_dtype, lookup)
     p = params["attn"][f.name]
     seed = None
     if train and generator is not None:

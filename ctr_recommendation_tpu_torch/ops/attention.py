@@ -1,4 +1,4 @@
-"""SASRec-style self-attention pooling over the click history.
+"""Attention pooling over the click history: SASRec-style and DIN.
 
 The JAX package's ``ops/attention.py`` on the port: learned positional
 embeddings + N pre-LayerNorm transformer blocks (MHSA + pointwise FFN) over
@@ -10,6 +10,10 @@ keeps the stream, LayerNorm and attention in fp32 instead.
 
 Pad steps are masked with -1e9 before the softmax (never -inf, so a history
 that is all pad stays finite); ``target_pool`` gives zeros for such a row.
+
+``din_init`` / ``din_pool``: DIN's local activation unit (Zhou et al. 2018),
+which scores each history item against the candidate and pools with the raw,
+un-normalized weights.
 """
 
 from __future__ import annotations
@@ -140,3 +144,40 @@ def target_pool(
     pooled = torch.einsum("bs,bse->be", attn, encoded)
     any_real = (~pad_mask).any(-1, keepdim=True)
     return torch.where(any_real, pooled, torch.zeros((), dtype=pooled.dtype, device=pooled.device))
+
+
+def din_init(gen: torch.Generator, emb_dim: int, hidden_units=(64, 32)) -> dict:
+    """DIN's local activation unit: an MLP over ``[h, h*t, h-t, t]`` (4E
+    wide) to one logit a history position. Hidden layers are PReLU with a
+    per-unit slope ``alpha`` starting at 0.25; the last layer is linear."""
+    dims = (4 * emb_dim, *hidden_units, 1)
+    layers = []
+    for i in range(len(dims) - 1):
+        layer = {"lin": linear_init(gen, dims[i], dims[i + 1])}
+        if i < len(dims) - 2:
+            layer["alpha"] = torch.full((dims[i + 1],), 0.25)
+        layers.append(layer)
+    return {"layers": layers}
+
+
+def din_pool(
+    params: dict,
+    seq_emb: torch.Tensor,
+    seq_ids: torch.Tensor,
+    target_emb: torch.Tensor,
+    *,
+    pad_id: int = 0,
+) -> torch.Tensor:
+    """seq_emb (B, S, E), seq_ids (B, S), target_emb (B, E) -> (B, E), all in
+    seq_emb's dtype: sum_s w_s h_s with w from the activation unit, NOT
+    softmax-normalized (the paper keeps the raw weights, §4.3). Pad
+    positions weigh 0, so an all-pad history pools to zeros."""
+    t = target_emb[:, None, :].expand_as(seq_emb)
+    z = torch.cat([seq_emb, seq_emb * t, seq_emb - t, t], dim=-1)
+    layers = params["layers"]
+    for layer in layers[:-1]:
+        z = linear_apply(layer["lin"], z)
+        z = torch.where(z >= 0, z, layer["alpha"].to(z.dtype) * z)  # PReLU
+    w = linear_apply(layers[-1]["lin"], z)[..., 0]  # (B, S)
+    w = w.masked_fill(seq_ids == pad_id, 0.0).to(seq_emb.dtype)
+    return torch.einsum("bs,bse->be", w, seq_emb)

@@ -22,6 +22,16 @@ def pair_indices(num_fields: int) -> tuple[np.ndarray, np.ndarray]:
     return i_idx.astype(np.int64), j_idx.astype(np.int64)
 
 
+def inner_products(x: torch.Tensor) -> torch.Tensor:
+    """x (B, F, E) -> the F(F-1)/2 inner products <x_i, x_j>, i < j, (B, P)
+    fp32: the (B, F, F) Gram with fp32 accumulation (PNN's and DLRM's
+    interaction), then its upper triangle in ``pair_indices`` order."""
+    x32 = x.float()
+    gram = torch.bmm(x32, x32.transpose(1, 2))
+    i_idx, j_idx = pair_indices(x.shape[1])
+    return gram[:, i_idx, j_idx]
+
+
 def init(
     gen: torch.Generator, emb_dim: int, num_fields: int, bilinear_type: str = "all"
 ) -> dict:

@@ -73,6 +73,14 @@ def _batch_norm(layer, st, h, train: bool, weight=None):
     return h * layer["bn_scale"].to(h.dtype) + layer["bn_bias"].to(h.dtype), new_st
 
 
+def dropout(h: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability 1 - rate (one
+    uniform draw from ``generator`` an element) and divided by it."""
+    keep = 1.0 - rate
+    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    return torch.where(mask, h / keep, 0.0)
+
+
 def apply(
     params: dict,
     state: dict,
@@ -98,9 +106,7 @@ def apply(
         if train and dropout_rate > 0.0:
             if generator is None:
                 raise ValueError("dropout needs a generator in train mode")
-            keep = 1.0 - dropout_rate
-            mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
-            h = torch.where(mask, h / keep, 0.0)
+            h = dropout(h, dropout_rate, generator)
         new_layers.append(st)
     out = linear_apply(params["out"], h) if "out" in params else h
     return out, {"layers": new_layers}

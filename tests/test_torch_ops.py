@@ -6,7 +6,6 @@ to float32 summation-order noise (rtol 1e-4, atol 1e-5); bf16 results to
 bf16 rounding, since the two frameworks round at different places.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -270,15 +269,16 @@ def test_trunk_tables_padded_to_128_rows(tiny_experiment):
     for name, t in params["tables"].items():
         assert t.shape == jparams["tables"][name].shape
         assert t.shape[0] % 128 == 0
-    # the attention branch builds the JAX tree's encoder; DIN is not ported
-    attn = pt_trunk.init(torch.Generator(), fm, pexp.model, seq_pooling="attention")["attn"]
-    jattn = jax_trunk.init(jax.random.key(0), jax_build_fm(tiny_experiment.dataset),
-                           tiny_experiment.model, seq_pooling="attention")["attn"]
+    # the attention and DIN branches build the JAX tree's encoder and
+    # activation unit
     from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
 
-    assert {k: tuple(v.shape) for k, v in flatten(attn).items()} == {
-        k: tuple(np.shape(v)) for k, v in flatten(jattn).items()
-    }
-    assert "item_seq/blocks/0/ffn1/w" in flatten(attn)
-    with pytest.raises(NotImplementedError):
-        pt_trunk.init(torch.Generator(), fm, dataclasses.replace(pexp.model), seq_pooling="din")
+    for pooling, leaf in (("attention", "item_seq/blocks/0/ffn1/w"),
+                          ("din", "item_seq/layers/0/alpha")):
+        attn = pt_trunk.init(torch.Generator(), fm, pexp.model, seq_pooling=pooling)["attn"]
+        jattn = jax_trunk.init(jax.random.key(0), jax_build_fm(tiny_experiment.dataset),
+                               tiny_experiment.model, seq_pooling=pooling)["attn"]
+        assert {k: tuple(v.shape) for k, v in flatten(attn).items()} == {
+            k: tuple(np.shape(v)) for k, v in flatten(jattn).items()
+        }
+        assert leaf in flatten(attn)
