@@ -115,6 +115,30 @@ Phases, in order; any failure exits non-zero and prints no result line.
    encoder kernels in the gradient check (dropout on: the kernels and the
    plain path draw the same masks) and in the exact launch counts, its
    export served through the encoder and scoring kernels.
+7b. Online serving over HTTP (serving/: RequestCollator, MicroBatcher,
+   ScoringService, make_http_server) of phase 7's mm_fibinet export and
+   phase 6b's sasrec_fibinet export, on the fused scoring kernel (and the
+   encoder forward). mm_fibinet at DEFAULT_BUCKETS (16 to 8192 rows),
+   max_wait_ms 2: warmup timed, exactly 6 buckets x 2 structures x
+   score_launches() launches; the valid split as JSON rows without the
+   dense column in requests of 8192, bit for bit score_table's, its AUC
+   phase 7's; ragged requests of 1, 15, 17, 63, 255, 1023 and 4097 rows
+   within TOL["fused_score"] of score_table, repeats bit-identical; the
+   same rows with item_emb_d128 shipped by the client bit for bit the
+   join's scores; an out-of-range item_id sent beside four well-formed
+   requests gets 400, they 200. Latency a bucket (one client, sequential,
+   30 full requests, 10 at 4096 and 8192): p50 and p99 end to end, the
+   batcher's validate + collate and the JSON on the path (host clock), the
+   predictor call's device ms (CUDA events). Load: 16 clients x 16
+   requests of 1-64 seeded rows: requests/s, rows/s, p50, p99, requests a
+   dispatch; some dispatch coalesced, launches exactly batches_dispatched x
+   score_launches(), each response within the bar of score_table. For each
+   bucket, rows scored alone against the same rows in a B=8192 batch:
+   whether the trunk's output and the kernel's scores depend on B. Then
+   sasrec_fibinet at buckets (16, 256, 8192): fwd_launches(1) encoder and
+   score_launches() scoring launches a warmup call and a dispatch, whole
+   buckets bit for bit score_table's with phase 6b's AUC, ragged requests
+   within the bar.
 6d. Phases 6-7 for sasrec_emb_256 (sasrec_fibinet with embedding_dim=256,
    its other defaults): both encoder kernels at E=256 in the gradient
    check and the exact launch counts, the export served through them.
@@ -200,7 +224,10 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -1610,8 +1637,8 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     log (default: the model's name). Returns the launches of each counted
     wrapper in the fit (``launches``), the fit's history (``hist``), its
     best valid AUC, the step split's numbers (``step``), the gradient
-    check's worst gap (``grad_gap``) and the serving Predictor
-    (``server``)."""
+    check's worst gap (``grad_gap``), the serving Predictor (``server``)
+    and the AUC evaluate gave its export (``served_auc``)."""
     from ctr_recommendation_tpu_torch.cli.evaluate import eval_line, evaluate
     from ctr_recommendation_tpu_torch.inference import Predictor
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
@@ -1693,7 +1720,7 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     if not np.isfinite(res["logloss"]) or abs(res["gauc"] - cpu_gauc) > GAUC_TOL:
         raise SystemExit(f"{tag}: evaluate's logloss is not finite or its gAUC is not the CPU's")
     return {"launches": launched, "hist": hist, "best_auc": best_auc, "step": step,
-            "grad_gap": grad_gap, "server": server}
+            "grad_gap": grad_gap, "server": server, "served_auc": res["auc"]}
 
 
 def serve_sasrec(torch, store, rows, card) -> int:
@@ -2469,6 +2496,487 @@ def zoo(torch, train, valid, store, root, card, counted, rows, dense: dict) -> N
             f"{ {fn.__name__: n for fn, n in r['launches'].items()} } on {card}")
 
 
+# ---- phase 7b: online serving over HTTP (serving/, the fused scoring kernel) ----
+# ragged request sizes: every bucket of DEFAULT_BUCKETS and past its boundary
+SERVE_RAGGED = (1, 15, 17, 63, 255, 1023, 4097)
+SERVE_REPS = {4096: 10, 8192: 10}  # sequential requests a bucket in the latency run, else 30
+SERVE_CLIENTS, SERVE_CLIENT_REQS, SERVE_CLIENT_ROWS = 16, 16, 64  # the load run: 1..64 rows
+SASREC_SERVE_BUCKETS = (16, 256, 8192)
+SASREC_SERVE_RAGGED = (1, 15, 17, 255, 257, 4097)
+HTTP_TIMEOUT_S = 120
+
+
+def request_rows(collator, cols: dict, idx, vectors=None) -> list[dict]:
+    """Rows ``idx`` of a split's columns as JSON request rows: ids as ints,
+    each history without its left padding (the collator pads it back);
+    with ``vectors`` (the rows' item vectors) the client ships the dense
+    column, else the server joins it."""
+    from ctr_recommendation_tpu_torch.config.schema import FeatureType
+
+    idx = np.asarray(idx)
+    rows = [{} for _ in idx]
+    for f in collator.features:
+        if f.type == FeatureType.CATEGORICAL:
+            for r, v in zip(rows, cols[f.name][idx].tolist()):
+                r[f.name] = v
+        elif f.type == FeatureType.SEQUENCE:
+            seq = cols[f.name][idx]
+            first = np.where((seq != f.pad_id).any(1), (seq != f.pad_id).argmax(1), seq.shape[1])
+            for r, s, k in zip(rows, seq.tolist(), first.tolist()):
+                r[f.name] = s[k:]
+        elif vectors is not None:
+            for r, v in zip(rows, vectors[idx].tolist()):
+                r[f.name] = v
+    return rows
+
+
+def post(url: str, body: bytes) -> tuple[int, dict]:
+    """POST ``body`` (JSON bytes) to ``url``: (status, the JSON answer)."""
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@contextlib.contextmanager
+def http_service(service):
+    """``service`` behind make_http_server on port 0, served from a thread;
+    yields the score URL. Shuts the server down and closes the service (its
+    batcher thread joined) on the way out."""
+    from ctr_recommendation_tpu_torch.serving import make_http_server
+
+    server = make_http_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}/v1/score"
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=HTTP_TIMEOUT_S)
+        if thread.is_alive() or service.batcher._thread.is_alive():
+            raise SystemExit("the HTTP server or the batcher thread did not stop")
+
+
+def score_requests(url, collator, cols, ref, sizes, start: int = 0, vectors=None) -> tuple:
+    """POST consecutive rows of ``cols`` in requests of ``sizes``; each must
+    answer 200. Returns the probabilities (fp32, in row order), and per
+    request (rows, bucket, bit-equal to ``ref``'s rows, max |d| from them)."""
+    out, per = [], []
+    for n in sizes:
+        idx = np.arange(start, start + n)
+        code, body = post(url, json.dumps(
+            {"rows": request_rows(collator, cols, idx, vectors)}).encode())
+        if code != 200:
+            raise SystemExit(f"serve: a request of {n} rows answered {code}: {body}")
+        got = np.asarray(body["probs"], np.float32)
+        per.append((n, collator.bucket_for(n), bool(np.array_equal(got, ref[idx])),
+                    float(np.abs(got - ref[idx]).max())))
+        out.append(got)
+        start += n
+    return np.concatenate(out), per
+
+
+class TimedPredictor:
+    """A Predictor with CUDA events and the host clock around each call:
+    ``calls`` holds (events, host start, host ms) a call."""
+
+    def __init__(self, torch, pred):
+        self.torch, self.pred, self.calls = torch, pred, []
+
+    def __call__(self, batch):
+        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = self.pred(batch)
+        ev[1].record()
+        self.calls.append((ev, t0, (time.perf_counter() - t0) * 1e3))
+        return out
+
+
+def device_busy_ms(torch, pred, batch, reps: int = 5) -> float:
+    """torch.profiler's device time a call of ``pred`` on ``batch`` (the
+    kernels' and copies' self time summed), the call read back each time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        pred(batch).cpu()
+    for _ in range(3):  # the card's trace now and then holds no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                pred(batch).cpu()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy:
+            return busy / reps / 1e3
+    raise SystemExit("torch.profiler saw no device time in three tries")
+
+
+def bucket_dependence(torch, pred, cols, card) -> None:
+    """The first 8192 rows in a random order, scored in batches of each
+    bucket B (the rows of a coalesced dispatch sit elsewhere than in
+    score_table's batch), against the same rows in score_table's B=8192
+    batch: how many rows' trunk output x differs, field by field (the join,
+    lookups and pooling of the trunk, the item projection, in PyTorch); how
+    many rows' scores the kernel gives otherwise on the very same x rows;
+    how many rows' scores differ, and by how much; for attention pooling,
+    how many rows the encoder kernel encodes otherwise. Names the step whose
+    result depends on B or on a row's place in the batch, if one does."""
+    from ctr_recommendation_tpu_torch.config.schema import FeatureType
+    from ctr_recommendation_tpu_torch.data.device_store import device_join
+    from ctr_recommendation_tpu_torch.features.hashing import apply_hashing
+    from ctr_recommendation_tpu_torch.models import trunk
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import fused_encode
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd
+    from ctr_recommendation_tpu_torch.serving.collator import DEFAULT_BUCKETS
+
+    cfg = pred.exp.model
+
+    def x_of(idx):
+        batch = pred._upload({k: v[idx] for k, v in cols.items()})
+        feats = apply_hashing(device_join(batch, pred._mm_tables, pred._join_plan),
+                              pred._hash_plan)
+        return trunk.apply(pred.params["trunk"], pred.fm, cfg, feats,
+                           seq_pooling=pred.module.SEQ_POOLING,
+                           compute_dtype=pred.compute_dtype).to(pred.tower_dtype).contiguous()
+
+    def score(x):
+        return score_fwd(x, *pred._score_weights, bilinear_type=cfg.bilinear_type)
+
+    seq = pred.fm.features_of_type(FeatureType.SEQUENCE)[0]
+
+    def encoded_of(idx):  # the encoder kernel's output alone (attention pooling)
+        ids = torch.as_tensor(cols[seq.name][idx]).to(pred.device)
+        emb = trunk.gather(pred.params["trunk"]["tables"][pred.fm.table_of[seq.name]], ids)
+        return fused_encode(pred.params["trunk"]["attn"][seq.name], emb.to(pred.compute_dtype),
+                            ids, num_heads=cfg.attn_num_heads, pad_id=seq.pad_id)
+
+    attention = pred.module.SEQ_POOLING == "attention"
+    rng = np.random.default_rng(5)
+    report = {}
+    with torch.inference_mode():
+        x_full = x_of(np.arange(B_FULL))
+        p_full = score(x_full)
+        enc_full = encoded_of(np.arange(B_FULL)) if attention else None
+        for b in DEFAULT_BUCKETS:
+            perm = rng.permutation(B_FULL)
+            xs, ps, same_x, encs = [], [], [], []
+            for i in range(0, B_FULL, b):
+                xs.append(x_of(perm[i : i + b]))
+                ps.append(score(xs[-1]))
+                same_x.append(score(x_full[perm[i : i + b]].contiguous()))
+                if attention:
+                    encs.append(encoded_of(perm[i : i + b]))
+            want_x, want_p = x_full[perm], p_full[perm]
+            fields = (torch.cat(xs) != want_x).any(-1).sum(0).tolist()
+            p = torch.cat(ps)
+            report[b] = {
+                "rows whose x differs, by field": {
+                    name: n for name, n in zip(pred.fm.field_names, fields) if n},
+                "rows the kernel scores otherwise on the same x": int(
+                    (torch.cat(same_x) != want_p).sum()),
+                "rows whose score differs": int((p != want_p).sum()),
+                "max|d|": float((p - want_p).abs().max()),
+            }
+            if attention:
+                report[b]["rows the encoder kernel encodes otherwise"] = int(
+                    (torch.cat(encs) != enc_full[perm]).flatten(1).any(1).sum())
+    log(f"[serve] {pred.exp.model.model}: the first {B_FULL} rows in random order in batches of "
+        f"B against score_table's batch, on {card}: {report}")
+
+
+def serve_http(torch, mm: dict, sasrec: dict, valid, store, card) -> None:
+    """Phase 7b (see the module docstring): phase 7's exports served over
+    HTTP through serving/ (RequestCollator, MicroBatcher, ScoringService,
+    make_http_server) on the fused scoring kernel, and the encoder's
+    forward for sasrec_fibinet."""
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_fwd, fwd_launches
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+    from ctr_recommendation_tpu_torch.serving import ScoringService
+    from ctr_recommendation_tpu_torch.serving.collator import DEFAULT_BUCKETS
+    from ctr_recommendation_tpu_torch.training.metrics import auc
+
+    t_phase = time.perf_counter()
+    atol = TOL[("fused_score", "bfloat16")][0]  # the bar where a plan depends on B
+    cols, n_valid = valid.columns, valid.num_rows
+    pred = mm["server"]
+    labels = torch.as_tensor(np.asarray(cols["label"], np.float32), device=pred.device)
+
+    def served_auc(probs) -> float:  # as evaluate computes it, on the card
+        return float(auc(labels, torch.as_tensor(probs, device=pred.device)))
+
+    def counts():
+        return encode_fwd.launches, score_fwd.launches, interaction_fwd.launches
+
+    def reset():
+        encode_fwd.launches = score_fwd.launches = interaction_fwd.launches = 0
+
+    def within(per, tag):
+        bad = [p for p in per if p[3] > atol]
+        if bad:
+            raise SystemExit(f"serve {tag}: requests (rows, bucket, bit-equal, max|d|) {bad} "
+                             f"outside {atol} of score_table")
+
+    # ---- mm_fibinet: warmup, correctness, latency a bucket, concurrent load ----
+    ref = pred.score_table(valid, B_FULL)
+    if served_auc(ref) != mm["served_auc"]:
+        raise SystemExit("score_table's AUC on the valid split is not phase 7's")
+    service = ScoringService(pred, pred.fm, model_name="mm_fibinet", max_wait_ms=2.0)
+    collator = service.collator
+    if collator.buckets != DEFAULT_BUCKETS:
+        raise SystemExit(f"the service's buckets {collator.buckets} are not DEFAULT_BUCKETS")
+    per_call = score_launches()
+    with http_service(service) as url:
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        service.warmup()
+        t_warm = time.perf_counter() - t0
+        warm = counts()
+        log(f"[serve warmup] {len(DEFAULT_BUCKETS)} buckets x 2 structures in {t_warm:.3f} s on "
+            f"{card}; launches (encode_fwd, fused_score, interaction_fwd) {warm}")
+        if warm != (0, len(DEFAULT_BUCKETS) * 2 * per_call, 0):
+            raise SystemExit(f"warmup launched {warm}, expected "
+                             f"(0, {len(DEFAULT_BUCKETS) * 2 * per_call}, 0)")
+
+        # correctness: the split in whole buckets, then ragged requests
+        reset()
+        before = service.stats()
+        full, per_full = score_requests(url, collator, cols, ref, [B_FULL] * (n_valid // B_FULL))
+        auc_full = served_auc(full)
+        log(f"[serve] valid split ({n_valid} rows, no dense column) in requests of {B_FULL}: "
+            f"bit-equal to score_table {all(p[2] for p in per_full)}, max|d| "
+            f"{max(p[3] for p in per_full):.3e}; served AUC {auc_full:.7f}, phase 7's "
+            f"{mm['served_auc']:.7f} on {card}")
+        if not all(p[2] for p in per_full) or auc_full != mm["served_auc"]:
+            raise SystemExit("served scores at B=8192 are not score_table's, or the served AUC "
+                             "is not phase 7's")
+        ragged, per_ragged = score_requests(url, collator, cols, ref, SERVE_RAGGED)
+        again, _ = score_requests(url, collator, cols, ref, SERVE_RAGGED)
+        log(f"[serve] ragged requests (rows, bucket, bit-equal to score_table, max|d|): "
+            f"{per_ragged}; repeats bit-identical {np.array_equal(ragged, again)} (bar {atol})")
+        within(per_ragged, "ragged")
+        if not np.array_equal(ragged, again):
+            raise SystemExit("a repeated request did not get bit-identical scores")
+        # the client ships the store's item vectors: the join's scores bit for bit
+        vectors = store.emb
+        ids = cols["item_id"]
+        if ids.min() < 0 or ids.max() >= len(vectors):
+            raise SystemExit("valid item ids outside the item store")
+        dense_full, _ = score_requests(url, collator, cols, ref, [B_FULL], vectors=vectors[ids])
+        dense_ragged, _ = score_requests(url, collator, cols, ref, SERVE_RAGGED,
+                                         vectors=vectors[ids])
+        dense_equal = (np.array_equal(dense_full, full[:B_FULL])
+                       and np.array_equal(dense_ragged, ragged))
+        log(f"[serve] the same rows with item_emb_d128 shipped by the client: bit-equal to the "
+            f"join's scores {dense_equal}")
+        if not dense_equal:
+            raise SystemExit("client-shipped item vectors scored unlike the device join")
+        # an out-of-range item_id beside well-formed requests: 400 alone
+        vocab = pred.fm.table(pred.fm.table_of["item_id"]).vocab_size
+        bad_rows = request_rows(collator, cols, np.arange(4))
+        bad_rows[1]["item_id"] = vocab
+        mixed = [("bad", bad_rows)] + [
+            (f"good{i}", request_rows(collator, cols, np.arange(8 * i, 8 * i + 8)))
+            for i in range(1, 5)]
+        replies: dict = {}
+        gate = threading.Barrier(len(mixed))
+
+        def send(name, rows):
+            gate.wait(timeout=HTTP_TIMEOUT_S)
+            replies[name] = post(url, json.dumps({"rows": rows}).encode())
+
+        coalesced0 = service.stats()["coalesced_batches"]
+        threads = [threading.Thread(target=send, args=m) for m in mixed]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT_S)
+        codes = {k: v[0] for k, v in replies.items()}
+        log(f"[serve] out-of-range item_id {vocab} sent beside 4 well-formed requests: "
+            f"status {codes} ({replies.get('bad', (0, {}))[1].get('error', '')!r}); "
+            f"coalesced dispatches {service.stats()['coalesced_batches'] - coalesced0}")
+        if codes != {"bad": 400, **{f"good{i}": 200 for i in range(1, 5)}}:
+            raise SystemExit(f"the malformed request's neighbours did not all get 200: {codes}")
+        for i in range(1, 5):
+            got = np.asarray(replies[f"good{i}"][1]["probs"], np.float32)
+            if np.abs(got - ref[8 * i : 8 * i + 8]).max() > atol:
+                raise SystemExit("a request coalesced beside a malformed one scored wrong")
+        dispatched = service.stats()["batches_dispatched"] - before["batches_dispatched"]
+        if counts() != (0, dispatched * per_call, 0):
+            raise SystemExit(f"correctness requests launched {counts()} in {dispatched} "
+                             f"dispatches, expected {dispatched * per_call} scoring launches")
+
+        # latency a bucket: one client, sequential, full buckets
+        timed = TimedPredictor(torch, pred)
+        service.batcher.predictor = timed
+        validate = collator.validate_chunk
+        entered = {"t": None}  # the batcher's first validate call of a request
+
+        def timed_validate(rows):
+            if entered["t"] is None:
+                entered["t"] = time.perf_counter()
+            return validate(rows)
+
+        collator.validate_chunk = timed_validate
+        http_ms = []
+        for _ in range(30):  # an HTTP round trip that scores nothing
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(url.replace("/v1/score", "/healthz"),
+                                        timeout=HTTP_TIMEOUT_S) as resp:
+                resp.read()
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"[serve latency] GET /healthz (no scoring): p50 {np.percentile(http_ms, 50):.3f} ms, "
+            f"p99 {np.percentile(http_ms, 99):.3f} ms on {card}")
+        rng = np.random.default_rng(21)
+        for b in DEFAULT_BUCKETS:
+            e2e, json_ms, host_ms = [], [], []
+            timed.calls.clear()
+            for _ in range(SERVE_REPS.get(b, 30)):
+                idx = rng.integers(0, n_valid, b)
+                rows = request_rows(collator, cols, idx)
+                entered["t"] = None
+                t0 = time.perf_counter()
+                body = json.dumps({"rows": rows}).encode()
+                t_encode = time.perf_counter() - t0
+                code, reply = post(url, body)
+                t1 = time.perf_counter()
+                if code != 200 or len(reply["probs"]) != b:
+                    raise SystemExit(f"latency run: a {b}-row request answered {code}")
+                if np.abs(np.asarray(reply["probs"], np.float32) - ref[idx]).max() > atol:
+                    raise SystemExit(f"latency run: a {b}-row request scored outside the bar")
+                e2e.append((t1 - t0) * 1e3)
+                # validate + collate: from the batcher's validate call to the predictor call
+                host_ms.append((timed.calls[-1][1] - entered["t"]) * 1e3)
+                # the rest of the JSON on the path, the same bytes timed here:
+                # the handler's parse and answer, the client's read of it
+                t2 = time.perf_counter()
+                json.loads(body)
+                json.loads(json.dumps(reply).encode())
+                json_ms.append((t_encode + time.perf_counter() - t2) * 1e3)
+            torch.cuda.synchronize()
+            span = [ev[0].elapsed_time(ev[1]) for ev, _, _ in timed.calls]
+            busy = device_busy_ms(torch, pred, collator.collate(
+                request_rows(collator, cols, np.arange(b)))[0])
+            p50 = float(np.percentile(e2e, 50))
+            collate_ms, json_med = float(np.median(host_ms)), float(np.median(json_ms))
+            log(f"[serve latency] bucket {b}: {len(e2e)} requests, p50 {p50:.3f} ms, p99 "
+                f"{np.percentile(e2e, 99):.3f} ms end to end; validate + collate "
+                f"{collate_ms:.3f} ms, JSON {json_med:.3f} ms (host share "
+                f"{(collate_ms + json_med) / p50:.2f} of p50); the batcher lingers up to "
+                f"{service.batcher.max_wait_s * 1e3:.1f} ms below a full {collator.max_batch}; "
+                f"predictor call {np.median([c[2] for c in timed.calls]):.4f} ms host, "
+                f"{np.median(span):.4f} ms between CUDA events around it, device busy "
+                f"{busy:.4f} ms (torch.profiler; idle {1 - busy / p50:.3f} of p50) on {card}")
+        collator.validate_chunk = validate
+        service.batcher.predictor = pred
+
+        # concurrent load: 16 clients x 16 requests of 1..64 rows
+        rng = np.random.default_rng(16)
+        plans = [[(int(rng.integers(0, n_valid - SERVE_CLIENT_ROWS)),
+                   int(rng.integers(1, SERVE_CLIENT_ROWS + 1)))
+                  for _ in range(SERVE_CLIENT_REQS)] for _ in range(SERVE_CLIENTS)]
+        bodies = [[json.dumps({"rows": request_rows(collator, cols, np.arange(s, s + n))})
+                   .encode() for s, n in plan] for plan in plans]
+        results: list = [[] for _ in plans]
+        gate = threading.Barrier(SERVE_CLIENTS + 1)
+
+        def client(c):
+            gate.wait(timeout=HTTP_TIMEOUT_S)
+            for body in bodies[c]:
+                t = time.perf_counter()
+                code, reply = post(url, body)
+                results[c].append((code, reply, (time.perf_counter() - t) * 1e3))
+
+        reset()
+        before = service.stats()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        gate.wait(timeout=HTTP_TIMEOUT_S)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        after = service.stats()
+        load_counts = counts()
+    # the batcher thread has stopped: its launch counts are final
+    if counts() != load_counts:
+        raise SystemExit("launches were counted after the load run's last response")
+    delta = {k: after[k] - before[k] for k in after}
+    n_req = SERVE_CLIENTS * SERVE_CLIENT_REQS
+    lat, worst, equal = [], 0.0, 0
+    for plan, res in zip(plans, results):
+        if len(res) != len(plan):
+            raise SystemExit("a load client did not finish")
+        for (s, n), (code, reply, ms) in zip(plan, res):
+            if code != 200:
+                raise SystemExit(f"load run: a {n}-row request answered {code}: {reply}")
+            got = np.asarray(reply["probs"], np.float32)
+            worst = max(worst, float(np.abs(got - ref[s : s + n]).max()))
+            equal += bool(np.array_equal(got, ref[s : s + n]))
+            lat.append(ms)
+    rows = sum(n for plan in plans for _, n in plan)
+    log(f"[serve load] {SERVE_CLIENTS} clients x {SERVE_CLIENT_REQS} requests of 1-"
+        f"{SERVE_CLIENT_ROWS} rows ({rows} rows) in {wall:.3f} s: {n_req / wall:.1f} requests/s, "
+        f"{rows / wall:.0f} rows/s, p50 {np.percentile(lat, 50):.3f} ms, p99 "
+        f"{np.percentile(lat, 99):.3f} ms; stats {delta}, requests a dispatch "
+        f"{delta['requests_served'] / max(delta['batches_dispatched'], 1):.2f}; launches "
+        f"(encode_fwd, fused_score, interaction_fwd) {load_counts}; vs score_table: "
+        f"{equal}/{n_req} bit-equal, max|d| {worst:.3e} (bar {atol}) on {card}")
+    if delta["requests_served"] != n_req or delta["coalesced_batches"] < 1:
+        raise SystemExit(f"the load run served {delta} (expected {n_req} requests, some "
+                         "coalesced)")
+    if load_counts != (0, delta["batches_dispatched"] * per_call, 0):
+        raise SystemExit(f"the load run launched {load_counts}, expected "
+                         f"{delta['batches_dispatched']} x {per_call} scoring launches")
+    if worst > atol:
+        raise SystemExit("a coalesced request's scores are not its own within the bar")
+    bucket_dependence(torch, pred, {k: v for k, v in cols.items() if k != "label"}, card)
+
+    # ---- sasrec_fibinet: the encoder forward + the scoring kernel a dispatch ----
+    spred = sasrec["server"]
+    sref = spred.score_table(valid, B_FULL)
+    per_enc = fwd_launches(spred.exp.model.attn_num_layers)
+    service = ScoringService(spred, spred.fm, model_name="sasrec_fibinet",
+                             buckets=SASREC_SERVE_BUCKETS, max_wait_ms=2.0)
+    with http_service(service) as url:
+        torch.cuda.synchronize()
+        reset()
+        service.warmup()
+        warm = counts()
+        n_warm = len(SASREC_SERVE_BUCKETS) * 2
+        if warm != (n_warm * per_enc, n_warm * per_call, 0):
+            raise SystemExit(f"sasrec warmup launched {warm}, expected "
+                             f"({n_warm * per_enc}, {n_warm * per_call}, 0)")
+        reset()
+        before = service.stats()
+        full, per_full = score_requests(url, service.collator, cols, sref,
+                                        [B_FULL] * (n_valid // B_FULL))
+        ragged, per_ragged = score_requests(url, service.collator, cols, sref,
+                                            SASREC_SERVE_RAGGED)
+        dispatched = service.stats()["batches_dispatched"] - before["batches_dispatched"]
+        served = counts()
+    s_auc = served_auc(full)
+    log(f"[serve sasrec_fibinet] buckets {SASREC_SERVE_BUCKETS}: warmup launches "
+        f"(encode_fwd, fused_score, interaction_fwd) {warm}; {dispatched} dispatches launched "
+        f"{served}; whole buckets bit-equal to score_table {all(p[2] for p in per_full)}; "
+        f"ragged (rows, bucket, bit-equal, max|d|) {per_ragged}; served AUC {s_auc:.7f}, "
+        f"phase 6b's {sasrec['served_auc']:.7f} on {card}")
+    if served != (dispatched * per_enc, dispatched * per_call, 0):
+        raise SystemExit(f"sasrec dispatches launched {served}, expected {dispatched} x "
+                         f"({per_enc}, {per_call}, 0)")
+    if not all(p[2] for p in per_full) or s_auc != sasrec["served_auc"]:
+        raise SystemExit("sasrec: served scores at B=8192 are not score_table's")
+    within(per_ragged, "sasrec ragged")
+    bucket_dependence(torch, spred, {k: v for k, v in cols.items() if k != "label"}, card)
+    log(f"[serve] phase 7b in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2692,6 +3200,8 @@ def main() -> int:
                       encode_bwd: enc_bwd},
             per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd},
             per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd})
+        # ---- phase 7b: phase 7's exports served over HTTP (serving/) ----
+        serve_http(torch, mm, sasrec, valid, train_store, card)
         # ---- phase 6d: sasrec_emb_256 (sasrec_fibinet at E=256) ----
         wide_sasrec = microlens_experiment(data_root="", model="sasrec_fibinet",
                                            epochs=TRAIN_EPOCHS, embedding_dim=WIDE_E,

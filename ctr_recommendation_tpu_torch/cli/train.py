@@ -75,6 +75,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--steps-per-dispatch", type=int, default=None,
                    help="host-driven runs (--stream / --strict-items) upload this many "
                         "batches at a time; 1 = one upload a batch")
+    p.add_argument("--rng-impl", default=None,
+                   help="the JAX package's training-rng PRNG (threefry | rbg); recorded in "
+                        "experiment.json and ignored: the port draws its masks from torch "
+                        "generators")
     # accepted so that they fail with a message, not an argparse error
     p.add_argument("--model-parallel", type=int, default=1)
     p.add_argument("--profile-dir", default=None)
@@ -98,7 +102,7 @@ def main(argv=None) -> int:
     overrides = {}
     for k in ("epochs", "batch_size", "embedding_dim", "embedding_init_std",
               "learning_rate", "optimizer", "table_optimizer", "table_lr_scale",
-              "checkpoint_dir", "checkpoint_every", "steps_per_dispatch"):
+              "checkpoint_dir", "checkpoint_every", "steps_per_dispatch", "rng_impl"):
         v = getattr(args, k)
         if v is not None:
             overrides[k] = v

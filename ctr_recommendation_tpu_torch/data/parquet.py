@@ -1,7 +1,8 @@
 """The JAX package's data/parquet.py on the port: the columnar split
 container (with per-host ``shard`` and ``take``), the list-column padding of
-the pipeline's decode, ``load_split`` and ``iter_batches``, the host-side
-batch assembly of ``Trainer.fit``. ``pyarrow`` is imported only by the
+the pipeline's decode and of the serving collator's requests,
+``load_split`` and ``iter_batches``, the host-side batch assembly of
+``Trainer.fit``. ``pyarrow`` is imported only by the
 functions that read arrow data.
 """
 
@@ -52,6 +53,17 @@ def pad_from_offsets(
     return out
 
 
+def _pad_sequences(seqs, max_len: int, pad_id: int) -> np.ndarray:
+    """list-of-lists -> (N, max_len) int32 keeping the LAST max_len entries,
+    left-padded with pad_id (the serving collator's request histories)."""
+    out = np.full((len(seqs), max_len), pad_id, dtype=np.int32)
+    for r, s in enumerate(seqs):
+        s = np.asarray(s, dtype=np.int64)[-max_len:]
+        if s.size:
+            out[r, max_len - s.size :] = s
+    return out
+
+
 def _pad_list_column(col, max_len: int, pad_id: int) -> np.ndarray:
     """Pad a pyarrow list column to (N, max_len) int32, keeping the LAST
     max_len events (the reference's dataloader.py:113-115 semantics)."""
@@ -62,12 +74,7 @@ def _pad_list_column(col, max_len: int, pad_id: int) -> np.ndarray:
         offsets = np.asarray(arr.offsets, dtype=np.int64)
         values = np.asarray(arr.values, dtype=np.int64)
         return pad_from_offsets(values, offsets, max_len, pad_id)
-    out = np.full((len(arr), max_len), pad_id, dtype=np.int32)
-    for r, s in enumerate(arr.to_pylist()):
-        s = np.asarray(s or [], dtype=np.int64)[-max_len:]
-        if s.size:
-            out[r, max_len - s.size :] = s
-    return out
+    return _pad_sequences([s or [] for s in arr.to_pylist()], max_len, pad_id)
 
 
 def load_split(

@@ -282,7 +282,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 20
     for module in ("ops/attention.py", "ops/cuda/sasrec_encoder.py", "models/sasrec_fibinet.py",
                    "ops/cuda/build.py", "ops/cuda/scoring.py", "ops/cuda/interaction.py",
-                   "cli/evaluate.py", "cli/validate_dataset.py", "data/native/__init__.py"):
+                   "cli/evaluate.py", "cli/validate_dataset.py", "data/native/__init__.py",
+                   "serving/__init__.py", "serving/collator.py", "serving/server.py",
+                   "cli/serve.py"):
         assert PORT / module in files, module
     assert (PORT / "csrc" / "sasrec_encoder.cu").exists()
     bad = [
@@ -308,6 +310,8 @@ def test_importing_the_port_loads_no_jax():
         "import ctr_recommendation_tpu_torch.cli.evaluate\n"
         "import ctr_recommendation_tpu_torch.cli.validate_dataset\n"
         "import ctr_recommendation_tpu_torch.data.native\n"
+        "import ctr_recommendation_tpu_torch.serving\n"
+        "import ctr_recommendation_tpu_torch.cli.serve\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ctr_recommendation_tpu')]\n"
         "assert not bad, bad\n"
