@@ -27,7 +27,12 @@ Phases, in order; any failure exits non-zero and prints no result line.
    (attention.encode) rejected by the same norm bar. The same cases with
    dropout 0.1 under two seeds against encode_fwd_plain with the same
    seeds, rate 0 bit-identical to the eval launch, and the kernel's own
-   mask read back equal to dropout_mask with its kept share within 6 sigma.
+   mask read back equal to dropout_mask with its kept share within 6 sigma;
+   the same mask read back at a data-parallel rank's token base (phase 6h
+   (d): 2048 x 20, and across the 2^32 wrap) bit for bit dropout_mask's
+   there, and the back half of a batch at its token base, forward and dx,
+   bit for bit the whole batch's rows (the forward also within ENC_TOL of
+   encode_fwd_plain at that base).
    The encoder backward at E=128, H=2, L=1 (B=4096, 4133) and E=64, H=4,
    L=2 (B=4133), rate 0 and 0.1, bf16 and fp32: within ENC_BWD_TOL and the
    norm bars, its repeat bit-identical, and in bf16 the fp32-operand
@@ -105,6 +110,26 @@ Phases, in order; any failure exits non-zero and prints no result line.
    examples/s per epoch and one step split into forward+loss, backward and
    optimizer with CUDA events, then torch.profiler over three more steps
    (device-busy share, kernels a step, the largest device items).
+6h. Data-parallel training (parallel/, the Trainer over a process group)
+   at the same full defaults, two ranks sharing cuda:0 over gloo (NCCL
+   refuses two ranks on one device), each a process started with
+   --dp-rank and the launcher's environment, killed past DP_TIMEOUT_S; a
+   rank that fails fails the phase. (a) One fp32 step (dropout 0.2 on),
+   2 x 2048 rows against one process's step on the same 4096 rows and
+   seeded weights, the one process's ReLU and dropout gates replayed on
+   each rank's rows: the loss within 1e-5, every gradient within GRAD_TOL
+   / GRAD_FLOOR (each flip within GATE_MARGIN), the BatchNorm running
+   statistics within DP_STATE_TOL, the parameters after the update within
+   DP_PARAM_TOL where the gradients fix Adam's step (2 lr elsewhere), the
+   two replicas bit for bit equal, exactly fwd_launches() + bwd_launches()
+   interaction launches a rank. (b) fit_on_device on two ranks over
+   phase 6's splits, 2 epochs, the global batch 4096: exact launches a
+   rank, both ranks' metrics equal, loss falling, best valid AUC within
+   DP_AUC_TOL of phase 6's, rank 0's export and resume point; per rank
+   examples/s, a step's wall, the gradient all-reduce's ms and bytes and
+   the collectives a step (2 ranks sharing one card: not a scaling
+   figure). (c) One rank on NCCL, world 1: the step of (a) within the same
+   bars, its collectives run on the card. (d) is in phase 2.
 7. Serve the trained export through the evaluate CLI's function
    (cli/evaluate.py::evaluate: Predictor with the fused scoring kernel, then
    AUC, logloss and gAUC[user_id] on the card) on the valid split: its AUC
@@ -665,13 +690,16 @@ def check_backward(torch, got, want, dtype_name):
 GATE_MARGIN = 1e-5
 
 
-def gate_replay(torch, gates=None):
+def gate_replay(torch, gates=None, part=(0, 1)):
     """A torch function mode that records the decision of every ReLU
     (``torch.relu``) and every gate ``torch.where(cond, a, b)`` on floating
     ``a`` in one forward, in call order (``gates`` None), or replays such a
     record (``gates``) on another device: ``flips`` counts the decisions the
     replaying forward would have taken otherwise, ``margin`` is the largest
-    |input| / max|input| of its tensor among them."""
+    |input| / max|input| of its tensor among them. ``part`` (rank, world):
+    the replaying forward holds rank's share of the recorded batch, and
+    takes that share of each recorded gate (along the dimension that is
+    world times its own)."""
     from torch.overrides import TorchFunctionMode
 
     class GateReplay(TorchFunctionMode):
@@ -688,6 +716,11 @@ def gate_replay(torch, gates=None):
                 return own
             given = self.gates[self.calls].to(own.device)
             self.calls += 1
+            rank, world = part
+            for d, (n, m) in enumerate(zip(given.shape, own.shape)):
+                if n == world * m != m:
+                    given = given.narrow(d, rank * m, m)
+                    break
             differ = given != own
             if bool(differ.any()):
                 self.flips += int(differ.sum())
@@ -1030,7 +1063,59 @@ def dropout_forward_against_plain(torch) -> tuple[float, list]:
         f"{6 * sigma:.2e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(("sasrec_encoder_fwd mask",))
-    return worst, failures
+    return worst, failures + token_base_against_plain(torch, x, amask, ws, seed, mask)
+
+
+def token_base_against_plain(torch, x, amask, ws, seed, mask) -> list:
+    """Phase 6h (d): the encoder kernels at a data-parallel rank's token
+    base. The in-kernel mask read back as above (``x``, ``ws``, ``mask``:
+    that case's) at token0 = rank 1's first token in phase 6h (2048 x S)
+    and across the 2^32 wrap: bit for bit dropout_mask at that token0, and
+    not the token0 = 0 mask. Then the back half of a batch run at its token
+    base: the forward's output and the backward's dx bit for bit the whole
+    batch's back half (each token's result reads only its own sequence),
+    the forward within ENC_TOL of encode_fwd_plain at that token0."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        dropout_mask,
+        encode_bwd,
+        encode_fwd,
+        encode_fwd_plain,
+    )
+
+    failures = []
+    for token0 in (B_TRAIN // 2 * ENC_S, (1 << 32) - 1000):
+        out = encode_fwd(x, amask, *ws, num_heads=ENC_H, seed=seed, rate=DROP_RATE,
+                         token0=token0)
+        kept = ((out - x) > 0.5).reshape(-1, ENC_E)
+        want = dropout_mask(seed, kept.shape[0], ENC_E, 0, 1, DROP_RATE, token0)
+        ok = torch.equal(kept, want) and not torch.equal(kept, mask)
+        log(f"[compare] sasrec_encoder_fwd in-kernel mask at token base {token0}: equals "
+            f"dropout_mask there {torch.equal(kept, want)}, differs from token base 0's "
+            f"{not torch.equal(kept, mask)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(("sasrec_encoder_fwd token base mask", token0))
+    half = B_TRAIN // 2
+    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.bfloat16, B_TRAIN, ENC_E, ENC_H, 1,
+                                              seed=23)
+    g = encoder_cotangent(torch, pad, ENC_E, 24, torch.bfloat16)
+    kw = dict(num_heads=ENC_H, seed=seed, rate=DROP_RATE)
+    back = dict(token0=half * ENC_S, **kw)
+    full = encode_fwd(x, amask, *ws, **kw)
+    got = encode_fwd(x[half:], amask[half:], *ws, **back)
+    plain = encode_fwd_plain(x[half:], amask[half:], *ws, **back)
+    dx_full = encode_bwd(g, x, amask, *ws, **kw)[0]
+    dx = encode_bwd(g[half:], x[half:], amask[half:], *ws, **back)[0]
+    torch.cuda.synchronize()
+    err, rel_norm, ok_plain = check_encoder(torch, got, plain, "bfloat16")
+    same_fwd, same_bwd = torch.equal(got, full[half:]), torch.equal(dx, dx_full[half:])
+    ok = ok_plain and same_fwd and same_bwd
+    log(f"[compare] sasrec_encoder token base {half * ENC_S} (rows {half}..{B_TRAIN - 1} of "
+        f"{B_TRAIN}, bf16, dropout {DROP_RATE}): forward bit for bit the whole batch's rows "
+        f"{same_fwd}, dx bit for bit {same_bwd}; forward vs encode_fwd_plain at that base "
+        f"max_abs_err={err:.3e}, |d|/|want| {rel_norm:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(("sasrec_encoder token base", same_fwd, same_bwd, ok_plain))
+    return failures
 
 
 def encoder_bwd_against_plain(torch) -> tuple[float, list]:
@@ -2496,6 +2581,350 @@ def zoo(torch, train, valid, store, root, card, counted, rows, dense: dict) -> N
             f"{ {fn.__name__: n for fn, n in r['launches'].items()} } on {card}")
 
 
+# ---- phase 6h: data-parallel training, two ranks sharing the card ----
+# Two ranks on one card must use gloo (NCCL refuses two ranks on one
+# device); (c) builds the NCCL path with one rank. A spawn of ranks is
+# killed past DP_TIMEOUT_S, and any rank's failure fails the phase.
+DP_WORLD = 2
+DP_DEVICE = "cuda:0"  # every rank's, and the 1-process reference's
+DP_TIMEOUT_S = 300
+DP_AUC_TOL = 2e-3  # (b)'s best valid AUC against phase 6's single-process run
+# (a) the BatchNorm running statistics, 2 ranks against 1 process: fp32
+# sums of the same rows in another order
+DP_STATE_TOL = 1e-5
+# (a) the parameters after the update. Adam's first step moves an element by
+# lr g' / (|g'| + eps), g' = g + weight_decay p: at most lr, and where the two
+# gradients agree to 1e-3 of |g'| the two steps differ by at most lr 1e-3 / 4.
+# There: |d| <= DP_PARAM_TOL (1 + |p|); elsewhere (the BatchNorm-fed biases,
+# whose true gradient is 0 and whose computed one is rounding noise, among
+# them): |d| <= 2 lr.
+DP_PARAM_TOL = 1e-6
+
+
+def dp_experiment(ckpt: str, fp32: bool):
+    """The full microlens_experiment() defaults (dropout 0.2, use_pallas),
+    in fp32 for the step checks."""
+    import dataclasses
+
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+
+    exp = microlens_experiment(data_root="", epochs=TRAIN_EPOCHS, checkpoint_dir=ckpt,
+                               batch_size=B_TRAIN)
+    if fp32:
+        exp = exp.replace(train=dataclasses.replace(exp.train, compute_dtype="float32"))
+    return exp
+
+
+def dp_step(torch, tr, batch: dict, gates, part) -> dict:
+    """One train step of ``tr`` on ``batch`` (device columns), the forward
+    recording its gates (``gates`` None) or replaying ``part`` of them;
+    returns the global loss, the gradients by target, the interaction
+    launches, the replay's counts, and after the update the parameters and
+    the model state (on the CPU)."""
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
+
+    interaction_fwd.launches = interaction_bwd.launches = 0
+    replay = gate_replay(torch, gates, part)
+    with torch.enable_grad():
+        with replay:
+            loss, aux = tr.forward_loss(batch)
+        grads = tr.gradients(loss, aux)
+    torch.cuda.synchronize()
+    out = {"loss": aux.loss.item(), "grads": dict(zip(aux.targets, (g.detach().cpu().clone()
+                                                                     for g in grads))),
+           "launches": (interaction_fwd.launches, interaction_bwd.launches),
+           "calls": replay.calls, "flips": replay.flips, "margin": replay.margin,
+           "gates": [g.cpu() for g in replay.gates],
+           "params0": {k: v.detach().cpu().clone() for k, v in tr.param_paths.items()}}
+    tr.apply_gradients(grads, aux)
+    out["params"] = {k: v.detach().cpu().clone() for k, v in flatten(tr.state.params).items()}
+    out["state"] = {k: v.cpu().clone() for k, v in flatten(tr.state.model_state).items()}
+    out["lr0"], out["weight_decay"] = tr.schedule(0), tr.exp.train.weight_decay
+    return out
+
+
+def dp_load(path: str) -> dict:
+    """The ranks' inputs, written once by the phase: the train and valid
+    splits and the item store."""
+    from ctr_recommendation_tpu_torch.data import ItemStore, TableData
+
+    with np.load(path) as z:
+        cols = {k: z[k] for k in z.files}
+    split = {n: {k.split("/", 1)[1]: v for k, v in cols.items() if k.startswith(n + "/")}
+             for n in ("train", "valid")}
+    store = ItemStore.from_arrays(cols["item_ids"], cols["item_emb"])
+    return {n: TableData(c, len(c["label"])) for n, c in split.items()} | {"store": store}
+
+
+def dp_rank(spec_path: str) -> int:
+    """One rank of phase 6h, started by ``spawn_ranks`` with the launcher's
+    environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT): joins the
+    group on cuda:0 with the spec's backend, runs its tasks and saves what
+    they return for the phase to check."""
+    import torch
+
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.parallel import data_parallel, distributed
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(DP_DEVICE)
+    if not distributed.initialize(backend=spec["backend"], timeout_s=DP_TIMEOUT_S):
+        raise SystemExit("phase 6h rank: no launcher environment")
+    rank, world = distributed.host_id(), distributed.host_count()
+    data = dp_load(spec["inputs"])
+    bs = B_TRAIN
+    out = {"backend": torch.distributed.get_backend()}
+    for task in spec["tasks"]:
+        if task == "step":  # (a), (c): one step on this rank's rows of the 4096
+            tr = Trainer(dp_experiment(spec["ckpt"] + f"_step{rank}", fp32=True),
+                         steps_per_epoch=N_TRAIN // bs, item_store=data["store"],
+                         device=DP_DEVICE, log_fn=lambda s: None)
+            n = bs // world
+            cols, row0 = distributed.host_local_to_global(
+                {k: v[rank * n : (rank + 1) * n] for k, v in data["train"].columns.items()},
+                tr.mesh)
+            data_parallel.stats.update(calls=0, bytes=0)
+            res = dp_step(torch, tr, cols, torch.load(spec["gates"]), (rank, world))
+            res.update(row0=row0, stats=dict(data_parallel.stats))
+            res.pop("gates")
+            out["step"] = res
+        elif task == "fit":  # (b): fit_on_device, the global batch 4096
+            exp = dp_experiment(spec["ckpt"] + "_fit", fp32=False)
+            tr = Trainer(exp, steps_per_epoch=N_TRAIN // bs, item_store=data["store"],
+                         device=DP_DEVICE, log_fn=log if rank == 0 else (lambda s: None))
+            torch.cuda.synchronize()
+            interaction_fwd.launches = interaction_bwd.launches = 0
+            data_parallel.stats.update(calls=0, bytes=0)
+            t0 = time.perf_counter()
+            hist = tr.fit_on_device(data["train"], data["valid"])
+            torch.cuda.synchronize()
+            res = {"hist": hist, "seconds": time.perf_counter() - t0,
+                   "launches": (interaction_fwd.launches, interaction_bwd.launches),
+                   "stats": dict(data_parallel.stats), "steps": tr.state.step}
+            # the step's gradient all-reduce alone (every leaf and the loss,
+            # bucketed), and one BatchNorm-sized all-reduce (512 floats)
+            bufs = [torch.zeros_like(p) for p in tr.param_leaves]
+            bufs.append(torch.zeros(1, device=DP_DEVICE))
+            small = [torch.zeros(512, device=DP_DEVICE)]
+            for key, tensors in (("allreduce_ms", bufs), ("small_allreduce_ms", small)):
+                times = []
+                for i in range(13):
+                    torch.distributed.barrier()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    data_parallel.all_reduce_buckets_(tensors, tr.mesh.group("data"))
+                    torch.cuda.synchronize()
+                    if i >= 3:
+                        times.append(1e3 * (time.perf_counter() - t))
+                res[key] = sorted(times)
+            res["allreduce_bytes"] = sum(b.numel() * b.element_size() for b in bufs)
+            res["export"] = os.path.exists(tr.ckpt.best_export_path)
+            res["resume_point"] = tr.ckpt.latest_step()
+            out["fit"] = res
+        else:
+            raise SystemExit(f"phase 6h rank: unknown task {task!r}")
+    torch.save(out, f"{spec['out']}.rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(torch, spec: dict, world: int, root: str) -> list[dict]:
+    """Start ``world`` ranks of ``dp_rank`` on ``spec`` (this script with
+    --dp-rank), wait for all, kill them all past DP_TIMEOUT_S; fail unless
+    every rank exits 0. Returns each rank's saved results."""
+    import socket
+
+    path = os.path.join(root, f"dp_spec_{spec['name']}.json")
+    spec = dict(spec, out=os.path.join(root, f"dp_out_{spec['name']}"))
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", path], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs, deadline = [], time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"phase 6h ({spec['name']}): the {world} ranks did not finish in "
+                         f"{DP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"[dp {spec['name']} rank {rank}] {line}")
+        if p.returncode != 0:
+            raise SystemExit(f"phase 6h ({spec['name']}): rank {rank} exited {p.returncode}")
+    return [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def dp_check_step(torch, tag: str, got: dict, ref: dict) -> float:
+    """(a), (c): a rank's step against the 1-process step on the same 4096
+    rows: the loss, every fp32 gradient (GRAD_TOL of the leaf + GRAD_FLOOR
+    of the largest; the 1-process gates replayed, each flip within
+    GATE_MARGIN), the BatchNorm running statistics (DP_STATE_TOL) and the
+    parameters after the update (DP_PARAM_TOL, or 2 lr where the gradient
+    is noise). Returns the worst |d| / max|g| over the gradients above 1e-3
+    of the largest."""
+    names = list(ref["grads"])
+    if list(got["grads"]) != names:
+        raise SystemExit(f"phase 6h {tag}: gradient targets {list(got['grads'])} != {names}")
+    largest = max(g.abs().max().item() for g in ref["grads"].values())
+    floor = GRAD_FLOOR * largest
+    worst, bad = 0.0, []
+    for name in names:
+        a, b = got["grads"][name], ref["grads"][name]
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        if scale > 1e-3 * largest:
+            worst = max(worst, err / scale)
+        if not bool(torch.isfinite(a).all()) or err > GRAD_TOL * scale + floor:
+            bad.append(f"{name}: max|d| {err:.2e}, max|g| {scale:.2e}")
+    state_err = max((got["state"][k] - v).abs().max().item() / max(1.0, v.abs().max().item())
+                    for k, v in ref["state"].items())
+    lr, wd = ref["lr0"], ref["weight_decay"]
+    param_bad, param_err = [], 0.0
+    for k, p in ref["params"].items():
+        d = (got["params"][k] - p).abs()
+        g = ref["grads"][k]
+        fixed = (got["grads"][k] - g).abs() <= 1e-3 * (g + wd * ref["params0"][k]).abs()
+        param_err = max(param_err, float(d[fixed].max()) if bool(fixed.any()) else 0.0)
+        if (bool((d[fixed] > DP_PARAM_TOL * (1 + p.abs()[fixed])).any())
+                or bool((d > 2 * lr).any())):
+            param_bad.append(k)
+    ok = (not bad and not param_bad and abs(got["loss"] - ref["loss"]) <= 1e-5
+          and state_err <= DP_STATE_TOL and got["calls"] == len(ref["gates"])
+          and got["margin"] <= GATE_MARGIN)
+    log(f"[dp {tag}] loss {got['loss']:.7f} vs 1 process {ref['loss']:.7f}; {len(names)} fp32 "
+        f"gradients: worst |d|/max|g| {worst:.3e} (tolerance {GRAD_TOL:g} of the leaf + "
+        f"{GRAD_FLOOR:g} of the largest); the 1-process gates replayed: {got['calls']} of "
+        f"{len(ref['gates'])} met, {got['flips']} flips, within {got['margin']:.2e} of 0 "
+        f"(GATE_MARGIN {GATE_MARGIN:g}); BatchNorm running stats |d| {state_err:.2e} (tolerance "
+        f"{DP_STATE_TOL:g}); parameters after the update |d| {param_err:.2e} where the gradient "
+        f"fixes the step (tolerance {DP_PARAM_TOL:g} (1 + |p|); elsewhere 2 lr = {2 * lr:.2e}) "
+        f"{'ok' if ok else f'FAIL {bad} {param_bad}'}")
+    if not ok:
+        raise SystemExit(f"phase 6h {tag}: the ranks' step disagrees with one process's")
+    return worst
+
+
+def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> dict:
+    """Phase 6h (see the module docstring). ``dense`` is phase 6's
+    mm_fibinet run."""
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        bwd_launches as inter_bwd_launches,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        fwd_launches as inter_fwd_launches,
+    )
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    bs = B_TRAIN
+    ids = np.flatnonzero(store.known_mask)
+    inputs = os.path.join(root, "dp_inputs.npz")
+    np.savez(inputs, item_ids=ids, item_emb=store.emb[ids],
+             **{f"train/{k}": v for k, v in train.columns.items()},
+             **{f"valid/{k}": v for k, v in valid.columns.items()})
+    # the 1-process step on the first 4096 rows: the reference, its gates recorded
+    tr = Trainer(dp_experiment(os.path.join(root, "dp_ref"), fp32=True),
+                 steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
+                 log_fn=lambda s: None)
+    ref = dp_step(torch, tr, {k: torch.as_tensor(v[:bs]).to(DP_DEVICE)
+                              for k, v in train.columns.items()}, None, (0, 1))
+    gates = os.path.join(root, "dp_gates.pt")
+    torch.save(ref["gates"], gates)
+    del tr
+    torch.cuda.empty_cache()
+    ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
+    spec = {"inputs": inputs, "gates": gates, "ckpt": os.path.join(root, "dp_ckpt")}
+    # (a) and (b): two ranks on cuda:0 over gloo
+    ranks = spawn_ranks(torch, dict(spec, name="gloo", backend="gloo", tasks=["step", "fit"]),
+                        DP_WORLD, root)
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        step = res["step"]
+        if res["backend"] != "gloo" or step["launches"] != (ifwd, ibwd):
+            raise SystemExit(f"phase 6h (a) rank {r}: backend {res['backend']}, interaction "
+                             f"launches {step['launches']}, expected ({ifwd}, {ibwd})")
+        if step["row0"] != r * bs // DP_WORLD:
+            raise SystemExit(f"phase 6h (a) rank {r}: first global row {step['row0']}")
+        worst = max(worst, dp_check_step(
+            torch, f"(a) rank {r} of {DP_WORLD}, {bs // DP_WORLD} rows, gloo", step, ref))
+        log(f"[dp (a)] rank {r}: interaction launches {step['launches']} (fwd {ifwd} + bwd "
+            f"{ibwd}); collectives in the step {step['stats']['calls']}, "
+            f"{step['stats']['bytes']} bytes reduced")
+    same = all(torch.equal(ranks[0]["step"][k][n], ranks[1]["step"][k][n])
+               for k in ("params", "state") for n in ranks[0]["step"][k])
+    log(f"[dp (a)] the two replicas after the step bit for bit equal: {same}")
+    if not same or ranks[0]["step"]["loss"] != ranks[1]["step"]["loss"]:
+        raise SystemExit("phase 6h (a): the ranks' replicas differ after the step")
+    # (b): two epochs
+    steps = TRAIN_EPOCHS * (N_TRAIN // bs)
+    eval_bs = dp_experiment("", fp32=False).train.eval_batch_size
+    eval_batches = TRAIN_EPOCHS * -(-N_VALID // eval_bs)
+    hists = [res["fit"]["hist"] for res in ranks]
+    metrics = ("epoch", "train_loss", "auc", "logloss")
+    best = max(h["auc"] for h in hists[0])
+    for r, res in enumerate(ranks):
+        fit = res["fit"]
+        eps = [h["examples_per_sec"] for h in fit["hist"]]
+        wall = [1e3 * h["seconds"] / (N_TRAIN // bs) for h in fit["hist"]]
+        ar, small = fit["allreduce_ms"], fit["small_allreduce_ms"]
+        log(f"[dp (b)] rank {r} of {DP_WORLD} (2 ranks sharing one card, gloo; not a scaling "
+            f"figure) on {card}: examples/s per epoch {[f'{v:.0f}' for v in eps]} (global "
+            f"rows); a step's wall {[f'{v:.2f}' for v in wall]} ms; gradient all-reduce "
+            f"{ar[len(ar) // 2]:.2f} ms a step (median of {len(ar)}, {ar[0]:.2f}-{ar[-1]:.2f}), "
+            f"{fit['allreduce_bytes']} bytes ({fit['allreduce_bytes'] / 2**20:.1f} MiB); one "
+            f"all-reduce of 512 floats (a BatchNorm statistic's) {small[len(small) // 2]:.3f} ms; "
+            f"all collectives of the fit: {fit['stats']['calls'] / steps:.1f} calls and "
+            f"{fit['stats']['bytes'] / steps:.0f} bytes a step; interaction launches "
+            f"{fit['launches']}")
+        for h in fit["hist"]:
+            log(f"[dp (b)] rank {r} epoch {int(h['epoch'])}: loss {h['train_loss']:.5f}, valid "
+                f"auc {h['auc']:.5f}, {h['seconds']:.3f} s train, {h['eval_seconds']:.3f} s eval")
+        if fit["launches"] != (ifwd * (steps + eval_batches), ibwd * steps):
+            raise SystemExit(f"phase 6h (b) rank {r}: interaction launches {fit['launches']}")
+        if fit["steps"] != steps or [[h[k] for k in metrics] for h in fit["hist"]] != \
+                [[h[k] for k in metrics] for h in hists[0]]:
+            raise SystemExit(f"phase 6h (b) rank {r}: steps {fit['steps']} or metrics differ")
+    losses = [h["train_loss"] for h in hists[0]]
+    log(f"[dp (b)] best valid auc {best:.5f} vs phase 6's 1 process {dense['best_auc']:.5f} "
+        f"(tolerance {DP_AUC_TOL}); export by rank 0 {ranks[0]['fit']['export']}, resume point "
+        f"{ranks[0]['fit']['resume_point']}")
+    if (abs(best - dense["best_auc"]) > DP_AUC_TOL or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0] or not ranks[0]["fit"]["export"]
+            or ranks[0]["fit"]["resume_point"] != TRAIN_EPOCHS):
+        raise SystemExit("phase 6h (b): the two-rank fit is off phase 6's or wrote no export")
+    # (c): one rank on NCCL
+    (nccl,) = spawn_ranks(torch, dict(spec, name="nccl", backend="nccl", tasks=["step"]), 1,
+                          root)
+    step = nccl["step"]
+    if nccl["backend"] != "nccl" or step["launches"] != (ifwd, ibwd) or step["stats"]["calls"] < 1:
+        raise SystemExit(f"phase 6h (c): backend {nccl['backend']}, launches {step['launches']}, "
+                         f"collectives {step['stats']}")
+    worst = max(worst, dp_check_step(torch, "(c) 1 rank, NCCL", step, ref))
+    log(f"[dp (c)] NCCL, world 1: {step['stats']['calls']} collectives, {step['stats']['bytes']} "
+        f"bytes reduced in the step")
+    log(f"[dp] phase 6h in {time.perf_counter() - t_phase:.1f} s")
+    return {"grad_gap": worst, "best_auc": best,
+            "fit": [res["fit"] for res in ranks]}
+
+
 # ---- phase 7b: online serving over HTTP (serving/, the fused scoring kernel) ----
 # ragged request sizes: every bucket of DEFAULT_BUCKETS and past its boundary
 SERVE_RAGGED = (1, 15, 17, 63, 255, 1023, 4097)
@@ -2977,12 +3406,18 @@ def serve_http(torch, mm: dict, sasrec: dict, valid, store, card) -> None:
     log(f"[serve] phase 7b in {time.perf_counter() - t_phase:.1f} s")
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if argv[:1] == ["--dp-rank"] and len(argv) == 2:  # a rank of phase 6h (spawn_ranks)
+        return dp_rank(argv[1])
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     from ctr_recommendation_tpu_torch.ops.cuda import build
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
         bwd_launches as inter_bwd_launches,
@@ -3187,6 +3622,8 @@ def main() -> int:
             train, valid, train_store, root, card, counted,
             per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
             per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()})
+        # ---- phase 6h: data-parallel training, two ranks sharing the card ----
+        data_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
         sasrec_exp = microlens_experiment(data_root="", model="sasrec_fibinet",
                                           epochs=TRAIN_EPOCHS,
                                           checkpoint_dir=os.path.join(root, "ckpt_sasrec"))

@@ -1,8 +1,9 @@
-"""Train CLI: the JAX package's ``cli/train.py`` on the port, one device.
+"""Train CLI: the JAX package's ``cli/train.py`` on the port.
 
     python -m ctr_recommendation_tpu_torch.cli.train --data-root DIR [--device cuda]
     python -m ctr_recommendation_tpu_torch.cli.train --synthetic /tmp/synth --device cpu
     python -m ctr_recommendation_tpu_torch.cli.train --synthetic /tmp/synth --model xdeepfm
+    torchrun --nproc_per_node N -m ctr_recommendation_tpu_torch.cli.train --data-root DIR
 
 ``--model`` takes any name of ``models.available_models()``: the FiBiNET
 family (fibinet, mm_fibinet, sasrec_fibinet) and the zoo (autoint, dcnv2,
@@ -18,6 +19,13 @@ on the host, raising on an item_id missing from item_info) host-driven
 (``Trainer.fit``, ``--steps-per-dispatch`` batches an upload). The flags of
 the JAX CLI whose paths are not ported yet exit 2 naming their ROADMAP.md
 item.
+
+Under a launcher (torchrun: one process a rank, ``cuda:{LOCAL_RANK}``, NCCL;
+gloo with ``--device cpu``) it trains data-parallel as the JAX CLI trains
+multi-host: each rank takes its shard of the train split
+(``TableData.shard``, or its row groups under ``--stream``), every rank runs
+the same step count, ``--batch-size`` is each rank's batch, and training
+goes through ``Trainer.fit``; rank 0 alone writes the checkpoint directory.
 """
 
 from __future__ import annotations
@@ -89,7 +97,8 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     # flags whose code paths wait for a later slice, with their ROADMAP.md item by title
     refused = [msg for on, msg in (
-        (args.model_parallel > 1, "--model-parallel > 1 (queue 1: parallel)"),
+        (args.model_parallel > 1,
+         "--model-parallel > 1 (queue 1: parallel, row-sharded half, item 2)"),
         (args.profile_dir, "--profile-dir (queue 1: the rest, profiling)"),
     ) if on]
     if refused:
@@ -98,6 +107,10 @@ def main(argv=None) -> int:
 
     from ctr_recommendation_tpu_torch.config import load_experiment, microlens_experiment
     from ctr_recommendation_tpu_torch.config.loader import microlens_features
+    from ctr_recommendation_tpu_torch.parallel import distributed
+
+    # joins the launcher's process group, if any (a no-op in one process)
+    distributed.initialize(backend=distributed.default_backend(args.device))
 
     overrides = {}
     for k in ("epochs", "batch_size", "embedding_dim", "embedding_init_std",
@@ -113,12 +126,17 @@ def main(argv=None) -> int:
         from ctr_recommendation_tpu_torch.data import write_synthetic_dataset
 
         os.makedirs(args.synthetic, exist_ok=True)
-        if not os.path.exists(os.path.join(args.synthetic, "train.parquet")):
+        if (distributed.host_id() == 0
+                and not os.path.exists(os.path.join(args.synthetic, "train.parquet"))):
             print(f"[synthetic] generating {args.synthetic_rows} rows in {args.synthetic}")
             write_synthetic_dataset(
                 args.synthetic, num_rows=args.synthetic_rows,
                 num_items=args.synthetic_items, signal=args.synthetic_signal,
             )
+        if distributed.host_count() > 1:  # the other ranks read what rank 0 wrote
+            import torch.distributed as dist
+
+            dist.barrier()
         exp = microlens_experiment(
             data_root=args.synthetic, model=args.model or "mm_fibinet", **overrides
         )
@@ -158,13 +176,21 @@ def run_training(exp, *, resume: bool = False, strict_items: bool = False,
     ``stream_batches`` / ``iter_batches`` (drop_last), cut to the step
     count. Under ``strict_items`` the batches carry the dense item column
     joined on the host (an unknown item_id raises), and the trainer holds
-    no item store."""
+    no item store.
+
+    Over a process group of W ranks (``parallel.distributed.initialize``)
+    each rank trains on ``cuda:{LOCAL_RANK}`` (or the CPU) through ``fit``:
+    its shard of the split (its row groups under ``stream``), ``(rows //
+    W) // batch_size`` steps an epoch on every rank (``common_step_count``
+    under ``stream``), its batches shuffled with seed + rank."""
     import itertools
 
     from ctr_recommendation_tpu_torch.data import ItemStore, iter_batches, load_split
     from ctr_recommendation_tpu_torch.data.streaming import common_step_count, stream_batches
     from ctr_recommendation_tpu_torch.features import build_feature_map
     from ctr_recommendation_tpu_torch.models.registry import get_model
+    from ctr_recommendation_tpu_torch.parallel import distributed
+    from ctr_recommendation_tpu_torch.parallel.mesh import make_mesh
     from ctr_recommendation_tpu_torch.training import Trainer
 
     get_model(exp.model.model)  # fail fast on an unknown model, before data load
@@ -177,26 +203,35 @@ def run_training(exp, *, resume: bool = False, strict_items: bool = False,
         emb_col=exp.dataset.item_info_emb_col,
     )
     bs = exp.train.batch_size
+    n_hosts, host = distributed.host_count(), distributed.host_id()
     if stream:
         import pyarrow.parquet as pq
 
         train_rows = pq.ParquetFile(exp.dataset.train_data).metadata.num_rows
         train = None
-        steps = common_step_count(exp.dataset.train_data, bs)
+        # every rank runs as many steps: unequal counts would leave the
+        # others waiting in a collective
+        steps = common_step_count(exp.dataset.train_data, bs, n_hosts)
     else:
         train = load_split(exp.dataset.train_data, fm)
         train_rows = train.num_rows
-        steps = train_rows // bs
+        # a disjoint shard a rank, with a lockstep step count (the shards
+        # differ by up to n_hosts - 1 rows)
+        train = train.shard(host, n_hosts)
+        steps = (train_rows // n_hosts) // bs
     print(f"[data] train {train_rows} rows, valid {valid.num_rows} rows")
     if steps < 1:
-        print(f"batch size {bs} exceeds the train split ({train_rows} rows); "
-              "lower --batch-size", file=sys.stderr)
+        # not clamped to 1: every rank computes the same count, so all exit
+        print(f"batch size {bs} exceeds the smallest per-host train shard "
+              f"({train_rows} rows / {n_hosts} host(s)); lower --batch-size", file=sys.stderr)
         return 2
+    dev = distributed.rank_device(device)
+    mesh = make_mesh(exp.mesh, device=dev)
     # the item join runs on the device unless strict mode needs the host's check
     host_store = store if strict_items else None
-    trainer = Trainer(exp, steps_per_epoch=steps, device=device,
+    trainer = Trainer(exp, mesh=mesh, steps_per_epoch=steps, device=dev,
                       item_store=None if strict_items else store)
-    if not (stream or strict_items):
+    if n_hosts == 1 and not (stream or strict_items):
         trainer.fit_on_device(train, valid, resume=resume)
         return 0
 
@@ -204,12 +239,12 @@ def run_training(exp, *, resume: bool = False, strict_items: bool = False,
         if stream:
             it = stream_batches(
                 exp.dataset.train_data, fm, bs, shuffle=exp.train.shuffle,
-                seed=exp.train.seed, epoch=epoch, item_store=host_store, drop_last=True,
-                strict_items=strict_items)
+                seed=exp.train.seed, epoch=epoch, host_index=host, host_count=n_hosts,
+                item_store=host_store, drop_last=True, strict_items=strict_items)
         else:
             it = iter_batches(
-                train, fm, bs, shuffle=exp.train.shuffle, seed=exp.train.seed, epoch=epoch,
-                item_store=host_store, drop_last=True, strict_items=strict_items)
+                train, fm, bs, shuffle=exp.train.shuffle, seed=exp.train.seed + host,
+                epoch=epoch, item_store=host_store, drop_last=True, strict_items=strict_items)
         return itertools.islice(it, steps)
 
     def valid_batches():

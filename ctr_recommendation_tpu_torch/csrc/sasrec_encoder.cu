@@ -135,7 +135,8 @@ extern "C" size_t sasrec_encode_fwd_workspace(int B, int S, int E, int is_bf16) 
 // ln1_b (L,E), ffn1_w (L,E,4E), ffn1_b (L,4E), ffn2_w (L,4E,E), ffn2_b, ln2_s,
 // ln2_b (L,E): the four matrices in the compute dtype, the rest fp32. scale
 // is 1/sqrt(E/H). Dropout on the two residual branches when rate > 0: seed
-// is then a device pointer to one int64 and inv_keep fp32(1 / (1 - rate)).
+// is then a device pointer to one int64, inv_keep fp32(1 / (1 - rate)) and
+// token0 the global token of row 0 (Dropout).
 // workspace holds sasrec_encode_fwd_workspace bytes. Requires 1 <= S <= 32,
 // E % 32 == 0, E >= 32, E % H == 0, E / H <= 256, L >= 1, 0 <= rate < 1 and
 // 16-byte aligned pointers. Enqueues 1 + 7 L launches on `stream`; returns
@@ -146,13 +147,13 @@ extern "C" int sasrec_encode_fwd(const void* x, const float* amask, const void* 
                                  const float* ffn1_b, const void* ffn2_w, const float* ffn2_b,
                                  const float* ln2_s, const float* ln2_b, const int64_t* seed,
                                  void* out, void* workspace, int B, int S, int E, int H, int L,
-                                 float scale, float rate, float inv_keep, int is_bf16,
-                                 void* stream) {
+                                 float scale, float rate, float inv_keep, unsigned token0,
+                                 int is_bf16, void* stream) {
   if (!ctr::enc::in_envelope(B, S, E, H, L) || !ctr::enc::dropout_ok(seed, rate))
     return static_cast<int>(cudaErrorInvalidValue);
   const ctr::enc::Weights w{qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
                             ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b};
-  const Dropout drop{seed, rate, inv_keep};
+  const Dropout drop{seed, rate, inv_keep, token0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   char* ws = static_cast<char*>(workspace);
   if (is_bf16)
@@ -171,11 +172,12 @@ extern "C" int sasrec_encode_fwd(const void* x, const float* amask, const void* 
 // == 0. One launch.
 extern "C" int sasrec_product_fwd(int epi, const void* A, const void* B, int M, int N, int K,
                                   const float* bias, float* out_f, void* out_c,
-                                  const int64_t* seed, float rate, float inv_keep, int layer,
-                                  int branch, int is_bf16, void* stream) {
+                                  const int64_t* seed, float rate, float inv_keep,
+                                  unsigned token0, int layer, int branch, int is_bf16,
+                                  void* stream) {
   if (M < 1 || N % 32 || K % 32 || N < 32 || K < 32 || !ctr::enc::dropout_ok(seed, rate))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{seed, rate, inv_keep};
+  const Dropout drop{seed, rate, inv_keep, token0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return ctr::enc::product_nn<__nv_bfloat16>(

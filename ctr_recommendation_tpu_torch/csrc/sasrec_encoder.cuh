@@ -74,11 +74,15 @@ struct Layer {  // layer li's slice of the stacked operands
 };
 
 // Dropout's parameters as a kernel receives them: the seed is read from the
-// device (never from the host), and only when dropout is on.
+// device (never from the host), and only when dropout is on. token0 is the
+// global token of the batch's first row (a data-parallel rank's share starts
+// at rank * rows * S); the Philox counter takes token0 + the local token,
+// modulo 2^32, so a rank draws the masks of its rows of the global batch.
 struct Dropout {
   const int64_t* seed;
   float rate;
   float inv_keep;  // fp32(1 / (1 - rate))
+  uint32_t token0;
 
   // v[0..n) at columns col..col+n-1 of one group of 4 (col % 4 + n <= 4),
   // dropped in place: one Philox draw for the group. __fmul_rn: the product
@@ -88,8 +92,8 @@ struct Dropout {
   __device__ __forceinline__ void apply(float* v, size_t token, int col, int layer,
                                         int branch) const {
     if (rate <= 0.f) return;
-    const uint4 w = dropout_words(static_cast<uint64_t>(*seed), static_cast<uint32_t>(token), col,
-                                  layer, branch);
+    const uint4 w = dropout_words(static_cast<uint64_t>(*seed),
+                                  token0 + static_cast<uint32_t>(token), col, layer, branch);
 #pragma unroll
     for (int j = 0; j < n; ++j)
       v[j] = word_keeps(word_of(w, (col & 3) + j), rate) ? __fmul_rn(v[j], inv_keep) : 0.f;

@@ -206,7 +206,7 @@ extern "C" size_t sasrec_encode_bwd_workspace(int B, int S, int E, int H, int L,
 
 // g, x and dx (B*S, E) in the compute dtype (bf16 when is_bf16, else fp32);
 // amask (B, S) fp32; the 12 stacked weights as for sasrec_encode_fwd; seed,
-// rate and inv_keep the forward's. Writes dx and out, the 12 fp32 weight
+// rate, inv_keep and token0 the forward's. Writes dx and out, the 12 fp32 weight
 // gradients (L, ...) one after another in the weights' order. workspace
 // holds sasrec_encode_bwd_workspace bytes. Requires the forward's envelope
 // and 16-byte aligned pointers. Enqueues 25 L + 1 launches on
@@ -218,13 +218,13 @@ extern "C" int sasrec_encode_bwd(const void* g, const void* x, const float* amas
                                  const float* ffn2_b, const float* ln2_s, const float* ln2_b,
                                  const int64_t* seed, void* dx, float* out, void* workspace,
                                  int B, int S, int E, int H, int L, float scale, float rate,
-                                 float inv_keep, int is_bf16, void* stream) {
+                                 float inv_keep, unsigned token0, int is_bf16, void* stream) {
   if (!ctr::enc::in_envelope(B, S, E, H, L) ||
       !ctr::enc::dropout_ok(seed, rate))
     return static_cast<int>(cudaErrorInvalidValue);
   const ctr::enc::Weights w{qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
                             ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b};
-  const Dropout drop{seed, rate, inv_keep};
+  const Dropout drop{seed, rate, inv_keep, token0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   char* ws = static_cast<char*>(workspace);
   if (is_bf16) {
@@ -308,13 +308,14 @@ extern "C" int sasrec_attention_bwd(const float* qkv, const float* P, const floa
 // dropout gate of site (layer, branch): v = drop(G), gated = cd(v), sum v.
 // One launch.
 extern "C" int sasrec_column_sums(int mode, const float* G, const float* X, void* gated,
-                                  const int64_t* seed, float rate, float inv_keep, int layer,
-                                  int branch, int N, int ncols, int Z, int chunk, float* part,
-                                  float* part2, int is_bf16, void* stream) {
+                                  const int64_t* seed, float rate, float inv_keep,
+                                  unsigned token0, int layer, int branch, int N, int ncols, int Z,
+                                  int chunk, float* part, float* part2, int is_bf16,
+                                  void* stream) {
   if (N < 1 || ncols < 32 || ncols % 32 || Z < 1 || chunk < 1 ||
       static_cast<long>(Z) * chunk < N || !ctr::enc::dropout_ok(seed, rate))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{seed, rate, inv_keep};
+  const Dropout drop{seed, rate, inv_keep, token0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using namespace ctr::enc;
   auto run = [&](auto* gt) -> int {

@@ -26,6 +26,7 @@ from ctr_recommendation_tpu_torch.ops.initializers import (
     linear_apply,
     linear_init,
 )
+from ctr_recommendation_tpu_torch.parallel import data_parallel
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 VOCAB_ROUND = 128
@@ -248,14 +249,18 @@ def _attention_field(params, fm, cfg, batch, f, field_of, compute_dtype, train, 
     In train mode with a generator, one int64 dropout seed is drawn for this
     feature as a device tensor (the kernels read it through a pointer: no
     host sync), before the tower's dropout draws: the part of JAX's
-    ``fold_in(rng, crc32(name))``."""
+    ``fold_in(rng, crc32(name))``. In a data-parallel step the masks count
+    tokens from the rank's first global row times S, so that the ranks draw
+    the global batch's masks."""
     seq_ids, seq_emb, target = _history(params, fm, batch, f, field_of, compute_dtype, lookup)
     p = params["attn"][f.name]
     seed = None
     if train and generator is not None:
         seed = torch.randint(0, 2**63 - 1, (1,), generator=generator, dtype=torch.int64,
                              device=generator.device)
+    s = data_parallel.current()
+    token0 = 0 if s is None else s.row0 * seq_ids.shape[1]
     encode = fused_encode if cfg.use_pallas else attention.encode
     encoded = encode(p, seq_emb, seq_ids, num_heads=cfg.attn_num_heads, pad_id=f.pad_id,
-                     train=train, dropout_rate=cfg.attn_dropout, seed=seed)
+                     train=train, dropout_rate=cfg.attn_dropout, seed=seed, token0=token0)
     return attention.target_pool(p, encoded, seq_ids, target, pad_id=f.pad_id)

@@ -92,13 +92,15 @@ def encode(
     train: bool = False,
     dropout_rate: float = 0.0,
     seed: torch.Tensor | None = None,
+    token0: int = 0,
 ) -> torch.Tensor:
     """seq_emb (B, S, E), seq_ids (B, S) -> encoded history (B, S, E). Pad
     rows are zeroed before the first layer and after each. With ``train``,
     ``dropout_rate`` > 0 and a ``seed`` (int64 tensor (1,)), each block's
     attention and FFN outputs are dropped where the JAX ``encode`` drops
     them, with the masks of the kernel path (``sasrec_encoder.dropout_mask``,
-    sites (layer, 0) and (layer, 1)), kept values divided by 1 - rate."""
+    sites (layer, 0) and (layer, 1), tokens counted from ``token0``), kept
+    values divided by 1 - rate."""
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import dropout_mask
 
     b, s, e = seq_emb.shape
@@ -109,7 +111,7 @@ def encode(
     def dropout(a, li, branch):
         if not drop_on:
             return a
-        keep = dropout_mask(seed, b * s, e, li, branch, dropout_rate).reshape(b, s, e)
+        keep = dropout_mask(seed, b * s, e, li, branch, dropout_rate, token0).reshape(b, s, e)
         return torch.where(keep, a / (1.0 - dropout_rate), torch.zeros((), dtype=a.dtype,
                                                                        device=a.device))
 

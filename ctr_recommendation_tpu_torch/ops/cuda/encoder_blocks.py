@@ -21,9 +21,12 @@ tensor it launches its kernel or raises. The plain versions are what
 ``encode_fwd_plain`` and ``encode_bwd_plain`` are composed of.
 
 Dropout (``dropout_mask``) comes from a counter-based generator,
-Philox4x32-10, keyed by (seed, global token b*S + s, column, layer,
+Philox4x32-10, keyed by (seed, global token token0 + b*S + s, column, layer,
 branch); ``dropout_keep`` in csrc/common.cuh draws the same bits, so kernels
 and plain versions apply the same masks however they tile the tokens.
+``token0`` (default 0) is the global token of the batch's first row: a
+data-parallel rank passes its first global row times S, and so draws the
+masks of its rows of the global batch.
 """
 
 from __future__ import annotations
@@ -74,16 +77,18 @@ def philox4x32(ctr, key):
     return c0, c1, c2, c3
 
 
-def dropout_mask(seed, n_tokens: int, e: int, layer: int, branch: int, rate: float):
+def dropout_mask(seed, n_tokens: int, e: int, layer: int, branch: int, rate: float,
+                 token0: int = 0):
     """Keep mask (n_tokens, e) bool of dropout site (layer, branch): element
-    (t, c) is Philox4x32-10 word c % 4 of counter (t, c // 4, 2 layer +
-    branch, 0) under key (seed's low, high 32 bits); u = (word >> 8) 2^-24,
-    the TPU kernel's top-24-bit rule, and the element is kept iff u >= rate
-    (compared in fp32). ``seed`` is an int64 tensor (1,) on the device of
-    the result, or an int; nothing is read back to the host."""
+    (t, c) is Philox4x32-10 word c % 4 of counter ((token0 + t) mod 2^32,
+    c // 4, 2 layer + branch, 0) under key (seed's low, high 32 bits); u =
+    (word >> 8) 2^-24, the TPU kernel's top-24-bit rule, and the element is
+    kept iff u >= rate (compared in fp32). ``seed`` is an int64 tensor (1,)
+    on the device of the result, or an int; nothing is read back to the
+    host."""
     seed = torch.as_tensor(seed, dtype=torch.int64).reshape(-1)[:1]
     dev = seed.device
-    t = torch.arange(n_tokens, dtype=torch.int64, device=dev)[:, None]
+    t = ((token0 + torch.arange(n_tokens, dtype=torch.int64, device=dev)) & _U32)[:, None]
     q = torch.arange(e // 4, dtype=torch.int64, device=dev)[None, :]
     words = philox4x32(
         (t, q, torch.full((), 2 * layer + branch, dtype=torch.int64, device=dev),
@@ -95,12 +100,12 @@ def dropout_mask(seed, n_tokens: int, e: int, layer: int, branch: int, rate: flo
     return u >= torch.tensor(rate, dtype=torch.float32, device=dev)
 
 
-def dropout(a, seed, layer, branch, rate):
+def dropout(a, seed, layer, branch, rate, token0=0):
     """a (N, E) fp32 with the kernels' dropout applied: kept elements scaled
     by fp32(1 / (1 - rate)), the rest 0; a unchanged at rate 0."""
     if rate <= 0.0:
         return a
-    keep = dropout_mask(seed, a.shape[0], a.shape[1], layer, branch, rate)
+    keep = dropout_mask(seed, a.shape[0], a.shape[1], layer, branch, rate, token0)
     return torch.where(keep, a * (1.0 / (1.0 - rate)), torch.zeros((), device=a.device))
 
 
@@ -122,7 +127,8 @@ _EPILOGUES = ("store", "bias", "relu", "residual", "gate", "partial")
 
 
 def product_plain(a, b, layout="nn", epilogue="store", *, bias=None, aux=None, seed=None,
-                  rate=0.0, layer=0, branch=0, out_dtype=None, chunk=None, acc=torch.float64):
+                  rate=0.0, layer=0, branch=0, out_dtype=None, chunk=None, acc=torch.float64,
+                  token0=0):
     """C = A B ("nn": a (M, K), b (K, N)), A B^T ("nt": b (N, K)) or A^T B
     ("tn": a (K, M), b (K, N)) of the operands as given, accumulated in
     ``acc`` and rounded to fp32: fp64 by default, as the kernels' fp32 path
@@ -152,7 +158,7 @@ def product_plain(a, b, layout="nn", epilogue="store", *, bias=None, aux=None, s
     if epilogue == "relu":
         return torch.relu(c + bias).to(out_dtype)
     if epilogue == "residual":
-        y = aux + dropout(c + bias, seed, layer, branch, rate)
+        y = aux + dropout(c + bias, seed, layer, branch, rate, token0)
         return y if out_dtype is None else y.to(out_dtype)
     y = c * (aux.float() > 0.0)
     return y, y.to(cd)
@@ -207,7 +213,7 @@ def attention_bwd_plain(qkv, p, dao, cd):
 
 
 def column_sums_plain(g, mode="sum", *, x=None, seed=None, rate=0.0, layer=0, branch=0,
-                      cd=None, chunk=None):
+                      cd=None, chunk=None, token0=0):
     """Column sums of g (N, C) fp32 over chunks of ``chunk`` rows (one chunk
     when None) -> (Z, C) partials: "sum" of g; "ln" (sum g x, sum g); "gate"
     v = dropout(g) at site (layer, branch): (sum v, v in cd)."""
@@ -221,7 +227,7 @@ def column_sums_plain(g, mode="sum", *, x=None, seed=None, rate=0.0, layer=0, br
     if mode == "ln":
         return sums(g * x), sums(g)
     if mode == "gate":
-        v = dropout(g, seed, layer, branch, rate)
+        v = dropout(g, seed, layer, branch, rate, token0)
         return sums(v), v.to(cd)
     raise ValueError(f"no column sums {mode!r}")
 
@@ -235,7 +241,7 @@ def reduce_partials_plain(part):
 
 _FWD = None
 _BWD = None
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 
 
 def fwd_lib():
@@ -245,9 +251,9 @@ def fwd_lib():
         lib = build.load("sasrec_encoder")
         lib.sasrec_encode_fwd_workspace.argtypes = [_I] * 4
         lib.sasrec_encode_fwd_workspace.restype = ctypes.c_size_t
-        lib.sasrec_encode_fwd.argtypes = [_VP] * 17 + [_I] * 5 + [_F] * 3 + [_I, _VP]
+        lib.sasrec_encode_fwd.argtypes = [_VP] * 17 + [_I] * 5 + [_F] * 3 + [_U, _I, _VP]
         lib.sasrec_product_fwd.argtypes = (
-            [_I] + [_VP] * 2 + [_I] * 3 + [_VP] * 4 + [_F] * 2 + [_I] * 3 + [_VP])
+            [_I] + [_VP] * 2 + [_I] * 3 + [_VP] * 4 + [_F] * 2 + [_U] + [_I] * 3 + [_VP])
         lib.sasrec_layer_norm.argtypes = [_VP, _I, _I] + [_VP] * 5 + [_I, _VP]
         lib.sasrec_attention_fwd.argtypes = [_VP] * 4 + [_I] * 4 + [_F, _I, _VP]
         _FWD = lib
@@ -261,12 +267,12 @@ def bwd_lib():
         lib = build.load("sasrec_encoder_bwd")
         lib.sasrec_encode_bwd_workspace.argtypes = [_I] * 6
         lib.sasrec_encode_bwd_workspace.restype = ctypes.c_size_t
-        lib.sasrec_encode_bwd.argtypes = [_VP] * 19 + [_I] * 5 + [_F] * 3 + [_I, _VP]
+        lib.sasrec_encode_bwd.argtypes = [_VP] * 19 + [_I] * 5 + [_F] * 3 + [_U, _I, _VP]
         lib.sasrec_product_bwd.argtypes = [_I, _I, _VP, _VP] + [_I] * 5 + [_VP] * 3 + [_I, _VP]
         lib.sasrec_layer_norm_bwd.argtypes = [_VP] * 6 + [_I] * 4 + [_VP]
         lib.sasrec_attention_bwd.argtypes = [_VP] * 5 + [_I] * 4 + [_F, _I, _VP]
         lib.sasrec_column_sums.argtypes = (
-            [_I] + [_VP] * 4 + [_F] * 2 + [_I] * 6 + [_VP] * 2 + [_I, _VP])
+            [_I] + [_VP] * 4 + [_F] * 2 + [_U] + [_I] * 6 + [_VP] * 2 + [_I, _VP])
         lib.sasrec_reduce_partials.argtypes = [_VP, _I, _I, _VP, _VP]
         _BWD = lib
     return _BWD
@@ -285,10 +291,11 @@ def check_dropout(seed, rate) -> None:
         raise ValueError("dropout (rate > 0) needs a seed: an int64 tensor of shape (1,)")
 
 
-def dropout_args(seed, rate):
-    """(seed pointer or None, rate, 1 / (1 - rate)) for a C entry point."""
+def dropout_args(seed, rate, token0=0):
+    """(seed pointer or None, rate, 1 / (1 - rate), token0 mod 2^32) for a C
+    entry point."""
     check_dropout(seed, rate)
-    return (seed.data_ptr() if rate > 0.0 else None), rate, 1.0 / (1.0 - rate)
+    return (seed.data_ptr() if rate > 0.0 else None), rate, 1.0 / (1.0 - rate), token0 & _U32
 
 
 _FWD_EPI = {"bias": 1, "relu": 2, "residual": 3}
@@ -296,14 +303,14 @@ _BWD_EPI = {("nt", "store"): 0, ("nt", "gate"): 5, ("tn", "partial"): 6}
 
 
 def product(a, b, layout="nn", epilogue="store", *, bias=None, aux=None, seed=None, rate=0.0,
-            layer=0, branch=0, out_dtype=None, chunk=None):
+            layer=0, branch=0, out_dtype=None, chunk=None, token0=0):
     """``product_plain`` on CPU tensors; on CUDA tensors the tile product
     kernel, one launch, in the combinations the encoder runs: "nn" with
     "bias", "relu" or "residual"; "nt" with "store" or "gate"; "tn" with
     "partial" (chunk % 64 == 0). a and b in one compute dtype (bf16 or
     fp32), contiguous; N and K multiples of 32."""
     kw = dict(bias=bias, aux=aux, seed=seed, rate=rate, layer=layer, branch=branch,
-              out_dtype=out_dtype, chunk=chunk)
+              out_dtype=out_dtype, chunk=chunk, token0=token0)
     if a.device.type == "cpu":
         return product_plain(a, b, layout, epilogue, **kw)
     cuda_only("product", a)
@@ -312,7 +319,7 @@ def product(a, b, layout="nn", epilogue="store", *, bias=None, aux=None, seed=No
     n = b.shape[0] if layout == "nt" else b.shape[1]
     f32 = torch.float32
     dev = a.device
-    seed_ptr, rate, inv_keep = dropout_args(seed, rate)
+    drop = dropout_args(seed, rate, token0)
     if layout == "nn" and epilogue in _FWD_EPI:
         out_f, out_c = None, None
         if epilogue == "bias":
@@ -326,7 +333,7 @@ def product(a, b, layout="nn", epilogue="store", *, bias=None, aux=None, seed=No
         epi = _FWD_EPI[epilogue] + (1 if epilogue == "residual" and out_c is not None else 0)
         rc = fwd_lib().sasrec_product_fwd(
             epi, a.data_ptr(), b.data_ptr(), m, n, k, ptr(bias), ptr(out_f), ptr(out_c),
-            seed_ptr, rate, inv_keep, layer, branch, is_bf16(a), stream_of(a))
+            *drop, layer, branch, is_bf16(a), stream_of(a))
         build.check(rc, f"product {layout} {epilogue}")
         return out_c if out_c is not None else out_f
     code = _BWD_EPI.get((layout, epilogue))
@@ -408,9 +415,10 @@ _SUM_MODES = {"sum": 0, "ln": 1, "gate": 2}
 
 
 def column_sums(g, mode="sum", *, x=None, seed=None, rate=0.0, layer=0, branch=0, cd=None,
-                chunk=None):
+                chunk=None, token0=0):
     """``column_sums_plain`` on CPU tensors, the kernel on CUDA."""
-    kw = dict(x=x, seed=seed, rate=rate, layer=layer, branch=branch, cd=cd, chunk=chunk)
+    kw = dict(x=x, seed=seed, rate=rate, layer=layer, branch=branch, cd=cd, chunk=chunk,
+              token0=token0)
     if g.device.type == "cpu":
         return column_sums_plain(g, mode, **kw)
     cuda_only("column_sums", g)
@@ -420,10 +428,9 @@ def column_sums(g, mode="sum", *, x=None, seed=None, rate=0.0, layer=0, branch=0
     part = torch.empty(z, c, device=g.device)
     part2 = torch.empty(z, c, device=g.device) if mode == "ln" else None
     gated = torch.empty(n, c, dtype=cd, device=g.device) if mode == "gate" else None
-    seed_ptr, rate, inv_keep = dropout_args(seed, rate)
     rc = bwd_lib().sasrec_column_sums(
-        _SUM_MODES[mode], g.data_ptr(), ptr(x), ptr(gated), seed_ptr, rate, inv_keep, layer,
-        branch, n, c, z, chunk, part.data_ptr(), ptr(part2), int(cd == torch.bfloat16),
+        _SUM_MODES[mode], g.data_ptr(), ptr(x), ptr(gated), *dropout_args(seed, rate, token0),
+        layer, branch, n, c, z, chunk, part.data_ptr(), ptr(part2), int(cd == torch.bfloat16),
         stream_of(g))
     build.check(rc, f"column_sums {mode}")
     return (part, part2) if mode == "ln" else (part, gated) if mode == "gate" else part

@@ -120,14 +120,14 @@ def cast_matrices(weights, dtype: torch.dtype) -> tuple:
     )
 
 
-def _layer_fwd(h, amask, w, li, cd, num_heads, seed, rate, acc=torch.float64):
+def _layer_fwd(h, amask, w, li, cd, num_heads, seed, rate, acc=torch.float64, token0=0):
     """One pre-LN block on the fp32 stream h (B*S, E), composed of the
     plain blocks at the kernels' rounding points (products accumulated in
     ``acc``) -> (new h, the residues the backward needs, the products'
     operands kept in fp32)."""
     (qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
      ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b) = (t[li] for t in w)
-    drop = dict(seed=seed, rate=rate, layer=li, acc=acc)
+    drop = dict(seed=seed, rate=rate, layer=li, acc=acc, token0=token0)
     hn1, xhat1, r1 = layer_norm_plain(h, ln1_s, ln1_b, torch.float32, residues=True)
     qkv = product_plain(hn1.to(cd), qkv_w.to(cd), "nn", "bias", bias=qkv_b, acc=acc)
     ao, p = attention_fwd_plain(qkv, amask, num_heads, torch.float32)
@@ -144,22 +144,22 @@ def _layer_fwd(h, amask, w, li, cd, num_heads, seed, rate, acc=torch.float64):
 
 def encode_fwd_plain(
     x, amask, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
-    ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b, *, num_heads, seed=None, rate=0.0,
+    ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b, *, num_heads, seed=None, rate=0.0, token0=0,
 ):
     """Plain PyTorch version at the kernel's rounding points, composed of
     the plain blocks: x (B, S, E) in cd, amask (B, S) fp32 additive ->
     (B, S, E) in cd. With ``rate`` > 0 the dropout masks of ``dropout_mask``
-    under ``seed`` multiply a1 and f2."""
+    under ``seed`` (tokens counted from ``token0``) multiply a1 and f2."""
     w = (qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b)
     b, s, e = x.shape
     h = x.float().reshape(b * s, e)
     for li in range(qkv_w.shape[0]):
-        h, _ = _layer_fwd(h, amask, w, li, x.dtype, num_heads, seed, rate)
+        h, _ = _layer_fwd(h, amask, w, li, x.dtype, num_heads, seed, rate, token0=token0)
     return h.reshape(b, s, e).to(x.dtype)
 
 
 def encode_bwd_plain(g, x, amask, *weights, num_heads, seed=None, rate=0.0,
-                     fp32_operands=False, acc=torch.float64):
+                     fp32_operands=False, acc=torch.float64, token0=0):
     """Plain PyTorch version of the backward: the hand-derived VJP of the TPU
     kernel's ``_bwd_kernel`` (:238-351, with ``_attn_bwd`` :108-136 and
     ``_ln_bwd`` :70-76) at its rounding points, not autograd, composed of
@@ -180,7 +180,7 @@ def encode_bwd_plain(g, x, amask, *weights, num_heads, seed=None, rate=0.0,
     h = x.float().reshape(b * s, e)
     saved = []
     for li in range(weights[0].shape[0]):
-        h, res = _layer_fwd(h, amask, weights, li, cd, num_heads, seed, rate, acc)
+        h, res = _layer_fwd(h, amask, weights, li, cd, num_heads, seed, rate, acc, token0)
         saved.append(res)
 
     grads = [torch.zeros(t.shape, dtype=torch.float32, device=x.device) for t in weights]
@@ -191,7 +191,7 @@ def encode_bwd_plain(g, x, amask, *weights, num_heads, seed=None, rate=0.0,
         qkv_w, _, proj_w, _, ln1_s, _, ffn1_w, _, ffn2_w, _, ln2_s, _ = (t[li] for t in weights)
         res = saved[li]
         # FFN branch
-        df2 = dropout(dh, seed, li, 1, rate)
+        df2 = dropout(dh, seed, li, 1, rate, token0)
         dffn2_w[li] = product_plain(rc(res["f1"]), rc(df2), "tn", acc=acc)
         dffn2_b[li] = column_sums_plain(df2)[0]
         dz1, _ = product_plain(rc(df2), rc(ffn2_w), "nt", "gate", aux=res["f1"],
@@ -203,7 +203,7 @@ def encode_bwd_plain(g, x, amask, *weights, num_heads, seed=None, rate=0.0,
         dln2_s[li], dln2_b[li] = ds[0], db[0]
         dh = layer_norm_bwd_plain(dn2, res["xhat2"], res["r2"], ln2_s, dh)
         # attention branch
-        da1 = dropout(dh, seed, li, 0, rate)
+        da1 = dropout(dh, seed, li, 0, rate, token0)
         dproj_w[li] = product_plain(rc(res["ao"]), rc(da1), "tn", acc=acc)
         dproj_b[li] = column_sums_plain(da1)[0]
         dao = product_plain(rc(da1), rc(proj_w), "nt", acc=acc)
@@ -268,26 +268,28 @@ def _workspace(nbytes: int, device):
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
-def encode_fwd(x, amask, *weights, num_heads, seed=None, rate=0.0):
+def encode_fwd(x, amask, *weights, num_heads, seed=None, rate=0.0, token0=0):
     """x (B, S, E) bf16/fp32, the pos-embedded history with pad rows zeroed;
     amask (B, S) fp32, -1e9 at pad keys; the 12 operands of
     ``stack_weights``; with ``rate`` > 0 the dropout seed, an int64 tensor
-    (1,) on x's device -> the encoded history (B, S, E) in x's dtype (pad
-    rows hold what the layers left there)."""
+    (1,) on x's device, and ``token0`` the global token of row 0 -> the
+    encoded history (B, S, E) in x's dtype (pad rows hold what the layers
+    left there)."""
     check_dropout(seed, rate)
     if x.device.type == "cpu":
-        return encode_fwd_plain(x, amask, *weights, num_heads=num_heads, seed=seed, rate=rate)
+        return encode_fwd_plain(x, amask, *weights, num_heads=num_heads, seed=seed, rate=rate,
+                                token0=token0)
     b, s, e, layers = _check_envelope("encode_fwd", x, amask, weights, num_heads, seed, rate)
     out = torch.empty_like(x)
     if b == 0:
         return out
     lib = fwd_lib()
     ws = _workspace(lib.sasrec_encode_fwd_workspace(b, s, e, is_bf16(x)), x.device)
-    seed_ptr, rate, inv_keep = dropout_args(seed, rate)
+    seed_ptr, *drop = dropout_args(seed, rate, token0)
     rc = lib.sasrec_encode_fwd(
         x.data_ptr(), amask.data_ptr(), *(t.data_ptr() for t in weights), seed_ptr,
         out.data_ptr(), ws.data_ptr(), b, s, e, num_heads, layers, 1.0 / (e // num_heads) ** 0.5,
-        rate, inv_keep, is_bf16(x), stream_of(x),
+        *drop, is_bf16(x), stream_of(x),
     )
     build.check(rc, "encode_fwd")
     encode_fwd.launches += fwd_launches(layers)
@@ -297,15 +299,15 @@ def encode_fwd(x, amask, *weights, num_heads, seed=None, rate=0.0):
 encode_fwd.launches = 0
 
 
-def encode_bwd(g, x, amask, *weights, num_heads, seed=None, rate=0.0):
+def encode_bwd(g, x, amask, *weights, num_heads, seed=None, rate=0.0, token0=0):
     """g and x (B, S, E) in the compute dtype (g the cotangent of
     ``encode_fwd``'s output, x its input), amask (B, S), the 12 operands of
-    ``stack_weights`` and the forward's seed and rate -> (dx in x's dtype,
-    the 12 weight gradients fp32 in the shapes of the weights)."""
+    ``stack_weights`` and the forward's seed, rate and token0 -> (dx in x's
+    dtype, the 12 weight gradients fp32 in the shapes of the weights)."""
     check_dropout(seed, rate)
     if x.device.type == "cpu":
         return encode_bwd_plain(g, x, amask, *weights, num_heads=num_heads, seed=seed,
-                                rate=rate)
+                                rate=rate, token0=token0)
     b, s, e, layers = _check_envelope("encode_bwd", x, amask, weights, num_heads, seed, rate)
     if tuple(g.shape) != tuple(x.shape):
         raise ValueError(f"g has shape {tuple(g.shape)}, expected {tuple(x.shape)}")
@@ -317,11 +319,11 @@ def encode_bwd(g, x, amask, *weights, num_heads, seed=None, rate=0.0):
         lib = bwd_lib()
         ws = _workspace(lib.sasrec_encode_bwd_workspace(b, s, e, num_heads, layers, is_bf16(x)),
                         x.device)
-        seed_ptr, rate, inv_keep = dropout_args(seed, rate)
+        seed_ptr, *drop = dropout_args(seed, rate, token0)
         rc = lib.sasrec_encode_bwd(
             g.data_ptr(), x.data_ptr(), amask.data_ptr(), *(t.data_ptr() for t in weights),
             seed_ptr, dx.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s, e, num_heads, layers,
-            1.0 / (e // num_heads) ** 0.5, rate, inv_keep, is_bf16(x), stream_of(x),
+            1.0 / (e // num_heads) ** 0.5, *drop, is_bf16(x), stream_of(x),
         )
         build.check(rc, "encode_bwd")
         encode_bwd.launches += bwd_launches(layers)
@@ -338,23 +340,23 @@ class FusedEncoder(torch.autograd.Function):
     TPU kernels: it takes the fp32 master weights and returns fp32 weight
     gradients; the four matrices are cast to the compute dtype inside, and
     x (not the output) is kept for the backward, which recomputes the rest
-    and redraws the dropout masks from the same seed."""
+    and redraws the dropout masks from the same seed and token0."""
 
     @staticmethod
-    def forward(ctx, x, amask, seed, rate, num_heads, *weights):
+    def forward(ctx, x, amask, seed, rate, num_heads, token0, *weights):
         ctx.save_for_backward(x, amask, seed, *weights)
-        ctx.rate, ctx.num_heads = rate, num_heads
+        ctx.rate, ctx.num_heads, ctx.token0 = rate, num_heads, token0
         return encode_fwd(x, amask, *cast_matrices(weights, x.dtype), num_heads=num_heads,
-                          seed=seed, rate=rate)
+                          seed=seed, rate=rate, token0=token0)
 
     @staticmethod
     def backward(ctx, g):
         x, amask, seed, *weights = ctx.saved_tensors
         dx, *dws = encode_bwd(
             g.to(x.dtype).contiguous(), x, amask, *cast_matrices(weights, x.dtype),
-            num_heads=ctx.num_heads, seed=seed, rate=ctx.rate,
+            num_heads=ctx.num_heads, seed=seed, rate=ctx.rate, token0=ctx.token0,
         )
-        return (dx, None, None, None, None, *dws)
+        return (dx, None, None, None, None, None, *dws)
 
 
 def encoder_inputs(params: dict, seq_emb: torch.Tensor, seq_ids: torch.Tensor, pad_id: int = 0):
@@ -378,16 +380,18 @@ def fused_encode(
     train: bool = False,
     dropout_rate: float = 0.0,
     seed: torch.Tensor | None = None,
+    token0: int = 0,
 ) -> torch.Tensor:
     """The JAX package's ``fused_encode``: seq_emb (B, S, E), seq_ids (B, S)
     -> encoded (B, S, E) in seq_emb's dtype (bf16 or fp32), pad rows zero.
     Differentiable w.r.t. seq_emb and every encoder parameter (pos_emb
     through the plain add). Dropout is on only when ``train``,
-    ``dropout_rate`` > 0 and a ``seed`` (int64 tensor (1,)) is given."""
+    ``dropout_rate`` > 0 and a ``seed`` (int64 tensor (1,)) is given; its
+    masks count tokens from ``token0`` (``dropout_mask``)."""
     drop_on = train and dropout_rate > 0.0 and seed is not None
     x, amask, pad = encoder_inputs(params, seq_emb, seq_ids, pad_id)
     out = FusedEncoder.apply(
         x, amask, seed if drop_on else None, float(dropout_rate) if drop_on else 0.0, num_heads,
-        *stack_weights(params, torch.float32),
+        token0, *stack_weights(params, torch.float32),
     )
     return torch.where(pad[..., None], torch.zeros((), dtype=out.dtype, device=out.device), out)

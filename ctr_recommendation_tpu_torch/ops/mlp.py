@@ -6,6 +6,12 @@ statistics are fp32 even in a bf16 tower and leave out zero-weight rows
 (``nn.BatchNorm1d`` cannot mask); dropout draws from an explicit generator.
 ``fold_batch_norm`` turns the eval tower into plain affine layers, which the
 fused scoring kernel consumes.
+
+Within a data-parallel step (``parallel/data_parallel.py``: ``current()`` is
+a rank's slice of the global batch) the train-mode statistics run over the
+global batch, all-reduced and differentiable, and dropout keeps the rank's
+rows of the global batch's mask: each rank computes its rows of what one
+process computes over the whole batch.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from typing import Sequence
 import torch
 
 from ctr_recommendation_tpu_torch.ops.initializers import linear_apply, linear_init
+from ctr_recommendation_tpu_torch.parallel import data_parallel
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -45,11 +52,32 @@ def init(
     return params, state
 
 
+def _global_stats(h32, weight, s):
+    """(mean, biased var, unbiased var) over the global batch of slice
+    ``s``: sums all-reduced, then the squared deviations from the global
+    mean (two passes, as one process computes them)."""
+    reduce = data_parallel.all_reduce_sum
+    if weight is not None:
+        w = weight.float()[:, None]
+        sums = reduce(torch.cat([(h32 * w).sum(0), w.sum().reshape(1)]), s.group)
+        n_eff = torch.clamp(sums[-1], min=1.0)
+        mean = sums[:-1] / n_eff
+        var = reduce((w * (h32 - mean) ** 2).sum(0), s.group) / n_eff
+        return mean, var, var * (n_eff / torch.clamp(n_eff - 1.0, min=1.0))
+    n = s.global_rows
+    mean = reduce(h32.sum(0), s.group) / n
+    var = reduce(((h32 - mean) ** 2).sum(0), s.group) / n
+    return mean, var, var * (n / max(n - 1, 1))
+
+
 def _batch_norm(layer, st, h, train: bool, weight=None):
     if train:
         # statistics always in fp32 (stable even when the tower runs bf16)
         h32 = h.float()
-        if weight is not None:
+        s = data_parallel.current()
+        if s is not None:
+            mean, var, unbiased = _global_stats(h32, weight, s)
+        elif weight is not None:
             # zero-weight (padded) rows are left out of the batch statistics
             w = weight.float()[:, None]
             n_eff = torch.clamp(w.sum(), min=1.0)
@@ -75,9 +103,18 @@ def _batch_norm(layer, st, h, train: bool, weight=None):
 
 def dropout(h: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """Inverted dropout: each element kept with probability 1 - rate (one
-    uniform draw from ``generator`` an element) and divided by it."""
+    uniform draw from ``generator`` an element) and divided by it. In a
+    data-parallel step the draw covers the global batch and h takes its
+    slice's rows of it."""
     keep = 1.0 - rate
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    s = data_parallel.current()
+    if s is None:
+        mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    else:
+        if h.shape[0] != s.rows:
+            raise ValueError(f"dropout on {h.shape[0]} rows in a step of {s.rows} a rank")
+        mask = torch.rand((s.global_rows, *h.shape[1:]), generator=generator,
+                          device=h.device)[s.row0 : s.row0 + s.rows] < keep
     return torch.where(mask, h / keep, 0.0)
 
 

@@ -1,4 +1,5 @@
-"""Training driver on one device: the JAX package's ``Trainer.fit_on_device``.
+"""Training driver: the JAX package's ``Trainer``, on one device or
+data-parallel over the ranks of ``torch.distributed``.
 
 Same semantics as the JAX package's training/loop.py:35-40, 231-489 and
 989-1156: weighted BCE on logits, the dense optimizer chain (Adam + L2,
@@ -36,8 +37,29 @@ host reads them at ``log_every`` and once per epoch. Dropout draws from a
 generator reseeded from ``(seed + 1, step)`` at every step, as the JAX
 package folds the step into its rng, so a resumed run draws the same masks.
 
-Not ported yet: multi-device meshes, profiling and TensorBoard mirroring
-(ROADMAP.md).
+Data-parallel (a ``mesh`` over a process group, ``parallel/``): one
+process and one device a rank, each with a replica of the parameters
+(checked equal to rank 0's at the start, ``sharding.put_global``). A step
+computes what one process computes over the global batch of every rank's
+rows (``parallel/data_parallel.py``): the loss is each rank's share of the
+global mean, BatchNorm's statistics are global, dropout draws the global
+batch's masks, the sparse tables dedup the global ids, and the gradients
+(the fused interaction's fp32 weight gradients among them), row gradients
+and the loss are summed across ranks in a few buckets before the clip and
+the optimizer, which then run alike on every rank. Collectives are only
+``all_reduce`` and ``broadcast``: NCCL for one rank a card, gloo on the CPU
+(the tests) or for ranks that share one card. ``fit_on_device`` keeps the
+whole split on every rank and takes ``batch_size`` as the global batch
+(rank r steps through rows [r bs/W, (r + 1) bs/W) of each); ``fit`` takes
+each rank's own batches, so the global batch is W x ``batch_size``, as in
+the JAX package. Every rank evaluates the valid split and acts on rank 0's
+metrics (a broadcast); rank 0 alone writes ``metrics.csv``,
+``experiment.json``, resume points and the best export, and the ranks meet
+at a barrier after each epoch's writes. Launch:
+``torchrun --nproc_per_node N -m ctr_recommendation_tpu_torch.cli.train ...``.
+
+Not ported yet: row-sharded tables (``model_parallel > 1``), profiling and
+TensorBoard mirroring (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,6 +73,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ctr_recommendation_tpu_torch.config import serialize
@@ -65,6 +88,9 @@ from ctr_recommendation_tpu_torch.features.feature_map import build_feature_map
 from ctr_recommendation_tpu_torch.features.hashing import apply_hashing, hash_plan
 from ctr_recommendation_tpu_torch.models.registry import get_model
 from ctr_recommendation_tpu_torch.models.trunk import gather
+from ctr_recommendation_tpu_torch.parallel import data_parallel, sharding
+from ctr_recommendation_tpu_torch.parallel.data_parallel import DataSlice
+from ctr_recommendation_tpu_torch.parallel.mesh import MODEL_PARALLEL_REFUSAL, Mesh, make_mesh
 from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
 from ctr_recommendation_tpu_torch.training import metrics as metrics_lib
 from ctr_recommendation_tpu_torch.training import sparse as sparse_lib
@@ -75,15 +101,21 @@ from ctr_recommendation_tpu_torch.utils.device import resolve_device
 from ctr_recommendation_tpu_torch.utils.tree import tree_map
 
 
-def bce_with_logits(logits, labels, weight=None):
+def bce_with_logits(logits, labels, weight=None, data: DataSlice | None = None):
     """optax.sigmoid_binary_cross_entropy: the mean, or the weighted mean
-    over max(sum(weight), 1)."""
+    over max(sum(weight), 1). In a data-parallel step (``data``) this rank's
+    share of the global one: its rows' sum over the global row count, or
+    over the global max(sum(weight), 1), all-reduced before the division;
+    the ranks' shares sum to the global loss."""
     labels = labels.float()
     losses = -(labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits))
     if weight is None:
-        return losses.mean()
+        return losses.mean() if data is None else losses.sum() / data.global_rows
     w = weight.float()
-    return (losses * w).sum() / w.sum().clamp(min=1.0)
+    total = w.sum()
+    if data is not None:
+        total = data_parallel.all_reduce_(total.reshape(1), data.group)[0]
+    return (losses * w).sum() / total.clamp(min=1.0)
 
 
 def _seed(base: int, index: int) -> int:
@@ -106,6 +138,7 @@ class StepAux:
     # gathered table's row buffer as "rows/<table>"
     targets: dict[str, torch.Tensor]
     uids: dict[str, torch.Tensor]  # gathered table -> its batch's unique ids
+    loss: torch.Tensor | None = None  # the global loss, once ``gradients`` has run
 
 
 @dataclasses.dataclass
@@ -125,6 +158,7 @@ class Trainer:
         self,
         experiment: ExperimentConfig,
         *,
+        mesh: Mesh | None = None,
         total_steps: int | None = None,
         steps_per_epoch: int | None = None,
         checkpoint_dir: str | None = None,
@@ -136,8 +170,19 @@ class Trainer:
     ):
         """``params``/``model_state`` (tensors or numpy arrays in the JAX
         layout) replace the seeded init, e.g. to start from bridged JAX
-        weights; they are copied, never aliased."""
+        weights; they are copied, never aliased. ``mesh`` (default
+        ``make_mesh(experiment.mesh)``: the process group's ranks, or one
+        device without one) lays out the ranks; over a process group the
+        trainer runs data-parallel on the mesh's data axis, with this
+        rank's replica on ``device``."""
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(experiment.mesh, device=self.device)
+        if self.mesh.shape[experiment.mesh.model_axis] > 1:
+            raise NotImplementedError(MODEL_PARALLEL_REFUSAL)
+        # the data axis' process group: None for one process
+        self._data = self.mesh.group(experiment.mesh.data_axis)
+        self._world = self.mesh.shape[experiment.mesh.data_axis]
+        self._rank = self.mesh.rank(experiment.mesh.data_axis)
         self.exp = experiment
         self.fm = build_feature_map(experiment.dataset)
         self.module = get_model(experiment.model.model)
@@ -181,6 +226,10 @@ class Trainer:
             )
         params = tree_map(lambda t: self._to_device(t).requires_grad_(), params)
         model_state = tree_map(self._to_device, model_state)
+        if self._data is not None:  # every rank must start from rank 0's replica
+            both = {"params": params, "model_state": model_state}
+            sharding.put_global(both, sharding.tree_shardings(
+                sharding.param_specs(both, self.mesh, experiment.mesh.model_axis), self.mesh))
         self.param_paths = dict(flatten(params))
         self.param_leaves = list(self.param_paths.values())
         # the dense chain's leaves: all of them, or without the tables
@@ -260,8 +309,11 @@ class Trainer:
 
         return lookup
 
-    def _plan_step(self, feats: dict):
-        """(feats, lookup, targets, uids) of one step on joined feats."""
+    def _plan_step(self, feats: dict, data: DataSlice | None = None):
+        """(feats, lookup, targets, uids) of one step on joined feats; in a
+        data-parallel step (``data``) the strategies follow the global
+        batch's id counts and the gathered tables' uids are the global
+        batch's."""
         tables = self.state.params["trunk"]["tables"]
         if self.table_opt is None:
             multi = self._multi_feature_plan(feats)
@@ -272,11 +324,11 @@ class Trainer:
         for f in fm.features:
             if f.type in _ID_TYPES and f.name in feats:
                 t = fm.table_of[f.name]
-                counts[t] = counts.get(t, 1) + feats[f.name].numel()
+                counts[t] = counts.get(t, 1) + feats[f.name].numel() * self._world
         gathered = sorted(t for t, c in counts.items()
                           if sparse_lib.choose_strategy(tables[t].shape[0], c) == "gathered")
         masked = [t for t in counts if t not in gathered]
-        feats, uids = sparse_lib.remap_batch(fm, feats, tables, only=gathered)
+        feats, uids = sparse_lib.remap_batch(fm, feats, tables, only=gathered, data=data)
         rows = {t: sparse_lib.gather_rows(tables[t].detach(), u).requires_grad_()
                 for t, u in uids.items()}
         lookup = self._merged_lookup(tables, rows, self._multi_feature_plan(feats, only=masked))
@@ -285,28 +337,46 @@ class Trainer:
         targets.update({_ROWS + t: r for t, r in rows.items()})
         return feats, lookup, targets, uids
 
+    def _slice(self, rows: int) -> DataSlice | None:
+        """This rank's share of a step whose batch holds ``rows`` rows a rank
+        (None for one process)."""
+        return None if self._data is None else DataSlice(self._data, self._world, self._rank,
+                                                         rows)
+
     def forward_loss(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, StepAux]:
         """(loss, StepAux) of one train-mode forward on a batch of device
-        columns, with the dropout masks of the current step."""
+        columns, with the dropout masks of the current step. Data-parallel,
+        the batch is this rank's rows and the loss its share of the global
+        loss."""
         fm = self.fm
         weight = batch.get("__weight__")
         feats = {k: v for k, v in batch.items() if k not in (fm.label, "__weight__")}
-        feats, lookup, targets, uids = self._plan_step(self._device_join(feats))
-        self._dropout_gen.manual_seed(_seed(self.exp.train.seed + 1, self.state.step))
-        logits, new_mstate = self.module.apply(
-            self.state.params, self.state.model_state, fm, self.exp.model, feats,
-            train=True, generator=self._dropout_gen, compute_dtype=self.compute_dtype,
-            weight=weight, lookup=lookup,
-        )
-        loss = bce_with_logits(logits, batch[fm.label], weight)
+        data = self._slice(len(batch[fm.label]))
+        with data_parallel.step_slice(data):
+            feats, lookup, targets, uids = self._plan_step(self._device_join(feats), data)
+            self._dropout_gen.manual_seed(_seed(self.exp.train.seed + 1, self.state.step))
+            logits, new_mstate = self.module.apply(
+                self.state.params, self.state.model_state, fm, self.exp.model, feats,
+                train=True, generator=self._dropout_gen, compute_dtype=self.compute_dtype,
+                weight=weight, lookup=lookup,
+            )
+            loss = bce_with_logits(logits, batch[fm.label], weight, data)
         return loss, StepAux(new_mstate, targets, uids)
 
     def gradients(self, loss: torch.Tensor, aux: StepAux) -> list[torch.Tensor]:
         """d loss / d each of ``aux.targets``, in order (with dense tables:
-        every parameter, in ``param_leaves`` order)."""
-        return list(torch.autograd.grad(
+        every parameter, in ``param_leaves`` order). Data-parallel, the
+        ranks' gradients and loss shares are summed across the ranks
+        (``aux.loss``: the global loss)."""
+        grads = list(torch.autograd.grad(
             loss, list(aux.targets.values()), allow_unused=True, materialize_grads=True
         ))
+        aux.loss = loss.detach()
+        if self._data is not None:
+            total = aux.loss.reshape(1).clone()
+            data_parallel.all_reduce_buckets_([*grads, total], self._data)
+            aux.loss = total[0]
+        return grads
 
     def apply_gradients(self, grads: list[torch.Tensor], aux: StepAux) -> None:
         """The optimizer update (params change in place) and the step."""
@@ -340,12 +410,13 @@ class Trainer:
                                   {t: grads[_ROWS + t] for t in uids}, step)
 
     def train_step(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        """One optimizer step; returns the batch loss as a device scalar."""
+        """One optimizer step; returns the (global) batch loss as a device
+        scalar."""
         with torch.enable_grad():
             loss, aux = self.forward_loss(batch)
             grads = self.gradients(loss, aux)
         self.apply_gradients(grads, aux)
-        return loss.detach()
+        return aux.loss
 
     # ------------------------------------------------------------------ state
     def _restore(self, payload: dict) -> None:
@@ -370,7 +441,15 @@ class Trainer:
                 t.copy_(torch.from_numpy(np.asarray(flat[path])))
         self.state.model_state = tree_map(self._to_device, mstate_np)
 
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the checkpoint directory: rank 0
+        alone."""
+        return self._rank == 0
+
     def _save_experiment(self) -> None:
+        if not self._writes:
+            return
         try:
             serialize.save(self.exp, self._experiment_json)
         except OSError:
@@ -457,18 +536,20 @@ class Trainer:
         }
         if evaluate is not None:
             t_eval = time.perf_counter()
-            entry.update(evaluate())
+            entry.update(self._agree(evaluate()))
             entry["eval_seconds"] = time.perf_counter() - t_eval
             metric = entry[tc.monitor]
             if metric > best if tc.monitor_mode == "max" else metric < best:
                 best = metric
-                self.ckpt.save_best(
-                    self.state.params, self.state.model_state, metric, self.state.step
-                )
+                if self._writes:
+                    self.ckpt.save_best(
+                        self.state.params, self.state.model_state, metric, self.state.step
+                    )
                 self.log(f"[epoch {epoch + 1}] new best {tc.monitor}={metric:.4f} — exported")
         t_save = time.perf_counter()
         if (epoch + 1) % tc.checkpoint_every == 0 or epoch + 1 == tc.epochs:
-            self.ckpt.save(epoch + 1, self.state)
+            if self._writes:
+                self.ckpt.save(epoch + 1, self.state)
             entry["checkpoint_seconds"] = time.perf_counter() - t_save
         else:
             entry["checkpoint_seconds"] = 0.0  # every row keeps one schema
@@ -478,20 +559,41 @@ class Trainer:
             + f" ({rows}/{dt:.2f}s = {entry['examples_per_sec']:.0f} ex/s)"
         )
         self.history.append(entry)
-        self._write_history_csv()
+        if self._writes:
+            self._write_history_csv()
+        if self._data is not None:  # no rank runs ahead of rank 0's writes
+            dist.barrier(group=self._data)
         return best
+
+    def _agree(self, metrics: dict[str, float]) -> dict[str, float]:
+        """Rank 0's eval metrics on every rank (a broadcast), so that every
+        rank takes the same best-export decision."""
+        if self._data is None:
+            return metrics
+        keys = sorted(metrics)
+        t = torch.tensor([metrics[k] for k in keys], dtype=torch.float64, device=self.device)
+        data_parallel.broadcast_(t, self._data)
+        return dict(zip(keys, t.tolist()))
 
     def fit_on_device(self, train, valid=None, *, resume: bool = False) -> list[dict[str, float]]:
         """Train with the whole split resident on the device: each epoch is
         one shuffled pass of ``train.num_rows // batch_size`` full batches
         (drop_last), then an eval of ``valid``. ``train``/``valid`` are
-        TableData; dense item features come from the device-side join."""
+        TableData; dense item features come from the device-side join.
+        Data-parallel, every rank holds the whole split and the same
+        permutation, and ``batch_size`` is the global batch: rank r takes
+        rows [r bs/W, (r + 1) bs/W) of each."""
         tc = self.exp.train
         self._save_experiment()  # training owns the checkpoint's provenance
         bs, n = tc.batch_size, train.num_rows
         steps = n // bs
         if steps == 0:
             raise ValueError(f"batch_size {bs} > split rows {n}")
+        if bs % self._world:
+            raise ValueError(f"batch_size {bs} (the global batch) does not divide over "
+                             f"{self._world} data-parallel ranks")
+        local = bs // self._world
+        lo = self._rank * local
         data = self._upload(train)
         evaluate = None
         if valid is not None:
@@ -504,7 +606,7 @@ class Trainer:
             perm = self._permutation(epoch, n)
             losses = torch.empty(steps, device=self.device)
             for i in range(steps):
-                idx = perm[i * bs : (i + 1) * bs]
+                idx = perm[i * bs + lo : i * bs + lo + local]
                 losses[i] = self.train_step({k: v[idx] for k, v in data.items()})
             train_loss = float(losses.mean())  # the epoch's one host read
             best = self._close_epoch(epoch, train_loss, steps * bs,
@@ -676,7 +778,10 @@ class Trainer:
         numpy batch dicts (with ``__weight__``), uploaded
         ``steps_per_dispatch`` at a time (``_device_batches``);
         ``valid_batches()`` those of the eval (``evaluate``). Resume, the
-        best export, resume points and the history are ``fit_on_device``'s."""
+        best export, resume points and the history are ``fit_on_device``'s.
+        Data-parallel, each rank's iterator yields its own batches, every
+        rank as many of as many rows: the global batch is W x batch_size,
+        and the logged losses and rows are global."""
         tc = self.exp.train
         self._save_experiment()  # training owns the checkpoint's provenance
         k = max(1, tc.steps_per_dispatch)
@@ -694,7 +799,7 @@ class Trainer:
                     loss = self.train_step(batch)
                     loss_sum += loss  # on the device: no host read a step
                     n_steps += 1
-                    rows += len(batch[self.fm.label])
+                    rows += len(batch[self.fm.label]) * self._world
                     if n_steps % tc.log_every == 0:
                         self.log(f"[epoch {epoch + 1}] step {n_steps} loss {float(loss):.4f} "
                                  f"lr {self.schedule(self.state.step - 1):.6f}")

@@ -42,6 +42,7 @@ import torch
 
 from ctr_recommendation_tpu_torch.config.schema import FeatureType, TrainConfig
 from ctr_recommendation_tpu_torch.models.trunk import TableLookup
+from ctr_recommendation_tpu_torch.parallel import data_parallel
 
 TABLE_OPTIMIZERS = ("adagrad", "rowwise_adagrad", "adam")
 
@@ -234,7 +235,7 @@ def make_table_optimizer(cfg: TrainConfig, schedule: Callable[[int], float]) -> 
 
 
 def remap_batch(fm, feats: dict[str, torch.Tensor], tables: dict[str, torch.Tensor],
-                only=None) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+                only=None, data=None) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
     """Dedup each table's batch ids once and rewrite its id features to
     row-buffer indices (``only``: the tables to remap, default all).
 
@@ -242,7 +243,13 @@ def remap_batch(fm, feats: dict[str, torch.Tensor], tables: dict[str, torch.Tens
     ids are clamped to it, so ``uids[0] == 0`` and remap(0) == 0: the ``ids
     == 0`` pad mask of pooling and attention survives (valid while every
     sequence pad_id is 0, which the Trainer checks). Returns (remapped
-    feats, uids per table)."""
+    feats, uids per table).
+
+    ``data``, a data-parallel step's ``DataSlice``: each table's ids are
+    gathered from every rank (one buffer of the local batch's static size
+    a rank) and deduplicated together, so that every rank holds the global
+    batch's uids, as one process over the global batch does (with up to
+    world - 1 more sentinel slots); the feats index into them."""
     plan: dict[str, list] = {}
     flats: dict[str, list[torch.Tensor]] = {}
     for f in fm.features:
@@ -260,7 +267,11 @@ def remap_batch(fm, feats: dict[str, torch.Tensor], tables: dict[str, torch.Tens
     out = dict(feats)
     uids: dict[str, torch.Tensor] = {}
     for t, arrs in flats.items():
-        uids[t], inv = dedup_ids_inverse(torch.cat(arrs), tables[t].shape[0])
+        flat, base = torch.cat(arrs), 0
+        if data is not None:
+            base = data.rank * flat.numel()
+            flat = data_parallel.all_gather(flat, data).reshape(-1)
+        uids[t], inv = dedup_ids_inverse(flat, tables[t].shape[0])
         for name, start, shape in plan[t]:
-            out[name] = inv[start : start + shape.numel()].reshape(shape)
+            out[name] = inv[base + start : base + start + shape.numel()].reshape(shape)
     return out, uids

@@ -10,3 +10,12 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, depth first in key order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]

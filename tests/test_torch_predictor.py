@@ -284,7 +284,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "ops/cuda/build.py", "ops/cuda/scoring.py", "ops/cuda/interaction.py",
                    "cli/evaluate.py", "cli/validate_dataset.py", "data/native/__init__.py",
                    "serving/__init__.py", "serving/collator.py", "serving/server.py",
-                   "cli/serve.py"):
+                   "cli/serve.py", "parallel/__init__.py", "parallel/distributed.py",
+                   "parallel/mesh.py", "parallel/sharding.py", "parallel/data_parallel.py"):
         assert PORT / module in files, module
     assert (PORT / "csrc" / "sasrec_encoder.cu").exists()
     bad = [
@@ -312,6 +313,9 @@ def test_importing_the_port_loads_no_jax():
         "import ctr_recommendation_tpu_torch.data.native\n"
         "import ctr_recommendation_tpu_torch.serving\n"
         "import ctr_recommendation_tpu_torch.cli.serve\n"
+        "import ctr_recommendation_tpu_torch.parallel\n"
+        "import ctr_recommendation_tpu_torch.parallel.data_parallel\n"
+        "import ctr_recommendation_tpu_torch.parallel.distributed\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ctr_recommendation_tpu')]\n"
         "assert not bad, bad\n"
