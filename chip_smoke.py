@@ -130,6 +130,35 @@ Phases, in order; any failure exits non-zero and prints no result line.
    the collectives a step (2 ranks sharing one card: not a scaling
    figure). (c) One rank on NCCL, world 1: the step of (a) within the same
    bars, its collectives run on the card. (d) is in phase 2.
+6i. Row-sharded tables (parallel/embedding.py, model_parallel 2) at the
+   same full defaults, the ranks sharing cuda:0 over gloo as in 6h (every
+   exchange staged through host memory), spawned as in 6h. (a) One fp32
+   step (dropout 0.2 on, grad_clip_norm MP_CLIP so that the clip scales
+   every gradient) on the same 4096 rows and seeded weights as one
+   process, at 1 x 2 (two ranks) and 2 x 2 (four): the tables' gradients,
+   clipped gradients and updated parameters put together from the model
+   ranks' shards, then held as in 6h (a) (loss within 1e-5, GRAD_TOL /
+   GRAD_FLOOR with the 1-process gates replayed, DP_PARAM_TOL); the
+   replicated leaves bit for bit equal on all ranks, each shard across its
+   data group; fwd_launches() + bwd_launches() interaction launches a
+   rank. At 1 x 2 also a lazy adam step (table_optimizer "adam") for each
+   forced strategy against one process's: every row of the tables and of
+   the moments one process left alone bit for bit, the others within 2 lr,
+   the gradients within GRAD_TOL / GRAD_FLOOR.
+   (b) fit_on_device at 1 x 2 on phase 6's splits, 2 epochs, the
+   global batch 4096: exact launches a rank, both ranks' metrics equal,
+   loss falling, best valid AUC within DP_AUC_TOL of phase 6's; world rank
+   0 alone writes; its export holds whole tables and serves in this
+   process through Predictor on the fused scoring kernel (within
+   AUC_SERVE_TOL of the fit's best) and through a one-process Trainer's
+   eval (within 1e-6); per rank examples/s, a step's wall, the exchange's
+   collectives and bytes a step, and a step's lookups alone, each method,
+   forward and backward ms and bytes (two ranks sharing one card: not a
+   scaling figure). (c) The lookup alone at 1 x 2: the 91,776 x 128 fp32
+   item table and a 4096-row batch's item_id and item_seq ids (86,016),
+   each method bit for bit table[ids], then ids all in shard 0 at capacity
+   factor MP_SKEW_CAPACITY through the fallback, bit for bit; each
+   method's ms; exchange_stats of phase 6's first batch.
 7. Serve the trained export through the evaluate CLI's function
    (cli/evaluate.py::evaluate: Predictor with the fused scoring kernel, then
    AUC, logloss and gAUC[user_id] on the card) on the valid split: its AUC
@@ -2619,8 +2648,9 @@ def dp_step(torch, tr, batch: dict, gates, part) -> dict:
     """One train step of ``tr`` on ``batch`` (device columns), the forward
     recording its gates (``gates`` None) or replaying ``part`` of them;
     returns the global loss, the gradients by target, the interaction
-    launches, the replay's counts, and after the update the parameters and
-    the model state (on the CPU)."""
+    launches, the replay's counts, and after the update the gradients as the
+    optimizer left them (``clipped``: clipped, plus the L2 term), the
+    parameters and the model state (on the CPU)."""
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
     from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
 
@@ -2638,6 +2668,7 @@ def dp_step(torch, tr, batch: dict, gates, part) -> dict:
            "gates": [g.cpu() for g in replay.gates],
            "params0": {k: v.detach().cpu().clone() for k, v in tr.param_paths.items()}}
     tr.apply_gradients(grads, aux)
+    out["clipped"] = {k: g.detach().cpu().clone() for k, g in zip(aux.targets, grads)}
     out["params"] = {k: v.detach().cpu().clone() for k, v in flatten(tr.state.params).items()}
     out["state"] = {k: v.cpu().clone() for k, v in flatten(tr.state.model_state).items()}
     out["lr0"], out["weight_decay"] = tr.schedule(0), tr.exp.train.weight_decay
@@ -2658,7 +2689,7 @@ def dp_load(path: str) -> dict:
 
 
 def dp_rank(spec_path: str) -> int:
-    """One rank of phase 6h, started by ``spawn_ranks`` with the launcher's
+    """One rank of phase 6h or 6i, started by ``spawn_ranks`` with the launcher's
     environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT): joins the
     group on cuda:0 with the spec's backend, runs its tasks and saves what
     they return for the phase to check."""
@@ -2726,6 +2757,14 @@ def dp_rank(spec_path: str) -> int:
             res["export"] = os.path.exists(tr.ckpt.best_export_path)
             res["resume_point"] = tr.ckpt.latest_step()
             out["fit"] = res
+        elif task == "mp_step":  # 6i (a): one step on data rank d's rows, tables sharded
+            out["mp_step"] = mp_step_task(torch, data, spec, rank)
+        elif task == "mp_sparse":  # 6i (a), the sparse table optimizer
+            out["mp_sparse"] = mp_sparse_task(torch, data, spec, rank)
+        elif task == "mp_fit":  # 6i (b)
+            out["mp_fit"] = mp_fit_task(torch, data, spec, rank)
+        elif task == "mp_lookup":  # 6i (c)
+            out["mp_lookup"] = mp_lookup_task(torch, data)
         else:
             raise SystemExit(f"phase 6h rank: unknown task {task!r}")
     torch.save(out, f"{spec['out']}.rank{rank}.pt")
@@ -2773,7 +2812,7 @@ def spawn_ranks(torch, spec: dict, world: int, root: str) -> list[dict]:
     return [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def dp_check_step(torch, tag: str, got: dict, ref: dict) -> float:
+def dp_check_step(torch, tag: str, got: dict, ref: dict, phase: str = "6h") -> float:
     """(a), (c): a rank's step against the 1-process step on the same 4096
     rows: the loss, every fp32 gradient (GRAD_TOL of the leaf + GRAD_FLOOR
     of the largest; the 1-process gates replayed, each flip within
@@ -2783,17 +2822,18 @@ def dp_check_step(torch, tag: str, got: dict, ref: dict) -> float:
     of the largest."""
     names = list(ref["grads"])
     if list(got["grads"]) != names:
-        raise SystemExit(f"phase 6h {tag}: gradient targets {list(got['grads'])} != {names}")
-    largest = max(g.abs().max().item() for g in ref["grads"].values())
-    floor = GRAD_FLOOR * largest
+        raise SystemExit(f"phase {phase} {tag}: gradient targets {list(got['grads'])} != {names}")
     worst, bad = 0.0, []
-    for name in names:
-        a, b = got["grads"][name], ref["grads"][name]
-        err, scale = (a - b).abs().max().item(), b.abs().max().item()
-        if scale > 1e-3 * largest:
-            worst = max(worst, err / scale)
-        if not bool(torch.isfinite(a).all()) or err > GRAD_TOL * scale + floor:
-            bad.append(f"{name}: max|d| {err:.2e}, max|g| {scale:.2e}")
+    for key in ("grads", "clipped"):  # before the update, and as the optimizer left them
+        largest = max(g.abs().max().item() for g in ref[key].values())
+        floor = GRAD_FLOOR * largest
+        for name in names:
+            a, b = got[key][name], ref[key][name]
+            err, scale = (a - b).abs().max().item(), b.abs().max().item()
+            if scale > 1e-3 * largest:
+                worst = max(worst, err / scale)
+            if not bool(torch.isfinite(a).all()) or err > GRAD_TOL * scale + floor:
+                bad.append(f"{key} {name}: max|d| {err:.2e}, max|g| {scale:.2e}")
     state_err = max((got["state"][k] - v).abs().max().item() / max(1.0, v.abs().max().item())
                     for k, v in ref["state"].items())
     lr, wd = ref["lr0"], ref["weight_decay"]
@@ -2809,8 +2849,10 @@ def dp_check_step(torch, tag: str, got: dict, ref: dict) -> float:
     ok = (not bad and not param_bad and abs(got["loss"] - ref["loss"]) <= 1e-5
           and state_err <= DP_STATE_TOL and got["calls"] == len(ref["gates"])
           and got["margin"] <= GATE_MARGIN)
-    log(f"[dp {tag}] loss {got['loss']:.7f} vs 1 process {ref['loss']:.7f}; {len(names)} fp32 "
-        f"gradients: worst |d|/max|g| {worst:.3e} (tolerance {GRAD_TOL:g} of the leaf + "
+    log(f"[{'dp' if phase == '6h' else 'mp'} {tag}] loss {got['loss']:.7f} vs 1 process "
+        f"{ref['loss']:.7f}; {len(names)} fp32 "
+        f"gradients, before the update and clipped: worst |d|/max|g| {worst:.3e} (tolerance "
+        f"{GRAD_TOL:g} of the leaf + "
         f"{GRAD_FLOOR:g} of the largest); the 1-process gates replayed: {got['calls']} of "
         f"{len(ref['gates'])} met, {got['flips']} flips, within {got['margin']:.2e} of 0 "
         f"(GATE_MARGIN {GATE_MARGIN:g}); BatchNorm running stats |d| {state_err:.2e} (tolerance "
@@ -2818,7 +2860,7 @@ def dp_check_step(torch, tag: str, got: dict, ref: dict) -> float:
         f"fixes the step (tolerance {DP_PARAM_TOL:g} (1 + |p|); elsewhere 2 lr = {2 * lr:.2e}) "
         f"{'ok' if ok else f'FAIL {bad} {param_bad}'}")
     if not ok:
-        raise SystemExit(f"phase 6h {tag}: the ranks' step disagrees with one process's")
+        raise SystemExit(f"phase {phase} {tag}: the ranks' step disagrees with one process's")
     return worst
 
 
@@ -2923,6 +2965,495 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     log(f"[dp] phase 6h in {time.perf_counter() - t_phase:.1f} s")
     return {"grad_gap": worst, "best_auc": best,
             "fit": [res["fit"] for res in ranks]}
+
+
+# ---- phase 6i: row-sharded tables (model_parallel 2), ranks sharing the card ----
+# The ranks share cuda:0 over gloo, as in 6h: every exchange goes through host
+# memory (gloo runs all_to_all_single on CPU tensors only), so the times are
+# those of a shared card, not a scaling figure.
+MP = 2
+MP_LAYOUTS = ((1, MP), (2, MP))  # (dp, mp): two ranks, then four
+# (a)'s grad_clip_norm: below the step's global gradient norm, so that the
+# clip scales every gradient and a norm summed wrongly over the shards shows
+MP_CLIP = 1e-3
+MP_SKEW_CAPACITY = 1.1  # (c): a batch in shard 0 overflows at this factor
+MP_TABLE_SEED = 18
+
+
+def mp_experiment(ckpt: str, fp32: bool, clip: float | None = None, mp: int = MP):
+    """``dp_experiment`` on the (dp, ``mp``) mesh, with (a)'s clip."""
+    import dataclasses
+
+    from ctr_recommendation_tpu_torch.config.schema import MeshConfig
+
+    exp = dp_experiment(ckpt, fp32).replace(mesh=MeshConfig(model_parallel=mp))
+    if clip is not None:
+        exp = exp.replace(train=dataclasses.replace(exp.train, grad_clip_norm=clip))
+    return exp
+
+
+def mp_step_task(torch, data: dict, spec: dict, rank: int) -> dict:
+    """6i (a) on one rank: a Trainer on the (world / 2, 2) mesh, one fp32
+    step on its data rank's rows of the 4096, the 1-process gates
+    replayed; ``dp_step``'s results (the table leaves: this rank's shard)
+    with the rank's coordinates and the step's collectives."""
+    from ctr_recommendation_tpu_torch.parallel import data_parallel, distributed, embedding
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    bs = B_TRAIN
+    tr = Trainer(mp_experiment(spec["ckpt"] + f"_mpstep{rank}", fp32=True, clip=MP_CLIP),
+                 steps_per_epoch=N_TRAIN // bs, item_store=data["store"], device=DP_DEVICE,
+                 log_fn=lambda s: None)
+    d, dp = tr.mesh.data_rank, tr._world
+    n = bs // dp
+    cols, row0 = distributed.host_local_to_global(
+        {k: v[d * n : (d + 1) * n] for k, v in data["train"].columns.items()}, tr.mesh)
+    data_parallel.stats.update(calls=0, bytes=0)
+    embedding.stats.update(dict.fromkeys(embedding.stats, 0))
+    res = dp_step(torch, tr, cols, torch.load(spec["gates"]), (d, dp))
+    res.pop("gates")
+    res.update(row0=row0, coords=(d, tr.mesh.model_rank, dp, tr.mesh.shape["model"]),
+               stats=dict(data_parallel.stats), exchange=dict(embedding.stats),
+               sharded=sorted(tr._sharded))
+    return res
+
+
+def mp_sparse_experiment(ckpt: str, mp: int = MP):
+    """(a)'s sparse step: lazy adam on the tables, weight decay 0, fp32."""
+    import dataclasses
+
+    exp = mp_experiment(ckpt, fp32=True, clip=MP_CLIP, mp=mp)
+    return exp.replace(train=dataclasses.replace(exp.train, table_optimizer="adam",
+                                                 weight_decay=0.0))
+
+
+def mp_sparse_task(torch, data: dict, spec: dict, rank: int) -> dict:
+    """6i (a) with the sparse table optimizer on one rank of the 1 x 2 mesh:
+    one step of ``mp_sparse_experiment`` per forced strategy on the 4096
+    rows, the 1-process gates replayed; ``dp_step``'s results and the
+    table optimizer's state after the update (this rank's shards)."""
+    from ctr_recommendation_tpu_torch.parallel import distributed
+    from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
+    from ctr_recommendation_tpu_torch.training import Trainer, sparse
+
+    out = {}
+    for strategy, ratio in FORCE_STRATEGY.items():
+        sparse.GATHERED_MIN_VOCAB_RATIO = ratio
+        tr = Trainer(mp_sparse_experiment(spec["ckpt"] + f"_mpsparse{rank}"),
+                     steps_per_epoch=N_TRAIN // B_TRAIN, item_store=data["store"],
+                     device=DP_DEVICE, log_fn=lambda s: None)
+        cols, _ = distributed.host_local_to_global(
+            {k: v[:B_TRAIN] for k, v in data["train"].columns.items()}, tr.mesh)
+        res = dp_step(torch, tr, cols, torch.load(spec["sparse_gates"][strategy]), (0, 1))
+        res.pop("gates")
+        res["topt"] = {k: v.cpu().clone() for k, v in flatten(tr.state.table_opt_state).items()}
+        res["sharded"] = sorted(tr._sharded)
+        out[strategy] = res
+    return out
+
+
+def mp_check_sparse(torch, ranks: list[dict], refs: dict) -> None:
+    """6i (a)'s sparse steps at 1 x 2 against one process's: the loss within
+    1e-5, every gradient (the gathered rows' and the masked-dense shards')
+    within GRAD_TOL / GRAD_FLOOR, every row of the tables and of lazy
+    Adam's moments that the one-process step left alone bit for bit, the
+    others within 2 lr (Adam's first step moves an element by at most lr);
+    the replicated leaves bit for bit on both ranks."""
+    for strategy, ref in refs.items():
+        got = [res["mp_sparse"][strategy] for res in ranks]
+        sharded = set(got[0]["sharded"])
+
+        def whole(part, k):
+            return torch.cat([g[part][k] for g in got]) if k in sharded else got[0][part][k]
+
+        largest = max(g.abs().max().item() for g in ref["grads"].values())
+        grad_err = 0.0
+        for k, want in ref["grads"].items():
+            err = (whole("grads", k) - want).abs().max().item()
+            grad_err = max(grad_err, err / max(want.abs().max().item(), 1e-30))
+            if err > GRAD_TOL * want.abs().max().item() + GRAD_FLOOR * largest:
+                raise SystemExit(f"phase 6i (a) sparse {strategy}: gradient {k} off by {err:.2e}")
+        lr = ref["lr0"]
+        moved, kept, worst = 0, 0, 0.0
+        # (rows one process left alone, its values, the ranks' values put together)
+        pairs = [((ref["params"][k] == ref["params0"][k]).all(-1), ref["params"][k],
+                  whole("params", k)) for k in sharded]
+        # lazy Adam's moments start at 0 and stay there on untouched rows
+        pairs += [((v == 0).all(-1), v, torch.cat([g["topt"][k] for g in got]))
+                  for k, v in ref["topt"].items()]
+        for same, want, have in pairs:
+            if not torch.equal(have[same], want[same]):
+                raise SystemExit(f"phase 6i (a) sparse {strategy}: rows one process left alone "
+                                 "moved")
+            kept += int(same.sum())
+            moved += int((~same).sum())
+        for k in sharded:
+            worst = max(worst, (whole("params", k) - ref["params"][k]).abs().max().item())
+        if worst > 2 * lr or abs(got[0]["loss"] - ref["loss"]) > 1e-5 or any(
+                not torch.equal(g["params"][k], got[0]["params"][k])
+                for g in got for k in got[0]["params"] if k not in sharded):
+            raise SystemExit(f"phase 6i (a) sparse {strategy}: the 1x2 step is off one process's")
+        log(f"[mp (a)] sparse (lazy adam), {strategy}, 1x{MP}: loss {got[0]['loss']:.7f} vs 1 "
+            f"process {ref['loss']:.7f}; gradients worst |d|/max|g| {grad_err:.3e} (tolerance "
+            f"{GRAD_TOL:g} + {GRAD_FLOOR:g} of the largest); {kept} rows of the tables and the "
+            f"moments left alone by one process bit for bit, {moved} moved, the tables' worst "
+            f"|d| {worst:.2e} (tolerance 2 lr = {2 * lr:.2e}); replicated leaves bit for bit")
+
+
+def mp_exchange_times(torch, tr, cols: dict, reps: int = 10) -> dict:
+    """A step's lookups alone, each method, on this rank's rows: every id
+    feature through ``make_sharded_lookup`` as the trunk asks for it
+    (item_seq transposed (S, B)), forward and backward (a cotangent of
+    ones), median ms (host clock after a barrier, synchronized) and the
+    bytes the exchange moved, from ``embedding.stats``."""
+    import torch.distributed as dist
+
+    from ctr_recommendation_tpu_torch.config.schema import FeatureType
+    from ctr_recommendation_tpu_torch.parallel import embedding
+
+    fm = tr.fm
+    feats = [(f.name, cols[f.name].t() if f.type == FeatureType.SEQUENCE else cols[f.name])
+             for f in fm.features
+             if f.type in (FeatureType.CATEGORICAL, FeatureType.SEQUENCE) and f.name in cols]
+    tables = {t: v.detach().requires_grad_() for t, v in tr.state.params["trunk"]["tables"].items()}
+    out = {}
+    for method in ("all_to_all", "psum"):
+        fn = embedding.make_sharded_lookup(tr.mesh, method=method, feature_map=fm)
+        fwd, bwd = [], []
+        for i in range(reps + 2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            embedding.stats.update(dict.fromkeys(embedding.stats, 0))
+            t0 = time.perf_counter()
+            rows = [fn(tables, fm.table_of[name], ids, feature=name) for name, ids in feats]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            moved = dict(embedding.stats)
+            torch.autograd.grad(sum(r.sum() for r in rows), list(tables.values()))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if i >= 2:
+                fwd.append(1e3 * (t1 - t0))
+                bwd.append(1e3 * (t2 - t1))
+        backward_moved = embedding.stats["bytes"] - moved["bytes"]
+        out[method] = {"fwd_ms": sorted(fwd), "bwd_ms": sorted(bwd), "bytes": moved["bytes"],
+                       "row_bytes": moved["row_bytes"], "calls": moved["calls"],
+                       "fallbacks": moved["fallbacks"], "bwd_bytes": backward_moved}
+    return out
+
+
+def mp_fit_task(torch, data: dict, spec: dict, rank: int) -> dict:
+    """6i (b) on one rank: ``fit_on_device`` on the 1 x 2 mesh over phase
+    6's splits (the global batch 4096), then the exchange of a step timed
+    alone, each method."""
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.parallel import data_parallel, embedding
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    import dataclasses
+
+    bs = B_TRAIN
+    exp = mp_experiment(spec["ckpt"] + "_mpfit", fp32=False)
+    exp = exp.replace(train=dataclasses.replace(exp.train, epochs=spec["mp_epochs"]))
+    tr = Trainer(exp, steps_per_epoch=N_TRAIN // bs, item_store=data["store"],
+                 device=DP_DEVICE, log_fn=log if rank == 0 else (lambda s: None))
+    torch.cuda.synchronize()
+    interaction_fwd.launches = interaction_bwd.launches = 0
+    data_parallel.stats.update(calls=0, bytes=0)
+    embedding.stats.update(dict.fromkeys(embedding.stats, 0))
+    t0 = time.perf_counter()
+    hist = tr.fit_on_device(data["train"], data["valid"])
+    torch.cuda.synchronize()
+    res = {"hist": hist, "seconds": time.perf_counter() - t0,
+           "launches": (interaction_fwd.launches, interaction_bwd.launches),
+           "stats": dict(data_parallel.stats), "exchange": dict(embedding.stats),
+           "steps": tr.state.step, "export": os.path.exists(tr.ckpt.best_export_path),
+           "resume_point": tr.ckpt.latest_step(), "writes": tr._writes,
+           "export_path": tr.ckpt.best_export_path}
+    cols = tr._device_join({k: torch.as_tensor(v[:bs]).to(DP_DEVICE)
+                            for k, v in data["train"].columns.items() if k != "label"})
+    res["exchange_times"] = mp_exchange_times(torch, tr, cols)
+    return res
+
+
+def mp_lookup_task(torch, data: dict) -> dict:
+    """6i (c) on one rank of the 1 x 2 mesh: the 91,776 x 128 fp32 item
+    table (seeded; the pad row 0 zero, as at init), this rank's shard, and
+    the ids of a 4096-row batch of phase 6's train split, item_id and the
+    20 item_seq ids (86,016 ids before pad exclusion): each method's rows
+    against ``table[ids]`` bit for bit, then a batch of as many ids all in
+    shard 0 at capacity factor MP_SKEW_CAPACITY (the fallback); each
+    method's forward and backward ms; ``exchange_stats`` of phase 6's first
+    batch (fit_on_device's first permuted 4096 rows), each feature as the
+    trainer looks it up and the two together."""
+    import torch.distributed as dist
+
+    from ctr_recommendation_tpu_torch.config.schema import MeshConfig
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.models.trunk import round_up_vocab
+    from ctr_recommendation_tpu_torch.parallel import embedding, make_mesh, sharding
+    from ctr_recommendation_tpu_torch.training.loop import _seed
+
+    mesh = make_mesh(MeshConfig(model_parallel=MP), device=DP_DEVICE)
+    cols = data["train"].columns
+    exp = dp_experiment("", fp32=False)
+    vocab = round_up_vocab(build_feature_map(exp.dataset).table("item_id").vocab_size)
+    rng = np.random.default_rng(MP_TABLE_SEED)
+    full = rng.standard_normal((vocab, E), dtype=np.float32)
+    full[0] = 0.0
+    full_t = torch.from_numpy(full).to(DP_DEVICE)
+    shard = sharding.shard_rows(full_t, mesh).requires_grad_()
+    ids = np.concatenate([cols["item_id"][:B_TRAIN, None], cols["item_seq"][:B_TRAIN]], axis=1)
+    rows_per = vocab // MP
+    skew = rng.integers(1, rows_per, ids.shape).astype(ids.dtype)
+    out = {"vocab": vocab, "table_bytes": full.nbytes, "shard_bytes": full.nbytes // MP}
+    for tag, batch, factor in (("batch", ids, embedding.DEFAULT_CAPACITY_FACTOR),
+                               ("skew", skew, MP_SKEW_CAPACITY)):
+        ids_t = torch.from_numpy(batch).to(DP_DEVICE)
+        want = full_t[ids_t.long()]
+        for method in ("all_to_all", "psum"):
+            times_f, times_b = [], []
+            for i in range(12):
+                dist.barrier()
+                torch.cuda.synchronize()
+                embedding.stats.update(dict.fromkeys(embedding.stats, 0))
+                t0 = time.perf_counter()
+                rows = embedding.sharded_lookup(shard, ids_t, mesh, method=method,
+                                                capacity_factor=factor, pad_id=0)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                stats = dict(embedding.stats)
+                (g,) = torch.autograd.grad(rows.sum(), [shard])
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if i >= 2:
+                    times_f.append(1e3 * (t1 - t0))
+                    times_b.append(1e3 * (t2 - t1))
+            out[f"{tag}/{method}"] = {
+                "ids": int(batch.size), "pads": int((batch == 0).sum()),
+                "equal": bool(torch.equal(rows, want)), "fwd_ms": sorted(times_f),
+                "bwd_ms": sorted(times_b), "stats": stats,
+                "grad_rows": int(g.any(dim=1).sum())}
+    perm = torch.randperm(len(cols["label"]), generator=torch.Generator().manual_seed(
+        _seed(exp.train.seed + 2, 0)))[:B_TRAIN].numpy()
+    first = {"item_id": cols["item_id"][perm], "item_seq": cols["item_seq"][perm]}
+    first["item_id+item_seq"] = np.concatenate([first["item_id"][:, None],
+                                                first["item_seq"]], axis=1)
+    out["exchange_stats"] = {
+        k: {"pad excluded": embedding.exchange_stats(v, vocab_rows=vocab, dp=1, mp=MP, pad_id=0),
+            "pad kept": embedding.exchange_stats(v, vocab_rows=vocab, dp=1, mp=MP)}
+        for k, v in first.items()}
+    return out
+
+
+def mp_assemble(torch, ranks: list[dict], dp: int, mp: int) -> list[dict]:
+    """Each data rank's (a) results with every row-sharded leaf put together
+    from its model ranks' shards (gradients, clipped gradients, parameters
+    before and after the update)."""
+    out = []
+    for d in range(dp):
+        group = [ranks[d * mp + m]["mp_step"] for m in range(mp)]
+        res = dict(group[0])
+        for part in ("grads", "clipped", "params", "params0"):
+            res[part] = {k: (torch.cat([g[part][k] for g in group]) if k in res["sharded"]
+                             else v) for k, v in group[0][part].items()}
+        out.append(res)
+    return out
+
+
+def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> dict:
+    """Phase 6i (see the module docstring). ``dense`` is phase 6's
+    mm_fibinet run."""
+    from ctr_recommendation_tpu_torch.cli.evaluate import eval_line, evaluate
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.inference import Predictor
+    from ctr_recommendation_tpu_torch.models.trunk import round_up_vocab
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        bwd_launches as inter_bwd_launches,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        fwd_launches as inter_fwd_launches,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+    from ctr_recommendation_tpu_torch.tools import jax_bridge
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    bs = B_TRAIN
+    inputs = os.path.join(root, "dp_inputs.npz")  # written by phase 6h
+    # the 1-process step on the first 4096 rows with (a)'s clip: the reference
+    tr = Trainer(mp_experiment(os.path.join(root, "mp_ref"), fp32=True, clip=MP_CLIP, mp=1),
+                 steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
+                 log_fn=lambda s: None)
+    ref = dp_step(torch, tr, {k: torch.as_tensor(v[:bs]).to(DP_DEVICE)
+                              for k, v in train.columns.items()}, None, (0, 1))
+    norm = float(torch.linalg.vector_norm(torch.stack(
+        [g.double().norm() for g in ref["grads"].values()])))
+    log(f"[mp (a)] the 1-process step's global gradient norm {norm:.4e}, clipped to {MP_CLIP:g}")
+    if not norm > MP_CLIP:
+        raise SystemExit("phase 6i (a): the clip does not scale the step's gradients")
+    gates = os.path.join(root, "mp_gates.pt")
+    torch.save(ref["gates"], gates)
+    del tr
+    # the sparse steps' 1-process references, each strategy's gates recorded
+    from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
+    from ctr_recommendation_tpu_torch.training import sparse
+
+    sparse_refs, sparse_gates = {}, {}
+    default_ratio = sparse.GATHERED_MIN_VOCAB_RATIO
+    try:
+        for strategy, ratio in FORCE_STRATEGY.items():
+            sparse.GATHERED_MIN_VOCAB_RATIO = ratio
+            tr = Trainer(mp_sparse_experiment(os.path.join(root, f"mp_sparse_ref_{strategy}"),
+                                              mp=1),
+                         steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
+                         log_fn=lambda s: None)
+            sref = dp_step(torch, tr, {k: torch.as_tensor(v[:bs]).to(DP_DEVICE)
+                                       for k, v in train.columns.items()}, None, (0, 1))
+            sref["topt"] = {k: v.cpu().clone()
+                            for k, v in flatten(tr.state.table_opt_state).items()}
+            sparse_gates[strategy] = os.path.join(root, f"mp_sparse_gates_{strategy}.pt")
+            torch.save(sref.pop("gates"), sparse_gates[strategy])
+            sparse_refs[strategy] = sref
+            del tr
+    finally:
+        sparse.GATHERED_MIN_VOCAB_RATIO = default_ratio
+    torch.cuda.empty_cache()
+    ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
+    mp_epochs = TRAIN_EPOCHS
+    spec = {"inputs": inputs, "gates": gates, "ckpt": os.path.join(root, "mp_ckpt"),
+            "backend": "gloo", "mp_epochs": mp_epochs, "sparse_gates": sparse_gates}
+    worst, results = 0.0, {}
+    for dp, mp in MP_LAYOUTS:
+        tasks = ["mp_step"] + (["mp_sparse", "mp_fit", "mp_lookup"] if dp == 1 else [])
+        ranks = spawn_ranks(torch, dict(spec, name=f"mp{dp}x{mp}", tasks=tasks), dp * mp, root)
+        results[(dp, mp)] = ranks
+        for r, res in enumerate(ranks):
+            step = res["mp_step"]
+            if res["backend"] != "gloo" or step["launches"] != (ifwd, ibwd) or \
+                    tuple(step["coords"]) != (r // mp, r % mp, dp, mp) or \
+                    step["row0"] != (r // mp) * bs // dp:
+                raise SystemExit(f"phase 6i (a) {dp}x{mp} rank {r}: backend {res['backend']}, "
+                                 f"launches {step['launches']}, coords {step['coords']}, first "
+                                 f"row {step['row0']}")
+            ex = step["exchange"]
+            log(f"[mp (a)] {dp}x{mp} rank {r} (data rank {r // mp}, model rank {r % mp}): "
+                f"interaction launches {step['launches']} (fwd {ifwd} + bwd {ibwd}); the "
+                f"exchange in the step: {ex['calls']} collectives, {ex['bytes']} bytes sent "
+                f"({ex['row_bytes']} of rows), {ex['fallbacks']} fallbacks; other collectives "
+                f"{step['stats']['calls']}, {step['stats']['bytes']} bytes; sharded "
+                f"{step['sharded']}")
+        for d, got in enumerate(mp_assemble(torch, ranks, dp, mp)):
+            worst = max(worst, dp_check_step(
+                torch, f"(a) {dp}x{mp} data rank {d}, {bs // dp} rows, tables in {mp} shards",
+                got, ref, phase="6i"))
+        same = all(torch.equal(res["mp_step"][k][n], ranks[0]["mp_step"][k][n])
+                   for res in ranks for k in ("params", "state")
+                   for n in res["mp_step"][k] if n not in res["mp_step"]["sharded"])
+        same_shards = all(torch.equal(res["mp_step"]["params"][n],
+                                      ranks[r % mp]["mp_step"]["params"][n])
+                          for r, res in enumerate(ranks) for n in res["mp_step"]["sharded"])
+        log(f"[mp (a)] {dp}x{mp}: the replicated leaves after the step bit for bit equal on "
+            f"all {dp * mp} ranks: {same}; each shard across its data group: {same_shards}")
+        if not (same and same_shards):
+            raise SystemExit(f"phase 6i (a) {dp}x{mp}: the ranks' replicas or shards differ")
+        if dp == 1:
+            mp_check_sparse(torch, ranks, sparse_refs)
+    # (b): fit_on_device at 1 x 2
+    ranks = results[(1, MP)]
+    steps = mp_epochs * (N_TRAIN // bs)
+    eval_bs = dp_experiment("", fp32=False).train.eval_batch_size
+    eval_batches = mp_epochs * -(-N_VALID // eval_bs)
+    metrics = ("epoch", "train_loss", "auc", "logloss")
+    hists = [res["mp_fit"]["hist"] for res in ranks]
+    best = max(h["auc"] for h in hists[0])
+    for r, res in enumerate(ranks):
+        fit = res["mp_fit"]
+        eps = [h["examples_per_sec"] for h in fit["hist"]]
+        wall = [1e3 * h["seconds"] / (N_TRAIN // bs) for h in fit["hist"]]
+        ex = fit["exchange"]
+        log(f"[mp (b)] rank {r} of 1x{MP} (2 ranks sharing one card, gloo, the exchange "
+            f"through host memory; not a scaling figure) on {card}: examples/s per epoch "
+            f"{[f'{v:.0f}' for v in eps]}; a step's wall {[f'{v:.2f}' for v in wall]} ms; the "
+            f"fit's exchange {ex['calls'] / steps:.1f} collectives and {ex['bytes'] / steps:.0f} "
+            f"bytes a step ({ex['row_bytes'] / steps:.0f} of rows; eval batches included), "
+            f"{ex['fallbacks']} fallbacks; interaction launches {fit['launches']}")
+        for method, t in fit["exchange_times"].items():
+            f_ms, b_ms = t["fwd_ms"], t["bwd_ms"]
+            log(f"[mp (b)] rank {r} exchange alone, {method}: a step's lookups (item_id, "
+                f"item_seq, likes_level, views_level) forward {f_ms[len(f_ms) // 2]:.2f} ms "
+                f"(median of {len(f_ms)}, {f_ms[0]:.2f}-{f_ms[-1]:.2f}), {t['calls']} "
+                f"collectives, {t['bytes']} bytes sent ({t['row_bytes']} of rows), "
+                f"{t['fallbacks']} fallbacks; backward {b_ms[len(b_ms) // 2]:.2f} ms "
+                f"({b_ms[0]:.2f}-{b_ms[-1]:.2f}), {t['bwd_bytes']} bytes (each owner "
+                f"scatter-adds its own cotangents)")
+        for h in fit["hist"]:
+            log(f"[mp (b)] rank {r} epoch {int(h['epoch'])}: loss {h['train_loss']:.5f}, valid "
+                f"auc {h['auc']:.5f}, {h['seconds']:.3f} s train, {h['eval_seconds']:.3f} s eval")
+        if fit["launches"] != (ifwd * (steps + eval_batches), ibwd * steps):
+            raise SystemExit(f"phase 6i (b) rank {r}: interaction launches {fit['launches']}")
+        if fit["steps"] != steps or [[h[k] for k in metrics] for h in fit["hist"]] != \
+                [[h[k] for k in metrics] for h in hists[0]] or fit["writes"] != (r == 0):
+            raise SystemExit(f"phase 6i (b) rank {r}: steps {fit['steps']}, metrics or the "
+                             "writing rank differ")
+    losses = [h["train_loss"] for h in hists[0]]
+    one = [h for h in dense["hist"] if int(h["epoch"]) <= mp_epochs]
+    dense_best = max(h["auc"] for h in one)
+    log(f"[mp (b)] best valid auc {best:.5f} vs phase 6's 1 process {dense_best:.5f} over "
+        f"{mp_epochs} epochs (tolerance {DP_AUC_TOL}); export by world rank 0 "
+        f"{ranks[0]['mp_fit']['export']}, resume point {ranks[0]['mp_fit']['resume_point']}")
+    if (abs(best - dense_best) > DP_AUC_TOL or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0] or not ranks[0]["mp_fit"]["export"]
+            or ranks[0]["mp_fit"]["resume_point"] != mp_epochs):
+        raise SystemExit("phase 6i (b): the 1x2 fit is off phase 6's or wrote no export")
+    # rank 0's export: whole tables, served in this process
+    exp = mp_experiment(os.path.dirname(os.path.dirname(ranks[0]["mp_fit"]["export_path"])),
+                        fp32=False, mp=1)
+    params_np, state_np = jax_bridge.load(ranks[0]["mp_fit"]["export_path"])
+    shapes = {k: v.shape for k, v in params_np["trunk"]["tables"].items()}
+    fm = build_feature_map(exp.dataset)
+    served_params, served_state = jax_bridge.params_from_jax(params_np, state_np, fm, exp.model)
+    server = Predictor(exp, served_params, served_state, item_store=store, device=DP_DEVICE)
+    score_fwd.launches = 0
+    res = evaluate(server, valid, batch_size=B_FULL, gauc_col="user_id")
+    n_batches = -(-N_VALID // B_FULL)
+    one_tr = Trainer(exp, item_store=store, device=DP_DEVICE, log_fn=lambda s: None)
+    one_tr.load_best()
+    own = one_tr.evaluate_table(valid)["auc"]
+    log(f"[mp (b)] world rank 0's export: tables {shapes} (whole); {eval_line(res, 'user_id')} "
+        f"through Predictor on the fused scoring kernel ({score_fwd.launches} launches) on "
+        f"{card}: |d| to the fit's best {abs(res['auc'] - best):.2e} (tolerance "
+        f"{AUC_SERVE_TOL}); the trainer's eval forward in one process on the export "
+        f"{own:.7f}, |d| {abs(own - best):.2e} (tolerance 1e-6)")
+    want_rows = round_up_vocab(fm.table("item_id").vocab_size)
+    if (not server.use_fused or score_fwd.launches != score_launches() * n_batches
+            or abs(res["auc"] - best) > AUC_SERVE_TOL or abs(own - best) > 1e-6
+            or shapes["item_id"][0] != want_rows):
+        raise SystemExit("phase 6i (b): the export does not serve as the fit scored it")
+    # (c): the lookup alone at 1 x 2
+    for r, res_r in enumerate(ranks):
+        lk = res_r["mp_lookup"]
+        for key in ("batch/all_to_all", "batch/psum", "skew/all_to_all", "skew/psum"):
+            v = lk[key]
+            f_ms, b_ms = v["fwd_ms"], v["bwd_ms"]
+            log(f"[mp (c)] rank {r} {key}: {v['ids']} ids ({v['pads']} pads) into the "
+                f"{lk['vocab']} x {E} fp32 table ({lk['table_bytes'] / 1e6:.1f} MB, "
+                f"{lk['shard_bytes'] / 1e6:.1f} MB a shard): bit for bit table[ids] "
+                f"{v['equal']}; forward {f_ms[len(f_ms) // 2]:.2f} ms (median of {len(f_ms)}, "
+                f"{f_ms[0]:.2f}-{f_ms[-1]:.2f}), backward {b_ms[len(b_ms) // 2]:.2f} ms; "
+                f"{v['stats']['calls']} collectives, {v['stats']['bytes']} bytes sent "
+                f"({v['stats']['row_bytes']} of rows), {v['stats']['fallbacks']} fallbacks; "
+                f"{v['grad_rows']} shard rows with a gradient")
+        if not all(lk[k]["equal"] for k in ("batch/all_to_all", "batch/psum", "skew/all_to_all",
+                                              "skew/psum")) \
+                or lk["skew/all_to_all"]["stats"]["fallbacks"] != 1 \
+                or lk["batch/all_to_all"]["stats"]["fallbacks"] != 0:
+            raise SystemExit(f"phase 6i (c) rank {r}: a lookup is not table[ids] or the "
+                             "fallback was not taken as expected")
+    for k, v in ranks[0]["mp_lookup"]["exchange_stats"].items():
+        log(f"[mp (c)] exchange_stats of phase 6's first batch, {k}: {v}")
+    log(f"[mp] phase 6i in {time.perf_counter() - t_phase:.1f} s")
+    return {"grad_gap": worst, "best_auc": best, "fit": [res["mp_fit"] for res in ranks]}
 
 
 # ---- phase 7b: online serving over HTTP (serving/, the fused scoring kernel) ----
@@ -3624,6 +4155,8 @@ def main(argv=None) -> int:
             per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()})
         # ---- phase 6h: data-parallel training, two ranks sharing the card ----
         data_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
+        # ---- phase 6i: row-sharded tables, 1 x 2 and 2 x 2 ranks sharing the card ----
+        model_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
         sasrec_exp = microlens_experiment(data_root="", model="sasrec_fibinet",
                                           epochs=TRAIN_EPOCHS,
                                           checkpoint_dir=os.path.join(root, "ckpt_sasrec"))

@@ -4,6 +4,7 @@
     python -m ctr_recommendation_tpu_torch.cli.train --synthetic /tmp/synth --device cpu
     python -m ctr_recommendation_tpu_torch.cli.train --synthetic /tmp/synth --model xdeepfm
     torchrun --nproc_per_node N -m ctr_recommendation_tpu_torch.cli.train --data-root DIR
+    torchrun --nproc_per_node 2 -m ctr_recommendation_tpu_torch.cli.train --model-parallel 2 ...
 
 ``--model`` takes any name of ``models.available_models()``: the FiBiNET
 family (fibinet, mm_fibinet, sasrec_fibinet) and the zoo (autoint, dcnv2,
@@ -16,16 +17,22 @@ by default with the train split resident on the device
 (``Trainer.fit_on_device``); with ``--stream`` (the train split read row
 group by row group, ``stream_batches``) or ``--strict-items`` (the item join
 on the host, raising on an item_id missing from item_info) host-driven
-(``Trainer.fit``, ``--steps-per-dispatch`` batches an upload). The flags of
-the JAX CLI whose paths are not ported yet exit 2 naming their ROADMAP.md
-item.
+(``Trainer.fit``, ``--steps-per-dispatch`` batches an upload). The flag of
+the JAX CLI whose path is not ported yet (``--profile-dir``) exits 2
+naming its ROADMAP.md item.
 
 Under a launcher (torchrun: one process a rank, ``cuda:{LOCAL_RANK}``, NCCL;
 gloo with ``--device cpu``) it trains data-parallel as the JAX CLI trains
-multi-host: each rank takes its shard of the train split
+multi-host: each data rank takes its shard of the train split
 (``TableData.shard``, or its row groups under ``--stream``), every rank runs
-the same step count, ``--batch-size`` is each rank's batch, and training
-goes through ``Trainer.fit``; rank 0 alone writes the checkpoint directory.
+the same step count, ``--batch-size`` is each data rank's batch, and
+training goes through ``Trainer.fit``; world rank 0 alone writes the
+checkpoint directory. ``--model-parallel N`` row-shards the embedding
+tables over N ranks (``WORLD_SIZE`` = dp x N): the ranks of one model group
+train on the same rows, their tables read through
+``parallel/embedding.py::make_sharded_lookup`` (the sparse table optimizers'
+gathered rows through its psum form), and the checkpoint holds whole
+tables, which the predict, evaluate and serve CLIs restore on one device.
 """
 
 from __future__ import annotations
@@ -87,8 +94,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="the JAX package's training-rng PRNG (threefry | rbg); recorded in "
                         "experiment.json and ignored: the port draws its masks from torch "
                         "generators")
-    # accepted so that they fail with a message, not an argparse error
-    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="row-shard the embedding tables over this many ranks of the launcher's "
+                        "(the world size must be a multiple of it)")
+    # accepted so that it fails with a message, not an argparse error
     p.add_argument("--profile-dir", default=None)
     return p
 
@@ -97,8 +106,6 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     # flags whose code paths wait for a later slice, with their ROADMAP.md item by title
     refused = [msg for on, msg in (
-        (args.model_parallel > 1,
-         "--model-parallel > 1 (queue 1: parallel, row-sharded half, item 2)"),
         (args.profile_dir, "--profile-dir (queue 1: the rest, profiling)"),
     ) if on]
     if refused:
@@ -165,6 +172,10 @@ def main(argv=None) -> int:
         exp = microlens_experiment(
             data_root=args.data_root, model=args.model or "mm_fibinet", **overrides
         )
+    if args.model_parallel > 1:
+        from ctr_recommendation_tpu_torch.config.schema import MeshConfig
+
+        exp = exp.replace(mesh=MeshConfig(model_parallel=args.model_parallel))
     return run_training(exp, resume=args.resume, strict_items=args.strict_items,
                         stream=args.stream, device=args.device)
 
@@ -178,11 +189,13 @@ def run_training(exp, *, resume: bool = False, strict_items: bool = False,
     joined on the host (an unknown item_id raises), and the trainer holds
     no item store.
 
-    Over a process group of W ranks (``parallel.distributed.initialize``)
-    each rank trains on ``cuda:{LOCAL_RANK}`` (or the CPU) through ``fit``:
-    its shard of the split (its row groups under ``stream``), ``(rows //
-    W) // batch_size`` steps an epoch on every rank (``common_step_count``
-    under ``stream``), its batches shuffled with seed + rank."""
+    Over a process group of dp x mp ranks (``parallel.distributed.initialize``,
+    mp = ``exp.mesh.model_parallel``) each rank trains on ``cuda:{LOCAL_RANK}``
+    (or the CPU) through ``fit``: its data rank's shard of the split (its row
+    groups under ``stream``), ``(rows // dp) // batch_size`` steps an epoch
+    on every rank (``common_step_count`` under ``stream``), its batches
+    shuffled with seed + data rank, so that the ranks of one model group
+    step through the same rows."""
     import itertools
 
     from ctr_recommendation_tpu_torch.data import ItemStore, iter_batches, load_split
@@ -194,6 +207,8 @@ def run_training(exp, *, resume: bool = False, strict_items: bool = False,
     from ctr_recommendation_tpu_torch.training import Trainer
 
     get_model(exp.model.model)  # fail fast on an unknown model, before data load
+    dev = distributed.rank_device(device)
+    mesh = make_mesh(exp.mesh, device=dev)
     fm = build_feature_map(exp.dataset)
     print(f"[data] loading {exp.dataset.train_data}")
     valid = load_split(exp.dataset.valid_data, fm)
@@ -203,7 +218,8 @@ def run_training(exp, *, resume: bool = False, strict_items: bool = False,
         emb_col=exp.dataset.item_info_emb_col,
     )
     bs = exp.train.batch_size
-    n_hosts, host = distributed.host_count(), distributed.host_id()
+    # the train split shards over the data axis: a model group shares its rows
+    n_hosts, host = mesh.shape[exp.mesh.data_axis], mesh.data_rank
     if stream:
         import pyarrow.parquet as pq
 
@@ -225,13 +241,14 @@ def run_training(exp, *, resume: bool = False, strict_items: bool = False,
         print(f"batch size {bs} exceeds the smallest per-host train shard "
               f"({train_rows} rows / {n_hosts} host(s)); lower --batch-size", file=sys.stderr)
         return 2
-    dev = distributed.rank_device(device)
-    mesh = make_mesh(exp.mesh, device=dev)
     # the item join runs on the device unless strict mode needs the host's check
     host_store = store if strict_items else None
+    # at model_parallel > 1 the Trainer reads the tables through
+    # make_sharded_lookup(mesh, exp.mesh's lookup_method and capacity factor),
+    # as the JAX CLI injects it (its cli/train.py:200-215)
     trainer = Trainer(exp, mesh=mesh, steps_per_epoch=steps, device=dev,
                       item_store=None if strict_items else store)
-    if n_hosts == 1 and not (stream or strict_items):
+    if distributed.host_count() == 1 and not (stream or strict_items):
         trainer.fit_on_device(train, valid, resume=resume)
         return 0
 

@@ -27,13 +27,9 @@ from ctr_recommendation_tpu_torch.ops.initializers import (
     linear_init,
 )
 from ctr_recommendation_tpu_torch.parallel import data_parallel
+from ctr_recommendation_tpu_torch.parallel.embedding import round_up_vocab
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
-VOCAB_ROUND = 128
-
-
-def round_up_vocab(vocab_size: int, multiple: int = VOCAB_ROUND) -> int:
-    return ((vocab_size + multiple - 1) // multiple) * multiple
 
 
 def _check_pooling(seq_pooling: str) -> None:

@@ -1,6 +1,6 @@
 """Multi-process training on ``torch.distributed``: the JAX package's
-``parallel/`` (its data-parallel half; ROADMAP.md queue 1 item 2 holds the
-row-sharded half)."""
+``parallel/``, data-parallel (``data_parallel.py``) and with row-sharded
+embedding tables (``embedding.py``)."""
 
 from ctr_recommendation_tpu_torch.parallel.mesh import make_mesh, single_device_mesh
 from ctr_recommendation_tpu_torch.parallel.sharding import (

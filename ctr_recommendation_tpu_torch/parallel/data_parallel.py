@@ -145,9 +145,3 @@ def all_reduce_buckets_(tensors: list[torch.Tensor], group,
         flat = all_reduce_(torch.cat([t.reshape(-1) for t in b]), group)
         for t, part in zip(b, flat.split([t.numel() for t in b])):
             t.copy_(part.view_as(t))
-
-
-def broadcast_(t: torch.Tensor, group) -> torch.Tensor:
-    """Rank 0's ``t`` (of the group) on every rank, in place."""
-    dist.broadcast(t, dist.get_global_rank(group, 0), group=group)
-    return t

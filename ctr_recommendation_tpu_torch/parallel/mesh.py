@@ -1,12 +1,14 @@
 """The ranks' layout: the JAX package's ``parallel/mesh.py`` on
 ``torch.distributed``.
 
-One layout, two axes: ``data`` shards the batch (data-parallel training,
-one global step over the ranks' rows), ``model`` would shard the embedding
-tables' rows. A ``Mesh`` names this process's device and, over a process
-group, holds the ``DeviceMesh`` whose per-axis groups the collectives run
-on. Only ``model == 1`` is ported: the row-sharded half waits for ROADMAP.md
-queue 1 item 2.
+One layout, two axes over dp x mp ranks, world rank d mp + m at (d, m):
+``data`` shards the batch (data-parallel training, one global step over the
+ranks' rows), ``model`` shards the embedding tables' rows
+(``parallel/embedding.py``). The ranks of one model group (one d) hold the
+same batch rows and a shard each; the ranks of one data group (one m) hold
+the same shard and rows of their own. A ``Mesh`` names this process's
+device and, over a process group, holds the ``DeviceMesh`` whose per-axis
+groups the collectives run on.
 """
 
 from __future__ import annotations
@@ -17,10 +19,6 @@ import torch
 
 from ctr_recommendation_tpu_torch.config.schema import MeshConfig
 from ctr_recommendation_tpu_torch.parallel import distributed
-
-MODEL_PARALLEL_REFUSAL = (
-    "model_parallel > 1 (row-sharded tables) is not ported yet: ROADMAP.md queue 1 item 2 "
-    "(parallel, row-sharded half)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +44,17 @@ class Mesh:
     def data_rank(self) -> int:
         return self.rank(self.axis_names[0])
 
+    @property
+    def model_rank(self) -> int:
+        return self.rank(self.axis_names[1])
+
+    @property
+    def writes(self) -> bool:
+        """Whether this rank writes files (checkpoints, metrics): world rank
+        0 alone. Model ranks of data rank 0 share its data rank, not this
+        role."""
+        return self.device_mesh is None or self.device_mesh.get_rank() == 0
+
 
 def make_mesh(cfg: MeshConfig | None = None, world: int | None = None,
               device: str | torch.device = "cuda") -> Mesh:
@@ -62,8 +71,6 @@ def make_mesh(cfg: MeshConfig | None = None, world: int | None = None,
             f"mesh {dp}x{mp} does not cover {world} devices "
             f"(data_parallel={cfg.data_parallel}, model_parallel={cfg.model_parallel})"
         )
-    if mp > 1:
-        raise NotImplementedError(MODEL_PARALLEL_REFUSAL)
     dev = distributed.rank_device(device)
     if world == 1 and not torch.distributed.is_initialized():
         return single_device_mesh(cfg.axis_names, dev)

@@ -9,8 +9,10 @@ replicated; batches are split P(data_axis) on their row dimension, each rank
 holding its own rows. Optimizer state takes the specs of the leaves it
 mirrors.
 
-Only replicated parameters are ported (``make_mesh`` refuses model > 1):
-``put_global`` checks them across the ranks once.
+The port has no global arrays: a rank holds its shard of each
+row-sharded table (``shard_rows``) and a replica of everything else;
+``unshard_rows`` gathers a table whole again (for a checkpoint), and
+``put_global`` checks once that the ranks hold what the specs say.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from ctr_recommendation_tpu_torch.parallel.mesh import MODEL_PARALLEL_REFUSAL, Mesh
+from ctr_recommendation_tpu_torch.parallel.mesh import Mesh
 from ctr_recommendation_tpu_torch.utils.tree import tree_leaves
 
 
@@ -75,35 +77,75 @@ def tree_shardings(spec_tree: Any, mesh: Mesh) -> Any:
     return type(spec_tree)(tree_shardings(v, mesh) for v in spec_tree)
 
 
-def put_global(tree: Any, shardings: Any) -> Any:
-    """Check that every rank holds rank 0's values of ``tree`` (tensors on
-    the rank's device) and return it.
+def shard_rows(full: torch.Tensor, mesh: Mesh, model_axis: str = "model") -> torch.Tensor:
+    """This rank's rows of a P(model, None) table, [m V/mp, (m + 1) V/mp)
+    for model rank m (a copy)."""
+    mp = mesh.shape[model_axis]
+    if full.shape[0] % mp:
+        raise ValueError(f"table rows {full.shape[0]} not divisible by model-parallel degree "
+                         f"{mp}; pad with round_up_vocab()")
+    rows = full.shape[0] // mp
+    m = mesh.rank(model_axis)
+    return full[m * rows : (m + 1) * rows].clone()
 
-    JAX builds the global arrays from each process's host values and relies
-    on every process initialising from the same seed. The port's ranks each
-    keep their own replica, so it checks that contract once: rank 0's
-    leaves, flattened into one fp64 buffer, are broadcast over the data
-    group and compared; every rank raises when any rank differs."""
-    leaves = tree_leaves(tree)
-    specs = tree_leaves(shardings)
-    if any(s.spec != P() for s in specs):
-        raise NotImplementedError(MODEL_PARALLEL_REFUSAL)
-    mesh = specs[0].mesh if specs else None
-    group = None if mesh is None else mesh.group(mesh.axis_names[0])
-    if group is None or not leaves:
-        return tree
+
+def unshard_rows(shard: torch.Tensor, mesh: Mesh, model_axis: str = "model") -> torch.Tensor:
+    """The whole table from every model rank's shard (an all-reduce of a
+    zeroed (mp, rows, ...) buffer over the model group; every rank of the
+    group must call it)."""
+    mp = mesh.shape[model_axis]
+    if mp == 1:
+        return shard
+    buf = shard.new_zeros((mp, *shard.shape))
+    buf[mesh.rank(model_axis)] = shard
+    dist.all_reduce(buf, group=mesh.group(model_axis))
+    return buf.reshape(-1, *shard.shape[1:])
+
+
+def _check_equal(leaves: list[torch.Tensor], mesh: Mesh, axis: str, what: str) -> None:
+    """Raise on every rank of ``axis``' group unless each holds the group's
+    rank 0's ``leaves`` (flattened into one fp64 buffer, broadcast)."""
+    group = mesh.group(axis)
+    world = dist.get_world_size(group)
+    if world == 1 or not leaves:
+        return
     mine = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in leaves])
     ref = mine.clone()
     dist.broadcast(ref, dist.get_global_rank(group, 0), group=group)
-    world = dist.get_world_size(group)
     differs = torch.zeros(world, dtype=torch.float64, device=mine.device)
-    differs[mesh.data_rank] = float(not torch.equal(mine, ref))
+    differs[mesh.rank(axis)] = float(not torch.equal(mine, ref))
     dist.all_reduce(differs, group=group)
     bad = [r for r in range(world) if differs[r] != 0]
     if bad:
         raise ValueError(
-            f"the replicated parameters of data rank(s) {bad} differ from rank 0's: every rank "
-            "must initialise from the same seed (or load the same weights)")
+            f"the {what} of {axis} rank(s) {bad} differ from rank 0's: every rank must "
+            "initialise from the same seed (or load the same weights)")
+
+
+def put_global(tree: Any, shardings: Any) -> Any:
+    """Check that every rank holds what ``shardings`` say of ``tree``
+    (tensors on the rank's device, shards already cut by ``shard_rows``) and
+    return it.
+
+    JAX builds the global arrays from each process's host values and relies
+    on every process initialising from the same seed. The port's ranks each
+    keep their own replicas and shards, so it checks that contract once:
+    each replicated leaf equal on all ranks (across the data group, then
+    across the model group), each shard equal across its data group (the
+    ranks of one model rank); every rank raises when any rank differs."""
+    leaves = tree_leaves(tree)
+    specs = tree_leaves(shardings)
+    mesh = specs[0].mesh if specs else None
+    if mesh is None or mesh.device_mesh is None or not leaves:
+        return tree
+    data_axis, model_axis = mesh.axis_names
+    replicated = [t for t, s in zip(leaves, specs) if s.spec == P()]
+    sharded = [t for t, s in zip(leaves, specs) if s.spec != P()]
+    if any(s.spec not in (P(), P(model_axis, None)) for s in specs):
+        raise ValueError(f"unsupported specs {sorted({tuple(s.spec) for s in specs})}")
+    _check_equal(replicated, mesh, data_axis, "replicated parameters")
+    _check_equal(replicated, mesh, model_axis, "replicated parameters")
+    _check_equal(sharded, mesh, data_axis, "table shards")
     return tree
 
 

@@ -58,8 +58,25 @@ metrics (a broadcast); rank 0 alone writes ``metrics.csv``,
 at a barrier after each epoch's writes. Launch:
 ``torchrun --nproc_per_node N -m ctr_recommendation_tpu_torch.cli.train ...``.
 
-Not ported yet: row-sharded tables (``model_parallel > 1``), profiling and
-TensorBoard mirroring (ROADMAP.md).
+Row-sharded tables (``model_parallel`` mp > 1, a (dp, mp) mesh): each rank
+inits the whole tables from the seed and keeps its shard of each
+(``sharding.shard_rows``) with the dense chain's moments that mirror it;
+every table read goes through ``lookup`` (default
+``parallel/embedding.py::make_sharded_lookup``, the merged-backward plan
+off, as in JAX), in training and in eval. The ranks of one model group
+hold the same rows: ``fit_on_device`` and ``fit`` keep them in lockstep,
+``batch_size`` splitting over dp alone. The gradients are summed over the
+data group, shards included; the global-norm clip sums the replicated
+leaves' squares once and the shards' over the model group. World rank 0
+alone writes; the checkpoint and the export hold whole tables (and
+moments), gathered over the model group first, so ``Predictor`` serves
+them on one device and ``--resume`` slices them again.
+
+With a sparse ``table_optimizer`` at mp > 1 the gathered tables' rows come
+from their owners (``embedding.owned_rows_gather``), each rank updating
+its shard's rows alone; the masked-dense tables read through ``lookup``.
+
+Not ported yet: profiling and TensorBoard mirroring (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -90,7 +107,8 @@ from ctr_recommendation_tpu_torch.models.registry import get_model
 from ctr_recommendation_tpu_torch.models.trunk import gather
 from ctr_recommendation_tpu_torch.parallel import data_parallel, sharding
 from ctr_recommendation_tpu_torch.parallel.data_parallel import DataSlice
-from ctr_recommendation_tpu_torch.parallel.mesh import MODEL_PARALLEL_REFUSAL, Mesh, make_mesh
+from ctr_recommendation_tpu_torch.parallel.embedding import make_sharded_lookup, owned_rows_gather
+from ctr_recommendation_tpu_torch.parallel.mesh import Mesh, make_mesh
 from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
 from ctr_recommendation_tpu_torch.training import metrics as metrics_lib
 from ctr_recommendation_tpu_torch.training import sparse as sparse_lib
@@ -128,6 +146,18 @@ _TABLES = "trunk/tables/"  # path prefix of the embedding tables' leaves
 _ROWS = "rows/"  # name prefix of a gathered table's row buffer
 
 
+def _map_paths(tree, fn, prefix: str = ""):
+    """A copy of a tree of dicts and lists with each leaf ``fn(path,
+    leaf)``, paths as ``jax_bridge.flatten`` names them."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(v, fn, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_paths(v, fn, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
 @dataclasses.dataclass
 class StepAux:
     """What ``forward_loss`` hands ``gradients`` and ``apply_gradients``."""
@@ -162,6 +192,7 @@ class Trainer:
         total_steps: int | None = None,
         steps_per_epoch: int | None = None,
         checkpoint_dir: str | None = None,
+        lookup: Callable | None = None,
         item_store=None,
         params: dict | None = None,
         model_state: dict | None = None,
@@ -174,15 +205,21 @@ class Trainer:
         ``make_mesh(experiment.mesh)``: the process group's ranks, or one
         device without one) lays out the ranks; over a process group the
         trainer runs data-parallel on the mesh's data axis, with this
-        rank's replica on ``device``."""
+        rank's replica on ``device``, and with row-sharded tables on its
+        model axis. ``lookup(tables, name, ids, feature=, batch_dim=)``
+        replaces the trunk's gather (default: ``make_sharded_lookup`` of
+        the mesh when its model axis has more than one rank, else none)."""
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else make_mesh(experiment.mesh, device=self.device)
-        if self.mesh.shape[experiment.mesh.model_axis] > 1:
-            raise NotImplementedError(MODEL_PARALLEL_REFUSAL)
-        # the data axis' process group: None for one process
-        self._data = self.mesh.group(experiment.mesh.data_axis)
-        self._world = self.mesh.shape[experiment.mesh.data_axis]
-        self._rank = self.mesh.rank(experiment.mesh.data_axis)
+        mc = experiment.mesh
+        self._model_axis = mc.model_axis
+        self._mp = self.mesh.shape[mc.model_axis]
+        self._world = self.mesh.shape[mc.data_axis]
+        self._rank = self.mesh.rank(mc.data_axis)
+        # the data axis' process group: None for one process, and at mp > 1
+        # for a data axis of one rank, which has nothing to reduce
+        self._data = (self.mesh.group(mc.data_axis)
+                      if self._world > 1 or self._mp == 1 else None)
         self.exp = experiment
         self.fm = build_feature_map(experiment.dataset)
         self.module = get_model(experiment.model.model)
@@ -195,6 +232,15 @@ class Trainer:
         self.tx, self.schedule = make_optimizer(
             tc, total_steps, sparse_tables=tc.table_optimizer != "dense")
         self.table_opt = sparse_lib.make_table_optimizer(tc, self.schedule)
+        if self.table_opt is not None and lookup is not None:
+            raise ValueError(
+                "table_optimizer != 'dense' replaces the embedding lookup with its deduplicated "
+                "row gather; an injected sharded lookup cannot be combined with it")
+        if lookup is None and self._mp > 1:  # the masked-dense tables' too
+            lookup = make_sharded_lookup(
+                self.mesh, mc.model_axis, method=mc.lookup_method,
+                capacity_factor=mc.lookup_capacity_factor, feature_map=self.fm)
+        self.lookup = lookup
         if self.table_opt is not None:
             for f in self.fm.features_of_type(FeatureType.SEQUENCE):
                 if f.pad_id != 0:
@@ -224,12 +270,25 @@ class Trainer:
             params, model_state = self.module.init(
                 torch.Generator().manual_seed(tc.seed), self.fm, experiment.model
             )
-        params = tree_map(lambda t: self._to_device(t).requires_grad_(), params)
+        params = tree_map(self._to_device, params)
         model_state = tree_map(self._to_device, model_state)
-        if self._data is not None:  # every rank must start from rank 0's replica
+        # the leaves row-sharded over the model axis: at mp > 1 the 2-D tables;
+        # each table's whole row count and the whole row its shard starts at
+        self._sharded = set()
+        self._table_rows = {t: v.shape[0] for t, v in params["trunk"]["tables"].items()}
+        self._row0 = {t: 0 for t in self._table_rows}
+        if self._mp > 1:
+            tables = params["trunk"]["tables"]
+            for t, full in tables.items():
+                if full.dim() == 2:
+                    tables[t] = sharding.shard_rows(full, self.mesh, mc.model_axis)
+                    self._sharded.add(_TABLES + t)
+                    self._row0[t] = self.mesh.model_rank * tables[t].shape[0]
+        params = tree_map(lambda t: t.requires_grad_(), params)
+        if self.mesh.device_mesh is not None:  # every rank must start from rank 0's values
             both = {"params": params, "model_state": model_state}
             sharding.put_global(both, sharding.tree_shardings(
-                sharding.param_specs(both, self.mesh, experiment.mesh.model_axis), self.mesh))
+                sharding.param_specs(both, self.mesh, mc.model_axis), self.mesh))
         self.param_paths = dict(flatten(params))
         self.param_leaves = list(self.param_paths.values())
         # the dense chain's leaves: all of them, or without the tables
@@ -264,8 +323,8 @@ class Trainer:
         sequences transposed (S, B), attention-pooled ones (B, S). A table
         with a square (S == B) sequence keeps the per-feature gathers: the
         two layouts are indistinguishable by shape."""
-        if not self._fuse_table_gather:
-            return {}
+        if not self._fuse_table_gather or self.lookup is not None:
+            return {}  # an injected lookup owns the gathers
         fm = self.fm
         id_feats = [f for f in fm.features if f.type in _ID_TYPES and f.name in feats]
         tables = set(only) if only is not None else {fm.table_of[f.name] for f in id_feats}
@@ -285,11 +344,11 @@ class Trainer:
         return multi
 
     @staticmethod
-    def _merged_lookup(tables: dict, rows: dict, multi: dict):
+    def _merged_lookup(tables: dict, rows: dict, multi: dict, base=None):
         """The trunk's lookup for one step: gathered tables read their row
         buffer (``F.embedding``, so its backward is the sorted sum), planned
-        features their share of ``multi_feature_lookup``, the rest
-        ``gather``."""
+        features their share of ``multi_feature_lookup``, the rest ``base``
+        (default ``gather``)."""
         cache: dict[str, tuple[tuple, torch.Tensor]] = {}
         for t, segs in multi.items():
             outs = sparse_lib.multi_feature_lookup(tables[t], *[ids for _, ids in segs])
@@ -305,6 +364,8 @@ class Trainer:
                     return o
                 if ids.dim() == 2 and tuple(ids.shape) == canon[::-1]:
                     return o.transpose(0, 1)
+            if base is not None:
+                return base(tbls, name, ids, feature=feature, batch_dim=batch_dim)
             return gather(tbls[name], ids)
 
         return lookup
@@ -317,7 +378,7 @@ class Trainer:
         tables = self.state.params["trunk"]["tables"]
         if self.table_opt is None:
             multi = self._multi_feature_plan(feats)
-            lookup = self._merged_lookup(tables, {}, multi) if multi else None
+            lookup = self._merged_lookup(tables, {}, multi) if multi else self.lookup
             return feats, lookup, self.param_paths, {}
         fm = self.fm
         counts: dict[str, int] = {}  # ids per table, the forced pad id included
@@ -326,12 +387,16 @@ class Trainer:
                 t = fm.table_of[f.name]
                 counts[t] = counts.get(t, 1) + feats[f.name].numel() * self._world
         gathered = sorted(t for t, c in counts.items()
-                          if sparse_lib.choose_strategy(tables[t].shape[0], c) == "gathered")
+                          if sparse_lib.choose_strategy(self._table_rows[t], c) == "gathered")
         masked = [t for t in counts if t not in gathered]
-        feats, uids = sparse_lib.remap_batch(fm, feats, tables, only=gathered, data=data)
-        rows = {t: sparse_lib.gather_rows(tables[t].detach(), u).requires_grad_()
+        feats, uids = sparse_lib.remap_batch(fm, feats, tables, only=gathered, data=data,
+                                             rows=self._table_rows)
+        # at mp > 1 the uids' rows come from their owners (the psum exchange)
+        rows = {t: (sparse_lib.gather_rows(tables[t].detach(), u) if self._mp == 1 else
+                    owned_rows_gather(tables[t], u, self.mesh, self._model_axis)).requires_grad_()
                 for t, u in uids.items()}
-        lookup = self._merged_lookup(tables, rows, self._multi_feature_plan(feats, only=masked))
+        lookup = self._merged_lookup(tables, rows, self._multi_feature_plan(feats, only=masked),
+                                     base=self.lookup)
         targets = {p: self.param_paths[p] for p in self._chain_paths}
         targets.update({_TABLES + t: tables[t] for t in masked})
         targets.update({_ROWS + t: r for t, r in rows.items()})
@@ -381,7 +446,8 @@ class Trainer:
     def apply_gradients(self, grads: list[torch.Tensor], aux: StepAux) -> None:
         """The optimizer update (params change in place) and the step."""
         if self.table_opt is None:
-            self.tx.update(grads, self.state.opt_state, self.param_leaves)
+            self.tx.update(grads, self.state.opt_state, self.param_leaves,
+                           global_norm=lambda g: self._global_norm(g, self._chain_paths))
         else:
             self._apply_sparse(dict(zip(aux.targets, grads)), aux.uids)
         self.state.model_state = aux.model_state
@@ -395,7 +461,7 @@ class Trainer:
         clip = self.exp.train.grad_clip_norm
         if clip and clip > 0:
             g = list(grads.values())
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            norm = self._global_norm(g, list(grads))
             torch._foreach_mul_(g, (clip / norm.clamp(min=1e-16)).clamp(max=1.0))
         self.tx.update([grads[p] for p in self._chain_paths], self.state.opt_state,
                        [self.param_paths[p] for p in self._chain_paths])
@@ -407,7 +473,22 @@ class Trainer:
                                         {t: grads[_TABLES + t] for t in masked}, step)
         if uids:
             self.table_opt.update({t: tables[t] for t in uids}, tstate, uids,
-                                  {t: grads[_ROWS + t] for t in uids}, step)
+                                  {t: grads[_ROWS + t] for t in uids}, step,
+                                  row0=self._row0 if self._mp > 1 else None)
+
+    def _global_norm(self, grads: list[torch.Tensor], paths: list[str]) -> torch.Tensor:
+        """The global L2 norm of ``grads`` (named by ``paths``) over the
+        whole model: at mp > 1 the replicated leaves' squares counted once
+        and the table shards' summed over the model group, so that every
+        rank clips alike."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self._mp == 1:
+            return torch.linalg.vector_norm(norms)
+        sq = norms.square()
+        mask = torch.tensor([p in self._sharded for p in paths], device=sq.device)
+        shards = torch.where(mask, sq, 0.0).sum().reshape(1)
+        data_parallel.all_reduce_(shards, self.mesh.group(self._model_axis))
+        return (torch.where(mask, 0.0, sq).sum() + shards[0]).sqrt()
 
     def train_step(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step; returns the (global) batch loss as a device
@@ -419,17 +500,30 @@ class Trainer:
         return aux.loss
 
     # ------------------------------------------------------------------ state
+    def _shard(self, path: str, whole) -> torch.Tensor:
+        """A checkpoint's leaf at ``path`` as this rank holds it: its rows
+        of a row-sharded table, else the whole."""
+        t = torch.as_tensor(whole)
+        return sharding.shard_rows(t, self.mesh, self._model_axis) if path in self._sharded else t
+
+    def _moments(self, opt_state: dict, fn) -> dict:
+        """The dense chain's state with ``fn(path, leaf)`` on each moment
+        (the lists that mirror ``_chain_paths``)."""
+        return {k: [fn(p, t) for p, t in zip(self._chain_paths, v)] if isinstance(v, list) else v
+                for k, v in opt_state.items()}
+
     def _restore(self, payload: dict) -> None:
+        """Restore a resume point (whole tables: a rank keeps its rows)."""
+        flat = flatten(payload["params"])
         with torch.no_grad():
-            for dst, src in zip(self.param_leaves, flatten(payload["params"]).values()):
-                dst.copy_(src)
+            for path, dst in self.param_paths.items():
+                dst.copy_(self._shard(path, flat[path]))
         self.state.model_state = tree_map(self._to_device, payload["model_state"])
-        self.state.table_opt_state = tree_map(self._to_device,
-                                              payload.get("table_opt_state", {}))
-        self.state.opt_state = {
-            k: tree_map(self._to_device, v) if isinstance(v, list) else v
-            for k, v in payload["opt_state"].items()
-        }
+        self.state.table_opt_state = _map_paths(
+            payload.get("table_opt_state", {}),
+            lambda p, t: self._to_device(self._shard(_TABLES + p.split("/")[0], t)))
+        self.state.opt_state = self._moments(
+            payload["opt_state"], lambda p, t: self._to_device(self._shard(p, t)))
         self.state.step = int(payload["step"])
 
     def load_best(self) -> None:
@@ -437,15 +531,41 @@ class Trainer:
         params_np, mstate_np = self.ckpt.restore_best()
         flat = flatten(params_np)
         with torch.no_grad():
-            for path, t in flatten(self.state.params).items():
-                t.copy_(torch.from_numpy(np.asarray(flat[path])))
+            for path, t in self.param_paths.items():
+                t.copy_(self._shard(path, flat[path]))
         self.state.model_state = tree_map(self._to_device, mstate_np)
+
+    def _whole_state(self) -> TrainState:
+        """The train state as one process holds it: at mp > 1 each table and
+        its moments gathered whole over the model group (every rank of the
+        group must call this), else the state itself."""
+        if self._mp == 1:
+            return self.state
+
+        def whole(path, t):
+            t = t.detach()
+            return sharding.unshard_rows(t, self.mesh, self._model_axis) \
+                if path in self._sharded else t
+
+        st = self.state
+        return TrainState(st.step, _map_paths(st.params, whole), st.model_state,
+                          self._moments(st.opt_state, whole),
+                          _map_paths(st.table_opt_state,
+                                     lambda p, t: whole(_TABLES + p.split("/")[0], t)))
+
+    def _state_to_write(self) -> TrainState | None:
+        """The whole state on the rank that writes, None on the others. At
+        mp > 1 the model group of data rank 0 gathers the tables together."""
+        if self._mp > 1 and self.mesh.data_rank != 0:
+            return None
+        st = self._whole_state()
+        return st if self._writes else None
 
     @property
     def _writes(self) -> bool:
-        """Whether this process writes the checkpoint directory: rank 0
-        alone."""
-        return self._rank == 0
+        """Whether this process writes the checkpoint directory: world rank
+        0 alone (at mp > 1 the model ranks of data rank 0 do not)."""
+        return self.mesh.writes
 
     def _save_experiment(self) -> None:
         if not self._writes:
@@ -541,15 +661,15 @@ class Trainer:
             metric = entry[tc.monitor]
             if metric > best if tc.monitor_mode == "max" else metric < best:
                 best = metric
-                if self._writes:
-                    self.ckpt.save_best(
-                        self.state.params, self.state.model_state, metric, self.state.step
-                    )
+                st = self._state_to_write()
+                if st is not None:
+                    self.ckpt.save_best(st.params, st.model_state, metric, st.step)
                 self.log(f"[epoch {epoch + 1}] new best {tc.monitor}={metric:.4f} — exported")
         t_save = time.perf_counter()
         if (epoch + 1) % tc.checkpoint_every == 0 or epoch + 1 == tc.epochs:
-            if self._writes:
-                self.ckpt.save(epoch + 1, self.state)
+            st = self._state_to_write()
+            if st is not None:
+                self.ckpt.save(epoch + 1, st)
             entry["checkpoint_seconds"] = time.perf_counter() - t_save
         else:
             entry["checkpoint_seconds"] = 0.0  # every row keeps one schema
@@ -561,18 +681,18 @@ class Trainer:
         self.history.append(entry)
         if self._writes:
             self._write_history_csv()
-        if self._data is not None:  # no rank runs ahead of rank 0's writes
-            dist.barrier(group=self._data)
+        if self.mesh.device_mesh is not None:  # no rank runs ahead of rank 0's writes
+            dist.barrier()
         return best
 
     def _agree(self, metrics: dict[str, float]) -> dict[str, float]:
-        """Rank 0's eval metrics on every rank (a broadcast), so that every
-        rank takes the same best-export decision."""
-        if self._data is None:
+        """World rank 0's eval metrics on every rank (a broadcast), so that
+        every rank takes the same best-export decision."""
+        if self.mesh.device_mesh is None:
             return metrics
         keys = sorted(metrics)
         t = torch.tensor([metrics[k] for k in keys], dtype=torch.float64, device=self.device)
-        data_parallel.broadcast_(t, self._data)
+        dist.broadcast(t, 0)
         return dict(zip(keys, t.tolist()))
 
     def fit_on_device(self, train, valid=None, *, resume: bool = False) -> list[dict[str, float]]:
@@ -832,6 +952,7 @@ class Trainer:
         logits, _ = self.module.apply(
             self.state.params, self.state.model_state, self.fm, self.exp.model,
             self._device_join(feats), train=False, compute_dtype=self.compute_dtype,
+            lookup=self.lookup,
         )
         return torch.sigmoid(logits)
 

@@ -120,12 +120,16 @@ class Optimizer:
         return {"count": 0, "mu": zeros(), "nu": zeros()}
 
     @torch.no_grad()
-    def update(self, grads: list[torch.Tensor], state: dict, params: list[torch.Tensor]) -> None:
+    def update(self, grads: list[torch.Tensor], state: dict, params: list[torch.Tensor],
+               global_norm=None) -> None:
         """One step: ``params`` and ``state`` change in place; ``grads`` are
-        consumed (scaled in place)."""
+        consumed (scaled in place). ``global_norm(grads)`` replaces the
+        clip's norm over ``grads`` (a trainer whose ``grads`` hold table
+        shards sums their squares over the shards)."""
         lr = self.schedule(state["count"])
         if self.clip_norm and self.clip_norm > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+                    if global_norm is None else global_norm(grads))
             scale = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
             torch._foreach_mul_(grads, scale)
         wd = self.weight_decay

@@ -15,11 +15,13 @@ optimizer state, are updated:
    restricted to the touched rows;
 3. ``TableOptimizer.update`` writes the touched rows of the table and its
    state back with ``index_copy_``. PyTorch has no scatter that drops
-   out-of-range indices, so every sentinel slot is pointed at slot 0's row
-   (a real row: ``remap_batch`` forces the pad id 0 in) and carries slot
-   0's own new value. Every write to a repeated index then holds the same
-   bits, and the copy is exact. The table row is written as ``rows +
-   (-lr * upd)``, one rounding, as the JAX ``.at[u].add`` rounds.
+   out-of-range indices, so every slot this table does not hold (the
+   sentinels; at model_parallel > 1 also the rows other ranks own) is
+   pointed at the first held slot's row (slot 0's in one process:
+   ``remap_batch`` forces the pad id 0 in) and carries that slot's own new
+   value. Every write to a repeated index then holds the same bits, and
+   the copy is exact. The table row is written as ``rows + (-lr * upd)``,
+   one rounding, as the JAX ``.at[u].add`` rounds.
 
 Tables comparable in size to the batch's id count take the masked-dense
 strategy instead (``update_dense``): the same lazy semantics as full-table
@@ -88,12 +90,18 @@ def gather_rows(table: torch.Tensor, uids: torch.Tensor) -> torch.Tensor:
 
 
 def _write_rows(dst: torch.Tensor, uids: torch.Tensor, new_rows: torch.Tensor) -> None:
-    """``dst[uids] = new_rows`` for the real slots; sentinel slots rewrite
-    slot 0's row with slot 0's own value (``uids[0]`` is real)."""
-    sentinel = uids >= dst.shape[0]
-    idx = torch.where(sentinel, uids[:1], uids)
-    vals = torch.where(sentinel.view(-1, *([1] * (new_rows.dim() - 1))), new_rows[:1], new_rows)
-    dst.index_copy_(0, idx, vals)
+    """``dst[uids] = new_rows`` for the slots ``dst`` holds (0 <= uid <
+    rows); the others rewrite the first held slot's row with that slot's
+    own value, or, when ``dst`` holds none of them, row 0 with its own."""
+    held = (uids >= 0) & (uids < dst.shape[0])
+    # the first held slot (0 when none is), as a 1-element index: no host read
+    a = held.to(torch.int32).argmax().view(1)
+    first = uids.index_select(0, a).clamp(0, dst.shape[0] - 1)
+    shape = (-1, *([1] * (new_rows.dim() - 1)))
+    anchor = torch.where(held.index_select(0, a).view(shape), new_rows.index_select(0, a),
+                         dst.index_select(0, first))
+    dst.index_copy_(0, torch.where(held, uids, first),
+                    torch.where(held.view(shape), new_rows, anchor))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,15 +147,21 @@ class TableOptimizer:
 
     @torch.no_grad()
     def update(self, tables: dict[str, torch.Tensor], tstate: dict, uids: dict[str, torch.Tensor],
-               row_grads: dict[str, torch.Tensor], step: int) -> None:
+               row_grads: dict[str, torch.Tensor], step: int,
+               row0: dict[str, int] | None = None) -> None:
         """Gathered strategy: ``uids[name]`` from ``dedup_ids`` (slot 0
         real), ``row_grads[name]`` the gradient of the gathered rows.
         ``step`` counts completed updates (lr and bias correction at step +
-        1's count, as optax's)."""
+        1's count, as optax's). ``row0[name]``: the whole table's row that
+        ``tables[name]``, a shard of it, starts at (model_parallel > 1);
+        the shard's rows alone are updated, the other uids' left to their
+        owners."""
         lr = self.schedule(step)
         count = step + 1
         for name, table in tables.items():
             u, g, st = uids[name], row_grads[name], tstate[name]
+            if row0 is not None:
+                u = u - row0[name]
             rows = gather_rows(table, u)
             if self.kind == "adam":
                 if self.weight_decay:  # L2 into the gradient, before the moments
@@ -235,7 +249,8 @@ def make_table_optimizer(cfg: TrainConfig, schedule: Callable[[int], float]) -> 
 
 
 def remap_batch(fm, feats: dict[str, torch.Tensor], tables: dict[str, torch.Tensor],
-                only=None, data=None) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+                only=None, data=None, rows: dict[str, int] | None = None
+                ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
     """Dedup each table's batch ids once and rewrite its id features to
     row-buffer indices (``only``: the tables to remap, default all).
 
@@ -249,7 +264,8 @@ def remap_batch(fm, feats: dict[str, torch.Tensor], tables: dict[str, torch.Tens
     gathered from every rank (one buffer of the local batch's static size
     a rank) and deduplicated together, so that every rank holds the global
     batch's uids, as one process over the global batch does (with up to
-    world - 1 more sentinel slots); the feats index into them."""
+    world - 1 more sentinel slots); the feats index into them. ``rows``:
+    each table's whole row count, where ``tables`` hold shards of them."""
     plan: dict[str, list] = {}
     flats: dict[str, list[torch.Tensor]] = {}
     for f in fm.features:
@@ -271,7 +287,7 @@ def remap_batch(fm, feats: dict[str, torch.Tensor], tables: dict[str, torch.Tens
         if data is not None:
             base = data.rank * flat.numel()
             flat = data_parallel.all_gather(flat, data).reshape(-1)
-        uids[t], inv = dedup_ids_inverse(flat, tables[t].shape[0])
+        uids[t], inv = dedup_ids_inverse(flat, tables[t].shape[0] if rows is None else rows[t])
         for name, start, shape in plan[t]:
             out[name] = inv[base + start : base + start + shape.numel()].reshape(shape)
     return out, uids

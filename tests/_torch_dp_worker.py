@@ -1,5 +1,6 @@
-"""One rank of the port's data-parallel tests, and the launcher that starts
-the ranks: torch.distributed over gloo on the CPU, one process a rank.
+"""One rank of the port's data-parallel and row-sharded tests, and the
+launcher that starts the ranks: torch.distributed over gloo on the CPU, one
+process a rank.
 
     python tests/_torch_dp_worker.py SPEC.json
 
@@ -10,7 +11,9 @@ to run in order, each ``{"kind": ..., "name": ..., ...}``; a case writes
 ``<out>/<name>.rank<r>.npz`` (or ``.json``). This module imports neither
 JAX nor the JAX package: the tests compare its outputs with the JAX package
 in their own process. The tests also call ``port_step`` and ``port_bn`` in
-one process, as the 1-rank reference.
+one process, as the 1-rank reference. Under ``WORLD_SIZE`` = dp x mp ranks a
+case whose experiment (or ``mp``) asks for ``model_parallel`` mp runs on the
+(dp, mp) mesh: world rank d mp + m holds data rank d and model rank m.
 """
 
 from __future__ import annotations
@@ -91,36 +94,55 @@ def _np(t):
 
 
 def port_step(experiment_json: str, weights: str, batch: dict, rank: int = 0,
-              world: int = 1, ckpt: str = "") -> dict[str, np.ndarray]:
-    """One Trainer step on rows [rank n/world, (rank + 1) n/world) of
+              world: int = 1, ckpt: str = "", lookup: dict | None = None
+              ) -> dict[str, np.ndarray]:
+    """One Trainer step on data rank d's rows [d n/dp, (d + 1) n/dp) of
     ``batch`` from the weights in ``weights`` (a ``jax_bridge.save`` .npz;
-    None: the experiment's seeded init):
-    ``loss`` (the global loss), ``grad/<target>`` (the global gradients,
-    without the gathered tables' row buffers), and after the update
-    ``param/<path>``, ``state/<path>`` and ``topt/<table>/<key>``."""
+    None: the experiment's seeded init); ``rank`` and ``world`` are the
+    data rank and dp the mesh must give. ``lookup``: ``make_sharded_lookup``'s
+    keywords (default: the Trainer's own lookup). Returns ``loss`` (the
+    global loss), ``grad/<target>`` (the global gradients, without the
+    gathered tables' row buffers; a rank's shard of a row-sharded table),
+    ``clip/<target>`` (the same after the update: clipped, and with
+    weight_decay > 0 plus the L2 term), after the update ``param/<path>``,
+    ``state/<path>`` and ``topt/<table>/<key>``, and ``coords`` (data rank,
+    model rank, dp, mp)."""
     import torch
 
     from ctr_recommendation_tpu_torch.config import serialize
     from ctr_recommendation_tpu_torch.parallel import distributed
+    from ctr_recommendation_tpu_torch.parallel.embedding import make_sharded_lookup
+    from ctr_recommendation_tpu_torch.parallel.mesh import make_mesh
     from ctr_recommendation_tpu_torch.tools import jax_bridge
     from ctr_recommendation_tpu_torch.training import Trainer
 
     exp = serialize.from_json(experiment_json)
     exp = exp.replace(train=dataclasses.replace(exp.train, checkpoint_dir=ckpt))
     params, mstate = jax_bridge.load(weights) if weights else (None, None)
-    tr = Trainer(exp, params=params, model_state=mstate, device="cpu", total_steps=10,
-                 log_fn=lambda s: None)
-    n = len(batch["label"]) // world
+    mesh = make_mesh(exp.mesh, device="cpu")
+    fn = None
+    if lookup is not None:
+        from ctr_recommendation_tpu_torch.features import build_feature_map
+
+        fn = make_sharded_lookup(mesh, feature_map=build_feature_map(exp.dataset), **lookup)
+    tr = Trainer(exp, mesh=mesh, params=params, model_state=mstate, device="cpu",
+                 total_steps=10, lookup=fn, log_fn=lambda s: None)
+    dp, d = tr._world, mesh.data_rank
+    assert (d, dp) == (rank, world), (d, dp, rank, world)
+    n = len(batch["label"]) // dp
     cols, row0 = distributed.host_local_to_global(
-        {k: v[rank * n : (rank + 1) * n] for k, v in batch.items()}, tr.mesh)
-    assert row0 == rank * n, (row0, rank, n)
+        {k: v[d * n : (d + 1) * n] for k, v in batch.items()}, tr.mesh)
+    assert row0 == d * n, (row0, d, n)
     with torch.enable_grad():
         loss, aux = tr.forward_loss(cols)
         grads = tr.gradients(loss, aux)
-    out = {"loss": _np(aux.loss)}
+    out = {"loss": _np(aux.loss),
+           "coords": np.array([d, mesh.model_rank, dp, mesh.shape["model"]])}
     out.update({f"grad/{k}": _np(g) for k, g in zip(aux.targets, grads)
                 if not k.startswith("rows/")})
     tr.apply_gradients(grads, aux)
+    out.update({f"clip/{k}": _np(g) for k, g in zip(aux.targets, grads)
+                if not k.startswith("rows/")})
     out.update({f"param/{k}": _np(v) for k, v in jax_bridge.flatten(tr.state.params).items()})
     out.update({f"state/{k}": _np(v)
                 for k, v in jax_bridge.flatten(tr.state.model_state).items()})
@@ -177,8 +199,8 @@ def port_bn(weighted: bool, rank: int = 0, world: int = 1) -> dict[str, np.ndarr
 
 def port_fit(experiment_json: str, splits: str, ckpt: str, world: int = 1) -> list[dict]:
     """``fit_on_device`` over the splits in ``splits`` (an .npz of train/,
-    valid/ columns and the item store), on this process's mesh; returns the
-    history."""
+    valid/ columns and the item store), on this process's mesh (dp =
+    ``world``); returns the history."""
     from ctr_recommendation_tpu_torch.config import serialize
     from ctr_recommendation_tpu_torch.data import ItemStore, TableData
     from ctr_recommendation_tpu_torch.training import Trainer
@@ -197,6 +219,105 @@ def port_fit(experiment_json: str, splits: str, ckpt: str, world: int = 1) -> li
     return tr.fit_on_device(TableData(train, n_train), TableData(valid, n_valid))
 
 
+# ------------------------------------------------------ row-sharded lookups
+LOOKUP_STATS = ("calls", "bytes", "row_bytes", "fallbacks")
+
+
+def lookup_scenarios() -> list[dict]:
+    """The lookups the sharded-lookup tests run, numpy only: each a whole
+    ``table`` (V, E), a global batch of ``ids`` (split over the data ranks
+    on axis 0), the ``method``, ``cap`` (capacity factor), ``pad`` (pad id),
+    ``loss`` ("x2": sum(2 rows), "sq": sum(rows^2)) and ``via`` ("direct":
+    ``sharded_lookup``; "make": ``make_sharded_lookup`` of the tiny feature
+    map with ``small`` small_table_rows, looking up ``table_name``)."""
+    out = []
+    rng = np.random.default_rng(11)
+    v = 256  # round_up_vocab(200)
+    table = rng.standard_normal((v, 16)).astype(np.float32)
+    padded = table.copy()
+    padded[0] = 0.0  # the pad row, zeroed at init
+    ids_pad = np.where(rng.random((64, 8)) < 0.5, 0,
+                       rng.integers(1, 200, (64, 8))).astype(np.int32)
+    small = rng.standard_normal((128, 16)).astype(np.float32)
+    for method in ("psum", "all_to_all"):
+        base = dict(table=table, method=method, cap=1.25, pad=None, loss="x2", via="direct")
+        out += [
+            dict(base, name=f"flat_{method}", ids=rng.integers(0, 200, (64,)).astype(np.int32)),
+            dict(base, name=f"seq_{method}", ids=rng.integers(0, 200, (64, 5)).astype(np.int32)),
+            dict(base, name=f"skew_{method}", ids=np.full((64, 5), 3, np.int32), cap=1.1),
+            dict(base, name=f"range_{method}",
+                 ids=np.asarray([3, -1, v, 7, v + 99, 5, 2, 1], np.int32)),
+            dict(base, name=f"repeat_{method}", ids=np.asarray([3, 3, 7, 99], np.int32)),
+            dict(base, name=f"pad_{method}", table=padded, ids=ids_pad,
+                 pad=0 if method == "all_to_all" else None, loss="sq"),
+        ]
+    out += [
+        dict(name="fallback_grad", table=table, ids=np.full((32,), 5, np.int32),
+             method="all_to_all", cap=1.1, pad=None, loss="sq", via="direct"),
+        dict(name="small_passthrough", table=small, table_name="likes_level",
+             ids=np.asarray([0, 5, 10, 3, 127, 64, 9, 1], np.int32), method="all_to_all",
+             cap=1.25, pad=None, loss="x2", via="make", small=1024),
+        dict(name="fm_pad", table=padded, table_name="item_id", ids=ids_pad,
+             method="all_to_all", cap=1.25, pad=0, loss="sq", via="make", small=0),
+        # the bytes: 1024 ids of E=128, balanced over the owners
+        dict(name="bytes_psum", table=rng.standard_normal((1024, 128)).astype(np.float32),
+             ids=rng.integers(0, 1024, (1024,)).astype(np.int32), method="psum", cap=1.25,
+             pad=None, loss="x2", via="direct"),
+    ]
+    out.append(dict(out[-1], name="bytes_all_to_all", method="all_to_all"))
+    return out
+
+
+def _lookups(case, rank, world):
+    """Every ``lookup_scenarios()`` lookup on the (world / mp, mp) mesh: this
+    rank's rows, its shard's gradient (summed over the data group) and the
+    exchange's counters."""
+    import torch
+    import torch.distributed as dist
+
+    from ctr_recommendation_tpu_torch.config.schema import MeshConfig
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.parallel import embedding, make_mesh
+
+    mesh = make_mesh(MeshConfig(model_parallel=case["mp"]), device="cpu")
+    dp, mp, d, m = mesh.shape["data"], mesh.shape["model"], mesh.data_rank, mesh.model_rank
+    fm = build_feature_map(_tiny_port_experiment().dataset)
+    out = {"coords": np.array([d, m, dp, mp])}
+    for sc in lookup_scenarios():
+        rows_per = sc["table"].shape[0] // mp
+        shard = torch.from_numpy(sc["table"][m * rows_per : (m + 1) * rows_per].copy())
+        shard.requires_grad_()
+        ids = torch.from_numpy(np.array_split(sc["ids"], dp)[d].copy())
+        embedding.stats.update(dict.fromkeys(LOOKUP_STATS, 0))
+        if sc["via"] == "make":
+            fn = embedding.make_sharded_lookup(mesh, feature_map=fm, small_table_rows=sc["small"],
+                                               method=sc["method"], capacity_factor=sc["cap"])
+            rows = fn({sc["table_name"]: shard}, sc["table_name"], ids)
+        else:
+            rows = embedding.sharded_lookup(shard, ids, mesh, method=sc["method"],
+                                            capacity_factor=sc["cap"], pad_id=sc["pad"])
+        stats = [embedding.stats[k] for k in LOOKUP_STATS]
+        loss = (rows * 2.0).sum() if sc["loss"] == "x2" else (rows**2).sum()
+        (grad,) = torch.autograd.grad(loss, [shard])
+        if dp > 1:
+            dist.all_reduce(grad, group=mesh.group("data"))
+        out[f"{sc['name']}/rows"] = _np(rows)
+        out[f"{sc['name']}/grad"] = _np(grad)
+        out[f"{sc['name']}/stats"] = np.asarray(stats)
+    return out
+
+
+def _tiny_port_experiment():
+    """The port's counterpart of tests/conftest.py's tiny experiment."""
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.config.loader import microlens_features
+
+    exp = microlens_experiment(data_root="", embedding_dim=16, hidden_units=(32, 16),
+                               batch_size=64, epochs=2, max_len=8, use_pallas=False)
+    return exp.replace(dataset=dataclasses.replace(exp.dataset, features=microlens_features(
+        item_vocab=200, cate_vocab=11, max_len=8, mm_dim=24)))
+
+
 # ------------------------------------------------------------------ the rank
 def _runtime(case, rank, world):
     """initialize from the environment (idempotent), the rank's id and
@@ -213,13 +334,15 @@ def _runtime(case, rank, world):
     out["mesh_shape"] = mesh.shape
     out["data_rank"] = mesh.data_rank
     errors = {}
-    for name, cfg in (("dp3", MeshConfig(data_parallel=3)),
-                      ("mp2", MeshConfig(model_parallel=2))):
+    for name, cfg in (("dp3", MeshConfig(data_parallel=3)),):
         try:
             make_mesh(cfg, device="cpu")
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             errors[name] = f"{type(e).__name__}: {e}"
     out["errors"] = errors
+    mp2 = make_mesh(MeshConfig(model_parallel=2), device="cpu")
+    out["mp2"] = {"shape": mp2.shape, "data_rank": mp2.data_rank,
+                  "model_rank": mp2.model_rank, "writes": mp2.writes}
     rng = np.random.default_rng(0)
     _, row0 = distributed.host_local_to_global({"a": rng.random((5, 3))}, mesh)
     _, row0_k = distributed.host_local_to_global({"a": rng.random((4, 6, 3))}, mesh, batch_dim=1)
@@ -244,9 +367,14 @@ def _runtime(case, rank, world):
 def _refusals(case, rank, world):
     """A Trainer whose replica differs on rank 1 must raise on every rank;
     ``fit_on_device`` refuses a global batch that does not divide over the
-    ranks."""
+    ranks. On the 1 x 2 mesh a Trainer keeps its shard of each table (its
+    moments too, and the sparse table optimizers' state), and raises on
+    every rank when a shard differs across its data group (here: never,
+    dp = 1) or a replicated leaf across the model group."""
     from ctr_recommendation_tpu_torch.config import serialize
+    from ctr_recommendation_tpu_torch.config.schema import MeshConfig
     from ctr_recommendation_tpu_torch.data import TableData
+    from ctr_recommendation_tpu_torch.parallel import make_mesh
     from ctr_recommendation_tpu_torch.tools import jax_bridge
     from ctr_recommendation_tpu_torch.training import Trainer
 
@@ -260,7 +388,28 @@ def _refusals(case, rank, world):
         tr.fit_on_device(TableData({"label": np.zeros(200, np.float32)}, 200))
     except ValueError as e:
         out["batch"] = str(e)
+    mesh = make_mesh(MeshConfig(model_parallel=2), device="cpu")
+    tr = Trainer(exp, mesh=mesh, params=params, model_state=mstate, device="cpu",
+                 log_fn=lambda s: None)
+    out["mp2_shapes"] = {k: list(v.shape) for k, v in tr.param_paths.items()
+                         if k.startswith("trunk/tables/")}
+    out["mp2_moment"] = list(tr.state.opt_state["mu"][
+        tr._chain_paths.index("trunk/tables/item_id")].shape)
+    out["mp2_writes"] = tr._writes
+    sparse = exp.replace(train=dataclasses.replace(exp.train, table_optimizer="adam"))
+    st = Trainer(sparse, mesh=mesh, params=params, model_state=mstate, device="cpu",
+                 log_fn=lambda s: None).state.table_opt_state
+    out["mp2_sparse"] = {f"{t}/{k}": list(v.shape) for t, d in st.items() for k, v in d.items()}
+    w00 = params["mlp"]["out"]["w"][0, 0].copy()
     if rank == 1:
+        params["mlp"]["out"]["w"][0, 0] += 1e-3
+    try:
+        Trainer(exp, mesh=mesh, params=params, model_state=mstate, device="cpu",
+                log_fn=lambda s: None)
+    except ValueError as e:
+        out["mp2_replica"] = str(e)
+    if rank == 1:
+        params["mlp"]["out"]["w"][0, 0] = w00
         params["trunk"]["tables"]["item_id"][3, 2] += 1e-3
     try:
         Trainer(exp, params=params, model_state=mstate, device="cpu", log_fn=lambda s: None)
@@ -286,12 +435,18 @@ def main() -> None:
                 from ctr_recommendation_tpu_torch.training import sparse
 
                 sparse.GATHERED_MIN_VOCAB_RATIO = case["gathered_ratio"]
+            mp = case.get("mp", 1)
             res = port_step(case["experiment"], case["weights"], dict(np.load(case["batch"])),
-                            rank, world, case["ckpt"] + str(rank))
+                            rank // mp, world // mp, case["ckpt"] + str(rank),
+                            lookup=case.get("lookup"))
         elif kind == "bn":
             res = port_bn(case["weighted"], rank, world)
         elif kind == "fit":
-            res = port_fit(case["experiment"], case["splits"], case["ckpt"], world)
+            mp = case.get("mp", 1)
+            res = port_fit(case["experiment"], case["splits"],
+                           case["ckpt"] + (str(rank) if mp > 1 else ""), world // mp)
+        elif kind == "lookup":
+            res = _lookups(case, rank, world)
         elif kind == "runtime":
             res = _runtime(case, rank, world)
         elif kind == "refusals":

@@ -3,7 +3,7 @@
 In this process (no process group): ``initialize`` as a clean no-op outside
 a cluster and raising on an explicit request that fails; ``make_mesh``'s
 layouts and errors (the JAX message for a mesh that does not cover the
-ranks; model > 1 refused, naming ROADMAP.md queue 1 item 2);
+ranks);
 ``param_specs``, ``batch_specs`` and ``opt_state_specs`` against the JAX
 ones on the same model; ``host_local_to_global`` on one rank; the bucketed
 all-reduce's buckets.
@@ -14,7 +14,12 @@ limit, killed past it): ``initialize`` from the launcher's environment,
 counterpart of ``tests/test_distributed.py``'s two-process global loss and
 gradient (to 1e-5 of its numpy reference), and the refusals: a replica
 that differs from rank 0's raises on every rank, and ``fit_on_device``
-refuses a global batch that does not divide over the ranks.
+refuses a global batch that does not divide over the ranks. The 1 x 2
+layout (``model_parallel=2``) on the same two ranks: each rank's data and
+model rank, world rank 0 alone writing, a Trainer keeping its shard of
+each table and of its Adam moments (and of the sparse table optimizer's
+state), a replicated leaf that differs across the model group raising on
+every rank.
 """
 
 import dataclasses
@@ -46,7 +51,6 @@ from ctr_recommendation_tpu_torch.parallel import (
 from ctr_recommendation_tpu_torch.parallel import sharding
 from ctr_recommendation_tpu_torch.parallel.mesh import Mesh
 from ctr_recommendation_tpu_torch.tools import jax_bridge
-from ctr_recommendation_tpu_torch.training import Trainer
 from ctr_recommendation_tpu_torch.training.optim import make_optimizer
 from tests import _torch_dp_worker as worker
 from tests.test_distributed import _numpy_reference
@@ -97,14 +101,23 @@ def test_make_mesh_refuses_a_layout_that_does_not_cover_the_ranks(dp, mp):
     assert str(got.value) == str(want.value)
 
 
-def test_make_mesh_refuses_row_sharded_tables():
-    for cfg in (MeshConfig(model_parallel=2), MeshConfig(data_parallel=1, model_parallel=2)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            make_mesh(cfg, world=2, device="cpu")
-    mesh = Mesh({"data": 1, "model": 2}, ("data", "model"), torch.device("cpu"))
-    exp = pt_serialize.from_json(jax_serialize.to_json(_tiny()))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        Trainer(exp, mesh=mesh, device="cpu")
+def test_make_mesh_refuses_row_sharded_tables(ranks):
+    """No longer refused: model_parallel=2 over two ranks is the 1 x 2
+    layout (world rank r is model rank r of data rank 0), world rank 0
+    alone writes, and a Trainer on it keeps rows [r 128, (r + 1) 128) of
+    the 256-row item table and of its Adam moments, 64 of the 128-row
+    category table (shared by likes_level and views_level). A layout that does not cover the ranks still
+    raises JAX's message."""
+    with pytest.raises(ValueError, match="mesh 2x2 does not cover 2 devices"):
+        make_mesh(MeshConfig(data_parallel=2, model_parallel=2), world=2, device="cpu")
+    for r in (0, 1):
+        got = worker.load(ranks, "runtime", r)
+        assert got["mp2"] == {"shape": {"data": 1, "model": 2}, "data_rank": 0,
+                              "model_rank": r, "writes": r == 0}
+        ref = worker.load(ranks, "refusals", r)
+        assert ref["mp2_shapes"] == {"trunk/tables/item_id": [128, 16],
+                                     "trunk/tables/likes_level": [64, 16]}
+        assert ref["mp2_moment"] == [128, 16] and ref["mp2_writes"] == (r == 0)
 
 
 def test_single_device_mesh(no_launcher):
@@ -236,7 +249,7 @@ def test_two_ranks_initialize_from_the_launchers_environment(ranks):
         # each rank's first global row: rank x local rows (5 rows; 6 on axis 1)
         assert (got["row0"], got["row0_k"]) == (5 * r, 6 * r)
         assert got["errors"]["dp3"].startswith("ValueError: mesh 3x1 does not cover 2 devices")
-        assert "queue 1 item 2" in got["errors"]["mp2"]
+        assert "mp2" not in got["errors"]  # model_parallel=2 lays out 1 x 2
 
 
 def test_two_process_global_loss_matches_single_process(ranks):
@@ -255,3 +268,14 @@ def test_two_ranks_refuse_a_differing_replica_and_an_undivided_batch(ranks):
         got = worker.load(ranks, "refusals", r)
         assert "data rank(s) [1] differ from rank 0's" in got["replica"]
         assert "does not divide over 2 data-parallel ranks" in got["batch"]
+        # at 1 x 2 the replicated leaves are held equal across the model group
+        assert "replicated parameters of model rank(s) [1] differ" in got["mp2_replica"]
+
+
+def test_sparse_tables_at_model_parallel_shard_their_state(ranks):
+    """No longer refused: at 1 x 2 the sparse table optimizer's state (lazy
+    Adam's moments) is sharded like the tables it mirrors."""
+    for r in (0, 1):
+        assert worker.load(ranks, "refusals", r)["mp2_sparse"] == {
+            "item_id/mu": [128, 16], "item_id/nu": [128, 16],
+            "likes_level/mu": [64, 16], "likes_level/nu": [64, 16]}

@@ -285,7 +285,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "cli/evaluate.py", "cli/validate_dataset.py", "data/native/__init__.py",
                    "serving/__init__.py", "serving/collator.py", "serving/server.py",
                    "cli/serve.py", "parallel/__init__.py", "parallel/distributed.py",
-                   "parallel/mesh.py", "parallel/sharding.py", "parallel/data_parallel.py"):
+                   "parallel/mesh.py", "parallel/sharding.py", "parallel/data_parallel.py",
+                   "parallel/embedding.py"):
         assert PORT / module in files, module
     assert (PORT / "csrc" / "sasrec_encoder.cu").exists()
     bad = [
@@ -316,6 +317,7 @@ def test_importing_the_port_loads_no_jax():
         "import ctr_recommendation_tpu_torch.parallel\n"
         "import ctr_recommendation_tpu_torch.parallel.data_parallel\n"
         "import ctr_recommendation_tpu_torch.parallel.distributed\n"
+        "import ctr_recommendation_tpu_torch.parallel.embedding\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ctr_recommendation_tpu')]\n"
         "assert not bad, bad\n"

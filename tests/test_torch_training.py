@@ -432,7 +432,6 @@ def test_train_then_predict_cli_on_the_ports_own_export(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--model-parallel", "2"], "queue 1: parallel"),
     (["--profile-dir", "x"], "queue 1: the rest, profiling"),
 ])
 def test_train_cli_refuses_what_is_not_ported(flags, item, capsys):
@@ -440,6 +439,22 @@ def test_train_cli_refuses_what_is_not_ported(flags, item, capsys):
 
     assert train_main(["--data-root", "/nonexistent", *flags]) == 2
     assert item in capsys.readouterr().err
+
+
+def test_train_cli_model_parallel_reaches_the_experiments_mesh(monkeypatch, tmp_path):
+    """--model-parallel N sets the experiment's mesh (which experiment.json
+    records, and the predict, evaluate and serve CLIs replace by a
+    replicated one), as the JAX CLI does."""
+    from ctr_recommendation_tpu_torch.cli import train as train_cli
+    from ctr_recommendation_tpu_torch.config import serialize
+
+    seen = []
+    monkeypatch.setattr(train_cli, "run_training", lambda exp, **kw: seen.append(exp) or 0)
+    assert train_cli.main(["--data-root", str(tmp_path), "--model-parallel", "2"]) == 0
+    assert seen[0].mesh.model_parallel == 2 and seen[0].mesh.data_parallel == -1
+    path = str(tmp_path / "experiment.json")
+    serialize.save(seen[0], path)
+    assert serialize.load(path).mesh.model_parallel == 2
 
 
 def test_trainer_needs_cuda_unless_told_cpu(monkeypatch, tiny_experiment, tmp_path):
