@@ -193,6 +193,26 @@ Phases, in order; any failure exits non-zero and prints no result line.
    score_launches() scoring launches a warmup call and a dispatch, whole
    buckets bit for bit score_table's with phase 6b's AUC, ragged requests
    within the bar.
+7c. After phase 7, at the same full defaults: (a) Trainer.profile_epoch
+   on phase 6's train split (64 steps an epoch, an untraced epoch then a
+   traced one): exactly 2 x 64 x fwd_launches() interaction_fwd and
+   2 x 64 x bwd_launches() interaction_bwd launches, state.step 128, no
+   metrics.csv, one trace file (rank0.pt.trace.json) of valid JSON whose
+   hand-written kernels (the ctr:: namespace) ran exactly one epoch's
+   launches; the traced epoch's wall, device-busy share and ten longest
+   device operations (profiled again, 3 tries, when a trace holds no
+   device event). (b) A seeded reference-format MM_FiBiNET state_dict at
+   full width (item_emb 91,718 x 128, cate_emb 11 x 128, user_emb 20,000 x
+   128, mm_proj, senet.excitation, bilinear.W, mlp.{0,1,4,5,8} with
+   running statistics), DataParallel-prefixed, through
+   tools/torch_import.import_state_dict: every imported leaf its tensor,
+   transposed where due; served through Predictor.score_table on phase 4's
+   rows, score_launches() launches a batch, within TOL["fused_score"] of
+   the scoring kernel's plain version on the same inputs. (c)
+   HashTextEncoder over 91,718 seeded item texts on the host (timed),
+   pca_project to 128 dims on the card within PCA_TOL of float64 numpy and
+   of the port's CPU run (card ms beside numpy s); set_seed's generator on
+   the card, and whether ScalarWriter is active on this machine.
 6d. Phases 6-7 for sasrec_emb_256 (sasrec_fibinet with embedding_dim=256,
    its other defaults): both encoder kernels at E=256 in the gradient
    check and the exact launch counts, the export served through them.
@@ -273,6 +293,7 @@ Phases, in order; any failure exits non-zero and prints no result line.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -3456,6 +3477,350 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
     return {"grad_gap": worst, "best_auc": best, "fit": [res["mp_fit"] for res in ranks]}
 
 
+# ---- phase 7c: profile_epoch, the reference state_dict import, item embeddings ----
+PCA_TOL = 1e-5  # pca_project on the card vs float64 numpy (and the port's CPU run)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # a Chrome trace's device events
+
+
+def trace_summary(path: str, card: str, per_epoch: int) -> bool:
+    """Read the profile_epoch trace at ``path``: one valid JSON file whose
+    hand-written kernels (names in the ``ctr::`` namespace) ran exactly
+    ``per_epoch`` times; prints the traced epoch's wall (the span of its
+    events), the device-busy share (the union of the device events over
+    that span) and the ten device operations of the longest total time.
+    Returns False when the trace holds no device event."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    if not device:
+        return False
+    ours: dict[str, int] = {}
+    for e in device:
+        if e["cat"] == "kernel" and "ctr::" in e["name"]:
+            name = e["name"].split("<")[0].split("(")[0].removeprefix("void ")
+            ours[name] = ours.get(name, 0) + 1
+    log(f"[profile] trace {os.path.basename(path)}: {os.path.getsize(path) / 2**20:.1f} MiB, "
+        f"{len(events)} events, {len(device)} on the device; the hand-written kernels: {ours}")
+    if sum(ours.values()) != per_epoch:
+        raise SystemExit(f"profile_epoch: the trace holds {sum(ours.values())} launches of the "
+                         f"hand-written kernels, expected {per_epoch} (one epoch)")
+    t0 = min(e["ts"] for e in events)
+    wall = max(e["ts"] + e["dur"] for e in events) - t0
+    busy, end = 0.0, t0
+    for e in sorted(device, key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
+        if hi > lo:
+            busy += hi - lo
+            end = hi
+    totals: dict[str, list] = {}
+    for e in device:
+        t = totals.setdefault(e["name"], [0.0, 0])
+        t[0] += e["dur"]
+        t[1] += 1
+    top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:10]
+    log(f"[profile] traced epoch: wall {wall / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+        f"= {busy / wall:.4f} of it, {len(device)} device operations, on {card}")
+    for name, (dur, count) in top:
+        log(f"[profile top] {dur / 1e3:.3f} ms total, {count} calls, "
+            f"{dur / count:.2f} us each: {name[:110]}")
+    return True
+
+
+def profile_epoch_phase(torch, train, store, root, card) -> dict:
+    """Phase 7c (a): Trainer.profile_epoch at the full defaults on phase 6's
+    train split: exact interaction launches over both epochs, state.step 2
+    epochs' steps, no metrics.csv, one trace whose hand-written kernels ran
+    one epoch's launches. Profiles again (3 tries) when the trace holds no
+    device event. Returns the launches of the run it keeps."""
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        bwd_launches,
+        fwd_launches,
+        interaction_bwd,
+        interaction_fwd,
+    )
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    ckpt = os.path.join(root, "ckpt_profile")
+    exp = microlens_experiment(data_root="", checkpoint_dir=ckpt)
+    steps = train.num_rows // exp.train.batch_size
+    for attempt in range(3):
+        log_dir = os.path.join(root, f"profile_{attempt}")
+        tr = Trainer(exp, steps_per_epoch=steps, item_store=store, log_fn=log)
+        interaction_fwd.launches = interaction_bwd.launches = 0
+        t0 = time.perf_counter()
+        tr.profile_epoch(train, log_dir)
+        took = time.perf_counter() - t0
+        launches = {interaction_fwd: interaction_fwd.launches,
+                    interaction_bwd: interaction_bwd.launches}
+        log(f"[profile] profile_epoch: {steps} steps x 2 epochs in {took:.2f} s (upload, the "
+            f"untraced epoch, the traced one, the export); launches interaction_fwd "
+            f"{launches[interaction_fwd]}, interaction_bwd {launches[interaction_bwd]}; "
+            f"state.step {tr.state.step}")
+        if (launches[interaction_fwd], launches[interaction_bwd]) != (
+                2 * steps * fwd_launches(), 2 * steps * bwd_launches()):
+            raise SystemExit("profile_epoch: the interaction kernels' launches are off")
+        if tr.state.step != 2 * steps:
+            raise SystemExit(f"profile_epoch: state.step {tr.state.step}, expected {2 * steps}")
+        if os.path.exists(os.path.join(ckpt, "metrics.csv")) or tr.history:
+            raise SystemExit("profile_epoch wrote metrics.csv or history")
+        files = os.listdir(log_dir)
+        if files != ["rank0.pt.trace.json"]:
+            raise SystemExit(f"profile_epoch: expected one trace file, found {files}")
+        if trace_summary(os.path.join(log_dir, files[0]), card,
+                         steps * (fwd_launches() + bwd_launches())):
+            return launches
+        log(f"[profile] the trace holds no device event (try {attempt + 1} of 3)")
+    raise SystemExit("profile_epoch: no trace held a device event in 3 tries")
+
+
+def reference_state_dict(torch, exp, fm, seed: int) -> dict:
+    """A reference-format MM_FiBiNET state_dict at ``exp``'s widths, seeded:
+    the reference's names, torch's (out, in) Linear layout, BatchNorm
+    running statistics and num_batches_tracked, the unused user table."""
+    from ctr_recommendation_tpu_torch.models.registry import get_model
+
+    rng = np.random.default_rng(seed)
+    params, _ = get_model("mm_fibinet").init(torch.Generator().manual_seed(1), fm, exp.model)
+    e = exp.model.embedding_dim
+
+    def r(*shape, scale=0.05, loc=0.0):
+        return torch.from_numpy((loc + scale * rng.standard_normal(shape)).astype(np.float32))
+
+    mm_dim = params["trunk"]["dense"]["item_emb_d128"]["proj"]["w"].shape[0]
+    f, red = params["senet"]["fc1"]["w"].shape
+    sd = {
+        "item_emb.weight": r(fm.table("item_id").vocab_size, e),
+        "user_emb.weight": r(20000, e),
+        "cate_emb.weight": r(fm.table("likes_level").vocab_size, e),
+        "mm_proj.0.weight": r(e, mm_dim), "mm_proj.0.bias": r(e),
+        "mm_proj.1.weight": r(e, loc=1.0), "mm_proj.1.bias": r(e),
+        "senet.excitation.0.weight": r(red, f, scale=0.3), "senet.excitation.0.bias": r(red),
+        "senet.excitation.2.weight": r(f, red, scale=0.3), "senet.excitation.2.bias": r(f),
+    }
+    if exp.model.bilinear_type == "all":
+        sd["bilinear.W"] = r(e, e, scale=0.1)
+    else:
+        sd.update({f"bilinear.W_list.{i}": r(e, e, scale=0.1) for i in range(f - 1)})
+    for k, (tl, tb) in enumerate(((0, 1), (4, 5))):
+        d_in, d_out = params["mlp"]["layers"][k]["linear"]["w"].shape
+        sd.update({
+            f"mlp.{tl}.weight": r(d_out, d_in, scale=d_in ** -0.5), f"mlp.{tl}.bias": r(d_out),
+            f"mlp.{tb}.weight": r(d_out, loc=1.0), f"mlp.{tb}.bias": r(d_out),
+            f"mlp.{tb}.running_mean": r(d_out),
+            f"mlp.{tb}.running_var": torch.from_numpy(
+                rng.uniform(0.5, 1.5, d_out).astype(np.float32)),
+            f"mlp.{tb}.num_batches_tracked": torch.tensor(1000),
+        })
+    h2 = params["mlp"]["out"]["w"].shape[0]
+    sd["mlp.8.weight"] = r(1, h2, scale=1.0)  # logits of std ~0.5: probabilities spread
+    sd["mlp.8.bias"] = r(1)
+    return sd
+
+
+# imported leaf -> (state_dict key, transposed); the tables hold the rows in their prefix
+IMPORTED = {
+    "params/trunk/tables/item_id": ("item_emb.weight", False),
+    "params/trunk/tables/likes_level": ("cate_emb.weight", False),
+    "params/trunk/dense/item_emb_d128/proj/w": ("mm_proj.0.weight", True),
+    "params/trunk/dense/item_emb_d128/proj/b": ("mm_proj.0.bias", False),
+    "params/trunk/dense/item_emb_d128/ln_scale": ("mm_proj.1.weight", False),
+    "params/trunk/dense/item_emb_d128/ln_bias": ("mm_proj.1.bias", False),
+    "params/senet/fc1/w": ("senet.excitation.0.weight", True),
+    "params/senet/fc1/b": ("senet.excitation.0.bias", False),
+    "params/senet/fc2/w": ("senet.excitation.2.weight", True),
+    "params/senet/fc2/b": ("senet.excitation.2.bias", False),
+    "params/bilinear/w": ("bilinear.W", False),
+    **{f"params/mlp/layers/{k}/{leaf}": (f"mlp.{i}.{name}", leaf == "linear/w")
+       for k, (tl, tb) in enumerate(((0, 1), (4, 5)))
+       for leaf, i, name in (("linear/w", tl, "weight"), ("linear/b", tl, "bias"),
+                             ("bn_scale", tb, "weight"), ("bn_bias", tb, "bias"))},
+    **{f"model_state/mlp/layers/{k}/{leaf}": (f"mlp.{tb}.{name}", False)
+       for k, tb in enumerate((1, 5))
+       for leaf, name in (("bn_mean", "running_mean"), ("bn_var", "running_var"))},
+    "params/mlp/out/w": ("mlp.8.weight", True),
+    "params/mlp/out/b": ("mlp.8.bias", False),
+}
+
+
+@contextlib.contextmanager
+def plain_scoring():
+    """Predictor's fused branch on the scoring kernel's plain version: the
+    same trunk output, the same prepared weights, no launch."""
+    from ctr_recommendation_tpu_torch.inference import predictor
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd_plain
+
+    kernel, predictor.score_fwd = predictor.score_fwd, score_fwd_plain
+    try:
+        yield
+    finally:
+        predictor.score_fwd = kernel
+
+
+def import_phase(torch, store, rows, card) -> int:
+    """Phase 7c (b): a seeded reference-format state_dict at full width
+    through import_state_dict, every imported leaf its state_dict tensor
+    (transposed where due), served through Predictor.score_table on phase
+    4's rows: score_launches() launches a batch, within TOL["fused_score"]
+    of the plain version on the same inputs. Returns the launches."""
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.data import TableData
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.inference import Predictor
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+    from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
+    from ctr_recommendation_tpu_torch.tools.torch_import import import_state_dict
+
+    exp = microlens_experiment(data_root="")
+    fm = build_feature_map(exp.dataset)
+    sd = reference_state_dict(torch, exp, fm, seed=17)
+    shapes = {k: tuple(v.shape) for k, v in sd.items()}
+    log(f"[import] reference state_dict: {len(sd)} tensors, "
+        f"{sum(v.numel() for v in sd.values())} values; " + ", ".join(
+            f"{k} {shapes[k]}" for k in ("item_emb.weight", "cate_emb.weight", "user_emb.weight",
+                                         "mm_proj.0.weight", "mlp.0.weight", "mlp.8.weight")))
+    t0 = time.perf_counter()
+    params, state = import_state_dict({f"module.{k}": v for k, v in sd.items()}, exp, fm)
+    log(f"[import] import_state_dict in {time.perf_counter() - t0:.2f} s (DataParallel keys)")
+    flat = {f"params/{k}": v for k, v in flatten(params).items()}
+    flat.update({f"model_state/{k}": v for k, v in flatten(state).items()})
+    for path, (key, transposed) in IMPORTED.items():
+        want = sd[key].t() if transposed else sd[key]
+        got = flat[path][: want.shape[0]]
+        if got.dtype != torch.float32 or got.device.type != "cpu" or not torch.equal(got, want):
+            raise SystemExit(f"import_state_dict: {path} is not {key}"
+                             + (" transposed" if transposed else ""))
+    log(f"[import] every one of the {len(IMPORTED)} imported leaves equals its state_dict "
+        f"tensor (transposed where due); the tables in their first rows "
+        f"({shapes['item_emb.weight'][0]} of {tuple(flat['params/trunk/tables/item_id'].shape)})")
+
+    pred = Predictor(exp, params, state, item_store=store)
+    if not pred.use_fused:
+        raise SystemExit("the imported checkpoint must serve through the fused branch")
+    table = TableData(rows, N_ROWS)
+    pred.score_table(TableData({k: v[:B_FULL] for k, v in rows.items()}, B_FULL))  # warm-up
+    torch.cuda.synchronize()
+    score_fwd.launches = 0
+    t0 = time.perf_counter()
+    probs = pred.score_table(table)
+    took = time.perf_counter() - t0
+    launches = score_fwd.launches
+    with plain_scoring():
+        plain = pred.score_table(table)
+    if score_fwd.launches != launches:
+        raise SystemExit("the plain scoring version launched a kernel")
+    tol = TOL[("fused_score", "bfloat16")][0]
+    err = float(np.abs(probs - plain).max())
+    n_batches = N_ROWS // B_FULL
+    log(f"[import] served {N_ROWS} rows through Predictor.score_table in {took:.4f} s on {card}: "
+        f"fused_score launches {launches} ({n_batches} batches x {score_launches()}), "
+        f"probabilities {probs.min():.4f}..{probs.max():.4f} (std {probs.std():.4f}), "
+        f"max_abs_err vs the plain version on the same inputs {err:.3e} (tolerance {tol})")
+    if launches != n_batches * score_launches():
+        raise SystemExit(f"score_table launched {launches} scoring kernels, expected "
+                         f"{n_batches} x {score_launches()}")
+    if probs.shape != (N_ROWS,) or not np.isfinite(probs).all() or err > tol:
+        raise SystemExit("the imported checkpoint's scores are off")
+    if probs.std() < 1e-3:
+        raise SystemExit("the imported checkpoint scores every row alike")
+    return launches
+
+
+def item_texts(n: int, seed: int) -> list[str]:
+    """``n`` seeded item texts in the Task-1 format: Zipf-distributed title
+    words (2-12) and tags (0-4), random levels, 2% with no title and no
+    tags."""
+    from ctr_recommendation_tpu_torch.tools.item_embeddings import build_text
+
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i}" for i in range(20_000)])
+    pw = 1.0 / np.arange(1, len(words) + 1)
+    tags = np.array([f"tag{i}" for i in range(500)])
+    pt = 1.0 / np.arange(1, len(tags) + 1) ** 0.8
+    nw, ng = rng.integers(2, 13, n), rng.integers(0, 5, n)
+    levels = rng.integers(0, 11, (n, 2))
+    blank = rng.random(n) < 0.02
+    tw = rng.choice(words, size=int(nw.sum()), p=pw / pw.sum())
+    gw = rng.choice(tags, size=int(ng.sum()), p=pt / pt.sum())
+    out, a, b = [], 0, 0
+    for i in range(n):
+        title, tg = " ".join(tw[a : a + nw[i]]), list(gw[b : b + ng[i]])
+        a, b = a + nw[i], b + ng[i]
+        if blank[i]:
+            title, tg = "", []
+        out.append(build_text(title, tg, int(levels[i, 0]), int(levels[i, 1])))
+    return out
+
+
+def pca_numpy(x: np.ndarray, k: int) -> np.ndarray:
+    """pca_project's plain version: float64 numpy SVD, svd_flip on U,
+    truncate, L2-renormalize; float32."""
+    xc = x.astype(np.float64)
+    xc -= xc.mean(axis=0, keepdims=True)
+    u, s, _ = np.linalg.svd(xc, full_matrices=False)
+    u *= np.sign(u[np.argmax(np.abs(u), axis=0), np.arange(u.shape[1])])
+    proj = u[:, :k] * s[:k]
+    return (proj / np.maximum(np.linalg.norm(proj, axis=1, keepdims=True), 1e-8)).astype(
+        np.float32)
+
+
+def item_embeddings_phase(torch, root, card) -> None:
+    """Phase 7c (c): HashTextEncoder over 91,718 seeded item texts on the
+    host, pca_project on the card to 128 dims against float64 numpy and the
+    port's CPU run (within PCA_TOL); set_seed's generator and whether the
+    TensorBoard writer is active on this machine."""
+    from ctr_recommendation_tpu_torch.tools.item_embeddings import HashTextEncoder, pca_project
+    from ctr_recommendation_tpu_torch.utils import set_seed
+    from ctr_recommendation_tpu_torch.utils.tb import ScalarWriter
+
+    n, k = 91_718, 128
+    t0 = time.perf_counter()
+    texts = item_texts(n, seed=23)
+    t_texts = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = HashTextEncoder().encode(texts)
+    t_hash = time.perf_counter() - t0
+    log(f"[item_emb] {n} texts made in {t_texts:.2f} s; HashTextEncoder on the host: "
+        f"{raw.shape} {raw.dtype} in {t_hash:.2f} s = {n / t_hash:.0f} items/s")
+    if not np.isfinite(raw).all():
+        raise SystemExit("HashTextEncoder output is not finite")
+    pca_project(raw[:4096], k)  # warm-up: the card's linear-algebra handles
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = pca_project(raw, k)  # returns numpy: the card's work is done
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    want = pca_numpy(raw, k)
+    t_np = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = pca_project(raw, k, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    err_np, err_cpu = float(np.abs(got - want).max()), float(np.abs(got - cpu).max())
+    log(f"[item_emb] pca_project {raw.shape} -> {got.shape} on {card}: {min(times):.1f} ms "
+        f"(best of 3, float64, host array in and out; runs {[round(t, 1) for t in times]}); "
+        f"float64 numpy SVD on the host {t_np:.2f} s; the port on the CPU {t_cpu:.2f} s; "
+        f"max_abs_err vs numpy {err_np:.3e}, vs the CPU run {err_cpu:.3e} (tolerance {PCA_TOL})")
+    norms = np.linalg.norm(got, axis=1)
+    if got.shape != (n, k) or got.dtype != np.float32 or not np.allclose(norms, 1.0, atol=1e-5):
+        raise SystemExit("pca_project: not L2-normed float32 rows of the expected shape")
+    if err_np > PCA_TOL or err_cpu > PCA_TOL:
+        raise SystemExit("pca_project on the card disagrees")
+    gen = set_seed(2025)
+    with tempfile.TemporaryDirectory(dir=root) as tb:
+        writer = ScalarWriter(tb)
+        active = writer.active
+        writer.close()
+    have = {m: importlib.util.find_spec(m) is not None for m in ("pyarrow", "PIL", "tensorboard")}
+    log(f"[item_emb] set_seed(2025) -> a torch.Generator on {gen.device} "
+        f"(seed {gen.initial_seed()}); ScalarWriter(...).active {active}"
+        + ("" if active else " (no tensorboard package on this machine: the writer is a "
+           "no-op and metrics.csv stays the record)") + f"; packages here: {have}")
+    if gen.device.type != "cuda":
+        raise SystemExit("set_seed must return a generator on the card")
+
+
 # ---- phase 7b: online serving over HTTP (serving/, the fused scoring kernel) ----
 # ragged request sizes: every bucket of DEFAULT_BUCKETS and past its boundary
 SERVE_RAGGED = (1, 15, 17, 63, 255, 1023, 4097)
@@ -4153,6 +4518,10 @@ def main(argv=None) -> int:
             train, valid, train_store, root, card, counted,
             per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
             per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()})
+        # ---- phase 7c: profile_epoch, the reference state_dict import, item embeddings ----
+        profiled = profile_epoch_phase(torch, train, train_store, root, card)
+        imported = import_phase(torch, store, rows, card)
+        item_embeddings_phase(torch, root, card)
         # ---- phase 6h: data-parallel training, two ranks sharing the card ----
         data_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
         # ---- phase 6i: row-sharded tables, 1 x 2 and 2 x 2 ranks sharing the card ----
@@ -4208,7 +4577,9 @@ def main(argv=None) -> int:
                     sasrec_per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd})
         # ---- phase 6g: the model zoo, no kernel on its path ----
         zoo(torch, train, valid, train_store, root, card, counted, rows, dense=mm)
-    train_fwd, train_bwd = mm["launches"][interaction_fwd], mm["launches"][interaction_bwd]
+    # the training main path's launches: phase 6's fit and phase 7c's profiled epochs
+    train_fwd = mm["launches"][interaction_fwd] + profiled[interaction_fwd]
+    train_bwd = mm["launches"][interaction_bwd] + profiled[interaction_bwd]
     enc_bwd_launches = sasrec["launches"][encode_bwd]
 
     # ---- phase 8: result ----
@@ -4226,7 +4597,7 @@ def main(argv=None) -> int:
         {"name": "fused_score", "route": "cuda",
          "source": "ctr_recommendation_tpu_torch/csrc/scoring.cu",
          "replaces": "ctr_recommendation_tpu/ops/pallas/scoring.py:36",
-         "launches": pipe_launches, "max_abs_err": worst["fused_score"],
+         "launches": pipe_launches + imported, "max_abs_err": worst["fused_score"],
          **timing[("fused_score", "all")], "library_ms": None},
         {"name": "sasrec_encoder_fwd", "route": "cuda",
          "source": "ctr_recommendation_tpu_torch/csrc/sasrec_encoder.cu",

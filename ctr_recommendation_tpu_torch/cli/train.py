@@ -17,9 +17,10 @@ by default with the train split resident on the device
 (``Trainer.fit_on_device``); with ``--stream`` (the train split read row
 group by row group, ``stream_batches``) or ``--strict-items`` (the item join
 on the host, raising on an item_id missing from item_info) host-driven
-(``Trainer.fit``, ``--steps-per-dispatch`` batches an upload). The flag of
-the JAX CLI whose path is not ported yet (``--profile-dir``) exits 2
-naming its ROADMAP.md item.
+(``Trainer.fit``, ``--steps-per-dispatch`` batches an upload).
+``--profile-dir DIR`` instead writes a torch.profiler trace of one
+device-resident epoch into DIR (``Trainer.profile_epoch``) and exits; it
+needs the in-memory, non-strict path.
 
 Under a launcher (torchrun: one process a rank, ``cuda:{LOCAL_RANK}``, NCCL;
 gloo with ``--device cpu``) it trains data-parallel as the JAX CLI trains
@@ -97,21 +98,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--model-parallel", type=int, default=1,
                    help="row-shard the embedding tables over this many ranks of the launcher's "
                         "(the world size must be a multiple of it)")
-    # accepted so that it fails with a message, not an argparse error
-    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of one epoch into DIR and exit")
     return p
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    # flags whose code paths wait for a later slice, with their ROADMAP.md item by title
-    refused = [msg for on, msg in (
-        (args.profile_dir, "--profile-dir (queue 1: the rest, profiling)"),
-    ) if on]
-    if refused:
-        print("not ported yet (ROADMAP.md): " + "; ".join(refused), file=sys.stderr)
-        return 2
-
     from ctr_recommendation_tpu_torch.config import load_experiment, microlens_experiment
     from ctr_recommendation_tpu_torch.config.loader import microlens_features
     from ctr_recommendation_tpu_torch.parallel import distributed
@@ -177,13 +170,16 @@ def main(argv=None) -> int:
 
         exp = exp.replace(mesh=MeshConfig(model_parallel=args.model_parallel))
     return run_training(exp, resume=args.resume, strict_items=args.strict_items,
-                        stream=args.stream, device=args.device)
+                        stream=args.stream, device=args.device, profile_dir=args.profile_dir)
 
 
 def run_training(exp, *, resume: bool = False, strict_items: bool = False,
-                 stream: bool = False, device: str = "cuda") -> int:
-    """Load the valid split and the item store, then train: ``fit_on_device``
-    unless ``stream`` or ``strict_items``, else ``fit`` over this epoch's
+                 stream: bool = False, device: str = "cuda",
+                 profile_dir: str | None = None) -> int:
+    """Load the valid split and the item store, then train: with
+    ``profile_dir``, only ``Trainer.profile_epoch`` (refused under ``stream``
+    or ``strict_items``); else ``fit_on_device`` unless ``stream`` or
+    ``strict_items``, else ``fit`` over this epoch's
     ``stream_batches`` / ``iter_batches`` (drop_last), cut to the step
     count. Under ``strict_items`` the batches carry the dense item column
     joined on the host (an unknown item_id raises), and the trainer holds
@@ -248,6 +244,16 @@ def run_training(exp, *, resume: bool = False, strict_items: bool = False,
     # as the JAX CLI injects it (its cli/train.py:200-215)
     trainer = Trainer(exp, mesh=mesh, steps_per_epoch=steps, device=dev,
                       item_store=None if strict_items else store)
+    if profile_dir:
+        if stream or strict_items:
+            # profile_epoch runs the device-resident epoch: it needs the whole
+            # split in memory (not --stream) and the device's item join (not
+            # --strict-items)
+            print("--profile-dir requires the in-memory, non-strict path "
+                  "(drop --stream/--strict-items)", file=sys.stderr)
+            return 2
+        trainer.profile_epoch(train, profile_dir)
+        return 0
     if distributed.host_count() == 1 and not (stream or strict_items):
         trainer.fit_on_device(train, valid, resume=resume)
         return 0

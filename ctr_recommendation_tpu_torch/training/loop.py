@@ -76,7 +76,10 @@ With a sparse ``table_optimizer`` at mp > 1 the gathered tables' rows come
 from their owners (``embedding.owned_rows_gather``), each rank updating
 its shard's rows alone; the masked-dense tables read through ``lookup``.
 
-Not ported yet: profiling and TensorBoard mirroring (ROADMAP.md).
+Each ``metrics.csv`` row is mirrored to TensorBoard (``<checkpoint_dir>/tb``,
+``train.tensorboard``; silently off without the tensorboard package).
+``profile_epoch`` writes a ``torch.profiler`` trace of one device-resident
+epoch.
 """
 
 from __future__ import annotations
@@ -116,6 +119,8 @@ from ctr_recommendation_tpu_torch.training.checkpoint import CheckpointManager
 from ctr_recommendation_tpu_torch.training.optim import make_optimizer
 from ctr_recommendation_tpu_torch.training.train_state import TrainState
 from ctr_recommendation_tpu_torch.utils.device import resolve_device
+from ctr_recommendation_tpu_torch.utils.profiling import trace
+from ctr_recommendation_tpu_torch.utils.tb import ScalarWriter
 from ctr_recommendation_tpu_torch.utils.tree import tree_map
 
 
@@ -251,6 +256,9 @@ class Trainer:
 
         self.checkpoint_dir = checkpoint_dir or tc.checkpoint_dir
         self.ckpt = CheckpointManager(self.checkpoint_dir, max_to_keep=tc.keep_checkpoints)
+        # metrics.csv's rows as TensorBoard scalars, from the rank that writes it
+        self._tb = ScalarWriter(os.path.join(self.checkpoint_dir, "tb")
+                                if tc.tensorboard and self._writes else None)
         # the checkpoint describes itself: predict rebuilds the model from
         # experiment.json. Written here only if absent; fit refreshes it.
         self._experiment_json = os.path.join(self.checkpoint_dir, "experiment.json")
@@ -601,6 +609,9 @@ class Trainer:
         return max(best, persisted) if tc.monitor_mode == "max" else min(best, persisted)
 
     def _write_history_csv(self) -> None:
+        if self.history:
+            last = self.history[-1]
+            self._tb.scalars(int(last.get("epoch", len(self.history))), last)
         keys: list[str] = []
         for h in self.history:
             keys += [k for k in h if k not in keys]
@@ -695,6 +706,49 @@ class Trainer:
         dist.broadcast(t, 0)
         return dict(zip(keys, t.tolist()))
 
+    def _rank_rows(self, bs: int) -> slice:
+        """This rank's rows [r bs/W, (r + 1) bs/W) of each global batch of
+        ``bs`` rows."""
+        if bs % self._world:
+            raise ValueError(f"batch_size {bs} (the global batch) does not divide over "
+                             f"{self._world} data-parallel ranks")
+        local = bs // self._world
+        return slice(self._rank * local, (self._rank + 1) * local)
+
+    def _device_epoch(self, data: dict[str, torch.Tensor], perm: torch.Tensor, steps: int,
+                      rows: slice) -> torch.Tensor:
+        """``steps`` train steps on the device-resident columns ``data``,
+        step i on ``rows`` of the global batch ``perm[i bs : (i + 1) bs]``;
+        the losses (steps,) stay on the device."""
+        bs = self.exp.train.batch_size
+        losses = torch.empty(steps, device=self.device)
+        for i in range(steps):
+            idx = perm[i * bs + rows.start : i * bs + rows.stop]
+            losses[i] = self.train_step({k: v[idx] for k, v in data.items()})
+        return losses
+
+    def profile_epoch(self, train, log_dir: str) -> None:
+        """A ``torch.profiler`` trace of one device-resident epoch
+        (``utils.profiling.trace``: ``log_dir/rank<R>.pt.trace.json``).
+        The split is uploaded and one untraced epoch runs first: it builds
+        the kernels and warms the caching allocator, so that the trace holds
+        the steady state. Then the same ``train.num_rows // batch_size``
+        steps run again, over the same fixed permutation (torch seed 0),
+        inside the trace. Both epochs update the state; no eval, no
+        ``metrics.csv``, no checkpoint. Data-parallel, each rank takes its
+        rows of each global batch, as in ``fit_on_device``, and writes its
+        own trace."""
+        bs = self.exp.train.batch_size
+        steps = max(train.num_rows // bs, 1)
+        rows = self._rank_rows(bs)
+        data = self._upload(train)
+        perm = torch.randperm(train.num_rows, generator=torch.Generator().manual_seed(0))
+        perm = perm.to(self.device)
+        float(self._device_epoch(data, perm, steps, rows).sum())  # waits for the epoch
+        with trace(log_dir):
+            self._device_epoch(data, perm, steps, rows)
+        self.log(f"[profile] trace written to {log_dir}")
+
     def fit_on_device(self, train, valid=None, *, resume: bool = False) -> list[dict[str, float]]:
         """Train with the whole split resident on the device: each epoch is
         one shuffled pass of ``train.num_rows // batch_size`` full batches
@@ -709,11 +763,7 @@ class Trainer:
         steps = n // bs
         if steps == 0:
             raise ValueError(f"batch_size {bs} > split rows {n}")
-        if bs % self._world:
-            raise ValueError(f"batch_size {bs} (the global batch) does not divide over "
-                             f"{self._world} data-parallel ranks")
-        local = bs // self._world
-        lo = self._rank * local
+        rows = self._rank_rows(bs)
         data = self._upload(train)
         evaluate = None
         if valid is not None:
@@ -723,11 +773,7 @@ class Trainer:
         run_start = len(self.history)
         for epoch in range(start_epoch, tc.epochs):
             t0 = time.perf_counter()
-            perm = self._permutation(epoch, n)
-            losses = torch.empty(steps, device=self.device)
-            for i in range(steps):
-                idx = perm[i * bs + lo : i * bs + lo + local]
-                losses[i] = self.train_step({k: v[idx] for k, v in data.items()})
+            losses = self._device_epoch(data, self._permutation(epoch, n), steps, rows)
             train_loss = float(losses.mean())  # the epoch's one host read
             best = self._close_epoch(epoch, train_loss, steps * bs,
                                      time.perf_counter() - t0, evaluate, best)

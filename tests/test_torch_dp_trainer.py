@@ -277,7 +277,8 @@ def test_train_cli_two_ranks_stream_uneven_row_groups(ranks, capsys):
         assert ranks["logs"][r].count("(800/") == 2, ranks["logs"][r]
     data, ckpt = ranks["refs"]["cli"]
     assert sorted(os.listdir(ckpt)) == [
-        "best", "ckpt_1.pt", "ckpt_2.pt", "experiment.json", "metrics.csv"]
+        "best", "ckpt_1.pt", "ckpt_2.pt", "experiment.json", "metrics.csv", "tb"]
+    assert len(os.listdir(os.path.join(ckpt, "tb"))) == 1  # rank 0's events alone
     exp = serialize.load(os.path.join(ckpt, "experiment.json"))
     assert exp.train.batch_size == 100
     import csv

@@ -371,7 +371,8 @@ def test_fit_on_device_one_by_two_matches_one_process(spawned, tmp_path):
     root = spawned["root"]
     assert os.listdir(os.path.join(root, "ckpt_fit_1")) == []
     written = sorted(os.listdir(os.path.join(root, "ckpt_fit_0")))
-    assert written == ["best", "ckpt_1.pt", "ckpt_2.pt", "experiment.json", "metrics.csv"]
+    assert written == ["best", "ckpt_1.pt", "ckpt_2.pt", "experiment.json", "metrics.csv", "tb"]
+    assert len(os.listdir(os.path.join(root, "ckpt_fit_0", "tb"))) == 1  # world rank 0's events
     params, _ = jax_bridge.load(os.path.join(root, "ckpt_fit_0", "best", "export.npz"))
     assert params["trunk"]["tables"]["item_id"].shape == (256, 16)
     import torch
@@ -400,7 +401,8 @@ def test_train_cli_model_parallel_checkpoint_serves_on_one_device(spawned, tmp_p
         assert logs[r].count("(900/") == 4, logs[r]  # 2 runs of 2 epochs (dense, sparse)
     data, ckpt = spawned["cli"]
     assert sorted(os.listdir(ckpt)) == [
-        "best", "ckpt_1.pt", "ckpt_2.pt", "experiment.json", "metrics.csv"]
+        "best", "ckpt_1.pt", "ckpt_2.pt", "experiment.json", "metrics.csv", "tb"]
+    assert len(os.listdir(os.path.join(ckpt, "tb"))) == 2  # world rank 0's, one a run
     assert serialize.load(os.path.join(ckpt, "experiment.json")).mesh.model_parallel == 2
     with open(os.path.join(ckpt, "metrics.csv")) as f:
         rows = list(csv.DictReader(f))

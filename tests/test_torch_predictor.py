@@ -286,7 +286,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "serving/__init__.py", "serving/collator.py", "serving/server.py",
                    "cli/serve.py", "parallel/__init__.py", "parallel/distributed.py",
                    "parallel/mesh.py", "parallel/sharding.py", "parallel/data_parallel.py",
-                   "parallel/embedding.py"):
+                   "parallel/embedding.py", "version.py", "utils/seeding.py",
+                   "utils/profiling.py", "utils/tb.py", "tools/torch_import.py",
+                   "tools/item_embeddings.py", "cli/item_embeddings.py"):
         assert PORT / module in files, module
     assert (PORT / "csrc" / "sasrec_encoder.cu").exists()
     bad = [
@@ -318,6 +320,11 @@ def test_importing_the_port_loads_no_jax():
         "import ctr_recommendation_tpu_torch.parallel.data_parallel\n"
         "import ctr_recommendation_tpu_torch.parallel.distributed\n"
         "import ctr_recommendation_tpu_torch.parallel.embedding\n"
+        "import ctr_recommendation_tpu_torch.utils\n"
+        "import ctr_recommendation_tpu_torch.utils.tb\n"
+        "import ctr_recommendation_tpu_torch.tools.torch_import\n"
+        "import ctr_recommendation_tpu_torch.tools.item_embeddings\n"
+        "import ctr_recommendation_tpu_torch.cli.item_embeddings\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ctr_recommendation_tpu')]\n"
         "assert not bad, bad\n"

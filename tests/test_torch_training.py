@@ -431,16 +431,6 @@ def test_train_then_predict_cli_on_the_ports_own_export(tmp_path):
     assert rc == 0 and (ckpt / "ckpt_2.pt").exists()
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--profile-dir", "x"], "queue 1: the rest, profiling"),
-])
-def test_train_cli_refuses_what_is_not_ported(flags, item, capsys):
-    from ctr_recommendation_tpu_torch.cli.train import main as train_main
-
-    assert train_main(["--data-root", "/nonexistent", *flags]) == 2
-    assert item in capsys.readouterr().err
-
-
 def test_train_cli_model_parallel_reaches_the_experiments_mesh(monkeypatch, tmp_path):
     """--model-parallel N sets the experiment's mesh (which experiment.json
     records, and the predict, evaluate and serve CLIs replace by a
