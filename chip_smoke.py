@@ -213,6 +213,19 @@ Phases, in order; any failure exits non-zero and prints no result line.
    pca_project to 128 dims on the card within PCA_TOL of float64 numpy and
    of the port's CPU run (card ms beside numpy s); set_seed's generator on
    the card, and whether ScalarWriter is active on this machine.
+7d. The JAX repo's compile-check entry point (__graft_entry__.entry) on the port:
+   microlens_experiment(use_pallas=True)'s MM-FiBiNET at full width (E=128,
+   item table 91,776 x 128, max_len 20, hidden (512, 256), bf16) from a
+   seeded generator, data/synthetic.fake_batch rows (256, as the entry
+   draws them, and 8192) through the eval forward and the sigmoid: exactly
+   fwd_launches() interaction_fwd launches a forward (counted in the
+   kernels line) and no other counted kernel; the interaction block's
+   output inside the forward within TOL["interaction_fwd"] and
+   FWD_NORM_TOL of interaction_fwd_plain on the same x; the probabilities
+   finite in (0, 1) and within CPU_TOL of the same forward on the CPU;
+   the forward's ms on the kernel and the plain path (CUDA events, median
+   of 30; [entry] lines) and the kernel path's device-busy ms and kernels
+   ([split] lines).
 6d. Phases 6-7 for sasrec_emb_256 (sasrec_fibinet with embedding_dim=256,
    its other defaults): both encoder kernels at E=256 in the gradient
    check and the exact launch counts, the export served through them.
@@ -3821,6 +3834,126 @@ def item_embeddings_phase(torch, root, card) -> None:
         raise SystemExit("set_seed must return a generator on the card")
 
 
+# ---- phase 7d: the entry point's forward (__graft_entry__.entry) on the port ----
+ENTRY_ROWS = ((256, 0), (B_FULL, 1))  # (rows, fake_batch seed): the entry's batch, then 8192
+
+
+@contextlib.contextmanager
+def recorded_block(into: dict):
+    """While open, record the interaction block's input x and output h as
+    fibinet.apply computes them (the tower's input, as the forward uses it)."""
+    from ctr_recommendation_tpu_torch.models import fibinet
+
+    block = fibinet.senet_bilinear_concat
+
+    def recording(senet_params, bilinear_params, x, **kw):
+        into["x"] = x
+        into["h"] = block(senet_params, bilinear_params, x, **kw)
+        return into["h"]
+
+    fibinet.senet_bilinear_concat = recording
+    try:
+        yield into
+    finally:
+        fibinet.senet_bilinear_concat = block
+
+
+def entry_phase(torch, card, worst: dict, counted) -> int:
+    """Phase 7d: the port's counterpart of the JAX repo's entry point
+    (__graft_entry__.entry): microlens_experiment(use_pallas=True)'s
+    MM-FiBiNET at full width from a seeded generator (seed 0), fake_batch
+    rows (256 from seed 0, as the entry draws them, then 8192 from seed 1)
+    through the bf16 eval forward and the sigmoid. Each forward: exactly
+    fwd_launches() interaction_fwd launches and no other counted kernel; the
+    block's output inside the forward against the kernel's plain version on
+    the same x (TOL and FWD_NORM_TOL, as phase 2), the model's bf16
+    reference block's gap beside it (reported: it rounds the gate and the
+    output in bf16); the probabilities finite in (0, 1) and within CPU_TOL
+    of the same forward on the CPU. Then both paths timed (CUDA events,
+    median of 30) and the kernel path's device busy time split
+    (torch.profiler). Returns the counted forwards' interaction_fwd launches."""
+    import dataclasses
+
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.data import fake_batch
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.models import build_model
+    from ctr_recommendation_tpu_torch.ops.cuda import interaction as ki
+    from ctr_recommendation_tpu_torch.ops.interaction import senet_bilinear_concat_reference
+    from ctr_recommendation_tpu_torch.utils.tree import tree_map
+
+    exp = microlens_experiment(data_root="", use_pallas=True)
+    fm = build_feature_map(exp.dataset)
+    cfg = exp.model
+    module, params, state = build_model(fm, cfg, torch.Generator().manual_seed(0))
+    seq_len = next(f.max_len for f in fm.features if f.name == "item_seq")
+    widths = (cfg.model, cfg.embedding_dim, tuple(params["trunk"]["tables"]["item_id"].shape),
+              seq_len, cfg.hidden_units, exp.train.compute_dtype)
+    if widths != ("mm_fibinet", E, (91_776, E), 20, HIDDEN, "bfloat16"):
+        raise SystemExit(f"the entry's configuration moved: {widths}")
+    cd = getattr(torch, exp.train.compute_dtype)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    on_cpu = (params, state)
+    on_card = (tree_map(lambda t: t.cuda(), params), tree_map(lambda t: t.cuda(), state))
+
+    @torch.no_grad()
+    def forward(weights, c, batch):
+        logits, _ = module.apply(*weights, fm, c, batch, train=False, compute_dtype=cd)
+        return torch.sigmoid(logits)
+
+    launches, failures = 0, []
+    for n, seed in ENTRY_ROWS:
+        cols = fake_batch(np.random.default_rng(seed), n, 91718, 20, 128, with_label=False)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in cols.items()}
+        torch.cuda.synchronize()
+        for k in counted:
+            k.launches = 0
+        with recorded_block({}) as block:
+            probs = forward(on_card, cfg, batch)
+            torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in counted}
+        want = {k.__name__: ki.fwd_launches() if k is ki.interaction_fwd else 0 for k in counted}
+        launches += got["interaction_fwd"]
+        x, h = block["x"], block["h"]
+        w_bi = on_card[0]["bilinear"]["w"].to(x.dtype)
+        sw = ki.senet_weights(on_card[0]["senet"], x.shape[1])
+        plain = ki.interaction_fwd_plain(x, *sw, w_bi)
+        err, bad, tol = check_close("interaction_fwd", h, plain, "bfloat16")
+        norm = norm_gap(h, plain)
+        worst["interaction_fwd"] = max(worst["interaction_fwd"], err)
+        ref = senet_bilinear_concat_reference(on_card[0]["senet"], on_card[0]["bilinear"], x)
+        ref_err, ref_norm = (h.double() - ref.double()).abs().max().item(), norm_gap(h, ref)
+        cpu = forward(on_cpu, cfg, {k: torch.from_numpy(v) for k, v in cols.items()})
+        probs = probs.cpu()
+        cpu_err = (probs - cpu).abs().max().item()
+        sane = (probs.shape == (n,) and bool(torch.isfinite(probs).all())
+                and bool(((probs > 0) & (probs < 1)).all()))
+        ok = (got == want and bad == 0 and norm <= FWD_NORM_TOL and cpu_err <= CPU_TOL
+              and sane and tuple(h.shape) == (n, (F + F * (F - 1) // 2) * E))
+        log(f"[entry] B={n}: launches {got} (expected {want}); the block's output in the "
+            f"forward vs interaction_fwd_plain max_abs_err={err:.3e} ({tol}), |d|/|want| "
+            f"{norm:.3e} (bar {FWD_NORM_TOL:.3e}); vs the bf16 reference block "
+            f"max_abs_err={ref_err:.3e}, |d|/|want| {ref_norm:.3e} (reported); probabilities "
+            f"{tuple(probs.shape)} in [{probs.min().item():.4f}, {probs.max().item():.4f}] vs "
+            f"the CPU forward max_abs_err={cpu_err:.3e} (tolerance {CPU_TOL}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(n)
+            continue
+        kernel_ms = time_ms(torch, lambda: forward(on_card, cfg, batch))
+        plain_ms = time_ms(torch, lambda: forward(on_card, plain_cfg, batch))
+        gap = (forward(on_card, plain_cfg, batch).cpu() - probs).abs().max().item()
+        log(f"[entry] B={n} on {card}: the bf16 eval forward + sigmoid {kernel_ms:.4f} ms on "
+            f"the kernel path, {plain_ms:.4f} ms on the plain path (CUDA events around the "
+            f"call, median of 30: the host's launches when the card waits on them, see the "
+            f"[split] line's busy ms); the plain path's probabilities within {gap:.3e} of "
+            f"the kernel's")
+        kernel_split(torch, lambda: forward(on_card, cfg, batch), f"entry forward B={n}", card)
+    if failures:
+        raise SystemExit(f"the entry forward failed at B={failures}")
+    return launches
+
+
 # ---- phase 7b: online serving over HTTP (serving/, the fused scoring kernel) ----
 # ragged request sizes: every bucket of DEFAULT_BUCKETS and past its boundary
 SERVE_RAGGED = (1, 15, 17, 63, 255, 1023, 4097)
@@ -4522,6 +4655,8 @@ def main(argv=None) -> int:
         profiled = profile_epoch_phase(torch, train, train_store, root, card)
         imported = import_phase(torch, store, rows, card)
         item_embeddings_phase(torch, root, card)
+        # ---- phase 7d: the entry point's forward, 256 and 8192 rows ----
+        entry = entry_phase(torch, card, worst, counted)
         # ---- phase 6h: data-parallel training, two ranks sharing the card ----
         data_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
         # ---- phase 6i: row-sharded tables, 1 x 2 and 2 x 2 ranks sharing the card ----
@@ -4577,8 +4712,9 @@ def main(argv=None) -> int:
                     sasrec_per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd})
         # ---- phase 6g: the model zoo, no kernel on its path ----
         zoo(torch, train, valid, train_store, root, card, counted, rows, dense=mm)
-    # the training main path's launches: phase 6's fit and phase 7c's profiled epochs
-    train_fwd = mm["launches"][interaction_fwd] + profiled[interaction_fwd]
+    # the training main path's launches: phase 6's fit and phase 7c's profiled
+    # epochs; and phase 7d's entry forwards
+    train_fwd = mm["launches"][interaction_fwd] + profiled[interaction_fwd] + entry
     train_bwd = mm["launches"][interaction_bwd] + profiled[interaction_bwd]
     enc_bwd_launches = sasrec["launches"][encode_bwd]
 

@@ -4,6 +4,7 @@ from ctr_recommendation_tpu_torch.data.parquet import TableData, iter_batches, l
 from ctr_recommendation_tpu_torch.data.prefetch import prefetch
 from ctr_recommendation_tpu_torch.data.streaming import stream_batches
 from ctr_recommendation_tpu_torch.data.synthetic import (
+    fake_batch,
     make_synthetic_tables,
     synthetic_splits,
     write_synthetic_dataset,
@@ -13,6 +14,7 @@ __all__ = [
     "DeviceItemStore",
     "ItemStore",
     "TableData",
+    "fake_batch",
     "iter_batches",
     "load_split",
     "make_synthetic_tables",

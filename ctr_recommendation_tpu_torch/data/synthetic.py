@@ -143,6 +143,32 @@ def make_synthetic_tables(
     return rows, item_info
 
 
+def fake_batch(rng, n, item_vocab=91718, max_len=20, mm_dim=128, with_label=True):
+    """Uniform-random MicroLens-shaped batch columns (no planted signal) —
+    the shared input builder for throughput measurements and the
+    compile-check entry point's forward (the JAX repo's __graft_entry__.py),
+    where only shapes/dtypes matter, not learnability.
+    ``rng`` is a ``np.random.Generator``; the draws come in a fixed order, so
+    the same generator state gives the same arrays as the JAX package's
+    ``fake_batch``. For learnable data use
+    make_synthetic_tables/write_synthetic_dataset."""
+    batch = {
+        "user_id": rng.integers(0, 100, size=(n,), dtype=np.int32),
+        "likes_level": rng.integers(0, 11, size=(n,), dtype=np.int32),
+        "views_level": rng.integers(0, 11, size=(n,), dtype=np.int32),
+        "item_id": rng.integers(1, item_vocab, size=(n,), dtype=np.int32),
+        "item_emb_d128": rng.normal(size=(n, mm_dim)).astype(np.float32),
+        "item_seq": np.where(
+            rng.random((n, max_len)) < 0.3, 0,
+            rng.integers(1, item_vocab, size=(n, max_len)),
+        ).astype(np.int32),
+    }
+    if with_label:
+        batch["label"] = (rng.random(n) < 0.5).astype(np.float32)
+        batch["__weight__"] = np.ones(n, np.float32)
+    return batch
+
+
 def write_synthetic_dataset(
     root: str,
     num_rows: int = 20000,

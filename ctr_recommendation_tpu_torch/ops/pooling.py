@@ -19,6 +19,15 @@ def masked_mean(
     return total / count
 
 
+def masked_sum(
+    seq_emb: torch.Tensor, seq_ids: torch.Tensor, pad_id: int = 0
+) -> torch.Tensor:
+    """seq_emb (B, S, E), seq_ids (B, S) -> (B, E), in seq_emb's dtype: the
+    sum of masked_mean without the divisor."""
+    mask = (seq_ids != pad_id).to(seq_emb.dtype)  # (B, S)
+    return (seq_emb * mask[..., None]).sum(-2)
+
+
 def masked_mean_t(
     seq_emb: torch.Tensor, seq_ids: torch.Tensor, pad_id: int = 0
 ) -> torch.Tensor:
