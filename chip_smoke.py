@@ -226,6 +226,39 @@ Phases, in order; any failure exits non-zero and prints no result line.
    the forward's ms on the kernel and the plain path (CUDA events, median
    of 30; [entry] lines) and the kernel path's device-busy ms and kernels
    ([split] lines).
+7e. The shapes the JAX kernels run beyond the port's S <= 32 and E, H
+   multiples of 8, after 7d. (a) The encoder kernels past 32 keys (KC = 2
+   and 4 keys a lane) against their plain versions: first the attention
+   blocks alone (attention_fwd's ao and P, then attention_bwd on the plain
+   P, against attention_fwd_plain / attention_bwd_plain within ENC_TOL,
+   B=4133), then the whole encoder: S=50 at E=128, H=2, L=1
+   (B=4096 and 8192+37), S=64 at E=256, H=2 (B=4133) and S=100 at E=64,
+   H=2, L=2 (B=4133), bf16 and fp32, histories of random pad lengths: the
+   forward within ENC_TOL (ENC_NORM_TOL in bf16, the jnp rounding points
+   rejected), fused_encode's pad rows exactly 0, dropout 0.1 under two
+   seeds; the backward within ENC_BWD_TOL and its norm bars at rate 0 and
+   0.1 (the fp32-operand control rejected in bf16); every repeat
+   bit-identical and the launches exact. The C predicate
+   (sasrec_encoder_fits) against the Python one on S 1..200 x FITS_E x
+   FITS_H x L 1, 2. Both encoder kernels timed at S=50 as phase 3 times
+   them at S=20 (`[time] ... S=50` lines). (b) sasrec_fibinet at max_len 50
+   (SASRec's n for its sparse datasets) at full width on phase 6's cut
+   made at max_len 50: phases 6-7's checks (gradients kernel vs plain,
+   exact launches of the four training kernels, loss falling, AUC > 0.6,
+   the export through evaluate); the export through
+   Predictor.score_table on the fused scoring kernel, its AUC within
+   AUC_SERVE_TOL of evaluate's, its first rows within CPU_TOL of the CPU
+   Predictor's. (c) E=10 through the interaction entry point, which pads
+   it to 16, against the plain version at E=10 (forward within TOL and
+   FWD_NORM_TOL, gradients within BWD_TOL; `[padded compare]` lines);
+   mm_fibinet at E=10 and mm_fibinet with a (100, 50) tower (the scoring
+   kernel at (104, 56)), each 3 train steps, an eval forward and a serve
+   of 16,384 rows on the kernels: exact launches, the served
+   probabilities within CPU_TOL of the CPU Predictor's (`[padded ...]`
+   lines); sasrec_fibinet at max_len 200, past the encoder kernels' shared
+   memory: a train step, an eval forward and a serve each refused with the
+   envelope's ValueError before any counted launch (`[refused ...]`). The
+   kernels line adds 7e's launches.
 6d. Phases 6-7 for sasrec_emb_256 (sasrec_fibinet with embedding_dim=256,
    its other defaults): both encoder kernels at E=256 in the gradient
    check and the exact launch counts, the export served through them.
@@ -622,11 +655,14 @@ def where_the_time_goes(torch, pred, rows, bulk, card) -> None:
         f"the Python writer {t_py:.4f})")
 
 
-def encoder_case(torch, dtype, b: int, e: int, heads: int, layers: int, seed: int, s: int = 20):
+def encoder_case(torch, dtype, b: int, e: int, heads: int, layers: int, seed: int, s: int = 20,
+                 on_card: bool = False):
     """The encoder's operands on the card: seeded params (the port's init),
     a numpy history of random pad lengths (row 0 all pad, row 1 none), and
-    what fused_encode feeds the kernel. Returns (x, amask, pad, weights,
-    params, seq_emb, ids)."""
+    what fused_encode feeds the kernel. The embeddings are drawn with numpy,
+    or with ``on_card`` from a seeded generator on the card (phase 7e's
+    larger cases: a host draw of 50M normals takes about a second). Returns
+    (x, amask, pad, weights, params, seq_emb, ids)."""
     from ctr_recommendation_tpu_torch.ops import attention
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encoder_inputs, stack_weights
     from ctr_recommendation_tpu_torch.utils.tree import tree_map
@@ -640,7 +676,12 @@ def encoder_case(torch, dtype, b: int, e: int, heads: int, layers: int, seed: in
     ids = rng.integers(1, 91718, (b, s))
     ids[np.arange(s)[None, :] < (s - lens)[:, None]] = 0
     ids = torch.from_numpy(ids).cuda()
-    seq_emb = torch.from_numpy(rng.standard_normal((b, s, e)).astype(np.float32)).to("cuda", dtype)
+    if on_card:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        seq_emb = torch.randn((b, s, e), generator=gen, device="cuda").to(dtype)
+    else:
+        seq_emb = torch.from_numpy(rng.standard_normal((b, s, e)).astype(np.float32)).to(
+            "cuda", dtype)
     x, amask, pad = encoder_inputs(params, seq_emb, ids)
     return x, amask, pad, stack_weights(params, dtype), params, seq_emb, ids
 
@@ -830,6 +871,8 @@ def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str,
     else:
         sides = (("kernel", "cuda", True), ("plain", "cuda", False))
     out = []
+    enc_gates, enc_replay = [], {"calls": 0, "flips": 0, "margin": 0.0}
+    mlp_gates, mlp_replay = [], {"calls": 0, "flips": 0, "margin": 0.0}
     for i, (side, device, use_kernel) in enumerate(sides):
         e = exp.replace(
             model=dataclasses.replace(exp.model, use_pallas=use_kernel),
@@ -848,10 +891,14 @@ def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str,
         batch = {k: v.to(device) for k, v in host_batch.items()}
         for fn in kernels:
             fn.launches = 0
-        gates = (gate_replay(torch, None if i == 0 else gates.gates) if against_cpu
-                 else contextlib.nullcontext())
+        if against_cpu:
+            gates = gate_replay(torch, None if i == 0 else gates.gates)
+            tower = contextlib.nullcontext()
+        else:  # the encoder's and the tower's ReLUs: the kernel path's decisions, replayed
+            gates = encoder_gates(torch, enc_gates, None if i == 0 else enc_replay)
+            tower = tower_gates(torch, mlp_gates, None if i == 0 else mlp_replay)
         with torch.enable_grad():
-            with gates:
+            with gates, tower:
                 loss, aux = tr.forward_loss(batch)
             out.append((loss.item(), tr.gradients(loss, aux), list(aux.targets)))
         if i == 0:
@@ -873,6 +920,21 @@ def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str,
             raise SystemExit(f"{tag}: the CPU's forward met {gates.calls} gates for the "
                              f"card's {len(gates.gates)}, or a gate flipped beyond rounding "
                              f"({gates.margin:.2e} > {GATE_MARGIN:g})")
+    else:
+        decisions = sum(int(r.sum()) * g.shape[1] for g, r in enc_gates)
+        gate_note = (f"; the kernel path's ReLU decisions replayed on the plain path, the "
+                     f"tower's ({len(mlp_gates)} layers, {sum(g.numel() for g in mlp_gates)} "
+                     f"decisions): {mlp_replay['flips']} it would have taken otherwise, within "
+                     f"{mlp_replay['margin']:.2e}; the encoder FFN's ({len(enc_gates)} layers, "
+                     f"{decisions} decisions at real tokens): {enc_replay['flips']}, within "
+                     f"{enc_replay['margin']:.2e} of 0 relative to their layer's largest "
+                     f"|input| (GATE_MARGIN {GATE_MARGIN:g})")
+        for what, got, rec in (("encoder FFN", enc_replay, enc_gates),
+                               ("tower", mlp_replay, mlp_gates)):
+            if got["calls"] != len(rec) or got["margin"] > GATE_MARGIN:
+                raise SystemExit(f"{tag}: the plain path met {got['calls']} {what} gates for "
+                                 f"the kernel path's {len(rec)}, or a gate flipped beyond "
+                                 f"rounding ({got['margin']:.2e} > {GATE_MARGIN:g})")
     g_p = [b.to(dev_k) for b in g_p]
     largest = max(b.abs().max().item() for b in g_p)
     floor = GRAD_FLOOR * largest
@@ -906,6 +968,119 @@ def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str,
         raise SystemExit(f"{tag}: {s_k} and {s_p} gradients disagree: {bad}, losses {l_k} and "
                          f"{l_p}")
     return (*first, worst_rel)
+
+
+@contextlib.contextmanager
+def encoder_gates(torch, gates: list, stats: dict | None = None):
+    """The encoder FFN's ReLU decisions, recorded on the kernel path
+    (``stats`` None) or replayed on the plain path. Recording: each
+    fused_encode call of the trunk first appends, per layer, the kernels'
+    decisions f1 > 0 on its inputs, computed launch for launch by
+    kernel_layers (the fused call's bits; the blocks' launches are not
+    counted), and the mask of real tokens. Replaying: each torch.relu on a
+    3-d input of a recorded layer's size (attention.encode's FFN hidden (B,
+    S, 4E), in layer order) takes the recorded decisions at the real tokens
+    (attention.encode re-zeroes pad rows after each layer, the kernels do
+    not: pad rows differ by design, and reach no output); ``stats`` counts
+    the replayed layers
+    (``calls``), the decisions taken otherwise (``flips``) and the largest
+    |z1| / max|z1| among them (``margin``). A z1 within rounding of 0 falls
+    on two sides in two computations, and the backward is discontinuous
+    there: the more tokens, the likelier."""
+    from torch.overrides import TorchFunctionMode
+
+    from ctr_recommendation_tpu_torch.models import trunk
+    from ctr_recommendation_tpu_torch.ops.cuda import sasrec_encoder as enc
+
+    if stats is None:
+        fused = trunk.fused_encode
+        layer_fwd = kernel_layers(torch)(None)
+
+        def recording(params, seq_emb, seq_ids, *, num_heads, pad_id=0, train=False,
+                      dropout_rate=0.0, seed=None, token0=0):
+            drop_on = train and dropout_rate > 0.0 and seed is not None
+            with torch.no_grad():
+                x, amask, _ = enc.encoder_inputs(params, seq_emb, seq_ids, pad_id)
+                w = enc.stack_weights(params, x.dtype)
+                h = x.float().reshape(-1, x.shape[-1])
+                for li in range(len(params["blocks"])):
+                    h, res = layer_fwd(h, amask, w, li, x.dtype, num_heads,
+                                       seed if drop_on else None,
+                                       float(dropout_rate) if drop_on else 0.0, token0=token0)
+                    gates.append((res["f1"] > 0, (seq_ids != pad_id).reshape(-1, 1)))
+            return fused(params, seq_emb, seq_ids, num_heads=num_heads, pad_id=pad_id,
+                         train=train, dropout_rate=dropout_rate, seed=seed, token0=token0)
+
+        trunk.fused_encode = recording
+        try:
+            yield
+        finally:
+            trunk.fused_encode = fused
+        return
+
+    class Replay(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            k = stats["calls"]
+            if (func is torch.relu and args[0].dim() == 3 and k < len(gates)
+                    and args[0].numel() == gates[k][0].numel()):
+                x = args[0]
+                own = x > 0
+                given = torch.where(gates[k][1], gates[k][0], own.reshape(gates[k][0].shape))
+                given = given.reshape(x.shape)
+                stats["calls"] += 1
+                differ = given != own
+                if bool(differ.any()):
+                    stats["flips"] += int(differ.sum())
+                    mag = x.detach().abs()
+                    stats["margin"] = max(stats["margin"], float(mag[differ].max() / mag.max()))
+                return torch.where(given, x, 0.0)
+            return func(*args, **kwargs)
+
+    with Replay():
+        yield
+
+
+@contextlib.contextmanager
+def tower_gates(torch, gates: list, stats: dict | None = None):
+    """The tower's ReLU decisions (each torch.relu inside ops/mlp.apply),
+    recorded on the kernel path (``stats`` None) or replayed in the same
+    order on the plain path, whose tower is the same code fed the plain
+    trunk's fields; ``stats`` as for encoder_gates."""
+    from torch.overrides import TorchFunctionMode
+
+    from ctr_recommendation_tpu_torch.ops import mlp
+
+    class Mode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is not torch.relu:
+                return func(*args, **kwargs)
+            x = args[0]
+            own = x > 0
+            if stats is None:
+                gates.append(own)
+                return torch.where(own, x, 0.0)
+            given = gates[stats["calls"]]
+            stats["calls"] += 1
+            differ = given != own
+            if bool(differ.any()):
+                stats["flips"] += int(differ.sum())
+                mag = x.detach().abs()
+                stats["margin"] = max(stats["margin"], float(mag[differ].max() / mag.max()))
+            return torch.where(given, x, 0.0)
+
+    plain = mlp.apply
+
+    def apply(*args, **kw):
+        with Mode():
+            return plain(*args, **kw)
+
+    mlp.apply = apply
+    try:
+        yield
+    finally:
+        mlp.apply = plain
 
 
 def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: int = 3) -> dict:
@@ -1010,13 +1185,16 @@ def encoder_against_plain(torch) -> tuple[float, list]:
     return worst, failures
 
 
-def encoder_timing(torch, card, e: int = ENC_E) -> dict:
-    """Phase 3 for the encoder at B=8192, bf16, L=1: kernel, plain version and
+def encoder_timing(torch, card, e: int = ENC_E, s: int = ENC_S,
+                   on_card: bool = False) -> dict:
+    """Phase 3 for the encoder at B=8192, bf16, L=1, histories of S (phase
+    7e: 50): kernel, plain version and
     nn.TransformerEncoderLayer (checked first against the plain version in
     fp32 on every history with a real step), CUDA events, beside the bound."""
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_fwd, encode_fwd_plain
 
-    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.float32, B_FULL, e, ENC_H, 1, 3)
+    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.float32, B_FULL, e, ENC_H, 1, 3,
+                                              s=s, on_card=on_card)
     real = ~pad.all(-1)
     with torch.inference_mode():
         lib = library_layer(torch, ws, ENC_H)(x, src_key_padding_mask=pad)
@@ -1028,10 +1206,11 @@ def encoder_timing(torch, card, e: int = ENC_E) -> dict:
     if not lib_err <= LIB_TOL:
         raise SystemExit("the library yardstick does not compute the encoder's function")
 
-    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.bfloat16, B_FULL, e, ENC_H, 1, 4)
+    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.bfloat16, B_FULL, e, ENC_H, 1, 4,
+                                              s=s, on_card=on_card)
     layer = library_layer(torch, ws, ENC_H)
-    tokens = B_FULL * ENC_S
-    ops = 2 * tokens * (12 * e * e + 2 * ENC_S * e)
+    tokens = B_FULL * s
+    ops = 2 * tokens * (12 * e * e + 2 * s * e)
     nbytes = 2 * 2 * x.numel() + 4 * amask.numel() + sum(t.numel() * t.element_size() for t in ws)
     with torch.inference_mode():
         t = {
@@ -1040,7 +1219,7 @@ def encoder_timing(torch, card, e: int = ENC_E) -> dict:
             **bound(nbytes, ops),
             "library_ms": time_ms(torch, lambda: layer(x, src_key_padding_mask=pad)),
         }
-    log(f"[time] sasrec_encoder_fwd bf16 B={B_FULL} S={ENC_S} E={e} H={ENC_H} L=1: {t} "
+    log(f"[time] sasrec_encoder_fwd bf16 B={B_FULL} S={s} E={e} H={ENC_H} L=1: {t} "
         f"(bytes {nbytes}, ops {ops}; library: nn.TransformerEncoderLayer, bf16) on {card}")
     seed = torch.tensor([3], dtype=torch.int64, device="cuda")
     kw = dict(num_heads=ENC_H, seed=seed, rate=DROP_RATE)
@@ -1051,7 +1230,7 @@ def encoder_timing(torch, card, e: int = ENC_E) -> dict:
         f"on {card}")
     with torch.inference_mode():
         kernel_split(torch, lambda: encode_fwd(x, amask, *ws, **kw),
-                     f"sasrec_encoder_fwd bf16 B={B_FULL} E={e} dropout {DROP_RATE}", card)
+                     f"sasrec_encoder_fwd bf16 B={B_FULL} S={s} E={e} dropout {DROP_RATE}", card)
     return t
 
 
@@ -1060,12 +1239,18 @@ ENC_BWD_CASES = [(128, 2, 1, B_TRAIN), (128, 2, 1, B_TRAIN + 37), (64, 4, 2, B_T
                  (256, 2, 1, B_TRAIN), (256, 2, 1, B_TRAIN + 37)]
 
 
-def encoder_cotangent(torch, pad, e: int, seed: int, dtype):
-    """A seeded numpy cotangent of the encoder's output (B, S, e) on the
-    card, zero at pad rows (fused_encode's re-zeroing gives that)."""
+def encoder_cotangent(torch, pad, e: int, seed: int, dtype, on_card: bool = False):
+    """A seeded cotangent of the encoder's output (B, S, e) on the card,
+    zero at pad rows (fused_encode's re-zeroing gives that): drawn with
+    numpy, or with ``on_card`` from a seeded generator on the card."""
     b, s = pad.shape
-    g = np.random.default_rng(seed).standard_normal((b, s, e)).astype(np.float32)
-    g = torch.from_numpy(g).cuda() * ~pad[..., None]
+    if on_card:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        g = torch.randn((b, s, e), generator=gen, device="cuda")
+    else:
+        g = torch.from_numpy(
+            np.random.default_rng(seed).standard_normal((b, s, e)).astype(np.float32)).cuda()
+    g = g * ~pad[..., None]
     return g.to(dtype).contiguous()
 
 
@@ -1320,37 +1505,132 @@ def library_grads(torch, layer, x, pad, g):
     return [grads[0]] + [t.T if t.dim() == 2 else t for t in grads[1:]]
 
 
-def encoder_bwd_timing(torch, card, e: int = ENC_E) -> dict:
-    """Phase 3 for the backward at B=4096, bf16, L=1, rate 0.1: kernel, plain
+@contextlib.contextmanager
+def plain_layers(make):
+    """While open, encode_bwd_plain's forward recompute runs each layer
+    through ``make(the plain _layer_fwd)`` (same signature and residues)."""
+    from ctr_recommendation_tpu_torch.ops.cuda import sasrec_encoder as enc
+
+    plain = enc._layer_fwd
+    enc._layer_fwd = make(plain)
+    try:
+        yield
+    finally:
+        enc._layer_fwd = plain
+
+
+def replayed_gates(torch, z1s: list, stats: dict, held):
+    """For plain_layers: the plain layer, then its FFN's ReLU gate given the
+    decisions z1s[li] > 0 of another computation of layer li's
+    pre-activation (fp32): f1 kept where both decide alike, 0 where only the
+    plain one opens, fp32's least normal where only the other does (f1
+    feeds the gate and, times df2, ffn2_w's gradient: that term moves by
+    under 1e-37). ``stats`` counts the decisions taken otherwise on the
+    tokens ``held`` (a (B*S,) mask: the histories with a real step, whose
+    forward both compute alike; an all-pad history's softmax differs and
+    its cotangent is 0) in ``flips``, and keeps the largest |z1| / max|z1|
+    among them in ``margin``."""
+    def make(plain):
+        def layer_fwd(h, amask, w, li, cd, *args, **kw):
+            h2, res = plain(h, amask, w, li, cd, *args, **kw)
+            f1 = res["f1"]
+            z = z1s[li].reshape(f1.shape).float()
+            gate = z > 0
+            flips = (gate != (f1 > 0)) & held[:, None]
+            if bool(flips.any()):
+                stats["flips"] += int(flips.sum())
+                stats["margin"] = max(stats["margin"],
+                                      float(z[flips].abs().max() / z.abs().max()))
+            tiny = torch.full_like(f1, torch.finfo(torch.float32).tiny)
+            res = dict(res, f1=torch.where(gate, torch.where(f1 > 0, f1, tiny), 0.0))
+            return h2, res
+        return layer_fwd
+    return make
+
+
+def kernel_layers(torch):
+    """For plain_layers: each layer's forward and residues as the encoder
+    kernels' backward recomputes them, launch for launch on the building
+    blocks of encoder_blocks (the same kernels and launches as the fused
+    call, so the same bits): LayerNorm and attention outputs in fp32 (their
+    rounding to cd at use is the fused call's store), f1 in cd. The plain
+    backward then runs on the kernels' own forward, with the kernels' ReLU
+    decisions and rounding points: what differs from encode_bwd is the
+    backward's arithmetic alone."""
+    from ctr_recommendation_tpu_torch.ops.cuda import encoder_blocks as eb
+
+    def make(plain):
+        def layer_fwd(h, amask, w, li, cd, num_heads, seed, rate, acc=None, token0=0):
+            (qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
+             ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b) = (t[li] for t in w)
+            drop = dict(seed=seed, rate=rate, layer=li, token0=token0)
+            f32 = torch.float32
+            hn1, xhat1, r1 = eb.layer_norm(h, ln1_s, ln1_b, f32, True)
+            qkv = eb.product(hn1.to(cd), qkv_w.to(cd), "nn", "bias", bias=qkv_b)
+            ao, p = eb.attention_fwd(qkv, amask, num_heads, f32)
+            h1 = eb.product(ao.to(cd), proj_w.to(cd), "nn", "residual", bias=proj_b, aux=h,
+                            branch=0, **drop)
+            hn2, xhat2, r2 = eb.layer_norm(h1, ln2_s, ln2_b, f32, True)
+            f1 = eb.product(hn2.to(cd), ffn1_w.to(cd), "nn", "relu", bias=ffn1_b, out_dtype=cd)
+            h2 = eb.product(f1, ffn2_w.to(cd), "nn", "residual", bias=ffn2_b, aux=h1, branch=1,
+                            **drop)
+            return h2, dict(hn1=hn1, xhat1=xhat1, r1=r1, qkv=qkv, p=p, ao=ao, hn2=hn2,
+                            xhat2=xhat2, r2=r2, f1=f1.float())
+        return layer_fwd
+    return make
+
+
+def encoder_bwd_timing(torch, card, e: int = ENC_E, s: int = ENC_S,
+                       on_card: bool = False) -> dict:
+    """Phase 3 for the backward at B=4096, bf16, L=1, rate 0.1, histories of
+    S (phase 7e: 50): kernel, plain
     version and nn.TransformerEncoderLayer forward + backward minus its
     forward (checked first against the plain version in fp32, every history
     with a real step), CUDA events, beside the bound."""
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_bwd_plain
 
     def case(dtype, seed):
-        x, amask, pad, ws, _, _, _ = encoder_case(torch, dtype, B_TRAIN, e, ENC_H, 1, seed)
+        x, amask, pad, ws, _, _, _ = encoder_case(torch, dtype, B_TRAIN, e, ENC_H, 1, seed, s=s,
+                                                  on_card=on_card)
         pad, amask = pad.clone(), amask.clone()
         pad[0], amask[0] = False, 0.0  # no all-pad history: the library's -inf gives NaN there
-        return x, amask, pad, ws, encoder_cotangent(torch, pad, e, seed + 1, dtype)
+        return x, amask, pad, ws, encoder_cotangent(torch, pad, e, seed + 1, dtype, on_card)
 
     x, amask, pad, ws, g = case(torch.float32, 5)
-    # fp32 accumulation, as cuBLAS sums for the library: a ReLU gate read
-    # from a product then falls on the library's side
-    want = encode_bwd_plain(g, x, amask, *ws, num_heads=ENC_H, acc=torch.float32)
     layer = library_layer(torch, ws, ENC_H).train()
+    z1 = []  # the library's FFN pre-activation, its ReLU gate's input
+    hook = layer.linear1.register_forward_hook(lambda mod, inp, out: z1.append(out.detach()))
     lib = library_grads(torch, layer, x, pad, g)
-    lib_err = max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(lib, want))
-    log(f"[compare] nn.TransformerEncoderLayer fp32 forward + backward vs encode_bwd_plain: "
-        f"largest |d|/max|want| over dx and the 12 gradients {lib_err:.3e} (tolerance "
-        f"{LIB_TOL:g})")
-    if not lib_err <= LIB_TOL:
+    hook.remove()
+    # fp32 accumulation, as cuBLAS sums for the library: a ReLU gate read
+    # from a product then falls on the library's side, but where z1 lies
+    # within rounding of 0 (more often the more tokens): there the plain
+    # version takes the library's decision (replayed_gates, GATE_MARGIN)
+    direct = encode_bwd_plain(g, x, amask, *ws, num_heads=ENC_H, acc=torch.float32)
+    replay = {"flips": 0, "margin": 0.0}
+    held = (~pad.all(-1))[:, None].expand(pad.shape).reshape(-1)
+    with plain_layers(replayed_gates(torch, z1, replay, held)):
+        want = encode_bwd_plain(g, x, amask, *ws, num_heads=ENC_H, acc=torch.float32)
+
+    def gap(ref):
+        return max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(lib, ref))
+
+    lib_err = gap(want)
+    log(f"[compare] nn.TransformerEncoderLayer fp32 forward + backward vs encode_bwd_plain at "
+        f"S={s}: largest |d|/max|want| over dx and the 12 gradients {lib_err:.3e} (tolerance "
+        f"{LIB_TOL:g}) with the library's ReLU decisions replayed ({replay['flips']} of the "
+        f"{int(held.sum()) * z1[0].shape[-1]} in histories with a real step taken otherwise, "
+        f"their inputs within {replay['margin']:.2e} of 0 "
+        f"relative to the largest |z1|, GATE_MARGIN {GATE_MARGIN:g}); {gap(direct):.3e} "
+        f"without the replay (not held)")
+    if not lib_err <= LIB_TOL or replay["margin"] > GATE_MARGIN:
         raise SystemExit("the library yardstick does not compute the encoder backward's function")
 
     x, amask, pad, ws, g = case(torch.bfloat16, 6)
     seed = torch.tensor([11], dtype=torch.int64, device="cuda")
     layer = library_layer(torch, ws, ENC_H).train()
-    tokens = B_TRAIN * ENC_S
-    ops = 3 * 2 * tokens * (12 * e * e + 2 * ENC_S * e)
+    tokens = B_TRAIN * s
+    ops = 3 * 2 * tokens * (12 * e * e + 2 * s * e)
     nbytes = (3 * 2 * x.numel() + 4 * amask.numel()
               + sum(t.numel() * t.element_size() for t in ws) + 4 * sum(t.numel() for t in ws))
     lib_fwd = time_ms(torch, lambda: layer(x, src_key_padding_mask=pad))
@@ -1362,11 +1642,11 @@ def encoder_bwd_timing(torch, card, e: int = ENC_E) -> dict:
         **bound(nbytes, ops),
         "library_ms": lib_both - lib_fwd,
     }
-    log(f"[time] sasrec_encoder_bwd bf16 B={B_TRAIN} S={ENC_S} E={e} H={ENC_H} L=1 "
+    log(f"[time] sasrec_encoder_bwd bf16 B={B_TRAIN} S={s} E={e} H={ENC_H} L=1 "
         f"rate={DROP_RATE}: {t} (bytes {nbytes}, ops {ops}; library: nn.TransformerEncoderLayer "
         f"bf16 forward + backward {lib_both:.4f} ms minus its forward {lib_fwd:.4f} ms) on {card}")
     kernel_split(torch, lambda: encode_bwd(g, x, amask, *ws, **kw),
-                 f"sasrec_encoder_bwd bf16 B={B_TRAIN} E={e} dropout {DROP_RATE}", card)
+                 f"sasrec_encoder_bwd bf16 B={B_TRAIN} S={s} E={e} dropout {DROP_RATE}", card)
     return t
 
 
@@ -3954,6 +4234,471 @@ def entry_phase(torch, card, worst: dict, counted) -> int:
     return launches
 
 
+# ---- phase 7e: the encoder past S=32, E and towers off the kernels' multiples of 8 ----
+LONG_S = 50  # SASRec's n for its sparse datasets (Kang & McAuley, ICDM 2018, section IV)
+OUTSIDE_S = 200  # its n for MovieLens-1M: past the encoder kernels' shared memory
+OUTSIDE_E = 10  # an embedding width the interaction and scoring kernels take zero-padded
+OUTSIDE_TOWER = (100, 50)  # a tower the scoring kernel takes zero-padded
+# (S, E, H, L, B) of the encoder checks past 32 keys: two and four keys a lane
+LONG_CASES = [(LONG_S, 128, 2, 1, B_TRAIN), (LONG_S, 128, 2, 1, B_RAGGED),
+              (64, 256, 2, 1, B_TRAIN + 37), (100, 64, 2, 2, B_TRAIN + 37)]
+FITS_S = range(1, 201)  # the grid the C and Python encoder predicates are held on
+FITS_E = (16, 32, 48, 64, 96, 128, 160, 192, 256, 384, 512, 1024)
+FITS_H = (1, 2, 3, 4, 8, 16, 32)
+OUTSIDE_CPU_ROWS = 1024  # served rows held against the CPU Predictor in (b) and (c)
+OUTSIDE_STEPS = 3  # train steps of each (c) case, on one batch
+
+
+def long_attention_blocks(torch) -> tuple[float, list]:
+    """Phase 7e (a): the attention blocks alone past 32 keys, at each of
+    LONG_CASES' (S, E, H) over B_TRAIN + 37 histories of random pad lengths
+    (row 0 all pad), bf16 and fp32: attention_fwd's ao and P against
+    attention_fwd_plain's on the same qkv and mask, then attention_bwd on
+    the plain version's P against attention_bwd_plain, every output within
+    ENC_TOL (ENC_NORM_TOL in bf16; P and dqkv are fp32 and held at the fp32
+    bars). The backward checks below take their forward residues from
+    attention_fwd, so this holds its P on its own. Returns (worst
+    max_abs_err, failures)."""
+    from ctr_recommendation_tpu_torch.ops.cuda import encoder_blocks as eb
+
+    worst, failures = 0.0, []
+    b = B_TRAIN + 37
+    for s, e, heads in dict.fromkeys(c[:3] for c in LONG_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(s * 1000 + e)
+        lens = torch.randint(0, s + 1, (b,), generator=gen, device="cuda")
+        lens[0] = 0
+        pad = torch.arange(s, device="cuda")[None, :] < (s - lens)[:, None]
+        amask = torch.where(pad, -1e9, 0.0).float()
+        qkv = torch.randn((b * s, 3 * e), generator=gen, device="cuda")
+        dao = torch.randn((b * s, e), generator=gen, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            ao, p = eb.attention_fwd(qkv, amask, heads, dtype)
+            ao_w, p_w = eb.attention_fwd_plain(qkv, amask, heads, dtype)
+            dq, dq_c = eb.attention_bwd(qkv, p_w, dao, dtype)
+            dq_w, dq_cw = eb.attention_bwd_plain(qkv, p_w, dao, dtype)
+            torch.cuda.synchronize()
+            held = {"ao": (ao, ao_w, dn), "P": (p, p_w, "float32"),
+                    "dqkv": (dq, dq_w, "float32"), "dqkv_c": (dq_c, dq_cw, dn)}
+            parts = []
+            for name, (got, want, bar) in held.items():
+                err, rel_norm, ok = check_encoder(torch, got, want, bar)
+                worst = max(worst, err)
+                parts.append(f"{name} max_abs_err={err:.3e} |d|/|want| {rel_norm:.3e} "
+                             f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(("long attention block", name, s, e, heads, dn))
+            log(f"[long compare] attention blocks S={s} E={e} H={heads} {dn} B={b}: "
+                f"{'; '.join(parts)}")
+            del ao, p, ao_w, p_w, dq, dq_c, dq_w, dq_cw
+    return worst, failures
+
+
+def padded_interaction_against_plain(torch) -> tuple[float, float, list]:
+    """Phase 7e (c): the interaction entry point at E = OUTSIDE_E, which
+    the kernels take zero-padded to padded_width(E): fused_senet_bilinear_
+    concat's output (B_RAGGED rows) against interaction_fwd_plain at the
+    unpadded E within TOL["interaction_fwd"] (FWD_NORM_TOL in bf16), and
+    its gradients through FusedInteraction (B_TRAIN + 37 rows) against
+    interaction_bwd_plain at the unpadded E within BWD_TOL (BWD_NORM_TOL in
+    bf16); "all" and "each", bf16 and fp32. Returns (worst forward
+    max_abs_err, worst backward max_abs_err, failures)."""
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
+        fused_senet_bilinear_concat,
+        interaction_bwd_plain,
+        interaction_fwd_plain,
+        padded_width,
+    )
+
+    worst_f, worst_b, failures = 0.0, 0.0, []
+    for btype in ("all", "each"):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            tag = f"E={OUTSIDE_E} (kernels at {padded_width(OUTSIDE_E)}) {btype} {dn}"
+            x, sw, w_bi, _ = kernel_inputs(torch, btype, dtype, B_RAGGED, OUTSIDE_E, e=OUTSIDE_E,
+                                           hidden=(8, 8))
+            sp = {"fc1": {"w": sw[0], "b": sw[1]}, "fc2": {"w": sw[2], "b": sw[3]}}
+            bp = {"w" if btype == "all" else "w_each": w_bi.float()}
+            got = fused_senet_bilinear_concat(sp, bp, x, bilinear_type=btype)
+            want = interaction_fwd_plain(x, *sw, w_bi, bilinear_type=btype)
+            torch.cuda.synchronize()
+            err, bad, bar = check_close("interaction_fwd", got, want, dn)
+            rel_norm = norm_gap(got, want)
+            ok = bad == 0 and got.shape == want.shape and (
+                dtype != torch.bfloat16 or rel_norm <= FWD_NORM_TOL)
+            worst_f = max(worst_f, err)
+            g, xb, swb, wb = backward_inputs(torch, btype, dtype, B_TRAIN + 37, OUTSIDE_E + 1,
+                                             True, e=OUTSIDE_E)
+            leaves = [xb.clone().requires_grad_()] + [t.clone().requires_grad_() for t in swb]
+            w_master = wb.float().requires_grad_()
+            out = fused_senet_bilinear_concat(
+                {"fc1": {"w": leaves[1], "b": leaves[2]}, "fc2": {"w": leaves[3], "b": leaves[4]}},
+                {"w" if btype == "all" else "w_each": w_master}, leaves[0], bilinear_type=btype)
+            grads = torch.autograd.grad(out, leaves + [w_master], g)
+            want_b = interaction_bwd_plain(g, xb, *swb, wb, bilinear_type=btype)
+            torch.cuda.synchronize()
+            b_err, b_norm, b_bad = check_backward(torch, grads, want_b, dn)
+            worst_b = max(worst_b, b_err)
+            log(f"[padded compare] interaction {tag}: forward B={B_RAGGED} max_abs_err={err:.3e} "
+                f"({bar}, {bad} outside), |d|/|want| {rel_norm:.3e} (bf16 bar "
+                f"{FWD_NORM_TOL:.3e}); backward B={B_TRAIN + 37} max_abs_err={b_err:.3e}, "
+                f"|d|/|want| up to {b_norm:.3e}, outside BWD_TOL {b_bad} "
+                f"{'ok' if ok and not b_bad else 'FAIL'}")
+            if not ok or b_bad:
+                failures.append(("padded interaction", btype, dn, bad, b_bad))
+    return worst_f, worst_b, failures
+
+
+def long_history_against_plain(torch) -> tuple[float, float, list]:
+    """Phase 7e (a): the encoder kernels at S = 50, 64 and 100 (two and four
+    keys a lane) against their plain versions, bf16 and fp32: the forward
+    within ENC_TOL (ENC_NORM_TOL in bf16, the jnp rounding points rejected),
+    pad rows of fused_encode exactly 0, with dropout 0.1 under two seeds;
+    the backward at rate 0 and 0.1 against encode_bwd_plain on the kernels'
+    own forward residues (kernel_layers) within ENC_BWD_TOL, its norm and
+    gate-free bars (the fp32-operand control, on the same residues,
+    rejected in bf16 at rate 0.1, where dropout takes df2 off the bf16
+    grid; at rate 0 g and f1 are in cd already and the gate-free output
+    cannot tell), and against encode_bwd_plain's own recompute within
+    the norm bar: with 2.5-5x phase 2's tokens a ReLU gate flips between
+    two recomputes in most fp32 cases, and the bf16 rounding drift of two
+    recomputes over two layers reaches the gate-free bar, neither the
+    backward's doing; every repeat bit-identical and the launches exactly
+    fwd_launches(L) and bwd_launches(L) a call. Returns (worst forward
+    max_abs_err, worst backward max_abs_err, failures)."""
+    from ctr_recommendation_tpu_torch.ops import attention
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        bwd_launches,
+        encode_bwd,
+        encode_bwd_plain,
+        encode_fwd,
+        encode_fwd_plain,
+        fits,
+        fused_encode,
+        fwd_launches,
+    )
+
+    worst_f, worst_b, failures = 0.0, 0.0, []
+    for s, e, heads, layers, b in LONG_CASES:
+        if not fits(s, e, heads, layers):
+            raise SystemExit(f"phase 7e's case S={s} E={e} H={heads} L={layers} is outside")
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            tag = f"S={s} E={e} H={heads} L={layers} {dn} B={b}"
+            x, amask, pad, ws, params, seq_emb, ids = encoder_case(
+                torch, dtype, b, e, heads, layers, seed=s + e + b, s=s, on_card=True)
+            encode_fwd.launches = encode_bwd.launches = 0
+            got = encode_fwd(x, amask, *ws, num_heads=heads)
+            same = torch.equal(got, encode_fwd(x, amask, *ws, num_heads=heads))
+            fused = fused_encode(params, seq_emb, ids, num_heads=heads)
+            want = encode_fwd_plain(x, amask, *ws, num_heads=heads)
+            torch.cuda.synchronize()
+            err, rel_norm, ok = check_encoder(torch, got, want, dn)
+            zeroed = torch.where(pad[..., None], torch.zeros((), dtype=dtype, device="cuda"), got)
+            pads_zero = bool((fused[pad] == 0).all()) and torch.equal(fused, zeroed)
+            ok = ok and same and pads_zero
+            control = ""
+            if dtype == torch.bfloat16:
+                ctl = attention.encode(params, seq_emb, ids, num_heads=heads)
+                _, c_norm, _ = check_encoder(torch, zeroed, ctl, dn)
+                ok = ok and c_norm > ENC_NORM_TOL
+                control = (f"; jnp-rounding control |d|/|want| {c_norm:.3e} "
+                           f"{'rejected' if c_norm > ENC_NORM_TOL else 'NOT REJECTED'}")
+            worst_f = max(worst_f, err)
+            drops = []
+            for seed_v in (b + s, 2**40 + b + s):
+                seed = torch.tensor([seed_v], dtype=torch.int64, device="cuda")
+                kw = dict(num_heads=heads, seed=seed, rate=DROP_RATE)
+                got_d = encode_fwd(x, amask, *ws, **kw)
+                same_d = torch.equal(got_d, encode_fwd(x, amask, *ws, **kw))
+                d_err, d_norm, d_ok = check_encoder(torch, got_d, encode_fwd_plain(
+                    x, amask, *ws, **kw), dn)
+                moved = (got_d.float() - got.float()).abs().max().item()
+                ok = ok and d_ok and same_d and moved > 1e-2
+                worst_f = max(worst_f, d_err)
+                drops.append(f"seed {seed_v}: max_abs_err={d_err:.3e}, |d|/|want| {d_norm:.3e}, "
+                             f"repeat bit-identical {same_d}")
+            log(f"[long compare] sasrec_encoder_fwd {tag}: max_abs_err={err:.3e}, |d|/|want| "
+                f"{rel_norm:.3e} (bf16 bar {ENC_NORM_TOL:.3e}), repeat bit-identical {same}, pad "
+                f"rows of fused_encode exactly 0: {pads_zero}{control}; dropout {DROP_RATE}: "
+                f"{drops} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("long sasrec_encoder_fwd", s, e, heads, layers, dn, b))
+            g = encoder_cotangent(torch, pad, e, s + b + 3, dtype, on_card=True)
+            for rate in (0.0, DROP_RATE):
+                seed = torch.tensor([b * 7 + s], dtype=torch.int64, device="cuda")
+                kw = dict(num_heads=heads, seed=seed, rate=rate)
+                got_b = encode_bwd(g, x, amask, *ws, **kw)
+                same_b = all(torch.equal(a, c) for a, c in zip(
+                    got_b, encode_bwd(g, x, amask, *ws, **kw)))
+                with plain_layers(kernel_layers(torch)):
+                    want_b = encode_bwd_plain(g, x, amask, *ws, **kw)
+                    wrong = (encode_bwd_plain(g, x, amask, *ws, **kw, fp32_operands=True)
+                             if dtype == torch.bfloat16 else None)
+                whole = encode_bwd_plain(g, x, amask, *ws, **kw)
+                torch.cuda.synchronize()
+                b_err, b_norm, free, bad = check_encoder_bwd(torch, got_b, want_b, dn)
+                w_err, w_norm, w_free, w_bad = check_encoder_bwd(torch, got_b, whole, dn)
+                worst_b = max(worst_b, b_err)
+                ok_b = same_b and not bad and w_norm <= ENC_BWD_NORM_TOL[dn]
+                control = ""
+                if wrong is not None:  # held at rate 0.1: at 0, g and f1 are already in cd
+                    _, c_norm, c_free, c_bad = check_encoder_bwd(torch, got_b, wrong, dn)
+                    ok_b = ok_b and (bool(c_bad) or rate == 0.0)
+                    control = (f"; fp32-operand control on the same residues gate-free "
+                               f"{c_free:.3e}, {'rejected' if c_bad else 'not rejected'} on "
+                               f"{c_bad}{'' if rate else ' (held at rate 0.1 only)'}")
+                log(f"[long compare] sasrec_encoder_bwd {tag} rate={rate}, on the kernels' "
+                    f"forward residues: max_abs_err={b_err:.3e}, |d|/|want| up to {b_norm:.3e} "
+                    f"(bar {ENC_BWD_NORM_TOL[dn]:.3e}), gate-free {free:.3e} (bar "
+                    f"{ENC_BWD_GATE_FREE_TOL[dn]:.3e}), repeat bit-identical {same_b}{control}; "
+                    f"against the plain version's own recompute |d|/|want| up to {w_norm:.3e} "
+                    f"(held to the same norm bar), max_abs_err={w_err:.3e}, gate-free "
+                    f"{w_free:.3e}, outside the elementwise and gate-free bars {w_bad} (ReLU "
+                    f"gate flips and rounding drift of two recomputes: not held) "
+                    f"{'ok' if ok_b else f'FAIL {bad}'}")
+                if not ok_b:
+                    failures.append(("long sasrec_encoder_bwd", s, e, heads, layers, dn, b, rate))
+            counts = (encode_fwd.launches, encode_bwd.launches)
+            want_counts = (7 * fwd_launches(layers), 4 * bwd_launches(layers))
+            log(f"[long compare] {tag}: launches (encode_fwd, encode_bwd) {counts}, expected "
+                f"{want_counts} (7 forward and 4 backward calls)")
+            if counts != want_counts:
+                failures.append(("long launches", s, e, dn, b, counts))
+    return worst_f, worst_b, failures
+
+
+def fits_grid(torch) -> None:
+    """Phase 7e (a): the C predicate (sasrec_encoder_fits, the kernels'
+    in_envelope) against the Python one (sasrec_encoder.fits) on every
+    point of FITS_S x FITS_E x FITS_H x L in (1, 2)."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import fits, fwd_lib
+
+    lib = fwd_lib()
+    points, inside, apart = 0, 0, []
+    for s in FITS_S:
+        for e in FITS_E:
+            for h in FITS_H:
+                for layers in (1, 2):
+                    c, py = bool(lib.sasrec_encoder_fits(s, e, h, layers)), fits(s, e, h, layers)
+                    points += 1
+                    inside += py
+                    if c != py:
+                        apart.append((s, e, h, layers, c, py))
+    largest = {d: max((s for s in FITS_S if fits(s, 2 * d, 2, 1)), default=0)
+               for d in (32, 64, 128, 256)}
+    log(f"[long fits] sasrec_encoder_fits (C) vs sasrec_encoder.fits (Python) on {points} "
+        f"points (S 1..200 x E {FITS_E} x H {FITS_H} x L 1, 2): {inside} inside, "
+        f"{len(apart)} apart {apart[:5]}; the largest S each head width D takes: {largest}")
+    if apart or not inside:
+        raise SystemExit(f"the C and Python encoder predicates disagree: {apart[:10]}")
+
+
+def long_history_phase(torch, root, card, counted) -> dict:
+    """Phase 7e (b): sasrec_fibinet at max_len 50, full width (E=128, tower
+    (512, 256), bf16) on phase 6's cut made at max_len 50, through the
+    train-and-serve checks (exact launches of the four training kernels,
+    loss falling, best valid AUC > 0.6, the export through evaluate);
+    then the export through Predictor.score_table on the fused
+    scoring kernel: its AUC within AUC_SERVE_TOL of evaluate's and its first
+    OUTSIDE_CPU_ROWS probabilities within CPU_TOL of the same Predictor on the
+    CPU. Returns the launches of each counted wrapper in the fit and the
+    serve."""
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.data import TableData, synthetic_splits
+    from ctr_recommendation_tpu_torch.inference import Predictor
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import bwd_launches as ibwd_n
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import fwd_launches as ifwd_n
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        bwd_launches,
+        encode_bwd,
+        encode_fwd,
+        fwd_launches,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+    from ctr_recommendation_tpu_torch.tools import jax_bridge
+    from ctr_recommendation_tpu_torch.training.checkpoint import CheckpointManager
+    from ctr_recommendation_tpu_torch.training.metrics import auc
+
+    t0 = time.perf_counter()
+    train, valid, store = synthetic_splits(N_TRAIN, N_VALID, seed=0, max_len=LONG_S)
+    log(f"[long] synthetic data at max_len {LONG_S}: {N_TRAIN} train + {N_VALID} valid rows "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    ckpt = os.path.join(root, "ckpt_sasrec_50")
+    exp = microlens_experiment(data_root="", model="sasrec_fibinet", epochs=TRAIN_EPOCHS,
+                               max_len=LONG_S, checkpoint_dir=ckpt)
+    m = exp.model
+    if (m.embedding_dim, m.hidden_units, m.attn_num_layers, exp.train.compute_dtype) != (
+            ENC_E, HIDDEN, 1, "bfloat16"):
+        raise SystemExit(f"sasrec_fibinet's defaults moved: {m}")
+    ef, eb, fi, bi = fwd_launches(1), bwd_launches(1), ifwd_n(), ibwd_n()
+    res = train_and_serve(
+        torch, exp, train, valid, store, root, card, counted,
+        per_step={interaction_fwd: fi, interaction_bwd: bi, encode_fwd: ef, encode_bwd: eb},
+        per_eval={interaction_fwd: fi, encode_fwd: ef},
+        per_serve={score_fwd: score_launches(), encode_fwd: ef}, tag=f"sasrec_fibinet_len{LONG_S}")
+    server = res["server"]
+    for fn in counted:
+        fn.launches = 0
+    probs = server.score_table(valid, B_FULL)
+    torch.cuda.synchronize()
+    n_batches = -(-N_VALID // B_FULL)
+    served = {fn: fn.launches for fn in counted}
+    want = {fn: 0 for fn in counted}
+    want.update({score_fwd: n_batches * score_launches(), encode_fwd: n_batches * ef})
+    table_auc = auc(torch.from_numpy(valid.columns["label"]), torch.from_numpy(probs)).item()
+    params, state = jax_bridge.params_from_jax(
+        *jax_bridge.load(CheckpointManager(ckpt).best_export_path), server.fm, exp.model)
+    head = TableData({k: v[:OUTSIDE_CPU_ROWS] for k, v in valid.columns.items()},
+                     OUTSIDE_CPU_ROWS)
+    cpu = Predictor(exp, params, state, item_store=store, device="cpu").score_table(
+        head, OUTSIDE_CPU_ROWS)
+    cpu_err = float(np.abs(cpu - probs[:OUTSIDE_CPU_ROWS]).max())
+    names = lambda d: {fn.__name__: n for fn, n in d.items()}  # noqa: E731
+    ok = (served == want and abs(table_auc - res["served_auc"]) <= AUC_SERVE_TOL
+          and cpu_err <= CPU_TOL and server.use_fused and probs.shape == (N_VALID,))
+    log(f"[long serve] sasrec_fibinet max_len {LONG_S}: score_table on the valid split's "
+        f"{N_VALID} rows, AUC {table_auc:.7f} vs evaluate's {res['served_auc']:.7f} (tolerance "
+        f"{AUC_SERVE_TOL}); launches {names(served)} (expected {names(want)}); the first "
+        f"{OUTSIDE_CPU_ROWS} rows vs the CPU Predictor max_abs_err={cpu_err:.3e} (tolerance "
+        f"{CPU_TOL}) on {card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"sasrec_fibinet at max_len {LONG_S}: the served export failed")
+    return {fn: res["launches"][fn] + served[fn] for fn in counted}
+
+
+def outside_case(torch, tag: str, exp, train, valid, store, card, counted,
+                 launches: dict) -> None:
+    """Phase 7e (c), one model at a shape its kernels take zero-padded:
+    OUTSIDE_STEPS train steps on one batch (loss finite), one eval forward
+    (Trainer.predict) of B_FULL rows, and a serve of 2 x B_FULL rows
+    (Predictor.score_table) of the trained weights. ``launches`` maps
+    "step", "eval" and "serve" to each counted wrapper's launches a step,
+    an eval forward and a serving batch; the run must show exactly those.
+    The served probabilities' first OUTSIDE_CPU_ROWS within CPU_TOL of the
+    same Predictor on the CPU."""
+    from ctr_recommendation_tpu_torch.data import TableData
+    from ctr_recommendation_tpu_torch.inference import Predictor
+    from ctr_recommendation_tpu_torch.training import Trainer
+    from ctr_recommendation_tpu_torch.utils.tree import tree_map
+
+    tr = Trainer(exp, steps_per_epoch=OUTSIDE_STEPS, item_store=store, log_fn=lambda s: None)
+    bs = exp.train.batch_size
+    batch = {k: torch.as_tensor(v[:bs]).cuda() for k, v in train.columns.items()}
+    rows = {k: v[:2 * B_FULL] for k, v in valid.columns.items()}
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    losses = [tr.train_step(batch).item() for _ in range(OUTSIDE_STEPS)]
+    evaluated = tr.predict([{k: v[:B_FULL] for k, v in rows.items()}])
+    params = tree_map(lambda t: t.detach().cpu(), tr.state.params)
+    state = tree_map(lambda t: t.detach().cpu(), tr.state.model_state)
+    pred = Predictor(exp, params, state, item_store=store)
+    served = pred.score_table(TableData(rows, 2 * B_FULL), B_FULL)
+    torch.cuda.synchronize()
+    calls = {"step": OUTSIDE_STEPS, "eval": 1, "serve": 2}
+    got_l = {fn.__name__: fn.launches for fn in counted}
+    want_l = {fn.__name__: sum(calls[k] * launches[k].get(fn, 0) for k in calls)
+              for fn in counted}
+    head = TableData({k: v[:OUTSIDE_CPU_ROWS] for k, v in rows.items()}, OUTSIDE_CPU_ROWS)
+    cpu = Predictor(exp, params, state, item_store=store, device="cpu").score_table(
+        head, OUTSIDE_CPU_ROWS)
+    cpu_err = float(np.abs(cpu - served[:OUTSIDE_CPU_ROWS]).max())
+    sane = (np.isfinite(losses).all() and evaluated.shape == (B_FULL,)
+            and np.isfinite(evaluated).all() and served.shape == (2 * B_FULL,)
+            and bool(((served > 0) & (served < 1)).all()))
+    ok = got_l == want_l and cpu_err <= CPU_TOL and sane and pred.use_fused
+    log(f"[padded {tag}] {OUTSIDE_STEPS} steps (losses {[round(v, 5) for v in losses]}), an "
+        f"eval forward of {B_FULL} rows, {2 * B_FULL} rows served (fused scoring "
+        f"{pred.use_fused}): launches {got_l} (expected {want_l}); the first "
+        f"{OUTSIDE_CPU_ROWS} served rows vs the CPU Predictor max_abs_err={cpu_err:.3e} "
+        f"(tolerance {CPU_TOL}) on {card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase 7e (c) {tag} failed")
+
+
+def refused_case(torch, tag: str, exp, train, valid, store, card, counted) -> None:
+    """Phase 7e (c): a history past the encoder kernels' shared memory. A
+    train step, an eval forward and a serve on the card each raise
+    ValueError naming the kernels' envelope, before any counted kernel
+    launches (the kernel path does not hand the call to plain PyTorch)."""
+    from ctr_recommendation_tpu_torch.data import TableData
+    from ctr_recommendation_tpu_torch.inference import Predictor
+    from ctr_recommendation_tpu_torch.training import Trainer
+    from ctr_recommendation_tpu_torch.utils.tree import tree_map
+
+    tr = Trainer(exp, steps_per_epoch=OUTSIDE_STEPS, item_store=store, log_fn=lambda s: None)
+    bs = exp.train.batch_size
+    batch = {k: torch.as_tensor(v[:bs]).cuda() for k, v in train.columns.items()}
+    rows = {k: v[:B_FULL] for k, v in valid.columns.items()}
+    params = tree_map(lambda t: t.detach().cpu(), tr.state.params)
+    state = tree_map(lambda t: t.detach().cpu(), tr.state.model_state)
+    pred = Predictor(exp, params, state, item_store=store)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    refusals = {}
+    for name, call in (("step", lambda: tr.train_step(batch)),
+                       ("eval", lambda: tr.predict([rows])),
+                       ("serve", lambda: pred.score_table(TableData(rows, B_FULL), B_FULL))):
+        try:
+            call()
+            refusals[name] = None
+        except ValueError as err:
+            refusals[name] = str(err)
+    torch.cuda.synchronize()
+    got_l = {fn.__name__: fn.launches for fn in counted}
+    ok = (not any(got_l.values()) and all(
+        r is not None and "envelope" in r and f"S={OUTSIDE_S}" in r for r in refusals.values()))
+    log(f"[refused {tag}] a train step, an eval forward and a serve on the card: "
+        f"{ {k: (v or 'NOT REFUSED')[:160] for k, v in refusals.items()} }; launches {got_l} "
+        f"(expected none) on {card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase 7e (c) {tag} failed")
+
+
+def outside_phase(torch, train, valid, store, root, card, counted) -> dict:
+    """Phase 7e (c): the shapes the JAX kernels run that lie outside the
+    port's kernels' own, each model otherwise at the full defaults:
+    mm_fibinet at E = OUTSIDE_E (the interaction and scoring kernels at
+    padded_width(E)) and mm_fibinet with an OUTSIDE_TOWER tower (the
+    scoring kernel at each width padded to a multiple of 8), trained,
+    evaluated and served on the kernels; sasrec_fibinet at max_len
+    OUTSIDE_S, past the encoder kernels' shared memory, refused on the card.
+    Returns each counted wrapper's launches over the padded cases."""
+    from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.data import synthetic_splits
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import bwd_launches as ibwd_n
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import fwd_launches as ifwd_n
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+
+    def experiment(tag, **kw):
+        return microlens_experiment(data_root="", checkpoint_dir=os.path.join(root, tag),
+                                    use_pallas=True, **kw)
+
+    fi, bi = ifwd_n(), ibwd_n()
+    total = {fn: 0 for fn in counted}
+    per = {"step": {interaction_fwd: fi, interaction_bwd: bi}, "eval": {interaction_fwd: fi},
+           "serve": {score_fwd: score_launches()}}
+    calls = {"step": OUTSIDE_STEPS, "eval": 1, "serve": 2}
+    for tag, exp in ((f"mm_fibinet E={OUTSIDE_E}", experiment("e10", embedding_dim=OUTSIDE_E)),
+                     (f"mm_fibinet tower {OUTSIDE_TOWER}",
+                      experiment("t100", hidden_units=OUTSIDE_TOWER))):
+        outside_case(torch, tag, exp, train, valid, store, card, counted, per)
+        for fn in counted:
+            total[fn] += sum(calls[k] * per[k].get(fn, 0) for k in calls)
+    t0 = time.perf_counter()
+    long_data = synthetic_splits(B_TRAIN, B_FULL, seed=1, max_len=OUTSIDE_S)
+    log(f"[refused] synthetic data at max_len {OUTSIDE_S}: {B_TRAIN} train + {B_FULL} valid "
+        f"rows made in {time.perf_counter() - t0:.1f} s")
+    refused_case(torch, f"sasrec_fibinet max_len {OUTSIDE_S}",
+                 experiment("s200", model="sasrec_fibinet", max_len=OUTSIDE_S), *long_data,
+                 card, counted)
+    return total
+
+
 # ---- phase 7b: online serving over HTTP (serving/, the fused scoring kernel) ----
 # ragged request sizes: every bucket of DEFAULT_BUCKETS and past its boundary
 SERVE_RAGGED = (1, 15, 17, 63, 255, 1023, 4097)
@@ -4484,9 +5229,12 @@ def main(argv=None) -> int:
         f"submission_available() {native.submission_available()}; CSV native, zip native "
         f"(zlib), not zipfile")
     for name, text in build.ptxas_log.items():
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas {name}] {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.rsplit(" ", 1)[-1]
+            elif "registers" in line or "spill" in line:
+                log(f"[ptxas {name}] {fn} {line.strip()}")
 
     # ---- phase 2: each kernel against its plain version ----
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4657,6 +5405,23 @@ def main(argv=None) -> int:
         item_embeddings_phase(torch, root, card)
         # ---- phase 7d: the entry point's forward, 256 and 8192 rows ----
         entry = entry_phase(torch, card, worst, counted)
+        # ---- phase 7e: the encoder past S=32, E and towers off multiples of 8 ----
+        block_err, long_failures = long_attention_blocks(torch)
+        long_fwd, long_bwd, failures = long_history_against_plain(torch)
+        pad_fwd, pad_bwd, pad_failures = padded_interaction_against_plain(torch)
+        if long_failures or failures or pad_failures:
+            raise SystemExit(f"phase 7e's kernels disagree with their plain versions: "
+                             f"{long_failures + failures + pad_failures}")
+        worst["sasrec_encoder_fwd"] = max(worst["sasrec_encoder_fwd"], long_fwd, block_err)
+        worst["sasrec_encoder_bwd"] = max(worst["sasrec_encoder_bwd"], long_bwd)
+        worst["interaction_fwd"] = max(worst["interaction_fwd"], pad_fwd)
+        worst["interaction_bwd"] = max(worst["interaction_bwd"], pad_bwd)
+        fits_grid(torch)
+        encoder_timing(torch, card, s=LONG_S, on_card=True)
+        encoder_bwd_timing(torch, card, s=LONG_S, on_card=True)
+        long = long_history_phase(torch, root, card, counted)
+        outside = outside_phase(torch, train, valid, train_store, root, card, counted)
+        long = {fn: long[fn] + outside[fn] for fn in counted}  # 7e's launches
         # ---- phase 6h: data-parallel training, two ranks sharing the card ----
         data_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
         # ---- phase 6i: row-sharded tables, 1 x 2 and 2 x 2 ranks sharing the card ----
@@ -4713,10 +5478,12 @@ def main(argv=None) -> int:
         # ---- phase 6g: the model zoo, no kernel on its path ----
         zoo(torch, train, valid, train_store, root, card, counted, rows, dense=mm)
     # the training main path's launches: phase 6's fit and phase 7c's profiled
-    # epochs; and phase 7d's entry forwards
-    train_fwd = mm["launches"][interaction_fwd] + profiled[interaction_fwd] + entry
-    train_bwd = mm["launches"][interaction_bwd] + profiled[interaction_bwd]
-    enc_bwd_launches = sasrec["launches"][encode_bwd]
+    # epochs; phase 7d's entry forwards; and phase 7e's fit, serve and cases
+    train_fwd = (mm["launches"][interaction_fwd] + profiled[interaction_fwd] + entry
+                 + long[interaction_fwd])
+    train_bwd = mm["launches"][interaction_bwd] + profiled[interaction_bwd] + long[interaction_bwd]
+    enc_fwd_launches = enc_launches + long[encode_fwd]
+    enc_bwd_launches = sasrec["launches"][encode_bwd] + long[encode_bwd]
 
     # ---- phase 8: result ----
     kernels = [
@@ -4733,12 +5500,13 @@ def main(argv=None) -> int:
         {"name": "fused_score", "route": "cuda",
          "source": "ctr_recommendation_tpu_torch/csrc/scoring.cu",
          "replaces": "ctr_recommendation_tpu/ops/pallas/scoring.py:36",
-         "launches": pipe_launches + imported, "max_abs_err": worst["fused_score"],
+         "launches": pipe_launches + imported + long[score_fwd],
+         "max_abs_err": worst["fused_score"],
          **timing[("fused_score", "all")], "library_ms": None},
         {"name": "sasrec_encoder_fwd", "route": "cuda",
          "source": "ctr_recommendation_tpu_torch/csrc/sasrec_encoder.cu",
          "replaces": "ctr_recommendation_tpu/ops/pallas/sasrec_encoder.py:220",
-         "launches": enc_launches, "max_abs_err": worst["sasrec_encoder_fwd"],
+         "launches": enc_fwd_launches, "max_abs_err": worst["sasrec_encoder_fwd"],
          **timing[("sasrec_encoder_fwd", "all")]},
         {"name": "sasrec_encoder_bwd", "route": "cuda",
          "source": "ctr_recommendation_tpu_torch/csrc/sasrec_encoder_bwd.cu",

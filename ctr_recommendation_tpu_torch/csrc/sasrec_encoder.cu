@@ -118,6 +118,15 @@ int product_nn(int epi, const T* A, const T* B, int M, int N, int K, const float
 
 using ctr::enc::Dropout;
 
+// Whether both entry points take (S, E, H, L): 1 <= S <= 128, E % 32 == 0,
+// E >= 32, E % H == 0, E / H a multiple of 4 up to 256, L >= 1, and the
+// attention's staged heads within a block's shared memory both ways
+// (attn_fwd_smem, attn_bwd_smem). ops/cuda/sasrec_encoder.py::fits is the
+// same function of the same shapes.
+extern "C" int sasrec_encoder_fits(int S, int E, int H, int L) {
+  return ctr::enc::in_envelope(1, S, E, H, L) ? 1 : 0;
+}
+
 // Bytes of workspace sasrec_encode_fwd needs at (B, S, E).
 extern "C" size_t sasrec_encode_fwd_workspace(int B, int S, int E, int is_bf16) {
   ctr::enc::Carve cv{nullptr};
@@ -137,9 +146,9 @@ extern "C" size_t sasrec_encode_fwd_workspace(int B, int S, int E, int is_bf16) 
 // is 1/sqrt(E/H). Dropout on the two residual branches when rate > 0: seed
 // is then a device pointer to one int64, inv_keep fp32(1 / (1 - rate)) and
 // token0 the global token of row 0 (Dropout).
-// workspace holds sasrec_encode_fwd_workspace bytes. Requires 1 <= S <= 32,
-// E % 32 == 0, E >= 32, E % H == 0, E / H <= 256, L >= 1, 0 <= rate < 1 and
-// 16-byte aligned pointers. Enqueues 1 + 7 L launches on `stream`; returns
+// workspace holds sasrec_encode_fwd_workspace bytes. Requires
+// sasrec_encoder_fits(S, E, H, L), B >= 1, 0 <= rate < 1 and 16-byte aligned
+// pointers. Enqueues 1 + 7 L launches on `stream`; returns
 // the first cudaError_t that is not 0.
 extern "C" int sasrec_encode_fwd(const void* x, const float* amask, const void* qkv_w,
                                  const float* qkv_b, const void* proj_w, const float* proj_b,

@@ -20,7 +20,8 @@
 namespace ctr {
 namespace enc {
 
-constexpr int kMaxS = 32;   // attention keeps one key per lane
+constexpr int kMaxS = 128;  // attention: up to 4 keys a lane
+constexpr size_t kMaxSmem = 232448;  // shared memory a block may opt into (H100)
 constexpr int kMaxD = 256;  // head width the attention kernels stage
 constexpr float kEps = 1e-6f;
 constexpr int kRowsPerBlock = 8;  // LayerNorm: one warp a row
@@ -265,19 +266,26 @@ __global__ void layer_norm_bwd(const float* __restrict__ dn, const float* __rest
   }
 }
 
-// ---- attention: one block per (history, head), S <= 32, D % 4 == 0, D <= kMaxD ----
+// ---- attention: one block per (history, head), S <= kMaxS, D % 4 == 0, D <= kMaxD ----
 // A warp takes kQB queries (the forward, pass 1 of the backward) or kQB keys
 // (pass 2) at once, so that each row it reads from shared memory serves kQB
 // sums; rows are read 16 bytes a lane (lanes over keys) or 8 (lanes over a
-// head's columns). Every sum runs over its index in order. The block has a
-// warp for each kQB queries: 160 threads at S=20.
+// head's columns). Lanes over keys hold KC = ceil(S / 32) keys each (key
+// j in lane j % 32, chunk j / 32; KC a template argument, 1, 2 or 4, so the
+// chunks are unrolled and no register array is indexed at run time). The
+// block's warps (at most 8: 256 threads) loop over the query groups (pass
+// 2: the key groups). Every sum runs over its index in order. q, k, v (the
+// backward also g, P and dlog) are staged whole in shared memory, which
+// bounds S with D (attn_fwd_smem, attn_bwd_smem against kMaxSmem).
 
 constexpr int kQB = 4;
+constexpr int kMaxWarps = 8;
 
 // Row stride of a staged (S, D) head: 16-byte rows with ld/4 odd, so the
 // 16-byte reads of 8 lanes on 8 rows hit distinct banks.
 __host__ __device__ inline int attn_ld(int D) { return ((D / 4) | 1) * 4; }
-inline int attn_threads(int S) { return 32 * ((S + kQB - 1) / kQB); }
+inline int attn_threads(int S) { return 32 * std::min(kMaxWarps, (S + kQB - 1) / kQB); }
+inline int attn_chunks(int S) { return S <= 32 ? 1 : S <= 64 ? 2 : 4; }
 
 // Rows t0..t0+S-1, columns c0..c0+D-1 of the row-major (N, ldg) fp32 src
 // into dst (S, ld), 16 bytes a copy.
@@ -308,10 +316,95 @@ __device__ __forceinline__ void dots(float acc[kQB], const float* rows, int i0, 
   }
 }
 
+// acc[c][qi] = rows[i0 + qi] . keys[c * 32 + lane] for the lane's keys below
+// S (0 elsewhere).
+template <int KC>
+__device__ __forceinline__ void key_dots(float (&acc)[KC][kQB], const float* rows, int i0,
+                                         int S, const float* keys, int D, int ld, int lane) {
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+#pragma unroll
+    for (int qi = 0; qi < kQB; ++qi) acc[c][qi] = 0.f;
+    if (c * 32 + lane < S) dots(acc[c], rows, i0, S, keys + (c * 32 + lane) * ld, D, ld);
+  }
+}
+
+// o[qi] += sum over j < S, in order, of a[j / 32][qi] (held by lane j % 32)
+// times rows[j] at the lane's column pair d (0 past D).
+template <int KC>
+__device__ __forceinline__ void lane_weighted_rows(float (&o)[kQB][2], const float (&a)[KC][kQB],
+                                                   const float* rows, int S, int d, int D,
+                                                   int ld) {
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    const int n = min(32, S - c * 32);
+    for (int jj = 0; jj < n; ++jj) {
+      const int j = c * 32 + jj;
+      const float2 r = d < D ? *reinterpret_cast<const float2*>(rows + j * ld + d) : float2{};
+#pragma unroll
+      for (int qi = 0; qi < kQB; ++qi) {
+        const float aj = __shfl_sync(0xffffffffu, a[c][qi], jj);
+        o[qi][0] = fmaf(aj, r.x, o[qi][0]);
+        o[qi][1] = fmaf(aj, r.y, o[qi][1]);
+      }
+    }
+  }
+}
+
+// One warp's query group i0..i0+kQB-1 of the attention forward: the logits
+// with lanes over keys, the softmax, then ao = cd(p v) with lanes over
+// column pairs (and P when given).
+template <typename T, int KC>
+__device__ __forceinline__ void attn_fwd_group(const float* q, const float* k, const float* v,
+                                               const float* mask, T* __restrict__ ao,
+                                               float* __restrict__ P, size_t prow, size_t t0,
+                                               int i0, int S, int E, int D, int ld, int c0,
+                                               float scale, int lane) {
+  float p[KC][kQB];
+  key_dots<KC>(p, q, i0, S, k, D, ld, lane);
+#pragma unroll
+  for (int qi = 0; qi < kQB; ++qi) {
+    // keys past S: below any real logit
+    float logit[KC], m = -3.0e38f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      const int j = c * 32 + lane;
+      logit[c] = j < S ? p[c][qi] * scale + mask[j] : -3.0e38f;
+      m = fmaxf(m, logit[c]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      logit[c] = c * 32 + lane < S ? expf(logit[c] - m) : 0.f;
+      sum += logit[c];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      const int j = c * 32 + lane;
+      p[c][qi] = logit[c] / sum;
+      if (P && j < S && i0 + qi < S) P[(prow + i0 + qi) * S + j] = p[c][qi];
+    }
+  }
+  for (int d0 = 0; d0 < D; d0 += 64) {
+    const int d = d0 + 2 * lane;
+    float o[kQB][2] = {};
+    lane_weighted_rows<KC>(o, p, v, S, d, D, ld);
+#pragma unroll
+    for (int qi = 0; qi < kQB; ++qi)
+      if (d < D && i0 + qi < S) store2(ao + (t0 + i0 + qi) * E + c0 + d, o[qi][0], o[qi][1]);
+  }
+}
+
 // ao = cd(softmax(q k^T * scale + mask) v), fp32, from qkv (N, 3E); lanes
 // over keys for the logits, over column pairs for the output. P (B, H, S,
-// S) keeps the softmax when given.
-template <typename T>
+// S) keeps the softmax when given. At KC = 1 (S <= 32) each warp has one
+// query group (attn_threads) and lanes one key, on a path of its own; past
+// it the warps loop over the groups.
+template <typename T, int KC>
 __global__ void __launch_bounds__(256)
 attention_fwd(const float* __restrict__ qkv, const float* __restrict__ amask, T* __restrict__ ao,
               float* __restrict__ P, int S, int E, int H, float scale) {
@@ -327,7 +420,18 @@ attention_fwd(const float* __restrict__ qkv, const float* __restrict__ amask, T*
   stage_heads(qkv, 3 * E, t0, 2 * E + hh * D, S, D, ld, v);
   for (int s = threadIdx.x; s < S; s += blockDim.x) mask[s] = amask[t0 + s];
   __syncthreads();
-  const int lane = threadIdx.x & 31, i0 = (threadIdx.x >> 5) * kQB;
+  const int lane = threadIdx.x & 31, first = (threadIdx.x >> 5) * kQB;
+  if constexpr (KC > 1) {
+    const size_t prow = (static_cast<size_t>(b) * H + hh) * S;
+    for (int i0 = first; i0 < S; i0 += (blockDim.x >> 5) * kQB)
+      attn_fwd_group<T, KC>(q, k, v, mask, ao, P, prow, t0, i0, S, E, D, ld, hh * D, scale,
+                            lane);
+    return;
+  }
+  // S <= 32: one key a lane and one query group a warp, with no chunk or
+  // group loop; the chunked path instantiated here takes more registers,
+  // so fewer blocks an SM, and runs S = 20 slower
+  const int i0 = first;
   float p[kQB] = {};
   if (lane < S) dots(p, q, i0, S, k + lane * ld, D, ld);
 #pragma unroll
@@ -368,7 +472,7 @@ attention_fwd(const float* __restrict__ qkv, const float* __restrict__ amask, T*
 // dq = dlog k, dk = dlog^T q, dv = p^T dao, into dqkv (N, 3E) fp32 and
 // rounded to T (dqkv_c). Pass 1: a warp's queries, lanes over keys, then
 // over column pairs; pass 2: a warp's keys, lanes over column pairs.
-template <typename T>
+template <typename T, int KC>
 __global__ void __launch_bounds__(256)
 attention_bwd(const float* __restrict__ qkv, const float* __restrict__ P,
               const float* __restrict__ dao, float* __restrict__ dqkv, T* __restrict__ dqkv_c,
@@ -390,11 +494,78 @@ attention_bwd(const float* __restrict__ qkv, const float* __restrict__ P,
   stage_heads(dao, E, t0, hh * D, S, D, ld, g);
   for (int i = threadIdx.x; i < S * S; i += blockDim.x) ps[(i / S) * ls + i % S] = pb[i];
   __syncthreads();
-  const int lane = threadIdx.x & 31, i0 = (threadIdx.x >> 5) * kQB;
+  const int lane = threadIdx.x & 31, first = (threadIdx.x >> 5) * kQB;
   auto put = [&](size_t i, float a, float c) {
     store2(dqkv + i, a, c);
     store2(dqkv_c + i, a, c);
   };
+  if constexpr (KC > 1) {
+    const int step = (blockDim.x >> 5) * kQB;
+    auto queries = [&](int i0) {  // pass 1: a warp's query group
+      float dlog[KC][kQB];
+      key_dots<KC>(dlog, g, i0, S, v, D, ld, lane);  // dp
+#pragma unroll
+      for (int qi = 0; qi < kQB; ++qi) {
+        const int i = min(i0 + qi, S - 1);
+        float p[KC], s = 0.f;
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          const int j = c * 32 + lane;
+          p[c] = j < S ? ps[i * ls + j] : 0.f;
+          s += dlog[c][qi] * p[c];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          const int j = c * 32 + lane;
+          dlog[c][qi] = j < S ? p[c] * (dlog[c][qi] - s) * scale : 0.f;
+          if (j < S && i0 + qi < S) dl[i * ls + j] = dlog[c][qi];
+        }
+      }
+      for (int d0 = 0; d0 < D; d0 += 64) {  // dq_i = sum_j dlog_ij k_j
+        const int d = d0 + 2 * lane;
+        float o[kQB][2] = {};
+        lane_weighted_rows<KC>(o, dlog, k, S, d, D, ld);
+#pragma unroll
+        for (int qi = 0; qi < kQB; ++qi)
+          if (d < D && i0 + qi < S) put((t0 + i0 + qi) * 3 * E + hh * D + d, o[qi][0], o[qi][1]);
+      }
+    };
+    for (int i0 = first; i0 < S; i0 += step) queries(i0);
+    __syncthreads();
+    auto keys = [&](int j0) {  // pass 2: a warp's key group
+      for (int d0 = 0; d0 < D; d0 += 64) {  // dk_j = sum_i dlog_ij q_i, dv_j = sum_i p_ij g_i
+        const int d = d0 + 2 * lane;
+        float dk[kQB][2] = {}, dv[kQB][2] = {};
+        for (int i = 0; i < S; ++i) {
+          const float2 qq = d < D ? *reinterpret_cast<const float2*>(q + i * ld + d) : float2{};
+          const float2 gg = d < D ? *reinterpret_cast<const float2*>(g + i * ld + d) : float2{};
+#pragma unroll
+          for (int kj = 0; kj < kQB; ++kj) {
+            const int j = min(j0 + kj, S - 1);
+            const float a = dl[i * ls + j], pij = ps[i * ls + j];
+            dk[kj][0] = fmaf(a, qq.x, dk[kj][0]);
+            dk[kj][1] = fmaf(a, qq.y, dk[kj][1]);
+            dv[kj][0] = fmaf(pij, gg.x, dv[kj][0]);
+            dv[kj][1] = fmaf(pij, gg.y, dv[kj][1]);
+          }
+        }
+#pragma unroll
+        for (int kj = 0; kj < kQB; ++kj)
+          if (d < D && j0 + kj < S) {
+            const size_t o = (t0 + j0 + kj) * 3 * E + hh * D + d;
+            put(o + E, dk[kj][0], dk[kj][1]);
+            put(o + 2 * E, dv[kj][0], dv[kj][1]);
+          }
+      }
+    };
+    for (int j0 = first; j0 < S; j0 += step) keys(j0);
+    return;
+  }
+  // S <= 32: one key a lane and one query (pass 2: key) group a warp, with
+  // no chunk or group loop, as the forward
+  const int i0 = first;
   float dlog[kQB] = {};
   if (lane < S) dots(dlog, g, i0, S, v + lane * ld, D, ld);  // dp
 #pragma unroll
@@ -626,29 +797,49 @@ int launch_ln_bwd(const float* dn, const float* xhat, const float* rstd, const f
   return check_launch();
 }
 
-template <typename T>
-int launch_attn_fwd(const float* qkv, const float* amask, T* ao, float* P, int B, int S, int E,
-                    int H, float scale, cudaStream_t s) {
+template <typename T, int KC>
+int launch_attn_fwd_kc(const float* qkv, const float* amask, T* ao, float* P, int B, int S, int E,
+                       int H, float scale, cudaStream_t s) {
   const size_t smem = attn_fwd_smem(S, E / H);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd<T>,
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd<T, KC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_fwd<T><<<B * H, attn_threads(S), smem, s>>>(qkv, amask, ao, P, S, E, H, scale);
+  attention_fwd<T, KC><<<B * H, attn_threads(S), smem, s>>>(qkv, amask, ao, P, S, E, H, scale);
+  return check_launch();
+}
+
+template <typename T>
+int launch_attn_fwd(const float* qkv, const float* amask, T* ao, float* P, int B, int S, int E,
+                    int H, float scale, cudaStream_t s) {
+  switch (attn_chunks(S)) {
+    case 1: return launch_attn_fwd_kc<T, 1>(qkv, amask, ao, P, B, S, E, H, scale, s);
+    case 2: return launch_attn_fwd_kc<T, 2>(qkv, amask, ao, P, B, S, E, H, scale, s);
+    default: return launch_attn_fwd_kc<T, 4>(qkv, amask, ao, P, B, S, E, H, scale, s);
+  }
+}
+
+template <typename T, int KC>
+int launch_attn_bwd_kc(const float* qkv, const float* P, const float* dao, float* dqkv,
+                       T* dqkv_c, int B, int S, int E, int H, float scale, cudaStream_t s) {
+  const size_t smem = attn_bwd_smem(S, E / H);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd<T, KC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd<T, KC><<<B * H, attn_threads(S), smem, s>>>(qkv, P, dao, dqkv, dqkv_c, S, E, H,
+                                                            scale);
   return check_launch();
 }
 
 template <typename T>
 int launch_attn_bwd(const float* qkv, const float* P, const float* dao, float* dqkv, T* dqkv_c,
                     int B, int S, int E, int H, float scale, cudaStream_t s) {
-  const size_t smem = attn_bwd_smem(S, E / H);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd<T><<<B * H, attn_threads(S), smem, s>>>(qkv, P, dao, dqkv, dqkv_c, S, E, H,
-                                                        scale);
-  return check_launch();
+  switch (attn_chunks(S)) {
+    case 1: return launch_attn_bwd_kc<T, 1>(qkv, P, dao, dqkv, dqkv_c, B, S, E, H, scale, s);
+    case 2: return launch_attn_bwd_kc<T, 2>(qkv, P, dao, dqkv, dqkv_c, B, S, E, H, scale, s);
+    default: return launch_attn_bwd_kc<T, 4>(qkv, P, dao, dqkv, dqkv_c, B, S, E, H, scale, s);
+  }
 }
 
 template <typename T, int MODE>
@@ -665,10 +856,13 @@ inline int launch_reduce(const float* part, const GradLayout& lay, float* out, c
   return check_launch();
 }
 
-// The envelope both entry points hold (see ops/cuda/sasrec_encoder.py).
+// The envelope both entry points hold, forward and backward alike (see
+// ops/cuda/sasrec_encoder.py::fits): the attention's staged heads in shared
+// memory both ways.
 inline bool in_envelope(int B, int S, int E, int H, int L) {
   return B >= 1 && S >= 1 && S <= kMaxS && E >= 32 && E % 32 == 0 && H >= 1 && E % H == 0 &&
-         (E / H) % 4 == 0 && E / H <= kMaxD && L >= 1;
+         (E / H) % 4 == 0 && E / H <= kMaxD && L >= 1 && attn_fwd_smem(S, E / H) <= kMaxSmem &&
+         attn_bwd_smem(S, E / H) <= kMaxSmem;
 }
 
 inline bool dropout_ok(const int64_t* seed, float rate) {

@@ -23,6 +23,11 @@ class DeviceItemStore:
     def from_host(cls, store: ItemStore, device: torch.device) -> "DeviceItemStore":
         return cls(torch.as_tensor(store.emb, dtype=torch.float32).to(device))
 
+    @property
+    def dim(self) -> int:
+        """Width of an item's dense vector."""
+        return self.emb.shape[1]
+
     def lookup(self, ids: torch.Tensor) -> torch.Tensor:
         """Gather with zero rows for negative or out-of-range ids."""
         v = self.emb.shape[0]

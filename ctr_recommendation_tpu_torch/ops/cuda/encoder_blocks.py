@@ -9,7 +9,9 @@ tensor is (N, width) row-major over the N = B*S tokens of a batch.
   stored), "tn" A^T G over chunks of tokens (a weight gradient's partials);
 - ``layer_norm`` and ``layer_norm_bwd``: fp32, eps 1e-6, a warp a row;
 - ``attention_fwd`` and ``attention_bwd``: fp32, a block per (history,
-  head), S <= 32, D <= 256;
+  head), S <= 128 (up to four keys a lane), D <= 256, the head's rows
+  staged in shared memory (``attn_fwd_smem`` / ``attn_bwd_smem`` bytes,
+  within ``MAX_SMEM``);
 - ``column_sums``: bias gradients, LayerNorm's dscale and dbias and the
   dropout gate on dh, over the same token chunks; ``reduce_partials``: the
   fixed-order sum of a chunked partial.
@@ -44,8 +46,25 @@ from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
 )
 
 LN_EPS = 1e-6
-MAX_S = 32
+MAX_S = 128  # csrc/sasrec_encoder.cuh kMaxS: KC = ceil(S / 32) <= 4 keys a lane
 MAX_D = 256
+MAX_SMEM = 232_448  # shared memory an H100 block may opt into (kMaxSmem)
+
+
+def attn_ld(d: int) -> int:
+    """Row stride (floats) of a head staged in shared memory: d rounded to
+    16-byte rows with ld / 4 odd (csrc/sasrec_encoder.cuh ``attn_ld``)."""
+    return ((d // 4) | 1) * 4
+
+
+def attn_fwd_smem(s: int, d: int) -> int:
+    """Shared-memory bytes of the attention forward: q, k, v and the mask."""
+    return (3 * s * attn_ld(d) + s) * 4
+
+
+def attn_bwd_smem(s: int, d: int) -> int:
+    """Shared-memory bytes of the attention backward: q, k, v, g, P and dlog."""
+    return (4 * s * attn_ld(d) + 2 * s * (s + 1)) * 4
 
 # Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3")
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -256,6 +275,7 @@ def fwd_lib():
             [_I] + [_VP] * 2 + [_I] * 3 + [_VP] * 4 + [_F] * 2 + [_U] + [_I] * 3 + [_VP])
         lib.sasrec_layer_norm.argtypes = [_VP, _I, _I] + [_VP] * 5 + [_I, _VP]
         lib.sasrec_attention_fwd.argtypes = [_VP] * 4 + [_I] * 4 + [_F, _I, _VP]
+        lib.sasrec_encoder_fits.argtypes = [_I] * 4
         _FWD = lib
     return _FWD
 

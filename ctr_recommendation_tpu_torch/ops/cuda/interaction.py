@@ -61,6 +61,13 @@ Envelope, both ways: F >= 2, E % 8 == 0, any B (``ENVELOPE``,
 gate backward hold a row's fields in registers for F <= 8 and recompute or
 sum in their outputs beyond.
 
+``fused_senet_bilinear_concat``, the entry point, takes any E: it zero-pads
+E to ``padded_width(E)`` (a multiple of 8) before the kernels and drops the
+padded columns after. Zero columns add nothing to any product, the gate or
+the pairs, and the squeeze, a mean over E, is kept by scaling the SENet's
+W1 by Ep / E (autograd carries the factor into dW1); so the padded call
+computes the same function, up to the fp32 rounding of that product.
+
 Outside an envelope the wrappers raise ``ValueError`` naming it. On a CUDA
 tensor each wrapper launches its kernels (or raises), on a CPU tensor it
 runs its plain PyTorch version with the same rounding points. The
@@ -109,6 +116,24 @@ def interaction_fwd_plain(x, w1, b1, w2, b2, w_bi, *, bilinear_type="all"):
 
 
 ENVELOPE = "F >= 2 and E % 8 == 0 (any B)"
+
+
+def fits(f: int, e: int) -> bool:
+    """Whether the forward and backward kernels take F fields of width E
+    (``ENVELOPE``): a pure function of the shapes."""
+    return f >= 2 and e >= 8 and e % 8 == 0
+
+
+def padded_width(e: int) -> int:
+    """E (or a tower width) rounded up to the kernels' multiple of 8."""
+    return max(8, -(-e // 8) * 8)
+
+
+def pad_senet_bilinear(w1, w_bi, e: int, ep: int):
+    """The block's weights for x zero-padded from E to ``ep`` columns: W_bi
+    zero-padded, the SENet's W1 scaled by ep / E so that the kernels'
+    squeeze (a mean over ep) sees the mean over E."""
+    return w1 * (ep / e), torch.nn.functional.pad(w_bi, (0, ep - e, 0, ep - e))
 
 
 def stream_of(t) -> int:
@@ -171,8 +196,8 @@ def fwd_launches() -> int:
 
 
 def check_fwd_envelope(f: int, e: int) -> None:
-    """Raise unless the forward kernels take F fields of width E."""
-    if f < 2 or e < 8 or e % 8:
+    """Raise unless the forward kernels take F fields of width E (``fits``)."""
+    if not fits(f, e):
         raise ValueError(f"interaction_fwd needs {ENVELOPE}; got F={f}, E={e}")
 
 
@@ -377,8 +402,8 @@ def bwd_launches() -> int:
 
 
 def check_bwd_envelope(f: int, e: int) -> None:
-    """Raise unless the backward kernels take F fields of width E."""
-    if f < 2 or e < 8 or e % 8:
+    """Raise unless the backward kernels take F fields of width E (``fits``)."""
+    if not fits(f, e):
         raise ValueError(f"interaction_bwd needs {ENVELOPE}; got F={f}, E={e}")
 
 
@@ -847,9 +872,17 @@ def fused_senet_bilinear_concat(
 ) -> torch.Tensor:
     """The JAX package's entry point of the same name, on the kernels through
     ``FusedInteraction`` (train and eval alike): the compute dtype is x's
-    (bf16 or fp32, else fp32); gradients reach the fp32 parameters."""
+    (bf16 or fp32, else fp32); gradients reach the fp32 parameters. An E
+    that is not a multiple of 8 runs zero-padded (``pad_senet_bilinear``)
+    and the padded columns are dropped from the output."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         x = x.float()
+    b, f, e = x.shape
     w_bi = bilinear_params["w"] if bilinear_type == "all" else bilinear_params["w_each"]
-    w1, b1, w2, b2 = senet_weights(senet_params, x.shape[1])
-    return FusedInteraction.apply(x.contiguous(), w1, b1, w2, b2, w_bi, bilinear_type)
+    w1, b1, w2, b2 = senet_weights(senet_params, f)
+    ep = padded_width(e)
+    if ep != e:
+        x = torch.nn.functional.pad(x, (0, ep - e))
+        w1, w_bi = pad_senet_bilinear(w1, w_bi, e, ep)
+    out = FusedInteraction.apply(x.contiguous(), w1, b1, w2, b2, w_bi, bilinear_type)
+    return out if ep == e else out.reshape(b, -1, ep)[..., :e].reshape(b, -1)

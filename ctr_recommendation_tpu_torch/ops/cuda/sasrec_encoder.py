@@ -37,12 +37,16 @@ Bernoulli statistics, another realization (docs/PARITY.md).
 
 ``encode_fwd`` and ``encode_bwd`` are the wrappers: on a CUDA tensor each
 enqueues its kernels (or raises), on a CPU tensor it runs its plain version.
-Their ``launches`` attributes count kernel launches. The kernels' envelope:
-1 <= S <= 32, E % 32 == 0, E >= 32, E % H == 0, D = E/H a multiple of 4 up
-to 256, L >= 1, bf16 or fp32, 0 <= rate < 1. The kernels keep token-major intermediates in
-a workspace the wrapper allocates, at E=128 in bf16: the forward's 3.5 KB
-a token, the backward's 4.5 KB a token a layer plus 4.8 KB a token and
-~70 MB of weight-gradient partials; all scale with E.
+Their ``launches`` attributes count kernel launches. The kernels' envelope
+(``fits``, one predicate for both directions): 1 <= S <= 128, E % 32 == 0,
+E >= 32, E % H == 0, D = E/H a multiple of 4 up to 256, L >= 1, and the
+attention's staged heads within a block's shared memory both ways (at
+D = 64 up to S = 115, at D = 128 up to S = 83); bf16 or fp32, 0 <= rate
+< 1. The kernels keep token-major intermediates in a workspace the wrapper
+allocates, at E=128 in bf16: the forward's 3.5 KB a token, the backward's
+4.5 KB a token a layer plus 4.8 KB a token and ~70 MB of weight-gradient
+partials; all scale with E (the backward's softmax, B H S^2 floats, with
+S^2).
 """
 
 from __future__ import annotations
@@ -54,6 +58,9 @@ from ctr_recommendation_tpu_torch.ops.cuda import build
 from ctr_recommendation_tpu_torch.ops.cuda.encoder_blocks import (  # noqa: F401 (re-exported)
     MAX_D,
     MAX_S,
+    MAX_SMEM,
+    attn_bwd_smem,
+    attn_fwd_smem,
     attention_bwd_plain,
     attention_fwd_plain,
     bwd_lib,
@@ -217,15 +224,24 @@ def encode_bwd_plain(g, x, amask, *weights, num_heads, seed=None, rate=0.0,
     return (dh.reshape(b, s, e).to(cd), *grads)
 
 
-def check_envelope(s: int, e: int, num_heads: int, layers: int) -> None:
-    """Raise unless the kernels take (S, E, H, L)."""
+def fits(s: int, e: int, num_heads: int, layers: int) -> bool:
+    """Whether the kernels take (S, E, H, L), both ways: a pure function of
+    the shapes, the C ``sasrec_encoder_fits`` (``in_envelope``) in Python."""
     if not (1 <= s <= MAX_S and e % 32 == 0 and e >= 32 and num_heads >= 1
-            and e % num_heads == 0 and (e // num_heads) % 4 == 0 and e // num_heads <= MAX_D
-            and layers >= 1):
+            and e % num_heads == 0 and layers >= 1):
+        return False
+    d = e // num_heads
+    return (d % 4 == 0 and d <= MAX_D and attn_fwd_smem(s, d) <= MAX_SMEM
+            and attn_bwd_smem(s, d) <= MAX_SMEM)
+
+
+def check_envelope(s: int, e: int, num_heads: int, layers: int) -> None:
+    """Raise unless the kernels take (S, E, H, L) (``fits``)."""
+    if not fits(s, e, num_heads, layers):
         raise ValueError(
             f"outside the kernels' envelope (1 <= S <= {MAX_S}, E % 32 == 0, E >= 32, "
-            f"E % H == 0, E/H % 4 == 0, E/H <= {MAX_D}, L >= 1): S={s}, E={e}, H={num_heads}, "
-            f"L={layers}"
+            f"E % H == 0, E/H % 4 == 0, E/H <= {MAX_D}, L >= 1, the attention's shared memory "
+            f"both ways <= {MAX_SMEM} bytes): S={s}, E={e}, H={num_heads}, L={layers}"
         )
 
 

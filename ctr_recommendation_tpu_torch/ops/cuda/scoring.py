@@ -24,10 +24,15 @@ wrapper and plain version, in ``score_launches()`` launches:
 
 ``score_fwd`` enqueues the four in one C call and allocates c, h1, h2 and
 the front's workspace (the kernels allocate nothing). Envelope
-(``ENVELOPE``, ``check_envelope``): F >= 2, E % 8 == 0, any two-layer tower
+(``ENVELOPE``, ``fits``, ``check_envelope``): F >= 2, E % 8 == 0, any two-layer tower
 with H1 % 8 == 0 and H2 % 8 == 0 (read from the weights, as the TPU kernel
 reads them), any B; that holds the recorded towers (512, 256), (1024, 512)
-and (768, 384) at E=128 and 256 in bf16 and fp32.
+and (768, 384) at E=128 and 256 in bf16 and fp32. ``prepare_score_params``
+brings any other E, H1 and H2 into it: it zero-pads E as the interaction's
+entry point does (``pad_senet_bilinear``, W1's rows laid out again for the
+wider concat) and each tower width to a multiple of 8 with zero weights and
+biases, whose units read relu(0) = 0 and feed nothing on; ``score_fwd``
+zero-pads x to the weights' E.
 Left for later: ``wgmma`` with TMA-staged tiles, and the front fused into
 layer 1's operand staging so that c never reaches device memory.
 
@@ -55,9 +60,12 @@ from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
     fwd_pairs_plain,
     fwd_project_plain,
     is_bf16,
+    pad_senet_bilinear,
+    padded_width,
     senet_weights,
     stream_of,
 )
+from ctr_recommendation_tpu_torch.ops.cuda.interaction import fits as inter_fits
 
 ENVELOPE = "F >= 2, E % 8 == 0 and a 2-layer tower with H1 % 8 == 0 and H2 % 8 == 0 (any B)"
 
@@ -68,10 +76,16 @@ def score_launches() -> int:
     return fwd_launches() + 3
 
 
+def fits(f: int, e: int, h1: int, h2: int) -> bool:
+    """Whether the kernels take F fields of width E and the two-layer tower
+    (H1, H2) (``ENVELOPE``): a pure function of the shapes."""
+    return inter_fits(f, e) and h1 >= 8 and h1 % 8 == 0 and h2 >= 8 and h2 % 8 == 0
+
+
 def check_envelope(f: int, e: int, h1: int, h2: int) -> None:
     """Raise unless the kernels take F fields of width E and the tower
-    (H1, H2)."""
-    if f < 2 or e < 8 or e % 8 or h1 < 8 or h1 % 8 or h2 < 8 or h2 % 8:
+    (H1, H2) (``fits``)."""
+    if not fits(f, e, h1, h2):
         raise ValueError(f"fused_score needs {ENVELOPE}; got F={f}, E={e}, tower {(h1, h2)}")
 
 
@@ -135,7 +149,7 @@ def _front_args(x, sw1, sb1, sw2, sb2, w_bi, bilinear_type):
     if bilinear_type not in ("all", "each"):
         raise ValueError(f"bilinear_type must be 'all' or 'each', got {bilinear_type!r}")
     b, f, e = x.shape
-    if f < 2 or e % 8:
+    if not inter_fits(f, e):
         raise ValueError(f"fused_score needs {ENVELOPE}; got F={f}, E={e}")
     r = sw1.shape[1]
     wbi_shape = (e, e) if bilinear_type == "all" else (f - 1, e, e)
@@ -233,7 +247,10 @@ def score_fwd(
     """x (B, F, E) in the tower dtype (bf16/fp32); SENet weights fp32; w_bi,
     w1 (C, H1), w2 (H1, H2), w3 (H2, 1) in x's dtype; b1, b2, b3 fp32 ->
     click probabilities (B,) fp32. On a card: the four blocks, enqueued by
-    one C call (``score_launches()`` launches)."""
+    one C call (``score_launches()`` launches). An x narrower than w_bi
+    (weights padded by ``prepare_score_params``) is zero-padded to it."""
+    if x.shape[-1] < w_bi.shape[-1]:
+        x = torch.nn.functional.pad(x, (0, w_bi.shape[-1] - x.shape[-1]))
     args = (x, sw1, sb1, sw2, sb2, w_bi, w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
         return score_fwd_plain(*args, bilinear_type=bilinear_type)
@@ -282,7 +299,9 @@ def prepare_score_params(
 ) -> tuple:
     """The kernel's weight operands, cast once: SENet and biases fp32, the
     bilinear and tower weights in ``compute_dtype``. ``folded_mlp`` comes
-    from ops.mlp.fold_batch_norm and must have exactly 2 hidden layers."""
+    from ops.mlp.fold_batch_norm and must have exactly 2 hidden layers.
+    E, H1 and H2 come out zero-padded to multiples of 8 (``padded_width``),
+    the same function on the kernels' widths."""
     if len(folded_mlp["layers"]) != 2:
         raise ValueError("fused_score expects a 2-hidden-layer tower")
     device = senet_params["fc1"]["w"].device
@@ -291,18 +310,31 @@ def prepare_score_params(
     l1 = folded_mlp["layers"][0]["linear"]
     l2 = folded_mlp["layers"][1]["linear"]
     l3 = folded_mlp["out"]
+    pad = torch.nn.functional.pad
+
+    def bias(lin):
+        if "b" in lin:
+            return lin["b"].float()
+        return torch.zeros(lin["w"].shape[1], device=device)
+
+    sw1, sb1, sw2, sb2 = senet_weights(senet_params, f)
+    w1, w2, w3 = l1["w"], l2["w"], l3["w"]
+    e, (h1, h2) = w_bi.shape[-1], (w1.shape[1], w2.shape[1])
+    ep, h1p, h2p = padded_width(e), padded_width(h1), padded_width(h2)
+    if ep != e:  # W1's rows follow the concat [S | pairs], E columns a field or pair
+        sw1, w_bi = pad_senet_bilinear(sw1, w_bi, e, ep)
+        n = w1.shape[0] // e
+        w1 = pad(w1.reshape(n, e, h1), (0, 0, 0, ep - e)).reshape(n * ep, h1)
+    w1, w2, w3 = pad(w1, (0, h1p - h1)), pad(w2, (0, h2p - h2, 0, h1p - h1)), pad(
+        w3, (0, 0, 0, h2p - h2))
+    b1, b2 = pad(bias(l1), (0, h1p - h1)), pad(bias(l2), (0, h2p - h2))
 
     def wt(t):
         return t.to(compute_dtype).contiguous()
 
-    def bias(lin):
-        if "b" in lin:
-            return lin["b"].float().contiguous()
-        return torch.zeros(lin["w"].shape[1], device=device)
-
     return (
-        *senet_weights(senet_params, f), wt(w_bi),
-        wt(l1["w"]), bias(l1), wt(l2["w"]), bias(l2), wt(l3["w"]), bias(l3),
+        sw1.contiguous(), sb1, sw2, sb2, wt(w_bi),
+        wt(w1), b1.contiguous(), wt(w2), b2.contiguous(), wt(w3), bias(l3).contiguous(),
     )
 
 

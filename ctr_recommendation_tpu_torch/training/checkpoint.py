@@ -61,6 +61,15 @@ class CheckpointManager:
         for old in self.steps()[: -self.max_to_keep] if self.max_to_keep > 0 else []:
             os.remove(self._path(old))
 
+    def wait(self) -> None:
+        """Return at once: ``save`` writes synchronously, so no save is ever
+        in flight (the JAX manager's may be asynchronous)."""
+
+    def close(self) -> None:
+        """Release nothing: the manager holds no thread or open file between
+        calls. Kept so that callers written for the JAX manager run as they
+        are."""
+
     def latest_step(self) -> int | None:
         steps = self.steps()
         return steps[-1] if steps else None

@@ -184,7 +184,10 @@ def test_the_wrappers_refuse_outside_the_envelope():
         eb.layer_norm(xm.reshape(-1, 32).to("meta"), ws[4][0], ws[5][0], torch.float32)
     enc.check_envelope(WIDE_S, 256, 2, 1)
     enc.check_envelope(32, 512, 2, 3)
-    for s, e, heads, layers in ((33, 128, 2, 1), (20, 288, 1, 1), (20, 48, 2, 1),
+    enc.check_envelope(50, 128, 2, 1)  # SASRec's published n = 50
+    enc.check_envelope(128, 64, 4, 1)
+    for s, e, heads, layers in ((129, 64, 4, 1), (200, 128, 2, 1), (116, 64, 1, 1),
+                                (84, 128, 1, 1), (20, 288, 1, 1), (20, 48, 2, 1),
                                 (20, 128, 3, 1), (20, 64, 32, 1), (20, 128, 2, 0)):
         with pytest.raises(ValueError, match="envelope"):
             enc.check_envelope(s, e, heads, layers)

@@ -1,7 +1,9 @@
 """The port is complete: every public top-level name of the JAX package has a
-same-named top-level counterpart in the same module of the port, apart from
-the replacements in ``REPLACED``. Both trees are read by AST; neither
-package's modules are imported.
+same-named top-level counterpart in the same module of the port, and every
+public member of a public class (method, property, class attribute or
+dataclass field) a same-named member of the port's class, apart from the
+replacements in ``REPLACED``. Both trees are read by AST; neither package's
+modules are imported by those checks.
 
 A public name is a top-level ``def``, ``class`` or assigned constant not
 starting with ``_`` (at module level, or inside a module-level ``if``,
@@ -10,10 +12,16 @@ the port's module, an import included: the port's ``inference/pipeline.py``
 takes ``write_csv_chunk`` from its ``submission.py``, as callers may find
 it there.
 
+A class member counts when the port's class (a top-level class of the same
+name in the same module, or the class a top-level import there binds)
+defines it in its body or in the body of a base class it names.
+
 Also: every Pallas file of the JAX package (one that calls
 ``pl.pallas_call``) is named by a ``"replaces"`` entry of ``chip_smoke.py``'s
-kernels line, at a line that defines a kernel function; and the checker
-reports a name missing from a tree written here."""
+kernels line, at a line that defines a kernel function; the checkers report
+a name or a member missing from a tree written here; and the members added
+to close the last gaps (``DeviceItemStore.dim``, ``CheckpointManager.wait``
+and ``.close``, ``TrainState.create``) do what their JAX counterparts do."""
 
 import ast
 import re
@@ -25,7 +33,8 @@ REPO = Path(__file__).resolve().parents[1]
 JAX_ROOT = REPO / "ctr_recommendation_tpu"
 PORT_ROOT = REPO / "ctr_recommendation_tpu_torch"
 
-# JAX module, or module::name -> (the port's counterpart, why it is not the same name)
+# JAX module, module::name or module::Class.member -> (the port's counterpart,
+# why it is not the same name)
 REPLACED = {
     "ops/pallas/__init__.py": (
         "ops/cuda/__init__.py",
@@ -102,6 +111,76 @@ def missing_names(jax_root: Path, port_root: Path, rel: str) -> list[str]:
     return sorted(want - have)
 
 
+def _classes(path: Path) -> dict[str, ast.ClassDef]:
+    """The top-level classes of a module, by name."""
+    return {n.name: n for n in _nested(ast.parse(path.read_text()).body)
+            if isinstance(n, ast.ClassDef)}
+
+
+def _members(node: ast.ClassDef) -> set[str]:
+    """The names a class body binds: methods, properties, nested classes,
+    class attributes and dataclass fields."""
+    names = set()
+    for n in node.body:
+        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(n.name)
+        elif isinstance(n, (ast.Assign, ast.AnnAssign)):
+            names.update(_targets(n))
+    return names
+
+
+def _port_class(port_root: Path, rel: str, name: str) -> tuple[ast.ClassDef, Path] | None:
+    """The port's class ``name`` of module ``rel``: defined there, or bound
+    there by ``from <port package>.x.y import name``."""
+    path = port_root / rel
+    if not path.exists():
+        return None
+    classes = _classes(path)
+    if name in classes:
+        return classes[name], path
+    pkg = port_root.name
+    for node in _nested(ast.parse(path.read_text()).body):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(pkg + "."):
+            for a in node.names:
+                if (a.asname or a.name) == name:
+                    src = node.module[len(pkg) + 1:].replace(".", "/")
+                    for cand in (f"{src}.py", f"{src}/__init__.py"):
+                        found = _port_class(port_root, cand, a.name)
+                        if found:
+                            return found
+    return None
+
+
+def port_members(port_root: Path, rel: str, name: str) -> set[str] | None:
+    """Every member of the port's class ``name`` in ``rel``, those of the
+    bases it names in its own module included (None without the class)."""
+    found = _port_class(port_root, rel, name)
+    if found is None:
+        return None
+    node, path = found
+    classes, names, todo = _classes(path), set(), [node]
+    while todo:
+        cls = todo.pop()
+        names |= _members(cls)
+        todo += [classes[b.id] for b in cls.bases if isinstance(b, ast.Name) and b.id in classes]
+    return names
+
+
+def missing_members(jax_root: Path, port_root: Path, rel: str) -> list[str]:
+    """``Class.member`` for each public member of a public class of
+    ``jax_root/rel`` that the port's class lacks (the classes the port lacks
+    altogether are the top-level check's)."""
+    missing = []
+    for name, node in _classes(jax_root / rel).items():
+        if name.startswith("_"):
+            continue
+        have = port_members(port_root, rel, name)
+        if have is None:
+            continue
+        missing += [f"{name}.{m}" for m in _members(node) - have if not m.startswith("_")]
+    return sorted(missing)
+
+
 def _has(rel_and_name: str) -> bool:
     """Whether the port has ``path`` or ``path::name`` (``Class.method`` too)."""
     rel, _, name = rel_and_name.partition("::")
@@ -139,14 +218,35 @@ def test_every_public_name_has_a_counterpart(rel):
     assert not missing, f"{rel}: no counterpart in the port for {missing}"
 
 
+CLASS_MODULES = [rel for rel in JAX_MODULES if rel not in REPLACED
+                 and any(not n.startswith("_") for n in _classes(JAX_ROOT / rel))]
+
+
+def test_the_jax_tree_has_classes():
+    assert len(CLASS_MODULES) >= 16
+    assert "training/checkpoint.py" in CLASS_MODULES and "inference/predictor.py" in CLASS_MODULES
+
+
+@pytest.mark.parametrize("rel", CLASS_MODULES)
+def test_every_public_class_member_has_a_counterpart(rel):
+    missing = [m for m in missing_members(JAX_ROOT, PORT_ROOT, rel)
+               if f"{rel}::{m}" not in REPLACED]
+    assert not missing, f"{rel}: no counterpart in the port's classes for {missing}"
+
+
 def test_every_replacement_is_current():
-    """Each entry names a JAX module or name that exists and that the port
-    lacks under the same name, and a counterpart that the port has."""
+    """Each entry names a JAX module, name or class member that exists and
+    that the port lacks under the same name, and a counterpart that the
+    port has."""
     for key, (counterpart, reason) in REPLACED.items():
         rel, _, name = key.partition("::")
         assert rel in JAX_MODULES, key
         assert reason
-        if name:
+        if "." in name:
+            cls, member = name.split(".", 1)
+            assert member in _members(_classes(JAX_ROOT / rel)[cls]), key
+            assert name in missing_members(JAX_ROOT, PORT_ROOT, rel), f"{key}: now ported as is"
+        elif name:
             assert name in defined_names(JAX_ROOT / rel), key
             assert name in missing_names(JAX_ROOT, PORT_ROOT, rel), f"{key}: now ported as is"
         else:
@@ -184,3 +284,82 @@ def test_the_checker_reports_a_missing_name(tmp_path):
     (port_tree / "sub" / "m.py").write_text("LIMIT = 3\n\n\ndef kept():\n    pass\n\n\n"
                                             "class Gone:\n    pass\n")
     assert missing_names(jax_tree, port_tree, "sub/m.py") == ["branch"]
+
+
+def test_the_checker_reports_a_missing_member(tmp_path):
+    jax_tree, port_tree = tmp_path / "jax", tmp_path / "port"
+    for root in (jax_tree, port_tree / "sub"):
+        root.mkdir(parents=True)
+    (jax_tree / "m.py").write_text(
+        "import dataclasses\n\n\n@dataclasses.dataclass\nclass Store:\n    rows: int\n"
+        "    LIMIT = 3\n\n    @property\n    def dim(self):\n        return 1\n\n"
+        "    def close(self):\n        pass\n\n    def _private(self):\n        pass\n\n\n"
+        "class Gone:\n    def f(self):\n        pass\n\n\nclass Moved:\n    def g(self):\n"
+        "        pass\n")
+    (port_tree / "sub" / "impl.py").write_text("class Moved:\n    pass\n")
+    (port_tree / "m.py").write_text(
+        "from port.sub.impl import Moved\n\n\nclass Base:\n    def close(self):\n"
+        "        pass\n\n\nclass Store(Base):\n    rows = 0\n    LIMIT = 3\n")
+    assert missing_members(jax_tree, port_tree, "m.py") == ["Moved.g", "Store.dim"]
+    (port_tree / "sub" / "impl.py").write_text("class Moved:\n    def g(self):\n        pass\n")
+    (port_tree / "m.py").write_text(
+        "from port.sub.impl import Moved\n\n\nclass Store:\n    rows = 0\n    LIMIT = 3\n"
+        "    dim = property(lambda self: 1)\n")
+    assert missing_members(jax_tree, port_tree, "m.py") == ["Store.close"]
+
+
+# ------------------------------------------------- the members that closed the gaps
+
+def test_device_item_store_dim():
+    """DeviceItemStore.dim: the width of an item's vector, as JAX's."""
+    import numpy as np
+
+    from ctr_recommendation_tpu_torch.data import ItemStore
+    from ctr_recommendation_tpu_torch.data.device_store import DeviceItemStore
+
+    emb = np.random.default_rng(0).standard_normal((5, 24)).astype(np.float32)
+    store = DeviceItemStore.from_host(ItemStore.from_arrays(np.arange(1, 6), emb), "cpu")
+    assert store.dim == 24 == store.emb.shape[1]
+
+
+def test_checkpoint_manager_wait_and_close(tmp_path):
+    """Saves are synchronous: wait returns at once with the resume point on
+    disk, and close releases nothing, the manager still reading after it."""
+    import torch
+
+    from ctr_recommendation_tpu_torch.training.checkpoint import CheckpointManager
+    from ctr_recommendation_tpu_torch.training.train_state import TrainState
+
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    state = TrainState(3, {"w": torch.ones(2)}, {}, {"count": 3})
+    mgr.save(1, state)
+    assert mgr.wait() is None and mgr.latest_step() == 1
+    assert mgr.close() is None
+    assert mgr.restore()["step"] == 3 and torch.equal(mgr.restore()["params"]["w"], torch.ones(2))
+
+
+@pytest.mark.parametrize("kind", ["adam", "adagrad"])
+def test_train_state_create(kind):
+    """TrainState.create: step 0, tx.init over the leaves of params in the
+    trainer's (tree_leaves) order, table_opt_state {} unless given; the
+    state takes an update."""
+    import torch
+
+    from ctr_recommendation_tpu_torch.training.optim import Optimizer
+    from ctr_recommendation_tpu_torch.training.train_state import TrainState
+    from ctr_recommendation_tpu_torch.utils.tree import tree_leaves
+
+    params = {"b": [torch.ones(3), torch.full((2, 2), 2.0)], "a": {"w": torch.zeros(4)}}
+    tx = Optimizer(kind, lambda count: 0.1, clip_norm=0.0, weight_decay=0.0)
+    st = TrainState.create(params, {"bn": 1}, tx)
+    assert (st.step, st.params, st.model_state, st.table_opt_state) == (0, params, {"bn": 1}, {})
+    slots = ("mu", "nu") if kind == "adam" else ("sum_of_squares",)
+    assert sorted(st.opt_state) == sorted(("count",) + slots) and st.opt_state["count"] == 0
+    for slot in slots:
+        assert [t.shape for t in st.opt_state[slot]] == [t.shape for t in tree_leaves(params)]
+        assert all(not t.any() for t in st.opt_state[slot])
+    leaves = tree_leaves(params)
+    tx.update([torch.ones_like(t) for t in leaves], st.opt_state, leaves)
+    assert st.opt_state["count"] == 1 and not torch.equal(params["b"][0], torch.ones(3))
+    table = {"item_id": {"sum_of_squares": torch.zeros(3)}}
+    assert TrainState.create(params, {}, tx, table_opt_state=table).table_opt_state == table
