@@ -227,38 +227,49 @@ Phases, in order; any failure exits non-zero and prints no result line.
    of 30; [entry] lines) and the kernel path's device-busy ms and kernels
    ([split] lines).
 7e. The shapes the JAX kernels run beyond the port's S <= 32 and E, H
-   multiples of 8, after 7d. (a) The encoder kernels past 32 keys (KC = 2
-   and 4 keys a lane) against their plain versions: first the attention
-   blocks alone (attention_fwd's ao and P, then attention_bwd on the plain
-   P, against attention_fwd_plain / attention_bwd_plain within ENC_TOL,
-   B=4133), then the whole encoder: S=50 at E=128, H=2, L=1
-   (B=4096 and 8192+37), S=64 at E=256, H=2 (B=4133) and S=100 at E=64,
-   H=2, L=2 (B=4133), bf16 and fp32, histories of random pad lengths: the
-   forward within ENC_TOL (ENC_NORM_TOL in bf16, the jnp rounding points
-   rejected), fused_encode's pad rows exactly 0, dropout 0.1 under two
-   seeds; the backward within ENC_BWD_TOL and its norm bars at rate 0 and
-   0.1 (the fp32-operand control rejected in bf16); every repeat
+   multiples of 8, after 7d. (a) The encoder kernels past 32 keys against
+   their plain versions: first the attention blocks alone at each case's
+   (S, E, H), the pair the encoder takes there (staged: attention_fwd's
+   ao and P, then attention_bwd on the plain P, B=4133; streamed past what
+   shared memory holds: attention_fwd_streamed's ao, o and (m, l), then
+   attention_bwd_streamed on the plain o and stats, B=1061), within
+   ENC_TOL, repeats bit-identical; then the whole encoder: S=50 at E=128,
+   H=2, L=1 (B=4096 and 8192+37), S=64 at E=256, H=2 (B=4133) and S=100 at
+   E=64, H=2, L=2 (B=4133), staged; S=200 at E=128, H=2, L=1, at E=50
+   (SASRec's MovieLens-1M d, run zero-padded to 64) with H=1 and 2, L=2,
+   and S=512 at E=64, H=2 (B=1061), streamed; bf16 and fp32, histories of
+   random pad lengths: the forward within ENC_TOL (ENC_NORM_TOL in bf16,
+   the jnp rounding points rejected) of the plain version at the true
+   widths, fused_encode's pad rows exactly 0, dropout 0.1 under two seeds;
+   the backward within ENC_BWD_TOL and its norm bars at rate 0 and 0.1
+   (the fp32-operand control rejected in bf16); every repeat
    bit-identical and the launches exact. The C predicate
-   (sasrec_encoder_fits) against the Python one on S 1..200 x FITS_E x
-   FITS_H x L 1, 2. Both encoder kernels timed at S=50 as phase 3 times
-   them at S=20 (`[time] ... S=50` lines). (b) sasrec_fibinet at max_len 50
-   (SASRec's n for its sparse datasets) at full width on phase 6's cut
-   made at max_len 50: phases 6-7's checks (gradients kernel vs plain,
-   exact launches of the four training kernels, loss falling, AUC > 0.6,
-   the export through evaluate); the export through
-   Predictor.score_table on the fused scoring kernel, its AUC within
-   AUC_SERVE_TOL of evaluate's, its first rows within CPU_TOL of the CPU
-   Predictor's. (c) E=10 through the interaction entry point, which pads
-   it to 16, against the plain version at E=10 (forward within TOL and
-   FWD_NORM_TOL, gradients within BWD_TOL; `[padded compare]` lines);
-   mm_fibinet at E=10 and mm_fibinet with a (100, 50) tower (the scoring
-   kernel at (104, 56)), each 3 train steps, an eval forward and a serve
-   of 16,384 rows on the kernels: exact launches, the served
-   probabilities within CPU_TOL of the CPU Predictor's (`[padded ...]`
-   lines); sasrec_fibinet at max_len 200, past the encoder kernels' shared
-   memory: a train step, an eval forward and a serve each refused with the
-   envelope's ValueError before any counted launch (`[refused ...]`). The
-   kernels line adds 7e's launches.
+   (sasrec_encoder_fits) against the Python one on S 1..512 x FITS_E (E
+   1 to 1024, 10, 48 and 50 among them) x FITS_H x L 1, 2, with the C
+   widths and attention route against padded_dims and attention_route.
+   Both encoder kernels timed at S=50 as phase 3 times them at S=20, and
+   at S=200 (E=128) and the ML-1M shape (E=50, H=1, L=2, S=200) beside
+   their bounds (the attention's fp32 operations at the fp32 rate) and
+   nn.TransformerEncoderLayer (`[time] ... S=50` / `S=200` lines). (b)
+   sasrec_fibinet at max_len 50 (SASRec's n for its sparse datasets) and
+   sasrec_fibinet_ml1m (max_len 200, E=50, one head, two blocks, dropout
+   0.2: SASRec's MovieLens-1M setting) at full width on phase 6's cut made
+   at that max_len: phases 6-7's checks (gradients kernel vs plain, exact
+   launches of the four training kernels, loss falling, AUC > 0.6, the
+   export through evaluate); the export through Predictor.score_table on
+   the fused scoring kernel, its AUC within AUC_SERVE_TOL of evaluate's,
+   its first rows within CPU_TOL of the CPU Predictor's. (c) E=10 through
+   the interaction entry point, which pads it to 16, against the plain
+   version at E=10 (forward within TOL and FWD_NORM_TOL, gradients within
+   BWD_TOL; `[padded compare]` lines); mm_fibinet at E=10 and mm_fibinet
+   with a (100, 50) tower (the scoring kernel at (104, 56)), each 3 train
+   steps, an eval forward and a serve of 16,384 rows on the kernels: exact
+   launches, the served probabilities within CPU_TOL of the CPU
+   Predictor's (`[padded ...]` lines); sasrec_fibinet with one head of
+   E=512, past the encoder kernels' head width of 256: a train step, an
+   eval forward and a serve each refused with the envelope's ValueError
+   before any counted launch (`[refused ...]`). The kernels line adds
+   7e's launches.
 6d. Phases 6-7 for sasrec_emb_256 (sasrec_fibinet with embedding_dim=256,
    its other defaults): both encoder kernels at E=256 in the gradient
    check and the exact launch counts, the export served through them.
@@ -546,11 +557,13 @@ def kernel_split(torch, fn, label: str, card, reps: int = 5) -> None:
                for e in top]))
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, fp32_ops: float = 0.0) -> dict:
     """The least time the card could take: bytes at the HBM rate, operations
-    at the bf16 tensor rate, whichever is longer."""
+    at the bf16 tensor rate and ``fp32_ops`` (work the precision contract
+    keeps in fp32, off the tensor cores: the encoder's attention) at the fp32
+    rate, whichever is longest."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_ops = max(ops / PEAK_FLOPS["bfloat16"], fp32_ops / PEAK_FLOPS["float32"]) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -725,12 +738,12 @@ def check_encoder_bwd(torch, got, want, dtype_name):
     return worst, worst_norm, gate_free, bad
 
 
-def library_layer(torch, weights, num_heads: int, device="cuda"):
-    """torch.nn.TransformerEncoderLayer computing one encoder layer of the
-    stacked ``weights`` (L=1): the timing yardstick, never on the main path.
-    Pre-LN (norm_first), ReLU FFN of 4E, eps 1e-6, no dropout, eval mode."""
+def library_layer(torch, weights, num_heads: int, device="cuda", li: int = 0):
+    """torch.nn.TransformerEncoderLayer computing layer ``li`` of the stacked
+    ``weights``: the timing yardstick, never on the main path. Pre-LN
+    (norm_first), ReLU FFN of 4E, eps 1e-6, no dropout, eval mode."""
     qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b = (
-        t[0].float() for t in weights)
+        t[li].float() for t in weights)
     e = qkv_w.shape[0]
     layer = torch.nn.TransformerEncoderLayer(
         d_model=e, nhead=num_heads, dim_feedforward=4 * e, dropout=0.0, activation="relu",
@@ -977,7 +990,9 @@ def encoder_gates(torch, gates: list, stats: dict | None = None):
     fused_encode call of the trunk first appends, per layer, the kernels'
     decisions f1 > 0 on its inputs, computed launch for launch by
     kernel_layers (the fused call's bits; the blocks' launches are not
-    counted), and the mask of real tokens. Replaying: each torch.relu on a
+    counted; at the kernels' padded widths where E is off their multiples,
+    the FFN hidden's real columns kept), and the mask of real tokens.
+    Replaying: each torch.relu on a
     3-d input of a recorded layer's size (attention.encode's FFN hidden (B,
     S, 4E), in layer order) takes the recorded decisions at the real tokens
     (attention.encode re-zeroes pad rows after each layer, the kernels do
@@ -1001,13 +1016,16 @@ def encoder_gates(torch, gates: list, stats: dict | None = None):
             drop_on = train and dropout_rate > 0.0 and seed is not None
             with torch.no_grad():
                 x, amask, _ = enc.encoder_inputs(params, seq_emb, seq_ids, pad_id)
-                w = enc.stack_weights(params, x.dtype)
-                h = x.float().reshape(-1, x.shape[-1])
+                e = x.shape[-1]
+                ep = enc.padded_dims(e, num_heads)[0]
+                w = enc.pad_weights(enc.stack_weights(params, x.dtype), e, num_heads)
+                h = enc.pad_stream(x, ep).float().reshape(-1, ep)
                 for li in range(len(params["blocks"])):
                     h, res = layer_fwd(h, amask, w, li, x.dtype, num_heads,
                                        seed if drop_on else None,
-                                       float(dropout_rate) if drop_on else 0.0, token0=token0)
-                    gates.append((res["f1"] > 0, (seq_ids != pad_id).reshape(-1, 1)))
+                                       float(dropout_rate) if drop_on else 0.0, token0=token0,
+                                       e=e if ep != e else None)
+                    gates.append((res["f1"][:, :4 * e] > 0, (seq_ids != pad_id).reshape(-1, 1)))
             return fused(params, seq_emb, seq_ids, num_heads=num_heads, pad_id=pad_id,
                          train=train, dropout_rate=dropout_rate, seed=seed, token0=token0)
 
@@ -1185,44 +1203,47 @@ def encoder_against_plain(torch) -> tuple[float, list]:
     return worst, failures
 
 
-def encoder_timing(torch, card, e: int = ENC_E, s: int = ENC_S,
-                   on_card: bool = False) -> dict:
-    """Phase 3 for the encoder at B=8192, bf16, L=1, histories of S (phase
-    7e: 50): kernel, plain version and
-    nn.TransformerEncoderLayer (checked first against the plain version in
-    fp32 on every history with a real step), CUDA events, beside the bound."""
+def encoder_timing(torch, card, e: int = ENC_E, s: int = ENC_S, on_card: bool = False,
+                   heads: int = ENC_H, layers: int = 1) -> dict:
+    """Phase 3 for the encoder at B=8192, bf16, histories of S (phase 7e:
+    50 and 200, and the ML-1M shape E=50, H=1, L=2): kernel, plain version
+    and nn.TransformerEncoderLayer (L of them; checked first against the
+    plain version in fp32 on every history with a real step), CUDA events,
+    beside the bound: the products' operations at the bf16 rate, the
+    attention's (fp32 by the precision contract) at the fp32 rate."""
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_fwd, encode_fwd_plain
 
-    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.float32, B_FULL, e, ENC_H, 1, 3,
+    shape = f"S={s} E={e} H={heads} L={layers}"
+    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.float32, B_FULL, e, heads, layers, 3,
                                               s=s, on_card=on_card)
     real = ~pad.all(-1)
     with torch.inference_mode():
-        lib = library_layer(torch, ws, ENC_H)(x, src_key_padding_mask=pad)
-    want = encode_fwd_plain(x, amask, *ws, num_heads=ENC_H)
+        lib = library_stack(torch, ws, heads)[1](x, pad)
+    want = encode_fwd_plain(x, amask, *ws, num_heads=heads)
     lib_err = (lib[real] - want[real]).abs().max().item()
-    log(f"[compare] nn.TransformerEncoderLayer fp32 vs encode_fwd_plain on the "
+    log(f"[compare] nn.TransformerEncoderLayer fp32 vs encode_fwd_plain at {shape} on the "
         f"{int(real.sum())} histories with a real step: max_abs_err={lib_err:.3e} "
         f"(tolerance {LIB_TOL:g})")
     if not lib_err <= LIB_TOL:
         raise SystemExit("the library yardstick does not compute the encoder's function")
 
-    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.bfloat16, B_FULL, e, ENC_H, 1, 4,
+    x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.bfloat16, B_FULL, e, heads, layers, 4,
                                               s=s, on_card=on_card)
-    layer = library_layer(torch, ws, ENC_H)
+    library = library_stack(torch, ws, heads)[1]
     tokens = B_FULL * s
-    ops = 2 * tokens * (12 * e * e + 2 * s * e)
+    ops, fp32_ops = 2 * tokens * 12 * e * e * layers, 2 * tokens * 2 * s * e * layers
     nbytes = 2 * 2 * x.numel() + 4 * amask.numel() + sum(t.numel() * t.element_size() for t in ws)
     with torch.inference_mode():
         t = {
-            "ms": time_ms(torch, lambda: encode_fwd(x, amask, *ws, num_heads=ENC_H)),
-            "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, num_heads=ENC_H)),
-            **bound(nbytes, ops),
-            "library_ms": time_ms(torch, lambda: layer(x, src_key_padding_mask=pad)),
+            "ms": time_ms(torch, lambda: encode_fwd(x, amask, *ws, num_heads=heads)),
+            "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, num_heads=heads)),
+            **bound(nbytes, ops, fp32_ops),
+            "library_ms": time_ms(torch, lambda: library(x, pad)),
         }
-    log(f"[time] sasrec_encoder_fwd bf16 B={B_FULL} S={s} E={e} H={ENC_H} L=1: {t} "
-        f"(bytes {nbytes}, ops {ops}; library: nn.TransformerEncoderLayer, bf16) on {card}")
+    log(f"[time] sasrec_encoder_fwd bf16 B={B_FULL} {shape}: {t} (bytes {nbytes}, ops {ops} "
+        f"bf16 + {fp32_ops} fp32; library: nn.TransformerEncoderLayer, bf16) on {card}")
     seed = torch.tensor([3], dtype=torch.int64, device="cuda")
-    kw = dict(num_heads=ENC_H, seed=seed, rate=DROP_RATE)
+    kw = dict(num_heads=heads, seed=seed, rate=DROP_RATE)
     with torch.inference_mode():
         drop = {"ms": time_ms(torch, lambda: encode_fwd(x, amask, *ws, **kw)),
                 "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, **kw))}
@@ -1230,7 +1251,7 @@ def encoder_timing(torch, card, e: int = ENC_E, s: int = ENC_S,
         f"on {card}")
     with torch.inference_mode():
         kernel_split(torch, lambda: encode_fwd(x, amask, *ws, **kw),
-                     f"sasrec_encoder_fwd bf16 B={B_FULL} S={s} E={e} dropout {DROP_RATE}", card)
+                     f"sasrec_encoder_fwd bf16 B={B_FULL} {shape} dropout {DROP_RATE}", card)
     return t
 
 
@@ -1493,16 +1514,35 @@ def encoder_blocks_against_plain(torch, e: int, heads: int, dtype, seed: int = 0
     return worst, failures
 
 
-def library_grads(torch, layer, x, pad, g):
-    """(dx, the 12 weight gradients in the stacked layout) of one
-    nn.TransformerEncoderLayer forward + backward."""
+def library_stack(torch, weights, num_heads: int):
+    """The encoder's L layers as nn.TransformerEncoderLayers (library_layer),
+    and their forward over (x, pad): the yardstick at any depth."""
+    layers = [library_layer(torch, weights, num_heads, li=li) for li in range(weights[0].shape[0])]
+
+    def forward(x, pad):
+        for layer in layers:
+            x = layer(x, src_key_padding_mask=pad)
+        return x
+
+    return layers, forward
+
+
+def library_grads(torch, layers, x, pad, g):
+    """(dx, the 12 weight gradients in the stacked layout) of one forward +
+    backward of the nn.TransformerEncoderLayers ``layers`` in turn."""
     x = x.detach().requires_grad_()
-    sa = layer.self_attn
-    params = [sa.in_proj_weight, sa.in_proj_bias, sa.out_proj.weight, sa.out_proj.bias,
-              layer.norm1.weight, layer.norm1.bias, layer.linear1.weight, layer.linear1.bias,
-              layer.linear2.weight, layer.linear2.bias, layer.norm2.weight, layer.norm2.bias]
-    grads = torch.autograd.grad(layer(x, src_key_padding_mask=pad), [x, *params], g)
-    return [grads[0]] + [t.T if t.dim() == 2 else t for t in grads[1:]]
+    params = []
+    for layer in layers:
+        sa = layer.self_attn
+        params += [sa.in_proj_weight, sa.in_proj_bias, sa.out_proj.weight, sa.out_proj.bias,
+                   layer.norm1.weight, layer.norm1.bias, layer.linear1.weight, layer.linear1.bias,
+                   layer.linear2.weight, layer.linear2.bias, layer.norm2.weight, layer.norm2.bias]
+    y = x
+    for layer in layers:
+        y = layer(y, src_key_padding_mask=pad)
+    grads = torch.autograd.grad(y, [x, *params], g)
+    per = [t.T if t.dim() == 2 else t for t in grads[1:]]
+    return [grads[0]] + [torch.stack(per[k::12]) for k in range(12)]
 
 
 @contextlib.contextmanager
@@ -1553,74 +1593,92 @@ def kernel_layers(torch):
     kernels' backward recomputes them, launch for launch on the building
     blocks of encoder_blocks (the same kernels and launches as the fused
     call, so the same bits): LayerNorm and attention outputs in fp32 (their
-    rounding to cd at use is the fused call's store), f1 in cd. The plain
-    backward then runs on the kernels' own forward, with the kernels' ReLU
-    decisions and rounding points: what differs from encode_bwd is the
-    backward's arithmetic alone."""
+    rounding to cd at use is the fused call's store), f1 in cd; the
+    attention the staged or the streamed pair as the fused call takes it
+    (attention_route), at the padded widths the fused call runs (``e`` the
+    true width: encode_bwd_plain(..., padded=True)). The plain backward
+    then runs on the kernels' own forward, with the kernels' ReLU decisions
+    and rounding points: what differs from encode_bwd is the backward's
+    arithmetic alone."""
     from ctr_recommendation_tpu_torch.ops.cuda import encoder_blocks as eb
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import padded_dims
 
     def make(plain):
-        def layer_fwd(h, amask, w, li, cd, num_heads, seed, rate, acc=None, token0=0):
+        def layer_fwd(h, amask, w, li, cd, num_heads, seed, rate, acc=None, token0=0, e=None):
             (qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
              ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b) = (t[li] for t in w)
             drop = dict(seed=seed, rate=rate, layer=li, token0=token0)
             f32 = torch.float32
-            hn1, xhat1, r1 = eb.layer_norm(h, ln1_s, ln1_b, f32, True)
+            true_e = e or h.shape[1]
+            att = dict(scale=1.0 / (true_e // num_heads) ** 0.5)
+            hn1, xhat1, r1 = eb.layer_norm(h, ln1_s, ln1_b, f32, True, e=e)
             qkv = eb.product(hn1.to(cd), qkv_w.to(cd), "nn", "bias", bias=qkv_b)
-            ao, p = eb.attention_fwd(qkv, amask, num_heads, f32)
+            if eb.attention_route(amask.shape[1],
+                                  padded_dims(true_e, num_heads)[1]) == "staged":
+                ao, p = eb.attention_fwd(qkv, amask, num_heads, f32, **att)
+                kept = dict(p=p)
+            else:
+                ao, _, stats = eb.attention_fwd_streamed(qkv, amask, num_heads, f32, **att)
+                kept = dict(stats=stats)
             h1 = eb.product(ao.to(cd), proj_w.to(cd), "nn", "residual", bias=proj_b, aux=h,
                             branch=0, **drop)
-            hn2, xhat2, r2 = eb.layer_norm(h1, ln2_s, ln2_b, f32, True)
+            hn2, xhat2, r2 = eb.layer_norm(h1, ln2_s, ln2_b, f32, True, e=e)
             f1 = eb.product(hn2.to(cd), ffn1_w.to(cd), "nn", "relu", bias=ffn1_b, out_dtype=cd)
             h2 = eb.product(f1, ffn2_w.to(cd), "nn", "residual", bias=ffn2_b, aux=h1, branch=1,
                             **drop)
-            return h2, dict(hn1=hn1, xhat1=xhat1, r1=r1, qkv=qkv, p=p, ao=ao, hn2=hn2,
-                            xhat2=xhat2, r2=r2, f1=f1.float())
+            return h2, dict(hn1=hn1, xhat1=xhat1, r1=r1, qkv=qkv, ao=ao, hn2=hn2, xhat2=xhat2,
+                            r2=r2, f1=f1.float(), **kept)
         return layer_fwd
     return make
 
 
-def encoder_bwd_timing(torch, card, e: int = ENC_E, s: int = ENC_S,
-                       on_card: bool = False) -> dict:
-    """Phase 3 for the backward at B=4096, bf16, L=1, rate 0.1, histories of
-    S (phase 7e: 50): kernel, plain
-    version and nn.TransformerEncoderLayer forward + backward minus its
+def encoder_bwd_timing(torch, card, e: int = ENC_E, s: int = ENC_S, on_card: bool = False,
+                       heads: int = ENC_H, layers: int = 1) -> dict:
+    """Phase 3 for the backward at B=4096, bf16, rate 0.1, histories of S
+    (phase 7e: 50 and 200, and the ML-1M shape): kernel, plain version and
+    nn.TransformerEncoderLayer (L of them) forward + backward minus its
     forward (checked first against the plain version in fp32, every history
-    with a real step), CUDA events, beside the bound."""
+    with a real step), CUDA events, beside the bound (as the forward's)."""
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_bwd_plain
 
+    shape = f"S={s} E={e} H={heads} L={layers}"
+
     def case(dtype, seed):
-        x, amask, pad, ws, _, _, _ = encoder_case(torch, dtype, B_TRAIN, e, ENC_H, 1, seed, s=s,
-                                                  on_card=on_card)
+        x, amask, pad, ws, _, _, _ = encoder_case(torch, dtype, B_TRAIN, e, heads, layers, seed,
+                                                  s=s, on_card=on_card)
         pad, amask = pad.clone(), amask.clone()
         pad[0], amask[0] = False, 0.0  # no all-pad history: the library's -inf gives NaN there
         return x, amask, pad, ws, encoder_cotangent(torch, pad, e, seed + 1, dtype, on_card)
 
     x, amask, pad, ws, g = case(torch.float32, 5)
-    layer = library_layer(torch, ws, ENC_H).train()
-    z1 = []  # the library's FFN pre-activation, its ReLU gate's input
-    hook = layer.linear1.register_forward_hook(lambda mod, inp, out: z1.append(out.detach()))
-    lib = library_grads(torch, layer, x, pad, g)
-    hook.remove()
+    lib_layers = library_stack(torch, ws, heads)[0]
+    for layer in lib_layers:
+        layer.train()
+    z1 = []  # the library's FFN pre-activations, its ReLU gates' inputs, layer by layer
+    hooks = [layer.linear1.register_forward_hook(lambda mod, inp, out: z1.append(out.detach()))
+             for layer in lib_layers]
+    lib = library_grads(torch, lib_layers, x, pad, g)
+    for hook in hooks:
+        hook.remove()
     # fp32 accumulation, as cuBLAS sums for the library: a ReLU gate read
     # from a product then falls on the library's side, but where z1 lies
     # within rounding of 0 (more often the more tokens): there the plain
     # version takes the library's decision (replayed_gates, GATE_MARGIN)
-    direct = encode_bwd_plain(g, x, amask, *ws, num_heads=ENC_H, acc=torch.float32)
+    direct = encode_bwd_plain(g, x, amask, *ws, num_heads=heads, acc=torch.float32)
     replay = {"flips": 0, "margin": 0.0}
     held = (~pad.all(-1))[:, None].expand(pad.shape).reshape(-1)
     with plain_layers(replayed_gates(torch, z1, replay, held)):
-        want = encode_bwd_plain(g, x, amask, *ws, num_heads=ENC_H, acc=torch.float32)
+        want = encode_bwd_plain(g, x, amask, *ws, num_heads=heads, acc=torch.float32)
 
     def gap(ref):
         return max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(lib, ref))
 
     lib_err = gap(want)
     log(f"[compare] nn.TransformerEncoderLayer fp32 forward + backward vs encode_bwd_plain at "
-        f"S={s}: largest |d|/max|want| over dx and the 12 gradients {lib_err:.3e} (tolerance "
+        f"{shape}: largest |d|/max|want| over dx and the 12 gradients {lib_err:.3e} (tolerance "
         f"{LIB_TOL:g}) with the library's ReLU decisions replayed ({replay['flips']} of the "
-        f"{int(held.sum()) * z1[0].shape[-1]} in histories with a real step taken otherwise, "
-        f"their inputs within {replay['margin']:.2e} of 0 "
+        f"{int(held.sum()) * z1[0].shape[-1] * layers} in histories with a real step taken "
+        f"otherwise, their inputs within {replay['margin']:.2e} of 0 "
         f"relative to the largest |z1|, GATE_MARGIN {GATE_MARGIN:g}); {gap(direct):.3e} "
         f"without the replay (not held)")
     if not lib_err <= LIB_TOL or replay["margin"] > GATE_MARGIN:
@@ -1628,25 +1686,27 @@ def encoder_bwd_timing(torch, card, e: int = ENC_E, s: int = ENC_S,
 
     x, amask, pad, ws, g = case(torch.bfloat16, 6)
     seed = torch.tensor([11], dtype=torch.int64, device="cuda")
-    layer = library_layer(torch, ws, ENC_H).train()
+    lib_layers, library = library_stack(torch, ws, heads)
+    for layer in lib_layers:
+        layer.train()
     tokens = B_TRAIN * s
-    ops = 3 * 2 * tokens * (12 * e * e + 2 * s * e)
+    ops, fp32_ops = 3 * 2 * tokens * 12 * e * e * layers, 3 * 2 * tokens * 2 * s * e * layers
     nbytes = (3 * 2 * x.numel() + 4 * amask.numel()
               + sum(t.numel() * t.element_size() for t in ws) + 4 * sum(t.numel() for t in ws))
-    lib_fwd = time_ms(torch, lambda: layer(x, src_key_padding_mask=pad))
-    lib_both = time_ms(torch, lambda: library_grads(torch, layer, x, pad, g))
-    kw = dict(num_heads=ENC_H, seed=seed, rate=DROP_RATE)
+    lib_fwd = time_ms(torch, lambda: library(x, pad))
+    lib_both = time_ms(torch, lambda: library_grads(torch, lib_layers, x, pad, g))
+    kw = dict(num_heads=heads, seed=seed, rate=DROP_RATE)
     t = {
         "ms": time_ms(torch, lambda: encode_bwd(g, x, amask, *ws, **kw)),
         "plain_ms": time_ms(torch, lambda: encode_bwd_plain(g, x, amask, *ws, **kw)),
-        **bound(nbytes, ops),
+        **bound(nbytes, ops, fp32_ops),
         "library_ms": lib_both - lib_fwd,
     }
-    log(f"[time] sasrec_encoder_bwd bf16 B={B_TRAIN} S={s} E={e} H={ENC_H} L=1 "
-        f"rate={DROP_RATE}: {t} (bytes {nbytes}, ops {ops}; library: nn.TransformerEncoderLayer "
-        f"bf16 forward + backward {lib_both:.4f} ms minus its forward {lib_fwd:.4f} ms) on {card}")
+    log(f"[time] sasrec_encoder_bwd bf16 B={B_TRAIN} {shape} rate={DROP_RATE}: {t} (bytes "
+        f"{nbytes}, ops {ops} bf16 + {fp32_ops} fp32; library: nn.TransformerEncoderLayer bf16 "
+        f"forward + backward {lib_both:.4f} ms minus its forward {lib_fwd:.4f} ms) on {card}")
     kernel_split(torch, lambda: encode_bwd(g, x, amask, *ws, **kw),
-                 f"sasrec_encoder_bwd bf16 B={B_TRAIN} S={s} E={e} dropout {DROP_RATE}", card)
+                 f"sasrec_encoder_bwd bf16 B={B_TRAIN} {shape} dropout {DROP_RATE}", card)
     return t
 
 
@@ -4234,52 +4294,92 @@ def entry_phase(torch, card, worst: dict, counted) -> int:
     return launches
 
 
-# ---- phase 7e: the encoder past S=32, E and towers off the kernels' multiples of 8 ----
+# ---- phase 7e: the encoder at every S and E, E and towers off the kernels' multiples of 8 ----
 LONG_S = 50  # SASRec's n for its sparse datasets (Kang & McAuley, ICDM 2018, section IV)
-OUTSIDE_S = 200  # its n for MovieLens-1M: past the encoder kernels' shared memory
+# SASRec's MovieLens-1M setting (ibid., section IV-B): n = 200, d = 50, two
+# self-attention blocks, one head, dropout 0.2
+ML1M = dict(max_len=200, embedding_dim=50, attn_num_heads=1, attn_num_layers=2,
+            attn_dropout=0.2)
 OUTSIDE_E = 10  # an embedding width the interaction and scoring kernels take zero-padded
 OUTSIDE_TOWER = (100, 50)  # a tower the scoring kernel takes zero-padded
-# (S, E, H, L, B) of the encoder checks past 32 keys: two and four keys a lane
+REFUSED_E = 512  # with one head: a head width past MAX_D, which the encoder kernels refuse
+B_LONG = 1024 + 37  # histories of phase 7e's cases past what shared memory holds
+# (S, E, H, L, B) of the encoder checks past 32 keys: two and four keys a
+# lane staged, then the keys streamed (S = 200, SASRec's ML-1M shape at E =
+# 50 padded to the kernels' widths, and S = 512)
 LONG_CASES = [(LONG_S, 128, 2, 1, B_TRAIN), (LONG_S, 128, 2, 1, B_RAGGED),
-              (64, 256, 2, 1, B_TRAIN + 37), (100, 64, 2, 2, B_TRAIN + 37)]
-FITS_S = range(1, 201)  # the grid the C and Python encoder predicates are held on
-FITS_E = (16, 32, 48, 64, 96, 128, 160, 192, 256, 384, 512, 1024)
-FITS_H = (1, 2, 3, 4, 8, 16, 32)
+              (64, 256, 2, 1, B_TRAIN + 37), (100, 64, 2, 2, B_TRAIN + 37),
+              (200, 128, 2, 1, B_LONG), (200, 50, 1, 2, B_LONG), (200, 50, 2, 2, B_LONG),
+              (512, 64, 2, 1, B_LONG)]
+FITS_S = range(1, 513)  # the grid the C and Python encoder predicates are held on
+FITS_E = (1, 10, 16, 32, 48, 50, 64, 96, 100, 128, 160, 192, 256, 300, 384, 512, 1024)
+FITS_H = (1, 2, 3, 4, 5, 8, 16, 32)
 OUTSIDE_CPU_ROWS = 1024  # served rows held against the CPU Predictor in (b) and (c)
 OUTSIDE_STEPS = 3  # train steps of each (c) case, on one batch
 
 
 def long_attention_blocks(torch) -> tuple[float, list]:
-    """Phase 7e (a): the attention blocks alone past 32 keys, at each of
-    LONG_CASES' (S, E, H) over B_TRAIN + 37 histories of random pad lengths
-    (row 0 all pad), bf16 and fp32: attention_fwd's ao and P against
-    attention_fwd_plain's on the same qkv and mask, then attention_bwd on
-    the plain version's P against attention_bwd_plain, every output within
-    ENC_TOL (ENC_NORM_TOL in bf16; P and dqkv are fp32 and held at the fp32
-    bars). The backward checks below take their forward residues from
-    attention_fwd, so this holds its P on its own. Returns (worst
-    max_abs_err, failures)."""
+    """Phase 7e (a): the attention blocks alone at each of LONG_CASES' (S,
+    E, H), at the kernels' widths (padded_dims: E = 50 runs at 64) with the
+    true D's scale, over B_TRAIN + 37 histories (B_LONG past S = 128) of
+    random pad lengths (row 0 all pad), bf16 and fp32, the pair the encoder
+    takes there (attention_route). Staged: attention_fwd's ao and P against
+    attention_fwd_plain's on the same qkv and mask, then attention_bwd on the
+    plain version's P against attention_bwd_plain. Streamed:
+    attention_fwd_streamed's ao, o and stats against
+    attention_fwd_streamed_plain's, then attention_bwd_streamed on the plain
+    version's o and stats against attention_bwd_streamed_plain. Every output
+    within ENC_TOL (ENC_NORM_TOL in bf16; P, o, the stats and dqkv are fp32
+    and held at the fp32 bars; the running max m on the histories with a
+    real key, as the -1e9 of an all-pad one would set the bar's scale);
+    each launch's repeat bit-identical. The backward
+    checks below take their forward residues from the kernels, so this
+    holds those on their own. Returns (worst max_abs_err, failures)."""
     from ctr_recommendation_tpu_torch.ops.cuda import encoder_blocks as eb
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import padded_dims
 
     worst, failures = 0.0, []
-    b = B_TRAIN + 37
     for s, e, heads in dict.fromkeys(c[:3] for c in LONG_CASES):
+        b = B_TRAIN + 37 if s <= eb.MAX_S else B_LONG
+        ep, dp = padded_dims(e, heads)
+        route = eb.attention_route(s, dp)
+        att = dict(scale=1.0 / (e // heads) ** 0.5)
         gen = torch.Generator(device="cuda").manual_seed(s * 1000 + e)
         lens = torch.randint(0, s + 1, (b,), generator=gen, device="cuda")
         lens[0] = 0
         pad = torch.arange(s, device="cuda")[None, :] < (s - lens)[:, None]
         amask = torch.where(pad, -1e9, 0.0).float()
-        qkv = torch.randn((b * s, 3 * e), generator=gen, device="cuda")
-        dao = torch.randn((b * s, e), generator=gen, device="cuda")
+        real = ~pad.all(-1)
+        qkv = torch.randn((b * s, 3 * ep), generator=gen, device="cuda")
+        dao = torch.randn((b * s, ep), generator=gen, device="cuda")
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
-            ao, p = eb.attention_fwd(qkv, amask, heads, dtype)
-            ao_w, p_w = eb.attention_fwd_plain(qkv, amask, heads, dtype)
-            dq, dq_c = eb.attention_bwd(qkv, p_w, dao, dtype)
-            dq_w, dq_cw = eb.attention_bwd_plain(qkv, p_w, dao, dtype)
+            if route == "staged":
+                fwd = lambda: eb.attention_fwd(qkv, amask, heads, dtype, **att)  # noqa: E731
+                want_f = eb.attention_fwd_plain(qkv, amask, heads, dtype, **att)
+                p_w = want_f[1]
+                bwd = lambda: eb.attention_bwd(qkv, p_w, dao, dtype, **att)  # noqa: E731
+                want_b = eb.attention_bwd_plain(qkv, p_w, dao, dtype, **att)
+                names = ("ao", "P")
+            else:
+                fwd = lambda: eb.attention_fwd_streamed(qkv, amask, heads, dtype, **att)  # noqa
+                want_f = eb.attention_fwd_streamed_plain(qkv, amask, heads, dtype, **att)
+                _, o_w, st_w = want_f
+                bwd = lambda: eb.attention_bwd_streamed(  # noqa: E731
+                    qkv, amask, o_w, st_w, dao, dtype, **att)
+                want_b = eb.attention_bwd_streamed_plain(qkv, amask, o_w, st_w, dao, dtype, **att)
+            got_f, got_b = fwd(), bwd()
+            same = (all(torch.equal(a, c) for a, c in zip(got_f, fwd()))
+                    and all(torch.equal(a, c) for a, c in zip(got_b, bwd())))
             torch.cuda.synchronize()
-            held = {"ao": (ao, ao_w, dn), "P": (p, p_w, "float32"),
-                    "dqkv": (dq, dq_w, "float32"), "dqkv_c": (dq_c, dq_cw, dn)}
+            if route == "streamed":  # the stats as m (real histories) and l
+                names = ("ao", "o", "m", "l")
+                got_f = (*got_f[:2], got_f[2][real][..., 0], got_f[2][..., 1])
+                want_f = (*want_f[:2], want_f[2][real][..., 0], want_f[2][..., 1])
+            held = {name: (a, w, dn if name == "ao" else "float32")
+                    for name, a, w in zip(names, got_f, want_f)}
+            held.update({"dqkv": (got_b[0], want_b[0], "float32"),
+                         "dqkv_c": (got_b[1], want_b[1], dn)})
             parts = []
             for name, (got, want, bar) in held.items():
                 err, rel_norm, ok = check_encoder(torch, got, want, bar)
@@ -4287,10 +4387,12 @@ def long_attention_blocks(torch) -> tuple[float, list]:
                 parts.append(f"{name} max_abs_err={err:.3e} |d|/|want| {rel_norm:.3e} "
                              f"{'ok' if ok else 'FAIL'}")
                 if not ok:
-                    failures.append(("long attention block", name, s, e, heads, dn))
-            log(f"[long compare] attention blocks S={s} E={e} H={heads} {dn} B={b}: "
-                f"{'; '.join(parts)}")
-            del ao, p, ao_w, p_w, dq, dq_c, dq_w, dq_cw
+                    failures.append(("long attention block", route, name, s, e, heads, dn))
+            if not same:
+                failures.append(("long attention block repeat", route, s, e, heads, dn))
+            log(f"[long compare] attention blocks, {route}, S={s} E={e} H={heads} (kernels at "
+                f"E={ep}, D={dp}) {dn} B={b}: {'; '.join(parts)}; repeats bit-identical {same}")
+            del got_f, got_b, want_f, want_b
     return worst, failures
 
 
@@ -4350,12 +4452,15 @@ def padded_interaction_against_plain(torch) -> tuple[float, float, list]:
 
 
 def long_history_against_plain(torch) -> tuple[float, float, list]:
-    """Phase 7e (a): the encoder kernels at S = 50, 64 and 100 (two and four
-    keys a lane) against their plain versions, bf16 and fp32: the forward
+    """Phase 7e (a): the encoder kernels at LONG_CASES (S = 50, 64 and 100:
+    two and four keys a lane, staged; S = 200 and 512 streamed, and E = 50
+    with H = 1 and 2, which they run zero-padded to E = 64) against their
+    plain versions at the true widths, bf16 and fp32: the forward
     within ENC_TOL (ENC_NORM_TOL in bf16, the jnp rounding points rejected),
     pad rows of fused_encode exactly 0, with dropout 0.1 under two seeds;
     the backward at rate 0 and 0.1 against encode_bwd_plain on the kernels'
-    own forward residues (kernel_layers) within ENC_BWD_TOL, its norm and
+    own forward residues (kernel_layers, at the kernels' widths and cut
+    back: padded=True) within ENC_BWD_TOL, its norm and
     gate-free bars (the fp32-operand control, on the same residues,
     rejected in bf16 at rate 0.1, where dropout takes df2 off the bf16
     grid; at rate 0 g and f1 are in cd already and the gate-free output
@@ -4431,9 +4536,10 @@ def long_history_against_plain(torch) -> tuple[float, float, list]:
                 got_b = encode_bwd(g, x, amask, *ws, **kw)
                 same_b = all(torch.equal(a, c) for a, c in zip(
                     got_b, encode_bwd(g, x, amask, *ws, **kw)))
-                with plain_layers(kernel_layers(torch)):
-                    want_b = encode_bwd_plain(g, x, amask, *ws, **kw)
-                    wrong = (encode_bwd_plain(g, x, amask, *ws, **kw, fp32_operands=True)
+                with plain_layers(kernel_layers(torch)):  # at the kernels' widths
+                    want_b = encode_bwd_plain(g, x, amask, *ws, **kw, padded=True)
+                    wrong = (encode_bwd_plain(g, x, amask, *ws, **kw, fp32_operands=True,
+                                              padded=True)
                              if dtype == torch.bfloat16 else None)
                 whole = encode_bwd_plain(g, x, amask, *ws, **kw)
                 torch.cuda.synchronize()
@@ -4471,8 +4577,12 @@ def long_history_against_plain(torch) -> tuple[float, float, list]:
 def fits_grid(torch) -> None:
     """Phase 7e (a): the C predicate (sasrec_encoder_fits, the kernels'
     in_envelope) against the Python one (sasrec_encoder.fits) on every
-    point of FITS_S x FITS_E x FITS_H x L in (1, 2)."""
-    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import fits, fwd_lib
+    point of FITS_S x FITS_E x FITS_H x L in (1, 2); at every (S, E, H)
+    inside, the C widths (sasrec_encoder_widths) against padded_dims and
+    the C attention route (sasrec_attention_staged) against
+    attention_route."""
+    from ctr_recommendation_tpu_torch.ops.cuda.encoder_blocks import attention_route
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import fits, fwd_lib, padded_dims
 
     lib = fwd_lib()
     points, inside, apart = 0, 0, []
@@ -4485,25 +4595,39 @@ def fits_grid(torch) -> None:
                     inside += py
                     if c != py:
                         apart.append((s, e, h, layers, c, py))
-    largest = {d: max((s for s in FITS_S if fits(s, 2 * d, 2, 1)), default=0)
+                if not fits(s, e, h, 1):
+                    continue
+                ep, dp = padded_dims(e, h)
+                c_staged = bool(lib.sasrec_attention_staged(s, e, h))
+                if (lib.sasrec_encoder_widths(e, h) != ep * 1024 + dp
+                        or c_staged != (attention_route(s, dp) == "staged")):
+                    apart.append(("widths or route", s, e, h, lib.sasrec_encoder_widths(e, h),
+                                  (ep, dp), c_staged))
+    largest = {d: max((s for s in FITS_S if attention_route(s, d) == "staged"), default=0)
                for d in (32, 64, 128, 256)}
+    refused = sorted({(e, h) for e in FITS_E for h in FITS_H if not fits(1, e, h, 1)})
     log(f"[long fits] sasrec_encoder_fits (C) vs sasrec_encoder.fits (Python) on {points} "
-        f"points (S 1..200 x E {FITS_E} x H {FITS_H} x L 1, 2): {inside} inside, "
-        f"{len(apart)} apart {apart[:5]}; the largest S each head width D takes: {largest}")
+        f"points (S 1..{FITS_S[-1]} x E {FITS_E} x H {FITS_H} x L 1, 2), with the widths and "
+        f"the attention's route where inside: {inside} inside, {len(apart)} apart "
+        f"{apart[:5]}; (E, H) refused at every S: {refused} (E % H != 0 or E/H > 256); the "
+        f"largest S the staged attention takes at each head width D (the streamed past it): "
+        f"{largest}")
     if apart or not inside:
         raise SystemExit(f"the C and Python encoder predicates disagree: {apart[:10]}")
 
 
-def long_history_phase(torch, root, card, counted) -> dict:
-    """Phase 7e (b): sasrec_fibinet at max_len 50, full width (E=128, tower
-    (512, 256), bf16) on phase 6's cut made at max_len 50, through the
-    train-and-serve checks (exact launches of the four training kernels,
-    loss falling, best valid AUC > 0.6, the export through evaluate);
-    then the export through Predictor.score_table on the fused
-    scoring kernel: its AUC within AUC_SERVE_TOL of evaluate's and its first
-    OUTSIDE_CPU_ROWS probabilities within CPU_TOL of the same Predictor on the
-    CPU. Returns the launches of each counted wrapper in the fit and the
-    serve."""
+def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
+                       layers: int = 1) -> dict:
+    """Phase 7e (b): sasrec_fibinet with ``model_kw`` over its defaults
+    (max_len 50; SASRec's ML-1M setting, ML1M), full width (tower (512,
+    256), bf16) on phase 6's cut made at that max_len, through the
+    train-and-serve checks (gradients kernel vs plain, exact launches of the
+    four training kernels, loss falling, best valid AUC > 0.6, the export
+    through evaluate); then the export through Predictor.score_table on the
+    fused scoring kernel: its AUC within AUC_SERVE_TOL of evaluate's and its
+    first OUTSIDE_CPU_ROWS probabilities within CPU_TOL of the same
+    Predictor on the CPU. Returns the launches of each counted wrapper in
+    the fit and the serve."""
     from ctr_recommendation_tpu_torch.config import microlens_experiment
     from ctr_recommendation_tpu_torch.data import TableData, synthetic_splits
     from ctr_recommendation_tpu_torch.inference import Predictor
@@ -4521,23 +4645,24 @@ def long_history_phase(torch, root, card, counted) -> dict:
     from ctr_recommendation_tpu_torch.training.checkpoint import CheckpointManager
     from ctr_recommendation_tpu_torch.training.metrics import auc
 
+    max_len = model_kw["max_len"]
     t0 = time.perf_counter()
-    train, valid, store = synthetic_splits(N_TRAIN, N_VALID, seed=0, max_len=LONG_S)
-    log(f"[long] synthetic data at max_len {LONG_S}: {N_TRAIN} train + {N_VALID} valid rows "
+    train, valid, store = synthetic_splits(N_TRAIN, N_VALID, seed=0, max_len=max_len)
+    log(f"[long] synthetic data at max_len {max_len}: {N_TRAIN} train + {N_VALID} valid rows "
         f"made in {time.perf_counter() - t0:.1f} s")
-    ckpt = os.path.join(root, "ckpt_sasrec_50")
+    ckpt = os.path.join(root, f"ckpt_{tag}")
     exp = microlens_experiment(data_root="", model="sasrec_fibinet", epochs=TRAIN_EPOCHS,
-                               max_len=LONG_S, checkpoint_dir=ckpt)
+                               checkpoint_dir=ckpt, use_pallas=True, **model_kw)
     m = exp.model
-    if (m.embedding_dim, m.hidden_units, m.attn_num_layers, exp.train.compute_dtype) != (
-            ENC_E, HIDDEN, 1, "bfloat16"):
+    if (m.hidden_units, m.attn_num_layers, exp.train.compute_dtype, exp.train.batch_size) != (
+            HIDDEN, layers, "bfloat16", B_TRAIN):
         raise SystemExit(f"sasrec_fibinet's defaults moved: {m}")
-    ef, eb, fi, bi = fwd_launches(1), bwd_launches(1), ifwd_n(), ibwd_n()
+    ef, eb, fi, bi = fwd_launches(layers), bwd_launches(layers), ifwd_n(), ibwd_n()
     res = train_and_serve(
         torch, exp, train, valid, store, root, card, counted,
         per_step={interaction_fwd: fi, interaction_bwd: bi, encode_fwd: ef, encode_bwd: eb},
         per_eval={interaction_fwd: fi, encode_fwd: ef},
-        per_serve={score_fwd: score_launches(), encode_fwd: ef}, tag=f"sasrec_fibinet_len{LONG_S}")
+        per_serve={score_fwd: score_launches(), encode_fwd: ef}, tag=tag)
     server = res["server"]
     for fn in counted:
         fn.launches = 0
@@ -4558,13 +4683,14 @@ def long_history_phase(torch, root, card, counted) -> dict:
     names = lambda d: {fn.__name__: n for fn, n in d.items()}  # noqa: E731
     ok = (served == want and abs(table_auc - res["served_auc"]) <= AUC_SERVE_TOL
           and cpu_err <= CPU_TOL and server.use_fused and probs.shape == (N_VALID,))
-    log(f"[long serve] sasrec_fibinet max_len {LONG_S}: score_table on the valid split's "
-        f"{N_VALID} rows, AUC {table_auc:.7f} vs evaluate's {res['served_auc']:.7f} (tolerance "
-        f"{AUC_SERVE_TOL}); launches {names(served)} (expected {names(want)}); the first "
-        f"{OUTSIDE_CPU_ROWS} rows vs the CPU Predictor max_abs_err={cpu_err:.3e} (tolerance "
-        f"{CPU_TOL}) on {card} {'ok' if ok else 'FAIL'}")
+    log(f"[long serve] {tag} (max_len {max_len}, E={m.embedding_dim}, H={m.attn_num_heads}, "
+        f"L={layers}): score_table on the valid split's {N_VALID} rows, AUC {table_auc:.7f} vs "
+        f"evaluate's {res['served_auc']:.7f} (tolerance {AUC_SERVE_TOL}); launches "
+        f"{names(served)} (expected {names(want)}); the first {OUTSIDE_CPU_ROWS} rows vs the CPU "
+        f"Predictor max_abs_err={cpu_err:.3e} (tolerance {CPU_TOL}) on {card} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"sasrec_fibinet at max_len {LONG_S}: the served export failed")
+        raise SystemExit(f"{tag}: the served export failed")
     return {fn: res["launches"][fn] + served[fn] for fn in counted}
 
 
@@ -4619,10 +4745,11 @@ def outside_case(torch, tag: str, exp, train, valid, store, card, counted,
 
 
 def refused_case(torch, tag: str, exp, train, valid, store, card, counted) -> None:
-    """Phase 7e (c): a history past the encoder kernels' shared memory. A
-    train step, an eval forward and a serve on the card each raise
-    ValueError naming the kernels' envelope, before any counted kernel
-    launches (the kernel path does not hand the call to plain PyTorch)."""
+    """Phase 7e (c): a head width past MAX_D, which the encoder kernels
+    refuse. A train step, an eval forward and a serve on the card each
+    raise ValueError naming the kernels' envelope, before any counted
+    kernel launches (the kernel path does not hand the call to plain
+    PyTorch)."""
     from ctr_recommendation_tpu_torch.data import TableData
     from ctr_recommendation_tpu_torch.inference import Predictor
     from ctr_recommendation_tpu_torch.training import Trainer
@@ -4650,7 +4777,7 @@ def refused_case(torch, tag: str, exp, train, valid, store, card, counted) -> No
     torch.cuda.synchronize()
     got_l = {fn.__name__: fn.launches for fn in counted}
     ok = (not any(got_l.values()) and all(
-        r is not None and "envelope" in r and f"S={OUTSIDE_S}" in r for r in refusals.values()))
+        r is not None and "envelope" in r and f"E={REFUSED_E}" in r for r in refusals.values()))
     log(f"[refused {tag}] a train step, an eval forward and a serve on the card: "
         f"{ {k: (v or 'NOT REFUSED')[:160] for k, v in refusals.items()} }; launches {got_l} "
         f"(expected none) on {card} {'ok' if ok else 'FAIL'}")
@@ -4664,11 +4791,10 @@ def outside_phase(torch, train, valid, store, root, card, counted) -> dict:
     mm_fibinet at E = OUTSIDE_E (the interaction and scoring kernels at
     padded_width(E)) and mm_fibinet with an OUTSIDE_TOWER tower (the
     scoring kernel at each width padded to a multiple of 8), trained,
-    evaluated and served on the kernels; sasrec_fibinet at max_len
-    OUTSIDE_S, past the encoder kernels' shared memory, refused on the card.
+    evaluated and served on the kernels; sasrec_fibinet with one head of
+    REFUSED_E, past the encoder kernels' head width, refused on the card.
     Returns each counted wrapper's launches over the padded cases."""
     from ctr_recommendation_tpu_torch.config import microlens_experiment
-    from ctr_recommendation_tpu_torch.data import synthetic_splits
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import bwd_launches as ibwd_n
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import fwd_launches as ifwd_n
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
@@ -4689,13 +4815,9 @@ def outside_phase(torch, train, valid, store, root, card, counted) -> dict:
         outside_case(torch, tag, exp, train, valid, store, card, counted, per)
         for fn in counted:
             total[fn] += sum(calls[k] * per[k].get(fn, 0) for k in calls)
-    t0 = time.perf_counter()
-    long_data = synthetic_splits(B_TRAIN, B_FULL, seed=1, max_len=OUTSIDE_S)
-    log(f"[refused] synthetic data at max_len {OUTSIDE_S}: {B_TRAIN} train + {B_FULL} valid "
-        f"rows made in {time.perf_counter() - t0:.1f} s")
-    refused_case(torch, f"sasrec_fibinet max_len {OUTSIDE_S}",
-                 experiment("s200", model="sasrec_fibinet", max_len=OUTSIDE_S), *long_data,
-                 card, counted)
+    refused_case(torch, f"sasrec_fibinet E={REFUSED_E} H=1",
+                 experiment("e512", model="sasrec_fibinet", embedding_dim=REFUSED_E,
+                            attn_num_heads=1), train, valid, store, card, counted)
     return total
 
 
@@ -5405,7 +5527,7 @@ def main(argv=None) -> int:
         item_embeddings_phase(torch, root, card)
         # ---- phase 7d: the entry point's forward, 256 and 8192 rows ----
         entry = entry_phase(torch, card, worst, counted)
-        # ---- phase 7e: the encoder past S=32, E and towers off multiples of 8 ----
+        # ---- phase 7e: the encoder at every S and E, widths off the kernels' multiples ----
         block_err, long_failures = long_attention_blocks(torch)
         long_fwd, long_bwd, failures = long_history_against_plain(torch)
         pad_fwd, pad_bwd, pad_failures = padded_interaction_against_plain(torch)
@@ -5419,9 +5541,17 @@ def main(argv=None) -> int:
         fits_grid(torch)
         encoder_timing(torch, card, s=LONG_S, on_card=True)
         encoder_bwd_timing(torch, card, s=LONG_S, on_card=True)
-        long = long_history_phase(torch, root, card, counted)
+        ml1m_shape = dict(e=ML1M["embedding_dim"], s=ML1M["max_len"],
+                          heads=ML1M["attn_num_heads"], layers=ML1M["attn_num_layers"])
+        for shape in (dict(s=ML1M["max_len"]), ml1m_shape):  # past shared memory: streamed
+            encoder_timing(torch, card, on_card=True, **shape)
+            encoder_bwd_timing(torch, card, on_card=True, **shape)
+        long = long_history_phase(torch, root, card, counted, f"sasrec_fibinet_len{LONG_S}",
+                                  dict(max_len=LONG_S))
+        ml1m = long_history_phase(torch, root, card, counted, "sasrec_fibinet_ml1m", ML1M,
+                                  layers=ML1M["attn_num_layers"])
         outside = outside_phase(torch, train, valid, train_store, root, card, counted)
-        long = {fn: long[fn] + outside[fn] for fn in counted}  # 7e's launches
+        long = {fn: long[fn] + ml1m[fn] + outside[fn] for fn in counted}  # 7e's launches
         # ---- phase 6h: data-parallel training, two ranks sharing the card ----
         data_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
         # ---- phase 6i: row-sharded tables, 1 x 2 and 2 x 2 ranks sharing the card ----

@@ -21,12 +21,20 @@
 // the identity and the seed is never read.
 //
 // Bound on an H100: operations. At B=8192, S=20, E=128, one layer, the
-// forward is 66.1 GFLOP against ~85 MB of x, the output and the weights.
+// forward is 66.1 GFLOP against ~85 MB of x, the output and the weights. Of
+// the 24 E^2 + 4 S E flops a token a layer, the attention's 4 S E run in
+// fp32 on the CUDA cores (the precision contract; 67 TFLOP/s): at S=200
+// they are 168 GFLOP, 2.5 ms, and bound the call, against 644 GFLOP of
+// products, 0.65 ms on the tensor cores.
 // Design: one launch per building block over all tokens, in place of a
 // block that owned whole histories. The four products are the tile product
 // of tile_mma.cuh (bf16: mma.sync on the tensor cores) with the bias, ReLU,
 // dropout and residual fused into their epilogues; LayerNorm is a warp a
-// row; attention a block per (history, head). Between launches the
+// row; attention a block per (history, head), its heads staged whole in
+// shared memory where they fit (attn_staged) and its keys streamed in tiles
+// past that, so that any S runs. Widths E % 32 != 0 or E / H % 4 != 0 run
+// zero-padded (Widths in sasrec_encoder.cuh; the wrapper pads x and the
+// weights). Between launches the
 // token-major intermediates (fp32 h and qkv, cd hn, ao and f1: 0.59 GB at
 // B=8192, E=128, bf16) live in a workspace the wrapper allocates. Each is
 // written once and read once or twice: 1.68 GB of traffic a layer at that
@@ -63,29 +71,34 @@ struct FwdWork {
     if (rc_ != 0) return rc_;             \
   } while (0)
 
+// x and out (B*S, Ep) and the weights at the padded widths (Widths); E the
+// true width, for LayerNorm.
 template <typename T>
 int encode_fwd(const T* x, const float* amask, const Weights& w, const Dropout& drop, T* out,
                int B, int S, int E, int H, int L, float scale, char* workspace,
                cudaStream_t s) {
   const int N = B * S;
+  const Widths wd = widths(E, H);
+  const int Ep = wd.Ep;
   Carve cv{workspace};
-  const FwdWork<T> wk(cv, N, E);
-  TRY(launch_convert(x, wk.h, static_cast<size_t>(N) * E, s));
+  const FwdWork<T> wk(cv, N, Ep);
+  TRY(launch_convert(x, wk.h, static_cast<size_t>(N) * Ep, s));
   for (int li = 0; li < L; ++li) {
-    const Layer<T> lw(w, li, E);
-    TRY(launch_ln_fwd<T>(wk.h, N, E, lw.ln1_s, lw.ln1_b, wk.hn, nullptr, nullptr, s));
-    TRY((mma::launch_product<T, false, true>(wk.hn, lw.qkv_w, N, 3 * E, E, 1, E,
-                                             EpiBias{wk.qkv, 3 * E, lw.qkv_b}, s)));
-    TRY(launch_attn_fwd<T>(wk.qkv, amask, wk.ao, nullptr, B, S, E, H, scale, s));
+    const Layer<T> lw(w, li, Ep);
+    TRY(launch_ln_fwd<T>(wk.h, N, Ep, E, lw.ln1_s, lw.ln1_b, wk.hn, nullptr, nullptr, s));
+    TRY((mma::launch_product<T, false, true>(wk.hn, lw.qkv_w, N, 3 * Ep, Ep, 1, Ep,
+                                             EpiBias{wk.qkv, 3 * Ep, lw.qkv_b}, s)));
+    TRY(launch_attention_fwd<T>(wk.qkv, amask, wk.ao, nullptr, nullptr, nullptr, B, S, Ep, H,
+                                wd.Dp, scale, s));
     TRY((mma::launch_product<T, false, true>(
-        wk.ao, lw.proj_w, N, E, E, 1, E,
-        EpiResidual<T>{wk.h, nullptr, E, lw.proj_b, drop, li, 0}, s)));
-    TRY(launch_ln_fwd<T>(wk.h, N, E, lw.ln2_s, lw.ln2_b, wk.hn, nullptr, nullptr, s));
-    TRY((mma::launch_product<T, false, true>(wk.hn, lw.ffn1_w, N, 4 * E, E, 1, E,
-                                             EpiRelu<T>{wk.f1, 4 * E, lw.ffn1_b}, s)));
+        wk.ao, lw.proj_w, N, Ep, Ep, 1, Ep,
+        EpiResidual<T>{wk.h, nullptr, Ep, lw.proj_b, drop, li, 0}, s)));
+    TRY(launch_ln_fwd<T>(wk.h, N, Ep, E, lw.ln2_s, lw.ln2_b, wk.hn, nullptr, nullptr, s));
+    TRY((mma::launch_product<T, false, true>(wk.hn, lw.ffn1_w, N, 4 * Ep, Ep, 1, Ep,
+                                             EpiRelu<T>{wk.f1, 4 * Ep, lw.ffn1_b}, s)));
     TRY((mma::launch_product<T, false, true>(
-        wk.f1, lw.ffn2_w, N, E, 4 * E, 1, 4 * E,
-        EpiResidual<T>{wk.h, li == L - 1 ? out : nullptr, E, lw.ffn2_b, drop, li, 1}, s)));
+        wk.f1, lw.ffn2_w, N, Ep, 4 * Ep, 1, 4 * Ep,
+        EpiResidual<T>{wk.h, li == L - 1 ? out : nullptr, Ep, lw.ffn2_b, drop, li, 1}, s)));
   }
   return 0;
 }
@@ -118,32 +131,47 @@ int product_nn(int epi, const T* A, const T* B, int M, int N, int K, const float
 
 using ctr::enc::Dropout;
 
-// Whether both entry points take (S, E, H, L): 1 <= S <= 128, E % 32 == 0,
-// E >= 32, E % H == 0, E / H a multiple of 4 up to 256, L >= 1, and the
-// attention's staged heads within a block's shared memory both ways
-// (attn_fwd_smem, attn_bwd_smem). ops/cuda/sasrec_encoder.py::fits is the
-// same function of the same shapes.
+// Whether both entry points take (S, E, H, L): S >= 1, E >= 1, H >= 1, E %
+// H == 0, E / H up to 256, L >= 1 (and, at a call, in_envelope's grid
+// rows). ops/cuda/sasrec_encoder.py::fits is the same function of the same
+// shapes.
 extern "C" int sasrec_encoder_fits(int S, int E, int H, int L) {
-  return ctr::enc::in_envelope(1, S, E, H, L) ? 1 : 0;
+  return ctr::enc::shapes_ok(S, E, H, L) ? 1 : 0;
 }
 
-// Bytes of workspace sasrec_encode_fwd needs at (B, S, E).
-extern "C" size_t sasrec_encode_fwd_workspace(int B, int S, int E, int is_bf16) {
+// The padded stream width Ep and head width Dp the kernels run (E, H) at
+// (Widths), as Ep * 1024 + Dp; 0 outside the envelope.
+extern "C" int sasrec_encoder_widths(int E, int H) {
+  if (!ctr::enc::shapes_ok(1, E, H, 1)) return 0;
+  const ctr::enc::Widths w = ctr::enc::widths(E, H);
+  return w.Ep * 1024 + w.Dp;
+}
+
+// Whether the attention runs staged (1) or streamed (0) at (S, E, H).
+extern "C" int sasrec_attention_staged(int S, int E, int H) {
+  return ctr::enc::attn_staged(S, ctr::enc::widths(E, H).Dp) ? 1 : 0;
+}
+
+// Bytes of workspace sasrec_encode_fwd needs at (B, S, E, H).
+extern "C" size_t sasrec_encode_fwd_workspace(int B, int S, int E, int H, int is_bf16) {
   ctr::enc::Carve cv{nullptr};
   const size_t N = static_cast<size_t>(B) * S;
+  const int Ep = ctr::enc::widths(E, H).Ep;
   if (is_bf16)
-    (void)ctr::enc::FwdWork<__nv_bfloat16>(cv, N, E);
+    (void)ctr::enc::FwdWork<__nv_bfloat16>(cv, N, Ep);
   else
-    (void)ctr::enc::FwdWork<float>(cv, N, E);
+    (void)ctr::enc::FwdWork<float>(cv, N, Ep);
   return cv.used;
 }
 
-// x (B*S, E) and out (B*S, E) in the compute dtype (bf16 when is_bf16, else
-// fp32); amask (B, S) fp32, -1e9 at pad keys; the 12 stacked weights in the
-// order qkv_w (L,E,3E), qkv_b (L,3E), proj_w (L,E,E), proj_b (L,E), ln1_s,
-// ln1_b (L,E), ffn1_w (L,E,4E), ffn1_b (L,4E), ffn2_w (L,4E,E), ffn2_b, ln2_s,
-// ln2_b (L,E): the four matrices in the compute dtype, the rest fp32. scale
-// is 1/sqrt(E/H). Dropout on the two residual branches when rate > 0: seed
+// x (B*S, Ep) and out (B*S, Ep) in the compute dtype (bf16 when is_bf16,
+// else fp32), at the padded widths (Ep, Dp) = Widths(E, H), the real columns
+// first; amask (B, S) fp32, -1e9 at pad keys; the 12 stacked weights padded
+// with zeros (the layout of Widths) in the order qkv_w (L,Ep,3Ep), qkv_b
+// (L,3Ep), proj_w (L,Ep,Ep), proj_b (L,Ep), ln1_s, ln1_b (L,Ep), ffn1_w
+// (L,Ep,4Ep), ffn1_b (L,4Ep), ffn2_w (L,4Ep,Ep), ffn2_b, ln2_s, ln2_b (L,Ep):
+// the four matrices in the compute dtype, the rest fp32. E and H are the true
+// width and heads; scale is 1/sqrt(E/H). Dropout on the two residual branches when rate > 0: seed
 // is then a device pointer to one int64, inv_keep fp32(1 / (1 - rate)) and
 // token0 the global token of row 0 (Dropout).
 // workspace holds sasrec_encode_fwd_workspace bytes. Requires
@@ -197,27 +225,48 @@ extern "C" int sasrec_product_fwd(int epi, const void* A, const void* B, int M, 
                                      drop, layer, branch, s);
 }
 
-// out = cd(LN(h)) over (N, E) fp32 h, and xhat, rstd when not null. One launch.
-extern "C" int sasrec_layer_norm(const float* h, int N, int E, const float* scale,
+// out = cd(LN(h)) over the first E of ld columns of (N, ld) fp32 h (the
+// rest written 0), and xhat, rstd when not null. One launch.
+extern "C" int sasrec_layer_norm(const float* h, int N, int ld, int E, const float* scale,
                                  const float* bias, void* out, float* xhat, float* rstd,
                                  int is_bf16, void* stream) {
-  if (N < 1 || E < 32 || E % 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (N < 1 || E < 1 || ld < E) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return ctr::enc::launch_ln_fwd(h, N, E, scale, bias, static_cast<__nv_bfloat16*>(out), xhat,
-                                   rstd, s);
-  return ctr::enc::launch_ln_fwd(h, N, E, scale, bias, static_cast<float*>(out), xhat, rstd, s);
+    return ctr::enc::launch_ln_fwd(h, N, ld, E, scale, bias, static_cast<__nv_bfloat16*>(out),
+                                   xhat, rstd, s);
+  return ctr::enc::launch_ln_fwd(h, N, ld, E, scale, bias, static_cast<float*>(out), xhat, rstd,
+                                 s);
 }
 
-// ao (B*S, E) in cd and, when P is not null, the softmax (B, H, S, S) fp32,
-// from qkv (B*S, 3E) fp32 and amask (B, S). One launch.
+// The staged forward (attn_staged(S, D)): ao (B*S, E) in cd and, when P is
+// not null, the softmax (B, H, S, S) fp32, from qkv (B*S, 3E) fp32 and amask
+// (B, S). One launch.
 extern "C" int sasrec_attention_fwd(const float* qkv, const float* amask, void* ao, float* P,
-                                    int B, int S, int E, int H, float scale, int is_bf16,
+                                    int B, int S, int E, int H, int D, float scale, int is_bf16,
                                     void* stream) {
-  if (!ctr::enc::in_envelope(B, S, E, H, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!ctr::enc::attention_block_ok(B, S, E, H, D) || !ctr::enc::attn_staged(S, D))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return ctr::enc::launch_attn_fwd(qkv, amask, static_cast<__nv_bfloat16*>(ao), P, B, S, E, H,
-                                     scale, s);
-  return ctr::enc::launch_attn_fwd(qkv, amask, static_cast<float*>(ao), P, B, S, E, H, scale, s);
+                                     D, scale, s);
+  return ctr::enc::launch_attn_fwd(qkv, amask, static_cast<float*>(ao), P, B, S, E, H, D, scale,
+                                   s);
+}
+
+// The streamed forward, any S: ao (B*S, E) in cd and, when not null, o32
+// (B*S, E) fp32 and stats (B, H, S) float2 (m, l). One launch.
+extern "C" int sasrec_attention_fwd_streamed(const float* qkv, const float* amask, void* ao,
+                                             float* o32, float* stats, int B, int S, int E, int H,
+                                             int D, float scale, int is_bf16, void* stream) {
+  if (!ctr::enc::attention_block_ok(B, S, E, H, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float2* st = reinterpret_cast<float2*>(stats);
+  if (is_bf16)
+    return ctr::enc::launch_attn_fwd_streamed(qkv, amask, static_cast<__nv_bfloat16*>(ao), o32,
+                                              st, B, S, E, H, D, scale, s);
+  return ctr::enc::launch_attn_fwd_streamed(qkv, amask, static_cast<float*>(ao), o32, st, B, S, E,
+                                            H, D, scale, s);
 }

@@ -20,9 +20,9 @@
 namespace ctr {
 namespace enc {
 
-constexpr int kMaxS = 128;  // attention: up to 4 keys a lane
+constexpr int kMaxS = 128;  // the staged attention: up to 4 keys a lane
 constexpr size_t kMaxSmem = 232448;  // shared memory a block may opt into (H100)
-constexpr int kMaxD = 256;  // head width the attention kernels stage
+constexpr int kMaxD = 256;  // head width the attention kernels take
 constexpr float kEps = 1e-6f;
 constexpr int kRowsPerBlock = 8;  // LayerNorm: one warp a row
 constexpr int kSplitBlocks = 264;  // blocks a split sum aims at: two a streaming multiprocessor
@@ -203,17 +203,19 @@ __global__ void convert(const Tin* __restrict__ x, Tout* __restrict__ y, size_t 
 }
 
 // hn = cd(xhat * scale + bias), xhat = (h - mean) * rsqrt(var + eps), fp32
-// with the biased variance; one warp a row, any E. Also xhat and the rstd
-// when given (the backward's residues).
+// with the biased variance over the row's first E columns; one warp a row of
+// ld >= E columns, any E. Columns E..ld-1 (the zero padding of a width the
+// products do not take) are written 0. Also xhat and the rstd when given
+// (the backward's residues).
 template <typename T>
-__global__ void layer_norm_fwd(const float* __restrict__ h, int N, int E,
+__global__ void layer_norm_fwd(const float* __restrict__ h, int N, int ld, int E,
                                const float* __restrict__ scale, const float* __restrict__ bias,
                                T* __restrict__ out, float* __restrict__ xhat,
                                float* __restrict__ rstd) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (r >= N) return;
-  const float* hr = h + static_cast<size_t>(r) * E;
+  const float* hr = h + static_cast<size_t>(r) * ld;
   float s = 0.f;
   for (int c = lane; c < E; c += 32) s += hr[c];
 #pragma unroll
@@ -227,26 +229,27 @@ __global__ void layer_norm_fwd(const float* __restrict__ h, int N, int E,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   const float rs = rsqrtf(v / static_cast<float>(E) + kEps);
-  for (int c = lane; c < E; c += 32) {
-    const size_t i = static_cast<size_t>(r) * E + c;
-    const float x = (hr[c] - mean) * rs;
+  for (int c = lane; c < ld; c += 32) {
+    const size_t i = static_cast<size_t>(r) * ld + c;
+    const float x = c < E ? (hr[c] - mean) * rs : 0.f;
     if (xhat) xhat[i] = x;
-    out[i] = from_f<T>(__fadd_rn(__fmul_rn(x, scale[c]), bias[c]));
+    out[i] = from_f<T>(c < E ? __fadd_rn(__fmul_rn(x, scale[c]), bias[c]) : 0.f);
   }
   if (rstd && lane == 0) rstd[r] = rs;
 }
 
-// out = dh + rstd (d - mean(d) - xhat mean(d xhat)), d = dn * scale: the
-// LayerNorm backward added to the gradient stream; one warp a row. out may
-// be dh (in place, fp32) or the encoder's dx (T).
+// out = dh + rstd (d - mean(d) - xhat mean(d xhat)), d = dn * scale, the
+// means over the row's first E of ld columns: the LayerNorm backward added to
+// the gradient stream; one warp a row; columns E..ld-1 are written 0. out
+// may be dh (in place, fp32) or the encoder's dx (T).
 template <typename Tout>
 __global__ void layer_norm_bwd(const float* __restrict__ dn, const float* __restrict__ xhat,
                                const float* __restrict__ rstd, const float* __restrict__ scale,
-                               const float* dh, Tout* out, int N, int E) {
+                               const float* dh, Tout* out, int N, int ld, int E) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (r >= N) return;
-  const size_t base = static_cast<size_t>(r) * E;
+  const size_t base = static_cast<size_t>(r) * ld;
   float s1 = 0.f, s2 = 0.f;
   for (int c = lane; c < E; c += 32) {
     const float d = dn[base + c] * scale[c];
@@ -260,14 +263,45 @@ __global__ void layer_norm_bwd(const float* __restrict__ dn, const float* __rest
   }
   const float m1 = s1 / static_cast<float>(E), m2 = s2 / static_cast<float>(E);
   const float rs = rstd[r];
-  for (int c = lane; c < E; c += 32) {
-    const float d = dn[base + c] * scale[c];
-    out[base + c] = from_f<Tout>(dh[base + c] + rs * (d - m1 - xhat[base + c] * m2));
+  for (int c = lane; c < ld; c += 32) {
+    const float d = c < E ? dn[base + c] * scale[c] : 0.f;
+    out[base + c] =
+        from_f<Tout>(c < E ? dh[base + c] + rs * (d - m1 - xhat[base + c] * m2) : 0.f);
   }
 }
 
-// ---- attention: one block per (history, head), S <= kMaxS, D % 4 == 0, D <= kMaxD ----
-// A warp takes kQB queries (the forward, pass 1 of the backward) or kQB keys
+// ---- the widths the kernels run an encoder at ----
+
+// An encoder of width E with H heads (head width D = E / H) runs on the
+// kernels zero-padded where E % 32 != 0 or D % 4 != 0: each head to Dp, D
+// rounded up to 32 / gcd(8, H), so that the heads fill a stream of Ep = H Dp
+// columns, a multiple of 32 (the products' multiple) with 16-byte head rows
+// (the attention's). The stream h, LayerNorm's output, the FFN's 4 Ep hidden
+// and the residual branches keep their E real columns first; q, k, v and
+// the attention's output keep head hh at columns hh Dp .. hh Dp + D - 1.
+// The wrapper pads x and the weights with zeros (the padded rows and
+// columns of every weight and bias are 0), so every padded column stays 0
+// through the layers; LayerNorm takes its statistics over the E real
+// columns; the softmax scale stays 1/sqrt(D); dropout is keyed by the
+// stream's column, which is the real column. At E % 32 == 0 and D % 4 == 0
+// nothing is padded (Dp = D, Ep = E).
+struct Widths {
+  int D, Dp, Ep;
+};
+__host__ __device__ inline Widths widths(int E, int H) {
+  int g = 8, h = H;  // gcd(8, H)
+  while (h) {
+    const int t = g % h;
+    g = h;
+    h = t;
+  }
+  const int D = E / H, q = 32 / g, Dp = (D + q - 1) / q * q;
+  return Widths{D, Dp, H * Dp};
+}
+
+// ---- attention, staged: one block per (history, head), S <= kMaxS ----
+// Heads of width D (% 4 == 0, <= kMaxD) at columns hh D of E = H D-wide
+// segments. A warp takes kQB queries (the forward, pass 1 of the backward) or kQB keys
 // (pass 2) at once, so that each row it reads from shared memory serves kQB
 // sums; rows are read 16 bytes a lane (lanes over keys) or 8 (lanes over a
 // head's columns). Lanes over keys hold KC = ceil(S / 32) keys each (key
@@ -276,7 +310,8 @@ __global__ void layer_norm_bwd(const float* __restrict__ dn, const float* __rest
 // block's warps (at most 8: 256 threads) loop over the query groups (pass
 // 2: the key groups). Every sum runs over its index in order. q, k, v (the
 // backward also g, P and dlog) are staged whole in shared memory, which
-// bounds S with D (attn_fwd_smem, attn_bwd_smem against kMaxSmem).
+// bounds S with D (attn_fwd_smem, attn_bwd_smem against kMaxSmem); past that
+// the streamed kernels below take the history (attn_staged).
 
 constexpr int kQB = 4;
 constexpr int kMaxWarps = 8;
@@ -407,9 +442,9 @@ __device__ __forceinline__ void attn_fwd_group(const float* q, const float* k, c
 template <typename T, int KC>
 __global__ void __launch_bounds__(256)
 attention_fwd(const float* __restrict__ qkv, const float* __restrict__ amask, T* __restrict__ ao,
-              float* __restrict__ P, int S, int E, int H, float scale) {
+              float* __restrict__ P, int S, int E, int H, int D, float scale) {
   extern __shared__ __align__(16) float sm[];
-  const int b = blockIdx.x / H, hh = blockIdx.x % H, D = E / H, ld = attn_ld(D);
+  const int b = blockIdx.x / H, hh = blockIdx.x % H, ld = attn_ld(D);
   float* q = sm;
   float* k = q + S * ld;
   float* v = k + S * ld;
@@ -476,9 +511,9 @@ template <typename T, int KC>
 __global__ void __launch_bounds__(256)
 attention_bwd(const float* __restrict__ qkv, const float* __restrict__ P,
               const float* __restrict__ dao, float* __restrict__ dqkv, T* __restrict__ dqkv_c,
-              int S, int E, int H, float scale) {
+              int S, int E, int H, int D, float scale) {
   extern __shared__ __align__(16) float sm[];
-  const int b = blockIdx.x / H, hh = blockIdx.x % H, D = E / H, ld = attn_ld(D);
+  const int b = blockIdx.x / H, hh = blockIdx.x % H, ld = attn_ld(D);
   const int ls = S + 1;  // row stride of p and dlog
   float* q = sm;
   float* k = q + S * ld;
@@ -625,6 +660,272 @@ attention_bwd(const float* __restrict__ qkv, const float* __restrict__ P,
 inline size_t attn_fwd_smem(int S, int D) { return (3 * S * attn_ld(D) + S) * sizeof(float); }
 inline size_t attn_bwd_smem(int S, int D) {
   return (4 * S * attn_ld(D) + 2 * S * (S + 1)) * sizeof(float);
+}
+
+// Whether the staged kernels take (S, D): their whole heads in shared memory
+// both ways. The encoder takes them there and the streamed kernels past it
+// (ops/cuda/encoder_blocks.py::attention_route is the same rule).
+inline bool attn_staged(int S, int D) {
+  return S <= kMaxS && attn_fwd_smem(S, D) <= kMaxSmem && attn_bwd_smem(S, D) <= kMaxSmem;
+}
+
+// ---- attention, streamed: any S, a block per (history, head, tile of kTile rows) ----
+// Heads as for the staged kernels. Keys (the backward's dk, dv: queries) are
+// walked in tiles of kTile rows through shared memory, so that nothing of
+// size S^2 is kept on chip or in device memory and no S bounds the kernels.
+// A warp holds kQB queries (keys) of the block's tile; within a step lanes
+// run over the step's keys (queries), one a lane, for the dot products, then
+// over column pairs, DC = ceil(D / 64) pairs a lane, for the weighted rows
+// (DC a template argument: the accumulators stay in registers). Every sum
+// runs over its index in order, and tiles in order.
+//
+// The forward keeps each query's running max m and sum l of exp(logit - m)
+// (the online softmax): at each key tile m' = max(m, the tile's logits), the
+// sum and the output rescaled by exp(m - m'); at the end ao = o / l, and
+// (m, l) per query is kept for the backward (stats, (B, H, S) float2) with
+// the fp32 output o32. Not m + log(l): beside the -1e9 pad mask the log
+// would vanish in the rounding, and an all-pad history's P would not be
+// uniform. The backward rebuilds P = exp(logit - m) / l a tile at a time (the
+// logits' bits are the forward's: the same fp32 dots in the same order)
+// and, with Di = sum_d g o (FlashAttention-2's rowsum(dO o O)):
+//   dv_j = sum_i P_ij g_i;  ds_ij = P_ij (g_i . v_j - Di) scale;
+//   dq_i = sum_j ds_ij k_j;  dk_j = sum_i ds_ij q_i.
+// Its grid has two halves, one launch: blocks with blockIdx.z = 0 own a
+// query tile and walk the keys (dq), blocks with 1 own a key tile and walk
+// the queries (dk, dv): no atomics, a repeat is bit-identical.
+
+constexpr int kTile = 32;  // a block's rows (8 warps x kQB) and a step's rows (a lane each)
+
+inline int attn_stream_chunks(int D) { return (D + 63) / 64; }
+inline int attn_stream_threads(int S) { return attn_threads(std::min(S, kTile)); }
+inline size_t attn_stream_fwd_smem(int D) {
+  return (3 * kTile * attn_ld(D) + kTile) * sizeof(float);
+}
+inline size_t attn_stream_bwd_smem(int D) {
+  return (4 * kTile * attn_ld(D) + 4 * kTile) * sizeof(float);
+}
+
+// o[qi][c] += sum over j < n, in order, of a[qi] (held by lane j) times
+// rows[j] at the lane's column pair c * 64 + 2 lane (0 past D).
+template <int DC>
+__device__ __forceinline__ void tile_weighted_rows(float (&o)[kQB][DC][2], const float (&a)[kQB],
+                                                   const float* rows, int n, int D, int ld,
+                                                   int lane) {
+  for (int j = 0; j < n; ++j) {
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int d = c * 64 + 2 * lane;
+      const float2 r = d < D ? *reinterpret_cast<const float2*>(rows + j * ld + d) : float2{};
+#pragma unroll
+      for (int qi = 0; qi < kQB; ++qi) {
+        const float aj = __shfl_sync(0xffffffffu, a[qi], j);
+        o[qi][c][0] = fmaf(aj, r.x, o[qi][c][0]);
+        o[qi][c][1] = fmaf(aj, r.y, o[qi][c][1]);
+      }
+    }
+  }
+}
+
+// ao = cd(softmax(q k^T * scale + mask) v) and, when given, o32 (the fp32
+// output) and stats (m, l per query). Grid (B H, ceil(S / kTile)).
+template <typename T, int DC>
+__global__ void __launch_bounds__(256)
+attention_fwd_streamed(const float* __restrict__ qkv, const float* __restrict__ amask,
+                       T* __restrict__ ao, float* __restrict__ o32, float2* __restrict__ stats,
+                       int S, int E, int H, int D, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int b = blockIdx.x / H, hh = blockIdx.x % H, ld = attn_ld(D);
+  const int q0 = blockIdx.y * kTile, nq = min(kTile, S - q0);
+  float* q = sm;
+  float* k = q + kTile * ld;
+  float* v = k + kTile * ld;
+  float* mask = v + kTile * ld;
+  const size_t t0 = static_cast<size_t>(b) * S;
+  const int lane = threadIdx.x & 31, i0 = (threadIdx.x >> 5) * kQB;
+  const bool active = i0 < nq;  // warp-uniform
+  stage_heads(qkv, 3 * E, t0 + q0, hh * D, nq, D, ld, q);
+  float m[kQB], l[kQB], o[kQB][DC][2];
+#pragma unroll
+  for (int qi = 0; qi < kQB; ++qi) {
+    m[qi] = -3.0e38f;  // below any real logit
+    l[qi] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) o[qi][c][0] = o[qi][c][1] = 0.f;
+  }
+  for (int j0 = 0; j0 < S; j0 += kTile) {
+    const int nk = min(kTile, S - j0);
+    __syncthreads();  // the previous step's keys are consumed
+    stage_heads(qkv, 3 * E, t0 + j0, E + hh * D, nk, D, ld, k);
+    stage_heads(qkv, 3 * E, t0 + j0, 2 * E + hh * D, nk, D, ld, v);
+    for (int s = threadIdx.x; s < nk; s += blockDim.x) mask[s] = amask[t0 + j0 + s];
+    __syncthreads();
+    if (!active) continue;
+    float p[kQB] = {};
+    if (lane < nk) dots(p, q, i0, nq, k + lane * ld, D, ld);
+#pragma unroll
+    for (int qi = 0; qi < kQB; ++qi) {
+      const float logit = lane < nk ? p[qi] * scale + mask[lane] : -3.0e38f;
+      float mt = logit;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float mn = fmaxf(m[qi], mt);
+      const float alpha = expf(m[qi] - mn);
+      const float e = lane < nk ? expf(logit - mn) : 0.f;
+      float sum = e;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[qi] = l[qi] * alpha + sum;
+      m[qi] = mn;
+      p[qi] = e;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        o[qi][c][0] *= alpha;
+        o[qi][c][1] *= alpha;
+      }
+    }
+    tile_weighted_rows<DC>(o, p, v, nk, D, ld, lane);
+  }
+  if (!active) return;
+#pragma unroll
+  for (int qi = 0; qi < kQB; ++qi) {
+    if (i0 + qi >= nq) continue;
+    const size_t row = t0 + q0 + i0 + qi;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int d = c * 64 + 2 * lane;
+      if (d >= D) continue;
+      const float y0 = o[qi][c][0] / l[qi], y1 = o[qi][c][1] / l[qi];
+      store2(ao + row * E + hh * D + d, y0, y1);
+      if (o32) store2(o32 + row * E + hh * D + d, y0, y1);
+    }
+    if (stats && lane == 0)
+      stats[(static_cast<size_t>(b) * H + hh) * S + q0 + i0 + qi] = make_float2(m[qi], l[qi]);
+  }
+}
+
+// The attention backward from the forward's o32 and stats, into dqkv (N, 3E)
+// fp32 and rounded to T (dqkv_c). Grid (B H, ceil(S / kTile), 2).
+template <typename T, int DC>
+__global__ void __launch_bounds__(256)
+attention_bwd_streamed(const float* __restrict__ qkv, const float* __restrict__ amask,
+                       const float* __restrict__ o32, const float2* __restrict__ stats,
+                       const float* __restrict__ dao, float* __restrict__ dqkv,
+                       T* __restrict__ dqkv_c, int S, int E, int H, int D, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int b = blockIdx.x / H, hh = blockIdx.x % H, ld = attn_ld(D);
+  const int r0 = blockIdx.y * kTile, n = min(kTile, S - r0);  // the block's own rows
+  float* q = sm;
+  float* g = q + kTile * ld;
+  float* k = g + kTile * ld;
+  float* v = k + kTile * ld;
+  float* mq = v + kTile * ld;  // a staged query tile's m, l and Di
+  float* lq = mq + kTile;
+  float* di = lq + kTile;
+  float* mask = di + kTile;  // a staged key tile's mask
+  const size_t t0 = static_cast<size_t>(b) * S, srow = (static_cast<size_t>(b) * H + hh) * S;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, w0 = warp * kQB;
+  const int warps = blockDim.x >> 5;
+  const bool active = w0 < n;  // warp-uniform
+  auto stage_queries = [&](int i0, int nq) {  // q, g, m, l and Di = g . o32, a warp a row
+    stage_heads(qkv, 3 * E, t0 + i0, hh * D, nq, D, ld, q);
+    stage_heads(dao, E, t0 + i0, hh * D, nq, D, ld, g);
+    for (int i = warp; i < nq; i += warps) {
+      const size_t at = (t0 + i0 + i) * E + hh * D;
+      float s = 0.f;
+      for (int d = 2 * lane; d < D; d += 64) {
+        const float2 gg = *reinterpret_cast<const float2*>(dao + at + d);
+        const float2 oo = *reinterpret_cast<const float2*>(o32 + at + d);
+        s = fmaf(gg.x, oo.x, s);
+        s = fmaf(gg.y, oo.y, s);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) {
+        const float2 st = stats[srow + i0 + i];
+        mq[i] = st.x;
+        lq[i] = st.y;
+        di[i] = s;
+      }
+    }
+  };
+  auto stage_keys = [&](int j0, int nk) {
+    stage_heads(qkv, 3 * E, t0 + j0, E + hh * D, nk, D, ld, k);
+    stage_heads(qkv, 3 * E, t0 + j0, 2 * E + hh * D, nk, D, ld, v);
+    for (int s = threadIdx.x; s < nk; s += blockDim.x) mask[s] = amask[t0 + j0 + s];
+  };
+  auto put = [&](size_t i, float a, float c) {
+    store2(dqkv + i, a, c);
+    store2(dqkv_c + i, a, c);
+  };
+  if (blockIdx.z == 0) {  // dq of the block's queries, the keys walked in tiles
+    stage_queries(r0, n);
+    float dq[kQB][DC][2] = {};
+    for (int j0 = 0; j0 < S; j0 += kTile) {
+      const int nk = min(kTile, S - j0);
+      __syncthreads();  // the queries are staged, the previous keys consumed
+      stage_keys(j0, nk);
+      __syncthreads();
+      if (!active) continue;
+      float sc[kQB] = {}, dp[kQB] = {};
+      if (lane < nk) {
+        dots(sc, q, w0, n, k + lane * ld, D, ld);
+        dots(dp, g, w0, n, v + lane * ld, D, ld);
+      }
+#pragma unroll
+      for (int qi = 0; qi < kQB; ++qi) {
+        const int i = min(w0 + qi, n - 1);
+        const float p = lane < nk ? expf(sc[qi] * scale + mask[lane] - mq[i]) / lq[i] : 0.f;
+        sc[qi] = p * (dp[qi] - di[i]) * scale;  // ds
+      }
+      tile_weighted_rows<DC>(dq, sc, k, nk, D, ld, lane);
+    }
+    if (!active) return;
+#pragma unroll
+    for (int qi = 0; qi < kQB; ++qi)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int d = c * 64 + 2 * lane;
+        if (d < D && w0 + qi < n)
+          put((t0 + r0 + w0 + qi) * 3 * E + hh * D + d, dq[qi][c][0], dq[qi][c][1]);
+      }
+    return;
+  }
+  // dk, dv of the block's keys, the queries walked in tiles
+  stage_keys(r0, n);
+  float dk[kQB][DC][2] = {}, dv[kQB][DC][2] = {};
+  for (int i0 = 0; i0 < S; i0 += kTile) {
+    const int nq = min(kTile, S - i0);
+    __syncthreads();  // the keys are staged, the previous queries consumed
+    stage_queries(i0, nq);
+    __syncthreads();
+    if (!active) continue;
+    float sc[kQB] = {}, dp[kQB] = {}, p[kQB];
+    if (lane < nq) {
+      dots(sc, k, w0, n, q + lane * ld, D, ld);
+      dots(dp, v, w0, n, g + lane * ld, D, ld);
+    }
+#pragma unroll
+    for (int kj = 0; kj < kQB; ++kj) {
+      const int j = min(w0 + kj, n - 1);
+      p[kj] = lane < nq ? expf(sc[kj] * scale + mask[j] - mq[lane]) / lq[lane] : 0.f;
+      sc[kj] = lane < nq ? p[kj] * (dp[kj] - di[lane]) * scale : 0.f;  // ds
+    }
+    tile_weighted_rows<DC>(dk, sc, q, nq, D, ld, lane);
+    tile_weighted_rows<DC>(dv, p, g, nq, D, ld, lane);
+  }
+  if (!active) return;
+#pragma unroll
+  for (int kj = 0; kj < kQB; ++kj)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int d = c * 64 + 2 * lane;
+      if (d < D && w0 + kj < n) {
+        const size_t at = (t0 + r0 + w0 + kj) * 3 * E + hh * D + d;
+        put(at + E, dk[kj][c][0], dk[kj][c][1]);
+        put(at + 2 * E, dv[kj][c][0], dv[kj][c][1]);
+      }
+    }
 }
 
 // ---- column sums over token chunks, and their reduction ----
@@ -782,64 +1083,99 @@ int launch_convert(const Tin* x, Tout* y, size_t n, cudaStream_t s) {
 }
 
 template <typename T>
-int launch_ln_fwd(const float* h, int N, int E, const float* scale, const float* bias, T* out,
-                  float* xhat, float* rstd, cudaStream_t s) {
+int launch_ln_fwd(const float* h, int N, int ld, int E, const float* scale, const float* bias,
+                  T* out, float* xhat, float* rstd, cudaStream_t s) {
   layer_norm_fwd<T><<<(N + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, s>>>(
-      h, N, E, scale, bias, out, xhat, rstd);
+      h, N, ld, E, scale, bias, out, xhat, rstd);
   return check_launch();
 }
 
 template <typename Tout>
 int launch_ln_bwd(const float* dn, const float* xhat, const float* rstd, const float* scale,
-                  const float* dh, Tout* out, int N, int E, cudaStream_t s) {
+                  const float* dh, Tout* out, int N, int ld, int E, cudaStream_t s) {
   layer_norm_bwd<Tout><<<(N + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, s>>>(
-      dn, xhat, rstd, scale, dh, out, N, E);
+      dn, xhat, rstd, scale, dh, out, N, ld, E);
   return check_launch();
 }
 
-template <typename T, int KC>
-int launch_attn_fwd_kc(const float* qkv, const float* amask, T* ao, float* P, int B, int S, int E,
-                       int H, float scale, cudaStream_t s) {
-  const size_t smem = attn_fwd_smem(S, E / H);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd<T, KC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// kern<<<grid, threads, smem>>> after opting into smem bytes of shared memory.
+template <typename Kern, typename... Args>
+int launch_smem(Kern kern, dim3 grid, int threads, size_t smem, cudaStream_t s, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_fwd<T, KC><<<B * H, attn_threads(S), smem, s>>>(qkv, amask, ao, P, S, E, H, scale);
+  kern<<<grid, threads, smem, s>>>(args...);
   return check_launch();
 }
 
+// The staged kernels (attn_staged(S, D)); heads of width D at hh D.
 template <typename T>
 int launch_attn_fwd(const float* qkv, const float* amask, T* ao, float* P, int B, int S, int E,
-                    int H, float scale, cudaStream_t s) {
+                    int H, int D, float scale, cudaStream_t s) {
+  const size_t smem = attn_fwd_smem(S, D);
+  const int th = attn_threads(S);
   switch (attn_chunks(S)) {
-    case 1: return launch_attn_fwd_kc<T, 1>(qkv, amask, ao, P, B, S, E, H, scale, s);
-    case 2: return launch_attn_fwd_kc<T, 2>(qkv, amask, ao, P, B, S, E, H, scale, s);
-    default: return launch_attn_fwd_kc<T, 4>(qkv, amask, ao, P, B, S, E, H, scale, s);
+    case 1: return launch_smem(attention_fwd<T, 1>, B * H, th, smem, s, qkv, amask, ao, P, S, E,
+                               H, D, scale);
+    case 2: return launch_smem(attention_fwd<T, 2>, B * H, th, smem, s, qkv, amask, ao, P, S, E,
+                               H, D, scale);
+    default: return launch_smem(attention_fwd<T, 4>, B * H, th, smem, s, qkv, amask, ao, P, S, E,
+                                H, D, scale);
   }
-}
-
-template <typename T, int KC>
-int launch_attn_bwd_kc(const float* qkv, const float* P, const float* dao, float* dqkv,
-                       T* dqkv_c, int B, int S, int E, int H, float scale, cudaStream_t s) {
-  const size_t smem = attn_bwd_smem(S, E / H);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd<T, KC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd<T, KC><<<B * H, attn_threads(S), smem, s>>>(qkv, P, dao, dqkv, dqkv_c, S, E, H,
-                                                            scale);
-  return check_launch();
 }
 
 template <typename T>
 int launch_attn_bwd(const float* qkv, const float* P, const float* dao, float* dqkv, T* dqkv_c,
-                    int B, int S, int E, int H, float scale, cudaStream_t s) {
+                    int B, int S, int E, int H, int D, float scale, cudaStream_t s) {
+  const size_t smem = attn_bwd_smem(S, D);
+  const int th = attn_threads(S);
   switch (attn_chunks(S)) {
-    case 1: return launch_attn_bwd_kc<T, 1>(qkv, P, dao, dqkv, dqkv_c, B, S, E, H, scale, s);
-    case 2: return launch_attn_bwd_kc<T, 2>(qkv, P, dao, dqkv, dqkv_c, B, S, E, H, scale, s);
-    default: return launch_attn_bwd_kc<T, 4>(qkv, P, dao, dqkv, dqkv_c, B, S, E, H, scale, s);
+    case 1: return launch_smem(attention_bwd<T, 1>, B * H, th, smem, s, qkv, P, dao, dqkv,
+                               dqkv_c, S, E, H, D, scale);
+    case 2: return launch_smem(attention_bwd<T, 2>, B * H, th, smem, s, qkv, P, dao, dqkv,
+                               dqkv_c, S, E, H, D, scale);
+    default: return launch_smem(attention_bwd<T, 4>, B * H, th, smem, s, qkv, P, dao, dqkv,
+                                dqkv_c, S, E, H, D, scale);
   }
+}
+
+// The streamed kernels, any S; DC = ceil(D / 64) instantiated for D <= kMaxD.
+template <typename T>
+int launch_attn_fwd_streamed(const float* qkv, const float* amask, T* ao, float* o32,
+                             float2* stats, int B, int S, int E, int H, int D, float scale,
+                             cudaStream_t s) {
+  const dim3 grid(B * H, (S + kTile - 1) / kTile);
+  const size_t smem = attn_stream_fwd_smem(D);
+  const int th = attn_stream_threads(S);
+#define CTR_FWD(DC)                                                                          \
+  launch_smem(attention_fwd_streamed<T, DC>, grid, th, smem, s, qkv, amask, ao, o32, stats, S, \
+              E, H, D, scale)
+  switch (attn_stream_chunks(D)) {
+    case 1: return CTR_FWD(1);
+    case 2: return CTR_FWD(2);
+    case 3: return CTR_FWD(3);
+    default: return CTR_FWD(4);
+  }
+#undef CTR_FWD
+}
+
+template <typename T>
+int launch_attn_bwd_streamed(const float* qkv, const float* amask, const float* o32,
+                             const float2* stats, const float* dao, float* dqkv, T* dqkv_c, int B,
+                             int S, int E, int H, int D, float scale, cudaStream_t s) {
+  const dim3 grid(B * H, (S + kTile - 1) / kTile, 2);
+  const size_t smem = attn_stream_bwd_smem(D);
+  const int th = attn_stream_threads(S);
+#define CTR_BWD(DC)                                                                        \
+  launch_smem(attention_bwd_streamed<T, DC>, grid, th, smem, s, qkv, amask, o32, stats, dao, \
+              dqkv, dqkv_c, S, E, H, D, scale)
+  switch (attn_stream_chunks(D)) {
+    case 1: return CTR_BWD(1);
+    case 2: return CTR_BWD(2);
+    case 3: return CTR_BWD(3);
+    default: return CTR_BWD(4);
+  }
+#undef CTR_BWD
 }
 
 template <typename T, int MODE>
@@ -856,13 +1192,38 @@ inline int launch_reduce(const float* part, const GradLayout& lay, float* out, c
   return check_launch();
 }
 
-// The envelope both entry points hold, forward and backward alike (see
-// ops/cuda/sasrec_encoder.py::fits): the attention's staged heads in shared
-// memory both ways.
+// Attention's forward, staged or streamed by shape (attn_staged): ao, and the
+// backward's residues when given (P staged; o32 and stats streamed).
+template <typename T>
+int launch_attention_fwd(const float* qkv, const float* amask, T* ao, float* P, float* o32,
+                         float2* stats, int B, int S, int Ep, int H, int Dp, float scale,
+                         cudaStream_t s) {
+  if (attn_staged(S, Dp)) return launch_attn_fwd<T>(qkv, amask, ao, P, B, S, Ep, H, Dp, scale, s);
+  return launch_attn_fwd_streamed<T>(qkv, amask, ao, o32, stats, B, S, Ep, H, Dp, scale, s);
+}
+
+// Whether an attention block's entry point takes heads of width D at
+// columns hh D of E = H D-wide segments: 16-byte rows (D % 4 == 0), D up to
+// kMaxD (the blocks bound one by one for the checks on the card).
+inline bool attention_block_ok(int B, int S, int E, int H, int D) {
+  return B >= 1 && S >= 1 && H >= 1 && D >= 4 && D % 4 == 0 && H * D == E && D <= kMaxD;
+}
+
+constexpr long long kMaxTokens = 65535LL * mma::BM;  // B S: the tile product's grid rows
+constexpr long long kMaxStreamS = 65535LL * kTile;   // S: the streamed attention's grid rows
+
+// The shapes both entry points take, forward and backward alike, at the
+// true widths (ops/cuda/sasrec_encoder.py::fits): any S and E, E % H == 0,
+// a head width up to kMaxD.
+inline bool shapes_ok(int S, int E, int H, int L) {
+  return S >= 1 && E >= 1 && H >= 1 && E % H == 0 && E / H <= kMaxD && L >= 1;
+}
+
+// A call's envelope (check_envelope): the shapes, and the grids' rows: B S
+// tokens within the products', S within the streamed attention's.
 inline bool in_envelope(int B, int S, int E, int H, int L) {
-  return B >= 1 && S >= 1 && S <= kMaxS && E >= 32 && E % 32 == 0 && H >= 1 && E % H == 0 &&
-         (E / H) % 4 == 0 && E / H <= kMaxD && L >= 1 && attn_fwd_smem(S, E / H) <= kMaxSmem &&
-         attn_bwd_smem(S, E / H) <= kMaxSmem;
+  return shapes_ok(S, E, H, L) && B >= 1 && static_cast<long long>(B) * S <= kMaxTokens &&
+         S <= kMaxStreamS;
 }
 
 inline bool dropout_ok(const int64_t* seed, float rate) {

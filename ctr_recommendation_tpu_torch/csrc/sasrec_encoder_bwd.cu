@@ -14,6 +14,7 @@
 //   attn: da1 = drop0(dh);  dWp = cd(ao)^T cd(da1);  dbp = sum da1
 //         dao = cd(da1) cd(Wp)^T;  per head (fp32): dp = dao v^T,
 //         dlog = p (dp - sum(dp p)) / sqrt(D);  dq = dlog k;  dk = dlog^T q;  dv = p^T dao
+//         (sum(dp p) = dao . o, the attention's fp32 output, where the keys stream)
 //         dWqkv = cd(hn1)^T cd(dqkv);  dbqkv = sum dqkv
 //         dh += LN1^T(cd(dqkv) cd(Wqkv)^T)                (dln1 scale, bias summed)
 //
@@ -38,8 +39,14 @@
 // gate on dh is fused into the column sum that first reads it, which also
 // writes the gated cd operand. The residues of every layer (hn1, xhat1,
 // rstd1, qkv, p, ao, xhat2, rstd2, hn2, f1) live in a workspace the wrapper
-// allocates: ~370 MB a layer at B=4096, E=128, bf16. The recompute skips
-// the last layer's ffn2 product, which no gradient reads.
+// allocates: ~370 MB a layer at B=4096, E=128, bf16. The attention's
+// residue is the softmax P (B H S^2 floats) where the staged kernels take
+// the history (attn_staged), else the fp32 output o and each query's (m, l)
+// (B H S float2), from which the streamed backward rebuilds P a key tile at
+// a time: at S=200, E=128, H=2, B=4096 that is 0.42 GB a layer where P
+// would be 1.31 GB. Widths off the kernels' multiples run zero-padded
+// (Widths), as in the forward. The recompute skips the last layer's ffn2
+// product, which no gradient reads.
 // Launches: 25 L + 1 (the upcast of x, 7 L - 1 recomputing, the upcast of
 // g, 18 a layer in reverse including the reduction).
 
@@ -54,7 +61,9 @@ struct Residues {  // one layer's, kept by the recompute
   float* xhat1;
   float* rstd1;
   float* qkv;
-  float* p;
+  float* p;       // staged: the softmax (B, H, S, S)
+  float* o32;     // streamed: the attention's fp32 output (N, Ep)
+  float2* stats;  // streamed: each query's (m, l) (B, H, S)
   T* ao;
   float* xhat2;
   float* rstd2;
@@ -73,7 +82,8 @@ struct BwdWork {
   float* dn;     // dn2, dao, dn1 (N, E)
   float* part;   // one layer's weight-gradient partials (GradLayout)
 
-  BwdWork(Carve& cv, int B, int S, int E, int H, int L) {
+  // E is the padded width Ep; staged whether the attention runs staged
+  BwdWork(Carve& cv, int B, int S, int E, int H, int L, bool staged) {
     const size_t N = static_cast<size_t>(B) * S, NE = N * E;
     res.resize(L);
     for (int li = 0; li < L; ++li) {
@@ -82,7 +92,9 @@ struct BwdWork {
       r.xhat1 = cv.take<float>(NE);
       r.rstd1 = cv.take<float>(N);
       r.qkv = cv.take<float>(3 * NE);
-      r.p = cv.take<float>(static_cast<size_t>(B) * H * S * S);
+      r.p = staged ? cv.take<float>(static_cast<size_t>(B) * H * S * S) : nullptr;
+      r.o32 = staged ? nullptr : cv.take<float>(NE);
+      r.stats = staged ? nullptr : cv.take<float2>(static_cast<size_t>(B) * H * S);
       r.ao = cv.take<T>(NE);
       r.xhat2 = cv.take<float>(NE);
       r.rstd2 = cv.take<float>(N);
@@ -105,28 +117,34 @@ struct BwdWork {
     if (rc_ != 0) return rc_; \
   } while (0)
 
+// g, x and dx (B*S, Ep) and the weights at the padded widths (Widths); E
+// the true width, for LayerNorm.
 template <typename T>
 int encode_bwd(const T* g, const T* x, const float* amask, const Weights& w, const Dropout& drop,
-               T* dx, float* out, int B, int S, int E, int H, int L, float scale, char* workspace,
-               cudaStream_t s) {
+               T* dx, float* out, int B, int S, int E_true, int H, int L, float scale,
+               char* workspace, cudaStream_t s) {
   const int N = B * S;
+  const Widths wd = widths(E_true, H);
+  const int E = wd.Ep, Dp = wd.Dp;  // the kernels' widths
+  const bool staged = attn_staged(S, Dp);
   const size_t NE = static_cast<size_t>(N) * E;
   Carve cv{workspace};
-  const BwdWork<T> wk(cv, B, S, E, H, L);
+  const BwdWork<T> wk(cv, B, S, E, H, L, staged);
 
   // ---- the forward, recomputed, keeping each layer's residues ----
   TRY(launch_convert(x, wk.h, NE, s));
   for (int li = 0; li < L; ++li) {
     const Layer<T> lw(w, li, E);
     const Residues<T>& r = wk.res[li];
-    TRY(launch_ln_fwd<T>(wk.h, N, E, lw.ln1_s, lw.ln1_b, r.hn1, r.xhat1, r.rstd1, s));
+    TRY(launch_ln_fwd<T>(wk.h, N, E, E_true, lw.ln1_s, lw.ln1_b, r.hn1, r.xhat1, r.rstd1, s));
     TRY((mma::launch_product<T, false, true>(r.hn1, lw.qkv_w, N, 3 * E, E, 1, E,
                                              EpiBias{r.qkv, 3 * E, lw.qkv_b}, s)));
-    TRY(launch_attn_fwd<T>(r.qkv, amask, r.ao, r.p, B, S, E, H, scale, s));
+    TRY(launch_attention_fwd<T>(r.qkv, amask, r.ao, r.p, r.o32, r.stats, B, S, E, H, Dp, scale,
+                                s));
     TRY((mma::launch_product<T, false, true>(
         r.ao, lw.proj_w, N, E, E, 1, E,
         EpiResidual<T>{wk.h, nullptr, E, lw.proj_b, drop, li, 0}, s)));
-    TRY(launch_ln_fwd<T>(wk.h, N, E, lw.ln2_s, lw.ln2_b, r.hn2, r.xhat2, r.rstd2, s));
+    TRY(launch_ln_fwd<T>(wk.h, N, E, E_true, lw.ln2_s, lw.ln2_b, r.hn2, r.xhat2, r.rstd2, s));
     TRY((mma::launch_product<T, false, true>(r.hn2, lw.ffn1_w, N, 4 * E, E, 1, E,
                                              EpiRelu<T>{r.f1, 4 * E, lw.ffn1_b}, s)));
     if (li < L - 1)
@@ -161,7 +179,7 @@ int encode_bwd(const T* g, const T* x, const float* amask, const Weights& w, con
                                               EpiStore{wk.dn, E}, s)));
     TRY((launch_column_sums<T, kLnSums>(wk.dn, r.xhat2, nullptr, drop, li, 1, N, E, vec, pk(10),
                                         pk(11), vs, s)));
-    TRY(launch_ln_bwd<float>(wk.dn, r.xhat2, r.rstd2, lw.ln2_s, wk.dh, wk.dh, N, E, s));
+    TRY(launch_ln_bwd<float>(wk.dn, r.xhat2, r.rstd2, lw.ln2_s, wk.dh, wk.dh, N, E, E_true, s));
     // attention branch
     TRY((launch_column_sums<T, kGate>(wk.dh, nullptr, wk.gated, drop, li, 0, N, E, vec, pk(3),
                                       nullptr, vs, s)));
@@ -169,7 +187,11 @@ int encode_bwd(const T* g, const T* x, const float* amask, const Weights& w, con
                                             lay.split[2].chunk, mat(2, E), s)));
     TRY((mma::launch_product<T, false, false>(wk.gated, lw.proj_w, N, E, E, 1, E,
                                               EpiStore{wk.dn, E}, s)));
-    TRY(launch_attn_bwd<T>(r.qkv, r.p, wk.dn, wk.dz, wk.dz_c, B, S, E, H, scale, s));
+    if (staged)
+      TRY(launch_attn_bwd<T>(r.qkv, r.p, wk.dn, wk.dz, wk.dz_c, B, S, E, H, Dp, scale, s));
+    else
+      TRY(launch_attn_bwd_streamed<T>(r.qkv, amask, r.o32, r.stats, wk.dn, wk.dz, wk.dz_c, B, S,
+                                      E, H, Dp, scale, s));
     TRY((launch_column_sums<T, kSum>(wk.dz, nullptr, nullptr, drop, li, 0, N, 3 * E, vec, pk(1),
                                      nullptr, 3 * vs, s)));
     TRY((mma::launch_product<T, true, true>(r.hn1, wk.dz_c, E, 3 * E, N, lay.split[0].count,
@@ -179,9 +201,9 @@ int encode_bwd(const T* g, const T* x, const float* amask, const Weights& w, con
     TRY((launch_column_sums<T, kLnSums>(wk.dn, r.xhat1, nullptr, drop, li, 0, N, E, vec, pk(4),
                                         pk(5), vs, s)));
     if (li > 0)
-      TRY(launch_ln_bwd<float>(wk.dn, r.xhat1, r.rstd1, lw.ln1_s, wk.dh, wk.dh, N, E, s));
+      TRY(launch_ln_bwd<float>(wk.dn, r.xhat1, r.rstd1, lw.ln1_s, wk.dh, wk.dh, N, E, E_true, s));
     else
-      TRY(launch_ln_bwd<T>(wk.dn, r.xhat1, r.rstd1, lw.ln1_s, wk.dh, dx, N, E, s));
+      TRY(launch_ln_bwd<T>(wk.dn, r.xhat1, r.rstd1, lw.ln1_s, wk.dh, dx, N, E, E_true, s));
     TRY(launch_reduce(part, lay, out, s));
   }
   return 0;
@@ -197,17 +219,20 @@ using ctr::enc::Dropout;
 extern "C" size_t sasrec_encode_bwd_workspace(int B, int S, int E, int H, int L, int is_bf16) {
   if (!ctr::enc::in_envelope(B, S, E, H, L)) return 0;
   ctr::enc::Carve cv{nullptr};
+  const ctr::enc::Widths wd = ctr::enc::widths(E, H);
+  const bool staged = ctr::enc::attn_staged(S, wd.Dp);
   if (is_bf16)
-    (void)ctr::enc::BwdWork<__nv_bfloat16>(cv, B, S, E, H, L);
+    (void)ctr::enc::BwdWork<__nv_bfloat16>(cv, B, S, wd.Ep, H, L, staged);
   else
-    (void)ctr::enc::BwdWork<float>(cv, B, S, E, H, L);
+    (void)ctr::enc::BwdWork<float>(cv, B, S, wd.Ep, H, L, staged);
   return cv.used;
 }
 
-// g, x and dx (B*S, E) in the compute dtype (bf16 when is_bf16, else fp32);
-// amask (B, S) fp32; the 12 stacked weights as for sasrec_encode_fwd; seed,
-// rate, inv_keep and token0 the forward's. Writes dx and out, the 12 fp32 weight
-// gradients (L, ...) one after another in the weights' order. workspace
+// g, x and dx (B*S, Ep) in the compute dtype (bf16 when is_bf16, else fp32),
+// at the padded widths as for sasrec_encode_fwd; amask (B, S) fp32; the 12
+// stacked weights padded as for sasrec_encode_fwd; seed, rate, inv_keep and
+// token0 the forward's. Writes dx and out, the 12 fp32 weight gradients (L,
+// ...) of the padded weights one after another in the weights' order. workspace
 // holds sasrec_encode_bwd_workspace bytes. Requires the forward's envelope
 // and 16-byte aligned pointers. Enqueues 25 L + 1 launches on
 // `stream`; returns the first cudaError_t that is not 0.
@@ -276,31 +301,55 @@ extern "C" int sasrec_product_bwd(int layout, int epi, const void* A, const void
              static_cast<const float*>(aux), static_cast<float*>(out_c));
 }
 
-// out = dh + the LayerNorm backward of dn (N, E) fp32; out in cd when
-// out_cd, else fp32 (may be dh). One launch.
+// out = dh + the LayerNorm backward of dn over the first E of ld columns of
+// (N, ld) fp32 (the rest written 0); out in cd when out_cd, else fp32 (may
+// be dh). One launch.
 extern "C" int sasrec_layer_norm_bwd(const float* dn, const float* xhat, const float* rstd,
-                                     const float* scale, const float* dh, void* out, int N, int E,
-                                     int out_cd, int is_bf16, void* stream) {
-  if (N < 1 || E < 32 || E % 32) return static_cast<int>(cudaErrorInvalidValue);
+                                     const float* scale, const float* dh, void* out, int N,
+                                     int ld, int E, int out_cd, int is_bf16, void* stream) {
+  if (N < 1 || E < 1 || ld < E) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_cd && is_bf16)
     return ctr::enc::launch_ln_bwd(dn, xhat, rstd, scale, dh, static_cast<__nv_bfloat16*>(out),
-                                   N, E, s);
-  return ctr::enc::launch_ln_bwd(dn, xhat, rstd, scale, dh, static_cast<float*>(out), N, E, s);
+                                   N, ld, E, s);
+  return ctr::enc::launch_ln_bwd(dn, xhat, rstd, scale, dh, static_cast<float*>(out), N, ld, E,
+                                 s);
 }
 
-// dqkv (B*S, 3E) fp32 and its cd copy from qkv (B*S, 3E) fp32, the softmax P
-// (B, H, S, S) and dao (B*S, E) fp32. One launch.
+// The staged backward (attn_staged(S, D)): dqkv (B*S, 3E) fp32 and its cd
+// copy from qkv (B*S, 3E) fp32, the softmax P (B, H, S, S) and dao (B*S, E)
+// fp32. One launch.
 extern "C" int sasrec_attention_bwd(const float* qkv, const float* P, const float* dao,
-                                    float* dqkv, void* dqkv_c, int B, int S, int E, int H,
+                                    float* dqkv, void* dqkv_c, int B, int S, int E, int H, int D,
                                     float scale, int is_bf16, void* stream) {
-  if (!ctr::enc::in_envelope(B, S, E, H, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!ctr::enc::attention_block_ok(B, S, E, H, D) || !ctr::enc::attn_staged(S, D))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return ctr::enc::launch_attn_bwd(qkv, P, dao, dqkv, static_cast<__nv_bfloat16*>(dqkv_c), B,
-                                     S, E, H, scale, s);
-  return ctr::enc::launch_attn_bwd(qkv, P, dao, dqkv, static_cast<float*>(dqkv_c), B, S, E, H,
+                                     S, E, H, D, scale, s);
+  return ctr::enc::launch_attn_bwd(qkv, P, dao, dqkv, static_cast<float*>(dqkv_c), B, S, E, H, D,
                                    scale, s);
+}
+
+// The streamed backward, any S: dqkv (B*S, 3E) fp32 and its cd copy from qkv
+// (B*S, 3E) fp32, amask (B, S), the forward's o32 (B*S, E) and stats (B, H,
+// S) float2, and dao (B*S, E) fp32. One launch.
+extern "C" int sasrec_attention_bwd_streamed(const float* qkv, const float* amask,
+                                             const float* o32, const float* stats,
+                                             const float* dao, float* dqkv, void* dqkv_c, int B,
+                                             int S, int E, int H, int D, float scale, int is_bf16,
+                                             void* stream) {
+  if (!ctr::enc::attention_block_ok(B, S, E, H, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float2* st = reinterpret_cast<const float2*>(stats);
+  if (is_bf16)
+    return ctr::enc::launch_attn_bwd_streamed(qkv, amask, o32, st, dao, dqkv,
+                                              static_cast<__nv_bfloat16*>(dqkv_c), B, S, E, H, D,
+                                              scale, s);
+  return ctr::enc::launch_attn_bwd_streamed(qkv, amask, o32, st, dao, dqkv,
+                                            static_cast<float*>(dqkv_c), B, S, E, H, D, scale, s);
 }
 
 // Column sums of G (N, ncols) fp32 over Z chunks of `chunk` rows into part

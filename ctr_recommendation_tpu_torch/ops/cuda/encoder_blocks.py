@@ -7,11 +7,20 @@ tensor is (N, width) row-major over the N = B*S tokens of a batch.
   with the encoder's epilogues, in three layouts: "nn" A W (the forward's
   four products), "nt" A W^T (the backward's transposed products, W read as
   stored), "tn" A^T G over chunks of tokens (a weight gradient's partials);
-- ``layer_norm`` and ``layer_norm_bwd``: fp32, eps 1e-6, a warp a row;
-- ``attention_fwd`` and ``attention_bwd``: fp32, a block per (history,
-  head), S <= 128 (up to four keys a lane), D <= 256, the head's rows
-  staged in shared memory (``attn_fwd_smem`` / ``attn_bwd_smem`` bytes,
-  within ``MAX_SMEM``);
+- ``layer_norm`` and ``layer_norm_bwd``: fp32, eps 1e-6, a warp a row, the
+  statistics over a row's first E columns (a padded row's others written 0);
+- ``attention_fwd`` and ``attention_bwd``, staged: fp32, a block per
+  (history, head), S <= 128 (up to four keys a lane), D <= 256, the head's
+  rows staged whole in shared memory (``attn_fwd_smem`` / ``attn_bwd_smem``
+  bytes, within ``MAX_SMEM``);
+- ``attention_fwd_streamed`` and ``attention_bwd_streamed``: fp32, any S,
+  D <= 256, a block per (history, head, tile of ``ATTN_TILE`` rows), the
+  keys (the backward's dk and dv: the queries) walked in tiles of
+  ``ATTN_TILE`` rows with the online softmax; the forward keeps each
+  query's running max and sum (m, l) and its fp32 output, from which the
+  backward rebuilds P a tile at a time (FlashAttention-2's backward,
+  without atomics). The encoder takes the staged pair where it fits
+  (``attention_route``) and the streamed pair past it;
 - ``column_sums``: bias gradients, LayerNorm's dscale and dbias and the
   dropout gate on dh, over the same token chunks; ``reduce_partials``: the
   fixed-order sum of a chunked partial.
@@ -46,9 +55,10 @@ from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
 )
 
 LN_EPS = 1e-6
-MAX_S = 128  # csrc/sasrec_encoder.cuh kMaxS: KC = ceil(S / 32) <= 4 keys a lane
-MAX_D = 256
+MAX_S = 128  # kMaxS: the staged attention, KC = ceil(S / 32) <= 4 keys a lane
+MAX_D = 256  # the head width both attentions take (kMaxD)
 MAX_SMEM = 232_448  # shared memory an H100 block may opt into (kMaxSmem)
+ATTN_TILE = 32  # kTile: the rows of a streamed attention block and of each step
 
 
 def attn_ld(d: int) -> int:
@@ -65,6 +75,23 @@ def attn_fwd_smem(s: int, d: int) -> int:
 def attn_bwd_smem(s: int, d: int) -> int:
     """Shared-memory bytes of the attention backward: q, k, v, g, P and dlog."""
     return (4 * s * attn_ld(d) + 2 * s * (s + 1)) * 4
+
+
+def attn_stream_smem(d: int) -> tuple[int, int]:
+    """Shared-memory bytes of the streamed attention (forward, backward): a
+    tile of q, k and v and its mask; a tile of q, g, k and v and its m, l,
+    Di and mask (csrc/sasrec_encoder.cuh ``attn_stream_*_smem``)."""
+    ld = attn_ld(d)
+    return (3 * ATTN_TILE * ld + ATTN_TILE) * 4, (4 * ATTN_TILE * ld + 4 * ATTN_TILE) * 4
+
+
+def attention_route(s: int, d: int) -> str:
+    """"staged" where the staged attention takes (S, D), its heads whole in
+    shared memory both ways, else "streamed" (csrc/sasrec_encoder.cuh
+    ``attn_staged``; D the head width the kernels run, padded to 4)."""
+    staged = (s <= MAX_S and attn_fwd_smem(s, d) <= MAX_SMEM
+              and attn_bwd_smem(s, d) <= MAX_SMEM)
+    return "staged" if staged else "streamed"
 
 # Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3")
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -100,7 +127,8 @@ def dropout_mask(seed, n_tokens: int, e: int, layer: int, branch: int, rate: flo
                  token0: int = 0):
     """Keep mask (n_tokens, e) bool of dropout site (layer, branch): element
     (t, c) is Philox4x32-10 word c % 4 of counter ((token0 + t) mod 2^32,
-    c // 4, 2 layer + branch, 0) under key (seed's low, high 32 bits); u =
+    c // 4, 2 layer + branch, 0) under key (seed's low, high 32 bits), so
+    a column keeps its bits whatever the width around it; u =
     (word >> 8) 2^-24, the TPU kernel's top-24-bit rule, and the element is
     kept iff u >= rate (compared in fp32). ``seed`` is an int64 tensor (1,)
     on the device of the result, or an int; nothing is read back to the
@@ -108,13 +136,13 @@ def dropout_mask(seed, n_tokens: int, e: int, layer: int, branch: int, rate: flo
     seed = torch.as_tensor(seed, dtype=torch.int64).reshape(-1)[:1]
     dev = seed.device
     t = ((token0 + torch.arange(n_tokens, dtype=torch.int64, device=dev)) & _U32)[:, None]
-    q = torch.arange(e // 4, dtype=torch.int64, device=dev)[None, :]
+    q = torch.arange(-(-e // 4), dtype=torch.int64, device=dev)[None, :]
     words = philox4x32(
         (t, q, torch.full((), 2 * layer + branch, dtype=torch.int64, device=dev),
          torch.zeros((), dtype=torch.int64, device=dev)),
         (seed & _U32, (seed >> 32) & _U32),
     )
-    w = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(n_tokens, e)
+    w = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(n_tokens, -1)[:, :e]
     u = (w >> 8).to(torch.float32) * 2.0**-24
     return u >= torch.tensor(rate, dtype=torch.float32, device=dev)
 
@@ -183,45 +211,58 @@ def product_plain(a, b, layout="nn", epilogue="store", *, bias=None, aux=None, s
     return y, y.to(cd)
 
 
-def layer_norm_plain(h, scale, bias, cd, residues=False):
+def _pad_cols(t, width):
+    return t if t.shape[1] == width else torch.nn.functional.pad(t, (0, width - t.shape[1]))
+
+
+def layer_norm_plain(h, scale, bias, cd, residues=False, e=None):
     """fp32 LayerNorm of h (N, E), the TPU kernel's ``_ln_fwd`` -> hn =
     (xhat * scale + bias) rounded to cd; with ``residues`` (hn, xhat,
-    rstd (N,))."""
+    rstd (N,)). With ``e``, h is a zero-padded (N, W) whose first e columns
+    are the row: the statistics over those, every output 0 after them."""
+    w = h.shape[1]
+    h = h[:, :e] if e else h
     m = h.mean(-1, keepdim=True)
     r = torch.rsqrt((h - m).square().mean(-1, keepdim=True) + LN_EPS)
     xhat = (h - m) * r
-    hn = (xhat * scale + bias).to(cd)
-    return (hn, xhat, r[:, 0]) if residues else hn
+    hn = _pad_cols((xhat * scale[:h.shape[1]] + bias[:h.shape[1]]).to(cd), w)
+    return (hn, _pad_cols(xhat, w), r[:, 0]) if residues else hn
 
 
-def layer_norm_bwd_plain(dn, xhat, rstd, scale, dh):
+def layer_norm_bwd_plain(dn, xhat, rstd, scale, dh, e=None):
     """dh + the backward of y = xhat * scale + bias at cotangent dn (the TPU
-    kernel's ``_ln_bwd``), fp32."""
+    kernel's ``_ln_bwd``), fp32. With ``e``, over the first e of the padded
+    rows' columns, 0 after them."""
+    w = dn.shape[1]
+    if e:
+        dn, xhat, scale, dh = dn[:, :e], xhat[:, :e], scale[:e], dh[:, :e]
     d = dn * scale
     dx = rstd[:, None] * (d - d.mean(-1, keepdim=True)
                           - xhat * (d * xhat).mean(-1, keepdim=True))
-    return dh + dx
+    return _pad_cols(dh + dx, w)
 
 
-def attention_fwd_plain(qkv, amask, num_heads, cd):
-    """qkv (B*S, 3E) fp32, amask (B, S) additive fp32 -> (ao (B*S, E) in cd,
-    p (B, H, S, S) fp32): per head softmax(q k^T / sqrt(D) + mask) v, fp32,
-    the TPU kernel's ``_attn_fwd``."""
+def attention_fwd_plain(qkv, amask, num_heads, cd, *, scale=None):
+    """The staged attention's plain version. qkv (B*S, 3E) fp32, amask (B, S)
+    additive fp32 -> (ao (B*S, E) in cd, p (B, H, S, S) fp32): per head
+    softmax(q k^T / sqrt(D) + mask) v, fp32, the TPU kernel's ``_attn_fwd``.
+    ``scale``: 1/sqrt(D) by default; the true D's where the heads run
+    zero-padded (the encoder's padded widths)."""
     b, s = amask.shape
     e = qkv.shape[1] // 3
-    d = e // num_heads
+    scale = scale or 1.0 / (e // num_heads) ** 0.5
     q, k, v = (heads(t, b, s, num_heads) for t in qkv.split(e, -1))
-    p = torch.softmax(q @ k.transpose(-1, -2) * (1.0 / d**0.5) + amask.float()[:, None, None, :],
-                      dim=-1)
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale + amask.float()[:, None, None, :], dim=-1)
     return merge(p @ v).to(cd), p
 
 
-def attention_bwd_plain(qkv, p, dao, cd):
-    """The TPU kernel's ``_attn_bwd``, fp32: qkv (B*S, 3E), the softmax p
-    (B, H, S, S), dao (B*S, E) -> (dqkv (B*S, 3E), dqkv rounded to cd)."""
+def attention_bwd_plain(qkv, p, dao, cd, *, scale=None):
+    """The staged attention backward's plain version, the TPU kernel's
+    ``_attn_bwd``, fp32: qkv (B*S, 3E), the softmax p (B, H, S, S), dao
+    (B*S, E) -> (dqkv (B*S, 3E), dqkv rounded to cd)."""
     b, h, s, _ = p.shape
     e = dao.shape[1]
-    inv = 1.0 / (e // h) ** 0.5
+    inv = scale or 1.0 / (e // h) ** 0.5
     g = heads(dao, b, s, h)
     q, k, v = (heads(t, b, s, h) for t in qkv.split(e, -1))
     dp = g @ v.transpose(-1, -2)
@@ -231,15 +272,88 @@ def attention_bwd_plain(qkv, p, dao, cd):
     return dqkv, dqkv.to(cd)
 
 
+def _dots(a, b):
+    """a (..., M, D) . b (..., N, D) -> (..., M, N): fp32 operands, each sum
+    in fp64 rounded once to fp32 (the kernels sum in fp32, in order: within
+    the bars, and a zero-padded D changes nothing here)."""
+    return (a.double() @ b.double().transpose(-1, -2)).float()
+
+
+def _weighted(a, rows):
+    """a (..., M, N) times rows (..., N, D) -> (..., M, D), summed as ``_dots``."""
+    return (a.double() @ rows.double()).float()
+
+
+def attention_fwd_streamed_plain(qkv, amask, num_heads, cd, *, scale=None):
+    """The streamed attention's plain version, in the kernel's order: the
+    keys in tiles of ATTN_TILE, each query's running max m and sum l of
+    exp(logit - m), its output rescaled by exp(m - m') where a tile raises
+    the max, divided by l at the end. qkv (B*S, 3E) fp32, amask (B, S) ->
+    (ao (B*S, E) in cd, o (B*S, E) fp32, stats (B, H, S, 2) fp32: m and l).
+    ``scale`` as for ``attention_fwd_plain``."""
+    b, s = amask.shape
+    e = qkv.shape[1] // 3
+    scale = scale or 1.0 / (e // num_heads) ** 0.5
+    q, k, v = (heads(t, b, s, num_heads) for t in qkv.split(e, -1))
+    mask = amask.float()[:, None, None, :]
+    m = torch.full(q.shape[:3], -3.0e38, device=qkv.device)
+    l = torch.zeros(q.shape[:3], device=qkv.device)
+    o = torch.zeros(q.shape, device=qkv.device)
+    for j0 in range(0, s, ATTN_TILE):
+        j1 = min(s, j0 + ATTN_TILE)
+        logit = _dots(q, k[:, :, j0:j1]) * scale + mask[..., j0:j1]
+        mn = torch.maximum(m, logit.amax(-1))
+        alpha = torch.exp(m - mn)
+        ex = torch.exp(logit - mn[..., None])
+        l = l * alpha + ex.sum(-1)
+        o = o * alpha[..., None] + _weighted(ex, v[:, :, j0:j1])
+        m = mn
+    out = merge(o / l[..., None])
+    return out.to(cd), out, torch.stack([m, l], dim=-1)
+
+
+def attention_bwd_streamed_plain(qkv, amask, o, stats, dao, cd, *, scale=None):
+    """The streamed attention backward's plain version, in the kernel's
+    order: P = exp(logit - m) / l rebuilt a key tile at a time from the
+    forward's stats, Di = dao . o per query and head, ds = P (dao . v - Di)
+    scale; dq summed over the key tiles in order, dk and dv over all
+    queries. qkv (B*S, 3E), amask (B, S), o (B*S, E) fp32 (the forward's
+    output), stats (B, H, S, 2), dao (B*S, E) -> (dqkv (B*S, 3E) fp32, dqkv
+    rounded to cd)."""
+    b, h, s, _ = stats.shape
+    e = dao.shape[1]
+    scale = scale or 1.0 / (e // h) ** 0.5
+    g = heads(dao, b, s, h)
+    q, k, v = (heads(t, b, s, h) for t in qkv.split(e, -1))
+    di = (g.double() * heads(o, b, s, h).double()).sum(-1).float()
+    m, l = stats[..., :1], stats[..., 1:]
+    mask = amask.float()[:, None, None, :]
+    dq = torch.zeros(q.shape, device=qkv.device)
+    dk, dv = [], []
+    for j0 in range(0, s, ATTN_TILE):
+        j1 = min(s, j0 + ATTN_TILE)
+        logit = _dots(q, k[:, :, j0:j1]) * scale + mask[..., j0:j1]
+        p = torch.exp(logit - m) / l
+        ds = p * (_dots(g, v[:, :, j0:j1]) - di[..., None]) * scale
+        dq = dq + _weighted(ds, k[:, :, j0:j1])
+        dk.append(_weighted(ds.transpose(-1, -2), q))
+        dv.append(_weighted(p.transpose(-1, -2), g))
+    dqkv = torch.cat([merge(dq), merge(torch.cat(dk, 2)), merge(torch.cat(dv, 2))], dim=-1)
+    return dqkv, dqkv.to(cd)
+
+
 def column_sums_plain(g, mode="sum", *, x=None, seed=None, rate=0.0, layer=0, branch=0,
                       cd=None, chunk=None, token0=0):
     """Column sums of g (N, C) fp32 over chunks of ``chunk`` rows (one chunk
     when None) -> (Z, C) partials: "sum" of g; "ln" (sum g x, sum g); "gate"
-    v = dropout(g) at site (layer, branch): (sum v, v in cd)."""
+    v = dropout(g) at site (layer, branch): (sum v, v in cd). Each sum in
+    fp64 rounded once to fp32 (the kernel sums in fp32 in a fixed order:
+    within the bars; zero columns beside a column change nothing here)."""
     chunk = chunk or g.shape[0]
 
     def sums(t):
-        return torch.stack([t[i:i + chunk].sum(0) for i in range(0, t.shape[0], chunk)])
+        return torch.stack([t[i:i + chunk].double().sum(0)
+                            for i in range(0, t.shape[0], chunk)]).float()
 
     if mode == "sum":
         return sums(g)
@@ -268,14 +382,17 @@ def fwd_lib():
     global _FWD
     if _FWD is None:
         lib = build.load("sasrec_encoder")
-        lib.sasrec_encode_fwd_workspace.argtypes = [_I] * 4
+        lib.sasrec_encode_fwd_workspace.argtypes = [_I] * 5
         lib.sasrec_encode_fwd_workspace.restype = ctypes.c_size_t
         lib.sasrec_encode_fwd.argtypes = [_VP] * 17 + [_I] * 5 + [_F] * 3 + [_U, _I, _VP]
         lib.sasrec_product_fwd.argtypes = (
             [_I] + [_VP] * 2 + [_I] * 3 + [_VP] * 4 + [_F] * 2 + [_U] + [_I] * 3 + [_VP])
-        lib.sasrec_layer_norm.argtypes = [_VP, _I, _I] + [_VP] * 5 + [_I, _VP]
-        lib.sasrec_attention_fwd.argtypes = [_VP] * 4 + [_I] * 4 + [_F, _I, _VP]
+        lib.sasrec_layer_norm.argtypes = [_VP, _I, _I, _I] + [_VP] * 5 + [_I, _VP]
+        lib.sasrec_attention_fwd.argtypes = [_VP] * 4 + [_I] * 5 + [_F, _I, _VP]
+        lib.sasrec_attention_fwd_streamed.argtypes = [_VP] * 5 + [_I] * 5 + [_F, _I, _VP]
         lib.sasrec_encoder_fits.argtypes = [_I] * 4
+        lib.sasrec_encoder_widths.argtypes = [_I] * 2
+        lib.sasrec_attention_staged.argtypes = [_I] * 3
         _FWD = lib
     return _FWD
 
@@ -289,8 +406,9 @@ def bwd_lib():
         lib.sasrec_encode_bwd_workspace.restype = ctypes.c_size_t
         lib.sasrec_encode_bwd.argtypes = [_VP] * 19 + [_I] * 5 + [_F] * 3 + [_U, _I, _VP]
         lib.sasrec_product_bwd.argtypes = [_I, _I, _VP, _VP] + [_I] * 5 + [_VP] * 3 + [_I, _VP]
-        lib.sasrec_layer_norm_bwd.argtypes = [_VP] * 6 + [_I] * 4 + [_VP]
-        lib.sasrec_attention_bwd.argtypes = [_VP] * 5 + [_I] * 4 + [_F, _I, _VP]
+        lib.sasrec_layer_norm_bwd.argtypes = [_VP] * 6 + [_I] * 5 + [_VP]
+        lib.sasrec_attention_bwd.argtypes = [_VP] * 5 + [_I] * 5 + [_F, _I, _VP]
+        lib.sasrec_attention_bwd_streamed.argtypes = [_VP] * 7 + [_I] * 5 + [_F, _I, _VP]
         lib.sasrec_column_sums.argtypes = (
             [_I] + [_VP] * 4 + [_F] * 2 + [_U] + [_I] * 6 + [_VP] * 2 + [_I, _VP])
         lib.sasrec_reduce_partials.argtypes = [_VP, _I, _I, _VP, _VP]
@@ -370,64 +488,107 @@ def product(a, b, layout="nn", epilogue="store", *, bias=None, aux=None, seed=No
     return (out_f, out_c) if epilogue == "gate" else out_f
 
 
-def layer_norm(h, scale, bias, cd, residues=False):
+def layer_norm(h, scale, bias, cd, residues=False, e=None):
     """``layer_norm_plain`` on CPU tensors, the LayerNorm kernel on CUDA."""
     if h.device.type == "cpu":
-        return layer_norm_plain(h, scale, bias, cd, residues)
+        return layer_norm_plain(h, scale, bias, cd, residues, e)
     cuda_only("layer_norm", h)
-    n, e = h.shape
-    out = torch.empty(n, e, dtype=cd, device=h.device)
-    xhat = torch.empty(n, e, device=h.device) if residues else None
+    n, w = h.shape
+    out = torch.empty(n, w, dtype=cd, device=h.device)
+    xhat = torch.empty(n, w, device=h.device) if residues else None
     rstd = torch.empty(n, device=h.device) if residues else None
-    rc = fwd_lib().sasrec_layer_norm(h.data_ptr(), n, e, scale.data_ptr(), bias.data_ptr(),
-                                     out.data_ptr(), ptr(xhat), ptr(rstd),
+    rc = fwd_lib().sasrec_layer_norm(h.data_ptr(), n, w, e or w, scale.data_ptr(),
+                                     bias.data_ptr(), out.data_ptr(), ptr(xhat), ptr(rstd),
                                      int(cd == torch.bfloat16), stream_of(h))
     build.check(rc, "layer_norm")
     return (out, xhat, rstd) if residues else out
 
 
-def layer_norm_bwd(dn, xhat, rstd, scale, dh):
+def layer_norm_bwd(dn, xhat, rstd, scale, dh, e=None):
     """``layer_norm_bwd_plain`` on CPU tensors, the kernel on CUDA (fp32 out)."""
     if dn.device.type == "cpu":
-        return layer_norm_bwd_plain(dn, xhat, rstd, scale, dh)
+        return layer_norm_bwd_plain(dn, xhat, rstd, scale, dh, e)
     cuda_only("layer_norm_bwd", dn)
     out = torch.empty_like(dh)
+    n, w = dn.shape
     rc = bwd_lib().sasrec_layer_norm_bwd(
         dn.data_ptr(), xhat.data_ptr(), rstd.data_ptr(), scale.data_ptr(), dh.data_ptr(),
-        out.data_ptr(), dn.shape[0], dn.shape[1], 0, 0, stream_of(dn))
+        out.data_ptr(), n, w, e or w, 0, 0, stream_of(dn))
     build.check(rc, "layer_norm_bwd")
     return out
 
 
-def attention_fwd(qkv, amask, num_heads, cd):
-    """``attention_fwd_plain`` on CPU tensors, the kernel on CUDA."""
+def _attention_dims(qkv, num_heads, scale):
+    """(E, D, scale) of an attention block's call."""
+    e = qkv.shape[1] // 3
+    return e, e // num_heads, scale or 1.0 / (e // num_heads) ** 0.5
+
+
+def attention_fwd(qkv, amask, num_heads, cd, *, scale=None):
+    """``attention_fwd_plain`` on CPU tensors, the staged kernel on CUDA."""
     if qkv.device.type == "cpu":
-        return attention_fwd_plain(qkv, amask, num_heads, cd)
+        return attention_fwd_plain(qkv, amask, num_heads, cd, scale=scale)
     cuda_only("attention_fwd", qkv)
     b, s = amask.shape
-    e = qkv.shape[1] // 3
+    e, d, scale = _attention_dims(qkv, num_heads, scale)
     ao = torch.empty(b * s, e, dtype=cd, device=qkv.device)
     p = torch.empty(b, num_heads, s, s, device=qkv.device)
     rc = fwd_lib().sasrec_attention_fwd(
-        qkv.data_ptr(), amask.data_ptr(), ao.data_ptr(), p.data_ptr(), b, s, e, num_heads,
-        1.0 / (e // num_heads) ** 0.5, int(cd == torch.bfloat16), stream_of(qkv))
+        qkv.data_ptr(), amask.data_ptr(), ao.data_ptr(), p.data_ptr(), b, s, e, num_heads, d,
+        scale, int(cd == torch.bfloat16), stream_of(qkv))
     build.check(rc, "attention_fwd")
     return ao, p
 
 
-def attention_bwd(qkv, p, dao, cd):
-    """``attention_bwd_plain`` on CPU tensors, the kernel on CUDA."""
+def attention_bwd(qkv, p, dao, cd, *, scale=None):
+    """``attention_bwd_plain`` on CPU tensors, the staged kernel on CUDA."""
     if qkv.device.type == "cpu":
-        return attention_bwd_plain(qkv, p, dao, cd)
+        return attention_bwd_plain(qkv, p, dao, cd, scale=scale)
     cuda_only("attention_bwd", qkv)
     b, h, s, _ = p.shape
-    e = dao.shape[1]
+    e, d, scale = _attention_dims(qkv, h, scale)
     dqkv = torch.empty_like(qkv)
     dqkv_c = torch.empty(qkv.shape, dtype=cd, device=qkv.device)
     rc = bwd_lib().sasrec_attention_bwd(
         qkv.data_ptr(), p.data_ptr(), dao.data_ptr(), dqkv.data_ptr(), dqkv_c.data_ptr(), b, s, e,
-        h, 1.0 / (e // h) ** 0.5, int(cd == torch.bfloat16), stream_of(qkv))
+        h, d, scale, int(cd == torch.bfloat16), stream_of(qkv))
     build.check(rc, "attention_bwd")
+    return dqkv, dqkv_c
+
+
+def attention_fwd_streamed(qkv, amask, num_heads, cd, *, scale=None):
+    """``attention_fwd_streamed_plain`` on CPU tensors, the streamed kernel on
+    CUDA: (ao in cd, o fp32, stats (B, H, S, 2))."""
+    if qkv.device.type == "cpu":
+        return attention_fwd_streamed_plain(qkv, amask, num_heads, cd, scale=scale)
+    cuda_only("attention_fwd_streamed", qkv)
+    b, s = amask.shape
+    e, d, scale = _attention_dims(qkv, num_heads, scale)
+    ao = torch.empty(b * s, e, dtype=cd, device=qkv.device)
+    o = torch.empty(b * s, e, device=qkv.device)
+    stats = torch.empty(b, num_heads, s, 2, device=qkv.device)
+    rc = fwd_lib().sasrec_attention_fwd_streamed(
+        qkv.data_ptr(), amask.data_ptr(), ao.data_ptr(), o.data_ptr(), stats.data_ptr(), b, s, e,
+        num_heads, d, scale, int(cd == torch.bfloat16), stream_of(qkv))
+    build.check(rc, "attention_fwd_streamed")
+    return ao, o, stats
+
+
+def attention_bwd_streamed(qkv, amask, o, stats, dao, cd, *, scale=None):
+    """``attention_bwd_streamed_plain`` on CPU tensors, the streamed kernel on
+    CUDA: (dqkv fp32, dqkv in cd)."""
+    if qkv.device.type == "cpu":
+        return attention_bwd_streamed_plain(qkv, amask, o, stats, dao, cd, scale=scale)
+    cuda_only("attention_bwd_streamed", qkv)
+    b, h, s, _ = stats.shape
+    e, d, scale = _attention_dims(qkv, h, scale)
+    dqkv = torch.empty_like(qkv)
+    dqkv_c = torch.empty(qkv.shape, dtype=cd, device=qkv.device)
+    rc = bwd_lib().sasrec_attention_bwd_streamed(
+        qkv.data_ptr(), amask.data_ptr(), o.data_ptr(), stats.data_ptr(), dao.data_ptr(),
+        dqkv.data_ptr(), dqkv_c.data_ptr(), b, s, e, h, d, scale, int(cd == torch.bfloat16),
+        stream_of(qkv))
+    build.check(rc, "attention_bwd_streamed")
     return dqkv, dqkv_c
 
 

@@ -12,7 +12,10 @@ GFLOP against ~64 MB. Each is a sequence of launches over all B*S tokens,
 built from the blocks of ``encoder_blocks`` (the tile product with fused
 epilogues on ``mma.sync``, LayerNorm, attention, column sums and their
 fixed-order reduction), enqueued by one C call: ``fwd_launches(L)`` and
-``bwd_launches(L)`` give the launches of one call.
+``bwd_launches(L)`` give the launches of one call. The attention is the
+staged pair where a head fits shared memory whole both ways
+(``encoder_blocks.attention_route``: S <= 128 and the staging within
+``MAX_SMEM``), the streamed pair (keys walked in tiles, any S) past it.
 
 Precision contract (the TPU kernels', ``sasrec_encoder.py:61-67``,
 ``:159-351``), kept by the kernels and by ``encode_fwd_plain`` /
@@ -38,31 +41,45 @@ Bernoulli statistics, another realization (docs/PARITY.md).
 ``encode_fwd`` and ``encode_bwd`` are the wrappers: on a CUDA tensor each
 enqueues its kernels (or raises), on a CPU tensor it runs its plain version.
 Their ``launches`` attributes count kernel launches. The kernels' envelope
-(``fits``, one predicate for both directions): 1 <= S <= 128, E % 32 == 0,
-E >= 32, E % H == 0, D = E/H a multiple of 4 up to 256, L >= 1, and the
-attention's staged heads within a block's shared memory both ways (at
-D = 64 up to S = 115, at D = 128 up to S = 83); bf16 or fp32, 0 <= rate
-< 1. The kernels keep token-major intermediates in a workspace the wrapper
-allocates, at E=128 in bf16: the forward's 3.5 KB a token, the backward's
-4.5 KB a token a layer plus 4.8 KB a token and ~70 MB of weight-gradient
-partials; all scale with E (the backward's softmax, B H S^2 floats, with
-S^2).
+(``fits``, one predicate for both directions): S >= 1, E >= 1, E % H == 0,
+a head width D = E/H up to 256 (``MAX_D``), L >= 1; bf16 or fp32, 0 <= rate
+< 1; and at a call B*S tokens up to ``MAX_TOKENS`` (the tile product's
+grid). Widths the kernels do not take as they are (E % 32 != 0 or D % 4 !=
+0: SASRec's own d = 50) run zero-padded (``padded_dims``: each head to Dp,
+the stream to Ep = H Dp, a multiple of 32): the wrappers pad x and the
+weights (``pad_weights``) and cut the output and the gradients back; the
+kernels take LayerNorm's statistics over the true E and the softmax scale
+of the true D, and key dropout by the true column, so the padded call
+computes the unpadded function (``encode_fwd_plain(..., padded=True)``
+runs the same padding through the plain blocks). The kernels keep
+token-major intermediates in a workspace the wrapper allocates, at E=128
+in bf16: the forward's 3.5 KB a token, the backward's 4.5 KB a token a
+layer plus 4.8 KB a token and ~70 MB of weight-gradient partials; all
+scale with E, and the staged backward's softmax (B H S^2 floats) with
+S^2, where the streamed one keeps the fp32 output and (m, l) a query
+instead (0.5 KB a token a layer at E = 128).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ctr_recommendation_tpu_torch.ops.attention import NEG_INF
 from ctr_recommendation_tpu_torch.ops.cuda import build
 from ctr_recommendation_tpu_torch.ops.cuda.encoder_blocks import (  # noqa: F401 (re-exported)
+    ATTN_TILE,
     MAX_D,
     MAX_S,
     MAX_SMEM,
     attn_bwd_smem,
     attn_fwd_smem,
     attention_bwd_plain,
+    attention_bwd_streamed_plain,
     attention_fwd_plain,
+    attention_fwd_streamed_plain,
+    attention_route,
     bwd_lib,
     check_dropout,
     column_sums_plain,
@@ -84,6 +101,75 @@ WEIGHT_NAMES = (
     "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b", "ln2_s", "ln2_b",
 )
 _MATRICES = ("qkv_w", "proj_w", "ffn1_w", "ffn2_w")
+MAX_TOKENS = 65535 * 128  # B*S: the tile product's grid rows (kMaxTokens)
+MAX_STREAM_S = 65535 * ATTN_TILE  # S: the streamed attention's grid rows (kMaxStreamS)
+
+
+def padded_dims(e: int, num_heads: int) -> tuple[int, int]:
+    """(Ep, Dp): the widths the kernels run an encoder of width E and
+    num_heads heads at, csrc/sasrec_encoder.cuh ``widths``. Each head is
+    zero-padded to Dp, D = E / H rounded up to 32 / gcd(8, H), so that the
+    heads fill a stream of Ep = H Dp columns, a multiple of 32 with 16-byte
+    head rows. (E, D) itself when E % 32 == 0 and D % 4 == 0."""
+    q = 32 // math.gcd(8, num_heads)
+    dp = -(-(e // num_heads) // q) * q
+    return num_heads * dp, dp
+
+
+def _layouts(e: int, num_heads: int, device) -> dict:
+    """The padded layout of each of the 12 stacked weights: for each of its
+    dimensions after L, the padded index of every true one and the padded
+    size. The stream and the FFN's hidden keep their real columns first;
+    q, k, v (and the attention's output: proj_w's rows) keep head i's D
+    columns at i Dp."""
+    ep, dp = padded_dims(e, num_heads)
+    d = e // num_heads
+    c = torch.arange(e, device=device)
+    stream, hid = (c, ep), (torch.arange(4 * e, device=device), 4 * ep)
+    heads = ((c // d) * dp + c % d, ep)
+    qkv = (torch.cat([heads[0] + i * ep for i in range(3)]), 3 * ep)
+    lay = {n: (stream,) for n in WEIGHT_NAMES}
+    lay.update(qkv_w=(stream, qkv), qkv_b=(qkv,), proj_w=(heads, stream), ffn1_w=(stream, hid),
+               ffn1_b=(hid,), ffn2_w=(hid, stream))
+    return lay
+
+
+def _index(dims) -> tuple:
+    """The index of a weight's true elements in its padded copy (L first)."""
+    if len(dims) == 1:
+        return slice(None), dims[0][0]
+    return slice(None), dims[0][0][:, None], dims[1][0][None, :]
+
+
+def pad_weights(weights, e: int, num_heads: int) -> tuple:
+    """The 12 stacked (L, ...) operands of width E zero-padded to the
+    kernels' widths (``padded_dims``, ``_layouts``); the same tensors when
+    nothing is padded."""
+    if padded_dims(e, num_heads)[0] == e:
+        return tuple(weights)
+    lay = _layouts(e, num_heads, weights[0].device)
+    out = []
+    for n, t in zip(WEIGHT_NAMES, weights):
+        p = torch.zeros((t.shape[0], *(size for _, size in lay[n])), dtype=t.dtype,
+                        device=t.device)
+        p[_index(lay[n])] = t
+        out.append(p)
+    return tuple(out)
+
+
+def unpad_grads(grads, e: int, num_heads: int) -> tuple:
+    """The gradients of ``pad_weights``'s operands cut back to the true
+    shapes: each true element's padded entry."""
+    if padded_dims(e, num_heads)[0] == e:
+        return tuple(grads)
+    lay = _layouts(e, num_heads, grads[0].device)
+    return tuple(t[_index(lay[n])] for n, t in zip(WEIGHT_NAMES, grads))
+
+
+def pad_stream(t, ep: int):
+    """(B, S, E) -> (B, S, Ep), zero columns after the E real ones."""
+    e = t.shape[-1]
+    return t if e == ep else torch.nn.functional.pad(t, (0, ep - e)).contiguous()
 
 
 def fwd_launches(layers: int) -> int:
@@ -127,73 +213,106 @@ def cast_matrices(weights, dtype: torch.dtype) -> tuple:
     )
 
 
-def _layer_fwd(h, amask, w, li, cd, num_heads, seed, rate, acc=torch.float64, token0=0):
-    """One pre-LN block on the fp32 stream h (B*S, E), composed of the
+def _layer_fwd(h, amask, w, li, cd, num_heads, seed, rate, acc=torch.float64, token0=0, e=None):
+    """One pre-LN block on the fp32 stream h (B*S, W), composed of the
     plain blocks at the kernels' rounding points (products accumulated in
     ``acc``) -> (new h, the residues the backward needs, the products'
-    operands kept in fp32)."""
+    operands kept in fp32). The attention is the staged or the streamed
+    pair's plain version, as the kernels choose (``attention_route``). With
+    ``e``, h and w are zero-padded to the kernels' widths (``padded_dims``)
+    around a true width e."""
     (qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
      ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b) = (t[li] for t in w)
+    e = e or h.shape[1]
+    s = amask.shape[1]
+    att = dict(scale=1.0 / (e // num_heads) ** 0.5)
     drop = dict(seed=seed, rate=rate, layer=li, acc=acc, token0=token0)
-    hn1, xhat1, r1 = layer_norm_plain(h, ln1_s, ln1_b, torch.float32, residues=True)
+    hn1, xhat1, r1 = layer_norm_plain(h, ln1_s, ln1_b, torch.float32, residues=True, e=e)
     qkv = product_plain(hn1.to(cd), qkv_w.to(cd), "nn", "bias", bias=qkv_b, acc=acc)
-    ao, p = attention_fwd_plain(qkv, amask, num_heads, torch.float32)
+    if attention_route(s, padded_dims(e, num_heads)[1]) == "staged":
+        ao, p = attention_fwd_plain(qkv, amask, num_heads, torch.float32, **att)
+        kept = dict(p=p)
+    else:
+        ao, _, stats = attention_fwd_streamed_plain(qkv, amask, num_heads, torch.float32, **att)
+        kept = dict(stats=stats)
     h1 = product_plain(ao.to(cd), proj_w.to(cd), "nn", "residual", bias=proj_b, aux=h, branch=0,
                        **drop)
-    hn2, xhat2, r2 = layer_norm_plain(h1, ln2_s, ln2_b, torch.float32, residues=True)
+    hn2, xhat2, r2 = layer_norm_plain(h1, ln2_s, ln2_b, torch.float32, residues=True, e=e)
     f1 = product_plain(hn2.to(cd), ffn1_w.to(cd), "nn", "relu", bias=ffn1_b,
                        out_dtype=torch.float32, acc=acc)
     h2 = product_plain(f1.to(cd), ffn2_w.to(cd), "nn", "residual", bias=ffn2_b, aux=h1, branch=1,
                        **drop)
-    return h2, dict(hn1=hn1, xhat1=xhat1, r1=r1, qkv=qkv, p=p, ao=ao, hn2=hn2, xhat2=xhat2,
-                    r2=r2, f1=f1)
+    return h2, dict(hn1=hn1, xhat1=xhat1, r1=r1, qkv=qkv, ao=ao, hn2=hn2, xhat2=xhat2, r2=r2,
+                    f1=f1, **kept)
+
+
+def _padded(x, weights, num_heads, padded):
+    """(x, weights, e) as the plain versions run them: unchanged with e None,
+    or with ``padded`` zero-padded to the kernels' widths around the true e."""
+    e = x.shape[-1]
+    ep = padded_dims(e, num_heads)[0]
+    if not padded or ep == e:
+        return x, tuple(weights), None
+    return pad_stream(x, ep), pad_weights(weights, e, num_heads), e
 
 
 def encode_fwd_plain(
     x, amask, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
     ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b, *, num_heads, seed=None, rate=0.0, token0=0,
+    padded=False,
 ):
     """Plain PyTorch version at the kernel's rounding points, composed of
     the plain blocks: x (B, S, E) in cd, amask (B, S) fp32 additive ->
     (B, S, E) in cd. With ``rate`` > 0 the dropout masks of ``dropout_mask``
-    under ``seed`` (tokens counted from ``token0``) multiply a1 and f2."""
+    under ``seed`` (tokens counted from ``token0``) multiply a1 and f2.
+    ``padded``: run at the kernels' padded widths, as the kernels do, and
+    cut the output back (the same function)."""
     w = (qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b, ffn1_w, ffn1_b, ffn2_w, ffn2_b, ln2_s, ln2_b)
-    b, s, e = x.shape
-    h = x.float().reshape(b * s, e)
+    e_out = x.shape[-1]
+    x, w, e = _padded(x, w, num_heads, padded)
+    b, s, width = x.shape
+    h = x.float().reshape(b * s, width)
     for li in range(qkv_w.shape[0]):
-        h, _ = _layer_fwd(h, amask, w, li, x.dtype, num_heads, seed, rate, token0=token0)
-    return h.reshape(b, s, e).to(x.dtype)
+        h, _ = _layer_fwd(h, amask, w, li, x.dtype, num_heads, seed, rate, token0=token0, e=e)
+    return h.reshape(b, s, width)[..., :e_out].to(x.dtype)
 
 
 def encode_bwd_plain(g, x, amask, *weights, num_heads, seed=None, rate=0.0,
-                     fp32_operands=False, acc=torch.float64, token0=0):
+                     fp32_operands=False, acc=torch.float64, token0=0, padded=False):
     """Plain PyTorch version of the backward: the hand-derived VJP of the TPU
     kernel's ``_bwd_kernel`` (:238-351, with ``_attn_bwd`` :108-136 and
     ``_ln_bwd`` :70-76) at its rounding points, not autograd, composed of
     the plain blocks. g and x (B, S, E) in cd, amask (B, S) fp32, the 12
     stacked weights -> (dx in cd, the 12 weight gradients fp32, summed over
-    the batch).
+    the batch). Where the keys stream (``attention_route``) the attention's
+    backward rebuilds P from the forward's stats, as the kernel does.
 
     ``fp32_operands=True`` leaves every operand of the backward's products in
     fp32 instead of rounding it to cd: a wrong backward that the bf16 norm bar
     of the checks must reject. In fp32 the two agree. ``acc`` is the
-    products' accumulation dtype (``product_plain``)."""
+    products' accumulation dtype (``product_plain``). ``padded``: run at the
+    kernels' padded widths and cut the gradients back, as the kernels do."""
     cd = x.dtype
-    b, s, e = x.shape
+    e_out = x.shape[-1]
+    x, weights, e = _padded(x, weights, num_heads, padded)
+    if e:
+        g = pad_stream(g, x.shape[-1])
+    b, s, width = x.shape
+    att = dict(scale=1.0 / (e_out // num_heads) ** 0.5)
 
     def rc(t):  # an operand of a backward product
         return t.float() if fp32_operands else t.to(cd)
 
-    h = x.float().reshape(b * s, e)
+    h = x.float().reshape(b * s, width)
     saved = []
     for li in range(weights[0].shape[0]):
-        h, res = _layer_fwd(h, amask, weights, li, cd, num_heads, seed, rate, acc, token0)
+        h, res = _layer_fwd(h, amask, weights, li, cd, num_heads, seed, rate, acc, token0, e)
         saved.append(res)
 
     grads = [torch.zeros(t.shape, dtype=torch.float32, device=x.device) for t in weights]
     (dqkv_w, dqkv_b, dproj_w, dproj_b, dln1_s, dln1_b,
      dffn1_w, dffn1_b, dffn2_w, dffn2_b, dln2_s, dln2_b) = grads
-    dh = g.float().reshape(b * s, e)
+    dh = g.float().reshape(b * s, width)
     for li in reversed(range(weights[0].shape[0])):
         qkv_w, _, proj_w, _, ln1_s, _, ffn1_w, _, ffn2_w, _, ln2_s, _ = (t[li] for t in weights)
         res = saved[li]
@@ -208,40 +327,49 @@ def encode_bwd_plain(g, x, amask, *weights, num_heads, seed=None, rate=0.0,
         dn2 = product_plain(rc(dz1), rc(ffn1_w), "nt", acc=acc)
         ds, db = column_sums_plain(dn2, "ln", x=res["xhat2"])
         dln2_s[li], dln2_b[li] = ds[0], db[0]
-        dh = layer_norm_bwd_plain(dn2, res["xhat2"], res["r2"], ln2_s, dh)
+        dh = layer_norm_bwd_plain(dn2, res["xhat2"], res["r2"], ln2_s, dh, e)
         # attention branch
         da1 = dropout(dh, seed, li, 0, rate, token0)
         dproj_w[li] = product_plain(rc(res["ao"]), rc(da1), "tn", acc=acc)
         dproj_b[li] = column_sums_plain(da1)[0]
         dao = product_plain(rc(da1), rc(proj_w), "nt", acc=acc)
-        dqkv, _ = attention_bwd_plain(res["qkv"], res["p"], dao, cd)
+        if "p" in res:
+            dqkv, _ = attention_bwd_plain(res["qkv"], res["p"], dao, cd, **att)
+        else:
+            dqkv, _ = attention_bwd_streamed_plain(res["qkv"], amask, res["ao"], res["stats"], dao,
+                                                   cd, **att)
         dqkv_w[li] = product_plain(rc(res["hn1"]), rc(dqkv), "tn", acc=acc)
         dqkv_b[li] = column_sums_plain(dqkv)[0]
         dn1 = product_plain(rc(dqkv), rc(qkv_w), "nt", acc=acc)
         ds, db = column_sums_plain(dn1, "ln", x=res["xhat1"])
         dln1_s[li], dln1_b[li] = ds[0], db[0]
-        dh = layer_norm_bwd_plain(dn1, res["xhat1"], res["r1"], ln1_s, dh)
-    return (dh.reshape(b, s, e).to(cd), *grads)
+        dh = layer_norm_bwd_plain(dn1, res["xhat1"], res["r1"], ln1_s, dh, e)
+    dx = dh.reshape(b, s, width)[..., :e_out].to(cd)
+    return (dx, *(unpad_grads(grads, e_out, num_heads) if e else grads))
 
 
 def fits(s: int, e: int, num_heads: int, layers: int) -> bool:
     """Whether the kernels take (S, E, H, L), both ways: a pure function of
-    the shapes, the C ``sasrec_encoder_fits`` (``in_envelope``) in Python."""
-    if not (1 <= s <= MAX_S and e % 32 == 0 and e >= 32 and num_heads >= 1
-            and e % num_heads == 0 and layers >= 1):
-        return False
-    d = e // num_heads
-    return (d % 4 == 0 and d <= MAX_D and attn_fwd_smem(s, d) <= MAX_SMEM
-            and attn_bwd_smem(s, d) <= MAX_SMEM)
+    the shapes, the C ``sasrec_encoder_fits`` (``in_envelope``) in Python.
+    S >= 1 with no bound of its own (the streamed attention past what shared
+    memory holds), any E >= 1 (padded to the kernels' widths), H >= 1 with
+    E % H == 0, L >= 1. Still refused: a head width D = E / H past MAX_D =
+    256 (the attention's accumulators a lane: up to four column pairs a
+    row); and, at a call (``check_envelope``), more than MAX_TOKENS tokens
+    B*S or a history past MAX_STREAM_S (the kernels' grid rows)."""
+    return (s >= 1 and e >= 1 and num_heads >= 1 and e % num_heads == 0
+            and e // num_heads <= MAX_D and layers >= 1)
 
 
-def check_envelope(s: int, e: int, num_heads: int, layers: int) -> None:
-    """Raise unless the kernels take (S, E, H, L) (``fits``)."""
-    if not fits(s, e, num_heads, layers):
+def check_envelope(s: int, e: int, num_heads: int, layers: int, tokens: int = 1) -> None:
+    """Raise unless the kernels take (S, E, H, L) (``fits``) in a call of
+    ``tokens`` (B*S) tokens: within MAX_TOKENS, S within MAX_STREAM_S (the C
+    ``in_envelope``)."""
+    if not fits(s, e, num_heads, layers) or tokens > MAX_TOKENS or s > MAX_STREAM_S:
         raise ValueError(
-            f"outside the kernels' envelope (1 <= S <= {MAX_S}, E % 32 == 0, E >= 32, "
-            f"E % H == 0, E/H % 4 == 0, E/H <= {MAX_D}, L >= 1, the attention's shared memory "
-            f"both ways <= {MAX_SMEM} bytes): S={s}, E={e}, H={num_heads}, L={layers}"
+            f"outside the kernels' envelope (S >= 1, E % H == 0, E/H <= {MAX_D}, L >= 1; a "
+            f"call's B*S <= {MAX_TOKENS}, S <= {MAX_STREAM_S}): S={s}, E={e}, H={num_heads}, "
+            f"L={layers}, B*S={tokens}"
         )
 
 
@@ -255,7 +383,7 @@ def _check_envelope(what, x, amask, weights, num_heads, seed, rate):
         raise ValueError(f"expected {len(WEIGHT_NAMES)} stacked weights, got {len(weights)}")
     b, s, e = x.shape
     layers = weights[0].shape[0]
-    check_envelope(s, e, num_heads, layers)
+    check_envelope(s, e, num_heads, layers, b * s)
     want = {
         "qkv_w": (layers, e, 3 * e), "qkv_b": (layers, 3 * e), "proj_w": (layers, e, e),
         "proj_b": (layers, e), "ln1_s": (layers, e), "ln1_b": (layers, e),
@@ -296,20 +424,22 @@ def encode_fwd(x, amask, *weights, num_heads, seed=None, rate=0.0, token0=0):
         return encode_fwd_plain(x, amask, *weights, num_heads=num_heads, seed=seed, rate=rate,
                                 token0=token0)
     b, s, e, layers = _check_envelope("encode_fwd", x, amask, weights, num_heads, seed, rate)
-    out = torch.empty_like(x)
     if b == 0:
-        return out
+        return torch.empty_like(x)
+    ep = padded_dims(e, num_heads)[0]
+    xp, wp = pad_stream(x, ep), pad_weights(weights, e, num_heads)
+    out = torch.empty_like(xp)
     lib = fwd_lib()
-    ws = _workspace(lib.sasrec_encode_fwd_workspace(b, s, e, is_bf16(x)), x.device)
+    ws = _workspace(lib.sasrec_encode_fwd_workspace(b, s, e, num_heads, is_bf16(x)), x.device)
     seed_ptr, *drop = dropout_args(seed, rate, token0)
     rc = lib.sasrec_encode_fwd(
-        x.data_ptr(), amask.data_ptr(), *(t.data_ptr() for t in weights), seed_ptr,
+        xp.data_ptr(), amask.data_ptr(), *(t.data_ptr() for t in wp), seed_ptr,
         out.data_ptr(), ws.data_ptr(), b, s, e, num_heads, layers, 1.0 / (e // num_heads) ** 0.5,
         *drop, is_bf16(x), stream_of(x),
     )
     build.check(rc, "encode_fwd")
     encode_fwd.launches += fwd_launches(layers)
-    return out
+    return out if ep == e else out[..., :e].contiguous()
 
 
 encode_fwd.launches = 0
@@ -328,24 +458,30 @@ def encode_bwd(g, x, amask, *weights, num_heads, seed=None, rate=0.0, token0=0):
     if tuple(g.shape) != tuple(x.shape):
         raise ValueError(f"g has shape {tuple(g.shape)}, expected {tuple(x.shape)}")
     check_kernel_args({"g": (g, None)}, x.dtype, x.device)
-    sizes = [t.numel() for t in weights]  # the gradients, one after another
+    ep = padded_dims(e, num_heads)[0]
+    wp = pad_weights(weights, e, num_heads)
+    sizes = [t.numel() for t in wp]  # the gradients, one after another
     out = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
+    xp, gp = pad_stream(x, ep), pad_stream(g, ep)
+    dx = torch.empty_like(xp)
     if b > 0:
         lib = bwd_lib()
         ws = _workspace(lib.sasrec_encode_bwd_workspace(b, s, e, num_heads, layers, is_bf16(x)),
                         x.device)
         seed_ptr, *drop = dropout_args(seed, rate, token0)
         rc = lib.sasrec_encode_bwd(
-            g.data_ptr(), x.data_ptr(), amask.data_ptr(), *(t.data_ptr() for t in weights),
-            seed_ptr, dx.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s, e, num_heads, layers,
-            1.0 / (e // num_heads) ** 0.5, *drop, is_bf16(x), stream_of(x),
+            gp.data_ptr(), xp.data_ptr(), amask.data_ptr(),
+            *(t.data_ptr() for t in wp), seed_ptr, dx.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            b, s, e, num_heads, layers, 1.0 / (e // num_heads) ** 0.5, *drop, is_bf16(x),
+            stream_of(x),
         )
         build.check(rc, "encode_bwd")
         encode_bwd.launches += bwd_launches(layers)
     else:
         out.zero_()
-    return (dx, *(t.view(w.shape) for t, w in zip(torch.split(out, sizes), weights)))
+    grads = unpad_grads([t.view(w.shape) for t, w in zip(torch.split(out, sizes), wp)], e,
+                        num_heads)
+    return (dx if ep == e else dx[..., :e].contiguous(), *grads)
 
 
 encode_bwd.launches = 0

@@ -9,11 +9,15 @@ parent / change / change / parent order shows the card's drift. Each run
 prints one JSON line: the tree, the card's name and power limit, and the
 median ms (CUDA events, 30 runs after 3 warm-ups) of
 
-- ``attention_fwd`` (B = 8192) and ``attention_bwd`` (B = 4096) alone, bf16
-  output, H = 2, at S = 20 for E = 128 and 256, and at S = 50 for E = 128
-  where the tree's kernels take it (else null);
+- the staged ``attention_fwd`` (B = 8192) and ``attention_bwd`` (B = 4096)
+  alone, bf16 output, H = 2, at S = 20 for E = 128 and 256, and at S = 50
+  for E = 128 where the tree's kernels take it (else null);
+- the same for the streamed pair, ``attention_fwd_streamed`` and
+  ``attention_bwd_streamed``, at S = 20, 50 and 200 for E = 128, where the
+  tree has it (``stream_*`` keys; else null);
 - the whole encoder, ``encode_fwd`` (B = 8192) and ``encode_bwd`` (B =
-  4096), bf16, E = 128, H = 2, L = 1, dropout 0.1, at S = 20.
+  4096), bf16, E = 128, H = 2, L = 1, dropout 0.1, at S = 20, and at S =
+  200 where the tree takes it (else null).
 
 The inputs come from seed 0: histories of random pad lengths, the port's
 own parameter init. Needs a CUDA card; imports nothing of JAX.
@@ -62,23 +66,28 @@ def operands(torch, b: int, s: int, e: int):
     return x, amask, stack_weights(params, torch.bfloat16)
 
 
-def attention_times(torch, s: int, e: int) -> tuple:
+def attention_times(torch, s: int, e: int, streamed: bool = False) -> tuple:
     from ctr_recommendation_tpu_torch.ops.cuda import encoder_blocks as eb
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     _, amask, _ = operands(torch, B_FWD, s, e)
     qkv = torch.randn((B_FWD * s, 3 * e), generator=gen, device="cuda")
-    fwd = time_ms(torch, lambda: eb.attention_fwd(qkv, amask, HEADS, torch.bfloat16))
     nb = B_BWD * s
-    _, p = eb.attention_fwd(qkv[:nb], amask[:B_BWD], HEADS, torch.bfloat16)
     dao = torch.randn((nb, e), generator=gen, device="cuda")
-    bwd = time_ms(torch, lambda: eb.attention_bwd(qkv[:nb], p, dao, torch.bfloat16))
-    return fwd, bwd
+    bf16, qb, ab = torch.bfloat16, qkv[:nb], amask[:B_BWD].contiguous()
+    if streamed:
+        fwd = time_ms(torch, lambda: eb.attention_fwd_streamed(qkv, amask, HEADS, bf16))
+        _, o, stats = eb.attention_fwd_streamed(qb, ab, HEADS, bf16)
+        return fwd, time_ms(torch, lambda: eb.attention_bwd_streamed(qb, ab, o, stats, dao, bf16))
+    fwd = time_ms(torch, lambda: eb.attention_fwd(qkv, amask, HEADS, bf16))
+    _, p = eb.attention_fwd(qb, ab, HEADS, bf16)
+    return fwd, time_ms(torch, lambda: eb.attention_bwd(qb, p, dao, bf16))
 
 
 def worker(label: str) -> None:
     import torch
 
+    from ctr_recommendation_tpu_torch.ops.cuda import encoder_blocks as eb
     from ctr_recommendation_tpu_torch.ops.cuda import sasrec_encoder as enc
 
     out = {"tree": label, "card": subprocess.run(
@@ -91,14 +100,24 @@ def worker(label: str) -> None:
             out[f"attn_fwd_S{s}_E{e}"] = out[f"attn_bwd_S{s}_E{e}"] = None
             continue
         out[f"attn_fwd_S{s}_E{e}"], out[f"attn_bwd_S{s}_E{e}"] = attention_times(torch, s, e)
-    x, amask, ws = operands(torch, B_FWD, 20, 128)
-    seed = torch.tensor([7], dtype=torch.int64, device="cuda")
-    kw = dict(num_heads=HEADS, seed=seed, rate=0.1)
-    out["encode_fwd_S20_E128"] = time_ms(torch, lambda: enc.encode_fwd(x, amask, *ws, **kw))
-    x, amask = x[:B_BWD].contiguous(), amask[:B_BWD].contiguous()
-    g = torch.randn_like(x, dtype=torch.float32).to(torch.bfloat16)
-    out["encode_bwd_S20_E128"] = time_ms(
-        torch, lambda: enc.encode_bwd(g, x, amask, *ws, **kw))
+    for s in (20, 50, 200):
+        keys = f"stream_fwd_S{s}_E128", f"stream_bwd_S{s}_E128"
+        times = (attention_times(torch, s, 128, streamed=True)
+                 if hasattr(eb, "attention_fwd_streamed") else (None, None))
+        out.update(zip(keys, times))
+    for s in (20, 200):
+        if not enc.fits(s, 128, HEADS, 1):
+            out[f"encode_fwd_S{s}_E128"] = out[f"encode_bwd_S{s}_E128"] = None
+            continue
+        x, amask, ws = operands(torch, B_FWD, s, 128)
+        seed = torch.tensor([7], dtype=torch.int64, device="cuda")
+        kw = dict(num_heads=HEADS, seed=seed, rate=0.1)
+        out[f"encode_fwd_S{s}_E128"] = time_ms(torch, lambda: enc.encode_fwd(x, amask, *ws, **kw))
+        x, amask = x[:B_BWD].contiguous(), amask[:B_BWD].contiguous()
+        g = torch.randn_like(x, dtype=torch.float32).to(torch.bfloat16)
+        out[f"encode_bwd_S{s}_E128"] = time_ms(
+            torch, lambda: enc.encode_bwd(g, x, amask, *ws, **kw))
+        del x, amask, ws, g
     print(json.dumps(out), flush=True)
 
 

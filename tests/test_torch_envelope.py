@@ -7,12 +7,14 @@ and ``ops/cuda/sasrec_encoder.fits(s, e, num_heads, layers)``. The wrappers'
 ``check_*envelope`` raise through them on a CUDA tensor. The interaction's
 entry point and ``prepare_score_params`` zero-pad E and the tower widths to
 multiples of 8, so those two families take any E and any two-layer tower;
-the encoder's kernels take S up to what a block's shared memory holds. The
-dispatch sites (``senet_bilinear_concat``, the trunk's
+the encoder's kernels take any S (the attention's keys streamed past what a
+block's shared memory holds) and any E with E % H == 0 (zero-padded to
+their widths) up to a head width of 256. The dispatch sites (``senet_bilinear_concat``, the trunk's
 ``_attention_field``, ``Predictor``) take the kernel path whenever
 ``use_pallas`` is set: outside ``fits`` the card refuses, it never hands
 the call to plain PyTorch. Here: each predicate at the shapes the port
-meets, the shared-memory formula that bounds the encoder's S, the padded
+meets, the shared-memory formula that sets the encoder attention's route
+(staged or streamed), the padded
 entry points against the unpadded reference, the path each site picks (a
 spy on the kernel entry point), and the port against the JAX package on
 the same seeded inputs and carried-over weights.
@@ -103,17 +105,17 @@ ENCODER_SHAPES = [  # (S, E, H, L, fits)
     (50, 128, 2, 1, True), (64, 256, 2, 1, True), (100, 64, 2, 2, True),
     (100, 32, 2, 1, True), (128, 64, 4, 1, True), (115, 64, 1, 1, True),
     (83, 128, 1, 1, True), (1, 32, 1, 1, True),
-    (116, 64, 1, 1, False), (84, 128, 1, 1, False), (129, 64, 4, 1, False),
-    (200, 128, 2, 1, False), (200, 64, 4, 1, False), (50, 50, 1, 1, False),
-    (20, 16, 2, 1, False), (20, 128, 3, 1, False), (20, 64, 32, 1, False),
+    (116, 64, 1, 1, True), (84, 128, 1, 1, True), (129, 64, 4, 1, True),
+    (200, 128, 2, 1, True), (200, 64, 4, 1, True), (50, 50, 1, 1, True),
+    (20, 16, 2, 1, True), (20, 128, 3, 1, False), (20, 64, 32, 1, True),
     (0, 128, 2, 1, False), (20, 128, 2, 0, False), (20, 1024, 2, 1, False)]
 
 
 @pytest.mark.parametrize("s, e, heads, layers, want", ENCODER_SHAPES)
 def test_encoder_predicate(s, e, heads, layers, want):
-    """S <= 128, E % 32 == 0, D = E/H a multiple of 4 up to 256, L >= 1,
-    and the attention's staged heads within a block's shared memory both
-    ways; check_envelope raises exactly outside."""
+    """S >= 1, E % H == 0, D = E/H up to 256, L >= 1 (the attention
+    streamed past what shared memory holds, E off the kernels' multiples
+    zero-padded); check_envelope raises exactly outside."""
     assert enc.fits(s, e, heads, layers) is want
     if want:
         enc.check_envelope(s, e, heads, layers)
@@ -128,15 +130,23 @@ def test_encoder_predicate(s, e, heads, layers, want):
     (84, 128, 133_392, 234_528)])
 def test_shared_memory_formula(s, d, fwd, bwd):
     """csrc/sasrec_encoder.cuh attn_fwd_smem / attn_bwd_smem: q, k, v and the
-    mask forward; q, k, v, g, P and dlog backward; rows of attn_ld(D)."""
+    mask forward; q, k, v, g, P and dlog backward; rows of attn_ld(D). The
+    staged attention takes (S, D) where both fit (attention_route), the
+    streamed one past it, and the encoder takes both (fits)."""
     assert (eb.attn_fwd_smem(s, d), eb.attn_bwd_smem(s, d)) == (fwd, bwd)
-    assert enc.fits(s, 2 * d, 2, 1) is (max(fwd, bwd) <= eb.MAX_SMEM)
+    staged = max(fwd, bwd) <= eb.MAX_SMEM
+    assert (eb.attention_route(s, d) == "staged") is staged and enc.fits(s, 2 * d, 2, 1)
 
 
 def test_the_largest_history_each_head_width_takes():
-    """The backward's staging sets the limit: S = 115 at D = 64 and S = 83
-    at D = 128; S = 50 at D = 256; S = 128 (four keys a lane) at D = 32."""
-    largest = {d: max(s for s in range(1, 300) if enc.fits(s, 2 * d, 2, 1))
+    """Every S up to 1024 fits at every head width D in {25, 32, 50, 64,
+    128, 256}, with one and two heads; the staged attention keeps the
+    histories whose heads fit shared memory both ways (S = 115 at D = 64,
+    S = 83 at D = 128, S = 50 at D = 256, S = 128 at D = 32), the streamed
+    one takes the rest."""
+    for d in (25, 32, 50, 64, 128, 256):
+        assert all(enc.fits(s, h * d, h, 1) for s in range(1, 1025) for h in (1, 2))
+    largest = {d: max(s for s in range(1, 1025) if eb.attention_route(s, d) == "staged")
                for d in (32, 64, 128, 256)}
     assert largest == {32: 128, 64: 115, 128: 83, 256: 50}
 
@@ -222,16 +232,18 @@ def _spy(monkeypatch, module, name):
 
 
 def _tiny(tiny_experiment, *, e=16, max_len=8, hidden=None, model="mm_fibinet",
-          precision="float32", use_pallas=True, layers=1):
-    """The tiny experiment at width ``e``, history ``max_len`` and tower
-    ``hidden``: the JAX (experiment, feature map, module, params, state,
-    with BatchNorm stats moved off init) and the same weights in the port's
-    form (experiment, feature map, params, state)."""
+          precision="float32", use_pallas=True, layers=1, heads=None):
+    """The tiny experiment at width ``e``, history ``max_len``, tower
+    ``hidden`` and ``heads`` attention heads (default the experiment's): the
+    JAX (experiment, feature map, module, params, state, with BatchNorm stats
+    moved off init) and the same weights in the port's form (experiment,
+    feature map, params, state)."""
     ds = dataclasses.replace(tiny_experiment.dataset, features=microlens_features(
         item_vocab=200, cate_vocab=11, max_len=max_len, mm_dim=24))
     cfg = dataclasses.replace(
         tiny_experiment.model, model=model, embedding_dim=e, use_pallas=use_pallas,
         attn_num_layers=layers, hidden_units=hidden or tiny_experiment.model.hidden_units,
+        attn_num_heads=heads or tiny_experiment.model.attn_num_heads,
         tower_dtype="float32" if precision == "float32" else "compute")
     exp = tiny_experiment.replace(
         dataset=ds, model=cfg,
@@ -384,10 +396,9 @@ def test_predictor_with_a_100_50_tower_matches_jax(tiny_experiment, precision):
 def test_sasrec_predictor_at_long_histories_matches_jax(monkeypatch, tiny_experiment, max_len):
     """sasrec_fibinet at E = 32, fp32, served on every kernel family's path
     (the plain versions here): at max_len 50 (SASRec's published n for its
-    sparse datasets), which the encoder kernels take, and at 200 (its
-    MovieLens-1M n), which they refuse on the card (``fits``) while the
-    plain version takes it here. The JAX Predictor runs its Pallas encoder
-    and scoring kernels in interpret mode at both."""
+    sparse datasets), which the encoder kernels take staged, and at 200 (its
+    MovieLens-1M n), which they take streamed (``fits``). The JAX Predictor
+    runs its Pallas encoder and scoring kernels in interpret mode at both."""
     exp, _, _, params, state, pexp, _, pparams, pstate = _tiny(
         tiny_experiment, e=32, max_len=max_len, model="sasrec_fibinet")
     batch = make_batch(np.random.default_rng(8), 16, max_len=max_len)
@@ -401,5 +412,6 @@ def test_sasrec_predictor_at_long_histories_matches_jax(monkeypatch, tiny_experi
     fused = _spy(monkeypatch, trunk, "fused_encode")
     got = pred(batch).numpy()
     assert pred.use_fused and len(fused) == 1
-    assert enc.fits(max_len, 32, 2, 1) is (max_len == 50)
+    assert enc.fits(max_len, 32, 2, 1)
+    assert (eb.attention_route(max_len, 16) == "staged") is (max_len == 50)
     _close(got, want, "float32")
