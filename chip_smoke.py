@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero and prints no result line.
+Phases, in order; any failure exits non-zero and prints no result line. A
+`[clock] phase X at T s` line marks where each starts.
 
 1. Print the card's name and power limit (nvidia-smi), build the five
    kernels from csrc/ with nvcc for sm_90a, one nvcc per source in parallel,
@@ -229,27 +230,32 @@ Phases, in order; any failure exits non-zero and prints no result line.
 7e. The shapes the JAX kernels run beyond the port's S <= 32 and E, H
    multiples of 8, after 7d. (a) The encoder kernels past 32 keys against
    their plain versions: first the attention blocks alone at each case's
-   (S, E, H), the pair the encoder takes there (staged: attention_fwd's
-   ao and P, then attention_bwd on the plain P, B=4133; streamed past what
-   shared memory holds: attention_fwd_streamed's ao, o and (m, l), then
-   attention_bwd_streamed on the plain o and stats, B=1061), within
-   ENC_TOL, repeats bit-identical; then the whole encoder: S=50 at E=128,
-   H=2, L=1 (B=4096 and 8192+37), S=64 at E=256, H=2 (B=4133) and S=100 at
-   E=64, H=2, L=2 (B=4133), staged; S=200 at E=128, H=2, L=1, at E=50
+   (S, E, H) and at ATTN_BLOCK_SHAPES (S=20; a head of 512): the
+   streamed pair (tensor cores, 3xTF32: attention_fwd_streamed's ao, o and
+   (m, l), then attention_bwd_streamed on the plain o and stats) at every
+   shape, and the staged pair where the encoder takes it (attention_fwd's
+   ao and P, then attention_bwd on the plain P), B=4133 (1061 past S=128),
+   within ENC_TOL, repeats bit-identical; then the whole encoder: S=50 at
+   E=128, H=2, L=1 (B=4096 and 4133), S=64 at E=256, H=2 (B=4133, staged),
+   S=100 at E=64, H=2, L=2 (B=4133), S=200 at E=128, H=2, L=1, at E=50
    (SASRec's MovieLens-1M d, run zero-padded to 64) with H=1 and 2, L=2,
-   and S=512 at E=64, H=2 (B=1061), streamed; bf16 and fp32, histories of
-   random pad lengths: the forward within ENC_TOL (ENC_NORM_TOL in bf16,
-   the jnp rounding points rejected) of the plain version at the true
-   widths, fused_encode's pad rows exactly 0, dropout 0.1 under two seeds;
-   the backward within ENC_BWD_TOL and its norm bars at rate 0 and 0.1
-   (the fp32-operand control rejected in bf16); every repeat
-   bit-identical and the launches exact. The C predicate
-   (sasrec_encoder_fits) against the Python one on S 1..512 x FITS_E (E
-   1 to 1024, 10, 48 and 50 among them) x FITS_H x L 1, 2, with the C
-   widths and attention route against padded_dims and attention_route.
-   Both encoder kernels timed at S=50 as phase 3 times them at S=20, and
-   at S=200 (E=128) and the ML-1M shape (E=50, H=1, L=2, S=200) beside
-   their bounds (the attention's fp32 operations at the fp32 rate) and
+   S=512 at E=64, H=2 and S=50 with one head of 288 (B=1061, the head
+   read from device memory); bf16 and fp32, histories of random
+   pad lengths: the forward within ENC_TOL (ENC_NORM_TOL in bf16, the jnp
+   rounding points rejected) of the plain version at the true widths,
+   fused_encode's pad rows exactly 0, dropout 0.1 under two seeds; the
+   backward within ENC_BWD_TOL and its norm bars at rate 0 and 0.1 (the
+   fp32-operand control rejected in bf16); every repeat bit-identical and
+   the launches exact. The C predicate (sasrec_encoder_fits) against the
+   Python one on S 1..512 x FITS_E (E 1 to 1024, 10, 48 and 50 among
+   them) x FITS_H x L 1, 2, with the C widths and attention route against
+   padded_dims and attention_route. The attention blocks alone timed at
+   ATTN_TIME_SHAPES beside two bounds, their plain versions and
+   F.scaled_dot_product_attention (`[time] attention` lines); both encoder
+   kernels timed at S=50 as phase 3 times them at S=20, and at S=200
+   (E=128) and the ML-1M shape (E=50, H=1, L=2, S=200) beside their
+   bounds (the attention's fp32 operations at the faster of the fp32 rate
+   beside the products and 3xTF32 at the TF32 rate after them) and
    nn.TransformerEncoderLayer (`[time] ... S=50` / `S=200` lines). (b)
    sasrec_fibinet at max_len 50 (SASRec's n for its sparse datasets) and
    sasrec_fibinet_ml1m (max_len 200, E=50, one head, two blocks, dropout
@@ -261,15 +267,15 @@ Phases, in order; any failure exits non-zero and prints no result line.
    its first rows within CPU_TOL of the CPU Predictor's. (c) E=10 through
    the interaction entry point, which pads it to 16, against the plain
    version at E=10 (forward within TOL and FWD_NORM_TOL, gradients within
-   BWD_TOL; `[padded compare]` lines); mm_fibinet at E=10 and mm_fibinet
-   with a (100, 50) tower (the scoring kernel at (104, 56)), each 3 train
-   steps, an eval forward and a serve of 16,384 rows on the kernels: exact
-   launches, the served probabilities within CPU_TOL of the CPU
-   Predictor's (`[padded ...]` lines); sasrec_fibinet with one head of
-   E=512, past the encoder kernels' head width of 256: a train step, an
-   eval forward and a serve each refused with the envelope's ValueError
-   before any counted launch (`[refused ...]`). The kernels line adds
-   7e's launches.
+   BWD_TOL; `[padded compare]` lines); mm_fibinet at E=10, mm_fibinet with
+   a (100, 50) tower (the scoring kernel at (104, 56)) and sasrec_fibinet
+   with one head of E=512 at max_len 50 (the streamed attention, the head
+   read from device memory), each 3 train steps, an eval forward and a serve
+   of 16,384 rows on the kernels: exact launches, the served probabilities
+   within CPU_TOL of the CPU Predictor's (`[padded ...]`, `[wide head
+   ...]` lines); encode_fwd and encode_bwd past MAX_TOKENS tokens refused
+   with the envelope's ValueError before any allocation or counted launch
+   (`[refused tokens]`). The kernels line adds 7e's launches.
 6d. Phases 6-7 for sasrec_emb_256 (sasrec_fibinet with embedding_dim=256,
    its other defaults): both encoder kernels at E=256 in the gradient
    check and the exact launch counts, the export served through them.
@@ -373,7 +379,8 @@ HIDDEN = (512, 256)
 N_ROWS = 47 * 8192  # the reference test split's size
 CHUNK_ROWS = 65_536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 FMA
+# dense bf16 and TF32 tensor-core rates, fp32 FMA on the CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 # kernel vs its plain version on the card: (atol, rtol). fp32 differs only by
 # summation order; in bf16 a rounding point can land one ulp apart when the
 # fp32 sums feeding it are taken in another order, and an interaction pair
@@ -558,12 +565,15 @@ def kernel_split(torch, fn, label: str, card, reps: int = 5) -> None:
 
 
 def bound(nbytes: float, ops: float, fp32_ops: float = 0.0) -> dict:
-    """The least time the card could take: bytes at the HBM rate, operations
-    at the bf16 tensor rate and ``fp32_ops`` (work the precision contract
-    keeps in fp32, off the tensor cores: the encoder's attention) at the fp32
-    rate, whichever is longest."""
+    """The least time the card could take: bytes at the HBM rate, or the
+    operations, whichever is longer. ``ops`` run at the bf16 tensor rate;
+    ``fp32_ops`` (work the precision contract keeps at fp32 accuracy: the
+    encoder's attention) take the faster of two ways: on the CUDA cores at
+    the fp32 rate, beside the tensor cores' work, or on the tensor cores
+    as 3xTF32 (three TF32 operations an fp32 one) after it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / PEAK_FLOPS["bfloat16"], fp32_ops / PEAK_FLOPS["float32"]) * 1e3
+    t_ops = min(max(ops / PEAK_FLOPS["bfloat16"], fp32_ops / PEAK_FLOPS["float32"]),
+                ops / PEAK_FLOPS["bfloat16"] + 3 * fp32_ops / PEAK_FLOPS["tf32"]) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1203,17 +1213,24 @@ def encoder_against_plain(torch) -> tuple[float, list]:
     return worst, failures
 
 
+PLAIN_REPS = 3  # runs timing phase 7e's fp64 plain encoders (phase 3's: 30)
+
+
 def encoder_timing(torch, card, e: int = ENC_E, s: int = ENC_S, on_card: bool = False,
                    heads: int = ENC_H, layers: int = 1) -> dict:
     """Phase 3 for the encoder at B=8192, bf16, histories of S (phase 7e:
     50 and 200, and the ML-1M shape E=50, H=1, L=2): kernel, plain version
     and nn.TransformerEncoderLayer (L of them; checked first against the
     plain version in fp32 on every history with a real step), CUDA events,
-    beside the bound: the products' operations at the bf16 rate, the
-    attention's (fp32 by the precision contract) at the fp32 rate."""
+    beside the bound (``bound``: the products' operations at the bf16
+    rate, the attention's, fp32 accuracy by the precision contract, at the
+    fp32 rate beside them or as 3xTF32 after them, whichever is faster).
+    The plain version, fp64 and slow past S = 20, is timed over
+    PLAIN_REPS runs in phase 7e (on_card)."""
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_fwd, encode_fwd_plain
 
     shape = f"S={s} E={e} H={heads} L={layers}"
+    plain_reps = PLAIN_REPS if on_card else 30
     x, amask, pad, ws, _, _, _ = encoder_case(torch, torch.float32, B_FULL, e, heads, layers, 3,
                                               s=s, on_card=on_card)
     real = ~pad.all(-1)
@@ -1231,12 +1248,14 @@ def encoder_timing(torch, card, e: int = ENC_E, s: int = ENC_S, on_card: bool = 
                                               s=s, on_card=on_card)
     library = library_stack(torch, ws, heads)[1]
     tokens = B_FULL * s
-    ops, fp32_ops = 2 * tokens * 12 * e * e * layers, 2 * tokens * 2 * s * e * layers
+    # the attention: q k^T and p v, 4 S^2 D a head
+    ops, fp32_ops = 2 * tokens * 12 * e * e * layers, 4 * tokens * s * e * layers
     nbytes = 2 * 2 * x.numel() + 4 * amask.numel() + sum(t.numel() * t.element_size() for t in ws)
     with torch.inference_mode():
         t = {
             "ms": time_ms(torch, lambda: encode_fwd(x, amask, *ws, num_heads=heads)),
-            "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, num_heads=heads)),
+            "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, num_heads=heads),
+                                plain_reps),
             **bound(nbytes, ops, fp32_ops),
             "library_ms": time_ms(torch, lambda: library(x, pad)),
         }
@@ -1246,13 +1265,94 @@ def encoder_timing(torch, card, e: int = ENC_E, s: int = ENC_S, on_card: bool = 
     kw = dict(num_heads=heads, seed=seed, rate=DROP_RATE)
     with torch.inference_mode():
         drop = {"ms": time_ms(torch, lambda: encode_fwd(x, amask, *ws, **kw)),
-                "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, **kw))}
+                "plain_ms": time_ms(torch, lambda: encode_fwd_plain(x, amask, *ws, **kw),
+                                    plain_reps)}
     log(f"[time] sasrec_encoder_fwd with dropout {DROP_RATE} (train mode), same inputs: {drop} "
         f"on {card}")
     with torch.inference_mode():
         kernel_split(torch, lambda: encode_fwd(x, amask, *ws, **kw),
                      f"sasrec_encoder_fwd bf16 B={B_FULL} {shape} dropout {DROP_RATE}", card)
     return t
+
+
+# (S, E, H) of the attention blocks' [time] lines: max_len 20, 50 and 200 at
+# sasrec_fibinet's E = 128 with two heads, and SASRec's ML-1M shape
+ATTN_TIME_SHAPES = [(20, 128, 2), (50, 128, 2), (200, 128, 2), (200, 50, 1)]
+
+
+def attention_timing(torch, card, s: int, e: int, heads: int) -> dict:
+    """Phase 7e: the attention blocks alone at the kernels' widths (E = 50
+    runs at 64), bf16 output, the forward over B_FULL histories and the
+    backward over B_TRAIN, of random pad lengths: the streamed pair (and
+    the staged pair where the encoder takes it), CUDA events, beside the
+    fp32-equivalent TFLOP/s (4 S^2 D a head forward, FlashAttention-2's 10
+    S^2 D backward), two bounds (3xTF32 on the tensor cores at the TF32
+    rate, and the same work in fp32 on the CUDA cores, each against the
+    bytes: inputs read once, outputs written once), the plain versions and
+    F.scaled_dot_product_attention on the same inputs in fp32 and bf16
+    (the backward: autograd's backward of it alone), a yardstick the port
+    never calls."""
+    import torch.nn.functional as F
+
+    from ctr_recommendation_tpu_torch.ops.cuda import encoder_blocks as eb
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import padded_dims
+
+    ep, dp = padded_dims(e, heads)
+    att = dict(scale=1.0 / (e // heads) ** 0.5)
+    gen = torch.Generator(device="cuda").manual_seed(s * 7 + e)
+    lens = torch.randint(1, s + 1, (B_FULL,), generator=gen, device="cuda")
+    amask = torch.where(torch.arange(s, device="cuda")[None, :] < (s - lens)[:, None],
+                        -1e9, 0.0).float()
+    qkv = torch.randn((B_FULL * s, 3 * ep), generator=gen, device="cuda")
+    nb = B_TRAIN * s
+    qb, ab = qkv[:nb], amask[:B_TRAIN].contiguous()
+    dao = torch.randn((nb, ep), generator=gen, device="cuda")
+    bf16 = torch.bfloat16
+    _, o, st = eb.attention_fwd_streamed(qb, ab, heads, bf16, **att)
+    flops = {"fwd": 4 * B_FULL * s * s * ep, "bwd": 10 * B_TRAIN * s * s * ep}
+    nbytes = {"fwd": 4 * qkv.numel() + 4 * amask.numel() + (2 + 4) * B_FULL * s * ep
+              + 8 * B_FULL * heads * s,
+              "bwd": 4 * qb.numel() + 4 * ab.numel() + 2 * 4 * nb * ep + 8 * B_TRAIN * heads * s
+              + (4 + 2) * nb * 3 * ep}
+    runs = {"fwd": lambda: eb.attention_fwd_streamed(qkv, amask, heads, bf16, **att),
+            "bwd": lambda: eb.attention_bwd_streamed(qb, ab, o, st, dao, bf16, **att)}
+    plain = {"fwd": lambda: eb.attention_fwd_streamed_plain(qkv, amask, heads, bf16, **att),
+             "bwd": lambda: eb.attention_bwd_streamed_plain(qb, ab, o, st, dao, bf16, **att)}
+    out = {}
+    for way in ("fwd", "bwd"):
+        ms = time_ms(torch, runs[way])
+        t_bytes = nbytes[way] / HBM_BYTES_PER_S * 1e3
+        out[way] = {
+            "ms": ms, "tflops_fp32_equivalent": flops[way] / ms / 1e9,
+            "bound_ms_3xtf32": max(t_bytes, 3 * flops[way] / PEAK_FLOPS["tf32"] * 1e3),
+            "bound_ms_fp32": max(t_bytes, flops[way] / PEAK_FLOPS["float32"] * 1e3),
+            "plain_ms": time_ms(torch, plain[way], reps=1)}
+    if eb.attention_route(s, dp) == "staged":
+        _, p = eb.attention_fwd(qb, ab, heads, bf16, **att)
+        out["fwd"]["staged_ms"] = time_ms(
+            torch, lambda: eb.attention_fwd(qkv, amask, heads, bf16, **att))
+        out["bwd"]["staged_ms"] = time_ms(
+            torch, lambda: eb.attention_bwd(qb, p, dao, bf16, **att))
+        del p
+    for dtype in (torch.float32, bf16):
+        dn = str(dtype).split(".")[1]
+        q, k, v = (eb.heads(t, B_FULL, s, heads).to(dtype).contiguous()
+                   for t in qkv.split(ep, -1))
+        mask = amask[:, None, None, :].to(dtype)
+        out["fwd"][f"library_ms_{dn}"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, **att))
+        leaves = [t[:B_TRAIN].detach().requires_grad_() for t in (q, k, v)]
+        y = F.scaled_dot_product_attention(*leaves, attn_mask=mask[:B_TRAIN], **att)
+        gy = eb.heads(dao, B_TRAIN, s, heads).to(dtype).contiguous()
+        out["bwd"][f"library_ms_{dn}"] = time_ms(
+            torch, lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True))
+        del q, k, v, leaves, y, gy
+    log(f"[time] attention S={s} E={e} H={heads} (kernels at D={dp}), forward B={B_FULL}, "
+        f"backward B={B_TRAIN}, bf16 out: {out} (fp32 operations {flops}, bytes {nbytes}; "
+        f"bounds: 3xTF32 at {PEAK_FLOPS['tf32']:.3g}, fp32 at {PEAK_FLOPS['float32']:.3g} "
+        f"FLOP/s; library: F.scaled_dot_product_attention, the staged pair where the encoder "
+        f"takes it) on {card}")
+    return out
 
 
 DROP_RATE = 0.1  # sasrec_fibinet's attn_dropout default
@@ -1642,6 +1742,7 @@ def encoder_bwd_timing(torch, card, e: int = ENC_E, s: int = ENC_S, on_card: boo
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_bwd_plain
 
     shape = f"S={s} E={e} H={heads} L={layers}"
+    plain_reps = PLAIN_REPS if on_card else 30  # as encoder_timing
 
     def case(dtype, seed):
         x, amask, pad, ws, _, _, _ = encoder_case(torch, dtype, B_TRAIN, e, heads, layers, seed,
@@ -1690,7 +1791,9 @@ def encoder_bwd_timing(torch, card, e: int = ENC_E, s: int = ENC_S, on_card: boo
     for layer in lib_layers:
         layer.train()
     tokens = B_TRAIN * s
-    ops, fp32_ops = 3 * 2 * tokens * 12 * e * e * layers, 3 * 2 * tokens * 2 * s * e * layers
+    # the attention: q k^T and p v of the recomputed forward, then dP, dV,
+    # dQ and dK (q k^T counted once), 12 S^2 D a head
+    ops, fp32_ops = 3 * 2 * tokens * 12 * e * e * layers, 12 * tokens * s * e * layers
     nbytes = (3 * 2 * x.numel() + 4 * amask.numel()
               + sum(t.numel() * t.element_size() for t in ws) + 4 * sum(t.numel() for t in ws))
     lib_fwd = time_ms(torch, lambda: library(x, pad))
@@ -1698,7 +1801,7 @@ def encoder_bwd_timing(torch, card, e: int = ENC_E, s: int = ENC_S, on_card: boo
     kw = dict(num_heads=heads, seed=seed, rate=DROP_RATE)
     t = {
         "ms": time_ms(torch, lambda: encode_bwd(g, x, amask, *ws, **kw)),
-        "plain_ms": time_ms(torch, lambda: encode_bwd_plain(g, x, amask, *ws, **kw)),
+        "plain_ms": time_ms(torch, lambda: encode_bwd_plain(g, x, amask, *ws, **kw), plain_reps),
         **bound(nbytes, ops, fp32_ops),
         "library_ms": lib_both - lib_fwd,
     }
@@ -4302,15 +4405,25 @@ ML1M = dict(max_len=200, embedding_dim=50, attn_num_heads=1, attn_num_layers=2,
             attn_dropout=0.2)
 OUTSIDE_E = 10  # an embedding width the interaction and scoring kernels take zero-padded
 OUTSIDE_TOWER = (100, 50)  # a tower the scoring kernel takes zero-padded
-REFUSED_E = 512  # with one head: a head width past MAX_D, which the encoder kernels refuse
+WIDE_HEAD_E = 512  # with one head: a head width of 512, past what the CUDA-core attention took
+# its history: the staged pair takes a head of 512 at S = 20, so LONG_S,
+# where the shared memory of its backward cannot hold one and the streamed
+# pair reads the head from device memory
+WIDE_HEAD_LEN = LONG_S
 B_LONG = 1024 + 37  # histories of phase 7e's cases past what shared memory holds
-# (S, E, H, L, B) of the encoder checks past 32 keys: two and four keys a
-# lane staged, then the keys streamed (S = 200, SASRec's ML-1M shape at E =
-# 50 padded to the kernels' widths, and S = 512)
-LONG_CASES = [(LONG_S, 128, 2, 1, B_TRAIN), (LONG_S, 128, 2, 1, B_RAGGED),
+# (S, E, H, L, B) of the encoder checks past 32 keys: the streamed attention
+# at S = 50, 100, 200 (SASRec's ML-1M shape at E = 50 padded to the
+# kernels' widths) and 512, and at S = 50 with one head of 288 (read from
+# device memory in chunks of 128 columns, the last one part full); the
+# staged one at heads of 128 (S = 64)
+LONG_CASES = [(LONG_S, 128, 2, 1, B_TRAIN), (LONG_S, 128, 2, 1, B_TRAIN + 37),
               (64, 256, 2, 1, B_TRAIN + 37), (100, 64, 2, 2, B_TRAIN + 37),
               (200, 128, 2, 1, B_LONG), (200, 50, 1, 2, B_LONG), (200, 50, 2, 2, B_LONG),
-              (512, 64, 2, 1, B_LONG)]
+              (512, 64, 2, 1, B_LONG), (LONG_S, 288, 1, 1, B_LONG)]
+# (S, E, H) of the attention blocks alone besides LONG_CASES': a history of
+# one key tile (S = 20, the route's edge; both pairs) and a head of 512 in
+# one key tile, which the streamed pair reads from device memory in chunks
+ATTN_BLOCK_SHAPES = [(20, 128, 2), (20, 512, 1)]
 FITS_S = range(1, 513)  # the grid the C and Python encoder predicates are held on
 FITS_E = (1, 10, 16, 32, 48, 50, 64, 96, 100, 128, 160, 192, 256, 300, 384, 512, 1024)
 FITS_H = (1, 2, 3, 4, 5, 8, 16, 32)
@@ -4320,29 +4433,30 @@ OUTSIDE_STEPS = 3  # train steps of each (c) case, on one batch
 
 def long_attention_blocks(torch) -> tuple[float, list]:
     """Phase 7e (a): the attention blocks alone at each of LONG_CASES' (S,
-    E, H), at the kernels' widths (padded_dims: E = 50 runs at 64) with the
-    true D's scale, over B_TRAIN + 37 histories (B_LONG past S = 128) of
-    random pad lengths (row 0 all pad), bf16 and fp32, the pair the encoder
-    takes there (attention_route). Staged: attention_fwd's ao and P against
-    attention_fwd_plain's on the same qkv and mask, then attention_bwd on the
-    plain version's P against attention_bwd_plain. Streamed:
-    attention_fwd_streamed's ao, o and stats against
-    attention_fwd_streamed_plain's, then attention_bwd_streamed on the plain
-    version's o and stats against attention_bwd_streamed_plain. Every output
-    within ENC_TOL (ENC_NORM_TOL in bf16; P, o, the stats and dqkv are fp32
-    and held at the fp32 bars; the running max m on the histories with a
-    real key, as the -1e9 of an all-pad one would set the bar's scale);
-    each launch's repeat bit-identical. The backward
-    checks below take their forward residues from the kernels, so this
-    holds those on their own. Returns (worst max_abs_err, failures)."""
+    E, H) and ATTN_BLOCK_SHAPES, at the kernels' widths
+    (padded_dims: E = 50 runs at 64) with the true D's scale, over B_TRAIN +
+    37 histories (B_LONG past S = 128) of random pad lengths (row 0 all pad),
+    bf16 and fp32: the streamed pair (tensor cores, 3xTF32) at every shape,
+    and the staged pair too where the encoder takes it (attention_route).
+    Staged: attention_fwd's ao and P against attention_fwd_plain's on the
+    same qkv and mask, then attention_bwd on the plain version's P against
+    attention_bwd_plain. Streamed: attention_fwd_streamed's ao, o and stats
+    against attention_fwd_streamed_plain's, then attention_bwd_streamed on
+    the plain version's o and stats against attention_bwd_streamed_plain.
+    Every output within ENC_TOL (ENC_NORM_TOL in bf16; P, o, the stats and
+    dqkv are fp32 and held at the fp32 bars; the running max m on the
+    histories with a real key, as the -1e9 of an all-pad one would set the
+    bar's scale); each launch's repeat bit-identical. The backward checks
+    below take their forward residues from the kernels, so this holds those
+    on their own. Returns (worst max_abs_err, failures)."""
     from ctr_recommendation_tpu_torch.ops.cuda import encoder_blocks as eb
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import padded_dims
 
     worst, failures = 0.0, []
-    for s, e, heads in dict.fromkeys(c[:3] for c in LONG_CASES):
+    for s, e, heads in dict.fromkeys([c[:3] for c in LONG_CASES] + ATTN_BLOCK_SHAPES):
         b = B_TRAIN + 37 if s <= eb.MAX_S else B_LONG
         ep, dp = padded_dims(e, heads)
-        route = eb.attention_route(s, dp)
+        routes = ("streamed", "staged") if eb.attention_route(s, dp) == "staged" else ("streamed",)
         att = dict(scale=1.0 / (e // heads) ** 0.5)
         gen = torch.Generator(device="cuda").manual_seed(s * 1000 + e)
         lens = torch.randint(0, s + 1, (b,), generator=gen, device="cuda")
@@ -4352,47 +4466,50 @@ def long_attention_blocks(torch) -> tuple[float, list]:
         real = ~pad.all(-1)
         qkv = torch.randn((b * s, 3 * ep), generator=gen, device="cuda")
         dao = torch.randn((b * s, ep), generator=gen, device="cuda")
-        for dtype in (torch.bfloat16, torch.float32):
-            dn = str(dtype).split(".")[1]
-            if route == "staged":
-                fwd = lambda: eb.attention_fwd(qkv, amask, heads, dtype, **att)  # noqa: E731
-                want_f = eb.attention_fwd_plain(qkv, amask, heads, dtype, **att)
-                p_w = want_f[1]
-                bwd = lambda: eb.attention_bwd(qkv, p_w, dao, dtype, **att)  # noqa: E731
-                want_b = eb.attention_bwd_plain(qkv, p_w, dao, dtype, **att)
-                names = ("ao", "P")
-            else:
-                fwd = lambda: eb.attention_fwd_streamed(qkv, amask, heads, dtype, **att)  # noqa
-                want_f = eb.attention_fwd_streamed_plain(qkv, amask, heads, dtype, **att)
-                _, o_w, st_w = want_f
-                bwd = lambda: eb.attention_bwd_streamed(  # noqa: E731
-                    qkv, amask, o_w, st_w, dao, dtype, **att)
-                want_b = eb.attention_bwd_streamed_plain(qkv, amask, o_w, st_w, dao, dtype, **att)
-            got_f, got_b = fwd(), bwd()
-            same = (all(torch.equal(a, c) for a, c in zip(got_f, fwd()))
-                    and all(torch.equal(a, c) for a, c in zip(got_b, bwd())))
-            torch.cuda.synchronize()
-            if route == "streamed":  # the stats as m (real histories) and l
-                names = ("ao", "o", "m", "l")
-                got_f = (*got_f[:2], got_f[2][real][..., 0], got_f[2][..., 1])
-                want_f = (*want_f[:2], want_f[2][real][..., 0], want_f[2][..., 1])
-            held = {name: (a, w, dn if name == "ao" else "float32")
-                    for name, a, w in zip(names, got_f, want_f)}
-            held.update({"dqkv": (got_b[0], want_b[0], "float32"),
-                         "dqkv_c": (got_b[1], want_b[1], dn)})
-            parts = []
-            for name, (got, want, bar) in held.items():
-                err, rel_norm, ok = check_encoder(torch, got, want, bar)
-                worst = max(worst, err)
-                parts.append(f"{name} max_abs_err={err:.3e} |d|/|want| {rel_norm:.3e} "
-                             f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failures.append(("long attention block", route, name, s, e, heads, dn))
-            if not same:
-                failures.append(("long attention block repeat", route, s, e, heads, dn))
-            log(f"[long compare] attention blocks, {route}, S={s} E={e} H={heads} (kernels at "
-                f"E={ep}, D={dp}) {dn} B={b}: {'; '.join(parts)}; repeats bit-identical {same}")
-            del got_f, got_b, want_f, want_b
+        for route in routes:
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[1]
+                if route == "staged":
+                    fwd = lambda: eb.attention_fwd(qkv, amask, heads, dtype, **att)  # noqa: E731
+                    want_f = eb.attention_fwd_plain(qkv, amask, heads, dtype, **att)
+                    p_w = want_f[1]
+                    bwd = lambda: eb.attention_bwd(qkv, p_w, dao, dtype, **att)  # noqa: E731
+                    want_b = eb.attention_bwd_plain(qkv, p_w, dao, dtype, **att)
+                    names = ("ao", "P")
+                else:
+                    fwd = lambda: eb.attention_fwd_streamed(qkv, amask, heads, dtype, **att)  # noqa
+                    want_f = eb.attention_fwd_streamed_plain(qkv, amask, heads, dtype, **att)
+                    _, o_w, st_w = want_f
+                    bwd = lambda: eb.attention_bwd_streamed(  # noqa: E731
+                        qkv, amask, o_w, st_w, dao, dtype, **att)
+                    want_b = eb.attention_bwd_streamed_plain(qkv, amask, o_w, st_w, dao, dtype,
+                                                             **att)
+                got_f, got_b = fwd(), bwd()
+                same = (all(torch.equal(a, c) for a, c in zip(got_f, fwd()))
+                        and all(torch.equal(a, c) for a, c in zip(got_b, bwd())))
+                torch.cuda.synchronize()
+                if route == "streamed":  # the stats as m (real histories) and l
+                    names = ("ao", "o", "m", "l")
+                    got_f = (*got_f[:2], got_f[2][real][..., 0], got_f[2][..., 1])
+                    want_f = (*want_f[:2], want_f[2][real][..., 0], want_f[2][..., 1])
+                held = {name: (a, w, dn if name == "ao" else "float32")
+                        for name, a, w in zip(names, got_f, want_f)}
+                held.update({"dqkv": (got_b[0], want_b[0], "float32"),
+                             "dqkv_c": (got_b[1], want_b[1], dn)})
+                parts = []
+                for name, (got, want, bar) in held.items():
+                    err, rel_norm, ok = check_encoder(torch, got, want, bar)
+                    worst = max(worst, err)
+                    parts.append(f"{name} max_abs_err={err:.3e} |d|/|want| {rel_norm:.3e} "
+                                 f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(("long attention block", route, name, s, e, heads, dn))
+                if not same:
+                    failures.append(("long attention block repeat", route, s, e, heads, dn))
+                log(f"[long compare] attention blocks, {route}, S={s} E={e} H={heads} (kernels "
+                    f"at E={ep}, D={dp}) {dn} B={b}: {'; '.join(parts)}; repeats bit-identical "
+                    f"{same}")
+                del got_f, got_b, want_f, want_b
     return worst, failures
 
 
@@ -4609,7 +4726,7 @@ def fits_grid(torch) -> None:
     log(f"[long fits] sasrec_encoder_fits (C) vs sasrec_encoder.fits (Python) on {points} "
         f"points (S 1..{FITS_S[-1]} x E {FITS_E} x H {FITS_H} x L 1, 2), with the widths and "
         f"the attention's route where inside: {inside} inside, {len(apart)} apart "
-        f"{apart[:5]}; (E, H) refused at every S: {refused} (E % H != 0 or E/H > 256); the "
+        f"{apart[:5]}; (E, H) refused at every S: {refused} (E % H != 0); the "
         f"largest S the staged attention takes at each head width D (the streamed past it): "
         f"{largest}")
     if apart or not inside:
@@ -4695,9 +4812,10 @@ def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
 
 
 def outside_case(torch, tag: str, exp, train, valid, store, card, counted,
-                 launches: dict) -> None:
-    """Phase 7e (c), one model at a shape its kernels take zero-padded:
-    OUTSIDE_STEPS train steps on one batch (loss finite), one eval forward
+                 launches: dict, kind: str = "padded") -> None:
+    """Phase 7e (c), one model at a shape its kernels take zero-padded (or,
+    ``kind``, past what their first designs took): OUTSIDE_STEPS train
+    steps on one batch (loss finite), one eval forward
     (Trainer.predict) of B_FULL rows, and a serve of 2 x B_FULL rows
     (Predictor.score_table) of the trained weights. ``launches`` maps
     "step", "eval" and "serve" to each counted wrapper's launches a step,
@@ -4735,7 +4853,7 @@ def outside_case(torch, tag: str, exp, train, valid, store, card, counted,
             and np.isfinite(evaluated).all() and served.shape == (2 * B_FULL,)
             and bool(((served > 0) & (served < 1)).all()))
     ok = got_l == want_l and cpu_err <= CPU_TOL and sane and pred.use_fused
-    log(f"[padded {tag}] {OUTSIDE_STEPS} steps (losses {[round(v, 5) for v in losses]}), an "
+    log(f"[{kind} {tag}] {OUTSIDE_STEPS} steps (losses {[round(v, 5) for v in losses]}), an "
         f"eval forward of {B_FULL} rows, {2 * B_FULL} rows served (fused scoring "
         f"{pred.use_fused}): launches {got_l} (expected {want_l}); the first "
         f"{OUTSIDE_CPU_ROWS} served rows vs the CPU Predictor max_abs_err={cpu_err:.3e} "
@@ -4744,80 +4862,108 @@ def outside_case(torch, tag: str, exp, train, valid, store, card, counted,
         raise SystemExit(f"phase 7e (c) {tag} failed")
 
 
-def refused_case(torch, tag: str, exp, train, valid, store, card, counted) -> None:
-    """Phase 7e (c): a head width past MAX_D, which the encoder kernels
-    refuse. A train step, an eval forward and a serve on the card each
-    raise ValueError naming the kernels' envelope, before any counted
-    kernel launches (the kernel path does not hand the call to plain
-    PyTorch)."""
-    from ctr_recommendation_tpu_torch.data import TableData
-    from ctr_recommendation_tpu_torch.inference import Predictor
-    from ctr_recommendation_tpu_torch.training import Trainer
-    from ctr_recommendation_tpu_torch.utils.tree import tree_map
+def refused_tokens(torch, card, counted) -> None:
+    """Phase 7e (c): what the encoder kernels still refuse, a call of more
+    than MAX_TOKENS tokens B*S (the tile product's grid rows). encode_fwd and
+    encode_bwd on views of that many tokens (expanded from one row, so the
+    check itself allocates nothing) each raise ValueError naming the
+    kernels' envelope, before any allocation and any counted launch."""
+    from ctr_recommendation_tpu_torch.ops import attention
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        MAX_TOKENS,
+        encode_bwd,
+        encode_fwd,
+        stack_weights,
+    )
 
-    tr = Trainer(exp, steps_per_epoch=OUTSIDE_STEPS, item_store=store, log_fn=lambda s: None)
-    bs = exp.train.batch_size
-    batch = {k: torch.as_tensor(v[:bs]).cuda() for k, v in train.columns.items()}
-    rows = {k: v[:B_FULL] for k, v in valid.columns.items()}
-    params = tree_map(lambda t: t.detach().cpu(), tr.state.params)
-    state = tree_map(lambda t: t.detach().cpu(), tr.state.model_state)
-    pred = Predictor(exp, params, state, item_store=store)
+    s, e, heads = 128, 32, 2
+    b = MAX_TOKENS // s + 1
+    params = attention.init(torch.Generator().manual_seed(0), e, s, num_heads=heads, num_layers=1)
+    ws = tuple(t.cuda() for t in stack_weights(params, torch.bfloat16))
+    x = torch.zeros((1, 1, e), dtype=torch.bfloat16, device="cuda").expand(b, s, e)
+    amask = torch.zeros((1, 1), device="cuda").expand(b, s)
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
+    before = torch.cuda.memory_allocated()
     refusals = {}
-    for name, call in (("step", lambda: tr.train_step(batch)),
-                       ("eval", lambda: tr.predict([rows])),
-                       ("serve", lambda: pred.score_table(TableData(rows, B_FULL), B_FULL))):
+    for name, call in (("encode_fwd", lambda: encode_fwd(x, amask, *ws, num_heads=heads)),
+                       ("encode_bwd", lambda: encode_bwd(x, x, amask, *ws, num_heads=heads))):
         try:
             call()
             refusals[name] = None
         except ValueError as err:
             refusals[name] = str(err)
     torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
     got_l = {fn.__name__: fn.launches for fn in counted}
-    ok = (not any(got_l.values()) and all(
-        r is not None and "envelope" in r and f"E={REFUSED_E}" in r for r in refusals.values()))
-    log(f"[refused {tag}] a train step, an eval forward and a serve on the card: "
-        f"{ {k: (v or 'NOT REFUSED')[:160] for k, v in refusals.items()} }; launches {got_l} "
-        f"(expected none) on {card} {'ok' if ok else 'FAIL'}")
+    ok = (not any(got_l.values()) and grown == 0 and all(
+        r is not None and "envelope" in r and f"B*S={b * s}" in r for r in refusals.values()))
+    log(f"[refused tokens] B*S = {b * s} tokens (MAX_TOKENS {MAX_TOKENS}), S={s} E={e} H={heads}: "
+        f"{ {k: (v or 'NOT REFUSED')[:200] for k, v in refusals.items()} }; device memory grown "
+        f"{grown} bytes, launches {got_l} (expected none) on {card} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"phase 7e (c) {tag} failed")
+        raise SystemExit("phase 7e (c): a call past MAX_TOKENS was not refused up front")
 
 
 def outside_phase(torch, train, valid, store, root, card, counted) -> dict:
     """Phase 7e (c): the shapes the JAX kernels run that lie outside the
-    port's kernels' own, each model otherwise at the full defaults:
-    mm_fibinet at E = OUTSIDE_E (the interaction and scoring kernels at
-    padded_width(E)) and mm_fibinet with an OUTSIDE_TOWER tower (the
-    scoring kernel at each width padded to a multiple of 8), trained,
-    evaluated and served on the kernels; sasrec_fibinet with one head of
-    REFUSED_E, past the encoder kernels' head width, refused on the card.
-    Returns each counted wrapper's launches over the padded cases."""
+    port's kernels' own multiples or past what their first designs took,
+    each model otherwise at the full defaults: mm_fibinet at E = OUTSIDE_E
+    (the interaction and scoring kernels at padded_width(E)), mm_fibinet
+    with an OUTSIDE_TOWER tower (the scoring kernel at each width padded to
+    a multiple of 8) and sasrec_fibinet with one head of WIDE_HEAD_E at
+    max_len WIDE_HEAD_LEN (the streamed attention reading its heads from
+    device memory in chunks; on a cut of phase 6's data made at that
+    max_len), trained, evaluated and served on the kernels; then the one
+    refusal left (refused_tokens). Returns each counted wrapper's launches
+    over the cases."""
     from ctr_recommendation_tpu_torch.config import microlens_experiment
+    from ctr_recommendation_tpu_torch.data import synthetic_splits
+    from ctr_recommendation_tpu_torch.ops.cuda.encoder_blocks import attention_route, attn_depth
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import bwd_launches as ibwd_n
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import fwd_launches as ifwd_n
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        bwd_launches,
+        encode_bwd,
+        encode_fwd,
+        fwd_launches,
+        padded_dims,
+    )
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
 
     def experiment(tag, **kw):
         return microlens_experiment(data_root="", checkpoint_dir=os.path.join(root, tag),
                                     use_pallas=True, **kw)
 
-    fi, bi = ifwd_n(), ibwd_n()
+    dp = padded_dims(WIDE_HEAD_E, 1)[1]
+    if attention_route(WIDE_HEAD_LEN, dp) != "streamed" or attn_depth(dp) != 0:
+        raise SystemExit(f"phase 7e (c): a head of {dp} at S={WIDE_HEAD_LEN} does not take the "
+                         f"streamed attention from device memory")
+    wide = synthetic_splits(B_TRAIN, 2 * B_FULL, seed=0, max_len=WIDE_HEAD_LEN)
+
+    fi, bi, ef, eb = ifwd_n(), ibwd_n(), fwd_launches(1), bwd_launches(1)
     total = {fn: 0 for fn in counted}
     per = {"step": {interaction_fwd: fi, interaction_bwd: bi}, "eval": {interaction_fwd: fi},
            "serve": {score_fwd: score_launches()}}
+    per_sasrec = {"step": {interaction_fwd: fi, interaction_bwd: bi, encode_fwd: ef,
+                           encode_bwd: eb},
+                  "eval": {interaction_fwd: fi, encode_fwd: ef},
+                  "serve": {score_fwd: score_launches(), encode_fwd: ef}}
     calls = {"step": OUTSIDE_STEPS, "eval": 1, "serve": 2}
-    for tag, exp in ((f"mm_fibinet E={OUTSIDE_E}", experiment("e10", embedding_dim=OUTSIDE_E)),
-                     (f"mm_fibinet tower {OUTSIDE_TOWER}",
-                      experiment("t100", hidden_units=OUTSIDE_TOWER))):
-        outside_case(torch, tag, exp, train, valid, store, card, counted, per)
+    for tag, exp, launches, kind, data in (
+            (f"mm_fibinet E={OUTSIDE_E}", experiment("e10", embedding_dim=OUTSIDE_E), per,
+             "padded", (train, valid, store)),
+            (f"mm_fibinet tower {OUTSIDE_TOWER}", experiment("t100", hidden_units=OUTSIDE_TOWER),
+             per, "padded", (train, valid, store)),
+            (f"sasrec_fibinet E={WIDE_HEAD_E} H=1 max_len {WIDE_HEAD_LEN}",
+             experiment("e512", model="sasrec_fibinet", embedding_dim=WIDE_HEAD_E,
+                        attn_num_heads=1, max_len=WIDE_HEAD_LEN), per_sasrec, "wide head", wide)):
+        outside_case(torch, tag, exp, *data, card, counted, launches, kind)
         for fn in counted:
-            total[fn] += sum(calls[k] * per[k].get(fn, 0) for k in calls)
-    refused_case(torch, f"sasrec_fibinet E={REFUSED_E} H=1",
-                 experiment("e512", model="sasrec_fibinet", embedding_dim=REFUSED_E,
-                            attn_num_heads=1), train, valid, store, card, counted)
+            total[fn] += sum(calls[k] * launches[k].get(fn, 0) for k in calls)
+    refused_tokens(torch, card, counted)
     return total
 
 
@@ -5302,6 +5448,15 @@ def serve_http(torch, mm: dict, sasrec: dict, valid, store, card) -> None:
     log(f"[serve] phase 7b in {time.perf_counter() - t_phase:.1f} s")
 
 
+_START = time.perf_counter()
+
+
+def clock(phase: str) -> None:
+    """A ``[clock]`` line: the seconds since the script started, at the start
+    of ``phase``."""
+    log(f"[clock] phase {phase} at {time.perf_counter() - _START:.1f} s")
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -5325,6 +5480,7 @@ def main(argv=None) -> int:
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
 
     # ---- phase 1: card, build ----
+    clock("1")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -5359,6 +5515,7 @@ def main(argv=None) -> int:
                 log(f"[ptxas {name}] {fn} {line.strip()}")
 
     # ---- phase 2: each kernel against its plain version ----
+    clock("2")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = {"interaction_fwd": 0.0, "fused_score": 0.0, "interaction_bwd": 0.0}
@@ -5396,6 +5553,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
 
     # ---- phase 3: timing at the main path's shapes (bf16, B=8192) ----
+    clock("3")
     timing = mm_timing(torch, card, E, HIDDEN)
     mm_timing(torch, card, WIDE_E, HIDDEN)
     mm_timing(torch, card, WIDE_E, WIDE_HIDDEN, with_interaction=False)
@@ -5406,6 +5564,7 @@ def main(argv=None) -> int:
     encoder_bwd_timing(torch, card, WIDE_E)
 
     # ---- phase 4: the serving main path ----
+    clock("4")
     from ctr_recommendation_tpu_torch.config import microlens_experiment
     from ctr_recommendation_tpu_torch.data import ItemStore, TableData
     from ctr_recommendation_tpu_torch.features import build_feature_map
@@ -5479,6 +5638,7 @@ def main(argv=None) -> int:
         raise SystemExit("card and CPU Predictor disagree")
 
     # ---- phase 5: the unfused branch (interaction kernel + tower in torch) ----
+    clock("5")
     unfused = Predictor(exp, params, state, item_store=store, fold_bn=False)
     n_unfused = 4
     interaction_fwd.launches = score_fwd.launches = 0
@@ -5496,9 +5656,11 @@ def main(argv=None) -> int:
         raise SystemExit("unfused and fused branches disagree")
 
     # ---- phase 5b: the sasrec_fibinet serving path (encoder kernel) ----
+    clock("5b")
     enc_launches = serve_sasrec(torch, store, rows, card)
 
     # ---- phases 6-7: the training main path, then its export; 6b: sasrec ----
+    clock("6-7")
     from ctr_recommendation_tpu_torch.data import synthetic_splits
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
         bwd_launches,
@@ -5522,13 +5684,17 @@ def main(argv=None) -> int:
             per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
             per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()})
         # ---- phase 7c: profile_epoch, the reference state_dict import, item embeddings ----
+        clock("7c")
         profiled = profile_epoch_phase(torch, train, train_store, root, card)
         imported = import_phase(torch, store, rows, card)
         item_embeddings_phase(torch, root, card)
         # ---- phase 7d: the entry point's forward, 256 and 8192 rows ----
+        clock("7d")
         entry = entry_phase(torch, card, worst, counted)
         # ---- phase 7e: the encoder at every S and E, widths off the kernels' multiples ----
+        clock("7e")
         block_err, long_failures = long_attention_blocks(torch)
+        clock("7e (a) whole encoder")
         long_fwd, long_bwd, failures = long_history_against_plain(torch)
         pad_fwd, pad_bwd, pad_failures = padded_interaction_against_plain(torch)
         if long_failures or failures or pad_failures:
@@ -5539,6 +5705,9 @@ def main(argv=None) -> int:
         worst["interaction_fwd"] = max(worst["interaction_fwd"], pad_fwd)
         worst["interaction_bwd"] = max(worst["interaction_bwd"], pad_bwd)
         fits_grid(torch)
+        clock("7e (a) timing")
+        for shape in ATTN_TIME_SHAPES:
+            attention_timing(torch, card, *shape)
         encoder_timing(torch, card, s=LONG_S, on_card=True)
         encoder_bwd_timing(torch, card, s=LONG_S, on_card=True)
         ml1m_shape = dict(e=ML1M["embedding_dim"], s=ML1M["max_len"],
@@ -5546,15 +5715,19 @@ def main(argv=None) -> int:
         for shape in (dict(s=ML1M["max_len"]), ml1m_shape):  # past shared memory: streamed
             encoder_timing(torch, card, on_card=True, **shape)
             encoder_bwd_timing(torch, card, on_card=True, **shape)
+        clock("7e (b)")
         long = long_history_phase(torch, root, card, counted, f"sasrec_fibinet_len{LONG_S}",
                                   dict(max_len=LONG_S))
         ml1m = long_history_phase(torch, root, card, counted, "sasrec_fibinet_ml1m", ML1M,
                                   layers=ML1M["attn_num_layers"])
+        clock("7e (c)")
         outside = outside_phase(torch, train, valid, train_store, root, card, counted)
         long = {fn: long[fn] + ml1m[fn] + outside[fn] for fn in counted}  # 7e's launches
         # ---- phase 6h: data-parallel training, two ranks sharing the card ----
+        clock("6h")
         data_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
         # ---- phase 6i: row-sharded tables, 1 x 2 and 2 x 2 ranks sharing the card ----
+        clock("6i")
         model_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
         sasrec_exp = microlens_experiment(data_root="", model="sasrec_fibinet",
                                           epochs=TRAIN_EPOCHS,
@@ -5570,8 +5743,10 @@ def main(argv=None) -> int:
             per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd},
             per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd})
         # ---- phase 7b: phase 7's exports served over HTTP (serving/) ----
+        clock("7b")
         serve_http(torch, mm, sasrec, valid, train_store, card)
         # ---- phase 6d: sasrec_emb_256 (sasrec_fibinet at E=256) ----
+        clock("6d")
         wide_sasrec = microlens_experiment(data_root="", model="sasrec_fibinet",
                                            epochs=TRAIN_EPOCHS, embedding_dim=WIDE_E,
                                            checkpoint_dir=os.path.join(root, "ckpt_sasrec_256"))
@@ -5582,6 +5757,7 @@ def main(argv=None) -> int:
             per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd},
             per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd}, tag="sasrec_emb_256")
         # ---- phase 6c: emb_256_tower1024 (E=256, tower (1024, 512)) ----
+        clock("6c")
         wide_exp = microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
                                         embedding_dim=WIDE_E, hidden_units=WIDE_HIDDEN,
                                         checkpoint_dir=os.path.join(root, "ckpt_wide"))
@@ -5591,6 +5767,7 @@ def main(argv=None) -> int:
             per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()},
             tag="emb_256_tower1024")
         # ---- phase 6e: sparse tables (both strategies, every kind; two fits) ----
+        clock("6e")
         sparse_steps(torch, train, train_store, root, card,
                      {interaction_fwd: ifwd, interaction_bwd: ibwd})
         sparse_fits(torch, train, valid, train_store, root, card, counted,
@@ -5598,6 +5775,7 @@ def main(argv=None) -> int:
                     per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()},
                     dense=mm)
         # ---- phase 6f: host-driven training (Trainer.fit), predict --stream's path ----
+        clock("6f")
         host_driven(torch, train, valid, train_store, root, card, dense=mm,
                     serve={"pred": pred, "rows": rows, "bulk": bulk}, counted=counted,
                     per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
@@ -5606,6 +5784,7 @@ def main(argv=None) -> int:
                                      encode_fwd: enc_fwd, encode_bwd: enc_bwd},
                     sasrec_per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd})
         # ---- phase 6g: the model zoo, no kernel on its path ----
+        clock("6g")
         zoo(torch, train, valid, train_store, root, card, counted, rows, dense=mm)
     # the training main path's launches: phase 6's fit and phase 7c's profiled
     # epochs; phase 7d's entry forwards; and phase 7e's fit, serve and cases
@@ -5616,6 +5795,7 @@ def main(argv=None) -> int:
     enc_bwd_launches = sasrec["launches"][encode_bwd] + long[encode_bwd]
 
     # ---- phase 8: result ----
+    clock("8")
     kernels = [
         {"name": "interaction_fwd", "route": "cuda",
          "source": "ctr_recommendation_tpu_torch/csrc/interaction.cu",

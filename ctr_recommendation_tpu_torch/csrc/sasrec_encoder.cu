@@ -22,19 +22,19 @@
 //
 // Bound on an H100: operations. At B=8192, S=20, E=128, one layer, the
 // forward is 66.1 GFLOP against ~85 MB of x, the output and the weights. Of
-// the 24 E^2 + 4 S E flops a token a layer, the attention's 4 S E run in
-// fp32 on the CUDA cores (the precision contract; 67 TFLOP/s): at S=200
-// they are 168 GFLOP, 2.5 ms, and bound the call, against 644 GFLOP of
-// products, 0.65 ms on the tensor cores.
+// the 24 E^2 + 4 S E flops a token a layer, the attention's 4 S E keep fp32
+// accuracy (the precision contract) as 3xTF32 on the tensor cores, three
+// TF32 operations each at 495 TFLOP/s: at S=200 they are 168 GFLOP, 1.02
+// ms, beside 644 GFLOP of bf16 products, 0.65 ms.
 // Design: one launch per building block over all tokens, in place of a
 // block that owned whole histories. The four products are the tile product
 // of tile_mma.cuh (bf16: mma.sync on the tensor cores) with the bias, ReLU,
 // dropout and residual fused into their epilogues; LayerNorm is a warp a
-// row; attention a block per (history, head), its heads staged whole in
-// shared memory where they fit (attn_staged) and its keys streamed in tiles
-// past that, so that any S runs. Widths E % 32 != 0 or E / H % 4 != 0 run
-// zero-padded (Widths in sasrec_encoder.cuh; the wrapper pads x and the
-// weights). Between launches the
+// row; attention a block per (history, head, 64 queries) on the tensor
+// cores, its keys streamed in tiles, so that any S and any head width run
+// (the staged fp32 CUDA-core kernels where attn_staged says so). Widths
+// E % 32 != 0 or E / H % 4 != 0 run zero-padded (Widths in
+// sasrec_encoder.cuh; the wrapper pads x and the weights). Between launches the
 // token-major intermediates (fp32 h and qkv, cd hn, ao and f1: 0.59 GB at
 // B=8192, E=128, bf16) live in a workspace the wrapper allocates. Each is
 // written once and read once or twice: 1.68 GB of traffic a layer at that
@@ -132,9 +132,8 @@ int product_nn(int epi, const T* A, const T* B, int M, int N, int K, const float
 using ctr::enc::Dropout;
 
 // Whether both entry points take (S, E, H, L): S >= 1, E >= 1, H >= 1, E %
-// H == 0, E / H up to 256, L >= 1 (and, at a call, in_envelope's grid
-// rows). ops/cuda/sasrec_encoder.py::fits is the same function of the same
-// shapes.
+// H == 0, L >= 1 (and, at a call, in_envelope's grid rows).
+// ops/cuda/sasrec_encoder.py::fits is the same function of the same shapes.
 extern "C" int sasrec_encoder_fits(int S, int E, int H, int L) {
   return ctr::enc::shapes_ok(S, E, H, L) ? 1 : 0;
 }
@@ -239,13 +238,13 @@ extern "C" int sasrec_layer_norm(const float* h, int N, int ld, int E, const flo
                                  s);
 }
 
-// The staged forward (attn_staged(S, D)): ao (B*S, E) in cd and, when P is
+// The staged forward (attn_staged_fits(S, D)): ao (B*S, E) in cd and, when P is
 // not null, the softmax (B, H, S, S) fp32, from qkv (B*S, 3E) fp32 and amask
 // (B, S). One launch.
 extern "C" int sasrec_attention_fwd(const float* qkv, const float* amask, void* ao, float* P,
                                     int B, int S, int E, int H, int D, float scale, int is_bf16,
                                     void* stream) {
-  if (!ctr::enc::attention_block_ok(B, S, E, H, D) || !ctr::enc::attn_staged(S, D))
+  if (!ctr::enc::attention_block_ok(B, S, E, H, D) || !ctr::enc::attn_staged_fits(S, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
@@ -255,7 +254,7 @@ extern "C" int sasrec_attention_fwd(const float* qkv, const float* amask, void* 
                                    s);
 }
 
-// The streamed forward, any S: ao (B*S, E) in cd and, when not null, o32
+// The streamed forward, any S and D: ao (B*S, E) in cd and, when not null, o32
 // (B*S, E) fp32 and stats (B, H, S) float2 (m, l). One launch.
 extern "C" int sasrec_attention_fwd_streamed(const float* qkv, const float* amask, void* ao,
                                              float* o32, float* stats, int B, int S, int E, int H,

@@ -22,7 +22,6 @@ namespace enc {
 
 constexpr int kMaxS = 128;  // the staged attention: up to 4 keys a lane
 constexpr size_t kMaxSmem = 232448;  // shared memory a block may opt into (H100)
-constexpr int kMaxD = 256;  // head width the attention kernels take
 constexpr float kEps = 1e-6f;
 constexpr int kRowsPerBlock = 8;  // LayerNorm: one warp a row
 constexpr int kSplitBlocks = 264;  // blocks a split sum aims at: two a streaming multiprocessor
@@ -300,7 +299,7 @@ __host__ __device__ inline Widths widths(int E, int H) {
 }
 
 // ---- attention, staged: one block per (history, head), S <= kMaxS ----
-// Heads of width D (% 4 == 0, <= kMaxD) at columns hh D of E = H D-wide
+// Heads of width D (% 4 == 0) at columns hh D of E = H D-wide
 // segments. A warp takes kQB queries (the forward, pass 1 of the backward) or kQB keys
 // (pass 2) at once, so that each row it reads from shared memory serves kQB
 // sums; rows are read 16 bytes a lane (lanes over keys) or 8 (lanes over a
@@ -310,8 +309,9 @@ __host__ __device__ inline Widths widths(int E, int H) {
 // block's warps (at most 8: 256 threads) loop over the query groups (pass
 // 2: the key groups). Every sum runs over its index in order. q, k, v (the
 // backward also g, P and dlog) are staged whole in shared memory, which
-// bounds S with D (attn_fwd_smem, attn_bwd_smem against kMaxSmem); past that
-// the streamed kernels below take the history (attn_staged).
+// bounds S with D (attn_fwd_smem, attn_bwd_smem against kMaxSmem,
+// attn_staged_fits); the encoder takes them where attn_staged says so, and the
+// streamed kernels below everywhere else.
 
 constexpr int kQB = 4;
 constexpr int kMaxWarps = 8;
@@ -663,269 +663,651 @@ inline size_t attn_bwd_smem(int S, int D) {
 }
 
 // Whether the staged kernels take (S, D): their whole heads in shared memory
-// both ways. The encoder takes them there and the streamed kernels past it
-// (ops/cuda/encoder_blocks.py::attention_route is the same rule).
-inline bool attn_staged(int S, int D) {
+// both ways.
+inline bool attn_staged_fits(int S, int D) {
   return S <= kMaxS && attn_fwd_smem(S, D) <= kMaxSmem && attn_bwd_smem(S, D) <= kMaxSmem;
 }
 
-// ---- attention, streamed: any S, a block per (history, head, tile of kTile rows) ----
-// Heads as for the staged kernels. Keys (the backward's dk, dv: queries) are
-// walked in tiles of kTile rows through shared memory, so that nothing of
-// size S^2 is kept on chip or in device memory and no S bounds the kernels.
-// A warp holds kQB queries (keys) of the block's tile; within a step lanes
-// run over the step's keys (queries), one a lane, for the dot products, then
-// over column pairs, DC = ceil(D / 64) pairs a lane, for the weighted rows
-// (DC a template argument: the accumulators stay in registers). Every sum
-// runs over its index in order, and tiles in order.
+// The encoder's route (ops/cuda/encoder_blocks.py::attention_route is the
+// same rule): the staged kernels where they fit and, on an H100 at 700 W,
+// ran a training step's attention (two forwards, one backward) faster than
+// the streamed ones: heads deeper than 64 (D = 128: 2.20 against 3.24 ms at
+// S = 32, 8.37 against 10.71 at S = 50, the forward at B = 8192 and the
+// backward at 4096), and histories up to kStagedS keys (D = 64, S = 20:
+// 0.75-0.79 against 0.85-0.90 ms; at S = 24 they tie, 0.90 and 0.90; at S =
+// 32 the streamed ones lead, 1.06-1.08 against 1.20-1.26). The streamed
+// kernels everywhere else.
+constexpr int kStagedS = 20;
+inline bool attn_staged(int S, int D) {
+  return attn_staged_fits(S, D) && (D > 64 || S <= kStagedS);
+}
+
+// ---- attention, streamed on the tensor cores: any S, any D ----
+// The counterpart of the attention inside the TPU kernels _fwd_kernel (:220)
+// and _bwd_kernel (:238) of ctr_recommendation_tpu/ops/pallas/sasrec_encoder.py,
+// that is _attn_fwd / _attn_bwd (:88-136): fp32 softmax(q k^T scale + mask) v
+// and its backward. A block owns kBlockRows rows of one (history, head), 16 a
+// warp (one m16n8k8 row tile), and walks the other side's rows in tiles of
+// kTile, so that nothing of size S^2 is kept on chip or in device memory and
+// no S bounds the kernels.
+//
+// Bound on an H100: operations. The products run on the tensor cores in
+// 3xTF32 (CUTLASS's OpMultiplyAddFastF32): each fp32 operand x splits into
+// hi = tf32(x) and lo = tf32(x - hi) (cvt.rna.tf32.f32's rounding), and a
+// product is hi lo + lo hi + hi hi, each exact in the tensor core. That
+// keeps fp32's accuracy (the dropped lo lo is below 2^-22 of the product;
+// single-pass TF32 keeps 2^-11 and misses the fp32 bar by 30-60x), so the
+// fp32 precision contract of the TPU kernel holds, at three TF32
+// instructions a product: 4 S^2 D flops a head forward (QK^T and PV) and 10
+// S^2 D backward (FlashAttention-2's five products), 3x that in TF32
+// operations at 495 TFLOP/s. At B = 8192, S = 200, E = 128, H = 2 the
+// forward's 167.8 GFLOP take 1.02 ms there, against 2.5 ms for the same
+// work in fp32 on the CUDA cores (67 TFLOP/s). Each k-step's three
+// products go into a fresh fp32 fragment that is then added to the running
+// sum: the tensor core truncates its sums, and into one running
+// accumulator the error grew with the depth (4-8e-7 of the output in norm
+// on the card, against 1-2e-7 so). Measured on an H100 at 700 W: 7.0 ms
+// forward and 14.3 ms backward (B = 4096) at that shape, 24 and 15 TFLOP/s
+// of the fp32 work: the splits (a fifth of the forward), the per-step sums
+// and the latency of short dependent chains at 3-4 blocks an SM bound them,
+// not the tensor cores.
 //
 // The forward keeps each query's running max m and sum l of exp(logit - m)
 // (the online softmax): at each key tile m' = max(m, the tile's logits), the
-// sum and the output rescaled by exp(m - m'); at the end ao = o / l, and
-// (m, l) per query is kept for the backward (stats, (B, H, S) float2) with
-// the fp32 output o32. Not m + log(l): beside the -1e9 pad mask the log
-// would vanish in the rounding, and an all-pad history's P would not be
-// uniform. The backward rebuilds P = exp(logit - m) / l a tile at a time (the
-// logits' bits are the forward's: the same fp32 dots in the same order)
-// and, with Di = sum_d g o (FlashAttention-2's rowsum(dO o O)):
+// sum and the output rescaled by exp(m - m'); at the end ao = o / l, and (m, l)
+// per query is kept for the backward (stats, (B, H, S) float2) with the fp32
+// output o32. Not m + log(l): beside the -1e9 pad mask the log would vanish in
+// the rounding, and an all-pad history's P would not be uniform. The backward
+// rebuilds P = exp(logit - m) / l a tile at a time, its logits the forward's
+// bits (the same split, the same k order, the same cross-term order) and, with
+// Di = sum_d g o (FlashAttention-2's rowsum(dO o O)):
 //   dv_j = sum_i P_ij g_i;  ds_ij = P_ij (g_i . v_j - Di) scale;
 //   dq_i = sum_j ds_ij k_j;  dk_j = sum_i ds_ij q_i.
-// Its grid has two halves, one launch: blocks with blockIdx.z = 0 own a
-// query tile and walk the keys (dq), blocks with 1 own a key tile and walk
-// the queries (dk, dv): no atomics, a repeat is bit-identical.
+// Its grid has two halves, one launch: blocks with blockIdx.z = 0 own query
+// rows and walk the keys (dq), blocks with 1 own key rows and walk the queries
+// (dk, dv): no atomics, a repeat is bit-identical.
+//
+// Fragments (m16n8k8, g = lane / 4, t = lane % 4): A holds rows g, g + 8 at
+// columns t, t + 4; B column g at rows t, t + 4; C rows g, g + 8 at columns
+// 2t, 2t + 1. A C fragment of P (or dS) becomes the A fragment of P V with its
+// keys permuted (k index t -> key 2t, t + 4 -> 2t + 1), and V's rows read in
+// the same order, so no shuffle re-lays it. Up to kWhole columns a head is
+// staged whole in shared memory, zero-padded to 32, 64 or kWhole columns (a
+// depth the kernel is compiled for, so the k loop unrolls; rows of that + 4
+// floats: every fragment read hits 32 distinct banks), the other side's
+// tiles double-buffered by cp.async (the masks and stats too); deeper heads
+// read their fragments from device memory (L1 and L2) with the rows and
+// columns past the head zero. The output columns run in chunks of 8 NT (NT
+// n-tiles of accumulators a thread); where a head is wider, each chunk walks
+// the tiles again and recomputes the logits. The key half computes each
+// query tile's Di (four lanes a row, every load of a row issued at once)
+// after the tile lands. The encoder takes these kernels everywhere but where
+// the staged ones ran faster (attn_staged).
 
-constexpr int kTile = 32;  // a block's rows (8 warps x kQB) and a step's rows (a lane each)
+constexpr int kTile = 32;       // the other side's rows a step (keys forward)
+constexpr int kWarpRows = 16;   // a warp's own rows: one m16n8k8 row tile
+constexpr int kBlockRows = 64;  // a block's own rows: four warps at most
+constexpr int kWhole = 128;     // heads up to this depth staged whole in shared memory
+constexpr float kLog2e = 1.4426950408889634f;
 
-inline int attn_stream_chunks(int D) { return (D + 63) / 64; }
-inline int attn_stream_threads(int S) { return attn_threads(std::min(S, kTile)); }
-inline size_t attn_stream_fwd_smem(int D) {
-  return (3 * kTile * attn_ld(D) + kTile) * sizeof(float);
+// The products' depth: D rounded up to 8 (the m16n8k8 instruction's k); a
+// head staged whole is padded further, to the depth its kernel is compiled
+// for (32, 64 or kWhole), 0 where it is read from device memory.
+__host__ __device__ inline int attn_depth(int D) { return (D + 7) / 8 * 8; }
+__host__ __device__ inline int attn_staged_depth(int D) {
+  const int dk = attn_depth(D);
+  return dk <= 32 ? 32 : dk <= 64 ? 64 : dk <= kWhole ? kWhole : 0;
 }
-inline size_t attn_stream_bwd_smem(int D) {
-  return (4 * kTile * attn_ld(D) + 4 * kTile) * sizeof(float);
+// A block's own rows (16 a warp) and its buffers of the other side's tiles:
+// two, loading one while the other is read, where S takes more than one.
+__host__ __device__ inline int attn_own_rows(int S) {
+  return S >= kBlockRows ? kBlockRows : (S + kWarpRows - 1) / kWarpRows * kWarpRows;
+}
+__host__ __device__ inline int attn_buffers(int S) { return S > kTile ? 2 : 1; }
+inline int attn_stream_threads(int S) { return 2 * attn_own_rows(S); }
+// Shared memory, bytes: staged rows of DK + 4 floats (forward: the own
+// queries and each buffer's keys and values; backward: two own operands and
+// each buffer's two), then the masks, the stats, 1 / l and Di.
+inline size_t attn_stream_fwd_smem(int S, int D) {
+  const size_t R = attn_own_rows(S), NB = attn_buffers(S), DK = attn_staged_depth(D);
+  const size_t rows = DK ? R + 2 * NB * kTile : 0;
+  return (rows * (DK + 4) + NB * kTile) * sizeof(float);
+}
+inline size_t attn_stream_bwd_smem(int S, int D) {
+  const size_t R = attn_own_rows(S), NB = attn_buffers(S), DK = attn_staged_depth(D);
+  const size_t rows = DK ? 2 * R + 2 * NB * kTile : 0;
+  return (rows * (DK + 4) + 4 * NB * kTile + R) * sizeof(float);
 }
 
-// o[qi][c] += sum over j < n, in order, of a[qi] (held by lane j) times
-// rows[j] at the lane's column pair c * 64 + 2 lane (0 past D).
-template <int DC>
-__device__ __forceinline__ void tile_weighted_rows(float (&o)[kQB][DC][2], const float (&a)[kQB],
-                                                   const float* rows, int n, int D, int ld,
-                                                   int lane) {
-  for (int j = 0; j < n; ++j) {
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest on the top 19
+// bits, ties away from zero), in two integer operations: the same bits for
+// every finite x; the tensor core reads the top 19.
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// The attention's one tensor-core instruction: c += a b, TF32 operands.
+__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct Tf32 {  // an fp32 value as hi + lo, both TF32
+  unsigned hi, lo;
+  __device__ __forceinline__ explicit Tf32(float x) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  }
+};
+
+struct Tf32A {  // an A fragment split
+  unsigned hi[4], lo[4];
+  __device__ __forceinline__ Tf32A(float a0, float a1, float a2, float a3) {
+    const float a[4] = {a0, a1, a2, a3};
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = c * 64 + 2 * lane;
-      const float2 r = d < D ? *reinterpret_cast<const float2*>(rows + j * ld + d) : float2{};
-#pragma unroll
-      for (int qi = 0; qi < kQB; ++qi) {
-        const float aj = __shfl_sync(0xffffffffu, a[qi], j);
-        o[qi][c][0] = fmaf(aj, r.x, o[qi][c][0]);
-        o[qi][c][1] = fmaf(aj, r.y, o[qi][c][1]);
-      }
+    for (int i = 0; i < 4; ++i) {
+      const Tf32 s(a[i]);
+      hi[i] = s.hi;
+      lo[i] = s.lo;
     }
   }
+};
+
+// acc += a b in 3xTF32: into a fresh fp32 fragment, the two cross terms (a's
+// hi against b's lo first, or, SWAP, a's lo against b's hi first: so that a
+// product with its operands' roles swapped sums the same terms in the same
+// order), then hi hi; that k-step's sum is added to acc in fp32. (The tensor
+// core sums a step's eight products and its accumulator truncated, not
+// rounded: into a running accumulator the truncation would grow with the
+// depth.)
+template <bool SWAP>
+__device__ __forceinline__ void mma3(float acc[4], const Tf32A& a, const Tf32& b0,
+                                     const Tf32& b1) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  if (SWAP) {
+    mma_tf32(c, a.lo, b0.hi, b1.hi);
+    mma_tf32(c, a.hi, b0.lo, b1.lo);
+  } else {
+    mma_tf32(c, a.hi, b0.lo, b1.lo);
+    mma_tf32(c, a.lo, b0.hi, b1.hi);
+  }
+  mma_tf32(c, a.hi, b0.hi, b1.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += c[i];
+}
+
+__device__ __forceinline__ float exp_(float x) { return exp2f(x * kLog2e); }
+
+struct SmemRows {  // staged rows (zero past the valid rows and columns)
+  const float* p;
+  int ld;
+  __device__ __forceinline__ float operator()(int r, int c) const { return p[r * ld + c]; }
+};
+struct DeviceRows {  // rows in device memory, 0 at or past (rows, cols)
+  const float* p;
+  size_t ld;
+  int rows, cols;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    return r < rows && c < cols ? __ldg(p + r * ld + c) : 0.f;
+  }
+};
+
+// s[n] (16 rows x keys 8n .. 8n + 7) += a's rows 0..15 . b's rows, over
+// columns 0..depth-1 in order (DK, or depth where DK is 0; a multiple of 8),
+// for the nb n-tiles that hold a valid row of b.
+template <bool SWAP, int DK, typename A, typename B>
+__device__ __forceinline__ void tile_dots(float (&s)[4][4], const A& a, const B& b, int depth,
+                                          int nb, int g, int t) {
+#pragma unroll
+  for (int k = 0; k < (DK ? DK : depth); k += 8) {
+    const Tf32A x(a(g, k + t), a(g + 8, k + t), a(g, k + t + 4), a(g + 8, k + t + 4));
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      if (n < nb)
+        mma3<SWAP>(s[n], x, Tf32(b(8 * n + g, k + t)), Tf32(b(8 * n + g, k + t + 4)));
+  }
+}
+
+// o[n] (16 rows x columns c0 + 8n ..) += p (16 x kTile, C fragments) . r's
+// rows 0..kTile-1 at those columns: p's keys permuted into the A fragment and
+// r's rows read in the same order; the k-steps past nk rows and the n-tiles
+// past nt skipped.
+template <int NT, typename B>
+__device__ __forceinline__ void tile_weighted(float (&o)[NT][4], const float (&p)[4][4],
+                                              const B& r, int c0, int nk, int nt, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (8 * kk >= nk) continue;
+    const Tf32A x(p[kk][0], p[kk][2], p[kk][1], p[kk][3]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      if (n < nt)
+        mma3<false>(o[n], x, Tf32(r(8 * kk + 2 * t, c0 + 8 * n + g)),
+                    Tf32(r(8 * kk + 2 * t + 1, c0 + 8 * n + g)));
+  }
+}
+
+__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem, int bytes, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? bytes : 0;  // 0: zero-filled, nothing read
+  if (bytes == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+// Rows 0..rows-1 of a staged tile (stride ld): row r < n is src row r (stride
+// ldg), its first D columns (D % 4 == 0); zero elsewhere up to column dk.
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src, size_t ldg, int n,
+                                           int rows, int D, int dk) {
+  const int c4 = dk / 4;
+  for (int i = threadIdx.x; i < rows * c4; i += blockDim.x) {
+    const int r = i / c4, c = (i % c4) * 4;
+    const bool ok = r < n && c < D;
+    mma::cp_async16(dst + r * ld + c, ok ? src + r * ldg + c : src, ok);
+  }
+}
+// dst[0..rows) = src[0..n) (4- or 8-byte elements), zero past n.
+template <typename U>
+__device__ __forceinline__ void stage_values(U* dst, const U* src, int n, int rows) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x)
+    cp_async_small(dst + r, r < n ? src + r : src, sizeof(U), r < n);
+}
+
+// di[i] = sum_d g(i, d) o(i, d) over the first D columns of rows i < n, four
+// lanes a row, lane p of the four over the columns p, p + 4, ... (all of a
+// row's loads issued together: DK, or D where DK is 0, deep), the four
+// partial sums added in a fixed order.
+template <int DK, typename A, typename B>
+__device__ __forceinline__ void rows_di(const A& g, const B& o, int n, int D, float* di) {
+  const int p = threadIdx.x & 3, groups = blockDim.x >> 2;
+  for (int i = threadIdx.x >> 2; i < (n + groups - 1) / groups * groups; i += groups) {
+    float s = 0.f;  // rows past n: g and o read as 0, nothing written
+#pragma unroll
+    for (int d = p; d < (DK ? DK : D); d += 4) s = fmaf(g(i, d), o(i, d), s);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (p == 0 && i < n) di[i] = s;
+  }
+}
+
+// The online softmax over one key tile for the thread's rows g and g + 8 (h
+// = 0, 1): s holds the tile's logits' dots and leaves with exp(logit - m'),
+// 0 past nk keys; m, l (l a partial sum over the thread's columns) and o are
+// rescaled.
+template <int NT>
+__device__ __forceinline__ void softmax_step(float (&s)[4][4], const float* mask, int nk,
+                                             float scale, float (&m)[2], float (&l)[2],
+                                             float (&o)[NT][4], int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -3.0e38f;  // below any real logit
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = 8 * n + 2 * t + e;
+        float& v = s[n][2 * h + e];
+        v = key < nk ? __fmaf_rn(v, scale, mask[key]) : -3.0e38f;
+        mx = fmaxf(mx, v);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mn = fmaxf(m[h], mx), alpha = exp_(m[h] - mn);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = s[n][2 * h + e];
+        v = 8 * n + 2 * t + e < nk ? exp_(v - mn) : 0.f;
+        sum += v;
+      }
+    l[h] = l[h] * alpha + sum;
+    m[h] = mn;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][2 * h] *= alpha;
+      o[n][2 * h + 1] *= alpha;
+    }
+  }
+}
+
+// An output in the compute dtype, chosen at run time (one instantiation of
+// each streamed kernel serves both dtypes: it builds in half the time).
+struct CdOut {
+  void* p;
+  bool bf16;
+  __device__ __forceinline__ void pair(size_t i, float a, float b) const {
+    if (bf16)
+      store2(static_cast<__nv_bfloat16*>(p) + i, a, b);
+    else
+      store2(static_cast<float*>(p) + i, a, b);
+  }
+};
+
+// Commits the copies staged since the last call (the next tile's, into the
+// other buffer, or none) and waits, block-wide, for the current tile's.
+__device__ __forceinline__ void tile_landed() {
+  mma::cp_async_commit();
+  mma::cp_async_wait<1>();
+  __syncthreads();
 }
 
 // ao = cd(softmax(q k^T * scale + mask) v) and, when given, o32 (the fp32
-// output) and stats (m, l per query). Grid (B H, ceil(S / kTile)).
-template <typename T, int DC>
-__global__ void __launch_bounds__(256)
+// output) and stats (m, l per query). Grid (B H, ceil(S / kBlockRows)),
+// attn_stream_threads(S) threads, attn_stream_fwd_smem(S, D) bytes. DK: the
+// depth the heads are staged at (attn_staged_depth), 0 where they are read
+// from device memory; NT = DK / 8 output column tiles a chunk (16 at DK = 0).
+template <int DK>
+__global__ void __launch_bounds__(128, DK == 0 ? 1 : DK == kWhole ? 2 : 4)
 attention_fwd_streamed(const float* __restrict__ qkv, const float* __restrict__ amask,
-                       T* __restrict__ ao, float* __restrict__ o32, float2* __restrict__ stats,
+                       CdOut ao, float* __restrict__ o32, float2* __restrict__ stats,
                        int S, int E, int H, int D, float scale) {
   extern __shared__ __align__(16) float sm[];
-  const int b = blockIdx.x / H, hh = blockIdx.x % H, ld = attn_ld(D);
-  const int q0 = blockIdx.y * kTile, nq = min(kTile, S - q0);
-  float* q = sm;
-  float* k = q + kTile * ld;
-  float* v = k + kTile * ld;
-  float* mask = v + kTile * ld;
-  const size_t t0 = static_cast<size_t>(b) * S;
-  const int lane = threadIdx.x & 31, i0 = (threadIdx.x >> 5) * kQB;
-  const bool active = i0 < nq;  // warp-uniform
-  stage_heads(qkv, 3 * E, t0 + q0, hh * D, nq, D, ld, q);
-  float m[kQB], l[kQB], o[kQB][DC][2];
-#pragma unroll
-  for (int qi = 0; qi < kQB; ++qi) {
-    m[qi] = -3.0e38f;  // below any real logit
-    l[qi] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) o[qi][c][0] = o[qi][c][1] = 0.f;
-  }
-  for (int j0 = 0; j0 < S; j0 += kTile) {
-    const int nk = min(kTile, S - j0);
-    __syncthreads();  // the previous step's keys are consumed
-    stage_heads(qkv, 3 * E, t0 + j0, E + hh * D, nk, D, ld, k);
-    stage_heads(qkv, 3 * E, t0 + j0, 2 * E + hh * D, nk, D, ld, v);
-    for (int s = threadIdx.x; s < nk; s += blockDim.x) mask[s] = amask[t0 + j0 + s];
-    __syncthreads();
-    if (!active) continue;
-    float p[kQB] = {};
-    if (lane < nk) dots(p, q, i0, nq, k + lane * ld, D, ld);
-#pragma unroll
-    for (int qi = 0; qi < kQB; ++qi) {
-      const float logit = lane < nk ? p[qi] * scale + mask[lane] : -3.0e38f;
-      float mt = logit;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float mn = fmaxf(m[qi], mt);
-      const float alpha = expf(m[qi] - mn);
-      const float e = lane < nk ? expf(logit - mn) : 0.f;
-      float sum = e;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[qi] = l[qi] * alpha + sum;
-      m[qi] = mn;
-      p[qi] = e;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        o[qi][c][0] *= alpha;
-        o[qi][c][1] *= alpha;
+  constexpr bool WHOLE = DK > 0;
+  constexpr int NT = WHOLE ? DK / 8 : 16;
+  const int dk = WHOLE ? DK : attn_depth(D), ld = dk + 4;
+  const int R = attn_own_rows(S), NB = attn_buffers(S);
+  const int b = blockIdx.x / H, hh = blockIdx.x % H;
+  const int q0 = blockIdx.y * kBlockRows, nq = min(kBlockRows, S - q0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = (threadIdx.x >> 5) * kWarpRows;
+  const bool active = w0 < nq;  // warp-uniform
+  const size_t t0 = static_cast<size_t>(b) * S, ld3 = 3 * static_cast<size_t>(E);
+  const float* qg = qkv + (t0 + q0) * ld3 + hh * D;
+  const float* kg = qkv + t0 * ld3 + E + hh * D;
+  const float* vg = kg + E;
+  float* qs = sm;  // the own queries
+  float* ks = qs + (WHOLE ? R * ld : 0);  // NB buffers of kTile keys
+  float* vs = ks + (WHOLE ? NB * kTile * ld : 0);
+  float* ms = vs + (WHOLE ? NB * kTile * ld : 0);  // NB buffers of kTile mask values
+  const int tiles = (S + kTile - 1) / kTile;
+  auto stage_keys = [&](int j) {
+    const int buf = j % NB, j0 = j * kTile, nk = min(kTile, S - j0);
+    if (WHOLE) {
+      stage_rows(ks + buf * kTile * ld, ld, kg + j0 * ld3, ld3, nk, kTile, D, dk);
+      stage_rows(vs + buf * kTile * ld, ld, vg + j0 * ld3, ld3, nk, kTile, D, dk);
+    }
+    stage_values(ms + buf * kTile, amask + t0 + j0, nk, kTile);
+  };
+  for (int c0 = 0; c0 < D; c0 += 8 * NT) {
+    const int nt = min(NT, (D - c0 + 7) / 8);
+    float m[2] = {-3.0e38f, -3.0e38f}, l[2] = {0.f, 0.f}, o[NT][4] = {};
+    if (WHOLE) stage_rows(qs, ld, qg, ld3, nq, R, D, dk);
+    stage_keys(0);
+    mma::cp_async_commit();
+    for (int j = 0; j < tiles; ++j) {
+      const int buf = j % NB, j0 = j * kTile, nk = min(kTile, S - j0);
+      if (j + 1 < tiles) stage_keys(j + 1);
+      tile_landed();
+      if (active) {
+        float s[4][4] = {};
+        const int nb = (nk + 7) / 8;
+        if (WHOLE)
+          tile_dots<false, DK>(s, SmemRows{qs + w0 * ld, ld},
+                               SmemRows{ks + buf * kTile * ld, ld}, dk, nb, g, t);
+        else
+          tile_dots<false, DK>(s, DeviceRows{qg + w0 * ld3, ld3, nq - w0, D},
+                               DeviceRows{kg + j0 * ld3, ld3, nk, D}, dk, nb, g, t);
+        softmax_step<NT>(s, ms + buf * kTile, nk, scale, m, l, o, t);
+        if (WHOLE)
+          tile_weighted<NT>(o, s, SmemRows{vs + buf * kTile * ld, ld}, c0, nk, nt, g, t);
+        else
+          tile_weighted<NT>(o, s, DeviceRows{vg + j0 * ld3, ld3, nk, D}, c0, nk, nt, g, t);
       }
+      __syncthreads();  // buffer buf is consumed before tile j + 2 fills it
     }
-    tile_weighted_rows<DC>(o, p, v, nk, D, ld, lane);
-  }
-  if (!active) return;
+    if (!active) continue;
 #pragma unroll
-  for (int qi = 0; qi < kQB; ++qi) {
-    if (i0 + qi >= nq) continue;
-    const size_t row = t0 + q0 + i0 + qi;
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int row = w0 + g + 8 * h;
+      if (row >= nq) continue;
+      const size_t at = (t0 + q0 + row) * E + hh * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = c * 64 + 2 * lane;
-      if (d >= D) continue;
-      const float y0 = o[qi][c][0] / l[qi], y1 = o[qi][c][1] / l[qi];
-      store2(ao + row * E + hh * D + d, y0, y1);
-      if (o32) store2(o32 + row * E + hh * D + d, y0, y1);
+      for (int n = 0; n < NT; ++n) {
+        const int col = c0 + 8 * n + 2 * t;
+        if (col >= D) continue;
+        const float y0 = o[n][2 * h] / l[h], y1 = o[n][2 * h + 1] / l[h];
+        ao.pair(at + col, y0, y1);
+        if (o32) store2(o32 + at + col, y0, y1);
+      }
+      if (stats && t == 0 && c0 == 0)
+        stats[(static_cast<size_t>(b) * H + hh) * S + q0 + row] = make_float2(m[h], l[h]);
     }
-    if (stats && lane == 0)
-      stats[(static_cast<size_t>(b) * H + hh) * S + q0 + i0 + qi] = make_float2(m[qi], l[qi]);
   }
 }
 
 // The attention backward from the forward's o32 and stats, into dqkv (N, 3E)
-// fp32 and rounded to T (dqkv_c). Grid (B H, ceil(S / kTile), 2).
-template <typename T, int DC>
-__global__ void __launch_bounds__(256)
+// fp32 and rounded to T (dqkv_c). Grid (B H, ceil(S / kBlockRows), 2),
+// attn_stream_threads(S) threads, attn_stream_bwd_smem(S, D) bytes; DK and
+// NT as the forward's, NT the query half's chunk (the key half's holds two
+// accumulators, so at most 8 n-tiles).
+template <int DK>
+__global__ void __launch_bounds__(128, DK == 0 ? 1 : DK == kWhole ? 1 : 3)
 attention_bwd_streamed(const float* __restrict__ qkv, const float* __restrict__ amask,
                        const float* __restrict__ o32, const float2* __restrict__ stats,
                        const float* __restrict__ dao, float* __restrict__ dqkv,
-                       T* __restrict__ dqkv_c, int S, int E, int H, int D, float scale) {
+                       CdOut dqkv_c, int S, int E, int H, int D, float scale) {
   extern __shared__ __align__(16) float sm[];
-  const int b = blockIdx.x / H, hh = blockIdx.x % H, ld = attn_ld(D);
-  const int r0 = blockIdx.y * kTile, n = min(kTile, S - r0);  // the block's own rows
-  float* q = sm;
-  float* g = q + kTile * ld;
-  float* k = g + kTile * ld;
-  float* v = k + kTile * ld;
-  float* mq = v + kTile * ld;  // a staged query tile's m, l and Di
-  float* lq = mq + kTile;
-  float* di = lq + kTile;
-  float* mask = di + kTile;  // a staged key tile's mask
-  const size_t t0 = static_cast<size_t>(b) * S, srow = (static_cast<size_t>(b) * H + hh) * S;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, w0 = warp * kQB;
-  const int warps = blockDim.x >> 5;
+  constexpr bool WHOLE = DK > 0;
+  constexpr int NT = WHOLE ? DK / 8 : 16;
+  constexpr int NK = NT < 8 ? NT : 8;
+  const int dk = WHOLE ? DK : attn_depth(D), ld = dk + 4;
+  const int R = attn_own_rows(S), NB = attn_buffers(S);
+  const int b = blockIdx.x / H, hh = blockIdx.x % H;
+  const int r0 = blockIdx.y * kBlockRows, n = min(kBlockRows, S - r0);  // the block's own rows
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = (threadIdx.x >> 5) * kWarpRows;
   const bool active = w0 < n;  // warp-uniform
-  auto stage_queries = [&](int i0, int nq) {  // q, g, m, l and Di = g . o32, a warp a row
-    stage_heads(qkv, 3 * E, t0 + i0, hh * D, nq, D, ld, q);
-    stage_heads(dao, E, t0 + i0, hh * D, nq, D, ld, g);
-    for (int i = warp; i < nq; i += warps) {
-      const size_t at = (t0 + i0 + i) * E + hh * D;
-      float s = 0.f;
-      for (int d = 2 * lane; d < D; d += 64) {
-        const float2 gg = *reinterpret_cast<const float2*>(dao + at + d);
-        const float2 oo = *reinterpret_cast<const float2*>(o32 + at + d);
-        s = fmaf(gg.x, oo.x, s);
-        s = fmaf(gg.y, oo.y, s);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) {
-        const float2 st = stats[srow + i0 + i];
-        mq[i] = st.x;
-        lq[i] = st.y;
-        di[i] = s;
-      }
-    }
-  };
-  auto stage_keys = [&](int j0, int nk) {
-    stage_heads(qkv, 3 * E, t0 + j0, E + hh * D, nk, D, ld, k);
-    stage_heads(qkv, 3 * E, t0 + j0, 2 * E + hh * D, nk, D, ld, v);
-    for (int s = threadIdx.x; s < nk; s += blockDim.x) mask[s] = amask[t0 + j0 + s];
-  };
+  const size_t t0 = static_cast<size_t>(b) * S, ld3 = 3 * static_cast<size_t>(E);
+  const size_t srow = (static_cast<size_t>(b) * H + hh) * S;
+  const float* qg = qkv + t0 * ld3 + hh * D;
+  const float* kg = qg + E;
+  const float* vg = kg + E;
+  const float* gg = dao + t0 * E + hh * D;
+  const float* og = o32 + t0 * E + hh * D;
+  const size_t ldE = E;
+  const int tiles = (S + kTile - 1) / kTile;
+  float* own0 = sm;  // the block's own rows of two operands
+  float* own1 = own0 + (WHOLE ? R * ld : 0);
+  float* oth = own1 + (WHOLE ? R * ld : 0);  // NB buffers of two kTile-row operands
+  float* small = oth + (WHOLE ? 2 * NB * kTile * ld : 0);
+  auto oth_op = [&](int buf, int k) { return oth + (buf * 2 + k) * kTile * ld; };
   auto put = [&](size_t i, float a, float c) {
     store2(dqkv + i, a, c);
-    store2(dqkv_c + i, a, c);
+    dqkv_c.pair(i, a, c);
   };
   if (blockIdx.z == 0) {  // dq of the block's queries, the keys walked in tiles
-    stage_queries(r0, n);
-    float dq[kQB][DC][2] = {};
-    for (int j0 = 0; j0 < S; j0 += kTile) {
-      const int nk = min(kTile, S - j0);
-      __syncthreads();  // the queries are staged, the previous keys consumed
-      stage_keys(j0, nk);
+    float* ms = small;  // NB buffers of kTile mask values
+    float* di = ms + NB * kTile;  // the block's queries' Di
+    auto stage_keys = [&](int j) {
+      const int buf = j % NB, j0 = j * kTile, nk = min(kTile, S - j0);
+      if (WHOLE) {
+        stage_rows(oth_op(buf, 0), ld, kg + j0 * ld3, ld3, nk, kTile, D, dk);
+        stage_rows(oth_op(buf, 1), ld, vg + j0 * ld3, ld3, nk, kTile, D, dk);
+      }
+      stage_values(ms + buf * kTile, amask + t0 + j0, nk, kTile);
+    };
+    // the own q, g and o (o in the keys' buffers, before they fill), then Di
+    if (WHOLE) {
+      stage_rows(own0, ld, qg + r0 * ld3, ld3, n, R, D, dk);
+      stage_rows(own1, ld, gg + r0 * ldE, ldE, n, R, D, dk);
+      stage_rows(oth, ld, og + r0 * ldE, ldE, n, R, D, dk);
+      mma::cp_async_commit();
+      mma::cp_async_wait<0>();
       __syncthreads();
-      if (!active) continue;
-      float sc[kQB] = {}, dp[kQB] = {};
-      if (lane < nk) {
-        dots(sc, q, w0, n, k + lane * ld, D, ld);
-        dots(dp, g, w0, n, v + lane * ld, D, ld);
-      }
-#pragma unroll
-      for (int qi = 0; qi < kQB; ++qi) {
-        const int i = min(w0 + qi, n - 1);
-        const float p = lane < nk ? expf(sc[qi] * scale + mask[lane] - mq[i]) / lq[i] : 0.f;
-        sc[qi] = p * (dp[qi] - di[i]) * scale;  // ds
-      }
-      tile_weighted_rows<DC>(dq, sc, k, nk, D, ld, lane);
+      rows_di<DK>(SmemRows{own1, ld}, SmemRows{oth, ld}, n, D, di);
+    } else {
+      rows_di<DK>(DeviceRows{gg + r0 * ldE, ldE, n, D}, DeviceRows{og + r0 * ldE, ldE, n, D}, n,
+                  D, di);
     }
-    if (!active) return;
+    __syncthreads();  // Di is in; o's buffer is free for the keys
+    float mq[2], il[2], dq_i[2];  // the thread's rows' m, 1 / l and Di
 #pragma unroll
-    for (int qi = 0; qi < kQB; ++qi)
+    for (int h = 0; h < 2; ++h) {
+      const int row = w0 + g + 8 * h;
+      const float2 st = row < n ? stats[srow + r0 + row] : make_float2(0.f, 1.f);
+      mq[h] = st.x;
+      il[h] = 1.f / st.y;
+      dq_i[h] = row < n ? di[row] : 0.f;
+    }
+    for (int c0 = 0; c0 < D; c0 += 8 * NT) {
+      const int nt = min(NT, (D - c0 + 7) / 8);
+      float dq[NT][4] = {};
+      stage_keys(0);
+      mma::cp_async_commit();
+      for (int j = 0; j < tiles; ++j) {
+        const int buf = j % NB, j0 = j * kTile, nk = min(kTile, S - j0);
+        if (j + 1 < tiles) stage_keys(j + 1);
+        tile_landed();
+        if (active) {
+          float s[4][4] = {}, dp[4][4] = {};
+          const int nb = (nk + 7) / 8;
+          if (WHOLE) {
+            const SmemRows k{oth_op(buf, 0), ld}, v{oth_op(buf, 1), ld};
+            tile_dots<false, DK>(s, SmemRows{own0 + w0 * ld, ld}, k, dk, nb, g, t);
+            tile_dots<false, DK>(dp, SmemRows{own1 + w0 * ld, ld}, v, dk, nb, g, t);
+          } else {
+            const DeviceRows k{kg + j0 * ld3, ld3, nk, D}, v{vg + j0 * ld3, ld3, nk, D};
+            tile_dots<false, DK>(s, DeviceRows{qg + (r0 + w0) * ld3, ld3, n - w0, D}, k, dk, nb, g,
+                                 t);
+            tile_dots<false, DK>(dp, DeviceRows{gg + (r0 + w0) * ldE, ldE, n - w0, D}, v, dk, nb,
+                                 g, t);
+          }
+          const float* mk = ms + buf * kTile;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = c * 64 + 2 * lane;
-        if (d < D && w0 + qi < n)
-          put((t0 + r0 + w0 + qi) * 3 * E + hh * D + d, dq[qi][c][0], dq[qi][c][1]);
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int key = 8 * c + 2 * t + e, i = 2 * h + e;
+                const float p =
+                    key < nk ? exp_(__fmaf_rn(s[c][i], scale, mk[key]) - mq[h]) * il[h] : 0.f;
+                s[c][i] = key < nk ? p * (dp[c][i] - dq_i[h]) * scale : 0.f;  // ds
+              }
+          if (WHOLE)
+            tile_weighted<NT>(dq, s, SmemRows{oth_op(buf, 0), ld}, c0, nk, nt, g, t);
+          else
+            tile_weighted<NT>(dq, s, DeviceRows{kg + j0 * ld3, ld3, nk, D}, c0, nk, nt, g, t);
+        }
+        __syncthreads();  // buffer buf is consumed before tile j + 2 fills it
       }
+      if (!active) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = w0 + g + 8 * h;
+        if (row >= n) continue;
+#pragma unroll
+        for (int c = 0; c < NT; ++c) {
+          const int col = c0 + 8 * c + 2 * t;
+          if (col < D) put((t0 + r0 + row) * ld3 + hh * D + col, dq[c][2 * h], dq[c][2 * h + 1]);
+        }
+      }
+    }
     return;
   }
   // dk, dv of the block's keys, the queries walked in tiles
-  stage_keys(r0, n);
-  float dk[kQB][DC][2] = {}, dv[kQB][DC][2] = {};
-  for (int i0 = 0; i0 < S; i0 += kTile) {
-    const int nq = min(kTile, S - i0);
-    __syncthreads();  // the keys are staged, the previous queries consumed
-    stage_queries(i0, nq);
-    __syncthreads();
-    if (!active) continue;
-    float sc[kQB] = {}, dp[kQB] = {}, p[kQB];
-    if (lane < nq) {
-      dots(sc, k, w0, n, q + lane * ld, D, ld);
-      dots(dp, v, w0, n, g + lane * ld, D, ld);
+  float2* st = reinterpret_cast<float2*>(small);  // NB buffers of a query tile's (m, l)
+  float* il = small + 2 * NB * kTile;             // and of its 1 / l
+  float* dis = il + NB * kTile;                   // and of its Di
+  float* mk = dis + NB * kTile;                   // the block's keys' mask
+  auto stage_queries = [&](int i) {
+    const int buf = i % NB, i0 = i * kTile, nq = min(kTile, S - i0);
+    if (WHOLE) {
+      stage_rows(oth_op(buf, 0), ld, qg + i0 * ld3, ld3, nq, kTile, D, dk);
+      stage_rows(oth_op(buf, 1), ld, gg + i0 * ldE, ldE, nq, kTile, D, dk);
     }
-#pragma unroll
-    for (int kj = 0; kj < kQB; ++kj) {
-      const int j = min(w0 + kj, n - 1);
-      p[kj] = lane < nq ? expf(sc[kj] * scale + mask[j] - mq[lane]) / lq[lane] : 0.f;
-      sc[kj] = lane < nq ? p[kj] * (dp[kj] - di[lane]) * scale : 0.f;  // ds
-    }
-    tile_weighted_rows<DC>(dk, sc, q, nq, D, ld, lane);
-    tile_weighted_rows<DC>(dv, p, g, nq, D, ld, lane);
+    stage_values(st + buf * kTile, stats + srow + i0, nq, kTile);
+  };
+  if (WHOLE) {
+    stage_rows(own0, ld, kg + r0 * ld3, ld3, n, R, D, dk);
+    stage_rows(own1, ld, vg + r0 * ld3, ld3, n, R, D, dk);
   }
-  if (!active) return;
+  stage_values(mk, amask + t0 + r0, n, R);
+  for (int c0 = 0; c0 < D; c0 += 8 * NK) {
+    const int nt = min(NK, (D - c0 + 7) / 8);
+    float dk_[NK][4] = {}, dv_[NK][4] = {};
+    stage_queries(0);
+    mma::cp_async_commit();
+    for (int i = 0; i < tiles; ++i) {
+      const int buf = i % NB, i0 = i * kTile, nq = min(kTile, S - i0);
+      if (i + 1 < tiles) stage_queries(i + 1);
+      tile_landed();
+      // the tile's Di (o read once, from device memory) and 1 / l
+      if (WHOLE)
+        rows_di<DK>(SmemRows{oth_op(buf, 1), ld}, DeviceRows{og + i0 * ldE, ldE, nq, D}, nq, D,
+                    dis + buf * kTile);
+      else
+        rows_di<DK>(DeviceRows{gg + i0 * ldE, ldE, nq, D}, DeviceRows{og + i0 * ldE, ldE, nq, D},
+                    nq, D, dis + buf * kTile);
+      for (int r = threadIdx.x; r < nq; r += blockDim.x)
+        il[buf * kTile + r] = 1.f / st[buf * kTile + r].y;
+      __syncthreads();
+      if (active) {
+        float s[4][4] = {}, dp[4][4] = {};
+        const int nb = (nq + 7) / 8;
+        // k q^T and v g^T: the query half's products with the roles swapped
+        if (WHOLE) {
+          const SmemRows q{oth_op(buf, 0), ld}, gq{oth_op(buf, 1), ld};
+          tile_dots<true, DK>(s, SmemRows{own0 + w0 * ld, ld}, q, dk, nb, g, t);
+          tile_dots<true, DK>(dp, SmemRows{own1 + w0 * ld, ld}, gq, dk, nb, g, t);
+        } else {
+          const DeviceRows q{qg + i0 * ld3, ld3, nq, D}, gq{gg + i0 * ldE, ldE, nq, D};
+          tile_dots<true, DK>(s, DeviceRows{kg + (r0 + w0) * ld3, ld3, n - w0, D}, q, dk, nb, g,
+                              t);
+          tile_dots<true, DK>(dp, DeviceRows{vg + (r0 + w0) * ld3, ld3, n - w0, D}, gq, dk, nb,
+                              g, t);
+        }
+        const float2* sb = st + buf * kTile;
+        const float* ib = il + buf * kTile;
+        const float* db = dis + buf * kTile;
 #pragma unroll
-  for (int kj = 0; kj < kQB; ++kj)
+        for (int h = 0; h < 2; ++h) {
+          const float mkey = mk[w0 + g + 8 * h];
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = c * 64 + 2 * lane;
-      if (d < D && w0 + kj < n) {
-        const size_t at = (t0 + r0 + w0 + kj) * 3 * E + hh * D + d;
-        put(at + E, dk[kj][c][0], dk[kj][c][1]);
-        put(at + 2 * E, dv[kj][c][0], dv[kj][c][1]);
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int q = 8 * c + 2 * t + e, i2 = 2 * h + e;
+              const float p =
+                  q < nq ? exp_(__fmaf_rn(s[c][i2], scale, mkey) - sb[q].x) * ib[q] : 0.f;
+              dp[c][i2] = q < nq ? p * (dp[c][i2] - db[q]) * scale : 0.f;  // ds
+              s[c][i2] = p;
+            }
+        }
+        if (WHOLE) {
+          tile_weighted<NK>(dv_, s, SmemRows{oth_op(buf, 1), ld}, c0, nq, nt, g, t);
+          tile_weighted<NK>(dk_, dp, SmemRows{oth_op(buf, 0), ld}, c0, nq, nt, g, t);
+        } else {
+          tile_weighted<NK>(dv_, s, DeviceRows{gg + i0 * ldE, ldE, nq, D}, c0, nq, nt, g, t);
+          tile_weighted<NK>(dk_, dp, DeviceRows{qg + i0 * ld3, ld3, nq, D}, c0, nq, nt, g, t);
+        }
+      }
+      __syncthreads();  // buffer buf is consumed before tile i + 2 fills it
+    }
+    if (!active) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = w0 + g + 8 * h;
+      if (row >= n) continue;
+#pragma unroll
+      for (int c = 0; c < NK; ++c) {
+        const int col = c0 + 8 * c + 2 * t;
+        if (col >= D) continue;
+        const size_t at = (t0 + r0 + row) * ld3 + hh * D + col;
+        put(at + E, dk_[c][2 * h], dk_[c][2 * h + 1]);
+        put(at + 2 * E, dv_[c][2 * h], dv_[c][2 * h + 1]);
       }
     }
+  }
 }
 
 // ---- column sums over token chunks, and their reduction ----
@@ -1108,7 +1490,7 @@ int launch_smem(Kern kern, dim3 grid, int threads, size_t smem, cudaStream_t s, 
   return check_launch();
 }
 
-// The staged kernels (attn_staged(S, D)); heads of width D at hh D.
+// The staged kernels (attn_staged_fits(S, D)); heads of width D at hh D.
 template <typename T>
 int launch_attn_fwd(const float* qkv, const float* amask, T* ao, float* P, int B, int S, int E,
                     int H, int D, float scale, cudaStream_t s) {
@@ -1139,22 +1521,25 @@ int launch_attn_bwd(const float* qkv, const float* P, const float* dao, float* d
   }
 }
 
-// The streamed kernels, any S; DC = ceil(D / 64) instantiated for D <= kMaxD.
+// The streamed kernels, any S and D: heads staged whole at 32, 64 or 128
+// deep (attn_staged_depth, one chunk of output columns), else read from
+// device memory in chunks of 128 columns.
 template <typename T>
 int launch_attn_fwd_streamed(const float* qkv, const float* amask, T* ao, float* o32,
                              float2* stats, int B, int S, int E, int H, int D, float scale,
                              cudaStream_t s) {
-  const dim3 grid(B * H, (S + kTile - 1) / kTile);
-  const size_t smem = attn_stream_fwd_smem(D);
+  const dim3 grid(B * H, (S + kBlockRows - 1) / kBlockRows);
+  const size_t smem = attn_stream_fwd_smem(S, D);
   const int th = attn_stream_threads(S);
-#define CTR_FWD(DC)                                                                          \
-  launch_smem(attention_fwd_streamed<T, DC>, grid, th, smem, s, qkv, amask, ao, o32, stats, S, \
+  const CdOut cd{ao, std::is_same<T, __nv_bfloat16>::value};
+#define CTR_FWD(DK)                                                                        \
+  launch_smem(attention_fwd_streamed<DK>, grid, th, smem, s, qkv, amask, cd, o32, stats, S, \
               E, H, D, scale)
-  switch (attn_stream_chunks(D)) {
-    case 1: return CTR_FWD(1);
-    case 2: return CTR_FWD(2);
-    case 3: return CTR_FWD(3);
-    default: return CTR_FWD(4);
+  switch (attn_staged_depth(D)) {
+    case 32: return CTR_FWD(32);
+    case 64: return CTR_FWD(64);
+    case kWhole: return CTR_FWD(kWhole);
+    default: return CTR_FWD(0);
   }
 #undef CTR_FWD
 }
@@ -1163,17 +1548,18 @@ template <typename T>
 int launch_attn_bwd_streamed(const float* qkv, const float* amask, const float* o32,
                              const float2* stats, const float* dao, float* dqkv, T* dqkv_c, int B,
                              int S, int E, int H, int D, float scale, cudaStream_t s) {
-  const dim3 grid(B * H, (S + kTile - 1) / kTile, 2);
-  const size_t smem = attn_stream_bwd_smem(D);
+  const dim3 grid(B * H, (S + kBlockRows - 1) / kBlockRows, 2);
+  const size_t smem = attn_stream_bwd_smem(S, D);
   const int th = attn_stream_threads(S);
-#define CTR_BWD(DC)                                                                        \
-  launch_smem(attention_bwd_streamed<T, DC>, grid, th, smem, s, qkv, amask, o32, stats, dao, \
-              dqkv, dqkv_c, S, E, H, D, scale)
-  switch (attn_stream_chunks(D)) {
-    case 1: return CTR_BWD(1);
-    case 2: return CTR_BWD(2);
-    case 3: return CTR_BWD(3);
-    default: return CTR_BWD(4);
+  const CdOut cd{dqkv_c, std::is_same<T, __nv_bfloat16>::value};
+#define CTR_BWD(DK)                                                                     \
+  launch_smem(attention_bwd_streamed<DK>, grid, th, smem, s, qkv, amask, o32, stats, dao, \
+              dqkv, cd, S, E, H, D, scale)
+  switch (attn_staged_depth(D)) {
+    case 32: return CTR_BWD(32);
+    case 64: return CTR_BWD(64);
+    case kWhole: return CTR_BWD(kWhole);
+    default: return CTR_BWD(0);
   }
 #undef CTR_BWD
 }
@@ -1203,20 +1589,20 @@ int launch_attention_fwd(const float* qkv, const float* amask, T* ao, float* P, 
 }
 
 // Whether an attention block's entry point takes heads of width D at
-// columns hh D of E = H D-wide segments: 16-byte rows (D % 4 == 0), D up to
-// kMaxD (the blocks bound one by one for the checks on the card).
+// columns hh D of E = H D-wide segments: 16-byte rows (D % 4 == 0), any D
+// (the blocks bound one by one for the checks on the card).
 inline bool attention_block_ok(int B, int S, int E, int H, int D) {
-  return B >= 1 && S >= 1 && H >= 1 && D >= 4 && D % 4 == 0 && H * D == E && D <= kMaxD;
+  return B >= 1 && S >= 1 && H >= 1 && D >= 4 && D % 4 == 0 && H * D == E;
 }
 
 constexpr long long kMaxTokens = 65535LL * mma::BM;  // B S: the tile product's grid rows
-constexpr long long kMaxStreamS = 65535LL * kTile;   // S: the streamed attention's grid rows
+// S: the streamed attention's grid rows, ceil(S / kBlockRows) <= 65535
+constexpr long long kMaxStreamS = 65535LL * kBlockRows;
 
 // The shapes both entry points take, forward and backward alike, at the
-// true widths (ops/cuda/sasrec_encoder.py::fits): any S and E, E % H == 0,
-// a head width up to kMaxD.
+// true widths (ops/cuda/sasrec_encoder.py::fits): any S and E, E % H == 0.
 inline bool shapes_ok(int S, int E, int H, int L) {
-  return S >= 1 && E >= 1 && H >= 1 && E % H == 0 && E / H <= kMaxD && L >= 1;
+  return S >= 1 && E >= 1 && H >= 1 && E % H == 0 && L >= 1;
 }
 
 // A call's envelope (check_envelope): the shapes, and the grids' rows: B S

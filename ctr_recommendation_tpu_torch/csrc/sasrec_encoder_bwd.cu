@@ -316,13 +316,13 @@ extern "C" int sasrec_layer_norm_bwd(const float* dn, const float* xhat, const f
                                  s);
 }
 
-// The staged backward (attn_staged(S, D)): dqkv (B*S, 3E) fp32 and its cd
+// The staged backward (attn_staged_fits(S, D)): dqkv (B*S, 3E) fp32 and its cd
 // copy from qkv (B*S, 3E) fp32, the softmax P (B, H, S, S) and dao (B*S, E)
 // fp32. One launch.
 extern "C" int sasrec_attention_bwd(const float* qkv, const float* P, const float* dao,
                                     float* dqkv, void* dqkv_c, int B, int S, int E, int H, int D,
                                     float scale, int is_bf16, void* stream) {
-  if (!ctr::enc::attention_block_ok(B, S, E, H, D) || !ctr::enc::attn_staged(S, D))
+  if (!ctr::enc::attention_block_ok(B, S, E, H, D) || !ctr::enc::attn_staged_fits(S, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
@@ -332,7 +332,7 @@ extern "C" int sasrec_attention_bwd(const float* qkv, const float* P, const floa
                                    scale, s);
 }
 
-// The streamed backward, any S: dqkv (B*S, 3E) fp32 and its cd copy from qkv
+// The streamed backward, any S and D: dqkv (B*S, 3E) fp32 and its cd copy from qkv
 // (B*S, 3E) fp32, amask (B, S), the forward's o32 (B*S, E) and stats (B, H,
 // S) float2, and dao (B*S, E) fp32. One launch.
 extern "C" int sasrec_attention_bwd_streamed(const float* qkv, const float* amask,

@@ -9,18 +9,21 @@ tensor is (N, width) row-major over the N = B*S tokens of a batch.
   stored), "tn" A^T G over chunks of tokens (a weight gradient's partials);
 - ``layer_norm`` and ``layer_norm_bwd``: fp32, eps 1e-6, a warp a row, the
   statistics over a row's first E columns (a padded row's others written 0);
-- ``attention_fwd`` and ``attention_bwd``, staged: fp32, a block per
-  (history, head), S <= 128 (up to four keys a lane), D <= 256, the head's
+- ``attention_fwd`` and ``attention_bwd``, staged: fp32 on the CUDA cores, a
+  block per (history, head), S <= 128 (up to four keys a lane), the head's
   rows staged whole in shared memory (``attn_fwd_smem`` / ``attn_bwd_smem``
   bytes, within ``MAX_SMEM``);
-- ``attention_fwd_streamed`` and ``attention_bwd_streamed``: fp32, any S,
-  D <= 256, a block per (history, head, tile of ``ATTN_TILE`` rows), the
-  keys (the backward's dk and dv: the queries) walked in tiles of
-  ``ATTN_TILE`` rows with the online softmax; the forward keeps each
-  query's running max and sum (m, l) and its fp32 output, from which the
-  backward rebuilds P a tile at a time (FlashAttention-2's backward,
-  without atomics). The encoder takes the staged pair where it fits
-  (``attention_route``) and the streamed pair past it;
+- ``attention_fwd_streamed`` and ``attention_bwd_streamed``: fp32 on the
+  tensor cores in 3xTF32 (each operand split into two TF32 halves, three
+  ``mma.sync`` a product: fp32's accuracy), any S and any head width, a block
+  per (history, head, up to ``ATTN_BLOCK_ROWS`` rows), the other side walked in
+  tiles of ``ATTN_TILE`` rows with the online softmax; the forward keeps
+  each query's running max and sum (m, l) and its fp32 output, from which
+  the backward rebuilds P a tile at a time (FlashAttention-2's backward,
+  without atomics). Heads up to ``ATTN_WHOLE`` deep are staged in shared
+  memory (``attn_stream_smem``), deeper ones read from device memory. The
+  encoder takes the staged pair where ``attention_route`` says so and the
+  streamed pair everywhere else;
 - ``column_sums``: bias gradients, LayerNorm's dscale and dbias and the
   dropout gate on dh, over the same token chunks; ``reduce_partials``: the
   fixed-order sum of a chunked partial.
@@ -56,9 +59,10 @@ from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
 
 LN_EPS = 1e-6
 MAX_S = 128  # kMaxS: the staged attention, KC = ceil(S / 32) <= 4 keys a lane
-MAX_D = 256  # the head width both attentions take (kMaxD)
 MAX_SMEM = 232_448  # shared memory an H100 block may opt into (kMaxSmem)
-ATTN_TILE = 32  # kTile: the rows of a streamed attention block and of each step
+ATTN_TILE = 32  # kTile: the other side's rows a streamed attention step takes
+ATTN_BLOCK_ROWS = 64  # kBlockRows: a streamed attention block's own rows, 16 a warp
+ATTN_WHOLE = 128  # kWhole: head depths the streamed attention stages whole
 
 
 def attn_ld(d: int) -> int:
@@ -77,21 +81,50 @@ def attn_bwd_smem(s: int, d: int) -> int:
     return (4 * s * attn_ld(d) + 2 * s * (s + 1)) * 4
 
 
-def attn_stream_smem(d: int) -> tuple[int, int]:
-    """Shared-memory bytes of the streamed attention (forward, backward): a
-    tile of q, k and v and its mask; a tile of q, g, k and v and its m, l,
-    Di and mask (csrc/sasrec_encoder.cuh ``attn_stream_*_smem``)."""
-    ld = attn_ld(d)
-    return (3 * ATTN_TILE * ld + ATTN_TILE) * 4, (4 * ATTN_TILE * ld + 4 * ATTN_TILE) * 4
+def attn_depth(d: int) -> int:
+    """The depth a streamed attention kernel runs a head of width d at
+    (csrc/sasrec_encoder.cuh ``attn_staged_depth``): staged in shared
+    memory, d padded to 32, 64 or ATTN_WHOLE; 0 past ATTN_WHOLE, where the
+    heads are read from device memory."""
+    dk = -(-d // 8) * 8
+    return next((w for w in (32, 64, ATTN_WHOLE) if dk <= w), 0)
+
+
+def attn_own_rows(s: int) -> int:
+    """A streamed attention block's own rows: S rounded up to 16 (a warp's
+    m16n8k8 row tile), at most ATTN_BLOCK_ROWS (``attn_own_rows``)."""
+    return min(ATTN_BLOCK_ROWS, -(-s // 16) * 16)
+
+
+def attn_stream_smem(s: int, d: int) -> tuple[int, int]:
+    """Shared-memory bytes of the streamed attention (forward, backward) at
+    (S, D) (csrc/sasrec_encoder.cuh ``attn_stream_*_smem``): for a staged
+    head, rows of attn_depth(D) + 4 floats, the block's own rows (one
+    operand forward, two backward) and each buffer's two operands (two
+    buffers where S takes more than one tile of ATTN_TILE); then the masks,
+    each query tile's (m, l), 1 / l and Di, and the own rows' mask or Di."""
+    r, nb, dk = attn_own_rows(s), 2 if s > ATTN_TILE else 1, attn_depth(d)
+    ld = dk + 4 if dk else 0
+    return ((r + 2 * nb * ATTN_TILE) * ld + nb * ATTN_TILE) * 4, (
+        (2 * r + 2 * nb * ATTN_TILE) * ld + 4 * nb * ATTN_TILE + r) * 4
+
+
+STAGED_S = 20  # kStagedS: the longest history the staged pair takes at heads up to 64 deep
+
+
+def staged_fits(s: int, d: int) -> bool:
+    """Whether the staged attention takes (S, D): its heads whole in shared
+    memory both ways (csrc/sasrec_encoder.cuh ``attn_staged_fits``)."""
+    return s <= MAX_S and attn_fwd_smem(s, d) <= MAX_SMEM and attn_bwd_smem(s, d) <= MAX_SMEM
 
 
 def attention_route(s: int, d: int) -> str:
-    """"staged" where the staged attention takes (S, D), its heads whole in
-    shared memory both ways, else "streamed" (csrc/sasrec_encoder.cuh
-    ``attn_staged``; D the head width the kernels run, padded to 4)."""
-    staged = (s <= MAX_S and attn_fwd_smem(s, d) <= MAX_SMEM
-              and attn_bwd_smem(s, d) <= MAX_SMEM)
-    return "staged" if staged else "streamed"
+    """The encoder's attention at (S, D) (csrc/sasrec_encoder.cuh
+    ``attn_staged``; D the head width the kernels run, padded to 4):
+    "staged" where the staged pair fits and ran a training step's attention
+    faster on an H100 (heads deeper than 64, or histories up to STAGED_S),
+    else "streamed"."""
+    return "staged" if staged_fits(s, d) and (d > 64 or s <= STAGED_S) else "streamed"
 
 # Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3")
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -274,8 +307,9 @@ def attention_bwd_plain(qkv, p, dao, cd, *, scale=None):
 
 def _dots(a, b):
     """a (..., M, D) . b (..., N, D) -> (..., M, N): fp32 operands, each sum
-    in fp64 rounded once to fp32 (the kernels sum in fp32, in order: within
-    the bars, and a zero-padded D changes nothing here)."""
+    in fp64 rounded once to fp32 (the kernels sum 3xTF32 products in fp32 on
+    the tensor cores: within the fp32 bars, and a zero-padded D changes
+    nothing here)."""
     return (a.double() @ b.double().transpose(-1, -2)).float()
 
 

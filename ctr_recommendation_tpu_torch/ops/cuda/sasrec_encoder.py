@@ -13,9 +13,9 @@ built from the blocks of ``encoder_blocks`` (the tile product with fused
 epilogues on ``mma.sync``, LayerNorm, attention, column sums and their
 fixed-order reduction), enqueued by one C call: ``fwd_launches(L)`` and
 ``bwd_launches(L)`` give the launches of one call. The attention is the
-staged pair where a head fits shared memory whole both ways
-(``encoder_blocks.attention_route``: S <= 128 and the staging within
-``MAX_SMEM``), the streamed pair (keys walked in tiles, any S) past it.
+streamed pair (keys walked in tiles on the tensor cores in 3xTF32, any S,
+any head width), or the staged pair (fp32 on the CUDA cores) where
+``encoder_blocks.attention_route`` says so.
 
 Precision contract (the TPU kernels', ``sasrec_encoder.py:61-67``,
 ``:159-351``), kept by the kernels and by ``encode_fwd_plain`` /
@@ -42,7 +42,7 @@ Bernoulli statistics, another realization (docs/PARITY.md).
 enqueues its kernels (or raises), on a CPU tensor it runs its plain version.
 Their ``launches`` attributes count kernel launches. The kernels' envelope
 (``fits``, one predicate for both directions): S >= 1, E >= 1, E % H == 0,
-a head width D = E/H up to 256 (``MAX_D``), L >= 1; bf16 or fp32, 0 <= rate
+L >= 1, any head width D = E/H; bf16 or fp32, 0 <= rate
 < 1; and at a call B*S tokens up to ``MAX_TOKENS`` (the tile product's
 grid). Widths the kernels do not take as they are (E % 32 != 0 or D % 4 !=
 0: SASRec's own d = 50) run zero-padded (``padded_dims``: each head to Dp,
@@ -69,8 +69,8 @@ import torch
 from ctr_recommendation_tpu_torch.ops.attention import NEG_INF
 from ctr_recommendation_tpu_torch.ops.cuda import build
 from ctr_recommendation_tpu_torch.ops.cuda.encoder_blocks import (  # noqa: F401 (re-exported)
+    ATTN_BLOCK_ROWS,
     ATTN_TILE,
-    MAX_D,
     MAX_S,
     MAX_SMEM,
     attn_bwd_smem,
@@ -102,7 +102,7 @@ WEIGHT_NAMES = (
 )
 _MATRICES = ("qkv_w", "proj_w", "ffn1_w", "ffn2_w")
 MAX_TOKENS = 65535 * 128  # B*S: the tile product's grid rows (kMaxTokens)
-MAX_STREAM_S = 65535 * ATTN_TILE  # S: the streamed attention's grid rows (kMaxStreamS)
+MAX_STREAM_S = 65535 * ATTN_BLOCK_ROWS  # S: the streamed attention's grid rows (kMaxStreamS)
 
 
 def padded_dims(e: int, num_heads: int) -> tuple[int, int]:
@@ -353,12 +353,11 @@ def fits(s: int, e: int, num_heads: int, layers: int) -> bool:
     the shapes, the C ``sasrec_encoder_fits`` (``in_envelope``) in Python.
     S >= 1 with no bound of its own (the streamed attention past what shared
     memory holds), any E >= 1 (padded to the kernels' widths), H >= 1 with
-    E % H == 0, L >= 1. Still refused: a head width D = E / H past MAX_D =
-    256 (the attention's accumulators a lane: up to four column pairs a
-    row); and, at a call (``check_envelope``), more than MAX_TOKENS tokens
-    B*S or a history past MAX_STREAM_S (the kernels' grid rows)."""
-    return (s >= 1 and e >= 1 and num_heads >= 1 and e % num_heads == 0
-            and e // num_heads <= MAX_D and layers >= 1)
+    E % H == 0, any head width E / H (the streamed attention walks wide
+    heads' output columns in chunks), L >= 1. Still refused, at a call
+    (``check_envelope``): more than MAX_TOKENS tokens B*S or a history past
+    MAX_STREAM_S (the kernels' grid rows)."""
+    return s >= 1 and e >= 1 and num_heads >= 1 and e % num_heads == 0 and layers >= 1
 
 
 def check_envelope(s: int, e: int, num_heads: int, layers: int, tokens: int = 1) -> None:
@@ -367,7 +366,7 @@ def check_envelope(s: int, e: int, num_heads: int, layers: int, tokens: int = 1)
     ``in_envelope``)."""
     if not fits(s, e, num_heads, layers) or tokens > MAX_TOKENS or s > MAX_STREAM_S:
         raise ValueError(
-            f"outside the kernels' envelope (S >= 1, E % H == 0, E/H <= {MAX_D}, L >= 1; a "
+            f"outside the kernels' envelope (S >= 1, E % H == 0, L >= 1; a "
             f"call's B*S <= {MAX_TOKENS}, S <= {MAX_STREAM_S}): S={s}, E={e}, H={num_heads}, "
             f"L={layers}, B*S={tokens}"
         )

@@ -10,11 +10,11 @@ prints one JSON line: the tree, the card's name and power limit, and the
 median ms (CUDA events, 30 runs after 3 warm-ups) of
 
 - the staged ``attention_fwd`` (B = 8192) and ``attention_bwd`` (B = 4096)
-  alone, bf16 output, H = 2, at S = 20 for E = 128 and 256, and at S = 50
-  for E = 128 where the tree's kernels take it (else null);
+  alone, bf16 output, H = 2, at S = 20 for E = 128 and 256, and at S = 32
+  and 50 for E = 128 where the tree's kernels take it (else null);
 - the same for the streamed pair, ``attention_fwd_streamed`` and
-  ``attention_bwd_streamed``, at S = 20, 50 and 200 for E = 128, where the
-  tree has it (``stream_*`` keys; else null);
+  ``attention_bwd_streamed``, at S = 20, 32, 50 and 200 for E = 128 and at
+  S = 20 for E = 256, where the tree has it (``stream_*`` keys; else null);
 - the whole encoder, ``encode_fwd`` (B = 8192) and ``encode_bwd`` (B =
   4096), bf16, E = 128, H = 2, L = 1, dropout 0.1, at S = 20, and at S =
   200 where the tree takes it (else null).
@@ -93,16 +93,16 @@ def worker(label: str) -> None:
     out = {"tree": label, "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()}
-    for s, e in ((20, 128), (20, 256), (50, 128)):
+    for s, e in ((20, 128), (20, 256), (32, 128), (50, 128)):
         try:
             enc.check_envelope(s, e, HEADS, 1)
         except ValueError:
             out[f"attn_fwd_S{s}_E{e}"] = out[f"attn_bwd_S{s}_E{e}"] = None
             continue
         out[f"attn_fwd_S{s}_E{e}"], out[f"attn_bwd_S{s}_E{e}"] = attention_times(torch, s, e)
-    for s in (20, 50, 200):
-        keys = f"stream_fwd_S{s}_E128", f"stream_bwd_S{s}_E128"
-        times = (attention_times(torch, s, 128, streamed=True)
+    for s, e in ((20, 128), (32, 128), (50, 128), (200, 128), (20, 256)):
+        keys = f"stream_fwd_S{s}_E{e}", f"stream_bwd_S{s}_E{e}"
+        times = (attention_times(torch, s, e, streamed=True)
                  if hasattr(eb, "attention_fwd_streamed") else (None, None))
         out.update(zip(keys, times))
     for s in (20, 200):

@@ -186,15 +186,17 @@ def test_the_wrappers_refuse_outside_the_envelope():
     enc.check_envelope(32, 512, 2, 3)
     enc.check_envelope(50, 128, 2, 1)  # SASRec's published n = 50
     enc.check_envelope(128, 64, 4, 1)
-    # past the staged attention's shared memory and off the old multiples: taken
+    # past the staged attention's shared memory, off the old multiples and
+    # heads wider than 256 (the streamed attention's chunks): taken
     for s, e, heads, layers in ((129, 64, 4, 1), (200, 128, 2, 1), (116, 64, 1, 1),
                                 (84, 128, 1, 1), (20, 48, 2, 1), (20, 64, 32, 1),
-                                (200, 50, 1, 2)):
+                                (200, 50, 1, 2), (20, 288, 1, 1), (20, 512, 1, 1),
+                                (200, 1024, 1, 2)):
         enc.check_envelope(s, e, heads, layers)
     enc.check_envelope(200, 128, 2, 1, tokens=enc.MAX_TOKENS)
     enc.check_envelope(enc.MAX_STREAM_S, 32, 1, 1, tokens=enc.MAX_STREAM_S)
     assert enc.fits(enc.MAX_STREAM_S + 1, 32, 1, 1)  # fits has no S bound: the call's grid has
-    for s, e, heads, layers, tokens in ((20, 288, 1, 1, 1), (20, 128, 3, 1, 1),
+    for s, e, heads, layers, tokens in ((20, 288, 5, 1, 1), (20, 128, 3, 1, 1),
                                         (20, 128, 2, 0, 1), (0, 128, 2, 1, 1),
                                         (200, 128, 2, 1, enc.MAX_TOKENS + 1),
                                         (enc.MAX_STREAM_S + 1, 32, 1, 1, enc.MAX_STREAM_S + 1)):

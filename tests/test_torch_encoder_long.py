@@ -121,15 +121,18 @@ def test_streamed_attention_matches_the_jax_helpers_and_the_staged_twins(s, d):
 
 
 @pytest.mark.parametrize("s, d, route", [
-    (20, 64, "staged"), (115, 64, "staged"), (116, 64, "streamed"), (83, 128, "staged"),
-    (84, 128, "streamed"), (50, 256, "staged"), (51, 256, "streamed"), (128, 32, "staged"),
-    (129, 32, "streamed"), (1024, 4, "streamed")])
+    (20, 64, "staged"), (21, 64, "streamed"), (115, 64, "streamed"), (83, 128, "staged"),
+    (84, 128, "streamed"), (50, 256, "staged"), (51, 256, "streamed"), (20, 32, "staged"),
+    (128, 32, "streamed"), (1024, 4, "streamed")])
 def test_the_attention_route(s, d, route):
-    """Staged where the whole heads fit shared memory both ways (S <= 128),
-    streamed past it (csrc/sasrec_encoder.cuh attn_staged); the streamed
-    kernels' shared memory depends on D alone and fits at every D <= 256."""
+    """The route the attention A/B on the card set (csrc/sasrec_encoder.cuh
+    attn_staged): staged where the whole heads fit shared memory both ways
+    and either the head is deeper than 64 or S is at most STAGED_S,
+    streamed elsewhere; the streamed kernels' shared memory fits at every
+    S and D (heads past ATTN_WHOLE deep need only their masks and stats)."""
     assert eb.attention_route(s, d) == route
-    assert max(eb.attn_stream_smem(eb.MAX_D)) <= eb.MAX_SMEM
+    assert max(eb.attn_stream_smem(s, d)) <= eb.MAX_SMEM
+    assert max(eb.attn_stream_smem(4096, 8 * d)) <= eb.MAX_SMEM
 
 
 # ------------------------------------------------------------ the padded widths
@@ -154,8 +157,8 @@ def test_the_padded_path_equals_the_unpadded_plain_version(e, heads, s):
     (padded=True: x and the weights zero-padded, LayerNorm over the true E,
     the true D's scale, dropout keyed by the true column) against the same
     functions at the true widths, dropout 0.2, L = 2: equal, the output and
-    dx and every weight gradient; the staged route (S = 20, 40) and the
-    streamed one (S = 150, 200)."""
+    dx and every weight gradient; the staged route (S = 20) and the
+    streamed one (S = 40, 150, 200)."""
     params, x, ids = _encoder_case(2, 3, seed=e + s, e=e, s=s, heads=heads)
     pp = to_pt(params)
     xm, am, pad = enc.encoder_inputs(pp, torch.from_numpy(x), torch.from_numpy(ids))

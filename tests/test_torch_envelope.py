@@ -7,9 +7,9 @@ and ``ops/cuda/sasrec_encoder.fits(s, e, num_heads, layers)``. The wrappers'
 ``check_*envelope`` raise through them on a CUDA tensor. The interaction's
 entry point and ``prepare_score_params`` zero-pad E and the tower widths to
 multiples of 8, so those two families take any E and any two-layer tower;
-the encoder's kernels take any S (the attention's keys streamed past what a
-block's shared memory holds) and any E with E % H == 0 (zero-padded to
-their widths) up to a head width of 256. The dispatch sites (``senet_bilinear_concat``, the trunk's
+the encoder's kernels take any S (the attention's keys streamed in tiles)
+and any E with E % H == 0 (zero-padded to their widths), at any head
+width. The dispatch sites (``senet_bilinear_concat``, the trunk's
 ``_attention_field``, ``Predictor``) take the kernel path whenever
 ``use_pallas`` is set: outside ``fits`` the card refuses, it never hands
 the call to plain PyTorch. Here: each predicate at the shapes the port
@@ -108,14 +108,15 @@ ENCODER_SHAPES = [  # (S, E, H, L, fits)
     (116, 64, 1, 1, True), (84, 128, 1, 1, True), (129, 64, 4, 1, True),
     (200, 128, 2, 1, True), (200, 64, 4, 1, True), (50, 50, 1, 1, True),
     (20, 16, 2, 1, True), (20, 128, 3, 1, False), (20, 64, 32, 1, True),
-    (0, 128, 2, 1, False), (20, 128, 2, 0, False), (20, 1024, 2, 1, False)]
+    (0, 128, 2, 1, False), (20, 128, 2, 0, False), (20, 1024, 2, 1, True)]
 
 
 @pytest.mark.parametrize("s, e, heads, layers, want", ENCODER_SHAPES)
 def test_encoder_predicate(s, e, heads, layers, want):
-    """S >= 1, E % H == 0, D = E/H up to 256, L >= 1 (the attention
-    streamed past what shared memory holds, E off the kernels' multiples
-    zero-padded); check_envelope raises exactly outside."""
+    """S >= 1, E % H == 0, any head width D = E/H, L >= 1 (the attention
+    streamed past what shared memory holds and, past 128 deep, its heads
+    read in chunks; E off the kernels' multiples zero-padded); check_envelope
+    raises exactly outside."""
     assert enc.fits(s, e, heads, layers) is want
     if want:
         enc.check_envelope(s, e, heads, layers)
@@ -131,24 +132,27 @@ def test_encoder_predicate(s, e, heads, layers, want):
 def test_shared_memory_formula(s, d, fwd, bwd):
     """csrc/sasrec_encoder.cuh attn_fwd_smem / attn_bwd_smem: q, k, v and the
     mask forward; q, k, v, g, P and dlog backward; rows of attn_ld(D). The
-    staged attention takes (S, D) where both fit (attention_route), the
-    streamed one past it, and the encoder takes both (fits)."""
+    staged attention takes (S, D) where both fit (staged_fits); the encoder
+    routes it there only at heads deeper than 64 or S up to STAGED_S
+    (attention_route), and takes every S (fits)."""
     assert (eb.attn_fwd_smem(s, d), eb.attn_bwd_smem(s, d)) == (fwd, bwd)
-    staged = max(fwd, bwd) <= eb.MAX_SMEM
-    assert (eb.attention_route(s, d) == "staged") is staged and enc.fits(s, 2 * d, 2, 1)
+    fits = max(fwd, bwd) <= eb.MAX_SMEM
+    assert eb.staged_fits(s, d) is fits and enc.fits(s, 2 * d, 2, 1)
+    staged = fits and (d > 64 or s <= eb.STAGED_S)
+    assert (eb.attention_route(s, d) == "staged") is staged
 
 
 def test_the_largest_history_each_head_width_takes():
     """Every S up to 1024 fits at every head width D in {25, 32, 50, 64,
-    128, 256}, with one and two heads; the staged attention keeps the
-    histories whose heads fit shared memory both ways (S = 115 at D = 64,
-    S = 83 at D = 128, S = 50 at D = 256, S = 128 at D = 32), the streamed
-    one takes the rest."""
-    for d in (25, 32, 50, 64, 128, 256):
+    128, 256, 288, 512}, with one and two heads; the staged attention keeps
+    the histories up to STAGED_S at heads up to 64 deep, and at deeper heads
+    those whose heads fit shared memory both ways (S = 83 at D = 128, S =
+    50 at D = 256); the streamed one takes the rest."""
+    for d in (25, 32, 50, 64, 128, 256, 288, 512):
         assert all(enc.fits(s, h * d, h, 1) for s in range(1, 1025) for h in (1, 2))
     largest = {d: max(s for s in range(1, 1025) if eb.attention_route(s, d) == "staged")
                for d in (32, 64, 128, 256)}
-    assert largest == {32: 128, 64: 115, 128: 83, 256: 50}
+    assert largest == {32: 20, 64: 20, 128: 83, 256: 50}
 
 
 # ------------------------------------------------ the padded entry points
@@ -396,8 +400,8 @@ def test_predictor_with_a_100_50_tower_matches_jax(tiny_experiment, precision):
 def test_sasrec_predictor_at_long_histories_matches_jax(monkeypatch, tiny_experiment, max_len):
     """sasrec_fibinet at E = 32, fp32, served on every kernel family's path
     (the plain versions here): at max_len 50 (SASRec's published n for its
-    sparse datasets), which the encoder kernels take staged, and at 200 (its
-    MovieLens-1M n), which they take streamed (``fits``). The JAX Predictor
+    sparse datasets) and at 200 (its MovieLens-1M n), both of which the
+    encoder kernels take streamed (``fits``, ``attention_route``). The JAX Predictor
     runs its Pallas encoder and scoring kernels in interpret mode at both."""
     exp, _, _, params, state, pexp, _, pparams, pstate = _tiny(
         tiny_experiment, e=32, max_len=max_len, model="sasrec_fibinet")
@@ -413,5 +417,5 @@ def test_sasrec_predictor_at_long_histories_matches_jax(monkeypatch, tiny_experi
     got = pred(batch).numpy()
     assert pred.use_fused and len(fused) == 1
     assert enc.fits(max_len, 32, 2, 1)
-    assert (eb.attention_route(max_len, 16) == "staged") is (max_len == 50)
+    assert eb.attention_route(max_len, 16) == "streamed"
     _close(got, want, "float32")
