@@ -123,7 +123,16 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    statistics within DP_STATE_TOL, the parameters after the update within
    DP_PARAM_TOL where the gradients fix Adam's step (2 lr elsewhere), the
    two replicas bit for bit equal, exactly fwd_launches() + bwd_launches()
-   interaction launches a rank. (b) fit_on_device on two ranks over
+   interaction launches a rank. Task sasrec_step: the same step of
+   sasrec_fibinet (net dropout 0.2, the encoder's 0.1) on the same rows and
+   ranks, with the same bars and exactly fwd_launches(1) +
+   bwd_launches(1) encoder launches a rank; the encoder kernels draw the
+   global batch's masks (token0 = a rank's first global row x S), and
+   their FFN ReLU decisions, which cannot be replayed inside a kernel, are
+   recorded on both sides (encoder_gates) and held equal at every real
+   token (any flip within GATE_MARGIN, |f1| against max |f1|), the FFN
+   hidden f1 itself bit for bit there (the kernels are row-invariant,
+   (d)). (b) fit_on_device on two ranks over
    phase 6's splits, 2 epochs, the global batch 4096: exact launches a
    rank, both ranks' metrics equal, loss falling, best valid AUC within
    DP_AUC_TOL of phase 6's, rank 0's export and resume point; per rank
@@ -259,8 +268,9 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    nn.TransformerEncoderLayer (`[time] ... S=50` / `S=200` lines). (b)
    sasrec_fibinet at max_len 50 (SASRec's n for its sparse datasets) and
    sasrec_fibinet_ml1m (max_len 200, E=50, one head, two blocks, dropout
-   0.2: SASRec's MovieLens-1M setting) at full width on phase 6's cut made
-   at that max_len: phases 6-7's checks (gradients kernel vs plain, exact
+   0.2: SASRec's MovieLens-1M setting) at full width on half of phase 6's
+   train rows (LONG_TRAIN, 131,072) and its valid rows made at that
+   max_len: phases 6-7's checks (gradients kernel vs plain, exact
    launches of the four training kernels, loss falling, AUC > 0.6, the
    export through evaluate); the export through Predictor.score_table on
    the fused scoring kernel, its AUC within AUC_SERVE_TOL of evaluate's,
@@ -276,6 +286,41 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    ...]` lines); encode_fwd and encode_bwd past MAX_TOKENS tokens refused
    with the envelope's ValueError before any allocation or counted launch
    (`[refused tokens]`). The kernels line adds 7e's launches.
+7f. The port's own entry points, each CLI's main() called in this process
+   with no device flag (the card) at the full microlens_experiment()
+   width, on a parquet root: the train CLI's --synthetic (327,680 rows,
+   91,717 items, high signal: 245,760 train, 49,152 valid, 32,768 test
+   rows through write_synthetic_dataset) and fit_on_device for 2 epochs;
+   --resume --epochs 3 on its checkpoint directory (Trainer._restore
+   observed: step, parameters, model state and Adam moments bit for bit
+   the resume point's, on the card; only epoch 3 runs); --stream on a copy
+   of the root whose train.parquet is rewritten in row groups of 16,384
+   (stream_batches into Trainer.fit; best AUC within FIT_AUC_TOL of the
+   in-memory run's); the predict CLI's pipeline from the parquet path and
+   its --stream, both CSVs byte-identical and check_submission's against
+   score_table over load_split(test.parquet) on the same export; evaluate
+   --gauc-col user_id, its [eval] line and metrics evaluate()'s in this
+   process, its AUC within AUC_SERVE_TOL of the export's in training;
+   validate_dataset exiting 0; cli/serve.py's build_service on the
+   checkpoint directory, warmed up, behind make_http_server on port 0, six
+   requests of 1-64 test rows, then 256 sequential requests of 16 random
+   ones (timed as 7b times its bucket 16: p50, p99), each within CPU_TOL
+   of score_table; Task 1 -> Task
+   2: a seeded item_feature.parquet of the 91,717 items through the item
+   embeddings CLI (--encoder hash: the encoder on the host, pca_project on
+   the card) into a second root's item_info.parquet (float32 rows of 128
+   dims, L2-normed within 1e-5, the items in order), then the train CLI
+   (sasrec_fibinet, 1 epoch) and the predict CLI on it, its CSV
+   check_submission's against score_table on its export and that
+   item_info. Each train run's
+   loss finite and falling (a one-epoch run's below log 2) and best valid
+   AUC above 0.6; every run's launches of the five counted wrappers exact
+   (per step, eval batch, scoring batch, warmup bucket and dispatch); a
+   `[cli ...]` line a stage with its seconds and rows/s or examples/s
+   (predict's and evaluate's are main()'s wall over a small split, the
+   set-up included: smoke figures, not the pipeline's rate).
+   pyarrow is imported first: no stage is skipped without it. The kernels
+   line adds 7f's launches and 6h sasrec_step's (both ranks).
 6d. Phases 6-7 for sasrec_emb_256 (sasrec_fibinet with embedding_dim=256,
    its other defaults): both encoder kernels at E=256 in the gradient
    check and the exact launch counts, the export served through them.
@@ -301,7 +346,7 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    gathered), and each beside the dense mm_fibinet run: best valid AUC,
    examples/s, a step's wall and device-busy ms.
 6f. Host-driven training (Trainer.fit) at the full defaults on phase 6's
-   splits, fed numpy batches (the card's machine has no pyarrow): first the
+   splits, fed numpy batches (phase 7f runs the parquet paths): first the
    wire, each slice of the first widened chunk of 8 bit for bit put_batch
    of its numpy batch (split24 item ids, uint8 labels and categoricals);
    the feed at 8 giving every step of both epochs the feed at 1's batch,
@@ -334,7 +379,8 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    masknet, pnn, dlrm) at the full microlens_experiment() defaults (E=128,
    hidden (512, 256), CIN (64, 64), FinalMLP streams (512, 256) x 2 with 8
    heads, AutoInt 2 layers x 2 heads, MaskNet 4 blocks x 64, DIN (64, 32),
-   bf16, batch 4096) on phase 6's splits, each through phases 6-7 with no
+   bf16, batch 4096) on the first half of phase 6's train rows (ZOO_TRAIN,
+   131,072) and its valid rows, each through phases 6-7 with no
    kernel on its path: one fp32 step's loss (within 1e-5) and gradients
    (within GRAD_TOL / GRAD_FLOOR) on the card against the same step on the
    CPU (same seeded weights and batch, xdeepfm's zero CIN head set to
@@ -593,8 +639,8 @@ def make_rows(n: int, seed: int) -> dict[str, np.ndarray]:
     }
 
 
-def check_submission(written, csv_path, zip_path, bulk, tag: str) -> None:
-    """The pipeline's CSV + zip: N_ROWS rows, IDs in order, probabilities
+def check_submission(written, csv_path, zip_path, bulk, tag: str, n_rows: int = N_ROWS) -> None:
+    """The pipeline's CSV + zip: ``n_rows`` rows, IDs in order, probabilities
     finite in (0, 1) and identical to ``bulk`` (score_table's); the CSV's
     bytes those the Python writer writes for ``bulk`` (the native writer
     wrote them), the zip holding those bytes."""
@@ -605,10 +651,10 @@ def check_submission(written, csv_path, zip_path, bulk, tag: str) -> None:
     with open(csv_path, "rb") as f:
         raw = f.read()
     lines = raw.decode().splitlines()
-    if lines[0] != "ID,Task2" or len(lines) != N_ROWS + 1 or written != N_ROWS:
+    if lines[0] != "ID,Task2" or len(lines) != n_rows + 1 or written != n_rows:
         raise SystemExit(f"{tag}: CSV has {len(lines) - 1} rows, header {lines[0]!r}")
     ids, probs = zip(*(ln.split(",") for ln in lines[1:]))
-    if not np.array_equal(np.asarray(ids, np.int64), np.arange(N_ROWS)):
+    if not np.array_equal(np.asarray(ids, np.int64), np.arange(n_rows)):
         raise SystemExit(f"{tag}: CSV IDs are not 0..N-1 in order")
     csv_probs = np.asarray(probs, np.float64).astype(np.float32)
     if not np.isfinite(csv_probs).all() or not ((csv_probs > 0) & (csv_probs < 1)).all():
@@ -627,7 +673,7 @@ def check_submission(written, csv_path, zip_path, bulk, tag: str) -> None:
             raise SystemExit(f"{tag}: zip holds {z.namelist()}")
         if z.read(z.namelist()[0]) != raw:
             raise SystemExit(f"{tag}: the zip does not hold the CSV's bytes")
-    log(f"[{tag}] CSV {N_ROWS} rows, IDs in order, probabilities in (0, 1), "
+    log(f"[{tag}] CSV {n_rows} rows, IDs in order, probabilities in (0, 1), "
         f"identical to score_table; {len(raw)} bytes, equal to the Python writer's; "
         f"zip ok ({os.path.getsize(zip_path)} bytes, holds the CSV's bytes)")
 
@@ -994,7 +1040,7 @@ def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str,
 
 
 @contextlib.contextmanager
-def encoder_gates(torch, gates: list, stats: dict | None = None):
+def encoder_gates(torch, gates: list, stats: dict | None = None, values: list | None = None):
     """The encoder FFN's ReLU decisions, recorded on the kernel path
     (``stats`` None) or replayed on the plain path. Recording: each
     fused_encode call of the trunk first appends, per layer, the kernels'
@@ -1011,7 +1057,9 @@ def encoder_gates(torch, gates: list, stats: dict | None = None):
     (``calls``), the decisions taken otherwise (``flips``) and the largest
     |z1| / max|z1| among them (``margin``). A z1 within rounding of 0 falls
     on two sides in two computations, and the backward is discontinuous
-    there: the more tokens, the likelier."""
+    there: the more tokens, the likelier. Recording with ``values`` (a
+    list) also appends each layer's f1 itself (fp32, (tokens, 4E)), for a
+    comparison of two kernel paths' decisions (phase 6h's sasrec_step)."""
     from torch.overrides import TorchFunctionMode
 
     from ctr_recommendation_tpu_torch.models import trunk
@@ -1036,6 +1084,8 @@ def encoder_gates(torch, gates: list, stats: dict | None = None):
                                        float(dropout_rate) if drop_on else 0.0, token0=token0,
                                        e=e if ep != e else None)
                     gates.append((res["f1"][:, :4 * e] > 0, (seq_ids != pad_id).reshape(-1, 1)))
+                    if values is not None:
+                        values.append(res["f1"][:, :4 * e].cpu())
             return fused(params, seq_emb, seq_ids, num_heads=num_heads, pad_id=pad_id,
                          train=train, dropout_rate=dropout_rate, seed=seed, token0=token0)
 
@@ -2246,10 +2296,10 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     tag = tag or exp.model.model
     grad_gap = gradient_check(torch, exp, train, store, root, per_step, tag,
                               against_cpu=not fused)[-1]
-    bs = exp.train.batch_size
-    steps = TRAIN_EPOCHS * (N_TRAIN // bs)
-    eval_batches = TRAIN_EPOCHS * -(-N_VALID // exp.train.eval_batch_size)
-    trainer = Trainer(exp, steps_per_epoch=N_TRAIN // bs, item_store=store, log_fn=log)
+    bs, n_train, n_valid = exp.train.batch_size, train.num_rows, valid.num_rows
+    steps = TRAIN_EPOCHS * (n_train // bs)
+    eval_batches = TRAIN_EPOCHS * -(-n_valid // exp.train.eval_batch_size)
+    trainer = Trainer(exp, steps_per_epoch=n_train // bs, item_store=store, log_fn=log)
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
@@ -2290,7 +2340,7 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
         fn.launches = 0
     res = evaluate(server, valid, batch_size=B_FULL, gauc_col="user_id")
     served = {fn: fn.launches for fn in counted}
-    n_batches = -(-N_VALID // B_FULL)
+    n_batches = -(-n_valid // B_FULL)
     probs = res["probs"]
     served_auc = auc(torch.from_numpy(valid.columns["label"]), torch.from_numpy(probs)).item()
     cpu_gauc = group_auc(valid.columns["label"], probs, valid.columns["user_id"], device="cpu")
@@ -2304,7 +2354,7 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
                                                for fn in counted}:
         raise SystemExit(f"{tag}: serving the export did not take the expected branch "
                          f"(fused {fused}) and launches")
-    if res["rows"] != N_VALID or res["auc"] != served_auc:
+    if res["rows"] != n_valid or res["auc"] != served_auc:
         raise SystemExit(f"{tag}: evaluate's AUC is not the served probabilities' AUC")
     if abs(served_auc - best_auc) > AUC_SERVE_TOL:
         raise SystemExit(f"{tag}: the served export disagrees with the trainer's eval")
@@ -3033,14 +3083,19 @@ def fit_timing(torch, train, card, experiment, epoch_batches, spe: int, store) -
 
 
 ZOO = ("din", "xdeepfm", "finalmlp", "dcnv2", "deepfm", "autoint", "masknet", "pnn", "dlrm")
+# the zoo's train rows: the first half of phase 6's (a depth cut made to pay for
+# phase 7f: each fit half as long)
+ZOO_TRAIN = N_TRAIN // 2
 
 
 def zoo(torch, train, valid, store, root, card, counted, rows, dense: dict) -> None:
     """Phase 6g (see the module docstring). ``rows`` are phase 4's serving
-    rows; ``dense`` is phase 6's mm_fibinet run."""
+    rows; ``dense`` is phase 6's mm_fibinet run; the models train on the
+    first ZOO_TRAIN rows of ``train``."""
     from ctr_recommendation_tpu_torch.config import microlens_experiment
     from ctr_recommendation_tpu_torch.data import TableData
 
+    train = TableData({k: v[:ZOO_TRAIN] for k, v in train.columns.items()}, ZOO_TRAIN)
     runs = {}
     for name in ZOO:
         exp = microlens_experiment(data_root="", model=name, epochs=TRAIN_EPOCHS,
@@ -3107,40 +3162,52 @@ DP_STATE_TOL = 1e-5
 DP_PARAM_TOL = 1e-6
 
 
-def dp_experiment(ckpt: str, fp32: bool):
-    """The full microlens_experiment() defaults (dropout 0.2, use_pallas),
-    in fp32 for the step checks."""
+def dp_experiment(ckpt: str, fp32: bool, model: str = "mm_fibinet"):
+    """The full microlens_experiment() defaults of ``model`` (dropout 0.2,
+    sasrec_fibinet's attention dropout 0.1, use_pallas), in fp32 for the
+    step checks."""
     import dataclasses
 
     from ctr_recommendation_tpu_torch.config import microlens_experiment
 
     exp = microlens_experiment(data_root="", epochs=TRAIN_EPOCHS, checkpoint_dir=ckpt,
-                               batch_size=B_TRAIN)
+                               batch_size=B_TRAIN, model=model)
     if fp32:
         exp = exp.replace(train=dataclasses.replace(exp.train, compute_dtype="float32"))
     return exp
 
 
-def dp_step(torch, tr, batch: dict, gates, part) -> dict:
+def dp_step(torch, tr, batch: dict, gates, part, encoder: list | None = None) -> dict:
     """One train step of ``tr`` on ``batch`` (device columns), the forward
     recording its gates (``gates`` None) or replaying ``part`` of them;
-    returns the global loss, the gradients by target, the interaction
-    launches, the replay's counts, and after the update the gradients as the
-    optimizer left them (``clipped``: clipped, plus the L2 term), the
-    parameters and the model state (on the CPU)."""
+    returns the global loss, the gradients by target, the interaction and
+    encoder launches, the replay's counts, and after the update the
+    gradients as the optimizer left them (``clipped``: clipped, plus the L2
+    term), the parameters and the model state (on the CPU). With
+    ``encoder`` (a list) the encoder kernels' FFN decisions are recorded
+    into it (encoder_gates: each layer's f1 and its real tokens), as the
+    kernels take them: they cannot be replayed inside a kernel."""
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_fwd
     from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
 
     interaction_fwd.launches = interaction_bwd.launches = 0
+    encode_fwd.launches = encode_bwd.launches = 0
     replay = gate_replay(torch, gates, part)
+    enc_gates, f1 = [], []
+    recorded = contextlib.nullcontext() if encoder is None else \
+        encoder_gates(torch, enc_gates, None, values=f1)
     with torch.enable_grad():
-        with replay:
+        with replay, recorded:
             loss, aux = tr.forward_loss(batch)
         grads = tr.gradients(loss, aux)
     torch.cuda.synchronize()
+    if encoder is not None:
+        encoder.extend((v, real.cpu()) for v, (_, real) in zip(f1, enc_gates))
     out = {"loss": aux.loss.item(), "grads": dict(zip(aux.targets, (g.detach().cpu().clone()
                                                                      for g in grads))),
            "launches": (interaction_fwd.launches, interaction_bwd.launches),
+           "enc_launches": (encode_fwd.launches, encode_bwd.launches),
            "calls": replay.calls, "flips": replay.flips, "margin": replay.margin,
            "gates": [g.cpu() for g in replay.gates],
            "params0": {k: v.detach().cpu().clone() for k, v in tr.param_paths.items()}}
@@ -3201,6 +3268,21 @@ def dp_rank(spec_path: str) -> int:
             res.update(row0=row0, stats=dict(data_parallel.stats))
             res.pop("gates")
             out["step"] = res
+        elif task == "sasrec_step":  # (a) for sasrec_fibinet: its encoder masks counted
+            tr = Trainer(dp_experiment(spec["ckpt"] + f"_sasrec{rank}", fp32=True,
+                                       model="sasrec_fibinet"),
+                         steps_per_epoch=N_TRAIN // bs, item_store=data["store"],
+                         device=DP_DEVICE, log_fn=lambda s: None)
+            n = bs // world
+            cols, row0 = distributed.host_local_to_global(
+                {k: v[rank * n : (rank + 1) * n] for k, v in data["train"].columns.items()},
+                tr.mesh)
+            encoder = []
+            res = dp_step(torch, tr, cols, torch.load(spec["sasrec_gates"]), (rank, world),
+                          encoder=encoder)
+            res.update(row0=row0, encoder=encoder)
+            res.pop("gates")
+            out["sasrec_step"] = res
         elif task == "fit":  # (b): fit_on_device, the global batch 4096
             exp = dp_experiment(spec["ckpt"] + "_fit", fp32=False)
             tr = Trainer(exp, steps_per_epoch=N_TRAIN // bs, item_store=data["store"],
@@ -3341,14 +3423,47 @@ def dp_check_step(torch, tag: str, got: dict, ref: dict, phase: str = "6h") -> f
     return worst
 
 
+def dp_encoder_decisions(torch, got: list, ref: list, rank: int) -> tuple:
+    """A rank's encoder FFN decisions (dp_step's ``encoder``: each layer's
+    f1 and real tokens) against the one process's at the same tokens (the
+    rank's share of ``ref``): (layers, decisions at real tokens, flips,
+    the largest |f1| of a flipped decision over its layer's largest |f1|,
+    max |d| of f1 at real tokens)."""
+    if len(got) != len(ref):
+        raise SystemExit(f"phase 6h sasrec_step: {len(got)} encoder layers recorded, the one "
+                         f"process {len(ref)}")
+    decisions = flips = 0
+    margin = gap = 0.0
+    for (v, real), (w, _) in zip(got, ref):
+        n = v.shape[0]
+        real = real.reshape(-1)
+        v, w = v[real], w[rank * n : (rank + 1) * n][real]
+        differ = (v > 0) != (w > 0)
+        decisions += v.numel()
+        gap = max(gap, float((v - w).abs().max()))
+        if bool(differ.any()):
+            flips += int(differ.sum())
+            mag = torch.maximum(v.abs(), w.abs())
+            margin = max(margin, float(mag[differ].max() / w.abs().max()))
+    return len(got), decisions, flips, margin, gap
+
+
 def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> dict:
     """Phase 6h (see the module docstring). ``dense`` is phase 6's
-    mm_fibinet run."""
+    mm_fibinet run. Returns (b)'s best AUC and fits, (a)'s worst gradient
+    gap and the launches of the sasrec_fibinet step on both ranks."""
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
         bwd_launches as inter_bwd_launches,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
         fwd_launches as inter_fwd_launches,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        bwd_launches,
+        encode_bwd,
+        encode_fwd,
+        fwd_launches,
     )
     from ctr_recommendation_tpu_torch.training import Trainer
 
@@ -3363,17 +3478,34 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     tr = Trainer(dp_experiment(os.path.join(root, "dp_ref"), fp32=True),
                  steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
                  log_fn=lambda s: None)
-    ref = dp_step(torch, tr, {k: torch.as_tensor(v[:bs]).to(DP_DEVICE)
-                              for k, v in train.columns.items()}, None, (0, 1))
+    first = {k: torch.as_tensor(v[:bs]).to(DP_DEVICE) for k, v in train.columns.items()}
+    ref = dp_step(torch, tr, first, None, (0, 1))
     gates = os.path.join(root, "dp_gates.pt")
     torch.save(ref["gates"], gates)
-    del tr
+    # sasrec_fibinet's 1-process step on the same rows, its encoder's decisions recorded
+    tr = Trainer(dp_experiment(os.path.join(root, "dp_ref_sasrec"), fp32=True,
+                               model="sasrec_fibinet"),
+                 steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
+                 log_fn=lambda s: None)
+    m = tr.exp.model
+    if (m.net_dropout, m.attn_dropout) != (0.2, DROP_RATE):
+        raise SystemExit(f"phase 6h sasrec_step: dropout {m.net_dropout}, {m.attn_dropout}")
+    sasrec_enc = []
+    sasrec_ref = dp_step(torch, tr, first, None, (0, 1), encoder=sasrec_enc)
+    sasrec_gates = os.path.join(root, "dp_gates_sasrec.pt")
+    torch.save(sasrec_ref["gates"], sasrec_gates)
+    del tr, first
     torch.cuda.empty_cache()
     ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
-    spec = {"inputs": inputs, "gates": gates, "ckpt": os.path.join(root, "dp_ckpt")}
+    efwd, ebwd = fwd_launches(1), bwd_launches(1)
+    if sasrec_ref["enc_launches"] != (efwd, ebwd):
+        raise SystemExit(f"phase 6h sasrec_step: the 1-process step launched the encoder "
+                         f"{sasrec_ref['enc_launches']}, expected ({efwd}, {ebwd})")
+    spec = {"inputs": inputs, "gates": gates, "sasrec_gates": sasrec_gates,
+            "ckpt": os.path.join(root, "dp_ckpt")}
     # (a) and (b): two ranks on cuda:0 over gloo
-    ranks = spawn_ranks(torch, dict(spec, name="gloo", backend="gloo", tasks=["step", "fit"]),
-                        DP_WORLD, root)
+    ranks = spawn_ranks(torch, dict(spec, name="gloo", backend="gloo",
+                                    tasks=["step", "sasrec_step", "fit"]), DP_WORLD, root)
     worst = 0.0
     for r, res in enumerate(ranks):
         step = res["step"]
@@ -3392,6 +3524,36 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     log(f"[dp (a)] the two replicas after the step bit for bit equal: {same}")
     if not same or ranks[0]["step"]["loss"] != ranks[1]["step"]["loss"]:
         raise SystemExit("phase 6h (a): the ranks' replicas differ after the step")
+    # (a) for sasrec_fibinet: net dropout 0.2, the encoder's 0.1, masks of the global batch
+    for r, res in enumerate(ranks):
+        step = res["sasrec_step"]
+        if (step["launches"], step["enc_launches"]) != ((ifwd, ibwd), (efwd, ebwd)):
+            raise SystemExit(f"phase 6h sasrec_step rank {r}: interaction launches "
+                             f"{step['launches']}, encoder {step['enc_launches']}, expected "
+                             f"({ifwd}, {ibwd}), ({efwd}, {ebwd})")
+        if step["row0"] != r * bs // DP_WORLD:
+            raise SystemExit(f"phase 6h sasrec_step rank {r}: first global row {step['row0']}")
+        layers, decisions, flips, margin, gap = dp_encoder_decisions(
+            torch, step["encoder"], sasrec_enc, r)
+        log(f"[dp sasrec_step] rank {r}: the encoder kernels' FFN decisions ({layers} layer, "
+            f"{decisions} at real tokens) against the 1 process's at the same tokens: {flips} "
+            f"differ, within {margin:.2e} of 0 (GATE_MARGIN {GATE_MARGIN:g}); f1 max|d| "
+            f"{gap:.2e}; launches interaction {step['launches']}, encoder "
+            f"{step['enc_launches']} (fwd_launches(1) + bwd_launches(1))")
+        if margin > GATE_MARGIN:
+            raise SystemExit(f"phase 6h sasrec_step rank {r}: an encoder ReLU decision flipped "
+                             f"beyond rounding")
+        if gap != 0.0:  # the kernels are row-invariant (6h (d)): the same rows, the same f1
+            raise SystemExit(f"phase 6h sasrec_step rank {r}: the encoder's f1 at real tokens "
+                             f"differs from the 1 process's by {gap:.2e}")
+        worst = max(worst, dp_check_step(
+            torch, f"(a) sasrec_fibinet rank {r} of {DP_WORLD}, {bs // DP_WORLD} rows, gloo",
+            step, sasrec_ref))
+    same = all(torch.equal(ranks[0]["sasrec_step"][k][n], ranks[1]["sasrec_step"][k][n])
+               for k in ("params", "state") for n in ranks[0]["sasrec_step"][k])
+    log(f"[dp sasrec_step] the two replicas after the step bit for bit equal: {same}")
+    if not same or ranks[0]["sasrec_step"]["loss"] != ranks[1]["sasrec_step"]["loss"]:
+        raise SystemExit("phase 6h sasrec_step: the ranks' replicas differ after the step")
     # (b): two epochs
     steps = TRAIN_EPOCHS * (N_TRAIN // bs)
     eval_bs = dp_experiment("", fp32=False).train.eval_batch_size
@@ -3441,7 +3603,12 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
         f"bytes reduced in the step")
     log(f"[dp] phase 6h in {time.perf_counter() - t_phase:.1f} s")
     return {"grad_gap": worst, "best_auc": best,
-            "fit": [res["fit"] for res in ranks]}
+            "fit": [res["fit"] for res in ranks],
+            "launches": {fn: sum(r["sasrec_step"][key][i] for r in ranks)
+                         for fn, key, i in ((interaction_fwd, "launches", 0),
+                                            (interaction_bwd, "launches", 1),
+                                            (encode_fwd, "enc_launches", 0),
+                                            (encode_bwd, "enc_launches", 1))}}
 
 
 # ---- phase 6i: row-sharded tables (model_parallel 2), ranks sharing the card ----
@@ -4182,12 +4349,10 @@ def import_phase(torch, store, rows, card) -> int:
     return launches
 
 
-def item_texts(n: int, seed: int) -> list[str]:
-    """``n`` seeded item texts in the Task-1 format: Zipf-distributed title
-    words (2-12) and tags (0-4), random levels, 2% with no title and no
-    tags."""
-    from ctr_recommendation_tpu_torch.tools.item_embeddings import build_text
-
+def item_fields(n: int, seed: int) -> dict:
+    """``n`` seeded items' Task-1 fields (item_feature.parquet's columns but
+    the id): Zipf-distributed title words (2-12) and tags (0-4), random
+    levels, 2% with no title and no tags (``blank``)."""
     rng = np.random.default_rng(seed)
     words = np.array([f"w{i}" for i in range(20_000)])
     pw = 1.0 / np.arange(1, len(words) + 1)
@@ -4198,14 +4363,25 @@ def item_texts(n: int, seed: int) -> list[str]:
     blank = rng.random(n) < 0.02
     tw = rng.choice(words, size=int(nw.sum()), p=pw / pw.sum())
     gw = rng.choice(tags, size=int(ng.sum()), p=pt / pt.sum())
-    out, a, b = [], 0, 0
+    titles, tag_lists, a, b = [], [], 0, 0
     for i in range(n):
-        title, tg = " ".join(tw[a : a + nw[i]]), list(gw[b : b + ng[i]])
+        title, tg = " ".join(tw[a : a + nw[i]]), [str(t) for t in gw[b : b + ng[i]]]
         a, b = a + nw[i], b + ng[i]
         if blank[i]:
             title, tg = "", []
-        out.append(build_text(title, tg, int(levels[i, 0]), int(levels[i, 1])))
-    return out
+        titles.append(title)
+        tag_lists.append(tg)
+    return {"item_title": titles, "item_tags": tag_lists, "likes_level": levels[:, 0],
+            "views_level": levels[:, 1], "blank": blank}
+
+
+def item_texts(n: int, seed: int) -> list[str]:
+    """``n`` seeded item texts in the Task-1 format, of item_fields' items."""
+    from ctr_recommendation_tpu_torch.tools.item_embeddings import build_text
+
+    f = item_fields(n, seed)
+    return [build_text(t, g, int(lk), int(vw)) for t, g, lk, vw in
+            zip(f["item_title"], f["item_tags"], f["likes_level"], f["views_level"])]
 
 
 def pca_numpy(x: np.ndarray, k: int) -> np.ndarray:
@@ -4399,6 +4575,9 @@ def entry_phase(torch, card, worst: dict, counted) -> int:
 
 # ---- phase 7e: the encoder at every S and E, E and towers off the kernels' multiples of 8 ----
 LONG_S = 50  # SASRec's n for its sparse datasets (Kang & McAuley, ICDM 2018, section IV)
+# 7e (b)'s train rows: half of phase 6's (a depth cut made to pay for phase 7f;
+# at max_len 200 making phase 6's whole cut took 18 s of the host)
+LONG_TRAIN = N_TRAIN // 2
 # SASRec's MovieLens-1M setting (ibid., section IV-B): n = 200, d = 50, two
 # self-attention blocks, one head, dropout 0.2
 ML1M = dict(max_len=200, embedding_dim=50, attn_num_heads=1, attn_num_layers=2,
@@ -4737,7 +4916,8 @@ def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
                        layers: int = 1) -> dict:
     """Phase 7e (b): sasrec_fibinet with ``model_kw`` over its defaults
     (max_len 50; SASRec's ML-1M setting, ML1M), full width (tower (512,
-    256), bf16) on phase 6's cut made at that max_len, through the
+    256), bf16) on LONG_TRAIN train rows and phase 6's valid rows made at
+    that max_len, through the
     train-and-serve checks (gradients kernel vs plain, exact launches of the
     four training kernels, loss falling, best valid AUC > 0.6, the export
     through evaluate); then the export through Predictor.score_table on the
@@ -4764,8 +4944,8 @@ def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
 
     max_len = model_kw["max_len"]
     t0 = time.perf_counter()
-    train, valid, store = synthetic_splits(N_TRAIN, N_VALID, seed=0, max_len=max_len)
-    log(f"[long] synthetic data at max_len {max_len}: {N_TRAIN} train + {N_VALID} valid rows "
+    train, valid, store = synthetic_splits(LONG_TRAIN, N_VALID, seed=0, max_len=max_len)
+    log(f"[long] synthetic data at max_len {max_len}: {LONG_TRAIN} train + {N_VALID} valid rows "
         f"made in {time.perf_counter() - t0:.1f} s")
     ckpt = os.path.join(root, f"ckpt_{tag}")
     exp = microlens_experiment(data_root="", model="sasrec_fibinet", epochs=TRAIN_EPOCHS,
@@ -4964,6 +5144,470 @@ def outside_phase(torch, train, valid, store, root, card, counted) -> dict:
         for fn in counted:
             total[fn] += sum(calls[k] * launches[k].get(fn, 0) for k in calls)
     refused_tokens(torch, card, counted)
+    return total
+
+
+# ---- phase 7f: the port's own entry points (the CLIs' main) on a parquet root ----
+# write_synthetic_dataset's cut of CLI_ROWS: 245,760 train, 49,152 valid, 32,768 test rows
+CLI_ROWS, CLI_ITEMS = 327_680, 91_717
+CLI_SPLITS = {"train": 245_760, "valid": 49_152, "test": 32_768}
+CLI_ROW_GROUP = 16_384  # --stream's train.parquet, rewritten in row groups of this many rows
+CLI_SERVE_SIZES = (1, 9, 16, 17, 40, 64)  # requests of consecutive test rows to the service
+# the service's latency run: sequential requests of random test rows, 7b's smallest bucket
+CLI_SERVE_REPS, CLI_SERVE_ROWS, CLI_SERVE_SEED = 256, 16, 31
+CLI_ITEM_SEED = 29  # item_feature.parquet's generator (Task 1)
+
+
+class CliOutput:
+    """A CLI's standard output, line by line: each line logged as ``[cli
+    <stage>] | <line>`` on the script's own output and kept with the host
+    clock's time (``lines``: (perf_counter, line))."""
+
+    def __init__(self, stage: str, out):
+        self.stage, self.out, self.lines, self._part = stage, out, [], ""
+        self._lock = threading.Lock()
+
+    def write(self, s: str) -> int:
+        with self._lock:
+            *done, self._part = (self._part + s).split("\n")
+            for line in done:
+                self.lines.append((time.perf_counter(), line))
+                self.out.write(f"[cli {self.stage}] | {line}\n")
+        return len(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def run_cli(torch, stage: str, main, argv: list[str], counted) -> dict:
+    """``main(argv)`` of one of the port's CLIs in this process, its standard
+    output kept (CliOutput); fails unless it returns 0. Returns its lines
+    (seconds from the call's start, line), its wall seconds and each
+    counted wrapper's launches in the call."""
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    out = CliOutput(stage, sys.stdout)
+    log(f"[cli {stage}] main({' '.join(argv)})")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if out._part:
+        out.write("\n")
+    if rc != 0:
+        raise SystemExit(f"phase 7f {stage}: the CLI returned {rc}")
+    log(f"[cli {stage}] returned 0 in {seconds:.3f} s")
+    return {"lines": [(t - t0, ln) for t, ln in out.lines], "seconds": seconds,
+            "launches": {fn: fn.launches for fn in counted}}
+
+
+def cli_line_at(run: dict, prefix: str) -> float:
+    """The seconds into ``run`` at which its first line starting with
+    ``prefix`` was printed."""
+    at = next((t for t, ln in run["lines"] if ln.startswith(prefix)), None)
+    if at is None:
+        raise SystemExit(f"phase 7f: no {prefix!r} line in {[ln for _, ln in run['lines']]}")
+    return at
+
+
+def cli_launches(stage: str, run: dict, want: dict) -> None:
+    """``run``'s launches exactly ``want``'s (a wrapper absent: 0)."""
+    got = run["launches"]
+    want = {fn: want.get(fn, 0) for fn in got}
+    names = lambda d: {fn.__name__: n for fn, n in d.items()}  # noqa: E731
+    log(f"[cli {stage}] launches {names(got)}, expected {names(want)}")
+    if got != want:
+        raise SystemExit(f"phase 7f {stage}: launches {names(got)}, expected {names(want)}")
+
+
+def cli_history(stage: str, ckpt: str, epochs: int, ran: int, card: str) -> list[dict]:
+    """A train run's ``metrics.csv``: rows of epochs 1..``epochs``, the train
+    loss finite and falling (from the first epoch to the last; a one-epoch
+    run's below log 2, a constant predictor's at the labels' even odds),
+    the best valid AUC above 0.6. Logs the last ``ran`` epochs' examples/s
+    and AUC."""
+    import csv
+
+    with open(os.path.join(ckpt, "metrics.csv"), newline="") as f:
+        hist = [{k: float(v) for k, v in r.items() if v not in (None, "")}
+                for r in csv.DictReader(f)]
+    for h in hist[-ran:]:
+        log(f"[cli {stage}] epoch {int(h['epoch'])}: {h['examples_per_sec']:.0f} examples/s "
+            f"({h['seconds']:.3f} s train, {h['eval_seconds']:.3f} s eval), loss "
+            f"{h['train_loss']:.5f}, valid auc {h['auc']:.5f} on {card}")
+    losses = [h["train_loss"] for h in hist]
+    falling = losses[-1] < losses[0] if len(losses) > 1 else losses[0] < np.log(2.0)
+    best = max(h["auc"] for h in hist)
+    if [int(h["epoch"]) for h in hist] != list(range(1, epochs + 1)):
+        raise SystemExit(f"phase 7f {stage}: metrics.csv holds epochs "
+                         f"{[h['epoch'] for h in hist]}, expected 1..{epochs}")
+    if not all(np.isfinite(losses)) or not falling or not best > 0.6:
+        raise SystemExit(f"phase 7f {stage}: losses {losses} not finite and falling, or best "
+                         f"valid AUC {best} not above 0.6")
+    return hist
+
+
+@contextlib.contextmanager
+def restored_state(into: dict):
+    """Trainer._restore observed: right after it returns, ``into`` holds
+    the trainer's step, parameters, model state and optimizer states as
+    the trainer holds them (clones of its tensors, where they lie)."""
+    from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
+    from ctr_recommendation_tpu_torch.training import Trainer
+
+    restore = Trainer._restore
+
+    def observed(self, payload):
+        restore(self, payload)
+        st = self.state
+        into.update({k: {p: t.detach().clone() if hasattr(t, "detach") else t
+                         for p, t in flatten(getattr(st, k)).items()}
+                     for k in ("params", "model_state", "opt_state", "table_opt_state")},
+                    step=st.step)
+
+    Trainer._restore = observed
+    try:
+        yield
+    finally:
+        Trainer._restore = restore
+
+
+def check_restored(torch, got: dict, path: str) -> int:
+    """The state Trainer._restore left (restored_state) against the resume
+    point at ``path``: the step, every parameter, model state and optimizer
+    leaf bit for bit, each tensor on the card. Returns the tensors held."""
+    from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
+
+    want = torch.load(path, map_location="cpu", weights_only=True)
+    if not got or got["step"] != want["step"]:
+        raise SystemExit(f"phase 7f resume: _restore did not run or left step "
+                         f"{got.get('step')}, the resume point holds {want['step']}")
+    n, bad = 0, []
+    for key in ("params", "model_state", "opt_state", "table_opt_state"):
+        ref = flatten(want[key])
+        if sorted(got[key]) != sorted(ref):
+            raise SystemExit(f"phase 7f resume: {key}'s leaves differ from the resume point's")
+        for p, b in ref.items():
+            a = got[key][p]
+            if torch.is_tensor(b):
+                n += 1
+                if (not torch.is_tensor(a) or a.device.type != "cuda" or a.dtype != b.dtype
+                        or not torch.equal(a.cpu(), b)):
+                    bad.append(f"{key}/{p}")
+            elif a != b:
+                bad.append(f"{key}/{p}")
+    if bad:
+        raise SystemExit(f"phase 7f resume: restored leaves not the resume point's bit for bit "
+                         f"on the card: {bad[:8]} ({len(bad)})")
+    return n
+
+
+def write_item_feature(path: str, n: int, seed: int) -> np.ndarray:
+    """item_feature.parquet of items 1..n (item_fields' seeded titles, tags
+    and levels); returns the mask of the items with no title and no tags."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    f = item_fields(n, seed)
+    pq.write_table(pa.table({
+        "item_id": pa.array(np.arange(1, n + 1, dtype=np.int64)),
+        "item_title": pa.array(f["item_title"], pa.string()),
+        "item_tags": pa.array(f["item_tags"], pa.list_(pa.string())),
+        "likes_level": pa.array(f["likes_level"].astype(np.int64)),
+        "views_level": pa.array(f["views_level"].astype(np.int64)),
+    }), path)
+    return f["blank"]
+
+
+def cli_phase(torch, root: str, card: str, counted) -> dict:
+    """Phase 7f (see the module docstring): the CLIs' main() on a parquet
+    root at the full microlens_experiment() width. Returns each counted
+    wrapper's launches over the phase's CLI runs."""
+    import dataclasses
+
+    import pyarrow  # noqa: F401  the parquet paths need it: no skip without it
+    import pyarrow.parquet as pq
+
+    from ctr_recommendation_tpu_torch.cli import evaluate as cli_evaluate
+    from ctr_recommendation_tpu_torch.cli import item_embeddings as cli_items
+    from ctr_recommendation_tpu_torch.cli import predict as cli_predict
+    from ctr_recommendation_tpu_torch.cli import serve as cli_serve
+    from ctr_recommendation_tpu_torch.cli import train as cli_train
+    from ctr_recommendation_tpu_torch.cli import validate_dataset as cli_validate
+    from ctr_recommendation_tpu_torch.config import serialize
+    from ctr_recommendation_tpu_torch.config.schema import MeshConfig
+    from ctr_recommendation_tpu_torch.data import ItemStore, load_split
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.inference import Predictor
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import bwd_launches as ibwd_n
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import fwd_launches as ifwd_n
+    from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        bwd_launches,
+        encode_bwd,
+        encode_fwd,
+        fwd_launches,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+    from ctr_recommendation_tpu_torch.tools import jax_bridge
+
+    t_phase = time.perf_counter()
+    total = {fn: 0 for fn in counted}
+
+    def add(run):
+        for fn, n in run["launches"].items():
+            total[fn] += n
+        return run
+
+    base = os.path.join(root, "cli")
+    data, ckpt = os.path.join(base, "data"), os.path.join(base, "ckpt")
+    fi, bi, sl = ifwd_n(), ibwd_n(), score_launches()
+    ef, eb = fwd_launches(1), bwd_launches(1)
+    # ---- 1-2: --synthetic writes the root, then fit_on_device on it ----
+    synth = ["--synthetic", data, "--synthetic-rows", str(CLI_ROWS), "--synthetic-items",
+             str(CLI_ITEMS), "--synthetic-signal", "high", "--checkpoint-dir", ckpt]
+    run = add(run_cli(torch, "train", cli_train.main, [*synth, "--epochs", str(TRAIN_EPOCHS)],
+                      counted))
+    t_load = cli_line_at(run, "[data] loading")
+    t_train = cli_line_at(run, "[data] train ")
+    sizes = {n: pq.ParquetFile(os.path.join(data, f"{n}.parquet")).metadata for n in CLI_SPLITS}
+    got_rows = {n: md.num_rows for n, md in sizes.items()}
+    if got_rows != CLI_SPLITS:
+        raise SystemExit(f"phase 7f: the synthetic root's splits hold {got_rows}, expected "
+                         f"{CLI_SPLITS}")
+    log(f"[cli write] --synthetic: {CLI_ROWS} rows ({got_rows}, row groups "
+        f"{ {n: md.num_row_groups for n, md in sizes.items()} }) and item_info of {CLI_ITEMS} "
+        f"items written in {t_load:.3f} s = {CLI_ROWS / t_load:.0f} rows/s on {card}'s host")
+    log(f"[cli load] load_split (valid, train) and ItemStore.from_parquet: "
+        f"{CLI_SPLITS['train'] + CLI_SPLITS['valid']} rows in {t_train - t_load:.3f} s = "
+        f"{(CLI_SPLITS['train'] + CLI_SPLITS['valid']) / (t_train - t_load):.0f} rows/s on "
+        f"{card}'s host")
+    bs = B_TRAIN
+    spe = CLI_SPLITS["train"] // bs
+    evals = -(-CLI_SPLITS["valid"] // B_FULL)  # eval_batch_size 8192
+    mm_step = {interaction_fwd: fi, interaction_bwd: bi}
+
+    def mm_epochs(n):
+        return {fn: k * n * spe + (fi if fn is interaction_fwd else 0) * n * evals
+                for fn, k in mm_step.items()}
+
+    cli_launches("train", run, mm_epochs(TRAIN_EPOCHS))
+    hist = cli_history("train", ckpt, TRAIN_EPOCHS, TRAIN_EPOCHS, card)
+    in_memory_auc = max(h["auc"] for h in hist)
+    for name in ("experiment.json", f"ckpt_{TRAIN_EPOCHS}.pt", os.path.join("best", "export.npz")):
+        if not os.path.exists(os.path.join(ckpt, name)):
+            raise SystemExit(f"phase 7f train: no {name} in the checkpoint directory")
+    log(f"[cli train] fit_on_device from main(): {TRAIN_EPOCHS} epochs of {spe} steps in "
+        f"{run['seconds']:.3f} s of the CLI (the write and the load included), best valid auc "
+        f"{in_memory_auc:.5f} on {card}")
+    # ---- 3: --resume --epochs 3 on the same checkpoint directory ----
+    resume_point = os.path.join(ckpt, f"ckpt_{TRAIN_EPOCHS}.pt")
+    restored: dict = {}
+    with restored_state(restored):
+        run = add(run_cli(torch, "resume", cli_train.main,
+                          [*synth, "--epochs", str(TRAIN_EPOCHS + 1), "--resume"], counted))
+    held = check_restored(torch, restored, resume_point)
+    resumed = [ln for _, ln in run["lines"] if ln.startswith("[resume]")]
+    log(f"[cli resume] {resumed}; the state _restore left: step {restored['step']}, {held} "
+        f"tensors (parameters, model state, Adam moments) bit for bit {resume_point}'s, on "
+        f"the card")
+    if not any(ln.startswith(f"[resume] epoch {TRAIN_EPOCHS} ") for ln in resumed):
+        raise SystemExit(f"phase 7f resume: no '[resume] epoch {TRAIN_EPOCHS}' line")
+    cli_launches("resume", run, mm_epochs(1))
+    hist = cli_history("resume", ckpt, TRAIN_EPOCHS + 1, 1, card)
+    if not os.path.exists(os.path.join(ckpt, f"ckpt_{TRAIN_EPOCHS + 1}.pt")):
+        raise SystemExit("phase 7f resume: no resume point of the third epoch")
+    # ---- 4: --stream over row groups of CLI_ROW_GROUP rows ----
+    streamed = os.path.join(base, "data_row_groups")
+    os.makedirs(streamed)
+    for name in ("valid", "test", "item_info"):
+        os.symlink(os.path.join(data, f"{name}.parquet"),
+                   os.path.join(streamed, f"{name}.parquet"))
+    pq.write_table(pq.read_table(os.path.join(data, "train.parquet")),
+                   os.path.join(streamed, "train.parquet"), row_group_size=CLI_ROW_GROUP)
+    groups = pq.ParquetFile(os.path.join(streamed, "train.parquet")).metadata.num_row_groups
+    ckpt_stream = os.path.join(base, "ckpt_stream")
+    run = add(run_cli(torch, "train --stream", cli_train.main,
+                      ["--data-root", streamed, "--stream", "--epochs", str(TRAIN_EPOCHS),
+                       "--checkpoint-dir", ckpt_stream], counted))
+    cli_launches("train --stream", run, mm_epochs(TRAIN_EPOCHS))
+    hist = cli_history("train --stream", ckpt_stream, TRAIN_EPOCHS, TRAIN_EPOCHS, card)
+    stream_auc = max(h["auc"] for h in hist)
+    log(f"[cli train --stream] Trainer.fit over stream_batches: {groups} row groups of "
+        f"{CLI_ROW_GROUP} rows, {TRAIN_EPOCHS} epochs in {run['seconds']:.3f} s of the CLI; "
+        f"best valid auc {stream_auc:.5f}, the in-memory run's {in_memory_auc:.5f} (tolerance "
+        f"{FIT_AUC_TOL}) on {card}")
+    if groups != CLI_SPLITS["train"] // CLI_ROW_GROUP or \
+            abs(stream_auc - in_memory_auc) > FIT_AUC_TOL:
+        raise SystemExit(f"phase 7f train --stream: {groups} row groups, or its AUC is off the "
+                         f"in-memory run's")
+    # ---- 5: predict, the pipeline (default) and --stream, against score_table ----
+    def export_predictor(ckpt_dir: str, data_root: str):
+        """A Predictor on ``ckpt_dir``'s best/export.npz over ``data_root``'s
+        item_info, as the predict CLI assembles it; and its feature map."""
+        exp = serialize.load(os.path.join(ckpt_dir, "experiment.json"))
+        exp = exp.replace(dataset=dataclasses.replace(
+            exp.dataset, data_root=data_root,
+            item_info=os.path.join(data_root, "item_info.parquet")), mesh=MeshConfig())
+        fm = build_feature_map(exp.dataset)
+        return Predictor(exp, *jax_bridge.params_from_jax(
+            *jax_bridge.load(os.path.join(ckpt_dir, "best", "export.npz")), fm, exp.model),
+            item_store=ItemStore.from_parquet(exp.dataset.item_info)), fm
+
+    pred, fm = export_predictor(ckpt, data)
+    test = load_split(os.path.join(data, "test.parquet"), fm)
+    ref = pred.score_table(test, B_FULL)
+    n_test = CLI_SPLITS["test"]
+    csvs = {}
+    for flags in ([], ["--stream"]):
+        stage = " ".join(["predict", *flags])
+        out_dir = os.path.join(base, "out" + "_".join(flags).replace("--", "_"))
+        run = add(run_cli(torch, stage, cli_predict.main,
+                          ["--data-root", data, "--checkpoint-dir", ckpt, "--out-dir", out_dir,
+                           *flags], counted))
+        cli_launches(stage, run, {score_fwd: sl * -(-n_test // B_FULL)})
+        csv_path = os.path.join(out_dir, "prediction_fibinet.csv")
+        check_submission(n_test, csv_path, os.path.join(out_dir, "submission_fibinet.zip"), ref,
+                         f"cli {stage}", n_rows=n_test)
+        with open(csv_path, "rb") as f:
+            csvs[stage] = f.read()
+        log(f"[cli {stage}] {n_test} rows from parquet to CSV + zip in {run['seconds']:.3f} s "
+            f"of the CLI = {n_test / run['seconds']:.0f} rows/s on {card}")
+    if csvs["predict"] != csvs["predict --stream"]:
+        raise SystemExit("phase 7f predict: the two paths' CSVs differ")
+    log(f"[cli predict] the pipeline's and --stream's CSVs byte-identical "
+        f"({len(csvs['predict'])} bytes), and score_table's over load_split(test.parquet)")
+    # ---- 6: evaluate --gauc-col user_id on the valid split ----
+    seen = {}
+    evaluate = cli_evaluate.evaluate
+
+    def observed(*a, **kw):
+        res = evaluate(*a, **kw)
+        seen.update(res)
+        return res
+
+    cli_evaluate.evaluate = observed
+    try:
+        run = add(run_cli(torch, "evaluate", cli_evaluate.main,
+                          ["--data-root", data, "--checkpoint-dir", ckpt, "--gauc-col",
+                           "user_id"], counted))
+    finally:
+        cli_evaluate.evaluate = evaluate
+    cli_launches("evaluate", run, {score_fwd: sl * evals})
+    valid = load_split(os.path.join(data, "valid.parquet"), fm)
+    want = evaluate(pred, valid, batch_size=B_FULL, gauc_col="user_id")
+    line = next((ln for _, ln in run["lines"] if ln.startswith("[eval]")), None)
+    with open(os.path.join(ckpt, "best", "metric.json")) as f:
+        best_export = json.load(f)["metric"]  # the export's valid AUC in training
+    log(f"[cli evaluate] {line} in {run['seconds']:.3f} s = "
+        f"{CLI_SPLITS['valid'] / run['seconds']:.0f} rows/s on {card}; in this process "
+        f"{cli_evaluate.eval_line(want, 'user_id')}; the export's valid auc in training "
+        f"{best_export:.5f} (tolerance {AUC_SERVE_TOL})")
+    if line != cli_evaluate.eval_line(want, "user_id") or any(
+            seen.get(k) != want[k] for k in ("rows", "auc", "logloss", "gauc")):
+        raise SystemExit("phase 7f evaluate: the CLI's metrics are not evaluate()'s")
+    if abs(want["auc"] - best_export) > AUC_SERVE_TOL:
+        raise SystemExit("phase 7f evaluate: the CLI's AUC is off the export's in training")
+    # ---- 7: validate_dataset ----
+    run = run_cli(torch, "validate", cli_validate.main, ["--data-root", data], counted)
+    cli_launches("validate", run, {})
+    log(f"[cli validate] exit 0 in {run['seconds']:.3f} s ({CLI_ROWS} rows) on {card}'s host")
+    # ---- 8: serve: build_service, warmup, make_http_server on port 0 ----
+    args = cli_serve.build_argparser().parse_args(
+        ["--data-root", data, "--checkpoint-dir", ckpt, "--port", "0"])
+    service = cli_serve.build_service(args)
+    collator = service.collator
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    service.warmup()
+    t_warm = time.perf_counter() - t0
+    warm = add({"launches": {fn: fn.launches for fn in counted}})
+    cli_launches("serve warmup", warm, {score_fwd: len(collator.buckets) * 2 * sl})
+    for fn in counted:
+        fn.launches = 0
+    start, e2e, worst = 0, [], 0.0
+    rng = np.random.default_rng(CLI_SERVE_SEED)
+    with http_service(service) as url:
+        for n in CLI_SERVE_SIZES:
+            _, per = score_requests(url, collator, test.columns, ref, [n], start=start)
+            worst, start = max(worst, per[0][3]), start + n
+        for _ in range(CLI_SERVE_REPS):  # timed as 7b times a bucket: JSON encode to reply
+            idx = rng.integers(0, n_test, CLI_SERVE_ROWS)
+            rows = request_rows(collator, test.columns, idx)
+            t0 = time.perf_counter()
+            code, reply = post(url, json.dumps({"rows": rows}).encode())
+            e2e.append(1e3 * (time.perf_counter() - t0))
+            if code != 200 or len(reply["probs"]) != CLI_SERVE_ROWS:
+                raise SystemExit(f"phase 7f serve: a {CLI_SERVE_ROWS}-row request answered {code}")
+            worst = max(worst, float(np.abs(np.asarray(reply["probs"], np.float32)
+                                            - ref[idx]).max()))
+        dispatched = service.stats()["batches_dispatched"]
+    served = add({"launches": {fn: fn.launches for fn in counted}})
+    log(f"[cli serve] build_service on the train CLI's checkpoint directory, warmup of "
+        f"{len(collator.buckets)} buckets in {t_warm:.3f} s; {len(CLI_SERVE_SIZES)} requests of "
+        f"{list(CLI_SERVE_SIZES)} consecutive test rows, then {CLI_SERVE_REPS} sequential "
+        f"requests of {CLI_SERVE_ROWS} random ones: p50 {np.percentile(e2e, 50):.3f} ms, p99 "
+        f"{np.percentile(e2e, 99):.3f} ms end to end; max|d| from score_table {worst:.3e} "
+        f"(tolerance {CPU_TOL}); {dispatched} dispatches on {card}")
+    cli_launches("serve", served, {score_fwd: dispatched * sl})
+    if worst > CPU_TOL:
+        raise SystemExit("phase 7f serve: responses off score_table's")
+    # ---- 9: Task 1 -> Task 2: item embeddings, then sasrec_fibinet trained and predicted ----
+    task2 = os.path.join(base, "data_task2")
+    os.makedirs(task2)
+    for name in ("train", "valid", "test"):
+        os.symlink(os.path.join(data, f"{name}.parquet"), os.path.join(task2, f"{name}.parquet"))
+    features = os.path.join(base, "item_feature.parquet")
+    blank = write_item_feature(features, CLI_ITEMS, CLI_ITEM_SEED)
+    info = os.path.join(task2, "item_info.parquet")
+    run = add(run_cli(torch, "item_embeddings", cli_items.main,
+                      ["--item-feature", features, "--output", info, "--encoder", "hash"],
+                      counted))
+    cli_launches("item_embeddings", run, {})
+    table = pq.read_table(info)
+    ids = table.column("item_id").to_numpy()
+    col = table.column("item_emb_d128").combine_chunks()
+    if not (col.value_lengths().to_numpy() == 128).all():
+        raise SystemExit("phase 7f item_embeddings: a row of item_emb_d128 is not 128 long")
+    emb = col.flatten().to_numpy().astype(np.float64).reshape(-1, 128)
+    norms = np.linalg.norm(emb, axis=1)
+    log(f"[cli item_embeddings] {CLI_ITEMS} items in {run['seconds']:.3f} s = "
+        f"{CLI_ITEMS / run['seconds']:.0f} items/s (the hash encoder on the host, pca_project on "
+        f"the card) on {card}; {emb.shape} {table.schema.field('item_emb_d128').type}, L2 norms "
+        f"|1 - n| max {np.abs(norms[~blank] - 1).max():.2e} (tolerance 1e-5), {int(blank.sum())} "
+        f"items with no title and no tags at 0")
+    if (not np.array_equal(ids, np.arange(1, CLI_ITEMS + 1)) or emb.shape != (CLI_ITEMS, 128)
+            or not np.array_equal(emb.astype(np.float32).astype(np.float64), emb)
+            or np.abs(norms[~blank] - 1).max() > 1e-5 or np.any(emb[blank] != 0)):
+        raise SystemExit("phase 7f item_embeddings: not float32 rows of 128 dims, L2-normed, "
+                         "of the input's items in order")
+    ckpt_sasrec = os.path.join(base, "ckpt_sasrec")
+    run = add(run_cli(torch, "train sasrec_fibinet", cli_train.main,
+                      ["--data-root", task2, "--model", "sasrec_fibinet", "--epochs", "1",
+                       "--checkpoint-dir", ckpt_sasrec], counted))
+    cli_launches("train sasrec_fibinet", run, {
+        interaction_fwd: fi * (spe + evals), interaction_bwd: bi * spe,
+        encode_fwd: ef * (spe + evals), encode_bwd: eb * spe})
+    cli_history("train sasrec_fibinet", ckpt_sasrec, 1, 1, card)
+    out_dir = os.path.join(base, "out_sasrec")
+    run = add(run_cli(torch, "predict sasrec_fibinet", cli_predict.main,
+                      ["--data-root", task2, "--checkpoint-dir", ckpt_sasrec, "--out-dir",
+                       out_dir], counted))
+    n_batches = -(-n_test // B_FULL)
+    cli_launches("predict sasrec_fibinet", run, {score_fwd: sl * n_batches,
+                                                  encode_fwd: ef * n_batches})
+    log(f"[cli predict sasrec_fibinet] {n_test} rows to CSV + zip in {run['seconds']:.3f} s "
+        f"of the CLI = {n_test / run['seconds']:.0f} rows/s on {card}")
+    pred, fm = export_predictor(ckpt_sasrec, task2)
+    check_submission(n_test, os.path.join(out_dir, "prediction_fibinet.csv"),
+                     os.path.join(out_dir, "submission_fibinet.zip"),
+                     pred.score_table(load_split(os.path.join(task2, "test.parquet"), fm), B_FULL),
+                     "cli predict sasrec_fibinet", n_rows=n_test)
+    log(f"[cli] phase 7f in {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -5723,9 +6367,12 @@ def main(argv=None) -> int:
         clock("7e (c)")
         outside = outside_phase(torch, train, valid, train_store, root, card, counted)
         long = {fn: long[fn] + ml1m[fn] + outside[fn] for fn in counted}  # 7e's launches
+        # ---- phase 7f: the CLIs' main() on a parquet root ----
+        clock("7f")
+        cli = cli_phase(torch, root, card, counted)
         # ---- phase 6h: data-parallel training, two ranks sharing the card ----
         clock("6h")
-        data_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
+        dp = data_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
         # ---- phase 6i: row-sharded tables, 1 x 2 and 2 x 2 ranks sharing the card ----
         clock("6i")
         model_parallel_phase(torch, train, valid, train_store, root, card, dense=mm)
@@ -5787,12 +6434,15 @@ def main(argv=None) -> int:
         clock("6g")
         zoo(torch, train, valid, train_store, root, card, counted, rows, dense=mm)
     # the training main path's launches: phase 6's fit and phase 7c's profiled
-    # epochs; phase 7d's entry forwards; and phase 7e's fit, serve and cases
-    train_fwd = (mm["launches"][interaction_fwd] + profiled[interaction_fwd] + entry
-                 + long[interaction_fwd])
-    train_bwd = mm["launches"][interaction_bwd] + profiled[interaction_bwd] + long[interaction_bwd]
-    enc_fwd_launches = enc_launches + long[encode_fwd]
-    enc_bwd_launches = sasrec["launches"][encode_bwd] + long[encode_bwd]
+    # epochs; phase 7d's entry forwards; phase 7e's fit, serve and cases; and
+    # phase 7f's CLI runs and phase 6h's sasrec_fibinet step on both ranks
+    extra = {fn: long[fn] + cli[fn] + dp["launches"].get(fn, 0) for fn in counted}
+    train_fwd = mm["launches"][interaction_fwd] + profiled[interaction_fwd] + entry \
+        + extra[interaction_fwd]
+    train_bwd = mm["launches"][interaction_bwd] + profiled[interaction_bwd] \
+        + extra[interaction_bwd]
+    enc_fwd_launches = enc_launches + extra[encode_fwd]
+    enc_bwd_launches = sasrec["launches"][encode_bwd] + extra[encode_bwd]
 
     # ---- phase 8: result ----
     clock("8")
@@ -5810,7 +6460,7 @@ def main(argv=None) -> int:
         {"name": "fused_score", "route": "cuda",
          "source": "ctr_recommendation_tpu_torch/csrc/scoring.cu",
          "replaces": "ctr_recommendation_tpu/ops/pallas/scoring.py:36",
-         "launches": pipe_launches + imported + long[score_fwd],
+         "launches": pipe_launches + imported + extra[score_fwd],
          "max_abs_err": worst["fused_score"],
          **timing[("fused_score", "all")], "library_ms": None},
         {"name": "sasrec_encoder_fwd", "route": "cuda",
