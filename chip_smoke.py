@@ -6,13 +6,19 @@
 Phases, in order; any failure exits non-zero and prints no result line. A
 `[clock] phase X at T s` line marks where each starts.
 
-1. Print the card's name and power limit (nvidia-smi), build the five
-   kernels from csrc/ with nvcc for sm_90a, one nvcc per source in parallel,
+1. Print the card's name and power limit (nvidia-smi), build the six
+   kernels (table_grad among them) from csrc/ with nvcc for sm_90a, one nvcc per source in parallel,
    and beside them the native submission writer (data/native/submission.cc,
    g++); fail if that writer does not build and load, so that the pipelines
    below write their CSV and zip natively.
 2. With TF32 off, hold each kernel against its plain PyTorch version at full
-   width: the interaction forward and the fused scoring kernel at the
+   width. First table_grad (csrc/table_grad.cu, the table gradient of
+   every gather) at table_grad_cases' shapes (the likes_level table's step,
+   8192 ids into 129 rows; the item table's, 86,016 pad-heavy ids into
+   91,777; E = 10 and 256; ids in the cut-off row; each model rank's local
+   shape of a row-sharded item table) against its plain version in fp64,
+   within TG_NORM_TOL in norm, TG_REPEATS calls on the same inputs
+   bit-identical, and its C predicate against fits. Then the interaction forward and the fused scoring kernel at the
    training batch 4096, the serving batch 8192 and each plus a ragged 37
    (F=6, E=128, tower 2688->512->256->1), the forward's repeat launch
    bit-identical and in bf16 also within FWD_NORM_TOL in norm, which a
@@ -66,7 +72,10 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    BWD_TOL (and BWD_NORM_TOL in bf16), each block's repeat launch
    bit-identical.
 3. Time each kernel and its plain version with CUDA events (median of 30
-   after warm-up) beside the bound the card sets for the same work; for the
+   after warm-up) beside the bound the card sets for the same work
+   (table_grad at the item and likes_level tables' step shapes, the sort
+   included, beside fp32 index_add_ and embedding_dense_backward, the
+   library call, with torch.profiler's split); for the
    encoder also nn.TransformerEncoderLayer (the library yardstick, checked
    against the plain version in fp32 first): its forward, and for the
    backward its forward + backward minus its forward, at E=128 and E=256,
@@ -106,7 +115,9 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    32,768 valid rows): one step's gradients through the kernels against the
    plain path in fp32, then Trainer.fit_on_device for 2 epochs (128 steps):
    loss finite and falling, best valid AUC > 0.6, exact launch counts of
-   both interaction kernels (fwd_launches() and bwd_launches() a step), a
+   both interaction kernels (fwd_launches() and bwd_launches() a step) and
+   of table_grad (TG_TABLES calls of launches() a step, in every training
+   run below too; TG_FEATURES over row-sharded tables), a
    resume point and the best export written;
    examples/s per epoch and one step split into forward+loss, backward and
    optimizer with CUDA events, then torch.profiler over three more steps
@@ -123,7 +134,7 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    statistics within DP_STATE_TOL, the parameters after the update within
    DP_PARAM_TOL where the gradients fix Adam's step (2 lr elsewhere), the
    two replicas bit for bit equal, exactly fwd_launches() + bwd_launches()
-   interaction launches a rank. Task sasrec_step: the same step of
+   interaction launches and a step's table_grad launches a rank. Task sasrec_step: the same step of
    sasrec_fibinet (net dropout 0.2, the encoder's 0.1) on the same rows and
    ranks, with the same bars and exactly fwd_launches(1) +
    bwd_launches(1) encoder launches a rank; the encoder kernels draw the
@@ -150,8 +161,9 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    ranks' shards, then held as in 6h (a) (loss within 1e-5, GRAD_TOL /
    GRAD_FLOOR with the 1-process gates replayed, DP_PARAM_TOL); the
    replicated leaves bit for bit equal on all ranks, each shard across its
-   data group; fwd_launches() + bwd_launches() interaction launches a
-   rank. At 1 x 2 also a lazy adam step (table_optimizer "adam") for each
+   data group; fwd_launches() + bwd_launches() interaction launches and
+   TG_FEATURES x launches() table_grad launches a rank; at 1 x 2 the
+   one-step probe (repeat_probe) on each rank first: no leaf apart. At 1 x 2 also a lazy adam step (table_optimizer "adam") for each
    forced strategy against one process's: every row of the tables and of
    the moments one process left alone bit for bit, the others within 2 lr,
    the gradients within GRAD_TOL / GRAD_FLOOR.
@@ -178,7 +190,8 @@ Phases, in order; any failure exits non-zero and prints no result line. A
 6b. Phases 6-7 for sasrec_fibinet (attn_dropout 0.1 as well): both
    encoder kernels in the gradient check (dropout on: the kernels and the
    plain path draw the same masks) and in the exact launch counts, its
-   export served through the encoder and scoring kernels.
+   export served through the encoder and scoring kernels; after the fit the
+   one-step probe (repeat_probe), both dropouts on: no leaf apart.
 7b. Online serving over HTTP (serving/: RequestCollator, MicroBatcher,
    ScoringService, make_http_server) of phase 7's mm_fibinet export and
    phase 6b's sasrec_fibinet export, on the fused scoring kernel (and the
@@ -205,8 +218,9 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    within the bar.
 7c. After phase 7, at the same full defaults: (a) Trainer.profile_epoch
    on phase 6's train split (64 steps an epoch, an untraced epoch then a
-   traced one): exactly 2 x 64 x fwd_launches() interaction_fwd and
-   2 x 64 x bwd_launches() interaction_bwd launches, state.step 128, no
+   traced one): exactly 2 x 64 x fwd_launches() interaction_fwd,
+   2 x 64 x bwd_launches() interaction_bwd and 2 x 64 x TG_TABLES x
+   launches() table_grad launches, state.step 128, no
    metrics.csv, one trace file (rank0.pt.trace.json) of valid JSON whose
    hand-written kernels (the ctr:: namespace) ran exactly one epoch's
    launches; the traced epoch's wall, device-busy share and ten longest
@@ -293,7 +307,11 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    rows through write_synthetic_dataset) and fit_on_device for 2 epochs;
    --resume --epochs 3 on its checkpoint directory (Trainer._restore
    observed: step, parameters, model state and Adam moments bit for bit
-   the resume point's, on the card; only epoch 3 runs); --stream on a copy
+   the resume point's, on the card; only epoch 3 runs); --epochs 3
+   straight on a fresh directory, then a copy of that directory as a stop
+   after epoch 2 leaves it (ckpt_3.pt and epoch 3's metrics.csv row taken
+   out) resumed with --resume --epochs 3: its ckpt_3.pt the straight run's
+   in every tensor, epoch 3's metrics (all but the clock's) equal; --stream on a copy
    of the root whose train.parquet is rewritten in row groups of 16,384
    (stream_batches into Trainer.fit; best AUC within FIT_AUC_TOL of the
    in-memory run's); the predict CLI's pipeline from the parquet path and
@@ -314,7 +332,7 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    check_submission's against score_table on its export and that
    item_info. Each train run's
    loss finite and falling (a one-epoch run's below log 2) and best valid
-   AUC above 0.6; every run's launches of the five counted wrappers exact
+   AUC above 0.6; every run's launches of the six counted wrappers exact
    (per step, eval batch, scoring batch, warmup bucket and dispatch); a
    `[cli ...]` line a stage with its seconds and rows/s or examples/s
    (predict's and evaluate's are main()'s wall over a small split, the
@@ -343,19 +361,21 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    Then phases 6-7 for mm_fibinet_rowwise_adagrad (the defaults with
    rowwise_adagrad: both tables masked-dense) and
    mm_fibinet_lazy_adam_b1024 (adam at batch 1024: the item table
-   gathered), and each beside the dense mm_fibinet run: best valid AUC,
+   gathered), each with the one-step probe after its fit (no leaf apart),
+   and each beside the dense mm_fibinet run: best valid AUC,
    examples/s, a step's wall and device-busy ms.
 6f. Host-driven training (Trainer.fit) at the full defaults on phase 6's
    splits, fed numpy batches (phase 7f runs the parquet paths): first the
    wire, each slice of the first widened chunk of 8 bit for bit put_batch
    of its numpy batch (split24 item ids, uint8 labels and categoricals);
    the feed at 8 giving every step of both epochs the feed at 1's batch,
-   bit for bit (check_feeds); the shared likes_level table's merged
-   embedding backward run 10 times on fixed inputs (is it reproducible?);
-   then fit over iter_batches for 2 epochs at 1 batch an upload, again at
-   1 (the repeat sets the bar: its own gap, at least FIT_METRIC_FLOOR, as
-   the card's step is not bit-reproducible), and at 8: per-epoch train
-   loss and valid AUC of 8 within that bar of 1, best valid AUC > 0.6 and
+   bit for bit (check_feeds); the one-step probe (repeat_probe: one step's
+   loss and gradients on the same batch twice, every leaf bit for bit);
+   the shared likes_level table's merged table_grad run TG_REPEATS times
+   on fixed inputs, every result bit for bit the first; then fit over
+   iter_batches for 2 epochs at 1 batch an upload, again at 1, and at 8:
+   every per-epoch train loss and valid AUC and every parameter of the
+   repeat and of 8 bit for bit those of 1, best valid AUC > 0.6 and
    within FIT_AUC_TOL of phase 6's, loss falling, exact launch counts, a
    resume point and the best export. The host item join (strict_items, no
    item store on the trainer): the first step's loss bit for bit the
@@ -389,14 +409,16 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    within GATE_MARGIN of 0), then
    fit_on_device for 2 epochs (loss finite and falling, best valid AUC >
    0.6, a resume point and the best export, 0 launches of every counted
-   kernel wrapper), the step split and profile, the export served through
+   kernel wrapper but table_grad's, the table gradient of every model), the
+   one-step probe (leaves apart logged, a [zoo] line over the nine), the
+   step split and profile, the export served through
    evaluate (Predictor on the model's eval forward: served AUC within
    AUC_SERVE_TOL of the trainer's, gAUC within GAUC_TOL of the CPU's, 0
    launches), and score_table over phase 4's 385,024 rows (rows/s,
    probabilities in [0, 1], 0 launches). A [zoo] summary line a model
    beside mm_fibinet's phase 6 run: examples/s, best AUC, a step's wall,
    device-busy ms and share, kernels a step, rows/s.
-8. One JSON line describing the five kernels, then the result line.
+8. One JSON line describing the six kernels, then the result line.
 """
 
 from __future__ import annotations
@@ -515,20 +537,21 @@ GAUC_TOL = 1e-6
 # iter_batches shuffles with numpy's permutation
 FIT_K = 8
 FIT_AUC_TOL = 0.01
-# fit at FIT_K against fit at 1, per-epoch train loss and valid AUC: within
-# the larger of a repeat's gap (fit at 1 again) and FIT_METRIC_FLOOR. That
-# the two feeds give every step the same batch is checked bit for bit on
-# its own (check_feeds). The step itself is not bit-reproducible on the
-# card: the shared likes_level table's merged embedding backward sums the
-# same cotangents differently from call to call (the "[fit] one step's
-# gradients" and "embedding_dense_backward" lines), the parameters drift,
-# and now and then a drift crosses a bf16 rounding and the runs part: on an
-# H100 a fit at 8 whose every step saw fit at 1's batch bit for bit ended
-# its second epoch 1.9e-6 apart in loss and 2.4e-7 in AUC, while the
-# repeat at 1 of the same call matched bit for bit. So the repeat's gap
-# alone (0 then) cannot be the bar. The floor is 50x that parting; a step
-# lost or a batch out of order moves the loss by more than 1e-3.
-FIT_METRIC_FLOOR = 1e-4
+# fit at FIT_K, fit at 1 and its repeat: every per-epoch train loss and valid
+# AUC and every parameter bit for bit. The two feeds give every step the same
+# batch (check_feeds), and the step is a function of its seed: the table
+# gradient sums in a fixed order (csrc/table_grad.cu), and the one-step
+# probes (repeat_probe) hold every other gradient to its repeat.
+# table_grad (csrc/table_grad.cu) against its plain version in fp64:
+# |d| / |want| in norm; fp32 sums of up to ~4e4 cotangents a row in another
+# order (the pad id's) stay ~1e-7 apart, and a term lost or counted twice
+# moves a row by the term itself
+TG_NORM_TOL = 1e-6
+TG_REPEATS = 10  # calls on the same inputs, bit-identical
+# a step's table_grad calls: one a table (item_id: item_id + item_seq;
+# likes_level: likes_level + views_level), dense or sparse, every model;
+# over row-sharded tables (6i) one a feature, as the lookups are not merged
+TG_TABLES, TG_FEATURES = 2, 4
 WINDOW_GROUPS = 13  # numpy row groups cut from the train split, uneven sizes
 FIT_STEPS_TIMED = 24  # steps timed (host clock) and then profiled, a run
 
@@ -927,7 +950,8 @@ def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str,
     card's gate decisions (``gate_replay``, GATE_MARGIN). Returns the first
     path's (trainer, batch, aux, gradients), its step not yet applied,
     and the worst |d| / max|g| over the gradients above 1e-3 of the
-    largest."""
+    largest. The plain path on the card launches table_grad as the kernel
+    path does (it has no other table gradient); the CPU none."""
     import dataclasses
 
     from ctr_recommendation_tpu_torch.training import Trainer
@@ -974,7 +998,9 @@ def gradient_check(torch, exp, train, store, root, kernels: dict, tag: str,
             first = (tr, batch, aux, out[0][1])
         torch.cuda.synchronize()
         launched = tuple(fn.launches for fn in kernels)
-        if launched != (tuple(kernels.values()) if i == 0 else (0,) * len(kernels)):
+        want = tuple(n if i == 0 or (fn.__name__ == "table_grad" and device == "cuda") else 0
+                     for fn, n in kernels.items())
+        if launched != want:
             raise SystemExit(f"{tag} gradient check, {side} (use_pallas={use_kernel}): launches "
                              f"{launched}")
     (l_k, g_k, names), (l_p, g_p, _) = out
@@ -2262,8 +2288,136 @@ def score_split(torch, card, x, sw, w_bi, tower, tag: str) -> None:
                  f"fused_score bf16 all{tag} B={B_FULL}", card)
 
 
+def table_grad_cases(torch) -> list[tuple]:
+    """Phase 2's table_grad shapes, (tag, ids on the card, rows, E), from
+    phase 4's row generator at the training batch: the shared likes_level
+    table's step (likes_level + views_level, 8192 ids into 128 + 1 rows,
+    the one-step probe's shape); the item table's (item_id + the 20-item
+    history: 86,016 ids, pad-heavy, into 91,776 + 1 rows); E = 10 and 256;
+    ids in the cut-off row; the row-sharded local shape (each model rank
+    of 2: rows_per + 1 rows, the ids it does not own in the last)."""
+    r = make_rows(B_TRAIN, seed=23)
+    likes = np.concatenate([r["likes_level"], r["views_level"]])
+    item = np.concatenate([r["item_id"], r["item_seq"].reshape(-1)])
+    cut = likes.copy()
+    cut[::7] = 128
+    rows_per = 91_776 // MP
+    cases = [("likes_level", likes, 129, E), ("item_id", item, 91_777, E),
+             ("likes_level E=10", likes, 129, 10), ("item_id E=256", item, 91_777, WIDE_E),
+             ("cut-off row", cut, 129, E)]
+    for m in range(MP):
+        local = item - m * rows_per
+        cases.append((f"row-sharded, model rank {m} of {MP}",
+                      np.where((local >= 0) & (local < rows_per), local, rows_per),
+                      rows_per + 1, E))
+    return [(tag, torch.from_numpy(ids.astype(np.int64)).cuda(), rows, e)
+            for tag, ids, rows, e in cases]
+
+
+def table_grad_repeats(torch, ids, cot, rows: int, first=None) -> tuple[int, float]:
+    """TG_REPEATS calls of table_grad on the same inputs: how many results
+    differ from the first (``first``, or the first call's), and by how much
+    at most."""
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
+
+    outs = [table_grad(ids, cot, rows) for _ in range(TG_REPEATS)]
+    first = outs[0] if first is None else first
+    return (sum(not torch.equal(o, first) for o in outs),
+            max(float((o - first).abs().max()) for o in outs))
+
+
+def table_grad_against_plain(torch) -> tuple[float, list]:
+    """Phase 2: table_grad at each of table_grad_cases' shapes against its
+    plain version in fp64, within TG_NORM_TOL in norm (the largest
+    absolute gap logged), launches() launches a call, and TG_REPEATS calls
+    bit-identical; then the C predicate against fits on the envelope's
+    edges. Returns (the largest absolute gap, failures)."""
+    from ctr_recommendation_tpu_torch.ops.cuda import table_grad as tg
+
+    worst, failures = 0.0, []
+    for i, (tag, ids, rows, e) in enumerate(table_grad_cases(torch)):
+        cot = torch.randn(len(ids), e, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(i))
+        tg.table_grad.launches = 0
+        got = tg.table_grad(ids, cot, rows)
+        launched = tg.table_grad.launches
+        want = tg.table_grad_plain(ids, cot.double(), rows)
+        torch.cuda.synchronize()
+        gap, err = norm_gap(got, want), float((got.double() - want).abs().max())
+        differ, moved = table_grad_repeats(torch, ids, cot, rows, got)
+        touched = int(torch.unique(ids).numel())
+        ok = (gap <= TG_NORM_TOL and differ == 0 and launched == tg.launches()
+              and got.shape == (rows, e) and got.dtype == torch.float32)
+        worst = max(worst, err)
+        log(f"[compare] table_grad {tag}: {len(ids)} ids ({touched} rows touched) into "
+            f"({rows}, {e}): |d|/|want| {gap:.3e} against the fp64 plain version (tolerance "
+            f"{TG_NORM_TOL:g}), max|d| {err:.3e}; {TG_REPEATS} calls on the same inputs, "
+            f"{differ} differ from the first (max|d| {moved:.1e}); {launched} launches "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"table_grad {tag}")
+    lib = tg._kernel_lib()
+    edges = [(n, r, e) for n in (-1, 0, 1, tg.MAX_IDS, tg.MAX_IDS + 1)
+             for r in (0, 1, tg.MAX_ROWS, tg.MAX_ROWS + 1) for e in (0, 1, 10, 1 << 20)]
+    apart = [x for x in edges if bool(lib.table_grad_fits(*x)) != tg.fits(*x)]
+    log(f"[compare] table_grad fits: the C predicate and the Python one on {len(edges)} "
+        f"points of the envelope's edges, {len(apart)} apart {apart}")
+    if apart:
+        failures.append("table_grad fits")
+    return worst, failures
+
+
+def table_grad_timing(torch, card) -> dict:
+    """Phase 3: table_grad (the sort and both passes) at the item table's and
+    the likes_level table's step shapes, beside its plain version (fp32
+    index_add_), the library call (aten's dense embedding backward, which
+    the port never calls) and the byte bound (the ids read once, 8 B, the
+    cotangents once, the gradient written once). Returns the item table's
+    times (the kernels line's)."""
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad, table_grad_plain
+
+    out = {}
+    for tag, ids, rows, e in table_grad_cases(torch)[:2]:  # likes_level, then item_id
+        cot = torch.randn(len(ids), e, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+        nbytes = 8 * len(ids) + 4 * e * (len(ids) + rows)
+        t = {"ms": time_ms(torch, lambda: table_grad(ids, cot, rows)),
+             "plain_ms": time_ms(torch, lambda: table_grad_plain(ids, cot, rows)),
+             "library_ms": time_ms(torch, lambda: torch.ops.aten.embedding_dense_backward(
+                 cot, ids, rows, -1, False)),
+             **bound(nbytes, 0)}
+        log(f"[time] table_grad {tag}: {len(ids)} ids into ({rows}, {e}): {t} (bytes {nbytes}; "
+            f"library_ms: embedding_dense_backward) on {card}")
+        kernel_split(torch, lambda: table_grad(ids, cot, rows), f"table_grad {tag}", card)
+        out = t
+    return out
+
+
+def repeat_probe(torch, tr, batch: dict, tag: str, card, hard: bool = True) -> dict:
+    """One train step's loss and gradients on the same batch twice from the
+    same state (the step's dropout masks are drawn from the step: the same
+    both times). Logs the leaves that differ, with their max|d|; with
+    ``hard`` any difference fails. Returns them."""
+    runs = []
+    for _ in range(2):
+        with torch.enable_grad():
+            loss, aux = tr.forward_loss(batch)
+            grads = tr.gradients(loss, aux)
+        runs.append((aux.loss.clone(), dict(zip(aux.targets, grads))))
+    (l0, g0), (l1, g1) = runs
+    moved = {p: float((g - g1[p]).abs().max()) for p, g in g0.items() if not torch.equal(g, g1[p])}
+    if not torch.equal(l0, l1):
+        moved["loss"] = float((l0 - l1).abs())
+    log(f"[probe {tag}] one step's loss and {len(g0)} gradients on the same batch twice: "
+        f"leaves that differ, max|d|: {moved} on {card}")
+    if hard and moved:
+        raise SystemExit(f"{tag}: one step on the same batch twice gave other bits: {moved}")
+    return moved
+
+
 def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_step: dict,
-                    per_eval: dict, per_serve: dict, tag: str = "", fused: bool = True) -> dict:
+                    per_eval: dict, per_serve: dict, tag: str = "", fused: bool = True,
+                    probe: bool | None = None) -> dict:
     """Phases 6-7 (and 6b-6g) for one model at the full microlens_experiment()
     defaults on phase 6's splits: one step's fp32 gradients kernel vs plain
     with dropout on (``fused`` False, the zoo, whose path holds no kernel:
@@ -2275,11 +2429,14 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     the wrappers whose launches are checked exactly; ``per_step``,
     ``per_eval`` and ``per_serve`` give each one's launches a train step, an
     eval batch and a serving batch (absent: 0). ``tag`` names the run in the
-    log (default: the model's name). Returns the launches of each counted
+    log (default: the model's name). ``probe``: after the fit, the trained
+    step on its first batch twice (repeat_probe), any leaf apart failing
+    (True) or logged (False). Returns the launches of each counted
     wrapper in the fit (``launches``), the fit's history (``hist``), its
     best valid AUC, the step split's numbers (``step``), the gradient
-    check's worst gap (``grad_gap``), the serving Predictor (``server``)
-    and the AUC evaluate gave its export (``served_auc``)."""
+    check's worst gap (``grad_gap``), the serving Predictor (``server``),
+    the AUC evaluate gave its export (``served_auc``) and the probe's
+    leaves apart (``probe``, None without one)."""
     from ctr_recommendation_tpu_torch.cli.evaluate import eval_line, evaluate
     from ctr_recommendation_tpu_torch.inference import Predictor
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
@@ -2331,6 +2488,9 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     export = trainer.ckpt.best_export_path
     if trainer.ckpt.latest_step() != TRAIN_EPOCHS or not os.path.exists(export):
         raise SystemExit(f"{tag}: fit_on_device wrote no resume point or no best export")
+    moved = None if probe is None else repeat_probe(
+        torch, trainer, {k: torch.as_tensor(v[:bs]).cuda() for k, v in train.columns.items()},
+        tag, card, hard=probe)
     step = step_split(torch, trainer, train, card, tag)
 
     served_params, served_state = jax_bridge.params_from_jax(
@@ -2361,7 +2521,7 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     if not np.isfinite(res["logloss"]) or abs(res["gauc"] - cpu_gauc) > GAUC_TOL:
         raise SystemExit(f"{tag}: evaluate's logloss is not finite or its gAUC is not the CPU's")
     return {"launches": launched, "hist": hist, "best_auc": best_auc, "step": step,
-            "grad_gap": grad_gap, "server": server, "served_auc": res["auc"]}
+            "grad_gap": grad_gap, "server": server, "served_auc": res["auc"], "probe": moved}
 
 
 def serve_sasrec(torch, store, rows, card) -> int:
@@ -2656,7 +2816,7 @@ def sparse_fits(torch, train, valid, store, root, card, counted, per_step, per_e
             raise SystemExit(f"{tag}: the item table takes {plan['item_id']}")
         runs[tag] = train_and_serve(torch, exp, train, valid, store, root, card, counted,
                                     per_step=per_step, per_eval=per_eval, per_serve=per_serve,
-                                    tag=tag)
+                                    tag=tag, probe=True)
     for tag, r in runs.items():
         eps = [round(h["examples_per_sec"]) for h in r["hist"]]
         log(f"[sparse] {tag}: best valid auc {r['best_auc']:.5f}, examples/s per epoch {eps}, "
@@ -2814,27 +2974,19 @@ def host_driven(torch, train, valid, store, root, card, dense: dict, serve: dict
         return iter_batches(valid, fm, eval_bs)
 
     check_wire(torch, fm_trainer, epoch_batches(0), card)
-    # the card's step on identical inputs, twice: which gradients repeat bit for bit
+    # the card's step on identical inputs, twice: every leaf bit for bit
     batch = fm_trainer._ready(fm_trainer.put_batch(next(epoch_batches(0))))
-    grads = []
-    for _ in range(2):
-        with torch.enable_grad():
-            loss, aux = fm_trainer.forward_loss(batch)
-            grads.append(dict(zip(aux.targets, fm_trainer.gradients(loss, aux))))
-    moved = {p: float((g - grads[1][p]).abs().max()) for p, g in grads[0].items()
-             if not torch.equal(g, grads[1][p])}
-    log(f"[fit] one step's gradients on the same batch twice: leaves that differ, max|d|: "
-        f"{moved} on {card}")
-    # the shared likes_level table's merged backward alone, on fixed inputs
+    repeat_probe(torch, fm_trainer, batch, "mm_fibinet", card)
+    # the shared likes_level table's merged table gradient alone, on fixed inputs
     ids = torch.cat([batch["likes_level"], batch["views_level"]]).to(torch.int64)
     rows = fm_trainer.state.params["trunk"]["tables"]["likes_level"].shape[0] + 1
     cot = torch.randn(len(ids), exp.model.embedding_dim, device=ids.device,
                       generator=torch.Generator(device=ids.device).manual_seed(0))
-    outs = [torch.ops.aten.embedding_dense_backward(cot, ids, rows, -1, False)
-            for _ in range(10)]
-    log(f"[fit] embedding_dense_backward of {len(ids)} ids into {rows} rows, the same inputs 10 "
-        f"times: {sum(not torch.equal(o, outs[0]) for o in outs)} results differ from the "
-        f"first, max|d| {max(float((o - outs[0]).abs().max()) for o in outs):.3e}")
+    differ, moved = table_grad_repeats(torch, ids, cot, rows)
+    log(f"[fit] table_grad of {len(ids)} ids into {rows} rows, the same inputs "
+        f"{TG_REPEATS} times: {differ} results differ from the first, max|d| {moved:.3e}")
+    if differ:
+        raise SystemExit("table_grad gave other bits on the same inputs")
     check_feeds(torch, fm_trainer, epoch_batches)
 
     def counted_fit(tr, train_batches, steps, eval_batches, tag, valid_fn=valid_batches,
@@ -2875,15 +3027,13 @@ def host_driven(torch, train, valid, store, root, card, dense: dict, serve: dict
             trainers[a].param_paths, trainers[a].param_leaves, trainers[b].param_leaves)
             if not torch.equal(x, y)}
 
-    repeat = {key: gap("k1", "k1_repeat", key) for key in ("train_loss", "auc")}
-    bar = {key: max(v, FIT_METRIC_FLOOR) for key, v in repeat.items()}
-    chunked = {key: gap("k1", f"k{FIT_K}", key) for key in ("train_loss", "auc")}
-    log(f"[fit] per-epoch |d| of the repeat at 1 batch an upload {repeat}, at {FIT_K} against "
-        f"1 {chunked} (bar {bar}); parameters that differ, max|d|: the repeat "
-        f"{param_gaps('k1', 'k1_repeat')}, at {FIT_K} {param_gaps('k1', f'k{FIT_K}')}")
-    if any(chunked[key] > bar[key] for key in bar):
-        raise SystemExit(f"fit at {FIT_K} batches an upload differs from fit at 1 by {chunked}, "
-                         f"beyond the bar {bar}")
+    for other in ("k1_repeat", f"k{FIT_K}"):
+        metrics = {key: gap("k1", other, key) for key in ("train_loss", "auc")}
+        moved = param_gaps("k1", other)
+        log(f"[fit] {other} against k1: per-epoch train loss and valid auc |d| {metrics}; "
+            f"parameters that differ, max|d|: {moved} (bar: bit for bit)")
+        if any(metrics.values()) or moved or len(runs[other]) != len(runs["k1"]):
+            raise SystemExit(f"fit {other} is not fit k1 bit for bit: {metrics}, {moved}")
     for tag in runs:
         losses = [h["train_loss"] for h in runs[tag]]
         best = max(h["auc"] for h in runs[tag])
@@ -3094,9 +3244,10 @@ def zoo(torch, train, valid, store, root, card, counted, rows, dense: dict) -> N
     first ZOO_TRAIN rows of ``train``."""
     from ctr_recommendation_tpu_torch.config import microlens_experiment
     from ctr_recommendation_tpu_torch.data import TableData
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches, table_grad
 
     train = TableData({k: v[:ZOO_TRAIN] for k, v in train.columns.items()}, ZOO_TRAIN)
-    runs = {}
+    runs, probes = {}, {}
     for name in ZOO:
         exp = microlens_experiment(data_root="", model=name, epochs=TRAIN_EPOCHS,
                                    checkpoint_dir=os.path.join(root, f"ckpt_{name}"))
@@ -3109,7 +3260,9 @@ def zoo(torch, train, valid, store, root, card, counted, rows, dense: dict) -> N
                 "bfloat16", B_TRAIN):
             raise SystemExit(f"the zoo's defaults moved: {exp}")
         run = train_and_serve(torch, exp, train, valid, store, root, card, counted,
-                              per_step={}, per_eval={}, per_serve={}, fused=False)
+                              per_step={table_grad: TG_TABLES * launches()}, per_eval={},
+                              per_serve={}, fused=False, probe=False)
+        probes[name] = run["probe"]
         server = run.pop("server")
         server.score_table(TableData({k: v[:B_FULL] for k, v in rows.items()}, B_FULL))
         torch.cuda.synchronize()
@@ -3128,6 +3281,8 @@ def zoo(torch, train, valid, store, root, card, counted, rows, dense: dict) -> N
             raise SystemExit(f"{name}: the zoo's serving path launched a kernel: {launched}")
         runs[name] = dict(run, rows_per_s=N_ROWS / t_score)
     eps = lambda r: [round(h["examples_per_sec"]) for h in r["hist"]]  # noqa: E731
+    log(f"[zoo] the one-step probe, leaves that differ between two steps on the same batch: "
+        f"{ {n: sorted(m) for n, m in probes.items() if m} or 'none'} on {card}")
     log(f"[zoo] mm_fibinet (phase 6): examples/s per epoch {eps(dense)}, best valid auc "
         f"{dense['best_auc']:.5f}, a step {dense['step']['step_ms']:.4f} ms wall, "
         f"{dense['step']['busy_ms']:.4f} ms device busy, {dense['step']['kernels']:.0f} "
@@ -3180,8 +3335,8 @@ def dp_experiment(ckpt: str, fp32: bool, model: str = "mm_fibinet"):
 def dp_step(torch, tr, batch: dict, gates, part, encoder: list | None = None) -> dict:
     """One train step of ``tr`` on ``batch`` (device columns), the forward
     recording its gates (``gates`` None) or replaying ``part`` of them;
-    returns the global loss, the gradients by target, the interaction and
-    encoder launches, the replay's counts, and after the update the
+    returns the global loss, the gradients by target, the interaction (and
+    table_grad) and encoder launches, the replay's counts, and after the update the
     gradients as the optimizer left them (``clipped``: clipped, plus the L2
     term), the parameters and the model state (on the CPU). With
     ``encoder`` (a list) the encoder kernels' FFN decisions are recorded
@@ -3189,9 +3344,10 @@ def dp_step(torch, tr, batch: dict, gates, part, encoder: list | None = None) ->
     kernels take them: they cannot be replayed inside a kernel."""
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
 
-    interaction_fwd.launches = interaction_bwd.launches = 0
+    interaction_fwd.launches = interaction_bwd.launches = table_grad.launches = 0
     encode_fwd.launches = encode_bwd.launches = 0
     replay = gate_replay(torch, gates, part)
     enc_gates, f1 = [], []
@@ -3206,7 +3362,8 @@ def dp_step(torch, tr, batch: dict, gates, part, encoder: list | None = None) ->
         encoder.extend((v, real.cpu()) for v, (_, real) in zip(f1, enc_gates))
     out = {"loss": aux.loss.item(), "grads": dict(zip(aux.targets, (g.detach().cpu().clone()
                                                                      for g in grads))),
-           "launches": (interaction_fwd.launches, interaction_bwd.launches),
+           "launches": (interaction_fwd.launches, interaction_bwd.launches,
+                        table_grad.launches),
            "enc_launches": (encode_fwd.launches, encode_bwd.launches),
            "calls": replay.calls, "flips": replay.flips, "margin": replay.margin,
            "gates": [g.cpu() for g in replay.gates],
@@ -3240,6 +3397,7 @@ def dp_rank(spec_path: str) -> int:
     import torch
 
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.parallel import data_parallel, distributed
     from ctr_recommendation_tpu_torch.training import Trainer
 
@@ -3288,13 +3446,14 @@ def dp_rank(spec_path: str) -> int:
             tr = Trainer(exp, steps_per_epoch=N_TRAIN // bs, item_store=data["store"],
                          device=DP_DEVICE, log_fn=log if rank == 0 else (lambda s: None))
             torch.cuda.synchronize()
-            interaction_fwd.launches = interaction_bwd.launches = 0
+            interaction_fwd.launches = interaction_bwd.launches = table_grad.launches = 0
             data_parallel.stats.update(calls=0, bytes=0)
             t0 = time.perf_counter()
             hist = tr.fit_on_device(data["train"], data["valid"])
             torch.cuda.synchronize()
             res = {"hist": hist, "seconds": time.perf_counter() - t0,
-                   "launches": (interaction_fwd.launches, interaction_bwd.launches),
+                   "launches": (interaction_fwd.launches, interaction_bwd.launches,
+                                table_grad.launches),
                    "stats": dict(data_parallel.stats), "steps": tr.state.step}
             # the step's gradient all-reduce alone (every leaf and the loss,
             # bucketed), and one BatchNorm-sized all-reduce (512 floats)
@@ -3465,6 +3624,7 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
         encode_fwd,
         fwd_launches,
     )
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches, table_grad
     from ctr_recommendation_tpu_torch.training import Trainer
 
     t_phase = time.perf_counter()
@@ -3498,6 +3658,7 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     torch.cuda.empty_cache()
     ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
     efwd, ebwd = fwd_launches(1), bwd_launches(1)
+    tgs = TG_TABLES * launches()
     if sasrec_ref["enc_launches"] != (efwd, ebwd):
         raise SystemExit(f"phase 6h sasrec_step: the 1-process step launched the encoder "
                          f"{sasrec_ref['enc_launches']}, expected ({efwd}, {ebwd})")
@@ -3509,15 +3670,17 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     worst = 0.0
     for r, res in enumerate(ranks):
         step = res["step"]
-        if res["backend"] != "gloo" or step["launches"] != (ifwd, ibwd):
+        if res["backend"] != "gloo" or step["launches"] != (ifwd, ibwd, tgs):
             raise SystemExit(f"phase 6h (a) rank {r}: backend {res['backend']}, interaction "
-                             f"launches {step['launches']}, expected ({ifwd}, {ibwd})")
+                             f"and table_grad launches {step['launches']}, expected ({ifwd}, "
+                             f"{ibwd}, {tgs})")
         if step["row0"] != r * bs // DP_WORLD:
             raise SystemExit(f"phase 6h (a) rank {r}: first global row {step['row0']}")
         worst = max(worst, dp_check_step(
             torch, f"(a) rank {r} of {DP_WORLD}, {bs // DP_WORLD} rows, gloo", step, ref))
-        log(f"[dp (a)] rank {r}: interaction launches {step['launches']} (fwd {ifwd} + bwd "
-            f"{ibwd}); collectives in the step {step['stats']['calls']}, "
+        log(f"[dp (a)] rank {r}: interaction and table_grad launches {step['launches']} (fwd "
+            f"{ifwd} + bwd {ibwd}, table_grad {tgs}); collectives in the step "
+            f"{step['stats']['calls']}, "
             f"{step['stats']['bytes']} bytes reduced")
     same = all(torch.equal(ranks[0]["step"][k][n], ranks[1]["step"][k][n])
                for k in ("params", "state") for n in ranks[0]["step"][k])
@@ -3527,10 +3690,10 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     # (a) for sasrec_fibinet: net dropout 0.2, the encoder's 0.1, masks of the global batch
     for r, res in enumerate(ranks):
         step = res["sasrec_step"]
-        if (step["launches"], step["enc_launches"]) != ((ifwd, ibwd), (efwd, ebwd)):
-            raise SystemExit(f"phase 6h sasrec_step rank {r}: interaction launches "
-                             f"{step['launches']}, encoder {step['enc_launches']}, expected "
-                             f"({ifwd}, {ibwd}), ({efwd}, {ebwd})")
+        if (step["launches"], step["enc_launches"]) != ((ifwd, ibwd, tgs), (efwd, ebwd)):
+            raise SystemExit(f"phase 6h sasrec_step rank {r}: interaction and table_grad "
+                             f"launches {step['launches']}, encoder {step['enc_launches']}, "
+                             f"expected ({ifwd}, {ibwd}, {tgs}), ({efwd}, {ebwd})")
         if step["row0"] != r * bs // DP_WORLD:
             raise SystemExit(f"phase 6h sasrec_step rank {r}: first global row {step['row0']}")
         layers, decisions, flips, margin, gap = dp_encoder_decisions(
@@ -3578,8 +3741,9 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
         for h in fit["hist"]:
             log(f"[dp (b)] rank {r} epoch {int(h['epoch'])}: loss {h['train_loss']:.5f}, valid "
                 f"auc {h['auc']:.5f}, {h['seconds']:.3f} s train, {h['eval_seconds']:.3f} s eval")
-        if fit["launches"] != (ifwd * (steps + eval_batches), ibwd * steps):
-            raise SystemExit(f"phase 6h (b) rank {r}: interaction launches {fit['launches']}")
+        if fit["launches"] != (ifwd * (steps + eval_batches), ibwd * steps, tgs * steps):
+            raise SystemExit(f"phase 6h (b) rank {r}: interaction and table_grad launches "
+                             f"{fit['launches']}")
         if fit["steps"] != steps or [[h[k] for k in metrics] for h in fit["hist"]] != \
                 [[h[k] for k in metrics] for h in hists[0]]:
             raise SystemExit(f"phase 6h (b) rank {r}: steps {fit['steps']} or metrics differ")
@@ -3595,7 +3759,8 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     (nccl,) = spawn_ranks(torch, dict(spec, name="nccl", backend="nccl", tasks=["step"]), 1,
                           root)
     step = nccl["step"]
-    if nccl["backend"] != "nccl" or step["launches"] != (ifwd, ibwd) or step["stats"]["calls"] < 1:
+    if nccl["backend"] != "nccl" or step["launches"] != (ifwd, ibwd, tgs) or \
+            step["stats"]["calls"] < 1:
         raise SystemExit(f"phase 6h (c): backend {nccl['backend']}, launches {step['launches']}, "
                          f"collectives {step['stats']}")
     worst = max(worst, dp_check_step(torch, "(c) 1 rank, NCCL", step, ref))
@@ -3607,6 +3772,7 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
             "launches": {fn: sum(r["sasrec_step"][key][i] for r in ranks)
                          for fn, key, i in ((interaction_fwd, "launches", 0),
                                             (interaction_bwd, "launches", 1),
+                                            (table_grad, "launches", 2),
                                             (encode_fwd, "enc_launches", 0),
                                             (encode_bwd, "enc_launches", 1))}}
 
@@ -3652,13 +3818,16 @@ def mp_step_task(torch, data: dict, spec: dict, rank: int) -> dict:
     n = bs // dp
     cols, row0 = distributed.host_local_to_global(
         {k: v[d * n : (d + 1) * n] for k, v in data["train"].columns.items()}, tr.mesh)
+    probe = None
+    if dp == 1:  # the one-step probe at 1 x MP, before the counted step
+        probe = repeat_probe(torch, tr, cols, f"6i 1x{MP} rank {rank}", DP_DEVICE, hard=False)
     data_parallel.stats.update(calls=0, bytes=0)
     embedding.stats.update(dict.fromkeys(embedding.stats, 0))
     res = dp_step(torch, tr, cols, torch.load(spec["gates"]), (d, dp))
     res.pop("gates")
     res.update(row0=row0, coords=(d, tr.mesh.model_rank, dp, tr.mesh.shape["model"]),
                stats=dict(data_parallel.stats), exchange=dict(embedding.stats),
-               sharded=sorted(tr._sharded))
+               sharded=sorted(tr._sharded), probe=probe)
     return res
 
 
@@ -3791,6 +3960,7 @@ def mp_fit_task(torch, data: dict, spec: dict, rank: int) -> dict:
     6's splits (the global batch 4096), then the exchange of a step timed
     alone, each method."""
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.parallel import data_parallel, embedding
     from ctr_recommendation_tpu_torch.training import Trainer
 
@@ -3802,14 +3972,14 @@ def mp_fit_task(torch, data: dict, spec: dict, rank: int) -> dict:
     tr = Trainer(exp, steps_per_epoch=N_TRAIN // bs, item_store=data["store"],
                  device=DP_DEVICE, log_fn=log if rank == 0 else (lambda s: None))
     torch.cuda.synchronize()
-    interaction_fwd.launches = interaction_bwd.launches = 0
+    interaction_fwd.launches = interaction_bwd.launches = table_grad.launches = 0
     data_parallel.stats.update(calls=0, bytes=0)
     embedding.stats.update(dict.fromkeys(embedding.stats, 0))
     t0 = time.perf_counter()
     hist = tr.fit_on_device(data["train"], data["valid"])
     torch.cuda.synchronize()
     res = {"hist": hist, "seconds": time.perf_counter() - t0,
-           "launches": (interaction_fwd.launches, interaction_bwd.launches),
+           "launches": (interaction_fwd.launches, interaction_bwd.launches, table_grad.launches),
            "stats": dict(data_parallel.stats), "exchange": dict(embedding.stats),
            "steps": tr.state.step, "export": os.path.exists(tr.ckpt.best_export_path),
            "resume_point": tr.ckpt.latest_step(), "writes": tr._writes,
@@ -3919,6 +4089,7 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
         fwd_launches as inter_fwd_launches,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches
     from ctr_recommendation_tpu_torch.tools import jax_bridge
     from ctr_recommendation_tpu_torch.training import Trainer
 
@@ -3964,6 +4135,7 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
         sparse.GATHERED_MIN_VOCAB_RATIO = default_ratio
     torch.cuda.empty_cache()
     ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
+    tgs = TG_FEATURES * launches()  # a step's table_grad launches a rank
     mp_epochs = TRAIN_EPOCHS
     spec = {"inputs": inputs, "gates": gates, "ckpt": os.path.join(root, "mp_ckpt"),
             "backend": "gloo", "mp_epochs": mp_epochs, "sparse_gates": sparse_gates}
@@ -3974,15 +4146,18 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
         results[(dp, mp)] = ranks
         for r, res in enumerate(ranks):
             step = res["mp_step"]
-            if res["backend"] != "gloo" or step["launches"] != (ifwd, ibwd) or \
+            if res["backend"] != "gloo" or step["launches"] != (ifwd, ibwd, tgs) or \
                     tuple(step["coords"]) != (r // mp, r % mp, dp, mp) or \
-                    step["row0"] != (r // mp) * bs // dp:
+                    step["row0"] != (r // mp) * bs // dp or (dp == 1 and step["probe"] != {}):
                 raise SystemExit(f"phase 6i (a) {dp}x{mp} rank {r}: backend {res['backend']}, "
                                  f"launches {step['launches']}, coords {step['coords']}, first "
-                                 f"row {step['row0']}")
+                                 f"row {step['row0']}, leaves apart in the probe "
+                                 f"{step['probe']}")
             ex = step["exchange"]
             log(f"[mp (a)] {dp}x{mp} rank {r} (data rank {r // mp}, model rank {r % mp}): "
-                f"interaction launches {step['launches']} (fwd {ifwd} + bwd {ibwd}); the "
+                f"interaction and table_grad launches {step['launches']} (fwd {ifwd} + bwd "
+                f"{ibwd}, table_grad {tgs}); the one-step probe: leaves apart "
+                f"{step['probe']}; the "
                 f"exchange in the step: {ex['calls']} collectives, {ex['bytes']} bytes sent "
                 f"({ex['row_bytes']} of rows), {ex['fallbacks']} fallbacks; other collectives "
                 f"{step['stats']['calls']}, {step['stats']['bytes']} bytes; sharded "
@@ -4034,8 +4209,9 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
         for h in fit["hist"]:
             log(f"[mp (b)] rank {r} epoch {int(h['epoch'])}: loss {h['train_loss']:.5f}, valid "
                 f"auc {h['auc']:.5f}, {h['seconds']:.3f} s train, {h['eval_seconds']:.3f} s eval")
-        if fit["launches"] != (ifwd * (steps + eval_batches), ibwd * steps):
-            raise SystemExit(f"phase 6i (b) rank {r}: interaction launches {fit['launches']}")
+        if fit["launches"] != (ifwd * (steps + eval_batches), ibwd * steps, tgs * steps):
+            raise SystemExit(f"phase 6i (b) rank {r}: interaction and table_grad launches "
+                             f"{fit['launches']}")
         if fit["steps"] != steps or [[h[k] for k in metrics] for h in fit["hist"]] != \
                 [[h[k] for k in metrics] for h in hists[0]] or fit["writes"] != (r == 0):
             raise SystemExit(f"phase 6i (b) rank {r}: steps {fit['steps']}, metrics or the "
@@ -4151,8 +4327,8 @@ def trace_summary(path: str, card: str, per_epoch: int) -> bool:
 
 def profile_epoch_phase(torch, train, store, root, card) -> dict:
     """Phase 7c (a): Trainer.profile_epoch at the full defaults on phase 6's
-    train split: exact interaction launches over both epochs, state.step 2
-    epochs' steps, no metrics.csv, one trace whose hand-written kernels ran
+    train split: exact interaction and table_grad launches over both
+    epochs, state.step 2 epochs' steps, no metrics.csv, one trace whose hand-written kernels ran
     one epoch's launches. Profiles again (3 tries) when the trace holds no
     device event. Returns the launches of the run it keeps."""
     from ctr_recommendation_tpu_torch.config import microlens_experiment
@@ -4162,27 +4338,28 @@ def profile_epoch_phase(torch, train, store, root, card) -> dict:
         interaction_bwd,
         interaction_fwd,
     )
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches as tg_launches
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.training import Trainer
 
     ckpt = os.path.join(root, "ckpt_profile")
+    tgs = TG_TABLES * tg_launches()
     exp = microlens_experiment(data_root="", checkpoint_dir=ckpt)
     steps = train.num_rows // exp.train.batch_size
     for attempt in range(3):
         log_dir = os.path.join(root, f"profile_{attempt}")
         tr = Trainer(exp, steps_per_epoch=steps, item_store=store, log_fn=log)
-        interaction_fwd.launches = interaction_bwd.launches = 0
+        interaction_fwd.launches = interaction_bwd.launches = table_grad.launches = 0
         t0 = time.perf_counter()
         tr.profile_epoch(train, log_dir)
         took = time.perf_counter() - t0
-        launches = {interaction_fwd: interaction_fwd.launches,
-                    interaction_bwd: interaction_bwd.launches}
+        launches = {fn: fn.launches for fn in (interaction_fwd, interaction_bwd, table_grad)}
         log(f"[profile] profile_epoch: {steps} steps x 2 epochs in {took:.2f} s (upload, the "
-            f"untraced epoch, the traced one, the export); launches interaction_fwd "
-            f"{launches[interaction_fwd]}, interaction_bwd {launches[interaction_bwd]}; "
-            f"state.step {tr.state.step}")
-        if (launches[interaction_fwd], launches[interaction_bwd]) != (
-                2 * steps * fwd_launches(), 2 * steps * bwd_launches()):
-            raise SystemExit("profile_epoch: the interaction kernels' launches are off")
+            f"untraced epoch, the traced one, the export); launches "
+            f"{ {fn.__name__: n for fn, n in launches.items()} }; state.step {tr.state.step}")
+        if tuple(launches.values()) != (2 * steps * fwd_launches(), 2 * steps * bwd_launches(),
+                                        2 * steps * tgs):
+            raise SystemExit("profile_epoch: the hand-written kernels' launches are off")
         if tr.state.step != 2 * steps:
             raise SystemExit(f"profile_epoch: state.step {tr.state.step}, expected {2 * steps}")
         if os.path.exists(os.path.join(ckpt, "metrics.csv")) or tr.history:
@@ -4191,7 +4368,7 @@ def profile_epoch_phase(torch, train, store, root, card) -> dict:
         if files != ["rank0.pt.trace.json"]:
             raise SystemExit(f"profile_epoch: expected one trace file, found {files}")
         if trace_summary(os.path.join(log_dir, files[0]), card,
-                         steps * (fwd_launches() + bwd_launches())):
+                         steps * (fwd_launches() + bwd_launches() + tgs)):
             return launches
         log(f"[profile] the trace holds no device event (try {attempt + 1} of 3)")
     raise SystemExit("profile_epoch: no trace held a device event in 3 tries")
@@ -4938,6 +5115,7 @@ def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
         fwd_launches,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches, table_grad
     from ctr_recommendation_tpu_torch.tools import jax_bridge
     from ctr_recommendation_tpu_torch.training.checkpoint import CheckpointManager
     from ctr_recommendation_tpu_torch.training.metrics import auc
@@ -4957,7 +5135,8 @@ def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
     ef, eb, fi, bi = fwd_launches(layers), bwd_launches(layers), ifwd_n(), ibwd_n()
     res = train_and_serve(
         torch, exp, train, valid, store, root, card, counted,
-        per_step={interaction_fwd: fi, interaction_bwd: bi, encode_fwd: ef, encode_bwd: eb},
+        per_step={interaction_fwd: fi, interaction_bwd: bi, encode_fwd: ef, encode_bwd: eb,
+                  table_grad: TG_TABLES * launches()},
         per_eval={interaction_fwd: fi, encode_fwd: ef},
         per_serve={score_fwd: score_launches(), encode_fwd: ef}, tag=tag)
     server = res["server"]
@@ -5112,6 +5291,8 @@ def outside_phase(torch, train, valid, store, root, card, counted) -> dict:
         padded_dims,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches as tg_launches
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
 
     def experiment(tag, **kw):
         return microlens_experiment(data_root="", checkpoint_dir=os.path.join(root, tag),
@@ -5125,10 +5306,11 @@ def outside_phase(torch, train, valid, store, root, card, counted) -> dict:
 
     fi, bi, ef, eb = ifwd_n(), ibwd_n(), fwd_launches(1), bwd_launches(1)
     total = {fn: 0 for fn in counted}
-    per = {"step": {interaction_fwd: fi, interaction_bwd: bi}, "eval": {interaction_fwd: fi},
-           "serve": {score_fwd: score_launches()}}
+    tgs = TG_TABLES * tg_launches()
+    per = {"step": {interaction_fwd: fi, interaction_bwd: bi, table_grad: tgs},
+           "eval": {interaction_fwd: fi}, "serve": {score_fwd: score_launches()}}
     per_sasrec = {"step": {interaction_fwd: fi, interaction_bwd: bi, encode_fwd: ef,
-                           encode_bwd: eb},
+                           encode_bwd: eb, table_grad: tgs},
                   "eval": {interaction_fwd: fi, encode_fwd: ef},
                   "serve": {score_fwd: score_launches(), encode_fwd: ef}}
     calls = {"step": OUTSIDE_STEPS, "eval": 1, "serve": 2}
@@ -5321,6 +5503,62 @@ def write_item_feature(path: str, n: int, seed: int) -> np.ndarray:
     return f["blank"]
 
 
+def ckpt_tensors(torch, path: str) -> dict:
+    """Every tensor of the resume point at ``path`` by its path in the
+    payload, and its step."""
+    from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
+
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    out = {"step": payload["step"]}
+    for key in ("params", "model_state", "opt_state", "table_opt_state"):
+        out.update({f"{key}/{p}": t for p, t in flatten(payload[key]).items()
+                    if torch.is_tensor(t)})
+    return out
+
+
+def resume_against_straight(torch, synth: list, base: str, card, counted, add,
+                            mm_epochs) -> None:
+    """Phase 7f 3b: the train CLI for 3 epochs straight on a fresh
+    checkpoint directory; that directory as a stop after epoch 2 leaves it
+    (its ckpt_3.pt and epoch 3's metrics.csv row taken out) resumed with
+    --resume --epochs 3: its ckpt_3.pt equal to the straight run's in every
+    tensor, and its epoch-3 row's metrics (all but the clock's) equal."""
+    import csv
+    import shutil
+
+    from ctr_recommendation_tpu_torch.cli import train as cli_train
+
+    epochs = TRAIN_EPOCHS + 1
+    straight, cut = os.path.join(base, "ckpt_straight"), os.path.join(base, "ckpt_cut")
+    argv = [*synth[:-1], straight, "--epochs", str(epochs)]  # synth ends in its ckpt dir
+    run = add(run_cli(torch, "train straight", cli_train.main, argv, counted))
+    cli_launches("train straight", run, mm_epochs(epochs))
+    cli_history("train straight", straight, epochs, epochs, card)
+    shutil.copytree(straight, cut)
+    os.remove(os.path.join(cut, f"ckpt_{epochs}.pt"))
+    with open(os.path.join(cut, "metrics.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    with open(os.path.join(cut, "metrics.csv"), "w", newline="") as f:
+        csv.writer(f).writerows(rows[:epochs])  # the header and epochs 1..2
+    argv = [*synth[:-1], cut, "--epochs", str(epochs), "--resume"]
+    run = add(run_cli(torch, "resume straight", cli_train.main, argv, counted))
+    cli_launches("resume straight", run, mm_epochs(1))
+    hists = [cli_history(tag, d, epochs, 1, card)
+             for tag, d in (("train straight", straight), ("resume straight", cut))]
+    clocked = ("seconds", "examples_per_sec", "eval_seconds", "checkpoint_seconds")
+    rows3 = [{k: v for k, v in h[-1].items() if k not in clocked} for h in hists]
+    want, got = (ckpt_tensors(torch, os.path.join(d, f"ckpt_{epochs}.pt"))
+                 for d in (straight, cut))
+    apart = [k for k in want if k != "step" and not (k in got and torch.equal(want[k], got[k]))]
+    log(f"[cli resume straight] ckpt_{epochs}.pt of the run stopped after epoch {TRAIN_EPOCHS} "
+        f"and resumed against the straight {epochs}-epoch run's: step {got['step']} / "
+        f"{want['step']}, {len(want) - 1} tensors, {len(apart)} apart {apart[:8]}; epoch "
+        f"{epochs}'s metrics {rows3[1]} / {rows3[0]} on {card}")
+    if apart or sorted(got) != sorted(want) or got["step"] != want["step"] or \
+            rows3[0] != rows3[1]:
+        raise SystemExit("phase 7f: the resumed run is not the straight run bit for bit")
+
+
 def cli_phase(torch, root: str, card: str, counted) -> dict:
     """Phase 7f (see the module docstring): the CLIs' main() on a parquet
     root at the full microlens_experiment() width. Returns each counted
@@ -5351,6 +5589,7 @@ def cli_phase(torch, root: str, card: str, counted) -> dict:
         fwd_launches,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches, table_grad
     from ctr_recommendation_tpu_torch.tools import jax_bridge
 
     t_phase = time.perf_counter()
@@ -5387,7 +5626,8 @@ def cli_phase(torch, root: str, card: str, counted) -> dict:
     bs = B_TRAIN
     spe = CLI_SPLITS["train"] // bs
     evals = -(-CLI_SPLITS["valid"] // B_FULL)  # eval_batch_size 8192
-    mm_step = {interaction_fwd: fi, interaction_bwd: bi}
+    tgs = TG_TABLES * launches()
+    mm_step = {interaction_fwd: fi, interaction_bwd: bi, table_grad: tgs}
 
     def mm_epochs(n):
         return {fn: k * n * spe + (fi if fn is interaction_fwd else 0) * n * evals
@@ -5419,6 +5659,8 @@ def cli_phase(torch, root: str, card: str, counted) -> dict:
     hist = cli_history("resume", ckpt, TRAIN_EPOCHS + 1, 1, card)
     if not os.path.exists(os.path.join(ckpt, f"ckpt_{TRAIN_EPOCHS + 1}.pt")):
         raise SystemExit("phase 7f resume: no resume point of the third epoch")
+    # ---- 3b: --resume against a straight run of the same 3-epoch schedule ----
+    resume_against_straight(torch, synth, base, card, counted, add, mm_epochs)
     # ---- 4: --stream over row groups of CLI_ROW_GROUP rows ----
     streamed = os.path.join(base, "data_row_groups")
     os.makedirs(streamed)
@@ -5591,7 +5833,7 @@ def cli_phase(torch, root: str, card: str, counted) -> dict:
                        "--checkpoint-dir", ckpt_sasrec], counted))
     cli_launches("train sasrec_fibinet", run, {
         interaction_fwd: fi * (spe + evals), interaction_bwd: bi * spe,
-        encode_fwd: ef * (spe + evals), encode_bwd: eb * spe})
+        encode_fwd: ef * (spe + evals), encode_bwd: eb * spe, table_grad: tgs * spe})
     cli_history("train sasrec_fibinet", ckpt_sasrec, 1, 1, card)
     out_dir = os.path.join(base, "out_sasrec")
     run = add(run_cli(torch, "predict sasrec_fibinet", cli_predict.main,
@@ -6122,6 +6364,8 @@ def main(argv=None) -> int:
     )
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches as tg_launches
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
 
     # ---- phase 1: card, build ----
     clock("1")
@@ -6163,8 +6407,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = {"interaction_fwd": 0.0, "fused_score": 0.0, "interaction_bwd": 0.0}
+    worst["table_grad"], failures = table_grad_against_plain(torch)
     batches = (B_TRAIN, B_TRAIN + 37, B_FULL, B_RAGGED)
-    failures = forward_against_plain(torch, worst, E, HIDDEN, batches)
+    failures += forward_against_plain(torch, worst, E, HIDDEN, batches)
     failures += backward_against_plain(torch, worst, E)
     # the recipe sweep's wider widths, with the same bars
     failures += forward_against_plain(torch, worst, WIDE_E, HIDDEN, batches, seed_offset=WIDE_E)
@@ -6206,6 +6451,7 @@ def main(argv=None) -> int:
     timing[("sasrec_encoder_bwd", "all")] = encoder_bwd_timing(torch, card)
     encoder_timing(torch, card, WIDE_E)
     encoder_bwd_timing(torch, card, WIDE_E)
+    timing[("table_grad", "all")] = table_grad_timing(torch, card)
 
     # ---- phase 4: the serving main path ----
     clock("4")
@@ -6317,7 +6563,8 @@ def main(argv=None) -> int:
     train, valid, train_store = synthetic_splits(N_TRAIN, N_VALID, seed=0)
     log(f"[train] synthetic data: {N_TRAIN} train + {N_VALID} valid rows, 91,717 items, "
         f"made in {time.perf_counter() - t0:.1f} s")
-    counted = (interaction_fwd, interaction_bwd, score_fwd, encode_fwd, encode_bwd)
+    counted = (interaction_fwd, interaction_bwd, score_fwd, encode_fwd, encode_bwd, table_grad)
+    tgs = TG_TABLES * tg_launches()  # table_grad's launches a train step
     enc_fwd, enc_bwd = fwd_launches(1), bwd_launches(1)  # one layer's kernel launches a call
     ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
     with tempfile.TemporaryDirectory() as root:
@@ -6325,7 +6572,7 @@ def main(argv=None) -> int:
             torch, microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
                                         checkpoint_dir=os.path.join(root, "ckpt")),
             train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
+            per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, table_grad: tgs},
             per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()})
         # ---- phase 7c: profile_epoch, the reference state_dict import, item embeddings ----
         clock("7c")
@@ -6386,9 +6633,9 @@ def main(argv=None) -> int:
         sasrec = train_and_serve(
             torch, sasrec_exp, train, valid, train_store, root, card, counted,
             per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, encode_fwd: enc_fwd,
-                      encode_bwd: enc_bwd},
+                      encode_bwd: enc_bwd, table_grad: tgs},
             per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd},
-            per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd})
+            per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd}, probe=True)
         # ---- phase 7b: phase 7's exports served over HTTP (serving/) ----
         clock("7b")
         serve_http(torch, mm, sasrec, valid, train_store, card)
@@ -6400,7 +6647,7 @@ def main(argv=None) -> int:
         train_and_serve(
             torch, wide_sasrec, train, valid, train_store, root, card, counted,
             per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, encode_fwd: enc_fwd,
-                      encode_bwd: enc_bwd},
+                      encode_bwd: enc_bwd, table_grad: tgs},
             per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd},
             per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd}, tag="sasrec_emb_256")
         # ---- phase 6c: emb_256_tower1024 (E=256, tower (1024, 512)) ----
@@ -6410,25 +6657,26 @@ def main(argv=None) -> int:
                                         checkpoint_dir=os.path.join(root, "ckpt_wide"))
         train_and_serve(
             torch, wide_exp, train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
+            per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, table_grad: tgs},
             per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()},
             tag="emb_256_tower1024")
         # ---- phase 6e: sparse tables (both strategies, every kind; two fits) ----
         clock("6e")
         sparse_steps(torch, train, train_store, root, card,
-                     {interaction_fwd: ifwd, interaction_bwd: ibwd})
+                     {interaction_fwd: ifwd, interaction_bwd: ibwd, table_grad: tgs})
         sparse_fits(torch, train, valid, train_store, root, card, counted,
-                    per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
+                    per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, table_grad: tgs},
                     per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()},
                     dense=mm)
         # ---- phase 6f: host-driven training (Trainer.fit), predict --stream's path ----
         clock("6f")
         host_driven(torch, train, valid, train_store, root, card, dense=mm,
                     serve={"pred": pred, "rows": rows, "bulk": bulk}, counted=counted,
-                    per_step={interaction_fwd: ifwd, interaction_bwd: ibwd},
+                    per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, table_grad: tgs},
                     per_eval={interaction_fwd: ifwd},
                     sasrec_per_step={interaction_fwd: ifwd, interaction_bwd: ibwd,
-                                     encode_fwd: enc_fwd, encode_bwd: enc_bwd},
+                                     encode_fwd: enc_fwd, encode_bwd: enc_bwd,
+                                     table_grad: tgs},
                     sasrec_per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd})
         # ---- phase 6g: the model zoo, no kernel on its path ----
         clock("6g")
@@ -6443,6 +6691,7 @@ def main(argv=None) -> int:
         + extra[interaction_bwd]
     enc_fwd_launches = enc_launches + extra[encode_fwd]
     enc_bwd_launches = sasrec["launches"][encode_bwd] + extra[encode_bwd]
+    tg_total = mm["launches"][table_grad] + profiled[table_grad] + extra[table_grad]
 
     # ---- phase 8: result ----
     clock("8")
@@ -6473,6 +6722,13 @@ def main(argv=None) -> int:
          "replaces": "ctr_recommendation_tpu/ops/pallas/sasrec_encoder.py:238",
          "launches": enc_bwd_launches, "max_abs_err": worst["sasrec_encoder_bwd"],
          **timing[("sasrec_encoder_bwd", "all")]},
+        {"name": "table_grad", "route": "cuda",
+         "source": "ctr_recommendation_tpu_torch/csrc/table_grad.cu",
+         "replaces": "no TPU kernel: the library's embedding_dense_backward on the training "
+                     "path (the JAX package's table gradient: "
+                     "ctr_recommendation_tpu/training/sparse.py:280, a scatter-add)",
+         "launches": tg_total, "max_abs_err": worst["table_grad"],
+         **timing[("table_grad", "all")]},
     ]
     print(json.dumps({"kernels": kernels}))
     name = torch.cuda.get_device_name(0)

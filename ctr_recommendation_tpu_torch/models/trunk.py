@@ -21,6 +21,7 @@ from ctr_recommendation_tpu_torch.config.schema import FeatureType, ModelConfig
 from ctr_recommendation_tpu_torch.features.feature_map import FeatureMap
 from ctr_recommendation_tpu_torch.ops import attention, pooling
 from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import fused_encode
+from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
 from ctr_recommendation_tpu_torch.ops.initializers import (
     embedding_init,
     linear_apply,
@@ -87,10 +88,11 @@ def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` with the JAX package's index semantics: negative ids
     count from the end, then out-of-range ids are clamped (never a device
     fault) and, as the transpose of JAX's gather drops them, contribute no
-    gradient. The backward is ``F.embedding``'s, not indexing's: it sums the
-    rows of repeated ids by sorting them, where the indexing backward on
-    CUDA walks each id's repeats serially, and the pad id repeats tens of
-    thousands of times in a batch of histories."""
+    gradient. The backward is ``table_grad``'s (ops/cuda/table_grad.py), not
+    indexing's: it sums the rows of repeated ids by sorting them, in a
+    fixed order, where the indexing backward on CUDA walks each id's
+    repeats serially, and the pad id repeats tens of thousands of times in
+    a batch of histories."""
     return TableLookup.apply(table, ids)[0]
 
 
@@ -110,9 +112,9 @@ def _wrap(ids: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 class TableLookup(torch.autograd.Function):
     """Gathers of one table by one or more id tensors; their backward is ONE
-    sorted embedding backward over the concatenated ids and cotangents,
-    into a table with one extra row that takes the out-of-range ids'
-    cotangents and is cut off."""
+    ``table_grad`` over the concatenated ids and cotangents, into a table
+    with one extra row that takes the out-of-range ids' cotangents and is
+    cut off."""
 
     @staticmethod
     def forward(ctx, table, *ids):
@@ -120,7 +122,7 @@ class TableLookup(torch.autograd.Function):
         outs, grad_rows = [], []
         for i in ids:
             wrapped, rows = _wrap(i, n)
-            outs.append(torch.nn.functional.embedding(rows, table))
+            outs.append(table.index_select(0, rows.reshape(-1)).reshape(*rows.shape, -1))
             if ctx.needs_input_grad[0]:
                 # where the cotangents land: an id still out of range after
                 # the wrap lands in row n, past the table
@@ -135,8 +137,7 @@ class TableLookup(torch.autograd.Function):
         e = cots[0].shape[-1]
         flat_ids = torch.cat([i.reshape(-1) for i in ids])
         flat_cot = torch.cat([c.reshape(-1, e) for c in cots])
-        dtable = torch.ops.aten.embedding_dense_backward(
-            flat_cot, flat_ids, ctx.num_rows + 1, -1, False)
+        dtable = table_grad(flat_ids, flat_cot, ctx.num_rows + 1)
         return (dtable[: ctx.num_rows],) + (None,) * len(ids)
 
 

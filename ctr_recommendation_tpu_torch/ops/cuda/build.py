@@ -30,7 +30,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("interaction", "interaction_bwd", "scoring", "sasrec_encoder", "sasrec_encoder_bwd")
+KERNELS = ("interaction", "interaction_bwd", "scoring", "sasrec_encoder", "sasrec_encoder_bwd",
+           "table_grad")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

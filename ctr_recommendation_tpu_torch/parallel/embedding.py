@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
 from ctr_recommendation_tpu_torch.parallel import sharding
 
 # Tables are padded to a multiple of this many rows, so that any model
@@ -188,8 +189,7 @@ class _ShardedLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (local,) = ctx.saved_tensors
-        d = torch.ops.aten.embedding_dense_backward(
-            g.contiguous(), local, ctx.rows_per + 1, -1, False)
+        d = table_grad(local, g.contiguous(), ctx.rows_per + 1)
         return (d[: ctx.rows_per],) + (None,) * 7
 
 

@@ -13,8 +13,9 @@ row buffer, the masked-dense tables through their own gradient; dense and
 row gradients clipped jointly; the dense chain on the other leaves,
 ``TableOptimizer.update`` / ``update_dense`` on the tables. In both steps a
 table read by two or more features (the item table: ``item_id`` and
-``item_seq``) is looked up through ``multi_feature_lookup``, one merged
-backward for all its features.
+``item_seq``) is looked up through ``multi_feature_lookup`` (of the table,
+or of a gathered table's row buffer), one merged backward for all its
+features: one ``table_grad`` (``ops/cuda/table_grad.py``) a table a step.
 
 Two training loops share the step, the eval and the epoch's end (resume, the
 best export, resume points, ``metrics.csv``):
@@ -324,18 +325,18 @@ class Trainer:
         # join by RAW ids first, then hash for the embedding lookup
         return apply_hashing(device_join(feats, self._mm_tables, self._join_plan), self._hash_plan)
 
-    def _multi_feature_plan(self, feats: dict, only=None) -> dict[str, list]:
+    def _multi_feature_plan(self, feats: dict) -> dict[str, list]:
         """Tables read by two or more features (the item table: item_id and
-        item_seq), default all of them, or those in ``only``, with each
-        feature's ids in the layout the trunk asks for: mean-pooled
-        sequences transposed (S, B), attention-pooled ones (B, S). A table
-        with a square (S == B) sequence keeps the per-feature gathers: the
-        two layouts are indistinguishable by shape."""
+        item_seq), with each feature's ids in the layout the trunk asks
+        for: mean-pooled sequences transposed (S, B), attention-pooled ones
+        (B, S). A table with a square (S == B) sequence keeps the
+        per-feature gathers: the two layouts are indistinguishable by
+        shape."""
         if not self._fuse_table_gather or self.lookup is not None:
             return {}  # an injected lookup owns the gathers
         fm = self.fm
         id_feats = [f for f in fm.features if f.type in _ID_TYPES and f.name in feats]
-        tables = set(only) if only is not None else {fm.table_of[f.name] for f in id_feats}
+        tables = {fm.table_of[f.name] for f in id_feats}
         transposed = self.module.SEQ_POOLING == "mean"
         multi: dict[str, list] = {}
         for t in sorted(tables):
@@ -353,25 +354,27 @@ class Trainer:
 
     @staticmethod
     def _merged_lookup(tables: dict, rows: dict, multi: dict, base=None):
-        """The trunk's lookup for one step: gathered tables read their row
-        buffer (``F.embedding``, so its backward is the sorted sum), planned
-        features their share of ``multi_feature_lookup``, the rest ``base``
-        (default ``gather``)."""
+        """The trunk's lookup for one step: planned features read their share
+        of ``multi_feature_lookup`` (one ``table_grad`` a table in the
+        backward), of the table or, for a gathered table, of its row buffer;
+        other features of a gathered table ``gather`` its row buffer; the
+        rest ``base`` (default ``gather``)."""
         cache: dict[str, tuple[tuple, torch.Tensor]] = {}
         for t, segs in multi.items():
-            outs = sparse_lib.multi_feature_lookup(tables[t], *[ids for _, ids in segs])
+            outs = sparse_lib.multi_feature_lookup(rows[t] if t in rows else tables[t],
+                                                   *[ids for _, ids in segs])
             for (name, ids), o in zip(segs, outs):
                 cache[name] = (tuple(ids.shape), o)
 
         def lookup(tbls, name, ids, feature=None, batch_dim=0):
-            if name in rows:
-                return F.embedding(ids, rows[name])
             if feature in cache:
                 canon, o = cache[feature]
                 if tuple(ids.shape) == canon:
                     return o
                 if ids.dim() == 2 and tuple(ids.shape) == canon[::-1]:
                     return o.transpose(0, 1)
+            if name in rows:
+                return gather(rows[name], ids)
             if base is not None:
                 return base(tbls, name, ids, feature=feature, batch_dim=batch_dim)
             return gather(tbls[name], ids)
@@ -403,7 +406,7 @@ class Trainer:
         rows = {t: (sparse_lib.gather_rows(tables[t].detach(), u) if self._mp == 1 else
                     owned_rows_gather(tables[t], u, self.mesh, self._model_axis)).requires_grad_()
                 for t, u in uids.items()}
-        lookup = self._merged_lookup(tables, rows, self._multi_feature_plan(feats, only=masked),
+        lookup = self._merged_lookup(tables, rows, self._multi_feature_plan(feats),
                                      base=self.lookup)
         targets = {p: self.param_paths[p] for p in self._chain_paths}
         targets.update({_TABLES + t: tables[t] for t in masked})

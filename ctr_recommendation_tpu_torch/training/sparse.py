@@ -217,10 +217,10 @@ def multi_feature_lookup(table: torch.Tensor, *ids: torch.Tensor) -> tuple[torch
     """Per-feature gathers from one table (the trunk's ``gather``: negative
     ids count from the end, then clamp; an id out of range after that adds
     no gradient, as in JAX's ``.at[ids].add``) whose backward is ONE
-    sort-based embedding backward over the concatenated ids and cotangents
-    (the sum ``F.embedding``'s backward takes, not indexing's serial one),
-    instead of one per feature. Mean-pooled sequences pass their ids
-    transposed (S, B), as the trunk asks for them."""
+    ``table_grad`` over the concatenated ids and cotangents (a sorted sum in
+    a fixed order, not indexing's serial one), instead of one per feature.
+    Mean-pooled sequences pass their ids transposed (S, B), as the trunk
+    asks for them."""
     return TableLookup.apply(table, *ids)
 
 
