@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    g++); fail if that writer does not build and load, so that the pipelines
    below write their CSV and zip natively.
 2. With TF32 off, hold each kernel against its plain PyTorch version at full
-   width. First table_grad (csrc/table_grad.cu, the table gradient of
+   width. First the encoder's workspace sizes as the chunk planner reads
+   them in Python against the C workspace functions on a grid (`[ws
+   grid]`); from here on every encoder call's chunk plan is recorded
+   (spy_plans). Then table_grad (csrc/table_grad.cu, the table gradient of
    every gather) at table_grad_cases' shapes (the likes_level table's step,
    8192 ids into 129 rows; the item table's, 86,016 pad-heavy ids into
    91,777; E = 10 and 256; ids in the cut-off row; each model rank's local
@@ -297,9 +300,24 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    read from device memory), each 3 train steps, an eval forward and a serve
    of 16,384 rows on the kernels: exact launches, the served probabilities
    within CPU_TOL of the CPU Predictor's (`[padded ...]`, `[wide head
-   ...]` lines); encode_fwd and encode_bwd past MAX_TOKENS tokens refused
-   with the envelope's ValueError before any allocation or counted launch
-   (`[refused tokens]`). The kernels line adds 7e's launches.
+   ...]` lines). Then the encoder at batches cut into chunks of rows
+   (sasrec_encoder.plan_chunks: each within MAX_TOKENS tokens and
+   WORKSPACE_BUDGET bytes of workspace), bf16 (`[chunked ...]` lines):
+   (a) encode_fwd on 45,000 x 200 tokens at E=128, H=2, rate 0.1 and 0,
+   past MAX_TOKENS: the repeat bit-identical, whole calls of 4096 rows at
+   their token bases (the first rows, across each chunk boundary, the
+   last) bit for bit its rows, exact launches, the rise of
+   max_memory_allocated within the output + WORKSPACE_BUDGET + 1 GiB, its
+   tokens/s beside one chunk of 8192 rows; (b) encode_bwd on 24,576 x 200
+   tokens at E=256, H=2, rate 0.1, whose whole-call workspace is more than
+   the card holds: the repeat bit-identical, dx of such pieces bit for bit,
+   dx and the 12 gradients within ENC_BWD_TOL and ENC_BWD_NORM_TOL of the
+   fp64 sums of 6 whole calls of 4096 rows, exact launches, the memory
+   bound; (c) 7e (b)'s sasrec_fibinet_ml1m export through
+   Predictor.score_table at batch_size 65,536 over its 131,072 train rows
+   (each encoder call 13.1M tokens, chunked): exact launches, within
+   TOL["fused_score"] of the same table at batch 8192. The kernels line
+   adds 7e's launches.
 7f. The port's own entry points, each CLI's main() called in this process
    with no device flag (the card) at the full microlens_experiment()
    width, on a parquet root: the train CLI's --synthetic (327,680 rows,
@@ -418,7 +436,10 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    probabilities in [0, 1], 0 launches). A [zoo] summary line a model
    beside mm_fibinet's phase 6 run: examples/s, best AUC, a step's wall,
    device-busy ms and share, kernels a step, rows/s.
-8. One JSON line describing the six kernels, then the result line.
+8. `[chunked budget]`: every encoder call of this process outside 7e (c)'s
+   chunked cases was one chunk, and its largest workspace beside
+   WORKSPACE_BUDGET. One JSON line describing the six kernels, then the
+   result line.
 """
 
 from __future__ import annotations
@@ -4785,6 +4806,17 @@ FITS_E = (1, 10, 16, 32, 48, 50, 64, 96, 100, 128, 160, 192, 256, 300, 384, 512,
 FITS_H = (1, 2, 3, 4, 5, 8, 16, 32)
 OUTSIDE_CPU_ROWS = 1024  # served rows held against the CPU Predictor in (b) and (c)
 OUTSIDE_STEPS = 3  # train steps of each (c) case, on one batch
+# 7e (c)'s chunked calls, (B, S, E, H, L), bf16: a forward of 9,000,000
+# tokens, past MAX_TOKENS; a backward of 4,915,200 tokens at E = 256, whose
+# whole-call workspace is more than the card holds
+CHUNKED_FWD = (45_000, 200, 128, 2, 1)
+CHUNKED_BWD = (24_576, 200, 256, 2, 1)
+CHUNKED_PIECE = 4096  # rows of the whole calls the chunked ones are held against
+CHUNKED_TOKEN0 = (1 << 32) - 4_000_000  # their token base: the Philox counter wraps mid-call
+# (rows, batch_size) of sasrec_fibinet_ml1m's export through score_table:
+# two batches of 65,536 x 200 = 13,107,200 tokens, each past MAX_TOKENS
+CHUNKED_SERVE = (LONG_TRAIN, 65_536)
+PEAK_SLACK = 1 << 30  # device memory a chunked call may take past its output and the budget
 
 
 def long_attention_blocks(torch) -> tuple[float, list]:
@@ -5089,6 +5121,110 @@ def fits_grid(torch) -> None:
         raise SystemExit(f"the C and Python encoder predicates disagree: {apart[:10]}")
 
 
+# the grid the C and Python workspace functions are held on (the chunk
+# planner reads the Python ones), besides the (B, S, E, H, L) of phase 7e
+# (c)'s chunked calls, their chunks and the whole calls of (b)
+WS_B = (1, 3, 37, 1061, 4133)
+WS_S = (1, 7, 19, 20, 21, 50, 64, 100, 200, 512)
+WS_E = (10, 32, 50, 64, 128, 256, 288, 512)
+WS_H = (1, 2, 4)
+
+
+def workspace_grid(torch) -> None:
+    """Phase 2: the encoder's workspace sizes as the chunk planner reads
+    them in Python (sasrec_encoder.fwd_workspace, bwd_workspace) against the
+    C sasrec_encode_fwd_workspace / sasrec_encode_bwd_workspace on every
+    point of WS_B x WS_S x WS_E x WS_H (E % H == 0) x L 1..3 x bf16 and fp32,
+    and at phase 7e (c)'s chunked shapes, whole and a chunk; every byte
+    equal. Logs WORKSPACE_BUDGET beside the largest chunk of each."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        MAX_TOKENS,
+        WORKSPACE_BUDGET,
+        bwd_lib,
+        bwd_workspace,
+        fwd_lib,
+        fwd_workspace,
+        plan_chunks,
+    )
+
+    fl, bl = fwd_lib(), bwd_lib()
+    shapes = [(b, s, e, h, layers) for b in WS_B for s in WS_S for e in WS_E for h in WS_H
+              for layers in (1, 2, 3) if e % h == 0]
+    plans = []
+    for (b, s, e, h, layers), direction in ((CHUNKED_FWD, "fwd"), (CHUNKED_BWD, "bwd"),
+                                            (chunked_serve_shape(), "fwd")):
+        plan = plan_chunks(b, s, e, h, layers, torch.bfloat16, direction)
+        rows = plan[0][1]
+        size = (fwd_workspace(rows, s, e, h, True) if direction == "fwd"
+                else bwd_workspace(rows, s, e, h, layers, True))
+        plans.append(f"{direction} B={b} S={s} E={e} H={h} L={layers}: {len(plan)} chunks of "
+                     f"{rows} rows, {size} bytes a chunk")
+        shapes.append((rows, s, e, h, layers))
+        if b * s <= MAX_TOKENS:  # the C backward's whole-call size, inside the grid rows
+            shapes.append((b, s, e, h, layers))
+    points, apart = 0, []
+    for b, s, e, h, layers in shapes:
+        for bf16 in (0, 1):
+            want = (fl.sasrec_encode_fwd_workspace(b, s, e, h, bf16),
+                    bl.sasrec_encode_bwd_workspace(b, s, e, h, layers, bf16))
+            got = (fwd_workspace(b, s, e, h, bf16), bwd_workspace(b, s, e, h, layers, bf16))
+            points += 1
+            if got != want:
+                apart.append(((b, s, e, h, layers, bf16), got, want))
+    log(f"[ws grid] fwd_workspace / bwd_workspace (Python, the chunk planner's) vs the C "
+        f"workspace functions on {points} points (B {WS_B} x S {WS_S} x E {WS_E} x H {WS_H} x "
+        f"L 1..3 x bf16, fp32, and phase 7e (c)'s shapes): {len(apart)} apart {apart[:3]}; "
+        f"WORKSPACE_BUDGET {WORKSPACE_BUDGET} bytes; 7e (c)'s plans, bf16: " + "; ".join(plans))
+    if apart or not points:
+        raise SystemExit(f"the C and Python encoder workspace functions disagree: {apart[:10]}")
+
+
+def spy_plans(torch) -> dict:
+    """Wrap sasrec_encoder.plan_chunks, which both encoder wrappers read at
+    every call, with a recorder: while ``spied["on"]`` each plan's shape,
+    its chunks and the whole call's workspace (the Python workspace
+    functions, which phase 2 holds equal to the C ones) are kept, so that
+    phase 8 shows every call outside 7e (c)'s chunked cases was one chunk,
+    and its largest workspace beside WORKSPACE_BUDGET. Calls in the ranks of
+    6h and 6i (processes of their own) are not seen."""
+    from ctr_recommendation_tpu_torch.ops.cuda import sasrec_encoder as enc
+
+    real = enc.plan_chunks
+    spied = {"on": True, "calls": 0, "chunked": [], "largest": {}}
+
+    def plan_chunks(b, s, e, num_heads, layers, dtype, direction):
+        plan = real(b, s, e, num_heads, layers, dtype, direction)
+        if spied["on"]:
+            bf16 = dtype == torch.bfloat16
+            size = (enc.fwd_workspace(b, s, e, num_heads, bf16) if direction == "fwd"
+                    else enc.bwd_workspace(b, s, e, num_heads, layers, bf16))
+            spied["calls"] += 1
+            if len(plan) > 1:
+                spied["chunked"].append((b, s, e, num_heads, layers, str(dtype), direction))
+            if size > spied["largest"].get(direction, (0,))[0]:
+                spied["largest"][direction] = (size, (b, s, e, num_heads, layers, str(dtype)))
+        return plan
+
+    enc.plan_chunks = plan_chunks
+    return spied
+
+
+def report_plans(spied: dict, card) -> None:
+    """Phase 8: spy_plans' record. Fails if a call outside 7e (c)'s chunked
+    cases planned more than one chunk."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import WORKSPACE_BUDGET
+
+    ok = not spied["chunked"] and spied["calls"] > 0
+    log(f"[chunked budget] {spied['calls']} encoder plans outside 7e (c)'s chunked cases (this "
+        f"process's calls, CPU and card), {len(spied['chunked'])} of more than one chunk "
+        f"{spied['chunked'][:5]}; the largest whole-call workspace: "
+        + ", ".join(f"{d} {n} bytes at (B, S, E, H, L, dtype) {shape}"
+                    for d, (n, shape) in sorted(spied["largest"].items()))
+        + f"; WORKSPACE_BUDGET {WORKSPACE_BUDGET} bytes on {card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("an encoder call outside phase 7e (c)'s chunked cases was chunked")
+
+
 def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
                        layers: int = 1) -> dict:
     """Phase 7e (b): sasrec_fibinet with ``model_kw`` over its defaults
@@ -5101,7 +5237,7 @@ def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
     fused scoring kernel: its AUC within AUC_SERVE_TOL of evaluate's and its
     first OUTSIDE_CPU_ROWS probabilities within CPU_TOL of the same
     Predictor on the CPU. Returns the launches of each counted wrapper in
-    the fit and the serve."""
+    the fit and the serve, the serving Predictor and the train rows."""
     from ctr_recommendation_tpu_torch.config import microlens_experiment
     from ctr_recommendation_tpu_torch.data import TableData, synthetic_splits
     from ctr_recommendation_tpu_torch.inference import Predictor
@@ -5167,7 +5303,7 @@ def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{tag}: the served export failed")
-    return {fn: res["launches"][fn] + served[fn] for fn in counted}
+    return {fn: res["launches"][fn] + served[fn] for fn in counted}, server, train
 
 
 def outside_case(torch, tag: str, exp, train, valid, store, card, counted,
@@ -5221,51 +5357,226 @@ def outside_case(torch, tag: str, exp, train, valid, store, card, counted,
         raise SystemExit(f"phase 7e (c) {tag} failed")
 
 
-def refused_tokens(torch, card, counted) -> None:
-    """Phase 7e (c): what the encoder kernels still refuse, a call of more
-    than MAX_TOKENS tokens B*S (the tile product's grid rows). encode_fwd and
-    encode_bwd on views of that many tokens (expanded from one row, so the
-    check itself allocates nothing) each raise ValueError naming the
-    kernels' envelope, before any allocation and any counted launch."""
-    from ctr_recommendation_tpu_torch.ops import attention
+def chunked_serve_shape() -> tuple:
+    """(B, S, E, H, L) of the encoder call a batch of CHUNKED_SERVE makes."""
+    return (CHUNKED_SERVE[1], ML1M["max_len"], ML1M["embedding_dim"], ML1M["attn_num_heads"],
+            ML1M["attn_num_layers"])
+
+
+def chunk_pieces(plan, b: int) -> list[tuple]:
+    """Row ranges of CHUNKED_PIECE rows a chunked call is held against:
+    the first rows, one straddling each chunk boundary, the last rows."""
+    half = CHUNKED_PIECE // 2
+    return ([(0, CHUNKED_PIECE)] + [(r1 - half, r1 + half) for _, r1 in plan[:-1]]
+            + [(b - CHUNKED_PIECE, b)])
+
+
+def timed(torch, fn):
+    """(fn's result, its ms by CUDA events), one run."""
+    a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    z.record()
+    z.synchronize()
+    return out, a.elapsed_time(z)
+
+
+def chunked_forward(torch, card, counted) -> dict:
+    """Phase 7e (c) (a): encode_fwd on CHUNKED_FWD, 9,000,000 tokens past
+    MAX_TOKENS, bf16, rate 0.1 and 0, at CHUNKED_TOKEN0, in the chunks of
+    plan_chunks: the repeat bit-identical, exactly call_launches' launches
+    a call, finite, the rise of max_memory_allocated over the first call
+    within the output + WORKSPACE_BUDGET + PEAK_SLACK, and the rows of each
+    chunk_pieces range bit for bit a whole call of those rows at its own
+    token base. Logs the call's ms and tokens/s beside a one-chunk call of
+    B_FULL rows at the same S. Returns the counted launches of the chunked
+    calls."""
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
-        MAX_TOKENS,
-        encode_bwd,
+        WORKSPACE_BUDGET,
+        call_launches,
         encode_fwd,
-        stack_weights,
+        plan_chunks,
     )
 
-    s, e, heads = 128, 32, 2
-    b = MAX_TOKENS // s + 1
-    params = attention.init(torch.Generator().manual_seed(0), e, s, num_heads=heads, num_layers=1)
-    ws = tuple(t.cuda() for t in stack_weights(params, torch.bfloat16))
-    x = torch.zeros((1, 1, e), dtype=torch.bfloat16, device="cuda").expand(b, s, e)
-    amask = torch.zeros((1, 1), device="cuda").expand(b, s)
+    b, s, e, heads, layers = CHUNKED_FWD
+    dt = torch.bfloat16
+    x, amask, _, ws, _, _, _ = encoder_case(torch, dt, b, e, heads, layers, 41, s=s, on_card=True)
+    plan = plan_chunks(b, s, e, heads, layers, dt, "fwd")
+    per_call = call_launches(b, s, e, heads, layers, dt, "fwd")
+    seed = torch.tensor([43], dtype=torch.int64, device="cuda")
+    launched = {fn: 0 for fn in counted}
+    failed = []
+    for rate in (DROP_RATE, 0.0):
+        kw = dict(num_heads=heads, seed=seed, rate=rate)
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = encode_fwd(x, amask, *ws, **kw, token0=CHUNKED_TOKEN0)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - before
+        again, ms = timed(torch, lambda: encode_fwd(x, amask, *ws, **kw, token0=CHUNKED_TOKEN0))
+        got_l = {fn.__name__: fn.launches for fn in counted}
+        for fn in counted:
+            launched[fn] += fn.launches
+        want_l = {fn.__name__: 2 * per_call * (fn is encode_fwd) for fn in counted}
+        same = torch.equal(out, again)
+        del again
+        pieces = [torch.equal(encode_fwd(x[r0:r1], amask[r0:r1], *ws, **kw,
+                                         token0=CHUNKED_TOKEN0 + r0 * s), out[r0:r1])
+                  for r0, r1 in chunk_pieces(plan, b)]
+        limit = out.numel() * out.element_size() + WORKSPACE_BUDGET + PEAK_SLACK
+        finite = bool(torch.isfinite(out).all())
+        ok = (same and all(pieces) and got_l == want_l and rise <= limit and finite
+              and len(plan) >= 2)
+        del out
+        one_ms = time_ms(torch, lambda: encode_fwd(x[:B_FULL], amask[:B_FULL], *ws, **kw), reps=5)
+        log(f"[chunked forward] B={b} S={s} E={e} H={heads} L={layers} bf16 rate {rate}: "
+            f"{b * s} tokens in {len(plan)} chunks {plan}, token base {CHUNKED_TOKEN0}; "
+            f"{ms:.3f} ms = {b * s / ms * 1e3:.0f} tokens/s (one chunk of B={B_FULL} at this S, "
+            f"median of 5: "
+            f"{one_ms:.3f} ms = {B_FULL * s / one_ms * 1e3:.0f} tokens/s); repeat bit-identical "
+            f"{same}; {len(pieces)} whole calls of {CHUNKED_PIECE} rows (first, across each "
+            f"boundary, last) bit for bit {pieces}; finite {finite}; launches {got_l} (expected "
+            f"{want_l}); max_memory_allocated rose {rise} bytes (bound {limit}: the output, "
+            f"WORKSPACE_BUDGET and {PEAK_SLACK}) on {card} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(rate)
+    if failed:
+        raise SystemExit(f"phase 7e (c) (a): the chunked forward failed at rates {failed}")
+    return launched
+
+
+def chunked_backward(torch, card, counted) -> dict:
+    """Phase 7e (c) (b): encode_bwd on CHUNKED_BWD, 4,915,200 tokens at E =
+    256, bf16, rate 0.1, at CHUNKED_TOKEN0, whose whole-call workspace
+    (sasrec_encode_bwd_workspace) is more than the card's memory: in the
+    chunks of plan_chunks, the repeat bit-identical in all 13 outputs,
+    exactly call_launches' launches a call, the memory rise bounded as in
+    (a), dx of each chunk_pieces range bit for bit a whole call's, and dx
+    and the 12 weight gradients within ENC_BWD_TOL and ENC_BWD_NORM_TOL
+    (check_encoder_bwd) of the fp64 sums over another partition, whole
+    calls of CHUNKED_PIECE rows at their token bases. Returns the counted
+    launches of the chunked calls."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        WORKSPACE_BUDGET,
+        bwd_lib,
+        call_launches,
+        encode_bwd,
+        plan_chunks,
+    )
+
+    b, s, e, heads, layers = CHUNKED_BWD
+    dt = torch.bfloat16
+    x, amask, pad, ws, _, _, _ = encoder_case(torch, dt, b, e, heads, layers, 47, s=s,
+                                              on_card=True)
+    g = encoder_cotangent(torch, pad, e, 48, dt, on_card=True)
+    whole = bwd_lib().sasrec_encode_bwd_workspace(b, s, e, heads, layers, 1)
+    card_bytes = torch.cuda.mem_get_info()[1]
+    plan = plan_chunks(b, s, e, heads, layers, dt, "bwd")
+    kw = dict(num_heads=heads, seed=torch.tensor([49], dtype=torch.int64, device="cuda"),
+              rate=DROP_RATE)
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    refusals = {}
-    for name, call in (("encode_fwd", lambda: encode_fwd(x, amask, *ws, num_heads=heads)),
-                       ("encode_bwd", lambda: encode_bwd(x, x, amask, *ws, num_heads=heads))):
-        try:
-            call()
-            refusals[name] = None
-        except ValueError as err:
-            refusals[name] = str(err)
+    got = encode_bwd(g, x, amask, *ws, **kw, token0=CHUNKED_TOKEN0)
     torch.cuda.synchronize()
-    grown = torch.cuda.memory_allocated() - before
+    rise = torch.cuda.max_memory_allocated() - before
+    again, ms = timed(torch, lambda: encode_bwd(g, x, amask, *ws, **kw, token0=CHUNKED_TOKEN0))
     got_l = {fn.__name__: fn.launches for fn in counted}
-    ok = (not any(got_l.values()) and grown == 0 and all(
-        r is not None and "envelope" in r and f"B*S={b * s}" in r for r in refusals.values()))
-    log(f"[refused tokens] B*S = {b * s} tokens (MAX_TOKENS {MAX_TOKENS}), S={s} E={e} H={heads}: "
-        f"{ {k: (v or 'NOT REFUSED')[:200] for k, v in refusals.items()} }; device memory grown "
-        f"{grown} bytes, launches {got_l} (expected none) on {card} {'ok' if ok else 'FAIL'}")
+    launched = {fn: fn.launches for fn in counted}
+    want_l = {fn.__name__: 2 * call_launches(b, s, e, heads, layers, dt, "bwd")
+              * (fn is encode_bwd) for fn in counted}
+    same = all(torch.equal(p, q) for p, q in zip(got, again))
+    del again
+    pieces = [torch.equal(encode_bwd(g[r0:r1], x[r0:r1], amask[r0:r1], *ws, **kw,
+                                     token0=CHUNKED_TOKEN0 + r0 * s)[0], got[0][r0:r1])
+              for r0, r1 in chunk_pieces(plan, b)]
+    dxs, sums = [], None
+    for r0 in range(0, b, CHUNKED_PIECE):
+        r1 = min(r0 + CHUNKED_PIECE, b)
+        dx, *grads = encode_bwd(g[r0:r1], x[r0:r1], amask[r0:r1], *ws, **kw,
+                                token0=CHUNKED_TOKEN0 + r0 * s)
+        dxs.append(dx)
+        grads = [t.double() for t in grads]
+        sums = grads if sums is None else [p + q for p, q in zip(sums, grads)]
+    want = (torch.cat(dxs), *sums)
+    torch.cuda.synchronize()
+    worst, worst_norm, gate_free, bad = check_encoder_bwd(torch, got, want, "bfloat16")
+    limit = sum(t.numel() * t.element_size() for t in got) + WORKSPACE_BUDGET + PEAK_SLACK
+    ok = (whole > card_bytes and len(plan) >= 2 and same and all(pieces) and not bad
+          and got_l == want_l and rise <= limit)
+    log(f"[chunked backward] B={b} S={s} E={e} H={heads} L={layers} bf16 rate {DROP_RATE}: "
+        f"{b * s} tokens, whole-call workspace {whole} bytes (the card holds {card_bytes}), in "
+        f"{len(plan)} chunks of {plan[0][1]} rows, token base {CHUNKED_TOKEN0}; {ms:.3f} ms = "
+        f"{b * s / ms * 1e3:.0f} tokens/s; repeat bit-identical {same}; dx of {len(pieces)} "
+        f"whole calls of {CHUNKED_PIECE} rows (first, across each boundary, last) bit for bit "
+        f"{pieces}; against the fp64 sum of {len(dxs)} whole calls of {CHUNKED_PIECE} rows: "
+        f"max_abs_err={worst:.3e}, largest |d|/|want| {worst_norm:.3e} (bars ENC_BWD_TOL, "
+        f"ENC_BWD_NORM_TOL {ENC_BWD_NORM_TOL['bfloat16']:.3e}), gate-free {gate_free:.3e}, out "
+        f"of the bars {bad}; launches {got_l} (expected {want_l}); max_memory_allocated rose "
+        f"{rise} bytes (bound {limit}) on {card} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit("phase 7e (c): a call past MAX_TOKENS was not refused up front")
+        raise SystemExit("phase 7e (c) (b): the chunked backward failed")
+    return launched
 
 
-def outside_phase(torch, train, valid, store, root, card, counted) -> dict:
+def chunked_serve(torch, server, rows, card, counted) -> dict:
+    """Phase 7e (c) (c): sasrec_fibinet_ml1m's export (7e (b)) through
+    Predictor.score_table at batch_size CHUNKED_SERVE[1] over the
+    CHUNKED_SERVE[0] rows it trained on (max_len 200): two batches whose
+    encoder calls are each past MAX_TOKENS, so chunked. Exactly
+    call_launches' encoder launches and score_launches a batch; the
+    probabilities finite in (0, 1) and within TOL["fused_score"] of the
+    same table scored at B_FULL a batch (one chunk a call). Returns the
+    counted launches of the batch-65,536 run."""
+    from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import (
+        call_launches,
+        encode_fwd,
+        plan_chunks,
+    )
+    from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
+
+    n, batch = CHUNKED_SERVE
+    shape = chunked_serve_shape()
+    plan = plan_chunks(*shape, torch.bfloat16, "fwd")
+    if rows.num_rows != n or server.compute_dtype != torch.bfloat16:
+        raise SystemExit(f"phase 7e (c) (c): {rows.num_rows} rows in {server.compute_dtype}")
+    n_batches = -(-n // batch)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    probs = server.score_table(rows, batch)
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t0
+    launched = {fn: fn.launches for fn in counted}
+    got_l = {fn.__name__: fn.launches for fn in counted}
+    per = {encode_fwd: call_launches(*shape, torch.bfloat16, "fwd"), score_fwd: score_launches()}
+    want_l = {fn.__name__: n_batches * per.get(fn, 0) for fn in counted}
+    t0 = time.perf_counter()
+    ref = server.score_table(rows, B_FULL)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    err, bad, bar = check_close("fused_score", torch.from_numpy(probs), torch.from_numpy(ref),
+                                "bfloat16")
+    sane = probs.shape == (n,) and bool(((probs > 0) & (probs < 1)).all())
+    ok = got_l == want_l and not bad and sane and server.use_fused and len(plan) >= 2
+    log(f"[chunked serve] sasrec_fibinet_ml1m score_table over {n} rows at batch_size {batch} "
+        f"(max_len {shape[1]}: {batch * shape[1]} tokens an encoder call, "
+        f"{len(plan)} chunks of {plan[0][1]} rows): {t_big:.3f} s = {n / t_big:.0f} rows/s (batch "
+        f"{B_FULL}: {t_ref:.3f} s = {n / t_ref:.0f} rows/s); against batch {B_FULL} "
+        f"max_abs_err={err:.3e}, {bad} outside {bar}; launches {got_l} (expected {want_l}) on "
+        f"{card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 7e (c) (c): score_table past MAX_TOKENS failed")
+    return launched
+
+
+def outside_phase(torch, train, valid, store, root, card, counted, ml1m, spied) -> dict:
     """Phase 7e (c): the shapes the JAX kernels run that lie outside the
     port's kernels' own multiples or past what their first designs took,
     each model otherwise at the full defaults: mm_fibinet at E = OUTSIDE_E
@@ -5274,8 +5585,11 @@ def outside_phase(torch, train, valid, store, root, card, counted) -> dict:
     a multiple of 8) and sasrec_fibinet with one head of WIDE_HEAD_E at
     max_len WIDE_HEAD_LEN (the streamed attention reading its heads from
     device memory in chunks; on a cut of phase 6's data made at that
-    max_len), trained, evaluated and served on the kernels; then the one
-    refusal left (refused_tokens). Returns each counted wrapper's launches
+    max_len), trained, evaluated and served on the kernels; then the
+    encoder at batches cut into chunks: (a) chunked_forward, (b)
+    chunked_backward and (c) chunked_serve of ``ml1m`` (7e (b)'s
+    sasrec_fibinet_ml1m Predictor and train rows), with ``spied``
+    (spy_plans) off over them. Returns each counted wrapper's launches
     over the cases."""
     from ctr_recommendation_tpu_torch.config import microlens_experiment
     from ctr_recommendation_tpu_torch.data import synthetic_splits
@@ -5325,7 +5639,13 @@ def outside_phase(torch, train, valid, store, root, card, counted) -> dict:
         outside_case(torch, tag, exp, *data, card, counted, launches, kind)
         for fn in counted:
             total[fn] += sum(calls[k] * launches[k].get(fn, 0) for k in calls)
-    refused_tokens(torch, card, counted)
+    spied["on"] = False  # the chunked cases: plans of more than one chunk
+    clock("7e (c) chunked")
+    for launched in (chunked_forward(torch, card, counted), chunked_backward(torch, card, counted),
+                     chunked_serve(torch, *ml1m, card, counted)):
+        for fn in counted:
+            total[fn] += launched[fn]
+    spied["on"] = True
     return total
 
 
@@ -6407,6 +6727,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = {"interaction_fwd": 0.0, "fused_score": 0.0, "interaction_bwd": 0.0}
+    workspace_grid(torch)
+    spied = spy_plans(torch)  # every encoder call's plan from here on
     worst["table_grad"], failures = table_grad_against_plain(torch)
     batches = (B_TRAIN, B_TRAIN + 37, B_FULL, B_RAGGED)
     failures += forward_against_plain(torch, worst, E, HIDDEN, batches)
@@ -6607,12 +6929,14 @@ def main(argv=None) -> int:
             encoder_timing(torch, card, on_card=True, **shape)
             encoder_bwd_timing(torch, card, on_card=True, **shape)
         clock("7e (b)")
-        long = long_history_phase(torch, root, card, counted, f"sasrec_fibinet_len{LONG_S}",
-                                  dict(max_len=LONG_S))
-        ml1m = long_history_phase(torch, root, card, counted, "sasrec_fibinet_ml1m", ML1M,
-                                  layers=ML1M["attn_num_layers"])
+        long, _, _ = long_history_phase(torch, root, card, counted,
+                                        f"sasrec_fibinet_len{LONG_S}", dict(max_len=LONG_S))
+        ml1m, *ml1m_serve = long_history_phase(torch, root, card, counted, "sasrec_fibinet_ml1m",
+                                               ML1M, layers=ML1M["attn_num_layers"])
         clock("7e (c)")
-        outside = outside_phase(torch, train, valid, train_store, root, card, counted)
+        outside = outside_phase(torch, train, valid, train_store, root, card, counted, ml1m_serve,
+                                spied)
+        del ml1m_serve
         long = {fn: long[fn] + ml1m[fn] + outside[fn] for fn in counted}  # 7e's launches
         # ---- phase 7f: the CLIs' main() on a parquet root ----
         clock("7f")
@@ -6695,6 +7019,7 @@ def main(argv=None) -> int:
 
     # ---- phase 8: result ----
     clock("8")
+    report_plans(spied, card)
     kernels = [
         {"name": "interaction_fwd", "route": "cuda",
          "source": "ctr_recommendation_tpu_torch/csrc/interaction.cu",

@@ -41,7 +41,9 @@
 // shape, 0.50 ms at 3.35 TB/s, the floor this design sets (a fused kernel
 // would keep them on chip). Launches: 1 + 7 L (the upcast of x, then LN1,
 // qkv, attention, proj, LN2, ffn1, ffn2 per layer; the last ffn2 writes
-// the output in cd).
+// the output in cd). The wrapper cuts a call of any batch into chunks of
+// rows (ops/cuda/sasrec_encoder.py plan_chunks), one call here a chunk,
+// each within in_envelope's rows and a bounded workspace.
 
 #include "sasrec_encoder.cuh"
 

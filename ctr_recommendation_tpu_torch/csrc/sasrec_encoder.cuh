@@ -1440,9 +1440,12 @@ inline GradLayout grad_layout(int N, int E, int L, int li) {
 }
 
 // out[dst[k] + u] = sum over z = 0..count-1, in that order, of gradient
-// k's partial z at u: one thread an output element of the layer.
+// k's partial z at u: one thread an output element of the layer. With
+// `accumulate` that sum is added to what out holds (a later chunk of a call
+// cut into chunks of rows: the chunks' sums added in chunk order).
 __global__ void __launch_bounds__(256)
-reduce_partials(const float* __restrict__ part, GradLayout lay, float* __restrict__ out) {
+reduce_partials(const float* __restrict__ part, GradLayout lay, float* __restrict__ out,
+                int accumulate) {
   size_t j = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
   if (j >= lay.out_total) return;
   int k = 0;
@@ -1450,7 +1453,8 @@ reduce_partials(const float* __restrict__ part, GradLayout lay, float* __restric
   const float* p = part + lay.base[k] + j;
   float acc = 0.f;
   for (int z = 0; z < lay.split[k].count; ++z) acc += p[z * lay.size[k]];
-  out[lay.dst[k] + j] = acc;
+  float* o = out + lay.dst[k] + j;
+  *o = accumulate ? *o + acc : acc;
 }
 
 // ---- host-side launches of the blocks ----
@@ -1573,8 +1577,10 @@ int launch_column_sums(const float* G, const float* X, T* gated, const Dropout& 
   return check_launch();
 }
 
-inline int launch_reduce(const float* part, const GradLayout& lay, float* out, cudaStream_t s) {
-  reduce_partials<<<static_cast<int>((lay.out_total + 255) / 256), 256, 0, s>>>(part, lay, out);
+inline int launch_reduce(const float* part, const GradLayout& lay, float* out, cudaStream_t s,
+                         int accumulate = 0) {
+  reduce_partials<<<static_cast<int>((lay.out_total + 255) / 256), 256, 0, s>>>(part, lay, out,
+                                                                               accumulate);
   return check_launch();
 }
 
@@ -1605,8 +1611,10 @@ inline bool shapes_ok(int S, int E, int H, int L) {
   return S >= 1 && E >= 1 && H >= 1 && E % H == 0 && L >= 1;
 }
 
-// A call's envelope (check_envelope): the shapes, and the grids' rows: B S
-// tokens within the products', S within the streamed attention's.
+// A call's envelope: the shapes, and the grids' rows: B S tokens within the
+// products', S within the streamed attention's. The wrapper cuts a call of
+// more tokens into chunks of rows (sasrec_encoder.py plan_chunks), each
+// inside; S stays bounded (check_envelope).
 inline bool in_envelope(int B, int S, int E, int H, int L) {
   return shapes_ok(S, E, H, L) && B >= 1 && static_cast<long long>(B) * S <= kMaxTokens &&
          S <= kMaxStreamS;

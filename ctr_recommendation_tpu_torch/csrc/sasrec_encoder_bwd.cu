@@ -48,7 +48,9 @@
 // (Widths), as in the forward. The recompute skips the last layer's ffn2
 // product, which no gradient reads.
 // Launches: 25 L + 1 (the upcast of x, 7 L - 1 recomputing, the upcast of
-// g, 18 a layer in reverse including the reduction).
+// g, 18 a layer in reverse including the reduction). The wrapper runs a
+// call of any batch as chunks of rows, one call here a chunk; a later
+// chunk's reductions add its gradients to the earlier chunks' (accumulate).
 
 #include "sasrec_encoder.cuh"
 
@@ -122,7 +124,7 @@ struct BwdWork {
 template <typename T>
 int encode_bwd(const T* g, const T* x, const float* amask, const Weights& w, const Dropout& drop,
                T* dx, float* out, int B, int S, int E_true, int H, int L, float scale,
-               char* workspace, cudaStream_t s) {
+               char* workspace, int accumulate, cudaStream_t s) {
   const int N = B * S;
   const Widths wd = widths(E_true, H);
   const int E = wd.Ep, Dp = wd.Dp;  // the kernels' widths
@@ -204,7 +206,7 @@ int encode_bwd(const T* g, const T* x, const float* amask, const Weights& w, con
       TRY(launch_ln_bwd<float>(wk.dn, r.xhat1, r.rstd1, lw.ln1_s, wk.dh, wk.dh, N, E, E_true, s));
     else
       TRY(launch_ln_bwd<T>(wk.dn, r.xhat1, r.rstd1, lw.ln1_s, wk.dh, dx, N, E, E_true, s));
-    TRY(launch_reduce(part, lay, out, s));
+    TRY(launch_reduce(part, lay, out, s, accumulate));
   }
   return 0;
 }
@@ -232,10 +234,12 @@ extern "C" size_t sasrec_encode_bwd_workspace(int B, int S, int E, int H, int L,
 // at the padded widths as for sasrec_encode_fwd; amask (B, S) fp32; the 12
 // stacked weights padded as for sasrec_encode_fwd; seed, rate, inv_keep and
 // token0 the forward's. Writes dx and out, the 12 fp32 weight gradients (L,
-// ...) of the padded weights one after another in the weights' order. workspace
-// holds sasrec_encode_bwd_workspace bytes. Requires the forward's envelope
-// and 16-byte aligned pointers. Enqueues 25 L + 1 launches on
-// `stream`; returns the first cudaError_t that is not 0.
+// ...) of the padded weights one after another in the weights' order; with
+// accumulate, each layer's reduction adds them to what out holds instead (a
+// later chunk of rows of one call, the chunks' sums added in chunk order:
+// no launch more). workspace holds sasrec_encode_bwd_workspace bytes.
+// Requires the forward's envelope and 16-byte aligned pointers. Enqueues
+// 25 L + 1 launches on `stream`; returns the first cudaError_t that is not 0.
 extern "C" int sasrec_encode_bwd(const void* g, const void* x, const float* amask,
                                  const void* qkv_w, const float* qkv_b, const void* proj_w,
                                  const float* proj_b, const float* ln1_s, const float* ln1_b,
@@ -243,7 +247,8 @@ extern "C" int sasrec_encode_bwd(const void* g, const void* x, const float* amas
                                  const float* ffn2_b, const float* ln2_s, const float* ln2_b,
                                  const int64_t* seed, void* dx, float* out, void* workspace,
                                  int B, int S, int E, int H, int L, float scale, float rate,
-                                 float inv_keep, unsigned token0, int is_bf16, void* stream) {
+                                 float inv_keep, unsigned token0, int is_bf16, int accumulate,
+                                 void* stream) {
   if (!ctr::enc::in_envelope(B, S, E, H, L) ||
       !ctr::enc::dropout_ok(seed, rate))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -255,11 +260,12 @@ extern "C" int sasrec_encode_bwd(const void* g, const void* x, const float* amas
   if (is_bf16) {
     using T = __nv_bfloat16;
     return ctr::enc::encode_bwd<T>(static_cast<const T*>(g), static_cast<const T*>(x), amask, w,
-                                   drop, static_cast<T*>(dx), out, B, S, E, H, L, scale, ws, s);
+                                   drop, static_cast<T*>(dx), out, B, S, E, H, L, scale, ws,
+                                   accumulate, s);
   }
   return ctr::enc::encode_bwd<float>(static_cast<const float*>(g), static_cast<const float*>(x),
                                      amask, w, drop, static_cast<float*>(dx), out, B, S, E, H, L,
-                                     scale, ws, s);
+                                     scale, ws, accumulate, s);
 }
 
 // ---- the backward's blocks one by one, for the checks on the card ----

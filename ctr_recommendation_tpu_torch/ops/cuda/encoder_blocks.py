@@ -438,7 +438,7 @@ def bwd_lib():
         lib = build.load("sasrec_encoder_bwd")
         lib.sasrec_encode_bwd_workspace.argtypes = [_I] * 6
         lib.sasrec_encode_bwd_workspace.restype = ctypes.c_size_t
-        lib.sasrec_encode_bwd.argtypes = [_VP] * 19 + [_I] * 5 + [_F] * 3 + [_U, _I, _VP]
+        lib.sasrec_encode_bwd.argtypes = [_VP] * 19 + [_I] * 5 + [_F] * 3 + [_U, _I, _I, _VP]
         lib.sasrec_product_bwd.argtypes = [_I, _I, _VP, _VP] + [_I] * 5 + [_VP] * 3 + [_I, _VP]
         lib.sasrec_layer_norm_bwd.argtypes = [_VP] * 6 + [_I] * 5 + [_VP]
         lib.sasrec_attention_bwd.argtypes = [_VP] * 5 + [_I] * 5 + [_F, _I, _VP]

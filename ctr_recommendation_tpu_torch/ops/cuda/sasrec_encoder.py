@@ -8,11 +8,11 @@ whose ``jax.custom_vjp`` becomes the ``FusedEncoder`` autograd Function here.
 Bound on an H100: operations, both ways. At B=8192, S=20, E=128, one layer,
 the forward is 66.1 GFLOP against ~85 MB moved; at B=4096 the backward
 (which recomputes the forward and does two products per weight) is 99.2
-GFLOP against ~64 MB. Each is a sequence of launches over all B*S tokens,
+GFLOP against ~64 MB. Each is a sequence of launches over a chunk's tokens,
 built from the blocks of ``encoder_blocks`` (the tile product with fused
 epilogues on ``mma.sync``, LayerNorm, attention, column sums and their
-fixed-order reduction), enqueued by one C call: ``fwd_launches(L)`` and
-``bwd_launches(L)`` give the launches of one call. The attention is the
+fixed-order reduction), enqueued by one C call a chunk: ``fwd_launches(L)``
+and ``bwd_launches(L)`` give the launches of one chunk. The attention is the
 streamed pair (keys walked in tiles on the tensor cores in 3xTF32, any S,
 any head width), or the staged pair (fp32 on the CUDA cores) where
 ``encoder_blocks.attention_route`` says so.
@@ -42,10 +42,10 @@ Bernoulli statistics, another realization (docs/PARITY.md).
 enqueues its kernels (or raises), on a CPU tensor it runs its plain version.
 Their ``launches`` attributes count kernel launches. The kernels' envelope
 (``fits``, one predicate for both directions): S >= 1, E >= 1, E % H == 0,
-L >= 1, any head width D = E/H; bf16 or fp32, 0 <= rate
-< 1; and at a call B*S tokens up to ``MAX_TOKENS`` (the tile product's
-grid). Widths the kernels do not take as they are (E % 32 != 0 or D % 4 !=
-0: SASRec's own d = 50) run zero-padded (``padded_dims``: each head to Dp,
+L >= 1, any head width D = E/H; bf16 or fp32, 0 <= rate < 1; any B,
+and at a call S up to ``MAX_STREAM_S`` (``check_envelope``). Widths the
+kernels do not take as they are (E % 32 != 0 or D % 4 != 0: SASRec's own
+d = 50) run zero-padded (``padded_dims``: each head to Dp,
 the stream to Ep = H Dp, a multiple of 32): the wrappers pad x and the
 weights (``pad_weights``) and cut the output and the gradients back; the
 kernels take LayerNorm's statistics over the true E and the softmax scale
@@ -58,6 +58,20 @@ layer plus 4.8 KB a token and ~70 MB of weight-gradient partials; all
 scale with E, and the staged backward's softmax (B H S^2 floats) with
 S^2, where the streamed one keeps the fp32 output and (m, l) a query
 instead (0.5 KB a token a layer at E = 128).
+
+A call runs in chunks of whole rows (``plan_chunks``), as the TPU kernel's
+grid walks the batch in blocks of ``block_b`` rows: each chunk is the launch
+sequence above on its rows, within ``MAX_TOKENS`` tokens (the tile
+product's grid rows) and ``WORKSPACE_BUDGET`` bytes of workspace (from
+``fwd_workspace`` / ``bwd_workspace``, the C workspace functions in
+Python), at its own token base for the dropout masks. One workspace, of the
+first chunk's size, serves them all; padded widths are padded chunk by
+chunk; the backward's last reduction of each layer adds a later chunk's
+weight gradients to the earlier ones' (no launch more), in chunk order. The
+plan is a function of the shapes alone, so a call's result stays a function
+of its inputs, and a call that fits one chunk is the whole-call launch
+sequence. ``call_launches`` gives a call's launches. The CPU plain versions
+run through the same plan.
 """
 
 from __future__ import annotations
@@ -101,8 +115,13 @@ WEIGHT_NAMES = (
     "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b", "ln2_s", "ln2_b",
 )
 _MATRICES = ("qkv_w", "proj_w", "ffn1_w", "ffn2_w")
-MAX_TOKENS = 65535 * 128  # B*S: the tile product's grid rows (kMaxTokens)
+MAX_TOKENS = 65535 * 128  # B*S of one chunk: the tile product's grid rows (kMaxTokens)
 MAX_STREAM_S = 65535 * ATTN_BLOCK_ROWS  # S: the streamed attention's grid rows (kMaxStreamS)
+# Bytes of workspace one chunk of a call may take (plan_chunks). A constant:
+# the plan, and so a call's result, is a function of the shapes alone.
+WORKSPACE_BUDGET = 16 << 30
+_SPLIT_BLOCKS = 264  # kSplitBlocks: the blocks a split weight-gradient sum aims at
+_TILE = 128  # mma::BM = BN: the tile product's tile
 
 
 def padded_dims(e: int, num_heads: int) -> tuple[int, int]:
@@ -185,6 +204,92 @@ def bwd_launches(layers: int) -> int:
     backward, 2 LayerNorm backwards and the reduction of the layer's
     weight-gradient partials."""
     return 25 * layers + 1
+
+
+def _carve(pieces) -> int:
+    """Bytes a csrc/sasrec_encoder.cuh ``Carve`` takes for ``pieces`` (bytes
+    each, in order): every piece starts 256-byte aligned."""
+    used = 0
+    for n in pieces:
+        used = (used + n + 255) // 256 * 256
+    return used
+
+
+def _split_count(n: int, blocks: int) -> int:
+    """The chunks of ``split_for(N, blocks)`` (csrc/sasrec_encoder.cuh)."""
+    want = max(1, min(-(-_SPLIT_BLOCKS // blocks), -(-n // 64)))
+    chunk = -(-(-(-n // want)) // 64) * 64
+    return -(-n // chunk)
+
+
+def _partial_floats(n: int, ep: int) -> int:
+    """Floats of one layer's weight-gradient partials, ``grad_layout(N, Ep,
+    L, li).part_total``: each matrix (M, N) split over the tiles it
+    launches, the 13 Ep of vectors over the column sums' split."""
+    tiles = lambda m: -(-m // _TILE)  # noqa: E731
+    mats = ((ep, 3 * ep), (ep, ep), (ep, 4 * ep), (4 * ep, ep))  # qkv_w, proj_w, ffn1_w, ffn2_w
+    total = sum(_split_count(n, tiles(m) * tiles(c)) * m * c for m, c in mats)
+    return total + _split_count(n, tiles(ep)) * 13 * ep
+
+
+def fwd_workspace(b: int, s: int, e: int, num_heads: int, bf16: bool) -> int:
+    """Bytes of workspace ``encode_fwd``'s kernels take for B rows, the C
+    ``sasrec_encode_fwd_workspace`` in Python: fp32 h and qkv, cd hn, ao
+    and f1, token-major at the padded width."""
+    n, ep = b * s, padded_dims(e, num_heads)[0]
+    c = 2 if bf16 else 4
+    return _carve((4 * n * ep, c * n * ep, 12 * n * ep, c * n * ep, 4 * c * n * ep))
+
+
+def bwd_workspace(b: int, s: int, e: int, num_heads: int, layers: int, bf16: bool) -> int:
+    """Bytes of workspace ``encode_bwd``'s kernels take for B rows, the C
+    ``sasrec_encode_bwd_workspace`` in Python (inside the envelope): each
+    layer's residues, the attention's as its route keeps them (the staged
+    softmax, or the streamed fp32 output and (m, l) a query), the gradient
+    stream's buffers and one layer's weight-gradient partials."""
+    n, (ep, dp) = b * s, padded_dims(e, num_heads)
+    ne, c = n * ep, 2 if bf16 else 4
+    if attention_route(s, dp) == "staged":
+        attn = (4 * b * num_heads * s * s,)
+    else:
+        attn = (4 * ne, 8 * b * num_heads * s)
+    layer = (c * ne, 4 * ne, 4 * n, 12 * ne, *attn, c * ne, 4 * ne, 4 * n, c * ne, 4 * c * ne)
+    tail = (4 * ne, 4 * ne, c * ne, 16 * ne, 4 * c * ne, 4 * ne, 4 * _partial_floats(n, ep))
+    return _carve(layer * layers + tail)
+
+
+def plan_chunks(b: int, s: int, e: int, num_heads: int, layers: int, dtype: torch.dtype,
+                direction: str) -> tuple:
+    """The chunks of rows, ((r0, r1), ...) in row order, that a call of B
+    histories runs as, each the kernels' whole launch sequence on its rows
+    at its own token base, as the TPU kernel's grid walks the batch in
+    blocks of rows: as many rows a chunk as keep its B*S within MAX_TOKENS
+    and its workspace (``fwd_workspace`` or ``bwd_workspace``,
+    ``direction`` "fwd" or "bwd") within WORKSPACE_BUDGET, at least one. A
+    pure function of the shapes: no free-memory figure, no device."""
+    bf16 = dtype == torch.bfloat16
+    if direction == "fwd":
+        size = lambda r: fwd_workspace(r, s, e, num_heads, bf16)  # noqa: E731
+    elif direction == "bwd":
+        size = lambda r: bwd_workspace(r, s, e, num_heads, layers, bf16)  # noqa: E731
+    else:
+        raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction!r}")
+    lo, hi = 1, max(1, min(b, MAX_TOKENS // max(s, 1)))
+    if size(hi) <= WORKSPACE_BUDGET:
+        lo = hi
+    while lo < hi:  # the most rows whose workspace fits (it grows with the rows)
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if size(mid) <= WORKSPACE_BUDGET else (lo, mid - 1)
+    return tuple((r0, min(r0 + lo, b)) for r0 in range(0, b, lo))
+
+
+def call_launches(b: int, s: int, e: int, num_heads: int, layers: int, dtype: torch.dtype,
+                  direction: str) -> int:
+    """Kernel launches of one ``encode_fwd`` or ``encode_bwd`` call of B
+    rows: the launch sequence once a chunk (``plan_chunks``); summing the
+    chunks' weight gradients takes no launch of its own."""
+    per = fwd_launches(layers) if direction == "fwd" else bwd_launches(layers)
+    return per * len(plan_chunks(b, s, e, num_heads, layers, dtype, direction))
 
 
 def stack_weights(params: dict, dtype: torch.dtype) -> tuple:
@@ -350,25 +455,26 @@ def encode_bwd_plain(g, x, amask, *weights, num_heads, seed=None, rate=0.0,
 
 def fits(s: int, e: int, num_heads: int, layers: int) -> bool:
     """Whether the kernels take (S, E, H, L), both ways: a pure function of
-    the shapes, the C ``sasrec_encoder_fits`` (``in_envelope``) in Python.
+    the shapes, the C ``sasrec_encoder_fits`` (``shapes_ok``) in Python.
     S >= 1 with no bound of its own (the streamed attention past what shared
     memory holds), any E >= 1 (padded to the kernels' widths), H >= 1 with
     E % H == 0, any head width E / H (the streamed attention walks wide
-    heads' output columns in chunks), L >= 1. Still refused, at a call
-    (``check_envelope``): more than MAX_TOKENS tokens B*S or a history past
-    MAX_STREAM_S (the kernels' grid rows)."""
+    heads' output columns in chunks), L >= 1; any batch (cut into chunks,
+    ``plan_chunks``). Still refused, at a call (``check_envelope``): a
+    history past MAX_STREAM_S."""
     return s >= 1 and e >= 1 and num_heads >= 1 and e % num_heads == 0 and layers >= 1
 
 
-def check_envelope(s: int, e: int, num_heads: int, layers: int, tokens: int = 1) -> None:
-    """Raise unless the kernels take (S, E, H, L) (``fits``) in a call of
-    ``tokens`` (B*S) tokens: within MAX_TOKENS, S within MAX_STREAM_S (the C
-    ``in_envelope``)."""
-    if not fits(s, e, num_heads, layers) or tokens > MAX_TOKENS or s > MAX_STREAM_S:
+def check_envelope(s: int, e: int, num_heads: int, layers: int) -> None:
+    """Raise unless the kernels take (S, E, H, L) (``fits``) with S within
+    MAX_STREAM_S, the streamed attention's grid rows. Any B: a call runs in
+    chunks of rows (``plan_chunks``), each inside the C ``in_envelope``. The
+    S bound refuses nothing the JAX kernel runs: its attention holds each
+    block's (TB, S, S) scores a head, which no device holds at such S."""
+    if not fits(s, e, num_heads, layers) or s > MAX_STREAM_S:
         raise ValueError(
-            f"outside the kernels' envelope (S >= 1, E % H == 0, L >= 1; a "
-            f"call's B*S <= {MAX_TOKENS}, S <= {MAX_STREAM_S}): S={s}, E={e}, H={num_heads}, "
-            f"L={layers}, B*S={tokens}"
+            f"outside the kernels' envelope (S >= 1, E % H == 0, L >= 1, S <= {MAX_STREAM_S}, "
+            f"the streamed attention's grid rows): S={s}, E={e}, H={num_heads}, L={layers}"
         )
 
 
@@ -382,7 +488,7 @@ def _check_envelope(what, x, amask, weights, num_heads, seed, rate):
         raise ValueError(f"expected {len(WEIGHT_NAMES)} stacked weights, got {len(weights)}")
     b, s, e = x.shape
     layers = weights[0].shape[0]
-    check_envelope(s, e, num_heads, layers, b * s)
+    check_envelope(s, e, num_heads, layers)
     want = {
         "qkv_w": (layers, e, 3 * e), "qkv_b": (layers, 3 * e), "proj_w": (layers, e, e),
         "proj_b": (layers, e), "ln1_s": (layers, e), "ln1_b": (layers, e),
@@ -411,34 +517,54 @@ def _workspace(nbytes: int, device):
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
+def _aligned(t):
+    """t, or a copy of it where a chunk's view does not start 16-byte aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def encode_fwd(x, amask, *weights, num_heads, seed=None, rate=0.0, token0=0):
     """x (B, S, E) bf16/fp32, the pos-embedded history with pad rows zeroed;
     amask (B, S) fp32, -1e9 at pad keys; the 12 operands of
     ``stack_weights``; with ``rate`` > 0 the dropout seed, an int64 tensor
     (1,) on x's device, and ``token0`` the global token of row 0 -> the
     encoded history (B, S, E) in x's dtype (pad rows hold what the layers
-    left there)."""
+    left there). Runs in the chunks of rows of ``plan_chunks``, row r0's
+    tokens counted from token0 + r0 S."""
     check_dropout(seed, rate)
     if x.device.type == "cpu":
-        return encode_fwd_plain(x, amask, *weights, num_heads=num_heads, seed=seed, rate=rate,
-                                token0=token0)
+        kw = dict(num_heads=num_heads, seed=seed, rate=rate)
+        b, s, e = x.shape
+        chunks = plan_chunks(b, s, e, num_heads, weights[0].shape[0], x.dtype, "fwd")
+        if len(chunks) < 2:
+            return encode_fwd_plain(x, amask, *weights, **kw, token0=token0)
+        return torch.cat([encode_fwd_plain(x[r0:r1], amask[r0:r1], *weights, **kw,
+                                           token0=token0 + r0 * s) for r0, r1 in chunks])
     b, s, e, layers = _check_envelope("encode_fwd", x, amask, weights, num_heads, seed, rate)
-    if b == 0:
-        return torch.empty_like(x)
+    out = torch.empty_like(x)
+    chunks = plan_chunks(b, s, e, num_heads, layers, x.dtype, "fwd")
+    if not chunks:
+        return out
+    rows = chunks[0][1]
     ep = padded_dims(e, num_heads)[0]
-    xp, wp = pad_stream(x, ep), pad_weights(weights, e, num_heads)
-    out = torch.empty_like(xp)
+    wp = pad_weights(weights, e, num_heads)
     lib = fwd_lib()
-    ws = _workspace(lib.sasrec_encode_fwd_workspace(b, s, e, num_heads, is_bf16(x)), x.device)
-    seed_ptr, *drop = dropout_args(seed, rate, token0)
-    rc = lib.sasrec_encode_fwd(
-        xp.data_ptr(), amask.data_ptr(), *(t.data_ptr() for t in wp), seed_ptr,
-        out.data_ptr(), ws.data_ptr(), b, s, e, num_heads, layers, 1.0 / (e // num_heads) ** 0.5,
-        *drop, is_bf16(x), stream_of(x),
-    )
-    build.check(rc, "encode_fwd")
-    encode_fwd.launches += fwd_launches(layers)
-    return out if ep == e else out[..., :e].contiguous()
+    ws = _workspace(lib.sasrec_encode_fwd_workspace(rows, s, e, num_heads, is_bf16(x)), x.device)
+    padded = None if ep == e else torch.empty((rows, s, ep), dtype=x.dtype, device=x.device)
+    for r0, r1 in chunks:
+        # held until the launch: a freed copy's memory may back the next one
+        xc, ac = pad_stream(x[r0:r1], ep), _aligned(amask[r0:r1])
+        oc = out[r0:r1] if padded is None else padded[: r1 - r0]
+        seed_ptr, *drop = dropout_args(seed, rate, token0 + r0 * s)
+        rc = lib.sasrec_encode_fwd(
+            xc.data_ptr(), ac.data_ptr(), *(t.data_ptr() for t in wp), seed_ptr, oc.data_ptr(),
+            ws.data_ptr(), r1 - r0, s, e, num_heads, layers, 1.0 / (e // num_heads) ** 0.5,
+            *drop, is_bf16(x), stream_of(x),
+        )
+        build.check(rc, "encode_fwd")
+        encode_fwd.launches += fwd_launches(layers)
+        if padded is not None:
+            out[r0:r1] = oc[..., :e]
+    return out
 
 
 encode_fwd.launches = 0
@@ -448,11 +574,23 @@ def encode_bwd(g, x, amask, *weights, num_heads, seed=None, rate=0.0, token0=0):
     """g and x (B, S, E) in the compute dtype (g the cotangent of
     ``encode_fwd``'s output, x its input), amask (B, S), the 12 operands of
     ``stack_weights`` and the forward's seed, rate and token0 -> (dx in x's
-    dtype, the 12 weight gradients fp32 in the shapes of the weights)."""
+    dtype, the 12 weight gradients fp32 in the shapes of the weights). Runs
+    in the chunks of rows of ``plan_chunks``: dx chunk by chunk, the weight
+    gradients the chunks' sums added in chunk order."""
     check_dropout(seed, rate)
     if x.device.type == "cpu":
-        return encode_bwd_plain(g, x, amask, *weights, num_heads=num_heads, seed=seed,
-                                rate=rate, token0=token0)
+        kw = dict(num_heads=num_heads, seed=seed, rate=rate)
+        b, s, e = x.shape
+        chunks = plan_chunks(b, s, e, num_heads, weights[0].shape[0], x.dtype, "bwd")
+        if len(chunks) < 2:
+            return encode_bwd_plain(g, x, amask, *weights, **kw, token0=token0)
+        dxs, total = [], None
+        for r0, r1 in chunks:
+            dx, *grads = encode_bwd_plain(g[r0:r1], x[r0:r1], amask[r0:r1], *weights, **kw,
+                                          token0=token0 + r0 * s)
+            dxs.append(dx)
+            total = grads if total is None else [a + c for a, c in zip(total, grads)]
+        return (torch.cat(dxs), *total)
     b, s, e, layers = _check_envelope("encode_bwd", x, amask, weights, num_heads, seed, rate)
     if tuple(g.shape) != tuple(x.shape):
         raise ValueError(f"g has shape {tuple(g.shape)}, expected {tuple(x.shape)}")
@@ -461,26 +599,34 @@ def encode_bwd(g, x, amask, *weights, num_heads, seed=None, rate=0.0, token0=0):
     wp = pad_weights(weights, e, num_heads)
     sizes = [t.numel() for t in wp]  # the gradients, one after another
     out = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    xp, gp = pad_stream(x, ep), pad_stream(g, ep)
-    dx = torch.empty_like(xp)
-    if b > 0:
+    dx = torch.empty_like(x)
+    chunks = plan_chunks(b, s, e, num_heads, layers, x.dtype, "bwd")
+    if chunks:
+        rows = chunks[0][1]
         lib = bwd_lib()
-        ws = _workspace(lib.sasrec_encode_bwd_workspace(b, s, e, num_heads, layers, is_bf16(x)),
-                        x.device)
-        seed_ptr, *drop = dropout_args(seed, rate, token0)
-        rc = lib.sasrec_encode_bwd(
-            gp.data_ptr(), xp.data_ptr(), amask.data_ptr(),
-            *(t.data_ptr() for t in wp), seed_ptr, dx.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            b, s, e, num_heads, layers, 1.0 / (e // num_heads) ** 0.5, *drop, is_bf16(x),
-            stream_of(x),
-        )
-        build.check(rc, "encode_bwd")
-        encode_bwd.launches += bwd_launches(layers)
+        ws = _workspace(lib.sasrec_encode_bwd_workspace(rows, s, e, num_heads, layers,
+                                                        is_bf16(x)), x.device)
+        padded = None if ep == e else torch.empty((rows, s, ep), dtype=x.dtype, device=x.device)
+        for i, (r0, r1) in enumerate(chunks):
+            gc, xc = pad_stream(g[r0:r1], ep), pad_stream(x[r0:r1], ep)
+            ac = _aligned(amask[r0:r1])
+            dc = dx[r0:r1] if padded is None else padded[: r1 - r0]
+            seed_ptr, *drop = dropout_args(seed, rate, token0 + r0 * s)
+            rc = lib.sasrec_encode_bwd(
+                gc.data_ptr(), xc.data_ptr(), ac.data_ptr(), *(t.data_ptr() for t in wp),
+                seed_ptr, dc.data_ptr(), out.data_ptr(), ws.data_ptr(), r1 - r0, s, e, num_heads,
+                layers, 1.0 / (e // num_heads) ** 0.5, *drop, is_bf16(x), int(i > 0),
+                stream_of(x),
+            )
+            build.check(rc, "encode_bwd")
+            encode_bwd.launches += bwd_launches(layers)
+            if padded is not None:
+                dx[r0:r1] = dc[..., :e]
     else:
         out.zero_()
     grads = unpad_grads([t.view(w.shape) for t, w in zip(torch.split(out, sizes), wp)], e,
                         num_heads)
-    return (dx if ep == e else dx[..., :e].contiguous(), *grads)
+    return (dx, *grads)
 
 
 encode_bwd.launches = 0

@@ -193,15 +193,18 @@ def test_the_wrappers_refuse_outside_the_envelope():
                                 (200, 50, 1, 2), (20, 288, 1, 1), (20, 512, 1, 1),
                                 (200, 1024, 1, 2)):
         enc.check_envelope(s, e, heads, layers)
-    enc.check_envelope(200, 128, 2, 1, tokens=enc.MAX_TOKENS)
-    enc.check_envelope(enc.MAX_STREAM_S, 32, 1, 1, tokens=enc.MAX_STREAM_S)
+    enc.check_envelope(enc.MAX_STREAM_S, 32, 1, 1)
     assert enc.fits(enc.MAX_STREAM_S + 1, 32, 1, 1)  # fits has no S bound: the call's grid has
-    for s, e, heads, layers, tokens in ((20, 288, 5, 1, 1), (20, 128, 3, 1, 1),
-                                        (20, 128, 2, 0, 1), (0, 128, 2, 1, 1),
-                                        (200, 128, 2, 1, enc.MAX_TOKENS + 1),
-                                        (enc.MAX_STREAM_S + 1, 32, 1, 1, enc.MAX_STREAM_S + 1)):
+    # any batch: a call of MAX_TOKENS + 1 tokens (19 x 441,499) is taken, in two chunks of rows
+    b, s = 441_499, 19
+    assert b * s == enc.MAX_TOKENS + 1
+    enc.check_envelope(s, 32, 2, 1)
+    plan = enc.plan_chunks(b, s, 32, 2, 1, torch.bfloat16, "fwd")
+    assert plan == ((0, b - 1), (b - 1, b)) and (b - 1) * s <= enc.MAX_TOKENS
+    for s, e, heads, layers in ((20, 288, 5, 1), (20, 128, 3, 1), (20, 128, 2, 0), (0, 128, 2, 1),
+                                (enc.MAX_STREAM_S + 1, 32, 1, 1)):
         with pytest.raises(ValueError, match="envelope"):
-            enc.check_envelope(s, e, heads, layers, tokens)
+            enc.check_envelope(s, e, heads, layers)
 
 
 # ------------------------------------------------------------ the encoder at E=256
