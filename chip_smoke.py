@@ -17,11 +17,17 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    grid]`); from here on every encoder call's chunk plan is recorded
    (spy_plans). Then table_grad (csrc/table_grad.cu, the table gradient of
    every gather) at table_grad_cases' shapes (the likes_level table's step,
-   8192 ids into 129 rows; the item table's, 86,016 pad-heavy ids into
-   91,777; E = 10 and 256; ids in the cut-off row; each model rank's local
-   shape of a row-sharded item table) against its plain version in fp64,
-   within TG_NORM_TOL in norm, TG_REPEATS calls on the same inputs
-   bit-identical, and its C predicate against fits. Then the interaction forward and the fused scoring kernel at the
+   8192 ids into 129 rows: the shared path; the item table's, 86,016
+   pad-heavy ids into 91,777: the sorted path; E = 10 on both and 256; ids
+   in the cut-off row; each model rank's local shape of a row-sharded item
+   table; the shared path's largest table and one row more; one row taking
+   every id; no ids; ids out of range) against its plain version in fp64, within
+   TG_NORM_TOL in norm, bit for bit table_grad_order (its order in fp32 on
+   the CPU), launches(n, rows, E) launches a call, TG_REPEATS calls on the
+   same inputs bit-identical; segmented calls as the call sites make them
+   (two features; a transposed history cotangent; MAX_SEGMENTS segments)
+   bit for bit the call on their concatenation; its C predicate against
+   fits and its C plan against plan. Then the interaction forward and the fused scoring kernel at the
    training batch 4096, the serving batch 8192 and each plus a ragged 37
    (F=6, E=128, tower 2688->512->256->1), the forward's repeat launch
    bit-identical and in bf16 also within FWD_NORM_TOL in norm, which a
@@ -77,8 +83,9 @@ Phases, in order; any failure exits non-zero and prints no result line. A
 3. Time each kernel and its plain version with CUDA events (median of 30
    after warm-up) beside the bound the card sets for the same work
    (table_grad at the item and likes_level tables' step shapes, the sort
-   included, beside fp32 index_add_ and embedding_dense_backward, the
-   library call, with torch.profiler's split); for the
+   included, beside its plain version, fp32 index_add_ and
+   embedding_dense_backward, the library call, with torch.profiler's split
+   a launch); for the
    encoder also nn.TransformerEncoderLayer (the library yardstick, checked
    against the plain version in fp32 first): its forward, and for the
    backward its forward + backward minus its forward, at E=128 and E=256,
@@ -119,8 +126,9 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    plain path in fp32, then Trainer.fit_on_device for 2 epochs (128 steps):
    loss finite and falling, best valid AUC > 0.6, exact launch counts of
    both interaction kernels (fwd_launches() and bwd_launches() a step) and
-   of table_grad (TG_TABLES calls of launches() a step, in every training
-   run below too; TG_FEATURES over row-sharded tables), a
+   of table_grad (tg_step_launches: launches(n, rows, E) summed over the
+   step's table shapes, one call a table, in every training run below too;
+   one a feature over row-sharded tables), a
    resume point and the best export written;
    examples/s per epoch and one step split into forward+loss, backward and
    optimizer with CUDA events, then torch.profiler over three more steps
@@ -165,7 +173,7 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    GRAD_FLOOR with the 1-process gates replayed, DP_PARAM_TOL); the
    replicated leaves bit for bit equal on all ranks, each shard across its
    data group; fwd_launches() + bwd_launches() interaction launches and
-   TG_FEATURES x launches() table_grad launches a rank; at 1 x 2 the
+   tg_step_launches table_grad launches a rank; at 1 x 2 and 2 x 2 the
    one-step probe (repeat_probe) on each rank first: no leaf apart. At 1 x 2 also a lazy adam step (table_optimizer "adam") for each
    forced strategy against one process's: every row of the tables and of
    the moments one process left alone bit for bit, the others within 2 lr,
@@ -222,8 +230,8 @@ Phases, in order; any failure exits non-zero and prints no result line. A
 7c. After phase 7, at the same full defaults: (a) Trainer.profile_epoch
    on phase 6's train split (64 steps an epoch, an untraced epoch then a
    traced one): exactly 2 x 64 x fwd_launches() interaction_fwd,
-   2 x 64 x bwd_launches() interaction_bwd and 2 x 64 x TG_TABLES x
-   launches() table_grad launches, state.step 128, no
+   2 x 64 x bwd_launches() interaction_bwd and 2 x 64 x tg_step_launches
+   table_grad launches, state.step 128, no
    metrics.csv, one trace file (rank0.pt.trace.json) of valid JSON whose
    hand-written kernels (the ctr:: namespace) ran exactly one epoch's
    launches; the traced epoch's wall, device-busy share and ten longest
@@ -569,10 +577,6 @@ FIT_AUC_TOL = 0.01
 # moves a row by the term itself
 TG_NORM_TOL = 1e-6
 TG_REPEATS = 10  # calls on the same inputs, bit-identical
-# a step's table_grad calls: one a table (item_id: item_id + item_seq;
-# likes_level: likes_level + views_level), dense or sparse, every model;
-# over row-sharded tables (6i) one a feature, as the lookups are not merged
-TG_TABLES, TG_FEATURES = 2, 4
 WINDOW_GROUPS = 13  # numpy row groups cut from the train split, uneven sizes
 FIT_STEPS_TIMED = 24  # steps timed (host clock) and then profiled, a run
 
@@ -2313,19 +2317,34 @@ def table_grad_cases(torch) -> list[tuple]:
     """Phase 2's table_grad shapes, (tag, ids on the card, rows, E), from
     phase 4's row generator at the training batch: the shared likes_level
     table's step (likes_level + views_level, 8192 ids into 128 + 1 rows,
-    the one-step probe's shape); the item table's (item_id + the 20-item
-    history: 86,016 ids, pad-heavy, into 91,776 + 1 rows); E = 10 and 256;
-    ids in the cut-off row; the row-sharded local shape (each model rank
-    of 2: rows_per + 1 rows, the ids it does not own in the last)."""
+    the one-step probe's shape: the shared path); the item table's
+    (item_id + the 20-item history: 86,016 ids, pad-heavy, into 91,776 + 1
+    rows: the sorted path); E = 10 on both paths and 256; ids in the cut-off
+    row; the row-sharded local shape (each model rank of 2: rows_per + 1
+    rows, the ids it does not own in the last); each path's edges: the
+    largest table of the shared path (320 x 128 x 4 B = SHARED_BYTES) and
+    one row more, one row taking all 86,016 ids (336 chunks), no ids; ids
+    out of range (negative, rows, 2^32 + 5: past int32) on both paths."""
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import SHARED_BYTES
+
     r = make_rows(B_TRAIN, seed=23)
     likes = np.concatenate([r["likes_level"], r["views_level"]])
     item = np.concatenate([r["item_id"], r["item_seq"].reshape(-1)])
     cut = likes.copy()
     cut[::7] = 128
     rows_per = 91_776 // MP
+    edge = SHARED_BYTES // (4 * E)
     cases = [("likes_level", likes, 129, E), ("item_id", item, 91_777, E),
-             ("likes_level E=10", likes, 129, 10), ("item_id E=256", item, 91_777, WIDE_E),
-             ("cut-off row", cut, 129, E)]
+             ("likes_level E=10", likes, 129, 10), ("item_id E=10", item, 91_777, 10),
+             ("item_id E=256", item, 91_777, WIDE_E), ("cut-off row", cut, 129, E),
+             ("shared edge", likes % edge, edge, E),
+             ("shared edge + 1 row", likes % (edge + 1), edge + 1, E),
+             ("one row takes every id", np.full_like(item, 5), 91_777, E),
+             ("no ids, shared", item[:0], 129, E), ("no ids, sorted", item[:0], 91_777, E)]
+    for tag, ids, rows in (("shared", likes, 129), ("sorted", item, 91_777)):
+        out = ids.astype(np.int64)  # ids out of range add nothing: negative, rows, past int32
+        out[::5], out[1::5], out[2::11] = -3, rows, 2**32 + 5
+        cases.append((f"ids out of range, {tag}", out, rows, E))
     for m in range(MP):
         local = item - m * rows_per
         cases.append((f"row-sharded, model rank {m} of {MP}",
@@ -2335,24 +2354,94 @@ def table_grad_cases(torch) -> list[tuple]:
             for tag, ids, rows, e in cases]
 
 
-def table_grad_repeats(torch, ids, cot, rows: int, first=None) -> tuple[int, float]:
-    """TG_REPEATS calls of table_grad on the same inputs: how many results
-    differ from the first (``first``, or the first call's), and by how much
-    at most."""
+def tg_step_shapes(exp, rows: int, world: int = 1) -> list[tuple[int, int, int]]:
+    """(ids, table rows, E) of each table_grad call in one train step of
+    ``exp`` on ``rows`` rows a rank, ``world`` data ranks: one a table over
+    its features' ids (a gathered table's into its row buffer: the step's
+    unique ids with the forced pad id, at most the table's rows), or over
+    row-sharded dense tables (model_parallel > 1) one a feature into its
+    shard; each into one extra row, the cut-off row. The step's launches
+    are ``tg_step_launches``."""
+    from ctr_recommendation_tpu_torch.features import build_feature_map
+    from ctr_recommendation_tpu_torch.models.trunk import round_up_vocab
+    from ctr_recommendation_tpu_torch.training import sparse
+
+    fm = build_feature_map(exp.dataset)
+    e, mp = exp.model.embedding_dim, exp.mesh.model_parallel
+    sparse_tables = exp.train.table_optimizer != "dense"
+    if mp > 1 and sparse_tables:
+        raise ValueError("tg_step_shapes: row-sharded sparse tables are not counted")
+    vocab = {t.name: round_up_vocab(t.vocab_size) for t in fm.tables}
+    shapes, ids = [], {}
+    for f in fm.features:
+        if f.name in fm.table_of:
+            t, n = fm.table_of[f.name], rows * (f.max_len or 1)
+            if mp > 1:
+                shapes.append((n, vocab[t] // mp + 1, e))
+            else:
+                ids[t] = ids.get(t, 0) + n
+    for t, n in ids.items():
+        count = 1 + n * world  # the step's ids over the ranks, the forced pad id included
+        gathered = sparse_tables and sparse.choose_strategy(vocab[t], count) == "gathered"
+        shapes.append((n, (min(count, vocab[t]) if gathered else vocab[t]) + 1, e))
+    return shapes
+
+
+def tg_step_launches(exp, rows: int | None = None, world: int = 1) -> int:
+    """table_grad's launches in one train step of ``exp`` (``rows`` rows a
+    rank, default the batch): launches(n, rows, E) summed over
+    tg_step_shapes."""
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches
+
+    rows = exp.train.batch_size if rows is None else rows
+    return sum(launches(*s) for s in tg_step_shapes(exp, rows, world))
+
+
+def table_grad_repeats(torch, segments, rows: int, first=None) -> tuple[int, float]:
+    """TG_REPEATS calls of table_grad on the same (ids, cot) segments: how
+    many results differ from the first (``first``, or the first call's), and
+    by how much at most."""
     from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
 
-    outs = [table_grad(ids, cot, rows) for _ in range(TG_REPEATS)]
+    outs = [table_grad(segments, rows) for _ in range(TG_REPEATS)]
     first = outs[0] if first is None else first
     return (sum(not torch.equal(o, first) for o in outs),
             max(float((o - first).abs().max()) for o in outs))
 
 
+def table_grad_segment_cases(torch) -> list[tuple]:
+    """(tag, segments, rows) of phase 2's segmented calls, as the call sites
+    pass them: the likes_level table's two features; the item table's
+    item_id and its history's ids (20, 4096) with the cotangent a transposed
+    view of a (4096, 20, E) tensor, as the mean-pooled history's comes; the
+    item ids cut into MAX_SEGMENTS uneven segments."""
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import MAX_SEGMENTS
+
+    r = make_rows(B_TRAIN, seed=23)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    cuda = lambda a: torch.from_numpy(a.astype(np.int64)).cuda()  # noqa: E731
+    cot = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+    likes = [(cuda(r["likes_level"]), cot(B_TRAIN, E)), (cuda(r["views_level"]), cot(B_TRAIN, E))]
+    seq = r["item_seq"]
+    item = [(cuda(r["item_id"]), cot(B_TRAIN, E)),
+            (cuda(seq.T.copy()), cot(B_TRAIN, seq.shape[1], E).transpose(0, 1))]
+    flat = np.concatenate([r["item_id"], seq.reshape(-1)])
+    cuts = np.sort(np.random.default_rng(31).choice(len(flat), MAX_SEGMENTS - 1, replace=False))
+    pieces = np.split(flat, cuts)
+    many = [(cuda(p), cot(len(p), E)) for p in pieces]
+    return [("likes_level, 2 segments", likes, 129), ("item_id, 2 segments", item, 91_777),
+            (f"item_id, {MAX_SEGMENTS} segments", many, 91_777)]
+
+
 def table_grad_against_plain(torch) -> tuple[float, list]:
     """Phase 2: table_grad at each of table_grad_cases' shapes against its
-    plain version in fp64, within TG_NORM_TOL in norm (the largest
-    absolute gap logged), launches() launches a call, and TG_REPEATS calls
-    bit-identical; then the C predicate against fits on the envelope's
-    edges. Returns (the largest absolute gap, failures)."""
+    plain version in fp64, within TG_NORM_TOL in norm (the largest absolute
+    gap logged), bit for bit table_grad_order (the kernel's order, in fp32
+    on the CPU), launches(n, rows, E) launches a call, and TG_REPEATS calls
+    bit-identical; table_grad_segment_cases' segmented calls bit for bit
+    the call on their concatenation; then the C predicate against fits and
+    the C plan against plan on the envelope's edges. Returns (the largest
+    absolute gap, failures)."""
     from ctr_recommendation_tpu_torch.ops.cuda import table_grad as tg
 
     worst, failures = 0.0, []
@@ -2360,56 +2449,90 @@ def table_grad_against_plain(torch) -> tuple[float, list]:
         cot = torch.randn(len(ids), e, device="cuda",
                           generator=torch.Generator(device="cuda").manual_seed(i))
         tg.table_grad.launches = 0
-        got = tg.table_grad(ids, cot, rows)
+        got = tg.table_grad([(ids, cot)], rows)
         launched = tg.table_grad.launches
-        want = tg.table_grad_plain(ids, cot.double(), rows)
+        want = tg.table_grad_plain([(ids, cot.double())], rows)
         torch.cuda.synchronize()
-        gap, err = norm_gap(got, want), float((got.double() - want).abs().max())
-        differ, moved = table_grad_repeats(torch, ids, cot, rows, got)
+        norm = float(want.norm())
+        gap = norm_gap(got, want) if norm else float(got.abs().max())
+        err = float((got.double() - want).abs().max())
+        order = torch.equal(got.cpu(), tg.table_grad_order([(ids, cot)], rows))
+        differ, moved = table_grad_repeats(torch, [(ids, cot)], rows, got)
         touched = int(torch.unique(ids).numel())
-        ok = (gap <= TG_NORM_TOL and differ == 0 and launched == tg.launches()
+        p = tg.plan(len(ids), rows, e)
+        ok = (gap <= TG_NORM_TOL and order and differ == 0 and launched == p.launches
               and got.shape == (rows, e) and got.dtype == torch.float32)
         worst = max(worst, err)
         log(f"[compare] table_grad {tag}: {len(ids)} ids ({touched} rows touched) into "
-            f"({rows}, {e}): |d|/|want| {gap:.3e} against the fp64 plain version (tolerance "
-            f"{TG_NORM_TOL:g}), max|d| {err:.3e}; {TG_REPEATS} calls on the same inputs, "
-            f"{differ} differ from the first (max|d| {moved:.1e}); {launched} launches "
+            f"({rows}, {e}), the {p.path} path: |d|/|want| {gap:.3e} against the fp64 plain "
+            f"version (tolerance {TG_NORM_TOL:g}), max|d| {err:.3e}; bit for bit the order "
+            f"mirror on the CPU: {order}; {TG_REPEATS} calls on the same inputs, {differ} differ "
+            f"from the first (max|d| {moved:.1e}); {launched} launches (plan {p.launches}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"table_grad {tag}")
+    for tag, segs, rows in table_grad_segment_cases(torch):
+        n, e = sum(i.numel() for i, _ in segs), segs[0][1].shape[-1]
+        tg.table_grad.launches = 0
+        got = tg.table_grad(segs, rows)
+        launched = tg.table_grad.launches
+        flat = [(torch.cat([i.reshape(-1) for i, _ in segs]),
+                 torch.cat([c.reshape(-1, e) for _, c in segs]))]
+        same = torch.equal(got, tg.table_grad(flat, rows))
+        differ, _ = table_grad_repeats(torch, segs, rows, got)
+        ok = same and differ == 0 and launched == tg.launches(n, rows, e)
+        log(f"[compare] table_grad {tag} ({[tuple(c.shape) for _, c in segs]}, contiguous "
+            f"{[c.is_contiguous() for _, c in segs]}): bit for bit the call on their "
+            f"concatenation: {same}; {TG_REPEATS} calls, {differ} differ; {launched} launches "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"table_grad {tag}")
     lib = tg._kernel_lib()
-    edges = [(n, r, e) for n in (-1, 0, 1, tg.MAX_IDS, tg.MAX_IDS + 1)
-             for r in (0, 1, tg.MAX_ROWS, tg.MAX_ROWS + 1) for e in (0, 1, 10, 1 << 20)]
+    edge = tg.SHARED_BYTES // 4
+    edges = [(n, r, e, k) for n in (-1, 0, 1, tg.SLICE, tg.SLICE * tg.MAX_SLICES + 1, tg.MAX_IDS,
+                                     tg.MAX_IDS + 1)
+             for r in (0, 1, 320, 321, edge, edge + 1, tg.MAX_ROWS, tg.MAX_ROWS + 1)
+             for e in (0, 1, 10, 128, 1 << 20) for k in (0, 1, tg.MAX_SEGMENTS,
+                                                       tg.MAX_SEGMENTS + 1)]
     apart = [x for x in edges if bool(lib.table_grad_fits(*x)) != tg.fits(*x)]
-    log(f"[compare] table_grad fits: the C predicate and the Python one on {len(edges)} "
-        f"points of the envelope's edges, {len(apart)} apart {apart}")
-    if apart:
-        failures.append("table_grad fits")
+    plans = {x[:3] for x in edges}
+    plan_apart = [x for x in sorted(plans)
+                  if tg.c_plan(*x) != (tg.plan(*x) if tg.fits(*x) else None)]
+    log(f"[compare] table_grad fits and plan: the C predicate and the Python one on "
+        f"{len(edges)} points of the envelope's edges, {len(apart)} apart {apart}; the C plan "
+        f"and the Python one on {len(plans)} shapes, {len(plan_apart)} apart {plan_apart}")
+    if apart or plan_apart:
+        failures.append("table_grad fits / plan")
     return worst, failures
 
 
 def table_grad_timing(torch, card) -> dict:
-    """Phase 3: table_grad (the sort and both passes) at the item table's and
-    the likes_level table's step shapes, beside its plain version (fp32
-    index_add_), the library call (aten's dense embedding backward, which
-    the port never calls) and the byte bound (the ids read once, 8 B, the
-    cotangents once, the gradient written once). Returns the item table's
-    times (the kernels line's)."""
-    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad, table_grad_plain
+    """Phase 3: table_grad at the item table's (the sorted path: the key
+    sort and both passes) and the likes_level table's step shapes
+    (the shared path), each launch's device time (kernel_split), beside its
+    plain version, fp32 index_add_ alone, the library call (aten's dense
+    embedding backward, which the port never calls) and the byte bound (the
+    ids read once, 8 B, the cotangents once, the gradient written once).
+    Returns the item table's times (the kernels line's)."""
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import plan, table_grad, table_grad_plain
 
     out = {}
     for tag, ids, rows, e in table_grad_cases(torch)[:2]:  # likes_level, then item_id
         cot = torch.randn(len(ids), e, device="cuda",
                           generator=torch.Generator(device="cuda").manual_seed(1))
         nbytes = 8 * len(ids) + 4 * e * (len(ids) + rows)
-        t = {"ms": time_ms(torch, lambda: table_grad(ids, cot, rows)),
-             "plain_ms": time_ms(torch, lambda: table_grad_plain(ids, cot, rows)),
+        segs = [(ids, cot)]
+        t = {"ms": time_ms(torch, lambda: table_grad(segs, rows)),
+             "plain_ms": time_ms(torch, lambda: table_grad_plain(segs, rows)),
              "library_ms": time_ms(torch, lambda: torch.ops.aten.embedding_dense_backward(
                  cot, ids, rows, -1, False)),
              **bound(nbytes, 0)}
-        log(f"[time] table_grad {tag}: {len(ids)} ids into ({rows}, {e}): {t} (bytes {nbytes}; "
-            f"library_ms: embedding_dense_backward) on {card}")
-        kernel_split(torch, lambda: table_grad(ids, cot, rows), f"table_grad {tag}", card)
+        index_add = time_ms(torch, lambda: torch.zeros(rows, e, device="cuda").index_add_(
+            0, ids, cot))
+        log(f"[time] table_grad {tag}: {len(ids)} ids into ({rows}, {e}), "
+            f"{plan(len(ids), rows, e)}: {t} (bytes {nbytes}; library_ms: "
+            f"embedding_dense_backward; fp32 index_add_ alone {index_add:.4f} ms) on {card}")
+        kernel_split(torch, lambda: table_grad(segs, rows), f"table_grad {tag}", card)
         out = t
     return out
 
@@ -2726,8 +2849,11 @@ def sparse_steps(torch, train, store, root, card, kernels: dict) -> None:
             for strategy, ratio in FORCE_STRATEGY.items():
                 sparse.GATHERED_MIN_VOCAB_RATIO = ratio
                 tag = f"sparse {kind} {strategy}"
+                # table_grad's launches over this strategy's table shapes
+                step = {fn: tg_step_launches(exp) if fn.__name__ == "table_grad" else k
+                        for fn, k in kernels.items()}
                 tr, batch, aux, grads, _ = gradient_check(torch, exp, train, store, root,
-                                                          kernels, tag)
+                                                          step, tag)
                 tables, tstate = tr.state.params["trunk"]["tables"], tr.state.table_opt_state
                 gathered = sorted(aux.uids)
                 if gathered != (sorted(tables) if strategy == "gathered" else []):
@@ -2835,8 +2961,10 @@ def sparse_fits(torch, train, valid, store, root, card, counted, per_step, per_e
         log(f"[sparse] {tag}: batch {bs}, table rows {vocab}, ids a step {ids}: {plan}")
         if plan["item_id"] != item_strategy:
             raise SystemExit(f"{tag}: the item table takes {plan['item_id']}")
+        step = {fn: tg_step_launches(exp) if fn.__name__ == "table_grad" else k
+                for fn, k in per_step.items()}
         runs[tag] = train_and_serve(torch, exp, train, valid, store, root, card, counted,
-                                    per_step=per_step, per_eval=per_eval, per_serve=per_serve,
+                                    per_step=step, per_eval=per_eval, per_serve=per_serve,
                                     tag=tag, probe=True)
     for tag, r in runs.items():
         eps = [round(h["examples_per_sec"]) for h in r["hist"]]
@@ -2998,14 +3126,17 @@ def host_driven(torch, train, valid, store, root, card, dense: dict, serve: dict
     # the card's step on identical inputs, twice: every leaf bit for bit
     batch = fm_trainer._ready(fm_trainer.put_batch(next(epoch_batches(0))))
     repeat_probe(torch, fm_trainer, batch, "mm_fibinet", card)
-    # the shared likes_level table's merged table gradient alone, on fixed inputs
-    ids = torch.cat([batch["likes_level"], batch["views_level"]]).to(torch.int64)
+    # the shared likes_level table's merged table gradient alone, on fixed inputs:
+    # one segment a feature, as the step passes them
     rows = fm_trainer.state.params["trunk"]["tables"]["likes_level"].shape[0] + 1
-    cot = torch.randn(len(ids), exp.model.embedding_dim, device=ids.device,
-                      generator=torch.Generator(device=ids.device).manual_seed(0))
-    differ, moved = table_grad_repeats(torch, ids, cot, rows)
-    log(f"[fit] table_grad of {len(ids)} ids into {rows} rows, the same inputs "
-        f"{TG_REPEATS} times: {differ} results differ from the first, max|d| {moved:.3e}")
+    gen = torch.Generator(device=batch["likes_level"].device).manual_seed(0)
+    segs = [(batch[f].to(torch.int64),
+             torch.randn(len(batch[f]), exp.model.embedding_dim, device=batch[f].device,
+                         generator=gen)) for f in ("likes_level", "views_level")]
+    differ, moved = table_grad_repeats(torch, segs, rows)
+    log(f"[fit] table_grad of {sum(len(i) for i, _ in segs)} ids in 2 segments into {rows} "
+        f"rows, the same inputs {TG_REPEATS} times: {differ} results differ from the first, "
+        f"max|d| {moved:.3e}")
     if differ:
         raise SystemExit("table_grad gave other bits on the same inputs")
     check_feeds(torch, fm_trainer, epoch_batches)
@@ -3265,7 +3396,7 @@ def zoo(torch, train, valid, store, root, card, counted, rows, dense: dict) -> N
     first ZOO_TRAIN rows of ``train``."""
     from ctr_recommendation_tpu_torch.config import microlens_experiment
     from ctr_recommendation_tpu_torch.data import TableData
-    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches, table_grad
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
 
     train = TableData({k: v[:ZOO_TRAIN] for k, v in train.columns.items()}, ZOO_TRAIN)
     runs, probes = {}, {}
@@ -3281,7 +3412,7 @@ def zoo(torch, train, valid, store, root, card, counted, rows, dense: dict) -> N
                 "bfloat16", B_TRAIN):
             raise SystemExit(f"the zoo's defaults moved: {exp}")
         run = train_and_serve(torch, exp, train, valid, store, root, card, counted,
-                              per_step={table_grad: TG_TABLES * launches()}, per_eval={},
+                              per_step={table_grad: tg_step_launches(exp)}, per_eval={},
                               per_serve={}, fused=False, probe=False)
         probes[name] = run["probe"]
         server = run.pop("server")
@@ -3645,7 +3776,7 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
         encode_fwd,
         fwd_launches,
     )
-    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches, table_grad
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.training import Trainer
 
     t_phase = time.perf_counter()
@@ -3679,7 +3810,9 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     torch.cuda.empty_cache()
     ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
     efwd, ebwd = fwd_launches(1), bwd_launches(1)
-    tgs = TG_TABLES * launches()
+    # a step's table_grad launches: a rank's (its bs / DP_WORLD rows), one process's
+    tgs = tg_step_launches(dp_experiment("", fp32=True), bs // DP_WORLD, world=DP_WORLD)
+    tgs_one = tg_step_launches(dp_experiment("", fp32=True), bs)
     if sasrec_ref["enc_launches"] != (efwd, ebwd):
         raise SystemExit(f"phase 6h sasrec_step: the 1-process step launched the encoder "
                          f"{sasrec_ref['enc_launches']}, expected ({efwd}, {ebwd})")
@@ -3780,7 +3913,7 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     (nccl,) = spawn_ranks(torch, dict(spec, name="nccl", backend="nccl", tasks=["step"]), 1,
                           root)
     step = nccl["step"]
-    if nccl["backend"] != "nccl" or step["launches"] != (ifwd, ibwd, tgs) or \
+    if nccl["backend"] != "nccl" or step["launches"] != (ifwd, ibwd, tgs_one) or \
             step["stats"]["calls"] < 1:
         raise SystemExit(f"phase 6h (c): backend {nccl['backend']}, launches {step['launches']}, "
                          f"collectives {step['stats']}")
@@ -3839,9 +3972,11 @@ def mp_step_task(torch, data: dict, spec: dict, rank: int) -> dict:
     n = bs // dp
     cols, row0 = distributed.host_local_to_global(
         {k: v[d * n : (d + 1) * n] for k, v in data["train"].columns.items()}, tr.mesh)
-    probe = None
-    if dp == 1:  # the one-step probe at 1 x MP, before the counted step
-        probe = repeat_probe(torch, tr, cols, f"6i 1x{MP} rank {rank}", DP_DEVICE, hard=False)
+    # the one-step probe on every rank, before the counted step: a leaf apart fails
+    # at 1 x MP in the parent (a rank that raised would leave the others waiting in a
+    # collective) and is logged at 2 x MP
+    probe = repeat_probe(torch, tr, cols, f"6i {dp}x{tr.mesh.shape['model']} rank {rank}",
+                         DP_DEVICE, hard=False)
     data_parallel.stats.update(calls=0, bytes=0)
     embedding.stats.update(dict.fromkeys(embedding.stats, 0))
     res = dp_step(torch, tr, cols, torch.load(spec["gates"]), (d, dp))
@@ -4110,7 +4245,6 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
         fwd_launches as inter_fwd_launches,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
-    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches
     from ctr_recommendation_tpu_torch.tools import jax_bridge
     from ctr_recommendation_tpu_torch.training import Trainer
 
@@ -4156,7 +4290,6 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
         sparse.GATHERED_MIN_VOCAB_RATIO = default_ratio
     torch.cuda.empty_cache()
     ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
-    tgs = TG_FEATURES * launches()  # a step's table_grad launches a rank
     mp_epochs = TRAIN_EPOCHS
     spec = {"inputs": inputs, "gates": gates, "ckpt": os.path.join(root, "mp_ckpt"),
             "backend": "gloo", "mp_epochs": mp_epochs, "sparse_gates": sparse_gates}
@@ -4165,6 +4298,8 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
         tasks = ["mp_step"] + (["mp_sparse", "mp_fit", "mp_lookup"] if dp == 1 else [])
         ranks = spawn_ranks(torch, dict(spec, name=f"mp{dp}x{mp}", tasks=tasks), dp * mp, root)
         results[(dp, mp)] = ranks
+        # a step's table_grad launches a rank: one call a feature on its data rank's rows
+        tgs = tg_step_launches(mp_experiment("", fp32=True, mp=mp), bs // dp, world=dp)
         for r, res in enumerate(ranks):
             step = res["mp_step"]
             if res["backend"] != "gloo" or step["launches"] != (ifwd, ibwd, tgs) or \
@@ -4183,6 +4318,11 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
                 f"({ex['row_bytes']} of rows), {ex['fallbacks']} fallbacks; other collectives "
                 f"{step['stats']['calls']}, {step['stats']['bytes']} bytes; sharded "
                 f"{step['sharded']}")
+        apart = {r: res["mp_step"]["probe"] for r, res in enumerate(ranks)
+                 if res["mp_step"]["probe"]}
+        log(f"[mp (a)] {dp}x{mp}: the one-step probe on {dp * mp} ranks (the row-sharded "
+            f"table_grad and the gloo all-reduce{'s' if dp > 1 else ''}), leaves apart "
+            f"{apart or 'none'}{'' if dp == 1 else ' (logged)'}")
         for d, got in enumerate(mp_assemble(torch, ranks, dp, mp)):
             worst = max(worst, dp_check_step(
                 torch, f"(a) {dp}x{mp} data rank {d}, {bs // dp} rows, tables in {mp} shards",
@@ -4230,6 +4370,7 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
         for h in fit["hist"]:
             log(f"[mp (b)] rank {r} epoch {int(h['epoch'])}: loss {h['train_loss']:.5f}, valid "
                 f"auc {h['auc']:.5f}, {h['seconds']:.3f} s train, {h['eval_seconds']:.3f} s eval")
+        tgs = tg_step_launches(mp_experiment("", fp32=False), bs)
         if fit["launches"] != (ifwd * (steps + eval_batches), ibwd * steps, tgs * steps):
             raise SystemExit(f"phase 6i (b) rank {r}: interaction and table_grad launches "
                              f"{fit['launches']}")
@@ -4359,13 +4500,12 @@ def profile_epoch_phase(torch, train, store, root, card) -> dict:
         interaction_bwd,
         interaction_fwd,
     )
-    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches as tg_launches
     from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.training import Trainer
 
     ckpt = os.path.join(root, "ckpt_profile")
-    tgs = TG_TABLES * tg_launches()
     exp = microlens_experiment(data_root="", checkpoint_dir=ckpt)
+    tgs = tg_step_launches(exp)
     steps = train.num_rows // exp.train.batch_size
     for attempt in range(3):
         log_dir = os.path.join(root, f"profile_{attempt}")
@@ -5251,7 +5391,7 @@ def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
         fwd_launches,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
-    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches, table_grad
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.tools import jax_bridge
     from ctr_recommendation_tpu_torch.training.checkpoint import CheckpointManager
     from ctr_recommendation_tpu_torch.training.metrics import auc
@@ -5272,7 +5412,7 @@ def long_history_phase(torch, root, card, counted, tag: str, model_kw: dict,
     res = train_and_serve(
         torch, exp, train, valid, store, root, card, counted,
         per_step={interaction_fwd: fi, interaction_bwd: bi, encode_fwd: ef, encode_bwd: eb,
-                  table_grad: TG_TABLES * launches()},
+                  table_grad: tg_step_launches(exp)},
         per_eval={interaction_fwd: fi, encode_fwd: ef},
         per_serve={score_fwd: score_launches(), encode_fwd: ef}, tag=tag)
     server = res["server"]
@@ -5605,7 +5745,6 @@ def outside_phase(torch, train, valid, store, root, card, counted, ml1m, spied) 
         padded_dims,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
-    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches as tg_launches
     from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
 
     def experiment(tag, **kw):
@@ -5620,11 +5759,10 @@ def outside_phase(torch, train, valid, store, root, card, counted, ml1m, spied) 
 
     fi, bi, ef, eb = ifwd_n(), ibwd_n(), fwd_launches(1), bwd_launches(1)
     total = {fn: 0 for fn in counted}
-    tgs = TG_TABLES * tg_launches()
-    per = {"step": {interaction_fwd: fi, interaction_bwd: bi, table_grad: tgs},
+    per = {"step": {interaction_fwd: fi, interaction_bwd: bi},
            "eval": {interaction_fwd: fi}, "serve": {score_fwd: score_launches()}}
     per_sasrec = {"step": {interaction_fwd: fi, interaction_bwd: bi, encode_fwd: ef,
-                           encode_bwd: eb, table_grad: tgs},
+                           encode_bwd: eb},
                   "eval": {interaction_fwd: fi, encode_fwd: ef},
                   "serve": {score_fwd: score_launches(), encode_fwd: ef}}
     calls = {"step": OUTSIDE_STEPS, "eval": 1, "serve": 2}
@@ -5636,6 +5774,8 @@ def outside_phase(torch, train, valid, store, root, card, counted, ml1m, spied) 
             (f"sasrec_fibinet E={WIDE_HEAD_E} H=1 max_len {WIDE_HEAD_LEN}",
              experiment("e512", model="sasrec_fibinet", embedding_dim=WIDE_HEAD_E,
                         attn_num_heads=1, max_len=WIDE_HEAD_LEN), per_sasrec, "wide head", wide)):
+        # a step's table_grad launches: the sum over this configuration's table shapes
+        launches = dict(launches, step={**launches["step"], table_grad: tg_step_launches(exp)})
         outside_case(torch, tag, exp, *data, card, counted, launches, kind)
         for fn in counted:
             total[fn] += sum(calls[k] * launches[k].get(fn, 0) for k in calls)
@@ -5894,7 +6034,7 @@ def cli_phase(torch, root: str, card: str, counted) -> dict:
     from ctr_recommendation_tpu_torch.cli import serve as cli_serve
     from ctr_recommendation_tpu_torch.cli import train as cli_train
     from ctr_recommendation_tpu_torch.cli import validate_dataset as cli_validate
-    from ctr_recommendation_tpu_torch.config import serialize
+    from ctr_recommendation_tpu_torch.config import microlens_experiment, serialize
     from ctr_recommendation_tpu_torch.config.schema import MeshConfig
     from ctr_recommendation_tpu_torch.data import ItemStore, load_split
     from ctr_recommendation_tpu_torch.features import build_feature_map
@@ -5909,7 +6049,7 @@ def cli_phase(torch, root: str, card: str, counted) -> dict:
         fwd_launches,
     )
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
-    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches, table_grad
+    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.tools import jax_bridge
 
     t_phase = time.perf_counter()
@@ -5946,8 +6086,10 @@ def cli_phase(torch, root: str, card: str, counted) -> dict:
     bs = B_TRAIN
     spe = CLI_SPLITS["train"] // bs
     evals = -(-CLI_SPLITS["valid"] // B_FULL)  # eval_batch_size 8192
-    tgs = TG_TABLES * launches()
-    mm_step = {interaction_fwd: fi, interaction_bwd: bi, table_grad: tgs}
+    # a step's table_grad launches at the CLIs' defaults (any item table past
+    # the shared path's edge takes the same launches)
+    mm_step = {interaction_fwd: fi, interaction_bwd: bi,
+               table_grad: tg_step_launches(microlens_experiment(data_root=""))}
 
     def mm_epochs(n):
         return {fn: k * n * spe + (fi if fn is interaction_fwd else 0) * n * evals
@@ -6153,7 +6295,9 @@ def cli_phase(torch, root: str, card: str, counted) -> dict:
                        "--checkpoint-dir", ckpt_sasrec], counted))
     cli_launches("train sasrec_fibinet", run, {
         interaction_fwd: fi * (spe + evals), interaction_bwd: bi * spe,
-        encode_fwd: ef * (spe + evals), encode_bwd: eb * spe, table_grad: tgs * spe})
+        encode_fwd: ef * (spe + evals), encode_bwd: eb * spe,
+        table_grad: spe * tg_step_launches(microlens_experiment(data_root="",
+                                                                model="sasrec_fibinet"))})
     cli_history("train sasrec_fibinet", ckpt_sasrec, 1, 1, card)
     out_dir = os.path.join(base, "out_sasrec")
     run = add(run_cli(torch, "predict sasrec_fibinet", cli_predict.main,
@@ -6684,7 +6828,6 @@ def main(argv=None) -> int:
     )
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
     from ctr_recommendation_tpu_torch.ops.cuda.scoring import score_fwd, score_launches
-    from ctr_recommendation_tpu_torch.ops.cuda.table_grad import launches as tg_launches
     from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
 
     # ---- phase 1: card, build ----
@@ -6886,7 +7029,9 @@ def main(argv=None) -> int:
     log(f"[train] synthetic data: {N_TRAIN} train + {N_VALID} valid rows, 91,717 items, "
         f"made in {time.perf_counter() - t0:.1f} s")
     counted = (interaction_fwd, interaction_bwd, score_fwd, encode_fwd, encode_bwd, table_grad)
-    tgs = TG_TABLES * tg_launches()  # table_grad's launches a train step
+    # table_grad's launches a train step at the MicroLens defaults, both models
+    # (the other configurations' are summed over their own table shapes)
+    tgs = tg_step_launches(microlens_experiment(data_root=""))
     enc_fwd, enc_bwd = fwd_launches(1), bwd_launches(1)  # one layer's kernel launches a call
     ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
     with tempfile.TemporaryDirectory() as root:
@@ -6954,10 +7099,11 @@ def main(argv=None) -> int:
         if (m.embedding_dim, m.attn_num_heads, m.attn_num_layers, m.attn_dropout,
                 sasrec_exp.train.batch_size) != (ENC_E, ENC_H, 1, DROP_RATE, B_TRAIN):
             raise SystemExit(f"sasrec_fibinet defaults moved: {m}")
+        sasrec_tgs = tg_step_launches(sasrec_exp)
         sasrec = train_and_serve(
             torch, sasrec_exp, train, valid, train_store, root, card, counted,
             per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, encode_fwd: enc_fwd,
-                      encode_bwd: enc_bwd, table_grad: tgs},
+                      encode_bwd: enc_bwd, table_grad: sasrec_tgs},
             per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd},
             per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd}, probe=True)
         # ---- phase 7b: phase 7's exports served over HTTP (serving/) ----
@@ -6971,7 +7117,7 @@ def main(argv=None) -> int:
         train_and_serve(
             torch, wide_sasrec, train, valid, train_store, root, card, counted,
             per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, encode_fwd: enc_fwd,
-                      encode_bwd: enc_bwd, table_grad: tgs},
+                      encode_bwd: enc_bwd, table_grad: tg_step_launches(wide_sasrec)},
             per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd},
             per_serve={score_fwd: score_launches(), encode_fwd: enc_fwd}, tag="sasrec_emb_256")
         # ---- phase 6c: emb_256_tower1024 (E=256, tower (1024, 512)) ----
@@ -6981,7 +7127,8 @@ def main(argv=None) -> int:
                                         checkpoint_dir=os.path.join(root, "ckpt_wide"))
         train_and_serve(
             torch, wide_exp, train, valid, train_store, root, card, counted,
-            per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, table_grad: tgs},
+            per_step={interaction_fwd: ifwd, interaction_bwd: ibwd,
+                      table_grad: tg_step_launches(wide_exp)},
             per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()},
             tag="emb_256_tower1024")
         # ---- phase 6e: sparse tables (both strategies, every kind; two fits) ----
@@ -7000,7 +7147,7 @@ def main(argv=None) -> int:
                     per_eval={interaction_fwd: ifwd},
                     sasrec_per_step={interaction_fwd: ifwd, interaction_bwd: ibwd,
                                      encode_fwd: enc_fwd, encode_bwd: enc_bwd,
-                                     table_grad: tgs},
+                                     table_grad: sasrec_tgs},
                     sasrec_per_eval={interaction_fwd: ifwd, encode_fwd: enc_fwd})
         # ---- phase 6g: the model zoo, no kernel on its path ----
         clock("6g")

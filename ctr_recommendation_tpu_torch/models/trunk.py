@@ -21,7 +21,7 @@ from ctr_recommendation_tpu_torch.config.schema import FeatureType, ModelConfig
 from ctr_recommendation_tpu_torch.features.feature_map import FeatureMap
 from ctr_recommendation_tpu_torch.ops import attention, pooling
 from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import fused_encode
-from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
+from ctr_recommendation_tpu_torch.ops.cuda.table_grad import MAX_SEGMENTS, table_grad
 from ctr_recommendation_tpu_torch.ops.initializers import (
     embedding_init,
     linear_apply,
@@ -89,10 +89,11 @@ def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     count from the end, then out-of-range ids are clamped (never a device
     fault) and, as the transpose of JAX's gather drops them, contribute no
     gradient. The backward is ``table_grad``'s (ops/cuda/table_grad.py), not
-    indexing's: it sums the rows of repeated ids by sorting them, in a
-    fixed order, where the indexing backward on CUDA walks each id's
-    repeats serially, and the pad id repeats tens of thousands of times in
-    a batch of histories."""
+    indexing's: it sums the rows of repeated ids in a fixed order (in
+    shared memory for a small table, by sorting the ids for a large one),
+    where the indexing backward on CUDA walks each id's repeats serially,
+    and the pad id repeats tens of thousands of times in a batch of
+    histories."""
     return TableLookup.apply(table, ids)[0]
 
 
@@ -112,9 +113,10 @@ def _wrap(ids: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 class TableLookup(torch.autograd.Function):
     """Gathers of one table by one or more id tensors; their backward is ONE
-    ``table_grad`` over the concatenated ids and cotangents, into a table
-    with one extra row that takes the out-of-range ids' cotangents and is
-    cut off."""
+    ``table_grad`` over the (ids, cotangent) segments as autograd leaves
+    them, one an id tensor (no concatenation; past ``MAX_SEGMENTS`` the last
+    ones are merged into one), into a table with one extra row that takes
+    the out-of-range ids' cotangents and is cut off."""
 
     @staticmethod
     def forward(ctx, table, *ids):
@@ -134,10 +136,13 @@ class TableLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *cots):
         ids = ctx.saved_tensors
-        e = cots[0].shape[-1]
-        flat_ids = torch.cat([i.reshape(-1) for i in ids])
-        flat_cot = torch.cat([c.reshape(-1, e) for c in cots])
-        dtable = table_grad(flat_ids, flat_cot, ctx.num_rows + 1)
+        segs = list(zip(ids, cots))
+        if len(segs) > MAX_SEGMENTS:
+            e = cots[0].shape[-1]
+            tail = segs[MAX_SEGMENTS - 1:]
+            segs[MAX_SEGMENTS - 1:] = [(torch.cat([i.reshape(-1) for i, _ in tail]),
+                                        torch.cat([c.reshape(-1, e) for _, c in tail]))]
+        dtable = table_grad(segs, ctx.num_rows + 1)
         return (dtable[: ctx.num_rows],) + (None,) * len(ids)
 
 

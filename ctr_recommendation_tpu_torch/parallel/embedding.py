@@ -189,7 +189,7 @@ class _ShardedLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (local,) = ctx.saved_tensors
-        d = table_grad(local, g.contiguous(), ctx.rows_per + 1)
+        d = table_grad([(local, g)], ctx.rows_per + 1)
         return (d[: ctx.rows_per],) + (None,) * 7
 
 

@@ -217,8 +217,9 @@ def multi_feature_lookup(table: torch.Tensor, *ids: torch.Tensor) -> tuple[torch
     """Per-feature gathers from one table (the trunk's ``gather``: negative
     ids count from the end, then clamp; an id out of range after that adds
     no gradient, as in JAX's ``.at[ids].add``) whose backward is ONE
-    ``table_grad`` over the concatenated ids and cotangents (a sorted sum in
-    a fixed order, not indexing's serial one), instead of one per feature.
+    ``table_grad`` over every feature's ids and cotangents, read in place
+    as segments (a sum in a fixed order, not indexing's serial one),
+    instead of one per feature.
     Mean-pooled sequences pass their ids transposed (S, B), as the trunk
     asks for them."""
     return TableLookup.apply(table, *ids)
