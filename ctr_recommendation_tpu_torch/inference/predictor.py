@@ -14,6 +14,12 @@
 * the zoo models (xdeepfm, din, ...) take the model's eval forward, plain
   PyTorch; only a tower named "mlp" is folded, as in the JAX Predictor
   (FinalMLP's two streams keep their BatchNorm, MaskNet has none).
+
+While a profiler runs, ``score_table`` marks its stages as spans
+(``utils/profiling.py``): ``score.upload``, ``score.batch`` a batch (the
+trunk's ``trunk`` and the kernels' spans inside it), ``score.download``;
+``Predictor.spans`` holds their times. ``uploaded_bytes`` counts the bytes
+of the host columns ``score_table`` copied to the device, traced or not.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ctr_recommendation_tpu_torch.models.registry import get_model
 from ctr_recommendation_tpu_torch.ops import mlp as mlp_ops
 from ctr_recommendation_tpu_torch.ops.cuda.scoring import prepare_score_params, score_fwd
 from ctr_recommendation_tpu_torch.utils.device import resolve_device
+from ctr_recommendation_tpu_torch.utils.profiling import RECORDER, span
 from ctr_recommendation_tpu_torch.utils.tree import tree_map
 
 
@@ -52,6 +59,7 @@ class Predictor:
     ):
         self.device = resolve_device(device)
         self.exp = experiment
+        self.uploaded_bytes = 0  # host column bytes score_table copied to the device
         self.fm = build_feature_map(experiment.dataset)
         self.module = get_model(experiment.model.model)
 
@@ -101,6 +109,11 @@ class Predictor:
                 bilinear_type=cfg.bilinear_type, compute_dtype=self.tower_dtype,
             )
 
+    @property
+    def spans(self):
+        """The process's span recorder (``utils.profiling.RECORDER``)."""
+        return RECORDER
+
     @torch.inference_mode()
     def _score(self, feats: dict[str, torch.Tensor]) -> torch.Tensor:
         """One batch of device columns -> click probabilities (B,) fp32."""
@@ -135,8 +148,9 @@ class Predictor:
         n = next(iter(cols.values())).shape[0]
         out = torch.empty(n, dtype=torch.float32, device=self.device)
         for start in range(0, n, batch_size):
-            batch = {k: v[start : start + batch_size] for k, v in cols.items()}
-            out[start : start + batch_size] = self._score(batch)
+            with span("score.batch"):
+                batch = {k: v[start : start + batch_size] for k, v in cols.items()}
+                out[start : start + batch_size] = self._score(batch)
         return out
 
     def _upload(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -173,10 +187,15 @@ class Predictor:
             if f.type in (FeatureType.PLACEHOLDER, FeatureType.DENSE_EMBEDDING)
         }
         cols = {}
-        for k, v in table.columns.items():
-            if k == self.fm.label or k in dead or k == "__weight__":
-                continue
-            if padded > n:
-                v = np.concatenate([v, np.zeros((padded - n, *v.shape[1:]), v.dtype)])
-            cols[k] = torch.as_tensor(v).to(self.device)
-        return self.score_batches(cols, batch_size)[:n].cpu().numpy()
+        with span("score.upload") as stage:
+            for k, v in table.columns.items():
+                if k == self.fm.label or k in dead or k == "__weight__":
+                    continue
+                if padded > n:
+                    v = np.concatenate([v, np.zeros((padded - n, *v.shape[1:]), v.dtype)])
+                cols[k] = torch.as_tensor(v).to(self.device)
+                self.uploaded_bytes += v.nbytes
+                stage.add_bytes(v.nbytes)
+        out = self.score_batches(cols, batch_size)
+        with span("score.download"):
+            return out[:n].cpu().numpy()

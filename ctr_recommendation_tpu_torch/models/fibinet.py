@@ -14,6 +14,7 @@ from ctr_recommendation_tpu_torch.ops import bilinear as bilinear_ops
 from ctr_recommendation_tpu_torch.ops import mlp as mlp_ops
 from ctr_recommendation_tpu_torch.ops import senet as senet_ops
 from ctr_recommendation_tpu_torch.ops.interaction import senet_bilinear_concat
+from ctr_recommendation_tpu_torch.utils.profiling import span, stage_boundary
 
 SEQ_POOLING = "mean"
 
@@ -55,18 +56,26 @@ def apply(
     train mode BatchNorm uses batch statistics (zero-``weight`` rows left
     out) and dropout (the tower's, and the attention encoder's under
     ``seq_pooling="attention"``) draws from ``generator``. ``lookup``
-    replaces the trunk's embedding gather (``trunk.apply``)."""
+    replaces the trunk's embedding gather (``trunk.apply``). While a profiler
+    runs, the interaction and the tower are spans and their backwards and
+    the trunk's are the stages ``tower.bwd``, ``interaction.bwd`` and
+    ``trunk.bwd`` (``utils/profiling.py``)."""
     x = trunk.apply(
         params["trunk"], fm, cfg, batch,
         seq_pooling=seq_pooling, compute_dtype=compute_dtype, train=train, generator=generator,
         lookup=lookup,
     )
-    h = senet_bilinear_concat(
-        params["senet"], params["bilinear"], x,
-        bilinear_type=cfg.bilinear_type, use_kernel=cfg.use_pallas,
-    )
-    logits, mlp_state = mlp_ops.apply(
-        params["mlp"], state["mlp"], h.to(trunk.tower_dtype(cfg, compute_dtype)),
-        train=train, dropout_rate=cfg.net_dropout, generator=generator, weight=weight,
-    )
-    return logits[..., 0].float(), {"mlp": mlp_state}
+    x = stage_boundary(x, "trunk.bwd")
+    with span("interaction"):
+        h = senet_bilinear_concat(
+            params["senet"], params["bilinear"], x,
+            bilinear_type=cfg.bilinear_type, use_kernel=cfg.use_pallas,
+        )
+    h = stage_boundary(h, "interaction.bwd")
+    with span("tower"):
+        logits, mlp_state = mlp_ops.apply(
+            params["mlp"], state["mlp"], h.to(trunk.tower_dtype(cfg, compute_dtype)),
+            train=train, dropout_rate=cfg.net_dropout, generator=generator, weight=weight,
+        )
+        logits = stage_boundary(logits[..., 0].float(), "tower.bwd")
+    return logits, {"mlp": mlp_state}

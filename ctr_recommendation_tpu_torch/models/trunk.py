@@ -29,6 +29,7 @@ from ctr_recommendation_tpu_torch.ops.initializers import (
 )
 from ctr_recommendation_tpu_torch.parallel import data_parallel
 from ctr_recommendation_tpu_torch.parallel.embedding import round_up_vocab
+from ctr_recommendation_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 
@@ -176,9 +177,16 @@ def apply(
     injects its merged-backward and row-buffer lookups here. The ids a
     feature passes are exactly ``batch[f.name]``, transposed (S, B) with
     ``batch_dim=1`` for mean-pooled sequences, so a lookup may match
-    pre-gathered embeddings to callers by (feature, shape)."""
+    pre-gathered embeddings to callers by (feature, shape). While a profiler
+    runs, the call is the span ``trunk`` (``utils/profiling.py``)."""
     _check_pooling(seq_pooling)
-    lookup = lookup or _default_lookup
+    with span("trunk"):
+        return _fields(params, fm, cfg, batch, seq_pooling, compute_dtype, train, generator,
+                       lookup or _default_lookup)
+
+
+def _fields(params, fm, cfg, batch, seq_pooling, compute_dtype, train, generator, lookup):
+    """``apply``'s field stack."""
     e = cfg.embedding_dim
     batch_size = next(
         (batch[f.name].shape[0] for f in fm.features if f.name in batch), None

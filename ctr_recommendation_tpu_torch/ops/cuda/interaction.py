@@ -85,6 +85,7 @@ import torch
 
 from ctr_recommendation_tpu_torch.ops.bilinear import pair_indices
 from ctr_recommendation_tpu_torch.ops.cuda import build
+from ctr_recommendation_tpu_torch.utils.profiling import span
 
 
 def senet_bilinear_parts(x, w1, b1, w2, b2, w_bi, bilinear_type):
@@ -839,21 +840,24 @@ class FusedInteraction(torch.autograd.Function):
     """The block with the kernels both ways, as ``jax.custom_vjp`` wraps the
     TPU kernels: it takes the fp32 master weights and returns fp32 weight
     gradients; the cast of W to the compute dtype happens inside, and x (not
-    the output) is kept for the backward, which recomputes the rest."""
+    the output) is kept for the backward, which recomputes the rest. Each way
+    is a span while a profiler runs: ``interaction.fwd``, ``interaction.bwd``."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, w_bi, bilinear_type):
-        w_cd = w_bi.to(x.dtype).contiguous()
-        ctx.save_for_backward(x, w1, b1, w2, b2, w_cd)
-        ctx.bilinear_type = bilinear_type
-        return interaction_fwd(x, w1, b1, w2, b2, w_cd, bilinear_type=bilinear_type)
+        with span("interaction.fwd"):
+            w_cd = w_bi.to(x.dtype).contiguous()
+            ctx.save_for_backward(x, w1, b1, w2, b2, w_cd)
+            ctx.bilinear_type = bilinear_type
+            return interaction_fwd(x, w1, b1, w2, b2, w_cd, bilinear_type=bilinear_type)
 
     @staticmethod
     def backward(ctx, g):
-        x, w1, b1, w2, b2, w_cd = ctx.saved_tensors
-        grads = interaction_bwd(
-            g.float().contiguous(), x, w1, b1, w2, b2, w_cd, bilinear_type=ctx.bilinear_type
-        )
+        with span("interaction.bwd"):
+            x, w1, b1, w2, b2, w_cd = ctx.saved_tensors
+            grads = interaction_bwd(
+                g.float().contiguous(), x, w1, b1, w2, b2, w_cd, bilinear_type=ctx.bilinear_type
+            )
         return (*grads, None)
 
 

@@ -109,6 +109,7 @@ from ctr_recommendation_tpu_torch.ops.cuda.encoder_blocks import (  # noqa: F401
     stream_of,
 )
 from ctr_recommendation_tpu_torch.ops.cuda.interaction import check_kernel_args
+from ctr_recommendation_tpu_torch.utils.profiling import span
 
 WEIGHT_NAMES = (
     "qkv_w", "qkv_b", "proj_w", "proj_b", "ln1_s", "ln1_b",
@@ -637,22 +638,26 @@ class FusedEncoder(torch.autograd.Function):
     TPU kernels: it takes the fp32 master weights and returns fp32 weight
     gradients; the four matrices are cast to the compute dtype inside, and
     x (not the output) is kept for the backward, which recomputes the rest
-    and redraws the dropout masks from the same seed and token0."""
+    and redraws the dropout masks from the same seed and token0. Each way is
+    one span over all its chunks while a profiler runs: ``encoder.fwd``,
+    ``encoder.bwd``."""
 
     @staticmethod
     def forward(ctx, x, amask, seed, rate, num_heads, token0, *weights):
-        ctx.save_for_backward(x, amask, seed, *weights)
-        ctx.rate, ctx.num_heads, ctx.token0 = rate, num_heads, token0
-        return encode_fwd(x, amask, *cast_matrices(weights, x.dtype), num_heads=num_heads,
-                          seed=seed, rate=rate, token0=token0)
+        with span("encoder.fwd"):
+            ctx.save_for_backward(x, amask, seed, *weights)
+            ctx.rate, ctx.num_heads, ctx.token0 = rate, num_heads, token0
+            return encode_fwd(x, amask, *cast_matrices(weights, x.dtype), num_heads=num_heads,
+                              seed=seed, rate=rate, token0=token0)
 
     @staticmethod
     def backward(ctx, g):
-        x, amask, seed, *weights = ctx.saved_tensors
-        dx, *dws = encode_bwd(
-            g.to(x.dtype).contiguous(), x, amask, *cast_matrices(weights, x.dtype),
-            num_heads=ctx.num_heads, seed=seed, rate=ctx.rate, token0=ctx.token0,
-        )
+        with span("encoder.bwd"):
+            x, amask, seed, *weights = ctx.saved_tensors
+            dx, *dws = encode_bwd(
+                g.to(x.dtype).contiguous(), x, amask, *cast_matrices(weights, x.dtype),
+                num_heads=ctx.num_heads, seed=seed, rate=ctx.rate, token0=ctx.token0,
+            )
         return (dx, None, None, None, None, None, *dws)
 
 

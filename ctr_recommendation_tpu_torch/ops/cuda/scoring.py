@@ -66,6 +66,7 @@ from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
     stream_of,
 )
 from ctr_recommendation_tpu_torch.ops.cuda.interaction import fits as inter_fits
+from ctr_recommendation_tpu_torch.utils.profiling import span
 
 ENVELOPE = "F >= 2, E % 8 == 0 and a 2-layer tower with H1 % 8 == 0 and H2 % 8 == 0 (any B)"
 
@@ -248,7 +249,14 @@ def score_fwd(
     w1 (C, H1), w2 (H1, H2), w3 (H2, 1) in x's dtype; b1, b2, b3 fp32 ->
     click probabilities (B,) fp32. On a card: the four blocks, enqueued by
     one C call (``score_launches()`` launches). An x narrower than w_bi
-    (weights padded by ``prepare_score_params``) is zero-padded to it."""
+    (weights padded by ``prepare_score_params``) is zero-padded to it. The
+    span ``score_fwd`` while a profiler runs."""
+    with span("score_fwd"):
+        return _score_fwd(x, sw1, sb1, sw2, sb2, w_bi, w1, b1, w2, b2, w3, b3,
+                          bilinear_type=bilinear_type)
+
+
+def _score_fwd(x, sw1, sb1, sw2, sb2, w_bi, w1, b1, w2, b2, w3, b3, *, bilinear_type):
     if x.shape[-1] < w_bi.shape[-1]:
         x = torch.nn.functional.pad(x, (0, w_bi.shape[-1] - x.shape[-1]))
     args = (x, sw1, sb1, sw2, sb2, w_bi, w1, b1, w2, b2, w3, b3)

@@ -53,6 +53,7 @@ import torch
 
 from ctr_recommendation_tpu_torch.ops.cuda import build
 from ctr_recommendation_tpu_torch.ops.cuda.interaction import stream_of
+from ctr_recommendation_tpu_torch.utils.profiling import span
 
 # csrc/table_grad.cu's constants
 MAX_SEGMENTS = 8  # kMaxSegments: (ids, cot) segments a call
@@ -244,7 +245,13 @@ def table_grad(segments: Sequence[Segment], rows: int) -> torch.Tensor:
     """The gradient (rows, E) of ``table[ids]`` for each (ids, cot) of
     ``segments`` under its cotangents: ids integers in [0, rows), cot fp32
     of ids' shape + (E,). On a card: ``plan``'s path, ``launches(n, rows,
-    E)`` launches; on the CPU ``table_grad_plain``."""
+    E)`` launches; on the CPU ``table_grad_plain``. The span ``table_grad``
+    while a profiler runs."""
+    with span("table_grad"):
+        return _table_grad(segments, rows)
+
+
+def _table_grad(segments: Sequence[Segment], rows: int) -> torch.Tensor:
     segs, e = _segments(segments)
     dev = segs[0][1].device
     if dev.type == "cpu" and all(c.device == dev and i.device == dev for i, c in segs):

@@ -80,7 +80,8 @@ its shard's rows alone; the masked-dense tables read through ``lookup``.
 Each ``metrics.csv`` row is mirrored to TensorBoard (``<checkpoint_dir>/tb``,
 ``train.tensorboard``; silently off without the tensorboard package).
 ``profile_epoch`` writes a ``torch.profiler`` trace of one device-resident
-epoch.
+epoch. While any profiler runs, ``train_step`` marks its stages as spans
+(``utils/profiling.py``; ``Trainer.spans`` holds their times).
 """
 
 from __future__ import annotations
@@ -120,7 +121,7 @@ from ctr_recommendation_tpu_torch.training.checkpoint import CheckpointManager
 from ctr_recommendation_tpu_torch.training.optim import make_optimizer
 from ctr_recommendation_tpu_torch.training.train_state import TrainState
 from ctr_recommendation_tpu_torch.utils.device import resolve_device
-from ctr_recommendation_tpu_torch.utils.profiling import trace
+from ctr_recommendation_tpu_torch.utils.profiling import RECORDER, span, trace
 from ctr_recommendation_tpu_torch.utils.tb import ScalarWriter
 from ctr_recommendation_tpu_torch.utils.tree import tree_map
 
@@ -429,14 +430,16 @@ class Trainer:
         feats = {k: v for k, v in batch.items() if k not in (fm.label, "__weight__")}
         data = self._slice(len(batch[fm.label]))
         with data_parallel.step_slice(data):
-            feats, lookup, targets, uids = self._plan_step(self._device_join(feats), data)
+            with span("train.join"):
+                feats, lookup, targets, uids = self._plan_step(self._device_join(feats), data)
             self._dropout_gen.manual_seed(_seed(self.exp.train.seed + 1, self.state.step))
             logits, new_mstate = self.module.apply(
                 self.state.params, self.state.model_state, fm, self.exp.model, feats,
                 train=True, generator=self._dropout_gen, compute_dtype=self.compute_dtype,
                 weight=weight, lookup=lookup,
             )
-            loss = bce_with_logits(logits, batch[fm.label], weight, data)
+            with span("train.loss"):
+                loss = bce_with_logits(logits, batch[fm.label], weight, data)
         return loss, StepAux(new_mstate, targets, uids)
 
     def gradients(self, loss: torch.Tensor, aux: StepAux) -> list[torch.Tensor]:
@@ -444,9 +447,10 @@ class Trainer:
         every parameter, in ``param_leaves`` order). Data-parallel, the
         ranks' gradients and loss shares are summed across the ranks
         (``aux.loss``: the global loss)."""
-        grads = list(torch.autograd.grad(
-            loss, list(aux.targets.values()), allow_unused=True, materialize_grads=True
-        ))
+        with span("train.backward"):
+            grads = list(torch.autograd.grad(
+                loss, list(aux.targets.values()), allow_unused=True, materialize_grads=True
+            ))
         aux.loss = loss.detach()
         if self._data is not None:
             total = aux.loss.reshape(1).clone()
@@ -504,11 +508,23 @@ class Trainer:
     def train_step(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step; returns the (global) batch loss as a device
         scalar."""
-        with torch.enable_grad():
-            loss, aux = self.forward_loss(batch)
-            grads = self.gradients(loss, aux)
-        self.apply_gradients(grads, aux)
+        with span("train.step"):
+            with torch.enable_grad():
+                loss, aux = self.forward_loss(batch)
+                grads = self.gradients(loss, aux)
+            with span("train.optimizer"):
+                self.apply_gradients(grads, aux)
         return aux.loss
+
+    @property
+    def spans(self):
+        """The process's span recorder (``utils.profiling.RECORDER``): while
+        a ``torch.profiler`` runs, ``train_step`` records ``train.step`` and
+        its stages in it (``train.join``, the model's ``trunk``,
+        ``interaction`` and ``tower``, ``train.loss``, ``train.backward``
+        with the backward stages ``tower.bwd``, ``interaction.bwd`` and
+        ``trunk.bwd`` where the model marks them, ``train.optimizer``)."""
+        return RECORDER
 
     # ------------------------------------------------------------------ state
     def _shard(self, path: str, whole) -> torch.Tensor:

@@ -57,6 +57,10 @@ REPLACED = {
     "data/native/__init__.py::available": (
         "data/parquet.py::pad_from_offsets",
         "reports whether the C++ padding built; the port pads in numpy, no build to report"),
+    "utils/profiling.py::StepTimer": (
+        "utils/profiling.py::span",
+        "a host EMA of step time that nothing called; the port times its stages with spans "
+        "on the profiler's clock"),
     "data/native/__init__.py::pad_sequences_from_offsets": (
         "data/parquet.py::pad_from_offsets",
         "the C++ history padding; held against it in tests/test_torch_native.py"),

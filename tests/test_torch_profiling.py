@@ -1,17 +1,15 @@
 """The port's profiling (utils/profiling.py, Trainer.profile_epoch, the
 train CLI's --profile-dir) on the CPU, against the JAX package's contract:
-the step timer as tests/test_utils.py holds the JAX one; one trace file a
-rank, valid Chrome-trace JSON with events; profile_epoch writing the trace,
-no metrics.csv, and two epochs of steps whose state equals two runs of the
-shared step helper over the same permutation, bit for bit; the train CLI's
---profile-dir as tests/test_profile_cli.py checks the JAX CLI, and its
-refusal under --stream / --strict-items with the JAX CLI's return code and
-message."""
+one trace file a rank, valid Chrome-trace JSON with events; profile_epoch
+writing the trace, no metrics.csv, and two epochs of steps whose state
+equals two runs of the shared step helper over the same permutation, bit
+for bit; the train CLI's --profile-dir as tests/test_profile_cli.py checks
+the JAX CLI, and its refusal under --stream / --strict-items with the JAX
+CLI's return code and message. The stage spans: tests/test_torch_spans.py."""
 
 import dataclasses
 import json
 import os
-import time
 
 import pytest
 import torch
@@ -23,20 +21,11 @@ from ctr_recommendation_tpu_torch.config.loader import microlens_features
 from ctr_recommendation_tpu_torch.data import synthetic_splits
 from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
 from ctr_recommendation_tpu_torch.training import Trainer
-from ctr_recommendation_tpu_torch.utils import StepTimer, trace
+from ctr_recommendation_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
 ROWS, BS = 320, 64  # 5 steps an epoch
-
-
-def test_step_timer():
-    t = StepTimer(alpha=1.0)
-    assert t.tick() is None
-    time.sleep(0.01)
-    ema = t.tick()
-    assert ema is not None and ema > 0
-    assert t.examples_per_sec(100) == pytest.approx(100 / ema)
 
 
 def _events(log_dir):
