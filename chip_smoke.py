@@ -2,12 +2,13 @@
 """Drive the PyTorch port (ctr_recommendation_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tower   # phase 1's card line, then the tower kernels' phase 2 and 3 alone
 
 Phases, in order; any failure exits non-zero and prints no result line. A
 `[clock] phase X at T s` line marks where each starts.
 
-1. Print the card's name and power limit (nvidia-smi), build the six
-   kernels (table_grad among them) from csrc/ with nvcc for sm_90a, one nvcc per source in parallel,
+1. Print the card's name and power limit (nvidia-smi), build the seven
+   kernels (table_grad and tower among them) from csrc/ with nvcc for sm_90a, one nvcc per source in parallel,
    and beside them the native submission writer (data/native/submission.cc,
    g++); fail if that writer does not build and load, so that the pipelines
    below write their CSV and zip natively.
@@ -27,7 +28,13 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    same inputs bit-identical; segmented calls as the call sites make them
    (two features; a transposed history cotangent; MAX_SEGMENTS segments)
    bit for bit the call on their concatenation; its C predicate against
-   fits and its C plan against plan. Then the interaction forward and the fused scoring kernel at the
+   fits and its C plan against plan. Then the tower kernels (csrc/tower.cu:
+   BatchNorm, ReLU and dropout after each tower GEMM, both ways): the card
+   tests tests/test_torch_tower_kernels.py, run by pytest without the JAX
+   conftest (each block against its plain version, the layer against the
+   plain blocks and the library composition, 1 to 131,072 rows, widths 50
+   to 512, repeats bit for bit, launch counts, a one-rank data-parallel
+   group). Then the interaction forward and the fused scoring kernel at the
    training batch 4096, the serving batch 8192 and each plus a ragged 37
    (F=6, E=128, tower 2688->512->256->1), the forward's repeat launch
    bit-identical and in bf16 also within FWD_NORM_TOL in norm, which a
@@ -85,7 +92,10 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    (table_grad at the item and likes_level tables' step shapes, the sort
    included, beside its plain version, fp32 index_add_ and
    embedding_dense_backward, the library call, with torch.profiler's split
-   a launch); for the
+   a launch; the tower kernels at the mm cell's layers, 131,072 x 512 and
+   x 256 in bf16, forward and backward after the GEMM, beside their plain
+   blocks, the library composition, the byte bound and torch.rand's draw,
+   with the kernels a call launches on both paths); for the
    encoder also nn.TransformerEncoderLayer (the library yardstick, checked
    against the plain version in fp32 first): its forward, and for the
    backward its forward + backward minus its forward, at E=128 and E=256,
@@ -911,6 +921,25 @@ def check_backward(torch, got, want, dtype_name):
 GATE_MARGIN = 1e-5
 
 
+def tower_relu(torch, layer: dict, st: dict, x, weight):
+    """The ReLU decisions (z > 0, before dropout) of one layer of the tower
+    kernels on input x: the forward's blocks again on the same operands,
+    whose sums repeat bit for bit, without the uniforms."""
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
+
+    with torch.no_grad():
+        lin = layer["linear"]
+        y = x @ lin["w"].to(x.dtype)
+        b, gamma, beta = lin.get("b"), layer.get("bn_scale"), layer.get("bn_bias")
+        sums = devs = None
+        if gamma is not None:
+            sums = tower.fwd_sums(y, b, weight)
+            devs = tower.fwd_devs(y, b, weight, sums)
+        code = tower.fwd_apply(y, b, gamma, beta, sums, devs, None, 1.0, st.get("bn_mean"),
+                               st.get("bn_var"))[1]
+        return tower.unpack_code(code, y.shape[1])
+
+
 def gate_replay(torch, gates=None, part=(0, 1)):
     """A torch function mode that records the decision of every ReLU
     (``torch.relu``) and every gate ``torch.where(cond, a, b)`` on floating
@@ -920,8 +949,13 @@ def gate_replay(torch, gates=None, part=(0, 1)):
     |input| / max|input| of its tensor among them. ``part`` (rank, world):
     the replaying forward holds rank's share of the recorded batch, and
     takes that share of each recorded gate (along the dimension that is
-    world times its own)."""
+    world times its own). Recording, the tower kernels' layers
+    (``mlp._kernel_layer``, dropout 0) append their ReLU decisions too
+    (tower_relu), in call order, for a replaying forward on the
+    composition."""
     from torch.overrides import TorchFunctionMode
+
+    from ctr_recommendation_tpu_torch.ops import mlp
 
     class GateReplay(TorchFunctionMode):
         def __init__(self):
@@ -948,6 +982,26 @@ def gate_replay(torch, gates=None, part=(0, 1)):
                 mag = x.detach().abs()
                 self.margin = max(self.margin, float(mag[differ].max() / mag.max()))
             return given
+
+        def __enter__(self):
+            # recording on a card: the tower kernels' ReLU decisions
+            # (tower_relu; the CPU replays no dropout select of theirs, so
+            # dropout 0), in call order
+            self.kernel_layer = mlp._kernel_layer
+            if not self.replay:
+                def recorded(layer, st, x, rate, generator, weight):
+                    if rate > 0.0:
+                        raise SystemExit("gate_replay records the tower kernels' ReLU "
+                                         "decisions at dropout 0 only")
+                    self.gates.append(tower_relu(torch, layer, st, x, weight))
+                    return self.kernel_layer(layer, st, x, rate, generator, weight)
+
+                mlp._kernel_layer = recorded
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            mlp._kernel_layer = self.kernel_layer
+            return super().__exit__(*exc)
 
         def __torch_function__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
@@ -1172,9 +1226,10 @@ def encoder_gates(torch, gates: list, stats: dict | None = None, values: list | 
 
 @contextlib.contextmanager
 def tower_gates(torch, gates: list, stats: dict | None = None):
-    """The tower's ReLU decisions (each torch.relu inside ops/mlp.apply),
-    recorded on the kernel path (``stats`` None) or replayed in the same
-    order on the plain path, whose tower is the same code fed the plain
+    """The tower's ReLU decisions, recorded on the kernel path (``stats``
+    None: each torch.relu inside ops/mlp.apply, and each layer of the tower
+    kernels by tower_relu) or replayed in the same order on the plain path,
+    whose tower runs the composition (``mlp.on_kernels`` off) fed the plain
     trunk's fields; ``stats`` as for encoder_gates."""
     from torch.overrides import TorchFunctionMode
 
@@ -1199,17 +1254,25 @@ def tower_gates(torch, gates: list, stats: dict | None = None):
                 stats["margin"] = max(stats["margin"], float(mag[differ].max() / mag.max()))
             return torch.where(given, x, 0.0)
 
-    plain = mlp.apply
+    plain, kernel_layer, on_kernels = mlp.apply, mlp._kernel_layer, mlp.on_kernels
+
+    def recorded(layer, st, x, rate, generator, weight):
+        gates.append(tower_relu(torch, layer, st, x, weight))
+        return kernel_layer(layer, st, x, rate, generator, weight)
 
     def apply(*args, **kw):
         with Mode():
             return plain(*args, **kw)
 
     mlp.apply = apply
+    if stats is None:
+        mlp._kernel_layer = recorded
+    else:
+        mlp.on_kernels = lambda x, train: False
     try:
         yield
     finally:
-        mlp.apply = plain
+        mlp.apply, mlp._kernel_layer, mlp.on_kernels = plain, kernel_layer, on_kernels
 
 
 def step_split(torch, trainer, train, card, tag: str, reps: int = 10, profiled: int = 3) -> dict:
@@ -2387,6 +2450,15 @@ def tg_step_shapes(exp, rows: int, world: int = 1) -> list[tuple[int, int, int]]
     return shapes
 
 
+def tower_step_launches(exp) -> int:
+    """The tower blocks' launches in one train step on the card: each hidden
+    layer's forward and backward (ops/cuda/tower.py)."""
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
+
+    bn = exp.model.batch_norm
+    return len(exp.model.hidden_units) * (tower.fwd_launches(bn) + tower.bwd_launches(bn))
+
+
 def tg_step_launches(exp, rows: int | None = None, world: int = 1) -> int:
     """table_grad's launches in one train step of ``exp`` (``rows`` rows a
     rank, default the batch): launches(n, rows, E) summed over
@@ -2534,6 +2606,136 @@ def table_grad_timing(torch, card) -> dict:
             f"embedding_dense_backward; fp32 index_add_ alone {index_add:.4f} ms) on {card}")
         kernel_split(torch, lambda: table_grad(segs, rows), f"table_grad {tag}", card)
         out = t
+    return out
+
+
+# the tower kernels (csrc/tower.cu) at the mm cell's layers: (rows, fan-in, width)
+TOWER_SHAPES = ((131072, 2688, 512), (131072, 512, 256))
+TOWER_RATE = 0.2  # mm_fibinet's net_dropout
+TOWER_TESTS = "tests/test_torch_tower_kernels.py"
+
+
+def tower_against_plain(torch) -> None:
+    """Phase 2: the tower kernels' card tests (TOWER_TESTS: each block
+    against its plain version, the layer against the plain blocks and the
+    library composition, bf16 and fp32, BatchNorm on and off, rates 0 and
+    0.2, weights, widths 50 to 512, 1 to 131,072 rows, repeats bit for bit,
+    the launch counters, the C plan, a one-rank data-parallel group), run
+    by pytest without the JAX conftest; any failure fails the phase."""
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+           "--tb=short", TOWER_TESTS]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True)
+    tail = res.stdout.strip().splitlines()[-1:] or [res.stderr.strip()[-400:]]
+    log(f"[compare] tower: {TOWER_TESTS} rc {res.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s: {tail[0]}")
+    if res.returncode != 0:
+        log(res.stdout[-20000:])
+        raise SystemExit("the tower kernels disagree with their plain versions")
+
+
+def tower_inputs(torch, rows: int, d_in: int, n: int, dtype, seed: int) -> dict:
+    """A layer at (rows, d_in) -> n on the card: y = x W from cuBLAS, the
+    fp32 bias, BatchNorm affine and running statistics, the uniforms and a
+    cotangent."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+    x = (rnd(rows, d_in) + 0.3).to(dtype)
+    y = x @ (rnd(d_in, n) / d_in ** 0.5).to(dtype)
+    return {"y": y, "b": 0.1 * rnd(n), "gamma": 1 + 0.2 * rnd(n), "beta": 0.2 * rnd(n),
+            "rm": 0.1 * rnd(n), "rv": 0.5 + rnd(n).abs(),
+            "u": torch.rand(rows, n, device="cuda", generator=gen), "dout": rnd(rows, n).to(dtype)}
+
+
+def tower_fused(torch, t: dict, keep: float):
+    """The layer's forward and backward on the kernels (TowerLayer)."""
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
+
+    leaves = [t[k].detach().requires_grad_() for k in ("y", "b", "gamma", "beta")]
+    out, _ = tower.TowerLayer.apply(*leaves, t["u"], None, t["rm"], t["rv"], keep, None)
+    return torch.autograd.grad(out, leaves, t["dout"])
+
+
+def tower_plain(torch, t: dict, keep: float):
+    """The same on the plain blocks, on the card."""
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
+
+    y, b, gamma, beta, u = (t[k] for k in ("y", "b", "gamma", "beta", "u"))
+    sums = tower.fwd_sums_plain(y, b, None)
+    devs = tower.fwd_devs_plain(y, b, None, sums)
+    _, code, _ = tower.fwd_apply_plain(y, b, gamma, beta, sums, devs, u, keep, t["rm"], t["rv"])
+    gsums = tower.bwd_sums_plain(t["dout"], y, code, b, gamma, beta, sums, devs, keep)
+    return tower.bwd_dx_plain(t["dout"], y, code, b, gamma, beta, sums, devs, gsums, None, keep)
+
+
+def tower_library(torch, t: dict, keep: float):
+    """The library composition the kernels replace, as ops/mlp.py ran it on
+    the card before them (a frozen copy, the yardstick): the bias add in cd,
+    BatchNorm's plain branch (fp32 mean and var, the running statistics,
+    the normalise-and-affine in cd), torch.relu, dropout's select; and
+    autograd's backward of it."""
+    leaves = [t[k].detach().requires_grad_() for k in ("y", "b", "gamma", "beta")]
+    y, b, gamma, beta = leaves
+    h = y + b.to(y.dtype)
+    h32 = h.float()
+    mean, var = h32.mean(0), h32.var(0, unbiased=False)
+    n = h.shape[0]
+    unbiased = var * (n / max(n - 1, 1))
+    _ = (0.9 * t["rm"] + 0.1 * mean.detach(), 0.9 * t["rv"] + 0.1 * unbiased.detach())
+    inv = torch.rsqrt(var.to(h.dtype) + 1e-5)
+    h = (h - mean.to(h.dtype)) * inv
+    h = h * gamma.to(h.dtype) + beta.to(h.dtype)
+    h = torch.where(t["u"] < keep, torch.relu(h) / keep, 0.0)
+    return torch.autograd.grad(h, leaves, t["dout"])
+
+
+def device_kernels(torch, fn) -> int:
+    """The kernels (not copies or sets) one call of ``fn`` launches on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def tower_timing(torch, card) -> dict:
+    """Phase 3: one tower layer after its GEMM, forward and backward, at the
+    mm cell's two layers in bf16, BatchNorm and dropout on (the uniforms
+    drawn beforehand; the draw timed alone): the kernels, the plain blocks on
+    the card, the library composition they replace, and the byte bound (y,
+    u, dout read once, out, the code and dh written once, y and the code
+    read again by the backward); each launch's device time (kernel_split);
+    the kernels a call launches on both paths. Returns the wider layer's
+    times (the kernels line's)."""
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
+
+    keep = 1.0 - TOWER_RATE
+    out = {}
+    for rows, d_in, n in TOWER_SHAPES:
+        t = tower_inputs(torch, rows, d_in, n, torch.bfloat16, seed=n)
+        nbytes = rows * n * (6 * 2 + 4 + 2 * 0.125)
+        res = {"ms": time_ms(torch, lambda: tower_fused(torch, t, keep)),
+               "plain_ms": time_ms(torch, lambda: tower_plain(torch, t, keep), reps=10),
+               "library_ms": time_ms(torch, lambda: tower_library(torch, t, keep), reps=10),
+               **bound(nbytes, 0)}
+        draw = time_ms(torch, lambda: torch.rand(rows, n, device="cuda"))
+        fused_k = device_kernels(torch, lambda: tower_fused(torch, t, keep))
+        library_k = device_kernels(torch, lambda: tower_library(torch, t, keep))
+        log(f"[time] tower ({rows}, {n}) bf16, from fan-in {d_in}, BatchNorm and dropout "
+            f"{TOWER_RATE}, forward + backward after the GEMM: {res} (bytes {nbytes:.0f}); "
+            f"kernels a call {fused_k} ({tower.fwd_launches(True) + tower.bwd_launches(True)} "
+            f"counted), the library composition's {library_k}; torch.rand's draw "
+            f"{draw:.4f} ms on {card}")
+        kernel_split(torch, lambda: tower_fused(torch, t, keep), f"tower ({rows}, {n})", card)
+        kernel_split(torch, lambda: tower_library(torch, t, keep),
+                     f"tower library ({rows}, {n})", card)
+        if not out:
+            out = res
     return out
 
 
@@ -3499,17 +3701,29 @@ def dp_step(torch, tr, batch: dict, gates, part, encoder: list | None = None) ->
     from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
 
+    from ctr_recommendation_tpu_torch.ops import mlp
+
     interaction_fwd.launches = interaction_bwd.launches = table_grad.launches = 0
     encode_fwd.launches = encode_bwd.launches = 0
     replay = gate_replay(torch, gates, part)
+    # the tower on the composition, whose gates replay: one layer of the
+    # tower kernels sums its statistics over a rank's rows and one process's
+    # in two orders, and a gate at z within rounding of 0 cannot be replayed
+    # inside a kernel (the tower kernels' own data-parallel path: tests/
+    # test_torch_tower_kernels.py, one rank; tests/test_torch_dp_trainer.py,
+    # two ranks on the CPU)
+    on_kernels, mlp.on_kernels = mlp.on_kernels, lambda x, train: False
     enc_gates, f1 = [], []
     recorded = contextlib.nullcontext() if encoder is None else \
         encoder_gates(torch, enc_gates, None, values=f1)
-    with torch.enable_grad():
-        with replay, recorded:
-            loss, aux = tr.forward_loss(batch)
-        grads = tr.gradients(loss, aux)
-    torch.cuda.synchronize()
+    try:
+        with torch.enable_grad():
+            with replay, recorded:
+                loss, aux = tr.forward_loss(batch)
+            grads = tr.gradients(loss, aux)
+        torch.cuda.synchronize()
+    finally:
+        mlp.on_kernels = on_kernels
     if encoder is not None:
         encoder.extend((v, real.cpu()) for v, (_, real) in zip(f1, enc_gates))
     out = {"loss": aux.loss.item(), "grads": dict(zip(aux.targets, (g.detach().cpu().clone()
@@ -4489,7 +4703,7 @@ def trace_summary(path: str, card: str, per_epoch: int) -> bool:
 
 def profile_epoch_phase(torch, train, store, root, card) -> dict:
     """Phase 7c (a): Trainer.profile_epoch at the full defaults on phase 6's
-    train split: exact interaction and table_grad launches over both
+    train split: exact interaction, table_grad and tower launches over both
     epochs, state.step 2 epochs' steps, no metrics.csv, one trace whose hand-written kernels ran
     one epoch's launches. Profiles again (3 tries) when the trace holds no
     device event. Returns the launches of the run it keeps."""
@@ -4500,26 +4714,30 @@ def profile_epoch_phase(torch, train, store, root, card) -> dict:
         interaction_bwd,
         interaction_fwd,
     )
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
     from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.training import Trainer
 
     ckpt = os.path.join(root, "ckpt_profile")
     exp = microlens_experiment(data_root="", checkpoint_dir=ckpt)
-    tgs = tg_step_launches(exp)
+    tgs, towers = tg_step_launches(exp), tower_step_launches(exp)
     steps = train.num_rows // exp.train.batch_size
     for attempt in range(3):
         log_dir = os.path.join(root, f"profile_{attempt}")
         tr = Trainer(exp, steps_per_epoch=steps, item_store=store, log_fn=log)
         interaction_fwd.launches = interaction_bwd.launches = table_grad.launches = 0
+        tower0 = tower.launches()
         t0 = time.perf_counter()
         tr.profile_epoch(train, log_dir)
         took = time.perf_counter() - t0
         launches = {fn: fn.launches for fn in (interaction_fwd, interaction_bwd, table_grad)}
+        tower_n = tower.launches() - tower0
         log(f"[profile] profile_epoch: {steps} steps x 2 epochs in {took:.2f} s (upload, the "
             f"untraced epoch, the traced one, the export); launches "
-            f"{ {fn.__name__: n for fn, n in launches.items()} }; state.step {tr.state.step}")
-        if tuple(launches.values()) != (2 * steps * fwd_launches(), 2 * steps * bwd_launches(),
-                                        2 * steps * tgs):
+            f"{ {fn.__name__: n for fn, n in launches.items()} }, the tower blocks' {tower_n}; "
+            f"state.step {tr.state.step}")
+        if (tuple(launches.values()) != (2 * steps * fwd_launches(), 2 * steps * bwd_launches(),
+                                         2 * steps * tgs) or tower_n != 2 * steps * towers):
             raise SystemExit("profile_epoch: the hand-written kernels' launches are off")
         if tr.state.step != 2 * steps:
             raise SystemExit(f"profile_epoch: state.step {tr.state.step}, expected {2 * steps}")
@@ -4529,7 +4747,7 @@ def profile_epoch_phase(torch, train, store, root, card) -> dict:
         if files != ["rank0.pt.trace.json"]:
             raise SystemExit(f"profile_epoch: expected one trace file, found {files}")
         if trace_summary(os.path.join(log_dir, files[0]), card,
-                         steps * (fwd_launches() + bwd_launches() + tgs)):
+                         steps * (fwd_launches() + bwd_launches() + tgs + towers)):
             return launches
         log(f"[profile] the trace holds no device event (try {attempt + 1} of 3)")
     raise SystemExit("profile_epoch: no trace held a device event in 3 tries")
@@ -6816,6 +7034,8 @@ def main(argv=None) -> int:
         return 1
     if argv[:1] == ["--dp-rank"] and len(argv) == 2:  # a rank of phase 6h (spawn_ranks)
         return dp_rank(argv[1])
+    if argv == ["--tower"]:
+        return tower_only(torch)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -6873,6 +7093,7 @@ def main(argv=None) -> int:
     workspace_grid(torch)
     spied = spy_plans(torch)  # every encoder call's plan from here on
     worst["table_grad"], failures = table_grad_against_plain(torch)
+    tower_against_plain(torch)
     batches = (B_TRAIN, B_TRAIN + 37, B_FULL, B_RAGGED)
     failures += forward_against_plain(torch, worst, E, HIDDEN, batches)
     failures += backward_against_plain(torch, worst, E)
@@ -6917,6 +7138,7 @@ def main(argv=None) -> int:
     encoder_timing(torch, card, WIDE_E)
     encoder_bwd_timing(torch, card, WIDE_E)
     timing[("table_grad", "all")] = table_grad_timing(torch, card)
+    timing[("tower", "all")] = tower_timing(torch, card)
 
     # ---- phase 4: the serving main path ----
     clock("4")
@@ -7201,11 +7423,53 @@ def main(argv=None) -> int:
                      "ctr_recommendation_tpu/training/sparse.py:280, a scatter-add)",
          "launches": tg_total, "max_abs_err": worst["table_grad"],
          **timing[("table_grad", "all")]},
+        {"name": "tower", "route": "cuda",
+         "source": "ctr_recommendation_tpu_torch/csrc/tower.cu",
+         "replaces": "no TPU kernel: the library's BatchNorm, ReLU and dropout kernels after "
+                     "each tower GEMM on the training path (the JAX package leaves the tower "
+                     "to XLA: ctr_recommendation_tpu/ops/mlp.py)",
+         "launches": tower_launches(), "max_abs_err": None, **timing[("tower", "all")]},
     ]
     print(json.dumps({"kernels": kernels}))
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def tower_launches() -> int:
+    """The tower blocks' launches in this process (every phase's training
+    steps on the card and the checks)."""
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
+
+    return tower.launches()
+
+
+def tower_only(torch) -> int:
+    """``--tower``: phase 1's card line and the tower kernels' build, then
+    their phase 2 checks and phase 3 timing alone."""
+    from ctr_recommendation_tpu_torch.ops.cuda import build
+
+    clock("1")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    card = smi.strip()
+    log(f"[build] tower: {build.build(('tower',))}")
+    fn = ""
+    for line in build.ptxas_log.get("tower", "").splitlines():
+        if "Function properties for" in line:
+            fn = line.rsplit(" ", 1)[-1]
+        elif "registers" in line or "spill" in line:
+            log(f"[ptxas tower] {fn} {line.strip()}")
+    clock("2")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tower_against_plain(torch)
+    clock("3")
+    timing = tower_timing(torch, card)
+    print(json.dumps({"kernels": [{"name": "tower", "launches": tower_launches(), **timing}]}))
     return 0
 
 

@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 KERNELS = ("interaction", "interaction_bwd", "scoring", "sasrec_encoder", "sasrec_encoder_bwd",
-           "table_grad")
+           "table_grad", "tower")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -20,6 +20,7 @@ from typing import Sequence
 
 import torch
 
+from ctr_recommendation_tpu_torch.ops.cuda import tower
 from ctr_recommendation_tpu_torch.ops.initializers import linear_apply, linear_init
 from ctr_recommendation_tpu_torch.parallel import data_parallel
 
@@ -52,43 +53,29 @@ def init(
     return params, state
 
 
-def _global_stats(h32, weight, s):
-    """(mean, biased var, unbiased var) over the global batch of slice
-    ``s``: sums all-reduced, then the squared deviations from the global
-    mean (two passes, as one process computes them)."""
-    reduce = data_parallel.all_reduce_sum
-    if weight is not None:
-        w = weight.float()[:, None]
-        sums = reduce(torch.cat([(h32 * w).sum(0), w.sum().reshape(1)]), s.group)
-        n_eff = torch.clamp(sums[-1], min=1.0)
-        mean = sums[:-1] / n_eff
-        var = reduce((w * (h32 - mean) ** 2).sum(0), s.group) / n_eff
-        return mean, var, var * (n_eff / torch.clamp(n_eff - 1.0, min=1.0))
-    n = s.global_rows
-    mean = reduce(h32.sum(0), s.group) / n
-    var = reduce(((h32 - mean) ** 2).sum(0), s.group) / n
-    return mean, var, var * (n / max(n - 1, 1))
+def _stats(h32, weight):
+    """(mean, biased var, unbiased var) in h32's dtype over the batch's weighted
+    rows (every row without ``weight``; zero-weight rows left out): the
+    weighted sums, then the squared deviations from their mean (two passes).
+    Within a data-parallel step each pass's sums are all-reduced, so the
+    statistics run over the global batch, as one process computes them."""
+    s = data_parallel.current()
+
+    def total(t):
+        return t if s is None else data_parallel.all_reduce_sum(t, s.group)
+
+    w = torch.ones_like(h32[:, :1]) if weight is None else weight.to(h32.dtype)[:, None]
+    sums = total(torch.cat([(h32 * w).sum(0), w.sum().reshape(1)]))
+    n_eff = torch.clamp(sums[-1], min=1.0)
+    mean = sums[:-1] / n_eff
+    var = total((w * (h32 - mean) ** 2).sum(0)) / n_eff
+    return mean, var, var * (n_eff / torch.clamp(n_eff - 1.0, min=1.0))
 
 
 def _batch_norm(layer, st, h, train: bool, weight=None):
     if train:
-        # statistics always in fp32 (stable even when the tower runs bf16)
-        h32 = h.float()
-        s = data_parallel.current()
-        if s is not None:
-            mean, var, unbiased = _global_stats(h32, weight, s)
-        elif weight is not None:
-            # zero-weight (padded) rows are left out of the batch statistics
-            w = weight.float()[:, None]
-            n_eff = torch.clamp(w.sum(), min=1.0)
-            mean = (h32 * w).sum(0) / n_eff
-            var = (w * (h32 - mean) ** 2).sum(0) / n_eff
-            unbiased = var * (n_eff / torch.clamp(n_eff - 1.0, min=1.0))
-        else:
-            mean = h32.mean(0)
-            var = h32.var(0, unbiased=False)  # biased, used for normalization
-            n = h.shape[0]
-            unbiased = var * (n / max(n - 1, 1))
+        # statistics in fp32 at least (stable even when the tower runs bf16)
+        mean, var, unbiased = _stats(h.to(torch.promote_types(h.dtype, torch.float32)), weight)
         new_st = {
             "bn_mean": (1 - BN_MOMENTUM) * st["bn_mean"] + BN_MOMENTUM * mean.detach(),
             "bn_var": (1 - BN_MOMENTUM) * st["bn_var"] + BN_MOMENTUM * unbiased.detach(),
@@ -101,21 +88,48 @@ def _batch_norm(layer, st, h, train: bool, weight=None):
     return h * layer["bn_scale"].to(h.dtype) + layer["bn_bias"].to(h.dtype), new_st
 
 
-def dropout(h: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout: each element kept with probability 1 - rate (one
-    uniform draw from ``generator`` an element) and divided by it. In a
+def _uniforms(h: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """The dropout's uniforms for h, one an element from ``generator``; in a
     data-parallel step the draw covers the global batch and h takes its
     slice's rows of it."""
-    keep = 1.0 - rate
     s = data_parallel.current()
     if s is None:
-        mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
-    else:
-        if h.shape[0] != s.rows:
-            raise ValueError(f"dropout on {h.shape[0]} rows in a step of {s.rows} a rank")
-        mask = torch.rand((s.global_rows, *h.shape[1:]), generator=generator,
-                          device=h.device)[s.row0 : s.row0 + s.rows] < keep
-    return torch.where(mask, h / keep, 0.0)
+        return torch.rand(h.shape, generator=generator, device=h.device)
+    if h.shape[0] != s.rows:
+        raise ValueError(f"dropout on {h.shape[0]} rows in a step of {s.rows} a rank")
+    return torch.rand((s.global_rows, *h.shape[1:]), generator=generator,
+                      device=h.device)[s.row0 : s.row0 + s.rows]
+
+
+def dropout(h: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability 1 - rate (one
+    uniform draw from ``generator`` an element, ``_uniforms``) and divided
+    by it."""
+    keep = 1.0 - rate
+    return torch.where(_uniforms(h, generator) < keep, h / keep, 0.0)
+
+
+def on_kernels(x: torch.Tensor, train: bool) -> bool:
+    """Whether ``apply`` runs x's layers on the tower kernels
+    (``ops/cuda/tower.py``): train mode on a card, in bf16 or fp32."""
+    return train and x.is_cuda and x.dtype in (torch.bfloat16, torch.float32)
+
+
+def _kernel_layer(layer, st, x, dropout_rate, generator, weight):
+    """One train-mode layer on the tower kernels: the GEMM on cuBLAS, then
+    the bias, BatchNorm (with a ``bn_scale``), ReLU and dropout on
+    ``tower.TowerLayer``, the same function as the composition in
+    ``apply``, with fp32 inside."""
+    lin = layer["linear"]
+    y = x @ lin["w"].to(x.dtype)
+    u = _uniforms(y, generator) if dropout_rate > 0.0 else None
+    s = data_parallel.current()
+    bn = "bn_scale" in layer
+    out, running = tower.TowerLayer.apply(
+        y, lin.get("b"), layer.get("bn_scale"), layer.get("bn_bias"), u,
+        None if weight is None else weight.float(), st.get("bn_mean"), st.get("bn_var"),
+        1.0 - dropout_rate, None if s is None else s.group)
+    return out, ({"bn_mean": running[0], "bn_var": running[1]} if bn else st)
 
 
 def apply(
@@ -132,17 +146,24 @@ def apply(
 
     ``weight``: optional (B,) 0/1 row mask; zero-weight rows are left out of
     the train-mode BatchNorm statistics. Dropout (train mode) draws its masks
-    from ``generator``, which must live on x's device."""
+    from ``generator``, which must live on x's device. In train mode on a
+    card (``on_kernels``) each hidden layer after its GEMM runs on the tower
+    kernels, both ways, with fp32 inside; elsewhere on the composition
+    below."""
+    if train and dropout_rate > 0.0 and generator is None and params["layers"]:
+        raise ValueError("dropout needs a generator in train mode")
     h = x
     new_layers = []
     for layer, st in zip(params["layers"], state["layers"]):
+        if on_kernels(h, train):
+            h, st = _kernel_layer(layer, st, h, dropout_rate, generator, weight)
+            new_layers.append(st)
+            continue
         h = linear_apply(layer["linear"], h)
         if "bn_scale" in layer:
             h, st = _batch_norm(layer, st, h, train, weight)
         h = torch.relu(h)
         if train and dropout_rate > 0.0:
-            if generator is None:
-                raise ValueError("dropout needs a generator in train mode")
             h = dropout(h, dropout_rate, generator)
         new_layers.append(st)
     out = linear_apply(params["out"], h) if "out" in params else h

@@ -10,8 +10,8 @@ The launcher's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 to run in order, each ``{"kind": ..., "name": ..., ...}``; a case writes
 ``<out>/<name>.rank<r>.npz`` (or ``.json``). This module imports neither
 JAX nor the JAX package: the tests compare its outputs with the JAX package
-in their own process. The tests also call ``port_step`` and ``port_bn`` in
-one process, as the 1-rank reference. Under ``WORLD_SIZE`` = dp x mp ranks a
+in their own process. The tests also call ``port_step``, ``port_bn`` and
+``port_tower`` in one process, as the 1-rank reference. Under ``WORLD_SIZE`` = dp x mp ranks a
 case whose experiment (or ``mp``) asks for ``model_parallel`` mp runs on the
 (dp, mp) mesh: world rank d mp + m holds data rank d and model rank m.
 """
@@ -195,6 +195,48 @@ def port_bn(weighted: bool, rank: int = 0, world: int = 1) -> dict[str, np.ndarr
     res.update({f"grad/{k}": _np(g) for k, g in zip(jax_bridge.flatten(params), grads[1:])})
     res.update({f"state/{k}": _np(v) for k, v in jax_bridge.flatten(new_state).items()})
     return res
+
+
+def port_tower(weighted: bool, rank: int = 0, world: int = 1) -> dict[str, np.ndarray]:
+    """One tower layer on ``ops/cuda/tower.py::TowerLayer`` (its plain
+    blocks, on the CPU) over rows [rank n/world, (rank + 1) n/world) of 64
+    seeded rows of y, BatchNorm and dropout 0.2 on, the ranks' sums
+    all-reduced between the blocks when world > 1: the rank's outputs and
+    dy, the new running statistics and the (global) gradients of b, gamma
+    and beta of sum(out * c), c seeded."""
+    import torch
+
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
+    from ctr_recommendation_tpu_torch.parallel import data_parallel
+
+    rng = np.random.default_rng(5)
+    n, width = 64, 24
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    y = f32(rng.standard_normal((n, width)) * 1.5 + 0.3)
+    u = f32(rng.random((n, width)))
+    c = f32(rng.standard_normal((n, width)))
+    weight = f32(rng.random(n) < 0.7) if weighted else None
+    params = [f32(rng.standard_normal(width) * 0.5), f32(1 + 0.2 * rng.standard_normal(width)),
+              f32(0.2 * rng.standard_normal(width))]
+    run_mean, run_var = f32(rng.normal(0, 0.3, width)), f32(rng.uniform(0.5, 2.0, width))
+    for t in params:
+        t.requires_grad_()
+    m = n // world
+    rows = slice(rank * m, (rank + 1) * m)
+    ys = y[rows].clone().requires_grad_()
+    group = None
+    if world > 1:
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
+    out, running = tower.TowerLayer.apply(
+        ys, *params, u[rows], None if weight is None else weight[rows], run_mean, run_var, 0.8,
+        group)
+    grads = list(torch.autograd.grad((out * c[rows]).sum(), [ys, *params]))
+    if group is not None:
+        data_parallel.all_reduce_buckets_(grads[1:], group)
+    return {"out": _np(out), "dy": _np(grads[0]), "db": _np(grads[1]),
+            "dgamma": _np(grads[2]), "dbeta": _np(grads[3]), "running": _np(running)}
 
 
 def port_fit(experiment_json: str, splits: str, ckpt: str, world: int = 1) -> list[dict]:
@@ -441,6 +483,8 @@ def main() -> None:
                             lookup=case.get("lookup"))
         elif kind == "bn":
             res = port_bn(case["weighted"], rank, world)
+        elif kind == "tower":
+            res = port_tower(case["weighted"], rank, world)
         elif kind == "fit":
             mp = case.get("mp", 1)
             res = port_fit(case["experiment"], case["splits"],

@@ -20,7 +20,9 @@ with ``tools/jax_bridge``. Tolerances:
   fp32 sums differs: the same bar, and the BatchNorm running statistics to
   1e-5;
 * BatchNorm alone, weighted and not: outputs, input and parameter
-  gradients, running statistics, 2 ranks against 1, to 1e-5;
+  gradients, running statistics, 2 ranks against 1, to 1e-5; the same for
+  one layer of the tower kernels' ``TowerLayer`` on its plain blocks
+  (BatchNorm and dropout 0.2 on);
 * every rank's parameters after the step bit for bit rank 0's;
 * ``fit_on_device`` over 2 ranks against 1 rank: per-epoch loss within
   1e-4, AUC and logloss within 1e-3;
@@ -127,6 +129,7 @@ def ranks(tiny_experiment, tmp_path_factory):
         refs[name] = pexp
     for weighted in (False, True):
         cases.append({"kind": "bn", "name": f"bn_{weighted}", "weighted": weighted})
+        cases.append({"kind": "tower", "name": f"tower_{weighted}", "weighted": weighted})
     # fit_on_device: 1024 train rows, a global batch of 64, 2 epochs
     train, valid, store = synthetic_splits(1024, 256, num_items=199, max_len=8, mm_dim=24,
                                            num_users=100, seed=3)
@@ -240,6 +243,25 @@ def test_batch_norm_statistics_and_gradients_are_global(ranks, weighted):
     r0, r1 = (worker.load(ranks["out"], f"bn_{weighted}", r) for r in (0, 1))
     for k in want:
         if k in ("out", "dx"):  # each rank holds its rows
+            got = np.concatenate([r0[k], r1[k]])
+        else:
+            np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+            got = r0[k]
+        np.testing.assert_allclose(got, want[k], rtol=1e-5,
+                                   atol=1e-5 * max(1.0, np.abs(want[k]).max()), err_msg=k)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_tower_layer_blocks_sum_over_the_global_batch(ranks, weighted):
+    """ops/cuda/tower.py's TowerLayer (its plain blocks) on 2 ranks of 32
+    rows, the sums all-reduced between the blocks: each rank's outputs and
+    dy are one process's rows, the running statistics one process's, and
+    the parameter gradients, each rank's own summed over the ranks, one
+    process's."""
+    want = worker.port_tower(weighted)
+    r0, r1 = (worker.load(ranks["out"], f"tower_{weighted}", r) for r in (0, 1))
+    for k in want:
+        if k in ("out", "dy"):
             got = np.concatenate([r0[k], r1[k]])
         else:
             np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
