@@ -2,7 +2,6 @@
 """Drive the PyTorch port (ctr_recommendation_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --tower   # phase 1's card line, then the tower kernels' phase 2 and 3 alone
 
 Phases, in order; any failure exits non-zero and prints no result line. A
 `[clock] phase X at T s` line marks where each starts.
@@ -32,9 +31,11 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    BatchNorm, ReLU and dropout after each tower GEMM, both ways): the card
    tests tests/test_torch_tower_kernels.py, run by pytest without the JAX
    conftest (each block against its plain version, the layer against the
-   plain blocks and the library composition, 1 to 131,072 rows, widths 50
+   plain blocks and the library composition, 0 to 131,072 rows, widths 50
    to 512, repeats bit for bit, launch counts, a one-rank data-parallel
-   group). Then the interaction forward and the fused scoring kernel at the
+   group), all TOWER_CASES passing and none skipped, then the layer at the
+   mm cell's shapes against the plain blocks (the kernels line's
+   max_abs_err). Then the interaction forward and the fused scoring kernel at the
    training batch 4096, the serving batch 8192 and each plus a ragged 37
    (F=6, E=128, tower 2688->512->256->1), the forward's repeat launch
    bit-identical and in bf16 also within FWD_NORM_TOL in norm, which a
@@ -150,7 +151,10 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    rank that fails fails the phase. (a) One fp32 step (dropout 0.2 on),
    2 x 2048 rows against one process's step on the same 4096 rows and
    seeded weights, the one process's ReLU and dropout gates replayed on
-   each rank's rows: the loss within 1e-5, every gradient within GRAD_TOL
+   each rank's rows; the ranks' tower on its kernels (the sums all-reduced
+   between the blocks, each block's launches exact) and the one process's
+   on the composition, rerun taking the ranks' tower decisions
+   (dp_reference; each flip within GATE_MARGIN): the loss within 1e-5, every gradient within GRAD_TOL
    / GRAD_FLOOR (each flip within GATE_MARGIN), the BatchNorm running
    statistics within DP_STATE_TOL, the parameters after the update within
    DP_PARAM_TOL where the gradients fix Adam's step (2 lr elsewhere), the
@@ -171,7 +175,8 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    examples/s, a step's wall, the gradient all-reduce's ms and bytes and
    the collectives a step (2 ranks sharing one card: not a scaling
    figure). (c) One rank on NCCL, world 1: the step of (a) within the same
-   bars, its collectives run on the card. (d) is in phase 2.
+   bars, its collectives (the tower kernels' among them) run on the card.
+   (d) is in phase 2.
 6i. Row-sharded tables (parallel/embedding.py, model_parallel 2) at the
    same full defaults, the ranks sharing cuda:0 over gloo as in 6h (every
    exchange staged through host memory), spawned as in 6h. (a) One fp32
@@ -180,7 +185,8 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    process, at 1 x 2 (two ranks) and 2 x 2 (four): the tables' gradients,
    clipped gradients and updated parameters put together from the model
    ranks' shards, then held as in 6h (a) (loss within 1e-5, GRAD_TOL /
-   GRAD_FLOOR with the 1-process gates replayed, DP_PARAM_TOL); the
+   GRAD_FLOOR with the 1-process gates replayed and its tower rerun on the
+   ranks' tower decisions, DP_PARAM_TOL); the
    replicated leaves bit for bit equal on all ranks, each shard across its
    data group; fwd_launches() + bwd_launches() interaction launches and
    tg_step_launches table_grad launches a rank; at 1 x 2 and 2 x 2 the
@@ -456,8 +462,10 @@ Phases, in order; any failure exits non-zero and prints no result line. A
    device-busy ms and share, kernels a step, rows/s.
 8. `[chunked budget]`: every encoder call of this process outside 7e (c)'s
    chunked cases was one chunk, and its largest workspace beside
-   WORKSPACE_BUDGET. One JSON line describing the six kernels, then the
-   result line.
+   WORKSPACE_BUDGET. One JSON line describing the seven kernels (the
+   tower's launches: phase 6's fit, exact, 7c's profiled epochs and 6h
+   sasrec_step's on both ranks, each counted from 0), then the result
+   line.
 """
 
 from __future__ import annotations
@@ -466,6 +474,7 @@ import contextlib
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -940,7 +949,7 @@ def tower_relu(torch, layer: dict, st: dict, x, weight):
         return tower.unpack_code(code, y.shape[1])
 
 
-def gate_replay(torch, gates=None, part=(0, 1)):
+def gate_replay(torch, gates=None, part=(0, 1), tower: bool = True):
     """A torch function mode that records the decision of every ReLU
     (``torch.relu``) and every gate ``torch.where(cond, a, b)`` on floating
     ``a`` in one forward, in call order (``gates`` None), or replays such a
@@ -949,10 +958,10 @@ def gate_replay(torch, gates=None, part=(0, 1)):
     |input| / max|input| of its tensor among them. ``part`` (rank, world):
     the replaying forward holds rank's share of the recorded batch, and
     takes that share of each recorded gate (along the dimension that is
-    world times its own). Recording, the tower kernels' layers
-    (``mlp._kernel_layer``, dropout 0) append their ReLU decisions too
-    (tower_relu), in call order, for a replaying forward on the
-    composition."""
+    world times its own). Recording with ``tower``, the tower kernels'
+    layers (``mlp._kernel_layer``, dropout 0) append their ReLU decisions
+    too (tower_relu), in call order, for a replaying forward on the
+    composition. While ``paused`` is set the mode takes no decision."""
     from torch.overrides import TorchFunctionMode
 
     from ctr_recommendation_tpu_torch.ops import mlp
@@ -964,6 +973,7 @@ def gate_replay(torch, gates=None, part=(0, 1)):
             self.gates = gates if gates is not None else []
             self.calls = self.flips = 0
             self.margin = 0.0
+            self.paused = False
 
         def _decide(self, own, x):
             if not self.replay:
@@ -988,7 +998,7 @@ def gate_replay(torch, gates=None, part=(0, 1)):
             # (tower_relu; the CPU replays no dropout select of theirs, so
             # dropout 0), in call order
             self.kernel_layer = mlp._kernel_layer
-            if not self.replay:
+            if tower and not self.replay:
                 def recorded(layer, st, x, rate, generator, weight):
                     if rate > 0.0:
                         raise SystemExit("gate_replay records the tower kernels' ReLU "
@@ -1005,6 +1015,8 @@ def gate_replay(torch, gates=None, part=(0, 1)):
 
         def __torch_function__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
+            if self.paused:
+                return func(*args, **kwargs)
             if func is torch.relu:
                 x = args[0]
                 return torch.where(self._decide(x > 0, x), x, 0.0)
@@ -2613,15 +2625,26 @@ def table_grad_timing(torch, card) -> dict:
 TOWER_SHAPES = ((131072, 2688, 512), (131072, 512, 256))
 TOWER_RATE = 0.2  # mm_fibinet's net_dropout
 TOWER_TESTS = "tests/test_torch_tower_kernels.py"
+TOWER_CASES = 48  # its cases, every one of which has to pass on the card
+# kernel against plain blocks at TOWER_SHAPES, as the card tests hold them:
+# each element of out and dh within a bf16 ulp of |plain| plus TOWER_ABS of
+# the tensor's largest |plain| (out where the two codes agree: a gate at z
+# within rounding of 0 may differ; dh on the kernels' code)
+TOWER_ABS = 1e-5
 
 
-def tower_against_plain(torch) -> None:
+def tower_against_plain(torch) -> float:
     """Phase 2: the tower kernels' card tests (TOWER_TESTS: each block
     against its plain version, the layer against the plain blocks and the
     library composition, bf16 and fp32, BatchNorm on and off, rates 0 and
-    0.2, weights, widths 50 to 512, 1 to 131,072 rows, repeats bit for bit,
+    0.2, weights, widths 50 to 512, 0 to 131,072 rows, repeats bit for bit,
     the launch counters, the C plan, a one-rank data-parallel group), run
-    by pytest without the JAX conftest; any failure fails the phase."""
+    by pytest without the JAX conftest; the phase fails unless all
+    TOWER_CASES pass, none skipped. Then the layer at the mm cell's shapes
+    against the plain blocks (TOWER_ABS); returns the worst |d| of out and
+    dh there."""
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
+
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
            "--tb=short", TOWER_TESTS]
     t0 = time.perf_counter()
@@ -2630,9 +2653,40 @@ def tower_against_plain(torch) -> None:
     tail = res.stdout.strip().splitlines()[-1:] or [res.stderr.strip()[-400:]]
     log(f"[compare] tower: {TOWER_TESTS} rc {res.returncode} in "
         f"{time.perf_counter() - t0:.1f} s: {tail[0]}")
-    if res.returncode != 0:
+    if res.returncode != 0 or not re.fullmatch(
+            rf"{TOWER_CASES} passed(, \d+ warnings?)? in [^,]*", tail[0]):
         log(res.stdout[-20000:])
-        raise SystemExit("the tower kernels disagree with their plain versions")
+        raise SystemExit(f"the tower kernels' card tests: not all {TOWER_CASES} passed")
+    keep, worst = 1.0 - TOWER_RATE, 0.0
+    for rows, d_in, n in TOWER_SHAPES:
+        t = tower_inputs(torch, rows, d_in, n, torch.bfloat16, seed=n + 1)
+        y, b, gamma, beta, u, dout = (t[k] for k in ("y", "b", "gamma", "beta", "u", "dout"))
+        sums = tower.fwd_sums(y, b, None)
+        devs = tower.fwd_devs(y, b, None, sums)
+        out, code, _ = tower.fwd_apply(y, b, gamma, beta, sums, devs, u, keep, t["rm"], t["rv"])
+        sums_p = tower.fwd_sums_plain(y, b, None)
+        devs_p = tower.fwd_devs_plain(y, b, None, sums_p)
+        out_p, code_p, _ = tower.fwd_apply_plain(y, b, gamma, beta, sums_p, devs_p, u, keep,
+                                                 t["rm"], t["rv"])
+        same = tower.unpack_code(code, n) == tower.unpack_code(code_p, n)
+        gsums = tower.bwd_sums(dout, y, code, b, gamma, beta, sums, devs, keep)
+        dh = tower.bwd_dx(dout, y, code, b, gamma, beta, sums, devs, gsums, None, keep)[0]
+        dh_p = tower.bwd_dx_plain(dout, y, code, b, gamma, beta, sums, devs, gsums, None, keep)[0]
+        errs = []
+        for name, a, w in (("out", out[same], out_p[same]), ("dh", dh, dh_p)):
+            a, w = a.double(), w.double()
+            d = (a - w).abs()
+            errs.append(d.max().item())
+            if bool((d > 2.0 ** -7 * w.abs() + TOWER_ABS * w.abs().max()).any()):
+                raise SystemExit(f"tower ({rows}, {n}): {name} off its plain version, max|d| "
+                                 f"{errs[-1]:.3e}")
+        worst = max(worst, *errs)
+        log(f"[compare] tower ({rows}, {n}) bf16, BatchNorm, dropout {TOWER_RATE}: max|d| out "
+            f"{errs[0]:.3e} ({int((~same).sum())} gates apart, within rounding of 0), dh "
+            f"{errs[1]:.3e} against the plain blocks (a bf16 ulp + {TOWER_ABS:g} of the "
+            f"largest)")
+        del t, out, out_p, dh, dh_p
+    return worst
 
 
 def tower_inputs(torch, rows: int, d_in: int, n: int, dtype, seed: int) -> dict:
@@ -2778,13 +2832,15 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     log (default: the model's name). ``probe``: after the fit, the trained
     step on its first batch twice (repeat_probe), any leaf apart failing
     (True) or logged (False). Returns the launches of each counted
-    wrapper in the fit (``launches``), the fit's history (``hist``), its
+    wrapper in the fit (``launches``) and the tower blocks' launches in it
+    (``tower_launches``), the fit's history (``hist``), its
     best valid AUC, the step split's numbers (``step``), the gradient
     check's worst gap (``grad_gap``), the serving Predictor (``server``),
     the AUC evaluate gave its export (``served_auc``) and the probe's
     leaves apart (``probe``, None without one)."""
     from ctr_recommendation_tpu_torch.cli.evaluate import eval_line, evaluate
     from ctr_recommendation_tpu_torch.inference import Predictor
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
         bwd_launches as inter_bwd_launches,
     )
@@ -2804,13 +2860,14 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
     eval_batches = TRAIN_EPOCHS * -(-n_valid // exp.train.eval_batch_size)
     trainer = Trainer(exp, steps_per_epoch=n_train // bs, item_store=store, log_fn=log)
     torch.cuda.synchronize()
-    for fn in counted:
+    for fn in (*counted, *tower.BLOCKS):
         fn.launches = 0
     t0 = time.perf_counter()
     hist = trainer.fit_on_device(train, valid)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     launched = {fn: fn.launches for fn in counted}
+    tower_launches = tower.launches()
     expect = {fn: per_step.get(fn, 0) * steps + per_eval.get(fn, 0) * eval_batches
               for fn in counted}
     for h in hist:
@@ -2866,7 +2923,8 @@ def train_and_serve(torch, exp, train, valid, store, root, card, counted, per_st
         raise SystemExit(f"{tag}: the served export disagrees with the trainer's eval")
     if not np.isfinite(res["logloss"]) or abs(res["gauc"] - cpu_gauc) > GAUC_TOL:
         raise SystemExit(f"{tag}: evaluate's logloss is not finite or its gAUC is not the CPU's")
-    return {"launches": launched, "hist": hist, "best_auc": best_auc, "step": step,
+    return {"launches": launched, "tower_launches": tower_launches, "hist": hist,
+            "best_auc": best_auc, "step": step,
             "grad_gap": grad_gap, "server": server, "served_auc": res["auc"], "probe": moved}
 
 
@@ -3686,44 +3744,117 @@ def dp_experiment(ckpt: str, fp32: bool, model: str = "mm_fibinet"):
     return exp
 
 
-def dp_step(torch, tr, batch: dict, gates, part, encoder: list | None = None) -> dict:
+@contextlib.contextmanager
+def dp_tower(torch, replay, codes: list, given: list | None, stats: dict):
+    """dp_step's tower. ``given`` None: on its kernels, each layer's
+    decisions (ReLU on and the element kept: the code the kernels keep for
+    the backward) appended to ``codes`` on the CPU. Else on the
+    composition, each layer's ReLU taking ``given``'s next layer (this
+    step's rows of it); ``stats`` counts the layers met (``calls``) and,
+    where the layer's dropout keeps an element, the decisions its own ReLU
+    would have taken otherwise (``flips``) with the largest |input| /
+    max|input| among them (``margin``). ``replay``, the step's gate_replay,
+    is paused inside the tower."""
+    from torch.overrides import TorchFunctionMode
+
+    from ctr_recommendation_tpu_torch.ops import mlp
+    from ctr_recommendation_tpu_torch.ops.cuda import tower
+
+    kernel_layer, plain, on_kernels = mlp._kernel_layer, mlp.apply, mlp.on_kernels
+    if given is None:
+        def recorded(layer, st, x, rate, generator, weight):
+            replay.paused = True
+            try:
+                out, new_st = kernel_layer(layer, st, x, rate, generator, weight)
+            finally:
+                replay.paused = False
+            code = out.grad_fn.saved_tensors[1]  # TowerLayer's, as its backward reads it
+            codes.append(tower.unpack_code(code, out.shape[1]).cpu())
+            return out, new_st
+
+        mlp._kernel_layer = recorded
+    else:
+        pending = []
+
+        def account(kept):
+            x, own, want = pending.pop()
+            differ = (own != want) & kept
+            if bool(differ.any()):
+                stats["flips"] += int(differ.sum())
+                mag = x.detach().abs()
+                stats["margin"] = max(stats["margin"], float(mag[differ].max() / mag.max()))
+
+        class Mode(TorchFunctionMode):
+            def __init__(self, rate: float):
+                super().__init__()
+                self.rate = rate
+
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if func is torch.relu:
+                    x = args[0]
+                    want = given[stats["calls"]].to(x.device)
+                    stats["calls"] += 1
+                    pending.append((x, x > 0, want))
+                    if self.rate == 0.0:
+                        account(torch.ones_like(want))
+                    return torch.where(want, x, 0.0)
+                if func is torch.where and pending and args[0].dtype == torch.bool:
+                    account(args[0])  # the dropout's select: its kept elements
+                return func(*args, **kwargs)
+
+        def apply(*args, **kw):
+            replay.paused = True
+            try:
+                with Mode(kw.get("dropout_rate", 0.0) if kw.get("train") else 0.0):
+                    return plain(*args, **kw)
+            finally:
+                replay.paused = False
+
+        mlp.apply = apply
+        mlp.on_kernels = lambda x, train: False
+    try:
+        yield
+    finally:
+        mlp._kernel_layer, mlp.apply, mlp.on_kernels = kernel_layer, plain, on_kernels
+
+
+def dp_step(torch, tr, batch: dict, gates, part, encoder: list | None = None,
+            tower: list | None = None) -> dict:
     """One train step of ``tr`` on ``batch`` (device columns), the forward
     recording its gates (``gates`` None) or replaying ``part`` of them;
     returns the global loss, the gradients by target, the interaction (and
-    table_grad) and encoder launches, the replay's counts, and after the update the
-    gradients as the optimizer left them (``clipped``: clipped, plus the L2
+    table_grad), encoder and tower launches, the replay's counts, and after
+    the update the gradients as the optimizer left them (``clipped``: clipped, plus the L2
     term), the parameters and the model state (on the CPU). With
     ``encoder`` (a list) the encoder kernels' FFN decisions are recorded
     into it (encoder_gates: each layer's f1 and its real tokens), as the
-    kernels take them: they cannot be replayed inside a kernel."""
+    kernels take them: they cannot be replayed inside a kernel. The tower
+    (dp_tower) runs on its kernels, as training does, each layer's
+    decisions recorded (``tower`` in the result, this step's rows); given
+    ``tower`` (each layer's over the global batch, as the ranks' kernels
+    took them), the reference runs it on the composition taking them
+    (``tower_calls``, ``tower_flips``, ``tower_margin``)."""
+    from ctr_recommendation_tpu_torch.ops.cuda import tower as tower_ops
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import interaction_bwd, interaction_fwd
     from ctr_recommendation_tpu_torch.ops.cuda.sasrec_encoder import encode_bwd, encode_fwd
     from ctr_recommendation_tpu_torch.ops.cuda.table_grad import table_grad
     from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
 
-    from ctr_recommendation_tpu_torch.ops import mlp
-
     interaction_fwd.launches = interaction_bwd.launches = table_grad.launches = 0
     encode_fwd.launches = encode_bwd.launches = 0
-    replay = gate_replay(torch, gates, part)
-    # the tower on the composition, whose gates replay: one layer of the
-    # tower kernels sums its statistics over a rank's rows and one process's
-    # in two orders, and a gate at z within rounding of 0 cannot be replayed
-    # inside a kernel (the tower kernels' own data-parallel path: tests/
-    # test_torch_tower_kernels.py, one rank; tests/test_torch_dp_trainer.py,
-    # two ranks on the CPU)
-    on_kernels, mlp.on_kernels = mlp.on_kernels, lambda x, train: False
+    for fn in tower_ops.BLOCKS:
+        fn.launches = 0
+    replay = gate_replay(torch, gates, part, tower=False)
+    codes, tstats = [], {"calls": 0, "flips": 0, "margin": 0.0}
     enc_gates, f1 = [], []
     recorded = contextlib.nullcontext() if encoder is None else \
         encoder_gates(torch, enc_gates, None, values=f1)
-    try:
-        with torch.enable_grad():
-            with replay, recorded:
-                loss, aux = tr.forward_loss(batch)
-            grads = tr.gradients(loss, aux)
-        torch.cuda.synchronize()
-    finally:
-        mlp.on_kernels = on_kernels
+    with torch.enable_grad():
+        with replay, recorded, dp_tower(torch, replay, codes, tower, tstats):
+            loss, aux = tr.forward_loss(batch)
+        grads = tr.gradients(loss, aux)
+    torch.cuda.synchronize()
     if encoder is not None:
         encoder.extend((v, real.cpu()) for v, (_, real) in zip(f1, enc_gates))
     out = {"loss": aux.loss.item(), "grads": dict(zip(aux.targets, (g.detach().cpu().clone()
@@ -3731,8 +3862,12 @@ def dp_step(torch, tr, batch: dict, gates, part, encoder: list | None = None) ->
            "launches": (interaction_fwd.launches, interaction_bwd.launches,
                         table_grad.launches),
            "enc_launches": (encode_fwd.launches, encode_bwd.launches),
+           "tower_launches": tower_ops.launches(),
+           "tower_want": 0 if tower is not None else tower_step_launches(tr.exp),
            "calls": replay.calls, "flips": replay.flips, "margin": replay.margin,
-           "gates": [g.cpu() for g in replay.gates],
+           "gates": [g.cpu() for g in replay.gates], "tower": codes,
+           "tower_calls": tstats["calls"], "tower_flips": tstats["flips"],
+           "tower_margin": tstats["margin"],
            "params0": {k: v.detach().cpu().clone() for k, v in tr.param_paths.items()}}
     tr.apply_gradients(grads, aux)
     out["clipped"] = {k: g.detach().cpu().clone() for k, g in zip(aux.targets, grads)}
@@ -3740,6 +3875,30 @@ def dp_step(torch, tr, batch: dict, gates, part, encoder: list | None = None) ->
     out["state"] = {k: v.cpu().clone() for k, v in flatten(tr.state.model_state).items()}
     out["lr0"], out["weight_decay"] = tr.schedule(0), tr.exp.train.weight_decay
     return out
+
+
+def dp_reference(torch, tr, batch: dict, ref: dict, codes: list,
+                 encoder: list | None = None) -> dict:
+    """The 1-process step again, on a fresh Trainer ``tr`` (the recorded
+    step's seeded weights), its other gates replaying ``ref``'s (the
+    recorded 1-process step) and its tower on the composition taking the
+    ranks' decisions ``codes`` (each layer's over the global batch): the
+    reference dp_check_step holds the ranks' kernel steps to. ``encoder``
+    as the recorded step took it (its recording meets gates of its own).
+    Fails unless every layer was met and any decision the composition
+    would have taken otherwise lies within GATE_MARGIN of 0."""
+    res = dp_step(torch, tr, batch, ref["gates"], (0, 1), encoder=encoder, tower=codes)
+    if res["tower_calls"] != len(codes) or res["tower_margin"] > GATE_MARGIN:
+        raise SystemExit(f"the 1-process reference met {res['tower_calls']} tower layers for "
+                         f"the ranks' {len(codes)}, or a tower gate flipped beyond rounding "
+                         f"({res['tower_margin']:.2e} > {GATE_MARGIN:g})")
+    return res
+
+
+def rank_codes(torch, steps: list) -> list:
+    """Each tower layer's decisions over the global batch: the data ranks'
+    ``tower`` (dp_step), in row order."""
+    return [torch.cat(layer) for layer in zip(*(s["tower"] for s in steps))]
 
 
 def dp_load(path: str) -> dict:
@@ -3898,9 +4057,10 @@ def spawn_ranks(torch, spec: dict, world: int, root: str) -> list[dict]:
 
 def dp_check_step(torch, tag: str, got: dict, ref: dict, phase: str = "6h") -> float:
     """(a), (c): a rank's step against the 1-process step on the same 4096
-    rows: the loss, every fp32 gradient (GRAD_TOL of the leaf + GRAD_FLOOR
-    of the largest; the 1-process gates replayed, each flip within
-    GATE_MARGIN), the BatchNorm running statistics (DP_STATE_TOL) and the
+    rows (dp_reference): the loss, every fp32 gradient (GRAD_TOL of the leaf
+    + GRAD_FLOOR of the largest; the 1-process gates replayed, each flip
+    within GATE_MARGIN), the rank's tower on its kernels (its blocks'
+    launches exact), the BatchNorm running statistics (DP_STATE_TOL) and the
     parameters after the update (DP_PARAM_TOL, or 2 lr where the gradient
     is noise). Returns the worst |d| / max|g| over the gradients above 1e-3
     of the largest."""
@@ -3932,14 +4092,18 @@ def dp_check_step(torch, tag: str, got: dict, ref: dict, phase: str = "6h") -> f
             param_bad.append(k)
     ok = (not bad and not param_bad and abs(got["loss"] - ref["loss"]) <= 1e-5
           and state_err <= DP_STATE_TOL and got["calls"] == len(ref["gates"])
-          and got["margin"] <= GATE_MARGIN)
+          and got["margin"] <= GATE_MARGIN and got["tower_want"] > 0
+          and got["tower_launches"] == got["tower_want"] and ref["tower_launches"] == 0)
     log(f"[{'dp' if phase == '6h' else 'mp'} {tag}] loss {got['loss']:.7f} vs 1 process "
         f"{ref['loss']:.7f}; {len(names)} fp32 "
         f"gradients, before the update and clipped: worst |d|/max|g| {worst:.3e} (tolerance "
         f"{GRAD_TOL:g} of the leaf + "
         f"{GRAD_FLOOR:g} of the largest); the 1-process gates replayed: {got['calls']} of "
         f"{len(ref['gates'])} met, {got['flips']} flips, within {got['margin']:.2e} of 0 "
-        f"(GATE_MARGIN {GATE_MARGIN:g}); BatchNorm running stats |d| {state_err:.2e} (tolerance "
+        f"(GATE_MARGIN {GATE_MARGIN:g}); the tower on its kernels ({got['tower_launches']} "
+        f"launches, {got['tower_want']} expected), the reference's composition taking their "
+        f"decisions: {ref['tower_flips']} flips, within {ref['tower_margin']:.2e}; BatchNorm "
+        f"running stats |d| {state_err:.2e} (tolerance "
         f"{DP_STATE_TOL:g}); parameters after the update |d| {param_err:.2e} where the gradient "
         f"fixes the step (tolerance {DP_PARAM_TOL:g} (1 + |p|); elsewhere 2 lr = {2 * lr:.2e}) "
         f"{'ok' if ok else f'FAIL {bad} {param_bad}'}")
@@ -4000,41 +4164,43 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     np.savez(inputs, item_ids=ids, item_emb=store.emb[ids],
              **{f"train/{k}": v for k, v in train.columns.items()},
              **{f"valid/{k}": v for k, v in valid.columns.items()})
-    # the 1-process step on the first 4096 rows: the reference, its gates recorded
-    tr = Trainer(dp_experiment(os.path.join(root, "dp_ref"), fp32=True),
-                 steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
-                 log_fn=lambda s: None)
+    def fresh(tag: str, model: str = "mm_fibinet"):
+        return Trainer(dp_experiment(os.path.join(root, f"dp_ref_{tag}"), fp32=True, model=model),
+                       steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
+                       log_fn=lambda s: None)
+
+    # the 1-process step on the first 4096 rows, its gates recorded; each check's
+    # reference is this step again, taking the ranks' tower decisions (dp_reference)
     first = {k: torch.as_tensor(v[:bs]).to(DP_DEVICE) for k, v in train.columns.items()}
-    ref = dp_step(torch, tr, first, None, (0, 1))
+    rec = dp_step(torch, fresh("rec"), first, None, (0, 1))
     gates = os.path.join(root, "dp_gates.pt")
-    torch.save(ref["gates"], gates)
+    torch.save(rec["gates"], gates)
     # sasrec_fibinet's 1-process step on the same rows, its encoder's decisions recorded
-    tr = Trainer(dp_experiment(os.path.join(root, "dp_ref_sasrec"), fp32=True,
-                               model="sasrec_fibinet"),
-                 steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
-                 log_fn=lambda s: None)
+    tr = fresh("rec_sasrec", "sasrec_fibinet")
     m = tr.exp.model
     if (m.net_dropout, m.attn_dropout) != (0.2, DROP_RATE):
         raise SystemExit(f"phase 6h sasrec_step: dropout {m.net_dropout}, {m.attn_dropout}")
     sasrec_enc = []
-    sasrec_ref = dp_step(torch, tr, first, None, (0, 1), encoder=sasrec_enc)
+    sasrec_rec = dp_step(torch, tr, first, None, (0, 1), encoder=sasrec_enc)
     sasrec_gates = os.path.join(root, "dp_gates_sasrec.pt")
-    torch.save(sasrec_ref["gates"], sasrec_gates)
-    del tr, first
+    torch.save(sasrec_rec["gates"], sasrec_gates)
+    del tr
     torch.cuda.empty_cache()
     ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
     efwd, ebwd = fwd_launches(1), bwd_launches(1)
     # a step's table_grad launches: a rank's (its bs / DP_WORLD rows), one process's
     tgs = tg_step_launches(dp_experiment("", fp32=True), bs // DP_WORLD, world=DP_WORLD)
     tgs_one = tg_step_launches(dp_experiment("", fp32=True), bs)
-    if sasrec_ref["enc_launches"] != (efwd, ebwd):
+    if sasrec_rec["enc_launches"] != (efwd, ebwd):
         raise SystemExit(f"phase 6h sasrec_step: the 1-process step launched the encoder "
-                         f"{sasrec_ref['enc_launches']}, expected ({efwd}, {ebwd})")
+                         f"{sasrec_rec['enc_launches']}, expected ({efwd}, {ebwd})")
     spec = {"inputs": inputs, "gates": gates, "sasrec_gates": sasrec_gates,
             "ckpt": os.path.join(root, "dp_ckpt")}
     # (a) and (b): two ranks on cuda:0 over gloo
     ranks = spawn_ranks(torch, dict(spec, name="gloo", backend="gloo",
                                     tasks=["step", "sasrec_step", "fit"]), DP_WORLD, root)
+    ref = dp_reference(torch, fresh("gloo"), first, rec,
+                       rank_codes(torch, [res["step"] for res in ranks]))
     worst = 0.0
     for r, res in enumerate(ranks):
         step = res["step"]
@@ -4056,6 +4222,9 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
     if not same or ranks[0]["step"]["loss"] != ranks[1]["step"]["loss"]:
         raise SystemExit("phase 6h (a): the ranks' replicas differ after the step")
     # (a) for sasrec_fibinet: net dropout 0.2, the encoder's 0.1, masks of the global batch
+    sasrec_ref = dp_reference(torch, fresh("gloo_sasrec", "sasrec_fibinet"), first, sasrec_rec,
+                              rank_codes(torch, [res["sasrec_step"] for res in ranks]),
+                              encoder=[])
     for r, res in enumerate(ranks):
         step = res["sasrec_step"]
         if (step["launches"], step["enc_launches"]) != ((ifwd, ibwd, tgs), (efwd, ebwd)):
@@ -4131,12 +4300,14 @@ def data_parallel_phase(torch, train, valid, store, root, card, dense: dict) -> 
             step["stats"]["calls"] < 1:
         raise SystemExit(f"phase 6h (c): backend {nccl['backend']}, launches {step['launches']}, "
                          f"collectives {step['stats']}")
+    ref = dp_reference(torch, fresh("nccl"), first, rec, rank_codes(torch, [step]))
     worst = max(worst, dp_check_step(torch, "(c) 1 rank, NCCL", step, ref))
     log(f"[dp (c)] NCCL, world 1: {step['stats']['calls']} collectives, {step['stats']['bytes']} "
         f"bytes reduced in the step")
     log(f"[dp] phase 6h in {time.perf_counter() - t_phase:.1f} s")
     return {"grad_gap": worst, "best_auc": best,
             "fit": [res["fit"] for res in ranks],
+            "tower_launches": sum(r["sasrec_step"]["tower_launches"] for r in ranks),
             "launches": {fn: sum(r["sasrec_step"][key][i] for r in ranks)
                          for fn, key, i in ((interaction_fwd, "launches", 0),
                                             (interaction_bwd, "launches", 1),
@@ -4465,41 +4636,43 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
     t_phase = time.perf_counter()
     bs = B_TRAIN
     inputs = os.path.join(root, "dp_inputs.npz")  # written by phase 6h
-    # the 1-process step on the first 4096 rows with (a)'s clip: the reference
-    tr = Trainer(mp_experiment(os.path.join(root, "mp_ref"), fp32=True, clip=MP_CLIP, mp=1),
-                 steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
-                 log_fn=lambda s: None)
-    ref = dp_step(torch, tr, {k: torch.as_tensor(v[:bs]).to(DP_DEVICE)
-                              for k, v in train.columns.items()}, None, (0, 1))
+    def fresh(tag: str):
+        return Trainer(mp_experiment(os.path.join(root, f"mp_ref_{tag}"), fp32=True,
+                                     clip=MP_CLIP, mp=1),
+                       steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
+                       log_fn=lambda s: None)
+
+    def fresh_sparse(strategy: str, tag: str):
+        return Trainer(mp_sparse_experiment(os.path.join(root, f"mp_sparse_{tag}_{strategy}"),
+                                            mp=1),
+                       steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
+                       log_fn=lambda s: None)
+
+    # the 1-process step on the first 4096 rows with (a)'s clip, its gates
+    # recorded; each layout's reference is this step again, taking the ranks'
+    # tower decisions (dp_reference)
+    first = {k: torch.as_tensor(v[:bs]).to(DP_DEVICE) for k, v in train.columns.items()}
+    rec = dp_step(torch, fresh("rec"), first, None, (0, 1))
     norm = float(torch.linalg.vector_norm(torch.stack(
-        [g.double().norm() for g in ref["grads"].values()])))
+        [g.double().norm() for g in rec["grads"].values()])))
     log(f"[mp (a)] the 1-process step's global gradient norm {norm:.4e}, clipped to {MP_CLIP:g}")
     if not norm > MP_CLIP:
         raise SystemExit("phase 6i (a): the clip does not scale the step's gradients")
     gates = os.path.join(root, "mp_gates.pt")
-    torch.save(ref["gates"], gates)
-    del tr
-    # the sparse steps' 1-process references, each strategy's gates recorded
+    torch.save(rec["gates"], gates)
+    # the sparse steps' 1-process steps, each strategy's gates recorded
     from ctr_recommendation_tpu_torch.tools.jax_bridge import flatten
     from ctr_recommendation_tpu_torch.training import sparse
 
-    sparse_refs, sparse_gates = {}, {}
+    sparse_recs, sparse_gates = {}, {}
     default_ratio = sparse.GATHERED_MIN_VOCAB_RATIO
     try:
         for strategy, ratio in FORCE_STRATEGY.items():
             sparse.GATHERED_MIN_VOCAB_RATIO = ratio
-            tr = Trainer(mp_sparse_experiment(os.path.join(root, f"mp_sparse_ref_{strategy}"),
-                                              mp=1),
-                         steps_per_epoch=N_TRAIN // bs, item_store=store, device=DP_DEVICE,
-                         log_fn=lambda s: None)
-            sref = dp_step(torch, tr, {k: torch.as_tensor(v[:bs]).to(DP_DEVICE)
-                                       for k, v in train.columns.items()}, None, (0, 1))
-            sref["topt"] = {k: v.cpu().clone()
-                            for k, v in flatten(tr.state.table_opt_state).items()}
+            sparse_recs[strategy] = dp_step(torch, fresh_sparse(strategy, "rec"), first, None,
+                                            (0, 1))
             sparse_gates[strategy] = os.path.join(root, f"mp_sparse_gates_{strategy}.pt")
-            torch.save(sref.pop("gates"), sparse_gates[strategy])
-            sparse_refs[strategy] = sref
-            del tr
+            torch.save(sparse_recs[strategy]["gates"], sparse_gates[strategy])
     finally:
         sparse.GATHERED_MIN_VOCAB_RATIO = default_ratio
     torch.cuda.empty_cache()
@@ -4537,7 +4710,13 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
         log(f"[mp (a)] {dp}x{mp}: the one-step probe on {dp * mp} ranks (the row-sharded "
             f"table_grad and the gloo all-reduce{'s' if dp > 1 else ''}), leaves apart "
             f"{apart or 'none'}{'' if dp == 1 else ' (logged)'}")
-        for d, got in enumerate(mp_assemble(torch, ranks, dp, mp)):
+        assembled = mp_assemble(torch, ranks, dp, mp)
+        agree = all(torch.equal(a, b) for r, res in enumerate(ranks)
+                    for a, b in zip(res["mp_step"]["tower"], assembled[r // mp]["tower"]))
+        log(f"[mp (a)] {dp}x{mp}: the tower kernels' decisions of each data group's model "
+            f"ranks bit for bit equal: {agree}")
+        ref = dp_reference(torch, fresh(f"{dp}x{mp}"), first, rec, rank_codes(torch, assembled))
+        for d, got in enumerate(assembled):
             worst = max(worst, dp_check_step(
                 torch, f"(a) {dp}x{mp} data rank {d}, {bs // dp} rows, tables in {mp} shards",
                 got, ref, phase="6i"))
@@ -4552,6 +4731,19 @@ def model_parallel_phase(torch, train, valid, store, root, card, dense: dict) ->
         if not (same and same_shards):
             raise SystemExit(f"phase 6i (a) {dp}x{mp}: the ranks' replicas or shards differ")
         if dp == 1:
+            sparse_refs = {}
+            try:
+                for strategy, ratio in FORCE_STRATEGY.items():
+                    sparse.GATHERED_MIN_VOCAB_RATIO = ratio
+                    tr = fresh_sparse(strategy, "ref")
+                    sref = dp_reference(torch, tr, first, sparse_recs[strategy],
+                                        ranks[0]["mp_sparse"][strategy]["tower"])
+                    sref["topt"] = {k: v.cpu().clone()
+                                    for k, v in flatten(tr.state.table_opt_state).items()}
+                    sparse_refs[strategy] = sref
+                    del tr
+            finally:
+                sparse.GATHERED_MIN_VOCAB_RATIO = default_ratio
             mp_check_sparse(torch, ranks, sparse_refs)
     # (b): fit_on_device at 1 x 2
     ranks = results[(1, MP)]
@@ -4706,7 +4898,8 @@ def profile_epoch_phase(torch, train, store, root, card) -> dict:
     train split: exact interaction, table_grad and tower launches over both
     epochs, state.step 2 epochs' steps, no metrics.csv, one trace whose hand-written kernels ran
     one epoch's launches. Profiles again (3 tries) when the trace holds no
-    device event. Returns the launches of the run it keeps."""
+    device event. Returns the launches of the run it keeps, and the tower
+    blocks' in it."""
     from ctr_recommendation_tpu_torch.config import microlens_experiment
     from ctr_recommendation_tpu_torch.ops.cuda.interaction import (
         bwd_launches,
@@ -4725,13 +4918,13 @@ def profile_epoch_phase(torch, train, store, root, card) -> dict:
     for attempt in range(3):
         log_dir = os.path.join(root, f"profile_{attempt}")
         tr = Trainer(exp, steps_per_epoch=steps, item_store=store, log_fn=log)
-        interaction_fwd.launches = interaction_bwd.launches = table_grad.launches = 0
-        tower0 = tower.launches()
+        for fn in (interaction_fwd, interaction_bwd, table_grad, *tower.BLOCKS):
+            fn.launches = 0
         t0 = time.perf_counter()
         tr.profile_epoch(train, log_dir)
         took = time.perf_counter() - t0
         launches = {fn: fn.launches for fn in (interaction_fwd, interaction_bwd, table_grad)}
-        tower_n = tower.launches() - tower0
+        tower_n = tower.launches()
         log(f"[profile] profile_epoch: {steps} steps x 2 epochs in {took:.2f} s (upload, the "
             f"untraced epoch, the traced one, the export); launches "
             f"{ {fn.__name__: n for fn, n in launches.items()} }, the tower blocks' {tower_n}; "
@@ -4748,7 +4941,7 @@ def profile_epoch_phase(torch, train, store, root, card) -> dict:
             raise SystemExit(f"profile_epoch: expected one trace file, found {files}")
         if trace_summary(os.path.join(log_dir, files[0]), card,
                          steps * (fwd_launches() + bwd_launches() + tgs + towers)):
-            return launches
+            return launches, tower_n
         log(f"[profile] the trace holds no device event (try {attempt + 1} of 3)")
     raise SystemExit("profile_epoch: no trace held a device event in 3 tries")
 
@@ -7034,8 +7227,6 @@ def main(argv=None) -> int:
         return 1
     if argv[:1] == ["--dp-rank"] and len(argv) == 2:  # a rank of phase 6h (spawn_ranks)
         return dp_rank(argv[1])
-    if argv == ["--tower"]:
-        return tower_only(torch)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -7093,7 +7284,7 @@ def main(argv=None) -> int:
     workspace_grid(torch)
     spied = spy_plans(torch)  # every encoder call's plan from here on
     worst["table_grad"], failures = table_grad_against_plain(torch)
-    tower_against_plain(torch)
+    worst["tower"] = tower_against_plain(torch)
     batches = (B_TRAIN, B_TRAIN + 37, B_FULL, B_RAGGED)
     failures += forward_against_plain(torch, worst, E, HIDDEN, batches)
     failures += backward_against_plain(torch, worst, E)
@@ -7257,15 +7448,21 @@ def main(argv=None) -> int:
     enc_fwd, enc_bwd = fwd_launches(1), bwd_launches(1)  # one layer's kernel launches a call
     ifwd, ibwd = inter_fwd_launches(), inter_bwd_launches()
     with tempfile.TemporaryDirectory() as root:
+        mm_exp = microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
+                                      checkpoint_dir=os.path.join(root, "ckpt"))
         mm = train_and_serve(
-            torch, microlens_experiment(data_root="", epochs=TRAIN_EPOCHS,
-                                        checkpoint_dir=os.path.join(root, "ckpt")),
-            train, valid, train_store, root, card, counted,
+            torch, mm_exp, train, valid, train_store, root, card, counted,
             per_step={interaction_fwd: ifwd, interaction_bwd: ibwd, table_grad: tgs},
             per_eval={interaction_fwd: ifwd}, per_serve={score_fwd: score_launches()})
+        mm_towers = (TRAIN_EPOCHS * (train.num_rows // mm_exp.train.batch_size)
+                     * tower_step_launches(mm_exp))
+        log(f"[train mm_fibinet] the tower blocks' launches in the fit {mm['tower_launches']}, "
+            f"expected {mm_towers} (steps x layers x (fwd_launches + bwd_launches))")
+        if mm["tower_launches"] != mm_towers:
+            raise SystemExit("mm_fibinet: the tower blocks' launches in the fit are off")
         # ---- phase 7c: profile_epoch, the reference state_dict import, item embeddings ----
         clock("7c")
-        profiled = profile_epoch_phase(torch, train, train_store, root, card)
+        profiled, profiled_tower = profile_epoch_phase(torch, train, train_store, root, card)
         imported = import_phase(torch, store, rows, card)
         item_embeddings_phase(torch, root, card)
         # ---- phase 7d: the entry point's forward, 256 and 8192 rows ----
@@ -7385,6 +7582,9 @@ def main(argv=None) -> int:
     enc_fwd_launches = enc_launches + extra[encode_fwd]
     enc_bwd_launches = sasrec["launches"][encode_bwd] + extra[encode_bwd]
     tg_total = mm["launches"][table_grad] + profiled[table_grad] + extra[table_grad]
+    # the tower blocks': phase 6's fit, phase 7c's profiled epochs, phase 6h's
+    # sasrec_fibinet step on both ranks, each counted from 0
+    tower_total = mm["tower_launches"] + profiled_tower + dp["tower_launches"]
 
     # ---- phase 8: result ----
     clock("8")
@@ -7428,48 +7628,13 @@ def main(argv=None) -> int:
          "replaces": "no TPU kernel: the library's BatchNorm, ReLU and dropout kernels after "
                      "each tower GEMM on the training path (the JAX package leaves the tower "
                      "to XLA: ctr_recommendation_tpu/ops/mlp.py)",
-         "launches": tower_launches(), "max_abs_err": None, **timing[("tower", "all")]},
+         "launches": tower_total, "max_abs_err": worst["tower"],
+         **timing[("tower", "all")]},
     ]
     print(json.dumps({"kernels": kernels}))
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
-    return 0
-
-
-def tower_launches() -> int:
-    """The tower blocks' launches in this process (every phase's training
-    steps on the card and the checks)."""
-    from ctr_recommendation_tpu_torch.ops.cuda import tower
-
-    return tower.launches()
-
-
-def tower_only(torch) -> int:
-    """``--tower``: phase 1's card line and the tower kernels' build, then
-    their phase 2 checks and phase 3 timing alone."""
-    from ctr_recommendation_tpu_torch.ops.cuda import build
-
-    clock("1")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
-    card = smi.strip()
-    log(f"[build] tower: {build.build(('tower',))}")
-    fn = ""
-    for line in build.ptxas_log.get("tower", "").splitlines():
-        if "Function properties for" in line:
-            fn = line.rsplit(" ", 1)[-1]
-        elif "registers" in line or "spill" in line:
-            log(f"[ptxas tower] {fn} {line.strip()}")
-    clock("2")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    tower_against_plain(torch)
-    clock("3")
-    timing = tower_timing(torch, card)
-    print(json.dumps({"kernels": [{"name": "tower", "launches": tower_launches(), **timing}]}))
     return 0
 
 

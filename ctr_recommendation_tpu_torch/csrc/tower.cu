@@ -50,7 +50,9 @@
 // column vectors are noise beside that. Every pass streams its rows once in
 // 16-byte loads, kRows rows of a warp loaded before any is used (their
 // loads in flight together); the running statistics come from the apply
-// pass's first chunk.
+// pass's first chunk. A call on no rows (a data-parallel rank without rows
+// of the batch) runs one empty chunk: zero partials, and the running
+// statistics from the sums it is given.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -89,7 +91,7 @@ inline Plan make_plan(long long rows, long long n, int bf16) {
   const long long want = kTargetBlocks / p.tiles > 1 ? kTargetBlocks / p.tiles : 1;
   const long long per = cdiv(cdiv(rows, want), kWarps) * kWarps;
   p.chunk_rows = per > kMinChunk ? per : kMinChunk;
-  p.chunks = cdiv(rows, p.chunk_rows);
+  p.chunks = rows > 0 ? cdiv(rows, p.chunk_rows) : 1;  // no rows: one empty chunk
   return p;
 }
 
@@ -456,7 +458,7 @@ inline cudaError_t launch_reduce(const Args& g, const Plan& p, int count, float*
 }
 
 inline bool bad(long long rows, long long n) {
-  return rows < 1 || n < 1 || n > (1LL << 30) || rows > (1LL << 40);
+  return rows < 0 || n < 1 || n > (1LL << 30) || rows > (1LL << 40);
 }
 
 inline Args args(long long rows, int n, const Plan& p) {
@@ -476,7 +478,7 @@ namespace tw = ctr::tower;
 
 // The geometry of a call (ops/cuda/tower.py::plan): out[0] the vector width,
 // out[1] column tiles, out[2] rows a chunk, out[3] chunks. Returns 0, or 1
-// for no rows or no columns.
+// for no columns or a negative row count.
 extern "C" int tower_plan(long long rows, long long n, int bf16, long long* out) {
   if (tw::bad(rows, n)) return 1;
   const tw::Plan p = tw::make_plan(rows, n, bf16);

@@ -40,7 +40,7 @@ global batch, while dgamma, dbeta and db stay the rank's own, for the
 trainer's gradient sum. One algorithm takes bf16 and fp32, BatchNorm or
 none, any rate, weights or none, a data-parallel slice or none, any width
 (``plan``: 16-byte vectors where the width allows, else one column a lane)
-and any row count.
+and any row count, none included (one empty chunk: zero sums).
 
 Bound on an H100: bytes. No float atomics: each reduction runs in an order
 fixed by (rows, n) alone (``plan``), so repeats are bit-identical.
@@ -77,14 +77,14 @@ class Plan(NamedTuple):
 def plan(rows: int, n: int, bf16: bool) -> Plan:
     """The geometry of a call on (rows, n) in bf16 or fp32, a pure function
     of the shapes that fixes every reduction's order: the C ``tower_plan``."""
-    if rows < 1 or n < 1:
-        raise ValueError(f"tower kernels need rows >= 1 and n >= 1; got {rows} x {n}")
+    if rows < 0 or n < 1:
+        raise ValueError(f"tower kernels need rows >= 0 and n >= 1; got {rows} x {n}")
     wide = 8 if bf16 else 4
     vec = wide if n % wide == 0 else 1
     tiles = _cdiv(n, 32 * vec)
     want = max(1, TARGET_BLOCKS // tiles)
     chunk_rows = max(MIN_CHUNK, _cdiv(_cdiv(rows, want), WARPS) * WARPS)
-    return Plan(vec, tiles, chunk_rows, _cdiv(rows, chunk_rows))
+    return Plan(vec, tiles, chunk_rows, _cdiv(rows, chunk_rows) if rows else 1)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -113,7 +113,7 @@ def pack_code(bits: torch.Tensor) -> torch.Tensor:
     element of column 8 m + k; the bits past n are 0."""
     rows, n = bits.shape
     pad = 8 * code_bytes(n) - n
-    b = torch.nn.functional.pad(bits.to(torch.uint8), (0, pad)).reshape(rows, -1, 8)
+    b = torch.nn.functional.pad(bits.to(torch.uint8), (0, pad)).reshape(rows, code_bytes(n), 8)
     weights = torch.tensor([1 << k for k in range(8)], dtype=torch.uint8, device=bits.device)
     return (b * weights).sum(-1, dtype=torch.uint8)
 
@@ -122,7 +122,7 @@ def unpack_code(code: torch.Tensor, n: int) -> torch.Tensor:
     """The inverse of ``pack_code``: (rows, code_bytes(n)) uint8 -> (rows, n) bool."""
     shifts = torch.arange(8, dtype=torch.uint8, device=code.device)
     bits = (code[..., None] >> shifts) & 1
-    return bits.reshape(code.shape[0], -1)[:, :n].bool()
+    return bits.reshape(code.shape[0], 8 * code.shape[1])[:, :n].bool()
 
 
 # ---------------------------------------------------------------- plain versions
@@ -251,7 +251,7 @@ def _kernel_lib():
 
 
 def c_plan(rows: int, n: int, bf16: bool) -> Plan | None:
-    """The C ``tower_plan`` (the card's library), None for no rows or columns."""
+    """The C ``tower_plan`` (the card's library), None for no columns."""
     out = (ctypes.c_longlong * 4)()
     if _kernel_lib().tower_plan(rows, n, int(bf16), out):
         return None
@@ -294,7 +294,7 @@ def _part(y, rows, n, bf16, width):
 
 def fwd_sums(y, bias, weight):
     """``fwd_sums_plain``: on a card 2 launches, fp32 out."""
-    if y.device.type == "cpu" or y.shape[0] == 0:
+    if y.device.type == "cpu":
         return fwd_sums_plain(y, bias, weight)
     rows, n, bf16 = _on_card("fwd_sums", y, bias=bias, weight=weight)
     f32 = torch.float32
@@ -310,7 +310,7 @@ def fwd_sums(y, bias, weight):
 
 def fwd_devs(y, bias, weight, sums):
     """``fwd_devs_plain``: on a card 2 launches, fp32 out."""
-    if y.device.type == "cpu" or y.shape[0] == 0:
+    if y.device.type == "cpu":
         return fwd_devs_plain(y, bias, weight, sums)
     rows, n, bf16 = _on_card("fwd_devs", y, bias=bias, weight=weight, sums=sums)
     f32 = torch.float32
@@ -327,7 +327,7 @@ def fwd_devs(y, bias, weight, sums):
 
 def fwd_apply(y, bias, gamma, beta, sums, devs, u, keep, run_mean, run_var):
     """``fwd_apply_plain``: on a card 1 launch."""
-    if y.device.type == "cpu" or y.shape[0] == 0:
+    if y.device.type == "cpu":
         return fwd_apply_plain(y, bias, gamma, beta, sums, devs, u, keep, run_mean, run_var)
     rows, n, bf16 = _on_card("fwd_apply", y, bias=bias, gamma=gamma, beta=beta, sums=sums,
                               devs=devs, u=u, run_mean=run_mean, run_var=run_var)
@@ -351,7 +351,7 @@ def fwd_apply(y, bias, gamma, beta, sums, devs, u, keep, run_mean, run_var):
 
 def bwd_sums(dout, y, code, bias, gamma, beta, sums, devs, keep):
     """``bwd_sums_plain``: on a card 2 launches, fp32 out."""
-    if y.device.type == "cpu" or y.shape[0] == 0:
+    if y.device.type == "cpu":
         return bwd_sums_plain(dout, y, code, bias, gamma, beta, sums, devs, keep)
     rows, n, bf16 = _on_card("bwd_sums", y, dout=dout, code=code, bias=bias, gamma=gamma,
                               beta=beta, sums=sums, devs=devs)
@@ -370,7 +370,7 @@ def bwd_sums(dout, y, code, bias, gamma, beta, sums, devs, keep):
 
 def bwd_dx(dout, y, code, bias, gamma, beta, sums, devs, gsums, weight, keep):
     """``bwd_dx_plain``: on a card 2 launches; dh in y's dtype, db fp32."""
-    if y.device.type == "cpu" or y.shape[0] == 0:
+    if y.device.type == "cpu":
         return bwd_dx_plain(dout, y, code, bias, gamma, beta, sums, devs, gsums, weight, keep)
     rows, n, bf16 = _on_card("bwd_dx", y, dout=dout, code=code, bias=bias, gamma=gamma,
                               beta=beta, sums=sums, devs=devs, gsums=gsums, weight=weight)

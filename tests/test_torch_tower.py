@@ -8,7 +8,7 @@ dropout's select) to rounding (1e-12 of the largest magnitude): outputs,
 running statistics and the gradients of y, b, gamma and beta, with
 BatchNorm and without, plain, weighted and all-zero weights, dropout on and
 off, at widths that are not a multiple of the kernels' 8 or 32 columns, and
-at one row. Beside them: the code's packing at ragged widths, ``plan``, the
+at one row; at no rows, empty and zero. Beside them: the code's packing at ragged widths, ``plan``, the
 launch counts, and ``mlp.apply`` keeping the composition on the CPU.
 """
 
@@ -90,6 +90,29 @@ def test_plain_layer_rows_and_widths_f64(rows, n):
     _check(rows, n, True, "mixed", 0.0)
 
 
+@pytest.mark.parametrize("bn", [True, False], ids=["bn", "no_bn"])
+@pytest.mark.parametrize("weights", ["none", "mixed"])
+def test_plain_layer_no_rows(bn, weights):
+    """No rows (a data-parallel rank without rows of the batch): an empty
+    output and code, zero parameter gradients, and the running statistics
+    the composition takes from zero sums."""
+    y, layer, st, w, u, dout = _case(0, 50, bn, weights, 0.2)
+    want, want_st = _composed(y, layer, st, w, u, 0.2)
+    want_g = torch.autograd.grad(want, _leaves(y, layer), dout, allow_unused=True)
+    got, running = tower.TowerLayer.apply(
+        y, layer["linear"]["b"], layer.get("bn_scale"), layer.get("bn_bias"), u, w,
+        st.get("bn_mean"), st.get("bn_var"), 0.8, None)
+    got_g = torch.autograd.grad(got, _leaves(y, layer), dout)
+    assert got.shape == (0, 50) and tower.pack_code(got > 0).shape == (0, tower.code_bytes(50))
+    assert tower.unpack_code(tower.pack_code(got > 0), 50).shape == (0, 50)
+    if bn:
+        for k, key in zip(running, ("bn_mean", "bn_var")):
+            assert float((k - want_st[key]).abs().max()) <= F64_TOL
+    assert got_g[0].shape == (0, 50)
+    for name, a, b in zip(("db", "dgamma", "dbeta"), got_g[1:], want_g[1:]):
+        assert not bool(a.any()) and (b is None or not bool(b.any())), name
+
+
 @pytest.mark.parametrize("n", [1, 7, 8, 9, 50, 100, 257])
 def test_code_packing_at_ragged_widths(n):
     g = torch.Generator().manual_seed(n)
@@ -114,8 +137,11 @@ def test_plan_covers_the_rows(bf16):
     # the mm cell's widths: a few hundred blocks a pass, 16-byte vectors
     assert tower.plan(131072, 512, True) == tower.Plan(8, 2, 504, 261)
     assert tower.plan(131072, 256, True) == tower.Plan(8, 1, 256, 512)
-    with pytest.raises(ValueError):
-        tower.plan(0, 8, True)
+    # no rows (a data-parallel rank without rows of the batch): one empty chunk
+    assert tower.plan(0, 512, bf16) == tower.Plan(8 if bf16 else 4, 2 if bf16 else 4, 64, 1)
+    for rows, n in ((-1, 8), (1, 0)):
+        with pytest.raises(ValueError):
+            tower.plan(rows, n, bf16)
 
 
 def test_launch_counts_and_constants():

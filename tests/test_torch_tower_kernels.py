@@ -4,8 +4,8 @@ Each block against its plain version, the whole layer (``TowerLayer``)
 against the plain blocks and against the library composition it replaces
 (``ops/mlp.py``: the bias add, ``_batch_norm``, ``torch.relu``, dropout's
 select), the running statistics, every gradient (x, W, b, gamma, beta),
-repeats bit for bit, the launch counters, the C plan, and a data-parallel
-step over a one-rank group. Skipped without a card; imports no JAX, so on a
+repeats bit for bit, the launch counters, the C plan, a layer on no rows,
+and a data-parallel step over a one-rank group. Skipped without a card; imports no JAX, so on a
 card's machine without it: ``python -m pytest --noconftest
 tests/test_torch_tower_kernels.py``.
 
@@ -282,7 +282,34 @@ def test_c_plan(bf16):
     for rows in (1, 63, 64, 4133, 131072, 10 ** 7):
         for n in (1, 50, 100, 256, 512, 1024, 30000):
             assert tower.c_plan(rows, n, bf16) == tower.plan(rows, n, bf16)
-    assert tower.c_plan(0, 8, bf16) is None
+    assert tower.c_plan(0, 8, bf16) == tower.plan(0, 8, bf16)
+    assert tower.c_plan(1, 0, bf16) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_no_rows(dtype):
+    """A layer on no rows (a data-parallel rank without rows of the batch)
+    runs on the kernels, one empty chunk a pass: an empty output, zero
+    sums and gradients, the running statistics of zero sums."""
+    x, layer, st, u, w, dout = _case(1, 256, dtype, True, 0.2, "mixed")
+    x, u, w, dout = x[:0], u[:0], w[:0], dout[:0]
+    for fn in tower.BLOCKS:
+        fn.launches = 0
+    out, running, grads = _fused(x, layer, st, u, w, 0.2, dout)
+    torch.cuda.synchronize()
+    assert tower.launches() == tower.fwd_launches(True) + tower.bwd_launches(True)
+    assert out.shape == (0, 256) and out.dtype == dtype
+    y = x @ layer["linear"]["w"].to(dtype)
+    b, gamma, beta = layer["linear"]["b"], layer["bn_scale"], layer["bn_bias"]
+    sums = tower.fwd_sums_plain(y, b, w)
+    devs = tower.fwd_devs_plain(y, b, w, sums)
+    want = tower.fwd_apply_plain(y, b, gamma, beta, sums, devs, u, 0.8, st["bn_mean"],
+                                 st["bn_var"])[2]
+    _close("running", running, want, STATE_TOL, STATE_TOL)
+    dx, dw, db, dgamma, dbeta = grads
+    assert dx.shape == x.shape
+    for name, g in (("dW", dw), ("db", db), ("dgamma", dgamma), ("dbeta", dbeta)):
+        assert not bool(g.any()), name
 
 
 def test_launch_counters_in_a_step():
